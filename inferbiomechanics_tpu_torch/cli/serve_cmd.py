@@ -1,0 +1,112 @@
+"""``serve`` subcommand: the batch-inference HTTP server on PyTorch.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/cli/serve_cmd.py``, with
+the same flag schema (``add_config_flags``) plus the serve flags. It builds
+its own parser: the JAX command's ``register_subcommand`` imports the JAX
+training package. ``--device`` defaults to ``cuda`` and fails when there is
+no GPU; ``--device cpu`` serves on the CPU.
+
+    python -m inferbiomechanics_tpu_torch serve --dataset-home D --checkpoint-dir C
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional, Sequence
+
+from inferbiomechanics_tpu_torch.serve import InferenceService, serve
+from inferbiomechanics_tpu_torch.shared import (
+    WindowDataset, add_config_flags, config_from_args,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog='python -m inferbiomechanics_tpu_torch')
+    sub = parser.add_subparsers(dest='command', required=True)
+    p = sub.add_parser('serve', conflict_handler='resolve',
+                       help='Serve checkpoint predictions over HTTP')
+    add_config_flags(p)
+    p.add_argument('--device', type=str, default='cuda',
+                   help='torch device to serve on: cuda (default; fails '
+                        'without a GPU) or cpu')
+    p.add_argument('--port', type=int, default=8090)
+    p.add_argument('--host', type=str, default='127.0.0.1',
+                   help='Bind address; 0.0.0.0 exposes the server to the '
+                        'network')
+    p.add_argument('--max-batch', type=int, default=4096,
+                   help='Largest accepted /predict batch')
+    p.add_argument('--batch-wait-ms', type=float, default=0.0,
+                   help='Dynamic batching: wait this long after a /predict '
+                        'arrives so concurrent requests coalesce into one '
+                        'device forward (0 = off)')
+    p.add_argument('--warmup', action='store_true',
+                   help='Run one forward at B=1 and at --max-batch before '
+                        'accepting requests')
+    # flags of the JAX command whose features are not ported yet: accepted,
+    # so that the service can refuse them by name instead of ignoring them
+    p.add_argument('--ensemble', type=str, nargs='+', default=None,
+                   metavar='CKPT', help='not yet ported')
+    p.add_argument('--quantize', type=str, default=None, choices=['int8'],
+                   help='not yet ported')
+    p.add_argument('--use-ema', action='store_true', help='not yet ported')
+    p.add_argument('--tta-mirror', action='store_true', help='not yet ported')
+    p.add_argument('--diffusion-samples', type=int, default=1,
+                   help='not yet ported')
+    p.add_argument('--diffusion-partial', type=float, default=None,
+                   help='not yet ported')
+    p.add_argument('--init-checkpoint', type=str, default=None,
+                   help='not yet ported')
+    return parser
+
+
+def start(args: argparse.Namespace):
+    """Build the service and its HTTP server from parsed ``serve`` args;
+    returns ``(service, server)``. The caller runs ``serve_forever``."""
+    config = config_from_args(args)
+    checkpoint_dir = os.path.join(os.path.abspath(config.checkpoint_dir),
+                                  config.model_type)
+    # schema source: dev split if present, else the dataset root
+    data_dir = os.path.join(config.dataset_home, 'dev')
+    if not os.path.isdir(data_dir):
+        data_dir = config.dataset_home
+    ds = WindowDataset(data_dir, window_size=config.window_size,
+                       stride=config.stride,
+                       output_data_format=config.output_data_format,
+                       testing_with_short_dataset=config.short,
+                       skip_loading_skeletons=True,
+                       materialize_features=False)
+    service = InferenceService(config, checkpoint_dir, ds,
+                               max_batch=args.max_batch,
+                               batch_wait_ms=args.batch_wait_ms,
+                               device=args.device,
+                               ensemble=args.ensemble,
+                               quantize=args.quantize,
+                               use_ema=args.use_ema,
+                               tta_mirror=args.tta_mirror,
+                               diffusion_samples=args.diffusion_samples,
+                               diffusion_partial=args.diffusion_partial,
+                               init_checkpoint=args.init_checkpoint)
+    if args.warmup:
+        service.warmup()
+    return service, serve(service, host=args.host, port=args.port)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(levelname)s %(name)s: %(message)s')
+    args = build_parser().parse_args(argv)
+    service, server = start(args)
+    print(f'serving {service.config.model_type} (epoch {service.epoch}, '
+          f'batch {service.batch}) on {service.device} at '
+          f'http://{args.host}:{server.server_address[1]} — Ctrl-C stops',
+          flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.close()
+    return 0

@@ -1,0 +1,63 @@
+"""Model registry / factory.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. Only
+the feedforward model is ported; every other model type raises and names
+the ROADMAP.md slice that ports it.
+"""
+
+from typing import Optional, Sequence
+
+import torch
+
+from inferbiomechanics_tpu_torch.models.common import (
+    output_head_size, pack_inputs, slice_output_heads,
+)
+from inferbiomechanics_tpu_torch.models.feedforward import FeedForwardBaseline
+
+MODEL_TYPES = ('analytical', 'feedforward', 'groundlink', 'transformer', 'diffusion')
+
+_UNPORTED = {
+    'groundlink': 'ROADMAP.md Queue 1 item 3 (GroundLink and kernel K4)',
+    'transformer': 'ROADMAP.md Queue 1 item 5 (transformer and kernels K2/K3)',
+    'diffusion': 'ROADMAP.md Queue 1 item 6 (diffusion)',
+    'analytical': 'ROADMAP.md Queue 1 item 7 (analytical and physics)',
+}
+
+
+def get_model(model_type: str,
+              *,
+              num_dofs: int,
+              num_contact_bodies: int,
+              history_len: int,
+              stride: int,
+              root_history_len: int,
+              output_data_format: str = 'last_frame',
+              activation: str = 'sigmoid',
+              hidden_dims: Sequence[int] = (512, 512),
+              batchnorm: bool = False,
+              dropout: bool = False,
+              dropout_prob: float = 0.0,
+              init_style: str = 'torch',
+              generator: Optional[torch.Generator] = None,
+              device=None):
+    """Build a model by name on ``device``, drawing its init from
+    ``generator``."""
+    if model_type == 'feedforward':
+        return FeedForwardBaseline(
+            num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
+            history_len=history_len, stride=stride,
+            root_history_len=root_history_len,
+            output_data_format=output_data_format, activation=activation,
+            hidden_dims=tuple(hidden_dims), batchnorm=batchnorm,
+            dropout=dropout, dropout_prob=dropout_prob,
+            init_style=init_style, generator=generator, device=device)
+    if model_type in _UNPORTED:
+        raise NotImplementedError(f'model type {model_type!r} is not ported '
+                                  f'yet; see {_UNPORTED[model_type]}')
+    raise ValueError(f'unknown model type {model_type!r}; expected one of {MODEL_TYPES}')
+
+
+__all__ = [
+    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline',
+    'pack_inputs', 'slice_output_heads', 'output_head_size',
+]

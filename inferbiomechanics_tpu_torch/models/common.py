@@ -1,0 +1,49 @@
+"""Shared model plumbing: packed-input handling and output-head slicing.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/models/common.py``. Models
+take the 10 input streams either packed as one ``[B, T, C_in]`` tensor (as
+the dataset serves them) or as a dict keyed by ``InputDataKeys`` in the
+canonical concat order, and emit the 4 ground-contact output groups.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+from inferbiomechanics_tpu_torch.shared import keys as K
+
+ModelInput = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def pack_inputs(inputs: ModelInput) -> torch.Tensor:
+    """Dict-of-streams -> packed [B, T, C_in]; passthrough if already packed."""
+    if isinstance(inputs, dict):
+        return torch.cat([inputs[k] for k in K.INPUT_CONCAT_ORDER], dim=-1)
+    return inputs
+
+
+def slice_output_heads(x: torch.Tensor, num_contact_bodies: int,
+                       num_output_frames: int) -> Dict[str, torch.Tensor]:
+    """Split a flat head vector into the 4 contact output groups.
+
+    ``x`` is [B, num_output_frames * per_frame] or [B, F, per_frame]; the
+    head is frame-major, each frame laid out as
+    ``[CoPs 3nb | forces 3nb | torques 3nb | wrenches 6nb]``.
+    """
+    nb = num_contact_bodies
+    per_frame = nb * (3 * 3 + 6)
+    if x.ndim == 2:
+        x = x.reshape(x.shape[0], num_output_frames, per_frame)
+    c3, c6 = 3 * nb, 6 * nb
+    return {
+        K.OutputDataKeys.GROUND_CONTACT_COPS_IN_ROOT_FRAME: x[..., 0:c3],
+        K.OutputDataKeys.GROUND_CONTACT_FORCES_IN_ROOT_FRAME: x[..., c3:2 * c3],
+        K.OutputDataKeys.GROUND_CONTACT_TORQUES_IN_ROOT_FRAME: x[..., 2 * c3:3 * c3],
+        K.OutputDataKeys.GROUND_CONTACT_WRENCHES_IN_ROOT_FRAME: x[..., 3 * c3:3 * c3 + c6],
+    }
+
+
+def output_head_size(num_contact_bodies: int, num_output_frames: int) -> int:
+    return num_contact_bodies * (3 * 3 + 6) * num_output_frames

@@ -1,0 +1,1 @@
+"""Fused kernels of the port and their plain PyTorch versions."""

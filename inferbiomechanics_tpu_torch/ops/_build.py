@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+Every ``.cu`` file in ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface,
+``build/torch_kernels/libib_torch_kernels.so`` in the checkout (or in
+``$IB_TORCH_BUILD_DIR``, for an installed package), and loaded with
+``ctypes``. The build happens at first use and again whenever the stamp
+beside the library, a hash of the sources, of this file and of the nvcc
+command, differs. No PyTorch headers are involved, so a build takes
+seconds. A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parent / 'csrc'
+BUILD_DIR = Path(os.environ.get('IB_TORCH_BUILD_DIR') or
+                 Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels')
+LIBRARY = BUILD_DIR / 'libib_torch_kernels.so'
+STAMP = LIBRARY.with_name(LIBRARY.name + '.stamp')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                              'bin', 'nvcc'), shutil.which('nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found (looked in $CUDA_HOME/bin, '
+                       '/usr/local/cuda/bin and PATH): the CUDA kernels are '
+                       'built from source at first use')
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def _fingerprint() -> str:
+    """Hash of everything the library is built from: the sources, this
+    file and the nvcc flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in _sources() + sorted(CSRC_DIR.glob('*.cuh')) + [Path(__file__)]:
+        h.update(p.name.encode() + b'\0' + p.read_bytes())
+    return h.hexdigest()
+
+
+def _stale() -> bool:
+    return (not LIBRARY.exists() or not STAMP.exists()
+            or STAMP.read_text().strip() != _fingerprint())
+
+
+def build() -> dict:
+    """Compile every ``csrc/*.cu`` into :data:`LIBRARY`; returns the build
+    time and the compiler's report (``-Xptxas -v``: registers, shared
+    memory and spills per kernel)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fingerprint = _fingerprint()
+    tmp = LIBRARY.with_name(f'{LIBRARY.name}.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
+                           f'{proc.stdout}{proc.stderr}')
+    os.replace(tmp, LIBRARY)   # atomic: a concurrent loader never sees half a file
+    STAMP.write_text(fingerprint + '\n')
+    return {'seconds': seconds, 'log': proc.stdout + proc.stderr}
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    int_p = ctypes.POINTER(ctypes.c_int)
+    lib.ib_fused_mlp_forward.argtypes = [vp, i, i, vp, vp, int_p, i, vp, i, i, vp]
+    lib.ib_fused_mlp_forward.restype = i
+    lib.ib_cuda_error_string.argtypes = [i]
+    lib.ib_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built first if it is missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            _lib = _declare(ctypes.CDLL(str(LIBRARY)))
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.ib_cuda_error_string(code).decode()
+        raise RuntimeError(f'{what}: CUDA error {code} ({msg})')

@@ -1,0 +1,51 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip without a GPU. On a machine with one (no jax
+there, so skip the JAX-side conftest):
+
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
+"""
+
+import pytest
+import torch
+
+from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+
+pytestmark = pytest.mark.cuda
+
+# one bf16 ulp below 2.0 (7.8e-3): the kernel and the plain version sum the
+# f32 products in another order, which can flip the last bf16 rounding
+ATOL = 1e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's f32 matmuls
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('batch,dims,activation', [
+    (1, [1770, 512, 512, 30], 'sigmoid'),
+    (33, [1770, 512, 512, 30], 'relu'),
+    (4096, [1770, 512, 512, 30], 'sigmoid'),
+    (37, [1770, 512, 512, 300], 'gelu'),
+    (5, [708, 64, 48, 30], 'elu'),
+    (70, [177, 256, 256, 256, 30], 'tanh'),
+    (16, [2048, 1024, 1024], 'sigmoid'),      # the stated maximum widths
+])
+def test_fused_mlp_kernel_matches_plain(cuda, batch, dims, activation):
+    gen = torch.Generator().manual_seed(batch)
+    params = [((torch.rand(d0, d1, generator=gen) * 2 - 1) / d0 ** 0.5,
+               (torch.rand(d1, generator=gen) * 2 - 1) / d0 ** 0.5)
+              for d0, d1 in zip(dims[:-1], dims[1:])]
+    packed = fm.pack_mlp_params(params, cuda)
+    x = torch.randn(batch, dims[0], generator=gen).to(cuda)
+    before = fm.launches
+    out = fm.fused_mlp_forward(x, packed, activation)
+    assert fm.launches == before + 1
+    ref = fm.mlp_reference(x, packed.layers, activation)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, dims[-1]) and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)

@@ -1,0 +1,310 @@
+"""The port's serving slice (inferbiomechanics_tpu_torch/serve.py, its
+checkpoints and its ``serve`` command) against the JAX package's
+(inferbiomechanics_tpu/serve.py).
+
+One synthetic dataset (window 20, stride 5) and one set of weights: the JAX
+service serves a JAX checkpoint, the port's service (on the CPU) serves the
+same weights converted into a port checkpoint in the same directory, and
+both answer the same HTTP requests.
+"""
+
+import base64
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferbiomechanics_tpu.config import Config
+from inferbiomechanics_tpu.data.dataset import WindowDataset
+from inferbiomechanics_tpu.data.synthetic import write_synthetic_subject
+from inferbiomechanics_tpu.serve import InferenceService as JaxService
+from inferbiomechanics_tpu.serve import serve
+from inferbiomechanics_tpu.train import (
+    create_train_state, make_optimizer, save_checkpoint as jax_save,
+)
+from inferbiomechanics_tpu.train import checkpoint as jax_ckpt
+from inferbiomechanics_tpu.train.loop import build_model_for_dataset as jax_build
+from inferbiomechanics_tpu.train.run_config import load_run_config, save_run_config
+from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser
+from inferbiomechanics_tpu_torch.serve import InferenceService
+from inferbiomechanics_tpu_torch.train import checkpoint as port_ckpt
+from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+from inferbiomechanics_tpu_torch.weights import feedforward_state_dict_from_jax
+
+REPO = Path(__file__).resolve().parents[1]
+# The JAX service runs flax Dense layers (bf16 matmul output, bf16 bias
+# add); the port runs the fused-kernel math (f32 accumulate and bias). They
+# agree to 5.9e-3 at full width; 2e-2 leaves room at these widths.
+ATOL = 2e-2
+SHARED_SCHEMA_KEYS = ('model_type', 'checkpoint', 'window_size', 'stride',
+                      'num_model_frames', 'num_dofs', 'contact_bodies',
+                      'num_input_channels', 'input_layout', 'label_layout',
+                      'output_data_format', 'max_batch', 'run_config')
+
+
+def _config():
+    cfg = Config()
+    cfg.model_type = 'feedforward'
+    cfg.window_size, cfg.stride = 20, 5
+    cfg.hidden_dims = [64, 64]
+    return cfg
+
+
+@pytest.fixture(scope='module')
+def setup(tmp_path_factory):
+    data = tmp_path_factory.mktemp('torchserve_data')
+    write_synthetic_subject(str(data / 's.b3d'), num_trials=2,
+                            trial_length=120, seed=0)
+    cfg = _config()
+    ds = WindowDataset(str(data), window_size=20, stride=5,
+                       skip_loading_skeletons=True)
+    ckpt_root = tmp_path_factory.mktemp('torchserve_ckpt')
+    ckpt = str(ckpt_root / 'feedforward')
+    state = create_train_state(jax_build(cfg, ds), jax.random.PRNGKey(0),
+                               jnp.asarray(ds.gather(np.arange(4)).inputs),
+                               make_optimizer('adam', 1e-3))
+    jax_save(ckpt, state, 3, 7)
+    model = build_model_for_dataset(cfg, ds)
+    model.load_state_dict(feedforward_state_dict_from_jax(
+        jax.device_get(state.params)))
+    port_ckpt.save_checkpoint(ckpt, model, 3, 7)
+    return {'cfg': cfg, 'ds': ds, 'data': data, 'ckpt_root': ckpt_root,
+            'ckpt': ckpt, 'file': str(data / 's.b3d')}
+
+
+def _start(service):
+    server = serve(service, host='127.0.0.1', port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f'http://127.0.0.1:{server.server_address[1]}'
+
+
+@pytest.fixture(scope='module')
+def urls(setup):
+    jax_svc = JaxService(setup['cfg'], setup['ckpt'], setup['ds'], max_batch=64)
+    port_svc = InferenceService(setup['cfg'], setup['ckpt'], setup['ds'],
+                                max_batch=64, device='cpu')
+    servers = [_start(jax_svc), _start(port_svc)]
+    yield servers[0][1], servers[1][1]
+    for server, _ in servers:
+        server.shutdown()
+        server.server_close()
+
+
+def _post(url, payload, timeout=120):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _get(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _decoded(outputs):
+    out = {}
+    for k, v in outputs.items():
+        if isinstance(v, dict):
+            v = np.frombuffer(base64.b64decode(v['b64']), '<f4').reshape(v['shape'])
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def _assert_outputs_close(got, want):
+    got, want = _decoded(got), _decoded(want)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=ATOL, err_msg=k)
+
+
+def test_health_and_schema_match_jax(urls):
+    jax_url, port_url = urls
+    hj, hp = _get(jax_url + '/health'), _get(port_url + '/health')
+    assert hp == hj == {'status': 'ok', 'model': 'feedforward', 'epoch': 3,
+                        'batch': 7, 'ensemble_size': 0}
+    sj, sp = _get(jax_url + '/schema'), _get(port_url + '/schema')
+    for key in SHARED_SCHEMA_KEYS:
+        assert sp[key] == sj[key], key
+    assert sp['device'] == 'cpu' and sp['run_config'] is None
+
+
+@pytest.mark.parametrize('encoding,rows', [('json', 1), ('json', 5), ('b64', 7)])
+def test_predict_matches_jax(urls, setup, encoding, rows):
+    x = np.asarray(setup['ds'].gather(np.arange(3, 3 + rows)).inputs, '<f4')
+    if encoding == 'b64':
+        payload = {'inputs_b64': base64.b64encode(x.tobytes()).decode(),
+                   'shape': list(x.shape), 'encoding': 'b64'}
+    else:
+        payload = {'inputs': x.tolist()}
+    rj, rp = (_post(u + '/predict', payload) for u in urls)
+    assert rp['batch'] == rj['batch'] == rows
+    _assert_outputs_close(rp['outputs'], rj['outputs'])
+
+
+def test_predict_file_matches_jax(urls, setup):
+    payload = {'file': setup['file'], 'trial': 1, 'max_windows': 40}
+    rj, rp = (_post(u + '/predict_file', payload) for u in urls)
+    assert rp['window_starts'] == rj['window_starts']
+    assert rp['last_frame'] == rj['last_frame'] and len(rp['window_starts']) == 40
+    _assert_outputs_close(rp['outputs'], rj['outputs'])
+
+
+def test_bad_requests_are_refused_like_jax(urls, setup):
+    x = np.asarray(setup['ds'].gather(np.arange(65)).inputs)
+    for payload in ({'inputs': x.tolist()},                # over max_batch
+                    {'inputs': x[:2, :, :10].tolist()},     # wrong width
+                    {'nothing': 1}):
+        codes = []
+        for u in urls:
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(u + '/predict', payload)
+            codes.append(e.value.code)
+        assert codes == [400, 400]
+
+
+def test_metrics_have_the_jax_fields(urls, setup):
+    x = np.asarray(setup['ds'].gather(np.arange(2)).inputs)
+    for u in urls:
+        _post(u + '/predict', {'inputs': x.tolist()})
+    mj, mp = (_get(u + '/metrics') for u in urls)
+    assert set(mp) == set(mj)
+    assert set(mp['latency_ms']) == set(mj['latency_ms']) == {'p50', 'p90', 'p99', 'max'}
+    assert mp['requests'] >= 1 and mp['rows'] >= 2 and mp['device_forwards'] >= 1
+
+
+def test_dynamic_batcher_matches_jax(urls, setup):
+    """Concurrent clients through the shared _DynamicBatcher in front of the
+    port's service give the JAX service's answers."""
+    svc = InferenceService(setup['cfg'], setup['ckpt'], setup['ds'],
+                           max_batch=64, batch_wait_ms=30, device='cpu')
+    server, url = _start(svc)
+    try:
+        ds = setup['ds']
+        xs = [np.asarray(ds.gather(np.arange(i, i + 1 + i % 4)).inputs)
+              for i in range(8)]
+        got = [None] * len(xs)
+
+        def client(i):
+            got[i] = _post(url + '/predict', {'inputs': xs[i].tolist()})
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        for x, r in zip(xs, got):
+            assert r['batch'] == len(x)
+            _assert_outputs_close(r['outputs'],
+                                  _post(urls[0] + '/predict', {'inputs': x.tolist()})['outputs'])
+        m = _get(url + '/metrics')
+        assert m['requests'] == 8 and m['errors'] == 0
+        assert m['device_forwards'] == svc.batcher.forwards <= 8
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+
+def test_reload_swaps_to_a_newer_checkpoint(setup, tmp_path):
+    ckpt = str(tmp_path / 'feedforward')
+    ds, cfg = setup['ds'], setup['cfg']
+    first = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(1))
+    port_ckpt.save_checkpoint(ckpt, first, 0, 5)
+    svc = InferenceService(cfg, ckpt, ds, max_batch=8, device='cpu')
+    x = np.asarray(ds.gather(np.arange(2)).inputs)
+    before = svc.predict_packed(x)
+    assert svc.reload() == {'reloaded': False, 'epoch': 0, 'batch': 5}
+    second = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(2))
+    port_ckpt.save_checkpoint(ckpt, second, 1, 0)
+    assert svc.reload() == {'reloaded': True, 'epoch': 1, 'batch': 0}
+    after = svc.predict_packed(x)
+    with torch.no_grad():
+        want = second.eval()(torch.from_numpy(x))
+    for k in after:
+        assert not np.allclose(after[k], before[k])
+        np.testing.assert_array_equal(after[k], want[k].numpy())
+    svc.warmup()
+    assert svc.stats['device_forwards'] == 4     # 2 predicts + B=1 and B=max_batch
+
+
+def test_schema_reads_the_run_config_sidecar(setup, tmp_path):
+    ckpt = str(tmp_path / 'feedforward')
+    cfg = setup['cfg']
+    port_ckpt.save_checkpoint(ckpt, build_model_for_dataset(cfg, setup['ds']), 0, 0)
+    save_run_config(ckpt, cfg)
+    svc = InferenceService(cfg, ckpt, setup['ds'], max_batch=8, device='cpu')
+    assert svc.schema()['run_config'] == load_run_config(ckpt)
+    assert svc.schema()['run_config']['hidden_dims'] == [64, 64]
+
+
+def test_untrained_model_when_no_checkpoint(setup, tmp_path):
+    svc = InferenceService(setup['cfg'], str(tmp_path / 'empty'), setup['ds'],
+                           max_batch=8, device='cpu')
+    assert (svc.epoch, svc.batch) == (-1, 0)
+
+
+@pytest.mark.parametrize('option', [
+    {'ensemble': ['a', 'b']}, {'quantize': 'int8'}, {'use_ema': True},
+    {'tta_mirror': True}, {'diffusion_samples': 4}, {'diffusion_partial': 0.3},
+    {'init_checkpoint': 'x'}, {'config': {'fused_inference': True}},
+    {'config': {'model_type': 'diffusion'}},
+])
+def test_unported_serving_options_raise(setup, option):
+    cfg = _config()
+    for k, v in option.pop('config', {}).items():
+        setattr(cfg, k, v)
+    with pytest.raises(ValueError, match='not yet ported'):
+        InferenceService(cfg, setup['ckpt'], setup['ds'], device='cpu', **option)
+
+
+def test_checkpoint_names_do_not_cross_packages(setup):
+    """The JAX pattern would flax-decode a ``.pt``; the port's names avoid it."""
+    name = port_ckpt.checkpoint_name(3, 7)
+    assert name == 'epoch_3_batch_7.torch.pt'
+    assert jax_ckpt._CKPT_RE.match(name) is None
+    assert port_ckpt._CKPT_RE.match(jax_ckpt.checkpoint_name(3, 7)) is None
+    assert [os.path.basename(p) for *_, p in jax_ckpt.list_checkpoints(setup['ckpt'])] \
+        == ['epoch_3_batch_7.ckpt']
+    assert [os.path.basename(p) for *_, p in port_ckpt.list_checkpoints(setup['ckpt'])] \
+        == ['epoch_3_batch_7.torch.pt']
+
+
+def test_serve_command_answers_health(setup):
+    """``python -m inferbiomechanics_tpu_torch serve --device cpu --port 0``."""
+    cmd = [sys.executable, '-m', 'inferbiomechanics_tpu_torch', 'serve',
+           '--device', 'cpu', '--port', '0',
+           '--dataset-home', str(setup['data']),
+           '--checkpoint-dir', str(setup['ckpt_root']),
+           '--history-len', '20', '--stride', '5', '--hidden-dims', '64', '64']
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert 'serving feedforward (epoch 3, batch 7) on cpu at http://' in line, line
+        url = line.split(' at ')[1].split()[0]
+        assert _get(url + '/health')['epoch'] == 3
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+
+def test_serve_command_refuses_reload_polling(capsys):
+    """Checkpoint polling is not ported: ``POST /reload`` swaps weights."""
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(['serve', '--reload-poll-sec', '5'])
+    assert 'unrecognized arguments: --reload-poll-sec' in capsys.readouterr().err
