@@ -5,18 +5,29 @@
 
 Phases, each of which fails the run:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build kernel K1 (``ops/csrc/fused_mlp.cu``) from this checkout with nvcc;
-  3. K1 against its plain PyTorch version on the card, atol 1e-2;
-  4. the serving slice through the ``serve`` command's wiring: the default
-     feedforward model at full width (1770->512->512->30, sigmoid,
-     window 50 / stride 5, max_batch 4096) with seeded random weights,
-     answering /health, /schema, /predict (JSON, b64), /predict_file,
-     concurrent clients through the dynamic batcher, /reload and /metrics;
-     every answer is held against the plain version on the card, and every
-     device forward must have launched K1;
-  5. times at B=1 and B=4096: K1 against its plain version (the f32
-     precision reference) and against a bf16 cuBLAS chain (a speed
-     baseline), by CUDA events and by profiler device time; /predict p50.
+  2. build the kernels (``ops/csrc/*.cu``: K1 fused MLP, K2 fused encoder
+     layer) from this checkout with nvcc;
+  3. each kernel against its plain PyTorch version on the card: K1 at nine
+     cases (atol 1e-2), K2 at five (rtol = atol = 1e-2), with random biases
+     and LayerNorm rows;
+  4. the feedforward serving slice through the ``serve`` command's wiring:
+     the default model at full width (1770->512->512->30, sigmoid, window
+     50 / stride 5, max_batch 4096) with seeded random weights, answering
+     /health, /schema, /predict (JSON, b64), /predict_file, concurrent
+     clients through the dynamic batcher, /reload and /metrics; every answer
+     is held against the plain version on the card, and every device forward
+     must have launched K1 once;
+  5. the transformer serving slice, the same requests through
+     ``serve --model-type transformer --fused-inference`` at full width
+     (d_model 256, 4 layers, 8 heads, 4x MLP, T = 10, 177 channels, 7 output
+     heads): every head of every answer is held against the plain fused
+     forward on the card, /schema says ``fused_inference: true``, and every
+     device forward must have launched K2 four times;
+  6. times at B=1 and B=4096: each kernel, its plain version (the f32
+     precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
+     chain; K2: ``nn.TransformerEncoderLayer`` in bf16), by CUDA events and
+     by profiler device time, beside the bound the card allows; the 4-layer
+     encoder stack; /predict p50 of both services.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -37,19 +48,41 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-# One bf16 ulp below 2.0 is 7.8e-3: a different summation order in f32 can
+# K1. One bf16 ulp below 2.0 is 7.8e-3: a different summation order in f32 can
 # flip the final bf16 rounding by one ulp, and the outputs stay below 2.
 ATOL = 1e-2
+# K2 against its plain version. Both round the same operands to bf16 and sum
+# in f32; they differ in the order of the sums and the bf16 roundings that
+# flips, on outputs of a few units. The JAX suite allows its TPU kernel
+# rtol = atol = 5e-2 for the same comparison.
+ENC_TOL = 1e-2
+# A served transformer answer against the plain fused forward, per head,
+# relative to the head's largest value: the heads round to bf16 (one ulp at
+# 2..4 is 1.6e-2), so a layer difference within ENC_TOL can move an answer
+# by an ulp or two. The JAX suite holds its fused forward to 3e-2 this way.
+HEAD_REL = 3e-2
 FULL_DIMS = [1770, 512, 512, 30]
-KERNEL = {
+ENC_FULL = dict(t=10, d=256, heads=8, mlp_ratio=4, layers=4)
+# dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+K1 = {
     'name': 'fused_mlp_forward (K1)',
     'route': 'cuda',
     'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_mlp.cu',
     'replaces': 'inferbiomechanics_tpu/ops/pallas_mlp.py:53',
+}
+K2 = {
+    'name': 'fused_encoder_layer (K2)',
+    'route': 'cuda',
+    'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_encoder.cu',
+    'replaces': 'inferbiomechanics_tpu/ops/pallas_encoder.py:296',
 }
 
 
@@ -70,16 +103,31 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _decode(outputs: dict, keys) -> np.ndarray:
-    """Response outputs (JSON lists or b64) -> [B, F * 30] in head order."""
-    parts = []
-    for k in keys:
-        v = outputs[k]
+def _decode(outputs: dict) -> dict:
+    """Response outputs (JSON lists or b64) -> numpy arrays by key."""
+    out = {}
+    for k, v in outputs.items():
         if isinstance(v, dict):
             v = np.frombuffer(base64.b64decode(v['b64']), '<f4').reshape(v['shape'])
-        parts.append(np.asarray(v, np.float32))
-    out = np.concatenate(parts, axis=-1)
-    return out.reshape(out.shape[0], -1)
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def _agree(outputs: dict, want: dict, what: str, atol: float = 0.0,
+           rel: float = 0.0) -> float:
+    """Hold a response's outputs to ``want`` head by head, each within
+    ``atol + rel * max|want head|``; returns the largest difference."""
+    got = _decode(outputs)
+    _check(set(got) == set(want), f'{what}: heads {sorted(got)}')
+    worst = 0.0
+    for k in want:
+        _check(got[k].shape == want[k].shape and np.isfinite(got[k]).all(),
+               f'{what}: bad output {k} {got[k].shape}')
+        err = float(np.abs(got[k] - want[k]).max())
+        limit = atol + rel * float(np.abs(want[k]).max())
+        _check(err <= limit, f'{what}: head {k} max abs err {err} > {limit}')
+        worst = max(worst, err)
+    return worst
 
 
 def _random_params(torch, dims, gen):
@@ -91,7 +139,19 @@ def _random_params(torch, dims, gen):
     return k_params
 
 
-def phase_kernel_vs_plain(torch, fm, seed: int) -> float:
+def _random_encoder_params(torch, fe, gen, d, mlp_ratio):
+    """LeCun-normal kernels with random biases and LayerNorm rows (not the
+    zeros and ones of ``init_encoder_params``, or a wrong bias add goes
+    unseen)."""
+    params = list(fe.init_encoder_params(gen, d, mlp_ratio))
+    for i, p in enumerate(params):
+        if p.ndim == 1:
+            noise = torch.randn(p.shape, generator=gen)
+            params[i] = 1.0 + 0.2 * noise if fe.PARAM_NAMES[i].endswith('scale') else 0.3 * noise
+    return tuple(params)
+
+
+def phase_k1_vs_plain(torch, fm, seed: int) -> float:
     gen = torch.Generator().manual_seed(seed)
     cases = [(b, FULL_DIMS, 'sigmoid') for b in (1, 37, 4096)]
     cases += [(37, FULL_DIMS, a) for a in ('relu', 'tanh', 'gelu', 'elu')]
@@ -109,9 +169,37 @@ def phase_kernel_vs_plain(torch, fm, seed: int) -> float:
         _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
                f'bad output {tuple(out.shape)} for {dims}')
         err = float((out - ref).abs().max())
-        print(f'[kernel] B={b} {"->".join(map(str, dims))} {act}: '
+        print(f'[kernel] K1 B={b} {"->".join(map(str, dims))} {act}: '
               f'max abs err {err:.3g} (atol {ATOL})', flush=True)
         _check(err <= ATOL, f'K1 disagrees with the plain version: {err}')
+        worst = max(worst, err)
+    return worst
+
+
+def phase_k2_vs_plain(torch, fe, seed: int) -> float:
+    gen = torch.Generator().manual_seed(seed)
+    full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
+    cases = [(b, *full) for b in (1, 37, 4096)]
+    cases += [(37, 4, 128, 4),         # the small test shape
+              (37, 10, 384, 8)]        # 48-wide heads, two row tiles a block
+    worst = 0.0
+    for b, t, d, heads in cases:
+        packed = fe.pack_encoder_params(
+            _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda')
+        x = torch.randn(b, t, d, generator=gen).cuda()
+        before = fe.launches
+        out = fe.fused_encoder_layer(x, packed, heads)
+        _check(fe.launches == before + 1, 'launch counter did not rise')
+        ref = fe.encoder_layer_reference(x, packed.params, heads)
+        torch.cuda.synchronize()
+        _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+               f'bad output {tuple(out.shape)}')
+        err = float((out - ref).abs().max())
+        excess = float(((out - ref).abs() - ENC_TOL * ref.abs()).max())
+        print(f'[kernel] K2 B={b} T={t} d={d} H={heads}: max abs err {err:.3g}, '
+              f'max |ref| {float(ref.abs().max()):.3g} (rtol = atol = {ENC_TOL})',
+              flush=True)
+        _check(excess <= ENC_TOL, f'K2 disagrees with the plain version: {err}')
         worst = max(worst, err)
     return worst
 
@@ -148,8 +236,18 @@ def _device_us(torch, fn, iters: int = 20):
     return total / iters if total > 0 else None
 
 
+def _time_three(torch, fns: dict):
+    """CUDA-event time (ms; plain, library, kernel, kernel, library, plain:
+    the better of two runs each) and profiler device time (us) of the
+    'kernel', 'plain' and 'library' callables."""
+    ms = {}
+    for name in ('plain', 'library', 'kernel', 'kernel', 'library', 'plain'):
+        ms[name] = min(ms.get(name, float('inf')), _cuda_ms(torch, fns[name]))
+    return ms, {name: _device_us(torch, f) for name, f in fns.items()}
+
+
 def _bf16_chain(torch, x, layers, act):
-    """A speed baseline, not the precision reference: the layer chain as
+    """K1's speed baseline, not the precision reference: the layer chain as
     bf16 cuBLAS GEMMs (f32 accumulate, bf16 out, bias added in bf16)."""
     h = x.to(torch.bfloat16)
     for i, (W, b) in enumerate(layers):
@@ -157,6 +255,54 @@ def _bf16_chain(torch, x, layers, act):
         if i < len(layers) - 1:
             h = act(h)
     return h.float()
+
+
+def _library_encoder_layer(torch, params, d, heads, m):
+    """K2's speed baseline, not the precision reference: PyTorch's own
+    encoder layer in bf16 on the same weights (pre-LN, tanh GELU, eps 1e-6;
+    its ``in_proj`` columns are ``[q | k | v]`` too)."""
+    from torch import nn
+    import torch.nn.functional as F
+    layer = nn.TransformerEncoderLayer(
+        d, heads, m, dropout=0.0, activation=lambda v: F.gelu(v, approximate='tanh'),
+        layer_norm_eps=1e-6, batch_first=True, norm_first=True)
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
+        p.float() for p in params)
+    with torch.no_grad():
+        for dst, src in ((layer.norm1.weight, g1), (layer.norm1.bias, b1),
+                         (layer.self_attn.in_proj_weight, wqkv.t()),
+                         (layer.self_attn.in_proj_bias, bqkv),
+                         (layer.self_attn.out_proj.weight, wproj.t()),
+                         (layer.self_attn.out_proj.bias, bproj),
+                         (layer.norm2.weight, g2), (layer.norm2.bias, b2),
+                         (layer.linear1.weight, w1.t()), (layer.linear1.bias, bm1),
+                         (layer.linear2.weight, w2.t()), (layer.linear2.bias, bm2)):
+            dst.copy_(src)
+    return layer.to(device='cuda', dtype=torch.bfloat16).eval()
+
+
+def _bound(mm_flops: float, f32_flops: float, n_bytes: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take."""
+    t_ops = mm_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def k1_bound(batch: int, dims):
+    """x read once (f32), the bf16 weights and f32 biases read once, the
+    output written once (f32); 2 operations per multiply-add."""
+    pairs = sum(d0 * d1 for d0, d1 in zip(dims[:-1], dims[1:]))
+    n_bytes = batch * dims[0] * 4 + pairs * 2 + sum(dims[1:]) * 4 + batch * dims[-1] * 4
+    return _bound(2.0 * batch * pairs, 0.0, n_bytes)
+
+
+def k2_bound(batch: int, t: int, d: int, m: int):
+    """x read and the output written once (f32), the bf16 weights and f32
+    rows read once; the four products on the tensor cores (bf16), scores and
+    value mix in f32 (2 T T d multiply-adds a window)."""
+    pairs = 3 * d * d + d * d + 2 * d * m
+    n_bytes = 2 * batch * t * d * 4 + pairs * 2 + (9 * d + m) * 4
+    return _bound(2.0 * batch * t * pairs, 2.0 * 2 * batch * t * t * d, n_bytes)
 
 
 def _host_p50_ms(fn, iters: int) -> float:
@@ -169,111 +315,38 @@ def _host_p50_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--seed', type=int, default=0)
-    args = ap.parse_args()
-    if not (REPO / 'inferbiomechanics_tpu_torch').is_dir():
-        print('chip_smoke: run from a checkout of the repo (no '
-              'inferbiomechanics_tpu_torch/ beside this script)', file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke: torch.cuda.is_available() is False; this run needs '
-              'a GPU', file=sys.stderr)
-        return 1
-
-    # 1. the card
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    card = card.splitlines()[0]
-    print(card, flush=True)     # name, power limit: as nvidia-smi prints them
-    print(f'[card] torch {torch.__version__}, CUDA {torch.version.cuda}, '
-          f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}',
-          flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version's f32 matmuls
-    torch.backends.cudnn.allow_tf32 = False
-
-    from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
-    from inferbiomechanics_tpu_torch.models.common import slice_output_heads
-    from inferbiomechanics_tpu_torch.ops import _build
-    from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
-    from inferbiomechanics_tpu_torch.shared import (
-        Config, WindowDataset, write_synthetic_subject,
-    )
-    from inferbiomechanics_tpu_torch.train.checkpoint import save_checkpoint
-    from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
-
-    # 2. build
-    info = _build.build()
-    print(f'[build] K1 built with nvcc in {info["seconds"]:.2f} s', flush=True)
-    for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
-            print(f'[build] {line.strip()}', flush=True)
-
-    # 3. kernel vs plain
-    max_err = phase_kernel_vs_plain(torch, fm, args.seed)
-
-    # 4. the slice
-    tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+def phase_service(port, tag, cfg, flags, data, ckpt_root, ds, new_weights, agree,
+                  counter, per_forward, seed):
+    """Serve ``cfg``'s model through the ``serve`` command's wiring
+    (``port``: its ``build_parser``, ``start`` and ``WindowDataset``; one
+    server with ``--warmup``, one with the dynamic batcher), send the
+    requests, hold every answer to its plain version (``agree``) and the kernel's launch
+    count (``counter.launches``, set to 0 just before, read just after)
+    against the device forwards. Returns the launches and the /predict p50
+    at B=1 and B=4096."""
     servers = []
     try:
-        data, ckpt_root = tmp / 'data', tmp / 'checkpoints'
-        data.mkdir()
-        for s in range(2):
-            write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
-                                    trial_length=1100, seed=args.seed + s)
-        cfg = Config()     # defaults: feedforward 512x512 sigmoid, window 50 / stride 5
-        ds = WindowDataset(str(data), window_size=cfg.window_size,
-                           stride=cfg.stride, skip_loading_skeletons=True)
-        _check(len(ds) >= 4096, f'only {len(ds)} windows')
-        ckpt_dir = ckpt_root / cfg.model_type
-
-        def new_weights(seed: int, epoch: int):
-            model = build_model_for_dataset(
-                cfg, ds, generator=torch.Generator().manual_seed(seed),
-                device='cuda')
-            save_checkpoint(str(ckpt_dir), model, epoch, 0)
-            return model
-
-        model = new_weights(args.seed, 1)
-        keys = list(slice_output_heads(torch.zeros(1, 30), 2, 1))
-
-        def plain(x: np.ndarray) -> np.ndarray:
-            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
-            with torch.no_grad():
-                return fm.mlp_reference(xt.reshape(len(x), -1), model.layer_params(),
-                                        cfg.activation).cpu().numpy()
-
-        def agree(outputs: dict, x: np.ndarray, what: str) -> float:
-            got = _decode(outputs, keys)
-            _check(got.shape == (len(x), 30) and np.isfinite(got).all(),
-                   f'{what}: bad output {got.shape}')
-            err = float(np.abs(got - plain(x)).max())
-            _check(err <= ATOL, f'{what}: max abs err {err} > {ATOL}')
-            return err
-
         serve_args = ['serve', '--dataset-home', str(data), '--checkpoint-dir',
-                      str(ckpt_root), '--port', '0', '--device', 'cuda']
-        parser = build_parser()
-        fm.launches = 0     # counts from here on are the main path's
-        svc, server = start(parser.parse_args(serve_args + ['--warmup']))
-        svc_b, server_b = start(parser.parse_args(serve_args + ['--batch-wait-ms', '5']))
-        for srv, sv in ((server, svc), (server_b, svc_b)):
-            servers.append((srv, sv))
+                      str(ckpt_root), '--port', '0', '--device', 'cuda', *flags]
+        parser = port.build_parser()
+        counter.launches = 0     # counts from here on are this path's
+        svc, server = port.start(parser.parse_args(serve_args + ['--warmup']))
+        servers.append((server, svc))
+        svc_b, server_b = port.start(parser.parse_args(serve_args + ['--batch-wait-ms', '5']))
+        servers.append((server_b, svc_b))
+        for srv, _ in servers:
             threading.Thread(target=srv.serve_forever, daemon=True).start()
         url = f'http://127.0.0.1:{server.server_address[1]}'
         url_b = f'http://127.0.0.1:{server_b.server_address[1]}'
 
         h = _get(url + '/health')
-        _check(h['status'] == 'ok' and h['model'] == 'feedforward'
+        _check(h['status'] == 'ok' and h['model'] == cfg.model_type
                and h['epoch'] == 1, f'/health {h}')
         s = _get(url + '/schema')
         _check((s['num_model_frames'], s['num_input_channels'], s['max_batch'],
-                s['window_size'], s['stride'], s['output_data_format'])
-               == (10, 177, 4096, 50, 5, 'last_frame')
+                s['window_size'], s['stride'], s['output_data_format'],
+                s['fused_inference'])
+               == (10, 177, 4096, 50, 5, 'last_frame', bool(cfg.fused_inference))
                and s['device'].startswith('cuda'), f'/schema {s}')
         errs = {}
         for b in (1, 37):
@@ -287,14 +360,14 @@ def main() -> int:
         errs['b64 B=4096'] = agree(r['outputs'], x4096, '/predict b64 B=4096')
         subject = str(data / 'subject_0.b3d')
         r = _post(url + '/predict_file', json.dumps({'file': subject, 'trial': 1}).encode())
-        fds = WindowDataset(subject, window_size=cfg.window_size, stride=cfg.stride,
+        fds = port.WindowDataset(subject, window_size=cfg.window_size, stride=cfg.stride,
                             skip_loading_skeletons=True)
         xf = fds.gather(np.nonzero(fds.win_trial == 1)[0]).inputs
         _check(len(r['window_starts']) == len(xf), '/predict_file window count')
         errs[f'predict_file {len(xf)} windows'] = agree(r['outputs'], xf, '/predict_file')
 
         # 8 concurrent clients through the dynamic batcher
-        rng = np.random.default_rng(args.seed)
+        rng = np.random.default_rng(seed)
         jobs = [[(int(rng.integers(0, len(ds) - 64)), int(rng.integers(1, 65)))
                  for _ in range(6)] for _ in range(8)]
         failures, worst = [], [0.0]
@@ -319,7 +392,7 @@ def main() -> int:
         coalesced = _get(url_b + '/schema')['dynamic_batching']['forwards']
 
         # /reload onto a newer checkpoint
-        model = new_weights(args.seed + 1, 2)
+        new_weights(seed + 1, 2)
         r = _post(url + '/reload', b'{}')
         _check(r['reloaded'] and r['epoch'] == 2, f'/reload {r}')
         x = ds.gather(np.arange(37)).inputs
@@ -327,75 +400,261 @@ def main() -> int:
         errs['after /reload B=37'] = agree(r['outputs'], x, '/predict after /reload')
 
         m, m_b = _get(url + '/metrics'), _get(url_b + '/metrics')
-        launches = fm.launches
+        launches = counter.launches
         forwards = m['device_forwards'] + m_b['device_forwards']
         for what, e in errs.items():
-            print(f'[slice] {what}: max abs err vs plain {e:.3g}', flush=True)
-        print(f'[slice] 48 concurrent requests in {coalesced} device forwards; '
+            print(f'[{tag}] {what}: max abs err vs plain {e:.3g}', flush=True)
+        print(f'[{tag}] 48 concurrent requests in {coalesced} device forwards; '
               f'metrics {m} / {m_b}', flush=True)
         _check(m['errors'] == 0 and m_b['errors'] == 0, 'errors in /metrics')
         _check(m_b['requests'] == 48, f'batched requests {m_b["requests"]}')
-        _check(launches == forwards > 0,
-               f'{launches} K1 launches for {forwards} device forwards')
-        print(f'[slice] K1 launches {launches} == device forwards {forwards}',
-              flush=True)
+        _check(launches == per_forward * forwards > 0,
+               f'{launches} kernel launches for {forwards} device forwards')
+        print(f'[{tag}] kernel launches {launches} == {per_forward} x device '
+              f'forwards {forwards}', flush=True)
 
-        # 5. times
-        gen = torch.Generator().manual_seed(args.seed)
-        packed = fm.pack_mlp_params(_random_params(torch, FULL_DIMS, gen), 'cuda')
-        layers16 = [(W, b.to(torch.bfloat16)) for W, b in packed.layers]
-        act = fm.ACTIVATIONS['sigmoid']
-        times, dev_us = {}, {}
-        for b in (1, 4096):
-            xt = torch.randn(b, FULL_DIMS[0], generator=gen).cuda()
-            fns = {
-                'kernel': lambda: fm.fused_mlp_forward(xt, packed, 'sigmoid'),  # noqa: B023
-                'plain': lambda: fm.mlp_reference(xt, packed.layers, 'sigmoid'),  # noqa: B023
-                'bf16': lambda: _bf16_chain(torch, xt, layers16, act),  # noqa: B023
-            }
-            err16 = float((fns['bf16']() - fns['plain']()).abs().max())
-            # plain, bf16, kernel, kernel, bf16, plain: the better of two runs each
-            order = ['plain', 'bf16', 'kernel', 'kernel', 'bf16', 'plain']
-            t = {}
-            for name in order:
-                t[name] = min(t.get(name, float('inf')), _cuda_ms(torch, fns[name]))
-            times[b] = t
-            dev_us[b] = {name: _device_us(torch, f) for name, f in fns.items()}
-            print(f'[times] bf16 cuBLAS chain B={b}: max abs err vs plain '
-                  f'{err16:.3g} (speed baseline only)', flush=True)
         x1 = json.dumps({'inputs': ds.gather(np.arange(1)).inputs.tolist()}).encode()
-        p50_b1 = _host_p50_ms(lambda: _post(url + '/predict', x1), 30)
-        p50_b4096 = _host_p50_ms(lambda: _post(url + '/predict', body4096), 20)
-        print(f'[times] card {card}', flush=True)
-        fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
-        for b, t in times.items():
-            d = dev_us[b]
-            print(f'[times] K1 B={b} 1770->512->512->30 sigmoid, CUDA events '
-                  f'(median of 30, better of two runs): kernel '
-                  f'{t["kernel"] * 1e3:.1f} us, plain (f32 reference) '
-                  f'{t["plain"] * 1e3:.1f} us, bf16 cuBLAS chain '
-                  f'{t["bf16"] * 1e3:.1f} us', flush=True)
-            print(f'[times] K1 B={b} profiler device time per call: kernel '
-                  f'{fmt(d["kernel"])}, plain (f32 reference) {fmt(d["plain"])}, '
-                  f'bf16 cuBLAS chain {fmt(d["bf16"])}', flush=True)
-        print(f'[times] /predict B=1 json p50 {p50_b1:.2f} ms (30 requests); '
-              f'B=4096 b64 p50 {p50_b4096:.1f} ms (20 requests) = '
+        p50_b1 = _host_p50_ms(lambda: _post(url + '/predict', x1), 20)
+        p50_b4096 = _host_p50_ms(lambda: _post(url + '/predict', body4096), 10)
+        print(f'[{tag}] /predict B=1 json p50 {p50_b1:.2f} ms (20 requests); '
+              f'B=4096 b64 p50 {p50_b4096:.1f} ms (10 requests) = '
               f'{4096 / p50_b4096 * 1e3:.0f} windows/s', flush=True)
+        return launches, (p50_b1, p50_b4096)
     finally:
         for srv, sv in servers:
             srv.shutdown()
             srv.server_close()
             sv.close()
+
+
+def _print_times(card, what, b, ms, dev, library, bound):
+    fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
+    print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
+          f'runs): kernel {ms["kernel"] * 1e3:.1f} us, plain (f32 reference) '
+          f'{ms["plain"] * 1e3:.1f} us, {library} {ms["library"] * 1e3:.1f} us; '
+          f'bound {bound[0] * 1e3:.2f} us by {bound[1]} ({card})', flush=True)
+    print(f'[times] {what} B={b}, profiler device time per call: kernel '
+          f'{fmt(dev["kernel"])}, plain {fmt(dev["plain"])}, {library} '
+          f'{fmt(dev["library"])}', flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--seed', type=int, default=0)
+    args = ap.parse_args()
+    if not (REPO / 'inferbiomechanics_tpu_torch').is_dir():
+        print('chip_smoke: run from a checkout of the repo (no '
+              'inferbiomechanics_tpu_torch/ beside this script)', file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is False; this run needs '
+              'a GPU', file=sys.stderr)
+        return 1
+
+    # 1. the card
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card.splitlines()[0]
+    print(f'[card] torch {torch.__version__}, CUDA {torch.version.cuda}, '
+          f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}',
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+
+    from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
+    from inferbiomechanics_tpu_torch.config import Config
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.models.common import slice_output_heads
+    from inferbiomechanics_tpu_torch.models.transformer import fused_transformer_forward
+    from inferbiomechanics_tpu_torch.ops import _build
+    from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+    from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.train.checkpoint import save_checkpoint
+    from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+
+    # 2. build
+    info = _build.build()
+    print(f'[build] K1 and K2 built with nvcc in {info["seconds"]:.2f} s', flush=True)
+    for line in info['log'].splitlines():
+        if 'registers' in line or 'spill' in line:
+            print(f'[build] {line.strip()}', flush=True)
+
+    # 3. kernels vs plain
+    k1_err = phase_k1_vs_plain(torch, fm, args.seed)
+    k2_err = phase_k2_vs_plain(torch, fe, args.seed)
+
+    tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+    try:
+        data, ckpt_root = tmp / 'data', tmp / 'checkpoints'
+        data.mkdir()
+        for s in range(2):
+            write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
+                                    trial_length=1100, seed=args.seed + s)
+        cfg = Config()     # defaults: feedforward 512x512 sigmoid, window 50 / stride 5
+        ds = WindowDataset(str(data), window_size=cfg.window_size,
+                           stride=cfg.stride, skip_loading_skeletons=True)
+        _check(len(ds) >= 4096, f'only {len(ds)} windows')
+        live = {}          # the model whose weights the servers serve now
+
+        def weights_for(config):
+            def new_weights(seed: int, epoch: int):
+                live['model'] = build_model_for_dataset(
+                    config, ds, generator=torch.Generator().manual_seed(seed),
+                    device='cuda').eval()
+                save_checkpoint(str(ckpt_root / config.model_type), live['model'],
+                                epoch, 0)
+            return new_weights
+
+        def to_card(x: np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+
+        # 4. the feedforward slice
+        def ff_plain(x: np.ndarray) -> dict:
+            with torch.no_grad():
+                out = fm.mlp_reference(to_card(x).reshape(len(x), -1),
+                                       live['model'].layer_params(), cfg.activation)
+                return {k: v.cpu().numpy() for k, v in slice_output_heads(out, 2, 1).items()}
+
+        def ff_agree(outputs: dict, x: np.ndarray, what: str) -> float:
+            return _agree(outputs, ff_plain(x), what, atol=ATOL)
+
+        weights_for(cfg)(args.seed, 1)
+        port = SimpleNamespace(build_parser=build_parser, start=start,
+                               WindowDataset=WindowDataset)
+        k1_launches, ff_p50 = phase_service(
+            port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
+            ff_agree, fm, 1, args.seed)
+
+        # 5. the transformer slice, through the fused encoder layer
+        tcfg = Config()
+        tcfg.model_type, tcfg.fused_inference = 'transformer', True
+        _check((tcfg.d_model, tcfg.num_layers, tcfg.num_heads, tcfg.attn_impl)
+               == (ENC_FULL['d'], ENC_FULL['layers'], ENC_FULL['heads'], 'vpu'),
+               'transformer defaults moved')
+
+        def tf_plain(x: np.ndarray) -> dict:
+            with torch.no_grad():
+                out = fused_transformer_forward(live['model'], to_card(x),
+                                                use_kernel=False)
+                return {k: v.cpu().numpy() for k, v in out.items()}
+
+        def tf_agree(outputs: dict, x: np.ndarray, what: str) -> float:
+            want = tf_plain(x)
+            _check(len(want) == 7, f'{what}: {len(want)} heads')
+            return _agree(outputs, want, what, rel=HEAD_REL)
+
+        weights_for(tcfg)(args.seed, 1)
+        k2_launches, tf_p50 = phase_service(
+            port, 'transformer', tcfg, ['--model-type', 'transformer', '--fused-inference'],
+            data, ckpt_root, ds, weights_for(tcfg), tf_agree, fe, ENC_FULL['layers'],
+            args.seed)
+        tmodel = live['model']
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    print(json.dumps({'kernels': [dict(
-        KERNEL, launches=launches, max_abs_err=max_err,
-        ms=times[4096]['kernel'], plain_ms=times[4096]['plain'],
-        shape='B=4096, 1770->512->512->30, sigmoid',
-        bf16_cublas_ms=times[4096]['bf16'],
-        ms_b1=times[1]['kernel'], plain_ms_b1=times[1]['plain'],
-        bf16_cublas_ms_b1=times[1]['bf16'],
-        device_us={str(b): d for b, d in dev_us.items()})]}), flush=True)
+    # 6. times
+    print(f'[times] card {card}', flush=True)
+    gen = torch.Generator().manual_seed(args.seed)
+    packed = fm.pack_mlp_params(_random_params(torch, FULL_DIMS, gen), 'cuda')
+    layers16 = [(W, b.to(torch.bfloat16)) for W, b in packed.layers]
+    act = fm.ACTIVATIONS['sigmoid']
+    k1 = {}
+    for b in (1, 4096):
+        xt = torch.randn(b, FULL_DIMS[0], generator=gen).cuda()
+        fns = {
+            'kernel': lambda: fm.fused_mlp_forward(xt, packed, 'sigmoid'),  # noqa: B023
+            'plain': lambda: fm.mlp_reference(xt, packed.layers, 'sigmoid'),  # noqa: B023
+            'library': lambda: _bf16_chain(torch, xt, layers16, act),  # noqa: B023
+        }
+        err16 = float((fns['library']() - fns['plain']()).abs().max())
+        print(f'[times] bf16 cuBLAS chain B={b}: max abs err vs plain '
+              f'{err16:.3g} (speed baseline only)', flush=True)
+        ms, dev = _time_three(torch, fns)
+        k1[b] = dict(ms=ms, dev=dev, bound=k1_bound(b, FULL_DIMS))
+        _print_times(card, 'K1 1770->512->512->30 sigmoid', b, ms, dev,
+                     'bf16 cuBLAS chain', k1[b]['bound'])
+
+    t, d, heads = ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads']
+    m, n_layers = d * ENC_FULL['mlp_ratio'], ENC_FULL['layers']
+    stack = [fe.pack_encoder_params(
+        _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda')
+        for _ in range(n_layers)]
+    lib_stack = [_library_encoder_layer(torch, p.params, d, heads, m) for p in stack]
+    k2, k2_stack, fwd = {}, {}, {}
+
+    def run_stack(x, layer_fn):
+        for i in range(n_layers):
+            x = layer_fn(i, x)
+        return x
+
+    with torch.no_grad():
+        for b in (1, 4096):
+            xt = torch.randn(b, t, d, generator=gen).cuda()
+            fns = {
+                'kernel': lambda: fe.fused_encoder_layer(xt, stack[0], heads),  # noqa: B023
+                'plain': lambda: fe.encoder_layer_reference(xt, stack[0].params, heads),  # noqa: B023
+                'library': lambda: lib_stack[0](xt.to(torch.bfloat16)).float(),  # noqa: B023
+            }
+            err16 = float((fns['library']() - fns['plain']()).abs().max())
+            print(f'[times] nn.TransformerEncoderLayer bf16 B={b}: max abs err vs '
+                  f'plain {err16:.3g} (speed baseline only)', flush=True)
+            ms, dev = _time_three(torch, fns)
+            k2[b] = dict(ms=ms, dev=dev, bound=k2_bound(b, t, d, m))
+            _print_times(card, 'K2 one layer T=10 d=256 H=8', b, ms, dev,
+                         'nn.TransformerEncoderLayer bf16', k2[b]['bound'])
+            fns = {
+                'kernel': lambda: run_stack(  # noqa: B023
+                    xt, lambda i, h: fe.fused_encoder_layer(h, stack[i], heads)),  # noqa: B023
+                'plain': lambda: run_stack(  # noqa: B023
+                    xt, lambda i, h: fe.encoder_layer_reference(h, stack[i].params, heads)),  # noqa: B023
+                'library': lambda: run_stack(  # noqa: B023
+                    xt.to(torch.bfloat16), lambda i, h: lib_stack[i](h)).float(),  # noqa: B023
+            }
+            ms, dev = _time_three(torch, fns)
+            bound = k2_bound(b, t, d, m)
+            k2_stack[b] = dict(ms=ms, dev=dev, bound=(n_layers * bound[0], bound[1]))
+            _print_times(card, f'K2 x{n_layers}, the encoder stack', b, ms, dev,
+                         f'nn.TransformerEncoderLayer bf16 x{n_layers}', k2_stack[b]['bound'])
+            xin = torch.randn(b, t, 177, generator=gen).cuda()
+            fwd[b] = {
+                'kernel': _cuda_ms(torch, lambda: fused_transformer_forward(tmodel, xin)),  # noqa: B023
+                'plain': _cuda_ms(torch, lambda: fused_transformer_forward(  # noqa: B023
+                    tmodel, xin, use_kernel=False)),  # noqa: B023
+                'vpu': _cuda_ms(torch, lambda: tmodel(xin)),  # noqa: B023
+            }
+            print(f'[times] transformer forward B={b} (projection, {n_layers} layers, '
+                  f'final LN, 7 heads), CUDA events: fused through K2 '
+                  f'{fwd[b]["kernel"] * 1e3:.1f} us, fused through the plain layer '
+                  f'{fwd[b]["plain"] * 1e3:.1f} us, vpu forward (bf16 PyTorch ops) '
+                  f'{fwd[b]["vpu"] * 1e3:.1f} us', flush=True)
+
+    def entry(meta, launches, err, shape, times, **more):
+        big, small = times[4096], times[1]
+        return dict(
+            meta, launches=launches, max_abs_err=err, shape=shape,
+            ms=big['ms']['kernel'], plain_ms=big['ms']['plain'],
+            bound_ms=big['bound'][0], bound_by=big['bound'][1],
+            library_ms=big['ms']['library'],
+            ms_b1=small['ms']['kernel'], plain_ms_b1=small['ms']['plain'],
+            bound_ms_b1=small['bound'][0], bound_by_b1=small['bound'][1],
+            library_ms_b1=small['ms']['library'],
+            device_us={str(b): v['dev'] for b, v in times.items()}, card=card, **more)
+
+    print(card, flush=True)     # name, power limit: as nvidia-smi prints them
+    print(json.dumps({'kernels': [
+        entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
+              library='bf16 cuBLAS chain (3 addmm)', launches_per_forward=1,
+              predict_p50_ms={'1': ff_p50[0], '4096': ff_p50[1]}),
+        entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
+              library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
+              stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
+              forward_ms={str(b): v for b, v in fwd.items()},
+              predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]}),
+    ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,7 @@ training package. ``--device`` defaults to ``cuda`` and fails when there is
 no GPU; ``--device cpu`` serves on the CPU.
 
     python -m inferbiomechanics_tpu_torch serve --dataset-home D --checkpoint-dir C
+    python -m inferbiomechanics_tpu_torch serve ... --model-type transformer --fused-inference
 """
 
 from __future__ import annotations
@@ -16,10 +17,9 @@ import logging
 import os
 from typing import Optional, Sequence
 
+from inferbiomechanics_tpu_torch.config import add_config_flags, config_from_args
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.serve import InferenceService, serve
-from inferbiomechanics_tpu_torch.shared import (
-    WindowDataset, add_config_flags, config_from_args,
-)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,8 +1,8 @@
 """Model registry / factory.
 
 PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. Only
-the feedforward model is ported; every other model type raises and names
-the ROADMAP.md slice that ports it.
+the feedforward model and the transformer are ported; every other model
+type raises and names the ROADMAP.md slice that ports it.
 """
 
 from typing import Optional, Sequence
@@ -13,12 +13,12 @@ from inferbiomechanics_tpu_torch.models.common import (
     output_head_size, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.models.feedforward import FeedForwardBaseline
+from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 
 MODEL_TYPES = ('analytical', 'feedforward', 'groundlink', 'transformer', 'diffusion')
 
 _UNPORTED = {
     'groundlink': 'ROADMAP.md Queue 1 item 3 (GroundLink and kernel K4)',
-    'transformer': 'ROADMAP.md Queue 1 item 5 (transformer and kernels K2/K3)',
     'diffusion': 'ROADMAP.md Queue 1 item 6 (diffusion)',
     'analytical': 'ROADMAP.md Queue 1 item 7 (analytical and physics)',
 }
@@ -37,6 +37,10 @@ def get_model(model_type: str,
               batchnorm: bool = False,
               dropout: bool = False,
               dropout_prob: float = 0.0,
+              d_model: int = 256,
+              num_layers: int = 4,
+              num_heads: int = 8,
+              attn_impl: str = 'vpu',
               init_style: str = 'torch',
               generator: Optional[torch.Generator] = None,
               device=None):
@@ -51,6 +55,15 @@ def get_model(model_type: str,
             hidden_dims=tuple(hidden_dims), batchnorm=batchnorm,
             dropout=dropout, dropout_prob=dropout_prob,
             init_style=init_style, generator=generator, device=device)
+    if model_type == 'transformer':
+        return TransformerRegressor(
+            num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
+            history_len=history_len, stride=stride,
+            root_history_len=root_history_len,
+            output_data_format=output_data_format,
+            d_model=d_model, num_layers=num_layers, num_heads=num_heads,
+            dropout=dropout_prob if dropout else 0.0,
+            attn_impl=attn_impl, generator=generator, device=device)
     if model_type in _UNPORTED:
         raise NotImplementedError(f'model type {model_type!r} is not ported '
                                   f'yet; see {_UNPORTED[model_type]}')
@@ -58,6 +71,6 @@ def get_model(model_type: str,
 
 
 __all__ = [
-    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline',
+    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline', 'TransformerRegressor',
     'pack_inputs', 'slice_output_heads', 'output_head_size',
 ]

@@ -8,11 +8,13 @@ canonical concat order, and emit the 4 ground-contact output groups.
 
 from __future__ import annotations
 
-from typing import Dict, Union
+import math
+from typing import Dict, Optional, Union
 
 import torch
+from torch import nn
 
-from inferbiomechanics_tpu_torch.shared import keys as K
+from inferbiomechanics_tpu_torch.data import keys as K
 
 ModelInput = Union[torch.Tensor, Dict[str, torch.Tensor]]
 
@@ -47,3 +49,28 @@ def slice_output_heads(x: torch.Tensor, num_contact_bodies: int,
 
 def output_head_size(num_contact_bodies: int, num_output_frames: int) -> int:
     return num_contact_bodies * (3 * 3 + 6) * num_output_frames
+
+
+def init_linear(layer: nn.Linear, init_style: str,
+                generator: Optional[torch.Generator]) -> None:
+    """Fill ``layer`` from ``generator`` (on the CPU, so that a seed gives
+    the same weights on every device): 'torch' is torch's own Linear init,
+    'lecun' is flax's lecun-normal kernel with a zero bias."""
+    fan_in = layer.in_features
+    w = torch.empty(layer.weight.shape)
+    b = torch.empty(layer.bias.shape)
+    if init_style == 'torch':
+        k = 1.0 / math.sqrt(fan_in)
+        w.uniform_(-k, k, generator=generator)
+        b.uniform_(-k, k, generator=generator)
+    elif init_style == 'lecun':
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        b.zero_()
+    else:
+        raise ValueError(f"init_style must be 'torch' or 'lecun', "
+                         f"got {init_style!r}")
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.copy_(b)

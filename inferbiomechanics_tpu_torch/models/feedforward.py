@@ -20,43 +20,20 @@ contact output groups per output frame.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    ModelInput, output_head_size, pack_inputs, slice_output_heads,
+    ModelInput, init_linear, output_head_size, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.ops.fused_mlp import (
     ACTIVATIONS, PackedMLP, fused_mlp_forward, mlp_reference, pack_mlp_params,
 )
-from inferbiomechanics_tpu_torch.shared import input_layout
 
 _TRAINING_SLICE = 'ROADMAP.md Queue 1 item 2 (feedforward training)'
-
-
-def _init_linear(layer: nn.Linear, init_style: str,
-                 generator: Optional[torch.Generator]) -> None:
-    fan_in = layer.in_features
-    w = torch.empty(layer.weight.shape)
-    b = torch.empty(layer.bias.shape)
-    if init_style == 'torch':
-        k = 1.0 / math.sqrt(fan_in)
-        w.uniform_(-k, k, generator=generator)
-        b.uniform_(-k, k, generator=generator)
-    elif init_style == 'lecun':
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-        b.zero_()
-    else:
-        raise ValueError(f"init_style must be 'torch' or 'lecun', "
-                         f"got {init_style!r}")
-    with torch.no_grad():
-        layer.weight.copy_(w)
-        layer.bias.copy_(b)
 
 
 class FeedForwardBaseline(nn.Module):
@@ -90,7 +67,7 @@ class FeedForwardBaseline(nn.Module):
             nn.utils.skip_init(nn.Linear, d0, d1, device=device)
             for d0, d1 in zip(dims[:-1], dims[1:]))
         for layer in self.layers:
-            _init_linear(layer, init_style, generator)
+            init_linear(layer, init_style, generator)
         self._packed: Optional[PackedMLP] = None
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module._drop_packed())

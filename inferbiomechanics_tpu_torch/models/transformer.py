@@ -1,0 +1,274 @@
+"""Transformer sequence regressor.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/models/transformer.py``: a
+pre-LN transformer encoder over the window's frames with a learned temporal
+embedding, emitting the 4 contact output groups per frame (or for the last
+frame only) plus the auxiliary tau / COM-acceleration / contact heads.
+
+The modules hold the JAX model's ``attn_impl='vpu'`` parameter tree
+(``weights.py`` maps the names) and there are two forwards over it:
+
+- ``TransformerRegressor.forward``: the ``vpu`` math in plain PyTorch, bf16
+  compute with a bf16 residual stream, as ``model.apply`` runs it;
+- :func:`fused_transformer_forward`: inference through the fused encoder
+  layer kernel (``ops/fused_encoder.py``), one launch per layer, with an f32
+  residual stream inside the encoder. The two differ at bf16-residual level
+  by design.
+
+``attn_impl='pallas'`` (another parameter tree, ``enc{i}_*``) comes with
+transformer training; ``'flax'`` is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from inferbiomechanics_tpu_torch.data import keys as K
+from inferbiomechanics_tpu_torch.data.dataset import input_layout
+from inferbiomechanics_tpu_torch.models.common import (
+    ModelInput, init_linear, output_head_size, pack_inputs, slice_output_heads,
+)
+from inferbiomechanics_tpu_torch.ops.fused_encoder import (
+    LN_EPS, PackedEncoderLayer, encoder_layer_reference, fused_encoder_layer,
+    pack_encoder_params,
+)
+
+_TRAINING_SLICE = 'ROADMAP.md Queue 1 item 5 (transformer training, kernel K3)'
+_DT = torch.bfloat16      # the compute dtype of both forwards
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """flax ``Dense(dtype=bf16)``: a bf16 product, then a bf16 bias add."""
+    return x.to(_DT) @ layer.weight.to(_DT).t() + layer.bias.to(_DT)
+
+
+def _layernorm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=bf16)``: statistics and affine in f32, the
+    result rounded to bf16."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(_DT)
+
+
+class ShortWindowAttention(nn.Module):
+    """Multi-head self-attention over a short window (T around 10): scores
+    and the value mix as broadcast-multiply + reduce, in bf16 with an f32
+    softmax. The ``3 d`` columns of ``qkv`` are ``[q | k | v]``, each
+    ``[H, dh]``."""
+
+    def __init__(self, d_model: int, num_heads: int, *, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.utils.skip_init(nn.Linear, d_model, 3 * d_model, device=device)
+        self.proj = nn.utils.skip_init(nn.Linear, d_model, d_model, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        dh = d // self.num_heads
+        qkv = _dense(x, self.qkv).reshape(b, t, 3, self.num_heads, dh)
+        q = qkv[:, :, 0] * (dh ** -0.5)                     # [B, T, H, dh]
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        scores = (q[:, :, None] * k[:, None, :]).sum(-1)    # [B, Tq, Tk, H]
+        probs = torch.softmax(scores.float(), dim=2).to(_DT)
+        out = (probs[..., None] * v[:, None]).sum(2)        # [B, Tq, H, dh]
+        return _dense(out.reshape(b, t, d), self.proj)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4, *,
+                 device=None):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.attn = ShortWindowAttention(d_model, num_heads, device=device)
+        self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.mlp1 = nn.utils.skip_init(nn.Linear, d_model, d_model * mlp_ratio,
+                                       device=device)
+        self.mlp2 = nn.utils.skip_init(nn.Linear, d_model * mlp_ratio, d_model,
+                                       device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(_layernorm(x, self.ln1))
+        y = F.gelu(_dense(_layernorm(x, self.ln2), self.mlp1), approximate='tanh')
+        return x + _dense(y, self.mlp2)
+
+    def layer_params(self) -> Tuple[torch.Tensor, ...]:
+        """The flat tuple ``ops/fused_encoder.py`` takes (``PARAM_NAMES``
+        order, kernels ``[in, out]``)."""
+        return (self.ln1.weight, self.ln1.bias,
+                self.attn.qkv.weight.t(), self.attn.qkv.bias,
+                self.attn.proj.weight.t(), self.attn.proj.bias,
+                self.ln2.weight, self.ln2.bias,
+                self.mlp1.weight.t(), self.mlp1.bias,
+                self.mlp2.weight.t(), self.mlp2.bias)
+
+
+@dataclass(frozen=True)
+class PackedTransformer:
+    """What :func:`fused_transformer_forward` reads, made once per load:
+    every encoder layer packed for the kernel, and bf16 copies of the
+    weights around it (``[in, out]`` kernels, biases, the temporal
+    embedding); the final LayerNorm stays f32."""
+    layers: Tuple[PackedEncoderLayer, ...]
+    dense: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    temporal_embedding: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.temporal_embedding.device
+
+
+class TransformerRegressor(nn.Module):
+    HEADS = ('contact_head', 'tau_head', 'com_acc_head', 'contact_cls_head')
+
+    def __init__(self, num_dofs: int, num_contact_bodies: int,
+                 history_len: int, stride: int, root_history_len: int,
+                 output_data_format: str = 'last_frame', d_model: int = 256,
+                 num_layers: int = 4, num_heads: int = 8, mlp_ratio: int = 4,
+                 dropout: float = 0.0, predict_tau: bool = True,
+                 predict_com_acc: bool = True, predict_contact: bool = True,
+                 attn_impl: str = 'vpu', *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if attn_impl == 'pallas':
+            raise NotImplementedError(
+                f"attn_impl='pallas' (the enc{{i}}_* parameter tree) is not "
+                f"ported yet; it comes with {_TRAINING_SLICE}")
+        if attn_impl != 'vpu':
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} is not ported (ROADMAP.md, not to "
+                f"port); use 'vpu'")
+        if dropout:
+            raise NotImplementedError(
+                f'transformer dropout is not ported yet; it comes with '
+                f'{_TRAINING_SLICE}')
+        if d_model % num_heads:
+            raise ValueError(f'd_model {d_model} does not divide into '
+                             f'{num_heads} heads')
+        self.num_dofs = num_dofs
+        self.num_contact_bodies = num_contact_bodies
+        self.num_frames = history_len // stride
+        self.output_data_format = output_data_format
+        self.num_output_frames = (self.num_frames
+                                  if output_data_format == 'all_frames' else 1)
+        self.d_model, self.num_layers, self.num_heads = d_model, num_layers, num_heads
+        self.attn_impl = attn_impl
+        device = 'cpu' if device is None else device
+        channels = sum(w for _, w in input_layout(num_dofs, root_history_len))
+
+        def linear(d_in: int, d_out: int) -> nn.Linear:
+            return nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
+
+        self.input_proj = linear(channels, d_model)
+        self.temporal_embedding = nn.Parameter(
+            torch.empty(self.num_frames, d_model, device=device))
+        self.blocks = nn.ModuleList(
+            EncoderBlock(d_model, num_heads, mlp_ratio, device=device)
+            for _ in range(num_layers))
+        self.final_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.contact_head = linear(d_model, output_head_size(num_contact_bodies, 1))
+        self.tau_head = linear(d_model, num_dofs) if predict_tau else None
+        self.com_acc_head = linear(d_model, 3) if predict_com_acc else None
+        self.contact_cls_head = (linear(d_model, num_contact_bodies)
+                                 if predict_contact else None)
+        # flax's defaults, drawn on the CPU so that a seed gives the same
+        # weights on every device: lecun-normal kernels, zero biases,
+        # N(0, 0.02) temporal embedding (LayerNorm is ones / zeros already)
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                init_linear(module, 'lecun', generator)
+        with torch.no_grad():
+            self.temporal_embedding.copy_(
+                torch.randn(self.num_frames, d_model, generator=generator) * 0.02)
+        self._packed: Optional[PackedTransformer] = None
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module._drop_packed())
+
+    def _drop_packed(self) -> None:
+        self._packed = None
+
+    def train(self, mode: bool = True):
+        self._drop_packed()
+        return super().train(mode)
+
+    def _heads(self):
+        return [(name, getattr(self, name)) for name in self.HEADS
+                if getattr(self, name) is not None]
+
+    def packed(self) -> PackedTransformer:
+        """The fused forward's weights, made once per eval() or load."""
+        device = self.temporal_embedding.device
+        if self._packed is None or self._packed.device != device:
+            with torch.no_grad():
+                dense = {name: (layer.weight.detach().t().to(_DT).contiguous(),
+                                layer.bias.detach().to(_DT))
+                         for name, layer in [('input_proj', self.input_proj),
+                                             *self._heads()]}
+                self._packed = PackedTransformer(
+                    tuple(pack_encoder_params(blk.layer_params(), device)
+                          for blk in self.blocks),
+                    dense, self.temporal_embedding.detach().to(_DT))
+        return self._packed
+
+    def _check_shape(self, x: torch.Tensor) -> None:
+        if x.ndim != 3 or x.shape[1] != self.num_frames:
+            raise ValueError(f'expected (B, {self.num_frames}, C), got '
+                             f'{tuple(x.shape)}')
+
+    def _outputs(self, x: torch.Tensor, head) -> Dict[str, torch.Tensor]:
+        """``x`` [B, T, d] bf16 after the final LayerNorm -> the output dict;
+        ``head(name, x)`` is one head's bf16 affine map."""
+        if self.output_data_format != 'all_frames':
+            x = x[:, -1:, :]
+        main = head('contact_head', x).float()
+        out = slice_output_heads(main, self.num_contact_bodies, main.shape[1])
+        for name, key in (('tau_head', K.OutputDataKeys.TAU),
+                          ('com_acc_head', K.OutputDataKeys.COM_ACC_IN_ROOT_FRAME),
+                          ('contact_cls_head', K.OutputDataKeys.CONTACT)):
+            if getattr(self, name) is not None:
+                out[key] = head(name, x).float()
+        return out
+
+    def forward(self, inputs: ModelInput) -> Dict[str, torch.Tensor]:
+        x = pack_inputs(inputs)                      # [B, T, C_in]
+        self._check_shape(x)
+        x = _dense(x, self.input_proj) + self.temporal_embedding.to(_DT)
+        for blk in self.blocks:
+            x = blk(x)
+        x = _layernorm(x, self.final_ln)
+        return self._outputs(x, lambda name, h: _dense(h, getattr(self, name)))
+
+
+def fused_transformer_forward(model: TransformerRegressor, inputs: ModelInput,
+                              *, use_kernel: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """Inference forward through the fused encoder layer on ``vpu`` weights.
+
+    The input projection, the temporal embedding and the heads run in bf16
+    (bf16 product, bf16 bias add); each encoder layer is one call of
+    ``fused_encoder_layer`` on an f32 residual stream (the kernel for a CUDA
+    tensor, its plain version for a CPU tensor); the final LayerNorm is
+    computed in f32 and rounded to bf16. ``use_kernel=False`` takes the
+    layer's plain version on any device: the reference that a served answer
+    is held against.
+    """
+    packed = model.packed()
+    x = pack_inputs(inputs)
+    model._check_shape(x)
+
+    def dense(name: str, h: torch.Tensor) -> torch.Tensor:
+        w, b = packed.dense[name]
+        return h.to(_DT) @ w + b
+
+    x = dense('input_proj', x) + packed.temporal_embedding
+    x = x.float().contiguous()
+    for layer in packed.layers:
+        if use_kernel:
+            x = fused_encoder_layer(x, layer, model.num_heads)
+        else:
+            x = encoder_layer_reference(x, layer.params, model.num_heads)
+    x = _layernorm(x, model.final_ln)
+    return model._outputs(x, dense)

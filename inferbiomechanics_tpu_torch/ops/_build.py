@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Every ``.cu`` file in ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface,
+(``sm_90a``), one ``nvcc`` per source and all of them at once, and the
+objects are linked into one shared library with a plain C interface,
 ``build/torch_kernels/libib_torch_kernels.so`` in the checkout (or in
-``$IB_TORCH_BUILD_DIR``, for an installed package), and loaded with
+``$IB_TORCH_BUILD_DIR``, for an installed package), which is loaded with
 ``ctypes``. The build happens at first use and again whenever the stamp
 beside the library, a hash of the sources, of this file and of the nvcc
-command, differs. No PyTorch headers are involved, so a build takes
+flags, differs. No PyTorch headers are involved, so a build takes
 seconds. A failed build raises; nothing falls back.
 """
 
@@ -28,7 +29,7 @@ BUILD_DIR = Path(os.environ.get('IB_TORCH_BUILD_DIR') or
 LIBRARY = BUILD_DIR / 'libib_torch_kernels.so'
 STAMP = LIBRARY.with_name(LIBRARY.name + '.stamp')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,17 +69,32 @@ def build() -> dict:
     memory and spills per kernel)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fingerprint = _fingerprint()
-    tmp = LIBRARY.with_name(f'{LIBRARY.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
+    nvcc, pid = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []                          # one nvcc per source, all at once
+    for src in _sources():
+        obj = BUILD_DIR / f'{src.stem}.{pid}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    # wait for every compiler before looking at any result, so that none
+    # outlives a failure; then link
+    steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    tmp = LIBRARY.with_name(f'{LIBRARY.name}.{pid}.tmp')
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, '-shared', '-o', str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    for cmd, out, rc in steps:
+        if rc != 0:
+            raise RuntimeError(f'nvcc failed ({rc}):\n{" ".join(cmd)}\n{out}')
+    log = ''.join(out for _, out, _ in steps)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-                           f'{proc.stdout}{proc.stderr}')
     os.replace(tmp, LIBRARY)   # atomic: a concurrent loader never sees half a file
     STAMP.write_text(fingerprint + '\n')
-    return {'seconds': seconds, 'log': proc.stdout + proc.stderr}
+    return {'seconds': seconds, 'log': log}
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -86,6 +102,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     int_p = ctypes.POINTER(ctypes.c_int)
     lib.ib_fused_mlp_forward.argtypes = [vp, i, i, vp, vp, int_p, i, vp, i, i, vp]
     lib.ib_fused_mlp_forward.restype = i
+    lib.ib_fused_encoder_forward.argtypes = [vp, i, i, i, i, i, vp, vp, vp, vp]
+    lib.ib_fused_encoder_forward.restype = i
     lib.ib_cuda_error_string.argtypes = [i]
     lib.ib_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -46,7 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <mutex>
+#include "launch.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -66,6 +67,8 @@ struct MlpShape {
   int ld_q;                         // row stride of buffer Q (even layers' outputs)
 };
 
+struct FusedMlpTag {};              // keys this kernel's shared-memory cap (launch.cuh)
+
 // Activation ids; fused_mlp.py holds the same table.
 enum Activation { kRelu = 0, kTanh = 1, kSigmoid = 2, kGelu = 3, kElu = 4 };
 
@@ -84,24 +87,6 @@ __device__ __forceinline__ float activate(float v, int act) {
     default:       // elu, alpha 1
       return v > 0.f ? v : expm1f(v);
   }
-}
-
-// A fragment of mma.m16n8k16 (row-major 16x16 bf16) from shared memory. Lane
-// l points at row l % 16, columns (l / 16) * 8 .. + 7 of the tile.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a * b for one 16x8 tile, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Bias, activation and bf16 rounding of one warp's 16x8 accumulator tile:
@@ -259,25 +244,8 @@ int ib_fused_mlp_forward(const void* x, int batch, int c_in, const void* w,
   const size_t smem = static_cast<size_t>(kRowsPerBlock) * (s.ld_p + s.ld_q) *
                       sizeof(__nv_bfloat16);
 
-  // Raise the kernel's dynamic shared memory cap, a per-device setting,
-  // whenever a launch needs more than that device was given so far. The
-  // mutex keeps two host threads from lowering each other's cap.
-  {
-    constexpr int kMaxDevices = 64;
-    static std::mutex mu;
-    static size_t smem_cap[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    std::lock_guard<std::mutex> hold(mu);
-    if (smem > smem_cap[dev]) {
-      err = cudaFuncSetAttribute(fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_cap[dev] = smem;
-    }
-  }
+  const cudaError_t err = ensure_dynamic_smem<FusedMlpTag>(fused_mlp_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((batch + kRowsPerBlock - 1) / kRowsPerBlock);
   fused_mlp_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), batch, c_in, static_cast<const __nv_bfloat16*>(w),

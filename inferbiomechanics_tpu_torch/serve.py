@@ -1,11 +1,12 @@
 """Batch-inference service on PyTorch.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/serve.py``'s
-``InferenceService``. It plugs into the JAX package's shared HTTP layer
-(``serve`` and its handler, the dynamic batcher), which needs only the
-duck-typed surface below, and serves ``/health``, ``/schema``,
-``/metrics``, ``/predict`` (JSON and b64), ``/predict_file`` and
-``/reload``.
+PyTorch counterpart of ``inferbiomechanics_tpu/serve.py``: the
+``InferenceService``, the dynamic batcher and the stdlib HTTP layer
+(``serve`` and its handler, the payload codecs). It serves ``/health``,
+``/schema``, ``/metrics``, ``/predict`` (JSON and b64), ``/predict_file``
+and ``/reload`` for the feedforward model and the transformer; with
+``--fused-inference`` a ``vpu`` transformer runs every encoder layer through
+the fused kernel (``ops/fused_encoder.py``).
 
 Differences from the JAX service:
 
@@ -13,8 +14,8 @@ Differences from the JAX service:
   missing GPU raises, nothing falls back to the CPU;
 - no power-of-two batch padding: PyTorch runs eagerly and nothing
   recompiles per shape; ``max_batch`` still bounds a request;
-- ensembles, ``quantize``, ``tta_mirror``, ``use_ema``, diffusion and
-  ``--fused-inference`` raise "not yet ported" (ROADMAP.md Queue 1);
+- ensembles, ``quantize``, ``tta_mirror``, ``use_ema`` and diffusion raise
+  "not yet ported" (ROADMAP.md Queue 1);
 - no checkpoint polling: ``POST /reload`` swaps to a newer checkpoint.
 
 Device work is serialized under one lock, as in the JAX service.
@@ -22,19 +23,23 @@ Device work is serialized under one lock, as in the JAX service.
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Optional
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from inferbiomechanics_tpu_torch.shared import (
-    Config, DynamicBatcher, WindowDataset, serve,
+from inferbiomechanics_tpu_torch.config import Config
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.models.transformer import (
+    TransformerRegressor, fused_transformer_forward,
 )
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     list_checkpoints, load_checkpoint_file, load_latest_checkpoint,
@@ -43,7 +48,7 @@ from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['InferenceService', 'resolve_device', 'serve']
+__all__ = ['DynamicBatcher', 'InferenceService', 'resolve_device', 'serve']
 
 _SERVING_SLICE = 'ROADMAP.md Queue 1 item 4 (inference and serving extras)'
 
@@ -65,9 +70,6 @@ def _reject_unported(config: Config, **options) -> None:
     if config.model_type == 'diffusion':
         raise ValueError('diffusion serving is not yet ported '
                          '(ROADMAP.md Queue 1 item 6)')
-    if getattr(config, 'fused_inference', False):
-        raise ValueError('--fused-inference is not yet ported (ROADMAP.md '
-                         'Queue 1 item 5, transformer and kernel K2)')
     for name, value in options.items():
         if value:
             raise ValueError(f'{name} is not yet ported ({_SERVING_SLICE})')
@@ -85,6 +87,105 @@ def _sidecar_run_config(checkpoint_dir: str) -> Optional[dict]:
     except (OSError, ValueError) as e:
         logger.warning('run-config sidecar unreadable for /schema: %s', e)
         return None
+
+
+class DynamicBatcher:
+    """Coalesce concurrent /predict requests into one device forward.
+
+    Each handler thread enqueues its rows and blocks on an event; a
+    single batcher thread drains the queue (waiting ``wait_ms`` after
+    the first arrival so concurrent requests can pile in, the classic
+    serving trade of a little latency for a lot of throughput), runs ONE
+    forward for up to ``max_batch`` rows, and scatters the row
+    slices back to the waiting requests, so N small clients cost about one
+    forward instead of N.
+    """
+
+    def __init__(self, service: 'InferenceService', wait_ms: float):
+        self.service = service
+        self.wait_s = max(0.0, wait_ms) / 1e3
+        self._cv = threading.Condition()
+        self._queue: list = []
+        self._closed = False
+        self.forwards = 0           # instrumentation (tests/telemetry)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name='ib-serve-batcher')
+        self._thread.start()
+
+    def predict(self, x: np.ndarray, with_spread: bool):
+        item = {'x': x, 'spread': with_spread, 'ev': threading.Event()}
+        with self._cv:
+            if self._closed or not self._thread.is_alive():
+                raise RuntimeError('dynamic batcher is shut down')
+            self._queue.append(item)
+            self._cv.notify()
+        # bounded wait + liveness recheck: if the batcher thread dies the
+        # request must error out, not hang the HTTP handler forever
+        while not item['ev'].wait(timeout=5.0):
+            if not self._thread.is_alive():
+                raise RuntimeError('dynamic batcher thread died; '
+                                   'request abandoned')
+        if 'err' in item:
+            raise item['err']
+        return item['out']
+
+    def close(self):
+        with self._cv:
+            self._closed = True
+            # fail any queued-but-unserved requests instead of leaving
+            # their handler threads blocked
+            for it in self._queue:
+                it['err'] = RuntimeError('dynamic batcher shut down')
+                it['ev'].set()
+            self._queue.clear()
+            self._cv.notify()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if self._closed and not self._queue:
+                    return
+            if self.wait_s:
+                time.sleep(self.wait_s)     # let concurrent requests pile in
+            with self._cv:
+                group: list = []
+                rows = 0
+                while self._queue and rows + self._queue[0]['x'].shape[0] \
+                        <= self.service.max_batch:
+                    item = self._queue.pop(0)
+                    group.append(item)
+                    rows += item['x'].shape[0]
+                if not group and self._queue:
+                    # single oversized request: let predict_packed raise
+                    group = [self._queue.pop(0)]
+            if not group:
+                continue
+            try:
+                x = np.concatenate([it['x'] for it in group]) \
+                    if len(group) > 1 else group[0]['x']
+                want_spread = any(it['spread'] for it in group)
+                if want_spread:
+                    out, spread = self.service.predict_packed(
+                        x, with_spread=True)
+                else:
+                    out, spread = self.service.predict_packed(x), None
+                self.forwards += 1
+                off = 0
+                for it in group:
+                    n = it['x'].shape[0]
+                    o = {k: v[off:off + n] for k, v in out.items()}
+                    s = ({k: v[off:off + n] for k, v in spread.items()}
+                         if spread is not None else None)
+                    it['out'] = (o, s) if it['spread'] else o
+                    off += n
+            except Exception as e:   # propagate to every waiting request
+                for it in group:
+                    it['err'] = e
+            finally:
+                for it in group:
+                    it['ev'].set()
 
 
 class InferenceService:
@@ -120,6 +221,7 @@ class InferenceService:
         self.max_batch = int(max_batch)
         self.members: list = []     # read by /health; ensembles are not ported
         self._checkpoint_dir = checkpoint_dir
+        self._use_fused = self._fused_inference()
         self.model, self.epoch, self.batch = self._load(checkpoint_dir)
         if self.epoch < 0:
             logger.warning('no checkpoint found in %s — serving an '
@@ -147,8 +249,23 @@ class InferenceService:
         else:
             epoch, batch = load_latest_checkpoint(model, path)
         model.eval()
-        model.packed()
+        if self._use_fused or not isinstance(model, TransformerRegressor):
+            model.packed()      # the kernel's weights, laid out once per load
         return model, epoch, batch
+
+    def _fused_inference(self) -> bool:
+        """Whether forwards go through the fused encoder layer kernel:
+        asked for with ``--fused-inference``, and honoured for a ``vpu``
+        transformer whose width the kernel takes."""
+        config = self.config
+        if not config.fused_inference:
+            return False
+        if not (config.model_type == 'transformer'
+                and config.attn_impl == 'vpu' and config.d_model % 128 == 0):
+            logger.warning('--fused-inference ignored: needs a vpu '
+                           'transformer with d_model %% 128 == 0')
+            return False
+        return True
 
     def close(self) -> None:
         """Stop the dynamic batcher, if running."""
@@ -235,7 +352,9 @@ class InferenceService:
         with self._lock:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
             with torch.inference_mode():
-                out = self.model(xt.to(self.device))
+                xt = xt.to(self.device)
+                out = (fused_transformer_forward(self.model, xt)
+                       if self._use_fused else self.model(xt))
                 out = {k: v.cpu().numpy() for k, v in out.items()}
         return (out, None) if with_spread else out
 
@@ -288,7 +407,7 @@ class InferenceService:
             'ensemble': None,
             'diffusion_sample_steps': None,
             'diffusion_samples': None,
-            'fused_inference': False,
+            'fused_inference': self._use_fused,
             'quantize': None,
             'use_ema': False,
             'mesh_devices': 1,
@@ -308,3 +427,131 @@ class InferenceService:
                                   'forwards': self.batcher.forwards}),
             'run_config': _sidecar_run_config(self._checkpoint_dir),
         }
+
+
+# -----------------------------------------------------------------------------
+# HTTP layer
+# -----------------------------------------------------------------------------
+
+def _decode_inputs(payload: dict) -> np.ndarray:
+    if 'inputs_b64' in payload:
+        shape = payload.get('shape')
+        if not (isinstance(shape, list) and len(shape) == 3):
+            raise ValueError('inputs_b64 requires "shape": [B, T, C]')
+        raw = base64.b64decode(payload['inputs_b64'])
+        x = np.frombuffer(raw, dtype='<f4')
+        if x.size != int(np.prod(shape)):
+            raise ValueError(f'inputs_b64 carries {x.size} floats, '
+                             f'shape {shape} needs {int(np.prod(shape))}')
+        return x.reshape(shape).astype(np.float32)
+    if 'inputs' in payload:
+        return np.asarray(payload['inputs'], np.float32)
+    raise ValueError('request needs "inputs" or "inputs_b64"')
+
+
+def _encode_outputs(outputs: Dict[str, np.ndarray], encoding: str) -> dict:
+    if encoding == 'b64':
+        return {k: {'b64': base64.b64encode(
+                        np.ascontiguousarray(v, '<f4').tobytes()).decode(),
+                    'shape': list(v.shape)}
+                for k, v in outputs.items()}
+    return {k: np.asarray(v, np.float32).tolist() for k, v in outputs.items()}
+
+
+def make_handler(service: InferenceService):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):   # route through logging, not stderr
+            logger.info('%s %s', self.address_string(), fmt % args)
+
+        def _send(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header('Content-Type', 'application/json')
+            self.send_header('Content-Length', str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == '/health':
+                self._send(200, {'status': 'ok',
+                                 'model': service.config.model_type,
+                                 'epoch': service.epoch,
+                                 'batch': service.batch,
+                                 'ensemble_size': len(service.members)})
+            elif self.path == '/schema':
+                self._send(200, service.schema())
+            elif self.path == '/metrics':
+                self._send(200, service.metrics())
+            else:
+                self._send(404, {'error': f'unknown path {self.path}'})
+
+        def do_POST(self):
+            t_start = time.time()
+            rows = 0
+            ok = False
+            try:
+                n = int(self.headers.get('Content-Length', 0))
+                payload = json.loads(self.rfile.read(n) or b'{}')
+            except (ValueError, json.JSONDecodeError) as e:
+                service.record_request(0, (time.time() - t_start) * 1e3,
+                                       error=True)
+                return self._send(400, {'error': f'bad JSON: {e}'})
+            encoding = payload.get('encoding', 'json')
+            try:
+                if self.path == '/predict':
+                    x = _decode_inputs(payload)
+                    rows = int(x.shape[0])
+                    want_spread = bool(payload.get('spread'))
+                    if want_spread:
+                        out, spread = service.predict(x, with_spread=True)
+                    else:
+                        out, spread = service.predict(x), None
+                    resp = {'outputs': _encode_outputs(out, encoding),
+                            'batch': rows}
+                    if want_spread:
+                        # across-ensemble std per channel; all-zeros has no
+                        # meaning for a single model, so null there
+                        resp['spread'] = (_encode_outputs(spread, encoding)
+                                          if spread is not None else None)
+                    ok = True
+                    self._send(200, resp)
+                elif self.path == '/reload':
+                    resp = service.reload()
+                    ok = True
+                    self._send(200, resp)
+                elif self.path == '/predict_file':
+                    if 'file' not in payload:
+                        raise ValueError('request needs "file"')
+                    res = service.predict_file(
+                        payload['file'], payload.get('trial', 0),
+                        payload.get('max_windows'))
+                    rows = len(res['window_starts'])
+                    ok = True
+                    self._send(200, {
+                        'window_starts': res['window_starts'].tolist(),
+                        'last_frame': res['last_frame'].tolist(),
+                        'outputs': _encode_outputs(res['outputs'], encoding)})
+                else:
+                    self._send(404, {'error': f'unknown path {self.path}'})
+            except ValueError as e:
+                self._send(400, {'error': str(e)})
+            except FileNotFoundError as e:
+                self._send(404, {'error': str(e)})
+            except Exception as e:   # pragma: no cover — last-resort guard
+                logger.exception('predict failed')
+                self._send(500, {'error': f'{type(e).__name__}: {e}'})
+            finally:
+                service.record_request(rows, (time.time() - t_start) * 1e3,
+                                       error=not ok)
+
+    return Handler
+
+
+def serve(service: InferenceService, host: str = '127.0.0.1',
+          port: int = 8090) -> ThreadingHTTPServer:
+    """Build (and return) the HTTP server; caller runs serve_forever()."""
+    server = ThreadingHTTPServer((host, port), make_handler(service))
+    logger.info('serving %s on http://%s:%d (max_batch=%d)',
+                service.config.model_type, host, server.server_address[1],
+                service.max_batch)
+    return server

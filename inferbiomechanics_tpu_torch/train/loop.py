@@ -11,8 +11,9 @@ from typing import Optional
 
 import torch
 
+from inferbiomechanics_tpu_torch.config import Config
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.models import get_model
-from inferbiomechanics_tpu_torch.shared import Config, WindowDataset
 
 
 def build_model_for_dataset(config: Config, ds: WindowDataset, *,
@@ -32,6 +33,10 @@ def build_model_for_dataset(config: Config, ds: WindowDataset, *,
         batchnorm=config.batchnorm,
         dropout=config.dropout,
         dropout_prob=config.dropout_prob,
+        d_model=config.d_model,
+        num_layers=config.num_layers,
+        num_heads=config.num_heads,
+        attn_impl=config.attn_impl,
         init_style=config.init_style,
         generator=generator,
         device=device,

@@ -1,4 +1,5 @@
-"""Move feedforward weights between the JAX package and the port.
+"""Move feedforward and transformer weights between the JAX package and
+the port.
 
 The JAX ``FeedForwardBaseline`` (``inferbiomechanics_tpu/models/
 feedforward.py``) keeps one of two parameter trees:
@@ -10,6 +11,11 @@ feedforward.py``) keeps one of two parameter trees:
 Kernels are ``[in, out]``; ``nn.Linear`` stores ``weight [out, in]``, so
 they are transposed. Both sides use the same frame-major output head, so
 no column is permuted. Arrays cross as numpy.
+
+The JAX ``TransformerRegressor`` with ``attn_impl='vpu'``
+(``inferbiomechanics_tpu/models/transformer.py``) keeps the flax tree that
+``_TRANSFORMER_DENSE`` and ``_TRANSFORMER_NORM`` list; the QKV columns are
+``[q | k | v]`` on both sides.
 """
 
 from __future__ import annotations
@@ -63,4 +69,79 @@ def feedforward_params_to_jax(state_dict: Mapping[str, torch.Tensor],
             out[f'W{i}'], out[f'b{i}'] = kernel, bias
         else:
             out[f'Dense_{i}'] = {'kernel': kernel, 'bias': bias}
+    return out
+
+
+# state-dict prefix of the port's TransformerRegressor -> path in the flax
+# tree ('{i}' is the layer index); LayerNorms carry scale/bias, Dense layers
+# kernel/bias
+_TRANSFORMER_DENSE = {
+    'input_proj': ('Dense_0',),
+    'blocks.{i}.attn.qkv': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'qkv'),
+    'blocks.{i}.attn.proj': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'proj'),
+    'blocks.{i}.mlp1': ('EncoderBlock_{i}', 'Dense_0'),
+    'blocks.{i}.mlp2': ('EncoderBlock_{i}', 'Dense_1'),
+    'contact_head': ('contact_head',),
+    'tau_head': ('tau_head',),
+    'com_acc_head': ('com_acc_head',),
+    'contact_cls_head': ('contact_cls_head',),
+}
+_TRANSFORMER_NORM = {
+    'blocks.{i}.ln1': ('EncoderBlock_{i}', 'LayerNorm_0'),
+    'blocks.{i}.ln2': ('EncoderBlock_{i}', 'LayerNorm_1'),
+    'final_ln': ('LayerNorm_0',),
+}
+_OPTIONAL_HEADS = ('tau_head', 'com_acc_head', 'contact_cls_head')
+
+
+def _transformer_entries(num_layers: int):
+    """(state-dict prefix, flax path, is_dense) for every module."""
+    for table, dense in ((_TRANSFORMER_DENSE, True), (_TRANSFORMER_NORM, False)):
+        for prefix, path in table.items():
+            for i in (range(num_layers) if '{i}' in prefix else (0,)):
+                yield (prefix.format(i=i),
+                       tuple(part.format(i=i) for part in path), dense)
+
+
+def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``vpu`` transformer params -> the port's state dict."""
+    if any(re.fullmatch(r'enc\d+_\w+', k) for k in params):
+        raise ValueError("this is an attn_impl='pallas' tree (enc{i}_*); only "
+                         "the 'vpu' tree is ported")
+    num_layers = len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
+    sd = {'temporal_embedding': torch.from_numpy(
+        np.asarray(params['temporal_embedding'], np.float32).copy())}
+    for prefix, path, dense in _transformer_entries(num_layers):
+        node = params
+        for part in path:
+            node = node.get(part) if node is not None else None
+        if node is None:
+            if prefix in _OPTIONAL_HEADS:
+                continue
+            raise ValueError(f'transformer tree has no {"/".join(path)}')
+        w = np.asarray(node['kernel' if dense else 'scale'], np.float32)
+        sd[f'{prefix}.weight'] = torch.from_numpy((w.T if dense else w).copy())
+        sd[f'{prefix}.bias'] = torch.from_numpy(
+            np.asarray(node['bias'], np.float32).copy())
+    return sd
+
+
+def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's transformer state dict -> the JAX ``vpu`` tree of numpy
+    arrays."""
+    num_layers = len([k for k in state_dict
+                      if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
+    to_np = lambda t: t.detach().cpu().float().numpy().copy()   # noqa: E731
+    out: Dict = {'temporal_embedding': to_np(state_dict['temporal_embedding'])}
+    for prefix, path, dense in _transformer_entries(num_layers):
+        if f'{prefix}.weight' not in state_dict:
+            if prefix in _OPTIONAL_HEADS:
+                continue
+            raise ValueError(f'state dict has no {prefix}.weight')
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        w = to_np(state_dict[f'{prefix}.weight'])
+        node['kernel' if dense else 'scale'] = w.T.copy() if dense else w
+        node['bias'] = to_np(state_dict[f'{prefix}.bias'])
     return out

@@ -9,6 +9,7 @@ there, so skip the JAX-side conftest):
 import pytest
 import torch
 
+from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -49,3 +50,45 @@ def test_fused_mlp_kernel_matches_plain(cuda, batch, dims, activation):
     torch.cuda.synchronize()
     assert out.shape == (batch, dims[-1]) and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, rtol=0, atol=ATOL)
+
+
+def random_encoder_params(gen, d, m):
+    """Seeded parameters whose biases and LayerNorm rows are not the zeros
+    and ones of ``init_encoder_params``, so that a wrong bias add shows."""
+    params = list(fe.init_encoder_params(gen, d, m // d))
+    for i, p in enumerate(params):
+        if p.ndim == 1:
+            noise = torch.randn(p.shape, generator=gen)
+            params[i] = (1.0 + 0.2 * noise) if i in (0, 6) else 0.3 * noise
+    return tuple(params)
+
+
+# the JAX suite's tolerance for the Pallas kernel against its reference in
+# bf16 (tests/test_pallas_encoder.py) is rtol = atol = 5e-2; the kernel and
+# the plain version differ only in the order of the f32 sums and in bf16
+# roundings that those flip, which stays below 1e-2 on outputs of a few units
+ENC_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize('batch,t,d,heads,mlp_ratio', [
+    (1, 10, 256, 8, 4),
+    (37, 10, 256, 8, 4),
+    (4096, 10, 256, 8, 4),
+    (37, 4, 128, 4, 4),
+    (37, 10, 384, 8, 4),      # 48-wide heads, two row tiles
+    (5, 7, 128, 4, 2),        # a frame count with no unrolled attention
+    (3, 16, 768, 8, 4),       # the widest d_model the kernel takes
+    (2, 48, 256, 8, 4),       # the longest window
+])
+def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio):
+    gen = torch.Generator().manual_seed(batch + t + d)
+    packed = fe.pack_encoder_params(
+        random_encoder_params(gen, d, d * mlp_ratio), cuda)
+    x = torch.randn(batch, t, d, generator=gen).to(cuda)
+    before = fe.launches
+    out = fe.fused_encoder_layer(x, packed, heads)
+    assert fe.launches == before + 1
+    ref = fe.encoder_layer_reference(x, packed.params, heads)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **ENC_TOL)

@@ -1,0 +1,110 @@
+"""The port's own copies of the config schema and the data layer
+(inferbiomechanics_tpu_torch/config.py, data/) against the JAX package's
+(inferbiomechanics_tpu/config.py, data/): the same synthetic subject gives
+identical arrays and layouts through both, and both flag parsers agree
+field by field. Exact equality: both sides are the same numpy code.
+"""
+
+import argparse
+import dataclasses
+
+import numpy as np
+import pytest
+
+from inferbiomechanics_tpu import config as jax_config
+from inferbiomechanics_tpu.data import dataset as jax_dataset
+from inferbiomechanics_tpu.data import keys as jax_keys
+from inferbiomechanics_tpu.data import synthetic as jax_synthetic
+from inferbiomechanics_tpu_torch import config as port_config
+from inferbiomechanics_tpu_torch.data import dataset as port_dataset
+from inferbiomechanics_tpu_torch.data import keys as port_keys
+from inferbiomechanics_tpu_torch.data import synthetic as port_synthetic
+
+
+@pytest.fixture(scope='module')
+def subjects(tmp_path_factory):
+    root = tmp_path_factory.mktemp('torchdata')
+    paths = {}
+    for name, module in (('jax', jax_synthetic), ('port', port_synthetic)):
+        (root / name).mkdir()
+        paths[name] = str(root / name / 's.b3d')
+        module.write_synthetic_subject(paths[name], num_trials=2,
+                                       trial_length=90, seed=3)
+    return paths
+
+
+def test_synthetic_subject_files_are_identical(subjects):
+    with open(subjects['jax'], 'rb') as a, open(subjects['port'], 'rb') as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
+@pytest.mark.parametrize('window,stride', [(50, 5), (20, 5)])
+def test_window_datasets_agree(subjects, window, stride, fmt):
+    """One file, opened by both packages' WindowDataset."""
+    kwargs = dict(window_size=window, stride=stride, output_data_format=fmt,
+                  skip_loading_skeletons=True)
+    jd = jax_dataset.WindowDataset(subjects['jax'], **kwargs)
+    pd = port_dataset.WindowDataset(subjects['jax'], **kwargs)
+    assert len(pd) == len(jd) > 0
+    for name in ('num_dofs', 'num_contact_bodies', 'root_history_len',
+                 'num_model_frames', 'num_input_channels', 'window_size', 'stride'):
+        assert getattr(pd, name) == getattr(jd, name), name
+    assert list(pd.contact_bodies) == list(jd.contact_bodies)
+    assert [tuple(e) for e in pd.in_layout] == [tuple(e) for e in jd.in_layout]
+    assert [tuple(e) for e in pd.lab_layout] == [tuple(e) for e in jd.lab_layout]
+    for name in ('win_subject', 'win_trial', 'win_start'):
+        np.testing.assert_array_equal(getattr(pd, name), getattr(jd, name))
+    idx = np.arange(0, len(jd), 3)
+    jb, pb = jd.gather(idx), pd.gather(idx)
+    np.testing.assert_array_equal(np.asarray(pb.inputs), np.asarray(jb.inputs))
+    np.testing.assert_array_equal(np.asarray(pb.labels), np.asarray(jb.labels))
+
+
+def test_input_layout_and_keys_agree():
+    for dofs, root in ((23, 10), (37, 5)):
+        assert port_dataset.input_layout(dofs, root) == jax_dataset.input_layout(dofs, root)
+    assert port_keys.INPUT_CONCAT_ORDER == jax_keys.INPUT_CONCAT_ORDER
+    for cls in ('InputDataKeys', 'OutputDataKeys'):
+        a, b = getattr(port_keys, cls), getattr(jax_keys, cls)
+        assert ({k: v for k, v in vars(a).items() if not k.startswith('_')}
+                == {k: v for k, v in vars(b).items() if not k.startswith('_')})
+
+
+def test_config_defaults_agree_field_by_field():
+    jc, pc = jax_config.Config(), port_config.Config()
+    jf = {f.name: f.type for f in dataclasses.fields(jc)}
+    pf = {f.name: f.type for f in dataclasses.fields(pc)}
+    assert pf == jf
+    for name in jf:
+        assert getattr(pc, name) == getattr(jc, name), name
+    assert (pc.model_type, pc.d_model, pc.num_layers, pc.num_heads,
+            pc.attn_impl, pc.fused_inference) == ('feedforward', 256, 4, 8, 'vpu', False)
+
+
+def _parser(module):
+    parser = argparse.ArgumentParser()
+    module.add_config_flags(parser)
+    return parser
+
+
+def test_flag_parsers_declare_the_same_flags():
+    def flags(parser):
+        return {tuple(a.option_strings): (a.dest, a.default, a.nargs, a.type,
+                                          tuple(a.choices) if a.choices else None,
+                                          type(a).__name__)
+                for a in parser._actions}
+    assert flags(_parser(port_config)) == flags(_parser(jax_config))
+
+
+@pytest.mark.parametrize('argv', [
+    [],
+    ['--model-type', 'transformer', '--fused-inference', '--d-model', '128',
+     '--num-layers', '2', '--num-heads', '4', '--history-len', '20', '--stride', '5'],
+    ['--hidden-dims', '64', '32', '--activation', 'relu', '--output-data-format',
+     'all_frames', '--dataset-home', 'D', '--checkpoint-dir', 'C', '--short'],
+])
+def test_config_from_args_agrees(argv):
+    jc = jax_config.config_from_args(_parser(jax_config).parse_args(argv))
+    pc = port_config.config_from_args(_parser(port_config).parse_args(argv))
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)

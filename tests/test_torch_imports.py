@@ -1,7 +1,10 @@
-"""The port imports no jax, flax or optax, and never swaps the GPU for the CPU.
+"""The port imports no jax, flax or optax and nothing of the JAX package, and
+never swaps the GPU for the CPU.
 
-Each test runs a fresh interpreter in which ``import jax`` (and flax,
-optax) fails, as on a machine that has only PyTorch.
+Each test runs a fresh interpreter in which ``import jax`` (and jaxlib,
+flax, optax) fails, as on a machine that has only PyTorch. The JAX package
+``inferbiomechanics_tpu`` is importable there (it lies beside the port), so
+that a stray import of it would succeed and show up in ``sys.modules``.
 """
 
 import os
@@ -18,6 +21,10 @@ _NO_JAX = """
 import sys
 for name in ('jax', 'jaxlib', 'flax', 'optax'):
     sys.modules[name] = None        # any import of them raises ImportError
+
+def jax_package_modules():
+    return sorted(k for k, v in sys.modules.items() if v is not None and
+                  k.split('.')[0] == 'inferbiomechanics_tpu')
 """
 
 
@@ -40,34 +47,46 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
             importlib.import_module(name)
         print('modules', ' '.join(names))
 
-        from inferbiomechanics_tpu_torch.serve import InferenceService
-        from inferbiomechanics_tpu_torch.shared import (
-            Config, WindowDataset, write_synthetic_subject)
+        import json, threading, urllib.request
+        from inferbiomechanics_tpu_torch.config import Config
+        from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+        from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+        from inferbiomechanics_tpu_torch.serve import InferenceService, serve
         write_synthetic_subject('s.b3d', num_trials=1, trial_length=60, seed=0)
-        cfg = Config()
-        cfg.window_size, cfg.hidden_dims = 20, [32]
         ds = WindowDataset('s.b3d', window_size=20, stride=5,
                            skip_loading_skeletons=True)
-        svc = InferenceService(cfg, 'ckpt', ds, max_batch=8, device='cpu')
-        out = svc.predict(np.asarray(ds.gather(np.arange(3)).inputs))
-        assert all(v.shape[0] == 3 and np.isfinite(v).all() for v in out.values())
-        assert sys.modules['jax'] is None and sys.modules['flax'] is None
-        from inferbiomechanics_tpu_torch.shared import JAX_FREE_MODULES
-        loaded = {k for k, v in sys.modules.items() if v is not None and
-                  k.split('.')[0] == 'inferbiomechanics_tpu'}
-        assert loaded <= JAX_FREE_MODULES, sorted(loaded - JAX_FREE_MODULES)
-        print('predicted', sorted(out))
+        x = np.asarray(ds.gather(np.arange(3)).inputs)
+        for model_type in ('feedforward', 'transformer'):
+            cfg = Config()
+            cfg.model_type, cfg.window_size, cfg.hidden_dims = model_type, 20, [32]
+            cfg.d_model, cfg.num_layers, cfg.num_heads = 128, 1, 4
+            cfg.fused_inference = model_type == 'transformer'
+            svc = InferenceService(cfg, 'ckpt', ds, max_batch=8, device='cpu')
+            server = serve(svc, port=0)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            req = urllib.request.Request(
+                f'http://127.0.0.1:{server.server_address[1]}/predict',
+                data=json.dumps({'inputs': x.tolist()}).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())['outputs']
+            server.shutdown()
+            server.server_close()
+            assert all(np.asarray(v).shape[0] == 3 and np.isfinite(v).all()
+                       for v in out.values())
+            print('predicted', model_type, len(out))
+        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
+        assert jax_package_modules() == [], jax_package_modules()
     """, tmp_path)
-    for module in ('ops.fused_mlp', 'models.feedforward', 'serve', 'cli.serve_cmd',
-                   'train.checkpoint', 'weights', '__main__'):
-        assert f'inferbiomechanics_tpu_torch.{module}' in out
-    assert 'predicted' in out
+    for module in ('config', 'data.dataset', 'data.b3d_legacy', 'ops.fused_mlp',
+                   'ops.fused_encoder', 'models.feedforward', 'models.transformer',
+                   'serve', 'cli.serve_cmd', 'train.checkpoint', 'weights', '__main__'):
+        assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
+    assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
 
 
-def test_chip_smoke_loads_only_jax_free_modules_of_the_jax_package(tmp_path):
+def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
     """Every import that ``chip_smoke.py`` makes, at module level or inside
-    its functions, loads no module of the JAX package beyond the jax-free
-    ones that the port shares (``shared.JAX_FREE_MODULES``)."""
+    its functions, loads no module of the JAX package."""
     out = _run(f"""
         import ast, importlib
         tree = ast.parse(open({str(REPO / 'chip_smoke.py')!r}).read())
@@ -83,15 +102,13 @@ def test_chip_smoke_loads_only_jax_free_modules_of_the_jax_package(tmp_path):
                         names.add(f'{{node.module}}.{{a.name}}')
         for name in sorted(names):
             importlib.import_module(name)
-        from inferbiomechanics_tpu_torch.shared import JAX_FREE_MODULES
-        loaded = {{k for k, v in sys.modules.items() if v is not None and
-                  k.split('.')[0] == 'inferbiomechanics_tpu'}}
         assert 'inferbiomechanics_tpu_torch.serve' in sys.modules
-        assert loaded <= JAX_FREE_MODULES, sorted(loaded - JAX_FREE_MODULES)
-        assert all(sys.modules[n] is None for n in ('jax', 'flax', 'optax'))
-        print('loaded', ' '.join(sorted(loaded)))
+        assert 'inferbiomechanics_tpu_torch.ops.fused_encoder' in sys.modules
+        assert jax_package_modules() == [], jax_package_modules()
+        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
+        print('imported', ' '.join(sorted(names)))
     """, tmp_path)
-    assert 'inferbiomechanics_tpu.serve' in out
+    assert 'inferbiomechanics_tpu_torch.data.synthetic' in out.split()
 
 
 def test_cuda_device_without_a_gpu_raises(tmp_path):
@@ -101,7 +118,7 @@ def test_cuda_device_without_a_gpu_raises(tmp_path):
         import torch
         torch.cuda.is_available = lambda: False      # a machine with no GPU
         from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, main
-        from inferbiomechanics_tpu_torch.shared import write_synthetic_subject
+        from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
         assert build_parser().parse_args(['serve']).device == 'cuda'
         import os
         os.makedirs('data')
@@ -117,11 +134,16 @@ def test_cuda_device_without_a_gpu_raises(tmp_path):
 
 
 def test_port_sources_name_no_jax_import():
-    pattern = re.compile(r'^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b', re.M)
-    offenders = [str(p.relative_to(REPO)) for p in PORT.rglob('*.py')
+    """No import line of the port or of ``chip_smoke.py`` names jax, jaxlib,
+    flax, optax or the JAX package."""
+    pattern = re.compile(
+        r'^\s*(import|from)\s+(jax|jaxlib|flax|optax|inferbiomechanics_tpu)(\.|\s|$)',
+        re.M)
+    sources = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py']
+    assert len(sources) > 20
+    offenders = [str(p.relative_to(REPO)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
-    chip_smoke = (REPO / 'chip_smoke.py').read_text()
-    assert not pattern.search(chip_smoke)
-    assert not re.search(r'^\s*(import|from)\s+inferbiomechanics_tpu\b(?!_torch)',
-                         chip_smoke, re.M)
+    assert pattern.search('    from inferbiomechanics_tpu.data import keys')
+    assert not pattern.search('from inferbiomechanics_tpu_torch.data import keys')
+    assert not (PORT / 'shared.py').exists()

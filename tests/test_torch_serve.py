@@ -5,7 +5,8 @@ checkpoints and its ``serve`` command) against the JAX package's
 One synthetic dataset (window 20, stride 5) and one set of weights: the JAX
 service serves a JAX checkpoint, the port's service (on the CPU) serves the
 same weights converted into a port checkpoint in the same directory, and
-both answer the same HTTP requests.
+both answer the same HTTP requests. The feedforward model first, then the
+transformer (d_model 128, 2 layers, 4 heads) with ``--fused-inference``.
 """
 
 import base64
@@ -28,7 +29,6 @@ from inferbiomechanics_tpu.config import Config
 from inferbiomechanics_tpu.data.dataset import WindowDataset
 from inferbiomechanics_tpu.data.synthetic import write_synthetic_subject
 from inferbiomechanics_tpu.serve import InferenceService as JaxService
-from inferbiomechanics_tpu.serve import serve
 from inferbiomechanics_tpu.train import (
     create_train_state, make_optimizer, save_checkpoint as jax_save,
 )
@@ -36,10 +36,12 @@ from inferbiomechanics_tpu.train import checkpoint as jax_ckpt
 from inferbiomechanics_tpu.train.loop import build_model_for_dataset as jax_build
 from inferbiomechanics_tpu.train.run_config import load_run_config, save_run_config
 from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser
-from inferbiomechanics_tpu_torch.serve import InferenceService
+from inferbiomechanics_tpu_torch.serve import InferenceService, serve
 from inferbiomechanics_tpu_torch.train import checkpoint as port_ckpt
 from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
-from inferbiomechanics_tpu_torch.weights import feedforward_state_dict_from_jax
+from inferbiomechanics_tpu_torch.weights import (
+    feedforward_state_dict_from_jax, transformer_state_dict_from_jax,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 # The JAX service runs flax Dense layers (bf16 matmul output, bf16 bias
@@ -185,8 +187,8 @@ def test_metrics_have_the_jax_fields(urls, setup):
 
 
 def test_dynamic_batcher_matches_jax(urls, setup):
-    """Concurrent clients through the shared _DynamicBatcher in front of the
-    port's service give the JAX service's answers."""
+    """Concurrent clients through the port's DynamicBatcher in front of its
+    service give the JAX service's answers."""
     svc = InferenceService(setup['cfg'], setup['ckpt'], setup['ds'],
                            max_batch=64, batch_wait_ms=30, device='cpu')
     server, url = _start(svc)
@@ -259,14 +261,15 @@ def test_untrained_model_when_no_checkpoint(setup, tmp_path):
 @pytest.mark.parametrize('option', [
     {'ensemble': ['a', 'b']}, {'quantize': 'int8'}, {'use_ema': True},
     {'tta_mirror': True}, {'diffusion_samples': 4}, {'diffusion_partial': 0.3},
-    {'init_checkpoint': 'x'}, {'config': {'fused_inference': True}},
+    {'init_checkpoint': 'x'}, {'config': {'model_type': 'groundlink'}},
     {'config': {'model_type': 'diffusion'}},
 ])
 def test_unported_serving_options_raise(setup, option):
     cfg = _config()
     for k, v in option.pop('config', {}).items():
         setattr(cfg, k, v)
-    with pytest.raises(ValueError, match='not yet ported'):
+    with pytest.raises((ValueError, NotImplementedError),
+                       match='not yet ported|not ported yet'):
         InferenceService(cfg, setup['ckpt'], setup['ds'], device='cpu', **option)
 
 
@@ -302,9 +305,162 @@ def test_serve_command_answers_health(setup):
         proc.wait(timeout=30)
 
 
-
 def test_serve_command_refuses_reload_polling(capsys):
     """Checkpoint polling is not ported: ``POST /reload`` swaps weights."""
     with pytest.raises(SystemExit):
         build_parser().parse_args(['serve', '--reload-poll-sec', '5'])
     assert 'unrecognized arguments: --reload-poll-sec' in capsys.readouterr().err
+
+
+# -- the transformer, with --fused-inference ----------------------------------
+
+# Both services run the fused forward: the JAX one its reference layer (on
+# the CPU), the port its plain layer. Held per head at 2e-2 x max|JAX
+# answer|, inside the JAX suite's 3e-2 for the same forward
+# (tests/test_pallas_encoder.py).
+REL = 2e-2
+
+
+def _transformer_config(fused=True):
+    cfg = _config()
+    cfg.model_type = 'transformer'
+    cfg.d_model, cfg.num_layers, cfg.num_heads = 128, 2, 4
+    cfg.fused_inference = fused
+    return cfg
+
+
+@pytest.fixture(scope='module')
+def tsetup(setup):
+    cfg, ds = _transformer_config(), setup['ds']
+    ckpt = str(setup['ckpt_root'] / 'transformer')
+    state = create_train_state(jax_build(cfg, ds), jax.random.PRNGKey(1),
+                               jnp.asarray(ds.gather(np.arange(4)).inputs),
+                               make_optimizer('adam', 1e-3))
+    rng = np.random.default_rng(1)      # biases and LayerNorm rows off their init
+    params = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + 0.1 * rng.normal(size=p.shape)).astype(np.float32)
+        if p.ndim == 1 else np.asarray(p), jax.device_get(state.params))
+    jax_save(ckpt, state.replace(params=params), 2, 9)
+    model = build_model_for_dataset(cfg, ds)
+    model.load_state_dict(transformer_state_dict_from_jax(params))
+    port_ckpt.save_checkpoint(ckpt, model, 2, 9)
+    return dict(setup, cfg=cfg, ckpt=ckpt)
+
+
+@pytest.fixture(scope='module')
+def turls(tsetup):
+    jax_svc = JaxService(tsetup['cfg'], tsetup['ckpt'], tsetup['ds'], max_batch=16)
+    port_svc = InferenceService(tsetup['cfg'], tsetup['ckpt'], tsetup['ds'],
+                                max_batch=16, device='cpu')
+    servers = [_start(jax_svc), _start(port_svc)]
+    yield servers[0][1], servers[1][1]
+    for server, _ in servers:
+        server.shutdown()
+        server.server_close()
+
+
+def _assert_heads_close(got, want):
+    got, want = _decoded(got), _decoded(want)
+    assert set(got) == set(want) and len(want) == 7
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, err_msg=k,
+                                   atol=REL * (np.abs(want[k]).max() + 1e-6))
+
+
+def test_transformer_health_and_schema_match_jax(turls):
+    jax_url, port_url = turls
+    hj, hp = _get(jax_url + '/health'), _get(port_url + '/health')
+    assert hp == hj == {'status': 'ok', 'model': 'transformer', 'epoch': 2,
+                        'batch': 9, 'ensemble_size': 0}
+    sj, sp = _get(jax_url + '/schema'), _get(port_url + '/schema')
+    for key in SHARED_SCHEMA_KEYS + ('fused_inference',):
+        assert sp[key] == sj[key], key
+    assert sp['fused_inference'] is True
+
+
+@pytest.mark.parametrize('encoding,rows', [('json', 1), ('json', 5), ('b64', 7)])
+def test_transformer_predict_matches_jax(turls, tsetup, encoding, rows):
+    x = np.asarray(tsetup['ds'].gather(np.arange(2, 2 + rows)).inputs, '<f4')
+    if encoding == 'b64':
+        payload = {'inputs_b64': base64.b64encode(x.tobytes()).decode(),
+                   'shape': list(x.shape), 'encoding': 'b64'}
+    else:
+        payload = {'inputs': x.tolist()}
+    rj, rp = (_post(u + '/predict', payload) for u in turls)
+    assert rp['batch'] == rj['batch'] == rows
+    _assert_heads_close(rp['outputs'], rj['outputs'])
+
+
+def test_transformer_predict_file_matches_jax(turls, tsetup):
+    payload = {'file': tsetup['file'], 'trial': 0, 'max_windows': 12}
+    rj, rp = (_post(u + '/predict_file', payload) for u in turls)
+    assert rp['window_starts'] == rj['window_starts'] and len(rp['window_starts']) == 12
+    _assert_heads_close(rp['outputs'], rj['outputs'])
+
+
+def test_transformer_without_the_flag_serves_the_vpu_forward(turls, tsetup):
+    svc = InferenceService(_transformer_config(fused=False), tsetup['ckpt'],
+                           tsetup['ds'], max_batch=16, device='cpu')
+    assert svc.schema()['fused_inference'] is False
+    x = np.asarray(tsetup['ds'].gather(np.arange(4)).inputs)
+    got = svc.predict_packed(x)
+    with torch.no_grad():
+        want = svc.model(torch.from_numpy(x))
+    fused = _decoded(_post(turls[1] + '/predict', {'inputs': x.tolist()})['outputs'])
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k].numpy())
+    assert any(not np.array_equal(got[k], fused[k]) for k in got)
+
+
+def test_transformer_reload_swaps_the_packed_weights(tsetup, tmp_path):
+    ckpt, cfg, ds = str(tmp_path / 'transformer'), tsetup['cfg'], tsetup['ds']
+    first = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(1))
+    port_ckpt.save_checkpoint(ckpt, first, 0, 1)
+    svc = InferenceService(cfg, ckpt, ds, max_batch=8, device='cpu')
+    x = np.asarray(ds.gather(np.arange(2)).inputs)
+    before, packed = svc.predict_packed(x), svc.model.packed()
+    second = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(2))
+    port_ckpt.save_checkpoint(ckpt, second, 0, 2)
+    assert svc.reload() == {'reloaded': True, 'epoch': 0, 'batch': 2}
+    assert svc.model.packed() is not packed
+    after = svc.predict_packed(x)
+    for k in after:
+        assert not np.allclose(after[k], before[k]), k
+
+
+@pytest.mark.parametrize('change', [
+    {'model_type': 'feedforward'}, {'d_model': 64, 'num_heads': 2}])
+def test_fused_inference_the_model_cannot_honour_is_ignored_with_a_warning(
+        tsetup, tmp_path, caplog, change):
+    """As the JAX service does: the same warning, then the plain forward."""
+    cfg = _transformer_config()
+    for k, v in change.items():
+        setattr(cfg, k, v)
+    with caplog.at_level('WARNING', logger='inferbiomechanics_tpu_torch.serve'):
+        svc = InferenceService(cfg, str(tmp_path / cfg.model_type), tsetup['ds'],
+                               max_batch=8, device='cpu')
+    assert '--fused-inference ignored: needs a vpu transformer' in caplog.text
+    assert svc.schema()['fused_inference'] is False
+    out = svc.predict_packed(np.asarray(tsetup['ds'].gather(np.arange(2)).inputs))
+    assert all(np.isfinite(v).all() for v in out.values())
+
+
+def test_serve_command_serves_the_transformer_with_fused_inference(tsetup):
+    cmd = [sys.executable, '-m', 'inferbiomechanics_tpu_torch', 'serve',
+           '--device', 'cpu', '--port', '0', '--model-type', 'transformer',
+           '--fused-inference', '--dataset-home', str(tsetup['data']),
+           '--checkpoint-dir', str(tsetup['ckpt_root']),
+           '--history-len', '20', '--stride', '5', '--d-model', '128',
+           '--num-layers', '2', '--num-heads', '4']
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert 'serving transformer (epoch 2, batch 9) on cpu at http://' in line, line
+        url = line.split(' at ')[1].split()[0]
+        assert _get(url + '/schema')['fused_inference'] is True
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

@@ -1,0 +1,174 @@
+"""The port's transformer (inferbiomechanics_tpu_torch/models/transformer.py,
+weights.py) against the JAX package's (inferbiomechanics_tpu/models/
+transformer.py) on the same numpy inputs and weights.
+
+Small size: d_model 128, 2 layers, 4 heads, window 50 / stride 5 (T = 10),
+177 input channels. The JAX fused forward runs its reference layer on the
+CPU and, under ``IB_PALLAS_INTERPRET=1``, the Pallas kernel in interpret
+mode; the port's fused forward runs its plain layer on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferbiomechanics_tpu.models import get_model as jax_get_model
+from inferbiomechanics_tpu.models.transformer import (
+    fused_transformer_forward as jax_fused_forward,
+)
+from inferbiomechanics_tpu_torch.models import get_model
+from inferbiomechanics_tpu_torch.models.transformer import (
+    TransformerRegressor, fused_transformer_forward,
+)
+from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+from inferbiomechanics_tpu_torch.weights import (
+    transformer_params_to_jax, transformer_state_dict_from_jax,
+)
+
+SIZE = dict(num_dofs=23, num_contact_bodies=2, history_len=50, stride=5,
+            root_history_len=10, d_model=128, num_layers=2, num_heads=4)
+# The JAX suite holds its fused forward to model.apply at 3e-2 x max|ref|
+# per head (tests/test_pallas_encoder.py). Port against JAX, the same
+# forward on the same weights differs only by where XLA and PyTorch round
+# to bf16 and in which order they sum: 2e-2 x max|ref|.
+REL = 2e-2
+
+
+def _models(fmt):
+    jm = jax_get_model('transformer', output_data_format=fmt, **SIZE)
+    pm = get_model('transformer', output_data_format=fmt, **SIZE)
+    return jm, pm
+
+
+def _jax_params(jm, seed):
+    """Initialised by flax, then every bias and LayerNorm row moved off its
+    zeros / ones with seeded numpy noise, so that each one matters."""
+    x = jnp.zeros((2, 10, 177), jnp.float32)
+    params = jax.device_get(jm.init({'params': jax.random.PRNGKey(seed)}, x,
+                                    train=False)['params'])
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda p: (p + 0.1 * rng.normal(size=p.shape)).astype(np.float32)
+        if p.ndim == 1 else np.asarray(p), params)
+
+
+def _x(seed, b=6):
+    return np.random.default_rng(seed).normal(0, 1, (b, 10, 177)).astype(np.float32)
+
+
+def _assert_heads_close(got, want, fmt):
+    assert set(got) == set(want) and len(want) == 7
+    frames = 10 if fmt == 'all_frames' else 1
+    for k in want:
+        a, b = np.asarray(want[k]), got[k].numpy()
+        assert b.shape == a.shape and a.shape[1] == frames, k
+        assert b.dtype == np.float32
+        np.testing.assert_allclose(b, a, rtol=0, atol=REL * (np.abs(a).max() + 1e-6),
+                                   err_msg=f'head {k}')
+
+
+def test_weights_there_and_back():
+    jm, pm = _models('last_frame')
+    params = _jax_params(jm, 0)
+    sd = transformer_state_dict_from_jax(params)
+    assert set(sd) == set(pm.state_dict())
+    pm.load_state_dict(sd)
+    back = transformer_params_to_jax(pm.state_dict())
+    flat, flat_back = (dict(jax.tree_util.tree_flatten_with_path(t)[0])
+                       for t in (params, back))
+    assert set(flat) == set(flat_back)
+    for path in flat:
+        np.testing.assert_array_equal(flat_back[path], flat[path], err_msg=str(path))
+    # kernels are [in, out] on the JAX side, [out, in] in nn.Linear
+    np.testing.assert_array_equal(
+        sd['blocks.1.attn.qkv.weight'].numpy(),
+        params['EncoderBlock_1']['ShortWindowAttention_0']['qkv']['kernel'].T)
+
+
+def test_weights_refuse_the_pallas_tree():
+    with pytest.raises(ValueError, match='pallas'):
+        transformer_state_dict_from_jax({'enc0_wqkv': np.zeros((2, 6), np.float32)})
+
+
+@pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
+def test_vpu_forward_matches_jax_apply(fmt):
+    jm, pm = _models(fmt)
+    params = _jax_params(jm, 1)
+    pm.load_state_dict(transformer_state_dict_from_jax(params))
+    x = _x(1)
+    want = jm.apply({'params': params}, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        got = pm.eval()(torch.from_numpy(x))
+    _assert_heads_close(got, want, fmt)
+
+
+@pytest.mark.parametrize('interpret', [False, True])
+@pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
+def test_fused_forward_matches_jax_fused_forward(fmt, interpret, monkeypatch):
+    """interpret=True runs the JAX side's Pallas kernel in interpret mode."""
+    monkeypatch.setenv('IB_PALLAS_INTERPRET', '1' if interpret else '0')
+    jm, pm = _models(fmt)
+    params = _jax_params(jm, 2)
+    pm.load_state_dict(transformer_state_dict_from_jax(params))
+    x = _x(2)
+    want = jax_fused_forward(jm, params, jnp.asarray(x))
+    before = fe.launches
+    with torch.no_grad():
+        got = fused_transformer_forward(pm.eval(), torch.from_numpy(x))
+        plain = fused_transformer_forward(pm, torch.from_numpy(x), use_kernel=False)
+    assert fe.launches == before            # on the CPU no kernel runs
+    _assert_heads_close(got, want, fmt)
+    for k in got:                            # the CPU wrapper is the plain version
+        assert torch.equal(got[k], plain[k])
+
+
+def test_fused_and_vpu_forwards_differ_only_at_bf16_residual_level():
+    jm, pm = _models('last_frame')
+    pm.load_state_dict(transformer_state_dict_from_jax(_jax_params(jm, 3)))
+    x = torch.from_numpy(_x(3))
+    with torch.no_grad():
+        vpu, fused = pm.eval()(x), fused_transformer_forward(pm, x)
+    for k in vpu:
+        scale = float(vpu[k].abs().max())
+        assert float((vpu[k] - fused[k]).abs().max()) <= 3e-2 * scale, k
+    assert any(not torch.equal(vpu[k], fused[k]) for k in vpu)
+
+
+def test_packing_is_made_once_and_dropped_on_load():
+    _, pm = _models('last_frame')
+    pm.eval()
+    packed = pm.packed()
+    assert pm.packed() is packed and len(packed.layers) == 2
+    assert packed.layers[0].weights.dtype == torch.bfloat16
+    pm.load_state_dict(pm.state_dict())
+    assert pm.packed() is not packed
+
+
+def test_seeded_init_follows_flax_defaults():
+    a = get_model('transformer', generator=torch.Generator().manual_seed(7), **SIZE)
+    b = get_model('transformer', generator=torch.Generator().manual_seed(7), **SIZE)
+    for (name, p), q in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(p, q), name
+    sd = a.state_dict()
+    assert float(sd['blocks.0.mlp1.bias'].abs().max()) == 0
+    assert torch.equal(sd['final_ln.weight'], torch.ones(128))
+    assert abs(float(sd['blocks.0.mlp1.weight'].std()) * 128 ** 0.5 - 1) < 0.05
+    assert abs(float(sd['temporal_embedding'].std()) / 0.02 - 1) < 0.1
+
+
+@pytest.mark.parametrize('kwargs,match', [
+    ({'attn_impl': 'pallas'}, 'transformer training'),
+    ({'attn_impl': 'flax'}, 'not ported'),
+    ({'dropout': True, 'dropout_prob': 0.1}, 'dropout'),
+])
+def test_unported_transformer_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        get_model('transformer', **SIZE, **kwargs)
+
+
+def test_wrong_frame_count_is_refused():
+    pm = TransformerRegressor(23, 2, 50, 5, 10, d_model=128, num_layers=1, num_heads=4)
+    with pytest.raises(ValueError, match=r'expected \(B, 10, C\)'):
+        pm(torch.zeros(2, 9, 177))
