@@ -6,10 +6,10 @@
 Phases, each of which fails the run:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build the kernels (``ops/csrc/*.cu``: K1 fused MLP, K2 fused encoder
-     layer) from this checkout with nvcc;
+     layer, K4 fused GroundLink forward) from this checkout with nvcc;
   3. each kernel against its plain PyTorch version on the card: K1 at nine
-     cases (atol 1e-2), K2 at five (rtol = atol = 1e-2), with random biases
-     and LayerNorm rows;
+     cases (atol 1e-2), K2 at five (rtol = atol = 1e-2), K4 at seven (2e-2 x
+     max|plain|), with random biases and LayerNorm rows;
   4. the feedforward serving slice through the ``serve`` command's wiring:
      the default model at full width (1770->512->512->30, sigmoid, window
      50 / stride 5, max_batch 4096) with seeded random weights, answering
@@ -23,11 +23,22 @@ Phases, each of which fails the run:
      heads): every head of every answer is held against the plain fused
      forward on the card, /schema says ``fused_inference: true``, and every
      device forward must have launched K2 four times;
+  5b. the GroundLink serving slice, the same requests through ``serve
+     --model-type groundlink`` at full width (177 -> 128 -> 128 -> 256 -> 256,
+     k = 7, T = 10, fc_depth 3): every answer is held against the plain
+     version on the card, and every device forward must have launched K4
+     once;
+  5c. the serving extras, at fewer requests: a 3-member feedforward
+     ``--ensemble`` (mean and spread against the plain versions, 3 K1
+     launches a forward, /reload refused), ``--tta-mirror`` on GroundLink
+     (the symmetrized plain forward, 2 K4 launches a forward) and
+     ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096: each kernel, its plain version (the f32
      precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
-     chain; K2: ``nn.TransformerEncoderLayer`` in bf16), by CUDA events and
-     by profiler device time, beside the bound the card allows; the 4-layer
-     encoder stack; /predict p50 of both services.
+     chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K4: bf16 ``F.pad`` +
+     ``F.conv1d`` + ``F.elu`` x4 and ``F.linear`` x3, both output formats),
+     by CUDA events and by profiler device time, beside the bound the card
+     allows; the 4-layer encoder stack; /predict p50 of the three services.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -46,6 +57,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 from types import SimpleNamespace
@@ -66,7 +78,20 @@ ENC_TOL = 1e-2
 # 2..4 is 1.6e-2), so a layer difference within ENC_TOL can move an answer
 # by an ulp or two. The JAX suite holds its fused forward to 3e-2 this way.
 HEAD_REL = 3e-2
+# K4 against its plain version, relative to the largest output. Both round
+# the same operands to bf16 and sum in f32; a different order of the sums
+# flips the bf16 rounding of some activations (2^-8 relative), and the six
+# layers that follow carry and amplify a flip. The plain version on a CPU with
+# every f32 sum perturbed by 1e-6 relative moves its own outputs by 3.4e-3 x
+# max|out| at full width, and the kernel was seen up to 3.9e-3 x max|plain|
+# from the plain version on the card; a wrong tap, row or bias moves the
+# outputs by their own size. The JAX suite allows its fused forward 5e-2 x
+# max|ref| in bf16. A served answer is held the same way, against the largest
+# value of its whole 30-wide output vector: the four heads are slices of it,
+# and an error of this size may fall on the head with the smallest values.
+GL_REL = 2e-2
 FULL_DIMS = [1770, 512, 512, 30]
+GL_FULL = dict(t=10, c_in=177, features=(128, 128, 256, 256), taps=7, fc_depth=3, c_out=30)
 ENC_FULL = dict(t=10, d=256, heads=8, mlp_ratio=4, layers=4)
 # dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
@@ -83,6 +108,12 @@ K2 = {
     'route': 'cuda',
     'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_encoder.cu',
     'replaces': 'inferbiomechanics_tpu/ops/pallas_encoder.py:296',
+}
+K4 = {
+    'name': 'fused_groundlink_forward (K4)',
+    'route': 'cuda',
+    'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_groundlink.cu',
+    'replaces': 'inferbiomechanics_tpu/ops/pallas_groundlink.py:149',
 }
 
 
@@ -130,6 +161,11 @@ def _agree(outputs: dict, want: dict, what: str, atol: float = 0.0,
     return worst
 
 
+def _vector_limit(want: dict) -> float:
+    """GL_REL x the largest value of a GroundLink answer over all its heads."""
+    return GL_REL * max(float(np.abs(v).max()) for v in want.values())
+
+
 def _random_params(torch, dims, gen):
     k_params = []
     for d0, d1 in zip(dims[:-1], dims[1:]):
@@ -149,6 +185,54 @@ def _random_encoder_params(torch, fe, gen, d, mlp_ratio):
             noise = torch.randn(p.shape, generator=gen)
             params[i] = 1.0 + 0.2 * noise if fe.PARAM_NAMES[i].endswith('scale') else 0.3 * noise
     return tuple(params)
+
+
+def _random_groundlink_params(torch, gen, c_in, features, fc_depth, taps=7):
+    """A flax-layout GroundLink tree: He-scaled kernels, random biases (the
+    model's init has zero biases, and a wrong bias add would go unseen)."""
+    def draw(*shape, fan_in):
+        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
+    tree, c = {}, c_in
+    for i, f in enumerate(features):
+        tree[f'Conv_{i}'] = {'kernel': draw(taps, c, f, fan_in=taps * c),
+                             'bias': 0.3 * torch.randn(f, generator=gen)}
+        c = f
+    for j in range(fc_depth - 1):
+        tree[f'Dense_{j}'] = {'kernel': draw(c, c, fan_in=c),
+                              'bias': 0.3 * torch.randn(c, generator=gen)}
+    tree[f'Dense_{fc_depth - 1}'] = {'kernel': draw(c, 30, fan_in=c)}
+    return tree
+
+
+def phase_k4_vs_plain(torch, fg, seed: int) -> float:
+    """Returns the largest error at the full-width cases."""
+    gen = torch.Generator().manual_seed(seed)
+    full, small = GL_FULL['features'], (16, 16, 24, 24)
+    cases = [(1, 10, full, 3, 'last_frame'), (37, 10, full, 3, 'all_frames'),
+             (4096, 10, full, 3, 'last_frame'), (4096, 10, full, 3, 'all_frames'),
+             (37, 4, small, 3, 'all_frames'),     # the small test shape, padded widths
+             (37, 4, small, 3, 'last_frame'),
+             (37, 10, full, 1, 'last_frame')]     # the head right after the convs
+    worst = 0.0
+    for b, t, features, fc_depth, fmt in cases:
+        packed = fg.pack_groundlink_params(
+            _random_groundlink_params(torch, gen, GL_FULL['c_in'], features, fc_depth), 'cuda')
+        x = torch.randn(b, t, GL_FULL['c_in'], generator=gen).cuda()
+        before = fg.launches
+        out = fg.fused_groundlink_forward(x, packed, fmt)
+        _check(fg.launches == before + 1, 'launch counter did not rise')
+        ref = fg.groundlink_reference(x, packed.params, fmt, fc_depth)
+        torch.cuda.synchronize()
+        _check(out.shape == ref.shape == (b, t if fmt == 'all_frames' else 1, 30)
+               and bool(torch.isfinite(out).all()), f'bad output {tuple(out.shape)}')
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        print(f'[kernel] K4 B={b} T={t} {"->".join(map(str, features))} fc_depth '
+              f'{fc_depth} {fmt}: max abs err {err:.3g}, max |ref| {scale:.3g} '
+              f'(limit {GL_REL} x max |ref|)', flush=True)
+        _check(err <= GL_REL * scale, f'K4 disagrees with the plain version: {err}')
+        if features == full:
+            worst = max(worst, err)
+    return worst
 
 
 def phase_k1_vs_plain(torch, fm, seed: int) -> float:
@@ -281,6 +365,36 @@ def _library_encoder_layer(torch, params, d, heads, m):
     return layer.to(device='cuda', dtype=torch.bfloat16).eval()
 
 
+def _library_groundlink(torch, params, fc_depth):
+    """K4's speed baseline, not the precision reference: the same stack as
+    PyTorch's own bf16 calls (replicate ``F.pad`` + ``F.conv1d`` + ``F.elu``
+    per conv, then ``F.linear``), on weights cast and laid out once."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    convs, i = [], 0
+    while f'Conv_{i}' in params:
+        p = params[f'Conv_{i}']
+        convs.append((p['kernel'].permute(2, 1, 0).contiguous().to(bf), p['bias'].to(bf)))
+        i += 1
+    fcs = [(params[f'Dense_{j}']['kernel'].t().contiguous().to(bf),
+            params[f'Dense_{j}']['bias'].to(bf)) for j in range(fc_depth - 1)]
+    head = params[f'Dense_{fc_depth - 1}']['kernel'].t().contiguous().to(bf)
+
+    def forward(x, fmt):
+        h = x.to(bf).transpose(1, 2)                      # [B, C, T]
+        for w, b in convs:
+            half = w.shape[2] // 2
+            h = F.elu(F.conv1d(F.pad(h, (half, half), mode='replicate'), w, b))
+        h = h.transpose(1, 2)
+        if fmt != 'all_frames':
+            h = h[:, -1:, :]
+        for w, b in fcs:
+            h = F.elu(F.linear(h, w, b))
+        return F.linear(h, head).float()
+
+    return forward
+
+
 def _bound(mm_flops: float, f32_flops: float, n_bytes: float):
     """(ms, 'bytes' or 'operations'): the least time the card could take."""
     t_ops = mm_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
@@ -305,6 +419,21 @@ def k2_bound(batch: int, t: int, d: int, m: int):
     return _bound(2.0 * batch * t * pairs, 2.0 * 2 * batch * t * t * d, n_bytes)
 
 
+def k4_bound(batch: int, fmt: str, t: int, c_in: int, features, taps: int,
+             fc_depth: int, c_out: int):
+    """x read once (f32), the bf16 weights and f32 biases read once, the
+    output written once (f32); 2 operations per multiply-add: the convs on
+    every frame, the FC head on every frame or on the last, at true widths."""
+    widths = [c_in, *features]
+    conv = taps * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    c = widths[-1]
+    head = (fc_depth - 1) * c * c + c * c_out
+    frames = t if fmt == 'all_frames' else 1
+    n_bytes = (batch * t * c_in * 4 + (conv + head) * 2
+               + (sum(features) + (fc_depth - 1) * c) * 4 + batch * frames * c_out * 4)
+    return _bound(2.0 * batch * (t * conv + frames * head), 0.0, n_bytes)
+
+
 def _host_p50_ms(fn, iters: int) -> float:
     fn()
     times = []
@@ -313,6 +442,26 @@ def _host_p50_ms(fn, iters: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _serve(port, argv):
+    """One server from ``serve`` arguments, running; returns (service,
+    server, url)."""
+    svc, server = port.start(port.build_parser().parse_args(argv))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return svc, server, f'http://127.0.0.1:{server.server_address[1]}'
+
+
+def _stop(svc, server):
+    server.shutdown()
+    server.server_close()
+    svc.close()
+
+
+def _b64_body(x: np.ndarray, **more) -> bytes:
+    x = np.ascontiguousarray(x, '<f4')
+    return json.dumps({'inputs_b64': base64.b64encode(x.tobytes()).decode(),
+                       'shape': list(x.shape), 'encoding': 'b64', **more}).encode()
 
 
 def phase_service(port, tag, cfg, flags, data, ckpt_root, ds, new_weights, agree,
@@ -328,16 +477,10 @@ def phase_service(port, tag, cfg, flags, data, ckpt_root, ds, new_weights, agree
     try:
         serve_args = ['serve', '--dataset-home', str(data), '--checkpoint-dir',
                       str(ckpt_root), '--port', '0', '--device', 'cuda', *flags]
-        parser = port.build_parser()
         counter.launches = 0     # counts from here on are this path's
-        svc, server = port.start(parser.parse_args(serve_args + ['--warmup']))
-        servers.append((server, svc))
-        svc_b, server_b = port.start(parser.parse_args(serve_args + ['--batch-wait-ms', '5']))
-        servers.append((server_b, svc_b))
-        for srv, _ in servers:
-            threading.Thread(target=srv.serve_forever, daemon=True).start()
-        url = f'http://127.0.0.1:{server.server_address[1]}'
-        url_b = f'http://127.0.0.1:{server_b.server_address[1]}'
+        servers.append(_serve(port, serve_args + ['--warmup']))
+        servers.append(_serve(port, serve_args + ['--batch-wait-ms', '5']))
+        url, url_b = servers[0][2], servers[1][2]
 
         h = _get(url + '/health')
         _check(h['status'] == 'ok' and h['model'] == cfg.model_type
@@ -353,9 +496,8 @@ def phase_service(port, tag, cfg, flags, data, ckpt_root, ds, new_weights, agree
             x = ds.gather(np.arange(b)).inputs
             r = _post(url + '/predict', json.dumps({'inputs': x.tolist()}).encode())
             errs[f'json B={b}'] = agree(r['outputs'], x, f'/predict json B={b}')
-        x4096 = np.ascontiguousarray(ds.gather(np.arange(4096)).inputs, '<f4')
-        body4096 = json.dumps({'inputs_b64': base64.b64encode(x4096.tobytes()).decode(),
-                               'shape': list(x4096.shape), 'encoding': 'b64'}).encode()
+        x4096 = ds.gather(np.arange(4096)).inputs
+        body4096 = _b64_body(x4096)
         r = _post(url + '/predict', body4096)
         errs['b64 B=4096'] = agree(r['outputs'], x4096, '/predict b64 B=4096')
         subject = str(data / 'subject_0.b3d')
@@ -421,10 +563,96 @@ def phase_service(port, tag, cfg, flags, data, ckpt_root, ds, new_weights, agree
               f'{4096 / p50_b4096 * 1e3:.0f} windows/s', flush=True)
         return launches, (p50_b1, p50_b4096)
     finally:
-        for srv, sv in servers:
-            srv.shutdown()
-            srv.server_close()
-            sv.close()
+        for svc, server, _ in servers:
+            _stop(svc, server)
+
+
+def phase_ensemble(port, data, dirs, ds, plain_members, counter):
+    """A 3-member feedforward ``--ensemble``: mean and spread against the
+    plain versions, one kernel launch a member and device forward, /reload
+    refused. Returns the launches."""
+    argv = ['serve', '--dataset-home', str(data), '--checkpoint-dir',
+            str(Path(dirs[0]).parent), '--port', '0', '--device', 'cuda',
+            '--ensemble', *dirs]
+    counter.launches = 0
+    svc, server, url = _serve(port, argv)
+    try:
+        h, s = _get(url + '/health'), _get(url + '/schema')
+        _check(h['ensemble_size'] == len(dirs) and s['ensemble']['size'] == len(dirs)
+               and [m['path'] for m in s['ensemble']['members']] == list(dirs),
+               f'/health {h} /schema ensemble {s["ensemble"]}')
+        for b in (37, 4096):
+            x = ds.gather(np.arange(b)).inputs
+            r = _post(url + '/predict', _b64_body(x, spread=True))
+            outs = plain_members(x)           # one output dict a member
+            mean = {k: np.mean([o[k] for o in outs], axis=0) for k in outs[0]}
+            std = {k: np.std([o[k] for o in outs], axis=0) for k in outs[0]}
+            e_mean = _agree(r['outputs'], mean, f'ensemble mean B={b}', atol=ATOL)
+            e_std = _agree(r['spread'], std, f'ensemble spread B={b}', atol=ATOL)
+            _check(max(float(v.max()) for v in std.values()) > ATOL,
+                   'the members do not differ')
+            print(f'[extras] ensemble of {len(dirs)} B={b}: mean max abs err vs plain '
+                  f'{e_mean:.3g}, spread {e_std:.3g} (atol {ATOL})', flush=True)
+        try:
+            _post(url + '/reload', b'{}')
+            refused = False
+        except urllib.error.HTTPError as e:
+            refused = e.code == 400
+        _check(refused, '/reload of an ensemble was not refused')
+        m = _get(url + '/metrics')
+        launches = counter.launches
+        _check(m['errors'] == 1, f'errors {m["errors"]} (the refused /reload alone)')
+        _check(launches == len(dirs) * m['device_forwards'] > 0,
+               f'{launches} kernel launches for {m["device_forwards"]} device forwards')
+        print(f'[extras] ensemble: kernel launches {launches} == {len(dirs)} x device '
+              f'forwards {m["device_forwards"]}; /reload refused', flush=True)
+        return launches
+    finally:
+        _stop(svc, server)
+
+
+def phase_tta_and_poller(port, data, ckpt_root, ds, symmetrized, new_weights, counter,
+                         seed):
+    """``--tta-mirror`` on GroundLink with ``--reload-poll-sec``: every
+    answer is the symmetrized plain forward, two kernel launches a device
+    forward, and a checkpoint written while serving is picked up. Returns the
+    launches."""
+    argv = ['serve', '--dataset-home', str(data), '--checkpoint-dir', str(ckpt_root),
+            '--port', '0', '--device', 'cuda', '--model-type', 'groundlink',
+            '--tta-mirror', '--reload-poll-sec', '0.2']
+    counter.launches = 0
+    svc, server, url = _serve(port, argv)
+    try:
+        for b in (1, 37, 4096):
+            x = ds.gather(np.arange(b)).inputs
+            r = _post(url + '/predict', _b64_body(x))
+            want = symmetrized(x)
+            err = _agree(r['outputs'], want, f'tta-mirror B={b}', atol=_vector_limit(want))
+            print(f'[extras] groundlink --tta-mirror B={b}: max abs err vs the '
+                  f'symmetrized plain forward {err:.3g}', flush=True)
+        epoch = _get(url + '/health')['epoch']
+        new_weights(seed + 7, epoch + 1)       # lands while the server polls
+        deadline = time.time() + 60
+        while time.time() < deadline and _get(url + '/health')['epoch'] != epoch + 1:
+            time.sleep(0.1)
+        _check(_get(url + '/health')['epoch'] == epoch + 1,
+               'the poller did not pick up the new checkpoint')
+        x = ds.gather(np.arange(37)).inputs
+        r = _post(url + '/predict', _b64_body(x))
+        want = symmetrized(x)
+        err = _agree(r['outputs'], want, 'tta-mirror after the poller reload',
+                     atol=_vector_limit(want))
+        m = _get(url + '/metrics')
+        launches = counter.launches
+        _check(m['errors'] == 0, 'errors in /metrics')
+        _check(launches == 2 * m['device_forwards'] > 0,
+               f'{launches} kernel launches for {m["device_forwards"]} device forwards')
+        print(f'[extras] poller picked up epoch {epoch + 1} (max abs err after it '
+              f'{err:.3g}); kernel launches {launches} == 2 x device forwards '
+              f'{m["device_forwards"]}', flush=True)
+        return launches
+    finally:
+        _stop(svc, server)
 
 
 def _print_times(card, what, b, ms, dev, library, bound):
@@ -472,13 +700,15 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.models.transformer import fused_transformer_forward
     from inferbiomechanics_tpu_torch.ops import _build
     from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+    from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
     from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.train.augment import mirror_outputs, spec_from_dataset
     from inferbiomechanics_tpu_torch.train.checkpoint import save_checkpoint
     from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
 
     # 2. build
     info = _build.build()
-    print(f'[build] K1 and K2 built with nvcc in {info["seconds"]:.2f} s', flush=True)
+    print(f'[build] K1, K2 and K4 built with nvcc in {info["seconds"]:.2f} s', flush=True)
     for line in info['log'].splitlines():
         if 'registers' in line or 'spill' in line:
             print(f'[build] {line.strip()}', flush=True)
@@ -486,6 +716,7 @@ def main() -> int:
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
     k2_err = phase_k2_vs_plain(torch, fe, args.seed)
+    k4_err = phase_k4_vs_plain(torch, fg, args.seed)
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
     try:
@@ -553,6 +784,64 @@ def main() -> int:
             data, ckpt_root, ds, weights_for(tcfg), tf_agree, fe, ENC_FULL['layers'],
             args.seed)
         tmodel = live['model']
+
+        # 5b. the GroundLink slice, through the fused GroundLink forward
+        gcfg = Config()
+        gcfg.model_type = 'groundlink'
+
+        def gl_plain(x, model=None) -> dict:
+            """The plain version on the card, as torch tensors by head."""
+            model = live['model'] if model is None else model
+            with torch.no_grad():
+                out = fg.groundlink_reference(x, model.layer_params(),
+                                              gcfg.output_data_format, GL_FULL['fc_depth'])
+                return slice_output_heads(out, 2, out.shape[1])
+
+        def gl_agree(outputs: dict, x: np.ndarray, what: str) -> float:
+            want = {k: v.cpu().numpy() for k, v in gl_plain(to_card(x)).items()}
+            return _agree(outputs, want, what, atol=_vector_limit(want))
+
+        weights_for(gcfg)(args.seed, 1)
+        packed = live['model'].packed()
+        _check(packed.widths == (GL_FULL['c_in'], *GL_FULL['features'], 256, 256, 30)
+               and packed.pwidths == (192, 128, 128, 256, 256, 256, 256, 32)
+               and (packed.n_conv, packed.fc_depth, packed.taps) == (4, 3, 7),
+               f'GroundLink defaults moved: {packed.widths}')
+        k4_launches, gl_p50 = phase_service(
+            port, 'groundlink', gcfg, ['--model-type', 'groundlink'], data, ckpt_root,
+            ds, weights_for(gcfg), gl_agree, fg, 1, args.seed)
+
+        # 5c. the serving extras
+        members, dirs = [], []
+        for i in range(3):
+            members.append(build_model_for_dataset(
+                cfg, ds, generator=torch.Generator().manual_seed(args.seed + 10 + i),
+                device='cuda').eval())
+            dirs.append(str(tmp / f'member_{i}'))
+            save_checkpoint(dirs[-1], members[-1], i, 0)
+
+        def plain_members(x: np.ndarray) -> list:
+            with torch.no_grad():
+                flat = to_card(x).reshape(len(x), -1)
+                return [{k: v.cpu().numpy() for k, v in slice_output_heads(
+                    fm.mlp_reference(flat, m.layer_params(), cfg.activation), 2, 1).items()}
+                    for m in members]
+
+        k1_ens_launches = phase_ensemble(port, data, dirs, ds, plain_members, fm)
+
+        spec = spec_from_dataset(ds, lateral_axis=gcfg.mirror_lateral_axis)
+        in_perm = torch.as_tensor(np.asarray(spec.in_perm, np.int64)).cuda()
+        in_sign = torch.as_tensor(spec.in_sign).cuda()
+
+        def gl_symmetrized(x: np.ndarray) -> dict:
+            """(f(x) + unmirror(f(mirror(x)))) / 2 with f the plain version."""
+            xt = to_card(x)
+            o1 = gl_plain(xt)
+            o2 = mirror_outputs(spec, ds.lab_offsets, gl_plain(xt[..., in_perm] * in_sign))
+            return {k: ((o1[k] + o2[k]) * 0.5).cpu().numpy() for k in o1}
+
+        k4_tta_launches = phase_tta_and_poller(
+            port, data, ckpt_root, ds, gl_symmetrized, weights_for(gcfg), fg, args.seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -632,6 +921,31 @@ def main() -> int:
                   f'{fwd[b]["plain"] * 1e3:.1f} us, vpu forward (bf16 PyTorch ops) '
                   f'{fwd[b]["vpu"] * 1e3:.1f} us', flush=True)
 
+    k4 = {'last_frame': {}, 'all_frames': {}}
+    gl_tree = _random_groundlink_params(torch, gen, GL_FULL['c_in'], GL_FULL['features'],
+                                        GL_FULL['fc_depth'])
+    gl_packed = fg.pack_groundlink_params(gl_tree, 'cuda')
+    gl_library = _library_groundlink(torch, gl_packed.params, GL_FULL['fc_depth'])
+    with torch.no_grad():
+        for fmt in k4:
+            for b in (1, 4096):
+                xt = torch.randn(b, GL_FULL['t'], GL_FULL['c_in'], generator=gen).cuda()
+                fns = {
+                    'kernel': lambda: fg.fused_groundlink_forward(xt, gl_packed, fmt),  # noqa: B023
+                    'plain': lambda: fg.groundlink_reference(  # noqa: B023
+                        xt, gl_packed.params, fmt, GL_FULL['fc_depth']),  # noqa: B023
+                    'library': lambda: gl_library(xt, fmt),  # noqa: B023
+                }
+                ref = fns['plain']()
+                err16 = float((fns['library']() - ref).abs().max())
+                print(f'[times] bf16 conv1d/linear chain B={b} {fmt}: max abs err vs plain '
+                      f'{err16:.3g} on outputs up to {float(ref.abs().max()):.3g} (speed '
+                      f'baseline only)', flush=True)
+                ms, dev = _time_three(torch, fns)
+                k4[fmt][b] = dict(ms=ms, dev=dev, bound=k4_bound(b, fmt, **GL_FULL))
+                _print_times(card, f'K4 177->128->128->256->256 k=7 T=10 fc 3 {fmt}', b, ms,
+                             dev, 'bf16 F.conv1d/F.linear chain', k4[fmt][b]['bound'])
+
     def entry(meta, launches, err, shape, times, **more):
         big, small = times[4096], times[1]
         return dict(
@@ -654,6 +968,17 @@ def main() -> int:
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
               forward_ms={str(b): v for b, v in fwd.items()},
               predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]}),
+        entry(K4, k4_launches, k4_err,
+              'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',
+              k4['last_frame'],
+              library='bf16 F.pad + F.conv1d + F.elu x4, F.linear x3',
+              launches_per_forward=1,
+              all_frames={str(b): dict(ms=v['ms'], device_us=v['dev'], bound_ms=v['bound'][0],
+                                       bound_by=v['bound'][1])
+                          for b, v in k4['all_frames'].items()},
+              extras_launches={'tta_mirror (2 a forward)': k4_tta_launches,
+                               'K1 in a 3-member ensemble (3 a forward)': k1_ens_launches},
+              predict_p50_ms={'1': gl_p50[0], '4096': gl_p50[1]}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

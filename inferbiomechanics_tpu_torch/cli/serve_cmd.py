@@ -7,7 +7,9 @@ training package. ``--device`` defaults to ``cuda`` and fails when there is
 no GPU; ``--device cpu`` serves on the CPU.
 
     python -m inferbiomechanics_tpu_torch serve --dataset-home D --checkpoint-dir C
+    python -m inferbiomechanics_tpu_torch serve ... --model-type groundlink
     python -m inferbiomechanics_tpu_torch serve ... --model-type transformer --fused-inference
+    python -m inferbiomechanics_tpu_torch serve ... --ensemble C1 C2 C3 --tta-mirror
 """
 
 from __future__ import annotations
@@ -44,14 +46,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--warmup', action='store_true',
                    help='Run one forward at B=1 and at --max-batch before '
                         'accepting requests')
+    p.add_argument('--reload-poll-sec', type=float, default=0.0,
+                   help='Poll the checkpoint dir every N seconds and swap to '
+                        'newer checkpoints automatically (0 = off; POST '
+                        '/reload always works)')
+    p.add_argument('--tta-mirror', action='store_true',
+                   help='Mirror test-time augmentation: each prediction is '
+                        'averaged with the un-mirrored prediction of the '
+                        'sagittally mirrored window (one extra forward per '
+                        'model and request)')
+    p.add_argument('--ensemble', type=str, nargs='+', default=None,
+                   metavar='CKPT',
+                   help='Serve the mean of several checkpoints (dirs or '
+                        'checkpoint files, e.g. a seed sweep\'s per-config '
+                        'checkpoints), one forward per member; /predict can '
+                        'also return the across-member std ("spread": true)')
     # flags of the JAX command whose features are not ported yet: accepted,
     # so that the service can refuse them by name instead of ignoring them
-    p.add_argument('--ensemble', type=str, nargs='+', default=None,
-                   metavar='CKPT', help='not yet ported')
     p.add_argument('--quantize', type=str, default=None, choices=['int8'],
                    help='not yet ported')
     p.add_argument('--use-ema', action='store_true', help='not yet ported')
-    p.add_argument('--tta-mirror', action='store_true', help='not yet ported')
     p.add_argument('--diffusion-samples', type=int, default=1,
                    help='not yet ported')
     p.add_argument('--diffusion-partial', type=float, default=None,
@@ -90,6 +104,7 @@ def start(args: argparse.Namespace):
                                init_checkpoint=args.init_checkpoint)
     if args.warmup:
         service.warmup()
+    service.start_reload_poller(args.reload_poll_sec)
     return service, serve(service, host=args.host, port=args.port)
 
 
@@ -98,8 +113,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         format='%(asctime)s %(levelname)s %(name)s: %(message)s')
     args = build_parser().parse_args(argv)
     service, server = start(args)
-    print(f'serving {service.config.model_type} (epoch {service.epoch}, '
-          f'batch {service.batch}) on {service.device} at '
+    tag = (f'{len(service.members)}-member ensemble' if service.members else
+           f'epoch {service.epoch}, batch {service.batch}')
+    print(f'serving {service.config.model_type} ({tag}) on {service.device} at '
           f'http://{args.host}:{server.server_address[1]} — Ctrl-C stops',
           flush=True)
     try:

@@ -1,8 +1,8 @@
 """Model registry / factory.
 
 PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. Only
-the feedforward model and the transformer are ported; every other model
-type raises and names the ROADMAP.md slice that ports it.
+the feedforward model, GroundLink and the transformer are ported; every
+other model type raises and names the ROADMAP.md slice that ports it.
 """
 
 from typing import Optional, Sequence
@@ -13,12 +13,12 @@ from inferbiomechanics_tpu_torch.models.common import (
     output_head_size, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.models.feedforward import FeedForwardBaseline
+from inferbiomechanics_tpu_torch.models.groundlink import Groundlink
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 
 MODEL_TYPES = ('analytical', 'feedforward', 'groundlink', 'transformer', 'diffusion')
 
 _UNPORTED = {
-    'groundlink': 'ROADMAP.md Queue 1 item 3 (GroundLink and kernel K4)',
     'diffusion': 'ROADMAP.md Queue 1 item 6 (diffusion)',
     'analytical': 'ROADMAP.md Queue 1 item 7 (analytical and physics)',
 }
@@ -41,6 +41,7 @@ def get_model(model_type: str,
               num_layers: int = 4,
               num_heads: int = 8,
               attn_impl: str = 'vpu',
+              conv_impl: str = 'xla',
               init_style: str = 'torch',
               generator: Optional[torch.Generator] = None,
               device=None):
@@ -55,6 +56,17 @@ def get_model(model_type: str,
             hidden_dims=tuple(hidden_dims), batchnorm=batchnorm,
             dropout=dropout, dropout_prob=dropout_prob,
             init_style=init_style, generator=generator, device=device)
+    if model_type == 'groundlink':
+        if conv_impl != 'xla':
+            raise ValueError(
+                f"conv_impl {conv_impl!r} is not ported: the port has only the "
+                f"direct conv ('xla'); ROADMAP.md lists the banded lowering as "
+                f"not to port, and both share one parameter tree")
+        return Groundlink(
+            num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
+            root_history_len=root_history_len,
+            output_data_format=output_data_format,
+            generator=generator, device=device)
     if model_type == 'transformer':
         return TransformerRegressor(
             num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
@@ -71,6 +83,7 @@ def get_model(model_type: str,
 
 
 __all__ = [
-    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline', 'TransformerRegressor',
+    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline', 'Groundlink',
+    'TransformerRegressor',
     'pack_inputs', 'slice_output_heads', 'output_head_size',
 ]

@@ -1,0 +1,149 @@
+"""GroundLink temporal-CNN regressor.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/models/groundlink.py``: a 1-D
+temporal conv stack (channels [C_in, 128, 128, 256, 256], kernel 7,
+replicate padding, ELU) followed by an MLP head per frame (``fc_depth`` 3:
+two hidden layers with ELU, then a bias-free head) emitting the 4 contact
+output groups; ``last_frame`` runs the head on the final frame only.
+
+- Parameters live in ``nn.Conv1d`` (``convs.{i}``, weight ``[C_out, C_in,
+  k]``) and ``nn.Linear`` (``fcs.{j}``, and ``head`` without a bias).
+- Init as the JAX module: xavier with gain sqrt(2) for the convs and the
+  hidden layers, drawn like flax's ``variance_scaling(2.0, 'fan_avg',
+  'truncated_normal')`` from a normal truncated at two standard deviations
+  and rescaled to the variance 2 / fan_avg, with zero biases; torch's own
+  Linear init, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), for the head. The
+  variances match the JAX module's; the draws cannot match across
+  frameworks. They come from the ``generator`` the caller passes, on the
+  CPU, so a seed gives the same weights on every device.
+- The eval forward runs the fused GroundLink kernel
+  (``ops/fused_groundlink.py``) on weights packed once per ``eval()`` or
+  load. The training forward is the kernel's plain version, which autograd
+  differentiates; dropout comes with training.
+- Only the direct conv is ported (the JAX package's ``conv_impl='xla'``);
+  its ``'banded'`` lowering shares the parameter tree, so every checkpoint
+  loads here.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from inferbiomechanics_tpu_torch.data.dataset import input_layout
+from inferbiomechanics_tpu_torch.models.common import (
+    ModelInput, output_head_size, pack_inputs, slice_output_heads,
+)
+from inferbiomechanics_tpu_torch.ops.fused_groundlink import (
+    PackedGroundlink, fused_groundlink_forward, groundlink_reference,
+    pack_groundlink_params,
+)
+
+_TRAINING_SLICE = 'ROADMAP.md Queue 1 item 3 (GroundLink training)'
+# a unit normal truncated at +-2 has this standard deviation (flax divides by
+# it so that the truncated draw keeps the variance asked for)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _xavier_relu_(weight: torch.Tensor, fan_in: int, fan_out: int,
+                  generator: Optional[torch.Generator]) -> None:
+    std = math.sqrt(2.0 / ((fan_in + fan_out) / 2.0)) / _TRUNC_STD
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    with torch.no_grad():
+        weight.copy_(w)
+
+
+class Groundlink(nn.Module):
+    def __init__(self, num_dofs: int, num_contact_bodies: int,
+                 root_history_len: int,
+                 output_data_format: str = 'all_frames',
+                 cnn_kernel: int = 7,
+                 cnn_features: Sequence[int] = (128, 128, 256, 256),
+                 cnn_dropout: float = 0.0, fc_depth: int = 3,
+                 fc_dropout: float = 0.2, *,
+                 generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        if cnn_kernel % 2 != 1:
+            raise ValueError(f'cnn_kernel must be odd, got {cnn_kernel}')
+        if fc_depth < 1 or not cnn_features:
+            raise ValueError('Groundlink needs at least one conv and fc_depth >= 1')
+        self.num_contact_bodies = num_contact_bodies
+        self.output_data_format = output_data_format
+        self.cnn_dropout, self.fc_dropout = float(cnn_dropout), float(fc_dropout)
+        self.fc_depth = fc_depth
+        device = 'cpu' if device is None else device
+        channels = sum(w for _, w in input_layout(num_dofs, root_history_len))
+        dims = [channels, *cnn_features]
+        self.convs = nn.ModuleList(
+            nn.utils.skip_init(nn.Conv1d, c0, c1, cnn_kernel, device=device)
+            for c0, c1 in zip(dims[:-1], dims[1:]))
+        width = dims[-1]
+        self.fcs = nn.ModuleList(
+            nn.utils.skip_init(nn.Linear, width, width, device=device)
+            for _ in range(fc_depth - 1))
+        self.head = nn.utils.skip_init(
+            nn.Linear, width, output_head_size(num_contact_bodies, 1),
+            bias=False, device=device)
+        for conv in self.convs:
+            _xavier_relu_(conv.weight, cnn_kernel * conv.in_channels,
+                          cnn_kernel * conv.out_channels, generator)
+        for fc in self.fcs:
+            _xavier_relu_(fc.weight, width, width, generator)
+        k = 1.0 / math.sqrt(width)
+        with torch.no_grad():
+            for layer in (*self.convs, *self.fcs):
+                layer.bias.zero_()
+            self.head.weight.copy_(
+                torch.empty(self.head.weight.shape).uniform_(-k, k, generator=generator))
+        self._packed: Optional[PackedGroundlink] = None
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module._drop_packed())
+
+    def _drop_packed(self) -> None:
+        self._packed = None
+
+    def train(self, mode: bool = True):
+        self._drop_packed()
+        return super().train(mode)
+
+    def layer_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The flax tree ops/fused_groundlink.py takes: ``Conv_{i}`` kernels
+        ``[k, C_in, C_out]``, ``Dense_{j}`` kernels ``[in, out]``, the last
+        Dense (the head) without a bias."""
+        tree = {f'Conv_{i}': {'kernel': conv.weight.permute(2, 1, 0), 'bias': conv.bias}
+                for i, conv in enumerate(self.convs)}
+        for j, fc in enumerate(self.fcs):
+            tree[f'Dense_{j}'] = {'kernel': fc.weight.t(), 'bias': fc.bias}
+        tree[f'Dense_{self.fc_depth - 1}'] = {'kernel': self.head.weight.t()}
+        return tree
+
+    def packed(self) -> PackedGroundlink:
+        """The kernel's packed weights, made once per eval() or load."""
+        device = self.head.weight.device
+        if self._packed is None or self._packed.device != device:
+            with torch.no_grad():
+                self._packed = pack_groundlink_params(
+                    {name: {k: v.detach() for k, v in p.items()}
+                     for name, p in self.layer_params().items()}, device)
+        return self._packed
+
+    def forward(self, inputs: ModelInput):
+        x = pack_inputs(inputs)
+        if x.ndim != 3:
+            raise ValueError(f'expected (B, T, C), got {tuple(x.shape)}')
+        x = x.float().contiguous()
+        if self.training:
+            if self.cnn_dropout > 0 or self.fc_dropout > 0:
+                raise NotImplementedError(
+                    f'GroundLink dropout (cnn_dropout {self.cnn_dropout}, fc_dropout '
+                    f'{self.fc_dropout}) is not ported yet; it comes with {_TRAINING_SLICE}')
+            out = groundlink_reference(x, self.layer_params(),
+                                       self.output_data_format, self.fc_depth)
+        else:
+            out = fused_groundlink_forward(x, self.packed(), self.output_data_format)
+        return slice_output_heads(out, self.num_contact_bodies, out.shape[1])

@@ -4,9 +4,14 @@ PyTorch counterpart of ``inferbiomechanics_tpu/serve.py``: the
 ``InferenceService``, the dynamic batcher and the stdlib HTTP layer
 (``serve`` and its handler, the payload codecs). It serves ``/health``,
 ``/schema``, ``/metrics``, ``/predict`` (JSON and b64), ``/predict_file``
-and ``/reload`` for the feedforward model and the transformer; with
+and ``/reload`` for the feedforward model, GroundLink and the transformer.
+The feedforward and GroundLink eval forwards run through their fused kernels
+(``ops/fused_mlp.py``, ``ops/fused_groundlink.py``); with
 ``--fused-inference`` a ``vpu`` transformer runs every encoder layer through
-the fused kernel (``ops/fused_encoder.py``).
+the fused kernel (``ops/fused_encoder.py``). ``ensemble`` serves the mean of
+several checkpoints (and, on request, their spread), ``tta_mirror`` averages
+each prediction with the un-mirrored prediction of the mirrored window, and
+``start_reload_poller`` swaps to newer checkpoints as they land.
 
 Differences from the JAX service:
 
@@ -14,9 +19,10 @@ Differences from the JAX service:
   missing GPU raises, nothing falls back to the CPU;
 - no power-of-two batch padding: PyTorch runs eagerly and nothing
   recompiles per shape; ``max_batch`` still bounds a request;
-- ensembles, ``quantize``, ``tta_mirror``, ``use_ema`` and diffusion raise
-  "not yet ported" (ROADMAP.md Queue 1);
-- no checkpoint polling: ``POST /reload`` swaps to a newer checkpoint.
+- an ensemble runs its members one after another, each through its own
+  kernel launch (a loop where the JAX service has one ``vmap``);
+- ``quantize``, ``use_ema``, ``init_checkpoint`` and diffusion raise "not yet
+  ported" (ROADMAP.md Queue 1).
 
 Device work is serialized under one lock, as in the JAX service.
 """
@@ -31,7 +37,7 @@ import threading
 import time
 from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,6 +47,7 @@ from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.models.transformer import (
     TransformerRegressor, fused_transformer_forward,
 )
+from inferbiomechanics_tpu_torch.train.augment import spec_from_dataset, tta_average
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     list_checkpoints, load_checkpoint_file, load_latest_checkpoint,
 )
@@ -201,9 +208,14 @@ class InferenceService:
                  diffusion_samples: int = 1,
                  diffusion_partial: Optional[float] = None,
                  init_checkpoint: Optional[str] = None):
-        _reject_unported(config, ensemble=ensemble,
-                         quantize=quantize not in (None, 'none'),
-                         use_ema=use_ema, tta_mirror=tta_mirror,
+        """``ensemble``: optional list of checkpoint dirs or checkpoint files
+        (e.g. the per-seed checkpoints of a sweep). Every member runs its own
+        forward per request, and /predict returns the ensemble mean plus (on
+        request) the across-member std as an uncertainty estimate.
+        ``tta_mirror``: mirror test-time augmentation, two forwards per
+        model and request."""
+        _reject_unported(config, quantize=quantize not in (None, 'none'),
+                         use_ema=use_ema,
                          diffusion_samples=diffusion_samples != 1,
                          diffusion_partial=diffusion_partial is not None,
                          init_checkpoint=init_checkpoint)
@@ -219,14 +231,28 @@ class InferenceService:
         self.config = config
         self.ds = dataset
         self.max_batch = int(max_batch)
-        self.members: list = []     # read by /health; ensembles are not ported
+        self.members: list = []     # [{path, epoch, batch}] of an ensemble
+        self._member_models: list = []
         self._checkpoint_dir = checkpoint_dir
-        self._use_fused = self._fused_inference()
-        self.model, self.epoch, self.batch = self._load(checkpoint_dir)
-        if self.epoch < 0:
-            logger.warning('no checkpoint found in %s — serving an '
-                           'UNTRAINED model', checkpoint_dir)
+        self._use_fused = self._fused_inference(bool(ensemble))
+        if ensemble:
+            for spec in ensemble:
+                model, e, b = self._load_member(spec)
+                self._member_models.append(model)
+                self.members.append({'path': spec, 'epoch': e, 'batch': b})
+            self.model = self._member_models[0]
+            self.epoch, self.batch = max((m['epoch'], m['batch'])
+                                         for m in self.members)
+        else:
+            self.model, self.epoch, self.batch = self._load(checkpoint_dir)
+            if self.epoch < 0:
+                logger.warning('no checkpoint found in %s — serving an '
+                               'UNTRAINED model', checkpoint_dir)
+        self.tta_mirror = bool(tta_mirror)
+        self._forward = self._make_forward()
         self._lock = threading.Lock()
+        self._poller: Optional[threading.Thread] = None
+        self._poller_stop = threading.Event()
         self.batcher = (DynamicBatcher(self, batch_wait_ms)
                         if batch_wait_ms > 0 else None)
         self._stats_lock = threading.Lock()
@@ -253,12 +279,46 @@ class InferenceService:
             model.packed()      # the kernel's weights, laid out once per load
         return model, epoch, batch
 
-    def _fused_inference(self) -> bool:
+    def _load_member(self, spec: str):
+        """One ensemble member from a checkpoint dir (its newest checkpoint)
+        or a checkpoint file."""
+        if os.path.isdir(spec):
+            model, epoch, batch = self._load(spec)
+            if epoch < 0:
+                raise ValueError(f'ensemble member {spec!r}: no '
+                                 f'checkpoints found')
+            return model, epoch, batch
+        if not os.path.exists(spec):
+            raise FileNotFoundError(f'ensemble member {spec!r}')
+        return self._load(checkpoint_file=spec)
+
+    def _make_forward(self) -> Callable:
+        """``forward(model, x)`` -> output dict of tensors: the model's eval
+        forward (through its fused kernel where it has one), symmetrized
+        when ``tta_mirror`` is on."""
+        if self._use_fused:
+            forward = fused_transformer_forward
+        else:
+            def forward(model, x):
+                return model(x)
+        if self.tta_mirror:
+            # (f(x) + unmirror(f(mirror(x)))) / 2, per model: an ensemble's
+            # members are symmetrized before the across-member mean and std
+            spec = spec_from_dataset(
+                self.ds, lateral_axis=self.config.mirror_lateral_axis)
+            forward = tta_average(spec, self.ds.lab_offsets, forward)
+        return forward
+
+    def _fused_inference(self, ensemble: bool) -> bool:
         """Whether forwards go through the fused encoder layer kernel:
-        asked for with ``--fused-inference``, and honoured for a ``vpu``
-        transformer whose width the kernel takes."""
+        asked for with ``--fused-inference``, and honoured for a single
+        ``vpu`` transformer whose width the kernel takes."""
         config = self.config
         if not config.fused_inference:
+            return False
+        if ensemble:
+            logger.warning('--fused-inference ignored for ensembles '
+                           '(the fused kernel path is single-model)')
             return False
         if not (config.model_type == 'transformer'
                 and config.attn_impl == 'vpu' and config.d_model % 128 == 0):
@@ -268,7 +328,10 @@ class InferenceService:
         return True
 
     def close(self) -> None:
-        """Stop the dynamic batcher, if running."""
+        """Stop the reload poller and the dynamic batcher, if running."""
+        self._poller_stop.set()
+        if self._poller is not None:
+            self._poller.join(timeout=30)
         if self.batcher is not None:
             self.batcher.close()
 
@@ -276,6 +339,9 @@ class InferenceService:
         """Swap to the newest checkpoint in the checkpoint dir (``POST
         /reload``); a no-op when it is already being served. In-flight
         forwards finish on the old weights."""
+        if self.members:
+            raise ValueError('reload serves a single checkpoint dir; '
+                             'restart the server to change an ensemble')
         ckpts = list_checkpoints(self._checkpoint_dir)
         if not ckpts or (ckpts[-1][0], ckpts[-1][1]) == (self.epoch,
                                                          self.batch):
@@ -286,6 +352,32 @@ class InferenceService:
             self.model, self.epoch, self.batch = model, epoch, batch
         logger.info('reloaded checkpoint epoch %d batch %d', epoch, batch)
         return {'reloaded': True, 'epoch': epoch, 'batch': batch}
+
+    def start_reload_poller(self, poll_sec: float) -> None:
+        """Background thread: poll the checkpoint dir every ``poll_sec``
+        seconds and swap when a newer checkpoint lands
+        (``--reload-poll-sec``): train in one process, serve the freshest
+        weights in another. Errors are logged, never fatal. ``close()``
+        stops it."""
+        if poll_sec <= 0:
+            return
+        if self.members:
+            raise ValueError('--reload-poll-sec cannot work here: reload '
+                             'is unsupported for ensembles')
+
+        def loop():
+            while not self._poller_stop.wait(poll_sec):
+                try:
+                    r = self.reload()
+                    if r.get('reloaded'):
+                        logger.info('reload poller: now serving epoch %d '
+                                    'batch %d', r['epoch'], r['batch'])
+                except Exception as e:    # keep polling; the next file may load
+                    logger.warning('reload poller: %s', e, exc_info=True)
+
+        self._poller = threading.Thread(target=loop, daemon=True,
+                                        name='ib-serve-reload-poller')
+        self._poller.start()
 
     def warmup(self) -> None:
         """One forward at B=1 and at ``max_batch`` (``--warmup``): builds
@@ -344,19 +436,29 @@ class InferenceService:
     def predict_packed(self, x: np.ndarray, with_spread: bool = False):
         """[B, T, C_in] float32 -> output dict, each [B, out_frames, C].
 
-        With ``with_spread=True`` returns ``(outputs, None)``: the spread is
-        an ensemble's, and ensembles are not ported."""
+        With ``with_spread=True`` returns ``(outputs, spread)`` where spread
+        holds the across-ensemble std per output channel (``None`` for a
+        single-model service)."""
         self._validate(x)
+        spread = None
         with self._stats_lock:
             self.stats['device_forwards'] += 1
         with self._lock:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
             with torch.inference_mode():
                 xt = xt.to(self.device)
-                out = (fused_transformer_forward(self.model, xt)
-                       if self._use_fused else self.model(xt))
+                if self._member_models:
+                    outs = [self._forward(m, xt) for m in self._member_models]
+                    stacked = {k: torch.stack([o[k].float() for o in outs])
+                               for k in outs[0]}
+                    out = {k: v.mean(0) for k, v in stacked.items()}
+                    # population std, as jnp.std
+                    spread = {k: v.std(0, unbiased=False).cpu().numpy()
+                              for k, v in stacked.items()}
+                else:
+                    out = self._forward(self.model, xt)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
-        return (out, None) if with_spread else out
+        return (out, spread) if with_spread else out
 
     def _file_dataset(self, path: str) -> WindowDataset:
         """``path`` opened as a WindowDataset, from a small LRU cache."""
@@ -404,7 +506,8 @@ class InferenceService:
         return {
             'model_type': self.config.model_type,
             'checkpoint': {'epoch': self.epoch, 'batch': self.batch},
-            'ensemble': None,
+            'ensemble': ({'size': len(self.members), 'members': self.members}
+                         if self.members else None),
             'diffusion_sample_steps': None,
             'diffusion_samples': None,
             'fused_inference': self._use_fused,

@@ -37,6 +37,7 @@ def build_model_for_dataset(config: Config, ds: WindowDataset, *,
         num_layers=config.num_layers,
         num_heads=config.num_heads,
         attn_impl=config.attn_impl,
+        conv_impl=config.conv_impl,
         init_style=config.init_style,
         generator=generator,
         device=device,

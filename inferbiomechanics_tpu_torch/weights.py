@@ -1,5 +1,5 @@
-"""Move feedforward and transformer weights between the JAX package and
-the port.
+"""Move feedforward, GroundLink and transformer weights between the JAX
+package and the port.
 
 The JAX ``FeedForwardBaseline`` (``inferbiomechanics_tpu/models/
 feedforward.py``) keeps one of two parameter trees:
@@ -16,6 +16,12 @@ The JAX ``TransformerRegressor`` with ``attn_impl='vpu'``
 (``inferbiomechanics_tpu/models/transformer.py``) keeps the flax tree that
 ``_TRANSFORMER_DENSE`` and ``_TRANSFORMER_NORM`` list; the QKV columns are
 ``[q | k | v]`` on both sides.
+
+The JAX ``Groundlink`` (``inferbiomechanics_tpu/models/groundlink.py``) keeps
+``Conv_{i}: {kernel [k, C_in, C_out], bias}`` and ``Dense_{j}: {kernel [in,
+out], bias}``, the last Dense (the head) without a bias. ``nn.Conv1d``
+stores ``weight [C_out, C_in, k]``; both sides cross-correlate, so the axes
+are permuted and no tap is flipped. The head is frame-major on both sides.
 """
 
 from __future__ import annotations
@@ -69,6 +75,55 @@ def feedforward_params_to_jax(state_dict: Mapping[str, torch.Tensor],
             out[f'W{i}'], out[f'b{i}'] = kernel, bias
         else:
             out[f'Dense_{i}'] = {'kernel': kernel, 'bias': bias}
+    return out
+
+
+def groundlink_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX GroundLink params -> the port's state dict (``convs.{i}``,
+    ``fcs.{j}``, ``head``)."""
+    convs = sorted(int(m.group(1)) for k in params
+                   if (m := re.fullmatch(r'Conv_(\d+)', k)))
+    dense = sorted(int(m.group(1)) for k in params
+                   if (m := re.fullmatch(r'Dense_(\d+)', k)))
+    if (not convs or not dense or convs != list(range(len(convs)))
+            or dense != list(range(len(dense)))
+            or len(params) != len(convs) + len(dense)):
+        raise ValueError(f'expected a Conv_{{i}}/Dense_{{j}} GroundLink tree, '
+                         f'got keys {sorted(params)}')
+    as_f32 = lambda a: np.asarray(a, np.float32)   # noqa: E731
+    sd = {}
+    for i in convs:
+        sd[f'convs.{i}.weight'] = torch.from_numpy(
+            as_f32(params[f'Conv_{i}']['kernel']).transpose(2, 1, 0).copy())
+        sd[f'convs.{i}.bias'] = torch.from_numpy(as_f32(params[f'Conv_{i}']['bias']).copy())
+    for j in dense:
+        node = params[f'Dense_{j}']
+        last = j == dense[-1]
+        if ('bias' in node and node['bias'] is not None) == last:
+            raise ValueError('every Dense but the last (the head) has a bias')
+        prefix = 'head' if last else f'fcs.{j}'
+        sd[f'{prefix}.weight'] = torch.from_numpy(as_f32(node['kernel']).T.copy())
+        if not last:
+            sd[f'{prefix}.bias'] = torch.from_numpy(as_f32(node['bias']).copy())
+    return sd
+
+
+def groundlink_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's GroundLink state dict -> the JAX tree of numpy arrays."""
+    to_np = lambda t: t.detach().cpu().float().numpy()   # noqa: E731
+    n_conv = len([k for k in state_dict if re.fullmatch(r'convs\.\d+\.weight', k)])
+    n_fc = len([k for k in state_dict if re.fullmatch(r'fcs\.\d+\.weight', k)])
+    if not n_conv or 'head.weight' not in state_dict:
+        raise ValueError(f'not a GroundLink state dict: keys {sorted(state_dict)}')
+    out = {}
+    for i in range(n_conv):
+        out[f'Conv_{i}'] = {
+            'kernel': to_np(state_dict[f'convs.{i}.weight']).transpose(2, 1, 0).copy(),
+            'bias': to_np(state_dict[f'convs.{i}.bias']).copy()}
+    for j in range(n_fc):
+        out[f'Dense_{j}'] = {'kernel': to_np(state_dict[f'fcs.{j}.weight']).T.copy(),
+                             'bias': to_np(state_dict[f'fcs.{j}.bias']).copy()}
+    out[f'Dense_{n_fc}'] = {'kernel': to_np(state_dict['head.weight']).T.copy()}
     return out
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
 from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +93,64 @@ def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio)
     torch.cuda.synchronize()
     assert out.shape == x.shape and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, **ENC_TOL)
+
+
+def random_groundlink_params(gen, c_in, features, fc_depth, taps=7):
+    """A seeded flax-layout GroundLink tree with random biases (the model's
+    init has zero biases, and a wrong bias add would go unseen)."""
+    def draw(*shape, fan_in):
+        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
+    tree, c = {}, c_in
+    for i, f in enumerate(features):
+        tree[f'Conv_{i}'] = {'kernel': draw(taps, c, f, fan_in=taps * c),
+                             'bias': 0.3 * torch.randn(f, generator=gen)}
+        c = f
+    for j in range(fc_depth - 1):
+        tree[f'Dense_{j}'] = {'kernel': draw(c, c, fan_in=c),
+                              'bias': 0.3 * torch.randn(c, generator=gen)}
+    tree[f'Dense_{fc_depth - 1}'] = {'kernel': draw(c, 30, fan_in=c)}
+    return tree
+
+
+# The kernel and the plain version round the same operands to bf16 and sum
+# in f32; they differ in the order of the sums and in the bf16 roundings of
+# activations that this flips. A flip (2^-8 relative) in an early layer is
+# carried through up to six more layers with a rounding each, so the chain
+# amplifies it: the plain version on the CPU, with every f32 sum perturbed by
+# 1e-6 relative, moves its own outputs by up to 3.4e-3 x max|out| at full
+# width (0.034 on outputs up to 10). Held at 1e-2 x max|ref|; a wrong tap, row
+# or bias shows as errors of the outputs' own size. The JAX suite allows its
+# fused forward 5e-2 x max|ref| against the flax model in bf16
+# (tests/test_pallas_groundlink.py).
+GL_REL = 1e-2
+FULL = (128, 128, 256, 256)
+
+
+@pytest.mark.parametrize('batch,t,c_in,features,fc_depth,fmt', [
+    (1, 10, 177, FULL, 3, 'last_frame'),
+    (37, 10, 177, FULL, 3, 'all_frames'),
+    (4096, 10, 177, FULL, 3, 'last_frame'),
+    (4096, 10, 177, FULL, 3, 'all_frames'),
+    (37, 4, 177, (16, 16, 24, 24), 3, 'all_frames'),   # the small test shape
+    (37, 4, 177, (16, 16, 24, 24), 3, 'last_frame'),
+    (37, 10, 177, FULL, 1, 'last_frame'),              # the head alone after the convs
+    (5, 7, 100, (64, 48), 2, 'all_frames'),            # two convs, another T
+    (3, 64, 177, (32, 32), 2, 'last_frame'),           # the longest window: one a block
+    (200, 1, 177, (512,), 2, 'all_frames'),            # T = 1, the widest layer
+    (9, 10, 177, (32, 32), 3, 'all_frames'),           # 3 taps
+])
+def test_fused_groundlink_kernel_matches_plain(cuda, batch, t, c_in, features,
+                                               fc_depth, fmt):
+    gen = torch.Generator().manual_seed(batch + t + c_in)
+    taps = 3 if batch == 9 else 7
+    packed = fg.pack_groundlink_params(
+        random_groundlink_params(gen, c_in, features, fc_depth, taps), cuda)
+    x = torch.randn(batch, t, c_in, generator=gen).to(cuda)
+    before = fg.launches
+    out = fg.fused_groundlink_forward(x, packed, fmt)
+    assert fg.launches == before + 1
+    ref = fg.groundlink_reference(x, packed.params, fmt, fc_depth)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, t if fmt == 'all_frames' else 1, 30)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= GL_REL * float(ref.abs().max())

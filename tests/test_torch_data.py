@@ -2,7 +2,8 @@
 (inferbiomechanics_tpu_torch/config.py, data/) against the JAX package's
 (inferbiomechanics_tpu/config.py, data/): the same synthetic subject gives
 identical arrays and layouts through both, and both flag parsers agree
-field by field. Exact equality: both sides are the same numpy code.
+field by field. Exact equality: both sides are the same numpy code. The
+port's copy of the mirror tables (train/augment.py) is held the same way.
 """
 
 import argparse
@@ -15,10 +16,12 @@ from inferbiomechanics_tpu import config as jax_config
 from inferbiomechanics_tpu.data import dataset as jax_dataset
 from inferbiomechanics_tpu.data import keys as jax_keys
 from inferbiomechanics_tpu.data import synthetic as jax_synthetic
+from inferbiomechanics_tpu.train import augment as jax_augment
 from inferbiomechanics_tpu_torch import config as port_config
 from inferbiomechanics_tpu_torch.data import dataset as port_dataset
 from inferbiomechanics_tpu_torch.data import keys as port_keys
 from inferbiomechanics_tpu_torch.data import synthetic as port_synthetic
+from inferbiomechanics_tpu_torch.train import augment as port_augment
 
 
 @pytest.fixture(scope='module')
@@ -108,3 +111,75 @@ def test_config_from_args_agrees(argv):
     jc = jax_config.config_from_args(_parser(jax_config).parse_args(argv))
     pc = port_config.config_from_args(_parser(port_config).parse_args(argv))
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+
+
+def _assert_specs_equal(ps, js):
+    for name in ('in_perm', 'in_sign', 'lab_perm', 'lab_sign'):
+        a, b = getattr(ps, name), getattr(js, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert ps.approximate_dofs == js.approximate_dofs
+    assert ps.unpaired_names == js.unpaired_names
+
+
+@pytest.mark.parametrize('lateral_axis', [0, 1, 2])
+@pytest.mark.parametrize('skeletons', [True, False])
+def test_mirror_spec_from_dataset_agrees(subjects, lateral_axis, skeletons):
+    kwargs = dict(window_size=20, stride=5, skip_loading_skeletons=not skeletons)
+    jd = jax_dataset.WindowDataset(subjects['jax'], **kwargs)
+    pd = port_dataset.WindowDataset(subjects['jax'], **kwargs)
+    js = jax_augment.spec_from_dataset(jd, lateral_axis=lateral_axis)
+    ps = port_augment.spec_from_dataset(pd, lateral_axis=lateral_axis)
+    _assert_specs_equal(ps, js)
+    assert len(ps.in_perm) == pd.num_input_channels
+    # an involution, as the JAX package's
+    x = np.random.default_rng(0).normal(size=(3, 4, len(ps.in_perm))).astype(np.float32)
+    np.testing.assert_array_equal(ps.mirror_inputs(ps.mirror_inputs(x)), x)
+    np.testing.assert_array_equal(ps.mirror_inputs(x), js.mirror_inputs(x))
+
+
+def test_build_mirror_spec_agrees_on_opensim_names():
+    """Semantic DOF names, an unpaired body and a short joint list."""
+    dofs = ['pelvis_tilt', 'pelvis_list', 'pelvis_rotation', 'pelvis_tx', 'pelvis_tz',
+            'hip_flexion_r', 'hip_adduction_r', 'hip_flexion_l', 'hip_adduction_l',
+            'knee_angle_r', 'lumbar_bending', 'ankle_r_x', 'ankle_l_x', 'ankle_l_y']
+    joints = ['hip_r', 'hip_l', 'knee_r', 'walker_knee_l', 'back']
+    args = (dofs, joints, ['calcn_r', 'calcn_l'], 5)
+    for axis in (0, 2):
+        ps = port_augment.build_mirror_spec(*args, lateral_axis=axis)
+        _assert_specs_equal(ps, jax_augment.build_mirror_spec(*args, lateral_axis=axis))
+    assert ps.unpaired_names
+    for module in (port_augment, jax_augment):
+        with pytest.raises(ValueError, match='lateral_axis'):
+            module.build_mirror_spec(*args, lateral_axis=3)
+
+
+def test_mirror_outputs_and_tta_average_agree():
+    """The torch ``mirror_outputs`` / ``tta_average`` against the JAX ones
+    on the same arrays."""
+    import jax.numpy as jnp
+    import torch
+    args = (['hip_r_x', 'hip_l_x', 'pelvis_tz', 'knee_angle_r', 'knee_angle_l'],
+            ['hip_r', 'hip_l'], ['calcn_r', 'calcn_l'], 3)
+    ps, js = port_augment.build_mirror_spec(*args), jax_augment.build_mirror_spec(*args)
+    offsets = port_dataset._offsets(port_dataset.label_layout(5, 2))
+    assert offsets == jax_dataset._offsets(jax_dataset.label_layout(5, 2))
+    rng = np.random.default_rng(1)
+    keys = [port_keys.OutputDataKeys.GROUND_CONTACT_FORCES_IN_ROOT_FRAME,
+            port_keys.OutputDataKeys.GROUND_CONTACT_WRENCHES_IN_ROOT_FRAME,
+            port_keys.OutputDataKeys.GROUND_CONTACT_COPS_IN_ROOT_FRAME]
+    outs = {k: rng.normal(size=(4, 2, offsets[k][1])).astype(np.float32) for k in keys}
+    want = jax_augment.mirror_outputs(js, offsets, {k: jnp.asarray(v) for k, v in outs.items()})
+    got = port_augment.mirror_outputs(ps, offsets, {k: torch.from_numpy(v) for k, v in outs.items()})
+    assert list(got) == list(want)
+    for k in keys:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+    w = rng.normal(size=(len(ps.in_perm), 6)).astype(np.float32)
+    force = keys[0]
+    x = rng.normal(size=(4, 2, len(ps.in_perm))).astype(np.float32)
+    want = jax_augment.tta_average(js, offsets, lambda s, v: {force: s * (v @ w)})(
+        2.0, jnp.asarray(x))
+    got = port_augment.tta_average(ps, offsets, lambda s, v: {force: s * (v @ torch.from_numpy(w))})(
+        2.0, torch.from_numpy(x))
+    np.testing.assert_allclose(got[force].numpy(), np.asarray(want[force]), rtol=1e-5, atol=1e-5)

@@ -201,10 +201,13 @@ def test_init_is_seeded_and_scaled(init_style):
                                         'analytical'])
 def test_unported_model_types_name_their_roadmap_slice(model_type):
     # the transformer is ported for its default 'vpu' parameter tree; the
-    # 'pallas' tree still names the slice that brings it
+    # 'pallas' tree still names the slice that brings it. GroundLink is
+    # ported for eval; its train-mode forward with the default dropout names
+    # the slice that brings training
     extra = {'attn_impl': 'pallas'} if model_type == 'transformer' else {}
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        get_model(model_type, **SMALL, **extra)
+        model = get_model(model_type, **SMALL, **extra)
+        model.train()(torch.from_numpy(_inputs(2)))
 
 
 @pytest.mark.parametrize('flag', ['batchnorm', 'dropout'])

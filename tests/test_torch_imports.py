@@ -56,12 +56,13 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
         ds = WindowDataset('s.b3d', window_size=20, stride=5,
                            skip_loading_skeletons=True)
         x = np.asarray(ds.gather(np.arange(3)).inputs)
-        for model_type in ('feedforward', 'transformer'):
+        for model_type in ('feedforward', 'groundlink', 'transformer'):
             cfg = Config()
             cfg.model_type, cfg.window_size, cfg.hidden_dims = model_type, 20, [32]
             cfg.d_model, cfg.num_layers, cfg.num_heads = 128, 1, 4
             cfg.fused_inference = model_type == 'transformer'
-            svc = InferenceService(cfg, 'ckpt', ds, max_batch=8, device='cpu')
+            svc = InferenceService(cfg, 'ckpt', ds, max_batch=8, device='cpu',
+                                   tta_mirror=model_type == 'groundlink')
             server = serve(svc, port=0)
             threading.Thread(target=server.serve_forever, daemon=True).start()
             req = urllib.request.Request(
@@ -71,6 +72,7 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                 out = json.loads(r.read())['outputs']
             server.shutdown()
             server.server_close()
+            svc.close()
             assert all(np.asarray(v).shape[0] == 3 and np.isfinite(v).all()
                        for v in out.values())
             print('predicted', model_type, len(out))
@@ -78,10 +80,12 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
         assert jax_package_modules() == [], jax_package_modules()
     """, tmp_path)
     for module in ('config', 'data.dataset', 'data.b3d_legacy', 'ops.fused_mlp',
-                   'ops.fused_encoder', 'models.feedforward', 'models.transformer',
-                   'serve', 'cli.serve_cmd', 'train.checkpoint', 'weights', '__main__'):
+                   'ops.fused_encoder', 'ops.fused_groundlink', 'models.feedforward',
+                   'models.groundlink', 'models.transformer', 'serve', 'cli.serve_cmd',
+                   'train.augment', 'train.checkpoint', 'weights', '__main__'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
+    assert 'predicted groundlink 4' in out
 
 
 def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
@@ -104,6 +108,7 @@ def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
             importlib.import_module(name)
         assert 'inferbiomechanics_tpu_torch.serve' in sys.modules
         assert 'inferbiomechanics_tpu_torch.ops.fused_encoder' in sys.modules
+        assert 'inferbiomechanics_tpu_torch.ops.fused_groundlink' in sys.modules
         assert jax_package_modules() == [], jax_package_modules()
         assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
         print('imported', ' '.join(sorted(names)))

@@ -6,7 +6,9 @@ One synthetic dataset (window 20, stride 5) and one set of weights: the JAX
 service serves a JAX checkpoint, the port's service (on the CPU) serves the
 same weights converted into a port checkpoint in the same directory, and
 both answer the same HTTP requests. The feedforward model first, then the
-transformer (d_model 128, 2 layers, 4 heads) with ``--fused-inference``.
+transformer (d_model 128, 2 layers, 4 heads) with ``--fused-inference``, then
+GroundLink (its full widths on 4 frames), then the options that apply to
+every served model: ensembles, ``tta_mirror`` and checkpoint polling.
 """
 
 import base64
@@ -15,6 +17,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -35,12 +38,17 @@ from inferbiomechanics_tpu.train import (
 from inferbiomechanics_tpu.train import checkpoint as jax_ckpt
 from inferbiomechanics_tpu.train.loop import build_model_for_dataset as jax_build
 from inferbiomechanics_tpu.train.run_config import load_run_config, save_run_config
-from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser
+from inferbiomechanics_tpu.train.augment import (
+    mirror_outputs as jax_mirror_outputs, spec_from_dataset as jax_spec_from_dataset,
+)
+from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset as PortWindowDataset
 from inferbiomechanics_tpu_torch.serve import InferenceService, serve
 from inferbiomechanics_tpu_torch.train import checkpoint as port_ckpt
 from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
 from inferbiomechanics_tpu_torch.weights import (
-    feedforward_state_dict_from_jax, transformer_state_dict_from_jax,
+    feedforward_state_dict_from_jax, groundlink_state_dict_from_jax,
+    transformer_state_dict_from_jax,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -259,10 +267,9 @@ def test_untrained_model_when_no_checkpoint(setup, tmp_path):
 
 
 @pytest.mark.parametrize('option', [
-    {'ensemble': ['a', 'b']}, {'quantize': 'int8'}, {'use_ema': True},
-    {'tta_mirror': True}, {'diffusion_samples': 4}, {'diffusion_partial': 0.3},
-    {'init_checkpoint': 'x'}, {'config': {'model_type': 'groundlink'}},
-    {'config': {'model_type': 'diffusion'}},
+    {'quantize': 'int8'}, {'use_ema': True},
+    {'diffusion_samples': 4}, {'diffusion_partial': 0.3},
+    {'init_checkpoint': 'x'}, {'config': {'model_type': 'diffusion'}},
 ])
 def test_unported_serving_options_raise(setup, option):
     cfg = _config()
@@ -305,11 +312,19 @@ def test_serve_command_answers_health(setup):
         proc.wait(timeout=30)
 
 
-def test_serve_command_refuses_reload_polling(capsys):
-    """Checkpoint polling is not ported: ``POST /reload`` swaps weights."""
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(['serve', '--reload-poll-sec', '5'])
-    assert 'unrecognized arguments: --reload-poll-sec' in capsys.readouterr().err
+def test_serve_command_refuses_reload_polling(setup):
+    """``--reload-poll-sec`` is a flag of the command (0 = off), and the
+    command refuses it for an ensemble, whose members it cannot reload, as
+    the JAX command does."""
+    parser = build_parser()
+    assert parser.parse_args(['serve']).reload_poll_sec == 0.0
+    args = parser.parse_args([
+        'serve', '--device', 'cpu', '--port', '0', '--reload-poll-sec', '5',
+        '--dataset-home', str(setup['data']), '--checkpoint-dir', str(setup['ckpt_root']),
+        '--history-len', '20', '--stride', '5', '--hidden-dims', '64', '64',
+        '--ensemble', setup['ckpt'], setup['ckpt']])
+    with pytest.raises(ValueError, match='reload is unsupported for ensembles'):
+        start(args)
 
 
 # -- the transformer, with --fused-inference ----------------------------------
@@ -430,7 +445,8 @@ def test_transformer_reload_swaps_the_packed_weights(tsetup, tmp_path):
 
 
 @pytest.mark.parametrize('change', [
-    {'model_type': 'feedforward'}, {'d_model': 64, 'num_heads': 2}])
+    {'model_type': 'feedforward'}, {'d_model': 64, 'num_heads': 2},
+    {'model_type': 'groundlink'}])
 def test_fused_inference_the_model_cannot_honour_is_ignored_with_a_warning(
         tsetup, tmp_path, caplog, change):
     """As the JAX service does: the same warning, then the plain forward."""
@@ -464,3 +480,425 @@ def test_serve_command_serves_the_transformer_with_fused_inference(tsetup):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+# -- GroundLink ------------------------------------------------------------------
+
+# The JAX service runs the flax model in bf16 (every conv and Dense output
+# and every bias add rounded to bf16); the port runs the fused-kernel math
+# (f32 sums, bias and ELU, one rounding a layer). Held per head at the
+# tolerance the JAX suite has for this very comparison, its own fused
+# forward against that model: 5e-2 x max|JAX answer|
+# (tests/test_pallas_groundlink.py). Seen here: up to 4.0e-2 x max
+# (all_frames), so a tighter 2e-2 does not hold.
+GL_REL = 5e-2
+
+
+def _groundlink_config():
+    cfg = _config()
+    cfg.model_type = 'groundlink'
+    return cfg
+
+
+def _jax_state(cfg, ds, seed, bias_seed=None):
+    state = create_train_state(jax_build(cfg, ds), jax.random.PRNGKey(seed),
+                               jnp.asarray(ds.gather(np.arange(4)).inputs),
+                               make_optimizer('adam', 1e-3))
+    if bias_seed is not None:        # biases off their zero init
+        rng = np.random.default_rng(bias_seed)
+        state = state.replace(params=jax.tree_util.tree_map(
+            lambda p: (np.asarray(p) + 0.1 * rng.normal(size=p.shape)).astype(np.float32)
+            if p.ndim == 1 else np.asarray(p), jax.device_get(state.params)))
+    return state
+
+
+def _save_both(cfg, ds, ckpt, state, convert, epoch, batch):
+    """One set of weights as a JAX checkpoint and as a port checkpoint."""
+    jax_save(ckpt, state, epoch, batch)
+    model = build_model_for_dataset(cfg, ds)
+    model.load_state_dict(convert(jax.device_get(state.params)))
+    port_ckpt.save_checkpoint(ckpt, model, epoch, batch)
+
+
+@pytest.fixture(scope='module')
+def gsetup(setup):
+    cfg, ds = _groundlink_config(), setup['ds']
+    ckpt = str(setup['ckpt_root'] / 'groundlink')
+    _save_both(cfg, ds, ckpt, _jax_state(cfg, ds, 2, bias_seed=2),
+               groundlink_state_dict_from_jax, 4, 1)
+    return dict(setup, cfg=cfg, ckpt=ckpt)
+
+
+@pytest.fixture(scope='module')
+def gurls(gsetup):
+    jax_svc = JaxService(gsetup['cfg'], gsetup['ckpt'], gsetup['ds'], max_batch=16)
+    port_svc = InferenceService(gsetup['cfg'], gsetup['ckpt'], gsetup['ds'],
+                                max_batch=16, device='cpu')
+    servers = [_start(jax_svc), _start(port_svc)]
+    yield servers[0][1], servers[1][1]
+    for server, _ in servers:
+        server.shutdown()
+        server.server_close()
+
+
+def _assert_rel_close(got, want, rel=GL_REL):
+    got, want = _decoded(got), _decoded(want)
+    assert set(got) == set(want) and len(want) == 4
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], rtol=0, err_msg=k,
+                                   atol=rel * (np.abs(want[k]).max() + 1e-6))
+
+
+def test_groundlink_health_and_schema_match_jax(gurls):
+    jax_url, port_url = gurls
+    hj, hp = _get(jax_url + '/health'), _get(port_url + '/health')
+    assert hp == hj == {'status': 'ok', 'model': 'groundlink', 'epoch': 4,
+                        'batch': 1, 'ensemble_size': 0}
+    sj, sp = _get(jax_url + '/schema'), _get(port_url + '/schema')
+    for key in SHARED_SCHEMA_KEYS + ('fused_inference', 'ensemble'):
+        assert sp[key] == sj[key], key
+    assert sp['fused_inference'] is False and sp['ensemble'] is None
+
+
+@pytest.mark.parametrize('encoding,rows', [('json', 1), ('json', 5), ('b64', 7)])
+def test_groundlink_predict_matches_jax(gurls, gsetup, encoding, rows):
+    x = np.asarray(gsetup['ds'].gather(np.arange(1, 1 + rows)).inputs, '<f4')
+    if encoding == 'b64':
+        payload = {'inputs_b64': base64.b64encode(x.tobytes()).decode(),
+                   'shape': list(x.shape), 'encoding': 'b64'}
+    else:
+        payload = {'inputs': x.tolist()}
+    rj, rp = (_post(u + '/predict', payload) for u in gurls)
+    assert rp['batch'] == rj['batch'] == rows
+    _assert_rel_close(rp['outputs'], rj['outputs'])
+
+
+def test_groundlink_predict_file_matches_jax(gurls, gsetup):
+    payload = {'file': gsetup['file'], 'trial': 1, 'max_windows': 12}
+    rj, rp = (_post(u + '/predict_file', payload) for u in gurls)
+    assert rp['window_starts'] == rj['window_starts'] and len(rp['window_starts']) == 12
+    _assert_rel_close(rp['outputs'], rj['outputs'])
+
+
+def test_groundlink_all_frames_matches_jax(gsetup, tmp_path):
+    cfg = _groundlink_config()
+    cfg.output_data_format = 'all_frames'
+    ds = WindowDataset(str(gsetup['data']), window_size=20, stride=5,
+                       output_data_format='all_frames', skip_loading_skeletons=True)
+    ckpt = str(tmp_path / 'groundlink')
+    _save_both(cfg, ds, ckpt, _jax_state(cfg, ds, 3, bias_seed=3),
+               groundlink_state_dict_from_jax, 0, 0)
+    x = np.asarray(ds.gather(np.arange(6)).inputs)
+    want = JaxService(cfg, ckpt, ds, max_batch=8).predict_packed(x)
+    got = InferenceService(cfg, ckpt, ds, max_batch=8, device='cpu').predict_packed(x)
+    assert got[next(iter(got))].shape[:2] == (6, 4)
+    _assert_rel_close(got, want)
+
+
+def test_groundlink_reload_swaps_the_packed_weights(gsetup, tmp_path):
+    ckpt, cfg, ds = str(tmp_path / 'groundlink'), gsetup['cfg'], gsetup['ds']
+    first = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(1))
+    port_ckpt.save_checkpoint(ckpt, first, 0, 1)
+    svc = InferenceService(cfg, ckpt, ds, max_batch=8, device='cpu')
+    x = np.asarray(ds.gather(np.arange(2)).inputs)
+    before, packed = svc.predict_packed(x), svc.model.packed()
+    second = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(2))
+    port_ckpt.save_checkpoint(ckpt, second, 0, 2)
+    assert svc.reload() == {'reloaded': True, 'epoch': 0, 'batch': 2}
+    assert svc.model.packed() is not packed
+    after = svc.predict_packed(x)
+    with torch.no_grad():
+        want = second.eval()(torch.from_numpy(x))
+    for k in after:
+        assert not np.allclose(after[k], before[k]), k
+        np.testing.assert_array_equal(after[k], want[k].numpy())
+
+
+def test_serve_command_serves_groundlink(gsetup):
+    cmd = [sys.executable, '-m', 'inferbiomechanics_tpu_torch', 'serve',
+           '--device', 'cpu', '--port', '0', '--model-type', 'groundlink',
+           '--dataset-home', str(gsetup['data']),
+           '--checkpoint-dir', str(gsetup['ckpt_root']),
+           '--history-len', '20', '--stride', '5']
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert 'serving groundlink (epoch 4, batch 1) on cpu at http://' in line, line
+        url = line.split(' at ')[1].split()[0]
+        assert _get(url + '/health')['model'] == 'groundlink'
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+# -- ensembles, mirror TTA, checkpoint polling --------------------------------------
+
+FORCES = 'groundContactForceInRootFrame'
+
+
+@pytest.fixture(scope='module')
+def esetup(setup, tmp_path_factory):
+    """Two feedforward members with different weights, each dir holding the
+    JAX checkpoint and the port's; one single-model service a member and
+    side."""
+    cfg, ds = setup['cfg'], setup['ds']
+    dirs = []
+    for seed in (0, 1):
+        d = str(tmp_path_factory.mktemp(f'torchserve_ens{seed}'))
+        _save_both(cfg, ds, d, _jax_state(cfg, ds, seed),
+                   feedforward_state_dict_from_jax, seed, 0)
+        dirs.append(d)
+    return dict(setup, dirs=dirs,
+                jax=JaxService(cfg, dirs[0], ds, max_batch=64, ensemble=dirs),
+                port=InferenceService(cfg, dirs[0], ds, max_batch=64,
+                                      ensemble=dirs, device='cpu'))
+
+
+def test_ensemble_mean_and_spread_match_jax(esetup):
+    ds, cfg = esetup['ds'], esetup['cfg']
+    x = np.asarray(ds.gather(np.arange(4)).inputs)
+    out, spread = esetup['port'].predict_packed(x, with_spread=True)
+    want, want_spread = esetup['jax'].predict_packed(x, with_spread=True)
+    _assert_outputs_close(out, want)
+    _assert_outputs_close(spread, want_spread)
+    # the mean of the members' own answers, and their population std
+    singles = [InferenceService(cfg, d, ds, max_batch=64, device='cpu').predict_packed(x)
+               for d in esetup['dirs']]
+    for k in out:
+        np.testing.assert_allclose(out[k], (singles[0][k] + singles[1][k]) / 2,
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(spread[k], np.abs(singles[0][k] - singles[1][k]) / 2,
+                                   rtol=1e-5, atol=1e-6)
+    assert float(spread[FORCES].max()) > 0             # the members differ
+    assert esetup['port'].stats['device_forwards'] >= 1
+    assert (esetup['port'].epoch, esetup['port'].batch) == \
+        (esetup['jax'].epoch, esetup['jax'].batch) == (1, 0)
+
+
+def test_ensemble_http_matches_jax(esetup):
+    servers = [_start(esetup['jax']), _start(esetup['port'])]
+    try:
+        jax_url, port_url = (u for _, u in servers)
+        assert _get(port_url + '/health') == _get(jax_url + '/health')
+        assert _get(port_url + '/health')['ensemble_size'] == 2
+        sj, sp = _get(jax_url + '/schema'), _get(port_url + '/schema')
+        assert sp['ensemble'] == sj['ensemble']
+        assert sp['ensemble']['size'] == 2 and len(sp['ensemble']['members']) == 2
+        x = np.asarray(esetup['ds'].gather(np.arange(3)).inputs)
+        payload = {'inputs': x.tolist(), 'spread': True}
+        rj, rp = (_post(u + '/predict', payload) for u in (jax_url, port_url))
+        assert np.asarray(rp['spread'][FORCES]).shape == (3, 1, 6)
+        _assert_outputs_close(rp['outputs'], rj['outputs'])
+        _assert_outputs_close(rp['spread'], rj['spread'])
+        # spread is optional and off by default
+        assert 'spread' not in _post(port_url + '/predict', {'inputs': x.tolist()})
+    finally:
+        for server, _ in servers:
+            server.shutdown()
+            server.server_close()
+
+
+def test_single_model_spread_is_null(urls, setup):
+    x = np.asarray(setup['ds'].gather(np.arange(2)).inputs)
+    for u in urls:
+        assert _post(u + '/predict', {'inputs': x.tolist(), 'spread': True})['spread'] is None
+
+
+def test_ensemble_members_may_be_files(esetup):
+    files = [os.path.join(d, port_ckpt.checkpoint_name(seed, 0))
+             for seed, d in enumerate(esetup['dirs'])]
+    svc = InferenceService(esetup['cfg'], esetup['dirs'][0], esetup['ds'],
+                           max_batch=64, ensemble=files, device='cpu')
+    assert [m['path'] for m in svc.members] == files
+    x = np.asarray(esetup['ds'].gather(np.arange(3)).inputs)
+    want = esetup['port'].predict_packed(x)
+    for k, v in svc.predict_packed(x).items():
+        np.testing.assert_array_equal(v, want[k])
+
+
+def test_ensemble_bad_member_rejected(esetup, tmp_path):
+    """The JAX service's errors for the same members."""
+    cfg, ds = esetup['cfg'], esetup['ds']
+    empty = str(tmp_path / 'empty')
+    os.makedirs(empty)
+    missing = str(tmp_path / 'nope.ckpt')
+    for make in (lambda **kw: JaxService(cfg, empty, ds, **kw),
+                 lambda **kw: InferenceService(cfg, empty, ds, device='cpu', **kw)):
+        with pytest.raises(ValueError, match='no\\s+checkpoints'):
+            make(ensemble=[empty])
+        with pytest.raises(FileNotFoundError):
+            make(ensemble=[missing])
+
+
+def test_ensemble_with_dynamic_batching(esetup):
+    """The batcher coalesces mixed spread/no-spread ensemble requests and
+    hands each client its own rows."""
+    import concurrent.futures
+    ds = esetup['ds']
+    svc = InferenceService(esetup['cfg'], esetup['dirs'][0], ds, max_batch=64,
+                           ensemble=esetup['dirs'], batch_wait_ms=25.0, device='cpu')
+    try:
+        x = np.asarray(ds.gather(np.arange(8)).inputs)
+        want, want_spread = esetup['port'].predict_packed(x, with_spread=True)
+
+        def one(i):
+            rows = x[i:i + 2]
+            if i % 2:
+                out, spread = svc.predict(rows, with_spread=True)
+                return i, out[FORCES], spread[FORCES]
+            return i, svc.predict(rows)[FORCES], None
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=6) as ex:
+            results = list(ex.map(one, range(6)))
+        for i, got, spread in results:
+            np.testing.assert_allclose(got, want[FORCES][i:i + 2], rtol=1e-5, atol=1e-5)
+            if spread is not None:
+                np.testing.assert_allclose(spread, want_spread[FORCES][i:i + 2],
+                                           rtol=1e-4, atol=1e-5)
+        assert svc.batcher.forwards < 6
+    finally:
+        svc.close()
+
+
+def test_reload_rejected_for_ensembles(esetup):
+    for svc in (esetup['jax'], esetup['port']):
+        with pytest.raises(ValueError, match='ensemble'):
+            svc.reload()
+        with pytest.raises(ValueError, match='reload is unsupported for ensembles'):
+            svc.start_reload_poller(0.1)
+
+
+def test_fused_inference_is_ignored_for_ensembles(tsetup, caplog):
+    """As the JAX service: a warning, then every member's plain forward."""
+    with caplog.at_level('WARNING', logger='inferbiomechanics_tpu_torch.serve'):
+        svc = InferenceService(tsetup['cfg'], tsetup['ckpt'], tsetup['ds'], max_batch=8,
+                               ensemble=[tsetup['ckpt'], tsetup['ckpt']], device='cpu')
+    assert '--fused-inference ignored for ensembles' in caplog.text
+    assert svc.schema()['fused_inference'] is False
+    x = np.asarray(tsetup['ds'].gather(np.arange(3)).inputs)
+    out, spread = svc.predict_packed(x, with_spread=True)
+    with torch.no_grad():
+        want = svc.model(torch.from_numpy(x))
+    for k in out:       # two copies of one member: its own answer, no spread
+        np.testing.assert_allclose(out[k], want[k].float().numpy(), rtol=1e-6, atol=1e-6)
+        assert not spread[k].any()
+
+
+def _symmetrized(svc_plain, ds, x):
+    """(f(x) + unmirror(f(mirror(x)))) / 2 from a service without TTA, with
+    the JAX package's mirror spec."""
+    spec = jax_spec_from_dataset(ds)
+    o1 = svc_plain.predict_packed(x)
+    o2 = svc_plain.predict_packed(np.asarray(spec.mirror_inputs(x)))
+    o2 = jax_mirror_outputs(spec, ds.lab_offsets, {k: jnp.asarray(v) for k, v in o2.items()})
+    return {k: 0.5 * (np.asarray(o1[k]) + np.asarray(o2[k])) for k in o1}
+
+
+@pytest.mark.parametrize('which', ['feedforward', 'groundlink', 'transformer'])
+def test_tta_mirror_service_matches_jax(setup, gsetup, tsetup, which):
+    """``tta_mirror``: the JAX TTA service's answer, and exactly the
+    half-sum of the port's own plain and mirror-unmirrored forwards."""
+    s = {'feedforward': setup, 'groundlink': gsetup, 'transformer': tsetup}[which]
+    cfg, ckpt, ds = s['cfg'], s['ckpt'], s['ds']
+    x = np.asarray(ds.gather(np.arange(8)).inputs, np.float32)
+    got = InferenceService(cfg, ckpt, ds, max_batch=64, tta_mirror=True,
+                           device='cpu').predict_packed(x)
+    plain = InferenceService(cfg, ckpt, ds, max_batch=64, device='cpu')
+    own = _symmetrized(plain, ds, x)
+    want = JaxService(cfg, ckpt, ds, max_batch=64, tta_mirror=True).predict_packed(x)
+    assert set(got) == set(want) == set(own)
+    for k in got:
+        np.testing.assert_allclose(got[k], own[k], rtol=1e-6, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(got[k], want[k], rtol=0, err_msg=k,
+                                   atol=max(ATOL, GL_REL * np.abs(want[k]).max()))
+    assert any(not np.allclose(got[k], plain.predict_packed(x)[k]) for k in got)
+    assert plain.stats['device_forwards'] == 3       # one count a predict_packed
+
+
+def test_tta_mirror_composes_with_ensemble(esetup):
+    """Each member is symmetrized before the across-member mean and std."""
+    cfg, ds, dirs = esetup['cfg'], esetup['ds'], esetup['dirs']
+    x = np.asarray(ds.gather(np.arange(4)).inputs, np.float32)
+    out, spread = InferenceService(cfg, dirs[0], ds, max_batch=64, ensemble=dirs,
+                                   tta_mirror=True, device='cpu'
+                                   ).predict_packed(x, with_spread=True)
+    singles = [InferenceService(cfg, d, ds, max_batch=64, tta_mirror=True,
+                                device='cpu').predict_packed(x) for d in dirs]
+    want, want_spread = JaxService(cfg, dirs[0], ds, max_batch=64, ensemble=dirs,
+                                   tta_mirror=True).predict_packed(x, with_spread=True)
+    for k in out:
+        np.testing.assert_allclose(out[k], (singles[0][k] + singles[1][k]) / 2,
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(spread[k], np.abs(singles[0][k] - singles[1][k]) / 2,
+                                   rtol=1e-5, atol=1e-6)
+    _assert_outputs_close(out, want)
+    _assert_outputs_close(spread, want_spread)
+
+
+def test_tta_mirror_reads_the_lateral_axis_from_the_config(setup):
+    cfg = _config()
+    cfg.mirror_lateral_axis = 0
+    x = np.asarray(setup['ds'].gather(np.arange(4)).inputs, np.float32)
+    got = InferenceService(cfg, setup['ckpt'], setup['ds'], max_batch=8,
+                           tta_mirror=True, device='cpu').predict_packed(x)
+    want = JaxService(cfg, setup['ckpt'], setup['ds'], max_batch=8,
+                      tta_mirror=True).predict_packed(x)
+    z_axis = InferenceService(setup['cfg'], setup['ckpt'], setup['ds'], max_batch=8,
+                              tta_mirror=True, device='cpu').predict_packed(x)
+    _assert_outputs_close(got, want)
+    assert any(not np.allclose(got[k], z_axis[k]) for k in got)
+
+
+def test_reload_poller_picks_up_new_checkpoint(setup, tmp_path):
+    ckpt, cfg, ds = str(tmp_path / 'feedforward'), setup['cfg'], setup['ds']
+    first = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(1))
+    port_ckpt.save_checkpoint(ckpt, first, 0, 0)
+    svc = InferenceService(cfg, ckpt, ds, max_batch=16, device='cpu')
+    svc.start_reload_poller(0.0)                       # 0 = off
+    assert svc._poller is None
+    svc.start_reload_poller(0.1)
+    try:
+        second = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(2))
+        port_ckpt.save_checkpoint(ckpt, second, 2, 0)
+        deadline = time.time() + 20.0
+        while time.time() < deadline and svc.epoch != 2:
+            time.sleep(0.05)
+        assert (svc.epoch, svc.batch) == (2, 0)
+        x = np.asarray(ds.gather(np.arange(2)).inputs)
+        with torch.no_grad():
+            want = second.eval()(torch.from_numpy(x))
+        for k, v in svc.predict_packed(x).items():
+            np.testing.assert_array_equal(v, want[k].numpy())
+    finally:
+        svc.close()
+    assert not svc._poller.is_alive()                  # close() stops the poller
+
+
+def test_serve_command_polls_for_checkpoints(setup, tmp_path):
+    """``--reload-poll-sec`` through the command's wiring, with the port's
+    own dataset class."""
+    root = tmp_path / 'ckpts'
+    cfg = setup['cfg']
+    pds = PortWindowDataset(str(setup['data']), window_size=20, stride=5,
+                            skip_loading_skeletons=True)
+    port_ckpt.save_checkpoint(str(root / 'feedforward'),
+                              build_model_for_dataset(cfg, pds), 0, 0)
+    args = build_parser().parse_args([
+        'serve', '--device', 'cpu', '--port', '0', '--reload-poll-sec', '0.1',
+        '--dataset-home', str(setup['data']), '--checkpoint-dir', str(root),
+        '--history-len', '20', '--stride', '5', '--hidden-dims', '64', '64'])
+    service, server = start(args)
+    try:
+        assert service._poller.is_alive() and service.epoch == 0
+        port_ckpt.save_checkpoint(str(root / 'feedforward'),
+                                  build_model_for_dataset(cfg, pds), 1, 3)
+        deadline = time.time() + 20.0
+        while time.time() < deadline and service.epoch != 1:
+            time.sleep(0.05)
+        assert (service.epoch, service.batch) == (1, 3)
+    finally:
+        server.server_close()
+        service.close()
