@@ -6,10 +6,13 @@
 Phases, each of which fails the run:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build the kernels (``ops/csrc/*.cu``: K1 fused MLP, K2 fused encoder
-     layer, K4 fused GroundLink forward) from this checkout with nvcc;
+     layer, K3 its backward, K4 fused GroundLink forward) from this checkout
+     with nvcc;
   3. each kernel against its plain PyTorch version on the card: K1 at nine
      cases (atol 1e-2), K2 at five (rtol = atol = 1e-2), K4 at seven (2e-2 x
-     max|plain|), with random biases and LayerNorm rows;
+     max|plain|), K3 at seven (dx and each of the 12 gradients within 2e-2 x
+     that tensor's max|plain|, and two calls bitwise equal), with random
+     biases and LayerNorm rows;
   4. the feedforward serving slice through the ``serve`` command's wiring:
      the default model at full width (1770->512->512->30, sigmoid, window
      50 / stride 5, max_batch 4096) with seeded random weights, answering
@@ -35,10 +38,24 @@ Phases, each of which fails the run:
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096: each kernel, its plain version (the f32
      precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
-     chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K4: bf16 ``F.pad`` +
-     ``F.conv1d`` + ``F.elu`` x4 and ``F.linear`` x3, both output formats),
-     by CUDA events and by profiler device time, beside the bound the card
-     allows; the 4-layer encoder stack; /predict p50 of the three services.
+     chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K3: autograd through
+     that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
+     ``F.elu`` x4 and ``F.linear`` x3, both output formats), by CUDA events
+     and by profiler device time, beside the bound the card allows; the
+     4-layer encoder stack; /predict p50 of the three services; the weight
+     packing of a train step, a whole train step (``pallas`` and ``vpu``) and
+     where its time goes;
+  7. training at full width through the ``train`` command's wiring: a
+     synthetic train and dev set, ``--model-type transformer --attn-impl
+     pallas --batch-size 4096``, 2 epochs; K2 launched 4 times a forward
+     (train steps and dev batches) and K3 4 x 3 times a train step; the loss
+     falls; the first step's loss and gradients agree with the same step
+     through the plain versions on the card; a run stopped after epoch 0 and
+     resumed ends with bitwise the parameters of the uninterrupted run;
+     ``serve`` answers /predict from the checkpoint as the model's own
+     forward does;
+  7b. one epoch each of the same transformer with ``--attn-impl vpu`` (plain
+     autograd) and of the default feedforward model; windows/s of all three.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -49,7 +66,9 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
+import logging
 import shutil
 import statistics
 import subprocess
@@ -90,6 +109,15 @@ HEAD_REL = 3e-2
 # value of its whole 30-wide output vector: the four heads are slices of it,
 # and an error of this size may fall on the head with the smallest values.
 GL_REL = 2e-2
+# K3 against its plain version, dx and each of the 12 gradients relative to
+# that tensor's largest plain value. Both recompute the forward with the same
+# bf16 operands and f32 sums and round the same gradient operands to bf16;
+# they sum in another order, which flips bf16 roundings of recomputed
+# activations and of gradients that feed later products. The JAX suite allows
+# its Pallas backward 5e-2 x max against jax.vjp in bf16
+# (tests/test_pallas_encoder.py). The same limit holds a train step's
+# gradients through the kernels against the step through the plain versions.
+BWD_REL = 2e-2
 FULL_DIMS = [1770, 512, 512, 30]
 GL_FULL = dict(t=10, c_in=177, features=(128, 128, 256, 256), taps=7, fc_depth=3, c_out=30)
 ENC_FULL = dict(t=10, d=256, heads=8, mlp_ratio=4, layers=4)
@@ -108,6 +136,12 @@ K2 = {
     'route': 'cuda',
     'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_encoder.cu',
     'replaces': 'inferbiomechanics_tpu/ops/pallas_encoder.py:296',
+}
+K3 = {
+    'name': 'fused_encoder_layer_bwd (K3)',
+    'route': 'cuda',
+    'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_encoder_bwd.cu',
+    'replaces': 'inferbiomechanics_tpu/ops/pallas_encoder.py:520',
 }
 K4 = {
     'name': 'fused_groundlink_forward (K4)',
@@ -288,6 +322,50 @@ def phase_k2_vs_plain(torch, fe, seed: int) -> float:
     return worst
 
 
+def phase_k3_vs_plain(torch, fe, seed: int) -> float:
+    """Returns the largest error relative to its tensor's max|plain| at the
+    full-width cases."""
+    gen = torch.Generator().manual_seed(seed)
+    full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
+    cases = [(b, *full) for b in (1, 19, 4096)]     # 19: no multiple of the tile
+    cases += [(37, 4, ENC_FULL['d'], ENC_FULL['heads']),
+              (37, 10, 128, 4),        # three row tiles, 128-column MLP chunks
+              (700, 4, 128, 4),        # several tiles a block, several row splits
+              (9, 10, 512, 8)]         # one window a tile
+    names = ('x',) + fe.PARAM_NAMES
+    worst = 0.0
+    for b, t, d, heads in cases:
+        packed = fe.pack_encoder_params(
+            _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda',
+            transposes=True)
+        x = torch.randn(b, t, d, generator=gen).cuda()
+        g = torch.randn(b, t, d, generator=gen).cuda()
+        before = fe.bwd_launches
+        dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+        _check(fe.bwd_launches == before + fe.BWD_LAUNCHES_PER_LAYER,
+               'launch counter did not rise')
+        dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+        ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
+        torch.cuda.synchronize()
+        rel, at = 0.0, ''
+        for name, got, again, ref in zip(names, (dx, *grads), (dx2, *grads2),
+                                         (ref_dx, *ref_grads)):
+            _check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                   f'K3 bad output {name} {tuple(got.shape)}')
+            _check(bool(torch.equal(got, again)),
+                   f'K3 {name}: two calls on the same inputs differ')
+            r = float((got - ref).abs().max()) / float(ref.abs().max())
+            if r > rel:
+                rel, at = r, name
+        print(f'[kernel] K3 B={b} T={t} d={d} H={heads}: worst max abs err / max '
+              f'|plain| {rel:.3g} (at d{at}; limit {BWD_REL}); two calls bitwise equal',
+              flush=True)
+        _check(rel <= BWD_REL, f'K3 disagrees with the plain version: {rel} at d{at}')
+        if (t, d, heads) == full:
+            worst = max(worst, rel)
+    return worst
+
+
 def _cuda_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -318,6 +396,25 @@ def _device_us(torch, fn, iters: int = 20):
     total = sum(e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == DeviceType.CUDA)
     return total / iters if total > 0 else None
+
+
+def _device_us_by_name(torch, fn, names, iters: int = 10) -> dict:
+    """Profiler device time per call of the GPU kernels whose name contains
+    one of ``names``, and of all the others together."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in (*names, 'other')}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((n for n in names if n in e.name), 'other')
+            out[key] += e.time_range.elapsed_us() / iters
+    return out
 
 
 def _time_three(torch, fns: dict):
@@ -432,6 +529,20 @@ def k4_bound(batch: int, fmt: str, t: int, c_in: int, features, taps: int,
     n_bytes = (batch * t * c_in * 4 + (conv + head) * 2
                + (sum(features) + (fc_depth - 1) * c) * 4 + batch * frames * c_out * 4)
     return _bound(2.0 * batch * (t * conv + frames * head), 0.0, n_bytes)
+
+
+def k3_bound(batch: int, t: int, d: int, m: int):
+    """x and g read and dx written once (f32), the bf16 weights and f32 rows
+    read once (the transposes are the same matrices), the f32 gradients
+    written once. On the tensor cores: the recompute without its last product
+    (Wqkv, Wproj, W1) and the eight gradient products (each weight once
+    against its transpose and once as A^T G); in f32: scores and value mix
+    forward (2 T T d multiply-adds a window) and dp, dv, dk, dq backward
+    (4 T T d)."""
+    pairs = 3 * d * d + d * d + 2 * d * m
+    n_bytes = 3 * batch * t * d * 4 + pairs * 2 + (9 * d + m) * 4 + (pairs + 9 * d + m) * 4
+    mm = 2.0 * batch * t * ((pairs - d * m) + 2 * pairs)
+    return _bound(mm, 2.0 * 6 * batch * t * t * d, n_bytes)
 
 
 def _host_p50_ms(fn, iters: int) -> float:
@@ -655,6 +766,268 @@ def phase_tta_and_poller(port, data, ckpt_root, ds, symmetrized, new_weights, co
         _stop(svc, server)
 
 
+class _LossLog(logging.Handler):
+    """Collects the train loop's logged steps as (epoch, batch, loss)."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.steps = []
+
+    def emit(self, record):
+        if str(record.msg).startswith('epoch %d batch %d loss'):
+            self.steps.append(tuple(record.args))
+
+
+@contextlib.contextmanager
+def _plain_encoder_layers(fe):
+    """Route ``FusedEncoderLayerFn`` through the plain versions (forward
+    ``encoder_layer_reference``, backward ``encoder_layer_bwd_reference``) on
+    any device, to hold a step through the kernels against."""
+    kernel_fwd, kernel_bwd = fe.fused_encoder_layer, fe.fused_encoder_layer_bwd
+    fe.fused_encoder_layer = lambda x, packed, heads: fe.encoder_layer_reference(
+        x, packed.params, heads)
+    fe.fused_encoder_layer_bwd = lambda x, g, packed, heads: fe.encoder_layer_bwd_reference(
+        x, g, packed.params, heads)
+    try:
+        yield
+    finally:
+        fe.fused_encoder_layer, fe.fused_encoder_layer_bwd = kernel_fwd, kernel_bwd
+
+
+def _first_step(torch, port, model, data, idx, lc):
+    """Loss and gradients (by parameter name) of one train step's forward and
+    backward on ``model``; no update."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    inputs, labels = data.gather(idx)
+    loss, _ = port.loss_and_metrics(model(inputs), port.unpack(labels, data.lab_offsets), lc)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
+                   subjects=40, trial_length=2100, size_flags=()):
+    """Train the transformer with ``--attn-impl pallas`` through the
+    ``train`` command's wiring (``port``: the command's parser and runner and
+    the modules a step is made of) and check launch counts, the loss, the
+    first step against the plain versions, an exact resume and the served
+    checkpoint. ``size_flags`` narrows the model for a rehearsal; the run on
+    the card passes none (full width). Returns the numbers for the report."""
+    data = root / 'train_data'
+    for split, n, first in (('train', subjects, 100), ('dev', 1, 200)):
+        (data / split).mkdir(parents=True)
+        for i in range(n):
+            port.write_synthetic_subject(str(data / split / f'subject_{i}.b3d'),
+                                         num_trials=2, trial_length=trial_length,
+                                         seed=seed + first + i)
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+
+    def argv(ckpt, flags, epochs):
+        return ['train', '--dataset-home', str(data), '--checkpoint-dir', str(ckpt),
+                '--batch-size', str(batch), '--epochs', str(epochs), '--device', device,
+                '--seed', str(seed), *flags]
+
+    def run(ckpt, flags, epochs):
+        return port.run_training(port.parser().parse_args(argv(ckpt, flags, epochs)))
+
+    loop_log = logging.getLogger('inferbiomechanics_tpu_torch.train.loop')
+    loop_log.setLevel(logging.INFO)
+    handler = _LossLog()
+    loop_log.addHandler(handler)
+    try:
+        # the main path: 2 epochs, counts set to 0 just before, read just after
+        fe.launches = fe.bwd_launches = 0
+        result = run(root / 'ckpt_a', pallas, 2)
+        k2_launches, k3_launches = fe.launches, fe.bwd_launches
+        steps = list(handler.steps)
+    finally:
+        loop_log.removeHandler(handler)
+    args = port.parser().parse_args(argv(root / 'ckpt_a', pallas, 2))
+    cfg = port.config_from_args(args)
+    layers = cfg.num_layers
+    train_ds, dev_ds = (port.WindowDataset(
+        str(data / split), window_size=cfg.window_size, stride=cfg.stride,
+        output_data_format=cfg.output_data_format, skip_loading_skeletons=True)
+        for split in ('train', 'dev'))
+    train_steps = result.windows_seen // batch
+    dev_batches = 2 * (len(dev_ds) // batch)
+    _check(result.epochs_run == 2 and train_steps == 2 * (len(train_ds) // batch)
+           and train_steps >= 16 and dev_batches >= 2,
+           f'{result.epochs_run} epochs, {train_steps} train steps, {dev_batches} dev batches')
+    _check(k2_launches == layers * (train_steps + dev_batches),
+           f'K2: {k2_launches} launches for {train_steps} train steps and '
+           f'{dev_batches} dev batches of {layers} layers')
+    _check(k3_launches == layers * fe.BWD_LAUNCHES_PER_LAYER * train_steps,
+           f'K3: {k3_launches} launches for {train_steps} train steps of {layers} layers')
+    print(f'[train] pallas transformer, B={batch}: {train_steps} train steps and '
+          f'{dev_batches} dev batches in 2 epochs; K2 launches {k2_launches} == {layers} x '
+          f'({train_steps} + {dev_batches}); K3 launches {k3_launches} == {layers} x '
+          f'{fe.BWD_LAUNCHES_PER_LAYER} x {train_steps}; '
+          f'{result.windows_per_sec:.0f} windows/s', flush=True)
+    first, last = steps[0][2], steps[-1][2]
+    _check(len(steps) >= 2 and np.isfinite([s[2] for s in steps]).all() and last < first,
+           f'logged losses {steps}')
+    print(f'[train] loss of the logged steps {[round(s[2], 4) for s in steps]}: falls',
+          flush=True)
+    dev_loss = result.final_dev_metrics['loss']
+    _check(np.isfinite(dev_loss), f'dev loss {dev_loss}')
+
+    # the first step, through the kernels and through the plain versions
+    lc = port.loss_config_from(cfg)
+    model = port.build_model_for_dataset(
+        cfg, train_ds, generator=torch.Generator().manual_seed(cfg.seed), device=device)
+    ddata = port.DeviceResidentData(train_ds, device)
+    perm = np.random.default_rng((cfg.seed, 0)).permutation(len(train_ds))
+    idx = torch.from_numpy(perm[:batch]).to(device)
+    loss_k, grads_k = _first_step(torch, port, model, ddata, idx, lc)
+    with _plain_encoder_layers(fe):
+        loss_p, grads_p = _first_step(torch, port, model, ddata, idx, lc)
+    _check(abs(loss_k - first) <= 1e-5 * abs(first),
+           f'first step loss {loss_k} != the run\'s first logged loss {first}')
+    _check(abs(loss_k - loss_p) <= BWD_REL * abs(loss_p),
+           f'first step loss {loss_k} through the kernels, {loss_p} through the plain versions')
+    _check(set(grads_k) == set(grads_p) and any(n.startswith('enc0_') for n in grads_k),
+           'gradients missing')
+    worst, at = 0.0, ''
+    for n, gp in grads_p.items():
+        scale = float(gp.abs().max())
+        err = float((grads_k[n] - gp).abs().max())
+        _check(err <= BWD_REL * scale, f'first step: gradient of {n} off by {err} '
+                                       f'(max |plain| {scale})')
+        if scale > 0 and err / scale > worst:
+            worst, at = err / scale, n
+    print(f'[train] first step: loss {loss_k:.6g} through K2/K3, {loss_p:.6g} through the '
+          f'plain versions; worst gradient error / max |plain| {worst:.3g} (at {at}; '
+          f'limit {BWD_REL}) over {len(grads_p)} parameters', flush=True)
+    del model, ddata, grads_k, grads_p
+
+    # stopped after epoch 0 and resumed == uninterrupted, bitwise
+    run(root / 'ckpt_b', pallas, 1)
+    resumed = run(root / 'ckpt_b', pallas, 2)
+    _check(resumed.epochs_run == 1, f'the resumed run ran {resumed.epochs_run} epochs')
+    final = [torch.load(str(root / c / 'transformer' / 'epoch_1_batch_0.torch.pt'),
+                        map_location='cpu', weights_only=True) for c in ('ckpt_a', 'ckpt_b')]
+    for k, v in final[0]['model_state_dict'].items():
+        _check(bool(torch.equal(v, final[1]['model_state_dict'][k])),
+               f'resume: parameter {k} differs from the uninterrupted run')
+    for i, st in final[0]['optimizer_state_dict']['state'].items():
+        for k, v in st.items():
+            _check(bool(torch.equal(v, final[1]['optimizer_state_dict']['state'][i][k])),
+                   f'resume: optimizer state {i}/{k} differs')
+    _check(final[0]['step'] == final[1]['step'] == train_steps, 'resume: step count')
+    print(f'[train] stopped after epoch 0 and resumed: {len(final[0]["model_state_dict"])} '
+          f'parameters and the optimizer state bitwise equal to the uninterrupted run',
+          flush=True)
+
+    # the port's serve answers from the checkpoint the trainer wrote
+    served = port.build_model_for_dataset(cfg, dev_ds, device=device)
+    port.load_latest_checkpoint(served, str(root / 'ckpt_a' / 'transformer'))
+    served.eval()
+    xs = {b: dev_ds.gather(np.arange(b)).inputs for b in (1, 37, batch)}
+    with torch.no_grad():
+        want = {b: {k: v.cpu().numpy() for k, v in
+                    served(torch.from_numpy(x).to(device)).items()} for b, x in xs.items()}
+    fe.launches = 0
+    svc, server, url = _serve(port, [
+        'serve', '--dataset-home', str(data), '--checkpoint-dir', str(root / 'ckpt_a'),
+        '--port', '0', '--device', device, '--max-batch', str(batch), *pallas])
+    try:
+        h = _get(url + '/health')
+        _check(h['status'] == 'ok' and h['model'] == 'transformer' and h['epoch'] == 1,
+               f'/health {h}')
+        errs = [_agree(_post(url + '/predict', _b64_body(x))['outputs'], want[b],
+                       f'served pallas checkpoint B={b}', rel=HEAD_REL)
+                for b, x in xs.items()]
+        m = _get(url + '/metrics')
+        _check(m['errors'] == 0 and fe.launches == layers * m['device_forwards'] > 0,
+               f'{fe.launches} K2 launches for {m["device_forwards"]} device forwards: {m}')
+        print(f'[train] serve answers /predict from the trained checkpoint (epoch 1): max '
+              f'abs err vs the model\'s own forward {max(errs):.3g}; K2 launches '
+              f'{fe.launches} == {layers} x device forwards {m["device_forwards"]}',
+              flush=True)
+    finally:
+        _stop(svc, server)
+
+    # 7b. the comparison runs, one epoch each
+    vpu = run(root / 'ckpt_vpu', ['--model-type', 'transformer', '--attn-impl', 'vpu',
+                                  *size_flags], 1)
+    ff = run(root / 'ckpt_ff', ['--model-type', 'feedforward'], 1)
+    _check(vpu.epochs_run == ff.epochs_run == 1
+           and np.isfinite(vpu.final_train_metrics['loss'])
+           and np.isfinite(ff.final_train_metrics['loss']), 'comparison runs')
+    wps = {'transformer pallas (K2 + K3)': result.windows_per_sec,
+           'transformer vpu (plain autograd)': vpu.windows_per_sec,
+           'feedforward (plain autograd)': ff.windows_per_sec}
+    print(f'[train] windows/s at B={batch}: '
+          + ', '.join(f'{k} {v:.0f}' for k, v in wps.items()), flush=True)
+    return dict(k2_launches=k2_launches, k3_launches=k3_launches, train_steps=train_steps,
+                dev_batches=dev_batches, windows_per_sec=wps, first_loss=first,
+                last_loss=last, first_step_grad_rel=worst)
+
+
+def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer,
+                     create_train_state, card, seed, batch=4096):
+    """A whole train step at full width on device-resident data (``pallas``
+    and ``vpu`` transformers): time by the host clock around synchronised
+    steps, device time by kernel, and the parts timed alone by CUDA events."""
+    out = {}
+    idx = torch.from_numpy(np.random.default_rng(seed).permutation(len(ds))[:batch]).cuda()
+    data = port.DeviceResidentData(ds, 'cuda', pack_windows=True)
+    for attn in ('pallas', 'vpu'):
+        cfg = port.config_from_args(port.parser().parse_args(
+            ['train', '--model-type', 'transformer', '--attn-impl', attn]))
+        model = port.build_model_for_dataset(
+            cfg, ds, generator=torch.Generator().manual_seed(seed), device='cuda')
+        lc = port.loss_config_from(cfg)
+        state = create_train_state(model, make_optimizer(
+            model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+        step = make_device_train_step(model, data, lc)
+
+        def one():
+            return step(state, idx)                       # noqa: B023
+
+        def synced():
+            one()
+            torch.cuda.synchronize()
+
+        wall = _host_p50_ms(synced, 10)
+        parts = _device_us_by_name(torch, one, (
+            'fused_encoder_kernel', 'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel',
+            'encoder_bwd_reduce_kernel'), iters=5)
+        busy = sum(parts.values()) / 1e3
+        out[attn] = dict(step_ms=wall, device_busy_ms=busy, device_us_by_kernel=parts,
+                         windows_per_sec=batch / wall * 1e3)
+        print(f'[times] train step {attn} transformer B={batch} ({card}): {wall:.2f} ms by '
+              f'the host clock (p50 of 10 synchronised steps) = {batch / wall * 1e3:.0f} '
+              f'windows/s; device busy {busy:.2f} ms a step (host gaps '
+              f'{max(wall - busy, 0.0):.2f} ms): '
+              + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items()), flush=True)
+        if attn == 'pallas':
+            inputs, labels = data.gather(idx)
+            with torch.no_grad():
+                outputs = {k: v.clone().requires_grad_(True)
+                           for k, v in model.eval()(inputs).items()}
+
+            def loss_fb():
+                loss, _ = port.loss_and_metrics(outputs, port.unpack(labels, data.lab_offsets), lc)
+                loss.backward()
+
+            alone = {
+                'gather': _cuda_ms(torch, lambda: data.gather(idx), iters=10),
+                'loss and metrics, forward and backward': _cuda_ms(torch, loss_fb, iters=10),
+                'optimizer update': _cuda_ms(torch, state.optimizer.step, iters=10),
+                'packing': _cuda_ms(torch, lambda: [
+                    fe.pack_encoder_params(model.layer_params(i), 'cuda', transposes=True)
+                    for i in range(model.num_layers)], iters=10),
+            }
+            out[attn]['alone_ms'] = alone
+            print('[times] parts of the pallas step alone, CUDA events: '
+                  + ', '.join(f'{k} {v * 1e3:.1f} us' for k, v in alone.items()), flush=True)
+        del model, state, step
+    return out
+
+
 def _print_times(card, what, b, ms, dev, library, bound):
     fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
     print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
@@ -692,9 +1065,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions' f32 matmuls
     torch.backends.cudnn.allow_tf32 = False
 
+    from inferbiomechanics_tpu_torch.__main__ import build_parser as main_parser
     from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
-    from inferbiomechanics_tpu_torch.config import Config
-    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
+    from inferbiomechanics_tpu_torch.config import Config, config_from_args
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
     from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
     from inferbiomechanics_tpu_torch.models.common import slice_output_heads
     from inferbiomechanics_tpu_torch.models.transformer import fused_transformer_forward
@@ -703,20 +1078,31 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
     from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
     from inferbiomechanics_tpu_torch.train.augment import mirror_outputs, spec_from_dataset
-    from inferbiomechanics_tpu_torch.train.checkpoint import save_checkpoint
-    from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+    from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
+    from inferbiomechanics_tpu_torch.train.checkpoint import (
+        load_latest_checkpoint, save_checkpoint,
+    )
+    from inferbiomechanics_tpu_torch.train.device_data import (
+        DeviceResidentData, make_device_train_step,
+    )
+    from inferbiomechanics_tpu_torch.train.loop import (
+        build_model_for_dataset, loss_config_from,
+    )
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
 
     # 2. build
     info = _build.build()
-    print(f'[build] K1, K2 and K4 built with nvcc in {info["seconds"]:.2f} s', flush=True)
+    print(f'[build] K1, K2, K3 and K4 built with nvcc in {info["seconds"]:.2f} s', flush=True)
     for line in info['log'].splitlines():
-        if 'registers' in line or 'spill' in line:
+        if 'registers' in line or 'spill' in line or 'Compiling entry function' in line:
             print(f'[build] {line.strip()}', flush=True)
 
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
     k2_err = phase_k2_vs_plain(torch, fe, args.seed)
     k4_err = phase_k4_vs_plain(torch, fg, args.seed)
+    k3_err = phase_k3_vs_plain(torch, fe, args.seed)
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
     try:
@@ -754,8 +1140,15 @@ def main() -> int:
             return _agree(outputs, ff_plain(x), what, atol=ATOL)
 
         weights_for(cfg)(args.seed, 1)
-        port = SimpleNamespace(build_parser=build_parser, start=start,
-                               WindowDataset=WindowDataset)
+        port = SimpleNamespace(
+            build_parser=build_parser, start=start, WindowDataset=WindowDataset,
+            parser=main_parser, run_training=run_training,
+            config_from_args=config_from_args, unpack=unpack,
+            write_synthetic_subject=write_synthetic_subject,
+            loss_and_metrics=loss_and_metrics, loss_config_from=loss_config_from,
+            build_model_for_dataset=build_model_for_dataset,
+            DeviceResidentData=DeviceResidentData,
+            load_latest_checkpoint=load_latest_checkpoint)
         k1_launches, ff_p50 = phase_service(
             port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
             ff_agree, fm, 1, args.seed)
@@ -842,6 +1235,13 @@ def main() -> int:
 
         k4_tta_launches = phase_tta_and_poller(
             port, data, ckpt_root, ds, gl_symmetrized, weights_for(gcfg), fg, args.seed)
+
+        # 7 and 7b. training
+        trained = phase_training(torch, port, fe, tmp, args.seed)
+
+        # 6, the part that needs the dataset: a whole train step
+        steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
+                                 make_optimizer, create_train_state, card, args.seed)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -921,6 +1321,45 @@ def main() -> int:
                   f'{fwd[b]["plain"] * 1e3:.1f} us, vpu forward (bf16 PyTorch ops) '
                   f'{fwd[b]["vpu"] * 1e3:.1f} us', flush=True)
 
+    k3, pack_ms = {}, None
+    train_stack = [fe.pack_encoder_params(p.params, 'cuda', transposes=True) for p in stack]
+    lib_params = list(lib_stack[0].parameters())
+    for b in (1, 4096):
+        xt = torch.randn(b, t, d, generator=gen).cuda()
+        gt = torch.randn(b, t, d, generator=gen).cuda()
+        x16 = xt.to(torch.bfloat16).requires_grad_(True)
+        g16 = gt.to(torch.bfloat16)
+        fns = {
+            'kernel': lambda: fe.fused_encoder_layer_bwd(xt, gt, train_stack[0], heads),  # noqa: B023
+            'plain': lambda: fe.encoder_layer_bwd_reference(  # noqa: B023
+                xt, gt, train_stack[0].params, heads),  # noqa: B023
+            'library': lambda: torch.autograd.grad(  # noqa: B023
+                lib_stack[0](x16), [x16, *lib_params], g16),  # noqa: B023
+        }
+        with torch.no_grad():
+            ref_dx = fns['plain']()[0]
+        err16 = float((fns['library']()[0].float() - ref_dx).abs().max())
+        print(f'[times] autograd through nn.TransformerEncoderLayer bf16 B={b}: dx max abs '
+              f'err vs plain {err16:.3g} on values up to {float(ref_dx.abs().max()):.3g} '
+              f'(speed baseline only)', flush=True)
+        ms, dev = _time_three(torch, fns)
+        k3[b] = dict(ms=ms, dev=dev, bound=k3_bound(b, t, d, m))
+        _print_times(card, f'K3 one layer backward ({fe.BWD_LAUNCHES_PER_LAYER} launches, '
+                     'recompute included) T=10 d=256 H=8', b, ms, dev,
+                     'autograd fwd+bwd through nn.TransformerEncoderLayer bf16',
+                     k3[b]['bound'])
+    k3_parts = _device_us_by_name(torch, fns['kernel'], (
+        'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'))
+    print('[times] K3 B=4096, profiler device time by launch: '
+          + ', '.join(f'{k} {v:.1f} us' for k, v in k3_parts.items()), flush=True)
+    with torch.no_grad():
+        f32_params = [tuple(q.float() for q in p.params) for p in stack]
+        pack_ms = _cuda_ms(torch, lambda: [fe.pack_encoder_params(q, 'cuda', transposes=True)
+                                           for q in f32_params])
+    print(f'[times] packing {n_layers} layers for a train step (bf16 cast, fragment order, '
+          f'weights and transposes; torch ops), CUDA events: {pack_ms * 1e3:.1f} us',
+          flush=True)
+
     k4 = {'last_frame': {}, 'all_frames': {}}
     gl_tree = _random_groundlink_params(torch, gen, GL_FULL['c_in'], GL_FULL['features'],
                                         GL_FULL['fc_depth'])
@@ -967,7 +1406,17 @@ def main() -> int:
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
               forward_ms={str(b): v for b, v in fwd.items()},
-              predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]}),
+              predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]},
+              train_launches=trained['k2_launches']),
+        entry(K3, trained['k3_launches'], k3_err,
+              'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
+              'tensor\'s max |plain|', k3,
+              library='torch.autograd.grad through nn.TransformerEncoderLayer bf16, '
+                      'forward and backward',
+              launches_per_layer=fe.BWD_LAUNCHES_PER_LAYER,
+              launches_per_train_step=n_layers * fe.BWD_LAUNCHES_PER_LAYER,
+              device_us_by_launch=k3_parts, pack_ms_per_step=pack_ms,
+              train=trained, train_step=steps),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',
               k4['last_frame'],

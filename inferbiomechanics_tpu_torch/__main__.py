@@ -1,6 +1,28 @@
-"""``python -m inferbiomechanics_tpu_torch serve ...``"""
+"""``python -m inferbiomechanics_tpu_torch {serve,train} ...``"""
 
-from inferbiomechanics_tpu_torch.cli.serve_cmd import main
+import argparse
+import logging
+from typing import Optional, Sequence
+
+from inferbiomechanics_tpu_torch.cli import serve_cmd, train_cmd
+
+COMMANDS = {'serve': serve_cmd, 'train': train_cmd}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog='python -m inferbiomechanics_tpu_torch')
+    sub = parser.add_subparsers(dest='command', required=True)
+    for module in COMMANDS.values():
+        module.register_subcommand(sub)
+    return parser
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format='%(asctime)s %(levelname)s %(name)s: %(message)s')
+    args = build_parser().parse_args(argv)
+    return COMMANDS[args.command].run(args)
+
 
 if __name__ == '__main__':
     raise SystemExit(main())

@@ -22,17 +22,26 @@ from typing import Optional, Sequence
 from inferbiomechanics_tpu_torch.config import add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.serve import InferenceService, serve
+from inferbiomechanics_tpu_torch.train.run_config import (
+    add_run_config_flag, use_run_config_if_requested,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """A parser with the ``serve`` subcommand alone."""
     parser = argparse.ArgumentParser(prog='python -m inferbiomechanics_tpu_torch')
-    sub = parser.add_subparsers(dest='command', required=True)
+    register_subcommand(parser.add_subparsers(dest='command', required=True))
+    return parser
+
+
+def register_subcommand(sub) -> None:
     p = sub.add_parser('serve', conflict_handler='resolve',
                        help='Serve checkpoint predictions over HTTP')
     add_config_flags(p)
     p.add_argument('--device', type=str, default='cuda',
                    help='torch device to serve on: cuda (default; fails '
                         'without a GPU) or cpu')
+    add_run_config_flag(p)
     p.add_argument('--port', type=int, default=8090)
     p.add_argument('--host', type=str, default='127.0.0.1',
                    help='Bind address; 0.0.0.0 exposes the server to the '
@@ -72,13 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help='not yet ported')
     p.add_argument('--init-checkpoint', type=str, default=None,
                    help='not yet ported')
-    return parser
 
 
 def start(args: argparse.Namespace):
     """Build the service and its HTTP server from parsed ``serve`` args;
     returns ``(service, server)``. The caller runs ``serve_forever``."""
-    config = config_from_args(args)
+    config = use_run_config_if_requested(config_from_args(args), args)
     checkpoint_dir = os.path.join(os.path.abspath(config.checkpoint_dir),
                                   config.model_type)
     # schema source: dev split if present, else the dataset root
@@ -111,7 +119,10 @@ def start(args: argparse.Namespace):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(name)s: %(message)s')
-    args = build_parser().parse_args(argv)
+    return run(build_parser().parse_args(argv))
+
+
+def run(args: argparse.Namespace) -> int:
     service, server = start(args)
     tag = (f'{len(service.members)}-member ensemble' if service.members else
            f'epoch {service.epoch}, batch {service.batch}')

@@ -1,0 +1,153 @@
+"""Regression loss and metric engine.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/loss/evaluator.py``: the
+four loss vectors (force / moment / wrench MSE; CoP MSE masked to feet
+carrying more than 10 N), the selectable component sum that is the scalar
+training loss, the three auxiliary-head losses, the eleven reported
+metrics, and the per-split accumulator with its report.
+
+The math is :func:`loss_and_metrics`, which the train and eval steps call;
+its metrics are detached and stay on the device. The inverse-dynamics
+joint-torque report (``tau_fn`` / ``--compute-report``) and the wandb
+report are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from inferbiomechanics_tpu_torch.data.keys import OutputDataKeys
+from inferbiomechanics_tpu_torch.ops.losses import (
+    com_acc_error, mask_by_threes, mean_norm_error, squared_diff_mean_vector,
+)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Which components of each loss vector feed the scalar training loss,
+    and the weights of the auxiliary heads (applied only when the model's
+    outputs hold the key)."""
+    predict_grf_components: Tuple[int, ...] = (0, 1, 2, 3, 4, 5)
+    predict_cop_components: Tuple[int, ...] = ()
+    predict_moment_components: Tuple[int, ...] = ()
+    predict_wrench_components: Tuple[int, ...] = ()
+    cop_force_threshold_newtons: float = 10.0
+    aux_tau_weight: float = 0.0
+    aux_com_acc_weight: float = 0.0
+    aux_contact_weight: float = 0.0
+
+
+def loss_and_metrics(outputs: Dict[str, torch.Tensor],
+                     labels: Dict[str, torch.Tensor],
+                     config: LossConfig
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(scalar_loss, metrics)`` for one batch; ``metrics`` holds the four
+    loss vectors and the scalar reported metrics, detached."""
+    K = OutputDataKeys
+    force_out, force_lab = (d[K.GROUND_CONTACT_FORCES_IN_ROOT_FRAME] for d in (outputs, labels))
+    moment_out, moment_lab = (d[K.GROUND_CONTACT_TORQUES_IN_ROOT_FRAME] for d in (outputs, labels))
+    wrench_out, wrench_lab = (d[K.GROUND_CONTACT_WRENCHES_IN_ROOT_FRAME] for d in (outputs, labels))
+    cop_out, cop_lab = (d[K.GROUND_CONTACT_COPS_IN_ROOT_FRAME] for d in (outputs, labels))
+
+    force_loss = squared_diff_mean_vector(force_out, force_lab)
+    moment_loss = squared_diff_mean_vector(moment_out, moment_lab)
+    wrench_loss = squared_diff_mean_vector(wrench_out, wrench_lab)
+    # CoP means nothing without contact: mask to feet with enough force
+    cop_mask = mask_by_threes(force_lab, threshold=config.cop_force_threshold_newtons)
+    cop_loss = squared_diff_mean_vector(cop_out * cop_mask, cop_lab * cop_mask)
+
+    def sel(vec: torch.Tensor, idx: Tuple[int, ...]) -> torch.Tensor:
+        return vec[list(idx)].sum() if len(idx) else vec.new_zeros(())
+
+    loss = (sel(force_loss, config.predict_grf_components) +
+            sel(cop_loss, config.predict_cop_components) +
+            sel(moment_loss, config.predict_moment_components) +
+            sel(wrench_loss, config.predict_wrench_components))
+
+    if config.aux_tau_weight > 0 and K.TAU in outputs:
+        loss = loss + config.aux_tau_weight * ((outputs[K.TAU] - labels[K.TAU]) ** 2).mean()
+    if config.aux_com_acc_weight > 0 and K.COM_ACC_IN_ROOT_FRAME in outputs:
+        loss = loss + config.aux_com_acc_weight * (
+            (outputs[K.COM_ACC_IN_ROOT_FRAME] - labels[K.COM_ACC_IN_ROOT_FRAME]) ** 2).mean()
+    if config.aux_contact_weight > 0 and K.CONTACT in outputs:
+        loss = loss + config.aux_contact_weight * F.binary_cross_entropy_with_logits(
+            outputs[K.CONTACT], labels[K.CONTACT])
+
+    with torch.no_grad():
+        wrench_halves = (mean_norm_error(wrench_out[:, :, :3], wrench_lab[:, :, :3]) +
+                         mean_norm_error(wrench_out[:, :, 6:9], wrench_lab[:, :, 6:9])) / 2.0
+        metrics = {
+            'force_loss': force_loss,
+            'moment_loss': moment_loss,
+            'wrench_loss': wrench_loss,
+            'cop_loss': cop_loss,
+            'loss': loss,
+            'force_avg_err': mean_norm_error(force_out, force_lab),
+            'moment_avg_err': mean_norm_error(moment_out, moment_lab),
+            'cop_avg_err': mean_norm_error(cop_out * cop_mask, cop_lab * cop_mask),
+            'wrench_moment_avg_err': wrench_halves,
+            'wrench_avg_err': mean_norm_error(wrench_out, wrench_lab, vec_size=6),
+            'com_acc_avg_err': com_acc_error(force_out, force_lab),
+        }
+    return loss, {k: v.detach() for k, v in metrics.items()}
+
+
+class RegressionLossEvaluator:
+    """Per-split accumulator and report printer: ``__call__`` once a batch,
+    ``print_report`` at epoch boundaries. Metrics stay on the device until
+    the report."""
+
+    def __init__(self, split: str, config: LossConfig = LossConfig(), tau_fn=None):
+        if tau_fn is not None:
+            raise NotImplementedError(
+                'the inverse-dynamics joint-torque report (tau_fn, '
+                '--compute-report) is not yet ported (ROADMAP.md Queue 1 item 7)')
+        self.split = split
+        self.config = config
+        self.reset()
+
+    def reset(self) -> None:
+        self.metric_history: Dict[str, List[torch.Tensor]] = {}
+
+    def compute_metrics(self, outputs, labels) -> Dict[str, torch.Tensor]:
+        return loss_and_metrics(outputs, labels, self.config)[1]
+
+    def __call__(self, inputs, outputs, labels, compute_report: bool = False,
+                 precomputed_metrics: Optional[Dict[str, torch.Tensor]] = None):
+        """Account one batch; pass the step's own metrics as
+        ``precomputed_metrics`` to spare a second computation."""
+        if compute_report:
+            raise NotImplementedError(
+                '--compute-report is not yet ported (ROADMAP.md Queue 1 item 7)')
+        metrics = (self.compute_metrics(outputs, labels)
+                   if precomputed_metrics is None else precomputed_metrics)
+        for k, v in metrics.items():
+            self.metric_history.setdefault(k, []).append(v)
+        return metrics['loss']
+
+    def mean_metric(self, key: str) -> Optional[float]:
+        hist = self.metric_history.get(key)
+        return float(torch.stack([h.float().mean() for h in hist]).mean()) if hist else None
+
+    def print_report(self, reset: bool = True) -> Dict[str, float]:
+        summary: Dict[str, float] = {}
+        if self.metric_history:
+            keys = ('force_avg_err', 'com_acc_avg_err', 'cop_avg_err', 'moment_avg_err',
+                    'wrench_avg_err', 'wrench_moment_avg_err', 'loss')
+            # one device-to-host copy for the whole report
+            means = torch.stack([torch.stack(self.metric_history[k]).float().mean()
+                                 for k in keys]).tolist()
+            summary = dict(zip(keys, means))
+            print(f'\tForce Avg Err: {summary["force_avg_err"]} N / kg')
+            print(f'\tCOM Acc Avg Err: {summary["com_acc_avg_err"]} m / s^2')
+            print(f'\tCoP Avg Err: {summary["cop_avg_err"]} m')
+            print(f'\tMoment Avg Err: {summary["moment_avg_err"]} Nm / kg')
+            print(f'\tWrench Avg Err: {summary["wrench_avg_err"]} N+Nm / kg')
+            print(f'\tWrench Moment Avg Err: {summary["wrench_moment_avg_err"]} Nm / kg')
+        if reset:
+            self.reset()
+        return summary

@@ -5,8 +5,9 @@ pre-LN transformer encoder over the window's frames with a learned temporal
 embedding, emitting the 4 contact output groups per frame (or for the last
 frame only) plus the auxiliary tau / COM-acceleration / contact heads.
 
-The modules hold the JAX model's ``attn_impl='vpu'`` parameter tree
-(``weights.py`` maps the names) and there are two forwards over it:
+With ``attn_impl='vpu'`` the modules hold the JAX model's ``vpu``
+parameter tree (``weights.py`` maps the names) and there are two forwards
+over it:
 
 - ``TransformerRegressor.forward``: the ``vpu`` math in plain PyTorch, bf16
   compute with a bf16 residual stream, as ``model.apply`` runs it;
@@ -15,8 +16,17 @@ The modules hold the JAX model's ``attn_impl='vpu'`` parameter tree
   residual stream inside the encoder. The two differ at bf16-residual level
   by design.
 
-``attn_impl='pallas'`` (another parameter tree, ``enc{i}_*``) comes with
-transformer training; ``'flax'`` is not ported.
+With ``attn_impl='pallas'`` the encoder is the JAX model's flat
+``enc{i}_{name}`` tree instead: 12 parameters a layer in
+``fused_encoder.PARAM_NAMES`` order, kernels stored ``[in, out]`` as the
+JAX package stores them (so the per-step packing for the kernels needs no
+transpose). Its one forward, in training and in evaluation, runs every
+layer through ``FusedEncoderLayerFn`` on an f32 residual stream: the
+encoder layer kernel forward and the backward kernels on a CUDA tensor,
+their plain versions on a CPU tensor. The kernels read bf16 weights in
+mma fragment order, so the layers are packed again whenever a parameter
+has changed (once a train step; once per load when serving).
+``'flax'`` is not ported; dropout is not ported on either tree.
 """
 
 from __future__ import annotations
@@ -34,11 +44,12 @@ from inferbiomechanics_tpu_torch.models.common import (
     ModelInput, init_linear, output_head_size, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
-    LN_EPS, PackedEncoderLayer, encoder_layer_reference, fused_encoder_layer,
+    LN_EPS, PARAM_NAMES, FusedEncoderLayerFn, PackedEncoderLayer,
+    encoder_layer_reference, fused_encoder_layer, init_encoder_params,
     pack_encoder_params,
 )
 
-_TRAINING_SLICE = 'ROADMAP.md Queue 1 item 5 (transformer training, kernel K3)'
+_DROPOUT_SLICE = 'ROADMAP.md Queue 1 item 2.3 (dropout and batchnorm training)'
 _DT = torch.bfloat16      # the compute dtype of both forwards
 
 
@@ -133,18 +144,17 @@ class TransformerRegressor(nn.Module):
                  attn_impl: str = 'vpu', *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if attn_impl == 'pallas':
-            raise NotImplementedError(
-                f"attn_impl='pallas' (the enc{{i}}_* parameter tree) is not "
-                f"ported yet; it comes with {_TRAINING_SLICE}")
-        if attn_impl != 'vpu':
+        if attn_impl not in ('vpu', 'pallas'):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r} is not ported (ROADMAP.md, not to "
-                f"port); use 'vpu'")
+                f"port); use 'vpu' or 'pallas'")
+        if dropout and attn_impl == 'pallas':
+            raise ValueError('the fused encoder layer (attn_impl=\'pallas\') '
+                             'does not support dropout')
         if dropout:
             raise NotImplementedError(
                 f'transformer dropout is not ported yet; it comes with '
-                f'{_TRAINING_SLICE}')
+                f'{_DROPOUT_SLICE}')
         if d_model % num_heads:
             raise ValueError(f'd_model {d_model} does not divide into '
                              f'{num_heads} heads')
@@ -167,7 +177,7 @@ class TransformerRegressor(nn.Module):
             torch.empty(self.num_frames, d_model, device=device))
         self.blocks = nn.ModuleList(
             EncoderBlock(d_model, num_heads, mlp_ratio, device=device)
-            for _ in range(num_layers))
+            for _ in range(num_layers if attn_impl == 'vpu' else 0))
         self.final_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.contact_head = linear(d_model, output_head_size(num_contact_bodies, 1))
         self.tau_head = linear(d_model, num_dofs) if predict_tau else None
@@ -183,12 +193,44 @@ class TransformerRegressor(nn.Module):
         with torch.no_grad():
             self.temporal_embedding.copy_(
                 torch.randn(self.num_frames, d_model, generator=generator) * 0.02)
+        if attn_impl == 'pallas':
+            # the flat enc{i}_* tree: lecun-normal kernels [in, out], unit
+            # LayerNorm scales, zero biases
+            for i in range(num_layers):
+                for name, p in zip(PARAM_NAMES, init_encoder_params(
+                        generator, d_model, mlp_ratio)):
+                    self.register_parameter(f'enc{i}_{name}',
+                                            nn.Parameter(p.to(device)))
         self._packed: Optional[PackedTransformer] = None
+        self._packed_layers = None      # (key, layers) of the pallas tree
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module._drop_packed())
 
     def _drop_packed(self) -> None:
         self._packed = None
+        self._packed_layers = None
+
+    def layer_params(self, i: int) -> Tuple[torch.Tensor, ...]:
+        """Layer ``i``'s parameters as the flat tuple ``ops/fused_encoder.py``
+        takes (``PARAM_NAMES`` order, kernels ``[in, out]``)."""
+        if self.attn_impl == 'pallas':
+            return tuple(getattr(self, f'enc{i}_{name}') for name in PARAM_NAMES)
+        return self.blocks[i].layer_params()
+
+    def packed_layers(self, transposes: bool) -> Tuple[PackedEncoderLayer, ...]:
+        """The ``pallas`` tree's layers packed for the kernels (with the
+        transposed weights the backward reads when ``transposes``); packed
+        again only when a parameter has changed since, or has moved."""
+        params = [self.layer_params(i) for i in range(self.num_layers)]
+        key = (transposes, params[0][0].device,
+               tuple(p._version for layer in params for p in layer))
+        if self._packed_layers is None or self._packed_layers[0] != key:
+            with torch.no_grad():
+                self._packed_layers = (key, tuple(
+                    pack_encoder_params(layer, layer[0].device,
+                                        transposes=transposes)
+                    for layer in params))
+        return self._packed_layers[1]
 
     def train(self, mode: bool = True):
         self._drop_packed()
@@ -208,8 +250,8 @@ class TransformerRegressor(nn.Module):
                          for name, layer in [('input_proj', self.input_proj),
                                              *self._heads()]}
                 self._packed = PackedTransformer(
-                    tuple(pack_encoder_params(blk.layer_params(), device)
-                          for blk in self.blocks),
+                    tuple(pack_encoder_params(self.layer_params(i), device)
+                          for i in range(self.num_layers)),
                     dense, self.temporal_embedding.detach().to(_DT))
         return self._packed
 
@@ -236,8 +278,17 @@ class TransformerRegressor(nn.Module):
         x = pack_inputs(inputs)                      # [B, T, C_in]
         self._check_shape(x)
         x = _dense(x, self.input_proj) + self.temporal_embedding.to(_DT)
-        for blk in self.blocks:
-            x = blk(x)
+        if self.attn_impl == 'pallas':
+            needs_grad = torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters())
+            x = x.float().contiguous()
+            for i, layer in enumerate(self.packed_layers(needs_grad)):
+                x = FusedEncoderLayerFn.apply(x, layer, self.num_heads,
+                                              *self.layer_params(i))
+            x = x.to(_DT)
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         x = _layernorm(x, self.final_ln)
         return self._outputs(x, lambda name, h: _dense(h, getattr(self, name)))
 

@@ -1,0 +1,1016 @@
+// Backward of the fused pre-LN transformer encoder layer for Hopper (sm_90a),
+// bound to Python through a plain C interface (ctypes; see ../_build.py and
+// ../fused_encoder.py).
+//
+// Replaces inferbiomechanics_tpu/ops/pallas_encoder.py::encoder_layer_bwd_pallas
+// (kernel _encoder_bwd_kernel -> _encoder_bwd_math). From x and the upstream
+// gradient g (both [B, T, d] f32) and the layer's 12 parameters it recomputes
+// the forward that fused_encoder.cu computes and applies the hand-derived
+// VJP: dx [B, T, d] f32 and the 12 parameter gradients, f32, summed over the
+// whole batch. Matrix operands are bf16, sums f32, as in the forward:
+//
+//   recompute  y1 = bf16(LN1(x)); qkv = y1 Wqkv + bqkv; P = softmax(q k^T);
+//              a = bf16(P v); h2 = x + a Wproj + bproj; y2 = bf16(LN2(h2));
+//              z1 = y2 W1 + bm1; u = bf16(gelu(z1))
+//   MLP        dW2 = u^T bf16(g); dbm2 = sum g; dz1 = (bf16(g) W2^T) gelu'(z1);
+//              dW1 = y2^T bf16(dz1); dbm1 = sum dz1; dy2 = bf16(dz1) W1^T
+//   LN2        dh2 = g + LN2'(dy2); dg2 = sum dy2 xhat2; db2 = sum dy2
+//   proj       dWproj = a^T bf16(dh2); dbproj = sum dh2; da = bf16(dh2) Wproj^T
+//   attention  dv_j = sum_i P_ij da_i; dp_ij = da_i . v_j;
+//              dS = P (dp - sum_j P dp); dk_j = sum_i dS_ij q_i;
+//              dq_i = dh^-0.5 sum_j dS_ij k_j          (q carries the scale)
+//   qkv        dWqkv = y1^T bf16(dqkv); dbqkv = sum dqkv; dy1 = bf16(dqkv) Wqkv^T
+//   LN1        dx = dh2 + LN1'(dy1); dg1 = sum dy1 xhat1; db1 = sum dy1
+//
+// Design: three launches a layer, every sum in a fixed order, so two calls on
+// the same inputs give bitwise equal results (no floating-point atomics).
+//
+// 1. encoder_bwd_tile_kernel. A fixed number of persistent blocks (one per
+//    SM at most) each walk over tiles of whole windows, as the forward's
+//    blocks do. Per tile a block computes dx and everything that is local to
+//    a row. The products against a weight (the three of the recompute and the
+//    four against W^T) stream the weight from L2 in mma fragment order as the
+//    forward does; the transposes are packed beside the weights
+//    (fused_encoder.py::pack_encoder_params). A block's shared memory cannot
+//    hold what the TPU kernel keeps resident, so: q/k/v are parked in a
+//    per-block scratch in device memory (it stays in L2) over the MLP phase;
+//    the MLP runs in chunks of the hidden width (z1 chunk, its dz1, that
+//    chunk's share of dy2); dh2 is parked in dx and finished in place.
+//    The row operands of the four weight gradients (y1, dqkv, a, dh2, y2,
+//    dz1, u, g as bf16) go to a workspace in device memory; the eight vector
+//    gradients are summed over the tile's rows by one thread a column and
+//    added to the block's own slab of partial sums.
+// 2. encoder_wgrad_kernel. The four A^T G products over all B T rows from
+//    that workspace: 128 x 128 output tiles, the rows split into a fixed
+//    number of ranges, each block writing its partial tile.
+// 3. encoder_bwd_reduce_kernel. Adds the row ranges' partial tiles and the
+//    blocks' slabs in index order into the flat gradient.
+//
+// What bounds it on an H100 at d = 256, T = 10, 4d MLP: operations (64 d^2
+// flops a row on the tensor cores, 172 GFLOP at B = 4096, beside 8 KB a row
+// of workspace written and read once). mma.sync with weights from L2 and a
+// 32-row tile (three windows) is far from that bound; wgmma, a larger tile
+// with the attention head by head, and fusing the weight gradients into the
+// tile kernel are the later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+#include "launch.cuh"
+#include "mma.cuh"
+
+namespace {
+
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxRowTiles = 3;     // 16-row mma tiles a block may own
+constexpr int kDepth = 8;           // weight k-steps in flight per warp
+constexpr int kPad = 8;             // elements added to every shared-memory row
+constexpr int kMaxT = 48;           // frames per window
+constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
+constexpr float kLnEps = 1e-6f;
+
+struct EncoderBwdTag {};            // keys the tile kernel's shared-memory cap (launch.cuh)
+
+struct BwdShape {
+  int batch, t, d, m, heads;
+  int row_tiles;                    // 16-row mma tiles per block
+  int windows;                      // whole windows per tile
+  int chunk;                        // hidden columns per MLP chunk
+  int n_tiles;
+  int ld_d, ld_q, ld_c;             // row strides of [rows, d], [rows, 3d], [rows, chunk] buffers
+  // byte offsets into shared memory
+  int off_ab, off_big, off_x2, off_ps, off_stats, off_gb, off_z, off_dz;
+  float q_scale;                    // dh^-0.5
+};
+
+using bf16 = __nv_bfloat16;
+
+// gelu (tanh form) and its derivative at v
+__device__ __forceinline__ void gelu_tanh_both(float v, float& act, float& grad) {
+  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+  const float th = tanhf(u);
+  const float du = 0.7978845608028654f * (1.f + 3.f * 0.044715f * v * v);
+  act = 0.5f * v * (1.f + th);
+  grad = 0.5f * (1.f + th) + 0.5f * v * (1.f - th * th) * du;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm of every row of src (f32) into dst as bf16, one warp per row;
+// the row's mean and 1/std go to mean[] and rstd[] for the backward.
+__device__ __forceinline__ void layernorm_rows(const float* src, int ld_src, int rows, int d,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias, bf16* dst,
+                                               int ld_dst, float* mean, float* rstd) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* x = src + r * ld_src;
+    float sum = 0.f;
+    for (int i = lane; i < d; i += 32) sum += x[i];
+    const float mu = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float c = x[i] - mu;
+      sq = fmaf(c, c, sq);
+    }
+    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+    bf16* y = dst + r * ld_dst;
+    for (int i = lane; i < d; i += 32) {
+      y[i] = __float2bfloat16((x[i] - mu) * rs * __ldg(scale + i) + __ldg(bias + i));
+    }
+  }
+}
+
+// The two column sums of a LayerNorm's VJP over the tile's rows, one thread
+// a column: dscale += sum_r dy xhat, dbias += sum_r dy.
+__device__ __forceinline__ void layernorm_bwd_columns(const float* dy, const float* x, int ld,
+                                                      int rows, int d, const float* mean,
+                                                      const float* rstd, float* dscale,
+                                                      float* dbias) {
+  for (int col = threadIdx.x; col < d; col += kThreads) {
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float v = dy[r * ld + col];
+      sg = fmaf(v, (x[r * ld + col] - mean[r]) * rstd[r], sg);
+      sb += v;
+    }
+    dscale[col] += sg;
+    dbias[col] += sb;
+  }
+}
+
+// sums[col] += sum over the rows of src[r][col], one thread a column
+__device__ __forceinline__ void add_column_sums(const float* src, int ld, int rows, int n,
+                                                float* sums) {
+  for (int col = threadIdx.x; col < n; col += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < rows; ++r) s += src[r * ld + col];
+    sums[col] += s;
+  }
+}
+
+// The first `valid` rows of a bf16 buffer in shared memory (width a multiple
+// of 8) to a dense [*, width] array in device memory, 16 bytes a store.
+__device__ __forceinline__ void store_rows(const bf16* src, int ld, int valid, int width,
+                                           bf16* dst) {
+  const int w8 = width / 8;
+  for (int i = threadIdx.x; i < valid * w8; i += kThreads) {
+    const int r = i / w8;
+    const int c8 = i - r * w8;
+    reinterpret_cast<uint4*>(dst)[i] = *reinterpret_cast<const uint4*>(src + r * ld + 8 * c8);
+  }
+}
+
+// One product for the block's row tiles: a [16 * row_tiles, 16 * nk] bf16 in
+// shared memory (stride lda) times nk k-steps, starting at k-step ks0, of a
+// weight packed in fragment order [n / 16][w_nk][32 lanes] x 16 bytes, for
+// n_blocks 16-column blocks. nk is a multiple of kDepth. epi(row, col, v0,
+// v1) receives every pair of neighbouring sums (col even) exactly once.
+template <typename Epilogue>
+__device__ __forceinline__ void product(const bf16* a, int lda, int row_tiles,
+                                        const bf16* __restrict__ w, int w_nk, int ks0, int nk,
+                                        int n_blocks, Epilogue epi) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const uint4* wl = reinterpret_cast<const uint4*>(w);
+  const bf16* a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
+
+  for (int nb = warp; nb < n_blocks; nb += kWarps) {
+    float acc[kMaxRowTiles][2][4] = {};
+    const uint4* wp = wl + (static_cast<long long>(nb) * w_nk + ks0) * 32 + lane;
+    uint4 ring[kDepth];
+#pragma unroll
+    for (int dd = 0; dd < kDepth; ++dd) ring[dd] = __ldg(wp + dd * 32);
+    for (int kb = 0; kb < nk; kb += kDepth) {
+#pragma unroll
+      for (int dd = 0; dd < kDepth; ++dd) {
+        const int ks = kb + dd;
+        const uint4 b = ring[dd];
+        if (ks + kDepth < nk) ring[dd] = __ldg(wp + (ks + kDepth) * 32);
+#pragma unroll
+        for (int rt = 0; rt < kMaxRowTiles; ++rt) {
+          if (rt < row_tiles) {
+            unsigned af[4];
+            ldmatrix_x4(af, a0 + rt * 16 * lda + 16 * ks);
+            mma_bf16(acc[rt][0], af, b.x, b.y);
+            mma_bf16(acc[rt][1], af, b.z, b.w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int rt = 0; rt < kMaxRowTiles; ++rt) {
+      if (rt < row_tiles) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            epi(16 * rt + g + 8 * h, nb * 16 + 8 * j + 2 * c, acc[rt][j][2 * h],
+                acc[rt][j][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Forward attention within each window of the tile, per head, in f32 (the
+// forward kernel's code): qkv holds [q * dh^-0.5 | k | v] per row; the mix
+// goes to dst as bf16.
+template <int kT>
+__device__ __forceinline__ void attention_fwd(const float* qkv, int ld_q, bf16* dst, int ld_dst,
+                                              int t_rt, int d, int heads, int windows) {
+  const int t = kT > 0 ? kT : t_rt;
+  const int dh = d / heads;
+  const int items = windows * heads * t;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int tq = it % t;
+    const int wh = it / t;
+    const int h = wh % heads;
+    const int row0 = (wh / heads) * t;
+    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
+    const float* kw = qkv + row0 * ld_q + d + h * dh;
+    const float* vw = kw + d;
+    const int skew = (8 * h) % dh;
+    float p[kT > 0 ? kT : kMaxT];
+#pragma unroll
+    for (int j = 0; j < t; ++j) p[j] = 0.f;
+    for (int ii = 0; ii < dh; ii += 2) {
+      int i = ii + skew;
+      if (i >= dh) i -= dh;
+      const float2 qi = *reinterpret_cast<const float2*>(q + i);
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
+        p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
+      }
+    }
+    float mx = p[0];
+#pragma unroll
+    for (int j = 1; j < t; ++j) mx = fmaxf(mx, p[j]);
+    float z = 0.f;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] = expf(p[j] - mx);
+      z += p[j];
+    }
+    const float inv_z = 1.f / z;
+    bf16* o = dst + (row0 + tq) * ld_dst + h * dh;
+    for (int ii = 0; ii < dh; ii += 2) {
+      int i = ii + skew;
+      if (i >= dh) i -= dh;
+      float o0 = 0.f, o1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
+        o0 = fmaf(p[j], vj.x, o0);
+        o1 = fmaf(p[j], vj.y, o1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(o + i) = __floats2bfloat162_rn(o0 * inv_z, o1 * inv_z);
+    }
+  }
+}
+
+// Attention backward, in place. In: qkv = [q * dh^-0.5 | k | v], da = the
+// gradient of the mix (f32 [rows, d], stride ld_d). Out: qkv = [dq | k | dv]
+// and dk in dkbuf (f32 [rows, d], stride ld_d); the caller moves dk over k.
+// probs and dsc hold P and dS, [windows * heads * t][t] each. Three passes
+// with a barrier between them: one thread per (window, head, query frame)
+// for P and dS; one per (window, head, key frame) for dv and dk; one per
+// (window, head, query frame) for dq.
+template <int kT>
+__device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float* da,
+                                              float* dkbuf, int ld_d, float* probs, float* dsc,
+                                              int t_rt, int d, int heads, int windows,
+                                              float q_scale) {
+  const int t = kT > 0 ? kT : t_rt;
+  const int dh = d / heads;
+  const int items = windows * heads * t;
+  constexpr int kArr = kT > 0 ? kT : kMaxT;
+
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int tq = it % t;
+    const int wh = it / t;
+    const int h = wh % heads;
+    const int row0 = (wh / heads) * t;
+    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
+    const float* kw = qkv + row0 * ld_q + d + h * dh;
+    const float* vw = kw + d;
+    const float* dai = da + (row0 + tq) * ld_d + h * dh;
+    const int skew = (8 * h) % dh;
+    float p[kArr], dp[kArr];
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] = 0.f;
+      dp[j] = 0.f;
+    }
+    for (int ii = 0; ii < dh; ii += 2) {
+      int i = ii + skew;
+      if (i >= dh) i -= dh;
+      const float2 qi = *reinterpret_cast<const float2*>(q + i);
+      const float2 di = *reinterpret_cast<const float2*>(dai + i);
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
+        const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
+        p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
+        dp[j] = fmaf(di.x, vj.x, fmaf(di.y, vj.y, dp[j]));
+      }
+    }
+    float mx = p[0];
+#pragma unroll
+    for (int j = 1; j < t; ++j) mx = fmaxf(mx, p[j]);
+    float z = 0.f;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] = expf(p[j] - mx);
+      z += p[j];
+    }
+    const float inv_z = 1.f / z;
+    float tot = 0.f;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] *= inv_z;
+      tot = fmaf(p[j], dp[j], tot);
+    }
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      probs[it * t + j] = p[j];
+      dsc[it * t + j] = p[j] * (dp[j] - tot);
+    }
+  }
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int tj = it % t;
+    const int wh = it / t;
+    const int h = wh % heads;
+    const int row0 = (wh / heads) * t;
+    const float* qw = qkv + row0 * ld_q + h * dh;
+    const float* daw = da + row0 * ld_d + h * dh;
+    float* vj = qkv + (row0 + tj) * ld_q + 2 * d + h * dh;
+    float* dkj = dkbuf + (row0 + tj) * ld_d + h * dh;
+    const int skew = (8 * h) % dh;
+    float p[kArr], ds[kArr];
+#pragma unroll
+    for (int i = 0; i < t; ++i) {
+      p[i] = probs[(wh * t + i) * t + tj];
+      ds[i] = dsc[(wh * t + i) * t + tj];
+    }
+    for (int cc = 0; cc < dh; cc += 2) {
+      int c = cc + skew;
+      if (c >= dh) c -= dh;
+      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < t; ++i) {
+        const float2 di = *reinterpret_cast<const float2*>(daw + i * ld_d + c);
+        const float2 qi = *reinterpret_cast<const float2*>(qw + i * ld_q + c);
+        v0 = fmaf(p[i], di.x, v0);
+        v1 = fmaf(p[i], di.y, v1);
+        k0 = fmaf(ds[i], qi.x, k0);
+        k1 = fmaf(ds[i], qi.y, k1);
+      }
+      *reinterpret_cast<float2*>(vj + c) = make_float2(v0, v1);
+      *reinterpret_cast<float2*>(dkj + c) = make_float2(k0, k1);
+    }
+  }
+  __syncthreads();
+
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int tq = it % t;
+    const int wh = it / t;
+    const int h = wh % heads;
+    const int row0 = (wh / heads) * t;
+    float* qi = qkv + (row0 + tq) * ld_q + h * dh;
+    const float* kw = qkv + row0 * ld_q + d + h * dh;
+    const int skew = (8 * h) % dh;
+    float ds[kArr];
+#pragma unroll
+    for (int j = 0; j < t; ++j) ds[j] = dsc[it * t + j];
+    for (int cc = 0; cc < dh; cc += 2) {
+      int c = cc + skew;
+      if (c >= dh) c -= dh;
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + c);
+        q0 = fmaf(ds[j], kj.x, q0);
+        q1 = fmaf(ds[j], kj.y, q1);
+      }
+      *reinterpret_cast<float2*>(qi + c) = make_float2(q0 * q_scale, q1 * q_scale);
+    }
+  }
+  __syncthreads();
+}
+
+// Workspace of row operands, bf16, dense arrays end to end over n = B T rows:
+// y1 [n, d] | dqkv [n, 3d] | a [n, d] | dh2 [n, d] | y2 [n, d] | dz1 [n, m] |
+// u [n, m] | g [n, d].
+struct Workspace {
+  bf16 *y1, *dqkv, *attn, *dh2, *y2, *dz1, *u, *g;
+};
+
+__device__ __host__ __forceinline__ Workspace carve_workspace(bf16* ws, long long n, int d,
+                                                              int m) {
+  Workspace w;
+  w.y1 = ws;
+  w.dqkv = w.y1 + n * d;
+  w.attn = w.dqkv + n * 3 * d;
+  w.dh2 = w.attn + n * d;
+  w.y2 = w.dh2 + n * d;
+  w.dz1 = w.y2 + n * d;
+  w.u = w.dz1 + n * m;
+  w.g = w.u + n * m;
+  return w;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ gout,
+                        const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                        const float* __restrict__ vec, float* dx, bf16* ws_base,
+                        float* scratch_base, float* vpart_base, BwdShape s) {
+  // Shared memory (f32 unless noted), rows = 16 * row_tiles:
+  //   hbuf [rows][ld_d]        x, then h2, then dh2, then dk, then x again
+  //   abuf bf16 [rows][ld_d]   the current product's operand
+  //     (hbuf and abuf together hold bf16 dqkv [rows][ld_q] for the last product)
+  //   big [rows][ld_q]         q/k/v, later dq/dk/dv; over the MLP phase
+  //                            gb bf16 [rows][ld_d] | z [rows][ld_c] | dz bf16 [rows][ld_c]
+  //   x2 [rows][ld_d]          dy2, then the gradient of the mix, then dy1
+  //   probs, dsc               P and dS of the attention backward
+  //   mean1, rstd1, mean2, rstd2 [rows]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int d = s.d, m = s.m, t = s.t;
+  const int rows = 16 * s.row_tiles;
+  const int ld_d = s.ld_d, ld_q = s.ld_q, ld_c = s.ld_c;
+  float* const hbuf = reinterpret_cast<float*>(smem);
+  bf16* const abuf = reinterpret_cast<bf16*>(smem + s.off_ab);
+  bf16* const dqkv_b = reinterpret_cast<bf16*>(smem);
+  float* const big = reinterpret_cast<float*>(smem + s.off_big);
+  bf16* const gb = reinterpret_cast<bf16*>(smem + s.off_gb);
+  float* const zbuf = reinterpret_cast<float*>(smem + s.off_z);
+  bf16* const dzb = reinterpret_cast<bf16*>(smem + s.off_dz);
+  float* const x2 = reinterpret_cast<float*>(smem + s.off_x2);
+  float* const probs = reinterpret_cast<float*>(smem + s.off_ps);
+  float* const dsc = probs + s.windows * s.heads * t * t;
+  float* const mean1 = reinterpret_cast<float*>(smem + s.off_stats);
+  float* const rstd1 = mean1 + rows;
+  float* const mean2 = rstd1 + rows;
+  float* const rstd2 = mean2 + rows;
+
+  // weights in fragment order, end to end: Wqkv, Wproj, W1, W2 (w) and
+  // Wqkv^T [3d, d], Wproj^T [d, d], W1^T [m, d], W2^T [d, m] (wt)
+  const bf16* const w_qkv = w;
+  const bf16* const w_proj = w_qkv + static_cast<long long>(d) * 3 * d;
+  const bf16* const w_mlp1 = w_proj + static_cast<long long>(d) * d;
+  const bf16* const wt_qkv = wt;
+  const bf16* const wt_proj = wt_qkv + static_cast<long long>(d) * 3 * d;
+  const bf16* const wt_mlp1 = wt_proj + static_cast<long long>(d) * d;
+  const bf16* const wt_mlp2 = wt_mlp1 + static_cast<long long>(d) * m;
+  // f32 rows, end to end: g1, b1, bqkv, bproj, g2, b2, bm1, bm2
+  const float* const g1 = vec;
+  const float* const b1 = g1 + d;
+  const float* const b_qkv = b1 + d;
+  const float* const b_proj = b_qkv + 3 * d;
+  const float* const g2 = b_proj + d;
+  const float* const b2 = g2 + d;
+  const float* const b_mlp1 = b2 + d;
+  // this block's slab of partial vector gradients, in the same order
+  const int n_vec = 9 * d + m;
+  float* const vp = vpart_base + static_cast<long long>(blockIdx.x) * n_vec;
+  float* const dg1 = vp;
+  float* const db1 = dg1 + d;
+  float* const db_qkv = db1 + d;
+  float* const db_proj = db_qkv + 3 * d;
+  float* const dg2 = db_proj + d;
+  float* const db2 = dg2 + d;
+  float* const db_mlp1 = db2 + d;
+  float* const db_mlp2 = db_mlp1 + m;
+  float* const scratch = scratch_base + static_cast<long long>(blockIdx.x) * rows * 3 * d;
+  const Workspace ws = carve_workspace(ws_base, static_cast<long long>(s.batch) * t, d, m);
+
+  for (int i = threadIdx.x; i < n_vec; i += kThreads) vp[i] = 0.f;
+  __syncthreads();
+
+  const int d4 = d / 4;
+  const int q4 = 3 * d / 4;
+  const int tile_rows = s.windows * t;           // rows of a tile that belong to a window
+
+  for (int tile = blockIdx.x; tile < s.n_tiles; tile += gridDim.x) {
+    const int win0 = tile * s.windows;
+    const int n_win = min(s.windows, s.batch - win0);
+    const int valid = n_win * t;                 // rows that exist in the batch
+    const long long grow0 = static_cast<long long>(win0) * t;   // first row, in the batch
+    const long long base = grow0 * d;
+    const float4* const xs = reinterpret_cast<const float4*>(x + base);
+    const float4* const gs = reinterpret_cast<const float4*>(gout + base);
+
+    // ---- recompute the forward ----
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      const int c4 = i - r * d4;
+      const float4 v = r < valid ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(hbuf + r * ld_d + 4 * c4) = v;
+    }
+    __syncthreads();
+    layernorm_rows(hbuf, ld_d, rows, d, g1, b1, abuf, ld_d, mean1, rstd1);
+    __syncthreads();
+    store_rows(abuf, ld_d, valid, d, ws.y1 + grow0 * d);
+    {
+      const float scale = s.q_scale;
+      product(abuf, ld_d, s.row_tiles, w_qkv, d / 16, 0, d / 16, 3 * d / 16,
+              [=](int r, int n, float v0, float v1) {
+                v0 += __ldg(b_qkv + n);
+                v1 += __ldg(b_qkv + n + 1);
+                if (n < d) {
+                  v0 *= scale;
+                  v1 *= scale;
+                }
+                *reinterpret_cast<float2*>(big + r * ld_q + n) = make_float2(v0, v1);
+              });
+    }
+    __syncthreads();
+    switch (t) {
+      case 10:
+        attention_fwd<10>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
+        break;
+      case 4:
+        attention_fwd<4>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
+        break;
+      default:
+        attention_fwd<0>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
+    }
+    __syncthreads();
+    store_rows(abuf, ld_d, valid, d, ws.attn + grow0 * d);
+    // park q/k/v in this block's scratch over the MLP phase
+    for (int i = threadIdx.x; i < rows * q4; i += kThreads) {
+      const int r = i / q4;
+      const int c4 = i - r * q4;
+      reinterpret_cast<float4*>(scratch)[i] =
+          *reinterpret_cast<const float4*>(big + r * ld_q + 4 * c4);
+    }
+    product(abuf, ld_d, s.row_tiles, w_proj, d / 16, 0, d / 16, d / 16,
+            [=](int r, int n, float v0, float v1) {
+              float2* h = reinterpret_cast<float2*>(hbuf + r * ld_d + n);
+              float2 hv = *h;
+              hv.x += v0 + __ldg(b_proj + n);
+              hv.y += v1 + __ldg(b_proj + n + 1);
+              *h = hv;
+            });
+    __syncthreads();
+    layernorm_rows(hbuf, ld_d, rows, d, g2, b2, abuf, ld_d, mean2, rstd2);
+    // g as a bf16 operand, zero past the valid rows; dy2 starts at zero
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      const int c4 = i - r * d4;
+      const float4 v = r < valid ? __ldg(gs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(gb + r * ld_d + 4 * c4);
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<float4*>(x2 + r * ld_d + 4 * c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int col = threadIdx.x; col < d; col += kThreads) {
+      float sum = 0.f;
+      for (int r = 0; r < valid; ++r) sum += __ldg(gout + base + static_cast<long long>(r) * d + col);
+      db_mlp2[col] += sum;
+    }
+    __syncthreads();
+    store_rows(abuf, ld_d, valid, d, ws.y2 + grow0 * d);
+    store_rows(gb, ld_d, valid, d, ws.g + grow0 * d);
+
+    // ---- the MLP, forward and backward, a chunk of hidden columns at a time ----
+    const int chunk = s.chunk;
+    for (int c0 = 0; c0 < m; c0 += chunk) {
+      // z = gelu'(y2 W1 + bm1) for the chunk; u = bf16(gelu(.)) to the workspace
+      product(abuf, ld_d, s.row_tiles, w_mlp1 + static_cast<long long>(c0) * d, d / 16, 0,
+              d / 16, chunk / 16, [=](int r, int n, float v0, float v1) {
+                float a0, a1, d0, d1;
+                gelu_tanh_both(v0 + __ldg(b_mlp1 + c0 + n), a0, d0);
+                gelu_tanh_both(v1 + __ldg(b_mlp1 + c0 + n + 1), a1, d1);
+                *reinterpret_cast<float2*>(zbuf + r * ld_c + n) = make_float2(d0, d1);
+                if (r < valid) {
+                  *reinterpret_cast<__nv_bfloat162*>(ws.u + (grow0 + r) * m + c0 + n) =
+                      __floats2bfloat162_rn(a0, a1);
+                }
+              });
+      __syncthreads();
+      // dz1 = (bf16(g) W2^T) * gelu'
+      product(gb, ld_d, s.row_tiles, wt_mlp2 + static_cast<long long>(c0) * d, d / 16, 0,
+              d / 16, chunk / 16, [=](int r, int n, float v0, float v1) {
+                float2* z = reinterpret_cast<float2*>(zbuf + r * ld_c + n);
+                float2 zv = *z;
+                zv.x *= v0;
+                zv.y *= v1;
+                *z = zv;
+                const __nv_bfloat162 zb = __floats2bfloat162_rn(zv.x, zv.y);
+                *reinterpret_cast<__nv_bfloat162*>(dzb + r * ld_c + n) = zb;
+                if (r < valid) {
+                  *reinterpret_cast<__nv_bfloat162*>(ws.dz1 + (grow0 + r) * m + c0 + n) = zb;
+                }
+              });
+      __syncthreads();
+      add_column_sums(zbuf, ld_c, rows, chunk, db_mlp1 + c0);
+      // dy2 += bf16(dz1) W1^T[chunk rows]
+      product(dzb, ld_c, s.row_tiles, wt_mlp1, m / 16, c0 / 16, chunk / 16, d / 16,
+              [=](int r, int n, float v0, float v1) {
+                float2* y = reinterpret_cast<float2*>(x2 + r * ld_d + n);
+                float2 yv = *y;
+                yv.x += v0;
+                yv.y += v1;
+                *y = yv;
+              });
+      __syncthreads();
+    }
+
+    // ---- LayerNorm 2 backward; dh2 = g + LN2'(dy2) ----
+    layernorm_bwd_columns(x2, hbuf, ld_d, rows, d, mean2, rstd2, dg2, db2);
+    __syncthreads();
+    // bring q/k/v back (the MLP phase's buffers in `big` are done with)
+    for (int i = threadIdx.x; i < rows * q4; i += kThreads) {
+      const int r = i / q4;
+      const int c4 = i - r * q4;
+      *reinterpret_cast<float4*>(big + r * ld_q + 4 * c4) =
+          reinterpret_cast<const float4*>(scratch)[i];
+    }
+    {
+      const int warp = threadIdx.x >> 5;
+      const int lane = threadIdx.x & 31;
+      const float inv_d = 1.f / static_cast<float>(d);
+      for (int r = warp; r < rows; r += kWarps) {
+        float* hr = hbuf + r * ld_d;
+        const float* dy = x2 + r * ld_d;
+        const float mu = mean2[r], rs = rstd2[r];
+        float s1 = 0.f, s2 = 0.f;
+        for (int i = lane; i < d; i += 32) {
+          const float dxh = dy[i] * __ldg(g2 + i);
+          s1 += dxh;
+          s2 = fmaf(dxh, (hr[i] - mu) * rs, s2);
+        }
+        const float m1 = warp_sum(s1) * inv_d;
+        const float m2 = warp_sum(s2) * inv_d;
+        for (int i = lane; i < d; i += 32) {
+          const float dxh = dy[i] * __ldg(g2 + i);
+          const float xh = (hr[i] - mu) * rs;
+          const float gv = r < valid ? __ldg(gout + base + static_cast<long long>(r) * d + i) : 0.f;
+          const float dh2 = gv + rs * (dxh - m1 - xh * m2);
+          hr[i] = dh2;
+          abuf[r * ld_d + i] = __float2bfloat16(dh2);
+          if (r < valid) dx[base + static_cast<long long>(r) * d + i] = dh2;   // parked; finished below
+        }
+      }
+    }
+    __syncthreads();
+    add_column_sums(hbuf, ld_d, rows, d, db_proj);
+    store_rows(abuf, ld_d, valid, d, ws.dh2 + grow0 * d);
+    // gradient of the attention mix = bf16(dh2) Wproj^T
+    product(abuf, ld_d, s.row_tiles, wt_proj, d / 16, 0, d / 16, d / 16,
+            [=](int r, int n, float v0, float v1) {
+              *reinterpret_cast<float2*>(x2 + r * ld_d + n) = make_float2(v0, v1);
+            });
+    __syncthreads();
+
+    // ---- attention backward: big = [dq | k | dv], dk in hbuf ----
+    switch (t) {
+      case 10:
+        attention_bwd<10>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
+                          s.q_scale);
+        break;
+      case 4:
+        attention_bwd<4>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
+                         s.q_scale);
+        break;
+      default:
+        attention_bwd<0>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
+                         s.q_scale);
+    }
+    // dk over k; rows of the tile past its windows hold no gradient
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      const int c4 = i - r * d4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < tile_rows) {
+        v = *reinterpret_cast<const float4*>(hbuf + r * ld_d + 4 * c4);
+      } else {
+        *reinterpret_cast<float4*>(big + r * ld_q + 4 * c4) = v;
+        *reinterpret_cast<float4*>(big + r * ld_q + 2 * d + 4 * c4) = v;
+      }
+      *reinterpret_cast<float4*>(big + r * ld_q + d + 4 * c4) = v;
+    }
+    __syncthreads();
+    add_column_sums(big, ld_q, rows, 3 * d, db_qkv);
+    for (int i = threadIdx.x; i < rows * q4; i += kThreads) {
+      const int r = i / q4;
+      const int c4 = i - r * q4;
+      const float4 v = *reinterpret_cast<const float4*>(big + r * ld_q + 4 * c4);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dqkv_b + r * ld_q + 4 * c4);
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+    __syncthreads();
+    store_rows(dqkv_b, ld_q, valid, 3 * d, ws.dqkv + grow0 * 3 * d);
+    // dy1 = bf16(dqkv) Wqkv^T
+    product(dqkv_b, ld_q, s.row_tiles, wt_qkv, 3 * d / 16, 0, 3 * d / 16, d / 16,
+            [=](int r, int n, float v0, float v1) {
+              *reinterpret_cast<float2*>(x2 + r * ld_d + n) = make_float2(v0, v1);
+            });
+    __syncthreads();
+
+    // ---- LayerNorm 1 backward; dx = dh2 + LN1'(dy1) ----
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      const int c4 = i - r * d4;
+      const float4 v = r < valid ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(hbuf + r * ld_d + 4 * c4) = v;
+    }
+    __syncthreads();
+    layernorm_bwd_columns(x2, hbuf, ld_d, rows, d, mean1, rstd1, dg1, db1);
+    {
+      const int warp = threadIdx.x >> 5;
+      const int lane = threadIdx.x & 31;
+      const float inv_d = 1.f / static_cast<float>(d);
+      for (int r = warp; r < valid; r += kWarps) {
+        const float* xr = hbuf + r * ld_d;
+        const float* dy = x2 + r * ld_d;
+        float* dxr = dx + base + static_cast<long long>(r) * d;
+        const float mu = mean1[r], rs = rstd1[r];
+        float s1 = 0.f, s2 = 0.f;
+        for (int i = lane; i < d; i += 32) {
+          const float dxh = dy[i] * __ldg(g1 + i);
+          s1 += dxh;
+          s2 = fmaf(dxh, (xr[i] - mu) * rs, s2);
+        }
+        const float m1 = warp_sum(s1) * inv_d;
+        const float m2 = warp_sum(s2) * inv_d;
+        for (int i = lane; i < d; i += 32) {
+          const float dxh = dy[i] * __ldg(g1 + i);
+          const float xh = (xr[i] - mu) * rs;
+          dxr[i] += rs * (dxh - m1 - xh * m2);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---- the four weight gradients: out = A^T G over the workspace's rows ----
+
+constexpr int kWgThreads = 256;     // 8 warps, 4 along A's columns x 2 along G's
+constexpr int kWgTile = 128;        // output tile, both ways
+constexpr int kWgRows = 32;         // workspace rows per step
+constexpr int kWgLd = kWgTile + 8;  // shared-memory row stride (ldmatrix without bank conflicts)
+
+struct WgradShape {
+  int n_rows, d, m, rows_per_split;
+  long long w_total;                // 4 d^2 + 2 d m
+};
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(src_bytes));
+}
+
+__global__ void __launch_bounds__(kWgThreads)
+encoder_wgrad_kernel(const bf16* ws_base, float* __restrict__ wpart, WgradShape s) {
+  __shared__ __align__(16) bf16 a_s[2][kWgRows][kWgLd];
+  __shared__ __align__(16) bf16 g_s[2][kWgRows][kWgLd];
+  const int d = s.d, m = s.m;
+  const long long n = s.n_rows;
+  const Workspace ws = carve_workspace(const_cast<bf16*>(ws_base), n, d, m);
+
+  // which product and which of its output tiles: dWqkv = y1^T dqkv,
+  // dWproj = a^T dh2, dW1 = y2^T dz1, dW2 = u^T g, in the flat gradient's order
+  int tile = blockIdx.x;
+  const bf16 *a, *g;
+  int ka, kg;
+  long long out_off = 0;
+  {
+    const int n0 = (d / kWgTile) * (3 * d / kWgTile);
+    const int n1 = (d / kWgTile) * (d / kWgTile);
+    const int n2 = (d / kWgTile) * (m / kWgTile);
+    if (tile < n0) {
+      a = ws.y1; g = ws.dqkv; ka = d; kg = 3 * d;
+    } else if (tile < n0 + n1) {
+      tile -= n0;
+      a = ws.attn; g = ws.dh2; ka = d; kg = d;
+      out_off = 3LL * d * d;
+    } else if (tile < n0 + n1 + n2) {
+      tile -= n0 + n1;
+      a = ws.y2; g = ws.dz1; ka = d; kg = m;
+      out_off = 4LL * d * d;
+    } else {
+      tile -= n0 + n1 + n2;
+      a = ws.u; g = ws.g; ka = m; kg = d;
+      out_off = 4LL * d * d + static_cast<long long>(d) * m;
+    }
+  }
+  const int tiles_j = kg / kWgTile;
+  const int i0 = (tile / tiles_j) * kWgTile;
+  const int j0 = (tile % tiles_j) * kWgTile;
+
+  const long long r_begin = static_cast<long long>(blockIdx.y) * s.rows_per_split;
+  const long long r_end = min(n, r_begin + s.rows_per_split);
+  const int steps = r_end > r_begin ? static_cast<int>((r_end - r_begin + kWgRows - 1) / kWgRows) : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int iw = (warp >> 1) * 32;   // this warp's 32 x 64 part of the tile
+  const int jw = (warp & 1) * 64;
+  const int q = lane >> 3;           // which 8x8 matrix of an ldmatrix.x4 this lane addresses
+  const int r8 = lane & 7;
+
+  float acc[2][8][4] = {};
+
+  auto issue = [&](int step, int buf) {
+    const long long row_base = r_begin + static_cast<long long>(step) * kWgRows;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int piece = threadIdx.x + u * kWgThreads;     // 32 rows x 16 pieces of 16 bytes
+      const int r = piece >> 4;
+      const int c8 = (piece & 15) * 8;
+      const long long row = row_base + r;
+      const bool ok = row < n;
+      const long long rr = ok ? row : 0;
+      cp_async_16(&a_s[buf][r][c8], a + rr * ka + i0 + c8, ok ? 16 : 0);
+      cp_async_16(&g_s[buf][r][c8], g + rr * kg + j0 + c8, ok ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  if (steps > 0) issue(0, 0);
+  for (int step = 0; step < steps; ++step) {
+    const int buf = step & 1;
+    if (step + 1 < steps) {
+      issue(step + 1, buf ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWgRows; kk += 16) {
+      unsigned af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        ldmatrix_x4_trans(af[mt], &a_s[buf][kk + (q >> 1) * 8 + r8][iw + mt * 16 + (q & 1) * 8]);
+      }
+#pragma unroll
+      for (int pr = 0; pr < 4; ++pr) {
+        unsigned bfr[4];
+        ldmatrix_x4_trans(bfr, &g_s[buf][kk + (q & 1) * 8 + r8][jw + pr * 16 + (q >> 1) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * pr], af[mt], bfr[0], bfr[1]);
+          mma_bf16(acc[mt][2 * pr + 1], af[mt], bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = wpart + static_cast<long long>(blockIdx.y) * s.w_total + out_off;
+  const int gq = lane >> 2;
+  const int cq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + iw + mt * 16 + gq + 8 * h;
+        const int j = j0 + jw + nt * 8 + 2 * cq;
+        *reinterpret_cast<float2*>(out + static_cast<long long>(i) * kg + j) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// out[e] = sum over the row ranges of wpart (e < w_total), or over the tile
+// kernel's blocks of vpart, in index order.
+__global__ void encoder_bwd_reduce_kernel(const float* __restrict__ wpart, int splits,
+                                          long long w_total, const float* __restrict__ vpart,
+                                          int slabs, int n_vec, float* __restrict__ out) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= w_total + n_vec) return;
+  float sum = 0.f;
+  if (e < w_total) {
+    for (int sidx = 0; sidx < splits; ++sidx) sum += wpart[sidx * w_total + e];
+  } else {
+    const long long v = e - w_total;
+    for (int b = 0; b < slabs; ++b) sum += vpart[static_cast<long long>(b) * n_vec + v];
+  }
+  out[e] = sum;
+}
+
+// Shared-memory layout of the tile kernel for `row_tiles` row tiles; returns
+// its size in bytes.
+size_t plan_bwd_smem(BwdShape& s, int row_tiles) {
+  s.row_tiles = row_tiles;
+  s.windows = 16 * row_tiles / s.t;
+  s.chunk = (s.d >= 256 && s.m % 256 == 0) ? 256 : 128;
+  s.ld_d = s.d + kPad;
+  s.ld_q = 3 * s.d + kPad;
+  s.ld_c = s.chunk + kPad;
+  const size_t rows = 16 * static_cast<size_t>(row_tiles);
+  const size_t h_bytes = rows * s.ld_d * sizeof(float);
+  const size_t ab_bytes = rows * s.ld_d * sizeof(bf16);
+  const size_t qkv_bytes = rows * s.ld_q * sizeof(float);
+  const size_t z_bytes = rows * s.ld_c * sizeof(float);
+  const size_t dz_bytes = rows * s.ld_c * sizeof(bf16);
+  const size_t mlp_bytes = ab_bytes + z_bytes + dz_bytes;
+  const size_t big_bytes = qkv_bytes > mlp_bytes ? qkv_bytes : mlp_bytes;
+  size_t ps_bytes = 2 * sizeof(float) * s.windows * s.heads * s.t * s.t;
+  ps_bytes = (ps_bytes + 15) / 16 * 16;
+  s.off_ab = static_cast<int>(h_bytes);
+  s.off_big = static_cast<int>(h_bytes + ab_bytes);
+  s.off_gb = s.off_big;
+  s.off_z = static_cast<int>(s.off_gb + ab_bytes);
+  s.off_dz = static_cast<int>(s.off_z + z_bytes);
+  s.off_x2 = static_cast<int>(s.off_big + big_bytes);
+  s.off_ps = static_cast<int>(s.off_x2 + h_bytes);
+  s.off_stats = static_cast<int>(s.off_ps + ps_bytes);
+  return s.off_stats + 4 * rows * sizeof(float);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Backward of one encoder layer. x, g, dx [batch, t, d] f32, contiguous; w: the
+// four bf16 weights in fragment order, end to end (Wqkv, Wproj, W1, W2); wt:
+// their transposes likewise (Wqkv^T, Wproj^T, W1^T, W2^T); vec: the f32 rows
+// end to end (fused_encoder.py::pack_encoder_params). grads: f32
+// [4 d^2 + 2 d m + 9 d + m], the gradients of Wqkv, Wproj, W1, W2 ([in, out],
+// row-major) and then of g1, b1, bqkv, bproj, g2, b2, bm1, bm2.
+// Scratch the caller allocates (fused_encoder.py::plan_bwd_tile sizes it):
+// ws bf16 [batch t (8 d + 2 m)], scratch f32 [grid][16 row_tiles][3 d],
+// vpart f32 [grid][9 d + m], wpart f32 [splits][4 d^2 + 2 d m]. row_tiles
+// must fit the shared memory; grid <= the number of tiles. Three launches on
+// `stream`; returns the first CUDA error (0 on success).
+int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, int d, int m,
+                              int heads, const void* w, const void* wt, const void* vec,
+                              void* dx, void* grads, void* ws, void* scratch, void* vpart,
+                              void* wpart, int row_tiles, int grid, int splits, void* stream) {
+  if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0 ||
+      heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || row_tiles < 1 ||
+      row_tiles > kMaxRowTiles || 16 * row_tiles < t || grid < 1 || splits < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BwdShape s{};
+  s.batch = batch;
+  s.t = t;
+  s.d = d;
+  s.m = m;
+  s.heads = heads;
+  s.q_scale = 1.f / sqrtf(static_cast<float>(d / heads));
+  const size_t smem = plan_bwd_smem(s, row_tiles);
+  if (smem > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  s.n_tiles = (batch + s.windows - 1) / s.windows;
+  if (grid > s.n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = ensure_dynamic_smem<EncoderBwdTag>(encoder_bwd_tile_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  encoder_bwd_tile_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(wt), static_cast<const float*>(vec), static_cast<float*>(dx),
+      static_cast<bf16*>(ws), static_cast<float*>(scratch), static_cast<float*>(vpart), s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  WgradShape wg{};
+  wg.n_rows = batch * t;
+  wg.d = d;
+  wg.m = m;
+  wg.rows_per_split = ((wg.n_rows + splits - 1) / splits + kWgRows - 1) / kWgRows * kWgRows;
+  wg.w_total = 4LL * d * d + 2LL * d * m;
+  const int tiles = static_cast<int>(wg.w_total / (kWgTile * kWgTile));
+  encoder_wgrad_kernel<<<dim3(tiles, splits), kWgThreads, 0, st>>>(
+      static_cast<const bf16*>(ws), static_cast<float*>(wpart), wg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int n_vec = 9 * d + m;
+  const long long total = wg.w_total + n_vec;
+  encoder_bwd_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(wpart), splits, wg.w_total, static_cast<const float*>(vpart),
+      grid, n_vec, static_cast<float*>(grads));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -14,6 +14,16 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat1
                : "r"(a));
 }
 
+// The same load with each 8x8 matrix transposed: for operands that lie in
+// shared memory with the product's k index along the rows (A^T G products).
+// Lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // d += a * b for one 16x8 tile, bf16 operands, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {

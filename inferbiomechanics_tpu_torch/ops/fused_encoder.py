@@ -3,9 +3,14 @@
 PyTorch counterpart of ``inferbiomechanics_tpu/ops/pallas_encoder.py``. The
 kernel itself is ``csrc/fused_encoder.cu`` (it replaces the Pallas
 ``encoder_layer_pallas``, both of its kernel versions); this module holds
-its plain PyTorch version (:func:`encoder_layer_reference`), the one-time
-weight packing (:func:`pack_encoder_params`) and the wrapper
-(:func:`fused_encoder_layer`).
+its plain PyTorch version (:func:`encoder_layer_reference`), the weight
+packing (:func:`pack_encoder_params`) and the wrapper
+(:func:`fused_encoder_layer`). The layer's backward is
+``csrc/fused_encoder_bwd.cu`` (it replaces the Pallas
+``encoder_layer_bwd_pallas``), with its plain version
+(:func:`encoder_layer_bwd_reference`), its wrapper
+(:func:`fused_encoder_layer_bwd`) and the differentiable layer
+(:class:`FusedEncoderLayerFn`: kernel forward, kernel backward).
 
 One pre-LN layer: LayerNorm -> QKV projection -> softmax attention over the
 window's T frames, per head -> output projection -> residual -> LayerNorm ->
@@ -16,8 +21,10 @@ order, kernels ``[in, out]``, the ``3 d`` QKV columns ordered
 
 :func:`fused_encoder_layer` launches the kernel for a CUDA tensor and uses
 :func:`encoder_layer_reference` only for a CPU tensor; any other device
-raises. ``launches`` counts the kernel launches in this process. There is
-no backward: it comes with transformer training.
+raises; :func:`fused_encoder_layer_bwd` does the same with the backward
+kernels and :func:`encoder_layer_bwd_reference`. Nothing falls back: on a
+CUDA tensor a kernel that fails to build or launch raises. ``launches``
+and ``bwd_launches`` count the kernel launches in this process.
 """
 
 from __future__ import annotations
@@ -47,8 +54,16 @@ MAX_SMEM = 232448
 _MAX_ROW_TILES = 3
 _PAD = 8
 
+# the backward (csrc/fused_encoder_bwd.cu): launches a call, the most
+# blocks the weight-gradient kernel splits the rows over, and the rows a
+# split must have before another is added
+BWD_LAUNCHES_PER_LAYER = 3
+_MAX_SPLITS = 8
+_ROWS_PER_SPLIT = 512
+
 # kernel launches so far (for checking that a path went through the kernel)
 launches = 0
+bwd_launches = 0
 
 
 def init_encoder_params(generator: Optional[torch.Generator], d_model: int,
@@ -120,23 +135,27 @@ class PackedEncoderLayer:
     (``fused_mlp.fragment_order``), end to end (Wqkv, Wproj, W1, W2);
     ``rows``: f32, the eight vectors end to end (g1, b1, bqkv, bproj, g2,
     b2, bm1, bm2). ``params`` is the flat tuple (kernels bf16, vectors f32)
-    for the plain version.
+    for the plain version. ``weights_t``: the four transposes (Wqkv^T,
+    Wproj^T, W1^T, W2^T) laid out the same way, which the backward
+    multiplies by; ``None`` when packed for inference only.
     """
     weights: torch.Tensor
     rows: torch.Tensor
     d_model: int
     mlp_dim: int
     params: Tuple[torch.Tensor, ...]
+    weights_t: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.weights.device
 
 
-def pack_encoder_params(params: Sequence[torch.Tensor],
-                        device) -> PackedEncoderLayer:
-    """Cast the kernels to bf16 and the vectors to f32, lay the kernels out
-    in fragment order and place everything on ``device``."""
+def pack_encoder_params(params: Sequence[torch.Tensor], device, *,
+                        transposes: bool = False) -> PackedEncoderLayer:
+    """Cast the kernels to bf16 and the vectors to f32, lay the kernels
+    (with ``transposes``, their transposes too, for the backward) out in
+    fragment order and place everything on ``device``."""
     if len(params) != len(PARAM_NAMES):
         raise ValueError(f'expected {len(PARAM_NAMES)} parameters '
                          f'{PARAM_NAMES}, got {len(params)}')
@@ -153,9 +172,11 @@ def pack_encoder_params(params: Sequence[torch.Tensor],
                 device=device,
                 dtype=torch.bfloat16 if i in _WEIGHTS else torch.float32)
             for i, p in enumerate(params)]
+    weights_t = (torch.cat([fragment_order(cast[i].t()) for i in _WEIGHTS])
+                 if transposes else None)
     return PackedEncoderLayer(
         torch.cat([fragment_order(cast[i]) for i in _WEIGHTS]),
-        torch.cat([cast[i] for i in _ROWS]), d, m, tuple(cast))
+        torch.cat([cast[i] for i in _ROWS]), d, m, tuple(cast), weights_t)
 
 
 def plan_tile(t: int, d: int, m: int, num_heads: int) -> Tuple[int, int]:
@@ -227,3 +248,236 @@ def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
     _build.check(lib, code, 'fused_encoder_layer launch')
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The backward: recompute the forward, then the hand-derived VJP.
+# ---------------------------------------------------------------------------
+
+_SQRT_2_OVER_PI = 0.7978845608028654
+_GELU_C = 0.044715
+
+
+def _gelu_tanh_grad(z: torch.Tensor) -> torch.Tensor:
+    u = _SQRT_2_OVER_PI * (z + _GELU_C * z * z * z)
+    th = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * _GELU_C * z * z)
+    return 0.5 * (1.0 + th) + 0.5 * z * (1.0 - th * th) * du
+
+
+def _ln_fwd(x, scale, bias):
+    mu = x.mean(-1, keepdim=True)
+    rs = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    xhat = (x - mu) * rs
+    return xhat * scale + bias, xhat, rs
+
+
+def _ln_bwd(dy, xhat, rs, scale):
+    """LayerNorm's VJP: (dx, dscale, dbias)."""
+    dxhat = dy * scale
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    return rs * (dxhat - m1 - xhat * m2), (dy * xhat).sum(0), dy.sum(0)
+
+
+def encoder_layer_bwd_reference(x: torch.Tensor, g: torch.Tensor,
+                                params: Sequence[torch.Tensor], num_heads: int,
+                                compute_dtype: torch.dtype = torch.bfloat16
+                                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain version of the backward kernels: ``(dx, grads)`` for the
+    upstream gradient ``g``, ``grads`` in :data:`PARAM_NAMES` order, f32.
+
+    The math of ``pallas_encoder.py::_encoder_bwd_math`` on whole tensors:
+    the forward of :func:`encoder_layer_reference` recomputed from ``x``,
+    then the VJP written out by hand, every matmul operand (activations,
+    gradients, weights and their transposes) rounded to ``compute_dtype``
+    and summed in f32; the vector gradients are f32 sums of unrounded terms.
+    """
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
+        p.float() for p in params)
+    b, t, d = x.shape
+    n, dh = b * t, d // num_heads
+    scale = dh ** -0.5
+    cd = compute_dtype
+
+    def heads(a):                                      # [n, d] -> [B, T, H, dh]
+        return a.reshape(b, t, num_heads, dh)
+
+    # ---- the forward, keeping what the VJP reads ----
+    h = x.float().reshape(n, d)
+    y1, xhat1, rs1 = _ln_fwd(h, g1, b1)
+    qkv = _dot(y1, wqkv, cd) + bqkv
+    q, k, v = heads(qkv[:, :d] * scale), heads(qkv[:, d:2 * d]), heads(qkv[:, 2 * d:])
+    scores = (q[:, :, None] * k[:, None, :]).sum(-1)   # [B, Ti, Tj, H]
+    probs = torch.softmax(scores, dim=2)
+    attn = (probs[..., None] * v[:, None]).sum(2).reshape(n, d)
+    h2 = h + _dot(attn, wproj, cd) + bproj
+    y2, xhat2, rs2 = _ln_fwd(h2, g2, b2)
+    z1 = _dot(y2, w1, cd) + bm1
+    m1 = F.gelu(z1, approximate='tanh')
+
+    # ---- the VJP ----
+    go = g.float().reshape(n, d)
+    dw2 = _dot(m1.t(), go, cd)
+    dbm2 = go.sum(0)
+    dz1 = _dot(go, w2.t(), cd) * _gelu_tanh_grad(z1)
+    dw1 = _dot(y2.t(), dz1, cd)
+    dbm1 = dz1.sum(0)
+    dh2_ln, dg2, db2 = _ln_bwd(_dot(dz1, w1.t(), cd), xhat2, rs2, g2)
+    dh2 = go + dh2_ln
+    dwproj = _dot(attn.t(), dh2, cd)
+    dbproj = dh2.sum(0)
+    da = heads(_dot(dh2, wproj.t(), cd))               # [B, Ti, H, dh]
+    dv = (probs[..., None] * da[:, :, None]).sum(1)    # [B, Tj, H, dh]
+    dp = (da[:, :, None] * v[:, None]).sum(-1)         # [B, Ti, Tj, H]
+    ds = probs * (dp - (probs * dp).sum(2, keepdim=True))
+    dk = (ds[..., None] * q[:, :, None]).sum(1)        # q carries the scale
+    dq = (ds[..., None] * k[:, None]).sum(2) * scale
+    dqkv = torch.cat([a.reshape(n, d) for a in (dq, dk, dv)], dim=1)
+    dwqkv = _dot(y1.t(), dqkv, cd)
+    dbqkv = dqkv.sum(0)
+    dh_ln, dg1, db1 = _ln_bwd(_dot(dqkv, wqkv.t(), cd), xhat1, rs1, g1)
+    dx = (dh2 + dh_ln).reshape(b, t, d)
+    return dx, (dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2,
+                dw1, dbm1, dw2, dbm2)
+
+
+def plan_bwd_tile(t: int, d: int, m: int, num_heads: int
+                  ) -> Tuple[int, int, int, int]:
+    """``(row_tiles, windows, chunk, smem_bytes)`` of a block of the
+    backward's tile kernel, as ``csrc/fused_encoder_bwd.cu`` lays it out;
+    raises if the kernel cannot take the shape.
+
+    The limits on ``d``, ``m``, the head width and ``t`` are the forward's.
+    A block holds, in shared memory, three f32 and one bf16 ``[rows, d]``
+    buffers, the f32 q/k/v ``[rows, 3 d]`` (the MLP phase reuses that space
+    for a chunk of ``chunk`` hidden columns) and the attention's
+    probabilities, so its row tile is smaller than the forward's: 32 rows
+    (three windows of 10 frames) at ``d = 256``, 48 at ``d = 128``, 16 at
+    ``d = 384`` and ``d = 512``; ``d`` above 512 with a 4x MLP does not fit.
+    """
+    plan_tile(t, d, m, num_heads)          # the forward's limits on the shape
+    chunk = 256 if d >= 256 and m % 256 == 0 else 128
+    for row_tiles in range(_MAX_ROW_TILES, 0, -1):
+        rows = 16 * row_tiles
+        if rows < t:
+            break
+        windows = rows // t
+        h_bytes = rows * (d + _PAD) * 4
+        ab_bytes = rows * (d + _PAD) * 2
+        mlp_bytes = ab_bytes + rows * (chunk + _PAD) * 6
+        big = max(rows * (3 * d + _PAD) * 4, mlp_bytes)
+        ps_bytes = -(-(2 * 4 * windows * num_heads * t * t) // 16) * 16
+        smem = 2 * h_bytes + ab_bytes + big + ps_bytes + 4 * rows * 4
+        if smem <= MAX_SMEM:
+            return row_tiles, windows, chunk, smem
+    raise ValueError(f'fused encoder backward kernel: a window of {t} frames '
+                     f'at d_model {d}, MLP width {m} does not fit the '
+                     f'{MAX_SMEM} bytes of shared memory a block may use')
+
+
+def bwd_splits(n_rows: int) -> int:
+    """Row ranges the weight-gradient kernel splits ``n_rows`` rows over (a
+    function of the shape alone, so that the order of every sum is fixed)."""
+    return max(1, min(_MAX_SPLITS, n_rows // _ROWS_PER_SPLIT))
+
+
+def _split_grads(flat: torch.Tensor, d: int, m: int) -> Tuple[torch.Tensor, ...]:
+    """The kernel's flat gradient (the four kernels, then the eight rows in
+    ``rows`` order) as views in :data:`PARAM_NAMES` order."""
+    sizes = [3 * d * d, d * d, d * m, m * d, d, d, 3 * d, d, d, d, m, d]
+    dwqkv, dwproj, dw1, dw2, dg1, db1, dbqkv, dbproj, dg2, db2, dbm1, dbm2 = (
+        flat.split(sizes))
+    return (dg1, db1, dwqkv.view(d, 3 * d), dbqkv, dwproj.view(d, d), dbproj,
+            dg2, db2, dw1.view(d, m), dbm1, dw2.view(m, d), dbm2)
+
+
+def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
+                            packed: PackedEncoderLayer, num_heads: int
+                            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``(dx, grads)`` of the layer at ``x`` for the upstream gradient ``g``
+    (both [B, T, d] float32), ``grads`` f32 in :data:`PARAM_NAMES` order.
+
+    A CUDA tensor launches the backward kernels (three launches; two calls
+    on the same inputs give bitwise equal results) or raises; a CPU tensor
+    takes :func:`encoder_layer_bwd_reference`; any other device raises.
+    """
+    global bwd_launches
+    if x.shape != g.shape:
+        raise ValueError(f'x {tuple(x.shape)} and g {tuple(g.shape)} differ')
+    if x.device.type == 'cpu':
+        return encoder_layer_bwd_reference(x, g, packed.params, num_heads)
+    if x.device.type != 'cuda':
+        raise ValueError(f'fused_encoder_layer_bwd: no kernel for device {x.device}')
+    for name, a in (('x', x), ('g', g)):
+        if (a.dtype != torch.float32 or a.ndim != 3 or not a.is_contiguous()
+                or a.data_ptr() % 16 or a.device != x.device):
+            raise ValueError(f'fused_encoder_layer_bwd takes contiguous, 16-byte '
+                             f'aligned float32 [B, T, d] tensors on one device, '
+                             f'got {name} {a.dtype} {tuple(a.shape)} on {a.device}')
+    batch, t, d = x.shape
+    m = packed.mlp_dim
+    if d != packed.d_model:
+        raise ValueError(f'input width {d} != packed d_model {packed.d_model}')
+    if packed.device != x.device:
+        raise ValueError(f'weights on {packed.device}, input on {x.device}')
+    if packed.weights_t is None:
+        raise ValueError('the backward needs the transposed weights: pack with '
+                         'pack_encoder_params(..., transposes=True)')
+    row_tiles, windows, _, _ = plan_bwd_tile(t, d, m, num_heads)
+    n_rows = batch * t
+    w_total, n_vec = 4 * d * d + 2 * d * m, 9 * d + m
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    flat = torch.empty(w_total + n_vec, **f32)
+    if batch == 0:
+        return dx, _split_grads(flat.zero_(), d, m)
+    n_tiles = -(-batch // windows)
+    grid = min(n_tiles,
+               torch.cuda.get_device_properties(x.device).multi_processor_count)
+    splits = bwd_splits(n_rows)
+    ws = torch.empty(n_rows * (8 * d + 2 * m), dtype=torch.bfloat16, device=x.device)
+    scratch = torch.empty(grid * 16 * row_tiles * 3 * d, **f32)
+    vpart = torch.empty(grid * n_vec, **f32)
+    wpart = torch.empty(splits * w_total, **f32)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.ib_fused_encoder_backward(
+            x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
+            packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+            packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+            ws.data_ptr(), scratch.data_ptr(), vpart.data_ptr(),
+            wpart.data_ptr(), row_tiles, grid, splits, stream)
+    _build.check(lib, code, 'fused_encoder_layer_bwd launch')
+    bwd_launches += BWD_LAUNCHES_PER_LAYER
+    return dx, _split_grads(flat, d, m)
+
+
+class FusedEncoderLayerFn(torch.autograd.Function):
+    """The differentiable fused layer: ``apply(x, packed, num_heads,
+    *params)`` with ``params`` the 12 tensors of :data:`PARAM_NAMES` that
+    ``packed`` was made from (with ``transposes=True``).
+
+    Forward is :func:`fused_encoder_layer`; only ``x`` is saved (the
+    parameters live in ``packed``). Backward is
+    :func:`fused_encoder_layer_bwd`, which recomputes the forward; it
+    returns the gradients of ``x`` and of the 12 parameters.
+    """
+
+    @staticmethod
+    def forward(ctx, x, packed, num_heads, *params):
+        if len(params) != len(PARAM_NAMES):
+            raise ValueError(f'expected {len(PARAM_NAMES)} parameters, got {len(params)}')
+        ctx.save_for_backward(x)
+        ctx.packed, ctx.num_heads = packed, num_heads
+        ctx.param_dtypes = tuple(p.dtype for p in params)
+        return fused_encoder_layer(x, packed, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        dx, grads = fused_encoder_layer_bwd(x, g.contiguous(), ctx.packed,
+                                            ctx.num_heads)
+        return (dx, None, None,
+                *(gr.to(dt) for gr, dt in zip(grads, ctx.param_dtypes)))

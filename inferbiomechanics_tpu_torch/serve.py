@@ -275,8 +275,11 @@ class InferenceService:
         else:
             epoch, batch = load_latest_checkpoint(model, path)
         model.eval()
-        if self._use_fused or not isinstance(model, TransformerRegressor):
-            model.packed()      # the kernel's weights, laid out once per load
+        # the kernels' weights, laid out once per load
+        if not isinstance(model, TransformerRegressor) or self._use_fused:
+            model.packed()
+        elif model.attn_impl == 'pallas':
+            model.packed_layers(False)
         return model, epoch, batch
 
     def _load_member(self, spec: str):

@@ -1,41 +1,72 @@
-"""Checkpoint save / restore, the subset serving needs.
+"""Checkpoint save / restore.
 
 PyTorch counterpart of ``inferbiomechanics_tpu/train/checkpoint.py``:
-``save_checkpoint``, ``list_checkpoints`` and ``load_latest_checkpoint``.
-A checkpoint is ``torch.save`` of ``{epoch, batch, model_state_dict}``,
-written atomically, and the loader restores the newest by (epoch, batch),
-returning ``(-1, 0)`` when there is none.
+``save_checkpoint``, ``list_checkpoints``, ``load_latest_checkpoint``,
+``load_checkpoint_file``, ``warm_start_from`` and ``prune_checkpoints``.
+A checkpoint is ``torch.save`` of
+
+    {epoch, batch, model_state_dict,                      always
+     optimizer_state_dict, opt_type, step}                from a TrainState
+
+written atomically; the loader restores the newest by (epoch, batch) and
+returns ``(-1, 0)`` when there is none. Every function takes either a bare
+model (serving: parameters only) or a ``TrainState`` (training: the
+optimizer's state and the step count too), and reads both payloads with
+``weights_only=True``.
 
 Files are named ``epoch_{e}_batch_{b}.torch.pt``. The JAX package's
 pattern (``epoch_E_batch_B.{ckpt,msgpack,pt}``) does not match that name,
-so neither package mistakes the other's files for its own. Reading the
-JAX package's flax-msgpack ``.ckpt`` files is not ported yet.
+so neither package mistakes the other's files for its own. Named files
+(``best.torch.pt``) are model artifacts that the newest-checkpoint scan
+ignores. Reading the JAX package's flax-msgpack ``.ckpt`` files, the
+asynchronous writer, checkpoint soups and EMA weights are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import re
-from typing import List, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
+from inferbiomechanics_tpu_torch.train.state import TrainState
+
+logger = logging.getLogger(__name__)
+
 _CKPT_RE = re.compile(r'epoch_(\d+)_batch_(\d+)\.torch\.pt$')
+BEST_NAME = 'best.torch.pt'
+
+ModelOrState = Union[nn.Module, TrainState]
 
 
 def checkpoint_name(epoch: int, batch: int) -> str:
     return f'epoch_{epoch}_batch_{batch}.torch.pt'
 
 
-def save_checkpoint(checkpoint_dir: str, model: nn.Module,
-                    epoch: int, batch: int) -> str:
-    """Write ``model``'s parameters; returns the path."""
+def _model_of(target: ModelOrState) -> nn.Module:
+    return target.model if isinstance(target, TrainState) else target
+
+
+def save_checkpoint(checkpoint_dir: str, target: ModelOrState,
+                    epoch: int, batch: int,
+                    filename: Optional[str] = None) -> str:
+    """Write ``target`` (a model, or a TrainState with its optimizer and
+    step); returns the path. ``filename`` overrides the
+    ``epoch_{e}_batch_{b}.torch.pt`` name."""
     os.makedirs(checkpoint_dir, exist_ok=True)
-    path = os.path.join(checkpoint_dir, checkpoint_name(epoch, batch))
+    path = os.path.join(checkpoint_dir, filename or checkpoint_name(epoch, batch))
     payload = {'epoch': int(epoch), 'batch': int(batch),
-               'model_state_dict': {k: v.detach().cpu()
-                                    for k, v in model.state_dict().items()}}
+               'model_state_dict': {k: v.detach().cpu() for k, v in
+                                    _model_of(target).state_dict().items()}}
+    if isinstance(target, TrainState):
+        opt = target.optimizer.state_dict()
+        opt['state'] = {i: {k: v.detach().cpu() for k, v in st.items()}
+                        for i, st in opt['state'].items()}
+        payload.update(optimizer_state_dict=opt,
+                       opt_type=target.optimizer.opt_type, step=int(target.step))
     tmp = path + '.tmp'
     torch.save(payload, tmp)
     os.replace(tmp, path)  # atomic: a crash never leaves a torn checkpoint
@@ -56,18 +87,56 @@ def list_checkpoints(checkpoint_dir: str) -> List[Tuple[int, int, str]]:
     return out
 
 
-def load_checkpoint_file(model: nn.Module, path: str) -> Tuple[int, int]:
-    """Load one checkpoint file into ``model``; returns (epoch, batch)."""
+def load_checkpoint_file(target: ModelOrState, path: str) -> Tuple[int, int]:
+    """Load one checkpoint file into ``target``; returns (epoch, batch). A
+    TrainState also gets the optimizer's state and the step back when the
+    file holds them and was written by the same kind of optimizer;
+    otherwise the optimizer starts fresh, with a warning."""
     payload = torch.load(path, map_location='cpu', weights_only=True)
-    model.load_state_dict(payload['model_state_dict'])
+    try:
+        _model_of(target).load_state_dict(payload['model_state_dict'])
+    except RuntimeError as e:
+        raise ValueError(
+            f'checkpoint {path}: parameters do not match the model being '
+            f'built, most commonly a transformer checkpoint written with a '
+            f'different --attn-impl, or different --hidden-dims / --d-model / '
+            f'--num-layers. Original error: {e}') from e
+    if isinstance(target, TrainState):
+        if payload.get('opt_type') == target.optimizer.opt_type:
+            target.optimizer.load_state_dict(payload['optimizer_state_dict'])
+            target.step = int(payload['step'])
+        else:
+            logger.warning(
+                'checkpoint %s: optimizer state not restored (written by %s, '
+                'training with %s); parameters restored, optimizer starts '
+                'fresh', path, payload.get('opt_type', 'no optimizer'),
+                target.optimizer.opt_type)
     return int(payload['epoch']), int(payload['batch'])
 
 
-def load_latest_checkpoint(model: nn.Module,
+def load_latest_checkpoint(target: ModelOrState,
                            checkpoint_dir: str) -> Tuple[int, int]:
-    """Load the newest checkpoint into ``model``; returns (epoch, batch),
+    """Load the newest checkpoint into ``target``; returns (epoch, batch),
     or (-1, 0) if there is none."""
     ckpts = list_checkpoints(checkpoint_dir)
     if not ckpts:
         return -1, 0
-    return load_checkpoint_file(model, ckpts[-1][2])
+    return load_checkpoint_file(target, ckpts[-1][2])
+
+
+def warm_start_from(state: TrainState, path: str) -> None:
+    """Transfer-learning init (``--init-from-checkpoint``): only the
+    parameters of ``path``, keeping the fresh optimizer and step count."""
+    load_checkpoint_file(state.model, path)
+
+
+def prune_checkpoints(checkpoint_dir: str, keep: int) -> List[str]:
+    """Delete all but the newest ``keep`` epoch_* checkpoints; named files
+    (the best checkpoint) are never touched. Returns the removed paths."""
+    if keep <= 0:
+        return []
+    removed = []
+    for _e, _b, path in list_checkpoints(checkpoint_dir)[:-keep]:
+        os.remove(path)
+        removed.append(path)
+    return removed

@@ -1,0 +1,155 @@
+"""Device-resident data path: window assembly on the device.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/train/device_data.py``. When
+the packed feature and label matrices fit in device memory (45 MB per 64k
+frames at 177 channels) the whole dataset is copied there once and every
+training batch is gathered on the device: per step the host sends one
+``[B]`` index vector. Larger datasets take the host loader
+(``data/loader.py``).
+
+The chunked K-step dispatch (``make_device_chunked_step``), the tiled
+benchmark variant and the diffusion runner are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
+from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metrics
+from inferbiomechanics_tpu_torch.train.state import TrainState
+from inferbiomechanics_tpu_torch.train.step import Metrics, accumulate_grads
+
+
+def _to_bf16(a: np.ndarray) -> torch.Tensor:
+    """float32 numpy -> bf16 tensor, rounded to nearest even on the host."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+class DeviceResidentData:
+    """The dataset's packed arrays and window table, resident on a device."""
+
+    def __init__(self, ds: WindowDataset, device, pack_windows: bool = False):
+        """Features are rounded to bf16 on the host before the copy (half
+        the memory and gather bandwidth; the models compute in bf16 anyway);
+        labels stay float32 (the loss runs in f32).
+
+        ``pack_windows=True`` also builds, on the device, a window-major
+        copy of the features ``[num_windows, T * C_in]`` (and of the labels
+        in ``all_frames`` mode): a batch is then one gather of B contiguous
+        rows instead of B * T scattered ones, at about window / stride times
+        the frame-major memory.
+        """
+        self.device = torch.device(device)
+        feat = _to_bf16(ds.features_all)
+        lab = torch.from_numpy(np.ascontiguousarray(ds.labels_all, np.float32))
+        self.upload_bytes = feat.numel() * 2 + lab.numel() * 4
+        self.features_all = feat.to(self.device)
+        self.labels_all = lab.to(self.device)
+        base = np.asarray(ds.trial_row_offset[ds.win_ft] + ds.win_start, np.int64)
+        self.win_base = torch.from_numpy(base).to(self.device)
+        self.num_windows = int(base.shape[0])
+        self.window_size = ds.window_size
+        self.stride = ds.stride
+        self.num_model_frames = ds.num_model_frames
+        self.output_data_format = ds.output_data_format
+        self.lab_offsets = ds.lab_offsets
+        self.features_packed = None
+        self.labels_packed = None
+        self.device_bytes = self.upload_bytes + base.nbytes
+        self._offs = (torch.arange(self.num_model_frames, device=self.device)
+                      * self.stride)
+        if pack_windows:
+            self._pack_windows()
+
+    def _pack_windows(self) -> None:
+        rows = self.win_base[:, None] + self._offs[None, :]
+
+        def pack(mat: torch.Tensor) -> torch.Tensor:
+            return mat[rows].reshape(rows.shape[0], -1)      # [N, T * C]
+
+        self.features_packed = pack(self.features_all)
+        self.device_bytes += self.features_packed.numel() * 2
+        if self.output_data_format == 'all_frames':
+            self.labels_packed = pack(self.labels_all)
+            self.device_bytes += self.labels_packed.numel() * 4
+
+    @staticmethod
+    def packed_bytes_estimate(ds: WindowDataset) -> int:
+        """Device memory that ``pack_windows=True`` adds for this dataset."""
+        n_windows = int(ds.win_start.shape[0])
+        per_window = ds.num_model_frames * int(ds.features_all.shape[1]) * 2
+        if ds.output_data_format == 'all_frames':
+            per_window += ds.num_model_frames * int(ds.labels_all.shape[1]) * 4
+        return n_windows * per_window
+
+    def gather(self, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B] window indices (on the device) -> (inputs [B, T, C_in] bf16,
+        labels [B, F, C_lab] f32); exactly ``num_model_frames`` frames a
+        window."""
+        base = self.win_base[idx]
+        rows = base[:, None] + self._offs[None, :]
+        if self.features_packed is not None:
+            inputs = self.features_packed[idx].reshape(
+                idx.shape[0], self.num_model_frames, -1)
+        else:
+            inputs = self.features_all[rows]
+        if self.output_data_format == 'all_frames':
+            if self.labels_packed is not None:
+                labels = self.labels_packed[idx].reshape(
+                    idx.shape[0], self.num_model_frames, -1)
+            else:
+                labels = self.labels_all[rows]
+        else:
+            last = base + (self.num_model_frames - 1) * self.stride
+            labels = self.labels_all[last[:, None]]
+        return inputs, labels
+
+
+def make_device_train_step(model, data: DeviceResidentData,
+                           loss_config: LossConfig,
+                           grad_accum: int = 1) -> Callable:
+    """``step(state, idx) -> metrics``: the gather is part of the step, and
+    with ``grad_accum > 1`` each microbatch gathers its own rows, so neither
+    the full batch nor its activations are ever held at once."""
+
+    def step(state: TrainState, idx: torch.Tensor) -> Metrics:
+        model.train()
+
+        def loss_for(rows: slice):
+            inputs, labels = data.gather(idx[rows])
+            return loss_and_metrics(model(inputs), unpack(labels, data.lab_offsets),
+                                    loss_config)
+
+        metrics = accumulate_grads(state, grad_accum, idx.shape[0], loss_for)
+        state.apply_gradients()
+        return metrics
+
+    return step
+
+
+def make_device_eval_runner(model, data: DeviceResidentData,
+                            loss_config: LossConfig, batch_size: int) -> Callable:
+    """``run_eval(state) -> mean_metrics``: the whole eval split in order,
+    metrics averaged over the batches as the evaluator averages them."""
+    n_steps = data.num_windows // batch_size
+    if n_steps == 0:
+        raise ValueError(f'eval split has {data.num_windows} windows < '
+                         f'batch_size {batch_size}')
+    idx_all = torch.arange(n_steps * batch_size, device=data.device).reshape(
+        n_steps, batch_size)
+
+    @torch.no_grad()
+    def run_eval(state: TrainState) -> Metrics:
+        model.eval()
+        history = []
+        for idx in idx_all:
+            inputs, labels = data.gather(idx)
+            history.append(loss_and_metrics(
+                model(inputs), unpack(labels, data.lab_offsets), loss_config)[1])
+        return {k: torch.stack([m[k] for m in history]).mean(0) for k in history[0]}
+
+    return run_eval

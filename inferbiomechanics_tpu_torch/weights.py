@@ -17,6 +17,14 @@ The JAX ``TransformerRegressor`` with ``attn_impl='vpu'``
 ``_TRANSFORMER_DENSE`` and ``_TRANSFORMER_NORM`` list; the QKV columns are
 ``[q | k | v]`` on both sides.
 
+With ``attn_impl='pallas'`` the JAX model keeps the encoder as flat
+``enc{i}_{name}`` parameters instead (kernels ``[in, out]``). The port's
+``pallas`` model stores them under the same names in the same layout, as
+``nn.Parameter``s, so they cross untransposed: the kernels' packing reads
+``[in, out]`` and a step spares the transpose. Everything around the
+encoder (``Dense_0``, ``LayerNorm_0``, the heads) maps as in the ``vpu``
+tree.
+
 The JAX ``Groundlink`` (``inferbiomechanics_tpu/models/groundlink.py``) keeps
 ``Conv_{i}: {kernel [k, C_in, C_out], bias}`` and ``Dense_{j}: {kernel [in,
 out], bias}``, the last Dense (the head) without a bias. ``nn.Conv1d``
@@ -149,8 +157,12 @@ _TRANSFORMER_NORM = {
 _OPTIONAL_HEADS = ('tau_head', 'com_acc_head', 'contact_cls_head')
 
 
+_ENC_RE = re.compile(r'enc(\d+)_\w+')
+
+
 def _transformer_entries(num_layers: int):
-    """(state-dict prefix, flax path, is_dense) for every module."""
+    """(state-dict prefix, flax path, is_dense) for every module; with
+    ``num_layers`` 0, the modules around the encoder only."""
     for table, dense in ((_TRANSFORMER_DENSE, True), (_TRANSFORMER_NORM, False)):
         for prefix, path in table.items():
             for i in (range(num_layers) if '{i}' in prefix else (0,)):
@@ -160,10 +172,26 @@ def _transformer_entries(num_layers: int):
 
 def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``vpu`` transformer params -> the port's state dict."""
-    if any(re.fullmatch(r'enc\d+_\w+', k) for k in params):
-        raise ValueError("this is an attn_impl='pallas' tree (enc{i}_*); only "
-                         "the 'vpu' tree is ported")
+    if any(_ENC_RE.fullmatch(k) for k in params):
+        raise ValueError("this is an attn_impl='pallas' tree (enc{i}_*); use "
+                         "transformer_pallas_state_dict_from_jax")
     num_layers = len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
+    return _transformer_sd_from_jax(params, num_layers)
+
+
+def transformer_pallas_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``pallas`` transformer params (flat ``enc{i}_*`` encoder) -> the
+    port's state dict; the ``enc{i}_*`` arrays cross as they are."""
+    enc = sorted(k for k in params if _ENC_RE.fullmatch(k))
+    if not enc:
+        raise ValueError("no enc{i}_* parameters: not an attn_impl='pallas' tree")
+    sd = _transformer_sd_from_jax(params, 0)
+    for k in enc:
+        sd[k] = torch.from_numpy(np.asarray(params[k], np.float32).copy())
+    return sd
+
+
+def _transformer_sd_from_jax(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
     sd = {'temporal_embedding': torch.from_numpy(
         np.asarray(params['temporal_embedding'], np.float32).copy())}
     for prefix, path, dense in _transformer_entries(num_layers):
@@ -184,8 +212,28 @@ def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The port's transformer state dict -> the JAX ``vpu`` tree of numpy
     arrays."""
+    if any(_ENC_RE.fullmatch(k) for k in state_dict):
+        raise ValueError("this is an attn_impl='pallas' state dict (enc{i}_*); "
+                         "use transformer_pallas_params_to_jax")
     num_layers = len([k for k in state_dict
                       if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
+    return _transformer_sd_to_jax(state_dict, num_layers)
+
+
+def transformer_pallas_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``pallas`` transformer state dict -> the JAX ``pallas``
+    tree of numpy arrays."""
+    enc = sorted(k for k in state_dict if _ENC_RE.fullmatch(k))
+    if not enc:
+        raise ValueError("no enc{i}_* entries: not an attn_impl='pallas' state dict")
+    out = _transformer_sd_to_jax(state_dict, 0)
+    for k in enc:
+        out[k] = state_dict[k].detach().cpu().float().numpy().copy()
+    return out
+
+
+def _transformer_sd_to_jax(state_dict: Mapping[str, torch.Tensor],
+                           num_layers: int) -> Dict:
     to_np = lambda t: t.detach().cpu().float().numpy().copy()   # noqa: E731
     out: Dict = {'temporal_embedding': to_np(state_dict['temporal_embedding'])}
     for prefix, path, dense in _transformer_entries(num_layers):

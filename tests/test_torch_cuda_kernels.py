@@ -95,6 +95,63 @@ def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio)
     torch.testing.assert_close(out, ref, **ENC_TOL)
 
 
+# The backward kernels and their plain version round the same operands to
+# bf16 and sum in f32 in another order, which flips bf16 roundings of the
+# recomputed activations and of the gradients that are operands of later
+# products. Each tensor is held to 2e-2 x its largest plain value (the JAX
+# suite allows its Pallas backward 5e-2 x max against jax.vjp in bf16,
+# tests/test_pallas_encoder.py).
+BWD_REL = 2e-2
+
+
+@pytest.mark.parametrize('batch,t,d,heads,mlp_ratio', [
+    (1, 10, 256, 8, 4),
+    (19, 10, 256, 8, 4),      # no multiple of the tile's three windows
+    (4096, 10, 256, 8, 4),
+    (37, 4, 256, 8, 4),
+    (37, 10, 128, 4, 4),      # three row tiles, 128-column MLP chunks
+    (700, 10, 128, 4, 2),     # several tiles a block, several row splits
+    (5, 7, 128, 4, 2),        # a frame count with no unrolled attention
+    (9, 10, 512, 8, 4),       # one row tile: one window a tile
+])
+def test_fused_encoder_bwd_kernels_match_plain(cuda, batch, t, d, heads, mlp_ratio):
+    gen = torch.Generator().manual_seed(batch + t + d)
+    packed = fe.pack_encoder_params(
+        random_encoder_params(gen, d, d * mlp_ratio), cuda, transposes=True)
+    x = torch.randn(batch, t, d, generator=gen).to(cuda)
+    g = torch.randn(batch, t, d, generator=gen).to(cuda)
+    before = fe.bwd_launches
+    dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+    assert fe.bwd_launches == before + fe.BWD_LAUNCHES_PER_LAYER
+    dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+    ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
+    torch.cuda.synchronize()
+    for name, got, again, ref in zip(('x',) + fe.PARAM_NAMES, (dx,) + grads,
+                                     (dx2,) + grads2, (ref_dx,) + ref_grads):
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        assert torch.equal(got, again), f'{name}: two calls differ'
+        err = float((got - ref).abs().max())
+        assert err <= BWD_REL * float(ref.abs().max()), (name, err)
+
+
+def test_fused_encoder_layer_fn_trains_through_the_kernels(cuda):
+    gen = torch.Generator().manual_seed(3)
+    params = [p.to(cuda).requires_grad_(True)
+              for p in random_encoder_params(gen, 256, 1024)]
+    x = torch.randn(19, 10, 256, generator=gen).to(cuda).requires_grad_(True)
+    g = torch.randn(19, 10, 256, generator=gen).to(cuda)
+    packed = fe.pack_encoder_params(params, cuda, transposes=True)
+    fwd, bwd = fe.launches, fe.bwd_launches
+    out = fe.FusedEncoderLayerFn.apply(x, packed, 8, *params)
+    got = torch.autograd.grad(out, [x] + params, g)
+    assert fe.launches == fwd + 1
+    assert fe.bwd_launches == bwd + fe.BWD_LAUNCHES_PER_LAYER
+    ref_dx, ref_grads = fe.encoder_layer_bwd_reference(
+        x.detach(), g, packed.params, 8)
+    for a, b in zip(got, (ref_dx,) + ref_grads):
+        assert float((a - b).abs().max()) <= BWD_REL * float(b.abs().max())
+
+
 def random_groundlink_params(gen, c_in, features, fc_depth, taps=7):
     """A seeded flax-layout GroundLink tree with random biases (the model's
     init has zero biases, and a wrong bias add would go unseen)."""

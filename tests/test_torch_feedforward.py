@@ -200,11 +200,12 @@ def test_init_is_seeded_and_scaled(init_style):
 @pytest.mark.parametrize('model_type', ['groundlink', 'transformer', 'diffusion',
                                         'analytical'])
 def test_unported_model_types_name_their_roadmap_slice(model_type):
-    # the transformer is ported for its default 'vpu' parameter tree; the
-    # 'pallas' tree still names the slice that brings it. GroundLink is
-    # ported for eval; its train-mode forward with the default dropout names
-    # the slice that brings training
-    extra = {'attn_impl': 'pallas'} if model_type == 'transformer' else {}
+    # the transformer is ported for both parameter trees ('vpu' and
+    # 'pallas'); with dropout it still names the slice that brings it.
+    # GroundLink is ported for eval; its train-mode forward with the default
+    # dropout names the slice that brings training
+    extra = ({'dropout': True, 'dropout_prob': 0.1}
+             if model_type == 'transformer' else {})
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
         model = get_model(model_type, **SMALL, **extra)
         model.train()(torch.from_numpy(_inputs(2)))

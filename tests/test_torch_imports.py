@@ -82,7 +82,10 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
     for module in ('config', 'data.dataset', 'data.b3d_legacy', 'ops.fused_mlp',
                    'ops.fused_encoder', 'ops.fused_groundlink', 'models.feedforward',
                    'models.groundlink', 'models.transformer', 'serve', 'cli.serve_cmd',
-                   'train.augment', 'train.checkpoint', 'weights', '__main__'):
+                   'train.augment', 'train.checkpoint', 'weights', '__main__',
+                   'ops.losses', 'loss.evaluator', 'train.optimizers', 'train.state',
+                   'train.step', 'train.device_data', 'data.loader', 'train.run_config',
+                   'train.loop', 'cli.train_cmd'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out

@@ -24,6 +24,7 @@ from inferbiomechanics_tpu_torch.models.transformer import (
 )
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.weights import (
+    transformer_pallas_params_to_jax, transformer_pallas_state_dict_from_jax,
     transformer_params_to_jax, transformer_state_dict_from_jax,
 )
 
@@ -36,9 +37,9 @@ SIZE = dict(num_dofs=23, num_contact_bodies=2, history_len=50, stride=5,
 REL = 2e-2
 
 
-def _models(fmt):
-    jm = jax_get_model('transformer', output_data_format=fmt, **SIZE)
-    pm = get_model('transformer', output_data_format=fmt, **SIZE)
+def _models(fmt, attn_impl='vpu'):
+    jm = jax_get_model('transformer', output_data_format=fmt, attn_impl=attn_impl, **SIZE)
+    pm = get_model('transformer', output_data_format=fmt, attn_impl=attn_impl, **SIZE)
     return jm, pm
 
 
@@ -90,6 +91,72 @@ def test_weights_there_and_back():
 def test_weights_refuse_the_pallas_tree():
     with pytest.raises(ValueError, match='pallas'):
         transformer_state_dict_from_jax({'enc0_wqkv': np.zeros((2, 6), np.float32)})
+
+
+def test_pallas_weights_there_and_back():
+    jm, pm = _models('last_frame', 'pallas')
+    params = _jax_params(jm, 2)
+    sd = transformer_pallas_state_dict_from_jax(params)
+    assert set(sd) == set(pm.state_dict())
+    assert sum(k.startswith('enc') for k in sd) == 2 * len(fe.PARAM_NAMES)
+    pm.load_state_dict(sd)
+    back = transformer_pallas_params_to_jax(pm.state_dict())
+    flat, flat_back = (dict(jax.tree_util.tree_flatten_with_path(t)[0])
+                       for t in (params, back))
+    assert set(flat) == set(flat_back)
+    for path in flat:
+        np.testing.assert_array_equal(flat_back[path], flat[path], err_msg=str(path))
+    # the enc{i}_* kernels are [in, out] on both sides: no transpose
+    np.testing.assert_array_equal(sd['enc1_wqkv'].numpy(), params['enc1_wqkv'])
+    assert sd['enc1_wqkv'].shape == (128, 384)
+    # the modules around the encoder map as in the vpu tree
+    np.testing.assert_array_equal(sd['input_proj.weight'].numpy(),
+                                  params['Dense_0']['kernel'].T)
+    # each converter refuses the other tree
+    with pytest.raises(ValueError, match='pallas'):
+        transformer_params_to_jax(pm.state_dict())
+    vpu = _models('last_frame')[1]
+    with pytest.raises(ValueError, match='enc'):
+        transformer_pallas_params_to_jax(vpu.state_dict())
+    with pytest.raises(ValueError, match='enc'):
+        transformer_pallas_state_dict_from_jax(_jax_params(_models('last_frame')[0], 0))
+
+
+@pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
+def test_pallas_forward_matches_jax_apply(fmt):
+    """The ``pallas`` model's one forward (plain layers on the CPU) against
+    ``model.apply`` of the JAX ``attn_impl='pallas'`` model (its reference
+    layer on the CPU), in eval and in train mode."""
+    jm, pm = _models(fmt, 'pallas')
+    params = _jax_params(jm, 3)
+    pm.load_state_dict(transformer_pallas_state_dict_from_jax(params))
+    x = _x(4)
+    want = jm.apply({'params': params}, jnp.asarray(x), train=False)
+    with torch.no_grad():
+        _assert_heads_close(pm.eval()(torch.from_numpy(x)), want, fmt)
+        _assert_heads_close(pm.train()(torch.from_numpy(x)), want, fmt)
+
+
+def test_pallas_layers_are_packed_again_only_after_a_change():
+    pm = get_model('transformer', attn_impl='pallas', **SIZE)
+    first = pm.packed_layers(False)
+    assert pm.packed_layers(False) is first and first[0].weights_t is None
+    with_t = pm.packed_layers(True)
+    assert with_t is not first and with_t[0].weights_t is not None
+    with torch.no_grad():
+        pm.enc1_bmlp2.add_(1.0)                  # as an optimizer update does
+    again = pm.packed_layers(True)
+    assert again is not with_t
+    assert torch.equal(again[1].params[11], pm.enc1_bmlp2.detach())
+    pm.load_state_dict(pm.state_dict())
+    assert pm.packed_layers(True) is not again
+    assert len(pm.blocks) == 0 and len(pm.layer_params(0)) == 12
+
+
+def test_pallas_model_takes_no_dropout():
+    with pytest.raises(ValueError, match='does not support dropout'):
+        get_model('transformer', attn_impl='pallas', dropout=True, dropout_prob=0.1,
+                  **SIZE)
 
 
 @pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
@@ -159,7 +226,6 @@ def test_seeded_init_follows_flax_defaults():
 
 
 @pytest.mark.parametrize('kwargs,match', [
-    ({'attn_impl': 'pallas'}, 'transformer training'),
     ({'attn_impl': 'flax'}, 'not ported'),
     ({'dropout': True, 'dropout_prob': 0.1}, 'dropout'),
 ])
