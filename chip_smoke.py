@@ -8,8 +8,9 @@ Phases, each of which fails the run:
   2. build the kernels (``ops/csrc/*.cu``: K1 fused MLP, K2 fused encoder
      layer, K3 its backward, K4 fused GroundLink forward) from this checkout
      with nvcc;
-  3. each kernel against its plain PyTorch version on the card: K1 at nine
-     cases (atol 1e-2), K2 at five (rtol = atol = 1e-2), K4 at seven (2e-2 x
+  3. each kernel against its plain PyTorch version on the card: K1 at 17
+     cases (atol 1e-2; both of its kernels, either side of the batch where
+     the choice turns, odd batches), K2 at five (rtol = atol = 1e-2), K4 at seven (2e-2 x
      max|plain|), K3 at seven (dx and each of the 12 gradients within 2e-2 x
      that tensor's max|plain|, and two calls bitwise equal), with random
      biases and LayerNorm rows;
@@ -36,13 +37,16 @@ Phases, each of which fails the run:
      launches a forward, /reload refused), ``--tta-mirror`` on GroundLink
      (the symmetrized plain forward, 2 K4 launches a forward) and
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
-  6. times at B=1 and B=4096: each kernel, its plain version (the f32
+  6. times at B=1 and B=4096 (K1 also at 64 and 512, with which of its two
+     kernels served each): each kernel, its plain version (the f32
      precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
      chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K3: autograd through
      that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
      ``F.elu`` x4 and ``F.linear`` x3, both output formats), by CUDA events
      and by profiler device time, beside the bound the card allows; the
-     4-layer encoder stack; /predict p50 of the three services; the weight
+     rate of K3's tile kernel on the tensor cores; registers, stack and
+     spills of K1's and K3's kernels as ptxas reports them; the 4-layer
+     encoder stack; /predict p50 of the three services; the weight
      packing of a train step, a whole train step (``pallas`` and ``vpu``) and
      where its time goes;
   7. training at full width through the ``train`` command's wiring: a
@@ -69,6 +73,7 @@ import base64
 import contextlib
 import json
 import logging
+import re
 import shutil
 import statistics
 import subprocess
@@ -271,8 +276,12 @@ def phase_k4_vs_plain(torch, fg, seed: int) -> float:
 
 def phase_k1_vs_plain(torch, fm, seed: int) -> float:
     gen = torch.Generator().manual_seed(seed)
-    cases = [(b, FULL_DIMS, 'sigmoid') for b in (1, 37, 4096)]
-    cases += [(37, FULL_DIMS, a) for a in ('relu', 'tanh', 'gelu', 'elu')]
+    # both of K1's kernels, either side of the batch where the choice turns,
+    # odd batches (rows the tensor map of x cannot hold) and a ragged last tile
+    edge = fm.SMALL_BATCH_MAX
+    cases = [(b, FULL_DIMS, 'sigmoid') for b in (1, 2, 37, edge, edge + 1, 4096, 4099)]
+    cases += [(b, FULL_DIMS, a) for b in (37, edge + 37)
+              for a in ('relu', 'tanh', 'gelu', 'elu')]
     cases += [(37, [1770, 512, 512, 300], 'sigmoid'),      # all_frames head
               (37, [1770, 256, 256, 256, 30], 'sigmoid')]  # another depth
     worst = 0.0
@@ -287,7 +296,8 @@ def phase_k1_vs_plain(torch, fm, seed: int) -> float:
         _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
                f'bad output {tuple(out.shape)} for {dims}')
         err = float((out - ref).abs().max())
-        print(f'[kernel] K1 B={b} {"->".join(map(str, dims))} {act}: '
+        print(f'[kernel] K1 B={b} {"->".join(map(str, dims))} {act} '
+              f'({fm.plan_mlp(b, packed.pdims).kernel}-batch kernel): '
               f'max abs err {err:.3g} (atol {ATOL})', flush=True)
         _check(err <= ATOL, f'K1 disagrees with the plain version: {err}')
         worst = max(worst, err)
@@ -364,6 +374,19 @@ def phase_k3_vs_plain(torch, fe, seed: int) -> float:
         if (t, d, heads) == full:
             worst = max(worst, rel)
     return worst
+
+
+def _ptxas_report(log: str, needle: str) -> dict:
+    """What ``nvcc -Xptxas -v`` said of the kernels whose (mangled) name
+    contains ``needle``: registers, bytes of stack, spill stores and loads."""
+    out = {}
+    pattern = (r"Function properties for (\S+)\s+(\d+) bytes stack frame, (\d+) bytes spill "
+               r"stores, (\d+) bytes spill loads\s+ptxas info\s*: Used (\d+) registers")
+    for name, stack, stores, loads, regs in re.findall(pattern, log):
+        if needle in name:
+            out[name] = dict(registers=int(regs), stack_bytes=int(stack),
+                             spill_store_bytes=int(stores), spill_load_bytes=int(loads))
+    return out
 
 
 def _cuda_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
@@ -1251,8 +1274,9 @@ def main() -> int:
     packed = fm.pack_mlp_params(_random_params(torch, FULL_DIMS, gen), 'cuda')
     layers16 = [(W, b.to(torch.bfloat16)) for W, b in packed.layers]
     act = fm.ACTIVATIONS['sigmoid']
-    k1 = {}
-    for b in (1, 4096):
+    k1, k1_served = {}, {}
+    for b in (1, 64, 512, 4096):
+        k1_served[str(b)] = fm.plan_mlp(b, packed.pdims).kernel
         xt = torch.randn(b, FULL_DIMS[0], generator=gen).cuda()
         fns = {
             'kernel': lambda: fm.fused_mlp_forward(xt, packed, 'sigmoid'),  # noqa: B023
@@ -1264,8 +1288,8 @@ def main() -> int:
               f'{err16:.3g} (speed baseline only)', flush=True)
         ms, dev = _time_three(torch, fns)
         k1[b] = dict(ms=ms, dev=dev, bound=k1_bound(b, FULL_DIMS))
-        _print_times(card, 'K1 1770->512->512->30 sigmoid', b, ms, dev,
-                     'bf16 cuBLAS chain', k1[b]['bound'])
+        _print_times(card, f'K1 1770->512->512->30 sigmoid ({k1_served[str(b)]}-batch kernel)',
+                     b, ms, dev, 'bf16 cuBLAS chain', k1[b]['bound'])
 
     t, d, heads = ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads']
     m, n_layers = d * ENC_FULL['mlp_ratio'], ENC_FULL['layers']
@@ -1352,6 +1376,14 @@ def main() -> int:
         'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'))
     print('[times] K3 B=4096, profiler device time by launch: '
           + ', '.join(f'{k} {v:.1f} us' for k, v in k3_parts.items()), flush=True)
+    # the tile kernel's products: 40 d^2 operations a row (8 d^2 multiply-adds
+    # of recompute, 12 d^2 against transposed weights)
+    tile_us = k3_parts['encoder_bwd_tile_kernel']
+    k3_tile = dict(tflops=40.0 * d * d * 4096 * t / tile_us / 1e6,
+                   share_of_k3_bound=k3[4096]['bound'][0] * 1e3 / tile_us)
+    print(f'[times] K3 tile kernel B=4096: {k3_tile["tflops"]:.1f} TFLOP/s on the tensor '
+          f'cores ({40.0 * d * d * 4096 * t / 1e9:.1f} GFLOP), K3\'s bound is '
+          f'{k3_tile["share_of_k3_bound"]:.3f} of its time', flush=True)
     with torch.no_grad():
         f32_params = [tuple(q.float() for q in p.params) for p in stack]
         pack_ms = _cuda_ms(torch, lambda: [fe.pack_encoder_params(q, 'cuda', transposes=True)
@@ -1401,6 +1433,8 @@ def main() -> int:
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
               library='bf16 cuBLAS chain (3 addmm)', launches_per_forward=1,
+              served_by=k1_served, small_batch_max=fm.SMALL_BATCH_MAX,
+              ptxas=_ptxas_report(info['log'], 'fused_mlp_kernel'),
               predict_p50_ms={'1': ff_p50[0], '4096': ff_p50[1]}),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
@@ -1415,7 +1449,8 @@ def main() -> int:
                       'forward and backward',
               launches_per_layer=fe.BWD_LAUNCHES_PER_LAYER,
               launches_per_train_step=n_layers * fe.BWD_LAUNCHES_PER_LAYER,
-              device_us_by_launch=k3_parts, pack_ms_per_step=pack_ms,
+              device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
+              ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
               train=trained, train_step=steps),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',

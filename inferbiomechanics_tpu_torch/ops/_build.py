@@ -100,7 +100,7 @@ def build() -> dict:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     int_p = ctypes.POINTER(ctypes.c_int)
-    lib.ib_fused_mlp_forward.argtypes = [vp, i, i, vp, vp, int_p, i, vp, i, i, vp]
+    lib.ib_fused_mlp_forward.argtypes = [vp, i, i, vp, vp, int_p, i, vp, i, i, int_p, vp]
     lib.ib_fused_mlp_forward.restype = i
     lib.ib_fused_encoder_forward.argtypes = [vp, i, i, i, i, i, vp, vp, vp, vp]
     lib.ib_fused_encoder_forward.restype = i

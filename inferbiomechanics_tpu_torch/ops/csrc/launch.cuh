@@ -1,6 +1,7 @@
-// Host-side launch helper shared by the port's kernels.
+// Host-side launch helpers shared by the port's kernels.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -26,4 +27,63 @@ cudaError_t ensure_dynamic_smem(Kernel kernel, size_t bytes) {
     cap[dev] = bytes;
   }
   return cudaSuccess;
+}
+
+// Launch `kernel` as thread-block clusters of `cluster` blocks along x
+// (`grid` a multiple of it; 1 is an ordinary launch) with `smem` bytes of
+// dynamic shared memory on `stream`. Returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), unsigned grid, unsigned block,
+                           unsigned cluster, size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// A tensor map for TMA over a dense 2-D f32 array of `rows` rows of `cols`
+// floats (16-byte aligned, `cols` a multiple of 4), cut into boxes of
+// [box_rows, box_cols] that land dense in shared memory
+// (mma.cuh::tma_load_2d). The encoder, cuTensorMapEncodeTiled, lives in libcuda:
+// it is looked up at run time, so nothing links against that library.
+inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const float* data,
+                                      unsigned long long cols, unsigned long long rows,
+                                      unsigned box_cols, unsigned box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * sizeof(float)};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(data),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

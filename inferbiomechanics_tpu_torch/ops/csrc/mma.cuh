@@ -1,9 +1,16 @@
-// Tensor-core helpers shared by the port's kernels: ldmatrix and
-// mma.sync m16n8k16 on bf16 operands with f32 accumulators (sm_80 and later;
-// the kernels are built for sm_90a).
+// Device-side helpers shared by the port's kernels (built for sm_90a).
+//  - ldmatrix and mma.sync m16n8k16 on bf16 operands with f32 accumulators
+//    (sm_80 and later);
+//  - Hopper's own: mbarriers, bulk copies from device memory into shared
+//    memory that complete on an mbarrier, wgmma (operands in shared memory
+//    in the 128-byte-swizzled K-major layout, f32 accumulators in
+//    registers), and the cluster primitives (rank, barrier, bulk copies
+//    into another block's shared memory).
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
 
 // A fragment of mma.m16n8k16 (row-major 16x16 bf16) from shared memory. Lane
 // l points at row l % 16, columns (l / 16) * 8 .. + 7 of the tile.
@@ -31,4 +38,232 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a)
+// ---------------------------------------------------------------------------
+
+// The 32-bit shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers (8 bytes each in shared memory, addressed by smem_u32) ----
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+
+// After the last mbar_init and before any other thread, of this block or of
+// its cluster, touches the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// One arrival that also announces `bytes` of bulk copies to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// A wait that has spun this often can only be a deadlock: the kernel traps,
+// so that the launch fails instead of hanging the card.
+constexpr unsigned kMbarSpinLimit = 1u << 24;
+
+// Spin until the barrier's phase of this parity has completed. A new
+// barrier passes parity 1 at once and parity 0 after its first completion.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done, spins = 0;
+  // a phase that is complete already is seen fastest by a test that cannot block
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && ++spins > kMbarSpinLimit) __trap();
+  }
+}
+
+// ---- copies into shared memory ----
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this block's shared memory; completes on `bar` (see
+// mbar_arrive_expect_tx). One thread starts it.
+__device__ __forceinline__ void bulk_copy_g2s(unsigned dst, const void* src, unsigned bytes,
+                                              unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (launch.cuh::make_tensor_map_2d) at element
+// coordinates (c0 along the rows, c1 across them) into this block's shared
+// memory at `dst` (128-byte aligned), dense, rows of the box end to end;
+// what lies outside the tensor arrives as zeros. Completes on `bar` with the
+// whole box's bytes. One thread starts it.
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const void* tensor_map, int c0, int c1,
+                                            unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(tensor_map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Makes this thread's earlier writes to shared memory visible to the
+// asynchronous proxy, through which wgmma and bulk copies read. Before the
+// barrier that hands the data over.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- wgmma ----
+
+// Descriptor of a K-major bf16 operand tile in shared memory in the
+// 128-byte-swizzled layout: rows of 64 elements (128 bytes), groups of 8
+// rows 1024 bytes apart, the 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8); the tile starts at a multiple of 1024 bytes. Adding 2 to the
+// descriptor moves 16 elements (32 bytes) along K within the row.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(unsigned smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d (+)= A B for one warpgroup: A is 64 x 16 and B is 16 x kN, both bf16 in
+// shared memory behind descriptors, both K-major (B lies as [kN][K]); d is
+// the 64 x kN f32 accumulator, kN / 2 registers a thread: thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 and that + 8, and for each
+// 8-column block i the columns 8 i + 2 (t % 4) and + 1, as
+// d[4 i + 2 (row half) + (column)]. scale_d = 0 overwrites d.
+template <int kN>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+          "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Barrier over `threads` threads of the block (a multiple of 32), id 1..15.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The address, in the cluster's shared window, of this block's shared-memory
+// address `addr` in the block of rank `rank`.
+__device__ __forceinline__ unsigned cluster_map(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// `bytes` (a multiple of 16) from this block's shared memory to the same or
+// another block's, both given as by cluster_map; completes on the mbarrier
+// `cluster_bar` of the receiving block, which expects the bytes (see
+// mbar_arrive_expect_tx). The source must have been fenced for the
+// asynchronous proxy. One thread starts it.
+__device__ __forceinline__ void bulk_copy_s2c(unsigned cluster_dst, unsigned src, unsigned bytes,
+                                              unsigned cluster_bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(cluster_dst), "r"(src), "r"(bytes), "r"(cluster_bar)
+      : "memory");
 }

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from inferbiomechanics_tpu_torch.ops import _build
-from inferbiomechanics_tpu_torch.ops.fused_mlp import fragment_order
+from inferbiomechanics_tpu_torch.ops._layout import fragment_order
 
 # parameter order of the flat tuple interface
 PARAM_NAMES = ('ln1_scale', 'ln1_bias', 'wqkv', 'bqkv', 'wproj', 'bproj',
@@ -132,7 +132,7 @@ class PackedEncoderLayer:
     """One layer's parameters laid out once for the kernel.
 
     ``weights``: bf16, the four kernels in mma fragment order
-    (``fused_mlp.fragment_order``), end to end (Wqkv, Wproj, W1, W2);
+    (``_layout.fragment_order``), end to end (Wqkv, Wproj, W1, W2);
     ``rows``: f32, the eight vectors end to end (g1, b1, bqkv, bproj, g2,
     b2, bm1, bm2). ``params`` is the flat tuple (kernels bf16, vectors f32)
     for the plain version. ``weights_t``: the four transposes (Wqkv^T,

@@ -29,7 +29,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 import torch
 
 from inferbiomechanics_tpu_torch.ops import _build
-from inferbiomechanics_tpu_torch.ops.fused_mlp import fragment_order
+from inferbiomechanics_tpu_torch.ops._layout import fragment_order
 
 # the kernel's limits (see csrc/fused_groundlink.cu and check_kernel_shape)
 MAX_ROW_TILES = 4      # 16-row mma tiles a block owns: T <= 64
@@ -117,7 +117,7 @@ class PackedGroundlink:
     ``weights``: bf16, layer after layer (the convs, the hidden FC layers,
     the head), each padded to ``[taps * pwidths[l], pwidths[l + 1]]`` (a
     conv's rows tap-major) and laid out in mma fragment order
-    (``fused_mlp.fragment_order``); ``biases``: f32, padded, end to end, for
+    (``_layout.fragment_order``); ``biases``: f32, padded, end to end, for
     every layer but the head. Padding is zero. ``params`` holds the unpadded
     tree (kernels bf16, biases f32) for the plain version.
     """

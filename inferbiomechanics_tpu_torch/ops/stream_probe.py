@@ -1,0 +1,37 @@
+"""Measure how fast a block pulls weights from L2 into shared memory.
+
+    python -m inferbiomechanics_tpu_torch.ops.stream_probe
+
+Compiles ``csrc/probe/stream_probe.cu`` with nvcc into the build directory
+and runs it on the card: a ring of tiles behind mbarriers, filled by bulk
+copies (from one thread, or split over several) or by ``cp.async`` from
+every thread, over tile sizes and ring depths, with one block and with one
+block a multiprocessor. It prints the card's name and power limit and one
+JSON line a configuration (bytes a clock a multiprocessor, clocks a tile).
+The port's kernels stream their weights this way; the probe says what the
+ring alone allows them.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+from inferbiomechanics_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC_DIR / 'probe' / 'stream_probe.cu'
+
+
+def main() -> int:
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    binary = _build.BUILD_DIR / 'stream_probe'
+    flags = [f for f in _build.NVCC_FLAGS if f not in ('-Xcompiler', '-fPIC', '-Xptxas', '-v')]
+    subprocess.run([_build._nvcc(), *flags, '-o', str(binary), str(SOURCE)], check=True)
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True)
+    print(card.stdout.strip(), flush=True)
+    return subprocess.run([str(binary)]).returncode
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -28,14 +28,27 @@ def cuda():
     return torch.device('cuda')
 
 
+FULL = [1770, 512, 512, 30]
+EDGE = fm.SMALL_BATCH_MAX       # the largest batch of K1's small-batch kernel
+
+
 @pytest.mark.parametrize('batch,dims,activation', [
-    (1, [1770, 512, 512, 30], 'sigmoid'),
-    (33, [1770, 512, 512, 30], 'relu'),
-    (4096, [1770, 512, 512, 30], 'sigmoid'),
+    # both kernels, either side of the batch where the choice turns, full and
+    # ragged tiles, odd batches (rows the tensor map of x cannot hold)
+    *[(b, FULL, 'sigmoid') for b in (1, 2, 17, 63, 64, 65, EDGE - 1, EDGE, EDGE + 1,
+                                     4096, 4099)],
+    *[(b, FULL, a) for b in (33, EDGE + 33) for a in ('relu', 'tanh', 'gelu', 'elu')],
     (37, [1770, 512, 512, 300], 'gelu'),
-    (5, [708, 64, 48, 30], 'elu'),
+    (5, [708, 64, 48, 30], 'elu'),            # widths that 64 does not divide
+    (300, [708, 64, 48, 30], 'elu'),
     (70, [177, 256, 256, 256, 30], 'tanh'),
+    (300, [177, 256, 256, 256, 30], 'tanh'),
+    (9, [33, 30], 'relu'),                    # one layer, an odd input width
+    (250, [33, 30], 'relu'),
+    (3, [100] + [72] * 7 + [30], 'sigmoid'),  # eight layers
+    (260, [100] + [72] * 7 + [30], 'sigmoid'),
     (16, [2048, 1024, 1024], 'sigmoid'),      # the stated maximum widths
+    (200, [2048, 1024, 1024], 'sigmoid'),
 ])
 def test_fused_mlp_kernel_matches_plain(cuda, batch, dims, activation):
     gen = torch.Generator().manual_seed(batch)

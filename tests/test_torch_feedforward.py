@@ -102,7 +102,7 @@ def test_full_width_forward():
     model = get_model('feedforward', **full)
     model.load_state_dict(feedforward_state_dict_from_jax(params))
     got = model.eval()(torch.from_numpy(x))
-    assert model.packed().pdims == (1776, 512, 512, 32)
+    assert model.packed().pdims == (1792, 512, 512, 64)
     _assert_heads_close(got, want, ATOL_PALLAS)
 
 

@@ -23,7 +23,7 @@ import torch
 
 from inferbiomechanics_tpu.ops import pallas_encoder as jpe
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
-from inferbiomechanics_tpu_torch.ops.fused_mlp import fragment_order
+from inferbiomechanics_tpu_torch.ops._layout import fragment_order
 
 T, D, H = 10, 128, 4
 F32_TOL = dict(rtol=2e-4, atol=2e-5)

@@ -170,7 +170,7 @@ def test_malformed_trees_raise():
 
 def _unpack_layers(packed):
     """Padded ``[taps * K, N]`` weights and padded biases back out of the
-    packed buffers (the inverse of ``fused_mlp.fragment_order``, which
+    packed buffers (the inverse of ``_layout.fragment_order``, which
     tests/test_torch_fused_mlp.py holds to the PTX definition)."""
     flat = packed.weights.float().numpy()
     n_layers = packed.n_conv + packed.fc_depth

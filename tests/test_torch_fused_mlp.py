@@ -18,6 +18,7 @@ import torch
 
 from inferbiomechanics_tpu.ops import pallas_mlp as jax_mlp
 from inferbiomechanics_tpu_torch.ops import _build
+from inferbiomechanics_tpu_torch.ops import _layout as layout
 from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
 
 ACTS = ['relu', 'tanh', 'sigmoid', 'gelu', 'elu']
@@ -117,33 +118,32 @@ def test_fused_mlp_forward_rejects_other_devices():
 
 
 def test_kernel_shape_limits_raise():
-    fm.check_kernel_shape([1776, 512, 512, 32])        # the default model
-    for pdims, match in (([2064, 512, 32], 'inputs up to'),
-                         ([1776, 1040, 32], 'widths up to'),
+    fm.check_kernel_shape([1792, 512, 512, 64])        # the default model
+    for pdims, match in (([2112, 512, 64], 'inputs up to'),
+                         ([1792, 1088, 64], 'widths up to'),
                          ([64] * 10, 'layers')):
         with pytest.raises(ValueError, match=match):
             fm.check_kernel_shape(pdims)
 
 
 def _unpack_layers(packed):
-    """Padded [K, N] weights and biases back out of the packed buffers,
-    reading the fragment order from its definition in the PTX ISA (mma
-    m16n8k16 B fragment: register b_h of lane (g, c) holds k = 8 h + 2 c + e,
-    n = g), one element at a time."""
+    """Padded [K, N] weights and biases back out of the packed buffers by a
+    replay of the kernel's tile walk: the block that owns the 64 output
+    columns ``nb`` pulls, for K chunk ``kc``, the contiguous 64 x 64 tile
+    ``nb * (K / 64) + kc``, which wgmma reads as 64 rows (output columns) of
+    128 bytes, the 16-byte chunk ``c`` of row ``m`` stored at chunk
+    ``c ^ (m % 8)`` (the 128-byte swizzle), one element at a time."""
     flat = packed.weights.float().numpy()
     out, off_w, off_b = [], 0, 0
     for pk, pn in zip(packed.pdims[:-1], packed.pdims[1:]):
         w = np.full((pk, pn), np.nan, np.float32)
-        frag = flat[off_w:off_w + pk * pn].reshape(pn // 16, pk // 16, 32, 4, 2)
-        for nb in range(pn // 16):
-            for ks in range(pk // 16):
-                for lane in range(32):
-                    g, c = divmod(lane, 4)
-                    for j in range(2):          # n8 tile of the 16 columns
-                        for h in range(2):      # b0 / b1 register
-                            for e in range(2):  # low / high half
-                                w[16 * ks + 8 * h + 2 * c + e, 16 * nb + 8 * j + g] = \
-                                    frag[nb, ks, lane, 2 * j + h, e]
+        tiles = flat[off_w:off_w + pk * pn].reshape(pn // 64, pk // 64, 64, 8, 8)
+        for nb in range(pn // 64):
+            for kc in range(pk // 64):
+                for m in range(64):             # row of the tile: an output column
+                    for chunk in range(8):      # 16 bytes: 8 consecutive k
+                        w[64 * kc + 8 * chunk:64 * kc + 8 * chunk + 8, 64 * nb + m] = \
+                            tiles[nb, kc, m, chunk ^ (m % 8)]
         out.append((w, packed.biases[off_b:off_b + pn].numpy()))
         off_w += pk * pn
         off_b += pn
@@ -155,7 +155,7 @@ def test_pack_mlp_params_layout():
     params = _numpy_params(RAGGED_DIMS, seed=7)
     packed = fm.pack_mlp_params(_torch_params(params), 'cpu')
     assert packed.dims == tuple(RAGGED_DIMS)
-    assert packed.pdims == (720, 64, 48, 32)
+    assert packed.pdims == (768, 64, 64, 64)
     assert packed.weights.dtype == torch.bfloat16
     assert packed.biases.dtype == torch.float32
     for (W, b), (Wv, bv), (wp, bp), k, n in zip(
@@ -191,6 +191,98 @@ def test_zero_padding_is_exact(activation):
     want = chain(x, packed.layers)
     got = chain(xp, _unpack_layers(packed))[:, :RAGGED_DIMS[-1]]
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+def test_swizzled_offset_is_the_descriptor_s_layout():
+    """``swizzled_tiles`` places ``(row, k)`` of a tile where
+    ``swizzled_offset`` says, and that is a permutation of the tile."""
+    w = torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64)   # [K, N]
+    tile = layout.swizzled_tiles(w.bfloat16().float()).numpy()
+    seen = set()
+    for m in range(64):
+        for k in range(64):
+            off = layout.swizzled_offset(m, k)
+            assert tile[off] == w.bfloat16().float()[k, m]
+            seen.add(off)
+    assert seen == set(range(64 * 64))
+
+
+FULL_PDIMS = (1792, 512, 512, 64)
+PLAN_PDIMS = [FULL_PDIMS, (2048, 1024, 1024), (2048, 1024, 1024, 1024, 64), (64, 64),
+              (128,) + (128,) * 7 + (64,), (768, 64, 64, 64), (192, 256, 256, 256, 64)]
+
+
+@pytest.mark.parametrize('pdims', PLAN_PDIMS)
+@pytest.mark.parametrize('batch', [1, 2, 17, 63, 64, 65, fm.SMALL_BATCH_MAX - 1,
+                                   fm.SMALL_BATCH_MAX, fm.SMALL_BATCH_MAX + 1, 4096, 4099])
+def test_plan_mlp_picks_the_kernel_from_the_batch_and_fits_shared_memory(batch, pdims):
+    plan = fm.plan_mlp(batch, pdims)
+    assert plan == fm.plan_mlp(batch, list(pdims))            # a pure function
+    small = batch <= fm.SMALL_BATCH_MAX
+    assert plan.kernel == ('small' if small else 'large')
+    if small:
+        assert (plan.rows, plan.cluster) == (8, 8)
+        # all of x stays: the split of K over the warpgroups needs it
+        assert plan.units * plan.stage_cols >= pdims[0] and plan.stages == plan.units
+    else:
+        assert plan.rows == (64 if max(pdims[1:]) <= 512 else 32) and plan.cluster == 2
+        assert plan.stage_cols == 64
+    # a warpgroup's share of a layer's column blocks fits its accumulators
+    mine = max(-(-(n // 64) // plan.cluster) for n in pdims[1:])
+    assert (mine if small else -(-mine // 2)) <= {8: 2, 32: 4, 64: 2}[plan.rows]
+    # the buffers: 1024-aligned, in order, inside what a block may use
+    assert plan.smem_bytes <= fm.MAX_SMEM
+    assert fm._MIN_DEPTH <= plan.depth <= fm._MAX_DEPTH
+    hidden = list(pdims[1:-1])
+    sizes = {
+        'off_h0': plan.rows * 2 * max(hidden[0::2], default=0),
+        'off_h1': plan.rows * 2 * max(hidden[1::2], default=0),
+        'off_stage': plan.stages * plan.stage_bytes,
+        'off_panel': plan.units * plan.rows * plan.stage_cols * 2,
+        'off_ring': plan.depth * 8192,
+    }
+    # a staged chunk: 4 floats more a row than the chunk, and four 128-byte pads
+    assert plan.stage_bytes >= plan.rows * (plan.stage_cols + 4) * 4 + 512
+    spans = []
+    for name, size in sizes.items():
+        off = getattr(plan, name)
+        assert off % 1024 == 0 and off >= fm._BAR_BYTES
+        assert off + size + 1024 <= plan.smem_bytes             # 1024 to align the start
+        spans.append((off, off + size, name))
+    assert plan.off_red % 1024 == 0 and plan.off_panel < plan.off_red <= plan.off_ring
+    spans.sort()
+    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+        # only the staging of x may lie in the odd layers' buffer, which the
+        # first layer does not write
+        assert end <= start or {a, b} == {'off_h1', 'off_stage'}, (a, b)
+
+
+def test_plan_mlp_raises_for_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match='inputs up to'):
+        fm.plan_mlp(1, (2112, 512, 64))
+    with pytest.raises(ValueError, match='layers'):
+        fm.plan_mlp(4096, (64,) * 10)
+
+
+@pytest.mark.parametrize('cluster', [2, 8])
+@pytest.mark.parametrize('pdims', [FULL_PDIMS, (2048, 1024, 1024), (64, 64)])
+def test_cluster_ranks_pull_every_weight_tile_once(pdims, cluster):
+    """The producer's walk (layer, K chunk, owned column block) of every
+    rank of a cluster, replayed: together the ranks pull each 64 x 64 tile
+    of every layer exactly once, and a rank's sequence numbers, by which its
+    consumers find a tile in the ring, are consecutive."""
+    for k, n in zip(pdims[:-1], pdims[1:]):
+        nk, nb = k // 64, n // 64
+        pulled = []
+        for rank in range(cluster):
+            mine = (nb - rank + cluster - 1) // cluster if rank < nb else 0
+            seq = []
+            for kc in range(nk):
+                for b in range(mine):
+                    pulled.append((rank + b * cluster) * nk + kc)     # tile index
+                    seq.append(kc * mine + b)
+            assert seq == list(range(nk * mine))
+        assert sorted(pulled) == list(range(nk * nb))
 
 
 def test_kernel_library_is_rebuilt_when_its_inputs_change(tmp_path, monkeypatch):
