@@ -10,7 +10,10 @@ Phases, each of which fails the run:
      with nvcc;
   3. each kernel against its plain PyTorch version on the card: K1 at 17
      cases (atol 1e-2; both of its kernels, either side of the batch where
-     the choice turns, odd batches), K2 at five (rtol = atol = 1e-2), K4 at seven (2e-2 x
+     the choice turns, odd batches), K2 at ten, each through both of its
+     shapes (small: a cluster splits the columns; large: one block a row
+     tile), at full width either side of the threshold (rtol = atol = 1e-2),
+     K4 at seven (2e-2 x
      max|plain|), K3 at seven (dx and each of the 12 gradients within 2e-2 x
      that tensor's max|plain|, and two calls bitwise equal), with random
      biases and LayerNorm rows;
@@ -38,7 +41,7 @@ Phases, each of which fails the run:
      (the symmetrized plain forward, 2 K4 launches a forward) and
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096 (K1 also at 64 and 512, with which of its two
-     kernels served each): each kernel, its plain version (the f32
+     kernels served each; K2 with which of its shapes): each kernel, its plain version (the f32
      precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
      chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K3: autograd through
      that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
@@ -304,32 +307,47 @@ def phase_k1_vs_plain(torch, fm, seed: int) -> float:
     return worst
 
 
-def phase_k2_vs_plain(torch, fe, seed: int) -> float:
+def phase_k2_vs_plain(torch, fe, seed: int):
+    """K2's two shapes against the plain version: at full width either side
+    of the plan's threshold as the plan picks, and every case through the
+    other shape as well (the threshold moved); returns the worst error and
+    the shape that served each case."""
     gen = torch.Generator().manual_seed(seed)
     full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
-    cases = [(b, *full) for b in (1, 37, 4096)]
+    edge = fe.SMALL_BATCH_MAX
+    cases = [(b, *full) for b in (1, 2, 5, 37, edge, edge + 1, 4096, 4099)]
     cases += [(37, 4, 128, 4),         # the small test shape
               (37, 10, 384, 8)]        # 48-wide heads, two row tiles a block
-    worst = 0.0
+    worst, served = 0.0, {}
     for b, t, d, heads in cases:
         packed = fe.pack_encoder_params(
             _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda')
         x = torch.randn(b, t, d, generator=gen).cuda()
-        before = fe.launches
-        out = fe.fused_encoder_layer(x, packed, heads)
-        _check(fe.launches == before + 1, 'launch counter did not rise')
         ref = fe.encoder_layer_reference(x, packed.params, heads)
-        torch.cuda.synchronize()
-        _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
-               f'bad output {tuple(out.shape)}')
-        err = float((out - ref).abs().max())
-        excess = float(((out - ref).abs() - ENC_TOL * ref.abs()).max())
-        print(f'[kernel] K2 B={b} T={t} d={d} H={heads}: max abs err {err:.3g}, '
-              f'max |ref| {float(ref.abs().max()):.3g} (rtol = atol = {ENC_TOL})',
-              flush=True)
-        _check(excess <= ENC_TOL, f'K2 disagrees with the plain version: {err}')
-        worst = max(worst, err)
-    return worst
+        planned = fe.plan_encoder(b, t, d, packed.mlp_dim, heads).shape
+        for shape in (planned, 'large' if planned == 'small' else 'small'):
+            if shape == 'small' and fe.small_cluster(d, heads) == 1:
+                continue
+            fe.SMALL_BATCH_MAX = edge if shape == planned else (1 << 30 if shape == 'small' else 0)
+            before, shapes_before = fe.launches, dict(fe.shape_launches)
+            out = fe.fused_encoder_layer(x, packed, heads)
+            fe.SMALL_BATCH_MAX = edge
+            _check(fe.launches == before + 1 and
+                   fe.shape_launches[shape] == shapes_before[shape] + 1,
+                   f'launch counters did not rise for the {shape} shape')
+            torch.cuda.synchronize()
+            _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                   f'bad output {tuple(out.shape)}')
+            err = float((out - ref).abs().max())
+            excess = float(((out - ref).abs() - ENC_TOL * ref.abs()).max())
+            how = 'as planned' if shape == planned else 'threshold moved'
+            print(f'[kernel] K2 B={b} T={t} d={d} H={heads} ({shape} shape, {how}): max abs '
+                  f'err {err:.3g}, max |ref| {float(ref.abs().max()):.3g} (rtol = atol = '
+                  f'{ENC_TOL})', flush=True)
+            _check(excess <= ENC_TOL, f'K2 disagrees with the plain version: {err}')
+            worst = max(worst, err)
+            served.setdefault(f'B={b} T={t} d={d} H={heads}', []).append(shape)
+    return worst, served
 
 
 def phase_k3_vs_plain(torch, fe, seed: int) -> float:
@@ -459,30 +477,6 @@ def _bf16_chain(torch, x, layers, act):
         if i < len(layers) - 1:
             h = act(h)
     return h.float()
-
-
-def _library_encoder_layer(torch, params, d, heads, m):
-    """K2's speed baseline, not the precision reference: PyTorch's own
-    encoder layer in bf16 on the same weights (pre-LN, tanh GELU, eps 1e-6;
-    its ``in_proj`` columns are ``[q | k | v]`` too)."""
-    from torch import nn
-    import torch.nn.functional as F
-    layer = nn.TransformerEncoderLayer(
-        d, heads, m, dropout=0.0, activation=lambda v: F.gelu(v, approximate='tanh'),
-        layer_norm_eps=1e-6, batch_first=True, norm_first=True)
-    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
-        p.float() for p in params)
-    with torch.no_grad():
-        for dst, src in ((layer.norm1.weight, g1), (layer.norm1.bias, b1),
-                         (layer.self_attn.in_proj_weight, wqkv.t()),
-                         (layer.self_attn.in_proj_bias, bqkv),
-                         (layer.self_attn.out_proj.weight, wproj.t()),
-                         (layer.self_attn.out_proj.bias, bproj),
-                         (layer.norm2.weight, g2), (layer.norm2.bias, b2),
-                         (layer.linear1.weight, w1.t()), (layer.linear1.bias, bm1),
-                         (layer.linear2.weight, w2.t()), (layer.linear2.bias, bm2)):
-            dst.copy_(src)
-    return layer.to(device='cuda', dtype=torch.bfloat16).eval()
 
 
 def _library_groundlink(torch, params, fc_depth):
@@ -1100,6 +1094,7 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
     from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
     from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.ops.tune import library_encoder_layer
     from inferbiomechanics_tpu_torch.train.augment import mirror_outputs, spec_from_dataset
     from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
     from inferbiomechanics_tpu_torch.train.checkpoint import (
@@ -1123,7 +1118,7 @@ def main() -> int:
 
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
-    k2_err = phase_k2_vs_plain(torch, fe, args.seed)
+    k2_err, k2_checked = phase_k2_vs_plain(torch, fe, args.seed)
     k4_err = phase_k4_vs_plain(torch, fg, args.seed)
     k3_err = phase_k3_vs_plain(torch, fe, args.seed)
 
@@ -1296,8 +1291,8 @@ def main() -> int:
     stack = [fe.pack_encoder_params(
         _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda')
         for _ in range(n_layers)]
-    lib_stack = [_library_encoder_layer(torch, p.params, d, heads, m) for p in stack]
-    k2, k2_stack, fwd = {}, {}, {}
+    lib_stack = [library_encoder_layer(p.params, d, heads, m) for p in stack]
+    k2, k2_stack, fwd, k2_served = {}, {}, {}, {}
 
     def run_stack(x, layer_fn):
         for i in range(n_layers):
@@ -1307,6 +1302,7 @@ def main() -> int:
     with torch.no_grad():
         for b in (1, 4096):
             xt = torch.randn(b, t, d, generator=gen).cuda()
+            k2_served[str(b)] = fe.plan_encoder(b, t, d, m, heads).shape
             fns = {
                 'kernel': lambda: fe.fused_encoder_layer(xt, stack[0], heads),  # noqa: B023
                 'plain': lambda: fe.encoder_layer_reference(xt, stack[0].params, heads),  # noqa: B023
@@ -1317,7 +1313,7 @@ def main() -> int:
                   f'plain {err16:.3g} (speed baseline only)', flush=True)
             ms, dev = _time_three(torch, fns)
             k2[b] = dict(ms=ms, dev=dev, bound=k2_bound(b, t, d, m))
-            _print_times(card, 'K2 one layer T=10 d=256 H=8', b, ms, dev,
+            _print_times(card, f'K2 one layer T=10 d=256 H=8 ({k2_served[str(b)]} shape)', b, ms, dev,
                          'nn.TransformerEncoderLayer bf16', k2[b]['bound'])
             fns = {
                 'kernel': lambda: run_stack(  # noqa: B023
@@ -1441,7 +1437,10 @@ def main() -> int:
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
               forward_ms={str(b): v for b, v in fwd.items()},
               predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]},
-              train_launches=trained['k2_launches']),
+              train_launches=trained['k2_launches'],
+              small_batch_max=fe.SMALL_BATCH_MAX, served_by=k2_served,
+              checked_shapes=k2_checked,
+              ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel')),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,

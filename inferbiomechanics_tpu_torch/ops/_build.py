@@ -102,7 +102,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     int_p = ctypes.POINTER(ctypes.c_int)
     lib.ib_fused_mlp_forward.argtypes = [vp, i, i, vp, vp, int_p, i, vp, i, i, int_p, vp]
     lib.ib_fused_mlp_forward.restype = i
-    lib.ib_fused_encoder_forward.argtypes = [vp, i, i, i, i, i, vp, vp, vp, vp]
+    lib.ib_fused_encoder_forward.argtypes = [vp, i, i, i, i, i, vp, vp, vp, int_p, i, vp, vp]
     lib.ib_fused_encoder_forward.restype = i
     lib.ib_fused_encoder_backward.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp, vp,
                                               vp, vp, vp, vp, i, i, i, vp]

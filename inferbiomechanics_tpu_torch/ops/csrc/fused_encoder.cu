@@ -17,82 +17,113 @@
 //   u   = bf16(gelu_tanh(y @ W1 + bm1))
 //   out = h + u @ W2 + bm2
 //
-// Design. One block owns a tile of whole windows (attention mixes only the T
-// rows of one window): `windows` = floor(16 * row_tiles / T) of them, where
-// row_tiles (1..3 mma row tiles of 16) is the most that fits the 227 KB of
-// shared memory a block may use; at d = 256, T = 10 that is 4 windows, 40
-// rows padded to 48. Padding rows and windows past the batch hold zeros,
-// run through the same arithmetic (finite everywhere) and are never stored.
-// The tile's f32 residual stream, its f32 q/k/v, and one bf16 operand buffer
-// live in shared memory from the load of x to the store of out, so no
-// intermediate touches device memory. The MLP hidden (bf16, 4d wide) takes
-// over the q/k/v space once attention is done. The four weight matrices do
-// not fit beside them (1.5 MiB at d = 256), so they stream from L2 straight
-// into registers: pack_encoder_params lays each out in mma.sync fragment
-// order (one coalesced 16-byte load a lane for a 16-column block and k-step),
-// and each warp keeps kDepth such loads in flight. Each warp owns 16-column
-// blocks of a product's output for all row tiles; warps share nothing within
-// a product, so there is one barrier between stages.
+// What bounds it on an H100 (d = 256, T = 10, 4d MLP): not the tensor cores
+// (15.7 MFLOP a window) but the weights, 1.5 MiB of bf16 that every row tile
+// streams from L2 into registers (pack_encoder_params lays each matrix out in
+// mma.sync fragment order: one coalesced 16-byte load a lane for a 16-column
+// block and k-step) at the few tens of bytes a clock one multiprocessor
+// reaches, and for one window the chain of dependent phases around them.
 //
-// The attention core is T x T dot products of length dh per window and head,
-// in f32 from shared memory: one thread per (window, head, query frame),
-// query frames fastest, so that the lanes of a warp that share a window and
-// head read the same k and v addresses (a broadcast); the column order is
-// rotated per head to spread the heads over the banks. T = 10 and T = 4 keep
-// the scores in registers (the loops over frames unroll); any other T up to
-// kMaxT takes the same code with the scores in local memory.
+// One kernel body, two shapes of launch (fused_encoder.py::plan_encoder picks
+// from the shape alone):
 //
-// What bounds it on an H100, d = 256, T = 10, 4d MLP:
-//  - B = 4096 (1024 blocks): 15.7 MFLOP a window on the tensor cores, 64 GFLOP
-//    in all, while each block streams all 1.5 MiB of weights from L2, 1.5 GiB
-//    of L2 traffic in all. Larger row tiles (which needs q/k/v head by head
-//    and the MLP hidden in column chunks), TMA multicast of weights across a
-//    cluster and wgmma are the later steps.
-//  - small batch (B <= 4 is one block): the weights streamed through a single
-//    SM. Splitting a product's columns over the blocks of a cluster is the
-//    next step for latency.
+//  small (kSplit): a cluster of C blocks (8 at d = 256, H = 8) shares a row
+//    tile of whole windows, 1..3 mma row tiles of 16 rows, as few as the
+//    batch needs (one window: one row tile, an instantiation of its own).
+//    Every block owns 1/C of every product's output columns and streams only
+//    their weights (192 KB at d = 256): whole heads of q/k/v (the columns
+//    [q | k | v] are head-major, so a head's are three runs of dh), so that
+//    attention stays in the block, and d/C columns of the projection and of
+//    W2, m/C of W1. Each product's first weights are asked for before the
+//    phase ahead of it. What the others need -- the attention output a, the
+//    residual h and the MLP hidden u -- a block hands over with one bulk copy
+//    a row and block from its shared memory into theirs, which completes on
+//    an mbarrier of the receiver (one for each of a, h and u, expecting its
+//    bytes from the start); LN2 runs on full rows in every block, and each
+//    block stores its own columns of the output.
+//
+//  large (!kSplit): the same body with C = 1: one block a row tile of up to
+//    3 row tiles (48 rows at d = 256: 4 windows of 10 frames) and all the
+//    columns; the f32 q/k/v of all heads [rows, 3d] is what caps the tile,
+//    so the attention output takes the LayerNorm output's place and the MLP
+//    hidden the q/k/v's. (An 80-row tile with q/k/v a head at a time and the
+//    MLP a chunk of hidden columns at a time was slower: PERF.md.)
+//
+// Products (both shapes): each warp owns 16-column blocks of a product's
+// output for all row tiles, its weight loads kDepth k-steps ahead in
+// registers. In the small shape, where a product has fewer column blocks
+// than warps, the warps split its K steps as well; the partial sums meet in
+// shared memory, where all the block's threads add them and run the
+// epilogue. The f32 rows (LayerNorm's, and the biases where there is room)
+// are staged in shared memory with x. The attention core is T x T dot
+// products of length dh per window and head, in f32 from shared memory, a
+// few lanes a (window, head, query frame) where there are fewer of those than
+// threads; T = 10 and T = 4 keep the scores in registers, any other T up to
+// kMaxT takes the same code with the scores in local memory. Padding rows
+// and windows past the batch hold zeros, run through the same arithmetic
+// (finite everywhere) and are never stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 #include "launch.cuh"
 #include "mma.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxRowTiles = 3;     // 16-row mma tiles a block may own
-constexpr int kDepth = 8;           // weight k-steps in flight per warp
 constexpr int kPad = 8;             // elements added to every shared-memory row
-constexpr int kMaxT = 48;           // frames per window (= 16 * kMaxRowTiles)
+constexpr int kMaxT = 48;           // frames per window
 constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
+constexpr int kMaxCluster = 8;
+constexpr int kRowTiles = 3;        // 16-row mma tiles a row tile holds at most
 constexpr float kLnEps = 1e-6f;
 
-struct FusedEncoderTag {};          // keys this kernel's shared-memory cap (launch.cuh)
-
-struct EncShape {
+// What fused_encoder.py::plan_encoder decides (EncoderPlan.as_ints, in this
+// order after the shape). Strides are in elements, offsets in bytes from the
+// start of the block's shared memory, where the f32 residual [rows][d + 8]
+// lies; the LayerNorm output and the attention output are bf16 [rows][d + 8].
+struct EncPlan {
   int batch, t, d, m, heads;
-  int row_tiles;                    // 16-row mma tiles per block
-  int windows;                      // whole windows per block
-  int ld_r, ld_q, ld_h, ld_a;       // row strides: resid f32, qkv f32, hidden bf16, operand bf16
-  int big_bytes;                    // bytes of the q/k/v space (the hidden aliases it)
-  float q_scale;                    // dh^-0.5
+  int cluster;        // blocks that share a row tile: C (small), 1 (large)
+  int row_tiles;      // 16-row mma tiles of the row tile
+  int windows;        // whole windows a row tile
+  int ld_q, ld_u;     // strides of this block's q/k/v (f32) and of the MLP hidden (bf16)
+  int off_y, off_a, off_q, off_u, off_s;   // LN out, attention out, q/k/v, hidden, scratch
+  int scratch_floats; // room for partial sums of products split along K
+  int off_v;          // the f32 rows staged: LayerNorm's (4 d), then the biases (5 d + m)
+  int off_b;          // three mbarriers (small)
+  int staged;         // 0: none (read from device memory), 1: LayerNorm's, 2: all
+  float q_scale;      // dh^-0.5
 };
 
+// Phases that the cycle counters time (ib_fused_encoder_forward's `clocks`):
+// stage x and LN1, q/k/v, attention, the exchange of a, projection, the
+// exchange of h, LN2, W1, the exchange of u, W2.
+constexpr int kPhases = 10;
+
+template <int kRows, bool kSplit>
+struct FusedEncoderTag {};          // keys a kernel's shared-memory cap (launch.cuh)
+
+// tanh from the fast exponential: exact limits at both ends, an absolute
+// error near 1e-7, far below the bf16 rounding that follows.
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-  return 0.5f * v * (1.f + tanhf(u));
+  return 0.5f * v * (2.f - __fdividef(2.f, 1.f + __expf(2.f * u)));
 }
 
 // LayerNorm of every row of src (f32, stride ld_src) into dst as bf16: one
-// warp per row, mean and biased variance in f32, two passes over the row.
+// warp per row, mean and biased variance in f32, two passes over the row;
+// scale and bias lie in shared memory.
 __device__ __forceinline__ void layernorm_rows(const float* src, int ld_src, int rows, int d,
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ bias,
-                                               __nv_bfloat16* dst, int ld_dst) {
+                                               const float* scale, const float* bias, bf16* dst,
+                                               int ld_dst) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float inv_d = 1.f / static_cast<float>(d);
@@ -111,102 +142,215 @@ __device__ __forceinline__ void layernorm_rows(const float* src, int ld_src, int
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
     const float rs = rsqrtf(sq * inv_d + kLnEps);
-    __nv_bfloat16* y = dst + r * ld_dst;
+    bf16* y = dst + r * ld_dst;
     for (int i = lane; i < d; i += 32) {
-      y[i] = __float2bfloat16((x[i] - mean) * rs * __ldg(scale + i) + __ldg(bias + i));
+      y[i] = __float2bfloat16((x[i] - mean) * rs * scale[i] + bias[i]);
     }
   }
 }
 
-// One product of the layer for the block's row tiles: a [16 * row_tiles, k]
-// bf16 in shared memory (stride lda) times w [k, n], packed in fragment
-// order [n / 16][k / 16][32 lanes] x 16 bytes. k is a multiple of
-// 16 * kDepth and n of 16. epi(row, col, v0, v1) receives every pair of
-// neighbouring sums (col even) exactly once.
-template <typename Epilogue>
-__device__ __forceinline__ void product(const __nv_bfloat16* a, int lda, int row_tiles,
-                                        const __nv_bfloat16* __restrict__ w, int k, int n,
-                                        Epilogue epi) {
+// The 16-column blocks of a product's output that a block computes: block j
+// of them is global block base + (j / run) * stride + j % run (runs of `run`
+// consecutive blocks, `stride` apart: a group of heads' q, k and v columns).
+struct Cols {
+  int n, run, stride, base;
+  __device__ __forceinline__ int block(int j) const {
+    return base + (j / run) * stride + j % run;
+  }
+};
+
+// The weights of one product: w [16 nk, n], packed in fragment order
+// [n / 16][nk][32 lanes] x 16 bytes, for the column blocks `cols`.
+struct Weights {
+  const bf16* w;
+  int nk;
+  Cols cols;
+};
+
+// How a product's work falls to the warps, the same in every thread: where
+// there are fewer column blocks than warps, the warps also split the k-steps
+// (a power of two that divides nk, as far as the scratch holds every part's
+// partial sums). Warp i takes items i, i + kWarps, ...; item = part * n + j.
+__device__ __forceinline__ int split_of(const Weights& wt, int row_tiles, int scratch_floats) {
+  int split = 1;
+  while (2 * split * wt.cols.n <= kWarps && wt.nk % (2 * split) == 0 &&
+         2 * split * wt.cols.n * row_tiles * 256 <= scratch_floats) {
+    split *= 2;
+  }
+  return split;
+}
+
+// This lane's first weight load of an item.
+__device__ __forceinline__ const uint4* item_weights(const Weights& wt, int split, int item) {
+  const int j = item % wt.cols.n;
+  const int part = item / wt.cols.n;
+  return reinterpret_cast<const uint4*>(wt.w) +
+         (static_cast<long long>(wt.cols.block(j)) * wt.nk + part * (wt.nk / split)) * 32 +
+         (threadIdx.x & 31);
+}
+
+// Ask for the first kDepth k-steps of this warp's first item of a product,
+// ahead of it: the loads need no activation, so they fly while the block
+// does the work before the product.
+template <int kDepth>
+__device__ __forceinline__ void prefetch(uint4 (&ring)[kDepth], const Weights& wt, int row_tiles,
+                                         int scratch_floats) {
+  const int split = split_of(wt, row_tiles, scratch_floats);
+  const int warp = threadIdx.x >> 5;
+  if (warp < wt.cols.n * split) {
+    const uint4* wp = item_weights(wt, split, warp);
+    const int part_nk = wt.nk / split;
+#pragma unroll
+    for (int dd = 0; dd < kDepth; ++dd) {
+      if (dd < part_nk) ring[dd] = __ldg(wp + dd * 32);
+    }
+  }
+}
+
+// One product for the block's row tiles: a [16 * row_tiles, 16 * nk] bf16 in
+// shared memory (stride lda) times the weights `wt`; with `prefetched`,
+// `ring` holds the first k-steps already (prefetch, same arguments).
+// epi(row, global col, v0, v1) receives every pair of neighbouring sums (col
+// even) exactly once. With a split along K, every part stores its partial
+// sums in the scratch and, after a barrier, all the block's threads add them
+// up and run the epilogue, a pair each (kMaySplit; without it no product
+// splits). Every thread of the block calls it.
+template <int kRT, bool kMaySplit, int kDepth, typename Epilogue>
+__device__ __forceinline__ void product(const bf16* a, int lda, int row_tiles, const Weights& wt,
+                                        uint4 (&ring)[kDepth], bool prefetched, float* scratch,
+                                        int scratch_floats, Epilogue epi) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;           // fragment row group
   const int c = lane & 3;            // fragment column pair
-  const int nk = k / 16;
-  const int n_blocks = n / 16;
-  const uint4* wl = reinterpret_cast<const uint4*>(w);
+  const Cols cols = wt.cols;
+  const int split = kMaySplit ? split_of(wt, row_tiles, scratch_floats) : 1;
+  const int part_nk = wt.nk / split;
   // this lane's ldmatrix row pointer into the first row tile
-  const __nv_bfloat16* a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const bf16* a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
+  float acc[kRT][2][4];              // [row tile][n8 tile][fragment]
 
-  for (int nb = warp; nb < n_blocks; nb += kWarps) {
-    float acc[kMaxRowTiles][2][4] = {};   // [row tile][n8 tile][fragment]
-    const uint4* wp = wl + static_cast<long long>(nb) * nk * 32 + lane;
-    uint4 ring[kDepth];
+  for (int item = warp; item < cols.n * split; item += kWarps) {
+    const int j = item % cols.n;
+    const int part = item / cols.n;
+    const uint4* wp = item_weights(wt, split, item);
+    const bf16* ap = a0 + 16 * part * part_nk;
 #pragma unroll
-    for (int dd = 0; dd < kDepth; ++dd) ring[dd] = __ldg(wp + dd * 32);
-    for (int kb = 0; kb < nk; kb += kDepth) {
+    for (int rt = 0; rt < kRT; ++rt) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[rt][e >> 2][e & 3] = 0.f;
+    }
+    if (!prefetched || item != warp) {
+#pragma unroll
+      for (int dd = 0; dd < kDepth; ++dd) {
+        if (dd < part_nk) ring[dd] = __ldg(wp + dd * 32);
+      }
+    }
+    for (int kb = 0; kb < part_nk; kb += kDepth) {
 #pragma unroll
       for (int dd = 0; dd < kDepth; ++dd) {
         const int ks = kb + dd;
-        const uint4 b = ring[dd];
-        if (ks + kDepth < nk) ring[dd] = __ldg(wp + (ks + kDepth) * 32);
+        if (ks < part_nk) {
+          const uint4 b = ring[dd];
+          if (ks + kDepth < part_nk) ring[dd] = __ldg(wp + (ks + kDepth) * 32);
 #pragma unroll
-        for (int rt = 0; rt < kMaxRowTiles; ++rt) {
-          if (rt < row_tiles) {      // the same for every thread of the block
-            unsigned af[4];
-            ldmatrix_x4(af, a0 + rt * 16 * lda + 16 * ks);
-            mma_bf16(acc[rt][0], af, b.x, b.y);
-            mma_bf16(acc[rt][1], af, b.z, b.w);
+          for (int rt = 0; rt < kRT; ++rt) {
+            if (rt < row_tiles) {      // the same for every thread of the block
+              unsigned af[4];
+              ldmatrix_x4(af, ap + rt * 16 * lda + 16 * ks);
+              mma_bf16(acc[rt][0], af, b.x, b.y);
+              mma_bf16(acc[rt][1], af, b.z, b.w);
+            }
           }
         }
       }
     }
+    const int nb = cols.block(j);
 #pragma unroll
-    for (int rt = 0; rt < kMaxRowTiles; ++rt) {
+    for (int rt = 0; rt < kRT; ++rt) {
       if (rt < row_tiles) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int jj = 0; jj < 2; ++jj) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            epi(16 * rt + g + 8 * h, nb * 16 + 8 * j + 2 * c, acc[rt][j][2 * h],
-                acc[rt][j][2 * h + 1]);
+            if (!kMaySplit || split == 1) {
+              epi(16 * rt + g + 8 * h, 16 * nb + 8 * jj + 2 * c, acc[rt][jj][2 * h],
+                  acc[rt][jj][2 * h + 1]);
+            } else {
+              // partial sums as pairs: [part][j][row tile][row][column pair]
+              *reinterpret_cast<float2*>(
+                  scratch + (((part * cols.n + j) * row_tiles + rt) * 16 + g + 8 * h) * 16 +
+                  8 * jj + 2 * c) = make_float2(acc[rt][jj][2 * h], acc[rt][jj][2 * h + 1]);
+            }
           }
         }
       }
     }
   }
+  if (kMaySplit && split > 1) {
+    __syncthreads();
+    const int pairs = cols.n * row_tiles * 16 * 8;
+    const int per_part = pairs * 2;
+    for (int i = threadIdx.x; i < pairs; i += kThreads) {
+      const int cp = i & 7;          // column pair of the block's 16
+      const int r = (i >> 3) % (16 * row_tiles);
+      const int j = (i >> 3) / (16 * row_tiles);
+      const float* src = scratch + ((j * row_tiles * 16 + r) * 8 + cp) * 2;
+      float2 v = *reinterpret_cast<const float2*>(src);
+      for (int part = 1; part < split; ++part) {
+        const float2 q = *reinterpret_cast<const float2*>(src + part * per_part);
+        v.x += q.x;
+        v.y += q.y;
+      }
+      epi(r, 16 * cols.block(j) + 2 * cp, v.x, v.y);
+    }
+  }
 }
 
-// Softmax attention within each window of the tile, per head, in f32. qkv
-// holds [q * dh^-0.5 | k | v] per row; the mix goes to dst as bf16. kT > 0
-// fixes the frame count at compile time (scores in registers); kT == 0 takes
-// it from t_rt.
+// Softmax attention within each window of the row tile for a group of gh
+// heads, in f32: qkv holds [q * dh^-0.5 | k | v] of the group per row, each
+// gh * dh wide; the mix of head hh goes, as bf16, to columns (h0 + hh) dh ..
+// of dst. `sub` lanes take a (window, head, query frame), each a slice of dh,
+// and add their partial scores by shuffles. kT > 0 fixes the frame count at
+// compile time (scores in registers); kT == 0 takes it from t_rt.
 template <int kT>
-__device__ __forceinline__ void attention(const float* qkv, int ld_q, __nv_bfloat16* dst,
-                                          int ld_dst, int t_rt, int d, int heads, int windows) {
+__device__ __forceinline__ void attention(const float* qkv, int ld_q, int t_rt, int dh, int gh,
+                                          int windows, bf16* dst, int ld_dst, int h0) {
   const int t = kT > 0 ? kT : t_rt;
-  const int dh = d / heads;
-  const int items = windows * heads * t;
-  for (int it = threadIdx.x; it < items; it += kThreads) {
+  const int gw = gh * dh;
+  const int items = windows * gh * t;
+  int sub = 8;                               // lanes an item: all the block's threads in one round
+  while (sub > 1 && (dh % (2 * sub) != 0 || items * sub > kThreads)) sub >>= 1;
+  const int total = items * sub;
+  const int rounds = (total + kThreads - 1) / kThreads;
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < total;
+    const int it = active ? tid / sub : 0;   // lanes past the end shadow item 0
+    const int sl = tid % sub;
     const int tq = it % t;
     const int wh = it / t;
-    const int h = wh % heads;
-    const int row0 = (wh / heads) * t;            // the window's first row in the tile
-    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + d + h * dh;
-    const float* vw = kw + d;
-    const int skew = (8 * h) % dh;                // even; spreads the heads over the banks
+    const int hh = wh % gh;
+    const int row0 = (wh / gh) * t;          // the window's first row in the tile
+    const float* q = qkv + (row0 + tq) * ld_q + hh * dh;
+    const float* kw = qkv + row0 * ld_q + gw + hh * dh;
+    const float* vw = kw + gw;
+    const int skew = (8 * hh) % dh;          // even; spreads the heads over the banks
     float p[kT > 0 ? kT : kMaxT];
 #pragma unroll
     for (int j = 0; j < t; ++j) p[j] = 0.f;
-    for (int ii = 0; ii < dh; ii += 2) {
-      int i = ii + skew;
-      if (i >= dh) i -= dh;
+    for (int ii = 2 * sl; ii < dh; ii += 2 * sub) {
+      const int i = ii + skew < dh ? ii + skew : ii + skew - dh;
       const float2 qi = *reinterpret_cast<const float2*>(q + i);
 #pragma unroll
       for (int j = 0; j < t; ++j) {
         const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
         p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
       }
+    }
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      for (int o = sub >> 1; o > 0; o >>= 1) p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
     }
     float mx = p[0];
 #pragma unroll
@@ -218,10 +362,9 @@ __device__ __forceinline__ void attention(const float* qkv, int ld_q, __nv_bfloa
       z += p[j];
     }
     const float inv_z = 1.f / z;
-    __nv_bfloat16* o = dst + (row0 + tq) * ld_dst + h * dh;
-    for (int ii = 0; ii < dh; ii += 2) {
-      int i = ii + skew;
-      if (i >= dh) i -= dh;
+    bf16* o = dst + (row0 + tq) * ld_dst + (h0 + hh) * dh;
+    for (int ii = 2 * sl; ii < dh; ii += 2 * sub) {
+      const int i = ii + skew < dh ? ii + skew : ii + skew - dh;
       float o0 = 0.f, o1 = 0.f;
 #pragma unroll
       for (int j = 0; j < t; ++j) {
@@ -229,197 +372,359 @@ __device__ __forceinline__ void attention(const float* qkv, int ld_q, __nv_bfloa
         o0 = fmaf(p[j], vj.x, o0);
         o1 = fmaf(p[j], vj.y, o1);
       }
-      *reinterpret_cast<__nv_bfloat162*>(o + i) = __floats2bfloat162_rn(o0 * inv_z, o1 * inv_z);
+      if (active) {
+        *reinterpret_cast<__nv_bfloat162*>(o + i) =
+            __floats2bfloat162_rn(o0 * inv_z, o1 * inv_z);
+      }
     }
   }
 }
 
+__device__ __forceinline__ void attention_any_t(const float* qkv, int ld_q, int t, int dh, int gh,
+                                                int windows, bf16* dst, int ld_dst, int h0) {
+  switch (t) {
+    case 10:
+      attention<10>(qkv, ld_q, t, dh, gh, windows, dst, ld_dst, h0);
+      break;
+    case 4:
+      attention<4>(qkv, ld_q, t, dh, gh, windows, dst, ld_dst, h0);
+      break;
+    default:
+      attention<0>(qkv, ld_q, t, dh, gh, windows, dst, ld_dst, h0);
+  }
+}
+
+template <int kRT, int kDepth, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_encoder_kernel(const float* __restrict__ x, float* __restrict__ out,
-                     const __nv_bfloat16* __restrict__ w, const float* __restrict__ vec,
-                     EncShape s) {
-  // shared memory: resid f32 [rows][ld_r] | q/k/v f32 [rows][ld_q], later the
-  // MLP hidden bf16 [rows][ld_h] | operand bf16 [rows][ld_a]
+                     const bf16* __restrict__ w, const float* __restrict__ vec, EncPlan s,
+                     long long* __restrict__ clocks) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int d = s.d, m = s.m;
+  const int dh = d / s.heads;
   const int rows = 16 * s.row_tiles;
+  const int ld_r = d + kPad;         // the residual (f32), LN out and attention out (bf16)
+  const int ld_q = s.ld_q, ld_u = s.ld_u;
   float* const resid = reinterpret_cast<float*>(smem);
-  float* const qkv = resid + rows * s.ld_r;
-  __nv_bfloat16* const hid = reinterpret_cast<__nv_bfloat16*>(qkv);
-  __nv_bfloat16* const abuf = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<unsigned char*>(qkv) + s.big_bytes);
+  bf16* const ybuf = reinterpret_cast<bf16*>(smem + s.off_y);
+  bf16* const abuf = reinterpret_cast<bf16*>(smem + s.off_a);
+  float* const qbuf = reinterpret_cast<float*>(smem + s.off_q);
+  bf16* const ubuf = reinterpret_cast<bf16*>(smem + s.off_u);
+  float* const scratch = reinterpret_cast<float*>(smem + s.off_s);
+  float* const rows_s = reinterpret_cast<float*>(smem + s.off_v);
+  const int n_scr = s.scratch_floats;
 
   // weights, each in fragment order, end to end: Wqkv, Wproj, W1, W2
-  const __nv_bfloat16* const w_qkv = w;
-  const __nv_bfloat16* const w_proj = w_qkv + static_cast<long long>(d) * 3 * d;
-  const __nv_bfloat16* const w_mlp1 = w_proj + static_cast<long long>(d) * d;
-  const __nv_bfloat16* const w_mlp2 = w_mlp1 + static_cast<long long>(d) * m;
-  // f32 rows, end to end: g1, b1, bqkv, bproj, g2, b2, bm1, bm2
-  const float* const g1 = vec;
-  const float* const b1 = g1 + d;
-  const float* const b_qkv = b1 + d;
+  const bf16* const w_qkv = w;
+  const bf16* const w_proj = w_qkv + static_cast<long long>(d) * 3 * d;
+  const bf16* const w_mlp1 = w_proj + static_cast<long long>(d) * d;
+  const bf16* const w_mlp2 = w_mlp1 + static_cast<long long>(d) * m;
+  // f32 rows in device memory, end to end: g1, b1, bqkv, bproj, g2, b2, bm1,
+  // bm2. With s.staged >= 1 the LayerNorm rows are staged in shared memory as
+  // g1, b1, g2, b2, and with 2 the biases after them as bqkv, bproj, bm1, bm2.
+  const bool ln_s = s.staged >= 1, bias_s = s.staged >= 2;
+  const float* const ln1_g = ln_s ? rows_s : vec;
+  const float* const ln1_b = ln1_g + d;
+  const float* const ln2_g = ln_s ? rows_s + 2 * d : vec + 6 * d;
+  const float* const ln2_b = ln2_g + d;
+  const float* const b_qkv = bias_s ? rows_s + 4 * d : vec + 2 * d;
   const float* const b_proj = b_qkv + 3 * d;
-  const float* const g2 = b_proj + d;
-  const float* const b2 = g2 + d;
-  const float* const b_mlp1 = b2 + d;
+  const float* const b_mlp1 = bias_s ? b_proj + d : vec + 8 * d;
   const float* const b_mlp2 = b_mlp1 + m;
 
-  const int win0 = blockIdx.x * s.windows;
+  // with clocks, thread 0 of each block times the phases (kPhases a block)
+  long long t_last = 0;
+  auto lap = [&](int phase) {
+    if (clocks != nullptr && threadIdx.x == 0) {
+      const long long now = clock64();
+      if (phase > 0) {
+        clocks[static_cast<long long>(blockIdx.x) * kPhases + phase - 1] = now - t_last;
+      }
+      t_last = now;
+    }
+  };
+  lap(0);
+
+  const int peers = kSplit ? s.cluster : 1;
+  const int rank = kSplit ? static_cast<int>(cluster_ctarank()) : 0;
+  const int nk_d = d / 16;
+  const int mine = s.heads / peers;
+  const int hb = mine * dh / 16;
+  const int nd = nk_d / peers;
+  const int nm = m / 16 / peers;
+  // Small: three mbarriers, on which the other blocks' parts of a, h and u
+  // land; each expects its bytes from the start. Every block of the cluster
+  // has started and set them up before any copy into another's shared
+  // memory (the first are attention's).
+  const unsigned bars = smem_u32(smem + s.off_b);
+  const unsigned bar_a = bars, bar_h = bars + 8, bar_u = bars + 16;
+  if constexpr (kSplit) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+      mbar_init_fence();
+      const unsigned in_rows = (peers - 1) * rows;
+      mbar_arrive_expect_tx(bar_a, in_rows * hb * 32);
+      mbar_arrive_expect_tx(bar_h, in_rows * nd * 64);
+      mbar_arrive_expect_tx(bar_u, in_rows * nm * 32);
+    }
+    cluster_arrive();
+  }
+  // This block's part of a buffer [rows] x `bytes` (row pitch `pitch`) to the
+  // same place in every other block of the cluster, a bulk copy a row and
+  // block, which completes on the receiver's barrier `bar`. The threads that
+  // wrote the part fence it for the copies' (asynchronous) proxy first.
+  auto send = [&](const void* part, int pitch, int bytes, unsigned bar) {
+    fence_proxy_async_smem();
+    __syncthreads();
+    const unsigned src = smem_u32(part);
+    for (int i = threadIdx.x; i < (peers - 1) * rows; i += kThreads) {
+      const unsigned q = (rank + 1 + i / rows) % peers;
+      const unsigned at = src + (i % rows) * pitch;
+      bulk_copy_s2c(cluster_map(at, q), at, bytes, cluster_map(bar, q));
+    }
+  };
+
+  // This block's columns of every product: its heads' q, k and v (three runs
+  // of mine * dh columns, d apart), d / C columns of the projection and of
+  // W2, m / C of W1.
+  const Weights wt_qkv{w_qkv, nk_d, Cols{3 * hb, hb, nk_d, rank * hb}};
+  const Weights wt_proj{w_proj, nk_d, Cols{nd, nd, 0, rank * nd}};
+  const Weights wt_mlp1{w_mlp1, nk_d, Cols{nm, nm, 0, rank * nm}};
+  const Weights wt_mlp2{w_mlp2, m / 16, Cols{nd, nd, 0, rank * nd}};
+  // Small: each product's first weights are asked for ahead of the phase
+  // before it, so that they fly across its barriers. (The large shape has
+  // no registers to spare for that, and its blocks overlap one another.)
+  uint4 ring[kDepth];
+  const int tile = static_cast<int>(blockIdx.x) / peers;
+  const int win0 = tile * s.windows;
   const int n_win = min(s.windows, s.batch - win0);
   const int valid = n_win * s.t;                 // rows that are loaded and stored
   const long long base = static_cast<long long>(win0) * s.t * d;
   const int d4 = d / 4;
 
-  // Stage the tile of x into resid, zero-filled past the valid rows.
+  // Stage the tile of x into resid, zero-filled past the valid rows, and the
+  // f32 rows into shared memory.
+  // (All of a thread's loads of a round are asked for before its stores.)
   {
+    constexpr int kX = 4, kV = 8;     // loads in flight a thread
     const float4* xs = reinterpret_cast<const float4*>(x + base);
-    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
-      const int r = i / d4;
-      const int c4 = i - r * d4;
-      const float4 v = r < valid ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(resid + r * s.ld_r + 4 * c4) = v;
+    for (int i0 = 0; i0 < rows * d4; i0 += kX * kThreads) {
+      float4 v[kX];
+#pragma unroll
+      for (int k = 0; k < kX; ++k) {
+        const int i = i0 + k * kThreads + threadIdx.x;
+        v[k] = i < valid * d4 ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // q/k/v's first weights queue behind the first of x, not ahead of it
+      if constexpr (kSplit) {
+        if (i0 == 0) prefetch(ring, wt_qkv, s.row_tiles, n_scr);
+      }
+#pragma unroll
+      for (int k = 0; k < kX; ++k) {
+        const int i = i0 + k * kThreads + threadIdx.x;
+        if (i < rows * d4) {
+          *reinterpret_cast<float4*>(resid + (i / d4) * ld_r + 4 * (i % d4)) = v[k];
+        }
+      }
+    }
+    // staged: g1 b1 g2 b2 | bqkv bproj bm1 bm2 (device: g1 b1 bqkv bproj g2 b2 bm1 bm2)
+    const int n_rows = s.staged == 2 ? 9 * d + m : s.staged == 1 ? 4 * d : 0;
+    for (int i0 = 0; i0 < n_rows; i0 += kV * kThreads) {
+      float v[kV];
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        const int i = i0 + k * kThreads + threadIdx.x;
+        const int src = i < 2 * d ? i : i < 4 * d ? i + 4 * d : i < 8 * d ? i - 2 * d : i;
+        v[k] = i < n_rows ? __ldg(vec + src) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        const int i = i0 + k * kThreads + threadIdx.x;
+        if (i < n_rows) rows_s[i] = v[k];
+      }
     }
   }
   __syncthreads();
-
-  layernorm_rows(resid, s.ld_r, rows, d, g1, b1, abuf, s.ld_a);
+  layernorm_rows(resid, ld_r, rows, d, ln1_g, ln1_b, ybuf, ld_r);
   __syncthreads();
+  lap(1);
 
+  // q/k/v of this block's heads, [q | k | v] each head-major, q scaled
   {
     const float scale = s.q_scale;
-    const int ld_q = s.ld_q;
-    product(abuf, s.ld_a, s.row_tiles, w_qkv, d, 3 * d,
-            [=](int r, int n, float v0, float v1) {
-              v0 += __ldg(b_qkv + n);
-              v1 += __ldg(b_qkv + n + 1);
-              if (n < d) {           // q: scaled after the bias, in f32
-                v0 *= scale;
-                v1 *= scale;
-              }
-              *reinterpret_cast<float2*>(qkv + r * ld_q + n) = make_float2(v0, v1);
-            });
+    const int gw = mine * dh;
+    const int q0 = rank * gw;
+    product<kRT, kSplit>(ybuf, ld_r, s.row_tiles, wt_qkv, ring, kSplit, scratch, n_scr,
+                 [=](int r, int n, float v0, float v1) {
+                   v0 += b_qkv[n];
+                   v1 += b_qkv[n + 1];
+                   if (n < d) {   // q: scaled after the bias, in f32
+                     v0 *= scale;
+                     v1 *= scale;
+                   }
+                   // n = part * d + q0 + i  ->  local column part * gw + i
+                   const int part = n / d;
+                   *reinterpret_cast<float2*>(qbuf + r * ld_q + part * gw + n - part * d - q0) =
+                       make_float2(v0, v1);
+                 });
   }
+  if constexpr (kSplit) prefetch(ring, wt_proj, s.row_tiles, n_scr);
   __syncthreads();
-
-  switch (s.t) {
-    case 10:
-      attention<10>(qkv, s.ld_q, abuf, s.ld_a, s.t, d, s.heads, s.windows);
-      break;
-    case 4:
-      attention<4>(qkv, s.ld_q, abuf, s.ld_a, s.t, d, s.heads, s.windows);
-      break;
-    default:
-      attention<0>(qkv, s.ld_q, abuf, s.ld_a, s.t, d, s.heads, s.windows);
+  lap(2);
+  if constexpr (kSplit) cluster_wait();
+  attention_any_t(qbuf, ld_q, s.t, dh, mine, s.windows, abuf, ld_r, rank * mine);
+  lap(3);
+  if constexpr (kSplit) {                        // a, from every block
+    send(abuf + rank * mine * dh, ld_r * 2, hb * 32, bar_a);
+    mbar_wait(bar_a, 0);
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
+  lap(4);
 
-  {
-    const int ld_r = s.ld_r;
-    product(abuf, s.ld_a, s.row_tiles, w_proj, d, d,
-            [=](int r, int n, float v0, float v1) {
-              float2* h = reinterpret_cast<float2*>(resid + r * ld_r + n);
-              float2 hv = *h;
-              hv.x += v0 + __ldg(b_proj + n);
-              hv.y += v1 + __ldg(b_proj + n + 1);
-              *h = hv;
-            });
+  // h = x + a Wproj + bproj: this block's columns
+  product<kRT, kSplit>(abuf, ld_r, s.row_tiles, wt_proj, ring, kSplit, scratch, n_scr,
+                       [=](int r, int n, float v0, float v1) {
+                         float2* at = reinterpret_cast<float2*>(resid + r * ld_r + n);
+                         float2 hv = *at;
+                         hv.x += v0 + b_proj[n];
+                         hv.y += v1 + b_proj[n + 1];
+                         *at = hv;
+                       });
+  lap(5);
+  if constexpr (kSplit) {                        // h, from every block
+    send(resid + rank * nd * 16, ld_r * 4, nd * 64, bar_h);
+    prefetch(ring, wt_mlp1, s.row_tiles, n_scr);
+    mbar_wait(bar_h, 0);
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
+  lap(6);
 
-  layernorm_rows(resid, s.ld_r, rows, d, g2, b2, abuf, s.ld_a);
+  layernorm_rows(resid, ld_r, rows, d, ln2_g, ln2_b, ybuf, ld_r);
   __syncthreads();
+  lap(7);
 
-  {
-    const int ld_h = s.ld_h;
-    product(abuf, s.ld_a, s.row_tiles, w_mlp1, d, m,
-            [=](int r, int n, float v0, float v1) {
-              v0 = gelu_tanh(v0 + __ldg(b_mlp1 + n));
-              v1 = gelu_tanh(v1 + __ldg(b_mlp1 + n + 1));
-              *reinterpret_cast<__nv_bfloat162*>(hid + r * ld_h + n) =
-                  __floats2bfloat162_rn(v0, v1);
-            });
+  // u = gelu(y W1 + bm1): this block's columns
+  product<kRT, kSplit>(ybuf, ld_r, s.row_tiles, wt_mlp1, ring, kSplit, scratch, n_scr,
+                       [=](int r, int n, float v0, float v1) {
+                         v0 = gelu_tanh(v0 + b_mlp1[n]);
+                         v1 = gelu_tanh(v1 + b_mlp1[n + 1]);
+                         *reinterpret_cast<__nv_bfloat162*>(ubuf + r * ld_u + n) =
+                             __floats2bfloat162_rn(v0, v1);
+                       });
+  lap(8);
+  if constexpr (kSplit) {                        // u, from every block
+    send(ubuf + rank * nm * 16, ld_u * 2, nm * 32, bar_u);
+    prefetch(ring, wt_mlp2, s.row_tiles, n_scr);
+    mbar_wait(bar_u, 0);
+    // this block has all it was sent; the others may end once every block
+    // has, when no copy reads their shared memory any more
+    cluster_arrive_relaxed();
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
+  lap(9);
 
-  {
-    const int ld_r = s.ld_r;
-    product(hid, s.ld_h, s.row_tiles, w_mlp2, m, d,
-            [=](int r, int n, float v0, float v1) {
-              float2* h = reinterpret_cast<float2*>(resid + r * ld_r + n);
-              float2 hv = *h;
-              hv.x += v0 + __ldg(b_mlp2 + n);
-              hv.y += v1 + __ldg(b_mlp2 + n + 1);
-              *h = hv;
-            });
-  }
-  __syncthreads();
-
-  {
-    float4* os = reinterpret_cast<float4*>(out + base);
-    for (int i = threadIdx.x; i < valid * d4; i += kThreads) {
-      const int r = i / d4;
-      const int c4 = i - r * d4;
-      os[i] = *reinterpret_cast<const float4*>(resid + r * s.ld_r + 4 * c4);
-    }
-  }
+  // out = h + u W2 + bm2: this block's columns, straight to device memory
+  float* const dst = out + base;
+  product<kRT, kSplit>(ubuf, ld_u, s.row_tiles, wt_mlp2, ring, kSplit, scratch, n_scr,
+               [=](int r, int n, float v0, float v1) {
+                 if (r < valid) {
+                   const float2 hv = *reinterpret_cast<const float2*>(resid + r * ld_r + n);
+                   *reinterpret_cast<float2*>(dst + r * d + n) =
+                       make_float2(hv.x + v0 + b_mlp2[n], hv.y + v1 + b_mlp2[n + 1]);
+                 }
+               });
+  lap(10);
+  if constexpr (kSplit) cluster_wait();
 }
 
-// Shared memory for `row_tiles` mma row tiles; fills the strides of `s`.
-size_t plan_smem(EncShape& s, int row_tiles) {
-  s.row_tiles = row_tiles;
-  s.ld_r = s.d + kPad;
-  s.ld_q = 3 * s.d + kPad;
-  s.ld_h = s.m + kPad;
-  s.ld_a = s.d + kPad;
-  const size_t rows = 16 * static_cast<size_t>(row_tiles);
-  const size_t qkv_bytes = rows * s.ld_q * sizeof(float);
-  const size_t hid_bytes = rows * s.ld_h * sizeof(__nv_bfloat16);
-  const size_t big = qkv_bytes > hid_bytes ? qkv_bytes : hid_bytes;
-  s.big_bytes = static_cast<int>(big);
-  return rows * s.ld_r * sizeof(float) + big + rows * s.ld_a * sizeof(__nv_bfloat16);
+template <int kRT, int kDepth, bool kSplit>
+cudaError_t launch(const EncPlan& s, size_t smem, const float* x, float* out, const bf16* w,
+                   const float* vec, long long* clocks, cudaStream_t stream) {
+  auto kernel = fused_encoder_kernel<kRT, kDepth, kSplit>;
+  const cudaError_t err = ensure_dynamic_smem<FusedEncoderTag<kRT, kSplit>>(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s.batch + s.windows - 1) / s.windows;
+  return launch_cluster(kernel, tiles * s.cluster, kThreads, s.cluster, smem, stream, x, out, w,
+                        vec, s, clocks);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out [batch, t, d] f32, contiguous; w: the four bf16 weights in fragment
-// order, end to end (Wqkv [d, 3d], Wproj [d, d], W1 [d, m], W2 [m, d]); vec:
-// the f32 rows end to end (g1, b1, bqkv, bproj, g2, b2, bm1, bm2)
-// (fused_encoder.py::pack_encoder_params). d and m are multiples of 128, d
-// divides by heads into an even head width, and t <= 48 with at least one
-// window fitting the shared memory (fused_encoder.py::plan_tile computes the
-// same plan). Launches on `stream` and returns cudaGetLastError() (0 on
-// success).
+// x, out [batch, t, d] f32, contiguous, 16-byte aligned; w: the four bf16
+// weights in fragment order, end to end (Wqkv [d, 3d], Wproj [d, d], W1 [d, m],
+// W2 [m, d]); vec: the f32 rows end to end (g1, b1, bqkv, bproj, g2, b2, bm1,
+// bm2) (fused_encoder.py::pack_encoder_params). plan: the fifteen ints of
+// fused_encoder.py::plan_encoder (small, cluster, row_tiles, windows, ld_q,
+// ld_u, off_y, off_a, off_q, off_u, off_s, scratch_floats, off_v, staged,
+// off_b); smem: its bytes of shared memory. clocks: null, or room for
+// kPhases int64 a block, which get each phase's cycles (thread 0's clock64).
+// Launches on `stream` and returns the launch's error (0 on success).
 int ib_fused_encoder_forward(const void* x, int batch, int t, int d, int m, int heads,
-                             const void* w, const void* vec, void* out, void* stream) {
+                             const void* w, const void* vec, void* out, const int* plan,
+                             int smem, void* clocks, void* stream) {
   if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 ||
-      m % 128 != 0 || heads < 1 || d % heads != 0 || (d / heads) % 2 != 0) {
+      m % 128 != 0 || heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  EncShape s{};
+  const bool small = plan[0] != 0;
+  EncPlan s{};
   s.batch = batch;
   s.t = t;
   s.d = d;
   s.m = m;
   s.heads = heads;
-  s.q_scale = 1.f / sqrtf(static_cast<float>(d / heads));
-  size_t smem = 0;
-  int row_tiles = kMaxRowTiles;
-  for (; row_tiles >= 1; --row_tiles) {
-    smem = plan_smem(s, row_tiles);
-    if (smem <= static_cast<size_t>(kMaxSmem)) break;
-  }
-  if (row_tiles < 1 || 16 * row_tiles < t) return static_cast<int>(cudaErrorInvalidValue);
-  s.windows = 16 * row_tiles / t;
+  s.cluster = plan[1];
+  s.row_tiles = plan[2];
+  s.windows = plan[3];
+  s.ld_q = plan[4];
+  s.ld_u = plan[5];
+  s.off_y = plan[6];
+  s.off_a = plan[7];
+  s.off_q = plan[8];
+  s.off_u = plan[9];
+  s.off_s = plan[10];
+  s.scratch_floats = plan[11];
+  s.off_v = plan[12];
+  s.staged = plan[13];
+  s.off_b = plan[14];
+  const int dh = d / heads;
+  s.q_scale = 1.f / sqrtf(static_cast<float>(dh));
+  const int rows = 16 * s.row_tiles;
+  const int gw = heads / (s.cluster > 0 ? s.cluster : 1) * dh;   // q columns of a block
+  const bool ok =
+      s.row_tiles >= 1 && s.row_tiles <= kRowTiles && s.windows >= 1 && s.windows * t <= rows &&
+      s.cluster >= 1 && s.cluster <= kMaxCluster && (small || s.cluster == 1) &&
+      heads % s.cluster == 0 && gw % 16 == 0 && (d / 16) % s.cluster == 0 &&
+      (m / 16) % s.cluster == 0 && s.ld_q >= 3 * gw && s.ld_q % 2 == 0 && s.ld_u >= m &&
+      s.ld_u % 8 == 0 && s.scratch_floats >= 0 && smem <= kMaxSmem &&
+      s.off_y >= rows * (d + kPad) * 4 && s.off_y % 16 == 0 && s.off_a % 16 == 0 &&
+      s.off_q % 16 == 0 && s.off_u % 16 == 0 && s.off_s % 16 == 0 &&
+      s.off_y + rows * (d + kPad) * 2 <= smem && s.off_a + rows * (d + kPad) * 2 <= smem &&
+      s.off_q + rows * s.ld_q * 4 <= smem && s.off_u + rows * s.ld_u * 2 <= smem &&
+      s.off_s + s.scratch_floats * 4 <= smem && s.off_v % 16 == 0 && s.staged >= 0 &&
+      s.staged <= 2 && s.off_v + (s.staged == 2 ? 9 * d + m : s.staged * 4 * d) * 4 <= smem &&
+      (!small || (s.off_b % 8 == 0 && s.off_b + 24 <= smem));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  const cudaError_t err = ensure_dynamic_smem<FusedEncoderTag>(fused_encoder_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + s.windows - 1) / s.windows);
-  fused_encoder_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(vec), s);
-  return static_cast<int>(cudaGetLastError());
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const float* vf = static_cast<const float*>(vec);
+  long long* cl = static_cast<long long*>(clocks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one window (one row tile) has an instantiation of its own: the chain of
+  // a lone window runs a third of the code and keeps its registers
+  const cudaError_t err =
+      !small                ? launch<kRowTiles, 8, false>(s, smem, xf, of, wb, vf, cl, st)
+      : s.row_tiles == 1    ? launch<1, 8, true>(s, smem, xf, of, wb, vf, cl, st)
+                            : launch<kRowTiles, 8, true>(s, smem, xf, of, wb, vf, cl, st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

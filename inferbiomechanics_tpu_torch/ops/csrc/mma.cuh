@@ -267,3 +267,18 @@ __device__ __forceinline__ void bulk_copy_s2c(unsigned cluster_dst, unsigned src
           "r"(cluster_dst), "r"(src), "r"(bytes), "r"(cluster_bar)
       : "memory");
 }
+
+// The two halves of cluster_sync_all, for work between them: every thread of
+// every block of the cluster arrives, then waits for all the others.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// An arrival without release semantics: it orders nothing that came before.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}

@@ -12,6 +12,13 @@
 // mode 3 has no barriers: every thread loads 16 bytes at a time into
 // registers, two tiles ahead of the one it stores to shared memory, and the
 // block meets at __syncthreads once a tile.
+// Modes 4-6 test the ring itself. mode 4: as mode 0, but the copies come from
+// lane 0 of a producer warp of its own that never consumes (the 17th warp;
+// the shape of K1's and CUTLASS's TMA pipelines). mode 5: as mode 0, every
+// wait a spin on test_wait alone (mma.cuh::mbar_wait falls back on
+// try_wait, which may suspend the warp). mode 6: no consumer at all: thread 0
+// asks for `depth` tiles at once and, as each lands, for the one `depth`
+// further on, so that `depth` copies are always in flight.
 #include <cuda_runtime.h>
 
 #include <cstdio>
@@ -19,7 +26,8 @@
 
 #include "../mma.cuh"
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;      // the consumers; mode 4 adds a producer warp
+constexpr int kLaunch = kThreads + 32;
 constexpr int kMaxDepth = 32;
 constexpr int kMaxSmem = 232448;
 constexpr long long kRegion = 2752512;
@@ -32,7 +40,21 @@ __device__ __forceinline__ void cp_async_arrive(unsigned bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// A wait that only ever tests (never try_wait), for mode 5.
+__device__ __forceinline__ void mbar_spin(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__global__ void __launch_bounds__(kLaunch, 1)
 stream(const unsigned char* src, int tile_bytes, int depth, int n_tiles, int mode, int split,
        long long* cycles, float* sink) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -40,6 +62,13 @@ stream(const unsigned char* src, int tile_bytes, int depth, int n_tiles, int mod
   const unsigned full = sbase, empty = sbase + 8 * kMaxDepth;
   const unsigned slots = sbase + 1024;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  auto wait = [&](unsigned bar, unsigned parity) {
+    if (mode == 5) {
+      mbar_spin(bar, parity);
+    } else {
+      mbar_wait(bar, parity);
+    }
+  };
   if (threadIdx.x == 0) {
     for (int i = 0; i < depth; ++i) {
       mbar_init(full + 8 * i, mode == 2 ? kThreads : (mode == 1 ? split : 1));
@@ -53,21 +82,47 @@ stream(const unsigned char* src, int tile_bytes, int depth, int n_tiles, int mod
     const unsigned phase = (j / depth) & 1;
     const long long off = (static_cast<long long>(j) * tile_bytes) % kRegion;
     if (mode == 2) {
-      if (lane == 0) mbar_wait(empty + 8 * slot, phase ^ 1);
+      if (lane == 0) wait(empty + 8 * slot, phase ^ 1);
       __syncwarp();
       for (int c = threadIdx.x * 16; c < tile_bytes; c += kThreads * 16) {
         cp_async16(slots + slot * tile_bytes + c, src + off + c);
       }
       cp_async_arrive(full + 8 * slot);
-    } else if (lane == 0 && warp < (mode == 1 ? split : 1)) {
+    } else if (lane == 0 && (mode == 4 ? warp == kThreads / 32 : warp < (mode == 1 ? split : 1))) {
       const int part = tile_bytes / (mode == 1 ? split : 1);
-      mbar_wait(empty + 8 * slot, phase ^ 1);
+      const int at = (mode == 1 ? warp : 0) * part;
+      wait(empty + 8 * slot, phase ^ 1);
       mbar_arrive_expect_tx(full + 8 * slot, part);
-      bulk_copy_g2s(slots + slot * tile_bytes + warp * part, src + off + warp * part, part,
-                    full + 8 * slot);
+      bulk_copy_g2s(slots + slot * tile_bytes + at, src + off + at, part, full + 8 * slot);
     }
   };
   float acc = 0.f;
+  if (threadIdx.x >= kThreads && mode != 4) return;   // the producer warp is mode 4's
+  if (mode == 6) {
+    if (threadIdx.x == 0) {
+      const long long t0 = clock64();
+      for (int j = 0; j < n_tiles; ++j) {
+        const int slot = j % depth;
+        if (j >= depth) mbar_wait(full + 8 * slot, ((j / depth) - 1) & 1);
+        const long long off = (static_cast<long long>(j) * tile_bytes) % kRegion;
+        mbar_arrive_expect_tx(full + 8 * slot, tile_bytes);
+        bulk_copy_g2s(slots + slot * tile_bytes, src + off, tile_bytes, full + 8 * slot);
+      }
+      for (int j = n_tiles - min(depth, n_tiles); j < n_tiles; ++j) {
+        mbar_wait(full + 8 * (j % depth), (j / depth) & 1);
+      }
+      acc = *reinterpret_cast<const float*>(smem + 1024);
+      cycles[blockIdx.x] = clock64() - t0;
+      if (acc == 123.456f) sink[0] = acc;
+    }
+    return;
+  }
+  if (mode == 4 && threadIdx.x >= kThreads) {          // the producer: fetches only
+    const long long t0 = clock64();
+    for (int j = 0; j < n_tiles; ++j) fetch(j);
+    if (lane == 0) cycles[gridDim.x + blockIdx.x] = clock64() - t0;
+    return;
+  }
   if (mode == 3) {
     constexpr int kAhead = 2, kMaxPieces = 4;      // tiles in flight; 16-byte pieces a thread
     const int pieces = tile_bytes / (kThreads * 16);
@@ -107,15 +162,17 @@ stream(const unsigned char* src, int tile_bytes, int depth, int n_tiles, int mod
     return;
   }
   const long long t0 = clock64();
-  for (int j = 0; j < depth && j < n_tiles; ++j) fetch(j);
+  if (mode != 4) {
+    for (int j = 0; j < depth && j < n_tiles; ++j) fetch(j);
+  }
   for (int j = 0; j < n_tiles; ++j) {
     const int slot = j % depth;
-    mbar_wait(full + 8 * slot, (j / depth) & 1);
+    wait(full + 8 * slot, (j / depth) & 1);
     acc += *reinterpret_cast<const float*>(smem + 1024 + slot * tile_bytes +
                                            (threadIdx.x * 4) % tile_bytes);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * slot);
-    if (j + depth < n_tiles) fetch(j + depth);
+    if (mode != 4 && j + depth < n_tiles) fetch(j + depth);
   }
   const long long t1 = clock64();
   if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
@@ -130,7 +187,7 @@ int main() {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);
   if (cudaMalloc(&src, kRegion) != cudaSuccess || sms < 1 || sms > 256) return 1;
   cudaMemset(src, 1, kRegion);
-  cudaMalloc(&cycles, 256 * sizeof(long long));
+  cudaMalloc(&cycles, 2 * 256 * sizeof(long long));
   cudaMalloc(&sink, sizeof(float));
   cudaFuncSetAttribute(stream, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   struct Config {
@@ -142,6 +199,10 @@ int main() {
       {0, 65536, 2, 1},  {0, 65536, 3, 1},  {1, 16384, 3, 4},  {1, 16384, 8, 4}, {1, 16384, 8, 16},
       {2, 8192, 6, 1},   {2, 16384, 3, 1},  {2, 16384, 8, 1},  {2, 32768, 4, 1},
       {3, 8192, 2, 1},   {3, 16384, 2, 1},  {3, 32768, 2, 1},
+      {4, 4096, 12, 1},  {4, 8192, 6, 1},   {4, 8192, 24, 1},  {4, 16384, 3, 1}, {4, 16384, 8, 1},
+      {4, 32768, 6, 1},  {5, 8192, 6, 1},   {5, 16384, 3, 1},  {5, 16384, 8, 1},
+      {6, 4096, 1, 1},   {6, 4096, 12, 1},  {6, 8192, 1, 1},   {6, 8192, 6, 1},  {6, 8192, 24, 1},
+      {6, 16384, 1, 1},  {6, 16384, 3, 1},  {6, 16384, 8, 1},  {6, 32768, 6, 1},
   };
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0);
@@ -154,7 +215,7 @@ int main() {
       float ms = 0.f;
       for (int rep = 0; rep < 2; ++rep) {   // the second run is the one that counts
         cudaEventRecord(e0);
-        stream<<<grid, kThreads, smem>>>(src, c.tile, c.depth, n_tiles, c.mode, c.split, cycles,
+        stream<<<grid, kLaunch, smem>>>(src, c.tile, c.depth, n_tiles, c.mode, c.split, cycles,
                                          sink);
         cudaEventRecord(e1);
         cudaEventSynchronize(e1);

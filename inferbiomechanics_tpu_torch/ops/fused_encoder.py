@@ -5,7 +5,10 @@ kernel itself is ``csrc/fused_encoder.cu`` (it replaces the Pallas
 ``encoder_layer_pallas``, both of its kernel versions); this module holds
 its plain PyTorch version (:func:`encoder_layer_reference`), the weight
 packing (:func:`pack_encoder_params`) and the wrapper
-(:func:`fused_encoder_layer`). The layer's backward is
+(:func:`fused_encoder_layer`), which launches the kernel in one of two
+shapes that :func:`plan_encoder` picks from the shape of the call: up to
+:data:`SMALL_BATCH_MAX` windows a cluster of blocks splits every product's
+columns, above it one block takes a row tile. The layer's backward is
 ``csrc/fused_encoder_bwd.cu`` (it replaces the Pallas
 ``encoder_layer_bwd_pallas``), with its plain version
 (:func:`encoder_layer_bwd_reference`), its wrapper
@@ -24,11 +27,14 @@ order, kernels ``[in, out]``, the ``3 d`` QKV columns ordered
 raises; :func:`fused_encoder_layer_bwd` does the same with the backward
 kernels and :func:`encoder_layer_bwd_reference`. Nothing falls back: on a
 CUDA tensor a kernel that fails to build or launch raises. ``launches``
-and ``bwd_launches`` count the kernel launches in this process.
+and ``bwd_launches`` count the kernel launches in this process,
+``shape_launches`` the forward's by shape.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -47,12 +53,23 @@ _ROWS = (0, 1, 3, 5, 6, 7, 9, 11)  # ... and of the eight f32 rows
 
 LN_EPS = 1e-6
 
-# the kernel's limits (csrc/fused_encoder.cu): a block holds 1..3 mma row
-# tiles of 16 rows, whole windows only, in the shared memory a block may use
+# the envelope of shapes the kernels take (plan_tile): whole windows of at
+# most 48 frames, in 1..3 mma row tiles of 16 rows beside their f32 q/k/v, in
+# the shared memory a block may use
 MAX_FRAMES = 48
 MAX_SMEM = 232448
 _MAX_ROW_TILES = 3
 _PAD = 8
+
+# the forward's two shapes (csrc/fused_encoder.cu, plan_encoder): the warps
+# of a block, and the largest batch the small shape takes, which ops/tune.py
+# sets by timing both shapes on an H100
+_WARPS = 16
+_PHASES = 10           # phases the kernel's cycle counters time
+SMALL_BATCH_MAX = 56
+# blocks of small-shape clusters an H100 runs at once: 14 clusters of 8 took
+# one wave (56 windows, 4 a cluster), 16 two (ops/tune.py)
+_SMALL_BLOCKS_AT_ONCE = 112
 
 # the backward (csrc/fused_encoder_bwd.cu): launches a call, the most
 # blocks the weight-gradient kernel splits the rows over, and the rows a
@@ -61,9 +78,16 @@ BWD_LAUNCHES_PER_LAYER = 3
 _MAX_SPLITS = 8
 _ROWS_PER_SPLIT = 512
 
-# kernel launches so far (for checking that a path went through the kernel)
+# kernel launches so far (for checking that a path went through the kernel),
+# and the forward's by the shape that ran
 launches = 0
 bwd_launches = 0
+shape_launches = {'small': 0, 'large': 0}
+# None, or an int64 CUDA tensor that the next forward launches fill with
+# each block's cycles by phase ([blocks, 10]: stage x and LN1, q/k/v,
+# attention, the exchange of a, projection, the exchange of h, LN2, W1, the
+# exchange of u, W2; ops/tune.py reads them)
+phase_clocks: Optional[torch.Tensor] = None
 
 
 def init_encoder_params(generator: Optional[torch.Generator], d_model: int,
@@ -180,9 +204,10 @@ def pack_encoder_params(params: Sequence[torch.Tensor], device, *,
 
 
 def plan_tile(t: int, d: int, m: int, num_heads: int) -> Tuple[int, int]:
-    """``(row_tiles, windows)`` of a block for this shape, as
-    ``csrc/fused_encoder.cu`` plans it; raises if the kernel cannot take the
-    shape.
+    """``(row_tiles, windows)`` of a row tile that holds the f32 q/k/v of all
+    heads beside the residual and one bf16 operand: the forward kernel's
+    large shape (:func:`plan_encoder`); raises if the kernels cannot take
+    the shape. The envelope of both directions' kernels.
 
     The kernel takes ``d`` and ``m`` that are multiples of 128, an even head
     width, and windows of up to 48 frames as long as one window's rows
@@ -212,6 +237,142 @@ def plan_tile(t: int, d: int, m: int, num_heads: int) -> Tuple[int, int]:
                      f'{MAX_SMEM} bytes of shared memory a block may use')
 
 
+@dataclass(frozen=True)
+class EncoderPlan:
+    """The launch :func:`plan_encoder` chose for the forward kernel.
+
+    ``shape`` is ``'small'`` (a cluster of ``cluster`` blocks shares a row
+    tile, each owning 1/``cluster`` of every product's columns: its heads'
+    q/k/v, ``d / cluster`` columns of the projection and of W2, ``m /
+    cluster`` of W1) or ``'large'`` (one block a row tile, all the columns).
+    ``row_tiles`` 16-row mma tiles hold ``windows`` whole windows. Strides
+    are in elements, offsets in bytes from the start of the block's shared
+    memory, where the f32 residual ``[rows, d + 8]`` lies: the LayerNorm
+    output and the attention output (bf16, ``[rows, d + 8]`` each), the
+    block's f32 q/k/v (stride ``ld_q``), the bf16 MLP hidden (``ld_u``), the
+    f32 scratch of products split along K (``scratch_floats``) and the f32
+    rows staged at ``off_v``: ``staged`` 2, all of them (LayerNorm's, then
+    the biases), 1, LayerNorm's, 0, none (read from device memory). The
+    small shape's three ``mbarrier``s, on which the other blocks' parts of
+    the attention output, the residual and the hidden land, lie at
+    ``off_b``.
+    """
+    shape: str
+    cluster: int
+    row_tiles: int
+    windows: int
+    ld_q: int
+    ld_u: int
+    off_y: int
+    off_a: int
+    off_q: int
+    off_u: int
+    off_s: int
+    scratch_floats: int
+    off_v: int
+    staged: int
+    off_b: int
+    smem_bytes: int
+
+    def as_ints(self) -> Tuple[int, ...]:
+        return (int(self.shape == 'small'), self.cluster, self.row_tiles, self.windows,
+                self.ld_q, self.ld_u, self.off_y, self.off_a, self.off_q, self.off_u,
+                self.off_s, self.scratch_floats, self.off_v, self.staged, self.off_b)
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def small_cluster(d: int, num_heads: int) -> int:
+    """Blocks of the small shape's cluster: the most, up to 8, among which
+    the heads divide so that each block's q (k, v) columns fill whole
+    16-column blocks; 1 where none does (the shape then cannot be split)."""
+    dh = d // num_heads
+    for c in (8, 4, 2):
+        if num_heads % c == 0 and (num_heads // c * dh) % 16 == 0:
+            return c
+    return 1
+
+
+def _layout(shape: str, t: int, d: int, m: int, num_heads: int, row_tiles: int,
+            cluster: int) -> Optional[EncoderPlan]:
+    """Shared memory of one shape at one row tile; None if it does not fit.
+
+    The residual (f32), the LayerNorm output and the attention output (bf16)
+    are ``[rows, d + 8]``, the block's q/k/v ``[rows, 3 d / C + 4]`` (f32), the
+    MLP hidden ``[rows, m + 8]`` (bf16). Small: all the f32 rows, then the
+    attention output and q/k/v, whose place the hidden takes once both are
+    dead in every block (the others store into it), then the scratch in
+    what is left. Large: the attention output in the LayerNorm output's place, the hidden
+    in q/k/v's, then LayerNorm's rows where they fit and the scratch in what
+    is left.
+    """
+    rows = 16 * row_tiles
+    ld_q = 3 * d // cluster + _PAD // 2
+    ld_u = m + _PAD
+    r_bytes = rows * (d + _PAD) * 4
+    y_bytes = rows * (d + _PAD) * 2
+    q_bytes = _round16(rows * ld_q * 4)
+    u_bytes = rows * ld_u * 2
+    # partial sums of a product split along K: every part of every column
+    # block, at most one a warp (splits stop where the scratch runs out)
+    want_scratch = _WARPS * row_tiles * 256 * 4
+    ln_bytes, all_bytes = 4 * d * 4, (9 * d + m) * 4     # the f32 rows to stage
+    off_y = r_bytes
+    if shape == 'small':
+        off_b = off_y + y_bytes
+        off_v = off_b + 64
+        off_a = off_u = off_v + all_bytes
+        off_q = off_a + y_bytes
+        off_s = max(off_q + q_bytes, off_a + _round16(u_bytes))
+        scratch = max(min(want_scratch, (MAX_SMEM - off_s) // 16 * 16), 0)
+        end, staged = off_s + scratch, 2
+    else:
+        off_b = 0
+        off_a, off_q = off_y, off_y + y_bytes
+        off_u = off_q
+        off_v = off_q + max(q_bytes, _round16(u_bytes))
+        staged = 1 if off_v + ln_bytes <= MAX_SMEM else 0
+        off_s = off_v + staged * ln_bytes
+        scratch = max(min(want_scratch, (MAX_SMEM - off_s) // 16 * 16), 0)
+        end = off_s + scratch
+    if end > MAX_SMEM or 16 * row_tiles < t:
+        return None
+    return EncoderPlan(shape, cluster, row_tiles, 16 * row_tiles // t, ld_q, ld_u, off_y,
+                       off_a, off_q, off_u, off_s, scratch // 4, off_v, staged, off_b, end)
+
+
+def plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int) -> EncoderPlan:
+    """Which shape of the forward kernel takes ``batch`` windows of ``t``
+    frames at width ``d``, MLP width ``m`` and ``num_heads`` heads, and its
+    shared-memory layout; a function of these alone. Raises for a shape
+    outside the kernel's envelope (:func:`plan_tile`).
+
+    Small, up to :data:`SMALL_BATCH_MAX` windows where the heads split over a
+    cluster (:func:`small_cluster`) and a window fits: the fewest mma row
+    tiles (at most 3) with which the batch's clusters all run at once, else
+    the most. Otherwise large: the row tile of :func:`plan_tile`.
+    """
+    return _plan_encoder(batch, t, d, m, num_heads, SMALL_BATCH_MAX)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int,
+                  small_batch_max: int) -> EncoderPlan:
+    """:func:`plan_encoder` at a given threshold, computed once a shape."""
+    row_tiles, _ = plan_tile(t, d, m, num_heads)
+    cluster = small_cluster(d, num_heads)
+    if batch <= small_batch_max and cluster > 1:
+        fits = [p for p in (_layout('small', t, d, m, num_heads, rt, cluster)
+                            for rt in range(1, _MAX_ROW_TILES + 1)) if p]
+        if fits:
+            at_once = [p for p in fits
+                       if -(-batch // p.windows) * cluster <= _SMALL_BLOCKS_AT_ONCE]
+            return (at_once or fits[::-1])[0]
+    return _layout('large', t, d, m, num_heads, row_tiles, 1)
+
+
 def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
                         num_heads: int) -> torch.Tensor:
     """x [B, T, d] float32 -> [B, T, d] float32 through the fused kernel.
@@ -234,19 +395,29 @@ def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
         raise ValueError(f'input width {d} != packed d_model {packed.d_model}')
     if packed.device != x.device:
         raise ValueError(f'weights on {packed.device}, input on {x.device}')
-    plan_tile(t, d, packed.mlp_dim, num_heads)
+    plan = plan_encoder(max(batch, 1), t, d, packed.mlp_dim, num_heads)
     out = torch.empty_like(x)
     if batch == 0:
         return out
     lib = _build.library()
+    plan_ints = (ctypes.c_int * 15)(*plan.as_ints())
+    clocks = None
+    if phase_clocks is not None:
+        blocks = -(-batch // plan.windows) * plan.cluster
+        if (phase_clocks.dtype != torch.int64 or phase_clocks.device != x.device
+                or phase_clocks.numel() < blocks * _PHASES):
+            raise ValueError(f'phase_clocks: an int64 tensor on {x.device} of at least '
+                             f'{blocks * _PHASES} elements')
+        clocks = phase_clocks.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ib_fused_encoder_forward(
             x.data_ptr(), batch, t, d, packed.mlp_dim, num_heads,
             packed.weights.data_ptr(), packed.rows.data_ptr(), out.data_ptr(),
-            stream)
+            plan_ints, plan.smem_bytes, clocks, stream)
     _build.check(lib, code, 'fused_encoder_layer launch')
     launches += 1
+    shape_launches[plan.shape] += 1
     return out
 
 

@@ -4,12 +4,15 @@
 
 Compiles ``csrc/probe/stream_probe.cu`` with nvcc into the build directory
 and runs it on the card: a ring of tiles behind mbarriers, filled by bulk
-copies (from one thread, or split over several) or by ``cp.async`` from
-every thread, over tile sizes and ring depths, with one block and with one
-block a multiprocessor. It prints the card's name and power limit and one
-JSON line a configuration (bytes a clock a multiprocessor, clocks a tile).
-The port's kernels stream their weights this way; the probe says what the
-ring alone allows them.
+copies (from one thread that also consumes, split over several, or from a
+producer warp that never consumes) or by ``cp.async`` from every thread,
+waited for by ``try_wait`` or by a spin on ``test_wait`` alone; plain loads
+into registers without barriers; and bulk copies with no consumer at all,
+``depth`` of them always in flight. Over tile sizes and ring depths, with
+one block and with one block a multiprocessor. It prints the card's name
+and power limit and one JSON line a configuration (bytes a clock a
+multiprocessor, clocks a tile). The port's kernels stream their weights
+these ways; the probe says what each allows them.
 """
 
 from __future__ import annotations

@@ -113,13 +113,13 @@ def _reject_unported(config: Config) -> None:
         ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16',
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
         ('--augment-mirror', config.augment_mirror,
-         'ROADMAP.md Queue 1 item 2.6 (the Augmenter)'),
+         'ROADMAP.md Queue 1 item 4 (the Augmenter)'),
         ('--augment-noise-std', config.augment_noise_std > 0,
-         'ROADMAP.md Queue 1 item 2.6 (the Augmenter)'),
+         'ROADMAP.md Queue 1 item 4 (the Augmenter)'),
         ('--compute-report', config.compute_report,
          'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
         ('--async-checkpoint', config.async_checkpoint,
-         'ROADMAP.md Queue 1 item 2.7 (checkpoints)'),
+         'ROADMAP.md Queue 1 item 2.6 (checkpoints)'),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
         ('--model-type diffusion', config.model_type == 'diffusion',
          'ROADMAP.md Queue 1 item 6 (diffusion)'),

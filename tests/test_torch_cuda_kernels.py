@@ -93,6 +93,11 @@ ENC_TOL = dict(rtol=1e-2, atol=1e-2)
     (5, 7, 128, 4, 2),        # a frame count with no unrolled attention
     (3, 16, 768, 8, 4),       # the widest d_model the kernel takes
     (2, 48, 256, 8, 4),       # the longest window
+    (300, 48, 256, 8, 4),     # ... in the large shape
+    (300, 16, 768, 8, 4),     # the widest d_model in the large shape
+    (300, 10, 384, 8, 4),     # 48-wide heads in the large shape
+    (300, 10, 128, 64, 4),    # 2-wide heads: eight a pass
+    (40, 10, 128, 1, 4),      # one head: no cluster splits it, so the large shape
 ])
 def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio):
     gen = torch.Generator().manual_seed(batch + t + d)
@@ -103,6 +108,31 @@ def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio)
     out = fe.fused_encoder_layer(x, packed, heads)
     assert fe.launches == before + 1
     ref = fe.encoder_layer_reference(x, packed.params, heads)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **ENC_TOL)
+
+
+@pytest.mark.parametrize('shape', ['small', 'large'])
+@pytest.mark.parametrize('batch', [
+    1, 2, 4,
+    5,                            # one past the four windows of a 48-row tile
+    fe.SMALL_BATCH_MAX,           # the plan's threshold
+    fe.SMALL_BATCH_MAX + 1,
+    4099,
+])
+def test_fused_encoder_kernel_both_shapes_match_plain(cuda, monkeypatch, shape, batch):
+    """The served shape (T = 10, d = 256, H = 8, 4x MLP) through each of the
+    forward's two shapes at every batch, the plan's threshold moved so that
+    the named shape takes it."""
+    monkeypatch.setattr(fe, 'SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    gen = torch.Generator().manual_seed(batch)
+    packed = fe.pack_encoder_params(random_encoder_params(gen, 256, 1024), cuda)
+    x = torch.randn(batch, 10, 256, generator=gen).to(cuda)
+    before = dict(fe.shape_launches)
+    out = fe.fused_encoder_layer(x, packed, 8)
+    assert fe.shape_launches[shape] == before[shape] + 1
+    ref = fe.encoder_layer_reference(x, packed.params, 8)
     torch.cuda.synchronize()
     assert out.shape == x.shape and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, **ENC_TOL)

@@ -174,3 +174,135 @@ def test_plan_tile(t, d, m, heads, plan):
 def test_fused_encoder_kernel_refuses_shapes_it_cannot_take(t, d, m, heads):
     with pytest.raises(ValueError, match='fused encoder kernel'):
         fe.plan_tile(t, d, m, heads)
+
+
+# ---------------------------------------------------------------------------
+# plan_encoder: which shape of the forward kernel takes a call (CPU: the plan
+# is a pure function of the shape; the kernel runs it on the card)
+# ---------------------------------------------------------------------------
+
+# every shape plan_tile takes: d and MLP width multiples of 128, even head
+# widths, windows that fit
+_ENVELOPE = [(t, d, d * r, h) for d in (128, 256, 384, 512, 768) for r in (1, 2, 4)
+             for h in (1, 2, 4, 8, 16, 64) for t in (1, 4, 7, 10, 16, 17, 32, 48)
+             if d % h == 0 and (d // h) % 2 == 0]
+
+
+def _accepted(t, d, m, h):
+    try:
+        fe.plan_tile(t, d, m, h)
+        return True
+    except ValueError:
+        return False
+
+
+@pytest.mark.parametrize('batch,t,d,m,heads,want', [
+    (1, 10, 256, 1024, 8, ('small', 8, 1, 1)),      # one window: one row tile
+    (14, 10, 256, 1024, 8, ('small', 8, 1, 1)),     # 14 clusters run at once
+    (15, 10, 256, 1024, 8, ('small', 8, 2, 3)),
+    (42, 10, 256, 1024, 8, ('small', 8, 2, 3)),
+    (43, 10, 256, 1024, 8, ('small', 8, 3, 4)),
+    (fe.SMALL_BATCH_MAX, 10, 256, 1024, 8, ('small', 8, 3, 4)),
+    (fe.SMALL_BATCH_MAX + 1, 10, 256, 1024, 8, ('large', 1, 3, 4)),
+    (4096, 10, 256, 1024, 8, ('large', 1, 3, 4)),   # plan_tile's tile
+    (37, 4, 128, 512, 4, ('small', 4, 1, 4)),       # 32-wide heads: 4 blocks
+    (3, 16, 768, 3072, 8, ('small', 8, 1, 1)),
+    (1, 10, 128, 512, 1, ('large', 1, 3, 4)),       # one head cannot be split
+    (1, 10, 128, 512, 64, ('small', 8, 1, 1)),      # 2-wide heads, 8 a block
+])
+def test_plan_encoder_picks_shape_cluster_and_tile(batch, t, d, m, heads, want):
+    plan = fe.plan_encoder(batch, t, d, m, heads)
+    assert (plan.shape, plan.cluster, plan.row_tiles, plan.windows) == want
+    assert plan == fe.plan_encoder(batch, t, d, m, heads)       # pure
+    if plan.shape == 'large':
+        assert (plan.row_tiles, plan.windows) == fe.plan_tile(t, d, m, heads)
+
+
+def test_plan_encoder_takes_every_shape_plan_tile_takes():
+    batches = (1, 2, 5, 37, fe.SMALL_BATCH_MAX, fe.SMALL_BATCH_MAX + 1, 4096)
+    taken = 0
+    for t, d, m, h in _ENVELOPE:
+        if not _accepted(t, d, m, h):
+            with pytest.raises(ValueError, match='fused encoder kernel'):
+                fe.plan_encoder(1, t, d, m, h)
+            continue
+        for b in batches:
+            p = fe.plan_encoder(b, t, d, m, h)
+            rows = 16 * p.row_tiles
+            assert p.windows == rows // t >= 1 and p.smem_bytes <= fe.MAX_SMEM
+            assert (p.shape == 'small') == (b <= fe.SMALL_BATCH_MAX and p.cluster > 1)
+            if p.shape == 'small':
+                # the fewest row tiles with which all clusters run at once,
+                # else the most that fit
+                def blocks(plan):
+                    return -(-b // plan.windows) * plan.cluster
+                fewer = fe._layout('small', t, d, m, h, p.row_tiles - 1, p.cluster)
+                more = fe._layout('small', t, d, m, h, p.row_tiles + 1, p.cluster)
+                assert blocks(p) <= fe._SMALL_BLOCKS_AT_ONCE or p.row_tiles == 3 or not more
+                assert fewer is None or blocks(fewer) > fe._SMALL_BLOCKS_AT_ONCE
+            taken += 1
+    assert taken > 500
+
+
+def _regions(p, t, d, m, heads):
+    """[(name, start, end, first phase, last phase)] of the plan's buffers,
+    phases in the kernel's order: 0 x and LN1, 1 q/k/v, 2 attention, 3
+    projection, 4 LN2, 5 W1, 6 W2."""
+    rows = 16 * p.row_tiles
+    row = rows * (d + 8)
+    regions = [('resid', 0, 4 * row, 0, 6), ('y1', p.off_y, p.off_y + 2 * row, 0, 1),
+               ('y2', p.off_y, p.off_y + 2 * row, 4, 5),
+               ('a', p.off_a, p.off_a + 2 * row, 2, 3),
+               ('qkv', p.off_q, p.off_q + 4 * rows * p.ld_q, 1, 2),
+               ('u', p.off_u, p.off_u + 2 * rows * p.ld_u, 5, 6),
+               ('scratch', p.off_s, p.off_s + 4 * p.scratch_floats, 0, 6),
+               ('rows', p.off_v, p.off_v + 4 * (9 * d + m if p.staged == 2 else 4 * d * p.staged),
+                0, 6)]
+    if p.shape == 'small':
+        regions.append(('barriers', p.off_b, p.off_b + 24, 0, 6))
+    if p.shape == 'small':
+        # the others' copies reach a and u from the phase before their own (a
+        # block may run ahead to its attention while this one is in q/k/v,
+        # and to its W1 while this one is in LN2)
+        regions = [(n, s, e, f - (n in ('a', 'u')), l) for n, s, e, f, l in regions]
+    return regions
+
+
+@pytest.mark.parametrize('batch', [1, 4, 4096])
+@pytest.mark.parametrize('t,d,m,heads', [(10, 256, 1024, 8), (4, 128, 512, 4),
+                                         (16, 768, 3072, 8), (48, 256, 1024, 8),
+                                         (10, 384, 1536, 8), (10, 128, 512, 64)])
+def test_plan_encoder_buffers_overlap_only_when_not_live_together(batch, t, d, m, heads):
+    p = fe.plan_encoder(batch, t, d, m, heads)
+    regions = _regions(p, t, d, m, heads)
+    for i, (n1, s1, e1, f1, l1) in enumerate(regions):
+        assert s1 % 16 == 0 and e1 <= p.smem_bytes, n1
+        for n2, s2, e2, f2, l2 in regions[i + 1:]:
+            if n1[0] == n2[0] == 'y':
+                continue
+            if s1 < e2 and s2 < e1:                  # the bytes overlap
+                assert l1 < f2 or l2 < f1, (n1, n2)
+
+
+@pytest.mark.parametrize('d,heads', [(256, 8), (128, 4), (384, 8), (128, 64), (768, 12)])
+def test_a_blocks_qkv_columns_are_its_heads_and_contiguous_in_fragment_order(d, heads):
+    """The small shape's block of rank r computes the q/k/v column blocks
+    base + (j / hb) * (d / 16) + j % hb, base = r * hb, hb = its heads' 16-column
+    blocks of q: those must be exactly its heads' q, k and v columns, and each
+    run of them one contiguous slice of the fragment-ordered Wqkv."""
+    from inferbiomechanics_tpu_torch.ops._layout import fragment_order
+    c = fe.small_cluster(d, heads)
+    assert c > 1
+    dh, mine = d // heads, heads // c
+    hb = mine * dh // 16
+    w = torch.randn(d, 3 * d, generator=torch.Generator().manual_seed(d + heads))
+    packed = fragment_order(w.to(torch.bfloat16))
+    per_block = d * 16                                 # elements of one column block
+    for rank in range(c):
+        blocks = [rank * hb + (j // hb) * (d // 16) + j % hb for j in range(3 * hb)]
+        cols = [16 * nb + i for nb in blocks for i in range(16)]
+        heads_cols = [part * d + h * dh + i for part in range(3)
+                      for h in range(rank * mine, (rank + 1) * mine) for i in range(dh)]
+        assert cols == heads_cols
+        got = torch.cat([packed[nb * per_block:(nb + 1) * per_block] for nb in blocks])
+        assert torch.equal(got, fragment_order(w[:, cols].to(torch.bfloat16)))
