@@ -13,8 +13,10 @@ Phases, each of which fails the run:
      the choice turns, odd batches), K2 at ten, each through both of its
      shapes (small: a cluster splits the columns; large: one block a row
      tile), at full width either side of the threshold (rtol = atol = 1e-2),
-     K4 at seven (2e-2 x
-     max|plain|), K3 at seven (dx and each of the 12 gradients within 2e-2 x
+     K4 at fifteen, each through both of its shapes (small: a cluster splits
+     every layer's columns; large: one block a tile of many windows), either
+     side of the threshold and in both output formats (2e-2 x max|plain|),
+     K3 at seven (dx and each of the 12 gradients within 2e-2 x
      that tensor's max|plain|, and two calls bitwise equal), with random
      biases and LayerNorm rows;
   4. the feedforward serving slice through the ``serve`` command's wiring:
@@ -41,14 +43,15 @@ Phases, each of which fails the run:
      (the symmetrized plain forward, 2 K4 launches a forward) and
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096 (K1 also at 64 and 512, with which of its two
-     kernels served each; K2 with which of its shapes): each kernel, its plain version (the f32
-     precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
+     kernels served each; K2 with which of its shapes; K4 also at 8, 64 and
+     512, in both output formats, with the shape that served each): each
+     kernel, its plain version (the f32 precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
      chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K3: autograd through
      that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
      ``F.elu`` x4 and ``F.linear`` x3, both output formats), by CUDA events
      and by profiler device time, beside the bound the card allows; the
      rate of K3's tile kernel on the tensor cores; registers, stack and
-     spills of K1's and K3's kernels as ptxas reports them; the 4-layer
+     spills of K1's, K3's and K4's kernels as ptxas reports them; the 4-layer
      encoder stack; /predict p50 of the three services; the weight
      packing of a train step, a whole train step (``pallas`` and ``vpu``) and
      where its time goes;
@@ -229,52 +232,48 @@ def _random_encoder_params(torch, fe, gen, d, mlp_ratio):
     return tuple(params)
 
 
-def _random_groundlink_params(torch, gen, c_in, features, fc_depth, taps=7):
-    """A flax-layout GroundLink tree: He-scaled kernels, random biases (the
-    model's init has zero biases, and a wrong bias add would go unseen)."""
-    def draw(*shape, fan_in):
-        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
-    tree, c = {}, c_in
-    for i, f in enumerate(features):
-        tree[f'Conv_{i}'] = {'kernel': draw(taps, c, f, fan_in=taps * c),
-                             'bias': 0.3 * torch.randn(f, generator=gen)}
-        c = f
-    for j in range(fc_depth - 1):
-        tree[f'Dense_{j}'] = {'kernel': draw(c, c, fan_in=c),
-                              'bias': 0.3 * torch.randn(c, generator=gen)}
-    tree[f'Dense_{fc_depth - 1}'] = {'kernel': draw(c, 30, fan_in=c)}
-    return tree
-
-
-def phase_k4_vs_plain(torch, fg, seed: int) -> float:
-    """Returns the largest error at the full-width cases."""
+def phase_k4_vs_plain(torch, fg, random_params, seed: int):
+    """K4's two shapes against the plain version: at full width either side
+    of the plan's threshold as the plan picks, and every case through the
+    other shape as well (the threshold moved); returns the worst error at
+    the full-width cases and the shape that served each case."""
     gen = torch.Generator().manual_seed(seed)
     full, small = GL_FULL['features'], (16, 16, 24, 24)
-    cases = [(1, 10, full, 3, 'last_frame'), (37, 10, full, 3, 'all_frames'),
-             (4096, 10, full, 3, 'last_frame'), (4096, 10, full, 3, 'all_frames'),
-             (37, 4, small, 3, 'all_frames'),     # the small test shape, padded widths
-             (37, 4, small, 3, 'last_frame'),
-             (37, 10, full, 1, 'last_frame')]     # the head right after the convs
-    worst = 0.0
+    edge = fg.SMALL_BATCH_MAX
+    cases = [(b, 10, full, 3, fmt) for b in (1, 2, 7, edge, edge + 1, 4099)
+             for fmt in ('last_frame', 'all_frames')]
+    cases += [(37, 4, small, 3, 'all_frames'),     # the small test shape, padded widths
+              (37, 4, small, 3, 'last_frame'),
+              (37, 10, full, 1, 'last_frame')]     # the head right after the convs
+    worst, served = 0.0, {}
     for b, t, features, fc_depth, fmt in cases:
         packed = fg.pack_groundlink_params(
-            _random_groundlink_params(torch, gen, GL_FULL['c_in'], features, fc_depth), 'cuda')
+            random_params(gen, GL_FULL['c_in'], features, fc_depth), 'cuda')
         x = torch.randn(b, t, GL_FULL['c_in'], generator=gen).cuda()
-        before = fg.launches
-        out = fg.fused_groundlink_forward(x, packed, fmt)
-        _check(fg.launches == before + 1, 'launch counter did not rise')
         ref = fg.groundlink_reference(x, packed.params, fmt, fc_depth)
-        torch.cuda.synchronize()
-        _check(out.shape == ref.shape == (b, t if fmt == 'all_frames' else 1, 30)
-               and bool(torch.isfinite(out).all()), f'bad output {tuple(out.shape)}')
-        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
-        print(f'[kernel] K4 B={b} T={t} {"->".join(map(str, features))} fc_depth '
-              f'{fc_depth} {fmt}: max abs err {err:.3g}, max |ref| {scale:.3g} '
-              f'(limit {GL_REL} x max |ref|)', flush=True)
-        _check(err <= GL_REL * scale, f'K4 disagrees with the plain version: {err}')
-        if features == full:
-            worst = max(worst, err)
-    return worst
+        planned = fg.plan_groundlink(b, t, packed.pwidths, packed.n_conv, fc_depth,
+                                     packed.taps, fmt != 'all_frames').shape
+        for shape in (planned, 'large' if planned == 'small' else 'small'):
+            fg.SMALL_BATCH_MAX = edge if shape == planned else (1 << 30 if shape == 'small' else 0)
+            before, shapes_before = fg.launches, dict(fg.shape_launches)
+            out = fg.fused_groundlink_forward(x, packed, fmt)
+            fg.SMALL_BATCH_MAX = edge
+            _check(fg.launches == before + 1 and
+                   fg.shape_launches[shape] == shapes_before[shape] + 1,
+                   f'launch counters did not rise for the {shape} shape')
+            torch.cuda.synchronize()
+            _check(out.shape == ref.shape == (b, t if fmt == 'all_frames' else 1, 30)
+                   and bool(torch.isfinite(out).all()), f'bad output {tuple(out.shape)}')
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            how = 'as planned' if shape == planned else 'threshold moved'
+            print(f'[kernel] K4 B={b} T={t} {"->".join(map(str, features))} fc_depth '
+                  f'{fc_depth} {fmt} ({shape} shape, {how}): max abs err {err:.3g}, max '
+                  f'|ref| {scale:.3g} (limit {GL_REL} x max |ref|)', flush=True)
+            _check(err <= GL_REL * scale, f'K4 disagrees with the plain version: {err}')
+            if features == full:
+                worst = max(worst, err)
+            served.setdefault(f'B={b} T={t} fc_depth {fc_depth} {fmt}', []).append(shape)
+    return worst, served
 
 
 def phase_k1_vs_plain(torch, fm, seed: int) -> float:
@@ -479,36 +478,6 @@ def _bf16_chain(torch, x, layers, act):
     return h.float()
 
 
-def _library_groundlink(torch, params, fc_depth):
-    """K4's speed baseline, not the precision reference: the same stack as
-    PyTorch's own bf16 calls (replicate ``F.pad`` + ``F.conv1d`` + ``F.elu``
-    per conv, then ``F.linear``), on weights cast and laid out once."""
-    import torch.nn.functional as F
-    bf = torch.bfloat16
-    convs, i = [], 0
-    while f'Conv_{i}' in params:
-        p = params[f'Conv_{i}']
-        convs.append((p['kernel'].permute(2, 1, 0).contiguous().to(bf), p['bias'].to(bf)))
-        i += 1
-    fcs = [(params[f'Dense_{j}']['kernel'].t().contiguous().to(bf),
-            params[f'Dense_{j}']['bias'].to(bf)) for j in range(fc_depth - 1)]
-    head = params[f'Dense_{fc_depth - 1}']['kernel'].t().contiguous().to(bf)
-
-    def forward(x, fmt):
-        h = x.to(bf).transpose(1, 2)                      # [B, C, T]
-        for w, b in convs:
-            half = w.shape[2] // 2
-            h = F.elu(F.conv1d(F.pad(h, (half, half), mode='replicate'), w, b))
-        h = h.transpose(1, 2)
-        if fmt != 'all_frames':
-            h = h[:, -1:, :]
-        for w, b in fcs:
-            h = F.elu(F.linear(h, w, b))
-        return F.linear(h, head).float()
-
-    return forward
-
-
 def _bound(mm_flops: float, f32_flops: float, n_bytes: float):
     """(ms, 'bytes' or 'operations'): the least time the card could take."""
     t_ops = mm_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
@@ -536,16 +505,25 @@ def k2_bound(batch: int, t: int, d: int, m: int):
 def k4_bound(batch: int, fmt: str, t: int, c_in: int, features, taps: int,
              fc_depth: int, c_out: int):
     """x read once (f32), the bf16 weights and f32 biases read once, the
-    output written once (f32); 2 operations per multiply-add: the convs on
-    every frame, the FC head on every frame or on the last, at true widths."""
+    output written once (f32); 2 operations per multiply-add, at true widths:
+    the convs on the frames the output needs and the FC head on every frame
+    (``all_frames``) or on the last. ``all_frames`` needs every frame of every
+    conv; ``last_frame`` only the last ``min(T, 1 + (n - 1 - l) (k // 2))``
+    frames of conv l of n (10, 7, 4 and 1 at T = 10, k = 7), since the head
+    reads frame T-1 alone (fused_groundlink.layer_frames): 32.34 us at B=4096
+    on the served model, where counting every frame gives 80.78 us."""
     widths = [c_in, *features]
-    conv = taps * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    n = len(features)
+    keep = [t if fmt == 'all_frames' else min(t, 1 + (n - 1 - l) * (taps // 2))
+            for l in range(n)]
+    conv_w = taps * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    conv = taps * sum(k * a * b for k, a, b in zip(keep, widths[:-1], widths[1:]))
     c = widths[-1]
     head = (fc_depth - 1) * c * c + c * c_out
     frames = t if fmt == 'all_frames' else 1
-    n_bytes = (batch * t * c_in * 4 + (conv + head) * 2
+    n_bytes = (batch * t * c_in * 4 + (conv_w + head) * 2
                + (sum(features) + (fc_depth - 1) * c) * 4 + batch * frames * c_out * 4)
-    return _bound(2.0 * batch * (t * conv + frames * head), 0.0, n_bytes)
+    return _bound(2.0 * batch * (conv + frames * head), 0.0, n_bytes)
 
 
 def k3_bound(batch: int, t: int, d: int, m: int):
@@ -1094,7 +1072,9 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
     from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
     from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
-    from inferbiomechanics_tpu_torch.ops.tune import library_encoder_layer
+    from inferbiomechanics_tpu_torch.ops.tune import (
+        library_encoder_layer, library_groundlink, random_groundlink_params,
+    )
     from inferbiomechanics_tpu_torch.train.augment import mirror_outputs, spec_from_dataset
     from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
     from inferbiomechanics_tpu_torch.train.checkpoint import (
@@ -1119,7 +1099,7 @@ def main() -> int:
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
     k2_err, k2_checked = phase_k2_vs_plain(torch, fe, args.seed)
-    k4_err = phase_k4_vs_plain(torch, fg, args.seed)
+    k4_err, k4_checked = phase_k4_vs_plain(torch, fg, random_groundlink_params, args.seed)
     k3_err = phase_k3_vs_plain(torch, fe, args.seed)
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
@@ -1388,14 +1368,19 @@ def main() -> int:
           f'weights and transposes; torch ops), CUDA events: {pack_ms * 1e3:.1f} us',
           flush=True)
 
-    k4 = {'last_frame': {}, 'all_frames': {}}
-    gl_tree = _random_groundlink_params(torch, gen, GL_FULL['c_in'], GL_FULL['features'],
-                                        GL_FULL['fc_depth'])
+    k4, k4_served = {'last_frame': {}, 'all_frames': {}}, {}
+    gl_tree = random_groundlink_params(gen, GL_FULL['c_in'], GL_FULL['features'],
+                                       GL_FULL['fc_depth'])
     gl_packed = fg.pack_groundlink_params(gl_tree, 'cuda')
-    gl_library = _library_groundlink(torch, gl_packed.params, GL_FULL['fc_depth'])
+    gl_library = library_groundlink(gl_packed.params, GL_FULL['fc_depth'])
     with torch.no_grad():
         for fmt in k4:
-            for b in (1, 4096):
+            for b in (1, 8, 64, 512, 4096):
+                plan = fg.plan_groundlink(b, GL_FULL['t'], gl_packed.pwidths, gl_packed.n_conv,
+                                          gl_packed.fc_depth, gl_packed.taps,
+                                          fmt != 'all_frames')
+                k4_served[f'{b} {fmt}'] = f'{plan.shape} ({plan.windows} windows a tile, ' \
+                                          f'{plan.blocks(b)} blocks)'
                 xt = torch.randn(b, GL_FULL['t'], GL_FULL['c_in'], generator=gen).cuda()
                 fns = {
                     'kernel': lambda: fg.fused_groundlink_forward(xt, gl_packed, fmt),  # noqa: B023
@@ -1410,7 +1395,8 @@ def main() -> int:
                       f'baseline only)', flush=True)
                 ms, dev = _time_three(torch, fns)
                 k4[fmt][b] = dict(ms=ms, dev=dev, bound=k4_bound(b, fmt, **GL_FULL))
-                _print_times(card, f'K4 177->128->128->256->256 k=7 T=10 fc 3 {fmt}', b, ms,
+                _print_times(card, f'K4 177->128->128->256->256 k=7 T=10 fc 3 {fmt} '
+                             f'({k4_served[f"{b} {fmt}"]})', b, ms,
                              dev, 'bf16 F.conv1d/F.linear chain', k4[fmt][b]['bound'])
 
     def entry(meta, launches, err, shape, times, **more):
@@ -1459,6 +1445,14 @@ def main() -> int:
               all_frames={str(b): dict(ms=v['ms'], device_us=v['dev'], bound_ms=v['bound'][0],
                                        bound_by=v['bound'][1])
                           for b, v in k4['all_frames'].items()},
+              last_frame={str(b): dict(ms=v['ms'], bound_ms=v['bound'][0])
+                          for b, v in k4['last_frame'].items()},
+              served_by=k4_served, small_batch_max=fg.SMALL_BATCH_MAX,
+              large_windows=fg.LARGE_WINDOWS,
+              large_windows_all_frames=fg.LARGE_WINDOWS_ALL_FRAMES,
+              large_blocks=fg.LARGE_BLOCKS,
+              checked_shapes=k4_checked,
+              ptxas=_ptxas_report(info['log'], 'fused_groundlink_kernel'),
               extras_launches={'tta_mirror (2 a forward)': k4_tta_launches,
                                'K1 in a 3-member ensemble (3 a forward)': k1_ens_launches},
               predict_p50_ms={'1': gl_p50[0], '4096': gl_p50[1]}),

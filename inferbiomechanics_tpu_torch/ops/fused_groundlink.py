@@ -6,7 +6,12 @@ The kernel itself is ``csrc/fused_groundlink.cu`` (it replaces the Pallas
 (:func:`groundlink_reference`), the one-time weight packing
 (:func:`pack_groundlink_params`, counterpart of
 ``groundlink_params_from_tree``) and the wrapper
-(:func:`fused_groundlink_forward`).
+(:func:`fused_groundlink_forward`), which launches the kernel in one of two
+shapes that :func:`plan_groundlink` picks from the shape of the call: up to
+:data:`SMALL_BATCH_MAX` windows a cluster of blocks splits every layer's
+columns, above it one block takes a tile of many windows. In ``last_frame``
+mode both trim each conv to the frames the head needs
+(:func:`layer_frames`).
 
 Parameters keep the JAX package's layout at this module's public functions,
 the flax ``Groundlink`` tree with tensors for leaves::
@@ -17,14 +22,16 @@ the flax ``Groundlink`` tree with tensors for leaves::
 
 :func:`fused_groundlink_forward` launches the kernel for a CUDA tensor and
 uses :func:`groundlink_reference` only for a CPU tensor; any other device
-raises. ``launches`` counts the kernel launches in this process.
+raises; nothing falls back. ``launches`` counts the kernel launches in this
+process, ``shape_launches`` the same by shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,14 +39,43 @@ from inferbiomechanics_tpu_torch.ops import _build
 from inferbiomechanics_tpu_torch.ops._layout import fragment_order
 
 # the kernel's limits (see csrc/fused_groundlink.cu and check_kernel_shape)
-MAX_ROW_TILES = 4      # 16-row mma tiles a block owns: T <= 64
+MAX_FRAMES = 64        # frames a window
 MAX_LAYERS = 12        # convs + FC layers + head
 MAX_WIDTH = 512        # any layer's input width, after padding
+MAX_SMEM = 232448      # bytes of shared memory a block may use
 _K_UNIT = 64           # a layer's input width is padded to a multiple of this
 _N_UNIT = 16           # the head's output width is padded to a multiple of this
 
-# kernel launches so far (for checking that a path went through the kernel)
+# the kernel's two shapes (plan_groundlink): the warps of a block, the most
+# 16-row tiles a warp of the small shape holds, the ints of a plan, the cycle
+# counters a block. The largest batch the small shape takes, the most windows
+# a block of the large shape takes (last_frame, all_frames: untrimmed, a
+# 16-window tile leaves room for one block a multiprocessor), and the blocks
+# the large shape spreads a batch over, which ops/tune.py sets by timing both
+# shapes on an H100
+_WARPS = 8
+_SMALL_ROW_TILES = 4
+_PLAN_INTS = 11 + MAX_LAYERS
+_SMS = 132            # multiprocessors of an H100 SXM
+_TWO_BLOCKS_SMEM = 115712   # the most shared memory a block may take for two to share one
+_CHUNK = 4             # k-steps a chunk; a tap is a whole number of them
+_PHASES = 1 + 2 * MAX_LAYERS
+SMALL_BATCH_MAX = 128
+LARGE_WINDOWS = 16
+LARGE_WINDOWS_ALL_FRAMES = 6
+LARGE_BLOCKS = 132
+# blocks of small-shape clusters an H100 runs at once (14 clusters of 8;
+# fused_encoder's measurement)
+_SMALL_BLOCKS_AT_ONCE = 112
+
+# kernel launches so far (for checking that a path went through the kernel),
+# and by the shape that ran
 launches = 0
+shape_launches = {'small': 0, 'large': 0}
+# None, or an int64 CUDA tensor that the next launches fill with each block's
+# cycles by phase ([blocks, 25]: stage x, then each layer's product and the
+# exchange after it; phase_names; ops/tune.py reads them)
+phase_clocks: Optional[torch.Tensor] = None
 
 
 def _round_up(d: int, unit: int) -> int:
@@ -181,18 +217,20 @@ def pack_groundlink_params(params: Mapping, device) -> PackedGroundlink:
                             tuple(pwidths), n_conv, n_fc, taps, plain)
 
 
+
+
 def check_kernel_shape(t: int, pwidths: Sequence[int], n_conv: int, fc_depth: int,
                        taps: int) -> None:
     """Raise if the kernel cannot take this model.
 
-    Its limits: 1 <= T <= 64 frames (a block owns whole windows in at most
-    four 16-row tiles); an odd number of taps; at least one conv and one
-    Dense layer (the head), at most 12 layers in all; every layer's input
-    width, after padding to a multiple of 64, at most 512 (two bf16 buffers
-    of 64 rows in a block's shared memory).
+    Its limits: 1 <= T <= 64 frames (a tile holds whole windows); an odd
+    number of taps; at least one conv and one Dense layer (the head), at most
+    12 layers in all; every layer's input width, after padding to a multiple
+    of 64, at most 512. Every shape inside them has a plan
+    (:func:`plan_groundlink`).
     """
-    if not 1 <= t <= 16 * MAX_ROW_TILES:
-        raise ValueError(f'fused GroundLink kernel takes 1..{16 * MAX_ROW_TILES} '
+    if not 1 <= t <= MAX_FRAMES:
+        raise ValueError(f'fused GroundLink kernel takes 1..{MAX_FRAMES} '
                          f'frames a window, got {t}')
     if taps < 1 or taps % 2 != 1:
         raise ValueError(f'fused GroundLink kernel takes an odd kernel size, got {taps}')
@@ -204,13 +242,212 @@ def check_kernel_shape(t: int, pwidths: Sequence[int], n_conv: int, fc_depth: in
                          f'{MAX_WIDTH}, got {max(pwidths[:-1])} (padded)')
 
 
+def layer_frames(t: int, n_conv: int, taps: int, last_frame: bool
+                 ) -> Tuple[int, Tuple[int, ...]]:
+    """``(frames of x, frames of each conv's output)`` that the forward must
+    compute for every window: the last ones of the window.
+
+    ``all_frames`` needs all T everywhere. ``last_frame`` reads frame T-1 of
+    the last conv only, and a conv's frame f reads frames f - k/2 .. f + k/2
+    (clamped to the window), so conv l must produce the last
+    ``min(T, 1 + (n_conv - 1 - l) * (k // 2))`` frames and x the last
+    ``min(T, 1 + n_conv * (k // 2))``: 13 -> 10, 7, 4, 1 at T = 10, k = 7,
+    four convs (x is clamped to 10).
+    """
+    if not last_frame:
+        return t, (t,) * n_conv
+    half = taps // 2
+    keep = tuple(min(t, 1 + (n_conv - 1 - l) * half) for l in range(n_conv))
+    return min(t, 1 + n_conv * half), keep
+
+
+def owned_blocks(ncb: int, cluster: int, rank: int) -> Tuple[int, int]:
+    """``(first, count)`` of the 16-column blocks of a layer with ``ncb`` of
+    them that block ``rank`` of a cluster of ``cluster`` computes: a balanced
+    split into contiguous runs, so each is computed by exactly one block (the
+    two of a 32-wide head by two blocks of eight)."""
+    first = rank * ncb // cluster
+    return first, (rank + 1) * ncb // cluster - first
+
+
+def layer_split(n_own: int, nk: int) -> int:
+    """Parts the small shape splits a layer's ``nk`` k-steps into, where a
+    block owns ``n_own`` column blocks: one warp an item, so ``8 // n_own``,
+    at most one a chunk of 4 k-steps (the kernel's ``layer_split``); part p
+    takes chunks ``[p * nk/4 // split, (p + 1) * nk/4 // split)``."""
+    if n_own <= 0:
+        return 1
+    return max(1, min(_WARPS // n_own, nk // _CHUNK))
+
+
+def small_cluster(pwidths: Sequence[int]) -> int:
+    """Blocks of the small shape's cluster: 8 where every layer but the head
+    has at least 8 column blocks (128 columns), else 4 (every such layer has
+    at least 4: widths are multiples of 64)."""
+    return 8 if min(pwidths[1:-1]) >= 8 * 16 else 4
+
+
+@dataclass(frozen=True)
+class GroundlinkPlan:
+    """The launch :func:`plan_groundlink` chose.
+
+    ``shape`` is ``'small'`` (a cluster of ``cluster`` blocks shares a tile of
+    ``windows`` windows; each owns a balanced share of every layer's
+    16-column blocks, :func:`owned_blocks`, and splits its k-steps over the
+    warps where it owns fewer blocks than it has warps, :func:`layer_split`)
+    or ``'large'`` (one block a tile, all the columns). ``row_tiles`` is the
+    most 16-row mma tiles a warp holds accumulators for (1 or 4 small, 4
+    large: a layer with more row tiles splits them into groups), ``depth``
+    the k-steps of weights a warp keeps in flight: 16, but 8 in a large grid
+    where two blocks share a multiprocessor (more blocks than
+    multiprocessors, and room for two in shared memory). ``keep_in``
+    and ``keep`` are the frames of each window of x and of every layer's
+    output that the tile holds (:func:`layer_frames`; an FC layer keeps what
+    the last conv kept), ``rows_x`` and ``rows`` their rows, padded to 16.
+    Offsets are bytes into the block's shared memory: buffer P (x and the
+    outputs of odd layers) at 0, Q (even layers) at ``off_q``, the f32
+    biases of every layer but the head at ``off_v``, the f32 scratch of split
+    products (``scratch_floats``) at ``off_s``, the small shape's mbarriers
+    (one a layer but the head) at ``off_b``.
+    """
+    shape: str
+    cluster: int
+    windows: int
+    row_tiles: int
+    depth: int
+    keep_in: int
+    keep: Tuple[int, ...]
+    rows_x: int
+    rows: Tuple[int, ...]
+    off_q: int
+    off_v: int
+    off_s: int
+    scratch_floats: int
+    off_b: int
+    smem_bytes: int
+
+    def as_ints(self) -> Tuple[int, ...]:
+        keep = self.keep + (0,) * (MAX_LAYERS - len(self.keep))
+        return (int(self.shape == 'small'), self.cluster, self.windows, self.row_tiles,
+                self.depth, self.keep_in, self.off_q, self.off_v, self.off_s, self.scratch_floats,
+                self.off_b,
+                *keep)
+
+    def blocks(self, batch: int) -> int:
+        return -(-batch // self.windows) * self.cluster
+
+
+def _layout(shape: str, t: int, pwidths: Sequence[int], n_conv: int, taps: int,
+            last_frame: bool, windows: int, cluster: int,
+            depth: int = 16) -> Optional[GroundlinkPlan]:
+    """Shared memory of one shape at one tile; None if it does not fit."""
+    n_layers = len(pwidths) - 1
+    keep_in, conv_keep = layer_frames(t, n_conv, taps, last_frame)
+    keep = conv_keep + (conv_keep[-1],) * (n_layers - n_conv)
+    rows_x = _round_up(windows * keep_in, 16)
+    rows = tuple(_round_up(windows * k, 16) for k in keep)
+    # layer l writes Q for even l, P for odd l; the head writes device memory
+    p_bytes = max([rows_x * pwidths[0] * 2] +
+                  [rows[l] * pwidths[l + 1] * 2 for l in range(1, n_layers - 1, 2)])
+    q_bytes = max([rows[l] * pwidths[l + 1] * 2 for l in range(0, n_layers - 1, 2)])
+    off_q = _round_up(p_bytes, 16)
+    off_v = off_q + _round_up(q_bytes, 16)
+    off_s = off_v + _round_up(4 * sum(pwidths[1:-1]), 16)
+    scratch = 0
+    if shape == 'small':
+        if max(rows) > 16 * _SMALL_ROW_TILES:
+            return None
+        row_tiles = 1 if max(rows) <= 16 else _SMALL_ROW_TILES
+        for l in range(n_layers):
+            ncb = pwidths[l + 1] // 16
+            nk = (taps if l < n_conv else 1) * pwidths[l] // 16
+            for rank in range(cluster):
+                n_own = owned_blocks(ncb, cluster, rank)[1]
+                split = layer_split(n_own, nk)
+                if split > 1:
+                    scratch = max(scratch, split * n_own * rows[l] * 16)
+        off_b = off_s + scratch * 4
+        end = off_b + 8 * (n_layers - 1)
+    else:
+        row_tiles = 4
+        off_b = end = off_s
+    if end > MAX_SMEM:
+        return None
+    return GroundlinkPlan(shape, cluster, windows, row_tiles, depth, keep_in, keep, rows_x, rows,
+                          off_q, off_v, off_s, scratch, off_b, end)
+
+
+def plan_groundlink(batch: int, t: int, pwidths: Sequence[int], n_conv: int,
+                    fc_depth: int, taps: int, last_frame: bool) -> GroundlinkPlan:
+    """Which shape of the kernel takes ``batch`` windows of ``t`` frames of a
+    model with padded widths ``pwidths``, and its shared-memory layout; a
+    function of these alone. Raises for a shape outside the kernel's limits
+    (:func:`check_kernel_shape`).
+
+    Small, up to :data:`SMALL_BATCH_MAX` windows: a cluster of
+    :func:`small_cluster` blocks a tile of the fewest windows with which all
+    the batch's clusters run at once (14 clusters of 8), at most as many as 64
+    rows hold. Otherwise large: one block a tile of ``ceil(batch /
+    LARGE_BLOCKS)`` windows (at most one block on each multiprocessor), at
+    most :data:`LARGE_WINDOWS` (``last_frame``) or
+    :data:`LARGE_WINDOWS_ALL_FRAMES`, fewer where shared memory runs out.
+    """
+    return _plan_groundlink(batch, t, tuple(pwidths), n_conv, fc_depth, taps,
+                            bool(last_frame), SMALL_BATCH_MAX,
+                            LARGE_WINDOWS if last_frame else LARGE_WINDOWS_ALL_FRAMES,
+                            LARGE_BLOCKS)
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_groundlink(batch: int, t: int, pwidths: Tuple[int, ...], n_conv: int,
+                     fc_depth: int, taps: int, last_frame: bool, small_batch_max: int,
+                     large_windows: int, large_blocks: int) -> GroundlinkPlan:
+    """:func:`plan_groundlink` at given thresholds, computed once a shape."""
+    if batch < 1:
+        raise ValueError(f'plan_groundlink: batch {batch}')
+    if len(pwidths) != n_conv + fc_depth + 1:
+        raise ValueError(f'{len(pwidths)} widths for {n_conv} convs and {fc_depth} Dense layers')
+    check_kernel_shape(t, pwidths, n_conv, fc_depth, taps)
+    if batch <= small_batch_max:
+        cluster = small_cluster(pwidths)
+        at_once = _SMALL_BLOCKS_AT_ONCE // cluster
+        windows = min(max(1, 16 * _SMALL_ROW_TILES // t), -(-batch // at_once))
+        plan = _layout('small', t, pwidths, n_conv, taps, last_frame, windows, cluster)
+        if plan is not None:
+            return plan
+    windows = max(1, min(large_windows, -(-batch // large_blocks)))
+    while True:
+        plan = _layout('large', t, pwidths, n_conv, taps, last_frame, windows, 1, 8)
+        if plan is not None:
+            if -(-batch // windows) <= _SMS or plan.smem_bytes > _TWO_BLOCKS_SMEM:
+                plan = _layout('large', t, pwidths, n_conv, taps, last_frame, windows, 1, 16)
+            break
+        if windows == 1:
+            break
+        windows -= 1
+    if plan is None:
+        raise ValueError(f'fused GroundLink kernel: a window of {t} frames at widths '
+                         f'{pwidths} does not fit a block')
+    return plan
+
+
+def phase_names(n_conv: int, fc_depth: int) -> Tuple[str, ...]:
+    """Names of the first ``1 + 2 (n_conv + fc_depth)`` of the kernel's cycle
+    counters (:data:`phase_clocks`)."""
+    layers = [f'conv {i}' for i in range(n_conv)] + \
+             [f'fc {j}' for j in range(fc_depth - 1)] + ['head']
+    return ('stage x',) + tuple(f'{name} {what}' for name in layers
+                                for what in ('product', 'exchange'))
+
+
 def fused_groundlink_forward(x: torch.Tensor, packed: PackedGroundlink,
                              output_data_format: str = 'all_frames') -> torch.Tensor:
     """x [B, T, C_in] float32 -> head vector [B, out_frames, 30] float32
     through the fused kernel; ``out_frames`` is T for ``all_frames``, else 1.
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    :func:`groundlink_reference`; any other device raises.
+    A CUDA tensor launches the kernel in the shape :func:`plan_groundlink`
+    names (or raises); a CPU tensor takes :func:`groundlink_reference`; any
+    other device raises.
     """
     global launches
     if x.device.type == 'cpu':
@@ -226,21 +463,33 @@ def fused_groundlink_forward(x: torch.Tensor, packed: PackedGroundlink,
     if packed.device != x.device:
         raise ValueError(f'weights on {packed.device}, input on {x.device}')
     batch, t = int(x.shape[0]), int(x.shape[1])
-    check_kernel_shape(t, packed.pwidths, packed.n_conv, packed.fc_depth, packed.taps)
     last_frame = output_data_format != 'all_frames'
+    plan = plan_groundlink(max(batch, 1), t, packed.pwidths, packed.n_conv, packed.fc_depth,
+                           packed.taps, last_frame)
     c_out = packed.widths[-1]
     out = torch.empty((batch, 1 if last_frame else t, c_out), dtype=torch.float32,
                       device=x.device)
     if batch == 0:
         return out
+    clocks = None
+    if phase_clocks is not None:
+        need = plan.blocks(batch) * _PHASES
+        if (phase_clocks.dtype != torch.int64 or phase_clocks.device != x.device
+                or phase_clocks.numel() < need):
+            raise ValueError(f'phase_clocks: an int64 tensor on {x.device} of at least '
+                             f'{need} elements')
+        clocks = phase_clocks.data_ptr()
     lib = _build.library()
     pwidths = (ctypes.c_int * len(packed.pwidths))(*packed.pwidths)
+    plan_ints = (ctypes.c_int * _PLAN_INTS)(*plan.as_ints())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ib_fused_groundlink_forward(
             x.data_ptr(), batch, t, x.shape[2], packed.weights.data_ptr(),
             packed.biases.data_ptr(), pwidths, packed.n_conv, packed.fc_depth,
-            packed.taps, int(last_frame), out.data_ptr(), c_out, stream)
+            packed.taps, int(last_frame), out.data_ptr(), c_out, plan_ints,
+            plan.smem_bytes, clocks, stream)
     _build.check(lib, code, 'fused_groundlink_forward launch')
     launches += 1
+    shape_launches[plan.shape] += 1
     return out

@@ -2,6 +2,7 @@
 
     python -m inferbiomechanics_tpu_torch.ops.tune [--quick]
     python -m inferbiomechanics_tpu_torch.ops.tune --kernel encoder [--quick] [--baseline DIR]
+    python -m inferbiomechanics_tpu_torch.ops.tune --kernel groundlink [--quick] [--baseline DIR]
 
 K1 (the default): builds the kernels, prints what ``-Xptxas -v`` says about
 the MLP kernels, holds the kernel against :func:`fused_mlp.mlp_reference` over
@@ -21,6 +22,16 @@ checkout in DIR (another commit, unpacked with ``git archive``) in the same
 run, before and after this tree's: baseline, this tree, this tree,
 baseline.
 
+K4 (``--kernel groundlink``): the fused GroundLink forward at the served
+width (177 -> 128 -> 128 -> 256 -> 256, k = 7, T = 10, fc_depth 3): both
+shapes against :func:`fused_groundlink.groundlink_reference` at several
+shapes, the cycle counters by layer and exchange, the large shape's tile
+(windows a block) swept at a few batches, then both shapes, the bf16
+``F.conv1d``/``F.linear`` chain and, with ``--baseline DIR``, the other
+checkout's K4 timed at B = 1 ... 4096 in both output formats, which is how
+``fused_groundlink.SMALL_BATCH_MAX``, ``LARGE_WINDOWS`` and
+``LARGE_BLOCKS`` were chosen.
+
 It needs a CUDA device and prints the card's name with the numbers.
 """
 
@@ -38,6 +49,7 @@ import torch
 
 from inferbiomechanics_tpu_torch.ops import _build
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
 from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
 
 FULL = [1770, 512, 512, 30]
@@ -72,9 +84,9 @@ def _time_us(fn, iters):
     return start.elapsed_time(end) * 1e3 / iters
 
 
-def _device_us(fn, iters=20):
-    """Device time a call: the GPU kernels' durations that ``torch.profiler``
-    traced over ``iters`` calls, summed, over ``iters``."""
+def _device_records(fn, iters=20):
+    """The durations (us) of the GPU kernels that ``torch.profiler`` traced over
+    ``iters`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -83,8 +95,13 @@ def _device_us(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / iters
+    return [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_us(fn, iters=20):
+    """Device time a call: the GPU kernels' durations that ``torch.profiler``
+    traced over ``iters`` calls, summed, over ``iters``."""
+    return sum(_device_records(fn, iters)) / iters
 
 
 # K2: the served width, and the batches it is timed at
@@ -189,11 +206,12 @@ def encoder_clocks():
     fe.SMALL_BATCH_MAX = threshold
 
 
-def _baseline_times(tree: str) -> int:
-    """Run :func:`encoder_times` of this file on the package of the checkout
-    in ``tree``, in a process of its own."""
+def _baseline_times(tree: str, kernel: str = 'encoder') -> int:
+    """Run the times of ``kernel`` (:func:`encoder_times`,
+    :func:`groundlink_times`) of this file on the package of the checkout in
+    ``tree``, in a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(Path(tree).resolve()))
-    return subprocess.run([sys.executable, str(Path(__file__).resolve()), '--kernel', 'encoder',
+    return subprocess.run([sys.executable, str(Path(__file__).resolve()), '--kernel', kernel,
                            '--times-only'], env=env, cwd=tree).returncode
 
 
@@ -256,19 +274,295 @@ def encoder_main(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+# K4: the served width, the batches it is timed at, and the cases both shapes
+# are checked at: (batch, t, c_in, features, fc_depth, taps, format)
+GL = dict(t=10, c_in=177, features=(128, 128, 256, 256), fc_depth=3, taps=7)
+GL_BATCHES = (1, 2, 4, 8, 14, 15, 28, 42, 56, 64, 84, 128, 256, 512, 1024, 2048, 4096)
+GL_BOTH_FORMATS = (1, 8, 64, 512, 4096)
+GL_SHAPES = [
+    (1, 10, 177, GL['features'], 3, 7, 'last_frame'),
+    (1, 10, 177, GL['features'], 3, 7, 'all_frames'),
+    (7, 10, 177, GL['features'], 3, 7, 'last_frame'),
+    (56, 10, 177, GL['features'], 3, 7, 'all_frames'),
+    (57, 10, 177, GL['features'], 3, 7, 'last_frame'),
+    (4099, 10, 177, GL['features'], 3, 7, 'last_frame'),
+    (4099, 10, 177, GL['features'], 3, 7, 'all_frames'),
+    (37, 4, 177, (16, 16, 24, 24), 3, 7, 'last_frame'),
+    (37, 10, 177, GL['features'], 1, 7, 'last_frame'),
+    (5, 7, 100, (64, 48), 2, 7, 'all_frames'),
+    (3, 64, 177, (32, 32), 2, 7, 'last_frame'),
+    (200, 1, 177, (512,), 2, 7, 'all_frames'),
+    (9, 10, 177, (32, 32), 3, 3, 'all_frames'),
+    (300, 40, 177, (512, 512), 2, 7, 'all_frames'),
+]
+GL_REL = 1e-2        # x max|plain|, as tests/test_torch_cuda_kernels.py holds K4
+GL_TILES = (2, 4, 6, 8, 12, 16, 20, 24, 32)
+
+
+def random_groundlink_params(gen, c_in, features, fc_depth, taps=7):
+    """A seeded flax-layout GroundLink tree with He-scaled kernels and random
+    biases (the model's init has zero biases, and a wrong bias add would go
+    unseen)."""
+    def draw(*shape, fan_in):
+        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
+    tree, c = {}, c_in
+    for i, f in enumerate(features):
+        tree[f'Conv_{i}'] = {'kernel': draw(taps, c, f, fan_in=taps * c),
+                             'bias': 0.3 * torch.randn(f, generator=gen)}
+        c = f
+    for j in range(fc_depth - 1):
+        tree[f'Dense_{j}'] = {'kernel': draw(c, c, fan_in=c),
+                              'bias': 0.3 * torch.randn(c, generator=gen)}
+    tree[f'Dense_{fc_depth - 1}'] = {'kernel': draw(c, 30, fan_in=c)}
+    return tree
+
+
+def library_groundlink(params, fc_depth):
+    """K4's speed baseline, not the precision reference: the same stack as
+    PyTorch's own bf16 calls (replicate ``F.pad`` + ``F.conv1d`` + ``F.elu``
+    per conv, then ``F.linear``), on weights cast and laid out once; returns
+    ``forward(x, fmt)``. Timed beside the kernel, used nowhere in the port."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    convs, i = [], 0
+    while f'Conv_{i}' in params:
+        p = params[f'Conv_{i}']
+        convs.append((p['kernel'].permute(2, 1, 0).contiguous().to(bf), p['bias'].to(bf)))
+        i += 1
+    fcs = [(params[f'Dense_{j}']['kernel'].t().contiguous().to(bf),
+            params[f'Dense_{j}']['bias'].to(bf)) for j in range(fc_depth - 1)]
+    head = params[f'Dense_{fc_depth - 1}']['kernel'].t().contiguous().to(bf)
+
+    def forward(x, fmt):
+        h = x.to(bf).transpose(1, 2)                      # [B, C, T]
+        for w, b in convs:
+            half = w.shape[2] // 2
+            h = F.elu(F.conv1d(F.pad(h, (half, half), mode='replicate'), w, b))
+        h = h.transpose(1, 2)
+        if fmt != 'all_frames':
+            h = h[:, -1:, :]
+        for w, b in fcs:
+            h = F.elu(F.linear(h, w, b))
+        return F.linear(h, head).float()
+
+    return forward
+
+
+def _gl_shapes(forced):
+    """The shapes to time: this tree's two (the threshold moved so that each
+    takes every batch), or whatever the loaded tree's plan picks."""
+    if forced and hasattr(fg, 'plan_groundlink'):
+        return {'small': 1 << 30, 'large': 0}
+    return {'kernel': None}
+
+
+def _gl_formats(batch):
+    return ('last_frame', 'all_frames') if batch in GL_BOTH_FORMATS else ('last_frame',)
+
+
+def _sustained(run, iters=1000):
+    """CUDA-event time a launch over a burst of 10 launches and over a run of
+    ``iters``, and the median SM clock (MHz) and power draw (W) that
+    ``nvidia-smi`` sampled every 50 ms during the long run."""
+    burst = _time_us(run, 10)
+    smi = subprocess.Popen(['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+                            '--format=csv,noheader,nounits', '-lms', '50'],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        us = _time_us(run, iters)
+    finally:
+        smi.terminate()
+        lines = smi.communicate(timeout=30)[0].splitlines()
+    samples = sorted(tuple(float(v) for v in line.split(',')) for line in lines
+                     if line.count(',') == 1 and '[' not in line)
+    mid = samples[len(samples) // 2] if samples else (None, None)
+    return {'burst_us': burst, 'sustained_us': us, 'sm_mhz': mid[0],
+            'power_w': sorted(p for _, p in samples)[len(samples) // 2] if samples else None,
+            'samples': len(samples)}
+
+
+def groundlink_times(tag, forced=True):
+    """JSON lines of K4's time at the served width at every batch of
+    :data:`GL_BATCHES` (both formats at :data:`GL_BOTH_FORMATS`): CUDA events
+    around 200 launches and profiler device time, for each shape of this
+    tree's kernel (or for the kernel of the tree on ``sys.path``); at the
+    largest batch also :func:`_sustained` (clock and power) but for the small
+    shape."""
+    gen = torch.Generator().manual_seed(0)
+    packed = fg.pack_groundlink_params(
+        random_groundlink_params(gen, GL['c_in'], GL['features'], GL['fc_depth'], GL['taps']),
+        'cuda')
+    threshold = getattr(fg, 'SMALL_BATCH_MAX', None)
+    for batch in GL_BATCHES:
+        x = torch.randn(batch, GL['t'], GL['c_in'], generator=gen).cuda()
+        for fmt in _gl_formats(batch):
+            row = {'tree': tag, 'batch': batch, 'format': fmt}
+            for name, limit in _gl_shapes(forced).items():
+                if limit is not None:
+                    fg.SMALL_BATCH_MAX = limit
+                run = lambda: fg.fused_groundlink_forward(x, packed, fmt)   # noqa: E731
+                row[f'{name}_us'] = _time_us(run, 200)
+                records = _device_records(run)
+                row[f'{name}_device_us'] = sum(records) / 20
+                # one launch a call: fewer records than calls is a trace that lost some
+                row[f'{name}_records'] = len(records)
+                row[f'{name}_us_a_record'] = sum(records) / max(len(records), 1)
+                if batch == GL_BATCHES[-1] and name != 'small':
+                    row[f'{name}_sustained'] = _sustained(run)
+            if threshold is not None:
+                fg.SMALL_BATCH_MAX = threshold
+            print(json.dumps(row), flush=True)
+
+
+def groundlink_clocks():
+    """JSON lines of the kernel's cycle counters by layer and exchange (thread
+    0 of each block, clock64 between the phases' barriers): the mean over the
+    blocks and the slowest block's total, for each shape at a few batches."""
+    gen = torch.Generator().manual_seed(0)
+    packed = fg.pack_groundlink_params(
+        random_groundlink_params(gen, GL['c_in'], GL['features'], GL['fc_depth'], GL['taps']),
+        'cuda')
+    names = fg.phase_names(len(GL['features']), GL['fc_depth'])
+    threshold = fg.SMALL_BATCH_MAX
+    for shape, batch, fmt in (('small', 1, 'last_frame'), ('small', 1, 'all_frames'),
+                              ('small', 56, 'last_frame'), ('large', 1, 'last_frame'),
+                              ('large', 4096, 'last_frame'), ('large', 4096, 'all_frames')):
+        fg.SMALL_BATCH_MAX = 1 << 30 if shape == 'small' else 0
+        plan = fg.plan_groundlink(batch, GL['t'], packed.pwidths, packed.n_conv,
+                                  packed.fc_depth, packed.taps, fmt != 'all_frames')
+        blocks = plan.blocks(batch)
+        x = torch.randn(batch, GL['t'], GL['c_in'], generator=gen).cuda()
+        fg.phase_clocks = torch.zeros(blocks * fg._PHASES, dtype=torch.int64, device='cuda')
+        for _ in range(3):          # the last call's counts stand
+            fg.fused_groundlink_forward(x, packed, fmt)
+        torch.cuda.synchronize()
+        cyc = fg.phase_clocks.view(blocks, fg._PHASES)[:, :len(names)].double()
+        fg.phase_clocks = None
+        print(json.dumps({'clocks': shape, 'batch': batch, 'format': fmt, 'blocks': blocks,
+                          'windows': plan.windows, 'cluster': plan.cluster,
+                          'mean_cycles': dict(zip(names, cyc.mean(0).tolist())),
+                          'slowest_block_cycles': float(cyc.sum(1).max())}), flush=True)
+    fg.SMALL_BATCH_MAX = threshold
+
+
+def groundlink_tiles():
+    """JSON lines of the large shape's device time at B = 512, 1024 and 4096
+    for each tile of :data:`GL_TILES` windows a block, in both formats."""
+    gen = torch.Generator().manual_seed(0)
+    packed = fg.pack_groundlink_params(
+        random_groundlink_params(gen, GL['c_in'], GL['features'], GL['fc_depth'], GL['taps']),
+        'cuda')
+    saved = fg.SMALL_BATCH_MAX, fg.LARGE_WINDOWS, fg.LARGE_WINDOWS_ALL_FRAMES, fg.LARGE_BLOCKS
+    fg.SMALL_BATCH_MAX, fg.LARGE_BLOCKS = 0, 1
+    for batch in (512, 1024, 4096):
+        x = torch.randn(batch, GL['t'], GL['c_in'], generator=gen).cuda()
+        for fmt in ('last_frame', 'all_frames'):
+            row = {'tiles': fmt, 'batch': batch}
+            for windows in GL_TILES:
+                fg.LARGE_WINDOWS = fg.LARGE_WINDOWS_ALL_FRAMES = windows
+                plan = fg.plan_groundlink(batch, GL['t'], packed.pwidths, packed.n_conv,
+                                          packed.fc_depth, packed.taps, fmt != 'all_frames')
+                run = lambda: fg.fused_groundlink_forward(x, packed, fmt)   # noqa: E731
+                _time_us(run, 50)           # clocks up before the profiler's calls
+                row[f'{plan.windows}w_{plan.blocks(batch)}b_device_us'] = _device_us(run)
+            print(json.dumps(row), flush=True)
+    fg.SMALL_BATCH_MAX, fg.LARGE_WINDOWS, fg.LARGE_WINDOWS_ALL_FRAMES, fg.LARGE_BLOCKS = saved
+
+
+def groundlink_main(args) -> int:
+    if args.times_only:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        groundlink_times(str(Path(fg.__file__).resolve().parents[2]), forced=False)
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = _build.build()
+    for line in re.findall(r"Compiling entry function '(\S*groundlink\S*)'.*?\n(.*?registers.*?)\n",
+                           report['log'], flags=re.S):
+        print('ptxas', line[0][:70], '|', ' '.join(line[1].split()))
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'build_seconds': report['seconds'],
+                      'small_batch_max': fg.SMALL_BATCH_MAX,
+                      'large_windows': fg.LARGE_WINDOWS,
+                      'large_windows_all_frames': fg.LARGE_WINDOWS_ALL_FRAMES,
+                      'large_blocks': fg.LARGE_BLOCKS}), flush=True)
+    threshold = fg.SMALL_BATCH_MAX
+    worst = 0.0
+    for batch, t, c_in, features, fc_depth, taps, fmt in GL_SHAPES:
+        gen = torch.Generator().manual_seed(batch + t + c_in)
+        packed = fg.pack_groundlink_params(
+            random_groundlink_params(gen, c_in, features, fc_depth, taps), 'cuda')
+        x = torch.randn(batch, t, c_in, generator=gen).cuda()
+        ref = fg.groundlink_reference(x, packed.params, fmt, fc_depth)
+        for shape, limit in _gl_shapes(True).items():
+            fg.SMALL_BATCH_MAX = limit
+            before = dict(fg.shape_launches)
+            out = fg.fused_groundlink_forward(x, packed, fmt)
+            again = fg.fused_groundlink_forward(x, packed, fmt)
+            torch.cuda.synchronize()
+            rel = float((out - ref).abs().max()) / float(ref.abs().max())
+            plan = fg.plan_groundlink(batch, t, packed.pwidths, packed.n_conv, fc_depth, taps,
+                                      fmt != 'all_frames')
+            print(json.dumps({'batch': batch, 't': t, 'features': features,
+                              'fc_depth': fc_depth, 'taps': taps, 'format': fmt,
+                              'shape': plan.shape, 'cluster': plan.cluster,
+                              'windows': plan.windows, 'rel_err': rel,
+                              'bitwise_repeat': bool(torch.equal(out, again)),
+                              'launched': fg.shape_launches[shape] - before[shape]}),
+                  flush=True)
+            if not torch.equal(out, again) or fg.shape_launches[shape] != before[shape] + 2:
+                rel = float('inf')
+            worst = max(worst, rel if rel == rel else float('inf'))
+        fg.SMALL_BATCH_MAX = threshold
+    if worst > GL_REL:
+        print(f'FAILED: K4 beyond {GL_REL} x max|plain| (or not repeatable): {worst}',
+              file=sys.stderr)
+        return 1
+    if args.quick:
+        return 0
+    groundlink_clocks()
+    groundlink_tiles()
+    order = ['baseline', 'tree', 'tree', 'baseline'] if args.baseline else ['tree']
+    for which in order:
+        if which == 'baseline':
+            if _baseline_times(args.baseline, 'groundlink') != 0:
+                return 1
+        else:
+            groundlink_times('this tree')
+    gen = torch.Generator().manual_seed(0)
+    tree = random_groundlink_params(gen, GL['c_in'], GL['features'], GL['fc_depth'], GL['taps'])
+    library = library_groundlink(
+        {name: {k: v.cuda() for k, v in node.items()} for name, node in tree.items()},
+        GL['fc_depth'])
+    with torch.no_grad():
+        for batch in GL_BATCHES:
+            x = torch.randn(batch, GL['t'], GL['c_in'], generator=gen).cuda()
+            for fmt in _gl_formats(batch):
+                run = lambda: library(x, fmt)                             # noqa: E731
+                print(json.dumps({'library': 'bf16 F.conv1d/F.linear chain', 'batch': batch,
+                                  'format': fmt, 'us': _time_us(run, 200),
+                                  'device_us': _device_us(run)}), flush=True)
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--quick', action='store_true', help='build and check only')
-    ap.add_argument('--kernel', choices=('mlp', 'encoder'), default='mlp')
+    ap.add_argument('--kernel', choices=('mlp', 'encoder', 'groundlink'), default='mlp')
     ap.add_argument('--baseline', metavar='DIR',
-                    help='(encoder) also time the checkout in DIR, in the same run')
+                    help='(encoder, groundlink) also time the checkout in DIR, in the same run')
     ap.add_argument('--times-only', action='store_true', help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
         return 1
     if args.kernel == 'encoder':
         return encoder_main(args)
+    if args.kernel == 'groundlink':
+        return groundlink_main(args)
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     report = _build.build()

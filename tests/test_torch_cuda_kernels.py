@@ -12,6 +12,7 @@ import torch
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
 from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+from inferbiomechanics_tpu_torch.ops.tune import random_groundlink_params
 
 pytestmark = pytest.mark.cuda
 
@@ -195,23 +196,6 @@ def test_fused_encoder_layer_fn_trains_through_the_kernels(cuda):
         assert float((a - b).abs().max()) <= BWD_REL * float(b.abs().max())
 
 
-def random_groundlink_params(gen, c_in, features, fc_depth, taps=7):
-    """A seeded flax-layout GroundLink tree with random biases (the model's
-    init has zero biases, and a wrong bias add would go unseen)."""
-    def draw(*shape, fan_in):
-        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
-    tree, c = {}, c_in
-    for i, f in enumerate(features):
-        tree[f'Conv_{i}'] = {'kernel': draw(taps, c, f, fan_in=taps * c),
-                             'bias': 0.3 * torch.randn(f, generator=gen)}
-        c = f
-    for j in range(fc_depth - 1):
-        tree[f'Dense_{j}'] = {'kernel': draw(c, c, fan_in=c),
-                              'bias': 0.3 * torch.randn(c, generator=gen)}
-    tree[f'Dense_{fc_depth - 1}'] = {'kernel': draw(c, 30, fan_in=c)}
-    return tree
-
-
 # The kernel and the plain version round the same operands to bf16 and sum
 # in f32; they differ in the order of the sums and in the bf16 roundings of
 # activations that this flips. A flip (2^-8 relative) in an early layer is
@@ -254,3 +238,44 @@ def test_fused_groundlink_kernel_matches_plain(cuda, batch, t, c_in, features,
     assert out.shape == (batch, t if fmt == 'all_frames' else 1, 30)
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) <= GL_REL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('fmt', ['last_frame', 'all_frames'])
+@pytest.mark.parametrize('shape', ['small', 'large'])
+@pytest.mark.parametrize('batch', [
+    1, 2, 7,
+    fg.SMALL_BATCH_MAX,           # the plan's threshold
+    fg.SMALL_BATCH_MAX + 1,
+    4099,                         # a ragged last tile in either shape
+])
+def test_fused_groundlink_kernel_both_shapes_match_plain(cuda, monkeypatch, shape, batch,
+                                                         fmt):
+    """The served model (177 -> 128 -> 128 -> 256 -> 256, k = 7, T = 10,
+    fc_depth 3) through each of the kernel's two shapes at every batch, the
+    plan's threshold moved so that the named shape takes it."""
+    monkeypatch.setattr(fg, 'SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    gen = torch.Generator().manual_seed(batch)
+    packed = fg.pack_groundlink_params(random_groundlink_params(gen, 177, FULL, 3), cuda)
+    x = torch.randn(batch, 10, 177, generator=gen).to(cuda)
+    before = dict(fg.shape_launches)
+    out = fg.fused_groundlink_forward(x, packed, fmt)
+    assert fg.shape_launches[shape] == before[shape] + 1
+    ref = fg.groundlink_reference(x, packed.params, fmt, 3)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, 10 if fmt == 'all_frames' else 1, 30)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= GL_REL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize('shape,batch', [('small', 1), ('small', 37), ('large', 4099)])
+def test_fused_groundlink_kernel_is_deterministic(cuda, monkeypatch, shape, batch):
+    """Two launches on the same input are bitwise equal: split k-steps meet in
+    a fixed order and nothing is added atomically."""
+    monkeypatch.setattr(fg, 'SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    gen = torch.Generator().manual_seed(batch)
+    packed = fg.pack_groundlink_params(random_groundlink_params(gen, 177, FULL, 3), cuda)
+    x = torch.randn(batch, 10, 177, generator=gen).to(cuda)
+    first = fg.fused_groundlink_forward(x, packed, 'last_frame')
+    again = fg.fused_groundlink_forward(x, packed, 'last_frame')
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
