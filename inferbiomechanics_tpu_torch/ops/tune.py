@@ -3,6 +3,7 @@
     python -m inferbiomechanics_tpu_torch.ops.tune [--quick]
     python -m inferbiomechanics_tpu_torch.ops.tune --kernel encoder [--quick] [--baseline DIR]
     python -m inferbiomechanics_tpu_torch.ops.tune --kernel groundlink [--quick] [--baseline DIR]
+    python -m inferbiomechanics_tpu_torch.ops.tune --kernel encoder_bwd [--quick] [--baseline DIR]
 
 K1 (the default): builds the kernels, prints what ``-Xptxas -v`` says about
 the MLP kernels, holds the kernel against :func:`fused_mlp.mlp_reference` over
@@ -31,6 +32,17 @@ shapes, the cycle counters by layer and exchange, the large shape's tile
 checkout's K4 timed at B = 1 ... 4096 in both output formats, which is how
 ``fused_groundlink.SMALL_BATCH_MAX``, ``LARGE_WINDOWS`` and
 ``LARGE_BLOCKS`` were chosen.
+
+K3 (``--kernel encoder_bwd``): the encoder layer's backward at the served
+width: each shape of the tile kernel that the tree has (with
+``fused_encoder.plan_encoder_bwd``: the cluster shape and the large tile)
+against :func:`fused_encoder.encoder_layer_bwd_reference` at several
+shapes (dx and the 12 gradients, two calls bitwise equal), then the
+profiler's device time by launch (tile kernel, weight-gradient kernel,
+reduce) of each shape, ``torch.autograd.grad`` through
+``nn.TransformerEncoderLayer`` in bf16 and, with ``--baseline DIR``, the
+other checkout's backward, at B = 1 ... 4096; this is how
+``fused_encoder.BWD_SMALL_BATCH_MAX`` was chosen.
 
 It needs a CUDA device and prints the card's name with the numbers.
 """
@@ -96,6 +108,28 @@ def _device_records(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     return [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_us_by_name(fn, names, iters=20):
+    """Device time a call of the GPU kernels whose name holds each of
+    ``names`` (and of all the others, ``other``), and how many launches of
+    each the profiler traced over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = {n: 0.0 for n in (*names, 'other')}
+    seen = {n: 0 for n in us}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((n for n in names if n in e.name), 'other')
+            us[key] += e.time_range.elapsed_us() / iters
+            seen[key] += 1
+    return us, seen
 
 
 def _device_us(fn, iters=20):
@@ -543,13 +577,153 @@ def groundlink_main(args) -> int:
                                   'device_us': _device_us(run)}), flush=True)
     return 0
 
+# K3: the batches its backward is timed at, the cases each shape is checked
+# at (batch, t, d, heads, mlp_ratio), and the names of its three launches
+BWD_BATCHES = (1, 8, 16, 32, 56, 64, 128, 256, 1024, 4096)
+BWD_SHAPES = [(1, 10, 256, 8, 4), (8, 10, 256, 8, 4), (19, 10, 256, 8, 4),
+              (64, 10, 256, 8, 4), (37, 4, 256, 8, 4), (37, 10, 128, 4, 4),
+              (9, 10, 512, 8, 4), (700, 4, 128, 4, 2)]
+BWD_REL = 2e-2       # x max|plain|, as tests/test_torch_cuda_kernels.py holds K3
+BWD_KERNELS = ('encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+# above this batch the small shape is timed no more (it takes many waves there)
+_BWD_SMALL_TIMED_MAX = 1024
+
+
+def _bwd_shapes(forced, batch):
+    """The shapes of K3 to time at ``batch``: this tree's two (the threshold
+    moved so that each takes the batch), or whatever the loaded tree runs."""
+    if forced and hasattr(fe, 'plan_encoder_bwd'):
+        shapes = {'small': 1 << 30, 'large': 0}
+        if batch > _BWD_SMALL_TIMED_MAX:
+            del shapes['small']
+        return shapes
+    return {'kernel': None}
+
+
+def library_encoder_layer_grad(layer, x16, g16):
+    """K3's speed baseline: ``torch.autograd.grad`` through the bf16
+    ``nn.TransformerEncoderLayer`` (:func:`library_encoder_layer`), forward
+    and backward, for dx and every parameter."""
+    x16 = x16.detach().requires_grad_(True)
+    return torch.autograd.grad(layer(x16), [x16, *layer.parameters()], g16)
+
+
+def encoder_bwd_times(tag, forced=True):
+    """JSON lines of K3's time at the served width at every batch of
+    :data:`BWD_BATCHES`: CUDA events around 100 calls, and the profiler's
+    device time a call by launch, for each shape of this tree's kernel (or
+    for the kernel of the tree on ``sys.path``)."""
+    gen = torch.Generator().manual_seed(0)
+    packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda',
+                                    transposes=True)
+    threshold = getattr(fe, 'BWD_SMALL_BATCH_MAX', None)
+    for batch in BWD_BATCHES:
+        x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+        g = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+        row = {'tree': tag, 'batch': batch}
+        for name, limit in _bwd_shapes(forced, batch).items():
+            if limit is not None:
+                fe.BWD_SMALL_BATCH_MAX = limit
+            run = lambda: fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])   # noqa: E731
+            row[f'{name}_us'] = _time_us(run, 100)
+            by_launch, seen = _device_us_by_name(run, BWD_KERNELS)
+            row[f'{name}_device_us'] = sum(by_launch.values())
+            row[f'{name}_by_launch_us'] = by_launch
+            row[f'{name}_traced'] = seen
+        if threshold is not None:
+            fe.BWD_SMALL_BATCH_MAX = threshold
+        print(json.dumps(row), flush=True)
+
+
+def _check_bwd(threshold) -> float:
+    """Each shape of this tree's K3 against the plain version at
+    :data:`BWD_SHAPES`; the worst error relative to a tensor's max|plain|
+    (infinite if two calls differ or the launch counters are off)."""
+    worst = 0.0
+    names = ('x',) + fe.PARAM_NAMES
+    for batch, t, d, heads, ratio in BWD_SHAPES:
+        gen = torch.Generator().manual_seed(batch + t + d)
+        packed = fe.pack_encoder_params(_encoder_params(gen, d, d * ratio), 'cuda',
+                                        transposes=True)
+        x = torch.randn(batch, t, d, generator=gen).cuda()
+        g = torch.randn(batch, t, d, generator=gen).cuda()
+        ref = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
+        ref = (ref[0], *ref[1])
+        for shape, limit in _bwd_shapes(True, 0).items():
+            fe.BWD_SMALL_BATCH_MAX = limit
+            plan = fe.plan_encoder_bwd(batch, t, d, d * ratio, heads)
+            if plan.shape != shape:
+                continue              # no cluster splits this shape
+            before = dict(fe.bwd_shape_launches)
+            launches = fe.bwd_launches
+            one = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+            two = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+            torch.cuda.synchronize()
+            one, two = (one[0], *one[1]), (two[0], *two[1])
+            rel = {n: float((a - r).abs().max()) / float(r.abs().max())
+                   for n, a, r in zip(names, one, ref)}
+            repeat = all(torch.equal(a, b) for a, b in zip(one, two))
+            counted = (fe.bwd_shape_launches[shape] == before[shape] + 2
+                       and fe.bwd_launches == launches + 2 * fe.BWD_LAUNCHES_PER_LAYER)
+            at = max(rel, key=rel.get)
+            print(json.dumps({'batch': batch, 't': t, 'd': d, 'heads': heads,
+                              'shape': plan.shape, 'cluster': plan.cluster,
+                              'row_tiles': plan.row_tiles, 'windows': plan.windows,
+                              'worst_rel_err': rel[at], 'at': 'd' + at,
+                              'bitwise_repeat': repeat, 'counted': counted}), flush=True)
+            err = rel[at] if repeat and counted else float('inf')
+            worst = max(worst, err if err == err else float('inf'))
+        fe.BWD_SMALL_BATCH_MAX = threshold
+    return worst
+
+
+def encoder_bwd_main(args) -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.times_only:
+        encoder_bwd_times(str(Path(fe.__file__).resolve().parents[2]), forced=False)
+        return 0
+    report = _build.build()
+    for line in re.findall(r"Compiling entry function '(\S*encoder_(?:bwd|wgrad)\S*)'.*?\n"
+                           r"(.*?registers.*?)\n", report['log'], flags=re.S):
+        print('ptxas', line[0][:70], '|', ' '.join(line[1].split()))
+    threshold = getattr(fe, 'BWD_SMALL_BATCH_MAX', None)
+    print(json.dumps({'device': torch.cuda.get_device_name(0),
+                      'build_seconds': report['seconds'],
+                      'bwd_small_batch_max': threshold}), flush=True)
+    if hasattr(fe, 'plan_encoder_bwd'):
+        worst = _check_bwd(threshold)
+        if worst > BWD_REL:
+            print(f'FAILED: K3 beyond {BWD_REL} x max|plain| (or not repeatable): {worst}',
+                  file=sys.stderr)
+            return 1
+    if args.quick:
+        return 0
+    order = ['baseline', 'tree', 'tree', 'baseline'] if args.baseline else ['tree']
+    for which in order:
+        if which == 'baseline':
+            if _baseline_times(args.baseline, 'encoder_bwd') != 0:
+                return 1
+        else:
+            encoder_bwd_times('this tree')
+    gen = torch.Generator().manual_seed(0)
+    layer = library_encoder_layer(_encoder_params(gen, ENC['d'], ENC['m']), ENC['d'],
+                                  ENC['heads'], ENC['m'])
+    for batch in BWD_BATCHES:
+        x16 = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda().to(torch.bfloat16)
+        g16 = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda().to(torch.bfloat16)
+        run = lambda: library_encoder_layer_grad(layer, x16, g16)        # noqa: E731
+        print(json.dumps({'library': 'autograd through nn.TransformerEncoderLayer bf16',
+                          'batch': batch, 'us': _time_us(run, 100),
+                          'device_us': _device_us(run)}), flush=True)
+    return 0
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--quick', action='store_true', help='build and check only')
-    ap.add_argument('--kernel', choices=('mlp', 'encoder', 'groundlink'), default='mlp')
+    ap.add_argument('--kernel', choices=('mlp', 'encoder', 'groundlink', 'encoder_bwd'), default='mlp')
     ap.add_argument('--baseline', metavar='DIR',
-                    help='(encoder, groundlink) also time the checkout in DIR, in the same run')
+                    help='(encoder, groundlink, encoder_bwd) also time the checkout in DIR, in the same run')
     ap.add_argument('--times-only', action='store_true', help=argparse.SUPPRESS)
     return ap
 
@@ -563,6 +737,8 @@ def main(argv=None) -> int:
         return encoder_main(args)
     if args.kernel == 'groundlink':
         return groundlink_main(args)
+    if args.kernel == 'encoder_bwd':
+        return encoder_bwd_main(args)
     dev = torch.device('cuda')
     torch.backends.cuda.matmul.allow_tf32 = False
     report = _build.build()
