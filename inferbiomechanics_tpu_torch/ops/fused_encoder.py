@@ -28,7 +28,8 @@ raises; :func:`fused_encoder_layer_bwd` does the same with the backward
 kernels and :func:`encoder_layer_bwd_reference`. Nothing falls back: on a
 CUDA tensor a kernel that fails to build or launch raises. ``launches``
 and ``bwd_launches`` count the kernel launches in this process,
-``shape_launches`` the forward's by shape.
+``shape_launches`` the forward's by shape and ``bwd_shape_launches`` the
+backward's tile kernel by shape (:func:`plan_encoder_bwd`).
 """
 
 from __future__ import annotations
@@ -77,12 +78,19 @@ _SMALL_BLOCKS_AT_ONCE = 112
 BWD_LAUNCHES_PER_LAYER = 3
 _MAX_SPLITS = 8
 _ROWS_PER_SPLIT = 512
+# the largest batch the backward's small (cluster) shape takes, which
+# ops/tune.py --kernel encoder_bwd sets by timing both shapes on an H100
+BWD_SMALL_BATCH_MAX = 0
+# the small shape's exchanges (a, h2, dz1, dy2, dqkv, dy1): one mbarrier each
+_BWD_EXCHANGES = 6
 
 # kernel launches so far (for checking that a path went through the kernel),
 # and the forward's by the shape that ran
 launches = 0
 bwd_launches = 0
 shape_launches = {'small': 0, 'large': 0}
+# the backward's tile-kernel launches by the shape that ran (one a call)
+bwd_shape_launches = {'small': 0, 'large': 0}
 # None, or an int64 CUDA tensor that the next forward launches fill with
 # each block's cycles by phase ([blocks, 10]: stage x and LN1, q/k/v,
 # attention, the exchange of a, projection, the exchange of h, LN2, W1, the
@@ -547,6 +555,165 @@ def plan_bwd_tile(t: int, d: int, m: int, num_heads: int
                      f'{MAX_SMEM} bytes of shared memory a block may use')
 
 
+def bwd_split(items: int, nk: int) -> int:
+    """Parts the small backward shape splits a product's ``nk`` k-steps
+    into, where ``items`` (products x 16-column blocks) leave warps idle: the
+    most with which every item's parts still fit the 16 warps and each part
+    is whole chunks of 4 k-steps (the kernel checks its end once a chunk).
+    ``csrc/fused_encoder_bwd.cu::small_split`` is the same rule."""
+    best = 1
+    for split in range(2, _WARPS + 1):
+        if items * split <= _WARPS and nk % split == 0 and (nk // split) % 4 == 0:
+            best = split
+    return best
+
+
+def bwd_products(d: int, m: int, cluster: int
+                 ) -> Tuple[Tuple[str, int, int, int], ...]:
+    """The small backward shape's products as one block of a cluster of
+    ``cluster`` runs them: ``(name, products, 16-column blocks, k-steps)``.
+    A block owns ``d / C`` columns (whole heads) of every d-wide output and
+    ``m / C`` of the MLP's hidden ones; the two MLP products that meet in
+    dz1 (y2 W1 and g W2^T) run as one item list."""
+    nd, nm = d // 16 // cluster, m // 16 // cluster
+    return (('qkv', 1, 3 * nd, d // 16), ('proj', 1, nd, d // 16),
+            ('mlp', 2, nm, d // 16), ('dy2', 1, nd, m // 16),
+            ('da', 1, nd, d // 16), ('dy1', 1, nd, 3 * d // 16))
+
+
+def bwd_columns(d: int, m: int, num_heads: int, cluster: int, rank: int
+                ) -> Tuple[range, range, range]:
+    """Which columns block ``rank`` of a small-shape cluster owns: its heads,
+    its ``d / C`` columns of every d-wide output (the same columns as those
+    heads' q, k or v), and its ``m / C`` hidden columns."""
+    mine = num_heads // cluster
+    gw, gm = d // cluster, m // cluster
+    return (range(rank * mine, (rank + 1) * mine), range(rank * gw, (rank + 1) * gw),
+            range(rank * gm, (rank + 1) * gm))
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The launch :func:`plan_encoder_bwd` chose for the backward's tile
+    kernel; the weight-gradient kernel and the reduce launch the same way
+    after either, :data:`BWD_LAUNCHES_PER_LAYER` launches a call.
+
+    ``shape`` is ``'small'`` (a cluster of ``cluster`` blocks shares a row
+    tile of ``windows`` whole windows; each block owns 1/C of every
+    product's output columns, :func:`bwd_columns`, and hands them to the
+    others in six exchanges) or ``'large'`` (one persistent block a tile,
+    all the columns, :func:`plan_bwd_tile`, ``chunk`` hidden columns at a
+    time). ``row_tiles`` 16-row mma tiles make ``rows``. The small shape's
+    shared memory, offsets in bytes from the f32 residual ``[rows, d + 8]``
+    at 0: ``off_y`` the LayerNorm outputs, later dh2 (bf16) and then the
+    attention's f32 da; ``off_a`` the attention output, later g (bf16) and
+    then dk (f32); ``off_q`` this block's f32 q/k/v (stride ``ld_q``);
+    ``off_z`` the full dz1 (bf16, stride ``ld_z``), later the full dqkv
+    (``ld_dq``); ``off_f`` dy2, later dy1 (f32 ``[rows, d + 8]``); ``off_s``
+    the products' partial sums (``scratch_floats``); ``off_v`` the eight f32
+    rows; ``off_p`` the attention's P and dS; ``off_st`` the two
+    LayerNorms' means and 1/std; ``off_bar`` six mbarriers.
+    """
+    shape: str
+    cluster: int
+    row_tiles: int
+    windows: int
+    chunk: int
+    smem_bytes: int
+    ld_q: int = 0
+    ld_z: int = 0
+    ld_dq: int = 0
+    off_y: int = 0
+    off_a: int = 0
+    off_q: int = 0
+    off_z: int = 0
+    off_f: int = 0
+    off_s: int = 0
+    scratch_floats: int = 0
+    off_v: int = 0
+    off_p: int = 0
+    off_st: int = 0
+    off_bar: int = 0
+    launches: int = BWD_LAUNCHES_PER_LAYER
+
+    @property
+    def rows(self) -> int:
+        return 16 * self.row_tiles
+
+    def tiles(self, batch: int) -> int:
+        return -(-batch // self.windows)
+
+    def as_ints(self) -> Tuple[int, ...]:
+        """What ``ib_fused_encoder_backward_cluster`` reads, in its order."""
+        return (self.cluster, self.row_tiles, self.windows, self.ld_q, self.ld_z,
+                self.ld_dq, self.off_y, self.off_a, self.off_q, self.off_z, self.off_f,
+                self.off_s, self.scratch_floats, self.off_v, self.off_p, self.off_st,
+                self.off_bar)
+
+
+def _bwd_small_layout(t: int, d: int, m: int, num_heads: int, row_tiles: int,
+                      cluster: int) -> Optional[BwdPlan]:
+    """The small backward shape's shared memory at one row tile; None if it
+    does not fit. Buffers share room only where the kernel's order of
+    exchanges keeps them apart in time (dz1 and dqkv; the products' partial
+    sums and the attention's da and dk take rooms whose earlier content is
+    dead in this block and no longer read by a copy to another)."""
+    rows = 16 * row_tiles
+    if rows < t:
+        return None
+    gw = d // cluster
+    windows = rows // t
+    ld_r, ld_q, ld_z, ld_dq = d + _PAD, 3 * gw + _PAD // 2, m + _PAD, 3 * d + _PAD
+    scratch = max(n_prod * n * bwd_split(n_prod * n, nk) * rows * 16
+                  for _, n_prod, n, nk in bwd_products(d, m, cluster))
+    off_y = rows * ld_r * 4
+    off_a = off_y + rows * ld_r * 2
+    off_q = off_a + rows * ld_r * 2
+    off_z = off_q + _round16(rows * ld_q * 4)
+    off_f = off_z + _round16(rows * max(ld_z, ld_dq) * 2)
+    off_s = off_f + rows * ld_r * 4
+    off_v = off_s + scratch * 4
+    off_p = off_v + (9 * d + m) * 4
+    off_st = off_p + _round16(2 * windows * (num_heads // cluster) * t * t * 4)
+    off_bar = off_st + 4 * rows * 4
+    end = off_bar + 8 * _BWD_EXCHANGES
+    if end > MAX_SMEM:
+        return None
+    return BwdPlan('small', cluster, row_tiles, windows, 0, end, ld_q, ld_z, ld_dq,
+                   off_y, off_a, off_q, off_z, off_f, off_s, scratch, off_v, off_p,
+                   off_st, off_bar)
+
+
+def plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int) -> BwdPlan:
+    """Which shape of the backward's tile kernel takes ``batch`` windows of
+    ``t`` frames at width ``d``, MLP width ``m`` and ``num_heads`` heads, and
+    its layout; a function of these alone. Raises for a shape outside the
+    kernels' envelope (:func:`plan_bwd_tile`).
+
+    Small, up to :data:`BWD_SMALL_BATCH_MAX` windows where the heads split
+    over a cluster (:func:`small_cluster`) and a row tile fits: the fewest
+    mma row tiles with which the batch's clusters all run at once, else the
+    most that fit. Otherwise large: :func:`plan_bwd_tile`'s tile.
+    """
+    return _plan_encoder_bwd(batch, t, d, m, num_heads, BWD_SMALL_BATCH_MAX)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int,
+                      small_batch_max: int) -> BwdPlan:
+    """:func:`plan_encoder_bwd` at a given threshold, computed once a shape."""
+    row_tiles, windows, chunk, smem = plan_bwd_tile(t, d, m, num_heads)
+    cluster = small_cluster(d, num_heads)
+    if batch <= small_batch_max and cluster > 1:
+        fits = [p for p in (_bwd_small_layout(t, d, m, num_heads, rt, cluster)
+                            for rt in range(1, _MAX_ROW_TILES + 1)) if p]
+        if fits:
+            at_once = [p for p in fits
+                       if p.tiles(batch) * cluster <= _SMALL_BLOCKS_AT_ONCE]
+            return (at_once or fits[::-1])[0]
+    return BwdPlan('large', 1, row_tiles, windows, chunk, smem)
+
+
 def bwd_splits(n_rows: int) -> int:
     """Row ranges the weight-gradient kernel splits ``n_rows`` rows over (a
     function of the shape alone, so that the order of every sum is fixed)."""
@@ -569,8 +736,9 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     """``(dx, grads)`` of the layer at ``x`` for the upstream gradient ``g``
     (both [B, T, d] float32), ``grads`` f32 in :data:`PARAM_NAMES` order.
 
-    A CUDA tensor launches the backward kernels (three launches; two calls
-    on the same inputs give bitwise equal results) or raises; a CPU tensor
+    A CUDA tensor launches the backward kernels (three launches, the tile
+    kernel in the shape :func:`plan_encoder_bwd` picks; two calls on the
+    same inputs give bitwise equal results) or raises; a CPU tensor
     takes :func:`encoder_layer_bwd_reference`; any other device raises.
     """
     global bwd_launches
@@ -595,7 +763,7 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     if packed.weights_t is None:
         raise ValueError('the backward needs the transposed weights: pack with '
                          'pack_encoder_params(..., transposes=True)')
-    row_tiles, windows, _, _ = plan_bwd_tile(t, d, m, num_heads)
+    plan = plan_encoder_bwd(max(batch, 1), t, d, m, num_heads)
     n_rows = batch * t
     w_total, n_vec = 4 * d * d + 2 * d * m, 9 * d + m
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -603,25 +771,38 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     flat = torch.empty(w_total + n_vec, **f32)
     if batch == 0:
         return dx, _split_grads(flat.zero_(), d, m)
-    n_tiles = -(-batch // windows)
-    grid = min(n_tiles,
-               torch.cuda.get_device_properties(x.device).multi_processor_count)
+    n_tiles = plan.tiles(batch)
+    if plan.shape == 'small':
+        grid = n_tiles * plan.cluster
+    else:
+        grid = min(n_tiles,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
     splits = bwd_splits(n_rows)
     ws = torch.empty(n_rows * (8 * d + 2 * m), dtype=torch.bfloat16, device=x.device)
-    scratch = torch.empty(grid * 16 * row_tiles * 3 * d, **f32)
     vpart = torch.empty(grid * n_vec, **f32)
     wpart = torch.empty(splits * w_total, **f32)
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.ib_fused_encoder_backward(
-            x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
-            packed.weights.data_ptr(), packed.weights_t.data_ptr(),
-            packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
-            ws.data_ptr(), scratch.data_ptr(), vpart.data_ptr(),
-            wpart.data_ptr(), row_tiles, grid, splits, stream)
+        if plan.shape == 'small':
+            ints = plan.as_ints()
+            code = lib.ib_fused_encoder_backward_cluster(
+                x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
+                packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+                packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+                ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, splits, stream)
+        else:
+            scratch = torch.empty(grid * plan.rows * 3 * d, **f32)
+            code = lib.ib_fused_encoder_backward(
+                x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
+                packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+                packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+                ws.data_ptr(), scratch.data_ptr(), vpart.data_ptr(),
+                wpart.data_ptr(), plan.row_tiles, grid, splits, stream)
     _build.check(lib, code, 'fused_encoder_layer_bwd launch')
-    bwd_launches += BWD_LAUNCHES_PER_LAYER
+    bwd_launches += plan.launches
+    bwd_shape_launches[plan.shape] += 1
     return dx, _split_grads(flat, d, m)
 
 

@@ -86,7 +86,8 @@ def _want(x, g, params, heads, dtype_name):
     return [np.asarray(dx)] + [np.asarray(a) for a in dp]
 
 
-@pytest.mark.parametrize('b,t,heads', [(3, 10, 4), (19, 10, 4), (5, 4, 4), (2, 10, 8)])
+@pytest.mark.parametrize('b,t,heads', [(3, 10, 4), (19, 10, 4), (5, 4, 4), (2, 10, 8),
+                                       (1, 10, 4), (8, 10, 4)])   # the small shape's batches
 def test_plain_backward_matches_jax_vjp_f32(b, t, heads):
     params = _params(b)
     x, g = _xg(b + 1, b, t)
@@ -97,7 +98,7 @@ def test_plain_backward_matches_jax_vjp_f32(b, t, heads):
         np.testing.assert_allclose(a, w, err_msg=f'd{name}', **F32_TOL)
 
 
-@pytest.mark.parametrize('b,t', [(19, 10), (5, 4)])
+@pytest.mark.parametrize('b,t', [(19, 10), (5, 4), (1, 10), (8, 10)])
 def test_plain_backward_matches_jax_vjp_bf16(b, t):
     params = _params(b + 10)
     x, g = _xg(b + 11, b, t)
@@ -109,13 +110,9 @@ def test_plain_backward_matches_jax_vjp_bf16(b, t):
                                    err_msg=f'd{name}')
 
 
-@pytest.mark.parametrize('dtype_name,torch_dtype', [('f32', torch.float32),
-                                                    ('bf16', torch.bfloat16)])
-def test_plain_backward_matches_the_pallas_kernel_in_interpret_mode(dtype_name, torch_dtype):
-    """b=19 with 8-row tiles: two full tiles and a padded one, gradients
-    summed across tiles."""
+def _check_against_the_pallas_kernel(b, dtype_name, torch_dtype):
     params = _params(4)
-    x, g = _xg(5, 19)
+    x, g = _xg(5, b)
     dx, dp = jpe.encoder_layer_bwd_pallas(
         jnp.asarray(x), jnp.asarray(g), tuple(jnp.asarray(p) for p in params), H,
         tile_rows=8, compute_dtype={'f32': jnp.float32, 'bf16': jnp.bfloat16}[dtype_name],
@@ -128,6 +125,23 @@ def test_plain_backward_matches_the_pallas_kernel_in_interpret_mode(dtype_name, 
         else:
             np.testing.assert_allclose(a, w, rtol=0, atol=BF16_REL * np.abs(w).max(),
                                        err_msg=f'd{name}')
+
+
+@pytest.mark.parametrize('dtype_name,torch_dtype', [('f32', torch.float32),
+                                                    ('bf16', torch.bfloat16)])
+def test_plain_backward_matches_the_pallas_kernel_in_interpret_mode(dtype_name, torch_dtype):
+    """b=19 with 8-row tiles: two full tiles and a padded one, gradients
+    summed across tiles."""
+    _check_against_the_pallas_kernel(19, dtype_name, torch_dtype)
+
+
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('dtype_name,torch_dtype', [('f32', torch.float32),
+                                                    ('bf16', torch.bfloat16)])
+def test_plain_backward_matches_the_pallas_kernel_at_small_batches(b, dtype_name,
+                                                                   torch_dtype):
+    """The batches the backward's small shape takes: one padded tile."""
+    _check_against_the_pallas_kernel(b, dtype_name, torch_dtype)
 
 
 @pytest.mark.parametrize('dtype,rel', [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -254,3 +268,390 @@ def test_plan_bwd_tile_limits(t, d, m, heads, match):
 def test_row_splits_depend_on_the_shape_alone():
     assert [fe.bwd_splits(n) for n in (10, 190, 511, 512, 1024, 40960, 10 ** 6)] == [
         1, 1, 1, 1, 2, 8, 8]
+
+
+# ---------------------------------------------------------------------------
+# The backward's two shapes: the plan, and the small shape's column split
+# replayed in float64.
+# ---------------------------------------------------------------------------
+
+SERVED = (10, 256, 1024, 8)           # t, d, m, heads of the default transformer
+
+
+@pytest.fixture
+def bwd_threshold(monkeypatch):
+    """``bwd_threshold(shape)`` makes ``shape`` take every batch."""
+    def move(shape):
+        monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    return move
+
+
+def test_plan_encoder_bwd_is_pure_and_switches_at_the_threshold(monkeypatch):
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 64)
+    a = fe.plan_encoder_bwd(64, *SERVED)
+    assert a == fe.plan_encoder_bwd(64, *SERVED) and a is fe.plan_encoder_bwd(64, *SERVED)
+    assert (a.shape, a.cluster, a.row_tiles, a.windows) == ('small', 8, 2, 3)
+    assert a.launches == fe.BWD_LAUNCHES_PER_LAYER and a.tiles(64) == 22
+    one = fe.plan_encoder_bwd(1, *SERVED)
+    assert (one.shape, one.row_tiles, one.windows, one.tiles(1)) == ('small', 1, 1, 1)
+    # the fewest row tiles with which every cluster runs at once
+    assert fe.plan_encoder_bwd(14, *SERVED).row_tiles == 1
+    assert fe.plan_encoder_bwd(15, *SERVED).row_tiles == 2
+    past = fe.plan_encoder_bwd(65, *SERVED)
+    assert (past.shape, past.cluster, past.row_tiles, past.windows, past.chunk) == (
+        'large', 1, 2, 3, 256)
+    assert (past.row_tiles, past.windows, past.chunk, past.smem_bytes) == fe.plan_bwd_tile(
+        *SERVED)
+    assert fe.plan_encoder_bwd(4096, *SERVED) == past
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 0)
+    assert fe.plan_encoder_bwd(1, *SERVED) == past
+    # one head: no cluster splits it
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30)
+    assert fe.plan_encoder_bwd(3, 10, 128, 512, 1).shape == 'large'
+
+
+def test_bwd_split_rule():
+    assert [fe.bwd_split(items, 16) for items in (1, 2, 4, 6, 8, 16, 32)] == [
+        4, 4, 4, 2, 2, 1, 1]
+    assert fe.bwd_split(2, 48) == 6 and fe.bwd_split(2, 64) == 8 and fe.bwd_split(1, 8) == 2
+    for items in range(1, 20):
+        for nk in (8, 16, 24, 32, 48, 64, 96, 128):
+            s = fe.bwd_split(items, nk)
+            assert nk % s == 0 and (nk // s) % 4 == 0
+            assert s == 1 or items * s <= 16
+
+
+def _bwd_buffers(plan, t, d, m, heads):
+    """The small shape's buffers: (name, offset, bytes, first, last), with the
+    span of the kernel's phases in which each is live, counting a buffer
+    that another block writes into from the earliest such copy, and one that
+    is the source of a copy to another block until this block can know that
+    the copy completed. Phases: 0 stage, LN1; 1 q/k/v; 2 attention; 3 a
+    exchanged; 4 projection; 5 h2 exchanged; 6 LN2, g; 7 the MLP products;
+    8 dz1 exchanged; 9 dy2; 10 dy2 sent; 11 dy2 received, LN2's VJP; 12 da;
+    13 attention backward; 14 dqkv exchanged; 15 dy1; 16 dy1 exchanged; 17
+    LN1's VJP."""
+    rows, c = plan.rows, plan.cluster
+    gw, ld_r = d // c, d + 8
+    f32_r, bf_r = rows * ld_r * 4, rows * ld_r * 2
+    ld_g = gw + 4
+    return [
+        ('resid', 0, f32_r, 0, 17),
+        ('y1, y2, dh2', plan.off_y, bf_r, 0, 12),
+        ('da', plan.off_y, rows * ld_g * 4, 12.5, 13.5),
+        ('a', plan.off_a, bf_r, 2, 5),
+        ('g', plan.off_a, bf_r, 6, 7),
+        ('dk', plan.off_a, rows * ld_g * 4, 13, 13.5),
+        ('q/k/v', plan.off_q, rows * plan.ld_q * 4, 1, 13.5),
+        ('dz1', plan.off_z, rows * plan.ld_z * 2, 5, 10),
+        ('dqkv', plan.off_z, rows * plan.ld_dq * 2, 10.25, 17),
+        ('dy2', plan.off_f, f32_r, 8, 14),
+        ('dy1', plan.off_f, f32_r, 14.5, 17),
+        ('scratch', plan.off_s, plan.scratch_floats * 4, 0, 17),
+        ('rows', plan.off_v, (9 * d + m) * 4, 0, 17),
+        ('P, dS', plan.off_p, 2 * plan.windows * (heads // c) * t * t * 4, 2, 13.5),
+        ('stats', plan.off_st, 4 * rows * 4, 0, 17),
+        ('mbarriers', plan.off_bar, 8 * 6, 0, 17),
+    ]
+
+
+def _check_bwd_plan(plan, batch, t, d, m, heads):
+    assert plan.launches == fe.BWD_LAUNCHES_PER_LAYER
+    assert plan.smem_bytes <= fe.MAX_SMEM and plan.windows >= 1
+    assert plan.windows * t <= plan.rows
+    if plan.shape == 'large':
+        assert plan.cluster == 1
+        assert (plan.row_tiles, plan.windows, plan.chunk, plan.smem_bytes) == (
+            fe.plan_bwd_tile(t, d, m, heads))
+        return
+    c = plan.cluster
+    assert c == fe.small_cluster(d, heads) and c > 1
+    assert heads % c == 0 and (d // 16) % c == 0 and (m // 16) % c == 0
+    assert plan.row_tiles in (1, 2, 3)
+    assert (plan.tiles(batch) * c <= fe._SMALL_BLOCKS_AT_ONCE or plan.row_tiles == 3
+            or fe._bwd_small_layout(t, d, m, heads, plan.row_tiles + 1, c) is None)
+    bufs = _bwd_buffers(plan, t, d, m, heads)
+    for name, off, size, _, _ in bufs:
+        assert off % 16 == 0 or name == 'mbarriers', name
+        assert off + size <= plan.smem_bytes, name
+    assert plan.off_bar % 8 == 0
+    for i, (n1, o1, s1, a1, b1) in enumerate(bufs):
+        for n2, o2, s2, a2, b2 in bufs[i + 1:]:
+            if o1 < o2 + s2 and o2 < o1 + s1:
+                assert b1 < a2 or b2 < a1, (n1, n2)
+    # every product's partial sums fit the scratch
+    for _, n_prod, n, nk in fe.bwd_products(d, m, c):
+        assert n_prod * n * fe.bwd_split(n_prod * n, nk) * plan.rows * 16 <= plan.scratch_floats
+    # exchanges: a copy a row and peer of 16-byte multiples from 16-byte aligned rows
+    gw = d // c
+    for pitch, width in (((d + 8) * 2, gw * 2), ((d + 8) * 4, gw * 4),
+                         (plan.ld_z * 2, m // c * 2), (plan.ld_dq * 2, gw * 2)):
+        assert pitch % 16 == 0 and width % 16 == 0
+
+
+@pytest.mark.parametrize('t', [1, 4, 10, 16, 32, 48])
+def test_plan_encoder_bwd_takes_every_shape_plan_bwd_tile_takes(monkeypatch, t):
+    for threshold in (0, 64, 1 << 30):
+        monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', threshold)
+        for d in (128, 256, 384, 512, 640):
+            for m in (d, 2 * d, 4 * d, 640):
+                for heads in (1, 2, 4, 8, 16, 32, 64):
+                    try:
+                        fe.plan_bwd_tile(t, d, m, heads)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            fe.plan_encoder_bwd(1, t, d, m, heads)
+                        continue
+                    for batch in (1, 8, 19, 64, 65, 4096):
+                        plan = fe.plan_encoder_bwd(batch, t, d, m, heads)
+                        _check_bwd_plan(plan, batch, t, d, m, heads)
+                        small = (batch <= threshold and fe.small_cluster(d, heads) > 1
+                                 and any(fe._bwd_small_layout(t, d, m, heads, rt,
+                                                              fe.small_cluster(d, heads))
+                                         for rt in (1, 2, 3)))
+                        assert plan.shape == ('small' if small else 'large')
+
+
+def test_bwd_columns_cover_each_column_once():
+    for d, m, heads, c in ((256, 1024, 8, 8), (128, 512, 4, 4), (384, 1536, 8, 8)):
+        seen = np.zeros(3, dtype=object)
+        heads_seen, d_seen, m_seen = [], [], []
+        for rank in range(c):
+            h, dc, mc = fe.bwd_columns(d, m, heads, c, rank)
+            heads_seen += list(h)
+            d_seen += list(dc)
+            m_seen += list(mc)
+            # a block's d columns are its heads' columns of q (k, v)
+            dh = d // heads
+            assert list(dc) == [hh * dh + i for hh in h for i in range(dh)]
+        del seen
+        assert sorted(heads_seen) == list(range(heads))
+        assert sorted(d_seen) == list(range(d)) and sorted(m_seen) == list(range(m))
+
+
+def _bf(a):
+    """Round float64 values to bf16 (and back)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).double().numpy()
+
+
+def _gelu64(z):
+    return 0.5 * z * (1 + np.tanh(0.7978845608028654 * (z + 0.044715 * z ** 3)))
+
+
+def _gelu_grad64(z):
+    u = 0.7978845608028654 * (z + 0.044715 * z ** 3)
+    th = np.tanh(u)
+    du = 0.7978845608028654 * (1 + 3 * 0.044715 * z * z)
+    return 0.5 * (1 + th) + 0.5 * z * (1 - th * th) * du
+
+
+def _ln64(x, scale, bias):
+    mu = x.mean(-1, keepdims=True)
+    rs = 1 / np.sqrt(((x - mu) ** 2).mean(-1, keepdims=True) + fe.LN_EPS)
+    xhat = (x - mu) * rs
+    return xhat * scale + bias, xhat, rs
+
+
+def _ln_bwd64(dy, xhat, rs, scale):
+    dxhat = dy * scale
+    return rs * (dxhat - dxhat.mean(-1, keepdims=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdims=True))
+
+
+def _attn_fwd64(q, k, v, t):
+    """q, k, v [rows, H', dh] of whole windows (q scaled) -> mix, probs."""
+    w = q.shape[0] // t
+    q, k, v = (a.reshape(w, t, *a.shape[1:]) for a in (q, k, v))
+    s = np.einsum('wihc,wjhc->wijh', q, k)
+    p = np.exp(s - s.max(2, keepdims=True))
+    p /= p.sum(2, keepdims=True)
+    return np.einsum('wijh,wjhc->wihc', p, v).reshape(w * t, *q.shape[2:]), p
+
+
+def _attn_bwd64(q, k, v, p, da, t, scale):
+    w = q.shape[0] // t
+    q, k, v, da = (a.reshape(w, t, *a.shape[1:]) for a in (q, k, v, da))
+    dv = np.einsum('wijh,wihc->wjhc', p, da)
+    dp = np.einsum('wihc,wjhc->wijh', da, v)
+    ds = p * (dp - (p * dp).sum(2, keepdims=True))
+    dk = np.einsum('wijh,wihc->wjhc', ds, q)
+    dq = np.einsum('wijh,wjhc->wihc', ds, k) * scale
+    return tuple(a.reshape(w * t, *a.shape[2:]) for a in (dq, dk, dv))
+
+
+def _bwd64(x, g, params, heads):
+    """encoder_layer_bwd_reference in float64, operands rounded to bf16 at
+    the same places."""
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
+        p.astype(np.float64) for p in params)
+    b, t, d = x.shape
+    n, dh = b * t, d // heads
+    scale = dh ** -0.5
+    Wq, Wp, W1, W2 = (_bf(w) for w in (wqkv, wproj, w1, w2))
+    h = x.reshape(n, d).astype(np.float64)
+    go = g.reshape(n, d).astype(np.float64)
+    y1, xh1, rs1 = _ln64(h, g1, b1)
+    qkv = _bf(y1) @ Wq + bqkv
+    q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(n, heads, dh) for i in range(3))
+    q = q * scale
+    a, p = _attn_fwd64(q, k, v, t)
+    a = a.reshape(n, d)
+    h2 = h + _bf(a) @ Wp + bproj
+    y2, xh2, rs2 = _ln64(h2, g2, b2)
+    z1 = _bf(y2) @ W1 + bm1
+    u = _gelu64(z1)
+    dz1 = (_bf(go) @ W2.T) * _gelu_grad64(z1)
+    dy2 = _bf(dz1) @ W1.T
+    dh2 = go + _ln_bwd64(dy2, xh2, rs2, g2)
+    da = (_bf(dh2) @ Wp.T).reshape(n, heads, dh)
+    dq, dk, dv = _attn_bwd64(q, k, v, p, da, t, scale)
+    dqkv = np.concatenate([a_.reshape(n, d) for a_ in (dq, dk, dv)], 1)
+    dy1 = _bf(dqkv) @ Wq.T
+    dx = dh2 + _ln_bwd64(dy1, xh1, rs1, g1)
+    grads = ((dy1 * xh1).sum(0), dy1.sum(0), _bf(y1).T @ _bf(dqkv), dqkv.sum(0),
+             _bf(a).T @ _bf(dh2), dh2.sum(0), (dy2 * xh2).sum(0), dy2.sum(0),
+             _bf(y2).T @ _bf(dz1), dz1.sum(0), _bf(u).T @ _bf(go), go.sum(0))
+    return dx.reshape(b, t, d), grads
+
+
+def _replay_small(x, g, params, heads, plan):
+    """The small shape as the kernel runs it, in float64: each block of a
+    cluster computes its own columns from what it holds, the exchanges
+    assemble full rows (each column from exactly one block), each block
+    writes its own columns of the workspace and of dx and sums its own
+    columns of the vector gradients over the valid rows; then the weight
+    gradients from the workspace. Row tiles are padded with zero windows."""
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
+        p.astype(np.float64) for p in params)
+    b, t, d = x.shape
+    m, c = w1.shape[1], plan.cluster
+    n, dh, rows = b * t, d // heads, plan.rows
+    scale = dh ** -0.5
+    Wq, Wp, W1, W2 = (_bf(w) for w in (wqkv, wproj, w1, w2))
+    own = [fe.bwd_columns(d, m, heads, c, r) for r in range(c)]
+    nan = lambda *s: np.full(s, np.nan)                                # noqa: E731
+    ws = dict(y1=nan(n, d), dqkv=nan(n, 3 * d), attn=nan(n, d), dh2=nan(n, d),
+              y2=nan(n, d), dz1=nan(n, m), u=nan(n, m), g=nan(n, d))
+    dx = nan(n, d)
+    vec = dict(dg1=np.zeros(d), db1=np.zeros(d), dbqkv=np.zeros(3 * d), dbproj=np.zeros(d),
+               dg2=np.zeros(d), db2=np.zeros(d), dbm1=np.zeros(m), dbm2=np.zeros(d))
+    count = {k: np.zeros_like(v) for k, v in vec.items()}
+
+    def assemble(width, parts):
+        """One exchange: every block's columns into full rows, each once."""
+        full, hits = np.zeros((rows, width)), np.zeros(width, int)
+        for cols, val in parts:
+            full[:, cols] = val
+            hits[cols] += 1
+        assert (hits == 1).all()
+        return full
+
+    def sums(name, cols, val):
+        vec[name][cols] += val[:valid].sum(0)
+        count[name][cols] += 1
+
+    def to_ws(name, cols, val):
+        assert np.isnan(ws[name][r0:r0 + valid, cols]).all()
+        ws[name][r0:r0 + valid, cols] = val[:valid]
+
+    for tile in range(plan.tiles(b)):
+        win0 = tile * plan.windows
+        valid = min(plan.windows, b - win0) * t
+        r0 = win0 * t
+        tr = plan.windows * t                     # rows of whole windows
+        X, G = np.zeros((rows, d)), np.zeros((rows, d))
+        X[:valid] = x.reshape(n, d)[r0:r0 + valid]
+        G[:valid] = g.reshape(n, d)[r0:r0 + valid]
+        y1, xh1, rs1 = _ln64(X, g1, b1)           # every block, full rows
+        y1 = _bf(y1)
+        a_parts, held = [], []
+        for hs, dc, _ in own:
+            qkv_cols = [i * d + j for i in range(3) for j in dc]
+            qkv = y1 @ Wq[:, qkv_cols] + bqkv[qkv_cols]
+            gw = len(dc)
+            q = qkv[:tr, :gw].reshape(tr, len(hs), dh) * scale
+            k = qkv[:tr, gw:2 * gw].reshape(tr, len(hs), dh)
+            v = qkv[:tr, 2 * gw:].reshape(tr, len(hs), dh)
+            a, p = _attn_fwd64(q, k, v, t)
+            a_own = np.zeros((rows, gw))
+            a_own[:tr] = _bf(a.reshape(tr, gw))
+            a_parts.append((dc, a_own))
+            held.append((q, k, v, p))
+            to_ws('y1', dc, y1[:, dc])
+            to_ws('attn', dc, a_own)
+        a_full = assemble(d, a_parts)
+        h2 = assemble(d, [(dc, X[:, dc] + a_full @ Wp[:, dc] + bproj[dc]) for _, dc, _ in own])
+        y2, xh2, rs2 = _ln64(h2, g2, b2)
+        y2, gb = _bf(y2), _bf(G)
+        dz_parts = []
+        for _, dc, mc in own:
+            to_ws('y2', dc, y2[:, dc])
+            to_ws('g', dc, gb[:, dc])
+            sums('dbm2', dc, G[:, dc])
+            z = y2 @ W1[:, mc] + bm1[mc]
+            dz = (gb @ W2.T[:, mc]) * _gelu_grad64(z)
+            to_ws('u', mc, _bf(_gelu64(z)))
+            to_ws('dz1', mc, _bf(dz))
+            sums('dbm1', mc, dz)
+            dz_parts.append((mc, _bf(dz)))
+        dz_full = assemble(m, dz_parts)
+        dy2 = assemble(d, [(dc, dz_full @ W1.T[:, dc]) for _, dc, _ in own])
+        dh2 = G + _ln_bwd64(dy2, xh2, rs2, g2)   # every block, full rows
+        dh2b = _bf(dh2)
+        dq_parts = []
+        for (hs, dc, _), (q, k, v, p) in zip(own, held):
+            sums('dg2', dc, dy2[:, dc] * xh2[:, dc])
+            sums('db2', dc, dy2[:, dc])
+            sums('dbproj', dc, dh2[:, dc])
+            to_ws('dh2', dc, dh2b[:, dc])
+            da = (dh2b @ Wp.T[:, dc])[:tr].reshape(tr, len(hs), dh)
+            own_dqkv = np.zeros((rows, 3 * len(dc)))
+            for i, part in enumerate(_attn_bwd64(q, k, v, p, da, t, scale)):
+                own_dqkv[:tr, i * len(dc):(i + 1) * len(dc)] = part.reshape(tr, -1)
+            qkv_cols = [i * d + j for i in range(3) for j in dc]
+            sums('dbqkv', qkv_cols, own_dqkv)
+            to_ws('dqkv', qkv_cols, _bf(own_dqkv))
+            dq_parts.append((qkv_cols, _bf(own_dqkv)))
+        dqkv_full = assemble(3 * d, dq_parts)
+        dy1 = assemble(d, [(dc, dqkv_full @ Wq.T[:, dc]) for _, dc, _ in own])
+        ln1 = _ln_bwd64(dy1, xh1, rs1, g1)
+        for _, dc, _ in own:
+            sums('dg1', dc, dy1[:, dc] * xh1[:, dc])
+            sums('db1', dc, dy1[:, dc])
+            assert np.isnan(dx[r0:r0 + valid, dc]).all()
+            dx[r0:r0 + valid, dc] = (dh2[:, dc] + ln1[:, dc])[:valid]
+    for name, k in count.items():               # each column of each tile once
+        assert (k == plan.tiles(b)).all(), name
+    for name, a in ws.items():
+        assert not np.isnan(a).any(), name
+    grads = (vec['dg1'], vec['db1'], ws['y1'].T @ ws['dqkv'], vec['dbqkv'],
+             ws['attn'].T @ ws['dh2'], vec['dbproj'], vec['dg2'], vec['db2'],
+             ws['y2'].T @ ws['dz1'], vec['dbm1'], ws['u'].T @ ws['g'], vec['dbm2'])
+    return dx.reshape(b, t, d), grads
+
+
+@pytest.mark.parametrize('batch,t,d,heads', [
+    (1, 10, 256, 8),          # the served width, one window, one row tile
+    (8, 10, 256, 8),
+    (64, 10, 256, 8),         # the default batch: 22 tiles of three windows, the last ragged
+    (5, 4, 128, 4),           # a cluster of 4, four windows a row tile
+])
+def test_small_shape_replay_is_exact(bwd_threshold, batch, t, d, heads):
+    """The small shape's column ownership and exchanges, replayed in float64,
+    give the float64 backward to rounding (1e-9), and both agree with
+    encoder_layer_bwd_reference at the bf16 tolerance."""
+    bwd_threshold('small')
+    m = 4 * d
+    plan = fe.plan_encoder_bwd(batch, t, d, m, heads)
+    assert plan.shape == 'small'
+    params = _params(batch + d, d)
+    x, g = _xg(batch + 3, batch, t, d)
+    got_dx, got = _replay_small(x, g, params, heads, plan)
+    want_dx, want = _bwd64(x, g, params, heads)
+    ref = _port(x, g, params, heads, torch.bfloat16)
+    for name, a, w, r in zip(NAMES, (got_dx, *got), (want_dx, *want), ref):
+        assert a.shape == w.shape == r.shape and np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, w, rtol=0, atol=1e-9 * max(1.0, np.abs(w).max()),
+                                   err_msg=f'd{name}')
+        np.testing.assert_allclose(a, r, rtol=0, atol=2e-2 * np.abs(r).max(),
+                                   err_msg=f'd{name}')
