@@ -58,19 +58,14 @@
 
 #include <cmath>
 
+#include "encoder_common.cuh"
 #include "launch.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRowTiles = 3;     // 16-row mma tiles a block may own
 constexpr int kDepth = 8;           // weight k-steps in flight per warp
-constexpr int kPad = 8;             // elements added to every shared-memory row
-constexpr int kMaxT = 48;           // frames per window
-constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
-constexpr float kLnEps = 1e-6f;
 
 struct EncoderBwdTag {};            // keys the tile kernel's shared-memory cap (launch.cuh)
 
@@ -85,8 +80,6 @@ struct BwdShape {
   int off_ab, off_big, off_x2, off_ps, off_stats, off_gb, off_z, off_dz;
   float q_scale;                    // dh^-0.5
 };
-
-using bf16 = __nv_bfloat16;
 
 // gelu (tanh form) and its derivative at v
 __device__ __forceinline__ void gelu_tanh_both(float v, float& act, float& grad) {
@@ -947,6 +940,650 @@ size_t plan_bwd_smem(BwdShape& s, int row_tiles) {
   return s.off_stats + 4 * rows * sizeof(float);
 }
 
+
+// ---- the small shape: a cluster of blocks splits every product's columns ----
+
+// What fused_encoder.py::plan_encoder_bwd decides for the small shape
+// (BwdPlan.as_ints, in this order after the call's shape). Strides are in
+// elements, offsets in bytes from the start of the block's shared memory,
+// where the f32 residual [rows][d + 8] lies.
+struct SmallPlan {
+  int batch, t, d, m, heads;
+  int cluster, row_tiles, windows;
+  int ld_q, ld_z, ld_dq;      // this block's q/k/v (f32), the full dz1 and dqkv (bf16)
+  int off_y;                  // y1, y2, dh2 (bf16 [rows][d + 8]); then da (f32)
+  int off_a;                  // a, then g (bf16 [rows][d + 8]); then dk (f32)
+  int off_q, off_z, off_f;    // q/k/v; dz1, then dqkv; dy2, then dy1 (f32 [rows][d + 8])
+  int off_s, scratch_floats;  // the products' partial sums
+  int off_v, off_p, off_st, off_bar;   // the f32 rows, P and dS, LN statistics, mbarriers
+  float q_scale;              // dh^-0.5
+};
+
+constexpr int kSmallPlanInts = 17;
+constexpr int kExchanges = 6;       // a, h2, dz1, dy2, dqkv, dy1: one mbarrier each
+
+template <int kRT>
+struct EncoderBwdClusterTag {};     // keys each instantiation's shared-memory cap
+
+// Parts a product's nk k-steps are split into where its `items` (products x
+// 16-column blocks) leave warps idle: the most with which every part still
+// has a warp and is whole chunks of 4 k-steps (fused_encoder.py::bwd_split).
+__host__ __device__ __forceinline__ int small_split(int items, int nk) {
+  int best = 1;
+  for (int sp = 2; sp <= kWarps; ++sp) {
+    if (items * sp <= kWarps && nk % sp == 0 && (nk / sp) % 4 == 0) best = sp;
+  }
+  return best;
+}
+
+// A product's row operand in shared memory ([16 kRT rows][16 nk] bf16,
+// stride lda) and its weights in fragment order ([n / 16][nk][32 lanes] x 16
+// bytes).
+struct Operand {
+  const bf16* a;
+  int lda;
+  const bf16* w;
+};
+
+// n_prod (1 or 2) products of the block's row tiles with the same column
+// blocks `cols` and nk k-steps, split along K into small_split parts; each
+// warp takes items (product, part, column block) and streams their weights
+// kDepth k-steps ahead in registers, checking the end once a chunk of 4
+// k-steps. Partial sums go to scratch [product][part][block][16 kRT][16];
+// returns the split. Every thread calls it, with the operands and the
+// scratch ready; it ends with a barrier, after which pair_sum reads them.
+template <int kRT>
+__device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_prod, int nk,
+                                             Cols cols, float* scratch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int split = small_split(n_prod * cols.n, nk);
+  const int part_nk = nk / split;
+  const int items = n_prod * split * cols.n;
+  for (int item = warp; item < items; item += kWarps) {
+    const int j = item % cols.n;
+    const int pp = item / cols.n;                // product * split + part
+    const int part = pp % split;
+    const Operand op = pp < split ? op0 : op1;
+    const uint4* wp = reinterpret_cast<const uint4*>(op.w) +
+                      (static_cast<long long>(cols.block(j)) * nk + part * part_nk) * 32 + lane;
+    const bf16* ap = op.a + (lane & 15) * op.lda + (lane >> 4) * 8 + 16 * part * part_nk;
+    float acc[kRT][2][4];
+#pragma unroll
+    for (int rt = 0; rt < kRT; ++rt) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[rt][e >> 2][e & 3] = 0.f;
+    }
+    uint4 ring[kDepth];
+#pragma unroll
+    for (int h = 0; h < kDepth / 4; ++h) {
+      if (4 * h < part_nk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ring[4 * h + q] = __ldg(wp + (4 * h + q) * 32);
+      }
+    }
+    for (int kb = 0; kb < part_nk; kb += kDepth) {
+#pragma unroll
+      for (int h = 0; h < kDepth / 4; ++h) {
+        const int k0 = kb + 4 * h;
+        if (k0 < part_nk) {                      // the end, once a chunk of 4 k-steps
+          const bool refill = k0 + kDepth < part_nk;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint4 b = ring[4 * h + q];
+            if (refill) ring[4 * h + q] = __ldg(wp + (k0 + q + kDepth) * 32);
+#pragma unroll
+            for (int rt = 0; rt < kRT; ++rt) {
+              unsigned af[4];
+              ldmatrix_x4(af, ap + rt * 16 * op.lda + 16 * (k0 + q));
+              mma_bf16(acc[rt][0], af, b.x, b.y);
+              mma_bf16(acc[rt][1], af, b.z, b.w);
+            }
+          }
+        }
+      }
+    }
+    float* const dst = scratch + (pp * cols.n + j) * (kRT * 256);
+#pragma unroll
+    for (int rt = 0; rt < kRT; ++rt) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(dst + (rt * 16 + g + 8 * h) * 16 + 8 * jj + 2 * c) =
+              make_float2(acc[rt][jj][2 * h], acc[rt][jj][2 * h + 1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  return split;
+}
+
+// Product `prod`'s sums at (column block j, row r, columns 2 cp and 2 cp + 1
+// of the block): its parts added in their order.
+template <int kRT>
+__device__ __forceinline__ float2 pair_sum(const float* scratch, int prod, int split, int n,
+                                           int j, int r, int cp) {
+  const float* src = scratch + (prod * split * n + j) * (kRT * 256) + r * 16 + 2 * cp;
+  float2 v = *reinterpret_cast<const float2*>(src);
+  for (int part = 1; part < split; ++part) {
+    const float2 q = *reinterpret_cast<const float2*>(src + part * n * (kRT * 256));
+    v.x += q.x;
+    v.y += q.y;
+  }
+  return v;
+}
+
+// f(j, r, cp) for every row and column pair of n column blocks, a pair a
+// thread: the epilogue of product_parts.
+template <int kRT, typename F>
+__device__ __forceinline__ void each_pair(int n, F f) {
+  for (int i = threadIdx.x; i < n * kRT * 128; i += kThreads) {
+    f(i / (kRT * 128), (i >> 3) % (kRT * 16), i & 7);
+  }
+}
+
+// LayerNorm of `rows` rows of src (f32) into dst as bf16, one warp a row;
+// scale and bias lie in shared memory; each row's mean and 1/std to mean[]
+// and rstd[].
+__device__ __forceinline__ void layernorm_rows_smem(const float* src, int ld, int rows, int d,
+                                                    const float* scale, const float* bias,
+                                                    bf16* dst, float* mean, float* rstd) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* x = src + r * ld;
+    float sum = 0.f;
+    for (int i = lane; i < d; i += 32) sum += x[i];
+    const float mu = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float c = x[i] - mu;
+      sq = fmaf(c, c, sq);
+    }
+    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+    for (int i = lane; i < d; i += 32) dst[r * ld + i] = __float2bfloat16((x[i] - mu) * rs * scale[i] + bias[i]);
+  }
+}
+
+// Columns [c0, c0 + width) of the first `valid` rows of a bf16 buffer in
+// shared memory (stride ld) into the same columns of a dense array of rows
+// `row_width` wide, 16 bytes a store.
+__device__ __forceinline__ void store_cols(const bf16* src, int ld, int valid, int c0, int width,
+                                           bf16* dst, int row_width) {
+  const int w8 = width / 8;
+  for (int i = threadIdx.x; i < valid * w8; i += kThreads) {
+    const int r = i / w8;
+    const int col = c0 + 8 * (i - r * w8);
+    *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * row_width + col) =
+        *reinterpret_cast<const uint4*>(src + r * ld + col);
+  }
+}
+
+// This block's part of a buffer -- `runs` runs of `bytes`, run_stride bytes
+// apart, in each of `rows` rows `pitch` bytes apart, from `part` -- to the
+// same place in every other block of the cluster, one bulk copy a run, row
+// and peer, which completes on the receiver's mbarrier `bar`. Every thread
+// calls it; the threads that wrote the part fence it for the copies'
+// (asynchronous) proxy first.
+__device__ __forceinline__ void send_part(const void* part, int pitch, int bytes, int runs,
+                                          int run_stride, int rows, unsigned bar, int rank,
+                                          int peers) {
+  fence_proxy_async_smem();
+  __syncthreads();
+  const unsigned src = smem_u32(part);
+  const int per_peer = rows * runs;
+  for (int i = threadIdx.x; i < (peers - 1) * per_peer; i += kThreads) {
+    const unsigned q = (rank + 1 + i / per_peer) % peers;
+    const int k = i % per_peer;
+    const unsigned at = src + (k / runs) * pitch + (k % runs) * run_stride;
+    bulk_copy_s2c(cluster_map(at, q), at, bytes, cluster_map(bar, q));
+  }
+}
+
+__device__ __forceinline__ void attention_bwd_any_t(float* qkv, int ld_q, const float* da,
+                                                    float* dkbuf, int ld, float* probs,
+                                                    float* dsc, int t, int width, int heads,
+                                                    int windows, float q_scale) {
+  switch (t) {
+    case 10:
+      attention_bwd<10>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+      break;
+    case 4:
+      attention_bwd<4>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+      break;
+    default:
+      attention_bwd<0>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+  }
+}
+
+// The tile kernel's small shape: a cluster of C blocks shares a row tile of
+// whole windows (kRT mma row tiles); block `rank` owns heads rank H/C ..,
+// the columns rank d/C .. of every d-wide output (the same columns of q, k
+// and v) and rank m/C .. of the hidden ones, and streams only those
+// weights. It recomputes the forward and runs the VJP in the large shape's
+// order; what another block needs it hands over in six exchanges (a, h2,
+// dz1, dy2, dqkv, dy1), by bulk copies onto the receiver's mbarriers. The
+// LayerNorms and their VJPs run on full rows in every block. Each block
+// writes its own columns of the workspace and of dx, and sums its own
+// columns of the vector gradients over the tile's valid rows into its slab.
+template <int kRT>
+__global__ void __launch_bounds__(kThreads, 1)
+encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __restrict__ gout,
+                                const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                                const float* __restrict__ vec, float* __restrict__ dx,
+                                bf16* ws_base, float* vpart_base, SmallPlan s) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int rows = 16 * kRT;
+  const int d = s.d, m = s.m, t = s.t;
+  const int peers = s.cluster;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int mine = s.heads / peers;              // heads of this block
+  const int dh = d / s.heads;
+  const int gw = d / peers;                      // its columns of a d-wide output
+  const int nd = gw / 16;
+  const int nm = m / 16 / peers;
+  const int own0 = rank * gw, m0 = rank * nm * 16;
+  const int ld_r = d + kPad, ld_g = gw + kPad / 2;
+  const int ld_q = s.ld_q, ld_z = s.ld_z, ld_dq = s.ld_dq;
+  const int nk_d = d / 16;
+
+  float* const resid = reinterpret_cast<float*>(smem);          // x, h2, then dh2
+  bf16* const ybuf = reinterpret_cast<bf16*>(smem + s.off_y);   // y1, y2, then dh2
+  float* const da = reinterpret_cast<float*>(smem + s.off_y);   // the mix's gradient [rows][ld_g]
+  float* const xs = reinterpret_cast<float*>(smem + s.off_y);   // x for LN1's VJP, over y and a
+  bf16* const abuf = reinterpret_cast<bf16*>(smem + s.off_a);   // a, then g
+  float* const dk = reinterpret_cast<float*>(smem + s.off_a);   // dk [rows][ld_g]
+  float* const qbuf = reinterpret_cast<float*>(smem + s.off_q); // [q | k | v], then [dq | k | dv]
+  bf16* const dzf = reinterpret_cast<bf16*>(smem + s.off_z);    // dz1 [rows][ld_z]
+  bf16* const dqf = reinterpret_cast<bf16*>(smem + s.off_z);    // dqkv [rows][ld_dq]
+  float* const fbuf = reinterpret_cast<float*>(smem + s.off_f); // dy2, then dy1
+  float* const scratch = reinterpret_cast<float*>(smem + s.off_s);
+  float* const rows_s = reinterpret_cast<float*>(smem + s.off_v);
+  float* const probs = reinterpret_cast<float*>(smem + s.off_p);
+  float* const dsc = probs + s.windows * mine * t * t;
+  float* const mean1 = reinterpret_cast<float*>(smem + s.off_st);
+  float* const rstd1 = mean1 + rows;
+  float* const mean2 = rstd1 + rows;
+  float* const rstd2 = mean2 + rows;
+  const unsigned bars = smem_u32(smem + s.off_bar);
+  const unsigned bar_a = bars, bar_h = bars + 8, bar_dz = bars + 16, bar_dy2 = bars + 24,
+                 bar_dq = bars + 32, bar_dy1 = bars + 40;
+
+  // weights as in the large shape; the f32 rows staged in shared memory in
+  // their device order: g1, b1, bqkv, bproj, g2, b2, bm1, bm2
+  const bf16* const w_qkv = w;
+  const bf16* const w_proj = w_qkv + static_cast<long long>(d) * 3 * d;
+  const bf16* const w_mlp1 = w_proj + static_cast<long long>(d) * d;
+  const bf16* const wt_qkv = wt;
+  const bf16* const wt_proj = wt_qkv + static_cast<long long>(d) * 3 * d;
+  const bf16* const wt_mlp1 = wt_proj + static_cast<long long>(d) * d;
+  const bf16* const wt_mlp2 = wt_mlp1 + static_cast<long long>(d) * m;
+  const float* const g1 = rows_s;
+  const float* const b1 = g1 + d;
+  const float* const b_qkv = b1 + d;
+  const float* const b_proj = b_qkv + 3 * d;
+  const float* const g2 = b_proj + d;
+  const float* const b2 = g2 + d;
+  const float* const b_mlp1 = b2 + d;
+  const int n_vec = 9 * d + m;
+  float* const vp = vpart_base + static_cast<long long>(blockIdx.x) * n_vec;
+  float* const dg1 = vp;
+  float* const db1 = dg1 + d;
+  float* const db_qkv = db1 + d;
+  float* const db_proj = db_qkv + 3 * d;
+  float* const dg2 = db_proj + d;
+  float* const db2 = dg2 + d;
+  float* const db_mlp1 = db2 + d;
+  float* const db_mlp2 = db_mlp1 + m;
+  const Workspace ws = carve_workspace(ws_base, static_cast<long long>(s.batch) * t, d, m);
+
+  const int tile = static_cast<int>(blockIdx.x) / peers;
+  const int win0 = tile * s.windows;
+  const int valid = min(s.windows, s.batch - win0) * t;   // rows that exist in the batch
+  const int tile_rows = s.windows * t;                     // rows of whole windows
+  const long long grow0 = static_cast<long long>(win0) * t;
+  const long long base = grow0 * d;
+  const int d4 = d / 4;
+
+  // Six mbarriers, on which the other blocks' parts of a, h2, dz1, dy2, dqkv
+  // and dy1 land; each expects its bytes from the start and is used once.
+  // Every block of the cluster has set them up before any copy into another.
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kExchanges; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_init_fence();
+    const unsigned in_rows = (peers - 1) * rows;
+    mbar_arrive_expect_tx(bar_a, in_rows * gw * 2);
+    mbar_arrive_expect_tx(bar_h, in_rows * gw * 4);
+    mbar_arrive_expect_tx(bar_dz, in_rows * nm * 32);
+    mbar_arrive_expect_tx(bar_dy2, in_rows * gw * 4);
+    mbar_arrive_expect_tx(bar_dq, 3 * in_rows * gw * 2);
+    mbar_arrive_expect_tx(bar_dy1, in_rows * gw * 4);
+  }
+  cluster_arrive();
+
+  // ---- recompute the forward ----
+  // x (zeros past the valid rows), the f32 rows, a zero slab, and zeros in
+  // this block's columns of a below the tile's windows
+  {
+    const float4* xg = reinterpret_cast<const float4*>(x + base);
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      *reinterpret_cast<float4*>(resid + r * ld_r + 4 * (i - r * d4)) =
+          r < valid ? __ldg(xg + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    for (int i = threadIdx.x; i < n_vec; i += kThreads) {
+      rows_s[i] = __ldg(vec + i);
+      vp[i] = 0.f;
+    }
+    for (int i = threadIdx.x; i < (rows - tile_rows) * gw; i += kThreads) {
+      abuf[(tile_rows + i / gw) * ld_r + own0 + i % gw] = __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  layernorm_rows_smem(resid, ld_r, rows, d, g1, b1, ybuf, mean1, rstd1);
+  __syncthreads();
+  store_cols(ybuf, ld_r, valid, own0, gw, ws.y1 + base, d);
+
+  // q/k/v of this block's heads, [q | k | v] each gw wide, q scaled
+  {
+    const Cols cols{3 * nd, nd, nk_d, rank * nd};
+    const int split = product_parts<kRT>(Operand{ybuf, ld_r, w_qkv}, Operand{}, 1, nk_d, cols,
+                                         scratch);
+    const float scale = s.q_scale;
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      const float2 v = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+      const int n = 16 * cols.block(j) + 2 * cp;
+      const int part = n / d;
+      float v0 = v.x + b_qkv[n], v1 = v.y + b_qkv[n + 1];
+      if (part == 0) {
+        v0 *= scale;
+        v1 *= scale;
+      }
+      *reinterpret_cast<float2*>(qbuf + r * ld_q + part * gw + n - part * d - own0) =
+          make_float2(v0, v1);
+    });
+  }
+  __syncthreads();
+  cluster_wait();
+  attention_any_t(qbuf, ld_q, t, dh, mine, s.windows, abuf, ld_r, rank * mine);
+  send_part(abuf + own0, ld_r * 2, gw * 2, 1, 0, rows, bar_a, rank, peers);   // a, to all
+  store_cols(abuf, ld_r, valid, own0, gw, ws.attn + base, d);
+  mbar_wait(bar_a, 0);
+
+  // h2 = x + a Wproj + bproj: this block's columns
+  {
+    const Cols cols{nd, nd, 0, rank * nd};
+    const int split = product_parts<kRT>(Operand{abuf, ld_r, w_proj}, Operand{}, 1, nk_d, cols,
+                                         scratch);
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      const float2 v = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+      const int n = own0 + 16 * j + 2 * cp;
+      float2* at = reinterpret_cast<float2*>(resid + r * ld_r + n);
+      float2 hv = *at;
+      hv.x += v.x + b_proj[n];
+      hv.y += v.y + b_proj[n + 1];
+      *at = hv;
+    });
+  }
+  send_part(resid + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_h, rank, peers);  // h2, to all
+  mbar_wait(bar_h, 0);
+  layernorm_rows_smem(resid, ld_r, rows, d, g2, b2, ybuf, mean2, rstd2);
+  // g as a bf16 operand over a (every block has had its copies of a: they
+  // all sent h2 after theirs arrived), zeros past the valid rows
+  {
+    const float4* gg = reinterpret_cast<const float4*>(gout + base);
+    for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+      const int r = i / d4;
+      const float4 v = r < valid ? __ldg(gg + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(abuf + r * ld_r + 4 * (i - r * d4));
+      o[0] = __floats2bfloat162_rn(v.x, v.y);
+      o[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+    for (int col = threadIdx.x; col < gw; col += kThreads) {
+      float sum = 0.f;
+      for (int r = 0; r < valid; ++r) sum += __ldg(gout + base + static_cast<long long>(r) * d + own0 + col);
+      db_mlp2[own0 + col] += sum;
+    }
+  }
+  __syncthreads();
+  store_cols(ybuf, ld_r, valid, own0, gw, ws.y2 + base, d);
+  store_cols(abuf, ld_r, valid, own0, gw, ws.g + base, d);
+
+  // ---- the MLP: z1 = y2 W1 + bm1 and g W2^T, this block's hidden columns,
+  // as one list of items; u = bf16(gelu(z1)), dz1 = (g W2^T) gelu'(z1) ----
+  {
+    const Cols cols{nm, nm, 0, rank * nm};
+    const int split = product_parts<kRT>(Operand{ybuf, ld_r, w_mlp1},
+                                         Operand{abuf, ld_r, wt_mlp2}, 2, nk_d, cols, scratch);
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      const float2 z = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+      const float2 gw2 = pair_sum<kRT>(scratch, 1, split, cols.n, j, r, cp);
+      const int n = m0 + 16 * j + 2 * cp;
+      float a0, a1, d0, d1;
+      gelu_tanh_both(z.x + b_mlp1[n], a0, d0);
+      gelu_tanh_both(z.y + b_mlp1[n + 1], a1, d1);
+      const float2 dz = make_float2(gw2.x * d0, gw2.y * d1);
+      // the f32 dz1 over its first part's sums, for the column sums below
+      *reinterpret_cast<float2*>(scratch + j * (kRT * 256) + r * 16 + 2 * cp) = dz;
+      const __nv_bfloat162 zb = __floats2bfloat162_rn(dz.x, dz.y);
+      *reinterpret_cast<__nv_bfloat162*>(dzf + r * ld_z + n) = zb;
+      if (r < valid) {
+        *reinterpret_cast<__nv_bfloat162*>(ws.u + (grow0 + r) * m + n) =
+            __floats2bfloat162_rn(a0, a1);
+        *reinterpret_cast<__nv_bfloat162*>(ws.dz1 + (grow0 + r) * m + n) = zb;
+      }
+    });
+    __syncthreads();
+    for (int col = threadIdx.x; col < nm * 16; col += kThreads) {
+      const float* src = scratch + (col / 16) * (kRT * 256) + col % 16;
+      float sum = 0.f;
+      for (int r = 0; r < valid; ++r) sum += src[r * 16];
+      db_mlp1[m0 + col] += sum;
+    }
+  }
+  send_part(dzf + m0, ld_z * 2, nm * 32, 1, 0, rows, bar_dz, rank, peers);    // dz1, to all
+  mbar_wait(bar_dz, 0);
+
+  // dy2 = dz1 W1^T: this block's columns
+  {
+    const Cols cols{nd, nd, 0, rank * nd};
+    const int split = product_parts<kRT>(Operand{dzf, ld_z, wt_mlp1}, Operand{}, 1, m / 16,
+                                         cols, scratch);
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      *reinterpret_cast<float2*>(fbuf + r * ld_r + own0 + 16 * j + 2 * cp) =
+          pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+    });
+  }
+  send_part(fbuf + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_dy2, rank, peers); // dy2, to all
+  mbar_wait(bar_dy2, 0);
+
+  // ---- LayerNorm 2 backward: its column sums over this block's columns,
+  // then dh2 = g + LN2'(dy2) on full rows ----
+  layernorm_bwd_columns(fbuf + own0, resid + own0, ld_r, valid, gw, mean2, rstd2, dg2 + own0,
+                        db2 + own0);
+  __syncthreads();
+  {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float inv_d = 1.f / static_cast<float>(d);
+    for (int r = warp; r < rows; r += kWarps) {
+      float* hr = resid + r * ld_r;
+      const float* dy = fbuf + r * ld_r;
+      const float mu = mean2[r], rs = rstd2[r];
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = lane; i < d; i += 32) {
+        const float dxh = dy[i] * g2[i];
+        s1 += dxh;
+        s2 = fmaf(dxh, (hr[i] - mu) * rs, s2);
+      }
+      const float m1 = warp_sum(s1) * inv_d;
+      const float m2 = warp_sum(s2) * inv_d;
+      for (int i = lane; i < d; i += 32) {
+        const float dxh = dy[i] * g2[i];
+        const float xh = (hr[i] - mu) * rs;
+        const float gv = r < valid ? __ldg(gout + base + static_cast<long long>(r) * d + i) : 0.f;
+        const float v = gv + rs * (dxh - m1 - xh * m2);
+        hr[i] = v;
+        ybuf[r * ld_r + i] = __float2bfloat16(v);
+      }
+    }
+  }
+  __syncthreads();
+  add_column_sums(resid + own0, ld_r, valid, gw, db_proj + own0);
+  store_cols(ybuf, ld_r, valid, own0, gw, ws.dh2 + base, d);
+
+  // the mix's gradient for this block's heads: da = bf16(dh2) Wproj^T
+  {
+    const Cols cols{nd, nd, 0, rank * nd};
+    const int split = product_parts<kRT>(Operand{ybuf, ld_r, wt_proj}, Operand{}, 1, nk_d, cols,
+                                         scratch);
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      *reinterpret_cast<float2*>(da + r * ld_g + 16 * j + 2 * cp) =
+          pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+    });
+  }
+  __syncthreads();
+
+  // ---- attention backward of this block's heads: qbuf = [dq | k | dv], dk apart ----
+  attention_bwd_any_t(qbuf, ld_q, da, dk, ld_g, probs, dsc, t, gw, mine, s.windows,
+                         s.q_scale);
+  // dqkv as bf16 into this block's columns of the full buffer (zeros below
+  // the windows), and its f32 column sums
+  for (int i = threadIdx.x; i < rows * 3 * (gw / 2); i += kThreads) {
+    const int r = i / (3 * (gw / 2));
+    const int k = 2 * (i - r * 3 * (gw / 2));
+    const int part = k / gw, c = k - part * gw;
+    float2 v = make_float2(0.f, 0.f);
+    if (r < tile_rows) {
+      v = *reinterpret_cast<const float2*>(part == 1 ? dk + r * ld_g + c
+                                                     : qbuf + r * ld_q + part * gw + c);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dqf + r * ld_dq + part * d + own0 + c) =
+        __floats2bfloat162_rn(v.x, v.y);
+  }
+  for (int k = threadIdx.x; k < 3 * gw; k += kThreads) {
+    const int part = k / gw, c = k - part * gw;
+    float sum = 0.f;
+    for (int r = 0; r < valid; ++r) sum += part == 1 ? dk[r * ld_g + c] : qbuf[r * ld_q + k];
+    db_qkv[part * d + own0 + c] += sum;
+  }
+  send_part(dqf + own0, ld_dq * 2, gw * 2, 3, d * 2, rows, bar_dq, rank, peers);   // dqkv
+  // x again, for LN1's VJP, over ybuf and abuf (da and dk are done with)
+  {
+    const float4* xg = reinterpret_cast<const float4*>(x + base);
+    for (int i = threadIdx.x; i < valid * d4; i += kThreads) {
+      const int r = i / d4;
+      *reinterpret_cast<float4*>(xs + r * ld_r + 4 * (i - r * d4)) = __ldg(xg + i);
+    }
+  }
+  for (int part = 0; part < 3; ++part) {
+    store_cols(dqf, ld_dq, valid, part * d + own0, gw, ws.dqkv + grow0 * 3 * d, 3 * d);
+  }
+  mbar_wait(bar_dq, 0);
+
+  // dy1 = bf16(dqkv) Wqkv^T: this block's columns
+  {
+    const Cols cols{nd, nd, 0, rank * nd};
+    const int split = product_parts<kRT>(Operand{dqf, ld_dq, wt_qkv}, Operand{}, 1, 3 * nk_d,
+                                         cols, scratch);
+    each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
+      *reinterpret_cast<float2*>(fbuf + r * ld_r + own0 + 16 * j + 2 * cp) =
+          pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
+    });
+  }
+  send_part(fbuf + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_dy1, rank, peers); // dy1, to all
+  mbar_wait(bar_dy1, 0);
+  // this block has all it was sent; the others may end once every block
+  // has, when no copy reads their shared memory any more
+  cluster_arrive_relaxed();
+
+  // ---- LayerNorm 1 backward; dx = dh2 + LN1'(dy1), this block's columns ----
+  layernorm_bwd_columns(fbuf + own0, xs + own0, ld_r, valid, gw, mean1, rstd1, dg1 + own0,
+                        db1 + own0);
+  {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const float inv_d = 1.f / static_cast<float>(d);
+    for (int r = warp; r < valid; r += kWarps) {
+      const float* xr = xs + r * ld_r;
+      const float* dy = fbuf + r * ld_r;
+      const float mu = mean1[r], rs = rstd1[r];
+      float s1 = 0.f, s2 = 0.f;
+      for (int i = lane; i < d; i += 32) {
+        const float dxh = dy[i] * g1[i];
+        s1 += dxh;
+        s2 = fmaf(dxh, (xr[i] - mu) * rs, s2);
+      }
+      const float m1 = warp_sum(s1) * inv_d;
+      const float m2 = warp_sum(s2) * inv_d;
+      float* dxr = dx + base + static_cast<long long>(r) * d;
+      for (int i = own0 + lane; i < own0 + gw; i += 32) {
+        const float dxh = dy[i] * g1[i];
+        const float xh = (xr[i] - mu) * rs;
+        dxr[i] = resid[r * ld_r + i] + rs * (dxh - m1 - xh * m2);
+      }
+    }
+  }
+  cluster_wait();
+}
+
+// Scratch the small shape's products need at most (floats), for the check of
+// the plan: every product's items x parts x 256 floats a row tile.
+int small_scratch_floats(int d, int m, int cluster, int row_tiles) {
+  const int nd = d / 16 / cluster, nm = m / 16 / cluster;
+  const int prods[6][3] = {{1, 3 * nd, d / 16}, {1, nd, d / 16}, {2, nm, d / 16},
+                           {1, nd, m / 16},     {1, nd, d / 16}, {1, nd, 3 * d / 16}};
+  int most = 0;
+  for (const auto& p : prods) {
+    const int need = p[0] * p[1] * small_split(p[0] * p[1], p[2]) * row_tiles * 256;
+    most = need > most ? need : most;
+  }
+  return most;
+}
+
+template <int kRT>
+cudaError_t launch_cluster_tile(const SmallPlan& s, size_t smem, const float* x, const float* g,
+                                const bf16* w, const bf16* wt, const float* vec, float* dx,
+                                bf16* ws, float* vpart, cudaStream_t stream) {
+  auto kernel = encoder_bwd_tile_kernel_cluster<kRT>;
+  const cudaError_t err = ensure_dynamic_smem<EncoderBwdClusterTag<kRT>>(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s.batch + s.windows - 1) / s.windows;
+  return launch_cluster(kernel, tiles * s.cluster, kThreads, s.cluster, smem, stream, x, g, w,
+                        wt, vec, dx, ws, vpart, s);
+}
+
+// The weight-gradient kernel and the ordered reduce, after either shape of
+// the tile kernel (`slabs` blocks wrote vector partial sums).
+cudaError_t launch_wgrad_and_reduce(const bf16* ws, float* wpart, const float* vpart, int slabs,
+                                    int batch, int t, int d, int m, int splits, float* grads,
+                                    cudaStream_t st) {
+  WgradShape wg{};
+  wg.n_rows = batch * t;
+  wg.d = d;
+  wg.m = m;
+  wg.rows_per_split = ((wg.n_rows + splits - 1) / splits + kWgRows - 1) / kWgRows * kWgRows;
+  wg.w_total = 4LL * d * d + 2LL * d * m;
+  const int tiles = static_cast<int>(wg.w_total / (kWgTile * kWgTile));
+  encoder_wgrad_kernel<<<dim3(tiles, splits), kWgThreads, 0, st>>>(ws, wpart, wg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n_vec = 9 * d + m;
+  const long long total = wg.w_total + n_vec;
+  encoder_bwd_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      wpart, splits, wg.w_total, vpart, slabs, n_vec, grads);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -992,25 +1629,81 @@ int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, in
       static_cast<bf16*>(ws), static_cast<float*>(scratch), static_cast<float*>(vpart), s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_wgrad_and_reduce(
+      static_cast<const bf16*>(ws), static_cast<float*>(wpart), static_cast<const float*>(vpart),
+      grid, batch, t, d, m, splits, static_cast<float*>(grads), st));
+}
 
-  WgradShape wg{};
-  wg.n_rows = batch * t;
-  wg.d = d;
-  wg.m = m;
-  wg.rows_per_split = ((wg.n_rows + splits - 1) / splits + kWgRows - 1) / kWgRows * kWgRows;
-  wg.w_total = 4LL * d * d + 2LL * d * m;
-  const int tiles = static_cast<int>(wg.w_total / (kWgTile * kWgTile));
-  encoder_wgrad_kernel<<<dim3(tiles, splits), kWgThreads, 0, st>>>(
-      static_cast<const bf16*>(ws), static_cast<float*>(wpart), wg);
-  err = cudaGetLastError();
+// The same backward through the tile kernel's small shape: a cluster of
+// blocks a row tile of whole windows, each block its share of the columns
+// (fused_encoder.py::plan_encoder_bwd). plan: the seventeen ints of
+// BwdPlan.as_ints (cluster, row_tiles, windows, ld_q, ld_z, ld_dq, off_y,
+// off_a, off_q, off_z, off_f, off_s, scratch_floats, off_v, off_p, off_st,
+// off_bar); smem: its bytes of shared memory. ws, vpart and wpart as for
+// ib_fused_encoder_backward, with grid = the plan's tiles x cluster blocks;
+// no per-block scratch in device memory. Three launches on `stream`;
+// returns the first CUDA error (0 on success).
+int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, int t, int d,
+                                      int m, int heads, const void* w, const void* wt,
+                                      const void* vec, void* dx, void* grads, void* ws,
+                                      void* vpart, void* wpart, const int* plan, int smem,
+                                      int splits, void* stream) {
+  if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0 ||
+      heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || splits < 1 || plan == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SmallPlan s{};
+  s.batch = batch;
+  s.t = t;
+  s.d = d;
+  s.m = m;
+  s.heads = heads;
+  int* const fields[kSmallPlanInts] = {
+      &s.cluster, &s.row_tiles, &s.windows, &s.ld_q,  &s.ld_z,           &s.ld_dq,
+      &s.off_y,   &s.off_a,     &s.off_q,   &s.off_z, &s.off_f,          &s.off_s,
+      &s.scratch_floats,        &s.off_v,   &s.off_p, &s.off_st,         &s.off_bar};
+  for (int i = 0; i < kSmallPlanInts; ++i) *fields[i] = plan[i];
+  s.q_scale = 1.f / sqrtf(static_cast<float>(d / heads));
+  const int c = s.cluster;
+  const int rows = 16 * s.row_tiles;
+  const int gw = c > 0 ? d / c : 0;
+  const long long r_f32 = static_cast<long long>(rows) * (d + kPad) * 4;
+  const bool ok =
+      c >= 2 && c <= 8 && heads % c == 0 && d % c == 0 && gw % 16 == 0 && (m / 16) % c == 0 &&
+      s.row_tiles >= 1 && s.row_tiles <= kMaxRowTiles && s.windows >= 1 &&
+      s.windows * t <= rows && smem <= kMaxSmem && s.ld_q >= 3 * gw && s.ld_q % 2 == 0 &&
+      s.ld_z >= m && s.ld_z % 8 == 0 && s.ld_dq >= 3 * d && s.ld_dq % 8 == 0 &&
+      s.off_y == r_f32 && s.off_a == s.off_y + r_f32 / 2 && s.off_q >= s.off_y + r_f32 &&
+      s.off_q % 16 == 0 && s.off_z >= s.off_q + rows * s.ld_q * 4 && s.off_z % 16 == 0 &&
+      s.off_f >= s.off_z + rows * 2 * (s.ld_z > s.ld_dq ? s.ld_z : s.ld_dq) &&
+      s.off_f % 16 == 0 && s.off_s >= s.off_f + r_f32 && s.off_s % 16 == 0 &&
+      s.scratch_floats >= small_scratch_floats(d, m, c, s.row_tiles) &&
+      s.off_v >= s.off_s + 4LL * s.scratch_floats && s.off_v % 16 == 0 &&
+      s.off_p >= s.off_v + 4LL * (9 * d + m) && s.off_p % 16 == 0 &&
+      s.off_st >= s.off_p + 8LL * s.windows * (heads / c) * t * t && s.off_st % 16 == 0 &&
+      s.off_bar >= s.off_st + 16 * rows && s.off_bar % 8 == 0 &&
+      s.off_bar + 8 * kExchanges <= smem;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const bf16* wtb = static_cast<const bf16*>(wt);
+  const float* vf = static_cast<const float*>(vec);
+  float* dxf = static_cast<float*>(dx);
+  bf16* wsb = static_cast<bf16*>(ws);
+  float* vpf = static_cast<float*>(vpart);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one row tile (one window at T = 10) has an instantiation of its own
+  cudaError_t err =
+      s.row_tiles == 1   ? launch_cluster_tile<1>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st)
+      : s.row_tiles == 2 ? launch_cluster_tile<2>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st)
+                         : launch_cluster_tile<3>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st);
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int n_vec = 9 * d + m;
-  const long long total = wg.w_total + n_vec;
-  encoder_bwd_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(wpart), splits, wg.w_total, static_cast<const float*>(vpart),
-      grid, n_vec, static_cast<float*>(grads));
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = (batch + s.windows - 1) / s.windows;
+  return static_cast<int>(launch_wgrad_and_reduce(wsb, static_cast<float*>(wpart), vpf,
+                                                  tiles * c, batch, t, d, m, splits,
+                                                  static_cast<float*>(grads), st));
 }
 
 }  // extern "C"

@@ -80,7 +80,7 @@ _MAX_SPLITS = 8
 _ROWS_PER_SPLIT = 512
 # the largest batch the backward's small (cluster) shape takes, which
 # ops/tune.py --kernel encoder_bwd sets by timing both shapes on an H100
-BWD_SMALL_BATCH_MAX = 0
+BWD_SMALL_BATCH_MAX = 64
 # the small shape's exchanges (a, h2, dz1, dy2, dqkv, dy1): one mbarrier each
 _BWD_EXCHANGES = 6
 

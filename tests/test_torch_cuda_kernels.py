@@ -196,6 +196,63 @@ def test_fused_encoder_layer_fn_trains_through_the_kernels(cuda):
         assert float((a - b).abs().max()) <= BWD_REL * float(b.abs().max())
 
 
+
+def _bwd_case(cuda, batch, t, d, heads, mlp_ratio=4):
+    gen = torch.Generator().manual_seed(batch + t + d)
+    packed = fe.pack_encoder_params(
+        random_encoder_params(gen, d, d * mlp_ratio), cuda, transposes=True)
+    x = torch.randn(batch, t, d, generator=gen).to(cuda)
+    g = torch.randn(batch, t, d, generator=gen).to(cuda)
+    return packed, x, g
+
+
+@pytest.mark.parametrize('shape,batch,t,d,heads', [
+    *[(shape, b, 10, 256, 8) for shape in ('small', 'large') for b in (1, 8, 19, 64)],
+    *[(shape, b, 10, 128, 4) for shape in ('small', 'large') for b in (1, 8, 19, 64)],
+    ('small', 37, 4, 256, 8),     # four windows a row tile
+    ('small', 5, 7, 128, 4),      # a frame count with no unrolled attention
+    ('large', 9, 10, 512, 8),     # no small shape fits d = 512
+])
+def test_fused_encoder_bwd_kernels_both_shapes_match_plain(cuda, monkeypatch, shape, batch, t,
+                                                           d, heads):
+    """Each shape of the backward's tile kernel at the same batches, the
+    plan's threshold moved so that the named shape takes them: dx and every
+    gradient within BWD_REL x its max|plain|, two calls bitwise equal."""
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    packed, x, g = _bwd_case(cuda, batch, t, d, heads)
+    assert fe.plan_encoder_bwd(batch, t, d, 4 * d, heads).shape == shape
+    before, launches = dict(fe.bwd_shape_launches), fe.bwd_launches
+    dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+    dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+    assert fe.bwd_shape_launches[shape] == before[shape] + 2
+    assert fe.bwd_launches == launches + 2 * fe.BWD_LAUNCHES_PER_LAYER
+    ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
+    torch.cuda.synchronize()
+    for name, got, again, ref in zip(('x',) + fe.PARAM_NAMES, (dx,) + grads,
+                                     (dx2,) + grads2, (ref_dx,) + ref_grads):
+        assert got.shape == ref.shape and torch.isfinite(got).all(), name
+        assert torch.equal(got, again), f'{name}: two calls differ'
+        err = float((got - ref).abs().max())
+        assert err <= BWD_REL * float(ref.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize('shape', ['small', 'large'])
+def test_fused_encoder_layer_fn_trains_through_each_bwd_shape(cuda, monkeypatch, shape):
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    gen = torch.Generator().manual_seed(4)
+    params = [p.to(cuda).requires_grad_(True)
+              for p in random_encoder_params(gen, 256, 1024)]
+    x = torch.randn(8, 10, 256, generator=gen).to(cuda).requires_grad_(True)
+    g = torch.randn(8, 10, 256, generator=gen).to(cuda)
+    packed = fe.pack_encoder_params(params, cuda, transposes=True)
+    before = dict(fe.bwd_shape_launches)
+    out = fe.FusedEncoderLayerFn.apply(x, packed, 8, *params)
+    got = torch.autograd.grad(out, [x] + params, g)
+    assert fe.bwd_shape_launches[shape] == before[shape] + 1
+    ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x.detach(), g, packed.params, 8)
+    for a, b in zip(got, (ref_dx,) + ref_grads):
+        assert float((a - b).abs().max()) <= BWD_REL * float(b.abs().max())
+
 # The kernel and the plain version round the same operands to bf16 and sum
 # in f32; they differ in the order of the sums and in the bf16 roundings of
 # activations that this flips. A flip (2^-8 relative) in an early layer is
