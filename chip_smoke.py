@@ -349,48 +349,64 @@ def phase_k2_vs_plain(torch, fe, seed: int):
     return worst, served
 
 
-def phase_k3_vs_plain(torch, fe, seed: int) -> float:
-    """Returns the largest error relative to its tensor's max|plain| at the
-    full-width cases."""
+def phase_k3_vs_plain(torch, fe, seed: int):
+    """K3 against the plain version in the shape its plan picks (small: a
+    cluster splits the columns; large: one block a tile), at full width on
+    either side of the plan's threshold and at other shapes, and through both
+    shapes (the threshold moved) at B = 19 and 64. Returns the largest error
+    relative to its tensor's max|plain| at the full-width cases, and the shape
+    that served each case."""
     gen = torch.Generator().manual_seed(seed)
     full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
-    cases = [(b, *full) for b in (1, 19, 4096)]     # 19: no multiple of the tile
+    edge = fe.BWD_SMALL_BATCH_MAX
+    cases = [(b, *full) for b in (1, 8, 19, 64, edge, edge + 1, 4096)]   # 19: no multiple of the tile
     cases += [(37, 4, ENC_FULL['d'], ENC_FULL['heads']),
               (37, 10, 128, 4),        # three row tiles, 128-column MLP chunks
               (700, 4, 128, 4),        # several tiles a block, several row splits
-              (9, 10, 512, 8)]         # one window a tile
+              (9, 10, 512, 8)]         # one window a tile; no small shape fits
     names = ('x',) + fe.PARAM_NAMES
-    worst = 0.0
+    worst, served = 0.0, {}
     for b, t, d, heads in cases:
         packed = fe.pack_encoder_params(
             _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda',
             transposes=True)
         x = torch.randn(b, t, d, generator=gen).cuda()
         g = torch.randn(b, t, d, generator=gen).cuda()
-        before = fe.bwd_launches
-        dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
-        _check(fe.bwd_launches == before + fe.BWD_LAUNCHES_PER_LAYER,
-               'launch counter did not rise')
-        dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
         ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
-        torch.cuda.synchronize()
-        rel, at = 0.0, ''
-        for name, got, again, ref in zip(names, (dx, *grads), (dx2, *grads2),
-                                         (ref_dx, *ref_grads)):
-            _check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-                   f'K3 bad output {name} {tuple(got.shape)}')
-            _check(bool(torch.equal(got, again)),
-                   f'K3 {name}: two calls on the same inputs differ')
-            r = float((got - ref).abs().max()) / float(ref.abs().max())
-            if r > rel:
-                rel, at = r, name
-        print(f'[kernel] K3 B={b} T={t} d={d} H={heads}: worst max abs err / max '
-              f'|plain| {rel:.3g} (at d{at}; limit {BWD_REL}); two calls bitwise equal',
-              flush=True)
-        _check(rel <= BWD_REL, f'K3 disagrees with the plain version: {rel} at d{at}')
-        if (t, d, heads) == full:
-            worst = max(worst, rel)
-    return worst
+        planned = fe.plan_encoder_bwd(b, t, d, packed.mlp_dim, heads).shape
+        shapes = [planned]
+        if (b, t, d, heads) in ((19, *full), (64, *full)):
+            shapes.append('large' if planned == 'small' else 'small')
+        for shape in shapes:
+            fe.BWD_SMALL_BATCH_MAX = edge if shape == planned else (
+                1 << 30 if shape == 'small' else 0)
+            before, shapes_before = fe.bwd_launches, dict(fe.bwd_shape_launches)
+            dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+            _check(fe.bwd_launches == before + fe.BWD_LAUNCHES_PER_LAYER and
+                   fe.bwd_shape_launches[shape] == shapes_before[shape] + 1,
+                   f'K3 launch counters did not rise for the {shape} shape')
+            dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
+            fe.BWD_SMALL_BATCH_MAX = edge
+            torch.cuda.synchronize()
+            rel, at = 0.0, ''
+            for name, got, again, ref in zip(names, (dx, *grads), (dx2, *grads2),
+                                             (ref_dx, *ref_grads)):
+                _check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                       f'K3 bad output {name} {tuple(got.shape)}')
+                _check(bool(torch.equal(got, again)),
+                       f'K3 {name}: two calls on the same inputs differ')
+                r = float((got - ref).abs().max()) / float(ref.abs().max())
+                if r > rel:
+                    rel, at = r, name
+            how = 'as planned' if shape == planned else 'threshold moved'
+            print(f'[kernel] K3 B={b} T={t} d={d} H={heads} ({shape} shape, {how}): worst '
+                  f'max abs err / max |plain| {rel:.3g} (at d{at}; limit {BWD_REL}); two '
+                  f'calls bitwise equal', flush=True)
+            _check(rel <= BWD_REL, f'K3 disagrees with the plain version: {rel} at d{at}')
+            if (t, d, heads) == full:
+                worst = max(worst, rel)
+            served.setdefault(f'B={b} T={t} d={d} H={heads}', []).append(shape)
+    return worst, served
 
 
 def _ptxas_report(log: str, needle: str) -> dict:
@@ -833,8 +849,10 @@ def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
     try:
         # the main path: 2 epochs, counts set to 0 just before, read just after
         fe.launches = fe.bwd_launches = 0
+        fe.bwd_shape_launches.update(small=0, large=0)
         result = run(root / 'ckpt_a', pallas, 2)
         k2_launches, k3_launches = fe.launches, fe.bwd_launches
+        k3_shapes = dict(fe.bwd_shape_launches)
         steps = list(handler.steps)
     finally:
         loop_log.removeHandler(handler)
@@ -855,6 +873,10 @@ def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
            f'{dev_batches} dev batches of {layers} layers')
     _check(k3_launches == layers * fe.BWD_LAUNCHES_PER_LAYER * train_steps,
            f'K3: {k3_launches} launches for {train_steps} train steps of {layers} layers')
+    k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                                   cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check(k3_shapes[k3_shape] == layers * train_steps and sum(k3_shapes.values()) ==
+           layers * train_steps, f'K3 by shape: {k3_shapes}, the plan picks {k3_shape}')
     print(f'[train] pallas transformer, B={batch}: {train_steps} train steps and '
           f'{dev_batches} dev batches in 2 epochs; K2 launches {k2_launches} == {layers} x '
           f'({train_steps} + {dev_batches}); K3 launches {k3_launches} == {layers} x '
@@ -956,20 +978,24 @@ def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
            'feedforward (plain autograd)': ff.windows_per_sec}
     print(f'[train] windows/s at B={batch}: '
           + ', '.join(f'{k} {v:.0f}' for k, v in wps.items()), flush=True)
-    return dict(k2_launches=k2_launches, k3_launches=k3_launches, train_steps=train_steps,
+    return dict(k2_launches=k2_launches, k3_launches=k3_launches,
+                k3_shape_launches=k3_shapes, train_steps=train_steps,
                 dev_batches=dev_batches, windows_per_sec=wps, first_loss=first,
                 last_loss=last, first_step_grad_rel=worst)
 
 
 def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer,
-                     create_train_state, card, seed, batch=4096):
+                     create_train_state, card, seed, batch=4096, attns=('pallas', 'vpu'),
+                     parts_alone=True):
     """A whole train step at full width on device-resident data (``pallas``
     and ``vpu`` transformers): time by the host clock around synchronised
-    steps, device time by kernel, and the parts timed alone by CUDA events."""
+    steps, device time by kernel, the kernels' launches by shape in those
+    steps (counts set to 0 just before, read just after) and, with
+    ``parts_alone``, the parts timed alone by CUDA events."""
     out = {}
     idx = torch.from_numpy(np.random.default_rng(seed).permutation(len(ds))[:batch]).cuda()
     data = port.DeviceResidentData(ds, 'cuda', pack_windows=True)
-    for attn in ('pallas', 'vpu'):
+    for attn in attns:
         cfg = port.config_from_args(port.parser().parse_args(
             ['train', '--model-type', 'transformer', '--attn-impl', attn]))
         model = port.build_model_for_dataset(
@@ -986,19 +1012,25 @@ def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer
             one()
             torch.cuda.synchronize()
 
+        fe.launches = fe.bwd_launches = 0
+        fe.bwd_shape_launches.update(small=0, large=0)
         wall = _host_p50_ms(synced, 10)
         parts = _device_us_by_name(torch, one, (
-            'fused_encoder_kernel', 'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel',
-            'encoder_bwd_reduce_kernel'), iters=5)
+            'fused_encoder_kernel', 'encoder_bwd_tile_kernel_cluster',
+            'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'),
+            iters=5)
+        launched = dict(k2=fe.launches, k3=fe.bwd_launches,
+                        k3_by_shape=dict(fe.bwd_shape_launches))
         busy = sum(parts.values()) / 1e3
         out[attn] = dict(step_ms=wall, device_busy_ms=busy, device_us_by_kernel=parts,
-                         windows_per_sec=batch / wall * 1e3)
+                         windows_per_sec=batch / wall * 1e3, launches=launched)
         print(f'[times] train step {attn} transformer B={batch} ({card}): {wall:.2f} ms by '
               f'the host clock (p50 of 10 synchronised steps) = {batch / wall * 1e3:.0f} '
               f'windows/s; device busy {busy:.2f} ms a step (host gaps '
               f'{max(wall - busy, 0.0):.2f} ms): '
-              + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items()), flush=True)
-        if attn == 'pallas':
+              + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items())
+              + f'; launches {launched}', flush=True)
+        if attn == 'pallas' and parts_alone:
             inputs, labels = data.gather(idx)
             with torch.no_grad():
                 outputs = {k: v.clone().requires_grad_(True)
@@ -1100,7 +1132,7 @@ def main() -> int:
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
     k2_err, k2_checked = phase_k2_vs_plain(torch, fe, args.seed)
     k4_err, k4_checked = phase_k4_vs_plain(torch, fg, random_groundlink_params, args.seed)
-    k3_err = phase_k3_vs_plain(torch, fe, args.seed)
+    k3_err, k3_checked = phase_k3_vs_plain(torch, fe, args.seed)
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
     try:
@@ -1240,6 +1272,19 @@ def main() -> int:
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
+        # the default --batch-size (64): K3's small shape on the main path
+        default_batch = Config().batch_size
+        steps[f'pallas B={default_batch}'] = phase_step_times(
+            torch, port, fe, ds, make_device_train_step, make_optimizer, create_train_state,
+            card, args.seed, batch=default_batch, attns=('pallas',),
+            parts_alone=False)['pallas']
+        k3_step_shape = fe.plan_encoder_bwd(
+            default_batch, ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['d'] * ENC_FULL['mlp_ratio'],
+            ENC_FULL['heads']).shape
+        by_shape = steps[f'pallas B={default_batch}']['launches']['k3_by_shape']
+        _check(by_shape[k3_step_shape] > 0 and sum(by_shape.values()) == by_shape[k3_step_shape],
+               f'train steps at B={default_batch}: K3 by shape {by_shape}, the plan picks '
+               f'{k3_step_shape}')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1321,10 +1366,11 @@ def main() -> int:
                   f'{fwd[b]["plain"] * 1e3:.1f} us, vpu forward (bf16 PyTorch ops) '
                   f'{fwd[b]["vpu"] * 1e3:.1f} us', flush=True)
 
-    k3, pack_ms = {}, None
+    k3, k3_parts, k3_served, pack_ms = {}, {}, {}, None
     train_stack = [fe.pack_encoder_params(p.params, 'cuda', transposes=True) for p in stack]
     lib_params = list(lib_stack[0].parameters())
-    for b in (1, 4096):
+    for b in (1, 64, 4096):
+        k3_served[str(b)] = fe.plan_encoder_bwd(b, t, d, m, heads).shape
         xt = torch.randn(b, t, d, generator=gen).cuda()
         gt = torch.randn(b, t, d, generator=gen).cuda()
         x16 = xt.to(torch.bfloat16).requires_grad_(True)
@@ -1345,16 +1391,21 @@ def main() -> int:
         ms, dev = _time_three(torch, fns)
         k3[b] = dict(ms=ms, dev=dev, bound=k3_bound(b, t, d, m))
         _print_times(card, f'K3 one layer backward ({fe.BWD_LAUNCHES_PER_LAYER} launches, '
-                     'recompute included) T=10 d=256 H=8', b, ms, dev,
-                     'autograd fwd+bwd through nn.TransformerEncoderLayer bf16',
+                     f'recompute included; {k3_served[str(b)]} shape) T=10 d=256 H=8', b, ms,
+                     dev, 'autograd fwd+bwd through nn.TransformerEncoderLayer bf16',
                      k3[b]['bound'])
-    k3_parts = _device_us_by_name(torch, fns['kernel'], (
-        'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'))
-    print('[times] K3 B=4096, profiler device time by launch: '
-          + ', '.join(f'{k} {v:.1f} us' for k, v in k3_parts.items()), flush=True)
+        # the tile kernel of either shape, then the two launches after it
+        parts = _device_us_by_name(torch, fns['kernel'], (
+            'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'))
+        k3_parts[str(b)] = parts
+        print(f'[times] K3 B={b} ({k3_served[str(b)]} shape), profiler device time by launch: '
+              + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items())
+              + f'; bound {k3[b]["bound"][0] * 1e3:.2f} us by {k3[b]["bound"][1]}, autograd '
+              + ('not measured' if dev['library'] is None else f'{dev["library"]:.1f} us')
+              + f' ({card})', flush=True)
     # the tile kernel's products: 40 d^2 operations a row (8 d^2 multiply-adds
     # of recompute, 12 d^2 against transposed weights)
-    tile_us = k3_parts['encoder_bwd_tile_kernel']
+    tile_us = k3_parts['4096']['encoder_bwd_tile_kernel']
     k3_tile = dict(tflops=40.0 * d * d * 4096 * t / tile_us / 1e6,
                    share_of_k3_bound=k3[4096]['bound'][0] * 1e3 / tile_us)
     print(f'[times] K3 tile kernel B=4096: {k3_tile["tflops"]:.1f} TFLOP/s on the tensor '
@@ -1434,6 +1485,11 @@ def main() -> int:
                       'forward and backward',
               launches_per_layer=fe.BWD_LAUNCHES_PER_LAYER,
               launches_per_train_step=n_layers * fe.BWD_LAUNCHES_PER_LAYER,
+              shape_launches={'train': trained['k3_shape_launches'],
+                              f'train steps B={default_batch}':
+                                  steps[f'pallas B={default_batch}']['launches']['k3_by_shape']},
+              bwd_small_batch_max=fe.BWD_SMALL_BATCH_MAX, served_by=k3_served,
+              checked_shapes=k3_checked,
               device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
               train=trained, train_step=steps),
