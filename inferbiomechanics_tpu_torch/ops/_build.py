@@ -108,7 +108,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                               vp, vp, vp, vp, i, i, i, vp]
     lib.ib_fused_encoder_backward.restype = i
     lib.ib_fused_encoder_backward_cluster.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp,
-                                                      vp, vp, vp, vp, int_p, i, i, vp]
+                                                      vp, vp, vp, vp, int_p, i, i, vp, vp]
     lib.ib_fused_encoder_backward_cluster.restype = i
     lib.ib_fused_groundlink_forward.argtypes = [vp, i, i, i, vp, vp, int_p, i, i, i, i,
                                                 vp, i, int_p, i, vp, vp]

@@ -24,34 +24,58 @@
 //
 // Design: three launches a layer, every sum in a fixed order, so two calls on
 // the same inputs give bitwise equal results (no floating-point atomics).
+// The tile kernel has two shapes, which fused_encoder.py::plan_encoder_bwd
+// picks from the call's shape; the two launches after it are the same for
+// both.
 //
-// 1. encoder_bwd_tile_kernel. A fixed number of persistent blocks (one per
-//    SM at most) each walk over tiles of whole windows, as the forward's
-//    blocks do. Per tile a block computes dx and everything that is local to
-//    a row. The products against a weight (the three of the recompute and the
-//    four against W^T) stream the weight from L2 in mma fragment order as the
+// 1. The tile kernel recomputes the forward of a tile of whole windows and
+//    runs the VJP: dx, and the row operands of the four weight gradients
+//    (y1, dqkv, a, dh2, y2, dz1, u, g as bf16) into a workspace in device
+//    memory; the eight vector gradients are summed over the tile's rows, one
+//    thread a column, into the block's own slab of partial sums. The
+//    products against a weight (three of the recompute, four against W^T)
+//    stream the weight from L2 into registers in mma fragment order, as the
 //    forward does; the transposes are packed beside the weights
-//    (fused_encoder.py::pack_encoder_params). A block's shared memory cannot
-//    hold what the TPU kernel keeps resident, so: q/k/v are parked in a
-//    per-block scratch in device memory (it stays in L2) over the MLP phase;
-//    the MLP runs in chunks of the hidden width (z1 chunk, its dz1, that
-//    chunk's share of dy2); dh2 is parked in dx and finished in place.
-//    The row operands of the four weight gradients (y1, dqkv, a, dh2, y2,
-//    dz1, u, g as bf16) go to a workspace in device memory; the eight vector
-//    gradients are summed over the tile's rows by one thread a column and
-//    added to the block's own slab of partial sums.
+//    (fused_encoder.py::pack_encoder_params).
+//    small (encoder_bwd_tile_kernel_cluster): up to BWD_SMALL_BATCH_MAX
+//      windows a cluster of C blocks (8 at d = 256, H = 8) shares a row tile
+//      of 1..3 mma row tiles (one window: one row tile, an instantiation of
+//      its own). Block `rank` owns heads rank H/C .., the columns rank d/C ..
+//      of every d-wide output (the same columns of q, k and v) and rank m/C
+//      .. of the hidden ones, and streams only those weights, 1/C of each
+//      (320 KB a block at d = 256): attention stays in the block; dz1 splits
+//      by W2^T's and W1's hidden columns, so no block needs another's u or
+//      gelu'. Six exchanges hand what the next phase reads to every block --
+//      a, h2, dz1, dy2, dqkv and dy1 -- by one bulk copy a row (three for
+//      dqkv) and peer from shared memory into shared memory, completing on
+//      an mbarrier of the receiver; the LayerNorms and their VJPs run on full
+//      rows in every block. Each product's items (column blocks, and parts
+//      of K where there are fewer blocks than warps) go to the 16 warps;
+//      partial sums meet in shared memory and are added in a fixed order; the
+//      ring's end is checked once a chunk of 4 k-steps. (Asking for each
+//      product's first weights ahead of the exchange before it, as K2 does,
+//      was measured and not kept: PERF.md.) Buffers share room only where the order of the exchanges keeps them apart in
+//      time (the plan's layout). Each block writes its own columns of the
+//      workspace and of dx, and its own columns of its slab.
+//    large (encoder_bwd_tile_kernel): above it, a fixed number of persistent
+//      blocks (one an SM at most) each walk over 32-row tiles (three windows
+//      at d = 256) with all the columns. q/k/v are parked in a per-block
+//      scratch in device memory (it stays in L2) over the MLP phase, which
+//      runs in chunks of the hidden width; dh2 is parked in dx.
 // 2. encoder_wgrad_kernel. The four A^T G products over all B T rows from
-//    that workspace: 128 x 128 output tiles, the rows split into a fixed
+//    the workspace: 128 x 128 output tiles, the rows split into a fixed
 //    number of ranges, each block writing its partial tile.
 // 3. encoder_bwd_reduce_kernel. Adds the row ranges' partial tiles and the
-//    blocks' slabs in index order into the flat gradient.
+//    tile kernel's blocks' slabs in index order into the flat gradient.
 //
 // What bounds it on an H100 at d = 256, T = 10, 4d MLP: operations (64 d^2
 // flops a row on the tensor cores, 172 GFLOP at B = 4096, beside 8 KB a row
-// of workspace written and read once). mma.sync with weights from L2 and a
-// 32-row tile (three windows) is far from that bound; wgmma, a larger tile
-// with the attention head by head, and fusing the weight gradients into the
-// tile kernel are the later steps.
+// of workspace written and read once) at large batches; at small ones the
+// chain of dependent phases, each a few thousand cycles, which the small
+// shape shortens by splitting every phase's work over a cluster. The large
+// shape with mma.sync and 32-row tiles is far from the bound at B = 4096;
+// two larger tiles were measured and not kept (PERF.md), so its redesign
+// (more rows a weight byte, wgmma) is still to come.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -961,6 +985,12 @@ struct SmallPlan {
 
 constexpr int kSmallPlanInts = 17;
 constexpr int kExchanges = 6;       // a, h2, dz1, dy2, dqkv, dy1: one mbarrier each
+// Phases the small shape's cycle counters time (ib_fused_encoder_backward_cluster's
+// `clocks`): stage and LN1, q/k/v, attention, a exchanged, projection, h2
+// exchanged, LN2 and g, the MLP products, dz1 exchanged, dy2, dy2 exchanged,
+// LN2's VJP, da, attention backward, dqkv exchanged, dy1, dy1 exchanged,
+// LN1's VJP.
+constexpr int kBwdPhases = 18;
 
 template <int kRT>
 struct EncoderBwdClusterTag {};     // keys each instantiation's shared-memory cap
@@ -990,8 +1020,31 @@ struct Operand {
 // warp takes items (product, part, column block) and streams their weights
 // kDepth k-steps ahead in registers, checking the end once a chunk of 4
 // k-steps. Partial sums go to scratch [product][part][block][16 kRT][16];
-// returns the split. Every thread calls it, with the operands and the
-// scratch ready; it ends with a barrier, after which pair_sum reads them.
+// returns the split. Every thread calls it, with the operands and
+// the scratch ready; it ends with a barrier, after which pair_sum reads them.
+// This lane's first weight load of an item of product_parts (below).
+__device__ __forceinline__ const uint4* item_weights(Operand op0, Operand op1, int nk, Cols cols,
+                                                     int split, int item) {
+  const int j = item % cols.n;
+  const int pp = item / cols.n;                  // product * split + part
+  const Operand op = pp < split ? op0 : op1;
+  return reinterpret_cast<const uint4*>(op.w) +
+         (static_cast<long long>(cols.block(j)) * nk + (pp % split) * (nk / split)) * 32 +
+         (threadIdx.x & 31);
+}
+
+// The first kDepth k-steps of an item's weights into the ring, checked once
+// a chunk of 4 (part_nk is whole chunks).
+__device__ __forceinline__ void fill_ring(uint4 (&ring)[kDepth], const uint4* wp, int part_nk) {
+#pragma unroll
+  for (int h = 0; h < kDepth / 4; ++h) {
+    if (4 * h < part_nk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ring[4 * h + q] = __ldg(wp + (4 * h + q) * 32);
+    }
+  }
+}
+
 template <int kRT>
 __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_prod, int nk,
                                              Cols cols, float* scratch) {
@@ -1007,8 +1060,7 @@ __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_pro
     const int pp = item / cols.n;                // product * split + part
     const int part = pp % split;
     const Operand op = pp < split ? op0 : op1;
-    const uint4* wp = reinterpret_cast<const uint4*>(op.w) +
-                      (static_cast<long long>(cols.block(j)) * nk + part * part_nk) * 32 + lane;
+    const uint4* wp = item_weights(op0, op1, nk, cols, split, item);
     const bf16* ap = op.a + (lane & 15) * op.lda + (lane >> 4) * 8 + 16 * part * part_nk;
     float acc[kRT][2][4];
 #pragma unroll
@@ -1017,13 +1069,7 @@ __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_pro
       for (int e = 0; e < 8; ++e) acc[rt][e >> 2][e & 3] = 0.f;
     }
     uint4 ring[kDepth];
-#pragma unroll
-    for (int h = 0; h < kDepth / 4; ++h) {
-      if (4 * h < part_nk) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ring[4 * h + q] = __ldg(wp + (4 * h + q) * 32);
-      }
-    }
+    fill_ring(ring, wp, part_nk);
     for (int kb = 0; kb < part_nk; kb += kDepth) {
 #pragma unroll
       for (int h = 0; h < kDepth / 4; ++h) {
@@ -1180,9 +1226,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __restrict__ gout,
                                 const bf16* __restrict__ w, const bf16* __restrict__ wt,
                                 const float* __restrict__ vec, float* __restrict__ dx,
-                                bf16* ws_base, float* vpart_base, SmallPlan s) {
+                                bf16* ws_base, float* vpart_base, SmallPlan s,
+                                long long* __restrict__ clocks) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int rows = 16 * kRT;
+  // with clocks, thread 0 of each block times the phases (kBwdPhases a block)
+  long long t_last = 0;
+  auto lap = [&](int phase) {
+    if (clocks != nullptr && threadIdx.x == 0) {
+      const long long now = clock64();
+      if (phase > 0) clocks[static_cast<long long>(blockIdx.x) * kBwdPhases + phase - 1] = now - t_last;
+      t_last = now;
+    }
+  };
+  lap(0);
   const int d = s.d, m = s.m, t = s.t;
   const int peers = s.cluster;
   const int rank = static_cast<int>(cluster_ctarank());
@@ -1245,6 +1302,14 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   float* const db_mlp1 = db2 + d;
   float* const db_mlp2 = db_mlp1 + m;
   const Workspace ws = carve_workspace(ws_base, static_cast<long long>(s.batch) * t, d, m);
+  // the six products: operands and this block's column blocks
+  const Operand none{};
+  const Operand op_qkv{ybuf, ld_r, w_qkv}, op_proj{abuf, ld_r, w_proj};
+  const Operand op_z1{ybuf, ld_r, w_mlp1}, op_gw2{abuf, ld_r, wt_mlp2};
+  const Operand op_dy2{dzf, ld_z, wt_mlp1}, op_da{ybuf, ld_r, wt_proj};
+  const Operand op_dy1{dqf, ld_dq, wt_qkv};
+  const Cols cols_qkv{3 * nd, nd, nk_d, rank * nd}, cols_d{nd, nd, 0, rank * nd};
+  const Cols cols_m{nm, nm, 0, rank * nm};
 
   const int tile = static_cast<int>(blockIdx.x) / peers;
   const int win0 = tile * s.windows;
@@ -1292,12 +1357,12 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   layernorm_rows_smem(resid, ld_r, rows, d, g1, b1, ybuf, mean1, rstd1);
   __syncthreads();
   store_cols(ybuf, ld_r, valid, own0, gw, ws.y1 + base, d);
+  lap(1);
 
   // q/k/v of this block's heads, [q | k | v] each gw wide, q scaled
   {
-    const Cols cols{3 * nd, nd, nk_d, rank * nd};
-    const int split = product_parts<kRT>(Operand{ybuf, ld_r, w_qkv}, Operand{}, 1, nk_d, cols,
-                                         scratch);
+    const Cols cols = cols_qkv;
+    const int split = product_parts<kRT>(op_qkv, none, 1, nk_d, cols, scratch);
     const float scale = s.q_scale;
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       const float2 v = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
@@ -1313,17 +1378,19 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     });
   }
   __syncthreads();
+  lap(2);
   cluster_wait();
   attention_any_t(qbuf, ld_q, t, dh, mine, s.windows, abuf, ld_r, rank * mine);
+  lap(3);
   send_part(abuf + own0, ld_r * 2, gw * 2, 1, 0, rows, bar_a, rank, peers);   // a, to all
   store_cols(abuf, ld_r, valid, own0, gw, ws.attn + base, d);
   mbar_wait(bar_a, 0);
+  lap(4);
 
   // h2 = x + a Wproj + bproj: this block's columns
   {
-    const Cols cols{nd, nd, 0, rank * nd};
-    const int split = product_parts<kRT>(Operand{abuf, ld_r, w_proj}, Operand{}, 1, nk_d, cols,
-                                         scratch);
+    const Cols cols = cols_d;
+    const int split = product_parts<kRT>(op_proj, none, 1, nk_d, cols, scratch);
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       const float2 v = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
       const int n = own0 + 16 * j + 2 * cp;
@@ -1334,8 +1401,10 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
       *at = hv;
     });
   }
+  lap(5);
   send_part(resid + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_h, rank, peers);  // h2, to all
   mbar_wait(bar_h, 0);
+  lap(6);
   layernorm_rows_smem(resid, ld_r, rows, d, g2, b2, ybuf, mean2, rstd2);
   // g as a bf16 operand over a (every block has had its copies of a: they
   // all sent h2 after theirs arrived), zeros past the valid rows
@@ -1357,13 +1426,13 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   __syncthreads();
   store_cols(ybuf, ld_r, valid, own0, gw, ws.y2 + base, d);
   store_cols(abuf, ld_r, valid, own0, gw, ws.g + base, d);
+  lap(7);
 
   // ---- the MLP: z1 = y2 W1 + bm1 and g W2^T, this block's hidden columns,
   // as one list of items; u = bf16(gelu(z1)), dz1 = (g W2^T) gelu'(z1) ----
   {
-    const Cols cols{nm, nm, 0, rank * nm};
-    const int split = product_parts<kRT>(Operand{ybuf, ld_r, w_mlp1},
-                                         Operand{abuf, ld_r, wt_mlp2}, 2, nk_d, cols, scratch);
+    const Cols cols = cols_m;
+    const int split = product_parts<kRT>(op_z1, op_gw2, 2, nk_d, cols, scratch);
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       const float2 z = pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
       const float2 gw2 = pair_sum<kRT>(scratch, 1, split, cols.n, j, r, cp);
@@ -1390,21 +1459,24 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
       db_mlp1[m0 + col] += sum;
     }
   }
+  lap(8);
   send_part(dzf + m0, ld_z * 2, nm * 32, 1, 0, rows, bar_dz, rank, peers);    // dz1, to all
   mbar_wait(bar_dz, 0);
+  lap(9);
 
   // dy2 = dz1 W1^T: this block's columns
   {
-    const Cols cols{nd, nd, 0, rank * nd};
-    const int split = product_parts<kRT>(Operand{dzf, ld_z, wt_mlp1}, Operand{}, 1, m / 16,
-                                         cols, scratch);
+    const Cols cols = cols_d;
+    const int split = product_parts<kRT>(op_dy2, none, 1, m / 16, cols, scratch);
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       *reinterpret_cast<float2*>(fbuf + r * ld_r + own0 + 16 * j + 2 * cp) =
           pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
     });
   }
+  lap(10);
   send_part(fbuf + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_dy2, rank, peers); // dy2, to all
   mbar_wait(bar_dy2, 0);
+  lap(11);
 
   // ---- LayerNorm 2 backward: its column sums over this block's columns,
   // then dh2 = g + LN2'(dy2) on full rows ----
@@ -1440,18 +1512,19 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   __syncthreads();
   add_column_sums(resid + own0, ld_r, valid, gw, db_proj + own0);
   store_cols(ybuf, ld_r, valid, own0, gw, ws.dh2 + base, d);
+  lap(12);
 
   // the mix's gradient for this block's heads: da = bf16(dh2) Wproj^T
   {
-    const Cols cols{nd, nd, 0, rank * nd};
-    const int split = product_parts<kRT>(Operand{ybuf, ld_r, wt_proj}, Operand{}, 1, nk_d, cols,
-                                         scratch);
+    const Cols cols = cols_d;
+    const int split = product_parts<kRT>(op_da, none, 1, nk_d, cols, scratch);
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       *reinterpret_cast<float2*>(da + r * ld_g + 16 * j + 2 * cp) =
           pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
     });
   }
   __syncthreads();
+  lap(13);
 
   // ---- attention backward of this block's heads: qbuf = [dq | k | dv], dk apart ----
   attention_bwd_any_t(qbuf, ld_q, da, dk, ld_g, probs, dsc, t, gw, mine, s.windows,
@@ -1476,6 +1549,7 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     for (int r = 0; r < valid; ++r) sum += part == 1 ? dk[r * ld_g + c] : qbuf[r * ld_q + k];
     db_qkv[part * d + own0 + c] += sum;
   }
+  lap(14);
   send_part(dqf + own0, ld_dq * 2, gw * 2, 3, d * 2, rows, bar_dq, rank, peers);   // dqkv
   // x again, for LN1's VJP, over ybuf and abuf (da and dk are done with)
   {
@@ -1489,19 +1563,21 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     store_cols(dqf, ld_dq, valid, part * d + own0, gw, ws.dqkv + grow0 * 3 * d, 3 * d);
   }
   mbar_wait(bar_dq, 0);
+  lap(15);
 
   // dy1 = bf16(dqkv) Wqkv^T: this block's columns
   {
-    const Cols cols{nd, nd, 0, rank * nd};
-    const int split = product_parts<kRT>(Operand{dqf, ld_dq, wt_qkv}, Operand{}, 1, 3 * nk_d,
-                                         cols, scratch);
+    const Cols cols = cols_d;
+    const int split = product_parts<kRT>(op_dy1, none, 1, 3 * nk_d, cols, scratch);
     each_pair<kRT>(cols.n, [&](int j, int r, int cp) {
       *reinterpret_cast<float2*>(fbuf + r * ld_r + own0 + 16 * j + 2 * cp) =
           pair_sum<kRT>(scratch, 0, split, cols.n, j, r, cp);
     });
   }
+  lap(16);
   send_part(fbuf + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_dy1, rank, peers); // dy1, to all
   mbar_wait(bar_dy1, 0);
+  lap(17);
   // this block has all it was sent; the others may end once every block
   // has, when no copy reads their shared memory any more
   cluster_arrive_relaxed();
@@ -1533,6 +1609,8 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
       }
     }
   }
+  __syncthreads();
+  lap(18);
   cluster_wait();
 }
 
@@ -1553,13 +1631,14 @@ int small_scratch_floats(int d, int m, int cluster, int row_tiles) {
 template <int kRT>
 cudaError_t launch_cluster_tile(const SmallPlan& s, size_t smem, const float* x, const float* g,
                                 const bf16* w, const bf16* wt, const float* vec, float* dx,
-                                bf16* ws, float* vpart, cudaStream_t stream) {
+                                bf16* ws, float* vpart, long long* clocks,
+                                cudaStream_t stream) {
   auto kernel = encoder_bwd_tile_kernel_cluster<kRT>;
   const cudaError_t err = ensure_dynamic_smem<EncoderBwdClusterTag<kRT>>(kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (s.batch + s.windows - 1) / s.windows;
   return launch_cluster(kernel, tiles * s.cluster, kThreads, s.cluster, smem, stream, x, g, w,
-                        wt, vec, dx, ws, vpart, s);
+                        wt, vec, dx, ws, vpart, s, clocks);
 }
 
 // The weight-gradient kernel and the ordered reduce, after either shape of
@@ -1641,13 +1720,15 @@ int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, in
 // off_a, off_q, off_z, off_f, off_s, scratch_floats, off_v, off_p, off_st,
 // off_bar); smem: its bytes of shared memory. ws, vpart and wpart as for
 // ib_fused_encoder_backward, with grid = the plan's tiles x cluster blocks;
-// no per-block scratch in device memory. Three launches on `stream`;
-// returns the first CUDA error (0 on success).
+// no per-block scratch in device memory. clocks: null, or room for
+// kBwdPhases int64 a block, which get each phase's cycles (thread 0's
+// clock64). Three launches on `stream`; returns the first CUDA error (0 on
+// success).
 int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, int t, int d,
                                       int m, int heads, const void* w, const void* wt,
                                       const void* vec, void* dx, void* grads, void* ws,
                                       void* vpart, void* wpart, const int* plan, int smem,
-                                      int splits, void* stream) {
+                                      int splits, void* clocks, void* stream) {
   if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0 ||
       heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || splits < 1 || plan == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1692,12 +1773,14 @@ int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, i
   float* dxf = static_cast<float*>(dx);
   bf16* wsb = static_cast<bf16*>(ws);
   float* vpf = static_cast<float*>(vpart);
+  long long* cl = static_cast<long long*>(clocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // one row tile (one window at T = 10) has an instantiation of its own
   cudaError_t err =
-      s.row_tiles == 1   ? launch_cluster_tile<1>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st)
-      : s.row_tiles == 2 ? launch_cluster_tile<2>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st)
-                         : launch_cluster_tile<3>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, st);
+      s.row_tiles == 1 ? launch_cluster_tile<1>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, cl, st)
+      : s.row_tiles == 2
+          ? launch_cluster_tile<2>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, cl, st)
+          : launch_cluster_tile<3>(s, smem, xf, gf, wb, wtb, vf, dxf, wsb, vpf, cl, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (batch + s.windows - 1) / s.windows;

@@ -12,7 +12,9 @@ columns, above it one block takes a row tile. The layer's backward is
 ``csrc/fused_encoder_bwd.cu`` (it replaces the Pallas
 ``encoder_layer_bwd_pallas``), with its plain version
 (:func:`encoder_layer_bwd_reference`), its wrapper
-(:func:`fused_encoder_layer_bwd`) and the differentiable layer
+(:func:`fused_encoder_layer_bwd`, whose tile kernel takes one of two shapes
+that :func:`plan_encoder_bwd` picks the same way, up to
+:data:`BWD_SMALL_BATCH_MAX` windows) and the differentiable layer
 (:class:`FusedEncoderLayerFn`: kernel forward, kernel backward).
 
 One pre-LN layer: LayerNorm -> QKV projection -> softmax attention over the
@@ -96,6 +98,12 @@ bwd_shape_launches = {'small': 0, 'large': 0}
 # attention, the exchange of a, projection, the exchange of h, LN2, W1, the
 # exchange of u, W2; ops/tune.py reads them)
 phase_clocks: Optional[torch.Tensor] = None
+# the same for the backward's small shape ([blocks, 18], BWD_PHASES)
+bwd_phase_clocks: Optional[torch.Tensor] = None
+BWD_PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'a exchanged', 'projection',
+              'h2 exchanged', 'LN2, g', 'MLP products', 'dz1 exchanged', 'dy2',
+              'dy2 exchanged', "LN2's VJP", 'da', 'attention backward', 'dqkv exchanged',
+              'dy1', 'dy1 exchanged', "LN1's VJP")
 
 
 def init_encoder_params(generator: Optional[torch.Generator], d_model: int,
@@ -782,6 +790,13 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     vpart = torch.empty(grid * n_vec, **f32)
     wpart = torch.empty(splits * w_total, **f32)
     lib = _build.library()
+    clocks = None
+    if bwd_phase_clocks is not None and plan.shape == 'small':
+        if (bwd_phase_clocks.dtype != torch.int64 or bwd_phase_clocks.device != x.device
+                or bwd_phase_clocks.numel() < grid * len(BWD_PHASES)):
+            raise ValueError(f'bwd_phase_clocks: an int64 tensor on {x.device} of at least '
+                             f'{grid * len(BWD_PHASES)} elements')
+        clocks = bwd_phase_clocks.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan.shape == 'small':
@@ -791,7 +806,7 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
                 packed.weights.data_ptr(), packed.weights_t.data_ptr(),
                 packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
                 ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
-                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, splits, stream)
+                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, splits, clocks, stream)
         else:
             scratch = torch.empty(grid * plan.rows * 3 * d, **f32)
             code = lib.ib_fused_encoder_backward(

@@ -635,6 +635,34 @@ def encoder_bwd_times(tag, forced=True):
         print(json.dumps(row), flush=True)
 
 
+def encoder_bwd_clocks():
+    """JSON lines of the small shape's cycle counters by phase (thread 0 of
+    each block, clock64 between the phases' barriers): the mean over the
+    blocks and the slowest block's total, at a few batches."""
+    gen = torch.Generator().manual_seed(0)
+    packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda',
+                                    transposes=True)
+    threshold = fe.BWD_SMALL_BATCH_MAX
+    fe.BWD_SMALL_BATCH_MAX = 1 << 30
+    for batch in (1, 8, 32, 64):
+        plan = fe.plan_encoder_bwd(batch, ENC['t'], ENC['d'], ENC['m'], ENC['heads'])
+        blocks = plan.tiles(batch) * plan.cluster
+        x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+        g = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+        fe.bwd_phase_clocks = torch.zeros(blocks * len(fe.BWD_PHASES), dtype=torch.int64,
+                                          device='cuda')
+        for _ in range(3):          # the last call's counts stand
+            fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])
+        torch.cuda.synchronize()
+        cyc = fe.bwd_phase_clocks.view(blocks, len(fe.BWD_PHASES)).double()
+        fe.bwd_phase_clocks = None
+        print(json.dumps({'clocks': 'small', 'batch': batch, 'blocks': blocks,
+                          'row_tiles': plan.row_tiles,
+                          'mean_cycles': dict(zip(fe.BWD_PHASES, cyc.mean(0).tolist())),
+                          'slowest_block_cycles': float(cyc.sum(1).max())}), flush=True)
+    fe.BWD_SMALL_BATCH_MAX = threshold
+
+
 def _check_bwd(threshold) -> float:
     """Each shape of this tree's K3 against the plain version at
     :data:`BWD_SHAPES`; the worst error relative to a tensor's max|plain|
@@ -698,6 +726,8 @@ def encoder_bwd_main(args) -> int:
             return 1
     if args.quick:
         return 0
+    if hasattr(fe, 'BWD_PHASES'):
+        encoder_bwd_clocks()
     order = ['baseline', 'tree', 'tree', 'baseline'] if args.baseline else ['tree']
     for which in order:
         if which == 'baseline':
