@@ -1195,19 +1195,178 @@ __device__ __forceinline__ void send_part(const void* part, int pitch, int bytes
   }
 }
 
-__device__ __forceinline__ void attention_bwd_any_t(float* qkv, int ld_q, const float* da,
+// Attention backward of a group of gh heads, in place, as attention_bwd
+// computes it but with `sub` lanes an item (window, head, frame) where there
+// are fewer items than threads: in the first pass the lanes split the head's
+// dh columns and add their partial dot products by shuffles, in the other
+// two each lane takes its own columns. In: qkv = [q * dh^-0.5 | k | v] of
+// the group (each gh dh wide, stride ld_q) and da ([rows][ld]); out: qkv =
+// [dq | k | dv] and dk in dkbuf ([rows][ld]). probs and dsc hold P and dS,
+// [windows * gh * t][t] each. A barrier ends each pass.
+template <int kT>
+__device__ __forceinline__ void attention_bwd_lanes(float* qkv, int ld_q, const float* da,
                                                     float* dkbuf, int ld, float* probs,
-                                                    float* dsc, int t, int width, int heads,
+                                                    float* dsc, int t_rt, int dh, int gh,
                                                     int windows, float q_scale) {
+  const int t = kT > 0 ? kT : t_rt;
+  constexpr int kArr = kT > 0 ? kT : kMaxT;
+  const int gw = gh * dh;
+  const int items = windows * gh * t;
+  int sub = 8;                                   // lanes an item
+  while (sub > 1 && (dh % (2 * sub) != 0 || items * sub > kThreads)) sub >>= 1;
+  const int rounds = (items * sub + kThreads - 1) / kThreads;
+
+  // P and dS, a (window, head, query frame) each
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;       // lanes past the end shadow item 0
+    const int sl = tid % sub;
+    const int tq = it % t;
+    const int wh = it / t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
+    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
+    const float* kw = qkv + row0 * ld_q + gw + h * dh;
+    const float* vw = kw + gw;
+    const float* dai = da + (row0 + tq) * ld + h * dh;
+    const int skew = (8 * h) % dh;
+    float p[kArr], dp[kArr];
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] = 0.f;
+      dp[j] = 0.f;
+    }
+    for (int ii = 2 * sl; ii < dh; ii += 2 * sub) {
+      const int i = ii + skew < dh ? ii + skew : ii + skew - dh;
+      const float2 qi = *reinterpret_cast<const float2*>(q + i);
+      const float2 di = *reinterpret_cast<const float2*>(dai + i);
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
+        const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
+        p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
+        dp[j] = fmaf(di.x, vj.x, fmaf(di.y, vj.y, dp[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      for (int o = sub >> 1; o > 0; o >>= 1) {
+        p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
+        dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], o);
+      }
+    }
+    float mx = p[0];
+#pragma unroll
+    for (int j = 1; j < t; ++j) mx = fmaxf(mx, p[j]);
+    float z = 0.f;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] = expf(p[j] - mx);
+      z += p[j];
+    }
+    const float inv_z = 1.f / z;
+    float tot = 0.f;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      p[j] *= inv_z;
+      tot = fmaf(p[j], dp[j], tot);
+    }
+    if (active && sl == 0) {
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        probs[it * t + j] = p[j];
+        dsc[it * t + j] = p[j] * (dp[j] - tot);
+      }
+    }
+  }
+  __syncthreads();
+
+  // dv and dk, a (window, head, key frame) each, the lanes on its columns
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;
+    const int sl = tid % sub;
+    const int tj = it % t;
+    const int wh = it / t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
+    const float* qw = qkv + row0 * ld_q + h * dh;
+    const float* daw = da + row0 * ld + h * dh;
+    float* vj = qkv + (row0 + tj) * ld_q + 2 * gw + h * dh;
+    float* dkj = dkbuf + (row0 + tj) * ld + h * dh;
+    const int skew = (8 * h) % dh;
+    float p[kArr], ds[kArr];
+#pragma unroll
+    for (int i = 0; i < t; ++i) {
+      p[i] = probs[(wh * t + i) * t + tj];
+      ds[i] = dsc[(wh * t + i) * t + tj];
+    }
+    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
+      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
+      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < t; ++i) {
+        const float2 di = *reinterpret_cast<const float2*>(daw + i * ld + c);
+        const float2 qi = *reinterpret_cast<const float2*>(qw + i * ld_q + c);
+        v0 = fmaf(p[i], di.x, v0);
+        v1 = fmaf(p[i], di.y, v1);
+        k0 = fmaf(ds[i], qi.x, k0);
+        k1 = fmaf(ds[i], qi.y, k1);
+      }
+      if (active) {
+        *reinterpret_cast<float2*>(vj + c) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(dkj + c) = make_float2(k0, k1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // dq, a (window, head, query frame) each, the lanes on its columns
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;
+    const int sl = tid % sub;
+    const int tq = it % t;
+    const int wh = it / t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
+    float* qi = qkv + (row0 + tq) * ld_q + h * dh;
+    const float* kw = qkv + row0 * ld_q + gw + h * dh;
+    const int skew = (8 * h) % dh;
+    float ds[kArr];
+#pragma unroll
+    for (int j = 0; j < t; ++j) ds[j] = dsc[it * t + j];
+    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
+      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
+      float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < t; ++j) {
+        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + c);
+        q0 = fmaf(ds[j], kj.x, q0);
+        q1 = fmaf(ds[j], kj.y, q1);
+      }
+      if (active) *reinterpret_cast<float2*>(qi + c) = make_float2(q0 * q_scale, q1 * q_scale);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void attention_bwd_lanes_any_t(float* qkv, int ld_q, const float* da,
+                                                          float* dkbuf, int ld, float* probs,
+                                                          float* dsc, int t, int dh, int gh,
+                                                          int windows, float q_scale) {
   switch (t) {
     case 10:
-      attention_bwd<10>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+      attention_bwd_lanes<10>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
       break;
     case 4:
-      attention_bwd<4>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+      attention_bwd_lanes<4>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
       break;
     default:
-      attention_bwd<0>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, width, heads, windows, q_scale);
+      attention_bwd_lanes<0>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
   }
 }
 
@@ -1527,8 +1686,8 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   lap(13);
 
   // ---- attention backward of this block's heads: qbuf = [dq | k | dv], dk apart ----
-  attention_bwd_any_t(qbuf, ld_q, da, dk, ld_g, probs, dsc, t, gw, mine, s.windows,
-                         s.q_scale);
+  attention_bwd_lanes_any_t(qbuf, ld_q, da, dk, ld_g, probs, dsc, t, dh, mine, s.windows,
+                            s.q_scale);
   // dqkv as bf16 into this block's columns of the full buffer (zeros below
   // the windows), and its f32 column sums
   for (int i = threadIdx.x; i < rows * 3 * (gw / 2); i += kThreads) {

@@ -180,10 +180,11 @@ def test_fused_encoder_layer_fn_on_the_cpu_takes_the_plain_versions():
     x, g = _xg(10, 5)
     xt = torch.from_numpy(x).requires_grad_(True)
     packed = fe.pack_encoder_params(params, 'cpu', transposes=True)
-    fwd, bwd = fe.launches, fe.bwd_launches
+    fwd, bwd, shapes = fe.launches, fe.bwd_launches, dict(fe.bwd_shape_launches)
     out = fe.FusedEncoderLayerFn.apply(xt, packed, H, *params)
     got = torch.autograd.grad(out, [xt] + params, torch.from_numpy(g))
     assert (fe.launches, fe.bwd_launches) == (fwd, bwd)     # no kernel on the CPU
+    assert fe.bwd_shape_launches == shapes
     with torch.no_grad():
         ref = fe.encoder_layer_reference(xt, packed.params, H)
         want = _port(x, g, [p.detach().numpy() for p in params], H, torch.bfloat16)
@@ -655,3 +656,15 @@ def test_small_shape_replay_is_exact(bwd_threshold, batch, t, d, heads):
                                    err_msg=f'd{name}')
         np.testing.assert_allclose(a, r, rtol=0, atol=2e-2 * np.abs(r).max(),
                                    err_msg=f'd{name}')
+
+
+def test_tune_parses_the_encoder_bwd_command(monkeypatch):
+    from inferbiomechanics_tpu_torch.ops import tune
+    args = tune.build_parser().parse_args(['--kernel', 'encoder_bwd', '--quick',
+                                           '--baseline', 'build/parent'])
+    assert (args.kernel, args.quick, args.baseline) == ('encoder_bwd', True, 'build/parent')
+    assert tune._bwd_shapes(True, 64) == {'small': 1 << 30, 'large': 0}
+    assert tune._bwd_shapes(True, 4096) == {'large': 0}
+    assert tune._bwd_shapes(False, 1) == {'kernel': None}
+    assert set(tune.BWD_BATCHES) >= {1, 8, 16, 32, 56, 64, 128, 256, 1024, 4096}
+    assert len(fe.BWD_PHASES) == 18
