@@ -16,9 +16,11 @@ Phases, each of which fails the run:
      K4 at fifteen, each through both of its shapes (small: a cluster splits
      every layer's columns; large: one block a tile of many windows), either
      side of the threshold and in both output formats (2e-2 x max|plain|),
-     K3 at seven (dx and each of the 12 gradients within 2e-2 x
-     that tensor's max|plain|, and two calls bitwise equal), with random
-     biases and LayerNorm rows;
+     K3 at ten (dx and each of the 12 gradients within 2e-2 x
+     that tensor's max|plain|, and two calls bitwise equal), each in the
+     shape its plan picks (small: a cluster splits the columns; large: one
+     block a tile), either side of the threshold, and at B = 19 and 64
+     through both shapes, with random biases and LayerNorm rows;
   4. the feedforward serving slice through the ``serve`` command's wiring:
      the default model at full width (1770->512->512->30, sigmoid, window
      50 / stride 5, max_batch 4096) with seeded random weights, answering
@@ -50,11 +52,14 @@ Phases, each of which fails the run:
      that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
      ``F.elu`` x4 and ``F.linear`` x3, both output formats), by CUDA events
      and by profiler device time, beside the bound the card allows; the
+     device time of K3 by launch (tile kernel, weight gradients, reduce) at
+     B = 1, 64 and 4096 with the shape that served each; the
      rate of K3's tile kernel on the tensor cores; registers, stack and
      spills of K1's, K3's and K4's kernels as ptxas reports them; the 4-layer
      encoder stack; /predict p50 of the three services; the weight
      packing of a train step, a whole train step (``pallas`` and ``vpu``) and
-     where its time goes;
+     where its time goes, and a ``pallas`` train step at the default batch
+     of 64, where K3 runs its small shape (launches by shape counted);
   7. training at full width through the ``train`` command's wiring: a
      synthetic train and dev set, ``--model-type transformer --attn-impl
      pallas --batch-size 4096``, 2 epochs; K2 launched 4 times a forward
@@ -359,7 +364,8 @@ def phase_k3_vs_plain(torch, fe, seed: int):
     gen = torch.Generator().manual_seed(seed)
     full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
     edge = fe.BWD_SMALL_BATCH_MAX
-    cases = [(b, *full) for b in (1, 8, 19, 64, edge, edge + 1, 4096)]   # 19: no multiple of the tile
+    # 19: no multiple of the tile; the threshold and one past it
+    cases = [(b, *full) for b in sorted({1, 8, 19, 64, edge, edge + 1, 4096})]
     cases += [(37, 4, ENC_FULL['d'], ENC_FULL['heads']),
               (37, 10, 128, 4),        # three row tiles, 128-column MLP chunks
               (700, 4, 128, 4),        # several tiles a block, several row splits
