@@ -1022,29 +1022,6 @@ struct Operand {
 // k-steps. Partial sums go to scratch [product][part][block][16 kRT][16];
 // returns the split. Every thread calls it, with the operands and
 // the scratch ready; it ends with a barrier, after which pair_sum reads them.
-// This lane's first weight load of an item of product_parts (below).
-__device__ __forceinline__ const uint4* item_weights(Operand op0, Operand op1, int nk, Cols cols,
-                                                     int split, int item) {
-  const int j = item % cols.n;
-  const int pp = item / cols.n;                  // product * split + part
-  const Operand op = pp < split ? op0 : op1;
-  return reinterpret_cast<const uint4*>(op.w) +
-         (static_cast<long long>(cols.block(j)) * nk + (pp % split) * (nk / split)) * 32 +
-         (threadIdx.x & 31);
-}
-
-// The first kDepth k-steps of an item's weights into the ring, checked once
-// a chunk of 4 (part_nk is whole chunks).
-__device__ __forceinline__ void fill_ring(uint4 (&ring)[kDepth], const uint4* wp, int part_nk) {
-#pragma unroll
-  for (int h = 0; h < kDepth / 4; ++h) {
-    if (4 * h < part_nk) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) ring[4 * h + q] = __ldg(wp + (4 * h + q) * 32);
-    }
-  }
-}
-
 template <int kRT>
 __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_prod, int nk,
                                              Cols cols, float* scratch) {
@@ -1060,7 +1037,8 @@ __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_pro
     const int pp = item / cols.n;                // product * split + part
     const int part = pp % split;
     const Operand op = pp < split ? op0 : op1;
-    const uint4* wp = item_weights(op0, op1, nk, cols, split, item);
+    const uint4* wp = reinterpret_cast<const uint4*>(op.w) +
+                      (static_cast<long long>(cols.block(j)) * nk + part * part_nk) * 32 + lane;
     const bf16* ap = op.a + (lane & 15) * op.lda + (lane >> 4) * 8 + 16 * part * part_nk;
     float acc[kRT][2][4];
 #pragma unroll
@@ -1069,7 +1047,13 @@ __device__ __forceinline__ int product_parts(Operand op0, Operand op1, int n_pro
       for (int e = 0; e < 8; ++e) acc[rt][e >> 2][e & 3] = 0.f;
     }
     uint4 ring[kDepth];
-    fill_ring(ring, wp, part_nk);
+#pragma unroll
+    for (int h = 0; h < kDepth / 4; ++h) {
+      if (4 * h < part_nk) {                     // part_nk is whole chunks of 4
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ring[4 * h + q] = __ldg(wp + (4 * h + q) * 32);
+      }
+    }
     for (int kb = 0; kb < part_nk; kb += kDepth) {
 #pragma unroll
       for (int h = 0; h < kDepth / 4; ++h) {
