@@ -70,7 +70,25 @@ Phases, each of which fails the run:
      ``serve`` answers /predict from the checkpoint as the model's own
      forward does;
   7b. one epoch each of the same transformer with ``--attn-impl vpu`` (plain
-     autograd) and of the default feedforward model; windows/s of all three.
+     autograd) and of the default feedforward model;
+  7c. one epoch of ``--model-type groundlink`` at the JAX defaults
+     (``fc_dropout`` 0.2; plain bf16 autograd with dropout in training): the
+     loss is finite and the epoch's mean falls below the first step's, K4
+     launched once a dev-eval forward, a checkpoint written; windows/s of
+     all four;
+  8. ``analyze`` through the command's wiring on the checkpoints of phases 7
+     (``pallas`` transformer), 7b (``vpu`` transformer, feedforward) and 7c
+     (GroundLink), on a dev split of one synthetic subject (one trial of 600
+     frames; the train split empty): each eval forward launched its kernel
+     the expected number of times (K1 1, K2 4, K4 1; none for ``vpu``), the
+     report agrees with the same evaluation through the plain versions at the
+     phase 3 tolerances, CSV rows with ``--eval-chunk-steps 64`` equal those
+     with 1 within 1e-5 relative, a 2-member feedforward ``--ensemble`` (2 K1
+     launches a forward) and ``--tta-mirror`` on GroundLink (2 K4 launches a
+     forward) run once; eval windows/s of each model at B=1 (metrics to the
+     host every 64 batches and every batch) and at B=512 (on a dev split of
+     its own, 24 full batches, after a warm-up run) beside the card's name
+     and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -82,6 +100,8 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import csv
+import io
 import json
 import logging
 import re
@@ -823,7 +843,7 @@ def _first_step(torch, port, model, data, idx, lc):
                          if p.grad is not None}
 
 
-def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
+def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
                    subjects=40, trial_length=2100, size_flags=()):
     """Train the transformer with ``--attn-impl pallas`` through the
     ``train`` command's wiring (``port``: the command's parser and runner and
@@ -979,15 +999,193 @@ def phase_training(torch, port, fe, root, seed, device='cuda', batch=4096,
     _check(vpu.epochs_run == ff.epochs_run == 1
            and np.isfinite(vpu.final_train_metrics['loss'])
            and np.isfinite(ff.final_train_metrics['loss']), 'comparison runs')
+    # 7c. GroundLink at the JAX defaults (fc_dropout 0.2): plain bf16 autograd
+    # with dropout in training, K4 in the dev eval
+    loop_log.addHandler(handler)
+    handler.steps.clear()
+    try:
+        fg.launches = 0
+        gl = run(root / 'ckpt_gl', ['--model-type', 'groundlink'], 1)
+        k4_train_launches, gl_steps = fg.launches, list(handler.steps)
+    finally:
+        loop_log.removeHandler(handler)
+    gl_first, gl_mean = gl_steps[0][2], gl.final_train_metrics['loss']
+    _check(gl.epochs_run == 1 and np.isfinite([gl_first, gl_mean]).all()
+           and np.isfinite(gl.final_dev_metrics['loss']) and gl_mean < gl_first,
+           f'GroundLink: first step loss {gl_first}, epoch mean {gl_mean}, '
+           f'dev {gl.final_dev_metrics}')
+    _check(k4_train_launches == len(dev_ds) // batch,
+           f'GroundLink training: {k4_train_launches} K4 launches for '
+           f'{len(dev_ds) // batch} dev batches')
+    _check((root / 'ckpt_gl' / 'groundlink' / 'epoch_0_batch_0.torch.pt').exists(),
+           'GroundLink checkpoint')
+    print(f'[train] groundlink, fc_dropout 0.2, B={batch}: first step loss {gl_first:.4f}, '
+          f'epoch mean {gl_mean:.4f} (falls); K4 launches {k4_train_launches} == dev '
+          f'batches {len(dev_ds) // batch}; checkpoint written', flush=True)
     wps = {'transformer pallas (K2 + K3)': result.windows_per_sec,
            'transformer vpu (plain autograd)': vpu.windows_per_sec,
-           'feedforward (plain autograd)': ff.windows_per_sec}
+           'feedforward (plain autograd)': ff.windows_per_sec,
+           'groundlink (plain bf16 autograd, dropout)': gl.windows_per_sec}
     print(f'[train] windows/s at B={batch}: '
           + ', '.join(f'{k} {v:.0f}' for k, v in wps.items()), flush=True)
     return dict(k2_launches=k2_launches, k3_launches=k3_launches,
                 k3_shape_launches=k3_shapes, train_steps=train_steps,
                 dev_batches=dev_batches, windows_per_sec=wps, first_loss=first,
-                last_loss=last, first_step_grad_rel=worst)
+                last_loss=last, first_step_grad_rel=worst,
+                groundlink=dict(k4_launches=k4_train_launches, first_loss=gl_first,
+                                epoch_mean_loss=gl_mean))
+
+
+@contextlib.contextmanager
+def _plain_forwards(fm, fe, fg):
+    """Route the models' eval forwards through the plain versions of K1, K2
+    and K4 on any device, to hold an evaluation through the kernels
+    against."""
+    from inferbiomechanics_tpu_torch.models import feedforward, groundlink
+    saved = (feedforward.fused_mlp_forward, fe.fused_encoder_layer,
+             groundlink.fused_groundlink_forward)
+    feedforward.fused_mlp_forward = lambda x, packed, act: fm.mlp_reference(
+        x, packed.layers, act)
+    fe.fused_encoder_layer = lambda x, packed, heads: fe.encoder_layer_reference(
+        x, packed.params, heads)
+    groundlink.fused_groundlink_forward = lambda x, packed, fmt: fg.groundlink_reference(
+        x, packed.params, fmt, packed.fc_depth)
+    try:
+        yield
+    finally:
+        (feedforward.fused_mlp_forward, fe.fused_encoder_layer,
+         groundlink.fused_groundlink_forward) = saved
+
+
+def phase_analyze(torch, port, fm, fe, fg, root, seed, card, member, frames=600,
+                  wide_batches=24, device='cuda'):
+    """``analyze`` through the command's wiring on the checkpoints phase 7
+    wrote (transformer ``pallas``, ``vpu``, feedforward, GroundLink), on a dev
+    split of one synthetic subject (one trial; the train split is empty):
+    every eval forward launches its kernel the expected number of times, the
+    report agrees with the same evaluation through the plain versions at the
+    kernels' phase 3 tolerances, CSV rows with ``--eval-chunk-steps`` 64 equal
+    those with 1 within 1e-5 relative, a 2-member feedforward ``--ensemble``
+    (``member``: another checkpoint dir) and ``--tta-mirror`` on GroundLink
+    each run once; windows/s of each model at B=1 (``--eval-chunk-steps`` 64
+    and 1) and at B=512, the latter on a dev split of its own of
+    ``wide_batches`` full batches (four trials), after a warm-up run at
+    B=512 on the first split. ``device`` 'cpu' rehearses the phase."""
+
+    def split(name, trials, length, subject_seed):
+        """A dev split of one synthetic subject and an empty train split;
+        returns its directory and its window count."""
+        home = root / name
+        (home / 'train').mkdir(parents=True)
+        (home / 'dev').mkdir()
+        port.write_synthetic_subject(str(home / 'dev' / 'subject.b3d'), num_trials=trials,
+                                     trial_length=length, seed=subject_seed)
+        return home, len(port.WindowDataset(str(home / 'dev'), window_size=50, stride=5,
+                                            skip_loading_skeletons=True))
+
+    data, windows = split('analyze_data', 1, frames, seed + 300)
+    # a trial of L frames holds L - 51 windows at window 50 / stride 5
+    wide_data, wide_windows = split('analyze_wide', 4, wide_batches * 512 // 4 + 51,
+                                    seed + 301)
+    _check(wide_windows == wide_batches * 512,
+           f'wide split: {wide_windows} windows, expected {wide_batches} x 512')
+    # name -> checkpoint root, flags, the kernel's module, its launches a
+    # forward, the report's tolerance against the plain versions
+    models = {
+        'transformer pallas (K2)': ('ckpt_a', ['--model-type', 'transformer',
+                                               '--attn-impl', 'pallas'], fe, 4, HEAD_REL),
+        'transformer vpu (plain)': ('ckpt_vpu', ['--model-type', 'transformer'], None, 0, None),
+        'feedforward (K1)': ('ckpt_ff', [], fm, 1, ATOL),
+        'groundlink (K4)': ('ckpt_gl', ['--model-type', 'groundlink'], fg, 1, GL_REL),
+    }
+    kernel_modules = (fm, fe, fg)
+
+    def run(ckpt, flags, extra=(), home=data, expect=windows):
+        """One ``analyze`` on the split under ``home`` (``expect`` windows);
+        returns its dev result, its dev rows and the kernels' launches
+        (counts set to 0 just before, read just after)."""
+        args = port.parser().parse_args([
+            'analyze', '--dataset-home', str(home), '--checkpoint-dir', str(root / ckpt),
+            '--no-wandb', '--device', device, *flags, *extra])
+        csv_path = root / ckpt / args.model_type / 'dev_analysis.csv'
+        if csv_path.exists():
+            csv_path.unlink()
+        for m in kernel_modules:
+            m.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = port.analyze(args)
+        launches = [m.launches for m in kernel_modules]
+        _check('train: no windows, skipping' in out.getvalue() and set(result) == {'dev'},
+               f'analyze {flags} {extra}: splits {set(result)}')
+        dev = result['dev']
+        _check(dev['windows'] == expect and np.isfinite(list(dev['summary'].values())).all(),
+               f'analyze {flags} {extra}: {dev}')
+        with open(csv_path) as f:
+            rows = list(csv.reader(f))
+        _check(len(rows) == expect, f'{len(rows)} CSV rows for {expect} windows')
+        return dev, rows, launches
+
+    rates, report = {}, {}
+    for name, (ckpt, flags, module, per_forward, tol) in models.items():
+        chunked, rows64, launches = run(ckpt, flags)
+        want = [per_forward * windows if m is module else 0 for m in kernel_modules]
+        _check(launches == want, f'analyze {name}: K1/K2/K4 launches {launches}, '
+                                 f'expected {want} for {windows} forwards at B=1')
+        per_batch, rows1, _ = run(ckpt, flags, ['--eval-chunk-steps', '1'])
+        _check([r[:2] for r in rows1] == [r[:2] for r in rows64], f'{name}: row order')
+        a, b = (np.asarray([r[2:] for r in rows], float) for rows in (rows64, rows1))
+        chunk_err = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        _check(chunk_err <= 1e-5, f'{name}: chunked rows off per-batch rows by {chunk_err}')
+        # B=512: a warm-up on this split (a full batch and a short one), then
+        # the timed run on the wide split
+        for home, expect in ((data, windows), (wide_data, wide_windows)):
+            wide, _, wide_launches = run(ckpt, flags, ['--batch-size', '512'], home, expect)
+            forwards = -(-expect // 512)
+            _check(wide_launches == [per_forward * forwards if m is module else 0
+                                     for m in kernel_modules],
+                   f'analyze {name} B=512: launches {wide_launches} for {forwards} forwards')
+        entry = dict(launches_b1=launches, windows_per_sec_b1=windows / chunked['seconds'],
+                     windows_per_sec_b1_per_batch=windows / per_batch['seconds'],
+                     windows_per_sec_b512=wide_windows / wide['seconds'],
+                     b512_seconds=wide['seconds'], chunked_vs_per_batch_rel=chunk_err)
+        if module is not None:
+            with _plain_forwards(fm, fe, fg):
+                plain, _, plain_launches = run(ckpt, flags)
+            _check(plain_launches == [0, 0, 0], f'{name}: plain run launched {plain_launches}')
+            worst = max(abs(chunked['summary'][k] - v) / max(abs(v), 1e-30)
+                        for k, v in plain['summary'].items())
+            _check(worst <= tol, f'analyze {name}: report off the plain versions by {worst} '
+                                 f'relative (limit {tol}): {chunked["summary"]} against '
+                                 f'{plain["summary"]}')
+            entry['report_rel_vs_plain'] = worst
+        report[name] = entry
+        rates[name] = (entry['windows_per_sec_b1'], entry['windows_per_sec_b1_per_batch'],
+                       entry['windows_per_sec_b512'])
+        print(f'[analyze] {name}: {windows} windows at B=1 in {chunked["seconds"]} s '
+              f'(--eval-chunk-steps 64), {per_batch["seconds"]} s (1); {wide_windows} '
+              f'windows at B=512 in {wide["seconds"]} s; launches K1/K2/K4 {launches}; '
+              f'chunked (64) rows vs per-batch rows {chunk_err:.3g} relative; report vs the '
+              f'plain versions {entry.get("report_rel_vs_plain", "n/a (no kernel)")}',
+              flush=True)
+
+    ens, _, ens_launches = run('ckpt_ff', ['--ensemble', str(root / 'ckpt_ff' / 'feedforward'),
+                                           str(member)])
+    _check(ens_launches == [2 * windows, 0, 0],
+           f'--ensemble of 2: launches {ens_launches} for {windows} forwards')
+    tta, _, tta_launches = run('ckpt_gl', ['--model-type', 'groundlink', '--tta-mirror'])
+    _check(tta_launches == [0, 0, 2 * windows],
+           f'--tta-mirror: launches {tta_launches} for {windows} forwards')
+    report['extras'] = dict(ensemble_launches=ens_launches, tta_launches=tta_launches,
+                            ensemble_loss=ens['summary']['loss'], tta_loss=tta['summary']['loss'])
+    print(f'[analyze] --ensemble of 2 feedforward: K1 launches {ens_launches[0]} == 2 x '
+          f'{windows}; --tta-mirror GroundLink: K4 launches {tta_launches[2]} == 2 x '
+          f'{windows}', flush=True)
+    print(f'[analyze] eval windows/s ({card}): '
+          + '; '.join(f'{k} {v[0]} at B=1 (chunks of 64), {v[1]} at B=1 (chunks of 1), '
+                      f'{v[2]} at B=512 ({wide_windows} windows)' for k, v in rates.items()),
+          flush=True)
+    return report
 
 
 def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer,
@@ -1099,6 +1297,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from inferbiomechanics_tpu_torch.__main__ import build_parser as main_parser
+    from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
     from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
     from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
     from inferbiomechanics_tpu_torch.config import Config, config_from_args
@@ -1184,7 +1383,7 @@ def main() -> int:
             loss_and_metrics=loss_and_metrics, loss_config_from=loss_config_from,
             build_model_for_dataset=build_model_for_dataset,
             DeviceResidentData=DeviceResidentData,
-            load_latest_checkpoint=load_latest_checkpoint)
+            load_latest_checkpoint=load_latest_checkpoint, analyze=analyze)
         k1_launches, ff_p50 = phase_service(
             port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
             ff_agree, fm, 1, args.seed)
@@ -1273,7 +1472,11 @@ def main() -> int:
             port, data, ckpt_root, ds, gl_symmetrized, weights_for(gcfg), fg, args.seed)
 
         # 7 and 7b. training
-        trained = phase_training(torch, port, fe, tmp, args.seed)
+        trained = phase_training(torch, port, fe, fg, tmp, args.seed)
+
+        # 8. analyze on the checkpoints phase 7 wrote
+        analyzed = phase_analyze(torch, port, fm, fe, fg, tmp, args.seed, card,
+                                 member=tmp / 'member_0')
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -1474,13 +1677,16 @@ def main() -> int:
               library='bf16 cuBLAS chain (3 addmm)', launches_per_forward=1,
               served_by=k1_served, small_batch_max=fm.SMALL_BATCH_MAX,
               ptxas=_ptxas_report(info['log'], 'fused_mlp_kernel'),
-              predict_p50_ms={'1': ff_p50[0], '4096': ff_p50[1]}),
+              predict_p50_ms={'1': ff_p50[0], '4096': ff_p50[1]},
+              analyze=analyzed['feedforward (K1)'],
+              analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0]),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
               forward_ms={str(b): v for b, v in fwd.items()},
               predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]},
               train_launches=trained['k2_launches'],
+              analyze=analyzed['transformer pallas (K2)'],
               small_batch_max=fe.SMALL_BATCH_MAX, served_by=k2_served,
               checked_shapes=k2_checked,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel')),
@@ -1517,7 +1723,10 @@ def main() -> int:
               ptxas=_ptxas_report(info['log'], 'fused_groundlink_kernel'),
               extras_launches={'tta_mirror (2 a forward)': k4_tta_launches,
                                'K1 in a 3-member ensemble (3 a forward)': k1_ens_launches},
-              predict_p50_ms={'1': gl_p50[0], '4096': gl_p50[1]}),
+              predict_p50_ms={'1': gl_p50[0], '4096': gl_p50[1]},
+              train_dev_eval_launches=trained['groundlink']['k4_launches'],
+              analyze=analyzed['groundlink (K4)'],
+              analyze_tta_launches=analyzed['extras']['tta_launches'][2]),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,12 +1,12 @@
-"""``python -m inferbiomechanics_tpu_torch {serve,train} ...``"""
+"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze} ...``"""
 
 import argparse
 import logging
 from typing import Optional, Sequence
 
-from inferbiomechanics_tpu_torch.cli import serve_cmd, train_cmd
+from inferbiomechanics_tpu_torch.cli import analyze_cmd, serve_cmd, train_cmd
 
-COMMANDS = {'serve': serve_cmd, 'train': train_cmd}
+COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,0 +1,352 @@
+"""``analyze`` subcommand: score a checkpoint over the dev and train splits.
+
+PyTorch counterpart of ``inferbiomechanics_tpu/cli/analyze_cmd.py`` for the
+learned regression models (feedforward, transformer ``vpu`` and ``pallas``,
+GroundLink), with its flags and defaults (vertical GRF loss only,
+``--batch-size`` 1). For each split, dev then train, it evaluates the
+newest checkpoint under ``<checkpoint-dir>/<model-type>/`` (or
+``--checkpoint-file``; a fresh model, with a warning, when there is none)
+through the model's eval forward: K1 for the feedforward model, K2 a layer
+for the ``pallas`` transformer, K4 for GroundLink, the plain bf16 forward
+for the ``vpu`` transformer. It appends a row per window to
+``{split}_analysis.csv`` (subject, trial, loss, force_avg_err,
+com_acc_avg_err, in the JAX command's window order), prints a report every
+1000 batches and at the end, and on request bootstrap confidence intervals
+(``--bootstrap``) and per-group summaries (``--group-by``).
+
+``--eval-chunk-steps K`` (default 64) runs K same-shape batches between two
+device-to-host copies of their metrics (``train/step.py::
+make_eval_chunk_runner``; the short trailing batch is its own chunk); 1 is
+one batch a copy. ``--ensemble`` scores the mean of several checkpoints
+through the port's ``InferenceService`` (``--tta-mirror`` per member);
+``--tta-mirror`` alone goes through ``train/augment.py::make_tta_eval_step``.
+``--device`` defaults to ``cuda`` and fails without a GPU; ``--device cpu``
+runs the kernels' plain versions. Options whose features are not ported
+raise and name the ROADMAP item that brings them.
+
+    python -m inferbiomechanics_tpu_torch analyze --dataset-home D --checkpoint-dir C
+    python -m inferbiomechanics_tpu_torch analyze ... --model-type groundlink --tta-mirror
+    python -m inferbiomechanics_tpu_torch analyze ... --ensemble C1 C2 --bootstrap 2000
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from inferbiomechanics_tpu_torch.cli.motion import classify_motion
+from inferbiomechanics_tpu_torch.config import Config, add_config_flags, config_from_args
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
+from inferbiomechanics_tpu_torch.loss.evaluator import RegressionLossEvaluator
+from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
+from inferbiomechanics_tpu_torch.serve import InferenceService, resolve_device
+from inferbiomechanics_tpu_torch.train.augment import make_tta_eval_step, spec_from_dataset
+from inferbiomechanics_tpu_torch.train.checkpoint import (
+    load_checkpoint_file, load_latest_checkpoint,
+)
+from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset, loss_config_from
+from inferbiomechanics_tpu_torch.train.run_config import (
+    add_run_config_flag, use_run_config_if_requested, warn_on_architecture_mismatch,
+)
+from inferbiomechanics_tpu_torch.train.step import make_eval_chunk_runner, make_eval_step
+from inferbiomechanics_tpu_torch.utils.wandb_compat import MetricLogger
+
+ROW_KEYS = ('loss', 'force_avg_err', 'com_acc_avg_err')
+
+
+def register_subcommand(sub) -> None:
+    p = sub.add_parser('analyze', conflict_handler='resolve',
+                       help='Evaluate a model checkpoint over dev and train splits')
+    add_config_flags(p, Config(predict_grf_components=[1], predict_cop_components=[],
+                               predict_moment_components=[],
+                               predict_wrench_components=[], batch_size=1))
+    add_run_config_flag(p)
+    p.add_argument('--device', type=str, default='cuda',
+                   help='torch device to evaluate on: cuda (default; fails '
+                        'without a GPU) or cpu')
+    p.add_argument('--checkpoint-file', type=str, default=None,
+                   help='Evaluate this checkpoint file (e.g. best.torch.pt) '
+                        'instead of the newest epoch_* one')
+    p.add_argument('--ensemble', type=str, nargs='+', default=None, metavar='CKPT',
+                   help='Evaluate the mean of several checkpoints (dirs or '
+                        'checkpoint files), one forward per member')
+    p.add_argument('--tta-mirror', action='store_true',
+                   help='Mirror test-time augmentation: average each '
+                        'prediction with the un-mirrored prediction of the '
+                        'sagittally mirrored window (one extra forward)')
+    p.add_argument('--eval-chunk-steps', type=int, default=64,
+                   help='Evaluate K same-shape batches between two copies of '
+                        'their metrics to the host; 1 = one batch at a time. '
+                        'Ignored with --ensemble')
+    p.add_argument('--bootstrap', type=int, default=0,
+                   help='Resample the per-window rows N times and print 95%% '
+                        'confidence intervals on the mean loss / force / '
+                        'COM-acc errors (exact at --batch-size 1)')
+    p.add_argument('--group-by', type=str, default=None,
+                   choices=['trial', 'subject', 'activity'],
+                   help='Also write {split}_summary_{group}.csv: per-group '
+                        'window counts and mean loss / force / COM-acc errors, '
+                        'worst force error first (activity = trial-name '
+                        'motion classes). Exact at --batch-size 1')
+    # flags of the JAX command whose features are not ported yet: accepted,
+    # so that they can be refused by name instead of ignored
+    p.add_argument('--plot-errors', action='store_true', help='not yet ported')
+    p.add_argument('--quantize', type=str, default=None, choices=['int8'],
+                   help='not yet ported')
+    p.add_argument('--use-ema', action='store_true', help='not yet ported')
+    p.add_argument('--diffusion-partial', type=float, default=None,
+                   help='not yet ported')
+    p.add_argument('--init-checkpoint', type=str, default=None, help='not yet ported')
+
+
+def _check_consistency(config: Config, args: argparse.Namespace) -> None:
+    """The JAX command's own refusals of option pairs, in its words."""
+    if args.ensemble and config.model_type in ('analytical', 'diffusion'):
+        raise SystemExit(f'analyze --ensemble supports learned '
+                         f'regression models; --model-type '
+                         f'{config.model_type} has its own evaluation '
+                         f'path and would silently ignore the ensemble')
+    if args.use_ema and config.model_type != 'diffusion':
+        raise SystemExit('analyze --use-ema applies to diffusion '
+                         'checkpoints (train --ema-decay); '
+                         f'--model-type {config.model_type} would '
+                         'silently evaluate the raw params')
+    if args.quantize and config.model_type != 'feedforward':
+        raise SystemExit('analyze --quantize int8 currently supports '
+                         'the feedforward family only (like serve '
+                         'and export)')
+    if args.diffusion_partial is not None and config.model_type != 'diffusion':
+        raise SystemExit('analyze --diffusion-partial applies to '
+                         f'--model-type diffusion; --model-type '
+                         f'{config.model_type} would silently evaluate '
+                         'without the warm start')
+    if args.init_checkpoint and args.diffusion_partial is None:
+        raise SystemExit('analyze --init-checkpoint only does something '
+                         'with --diffusion-partial (it seeds the '
+                         'truncated DDIM chains)')
+
+
+def _reject_unported(config: Config, args: argparse.Namespace) -> None:
+    """Raise for every option of the JAX command that the port does not
+    have yet, by the flag's name."""
+    unported = [
+        ('--quantize', bool(args.quantize),
+         'ROADMAP.md Queue 1 item 4 (inference and serving extras)'),
+        ('--use-ema', args.use_ema, 'ROADMAP.md Queue 1 item 6 (diffusion)'),
+        ('--diffusion-partial', args.diffusion_partial is not None,
+         'ROADMAP.md Queue 1 item 6 (diffusion)'),
+        ('--init-checkpoint', bool(args.init_checkpoint),
+         'ROADMAP.md Queue 1 item 6 (diffusion)'),
+        ('--model-type diffusion', config.model_type == 'diffusion',
+         'ROADMAP.md Queue 1 item 6 (diffusion)'),
+        ('--model-type analytical', config.model_type == 'analytical',
+         'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
+        ('--compute-report', config.compute_report,
+         'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
+        ('--plot-errors', args.plot_errors,
+         'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
+    ]
+    for flag, asked, where in unported:
+        if asked:
+            raise NotImplementedError(f'{flag} is not yet ported ({where})')
+
+
+def _pack_for_eval(model) -> None:
+    """Pack the eval kernel's weights before the timed loop (the eval
+    forward would pack them on its first call)."""
+    with torch.no_grad():
+        if isinstance(model, TransformerRegressor):
+            if model.attn_impl == 'pallas':
+                model.packed_layers(transposes=False)
+        else:
+            model.packed()      # feedforward (K1), GroundLink (K4)
+
+
+def _bootstrap(split: str, rows: np.ndarray, n_boot: int) -> None:
+    """95% percentile bootstrap over the per-window rows, in chunks of
+    resamples so that the indices never take more than ~64M entries."""
+    rng = np.random.default_rng(0)
+    w = rows.shape[0]
+    chunks = []
+    chunk = max(1, min(n_boot, 64_000_000 // max(w, 1)))
+    for lo_i in range(0, n_boot, chunk):
+        k = min(chunk, n_boot - lo_i)
+        idx = rng.integers(0, w, (k, w))
+        chunks.append(rows[idx].mean(axis=1))
+    means = np.concatenate(chunks)           # [N, 3]
+    lo = np.percentile(means, 2.5, axis=0)
+    hi = np.percentile(means, 97.5, axis=0)
+    mid = rows.mean(axis=0)
+    names = ['loss', 'force_avg_err (N/kg)', 'com_acc_avg_err (m/s^2)']
+    print(f'[{split}] bootstrap 95% CIs ({w} windows, {n_boot} resamples):')
+    for j, name in enumerate(names):
+        print(f'  {name}: {mid[j]:.4f} [{lo[j]:.4f}, {hi[j]:.4f}]')
+
+
+def _write_summary(path: str, group_by: str, groups: Dict[str, list]) -> None:
+    with open(path, 'w', newline='') as f:
+        w = csv.writer(f)
+        w.writerow([group_by, 'windows', 'loss', 'force_avg_err', 'com_acc_avg_err'])
+        ranked = sorted(groups.items(), key=lambda kv: kv[1][2] / kv[1][0],
+                        reverse=True)   # worst force error first
+        for key, (n, sl, sf, sc) in ranked:
+            w.writerow([key, n, sl / n, sf / n, sc / n])
+
+
+def analyze(args: argparse.Namespace) -> Dict[str, dict]:
+    """Run ``analyze`` as the parsed arguments say. Returns, by split
+    evaluated, its final report (``summary``), its window count and the
+    seconds its evaluation loop took (forwards, metrics and rows)."""
+    config = use_run_config_if_requested(config_from_args(args), args)
+    _check_consistency(config, args)
+    _reject_unported(config, args)
+    checkpoint_dir = os.path.join(os.path.abspath(config.checkpoint_dir),
+                                  config.model_type)
+    warn_on_architecture_mismatch(config, checkpoint_dir, 'analyze')
+    device = resolve_device(args.device)
+
+    ml = MetricLogger(config=vars(args), enabled=not config.no_wandb)
+    lc = loss_config_from(config)
+    results: Dict[str, dict] = {}
+    for split in ('dev', 'train'):
+        ds = WindowDataset(os.path.join(config.dataset_home, split),
+                           window_size=config.window_size, stride=config.stride,
+                           output_data_format=config.output_data_format,
+                           testing_with_short_dataset=config.short,
+                           trial_filter=config.trial_filter,
+                           skip_loading_skeletons=True)
+        if len(ds) == 0:
+            print(f'{split}: no windows, skipping')
+            continue
+        evaluator = RegressionLossEvaluator(split, lc, wandb_logger=ml)
+
+        if args.ensemble:
+            svc = InferenceService(config, checkpoint_dir, ds,
+                                   max_batch=max(config.batch_size, 1), device=device,
+                                   ensemble=args.ensemble, tta_mirror=args.tta_mirror)
+            print(f'ensemble of {len(svc.members)}: '
+                  + ', '.join(m['path'] for m in svc.members))
+            if svc.tta_mirror:
+                print('mirror test-time augmentation enabled (per ensemble member)')
+            predict = svc.predict_packed
+            eval_fn = None
+        else:
+            model = build_model_for_dataset(
+                config, ds, generator=torch.Generator().manual_seed(0), device=device)
+            if args.checkpoint_file:
+                load_checkpoint_file(model, args.checkpoint_file)
+            else:
+                epoch, _ = load_latest_checkpoint(model, checkpoint_dir)
+                if epoch < 0:
+                    print(f'WARNING: no checkpoint found in {checkpoint_dir}; '
+                          f'evaluating a fresh model')
+            model.eval()
+            _pack_for_eval(model)
+            if args.tta_mirror:
+                spec = spec_from_dataset(ds, lateral_axis=config.mirror_lateral_axis)
+                eval_fn = make_tta_eval_step(model, ds.lab_offsets, lc, spec)
+                print('mirror test-time augmentation enabled')
+            else:
+                eval_fn = make_eval_step(model, ds.lab_offsets, lc)
+
+        csv_path = os.path.join(checkpoint_dir, f'{split}_analysis.csv')
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        group_by = args.group_by
+        groups: Dict[str, list] = {}     # key -> [n, sum_loss, sum_force, sum_com_acc]
+        n_boot = int(args.bootstrap or 0)
+        boot_rows = []                   # per-window [loss, force, com_acc]
+        eval_chunk = max(1, int(args.eval_chunk_steps or 1))
+        windows = 0
+
+        t0 = time.perf_counter()
+        with open(csv_path, 'a', newline='') as f:
+            writer = csv.writer(f)
+
+            def emit_rows(i, batch, row):
+                """A batch's CSV rows, bootstrap rows, group sums and
+                progress report; ``row`` is the batch's three host floats."""
+                for b in range(batch.inputs.shape[0]):
+                    s_idx = int(batch.subject_indices[b])
+                    subj = os.path.basename(ds.subject_paths[s_idx])
+                    trial = ds.subjects[s_idx].getTrialName(int(batch.trial_indices[b]))
+                    writer.writerow([subj, trial] + row)
+                    if n_boot:
+                        boot_rows.append(row)
+                    if group_by:
+                        if group_by == 'trial':
+                            key = f'{subj}/{trial}'
+                        elif group_by == 'subject':
+                            key = subj
+                        else:
+                            key = classify_motion(trial)
+                        g = groups.setdefault(key, [0, 0.0, 0.0, 0.0])
+                        g[0] += 1
+                        for j, v in enumerate(row):
+                            g[1 + j] += v
+                if i > 0 and i % 1000 == 0:
+                    print(f'[{split}] batch {i}:')
+                    evaluator.print_report(reset=False, log_to_wandb=True)
+
+            batches = ds.batches(config.batch_size, shuffle=False, drop_last=False)
+            if eval_fn is None:
+                # --ensemble: the members' host predict, one batch at a time
+                for i, batch in enumerate(batches):
+                    windows += batch.inputs.shape[0]
+                    y = torch.from_numpy(np.ascontiguousarray(batch.labels)).to(device)
+                    with torch.no_grad():
+                        outputs = {k: torch.from_numpy(v).to(device)
+                                   for k, v in predict(batch.inputs).items()}
+                        metrics = evaluator.compute_metrics(
+                            outputs, unpack(y, ds.lab_offsets))
+                    evaluator(None, None, None, precomputed_metrics=metrics)
+                    emit_rows(i, batch, torch.stack(
+                        [metrics[key].float() for key in ROW_KEYS]).tolist())
+            else:
+                run_chunk = make_eval_chunk_runner(eval_fn, device)
+                pend = []   # [(i, batch)]: same-shape batches only
+
+                def flush():
+                    if not pend:
+                        return
+                    ms = run_chunk(None, np.stack([b.inputs for _, b in pend]),
+                                   np.stack([b.labels for _, b in pend]))
+                    for k, (bi, b) in enumerate(pend):
+                        mk = {key: v[k] for key, v in ms.items()}
+                        evaluator(None, None, None, precomputed_metrics=mk)
+                        emit_rows(bi, b, [float(mk[key]) for key in ROW_KEYS])
+                    pend.clear()
+
+                for i, batch in enumerate(batches):
+                    windows += batch.inputs.shape[0]
+                    if pend and batch.inputs.shape != pend[0][1].inputs.shape:
+                        flush()   # the trailing short batch
+                    pend.append((i, batch))
+                    if len(pend) >= eval_chunk:
+                        flush()
+                flush()
+        seconds = time.perf_counter() - t0
+        print(f'[{split}] final report:')
+        summary = evaluator.print_report(log_to_wandb=True)
+        print(f'wrote {csv_path}')
+        print(f'[{split}] {windows} windows evaluated in {seconds:.3f} s '
+              f'({windows / seconds:.1f} windows/s on {device})')
+        if n_boot and boot_rows:
+            _bootstrap(split, np.asarray(boot_rows), n_boot)
+        if group_by and groups:
+            spath = os.path.join(checkpoint_dir, f'{split}_summary_{group_by}.csv')
+            _write_summary(spath, group_by, groups)
+            print(f'wrote {spath}')
+        results[split] = dict(summary=summary, windows=windows, seconds=seconds)
+    ml.finish()
+    return results
+
+
+def run(args: argparse.Namespace) -> int:
+    analyze(args)
+    return 0

@@ -7,16 +7,18 @@ training loss, the three auxiliary-head losses, the eleven reported
 metrics, and the per-split accumulator with its report.
 
 The math is :func:`loss_and_metrics`, which the train and eval steps call;
-its metrics are detached and stay on the device. The inverse-dynamics
-joint-torque report (``tau_fn`` / ``--compute-report``) and the wandb
-report are not ported yet.
+its metrics are detached and stay on the device. The report goes to the
+log and, through ``wandb_logger``, under the JAX package's wandb keys. The
+inverse-dynamics joint-torque report (``tau_fn`` / ``--compute-report``) is
+not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,6 +26,16 @@ from inferbiomechanics_tpu_torch.data.keys import OutputDataKeys
 from inferbiomechanics_tpu_torch.ops.losses import (
     com_acc_error, mask_by_threes, mean_norm_error, squared_diff_mean_vector,
 )
+
+
+# component names of the report's keys
+COMPONENTS = ['left-x', 'left-y', 'left-z', 'right-x', 'right-y', 'right-z']
+WRENCH_COMPONENTS = [
+    'left-moment-x', 'left-moment-y', 'left-moment-z',
+    'left-force-x', 'left-force-y', 'left-force-z',
+    'right-moment-x', 'right-moment-y', 'right-moment-z',
+    'right-force-x', 'right-force-y', 'right-force-z',
+]
 
 
 @dataclass(frozen=True)
@@ -97,29 +109,35 @@ def loss_and_metrics(outputs: Dict[str, torch.Tensor],
 
 
 class RegressionLossEvaluator:
-    """Per-split accumulator and report printer: ``__call__`` once a batch,
-    ``print_report`` at epoch boundaries. Metrics stay on the device until
-    the report."""
+    """Per-split accumulator, report printer and logger: ``__call__`` once a
+    batch, ``print_report`` at epoch boundaries. Metrics stay where they
+    come from (device tensors from a step, host arrays from a drained eval
+    chunk) until the report, which copies their means to the host at once.
+    ``wandb_logger`` (a ``utils.wandb_compat.MetricLogger``) gets the
+    report under the JAX package's key schema when asked to."""
 
-    def __init__(self, split: str, config: LossConfig = LossConfig(), tau_fn=None):
+    def __init__(self, split: str, config: LossConfig = LossConfig(), tau_fn=None,
+                 wandb_logger=None):
         if tau_fn is not None:
             raise NotImplementedError(
                 'the inverse-dynamics joint-torque report (tau_fn, '
                 '--compute-report) is not yet ported (ROADMAP.md Queue 1 item 7)')
         self.split = split
         self.config = config
+        self.wandb_logger = wandb_logger
         self.reset()
 
     def reset(self) -> None:
-        self.metric_history: Dict[str, List[torch.Tensor]] = {}
+        self.metric_history: Dict[str, list] = {}
 
     def compute_metrics(self, outputs, labels) -> Dict[str, torch.Tensor]:
         return loss_and_metrics(outputs, labels, self.config)[1]
 
     def __call__(self, inputs, outputs, labels, compute_report: bool = False,
-                 precomputed_metrics: Optional[Dict[str, torch.Tensor]] = None):
-        """Account one batch; pass the step's own metrics as
-        ``precomputed_metrics`` to spare a second computation."""
+                 precomputed_metrics: Optional[Dict] = None):
+        """Account one batch; pass the step's own metrics (tensors, or the
+        host arrays of a drained chunk) as ``precomputed_metrics`` to spare
+        a second computation."""
         if compute_report:
             raise NotImplementedError(
                 '--compute-report is not yet ported (ROADMAP.md Queue 1 item 7)')
@@ -129,25 +147,64 @@ class RegressionLossEvaluator:
             self.metric_history.setdefault(k, []).append(v)
         return metrics['loss']
 
+    def _means(self) -> Dict[str, np.ndarray]:
+        """Each metric's mean over the accounted batches (a vector metric
+        stays a vector), in one device-to-host copy."""
+        keys = list(self.metric_history)
+        if not keys:
+            return {}
+        first = self.metric_history[keys[0]][0]
+        device = first.device if torch.is_tensor(first) else torch.device('cpu')
+        means = [torch.stack([torch.as_tensor(h, device=device)
+                              for h in self.metric_history[k]]).float().mean(0)
+                 for k in keys]
+        flat = torch.cat([m.reshape(-1) for m in means]).cpu().numpy()
+        out, at = {}, 0
+        for k, m in zip(keys, means):
+            out[k] = flat[at:at + m.numel()].reshape(m.shape)
+            at += m.numel()
+        return out
+
+    def _wandb_report(self, m: Dict[str, np.ndarray]) -> Dict[str, float]:
+        """The JAX package's key schema: each report key is logged iff its
+        own metric exists."""
+        c, s = self.config, self.split
+        return {
+            **{f'{s}/force_rmse/{COMPONENTS[i]}': float(m['force_loss'][i]) ** 0.5
+               for i in c.predict_grf_components},
+            **{f'{s}/cop_rmse/{COMPONENTS[i]}': float(m['cop_loss'][i]) ** 0.5
+               for i in c.predict_cop_components},
+            **{f'{s}/moment_rmse/{COMPONENTS[i]}': float(m['moment_loss'][i]) ** 0.5
+               for i in c.predict_moment_components},
+            **{f'{s}/wrench_loss/{WRENCH_COMPONENTS[i]}': float(m['wrench_loss'][i]) ** 0.5
+               for i in c.predict_wrench_components},
+            f'{s}/loss': float(m['loss']),
+            f'{s}/reports/Force Avg Err (N per kg)': float(m['force_avg_err']),
+            f'{s}/reports/CoP Avg Err (m)': float(m['cop_avg_err']),
+            f'{s}/reports/Moment Avg Err (Nm per kg)': float(m['moment_avg_err']),
+            f'{s}/reports/COM Acc Avg Err (m per s^2)': float(m['com_acc_avg_err']),
+            f'{s}/reports/Wrench Avg Err (N+Nm per kg)': float(m['wrench_avg_err']),
+        }
+
     def mean_metric(self, key: str) -> Optional[float]:
         hist = self.metric_history.get(key)
-        return float(torch.stack([h.float().mean() for h in hist]).mean()) if hist else None
+        return float(self._means()[key].mean()) if hist else None
 
-    def print_report(self, reset: bool = True) -> Dict[str, float]:
+    def print_report(self, reset: bool = True, log_to_wandb: bool = False) -> Dict[str, float]:
+        means = self._means()
         summary: Dict[str, float] = {}
-        if self.metric_history:
+        if means:
             keys = ('force_avg_err', 'com_acc_avg_err', 'cop_avg_err', 'moment_avg_err',
                     'wrench_avg_err', 'wrench_moment_avg_err', 'loss')
-            # one device-to-host copy for the whole report
-            means = torch.stack([torch.stack(self.metric_history[k]).float().mean()
-                                 for k in keys]).tolist()
-            summary = dict(zip(keys, means))
+            summary = {k: float(means[k]) for k in keys}
             print(f'\tForce Avg Err: {summary["force_avg_err"]} N / kg')
             print(f'\tCOM Acc Avg Err: {summary["com_acc_avg_err"]} m / s^2')
             print(f'\tCoP Avg Err: {summary["cop_avg_err"]} m')
             print(f'\tMoment Avg Err: {summary["moment_avg_err"]} Nm / kg')
             print(f'\tWrench Avg Err: {summary["wrench_avg_err"]} N+Nm / kg')
             print(f'\tWrench Moment Avg Err: {summary["wrench_moment_avg_err"]} Nm / kg')
+            if log_to_wandb and self.wandb_logger is not None:
+                self.wandb_logger.log(self._wandb_report(means))
         if reset:
             self.reset()
         return summary

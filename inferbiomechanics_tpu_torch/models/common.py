@@ -9,7 +9,7 @@ canonical concat order, and emit the 4 ground-contact output groups.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -17,6 +17,9 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 
 ModelInput = Union[torch.Tensor, Dict[str, torch.Tensor]]
+# masks(shape, p, device) -> bool keep mask of that shape, True with
+# probability 1 - p
+MaskSource = Callable[[Tuple[int, ...], float, torch.device], torch.Tensor]
 
 
 def pack_inputs(inputs: ModelInput) -> torch.Tensor:
@@ -74,3 +77,22 @@ def init_linear(layer: nn.Linear, init_style: str,
     with torch.no_grad():
         layer.weight.copy_(w)
         layer.bias.copy_(b)
+
+
+def generator_masks(generator: Optional[torch.Generator] = None) -> MaskSource:
+    """Keep masks drawn from ``generator`` (on the tensor's device), or from
+    torch's default generator when it is None."""
+    def masks(shape, p, device):
+        return torch.rand(shape, generator=generator, device=device) >= p
+    return masks
+
+
+def dropout(x: torch.Tensor, p: float, masks: MaskSource) -> torch.Tensor:
+    """flax's ``nn.Dropout`` at rate ``p`` in ``x``'s dtype: ``x / (1 - p)``
+    where the mask keeps, 0 where it drops."""
+    if p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    keep = masks(tuple(x.shape), p, x.device)
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -76,7 +76,8 @@ class FeedForwardBaseline(nn.Module):
         self._packed = None
 
     def train(self, mode: bool = True):
-        self._drop_packed()
+        if mode:    # training changes the weights; eval() keeps what is packed
+            self._drop_packed()
         return super().train(mode)
 
     def layer_params(self):
@@ -84,7 +85,7 @@ class FeedForwardBaseline(nn.Module):
         return [(layer.weight.t(), layer.bias) for layer in self.layers]
 
     def packed(self) -> PackedMLP:
-        """The kernel's packed weights, made once per eval() or load."""
+        """The kernel's packed weights, made once after each train() or load."""
         device = self.layers[0].weight.device
         if self._packed is None or self._packed.device != device:
             with torch.no_grad():

@@ -18,8 +18,14 @@ output groups; ``last_frame`` runs the head on the final frame only.
   CPU, so a seed gives the same weights on every device.
 - The eval forward runs the fused GroundLink kernel
   (``ops/fused_groundlink.py``) on weights packed once per ``eval()`` or
-  load. The training forward is the kernel's plain version, which autograd
-  differentiates; dropout comes with training.
+  load. The training forward is plain PyTorch under autograd, computed as
+  the flax module computes it: bf16 operands, replicate ``F.pad`` and
+  ``F.conv1d``, bias added after the product, ELU, with dropout where the
+  flax model has it: ``cnn_dropout`` before each conv, ``fc_dropout`` before
+  each hidden Dense and before the head, scaled by 1 / (1 - p). Its keep
+  masks come from ``dropout_masks`` (``models.common.generator_masks`` of a
+  generator the train loop seeds; torch's default generator when it is
+  None). Eval ignores dropout.
 - Only the direct conv is ported (the JAX package's ``conv_impl='xla'``);
   its ``'banded'`` lowering shares the parameter tree, so every checkpoint
   loads here.
@@ -31,18 +37,20 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    ModelInput, output_head_size, pack_inputs, slice_output_heads,
+    MaskSource, ModelInput, dropout, generator_masks, output_head_size, pack_inputs,
+    slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.ops.fused_groundlink import (
-    PackedGroundlink, fused_groundlink_forward, groundlink_reference,
-    pack_groundlink_params,
+    PackedGroundlink, fused_groundlink_forward, pack_groundlink_params,
 )
 
-_TRAINING_SLICE = 'ROADMAP.md Queue 1 item 3 (GroundLink training)'
+# the flax module's compute dtype
+_COMPUTE = torch.bfloat16
 # a unit normal truncated at +-2 has this standard deviation (flax divides by
 # it so that the truncated draw keeps the variance asked for)
 _TRUNC_STD = 0.87962566103423978
@@ -72,6 +80,9 @@ class Groundlink(nn.Module):
             raise ValueError(f'cnn_kernel must be odd, got {cnn_kernel}')
         if fc_depth < 1 or not cnn_features:
             raise ValueError('Groundlink needs at least one conv and fc_depth >= 1')
+        if not (0.0 <= cnn_dropout <= 1.0 and 0.0 <= fc_dropout <= 1.0):
+            raise ValueError(f'dropout rates must lie in [0, 1], got cnn_dropout '
+                             f'{cnn_dropout}, fc_dropout {fc_dropout}')
         self.num_contact_bodies = num_contact_bodies
         self.output_data_format = output_data_format
         self.cnn_dropout, self.fc_dropout = float(cnn_dropout), float(fc_dropout)
@@ -100,6 +111,7 @@ class Groundlink(nn.Module):
                 layer.bias.zero_()
             self.head.weight.copy_(
                 torch.empty(self.head.weight.shape).uniform_(-k, k, generator=generator))
+        self.dropout_masks: Optional[MaskSource] = None
         self._packed: Optional[PackedGroundlink] = None
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module._drop_packed())
@@ -108,7 +120,8 @@ class Groundlink(nn.Module):
         self._packed = None
 
     def train(self, mode: bool = True):
-        self._drop_packed()
+        if mode:    # training changes the weights; eval() keeps what is packed
+            self._drop_packed()
         return super().train(mode)
 
     def layer_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -123,7 +136,7 @@ class Groundlink(nn.Module):
         return tree
 
     def packed(self) -> PackedGroundlink:
-        """The kernel's packed weights, made once per eval() or load."""
+        """The kernel's packed weights, made once after each train() or load."""
         device = self.head.weight.device
         if self._packed is None or self._packed.device != device:
             with torch.no_grad():
@@ -132,18 +145,37 @@ class Groundlink(nn.Module):
                      for name, p in self.layer_params().items()}, device)
         return self._packed
 
+    def _drop(self, h: torch.Tensor, kind: str) -> torch.Tensor:
+        """Dropout before a conv (``kind`` 'conv') or a Dense ('fc')."""
+        p = self.cnn_dropout if kind == 'conv' else self.fc_dropout
+        return dropout(h, p, self.dropout_masks or generator_masks())
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The flax module's forward in its compute dtype (bf16) under
+        autograd: before each conv its dropout, replicate padding, the conv
+        and ELU; then on the last frame or on every frame, before each Dense
+        its dropout, the hidden Dense layers with ELU and the bias-free head.
+        Returns the head vector [B, frames, 30] in float32."""
+        drop = self._drop
+        h = x.to(_COMPUTE)
+        for conv in self.convs:
+            h = drop(h, 'conv').transpose(1, 2)                      # [B, C, T]
+            half = conv.kernel_size[0] // 2
+            h = F.conv1d(F.pad(h, (half, half), mode='replicate'), conv.weight.to(_COMPUTE))
+            h = F.elu(h.transpose(1, 2) + conv.bias.to(_COMPUTE))     # [B, T, C]
+        if self.output_data_format != 'all_frames':
+            h = h[:, -1:, :]
+        for fc in self.fcs:
+            h = F.elu(F.linear(drop(h, 'fc'), fc.weight.to(_COMPUTE)) + fc.bias.to(_COMPUTE))
+        return F.linear(drop(h, 'fc'), self.head.weight.to(_COMPUTE)).float()
+
     def forward(self, inputs: ModelInput):
         x = pack_inputs(inputs)
         if x.ndim != 3:
             raise ValueError(f'expected (B, T, C), got {tuple(x.shape)}')
         x = x.float().contiguous()
         if self.training:
-            if self.cnn_dropout > 0 or self.fc_dropout > 0:
-                raise NotImplementedError(
-                    f'GroundLink dropout (cnn_dropout {self.cnn_dropout}, fc_dropout '
-                    f'{self.fc_dropout}) is not ported yet; it comes with {_TRAINING_SLICE}')
-            out = groundlink_reference(x, self.layer_params(),
-                                       self.output_data_format, self.fc_depth)
+            out = self._train_forward(x)
         else:
             out = fused_groundlink_forward(x, self.packed(), self.output_data_format)
         return slice_output_heads(out, self.num_contact_bodies, out.shape[1])

@@ -233,7 +233,8 @@ class TransformerRegressor(nn.Module):
         return self._packed_layers[1]
 
     def train(self, mode: bool = True):
-        self._drop_packed()
+        if mode:    # training changes the weights; eval() keeps what is packed
+            self._drop_packed()
         return super().train(mode)
 
     def _heads(self):
@@ -241,7 +242,7 @@ class TransformerRegressor(nn.Module):
                 if getattr(self, name) is not None]
 
     def packed(self) -> PackedTransformer:
-        """The fused forward's weights, made once per eval() or load."""
+        """The fused forward's weights, made once after each train() or load."""
         device = self.temporal_embedding.device
         if self._packed is None or self._packed.device != device:
             with torch.no_grad():

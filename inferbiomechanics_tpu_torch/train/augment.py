@@ -4,8 +4,9 @@ PyTorch counterpart of ``inferbiomechanics_tpu/train/augment.py``: the
 port's own copy of its numpy half (``MirrorSpec``, ``build_mirror_spec``,
 ``spec_from_dataset`` and their helpers, the same code, held to the original
 by ``tests/test_torch_data.py``) and torch versions of ``mirror_outputs`` and
-``tta_average``. The training-time ``Augmenter`` (per-sample mirroring and
-input noise inside a train step) comes with training.
+``tta_average``, and ``make_tta_eval_step`` on them. The training-time
+``Augmenter`` (per-sample mirroring and input noise inside a train step) is
+not ported yet.
 
 Reflection math (lateral axis ``z`` by default; configurable): for the
 mirror M = diag(1,1,-1) with det -1,
@@ -39,8 +40,9 @@ import torch
 
 from inferbiomechanics_tpu_torch.data import keys as K
 from inferbiomechanics_tpu_torch.data.dataset import (
-    LABEL_PACK_ORDER, input_layout, label_layout,
+    LABEL_PACK_ORDER, input_layout, label_layout, unpack,
 )
+from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
 
 # OpenSim semantic coordinate names that flip under a sagittal mirror
 # (rotations about the forward/vertical axes, lateral translation).
@@ -355,3 +357,21 @@ def tta_average(spec: MirrorSpec, lab_offsets, forward_fn):
         return {k: (o1[k] + o2[k]) * 0.5 for k in o1}
 
     return symmetrized
+
+
+def make_tta_eval_step(model, lab_offsets, loss_config, spec: MirrorSpec):
+    """``eval_step(state, x, y) -> (outputs, metrics)`` with mirror test-time
+    averaging: outputs = (f(x) + unmirror(f(mirror(x)))) / 2 through the
+    model's eval forward (two forwards, each through its kernel where it has
+    one), scored with the standard metrics; a drop-in for
+    ``train.step.make_eval_step``."""
+    forward = tta_average(spec, lab_offsets, model)
+
+    @torch.no_grad()
+    def tta_eval(state, x: torch.Tensor, y: torch.Tensor):
+        model.eval()
+        outputs = forward(x)
+        _, metrics = loss_and_metrics(outputs, unpack(y, lab_offsets), loss_config)
+        return outputs, metrics
+
+    return tta_eval

@@ -35,6 +35,7 @@ from inferbiomechanics_tpu_torch.loss.evaluator import (
     LossConfig, RegressionLossEvaluator,
 )
 from inferbiomechanics_tpu_torch.models import get_model
+from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, list_checkpoints, load_latest_checkpoint, prune_checkpoints,
     save_checkpoint, warm_start_from,
@@ -179,6 +180,13 @@ def train(config: Config,
     if config.freeze_params:
         optimizer = wrap_freeze(optimizer, config.freeze_params)
     state = create_train_state(model, optimizer)
+    # dropout masks from a generator of their own on the device, seeded from
+    # --seed and the step count before every step: the masks of a step do
+    # not depend on where a run was resumed
+    dropout_gen = None
+    if hasattr(model, 'dropout_masks'):
+        dropout_gen = torch.Generator(device=device)
+        model.dropout_masks = generator_masks(dropout_gen)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
 
@@ -333,6 +341,8 @@ def train(config: Config,
                 break
             if epoch == start_epoch and batch_idx < skip_batches:
                 continue   # mid-epoch resume: prefix already consumed
+            if dropout_gen is not None:
+                dropout_gen.manual_seed(config.seed * 1_000_003 + state.step)
             if use_device_data:
                 metrics = device_step(state, batch)
             else:

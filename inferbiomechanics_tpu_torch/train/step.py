@@ -9,15 +9,20 @@ device.
 
 ``grad_accum > 1`` splits the batch into that many equal microbatches,
 runs them one after the other (activation memory of one microbatch) and
-averages gradients and metrics before the single update. The chunked
-K-step dispatch and the reduced-precision gradient all-reduce are not
-ported yet.
+averages gradients and metrics before the single update.
+
+``make_eval_chunk_runner`` is the counterpart of the JAX ``analyze``'s
+``lax.scan`` chunk: K same-shape batches through the eval step one after
+the other, their metrics kept on the device and brought to the host in one
+copy. The chunked K-step train dispatch and the reduced-precision gradient
+all-reduce are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from inferbiomechanics_tpu_torch.data.dataset import unpack
@@ -84,3 +89,37 @@ def make_eval_step(model, lab_offsets: Dict[str, Tuple[int, int]],
         return outputs, metrics
 
     return eval_step
+
+
+def _aligned_batches(a: np.ndarray, device) -> list:
+    """``a`` [K, ...] float32 uploaded in one copy, as K contiguous views that
+    each start on a 16-byte boundary (the kernels read their inputs in
+    16-byte pieces)."""
+    k, n = a.shape[0], int(np.prod(a.shape[1:]))
+    buf = np.zeros((k, -(-n // 4) * 4), np.float32)
+    buf[:, :n] = a.reshape(k, n)
+    dev = torch.from_numpy(buf).to(device)
+    return [row[:n].view(a.shape[1:]) for row in dev]
+
+
+def make_eval_chunk_runner(eval_step: Callable, device) -> Callable:
+    """Build ``run(state, inputs, labels) -> metrics`` for K same-shape
+    batches: ``inputs`` [K, B, T, C] and ``labels`` [K, B, ...] float32 host
+    arrays, each uploaded in one copy; the K eval forwards run one after the other
+    with their metrics on the device, then one device-to-host copy brings
+    them all back as host arrays [K, ...] by metric."""
+
+    def run(state, inputs: np.ndarray, labels: np.ndarray) -> Dict[str, np.ndarray]:
+        xs, ys = _aligned_batches(inputs, device), _aligned_batches(labels, device)
+        history = [eval_step(state, x, y)[1] for x, y in zip(xs, ys)]
+        stacked = {k: torch.stack([m[k] for m in history]).float() for k in history[0]}
+        flat = torch.cat([v.reshape(len(history), -1) for v in stacked.values()],
+                         dim=1).cpu().numpy()
+        out, at = {}, 0
+        for k, v in stacked.items():
+            width = v[0].numel()
+            out[k] = flat[:, at:at + width].reshape(v.shape)
+            at += width
+        return out
+
+    return run

@@ -1,0 +1,388 @@
+"""The port's ``analyze`` command (inferbiomechanics_tpu_torch/cli/analyze_cmd.py)
+against the JAX package's (inferbiomechanics_tpu/cli/analyze_cmd.py), both run
+in this process on the CPU.
+
+One synthetic subject a split: two 100-frame trials in dev (98 windows at
+window 50 / stride 5), one of 61 frames in train (10 windows). Reports and
+rows at batch 2. Each model's weights come from a seeded flax
+init with the biases moved off zero; the JAX package reads them from its own
+checkpoint, the port from a ``.torch.pt`` of the same weights converted by
+``weights.py``. Tolerances on report numbers, bootstrap CIs and group
+summaries (relative) and on CSV rows (relative to the column's largest
+value): 2e-2 for the bf16 models (feedforward; transformer
+``vpu``; transformer ``pallas``, whose layers run their plain versions on
+both sides here) and 5e-2 for GroundLink, the JAX suite's own GroundLink
+tolerance. What the port computes from its own rows (bootstrap CIs, group
+summaries) is held exactly to the JAX package's arithmetic on those rows.
+"""
+
+import argparse
+import contextlib
+import csv
+import io
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferbiomechanics_tpu.cli.analyze_cmd import AnalyzeCommand
+from inferbiomechanics_tpu.config import add_config_flags as jax_add_config_flags
+from inferbiomechanics_tpu.config import config_from_args as jax_config_from_args
+from inferbiomechanics_tpu.data.dataset import WindowDataset as JaxWindowDataset
+from inferbiomechanics_tpu.data.synthetic import write_synthetic_subject
+from inferbiomechanics_tpu.train import create_train_state as jax_create_train_state
+from inferbiomechanics_tpu.train import make_optimizer as jax_make_optimizer
+from inferbiomechanics_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from inferbiomechanics_tpu.train.loop import build_model_for_dataset as jax_build
+from inferbiomechanics_tpu_torch import weights
+from inferbiomechanics_tpu_torch.__main__ import build_parser, main
+from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
+from inferbiomechanics_tpu_torch.config import config_from_args
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
+from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+from inferbiomechanics_tpu_torch.train.checkpoint import save_checkpoint
+from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+
+SMALL_TF = ['--d-model', '128', '--num-layers', '2', '--num-heads', '4']
+# case -> (model type, architecture flags, converter, tolerance, --group-by)
+CASES = {
+    'feedforward': ('feedforward', [], weights.feedforward_state_dict_from_jax,
+                    2e-2, 'trial'),
+    'vpu': ('transformer', SMALL_TF, weights.transformer_state_dict_from_jax,
+            2e-2, 'subject'),
+    'pallas': ('transformer', SMALL_TF + ['--attn-impl', 'pallas'],
+               weights.transformer_pallas_state_dict_from_jax, 2e-2, 'trial'),
+    'groundlink': ('groundlink', [], weights.groundlink_state_dict_from_jax,
+                   5e-2, 'activity'),
+}
+BATCH = 2       # of every run held against the JAX command: 98 and 10 windows, no short batch
+REPORT = ('Force Avg Err', 'COM Acc Avg Err', 'CoP Avg Err', 'Moment Avg Err',
+          'Wrench Avg Err', 'Wrench Moment Avg Err')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """Small models beside other test processes: one thread throughout."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _argv(case: str) -> list:
+    model_type, arch = CASES[case][:2]
+    return ['--model-type', model_type, *arch]
+
+
+def _configs(case: str):
+    """The JAX package's and the port's Config for the case's flags."""
+    jparser = argparse.ArgumentParser()
+    jax_add_config_flags(jparser)
+    return (jax_config_from_args(jparser.parse_args(_argv(case))),
+            config_from_args(build_parser().parse_args(['train', *_argv(case)])))
+
+
+def _write_pair(ws, case: str, seed: int, jax_root, port_root) -> None:
+    """Seeded flax weights (biases moved off zero) as a JAX checkpoint under
+    ``jax_root`` and as the port's checkpoint under ``port_root``."""
+    jcfg, cfg = _configs(case)
+    jmodel = jax_build(jcfg, ws['jax_ds'])
+    # op by op at the batch of every JAX run below, as the JAX command inits
+    # its model: the runs reuse the ops compiled here
+    sample = jnp.asarray(ws['jax_ds'].gather(np.arange(BATCH)).inputs)
+    state = jax_create_train_state(jmodel, jax.random.PRNGKey(seed), sample,
+                                   jax_make_optimizer(jcfg.opt_type, jcfg.learning_rate))
+    rng = np.random.default_rng(seed + 1)
+    params = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + (0.1 * rng.normal(size=p.shape) if p.ndim == 1 else 0)
+                   ).astype(np.float32), jax.device_get(state.params))
+    jax_save_checkpoint(str(jax_root / jcfg.model_type), state.replace(params=params), 0, 0)
+    model = build_model_for_dataset(cfg, ws['ds'])
+    model.load_state_dict(CASES[case][2](params))
+    save_checkpoint(str(port_root / cfg.model_type), model, 0, 0)
+
+
+@pytest.fixture(scope='module')
+def ws(tmp_path_factory):
+    root = tmp_path_factory.mktemp('torch_analyze')
+    data = root / 'data'
+    for split, trials, length in (('dev', 2, 100), ('train', 1, 61)):
+        os.makedirs(data / split)
+        write_synthetic_subject(str(data / split / 's0.b3d'), num_trials=trials,
+                                trial_length=length, seed=0)
+    kw = dict(window_size=50, stride=5, skip_loading_skeletons=True)
+    ws = {'root': root, 'data': str(data),
+          'ds': WindowDataset(str(data / 'dev'), **kw),
+          'jax_ds': JaxWindowDataset(str(data / 'dev'), **kw)}
+    assert len(ws['ds']) == 98
+    for case in CASES:
+        _write_pair(ws, case, 0, root / 'jax' / case, root / 'port' / case)
+    _write_pair(ws, 'feedforward', 1, root / 'jax' / 'member', root / 'port' / 'member')
+    return ws
+
+
+def _base(ws, side: str, case: str) -> list:
+    return ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir',
+            str(ws['root'] / side / case), '--no-wandb', *_argv(case)]
+
+
+def _run_jax(argv: list) -> str:
+    parser = argparse.ArgumentParser()
+    AnalyzeCommand().register_subcommand(parser.add_subparsers(dest='command'))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert AnalyzeCommand().run(parser.parse_args(argv))
+    return out.getvalue()
+
+
+def _run_port(argv: list) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(argv) == 0
+    return out.getvalue()
+
+
+def _report(text: str, split: str) -> dict:
+    block = text.split(f'[{split}] final report:')[1]
+    got = {name: float(re.search(rf'\t{name}: (\S+)', block).group(1)) for name in REPORT}
+    ci = re.search(rf'\[{split}\] bootstrap 95% CIs \((\d+) windows, (\d+) resamples\):\n'
+                   r'((?:  .*\n){3})', text)
+    if ci:
+        got['bootstrap'] = [float(v) for v in re.findall(r'-?\d+\.\d+', ci.group(3))]
+    return got
+
+
+def _rows(path: str) -> list:
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def _fresh(*paths) -> None:
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+
+
+def _assert_rows_close(got: list, want: list, tol: float, what: str) -> None:
+    """Same windows in the same order; each value within ``tol`` x the
+    largest value of its column (a window's loss can be near 0, where bf16
+    rounding of the prediction moves it by more than ``tol`` of itself)."""
+    assert len(got) == len(want) > 0, what
+    assert [r[:2] for r in got] == [r[:2] for r in want], what
+    g, w = (np.asarray([r[2:] for r in rows], float) for rows in (got, want))
+    assert (np.abs(g - w) <= tol * np.abs(w).max(axis=0) + 1e-6).all(), (
+        what, np.abs(g - w).max(axis=0) / np.abs(w).max(axis=0))
+
+
+def _jax_bootstrap(rows: np.ndarray, n_boot: int) -> list:
+    """The JAX command's bootstrap on the given rows (analyze_cmd.py:512-535)."""
+    rng = np.random.default_rng(0)
+    w = rows.shape[0]
+    chunk = max(1, min(n_boot, 64_000_000 // max(w, 1)))
+    means = np.concatenate([rows[rng.integers(0, w, (min(chunk, n_boot - lo), w))]
+                            .mean(axis=1) for lo in range(0, n_boot, chunk)])
+    lo, hi = np.percentile(means, 2.5, axis=0), np.percentile(means, 97.5, axis=0)
+    return [float(f'{v:.4f}') for j in range(3)
+            for v in (rows.mean(axis=0)[j], lo[j], hi[j])]
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_report_rows_bootstrap_and_groups_match_the_jax_command(ws, case):
+    model_type, _, _, tol, group_by = CASES[case]
+    extra = ['--bootstrap', '50', '--group-by', group_by, '--batch-size', str(BATCH)]
+    jdir, pdir = (ws['root'] / side / case / model_type for side in ('jax', 'port'))
+    _fresh(*(d / f'{s}_analysis.csv' for d in (jdir, pdir) for s in ('dev', 'train')))
+    jout = _run_jax(_base(ws, 'jax', case) + extra + ['--eval-chunk-steps', '1'])
+    counts = (fm.launches, fe.launches, fg.launches)
+    pout = _run_port(_base(ws, 'port', case) + extra + ['--device', 'cpu'])
+    assert (fm.launches, fe.launches, fg.launches) == counts     # plain versions on the CPU
+    assert 'WARNING: no checkpoint' not in jout + pout
+    for split in ('dev', 'train'):
+        want, got = _report(jout, split), _report(pout, split)
+        assert set(got) == set(want) and 'bootstrap' in got, split
+        for k in REPORT:
+            assert got[k] == pytest.approx(want[k], rel=tol), (split, k)
+        np.testing.assert_allclose(got['bootstrap'], want['bootstrap'], rtol=tol, atol=1e-4,
+                                   err_msg=split)
+        rows = _rows(str(pdir / f'{split}_analysis.csv'))
+        _assert_rows_close(rows, _rows(str(jdir / f'{split}_analysis.csv')), tol, split)
+        # the port's CIs are the JAX package's arithmetic on the port's rows
+        values = np.asarray([r[2:] for r in rows], float)
+        assert got['bootstrap'] == _jax_bootstrap(values, 50), split
+
+        summary, jsummary = (_rows(str(d / f'{split}_summary_{group_by}.csv'))
+                             for d in (pdir, jdir))
+        assert summary[0] == jsummary[0] == [group_by, 'windows', 'loss', 'force_avg_err',
+                                             'com_acc_avg_err']
+        assert sorted(r[:2] for r in summary[1:]) == sorted(r[:2] for r in jsummary[1:])
+        by_key = {r[0]: r for r in jsummary[1:]}
+        np.testing.assert_allclose([[float(v) for v in r[2:]] for r in summary[1:]],
+                                   [[float(v) for v in by_key[r[0]][2:]] for r in summary[1:]],
+                                   rtol=tol, err_msg=split)
+        # and exactly the JAX package's sums over the port's own rows, worst first
+        trial_of = {'trial': lambda r: f'{r[0]}/{r[1]}', 'subject': lambda r: r[0],
+                    'activity': lambda r: 'other'}[group_by]
+        sums = {}
+        for r in rows:
+            g = sums.setdefault(trial_of(r), [0, 0.0, 0.0, 0.0])
+            g[0] += 1
+            for j, v in enumerate(r[2:]):
+                g[1 + j] += float(v)
+        want_rows = [[k, str(n), *(str(s / n) for s in g)] for k, (n, *g) in
+                     sorted(sums.items(), key=lambda kv: kv[1][2] / kv[1][0], reverse=True)]
+        assert summary[1:] == want_rows, split
+
+
+@pytest.mark.parametrize('case', list(CASES))
+def test_chunked_rows_equal_per_batch_rows(ws, case):
+    """K=3 against 1 at batch 4: 98 windows make 24 batches of 4 and a
+    trailing batch of 2, which runs as its own chunk."""
+    pdir = ws['root'] / 'port' / case / CASES[case][0]
+    base = _base(ws, 'port', case) + ['--batch-size', '4', '--device', 'cpu']
+    runs = []
+    for k in ('1', '3'):
+        _fresh(*(pdir / f'{s}_analysis.csv' for s in ('dev', 'train')))
+        _run_port(base + ['--eval-chunk-steps', k])
+        runs.append(_rows(str(pdir / 'dev_analysis.csv')))
+    per_batch, chunked = runs
+    assert len(per_batch) == 98 and per_batch[-1] == per_batch[-2] != per_batch[-3]
+    _assert_rows_close(chunked, per_batch, 1e-5, 'chunked vs per batch')
+
+
+def test_eval_chunk_runner_feeds_aligned_batches_and_drains_once():
+    """K batches of an odd size (1 x 10 x 177 floats, 7080 bytes) each start
+    on a 16-byte boundary, as the kernels require, and their metrics come
+    back as host arrays [K, ...] equal to the per-batch ones."""
+    from inferbiomechanics_tpu_torch.train.step import make_eval_chunk_runner
+    rng = np.random.default_rng(0)
+    xs = rng.normal(size=(5, 1, 10, 177)).astype(np.float32)
+    ys = rng.normal(size=(5, 1, 1, 3)).astype(np.float32)
+    seen = []
+
+    def step(_state, x, y):
+        seen.append(x.data_ptr() % 16)
+        assert x.is_contiguous() and x.shape == (1, 10, 177)
+        return None, {'loss': (x.sum() + y.sum()).reshape(()), 'vec': x[0, 0, :6] * y.sum()}
+
+    got = make_eval_chunk_runner(step, 'cpu')(None, xs, ys)
+    assert seen == [0] * 5
+    assert set(got) == {'loss', 'vec'} and isinstance(got['loss'], np.ndarray)
+    assert got['loss'].shape == (5,) and got['vec'].shape == (5, 6)
+    for k in range(5):
+        _, want = step(None, torch.from_numpy(xs[k]), torch.from_numpy(ys[k]))
+        np.testing.assert_allclose(got['loss'][k], want['loss'].numpy(), rtol=1e-6)
+        np.testing.assert_allclose(got['vec'][k], want['vec'].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize('case', ['feedforward', 'pallas', 'groundlink'])
+def test_eval_steps_keep_the_packed_weights(ws, case):
+    """The eval step calls ``model.eval()`` every batch; that keeps the
+    kernel's packed weights, and only ``train()`` drops them."""
+    from inferbiomechanics_tpu_torch.train.loop import loss_config_from
+    from inferbiomechanics_tpu_torch.train.step import make_eval_step
+    cfg = _configs(case)[1]
+    model = build_model_for_dataset(cfg, ws['ds'])
+    step = make_eval_step(model, ws['ds'].lab_offsets, loss_config_from(cfg))
+    batch = ws['ds'].gather(np.arange(BATCH))
+    x, y = torch.from_numpy(batch.inputs), torch.from_numpy(batch.labels)
+    pack = (lambda: model.packed_layers(False)) if case == 'pallas' else model.packed
+    step(None, x, y)
+    first = pack()
+    step(None, x, y)
+    assert pack() is first
+    model.train()
+    assert pack() is not first
+
+
+@pytest.mark.parametrize('mode', ['ensemble', 'tta_mirror'])
+def test_ensemble_and_tta_mirror_match_the_jax_command(ws, mode):
+    """``--ensemble`` of two feedforward members, ``--tta-mirror`` on
+    GroundLink."""
+    if mode == 'ensemble':
+        case, tol = 'feedforward', 2e-2
+        extra = {side: ['--ensemble', *(str(ws['root'] / side / d / 'feedforward')
+                                        for d in ('feedforward', 'member'))]
+                 for side in ('jax', 'port')}
+    else:
+        case, tol = 'groundlink', 5e-2
+        extra = {side: ['--tta-mirror'] for side in ('jax', 'port')}
+    dirs = {side: ws['root'] / side / case / CASES[case][0] for side in ('jax', 'port')}
+    _fresh(*(d / f'{s}_analysis.csv' for d in dirs.values() for s in ('dev', 'train')))
+    jout = _run_jax(_base(ws, 'jax', case) + extra['jax']
+                    + ['--batch-size', str(BATCH), '--eval-chunk-steps', '1'])
+    launches = fg.launches
+    pout = _run_port(_base(ws, 'port', case) + extra['port']
+                     + ['--batch-size', str(BATCH), '--device', 'cpu'])
+    assert fg.launches == launches
+    assert ('ensemble of 2' in pout) == (mode == 'ensemble')
+    assert ('mirror test-time augmentation enabled' in pout) == (mode == 'tta_mirror')
+    plain = _run_port(_base(ws, 'port', case) + ['--batch-size', str(BATCH), '--device', 'cpu'])
+    for split in ('dev', 'train'):
+        want, got = _report(jout, split), _report(pout, split)
+        for k in REPORT:
+            assert got[k] == pytest.approx(want[k], rel=tol), (split, k)
+        assert got != _report(plain, split)
+    # rows of the mode's runs only: the plain run appended after them
+    rows, jrows = (_rows(str(d / 'dev_analysis.csv')) for d in (dirs['port'], dirs['jax']))
+    _assert_rows_close(rows[:len(jrows)], jrows, tol, mode)
+
+
+@pytest.mark.parametrize('argv,flag,item', [
+    (['--quantize', 'int8'], '--quantize', 'item 4'),
+    (['--model-type', 'diffusion', '--use-ema'], '--use-ema', 'item 6'),
+    (['--model-type', 'diffusion', '--diffusion-partial', '0.3'], '--diffusion-partial',
+     'item 6'),
+    (['--model-type', 'diffusion', '--diffusion-partial', '0.3', '--init-checkpoint', 'c'],
+     '--diffusion-partial', 'item 6'),
+    (['--model-type', 'diffusion'], '--model-type diffusion', 'item 6'),
+    (['--model-type', 'analytical'], '--model-type analytical', 'item 7'),
+    (['--compute-report'], '--compute-report', 'item 7'),
+    (['--plot-errors'], '--plot-errors', 'item 9'),
+])
+def test_unported_analyze_flags_raise_by_name(ws, tmp_path, argv, flag, item):
+    with pytest.raises(NotImplementedError,
+                       match=f'{flag} is not yet ported \\(ROADMAP.md Queue 1 {item} '):
+        main(['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
+              '--no-wandb', '--device', 'cpu', *argv])
+    assert not os.path.exists(tmp_path / 'feedforward')
+
+
+@pytest.mark.parametrize('argv,error,match', [
+    (['--use-ema'], SystemExit, 'applies to diffusion checkpoints'),
+    (['--model-type', 'groundlink', '--quantize', 'int8'], SystemExit,
+     'feedforward family only'),
+    (['--diffusion-partial', '0.3'], SystemExit, 'applies to --model-type diffusion'),
+    (['--init-checkpoint', 'c'], SystemExit, 'only does something with --diffusion-partial'),
+    (['--model-type', 'analytical', '--ensemble', 'a', 'b'], SystemExit,
+     'supports learned regression models'),
+    ([], RuntimeError, r'is_available\(\) is False'),        # --device cuda is the default
+])
+def test_analyze_refusals(ws, tmp_path, monkeypatch, argv, error, match):
+    """The JAX command's own refusals, in its words; the GPU default."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert build_parser().parse_args(['analyze']).device == 'cuda'
+    with pytest.raises(error, match=match):
+        analyze(build_parser().parse_args([
+            'analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
+            '--no-wandb', *argv]))
+
+
+def test_fresh_model_and_empty_split(ws, tmp_path):
+    """No checkpoint: the JAX command's warning, and a fresh model is scored;
+    an empty split is skipped with its message."""
+    data = tmp_path / 'data'
+    (data / 'train').mkdir(parents=True)
+    os.symlink(os.path.join(ws['data'], 'dev'), data / 'dev')
+    out = _run_port(['analyze', '--dataset-home', str(data), '--checkpoint-dir',
+                     str(tmp_path / 'c'), '--no-wandb', '--device', 'cpu',
+                     '--batch-size', '16'])
+    assert f'WARNING: no checkpoint found in {tmp_path / "c" / "feedforward"}' in out
+    assert 'train: no windows, skipping' in out
+    assert len(_rows(str(tmp_path / 'c' / 'feedforward' / 'dev_analysis.csv'))) == 98
+    assert not os.path.exists(tmp_path / 'c' / 'feedforward' / 'train_analysis.csv')

@@ -3,7 +3,9 @@
 (inferbiomechanics_tpu/config.py, data/): the same synthetic subject gives
 identical arrays and layouts through both, and both flag parsers agree
 field by field. Exact equality: both sides are the same numpy code. The
-port's copy of the mirror tables (train/augment.py) is held the same way.
+port's copy of the mirror tables (train/augment.py) is held the same way,
+and so are the copies ``analyze`` needs: ``utils/wandb_compat.py`` and the
+motion classes of make-plots (``cli/motion.py``).
 """
 
 import argparse
@@ -183,3 +185,35 @@ def test_mirror_outputs_and_tta_average_agree():
     got = port_augment.tta_average(ps, offsets, lambda s, v: {force: s * (v @ torch.from_numpy(w))})(
         2.0, torch.from_numpy(x))
     np.testing.assert_allclose(got[force].numpy(), np.asarray(want[force]), rtol=1e-5, atol=1e-5)
+
+
+def test_metric_logger_copy_is_the_original(tmp_path):
+    """``utils/wandb_compat.py`` is the original file, and logs the same
+    lines."""
+    from pathlib import Path
+
+    from inferbiomechanics_tpu.utils import wandb_compat as jax_wandb
+    from inferbiomechanics_tpu_torch.utils import wandb_compat as port_wandb
+    assert Path(port_wandb.__file__).read_text() == Path(jax_wandb.__file__).read_text()
+    for module, name in ((jax_wandb, 'jax'), (port_wandb, 'port')):
+        off = module.MetricLogger(enabled=False)
+        off.log({'a': 1.0})
+        off.finish()
+        assert off.backend == 'disabled'
+        (tmp_path / name).mkdir()
+        on = module.MetricLogger(config={'x': 1}, log_dir=str(tmp_path / name))
+        on.log({'dev/loss': 0.5, 'obj': object})
+        on.finish()
+    if on.backend == 'jsonl':
+        lines = [[line for line in next((tmp_path / n).iterdir()).read_text().splitlines()
+                  if '_config' not in line] for n in ('jax', 'port')]
+        assert lines[0] == lines[1] and len(lines[0]) == 1
+
+
+@pytest.mark.parametrize('name', ['Walking_01', 'treadmill run', 'STS_2', 'stair ascent',
+                                  'drop jump', 'trial_0', 'Jogging', 'static', ''])
+def test_motion_classes_copy_agrees(name):
+    from inferbiomechanics_tpu.cli import make_plots_cmd
+    from inferbiomechanics_tpu_torch.cli import motion
+    assert motion.MOTION_CLASSES == make_plots_cmd.MOTION_CLASSES
+    assert motion.classify_motion(name) == make_plots_cmd.classify_motion(name)

@@ -32,13 +32,23 @@ SMALL = dict(SKELETON, cnn_features=(16, 16, 24, 24))
 FORMATS = ['all_frames', 'last_frame']
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """One thread: every run of this module sums in the same order."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _inputs(b=8, frames=4, seed=0):
     return np.random.default_rng(seed).normal(size=(b, frames, 177)).astype(np.float32)
 
 
 def _jax_params(model, x, seed=0):
-    params = jax.device_get(model.init({'params': jax.random.PRNGKey(seed)},
-                                       jnp.asarray(x), train=False)['params'])
+    params = jax.device_get(jax.jit(
+        lambda k, xx: model.init({'params': k}, xx, train=False)['params'])(
+            jax.random.PRNGKey(seed), jnp.asarray(x)))
     rng = np.random.default_rng(seed + 1)
     return jax.tree_util.tree_map(
         lambda p: (np.asarray(p) + 0.2 * rng.normal(size=p.shape)).astype(np.float32)
@@ -70,17 +80,33 @@ def test_eval_matches_bf16_flax_model(fmt):
 
 
 @pytest.mark.parametrize('fmt', FORMATS)
-def test_train_forward_is_the_plain_version_and_differentiable(fmt):
+def test_train_forward_is_the_plain_version_and_differentiable(fmt, monkeypatch):
+    """The train forward is plain PyTorch under autograd: it never reaches
+    K4's wrapper, and it is the flax module's bf16 chain (F.pad + F.conv1d),
+    not K4's plain version, so the two agree at the bf16 tolerance, not
+    bitwise."""
     x = torch.from_numpy(_inputs(4, seed=2))
     model = Groundlink(**SMALL, output_data_format=fmt, fc_dropout=0.0,
                        generator=torch.Generator().manual_seed(0))
+
+    def no_kernel(*_args, **_kw):
+        raise AssertionError('the train forward reached the K4 wrapper')
+
+    monkeypatch.setattr('inferbiomechanics_tpu_torch.models.groundlink.'
+                        'fused_groundlink_forward', no_kernel)
     out = model.train()(x)
     sum(v.square().sum() for v in out.values()).backward()
     assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in model.parameters())
-    flat = fg.groundlink_reference(x, model.layer_params(), fmt, 3)
-    np.testing.assert_array_equal(
-        out[K.OutputDataKeys.GROUND_CONTACT_COPS_IN_ROOT_FRAME].detach().numpy(),
-        flat[..., :6].detach().numpy())
+    # the plain bf16 chain (F.pad + F.conv1d, as the flax module computes)
+    # against K4's plain version, which sums the same bf16 operands in f32
+    flat = fg.groundlink_reference(x, model.layer_params(), fmt, 3).detach().numpy()
+    got = torch.cat([out[k] for k in (K.OutputDataKeys.GROUND_CONTACT_COPS_IN_ROOT_FRAME,
+                                      K.OutputDataKeys.GROUND_CONTACT_FORCES_IN_ROOT_FRAME,
+                                      K.OutputDataKeys.GROUND_CONTACT_TORQUES_IN_ROOT_FRAME,
+                                      K.OutputDataKeys.GROUND_CONTACT_WRENCHES_IN_ROOT_FRAME)],
+                    dim=-1).detach().numpy()
+    assert got.shape == flat.shape
+    assert np.abs(got - flat).max() <= 2e-2 * np.abs(flat).max()
 
 
 def test_full_width_forward():
@@ -184,13 +210,163 @@ def test_banded_conv_is_not_ported():
 @pytest.mark.parametrize('dropout', [{'cnn_dropout': 0.1, 'fc_dropout': 0.0},
                                      {'fc_dropout': 0.2}, {}])
 def test_train_mode_dropout_raises(dropout):
-    """The JAX defaults (fc_dropout 0.2) train with dropout, which comes with
-    training; eval is unaffected."""
+    """Dropout raises only for a rate outside [0, 1]; the rates themselves,
+    the JAX defaults (fc_dropout 0.2) among them, train
+    (``test_train_mode_dropout_trains``)."""
+    for bad in ({'cnn_dropout': -0.1}, {'fc_dropout': 1.5}):
+        with pytest.raises(ValueError, match='dropout rates must lie in'):
+            Groundlink(**SMALL, **{**dropout, **bad})
+
+
+@pytest.mark.parametrize('dropout', [{'cnn_dropout': 0.1, 'fc_dropout': 0.0},
+                                     {'fc_dropout': 0.2}, {}])
+def test_train_mode_dropout_trains(dropout):
+    """A model with these rates trains and draws new masks each forward;
+    eval is unaffected."""
     model = Groundlink(**SMALL, **dropout)
     x = torch.from_numpy(_inputs(2))
     assert all(torch.isfinite(v).all() for v in model.eval()(x).values())
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 item 3'):
-        model.train()(x)
+    a, b = model.train()(x), model(x)
+    assert all(torch.isfinite(v).all() for v in a.values())
+    assert any(not torch.equal(a[k], b[k]) for k in a)      # {} is fc_dropout 0.2
+
+
+def _jax_mask_fn(jm):
+    """``masks(params, x, key)``: the keep masks of ``jm``'s dropout sites
+    with a rate above 0, in call order. Each ``Dropout``'s captured output is
+    0 exactly where it dropped."""
+    rates = [jm.cnn_dropout] * len(jm.cnn_features) + [jm.fc_dropout] * jm.fc_depth
+
+    @jax.jit
+    def captured(p, x, key):
+        _, state = jm.apply({'params': p}, x, train=True, rngs={'dropout': key},
+                            capture_intermediates=True, mutable=['intermediates'])
+        return [state['intermediates'][f'Dropout_{i}']['__call__'][0]
+                for i, rate in enumerate(rates) if rate > 0]
+
+    return lambda p, x, key: [np.asarray(m) != 0
+                              for m in captured(p, jnp.asarray(x), key)]
+
+
+def _mask_source(masks: list):
+    """A mask source that hands out the given masks in order."""
+    it = iter(masks)
+
+    def source(shape, p, device):
+        m = next(it)
+        assert m.shape == shape, (m.shape, shape)
+        return torch.from_numpy(m).to(device)
+    return source
+
+
+@pytest.mark.parametrize('fmt,dropout', [('all_frames', {'cnn_dropout': 0.1, 'fc_dropout': 0.3}),
+                                         ('last_frame', {})])
+def test_train_forward_with_the_jax_dropout_masks(fmt, dropout):
+    """JAX's own masks fed to the port's train forward: outputs and the
+    gradients of every parameter agree at the bf16 tolerance (5e-2 x the
+    tensor's largest value); the mask keeps about 1 - p."""
+    x = _inputs(6, frames=5, seed=4)
+    jm = JaxGroundlink(**SMALL, output_data_format=fmt, **dropout)
+    params = _jax_params(jm, x)
+    key = jax.random.PRNGKey(7)
+    masks = _jax_mask_fn(jm)(params, x, key)
+    assert len(masks) == (4 if jm.cnn_dropout else 0) + jm.fc_depth
+    kept = np.mean(np.concatenate([m.ravel() for m in masks[-3:]]))
+    assert abs(kept - (1 - jm.fc_dropout)) < 0.1
+
+    def jloss(p):
+        out = jm.apply({'params': p}, jnp.asarray(x), train=True, rngs={'dropout': key})
+        return sum(jnp.sum(v.astype(jnp.float32) ** 2) for v in out.values()), out
+
+    (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    model = Groundlink(**SMALL, output_data_format=fmt, **dropout)
+    model.load_state_dict(groundlink_state_dict_from_jax(params))
+    model.train()
+    model.dropout_masks = _mask_source(masks)
+    got = model(torch.from_numpy(x))
+    for k in want:
+        a, b = got[k].detach().numpy(), np.asarray(want[k], np.float32)
+        assert np.abs(a - b).max() <= 5e-2 * np.abs(b).max(), k
+    sum(v.square().sum() for v in got.values()).backward()
+    grads = groundlink_params_to_jax({n: p.grad for n, p in model.named_parameters()})
+    flat_j = dict(jax.tree_util.tree_flatten_with_path(jgrads)[0])
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(grads)[0])
+    assert set(flat_j) == set(flat_t)
+    for path, g in flat_j.items():
+        g = np.asarray(g)
+        np.testing.assert_allclose(np.asarray(flat_t[path]), g, rtol=0,
+                                   atol=5e-2 * np.abs(g).max() + 1e-12,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_three_train_steps_at_the_defaults_with_the_same_masks(tmp_path):
+    """The full-width model as ``get_model`` builds it (fc_dropout 0.2) from
+    flax's init, RMSprop 1e-4, three steps of the default batch of 64 on the
+    same batches with the same masks on both sides: each step's loss within
+    2e-2 relative."""
+    from inferbiomechanics_tpu.data.dataset import unpack as jax_unpack
+    from inferbiomechanics_tpu.loss.evaluator import LossConfig as JaxLossConfig
+    from inferbiomechanics_tpu.loss.evaluator import loss_and_metrics as jax_loss_and_metrics
+    from inferbiomechanics_tpu.train.optimizers import make_optimizer as jax_make_optimizer
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+    from inferbiomechanics_tpu_torch.train.step import make_train_step
+
+    write_synthetic_subject(str(tmp_path / 's.b3d'), num_trials=1, trial_length=250, seed=5)
+    ds = WindowDataset(str(tmp_path / 's.b3d'), window_size=50, stride=5,
+                       skip_loading_skeletons=True)
+    full = dict(SKELETON, history_len=50, stride=5, output_data_format='last_frame')
+    jm = jax_get_model('groundlink', **full)
+    assert (jm.fc_dropout, jm.cnn_dropout) == (0.2, 0.0)
+    batches = [ds.gather(np.arange(k * 64, (k + 1) * 64)) for k in range(3)]
+    params = jax.jit(lambda k, x: jm.init({'params': k}, x, train=False)['params'])(
+        jax.random.PRNGKey(0), jnp.asarray(batches[0].inputs))
+    model = get_model('groundlink', **full)
+    model.load_state_dict(groundlink_state_dict_from_jax(jax.device_get(params)))
+
+    tx = jax_make_optimizer('rmsprop', 1e-4)
+    opt_state = jax.jit(tx.init)(params)
+
+    def jloss(p, x, y, key):
+        out = jm.apply({'params': p}, x, train=True, rngs={'dropout': key})
+        return jax_loss_and_metrics(out, jax_unpack(y, ds.lab_offsets), JaxLossConfig())[0]
+
+    @jax.jit
+    def jstep(p, o, x, y, key):
+        loss, g = jax.value_and_grad(jloss)(p, x, y, key)
+        updates, o = tx.update(g, o, p)
+        return loss, jax.tree_util.tree_map(lambda a, u: a + u, p, updates), o
+
+    masks_of = _jax_mask_fn(jm)
+    state = create_train_state(model, make_optimizer(model.named_parameters(), 'rmsprop', 1e-4))
+    step = make_train_step(model, ds.lab_offsets, LossConfig())
+    for k, batch in enumerate(batches):
+        key = jax.random.PRNGKey(100 + k)
+        x = jnp.asarray(batch.inputs)
+        model.dropout_masks = _mask_source(masks_of(params, x, key))
+        jl, params, opt_state = jstep(params, opt_state, x, jnp.asarray(batch.labels), key)
+        m = step(state, torch.from_numpy(batch.inputs), torch.from_numpy(batch.labels))
+        assert float(m['loss']) == pytest.approx(float(jl), rel=2e-2), k
+
+
+def test_eval_ignores_dropout():
+    """Eval runs the fused forward: no mask is drawn, and the answer is the
+    one of the same weights without dropout."""
+    def never(*_):
+        raise AssertionError('a mask was drawn in eval')
+
+    model = Groundlink(**SMALL, cnn_dropout=0.3, fc_dropout=0.5,
+                       generator=torch.Generator().manual_seed(2))
+    model.dropout_masks = never
+    plain = Groundlink(**SMALL, cnn_dropout=0.0, fc_dropout=0.0)
+    plain.load_state_dict(model.state_dict())
+    x = torch.from_numpy(_inputs(3))
+    a, b = model.eval()(x), plain.eval()(x)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_packed_is_made_once_and_dropped_on_train_and_load():
@@ -199,6 +375,8 @@ def test_packed_is_made_once_and_dropped_on_train_and_load():
     before = model(x)
     packed = model.packed()
     assert model.packed() is packed                    # once per eval()
+    model.eval()
+    assert model.packed() is packed                    # eval() again keeps it
     model.train()
     assert model._packed is None
     model.eval()

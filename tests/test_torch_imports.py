@@ -85,7 +85,8 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'train.augment', 'train.checkpoint', 'weights', '__main__',
                    'ops.losses', 'loss.evaluator', 'train.optimizers', 'train.state',
                    'train.step', 'train.device_data', 'data.loader', 'train.run_config',
-                   'train.loop', 'cli.train_cmd'):
+                   'train.loop', 'cli.train_cmd', 'cli.analyze_cmd', 'cli.motion',
+                   'utils.wandb_compat'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out

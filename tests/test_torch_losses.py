@@ -177,6 +177,42 @@ def test_evaluator_accumulates_and_reports_like_jax(capsys):
     assert tevl.metric_history == {} and tevl.print_report() == {}
 
 
+def test_report_logs_the_jax_wandb_keys(capsys):
+    """``print_report(log_to_wandb=True)`` hands the logger the JAX
+    package's keys and values, per selected component; ``reset=False`` keeps
+    the history."""
+    class Log:
+        def __init__(self):
+            self.records = []
+
+        def log(self, record):
+            self.records.append(record)
+
+    cfg = dict(predict_grf_components=(1,), predict_cop_components=(0, 2),
+               predict_moment_components=(3,), predict_wrench_components=(5, 11))
+    tlog, jlog = Log(), Log()
+    tevl = tev.RegressionLossEvaluator('dev', tev.LossConfig(**cfg), wandb_logger=tlog)
+    jevl = jev.RegressionLossEvaluator('dev', jev.LossConfig(**cfg), wandb_logger=jlog)
+    for seed in range(2):
+        outputs, labels = _batch(seed)
+        tevl(None, {k: torch.from_numpy(v) for k, v in outputs.items()},
+             {k: torch.from_numpy(v) for k, v in labels.items()})
+        jevl(None, {k: jnp.asarray(v) for k, v in outputs.items()},
+             {k: jnp.asarray(v) for k, v in labels.items()})
+    for _ in range(2):
+        tsum = tevl.print_report(reset=False, log_to_wandb=True)
+        jsum = jevl.print_report(reset=False, log_to_wandb=True)
+        assert tsum == pytest.approx(jsum, rel=1e-5)
+    assert len(tlog.records) == len(jlog.records) == 2
+    for got, want in zip(tlog.records, jlog.records):
+        assert set(got) == set(want) and 'dev/wrench_loss/right-force-z' in got
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    tevl.print_report()
+    assert tevl.metric_history == {} and len(tlog.records) == 2
+    assert 'Force Avg Err' in capsys.readouterr().out
+
+
 def test_precomputed_metrics_are_taken_as_they_are():
     ev = tev.RegressionLossEvaluator('train')
     ev(None, None, None, precomputed_metrics={

@@ -353,6 +353,28 @@ def test_sigterm_checkpoints_and_the_resumed_run_equals_the_uninterrupted(
     assert want['step'] == got['step']
 
 
+def test_groundlink_trains_at_the_jax_defaults_and_resumes_exactly(data, tmp_path):
+    """``train --model-type groundlink`` with the JAX defaults (fc_dropout
+    0.2): the loss is finite, the dev eval runs, checkpoints land, and a run
+    stopped after epoch 0 and resumed ends with bitwise the parameters of the
+    uninterrupted run (the dropout masks are seeded by the step)."""
+    def run(d, epochs):
+        return run_training(build_parser().parse_args([
+            'train', '--dataset-home', str(data['root']), '--checkpoint-dir', str(d),
+            '--model-type', 'groundlink', '--batch-size', str(BATCH), '--epochs',
+            str(epochs), '--device', 'cpu']))
+
+    whole = run(tmp_path / 'a', 2)
+    assert whole.epochs_run == 2 and np.isfinite(whole.final_train_metrics['loss'])
+    assert np.isfinite(whole.final_dev_metrics['loss'])
+    run(tmp_path / 'b', 1)
+    assert run(tmp_path / 'b', 2).epochs_run == 1
+    want, got = (_final(str(tmp_path / d / 'groundlink')) for d in ('a', 'b'))
+    assert want['step'] == got['step'] == 2 * (len(data['train']) // BATCH)
+    for k, v in want['model_state_dict'].items():
+        assert torch.equal(v, got['model_state_dict'][k]), k
+
+
 def test_the_trained_pallas_checkpoint_is_served(data, trained):
     cfg = trained['cfg']
     svc = InferenceService(cfg, trained['dir'], data['dev'], max_batch=64, device='cpu')
@@ -486,7 +508,7 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     (['--use-pickled'], NotImplementedError, '--use-pickled is not yet ported'),
     (['--dropout', '--dropout-prob', '0.1'], NotImplementedError, 'dropout'),
     (['--batchnorm'], NotImplementedError, 'batchnorm'),
-    (['--model-type', 'groundlink', '--device', 'cpu'], NotImplementedError, 'dropout'),
+    (['--model-type', 'groundlink', '--conv-impl', 'banded'], ValueError, 'not ported'),
     (['--model-type', 'transformer', '--attn-impl', 'pallas', '--dropout',
       '--dropout-prob', '0.1'], ValueError, 'does not support dropout'),
     ([], RuntimeError, r'is_available\(\) is False'),        # --device cuda is the default
