@@ -57,25 +57,48 @@ Phases, each of which fails the run:
      rate of K3's tile kernel on the tensor cores; registers, stack and
      spills of K1's, K3's and K4's kernels as ptxas reports them; the 4-layer
      encoder stack; /predict p50 of the three services; the weight
-     packing of a train step, a whole train step (``pallas`` and ``vpu``) and
-     where its time goes, and a ``pallas`` train step at the default batch
-     of 64, where K3 runs its small shape (launches by shape counted);
+     packing of a train step, a whole train step step by step (``pallas`` and
+     ``vpu``) and where its time goes, and a ``pallas`` train step at the
+     default batch of 64, where K3 runs its small shape (launches by shape
+     counted); the ``pallas`` step at B = 4096 and 64 in chunks of 64 (the
+     default ``--device-chunk-steps``: graph replays), by the host clock,
+     with the device busy time and idle share beside those step by step, and
+     the K2 and K3 kernels of a chunk counted in its profiler trace;
   7. training at full width through the ``train`` command's wiring: a
      synthetic train and dev set, ``--model-type transformer --attn-impl
-     pallas --batch-size 4096``, 2 epochs; K2 launched 4 times a forward
-     (train steps and dev batches) and K3 4 x 3 times a train step; the loss
-     falls; the first step's loss and gradients agree with the same step
-     through the plain versions on the card; a run stopped after epoch 0 and
-     resumed ends with bitwise the parameters of the uninterrupted run;
-     ``serve`` answers /predict from the checkpoint as the model's own
-     forward does;
+     pallas --batch-size 4096``, 2 epochs in chunks (the default
+     ``--device-chunk-steps 64``, clamped to the epoch: each step after the
+     first two a replay of the step captured as a CUDA graph); the wrappers
+     count the eager steps' launches and the capture's, and the run's
+     profiler trace holds K2 4 times a forward (train steps and dev batches)
+     and K3 4 x 3 times a train step, replays included; the loss falls; the
+     same run step by step (``--device-chunk-steps 1``) ends bitwise where
+     the chunked one ends, and so does the chunked run once more after it
+     (windows/s of all three, with the capture's seconds); the first step
+     built by hand through the kernels has the step-by-step run's first
+     logged loss, and its loss and gradients agree with the same step
+     through the plain versions on the card; a run
+     stopped after epoch 0 and resumed ends with bitwise the parameters of
+     the uninterrupted run; ``serve`` answers /predict from the checkpoint as
+     the model's own forward does;
   7b. one epoch each of the same transformer with ``--attn-impl vpu`` (plain
      autograd) and of the default feedforward model;
   7c. one epoch of ``--model-type groundlink`` at the JAX defaults
      (``fc_dropout`` 0.2; plain bf16 autograd with dropout in training): the
-     loss is finite and the epoch's mean falls below the first step's, K4
+     loss is finite and the last step's falls below the epoch's mean, K4
      launched once a dev-eval forward, a checkpoint written; windows/s of
      all four;
+  7d. the chunked step: the ``pallas`` transformer at the default batch of
+     64 over an epoch of two chunks of 64 and a remainder against the same
+     epoch step by step, bitwise, with one capture, a replay a step after
+     the first two, and the K2 and K3 kernels of the run counted in its
+     profiler trace; the same on the host-loader tier (``--device-data off
+     --host-chunk-steps 64 --host-upload-dtype bf16`` against step by step
+     in float32, bitwise), and that tier at B=4096 in float32 with chunks of
+     64 and of 8 against step by step (bitwise, windows/s);
+     GroundLink (dropout 0.2) at B=4096 over 2 epochs chunked against step
+     by step, and stopped after epoch 0 and resumed against uninterrupted
+     (bitwise; else the first tensor that differs and by how much);
   8. ``analyze`` through the command's wiring on the checkpoints of phases 7
      (``pallas`` transformer), 7b (``vpu`` transformer, feedforward) and 7c
      (GroundLink), on a dev split of one synthetic subject (one trial of 600
@@ -154,6 +177,11 @@ GL_REL = 2e-2
 # (tests/test_pallas_encoder.py). The same limit holds a train step's
 # gradients through the kernels against the step through the plain versions.
 BWD_REL = 2e-2
+# the K2 and K3 kernels by name in a profiler trace (the first name that
+# matches; the cluster tile kernel is K3's small shape, the other its large)
+ENC_KERNELS = ('fused_encoder_kernel', 'encoder_bwd_tile_kernel_cluster',
+               'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+K3_TILE = {'small': 'encoder_bwd_tile_kernel_cluster', 'large': 'encoder_bwd_tile_kernel'}
 FULL_DIMS = [1770, 512, 512, 30]
 GL_FULL = dict(t=10, c_in=177, features=(128, 128, 256, 256), taps=7, fc_depth=3, c_out=30)
 ENC_FULL = dict(t=10, d=256, heads=8, mlp_ratio=4, layers=4)
@@ -480,6 +508,37 @@ def _device_us(torch, fn, iters: int = 20):
     return total / iters if total > 0 else None
 
 
+def _traced(torch, fn, names=ENC_KERNELS):
+    """Run ``fn()`` once under ``torch.profiler``; return its result, the GPU
+    kernels in the trace counted by the first of ``names`` their name holds
+    ('other' for the rest), and their summed device time in us. Kernels a
+    CUDA graph replays are in the trace one by one, so this counts the
+    launches no wrapper saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    counts, busy = dict.fromkeys((*names, 'other'), 0), 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            counts[next((n for n in names if n in e.name), 'other')] += 1
+            busy += e.time_range.elapsed_us()
+    return result, counts, busy
+
+
+def _check_traced(traced, layers: int, steps: int, forwards: int, shape: str, what: str):
+    """The trace's K2 and K3 kernels are those of ``steps`` train steps and
+    ``forwards`` more forwards of ``layers`` encoder layers, K3's tile kernel
+    in ``shape``."""
+    tile, other = K3_TILE[shape], K3_TILE['large' if shape == 'small' else 'small']
+    want = {'fused_encoder_kernel': layers * (steps + forwards), tile: layers * steps,
+            other: 0, 'encoder_wgrad_kernel': layers * steps,
+            'encoder_bwd_reduce_kernel': layers * steps}
+    _check(all(traced[k] == v for k, v in want.items()),
+           f'{what}: traced kernels {traced}, want {want}')
+
+
 def _device_us_by_name(torch, fn, names, iters: int = 10) -> dict:
     """Profiler device time per call of the GPU kernels whose name contains
     one of ``names``, and of all the others together."""
@@ -804,15 +863,18 @@ def phase_tta_and_poller(port, data, ckpt_root, ds, symmetrized, new_weights, co
 
 
 class _LossLog(logging.Handler):
-    """Collects the train loop's logged steps as (epoch, batch, loss)."""
+    """Collects the train loop's logged steps as (epoch, batch, loss), and
+    the seconds of each capture of a train step."""
 
     def __init__(self):
         super().__init__(level=logging.INFO)
-        self.steps = []
+        self.steps, self.captures = [], []
 
     def emit(self, record):
         if str(record.msg).startswith('epoch %d batch %d loss'):
             self.steps.append(tuple(record.args))
+        elif str(record.msg).startswith('train step captured'):
+            self.captures.append(record.args[0])
 
 
 @contextlib.contextmanager
@@ -843,14 +905,47 @@ def _first_step(torch, port, model, data, idx, lc):
                          if p.grad is not None}
 
 
-def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
-                   subjects=40, trial_length=2100, size_flags=()):
+def _compare_final(torch, a, b, epoch, limit=0.0):
+    """The final checkpoints (``epoch_{epoch}_batch_0``) of two runs:
+    parameters, optimizer state and step, bitwise; else the first tensor that
+    differs, in parameter order, and its largest difference. Fails when a
+    difference exceeds ``limit`` x that tensor's largest value (0: any)."""
+    want, got = (torch.load(str(d / f'epoch_{epoch}_batch_0.torch.pt'), map_location='cpu',
+                            weights_only=True) for d in (a, b))
+    _check(want['step'] == got['step'], f'{a} / {b}: steps {want["step"]} / {got["step"]}')
+    pairs = list(want['model_state_dict'].items())
+    for i, st in want['optimizer_state_dict']['state'].items():
+        pairs += [(f'optimizer state {i}/{k}', v) for k, v in st.items()]
+    got_of = dict(got['model_state_dict'])
+    for i, st in got['optimizer_state_dict']['state'].items():
+        got_of.update({f'optimizer state {i}/{k}': v for k, v in st.items()})
+    differing = [(k, float((v.float() - got_of[k].float()).abs().max()),
+                  float(v.float().abs().max())) for k, v in pairs
+                 if not torch.equal(v, got_of[k])]
+    if not differing:
+        return dict(bitwise=True, tensors=len(pairs),
+                    verdict=f'bitwise equal ({len(pairs)} tensors, step {want["step"]})')
+    name, err, scale = differing[0]
+    worst = max(e / max(m, 1e-30) for _, e, m in differing)
+    _check(worst <= limit, f'{a} / {b}: {len(differing)} of {len(pairs)} tensors differ, '
+                           f'first {name} by {err:.3g} (max {scale:.3g})')
+    return dict(bitwise=False, tensors=len(pairs), differing=len(differing), first=name,
+                first_max_abs=err, worst_rel=worst,
+                verdict=f'NOT bitwise: {len(differing)} of {len(pairs)} tensors differ, '
+                        f'first {name} by {err:.3g} (max |value| {scale:.3g}), worst '
+                        f'{worst:.3g} relative')
+
+
+def phase_training(torch, port, fe, fg, step_mod, root, seed, card, device='cuda',
+                   batch=4096, subjects=40, trial_length=2100, size_flags=()):
     """Train the transformer with ``--attn-impl pallas`` through the
     ``train`` command's wiring (``port``: the command's parser and runner and
-    the modules a step is made of) and check launch counts, the loss, the
-    first step against the plain versions, an exact resume and the served
-    checkpoint. ``size_flags`` narrows the model for a rehearsal; the run on
-    the card passes none (full width). Returns the numbers for the report."""
+    the modules a step is made of) and check launch counts (the wrappers'
+    counters, and the K2 and K3 kernels in a profiler trace of the run,
+    graph replays included), the loss, the first step against the plain
+    versions, an exact resume and the served checkpoint. ``size_flags``
+    narrows the model for a rehearsal; the run on the card passes none (full
+    width). Returns the numbers for the report."""
     data = root / 'train_data'
     for split, n, first in (('train', subjects, 100), ('dev', 1, 200)):
         (data / split).mkdir(parents=True)
@@ -872,14 +967,19 @@ def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
     loop_log.setLevel(logging.INFO)
     handler = _LossLog()
     loop_log.addHandler(handler)
+    step_log = logging.getLogger('inferbiomechanics_tpu_torch.train.step')
+    step_log.addHandler(handler)
     try:
-        # the main path: 2 epochs, counts set to 0 just before, read just after
+        # the main path: 2 epochs, counts set to 0 just before, read just
+        # after; the run traced by the profiler
         fe.launches = fe.bwd_launches = 0
         fe.bwd_shape_launches.update(small=0, large=0)
-        result = run(root / 'ckpt_a', pallas, 2)
+        captures = step_mod.captures
+        result, traced, _ = _traced(torch, lambda: run(root / 'ckpt_a', pallas, 2))
         k2_launches, k3_launches = fe.launches, fe.bwd_launches
         k3_shapes = dict(fe.bwd_shape_launches)
-        steps = list(handler.steps)
+        captures = step_mod.captures - captures
+        steps, capture_s = list(handler.steps), list(handler.captures)
     finally:
         loop_log.removeHandler(handler)
     args = port.parser().parse_args(argv(root / 'ckpt_a', pallas, 2))
@@ -894,27 +994,63 @@ def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
     _check(result.epochs_run == 2 and train_steps == 2 * (len(train_ds) // batch)
            and train_steps >= 16 and dev_batches >= 2,
            f'{result.epochs_run} epochs, {train_steps} train steps, {dev_batches} dev batches')
-    _check(k2_launches == layers * (train_steps + dev_batches),
-           f'K2: {k2_launches} launches for {train_steps} train steps and '
-           f'{dev_batches} dev batches of {layers} layers')
-    _check(k3_launches == layers * fe.BWD_LAUNCHES_PER_LAYER * train_steps,
-           f'K3: {k3_launches} launches for {train_steps} train steps of {layers} layers')
+    # the wrappers count each eager step and the capture (which records the
+    # launches into the graph); the trace holds every launch that ran
+    called = (step_mod.GraphedStep.WARMUP_STEPS + 1) * captures
+    _check(captures == 1 and k2_launches == layers * (called + dev_batches)
+           and k3_launches == layers * fe.BWD_LAUNCHES_PER_LAYER * called,
+           f'wrappers: {captures} captures, K2 {k2_launches} and K3 {k3_launches} launches '
+           f'for {dev_batches} dev batches of {layers} layers')
     k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
                                    cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
-    _check(k3_shapes[k3_shape] == layers * train_steps and sum(k3_shapes.values()) ==
-           layers * train_steps, f'K3 by shape: {k3_shapes}, the plan picks {k3_shape}')
+    _check(k3_shapes[k3_shape] == layers * called and sum(k3_shapes.values()) ==
+           layers * called, f'K3 by shape: {k3_shapes}, the plan picks {k3_shape}')
+    _check_traced(traced, layers, train_steps, dev_batches, k3_shape, 'main path')
+    k2_traced = traced['fused_encoder_kernel']
+    k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
     print(f'[train] pallas transformer, B={batch}: {train_steps} train steps and '
-          f'{dev_batches} dev batches in 2 epochs; K2 launches {k2_launches} == {layers} x '
-          f'({train_steps} + {dev_batches}); K3 launches {k3_launches} == {layers} x '
-          f'{fe.BWD_LAUNCHES_PER_LAYER} x {train_steps}; '
-          f'{result.windows_per_sec:.0f} windows/s', flush=True)
+          f'{dev_batches} dev batches in 2 epochs, {captures} capture; wrappers: K2 '
+          f'{k2_launches} == {layers} x ({called} + {dev_batches}), K3 {k3_launches} == '
+          f'{layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {called} (eager steps and the capture); '
+          f'in the profiler trace of the run: K2 {k2_traced} == {layers} x ({train_steps} + '
+          f'{dev_batches}), K3 {k3_traced} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x '
+          f'{train_steps} ({k3_shape} shape); {result.windows_per_sec:.0f} windows/s under '
+          f'the profiler', flush=True)
     first, last = steps[0][2], steps[-1][2]
     _check(len(steps) >= 2 and np.isfinite([s[2] for s in steps]).all() and last < first,
            f'logged losses {steps}')
-    print(f'[train] loss of the logged steps {[round(s[2], 4) for s in steps]}: falls',
-          flush=True)
+    print(f'[train] loss of the logged steps {[round(s[2], 4) for s in steps]} (once a '
+          f'chunk, at its last batch): falls', flush=True)
     dev_loss = result.final_dev_metrics['loss']
     _check(np.isfinite(dev_loss), f'dev loss {dev_loss}')
+
+    # the same run dispatched step by step: bitwise the chunked one, and its
+    # first logged loss is the first step's
+    loop_log.addHandler(handler)
+    handler.steps.clear()
+    handler.captures.clear()
+    try:
+        per_step = run(root / 'ckpt_s', [*pallas, '--device-chunk-steps', '1'], 2)
+        first = handler.steps[0][2]
+        # chunked once more, not traced, now that the process has trained at
+        # this size
+        again = run(root / 'ckpt_c', pallas, 2)
+        again_capture_s = list(handler.captures)
+    finally:
+        loop_log.removeHandler(handler)
+        step_log.removeHandler(handler)
+    _check(per_step.windows_seen == result.windows_seen, 'per-step run: windows')
+    chunked_vs_step = _compare_final(torch, root / 'ckpt_a' / 'transformer',
+                                     root / 'ckpt_s' / 'transformer', 1)
+    chunked_again = _compare_final(torch, root / 'ckpt_a' / 'transformer',
+                                   root / 'ckpt_c' / 'transformer', 1)
+    print(f'[chunk] pallas B={batch}, 2 epochs of {train_steps // 2} steps (one chunk each) '
+          f'against the same run step by step ({card}): {chunked_vs_step["verdict"]}; '
+          f'chunked again: {chunked_again["verdict"]}; windows/s chunked '
+          f'{result.windows_per_sec:.0f} (the process\'s first training, traced; capture '
+          f'{", ".join(f"{t:.3f}" for t in capture_s)} s), step by step '
+          f'{per_step.windows_per_sec:.0f}, chunked again {again.windows_per_sec:.0f} (capture '
+          f'{", ".join(f"{t:.3f}" for t in again_capture_s)} s)', flush=True)
 
     # the first step, through the kernels and through the plain versions
     lc = port.loss_config_from(cfg)
@@ -1009,18 +1145,19 @@ def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
         k4_train_launches, gl_steps = fg.launches, list(handler.steps)
     finally:
         loop_log.removeHandler(handler)
-    gl_first, gl_mean = gl_steps[0][2], gl.final_train_metrics['loss']
-    _check(gl.epochs_run == 1 and np.isfinite([gl_first, gl_mean]).all()
-           and np.isfinite(gl.final_dev_metrics['loss']) and gl_mean < gl_first,
-           f'GroundLink: first step loss {gl_first}, epoch mean {gl_mean}, '
+    # the one chunk of the epoch logs the loss of its last step
+    gl_last, gl_mean = gl_steps[-1][2], gl.final_train_metrics['loss']
+    _check(gl.epochs_run == 1 and np.isfinite([gl_last, gl_mean]).all()
+           and np.isfinite(gl.final_dev_metrics['loss']) and gl_last < gl_mean,
+           f'GroundLink: last step loss {gl_last}, epoch mean {gl_mean}, '
            f'dev {gl.final_dev_metrics}')
     _check(k4_train_launches == len(dev_ds) // batch,
            f'GroundLink training: {k4_train_launches} K4 launches for '
            f'{len(dev_ds) // batch} dev batches')
     _check((root / 'ckpt_gl' / 'groundlink' / 'epoch_0_batch_0.torch.pt').exists(),
            'GroundLink checkpoint')
-    print(f'[train] groundlink, fc_dropout 0.2, B={batch}: first step loss {gl_first:.4f}, '
-          f'epoch mean {gl_mean:.4f} (falls); K4 launches {k4_train_launches} == dev '
+    print(f'[train] groundlink, fc_dropout 0.2, B={batch}: last step loss {gl_last:.4f} '
+          f'below the epoch mean {gl_mean:.4f} (falls); K4 launches {k4_train_launches} == dev '
           f'batches {len(dev_ds) // batch}; checkpoint written', flush=True)
     wps = {'transformer pallas (K2 + K3)': result.windows_per_sec,
            'transformer vpu (plain autograd)': vpu.windows_per_sec,
@@ -1029,11 +1166,142 @@ def phase_training(torch, port, fe, fg, root, seed, device='cuda', batch=4096,
     print(f'[train] windows/s at B={batch}: '
           + ', '.join(f'{k} {v:.0f}' for k, v in wps.items()), flush=True)
     return dict(k2_launches=k2_launches, k3_launches=k3_launches,
-                k3_shape_launches=k3_shapes, train_steps=train_steps,
+                k3_shape_launches=k3_shapes, k2_traced=k2_traced, k3_traced=k3_traced,
+                traced=traced, captures=captures, capture_s=capture_s,
+                capture_s_again=again_capture_s, train_steps=train_steps,
                 dev_batches=dev_batches, windows_per_sec=wps, first_loss=first,
                 last_loss=last, first_step_grad_rel=worst,
-                groundlink=dict(k4_launches=k4_train_launches, first_loss=gl_first,
+                chunked_vs_step=chunked_vs_step,
+                windows_per_sec_step_by_step=per_step.windows_per_sec,
+                windows_per_sec_chunked_again=again.windows_per_sec,
+                groundlink=dict(k4_launches=k4_train_launches, last_loss=gl_last,
                                 epoch_mean_loss=gl_mean))
+
+
+def phase_chunked(torch, port, fe, step_mod, root, seed, card, device='cuda', batch=64,
+                  trial_length=4800, gl_batch=4096, size_flags=()):
+    """The chunked step through the ``train`` command (7d): the ``pallas``
+    transformer at ``batch`` (the default 64: K3's small shape) over an
+    epoch of two full chunks of 64 and a remainder, against the same run
+    step by step, with the K2 and K3 kernels of the run counted in a
+    profiler trace; the host-loader tier at ``batch`` and at ``gl_batch``;
+    GroundLink (dropout 0.2) at ``gl_batch`` over 2 epochs, chunked
+    against step by step, and chunked resumed after epoch 0 (phase 7c's
+    run, copied) against uninterrupted. Returns the numbers for the report."""
+    data = root / 'chunk_data'
+    (data / 'train').mkdir(parents=True)
+    port.write_synthetic_subject(str(data / 'train' / 'subject_0.b3d'), num_trials=2,
+                                 trial_length=trial_length, seed=seed + 300)
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+
+    def run(home, ckpt, flags, epochs, b):
+        return port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt),
+            '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+            '--seed', str(seed), *flags]))
+
+    # pallas at the default batch: counts set to 0 just before, read just
+    # after; the run traced by the profiler
+    fe.launches = fe.bwd_launches = 0
+    fe.bwd_shape_launches.update(small=0, large=0)
+    replays, captures = step_mod.replays, step_mod.captures
+    chunked, traced, _ = _traced(torch, lambda: run(data, root / 'ckpt_64c', pallas, 1, batch))
+    k2, k3, k3_shapes = fe.launches, fe.bwd_launches, dict(fe.bwd_shape_launches)
+    replays, captures = step_mod.replays - replays, step_mod.captures - captures
+    cfg = port.config_from_args(port.parser().parse_args(['train', *pallas]))
+    layers, steps = cfg.num_layers, chunked.windows_seen // batch
+    chunk = min(cfg.device_chunk_steps, steps)
+    warmup = step_mod.GraphedStep.WARMUP_STEPS
+    _check(chunked.epochs_run == 1 and steps > 2 * chunk and steps % chunk,
+           f'{steps} steps: not two chunks of {chunk} and a remainder')
+    _check(captures == 1 and replays == steps - warmup,
+           f'{captures} captures, {replays} replays for {steps} steps')
+    # the wrappers saw the eager steps and the capture; the trace every launch
+    _check(k2 == layers * (warmup + 1) and k3 == layers * fe.BWD_LAUNCHES_PER_LAYER * (warmup + 1),
+           f'wrappers: K2 {k2}, K3 {k3} launches for {warmup} eager steps and a capture')
+    k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                                   cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check(k3_shapes[k3_shape] == layers * (warmup + 1), f'K3 by shape {k3_shapes}')
+    _check_traced(traced, layers, steps, 0, k3_shape, f'pallas B={batch} chunked')
+    k2_traced = traced['fused_encoder_kernel']
+    k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
+    step_by_step = run(data, root / 'ckpt_64s', [*pallas, '--device-chunk-steps', '1'], 1,
+                       batch)
+    pallas_b64 = _compare_final(torch, root / 'ckpt_64c' / 'transformer',
+                                root / 'ckpt_64s' / 'transformer', 0)
+    print(f'[chunk] pallas B={batch}, {steps} steps in chunks of {chunk} (the last '
+          f'{steps % chunk}) against step by step ({card}): {pallas_b64["verdict"]}; '
+          f'{captures} capture, {replays} replays after {warmup} eager steps; wrappers: K2 '
+          f'{k2}, K3 {k3}; in the profiler trace of the run: K2 {k2_traced} == {layers} x '
+          f'{steps} steps, K3 {k3_traced} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {steps} '
+          f'({k3_shape} shape); windows/s chunked {chunked.windows_per_sec:.0f} (traced), '
+          f'step by step {step_by_step.windows_per_sec:.0f}', flush=True)
+
+    # the host-loader tier: chunks of 64 uploaded in one copy with the inputs
+    # rounded to bf16 on the host, against step by step in float32 (the
+    # model rounds its inputs to bf16 itself)
+    host = ['--device-data', 'off']
+    host_c = run(data, root / 'ckpt_64hc', [*pallas, *host, '--host-chunk-steps', str(chunk),
+                                            '--host-upload-dtype', 'bf16'], 1, batch)
+    host_s = run(data, root / 'ckpt_64hs', [*pallas, *host], 1, batch)
+    _check(host_c.windows_seen == host_s.windows_seen == steps * batch, 'host tier runs')
+    host_b64 = _compare_final(torch, root / 'ckpt_64hc' / 'transformer',
+                              root / 'ckpt_64hs' / 'transformer', 0)
+    print(f'[chunk] pallas B={batch}, host-loader tier, --host-chunk-steps {chunk} '
+          f'--host-upload-dtype bf16 against step by step in float32 ({card}): '
+          f'{host_b64["verdict"]}; windows/s chunked {host_c.windows_per_sec:.0f}, step by '
+          f'step {host_s.windows_per_sec:.0f}', flush=True)
+
+    # the host-loader tier at gl_batch, in float32: one epoch step by step,
+    # in chunks of 64 (clamped to the epoch) and of 8
+    home = root / 'train_data'
+    host_big = {k: run(home, root / f'ckpt_hb{k}', [*pallas, *host, '--host-chunk-steps', str(k)],
+                       1, gl_batch) for k in (1, 64, 8)}
+    _check(len({r.windows_seen for r in host_big.values()}) == 1, 'host tier runs at B=4096')
+    host_big_cmp = {k: _compare_final(torch, root / 'ckpt_hb1' / 'transformer',
+                                      root / f'ckpt_hb{k}' / 'transformer', 0) for k in (64, 8)}
+    host_big_steps = host_big[1].windows_seen // gl_batch
+    print(f'[chunk] pallas B={gl_batch}, host-loader tier in float32, {host_big_steps} steps '
+          f'({card}): --host-chunk-steps 64 (one chunk of {min(64, host_big_steps)}) '
+          f'{host_big_cmp[64]["verdict"]}, --host-chunk-steps 8 {host_big_cmp[8]["verdict"]} '
+          f'against step by step; windows/s step by step {host_big[1].windows_per_sec:.0f}, '
+          f'chunks of 64 {host_big[64].windows_per_sec:.0f}, chunks of 8 '
+          f'{host_big[8].windows_per_sec:.0f}', flush=True)
+
+    # GroundLink: chunked, step by step, and resumed after epoch 0
+    gl = ['--model-type', 'groundlink']
+    gl_a = run(home, root / 'ckpt_gl_a', gl, 2, gl_batch)
+    gl_s = run(home, root / 'ckpt_gl_s', [*gl, '--device-chunk-steps', '1'], 2, gl_batch)
+    shutil.copytree(root / 'ckpt_gl', root / 'ckpt_gl_b')
+    gl_b = run(home, root / 'ckpt_gl_b', gl, 2, gl_batch)
+    _check(gl_b.epochs_run == 1 and gl_a.windows_seen == gl_s.windows_seen
+           == 2 * gl_b.windows_seen, 'GroundLink runs')
+    gl_step = _compare_final(torch, root / 'ckpt_gl_a' / 'groundlink',
+                             root / 'ckpt_gl_s' / 'groundlink', 1)
+    gl_resume = _compare_final(torch, root / 'ckpt_gl_a' / 'groundlink',
+                               root / 'ckpt_gl_b' / 'groundlink', 1)
+    gl_steps = gl_a.windows_seen // gl_batch
+    print(f'[chunk] groundlink B={gl_batch}, 2 epochs of {gl_steps // 2} steps, chunked against '
+          f'step by step ({card}): {gl_step["verdict"]}', flush=True)
+    print(f'[chunk] groundlink B={gl_batch}, chunked, stopped after epoch 0 and resumed '
+          f'against uninterrupted ({card}): {gl_resume["verdict"]}; windows/s chunked '
+          f'{gl_a.windows_per_sec:.0f}, step by step {gl_s.windows_per_sec:.0f}', flush=True)
+    return dict(pallas_b64=dict(steps=steps, chunk=chunk, captures=captures, replays=replays,
+                                k2_launches=k2, k3_launches=k3, k3_shape_launches=k3_shapes,
+                                k2_traced=k2_traced, k3_traced=k3_traced, traced=traced,
+                                vs_step_by_step=pallas_b64,
+                                windows_per_sec=chunked.windows_per_sec,
+                                windows_per_sec_step_by_step=step_by_step.windows_per_sec),
+                pallas_b64_host_tier=dict(vs_step_by_step=host_b64,
+                                          windows_per_sec=host_c.windows_per_sec,
+                                          windows_per_sec_step_by_step=host_s.windows_per_sec),
+                pallas_host_tier_big=dict(
+                    batch=gl_batch, steps=host_big_steps,
+                    vs_step_by_step={k: v['verdict'] for k, v in host_big_cmp.items()},
+                    windows_per_sec={k: v.windows_per_sec for k, v in host_big.items()}),
+                groundlink=dict(steps=gl_steps, vs_step_by_step=gl_step, resume=gl_resume,
+                                windows_per_sec=gl_a.windows_per_sec,
+                                windows_per_sec_step_by_step=gl_s.windows_per_sec))
 
 
 @contextlib.contextmanager
@@ -1227,11 +1495,13 @@ def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer
                         k3_by_shape=dict(fe.bwd_shape_launches))
         busy = sum(parts.values()) / 1e3
         out[attn] = dict(step_ms=wall, device_busy_ms=busy, device_us_by_kernel=parts,
-                         windows_per_sec=batch / wall * 1e3, launches=launched)
-        print(f'[times] train step {attn} transformer B={batch} ({card}): {wall:.2f} ms by '
-              f'the host clock (p50 of 10 synchronised steps) = {batch / wall * 1e3:.0f} '
-              f'windows/s; device busy {busy:.2f} ms a step (host gaps '
-              f'{max(wall - busy, 0.0):.2f} ms): '
+                         windows_per_sec=batch / wall * 1e3, launches=launched,
+                         idle_share=max(wall - busy, 0.0) / wall)
+        print(f'[times] train step {attn} transformer B={batch} step by step ({card}): '
+              f'{wall:.2f} ms by the host clock (p50 of 10 synchronised steps) = '
+              f'{batch / wall * 1e3:.0f} windows/s; device busy {busy:.2f} ms a step (host '
+              f'gaps {max(wall - busy, 0.0):.2f} ms, idle share '
+              f'{max(wall - busy, 0.0) / wall:.3f}): '
               + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items())
               + f'; launches {launched}', flush=True)
         if attn == 'pallas' and parts_alone:
@@ -1257,6 +1527,52 @@ def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer
                   + ', '.join(f'{k} {v * 1e3:.1f} us' for k, v in alone.items()), flush=True)
         del model, state, step
     return out
+
+
+def phase_chunk_times(torch, port, fe, ds, card, seed, batch, chunk=64, chunks=5):
+    """The ``pallas`` train step at full width in chunks of ``chunk`` on
+    device-resident data: one step by the host clock (p50 over ``chunks``
+    chunks, each ended by reading its metrics back), the device busy time a
+    step and the idle share, with the K2 and K3 kernels of the chunk's
+    replays (profiler, over one chunk; the wrappers' counts set to 0 just
+    before and read just after stay 0: a replay runs no wrapper)."""
+    cfg = port.config_from_args(port.parser().parse_args(
+        ['train', '--model-type', 'transformer', '--attn-impl', 'pallas']))
+    model = port.build_model_for_dataset(
+        cfg, ds, generator=torch.Generator().manual_seed(seed), device='cuda')
+    state = port.create_train_state(model, port.make_optimizer(
+        model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+    data = port.DeviceResidentData(ds, 'cuda', pack_windows=True)
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(len(ds))[:batch] for _ in range(chunk)])
+    run = port.make_device_chunked_step(model, data, port.loss_config_from(cfg))
+
+    def one():
+        run(state, idx).rows()      # waits for the chunk's last metrics
+
+    one()                           # the eager first steps and the capture
+    fe.launches = fe.bwd_launches = 0
+    wall = _host_p50_ms(one, chunks) / chunk
+    _, traced, busy_us = _traced(torch, one)
+    layers = cfg.num_layers
+    _check(fe.launches == fe.bwd_launches == 0, f'chunk timing: wrappers ran in a replay: '
+                                                f'K2 {fe.launches}, K3 {fe.bwd_launches}')
+    k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                                   cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check_traced(traced, layers, chunk, 0, k3_shape, f'chunk timing B={batch}')
+    k2, k3 = traced['fused_encoder_kernel'], sum(traced[k] for k in ENC_KERNELS[1:])
+    busy = busy_us / 1e3 / chunk if busy_us > 0 else None
+    idle = None if busy is None else max(wall - busy, 0.0) / wall
+    print(f'[times] train step pallas transformer B={batch} in chunks of {chunk} ({card}): '
+          f'{wall:.3f} ms a step by the host clock (p50 of {chunks} chunks) = '
+          f'{batch / wall * 1e3:.0f} windows/s; device busy '
+          + ('not measured' if busy is None else f'{busy:.3f} ms a step, idle share '
+             f'{idle:.3f}') + f'; in the profiler trace of that chunk: K2 {k2} == {layers} x '
+          f'{chunk} steps, K3 {k3} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {chunk} '
+          f'({k3_shape} shape), all graph replays (the wrappers counted none)', flush=True)
+    return dict(step_ms=wall, device_busy_ms=busy, idle_share=idle,
+                windows_per_sec=batch / wall * 1e3,
+                traced=dict(k2=k2, k3=k3, steps=chunk, by_kernel=traced))
 
 
 def _print_times(card, what, b, ms, dev, library, bound):
@@ -1317,14 +1633,22 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.train.checkpoint import (
         load_latest_checkpoint, save_checkpoint,
     )
+    from inferbiomechanics_tpu_torch.train import step as step_mod
     from inferbiomechanics_tpu_torch.train.device_data import (
-        DeviceResidentData, make_device_train_step,
+        DeviceResidentData, make_device_chunked_step, make_device_train_step,
     )
     from inferbiomechanics_tpu_torch.train.loop import (
         build_model_for_dataset, loss_config_from,
     )
     from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
     from inferbiomechanics_tpu_torch.train.state import create_train_state
+
+    # the chunked step logs each capture of a train step, with its launches
+    capture_log = logging.getLogger('inferbiomechanics_tpu_torch.train.step')
+    capture_log.setLevel(logging.INFO)
+    to_stdout = logging.StreamHandler(sys.stdout)
+    to_stdout.setFormatter(logging.Formatter('[capture] %(message)s'))
+    capture_log.addHandler(to_stdout)
 
     # 2. build
     info = _build.build()
@@ -1383,7 +1707,9 @@ def main() -> int:
             loss_and_metrics=loss_and_metrics, loss_config_from=loss_config_from,
             build_model_for_dataset=build_model_for_dataset,
             DeviceResidentData=DeviceResidentData,
-            load_latest_checkpoint=load_latest_checkpoint, analyze=analyze)
+            load_latest_checkpoint=load_latest_checkpoint, analyze=analyze,
+            make_device_chunked_step=make_device_chunked_step,
+            create_train_state=create_train_state, make_optimizer=make_optimizer)
         k1_launches, ff_p50 = phase_service(
             port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
             ff_agree, fm, 1, args.seed)
@@ -1472,7 +1798,9 @@ def main() -> int:
             port, data, ckpt_root, ds, gl_symmetrized, weights_for(gcfg), fg, args.seed)
 
         # 7 and 7b. training
-        trained = phase_training(torch, port, fe, fg, tmp, args.seed)
+        trained = phase_training(torch, port, fe, fg, step_mod, tmp, args.seed, card)
+        # 7d. the chunked step against step by step, resumed, kernels traced
+        chunked = phase_chunked(torch, port, fe, step_mod, tmp, args.seed, card)
 
         # 8. analyze on the checkpoints phase 7 wrote
         analyzed = phase_analyze(torch, port, fm, fe, fg, tmp, args.seed, card,
@@ -1494,6 +1822,10 @@ def main() -> int:
         _check(by_shape[k3_step_shape] > 0 and sum(by_shape.values()) == by_shape[k3_step_shape],
                f'train steps at B={default_batch}: K3 by shape {by_shape}, the plan picks '
                f'{k3_step_shape}')
+        # the same steps in chunks of 64 (the default --device-chunk-steps)
+        for b in (4096, default_batch):
+            steps[f'pallas B={b} chunks of 64'] = phase_chunk_times(
+                torch, port, fe, ds, card, args.seed, b)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1686,6 +2018,7 @@ def main() -> int:
               forward_ms={str(b): v for b, v in fwd.items()},
               predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]},
               train_launches=trained['k2_launches'],
+              train_launches_traced=trained['k2_traced'],
               analyze=analyzed['transformer pallas (K2)'],
               small_batch_max=fe.SMALL_BATCH_MAX, served_by=k2_served,
               checked_shapes=k2_checked,
@@ -1695,6 +2028,7 @@ def main() -> int:
               'tensor\'s max |plain|', k3,
               library='torch.autograd.grad through nn.TransformerEncoderLayer bf16, '
                       'forward and backward',
+              launches_traced=trained['k3_traced'],
               launches_per_layer=fe.BWD_LAUNCHES_PER_LAYER,
               launches_per_train_step=n_layers * fe.BWD_LAUNCHES_PER_LAYER,
               shape_launches={'train': trained['k3_shape_launches'],
@@ -1704,7 +2038,7 @@ def main() -> int:
               checked_shapes=k3_checked,
               device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
-              train=trained, train_step=steps),
+              train=trained, train_step=steps, chunked=chunked),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',
               k4['last_frame'],

@@ -4,7 +4,9 @@ PyTorch counterpart of ``inferbiomechanics_tpu/data/loader.py``: a
 background thread assembles packed host batches (``WindowDataset.batches``)
 and copies them to the device ahead of compute. On a CUDA device the batch
 goes through pinned host memory and an asynchronous copy on a stream of
-its own, and the consumer's stream waits for that copy only.
+its own, and the consumer's stream waits for that copy only. With
+``input_dtype=torch.bfloat16`` (``--host-upload-dtype bf16``) the inputs are
+rounded to bf16 on the host, before the copy: half the bytes.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ class PrefetchLoader:
 
     def __init__(self, dataset: WindowDataset, batch_size: int, *, device='cpu',
                  shuffle: bool = True, drop_last: bool = True, prefetch: int = 2,
-                 n_threads: Optional[int] = None):
+                 n_threads: Optional[int] = None,
+                 input_dtype: torch.dtype = torch.float32):
         self.dataset = dataset
+        self.input_dtype = input_dtype
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.shuffle = shuffle
@@ -38,17 +42,19 @@ class PrefetchLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _to_device(self, host_batch: Batch, stream) -> Batch:
-        def put(a):
-            t = torch.from_numpy(a)
+        def put(a, dtype=torch.float32):
+            t = torch.from_numpy(a).to(dtype)
             if stream is None:
                 return t
             return t.pin_memory().to(self.device, non_blocking=True)
 
         if stream is None:
-            inputs, labels, event = put(host_batch.inputs), put(host_batch.labels), None
+            inputs, labels = put(host_batch.inputs, self.input_dtype), put(host_batch.labels)
+            event = None
         else:
             with torch.cuda.stream(stream):
-                inputs, labels = put(host_batch.inputs), put(host_batch.labels)
+                inputs = put(host_batch.inputs, self.input_dtype)
+                labels = put(host_batch.labels)
                 event = torch.cuda.Event()
                 event.record(stream)
         return Batch(inputs=inputs, labels=labels,

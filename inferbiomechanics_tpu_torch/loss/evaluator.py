@@ -15,6 +15,7 @@ not ported yet.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -53,6 +54,14 @@ class LossConfig:
     aux_contact_weight: float = 0.0
 
 
+@functools.lru_cache(maxsize=None)
+def _index_on(idx: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``idx`` as an index tensor on ``device``, made once: indexing with a
+    list would copy it from pageable host memory at every call, which a step
+    captured as a CUDA graph cannot hold."""
+    return torch.tensor(idx, dtype=torch.int64, device=device)
+
+
 def loss_and_metrics(outputs: Dict[str, torch.Tensor],
                      labels: Dict[str, torch.Tensor],
                      config: LossConfig
@@ -73,7 +82,11 @@ def loss_and_metrics(outputs: Dict[str, torch.Tensor],
     cop_loss = squared_diff_mean_vector(cop_out * cop_mask, cop_lab * cop_mask)
 
     def sel(vec: torch.Tensor, idx: Tuple[int, ...]) -> torch.Tensor:
-        return vec[list(idx)].sum() if len(idx) else vec.new_zeros(())
+        if not idx:
+            return vec.new_zeros(())
+        if tuple(idx) == tuple(range(idx[0], idx[0] + len(idx))):
+            return vec[idx[0]:idx[0] + len(idx)].sum()
+        return vec[_index_on(tuple(idx), vec.device)].sum()
 
     loss = (sel(force_loss, config.predict_grf_components) +
             sel(cop_loss, config.predict_cop_components) +

@@ -4,11 +4,11 @@ PyTorch counterpart of ``inferbiomechanics_tpu/train/device_data.py``. When
 the packed feature and label matrices fit in device memory (45 MB per 64k
 frames at 177 channels) the whole dataset is copied there once and every
 training batch is gathered on the device: per step the host sends one
-``[B]`` index vector. Larger datasets take the host loader
+``[B]`` index vector, and a chunk of K steps one ``[K, B]`` upload
+(``make_device_chunked_step``). Larger datasets take the host loader
 (``data/loader.py``).
 
-The chunked K-step dispatch (``make_device_chunked_step``), the tiled
-benchmark variant and the diffusion runner are not ported yet.
+The tiled benchmark variant and the diffusion runner are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ import torch
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
 from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metrics
 from inferbiomechanics_tpu_torch.train.state import TrainState
-from inferbiomechanics_tpu_torch.train.step import Metrics, accumulate_grads
+from inferbiomechanics_tpu_torch.train.step import (
+    ChunkedStep, Metrics, accumulate_grads, as_train_step,
+)
 
 
 def _to_bf16(a: np.ndarray) -> torch.Tensor:
@@ -116,7 +118,7 @@ def make_device_train_step(model, data: DeviceResidentData,
     with ``grad_accum > 1`` each microbatch gathers its own rows, so neither
     the full batch nor its activations are ever held at once."""
 
-    def step(state: TrainState, idx: torch.Tensor) -> Metrics:
+    def grads(state: TrainState, idx: torch.Tensor) -> Metrics:
         model.train()
 
         def loss_for(rows: slice):
@@ -124,11 +126,26 @@ def make_device_train_step(model, data: DeviceResidentData,
             return loss_and_metrics(model(inputs), unpack(labels, data.lab_offsets),
                                     loss_config)
 
-        metrics = accumulate_grads(state, grad_accum, idx.shape[0], loss_for)
-        state.apply_gradients()
-        return metrics
+        return accumulate_grads(state, grad_accum, idx.shape[0], loss_for)
 
-    return step
+    return as_train_step(grads)
+
+
+def make_device_chunked_step(model, data: DeviceResidentData,
+                             loss_config: LossConfig,
+                             grad_accum: int = 1) -> ChunkedStep:
+    """Chunked device-tier dispatch: ``chunk(state, idx [K, B]) ->
+    ChunkMetrics``, with ``idx`` the K steps' window indices on the host.
+
+    A per-step dispatch pays ~200 launches and an index upload a step; here
+    the K index vectors go up in one copy and each step is one replay of the
+    step captured as a CUDA graph (``train/step.py::GraphedStep``), with
+    numerics bitwise those of K :func:`make_device_train_step` calls (the
+    same step body, the same dropout masks). Chunks of any length replay the
+    same graph: the epoch's remainder and a resumed epoch's first batches
+    too. On the CPU the K steps run eagerly."""
+    step = make_device_train_step(model, data, loss_config, grad_accum=grad_accum)
+    return ChunkedStep(step, (torch.int64,), data.device)
 
 
 def make_device_eval_runner(model, data: DeviceResidentData,

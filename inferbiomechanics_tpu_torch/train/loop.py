@@ -13,12 +13,21 @@ dataset lives on the device and a step gets a ``[B]`` index vector), and
 the host loader (``data/loader.py``) for ``--device-data off`` or a
 dataset above ``--device-data-max-bytes``.
 
-SIGTERM asks for a checkpoint at the next step boundary and a clean exit;
-the same command then resumes from it.
+Both tiers run K steps a dispatch (``--device-chunk-steps``, default 64,
+and ``--host-chunk-steps``; a chunk is clamped to the epoch's length): the
+K steps' inputs go up in one copy, each step replays the step captured as a
+CUDA graph, and the chunk's metrics come back in one copy, one chunk late,
+so that the host never waits for the device between chunks. A chunk of 1
+dispatches each step eagerly. Loss logs and checkpoints fire once for each
+chunk that crosses their cadence, labelled with its last batch.
+
+SIGTERM asks for a checkpoint at the next step boundary (chunk boundary,
+when chunked) and a clean exit; the same command then resumes from it.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import signal
 import time
@@ -41,14 +50,17 @@ from inferbiomechanics_tpu_torch.train.checkpoint import (
     save_checkpoint, warm_start_from,
 )
 from inferbiomechanics_tpu_torch.train.device_data import (
-    DeviceResidentData, make_device_eval_runner, make_device_train_step,
+    DeviceResidentData, make_device_chunked_step, make_device_eval_runner,
+    make_device_train_step,
 )
 from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer, wrap_freeze
 from inferbiomechanics_tpu_torch.train.run_config import (
     check_resume_architecture, save_run_config, warn_on_architecture_mismatch,
 )
 from inferbiomechanics_tpu_torch.train.state import create_train_state, num_params
-from inferbiomechanics_tpu_torch.train.step import make_eval_step, make_train_step
+from inferbiomechanics_tpu_torch.train.step import (
+    make_chunked_train_step, make_eval_step, make_train_step,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -127,10 +139,6 @@ def _reject_unported(config: Config) -> None:
         (f'--device-data {config.device_data}',
          config.device_data in ('sharded', 'stream'),
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
-        ('--host-chunk-steps', config.host_chunk_steps > 1,
-         'ROADMAP.md Queue 1 item 2.5 (the chunked step)'),
-        ('--host-upload-dtype bf16', config.host_upload_dtype == 'bf16',
-         'ROADMAP.md Queue 1 item 2.5 (the chunked step)'),
     ]
     for flag, asked, where in unported:
         if asked:
@@ -181,12 +189,12 @@ def train(config: Config,
         optimizer = wrap_freeze(optimizer, config.freeze_params)
     state = create_train_state(model, optimizer)
     # dropout masks from a generator of their own on the device, seeded from
-    # --seed and the step count before every step: the masks of a step do
-    # not depend on where a run was resumed
-    dropout_gen = None
+    # --seed and the step count before every step (TrainState.reseed_dropout):
+    # the masks of a step do not depend on where a run was resumed
     if hasattr(model, 'dropout_masks'):
-        dropout_gen = torch.Generator(device=device)
-        model.dropout_masks = generator_masks(dropout_gen)
+        state.dropout_gen = torch.Generator(device=device)
+        state.dropout_seed = config.seed
+        model.dropout_masks = generator_masks(state.dropout_gen)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
 
@@ -229,7 +237,10 @@ def train(config: Config,
     elif config.device_data == 'on':
         raise ValueError('--device-data on requires materialized features '
                          '(dataset was built with materialize_features=False)')
-    device_step = device_eval = None
+    # a chunk is clamped to the epoch's length: one larger would never fill
+    steps_per_epoch = max(1, len(train_ds) // config.batch_size)
+    device_step = device_eval = chunked_step = None
+    chunk_k = 1
     if use_device_data:
         packed_est = DeviceResidentData.packed_bytes_estimate(train_ds)
         if dev_resident:
@@ -240,10 +251,10 @@ def train(config: Config,
         device_data = DeviceResidentData(train_ds, device, pack_windows=pack)
         device_step = make_device_train_step(model, device_data, lc,
                                              grad_accum=config.grad_accum_steps)
-        if config.device_chunk_steps > 1:
-            logger.info('--device-chunk-steps %d: the chunked step is not '
-                        'ported yet; running per-step dispatch',
-                        config.device_chunk_steps)
+        chunk_k = min(max(1, config.device_chunk_steps), steps_per_epoch)
+        if chunk_k > 1:
+            chunked_step = make_device_chunked_step(model, device_data, lc,
+                                                    grad_accum=config.grad_accum_steps)
         logger.info('device-resident data: %.0f MB on %s%s',
                     device_data.device_bytes / 1e6, device,
                     ' (windows packed)' if pack else '')
@@ -254,8 +265,22 @@ def train(config: Config,
     train_step = make_train_step(model, train_ds.lab_offsets, lc,
                                  grad_accum=config.grad_accum_steps)
     eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
-    train_loader = PrefetchLoader(train_ds, config.batch_size, device=device,
-                                  n_threads=config.data_loading_workers)
+    # --host-upload-dtype bf16: the inputs go up rounded to bf16 on the host
+    upload_dtype = torch.bfloat16 if config.host_upload_dtype == 'bf16' else torch.float32
+    if not use_device_data:
+        chunk_k = min(max(1, config.host_chunk_steps), steps_per_epoch)
+        if chunk_k > 1:
+            chunked_step = make_chunked_train_step(
+                model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
+                input_dtype=upload_dtype, device=device)
+    if chunked_step is not None:
+        logger.info('chunked dispatch: %d steps a chunk', chunk_k)
+    # a chunk takes its batches on the host and uploads them itself
+    train_loader = PrefetchLoader(
+        train_ds, config.batch_size,
+        device='cpu' if chunked_step is not None else device,
+        n_threads=config.data_loading_workers,
+        input_dtype=torch.float32 if chunked_step is not None else upload_dtype)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device,
                                  shuffle=False) if dev_big_enough else None)
 
@@ -311,6 +336,82 @@ def train(config: Config,
             return True
         return False
 
+    def log_loss(epoch: int, batch_idx: int, metrics) -> None:
+        loss = float(metrics['loss'])      # waits for the device
+        if metric_logger is not None:
+            metric_logger.log({'train/loss': loss, 'epoch': epoch, 'batch': batch_idx})
+        logger.info('epoch %d batch %d loss %.6f', epoch, batch_idx, loss)
+
+    def crosses(first_idx: int, last_idx: int, every: int) -> bool:
+        """True when batches first_idx .. last_idx cross a multiple of
+        ``every`` (batch 0 never counts)."""
+        return last_idx > 0 and last_idx // every > max(first_idx - 1, 0) // every
+
+    def run_chunked_epoch(epoch: int, batch_iter):
+        """The epoch's batches in chunks of ``chunk_k`` consecutive batch
+        indices (the resume prefix and the batches past
+        ``max_batches_per_epoch`` left out, so a chunk may be shorter).
+        Returns (windows trained, preempted, the last step's metrics)."""
+        windows, pending, last = 0, None, None
+
+        def drain(p):
+            """Account a dispatched chunk: its rows to the evaluator in step
+            order, then its log and checkpoint cadences, once each for the
+            chunk, labelled with its last batch. Reading the rows is the only
+            wait for the device within an epoch."""
+            nonlocal last
+            first_idx, last_idx, chunk = p
+            rows = chunk.rows()
+            for row in rows:
+                train_eval(None, None, None, precomputed_metrics=row)
+            last = rows[-1]
+            if first_idx == 0 or crosses(first_idx, last_idx, config.log_every_batches):
+                log_loss(epoch, last_idx, last)
+            if crosses(first_idx, last_idx, config.checkpoint_every_batches):
+                write_checkpoint(epoch, last_idx)
+
+        cap = max_batches_per_epoch
+        it = iter(batch_iter)
+        while True:
+            raw = list(itertools.islice(it, chunk_k))
+            if not raw:
+                break
+            hit_cap = cap is not None and raw[-1][0] >= cap - 1
+            group = [g for g in raw if (cap is None or g[0] < cap)
+                     and not (epoch == start_epoch and g[0] < skip_batches)]
+            if not group:
+                if hit_cap:
+                    break
+                continue
+            first_idx, last_idx = group[0][0], group[-1][0]
+            if pending is not None and crosses(pending[0], pending[1],
+                                               config.checkpoint_every_batches):
+                # the pending chunk writes a mid-epoch checkpoint: drain it
+                # now, while the state is the one its batch label names
+                drain(pending)
+                pending = None
+            if use_device_data:
+                chunk = chunked_step(state, np.stack([b for _, b in group]))
+            else:
+                chunk = chunked_step(state, [b.inputs.numpy() for _, b in group],
+                                     [b.labels.numpy() for _, b in group])
+            # the metrics of the chunk before come back while this one runs
+            if pending is not None:
+                drain(pending)
+            pending = (first_idx, last_idx, chunk)
+            windows += len(group) * config.batch_size
+            if stop_requested['flag'] and last_idx >= 1:
+                drain(pending)
+                write_checkpoint(epoch, last_idx)
+                logger.info('preemption checkpoint written: epoch %d batch %d',
+                            epoch, last_idx)
+                return windows, True, last
+            if hit_cap:
+                break
+        if pending is not None:
+            drain(pending)
+        return windows, False, last
+
     stopped_early = preempted = False
     for epoch in range(start_epoch, config.epochs):
         run_dev_eval(epoch)
@@ -325,10 +426,12 @@ def train(config: Config,
             perm = np.random.default_rng(
                 (config.seed, epoch)).permutation(len(train_ds))
             n_steps = perm.shape[0] // config.batch_size
-            batch_iter = (
-                (k, torch.from_numpy(
-                    perm[k * config.batch_size:(k + 1) * config.batch_size]
-                ).to(device, non_blocking=True)) for k in range(n_steps))
+            batches = (perm[k * config.batch_size:(k + 1) * config.batch_size]
+                       for k in range(n_steps))
+            if chunked_step is None:
+                batches = (torch.from_numpy(b).to(device, non_blocking=True)
+                           for b in batches)
+            batch_iter = enumerate(batches)
         else:
             batch_iter = enumerate(train_loader.epoch(
                 seed=config.seed * 1_000_003 + epoch))
@@ -336,37 +439,35 @@ def train(config: Config,
         # the LAST step's loss (the device runs behind the host)
         t_compute = time.time()
         last_metrics = None
-        for batch_idx, batch in batch_iter:
-            if max_batches_per_epoch is not None and batch_idx >= max_batches_per_epoch:
-                break
-            if epoch == start_epoch and batch_idx < skip_batches:
-                continue   # mid-epoch resume: prefix already consumed
-            if dropout_gen is not None:
-                dropout_gen.manual_seed(config.seed * 1_000_003 + state.step)
-            if use_device_data:
-                metrics = device_step(state, batch)
-            else:
-                metrics = train_step(state, batch.inputs, batch.labels)
-            train_eval(None, None, None, precomputed_metrics=metrics)
-            last_metrics = metrics
-            # only at batch_idx >= 1: a batch-0 mid-epoch checkpoint looks
-            # like an end-of-epoch one to the resume logic
-            if stop_requested['flag'] and batch_idx >= 1:
-                write_checkpoint(epoch, batch_idx)
-                logger.info('preemption checkpoint written: epoch %d batch %d',
-                            epoch, batch_idx)
-                preempted = True
+        if chunked_step is not None:
+            windows, preempted, last_metrics = run_chunked_epoch(epoch, batch_iter)
+            windows_seen += windows
+        else:
+            for batch_idx, batch in batch_iter:
+                if max_batches_per_epoch is not None and batch_idx >= max_batches_per_epoch:
+                    break
+                if epoch == start_epoch and batch_idx < skip_batches:
+                    continue   # mid-epoch resume: prefix already consumed
+                if use_device_data:
+                    metrics = device_step(state, batch)
+                else:
+                    metrics = train_step(state, batch.inputs, batch.labels)
+                train_eval(None, None, None, precomputed_metrics=metrics)
+                last_metrics = metrics
+                # only at batch_idx >= 1: a batch-0 mid-epoch checkpoint looks
+                # like an end-of-epoch one to the resume logic
+                if stop_requested['flag'] and batch_idx >= 1:
+                    write_checkpoint(epoch, batch_idx)
+                    logger.info('preemption checkpoint written: epoch %d batch %d',
+                                epoch, batch_idx)
+                    preempted = True
+                    windows_seen += config.batch_size
+                    break
+                if batch_idx % config.log_every_batches == 0:
+                    log_loss(epoch, batch_idx, metrics)
+                if batch_idx > 0 and batch_idx % config.checkpoint_every_batches == 0:
+                    write_checkpoint(epoch, batch_idx)
                 windows_seen += config.batch_size
-                break
-            if batch_idx % config.log_every_batches == 0:
-                loss = float(metrics['loss'])
-                if metric_logger is not None:
-                    metric_logger.log({'train/loss': loss, 'epoch': epoch,
-                                       'batch': batch_idx})
-                logger.info('epoch %d batch %d loss %.6f', epoch, batch_idx, loss)
-            if batch_idx > 0 and batch_idx % config.checkpoint_every_batches == 0:
-                write_checkpoint(epoch, batch_idx)
-            windows_seen += config.batch_size
         if last_metrics is not None:
             float(last_metrics['loss'])     # synchronises with the device
             compute_time += time.time() - t_compute

@@ -17,13 +17,21 @@ JAX package configures: decay 0.99, eps 1e-8 added outside the root.
 
 The update is linear in the learning rate and the learning rate is not part
 of the optimizer's state; a constant schedule keeps no step counter.
+
+The values that change from one update to the next (the learning rate of a
+schedule, adam's bias corrections) are computed on the host in float32, as
+optax rounds them, and read by the update from a small tensor beside the
+parameters (:attr:`Optimizer.scalars`), never passed as Python numbers: a
+step captured as a CUDA graph replays the update with whatever that tensor
+holds (``train/step.py::GraphedStep``), and the eager step takes the same
+operations, so the two stay bitwise equal.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,10 +94,18 @@ class Optimizer(torch.optim.Optimizer):
 
     ``step()`` clips the gradients' global norm (when asked to), applies the
     rule to every parameter that has a gradient and is not frozen, and
-    counts the update. ``state_dict()`` is ``torch.optim.Optimizer``'s: the
-    per-parameter tensors, and in the one parameter group ``count`` (only
-    for rules with bias correction or a schedule).
+    counts the update. It is three parts, which a captured step calls apart:
+    :meth:`next_scalars` (host: the step-dependent values of the next
+    update), :meth:`update` (device: the rule, reading those values from
+    :attr:`scalars`) and :meth:`advance` (host: count the update).
+    ``state_dict()`` is ``torch.optim.Optimizer``'s: the per-parameter
+    tensors, and in the one parameter group ``count`` (only for rules with
+    bias correction or a schedule).
     """
+
+    # the step-dependent values an update reads: learning rate, then the
+    # bias corrections 1 - 0.9**count and 1 - 0.999**count (1 where unused)
+    N_SCALARS = 3
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  opt_type: str, learning_rate: Union[float, Schedule],
@@ -104,14 +120,41 @@ class Optimizer(torch.optim.Optimizer):
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.frozen: set = set()
+        # float32 [N_SCALARS] beside the parameters, made at the first update
+        self.scalars: Optional[torch.Tensor] = None
         group: Dict = {'params': [p for _, p in named]}
         if callable(learning_rate) or opt_type in _COUNTED:
             group['count'] = 0
         super().__init__([group], {})
 
-    def current_lr(self) -> float:
+    def current_lr(self, ahead: int = 0) -> float:
+        """The learning rate of the next update (of the one ``ahead``
+        updates after it)."""
         lr = self.learning_rate
-        return lr(self.param_groups[0]['count']) if callable(lr) else lr
+        return lr(self.param_groups[0]['count'] + ahead) if callable(lr) else lr
+
+    def next_scalars(self, ahead: int = 0) -> np.ndarray:
+        """The :attr:`scalars` of the next update (of the one ``ahead``
+        updates after it), float32 on the host."""
+        out = np.ones(self.N_SCALARS, np.float32)
+        out[0] = self.current_lr(ahead)
+        if self.opt_type in _COUNTED:
+            count = self.param_groups[0]['count'] + 1 + ahead
+            out[1] = _bias_correction(0.9, count)
+            out[2] = _bias_correction(0.999, count)
+        return out
+
+    def scalars_on(self, device) -> torch.Tensor:
+        """:attr:`scalars`, made on ``device`` the first time."""
+        if self.scalars is None:
+            self.scalars = torch.ones(self.N_SCALARS, dtype=torch.float32, device=device)
+        return self.scalars
+
+    def advance(self) -> None:
+        """Count one update."""
+        group = self.param_groups[0]
+        if 'count' in group:
+            group['count'] += 1
 
     def _state_lists(self, params: Sequence[torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
         lists: Dict[str, List[torch.Tensor]] = {k: [] for k in _STATE[self.opt_type]}
@@ -127,11 +170,25 @@ class Optimizer(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError('closures are not supported')
+        params = self.param_groups[0]['params']
+        if not any(p.grad is not None for p in params):
+            return None
+        scalars = self.scalars_on(params[0].device)
+        # no wait for the device: the copy leaves from pageable memory
+        scalars.copy_(torch.from_numpy(self.next_scalars()), non_blocking=True)
+        self.update()
+        self.advance()
+        return None
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """Apply the rule on the device with the step-dependent values in
+        :attr:`scalars`; the host neither reads nor counts anything."""
         group = self.param_groups[0]
         with_grad = [(n, p) for n, p in zip(self.names, group['params'])
                      if p.grad is not None]
         if not with_grad:
-            return None
+            return
         grads = [p.grad for _, p in with_grad]
         if self.grad_clip_norm and self.grad_clip_norm > 0:
             # optax.clip_by_global_norm, over frozen parameters too
@@ -142,36 +199,38 @@ class Optimizer(torch.optim.Optimizer):
         keep = [i for i, (n, _) in enumerate(with_grad) if n not in self.frozen]
         params = [with_grad[i][1] for i in keep]
         g = [grads[i] for i in keep]
-        lr = self.current_lr()
+        lr, bc1, bc2 = self.scalars_on(with_grad[0][1].device).unbind()
         st = self._state_lists(params)
-        count = group.get('count', 0) + 1
         kind = self.opt_type
+        # every rule ends params -= lr * update, as optax scales by -lr last
         if kind == 'sgd':
-            torch._foreach_add_(params, g, alpha=-lr)
+            update = torch._foreach_mul(g, lr)
         elif kind == 'rmsprop':
             torch._foreach_mul_(st['nu'], 0.99)
             torch._foreach_addcmul_(st['nu'], g, g, value=1 - 0.99)
             denom = torch._foreach_sqrt(st['nu'])
             torch._foreach_add_(denom, 1e-8)
-            torch._foreach_addcdiv_(params, g, denom, value=-lr)
+            update = torch._foreach_div(g, denom)
+            torch._foreach_mul_(update, lr)
         elif kind == 'adagrad':
             torch._foreach_addcmul_(st['sum'], g, g)
             denom = torch._foreach_add(st['sum'], 1e-7)
             torch._foreach_sqrt_(denom)
-            torch._foreach_addcdiv_(params, g, denom, value=-lr)
+            update = torch._foreach_div(g, denom)
+            torch._foreach_mul_(update, lr)
         elif kind in ('adam', 'adamw'):
             torch._foreach_mul_(st['mu'], 0.9)
             torch._foreach_add_(st['mu'], g, alpha=1 - 0.9)
             torch._foreach_mul_(st['nu'], 0.999)
             torch._foreach_addcmul_(st['nu'], g, g, value=1 - 0.999)
-            denom = torch._foreach_div(st['nu'], _bias_correction(0.999, count))
+            denom = torch._foreach_div(st['nu'], bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, 1e-8)
-            update = torch._foreach_div(st['mu'], _bias_correction(0.9, count))
+            update = torch._foreach_div(st['mu'], bc1)
             torch._foreach_div_(update, denom)
             if kind == 'adamw':
                 torch._foreach_add_(update, params, alpha=self.weight_decay)
-            torch._foreach_add_(params, update, alpha=-lr)
+            torch._foreach_mul_(update, lr)
         elif kind == 'adamax':
             torch._foreach_mul_(st['mu'], 0.9)
             torch._foreach_add_(st['mu'], g, alpha=1 - 0.9)
@@ -179,8 +238,9 @@ class Optimizer(torch.optim.Optimizer):
             mag = torch._foreach_abs(g)
             torch._foreach_add_(mag, 1e-8)
             torch._foreach_maximum_(st['nu'], mag)
-            torch._foreach_addcdiv_(params, st['mu'], st['nu'],
-                                value=-lr / _bias_correction(0.9, count))
+            update = torch._foreach_div(st['mu'], bc1)
+            torch._foreach_div_(update, st['nu'])
+            torch._foreach_mul_(update, lr)
         elif kind == 'adadelta':
             torch._foreach_mul_(st['e_g'], 0.9)
             torch._foreach_addcmul_(st['e_g'], g, g, value=1 - 0.9)
@@ -189,13 +249,11 @@ class Optimizer(torch.optim.Optimizer):
             den = torch._foreach_add(st['e_g'], 1e-6)
             torch._foreach_sqrt_(den)
             torch._foreach_div_(num, den)
-            delta = torch._foreach_mul(num, g)
+            update = torch._foreach_mul(num, g)
             torch._foreach_mul_(st['e_x'], 0.9)
-            torch._foreach_addcmul_(st['e_x'], delta, delta, value=1 - 0.9)
-            torch._foreach_add_(params, delta, alpha=-lr)
-        if 'count' in group:
-            group['count'] = count
-        return None
+            torch._foreach_addcmul_(st['e_x'], update, update, value=1 - 0.9)
+            torch._foreach_mul_(update, lr)
+        torch._foreach_sub_(params, update)
 
 
 def make_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],

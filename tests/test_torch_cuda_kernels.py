@@ -336,3 +336,79 @@ def test_fused_groundlink_kernel_is_deterministic(cuda, monkeypatch, shape, batc
     again = fg.fused_groundlink_forward(x, packed, 'last_frame')
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize('model_type,accum', [('pallas', 1), ('pallas', 2), ('vpu', 1),
+                                              ('feedforward', 1), ('groundlink', 1)])
+def test_captured_chunks_are_per_step_calls_bitwise(cuda, tmp_path, model_type, accum):
+    """Chunks of train steps replayed from a CUDA graph (two eager steps,
+    one capture, then replays; a remainder chunk replays the same graph)
+    against per-step eager calls from the same weights, for every trained
+    model and with gradient accumulation: every step's loss and the
+    parameters bitwise equal (GroundLink with its dropout masks); the
+    wrappers count the eager steps' launches and the capture's, and the
+    profiler trace of the chunks holds every step's, replays included."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from inferbiomechanics_tpu_torch.config import Config
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.models.common import generator_masks
+    from inferbiomechanics_tpu_torch.train import loop
+    from inferbiomechanics_tpu_torch.train import step as step_mod
+    from inferbiomechanics_tpu_torch.train.device_data import (
+        DeviceResidentData, make_device_chunked_step, make_device_train_step,
+    )
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+
+    write_synthetic_subject(str(tmp_path / 's.b3d'), num_trials=2, trial_length=200, seed=0)
+    ds = WindowDataset(str(tmp_path), window_size=50, stride=5, skip_loading_skeletons=True)
+    data = DeviceResidentData(ds, cuda)
+    cfg = Config()
+    if model_type in ('pallas', 'vpu'):
+        cfg.model_type, cfg.attn_impl, cfg.d_model, cfg.num_layers, cfg.num_heads = (
+            'transformer', model_type, 128, 2, 4)
+    else:
+        cfg.model_type = model_type
+    lc = loop.loss_config_from(cfg)
+    idx = np.stack([np.random.default_rng(i).permutation(len(ds))[:16] for i in range(7)])
+
+    def fresh():
+        model = loop.build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(0),
+                                             device=cuda)
+        state = create_train_state(model, make_optimizer(
+            model.named_parameters(), 'adam', 1e-3, lr_schedule='warmup_cosine',
+            lr_decay_steps=10, lr_warmup_steps=2))
+        if hasattr(model, 'dropout_masks'):
+            state.dropout_gen, state.dropout_seed = torch.Generator(device=cuda), 3
+            model.dropout_masks = generator_masks(state.dropout_gen)
+        return model, state
+
+    model, per = fresh()
+    step = make_device_train_step(model, data, lc, grad_accum=accum)
+    fe.launches = fe.bwd_launches = 0
+    want = [float(step(per, torch.from_numpy(i).to(cuda))['loss']) for i in idx]
+    launched = (fe.launches, fe.bwd_launches)
+    model_c, chunked = fresh()
+    chunk = make_device_chunked_step(model_c, data, lc, grad_accum=accum)
+    fe.launches = fe.bwd_launches = 0
+    replays = step_mod.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = [float(r['loss'])
+               for r in chunk(chunked, idx[:4]).rows() + chunk(chunked, idx[4:]).rows()]
+        torch.cuda.synchronize()
+    assert got == want
+    assert step_mod.replays - replays == len(idx) - step_mod.GraphedStep.WARMUP_STEPS
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k3_names = ('encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+    traced = (sum('fused_encoder_kernel' in n for n in names),
+              sum(any(k in n for k in k3_names) for n in names))
+    assert traced == launched
+    called = step_mod.GraphedStep.WARMUP_STEPS + 1
+    assert (fe.launches, fe.bwd_launches) == tuple(n // len(idx) * called for n in launched)
+    assert chunked.step == per.step == len(idx)
+    for (n, p), q in zip(model.named_parameters(), model_c.parameters()):
+        assert torch.equal(p, q), n

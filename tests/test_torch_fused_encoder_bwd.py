@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from inferbiomechanics_tpu.ops import pallas_encoder as jpe
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
@@ -86,15 +87,55 @@ def _want(x, g, params, heads, dtype_name):
     return [np.asarray(dx)] + [np.asarray(a) for a in dp]
 
 
+def _forward64(x, params, heads):
+    """The reference layer's math in float64 (no rounding to f32)."""
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = params
+    b, t, d = x.shape
+    dh = d // heads
+    qkv = (F.layer_norm(x, (d,), g1, b1, fe.LN_EPS) @ wqkv + bqkv).reshape(b, t, 3, heads, dh)
+    q, k, v = qkv[:, :, 0] * dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+    probs = torch.softmax((q[:, :, None] * k[:, None]).sum(-1), dim=2)
+    h = x + (probs[..., None] * v[:, None]).sum(2).reshape(b, t, d) @ wproj + bproj
+    y = F.gelu(F.layer_norm(h, (d,), g2, b2, fe.LN_EPS) @ w1 + bm1, approximate='tanh')
+    return h + y @ w2 + bm2
+
+
+def _oracle(x, g, params, heads):
+    """dx and the 12 gradients by float64 autograd: what both sides
+    approximate in f32."""
+    xs = torch.from_numpy(x).double().requires_grad_(True)
+    ps = [torch.from_numpy(p).double().requires_grad_(True) for p in params]
+    grads = torch.autograd.grad(_forward64(xs, ps, heads), [xs, *ps],
+                                torch.from_numpy(g).double())
+    return [a.numpy() for a in grads]
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """One thread: the port's sums in one order whatever the worker's thread
+    pool, and no fight with the other test processes for the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize('b,t,heads', [(3, 10, 4), (19, 10, 4), (5, 4, 4), (2, 10, 8),
                                        (1, 10, 4), (8, 10, 4)])   # the small shape's batches
 def test_plain_backward_matches_jax_vjp_f32(b, t, heads):
+    """Each side against the float64 oracle, then the port against JAX, all
+    at F32_TOL: a side that moves is named by the first two."""
     params = _params(b)
     x, g = _xg(b + 1, b, t)
     got = _port(x, g, params, heads, torch.float32)
     want = _want(x, g, params, heads, 'f32')
-    for name, a, w in zip(NAMES, got, want):
-        assert a.shape == w.shape and a.dtype == np.float32, name
+    exact = _oracle(x, g, params, heads)
+    for name, a, w, o in zip(NAMES, got, want, exact):
+        assert a.shape == w.shape == o.shape and a.dtype == np.float32, name
+        np.testing.assert_allclose(a, o, err_msg=f'd{name}: the port against float64',
+                                   **F32_TOL)
+        np.testing.assert_allclose(w, o, err_msg=f'd{name}: jax.vjp against float64',
+                                   **F32_TOL)
         np.testing.assert_allclose(a, w, err_msg=f'd{name}', **F32_TOL)
 
 

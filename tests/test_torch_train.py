@@ -327,9 +327,11 @@ def test_train_end_to_end_on_the_cpu(data, trained):
 
 def test_sigterm_checkpoints_and_the_resumed_run_equals_the_uninterrupted(
         data, trained, tmp_path):
-    """SIGTERM mid-epoch: a checkpoint at the next step boundary and a clean
-    exit; the same call then resumes inside the epoch and ends with bitwise
-    the parameters and optimizer state of the uninterrupted run."""
+    """SIGTERM mid-epoch under per-step dispatch (``--device-chunk-steps
+    1``): a checkpoint at the next step boundary and a clean exit; the same
+    call then resumes inside the epoch and ends with bitwise the parameters
+    and optimizer state of the uninterrupted run, which ran chunked
+    (tests/test_torch_chunked_step.py has SIGTERM at chunk granularity)."""
     class Killer:
         def log(self, record):
             if record.get('epoch') == 0 and record.get('batch') == 2:
@@ -337,7 +339,7 @@ def test_sigterm_checkpoints_and_the_resumed_run_equals_the_uninterrupted(
 
     d = tmp_path / 'transformer'
     cfg = _config(Config, 'transformer', checkpoint_dir=str(d), epochs=2,
-                  log_every_batches=1)
+                  log_every_batches=1, device_chunk_steps=1)
     first = train(cfg, data['train'], data['dev'], metric_logger=Killer(), device='cpu')
     assert first.preempted and first.epochs_run == 0
     assert [c[:2] for c in ckpt.list_checkpoints(str(d))] == [(0, 3)]
@@ -415,10 +417,12 @@ def test_feedforward_and_vpu_train_through_plain_autograd(data, tmp_path):
 
 
 def test_checkpoint_cadence_pruning_and_early_stop(data, tmp_path):
+    # per-step dispatch: a checkpoint at every third batch (chunked, the
+    # cadence fires once a chunk; tests/test_torch_chunked_step.py)
     d = tmp_path / 'feedforward'
     cfg = _config(Config, 'feedforward', hidden_dims=[32], checkpoint_dir=str(d),
                   epochs=3, checkpoint_every_batches=3, keep_checkpoints=2,
-                  learning_rate=0.0, early_stop_patience=1)
+                  learning_rate=0.0, early_stop_patience=1, device_chunk_steps=1)
     result = train(cfg, data['train'], data['dev'], device='cpu', max_batches_per_epoch=7)
     # lr 0: the dev loss cannot improve after the first eval, so patience 1
     # stops before epoch 1; of epoch 0's checkpoints (3, 6, end) two are kept
@@ -492,8 +496,6 @@ def test_resume_refuses_another_architecture_and_warm_start_yields_to_resume(
     (dict(model_type='diffusion'), '--model-type diffusion'),
     (dict(device_data='sharded'), '--device-data sharded'),
     (dict(device_data='stream'), '--device-data stream'),
-    (dict(host_chunk_steps=4), '--host-chunk-steps'),
-    (dict(host_upload_dtype='bf16'), '--host-upload-dtype bf16'),
 ])
 def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     fields = {'model_type': 'feedforward', **fields}
