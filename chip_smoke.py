@@ -111,7 +111,25 @@ Phases, each of which fails the run:
      forward) run once; eval windows/s of each model at B=1 (metrics to the
      host every 64 batches and every batch) and at B=512 (on a dev split of
      its own, 24 full batches, after a warm-up run) beside the card's name
-     and power limit.
+     and power limit;
+  9. the diffusion denoiser at full width (d_model 256, 4 layers, 8 heads,
+     1000 timesteps, 50 DDIM steps, 30 target channels) with seeded weights,
+     an EMA tree that differs, a ``run_config.json`` sidecar (normalized
+     target space) and a sidecar-less copy (raw): the chain through K2
+     against the same chain through the plain layer at B = 1, 2 and 64 with
+     eta 0, eta 1 and guidance 2 (each step's eps on the plain chain's own
+     x_t within 5e-2 x max|plain|, the answers per head printed, 75% of each
+     head's elements within 5e-2 x max; 4 x 50 K2 launches a chain, also
+     counted by name in a profiler trace at B=1 with the device's idle
+     share); ``serve --model-type diffusion --fused-inference`` (answers
+     equal to the chain run directly, 200 K2 launches a device forward,
+     /predict p50 at B=1, windows/s at B=4096, ``--diffusion-samples 4`` as
+     one stacked batch, ``--use-ema``, ``--diffusion-partial 0.3`` from a
+     feedforward all-frames proposal (its t_top 300 and 15 steps, K1 once a
+     forward), the reload poller, /schema, the raw target space); ``analyze
+     --model-type diffusion --fused-inference`` at B=1 on a dev split of 149
+     windows (200 K2 launches a window, rows equal run to run, the report
+     within 5e-2 of the plain chain's, eval windows/s).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -1456,6 +1474,331 @@ def phase_analyze(torch, port, fm, fe, fg, root, seed, card, member, frames=600,
     return report
 
 
+# 9. the diffusion denoiser: sampling, serve and analyze through K2. Each
+# step's eps through K2 against the plain layer on the plain chain's own x_t,
+# relative to max|plain|: the JAX suite's limit for its fused forward
+# against model.apply. A whole chain's answers are not held element by
+# element: at the top of the schedule x0 = 8 sign(x_t - eps) wherever x_t and
+# eps do not nearly tie, and where they do a difference far inside that
+# limit flips the sign (the card's run: 3-8% of a head's elements at
+# guidance 2). ANSWER_SHARE of each head's elements must still be within
+# DIFF_REL x max; a wrong chain misses most of them.
+DIFF_REL = 5e-2
+ANSWER_SHARE = 0.75
+
+
+def _heads_vs(got: dict, want: dict, rel: float = DIFF_REL):
+    """Per head: the max abs error, and the share of elements within ``rel``
+    x max|want| (numpy or torch on either side)."""
+    out = {}
+    for k, w in want.items():
+        w = np.asarray(w.cpu() if hasattr(w, 'cpu') else w, np.float32)
+        g = np.asarray(got[k].cpu() if hasattr(got[k], 'cpu') else got[k], np.float32)
+        _check(g.shape == w.shape and np.isfinite(g).all(), f'head {k}: {g.shape} {w.shape}')
+        err = np.abs(g - w)
+        out[k.replace('groundContact', '').replace('InRootFrame', '')] = (
+            float(err.max()), float((err <= rel * np.abs(w).max()).mean()))
+    return out
+
+
+def phase_diffusion(torch, port, fe, fm, fg, diffusion, root, seed, card, data, ds,
+                    device='cuda', steps=50, big=4096, frames=200):
+    """The diffusion slice at full width (d_model 256, 4 layers, 8 heads, 1000
+    timesteps, T = 10 x 177 channels, 30 target channels) with seeded weights
+    and an EMA tree that differs: the sampler through K2 against the plain
+    chain (each step's eps on the plain chain's own x_t, and the answers);
+    ``serve --model-type diffusion --fused-inference`` (answers, launches,
+    p50 at B=1, windows/s at B=4096, --diffusion-samples 4, --use-ema,
+    --diffusion-partial 0.3 with a feedforward proposal, the reload poller,
+    /schema, a checkpoint in the raw target space); ``analyze --model-type
+    diffusion --fused-inference`` (report against the plain chain, rows run
+    to run, eval windows/s at B=1, on a dev split of one trial of ``frames``
+    frames). ``device`` 'cpu' rehearses the phase (no launch counts there;
+    ``steps`` and ``big`` shrink the chains and the large request)."""
+    on_card = device == 'cuda'
+    ckpt_root, raw_root = root / 'diffusion_ckpts', root / 'diffusion_raw'
+    cfg = port.config_from_args(port.parser().parse_args(
+        ['train', '--model-type', 'diffusion', '--output-data-format', 'all_frames',
+         '--fused-inference']))
+    _check((cfg.d_model, cfg.num_layers, cfg.num_heads, cfg.diffusion_timesteps)
+           == (ENC_FULL['d'], ENC_FULL['layers'], ENC_FULL['heads'], 1000),
+           'diffusion defaults moved')
+    layers = ENC_FULL['layers']
+
+    def denoiser(s: int):
+        """Seeded weights on the card, and an EMA tree that differs."""
+        model = port.build_model_for_dataset(
+            cfg, ds, generator=torch.Generator().manual_seed(s), device=device).eval()
+        gen = torch.Generator().manual_seed(s + 1)
+        ema = {k: v * (1 + 0.05 * torch.randn(v.shape, generator=gen).to(device))
+               for k, v in model.state_dict().items()}
+        return model, ema
+
+    def write(model, ema, epoch, where=ckpt_root, sidecar=True):
+        port.save_checkpoint(str(where / 'diffusion'), model, epoch, 0, ema_params=ema)
+        if sidecar:
+            port.save_run_config(str(where / 'diffusion'), cfg)
+
+    model, ema = denoiser(seed + 40)
+    write(model, ema, 1)
+    write(model, ema, 1, raw_root, sidecar=False)
+    ema_model, _ = denoiser(seed + 40)
+    ema_model.load_state_dict(ema)
+    _check(diffusion.checkpoint_target_space(str(ckpt_root / 'diffusion')) == 'normalized'
+           and diffusion.checkpoint_target_space(str(raw_root / 'diffusion')) == 'raw',
+           'target spaces of the two copies')
+
+    def chain(net, x, init=None, **kw):
+        """The chain through K2 on the card from a generator seeded 0, as a
+        request runs it."""
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+        sampler = diffusion.make_sampler(net, num_steps=steps, fused_inference=True, **kw)
+        return sampler(net, x, torch.Generator(device=device).manual_seed(0), init=init)
+
+    # 9a. the chain through K2 against the plain chain
+    chains = {}
+    for b in (1, 2, 64):
+        x = torch.from_numpy(ds.gather(np.arange(b)).inputs).to(device)
+        for name, kw in (('eta 0', {}), ('eta 1', {'eta': 1.0}),
+                         ('guidance 2', {'guidance_scale': 2.0})):
+            fused = diffusion.make_sampler(model, num_steps=steps, fused_inference=True, **kw)
+            plain = diffusion.make_sampler(model, num_steps=steps, **kw)
+            fe.launches = 0
+            got = fused(model, x, torch.Generator(device=device).manual_seed(0))
+            launches = fe.launches
+            trace = []
+            with _plain_forwards(fm, fe, fg):
+                want = fused(model, x, torch.Generator(device=device).manual_seed(0),
+                             trace=trace)
+            cfg2 = 'guidance_scale' in kw
+            rows = torch.cat([x, torch.zeros_like(x)]) if cfg2 else x
+            worst = 0.0
+            with torch.no_grad():
+                for t, xt in trace:
+                    xb = torch.cat([xt, xt]) if cfg2 else xt
+                    tb = torch.full((xb.shape[0],), t, device=device)
+                    a = diffusion.fused_denoiser_eps(model, xb, tb, rows)
+                    r = diffusion.fused_denoiser_eps(model, xb, tb, rows, use_kernel=False)
+                    worst = max(worst, float((a - r).abs().max() / r.abs().max()))
+            heads = _heads_vs(got, want)
+            chains[f'B={b} {name}'] = dict(launches=launches, step_eps_rel=worst, heads=heads)
+            _check(not on_card or launches == layers * steps,
+                   f'chain B={b} {name}: {launches} K2 launches')
+            _check(worst <= DIFF_REL, f'chain B={b} {name}: a step\'s eps through K2 off the '
+                                      f'plain layer by {worst} x max (limit {DIFF_REL})')
+            _check(all(share >= ANSWER_SHARE for _, share in heads.values()),
+                   f'chain B={b} {name}: answers {heads}')
+            print(f'[diffusion] chain B={b} {name}: {launches} K2 launches; each step\'s eps '
+                  f'through K2 vs the plain layer on the plain chain\'s x_t: max '
+                  f'{worst:.3g} x max|plain| (limit {DIFF_REL}); answers vs the plain chain, '
+                  f'per head (max abs err, share within {DIFF_REL} x max): {heads}',
+                  flush=True)
+    x1 = torch.from_numpy(ds.gather(np.arange(1)).inputs).to(device)
+    one = diffusion.make_sampler(model, num_steps=steps, fused_inference=True)
+    traced, busy, chain_ms = None, None, None
+    if on_card:
+        _, traced, busy = _traced(torch, lambda: one(model, x1, torch.Generator(
+            device=device).manual_seed(0)))
+        _check(traced['fused_encoder_kernel'] == layers * steps,
+               f'chain B=1 traced {traced}, want {layers * steps} K2')
+        chain_ms = _host_p50_ms(lambda: (one(model, x1, torch.Generator(
+            device=device).manual_seed(0)), torch.cuda.synchronize()), 10)
+        print(f'[diffusion] chain B=1, {steps} steps: profiler trace {traced} (K2 {layers} '
+              f'x {steps}); device busy {busy:.1f} us of a host-clock p50 of {chain_ms:.2f} '
+              f'ms (10 chains): idle share {1 - busy / 1e3 / chain_ms:.3f} ({card})',
+              flush=True)
+
+    # 9b. serve
+    base = ['serve', '--dataset-home', str(data), '--checkpoint-dir', str(ckpt_root),
+            '--port', '0', '--device', device, '--model-type', 'diffusion',
+            '--output-data-format', 'all_frames', '--fused-inference',
+            '--sample-steps', str(steps)]
+    served, p50 = {}, {}
+
+    def off_the_chain(r, want, what):
+        """A served answer against the chain run directly on the card."""
+        got = _decode(r['outputs'])
+        err = max(float(np.abs(got[k] - want[k].cpu().numpy()).max()) for k in want)
+        _check(err <= 1e-5 * max(float(v.abs().max()) for v in want.values()),
+               f'{what}: off the direct chain by {err}')
+        return err
+
+    fe.launches = 0
+    svc, server, url = _serve(port, base + ['--reload-poll-sec', '0.2'])
+    try:
+        s = _get(url + '/schema')
+        _check((s['model_type'], s['diffusion_sample_steps'], s['diffusion_samples'],
+                s['use_ema'], s['fused_inference'], s['output_data_format'])
+               == ('diffusion', steps, 1, False, True, 'all_frames'), f'/schema {s}')
+        xs = {b: ds.gather(np.arange(b)).inputs for b in (1, 37, big)}
+        results = {b: _post(url + '/predict', _b64_body(xs[b])) for b in (1, 37, big)}
+        body1 = json.dumps({'inputs': xs[1].tolist()}).encode()
+        p50['1'] = _host_p50_ms(lambda: _post(url + '/predict', body1), 20)
+        body_big = _b64_body(xs[big])
+        p50[str(big)] = _host_p50_ms(lambda: _post(url + '/predict', body_big), 3)
+        forwards = _get(url + '/metrics')['device_forwards']
+        launches = fe.launches
+        _check(not on_card or launches == layers * steps * forwards > 0,
+               f'serve: {launches} K2 launches for {forwards} device forwards')
+        served['launches'] = dict(k2=launches, forwards=forwards)
+        for b, r in results.items():
+            served[f'B={b} vs the direct chain'] = off_the_chain(
+                r, chain(model, xs[b]), f'/predict B={b}')
+        # the poller swaps to a newer checkpoint
+        new_model, new_ema = denoiser(seed + 41)
+        write(new_model, new_ema, 2)
+        deadline = time.time() + 60
+        while time.time() < deadline and _get(url + '/health')['epoch'] != 2:
+            time.sleep(0.1)
+        _check(_get(url + '/health')['epoch'] == 2, 'reload poller: epoch 2 not picked up')
+        served['after the poller'] = off_the_chain(
+            _post(url + '/predict', _b64_body(xs[37])), chain(new_model, xs[37]),
+            'after the poller')
+    finally:
+        _stop(svc, server)
+    write(model, ema, 3)      # the first weights again, newest, for what follows
+    print(f'[diffusion] serve: /predict B=1 JSON p50 {p50["1"]:.2f} ms (20 requests); '
+          f'B={big} b64 p50 {p50[str(big)]:.1f} ms (3 requests) = '
+          f'{big / p50[str(big)] * 1e3:.1f} windows/s; K2 launches {launches} == {layers} x '
+          f'{steps} x {forwards} device forwards; answers == the direct chain {served} '
+          f'({card})', flush=True)
+
+    extras = {}
+    x2 = ds.gather(np.arange(2)).inputs
+    # --diffusion-samples 4: four chains stacked, one K2 launch a layer and step
+    fe.launches = 0
+    svc, server, url = _serve(port, base + ['--diffusion-samples', '4'])
+    try:
+        r = _post(url + '/predict', _b64_body(x2, spread=True))
+        forwards = _get(url + '/metrics')['device_forwards']
+        launches = fe.launches
+    finally:
+        _stop(svc, server)
+    _check(not on_card or launches == layers * steps * forwards == layers * steps,
+           f'--diffusion-samples 4: {launches} K2 launches for {forwards} forwards')
+    stacked = chain(model, np.concatenate([x2] * 4))
+    mean, spread = diffusion.stacked_samples(stacked, 4)
+    got_m, got_s = _decode(r['outputs']), _decode(r['spread'])
+    err = max(max(float(np.abs(got_m[k] - mean[k].cpu().numpy()).max()),
+                  float(np.abs(got_s[k] - spread[k].cpu().numpy()).max())) for k in mean)
+    _check(err <= 1e-5 * max(float(v.abs().max()) for v in mean.values()),
+           f'--diffusion-samples 4: off the stacked chains by {err}')
+    _check(all(float(v.min()) >= 0 and float(v.max()) > 0 for v in spread.values()),
+           'spread of 4 chains')
+    extras['samples 4'] = dict(k2=launches, err=err)
+    # --use-ema
+    fe.launches = 0
+    svc, server, url = _serve(port, base + ['--use-ema'])
+    try:
+        _check(_get(url + '/schema')['use_ema'] is True, '--use-ema /schema')
+        r = _post(url + '/predict', _b64_body(x2))
+        launches = fe.launches
+    finally:
+        _stop(svc, server)
+    err = off_the_chain(r, chain(ema_model, x2), '--use-ema')
+    _check(not on_card or launches == layers * steps,
+           f'--use-ema: {launches} K2 launches for one forward')
+    with _plain_forwards(fm, fe, fg):
+        plain_ema = chain(ema_model, x2)
+    heads = _heads_vs(chain(ema_model, x2), plain_ema)
+    _check(all(share >= ANSWER_SHARE for _, share in heads.values()),
+           f'--use-ema vs plain: {heads}')
+    extras['use_ema'] = dict(k2=launches, err=err, vs_plain_chain=heads)
+    # --diffusion-partial 0.3 from a feedforward all-frames proposal
+    pcfg = port.config_from_args(port.parser().parse_args(
+        ['train', '--output-data-format', 'all_frames']))
+    proposal = port.build_model_for_dataset(pcfg, ds, generator=torch.Generator().manual_seed(
+        seed + 42), device=device).eval()
+    port.save_checkpoint(str(root / 'proposal'), proposal, 0, 0)
+    part = diffusion.make_sampler(model, num_steps=steps, partial_frac=0.3)
+    t_top = max(1, int(round(0.3 * 999)))
+    n_part = max(1, min(int(round(steps * 0.3)), t_top + 1))
+    _check(int(part.timesteps[0]) == t_top == 300 and len(part.timesteps) == n_part
+           == (15 if steps == 50 else n_part),
+           f'partial 0.3: steps {part.timesteps}')
+    fe.launches = fm.launches = 0
+    svc, server, url = _serve(port, base + ['--diffusion-partial', '0.3', '--init-checkpoint',
+                                            str(root / 'proposal')])
+    try:
+        r = _post(url + '/predict', _b64_body(x2))
+        forwards = _get(url + '/metrics')['device_forwards']
+        launches, k1 = fe.launches, fm.launches
+    finally:
+        _stop(svc, server)
+    _check(not on_card or launches == layers * n_part * forwards and k1 == forwards == 1,
+           f'--diffusion-partial: K2 {launches}, K1 {k1} for {forwards} forwards')
+    xt2 = torch.from_numpy(x2).to(device)
+    with torch.no_grad():
+        init = diffusion.diffusion_targets_from_outputs(proposal(xt2))
+    err = off_the_chain(r, chain(model, x2, partial_frac=0.3, init=init),
+                        '--diffusion-partial')
+    extras['partial 0.3'] = dict(t_top=t_top, steps=n_part, k2=launches, k1=k1, err=err)
+    # the raw target space: the sidecar-less copy
+    svc, server, url = _serve(port, ['serve', '--dataset-home', str(data), '--checkpoint-dir',
+                                     str(raw_root), '--port', '0', '--device', device,
+                                     '--model-type', 'diffusion', '--output-data-format',
+                                     'all_frames', '--fused-inference', '--sample-steps',
+                                     str(steps)])
+    try:
+        r = _post(url + '/predict', _b64_body(x2))
+    finally:
+        _stop(svc, server)
+    extras['raw space'] = off_the_chain(r, chain(model, x2, target_space='raw'), 'raw space')
+    print(f'[diffusion] serve extras: {extras}', flush=True)
+
+    # 9c. analyze on a dev split of one trial (a trial of L frames holds L - 51
+    # windows at window 50 / stride 5); the command's chains take 50 steps
+    home = root / 'diffusion_analyze'
+    (home / 'train').mkdir(parents=True)
+    (home / 'dev').mkdir()
+    port.write_synthetic_subject(str(home / 'dev' / 'subject.b3d'), num_trials=1,
+                                 trial_length=frames, seed=seed + 303)
+    windows = frames - 51
+
+    def analyze(extra=()):
+        args = port.parser().parse_args([
+            'analyze', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt_root),
+            '--no-wandb', '--device', device, '--model-type', 'diffusion',
+            '--output-data-format', 'all_frames', *extra])
+        csv_path = ckpt_root / 'diffusion' / 'dev_analysis.csv'
+        if csv_path.exists():
+            csv_path.unlink()
+        fe.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = port.analyze(args)
+        launches = fe.launches
+        dev = result['dev']
+        _check(dev['windows'] == windows and np.isfinite(list(dev['summary'].values())).all(),
+               f'analyze diffusion {extra}: {dev}')
+        with open(csv_path) as f:
+            return dev, list(csv.reader(f)), launches
+
+    dev, rows, launches = analyze(['--fused-inference'])
+    _check(not on_card or launches == layers * 50 * windows,
+           f'analyze: {launches} K2 launches for {windows} chains of 50 steps')
+    _, rows2, _ = analyze(['--fused-inference'])
+    _check(rows2 == rows and len(rows) == windows, 'analyze rows differ run to run')
+    with _plain_forwards(fm, fe, fg):
+        plain, _, plain_launches = analyze(['--fused-inference'])
+    _check(plain_launches == 0, f'plain chain launched {plain_launches}')
+    worst = max(abs(dev['summary'][k] - v) / max(abs(v), 1e-30)
+                for k, v in plain['summary'].items())
+    _check(worst <= DIFF_REL, f'analyze: report off the plain chain by {worst} relative '
+                              f'(limit {DIFF_REL})')
+    rate = windows / dev['seconds']
+    print(f'[diffusion] analyze --fused-inference: {windows} windows at B=1 in '
+          f'{dev["seconds"]} s = {rate} windows/s; K2 launches {launches} == {layers} x '
+          f'50 x {windows}; rows equal run to run; report vs the plain chain '
+          f'{worst:.3g} relative (limit {DIFF_REL}) ({card})', flush=True)
+    return dict(chains=chains, chain_b1=dict(traced=traced, busy_us=busy, host_p50_ms=chain_ms),
+                serve=dict(served, predict_p50_ms=p50,
+                           windows_per_sec_b4096=big / p50[str(big)] * 1e3),
+                extras=extras,
+                analyze=dict(windows=windows, seconds=dev['seconds'], windows_per_sec_b1=rate,
+                             k2_launches=launches, report_rel_vs_plain=worst))
+
+
 def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer,
                      create_train_state, card, seed, batch=4096, attns=('pallas', 'vpu'),
                      parts_alone=True):
@@ -1619,6 +1962,7 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.config import Config, config_from_args
     from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
     from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.models import diffusion
     from inferbiomechanics_tpu_torch.models.common import slice_output_heads
     from inferbiomechanics_tpu_torch.models.transformer import fused_transformer_forward
     from inferbiomechanics_tpu_torch.ops import _build
@@ -1641,6 +1985,7 @@ def main() -> int:
         build_model_for_dataset, loss_config_from,
     )
     from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.run_config import save_run_config
     from inferbiomechanics_tpu_torch.train.state import create_train_state
 
     # the chunked step logs each capture of a train step, with its launches
@@ -1708,6 +2053,7 @@ def main() -> int:
             build_model_for_dataset=build_model_for_dataset,
             DeviceResidentData=DeviceResidentData,
             load_latest_checkpoint=load_latest_checkpoint, analyze=analyze,
+            save_checkpoint=save_checkpoint, save_run_config=save_run_config,
             make_device_chunked_step=make_device_chunked_step,
             create_train_state=create_train_state, make_optimizer=make_optimizer)
         k1_launches, ff_p50 = phase_service(
@@ -1805,6 +2151,10 @@ def main() -> int:
         # 8. analyze on the checkpoints phase 7 wrote
         analyzed = phase_analyze(torch, port, fm, fe, fg, tmp, args.seed, card,
                                  member=tmp / 'member_0')
+
+        # 9. the diffusion denoiser: sampling, serve and analyze through K2
+        diffused = phase_diffusion(torch, port, fe, fm, fg, diffusion, tmp, args.seed, card,
+                                   data, ds)
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -2011,12 +2361,24 @@ def main() -> int:
               ptxas=_ptxas_report(info['log'], 'fused_mlp_kernel'),
               predict_p50_ms={'1': ff_p50[0], '4096': ff_p50[1]},
               analyze=analyzed['feedforward (K1)'],
+              diffusion_partial_proposal_launches=diffused['extras']['partial 0.3']['k1'],
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0]),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
               forward_ms={str(b): v for b, v in fwd.items()},
               predict_p50_ms={'1': tf_p50[0], '4096': tf_p50[1]},
+              diffusion=dict(launches_per_chain=n_layers * 50,
+                             launches={'serve': diffused['serve']['launches'],
+                                       'analyze B=1': diffused['analyze']['k2_launches'],
+                                       **{k: v['launches'] for k, v in
+                                          diffused['chains'].items()},
+                                       **{k: v['k2'] for k, v in diffused['extras'].items()
+                                          if isinstance(v, dict)}},
+                             chain_b1=diffused['chain_b1'],
+                             predict_p50_ms=diffused['serve']['predict_p50_ms'],
+                             windows_per_sec_b4096=diffused['serve']['windows_per_sec_b4096'],
+                             analyze=diffused['analyze']),
               train_launches=trained['k2_launches'],
               train_launches_traced=trained['k2_traced'],
               analyze=analyzed['transformer pallas (K2)'],

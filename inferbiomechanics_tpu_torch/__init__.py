@@ -10,7 +10,8 @@ package: it keeps its own copy of what it needs from there (``config``,
 - ``data``:   the subject store, window dataset and synthetic subjects.
 - ``ops``:    the fused MLP and fused encoder-layer kernels (CUDA C++ for
               Hopper, ``ops/csrc``), their plain PyTorch versions, the build.
-- ``models``: the feedforward model and the transformer.
+- ``models``: the feedforward model, GroundLink, the transformer and the
+              diffusion denoiser with its DDIM sampler.
 - ``train``:  model construction and checkpoints (serving subset).
 - ``serve``:  the batch-inference service, dynamic batcher and HTTP layer.
 - ``cli``:    ``python -m inferbiomechanics_tpu_torch serve``.

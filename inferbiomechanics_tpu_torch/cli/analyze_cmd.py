@@ -1,14 +1,20 @@
 """``analyze`` subcommand: score a checkpoint over the dev and train splits.
 
 PyTorch counterpart of ``inferbiomechanics_tpu/cli/analyze_cmd.py`` for the
-learned regression models (feedforward, transformer ``vpu`` and ``pallas``,
-GroundLink), with its flags and defaults (vertical GRF loss only,
+learned models (feedforward, transformer ``vpu`` and ``pallas``, GroundLink,
+the diffusion denoiser), with its flags and defaults (vertical GRF loss only,
 ``--batch-size`` 1). For each split, dev then train, it evaluates the
 newest checkpoint under ``<checkpoint-dir>/<model-type>/`` (or
 ``--checkpoint-file``; a fresh model, with a warning, when there is none)
 through the model's eval forward: K1 for the feedforward model, K2 a layer
 for the ``pallas`` transformer, K4 for GroundLink, the plain bf16 forward
-for the ``vpu`` transformer. It appends a row per window to
+for the ``vpu`` transformer. A diffusion checkpoint is scored by sampling:
+a 50-step DDIM chain a batch (``models/diffusion.py::make_sampler``), through
+K2 a layer and step with ``--fused-inference``, its draws from a generator
+seeded 7 at each batch as the JAX command uses ``PRNGKey(7)``; with
+``--use-ema`` on the checkpoint's EMA weights, with ``--diffusion-partial``
+from the proposal of an ``--init-checkpoint`` model, with
+``--guidance-scale`` guided. It appends a row per window to
 ``{split}_analysis.csv`` (subject, trial, loss, force_avg_err,
 com_acc_avg_err, in the JAX command's window order), prints a report every
 1000 batches and at the end, and on request bootstrap confidence intervals
@@ -27,6 +33,8 @@ raise and name the ROADMAP item that brings them.
     python -m inferbiomechanics_tpu_torch analyze --dataset-home D --checkpoint-dir C
     python -m inferbiomechanics_tpu_torch analyze ... --model-type groundlink --tta-mirror
     python -m inferbiomechanics_tpu_torch analyze ... --ensemble C1 C2 --bootstrap 2000
+    python -m inferbiomechanics_tpu_torch analyze ... --model-type diffusion \
+        --output-data-format all_frames --fused-inference
 """
 
 from __future__ import annotations
@@ -44,11 +52,13 @@ from inferbiomechanics_tpu_torch.cli.motion import classify_motion
 from inferbiomechanics_tpu_torch.config import Config, add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
 from inferbiomechanics_tpu_torch.loss.evaluator import RegressionLossEvaluator
+from inferbiomechanics_tpu_torch.models import diffusion
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 from inferbiomechanics_tpu_torch.serve import InferenceService, resolve_device
 from inferbiomechanics_tpu_torch.train.augment import make_tta_eval_step, spec_from_dataset
 from inferbiomechanics_tpu_torch.train.checkpoint import (
-    load_checkpoint_file, load_latest_checkpoint,
+    load_checkpoint_file, load_latest_checkpoint, require_ema_params,
+    resolve_checkpoint_path,
 )
 from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset, loss_config_from
 from inferbiomechanics_tpu_torch.train.run_config import (
@@ -83,7 +93,7 @@ def register_subcommand(sub) -> None:
     p.add_argument('--eval-chunk-steps', type=int, default=64,
                    help='Evaluate K same-shape batches between two copies of '
                         'their metrics to the host; 1 = one batch at a time. '
-                        'Ignored with --ensemble')
+                        'Ignored with --ensemble and --model-type diffusion')
     p.add_argument('--bootstrap', type=int, default=0,
                    help='Resample the per-window rows N times and print 95%% '
                         'confidence intervals on the mean loss / force / '
@@ -94,15 +104,21 @@ def register_subcommand(sub) -> None:
                         'window counts and mean loss / force / COM-acc errors, '
                         'worst force error first (activity = trial-name '
                         'motion classes). Exact at --batch-size 1')
+    p.add_argument('--use-ema', action='store_true',
+                   help='Evaluate the checkpoint\'s EMA parameters (diffusion '
+                        'checkpoints trained with --ema-decay)')
+    p.add_argument('--diffusion-partial', type=float, default=None,
+                   help='Diffusion: partial denoising; each chain starts at this '
+                        'fraction of the schedule from the --init-checkpoint '
+                        'model\'s all-frames proposal')
+    p.add_argument('--init-checkpoint', type=str, default=None,
+                   help='Checkpoint dir of the all-frames proposal model for '
+                        '--diffusion-partial')
     # flags of the JAX command whose features are not ported yet: accepted,
     # so that they can be refused by name instead of ignored
     p.add_argument('--plot-errors', action='store_true', help='not yet ported')
     p.add_argument('--quantize', type=str, default=None, choices=['int8'],
                    help='not yet ported')
-    p.add_argument('--use-ema', action='store_true', help='not yet ported')
-    p.add_argument('--diffusion-partial', type=float, default=None,
-                   help='not yet ported')
-    p.add_argument('--init-checkpoint', type=str, default=None, help='not yet ported')
 
 
 def _check_consistency(config: Config, args: argparse.Namespace) -> None:
@@ -138,13 +154,6 @@ def _reject_unported(config: Config, args: argparse.Namespace) -> None:
     unported = [
         ('--quantize', bool(args.quantize),
          'ROADMAP.md Queue 1 item 4 (inference and serving extras)'),
-        ('--use-ema', args.use_ema, 'ROADMAP.md Queue 1 item 6 (diffusion)'),
-        ('--diffusion-partial', args.diffusion_partial is not None,
-         'ROADMAP.md Queue 1 item 6 (diffusion)'),
-        ('--init-checkpoint', bool(args.init_checkpoint),
-         'ROADMAP.md Queue 1 item 6 (diffusion)'),
-        ('--model-type diffusion', config.model_type == 'diffusion',
-         'ROADMAP.md Queue 1 item 6 (diffusion)'),
         ('--model-type analytical', config.model_type == 'analytical',
          'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
         ('--compute-report', config.compute_report,
@@ -157,11 +166,14 @@ def _reject_unported(config: Config, args: argparse.Namespace) -> None:
             raise NotImplementedError(f'{flag} is not yet ported ({where})')
 
 
-def _pack_for_eval(model) -> None:
+def _pack_for_eval(model, fused: bool = False) -> None:
     """Pack the eval kernel's weights before the timed loop (the eval
     forward would pack them on its first call)."""
     with torch.no_grad():
-        if isinstance(model, TransformerRegressor):
+        if isinstance(model, diffusion.DiffusionDenoiser):
+            if fused:
+                model.packed()
+        elif isinstance(model, TransformerRegressor):
             if model.attn_impl == 'pallas':
                 model.packed_layers(transposes=False)
         else:
@@ -199,6 +211,61 @@ def _write_summary(path: str, group_by: str, groups: Dict[str, list]) -> None:
             w.writerow([key, n, sl / n, sf / n, sc / n])
 
 
+def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDataset,
+                       checkpoint_dir: str, device: torch.device):
+    """The JAX command's diffusion evaluation: ``predict(x) -> outputs`` of
+    a 50-step DDIM chain on ``x`` (numpy [B, T, C_in]), drawn from a
+    generator seeded 7 at each call."""
+    if config.output_data_format != 'all_frames':
+        raise ValueError('analyze --model-type diffusion requires '
+                         '--output-data-format all_frames')
+    if args.tta_mirror:
+        raise SystemExit('--tta-mirror supports the learned-model eval paths '
+                         '(not analytical/diffusion/quantized)')
+    model = build_model_for_dataset(
+        config, ds, generator=torch.Generator().manual_seed(0), device=device)
+    if args.checkpoint_file:
+        load_checkpoint_file(model, args.checkpoint_file)
+    else:
+        epoch, _ = load_latest_checkpoint(model, checkpoint_dir)
+        if epoch < 0:
+            print(f'WARNING: no checkpoint found in {checkpoint_dir}')
+    if args.use_ema:
+        path = args.checkpoint_file or resolve_checkpoint_path(checkpoint_dir)
+        try:
+            model.load_state_dict(require_ema_params(path))
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print('evaluating EMA parameters')
+    model.eval()
+    _pack_for_eval(model, config.fused_inference)
+    partial = args.diffusion_partial
+    tspace = diffusion.checkpoint_target_space(checkpoint_dir)
+    sampler = diffusion.make_sampler(
+        model, diffusion.DDPMSchedule(config.diffusion_timesteps), num_steps=50,
+        fused_inference=config.fused_inference, guidance_scale=config.guidance_scale,
+        partial_frac=partial, target_space=tspace)
+    if config.guidance_scale != 1.0:
+        print(f'classifier-free guidance scale {config.guidance_scale}')
+    propose = None
+    if partial is not None:
+        try:
+            propose = diffusion.make_partial_proposal_fn(
+                config, ds, args.init_checkpoint, target_space=tspace, device=device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        print(f'partial denoising from {args.init_checkpoint} at frac {partial}')
+    noise = diffusion.chain_noise(7, 1)
+
+    def predict(x: np.ndarray) -> Dict[str, torch.Tensor]:
+        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+        init = propose(xt) if propose is not None else None
+        gen = torch.Generator(device=device).manual_seed(7)
+        return sampler(model, xt, gen, init=init, noise=noise)
+
+    return predict
+
+
 def analyze(args: argparse.Namespace) -> Dict[str, dict]:
     """Run ``analyze`` as the parsed arguments say. Returns, by split
     evaluated, its final report (``summary``), its window count and the
@@ -226,7 +293,10 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
             continue
         evaluator = RegressionLossEvaluator(split, lc, wandb_logger=ml)
 
-        if args.ensemble:
+        if config.model_type == 'diffusion':
+            predict = _diffusion_predict(config, args, ds, checkpoint_dir, device)
+            eval_fn = None
+        elif args.ensemble:
             svc = InferenceService(config, checkpoint_dir, ds,
                                    max_batch=max(config.batch_size, 1), device=device,
                                    ensemble=args.ensemble, tta_mirror=args.tta_mirror)
@@ -234,7 +304,10 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                   + ', '.join(m['path'] for m in svc.members))
             if svc.tta_mirror:
                 print('mirror test-time augmentation enabled (per ensemble member)')
-            predict = svc.predict_packed
+
+            def predict(x, svc=svc):
+                return {k: torch.from_numpy(v).to(device)
+                        for k, v in svc.predict_packed(x).items()}
             eval_fn = None
         else:
             model = build_model_for_dataset(
@@ -295,13 +368,12 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
 
             batches = ds.batches(config.batch_size, shuffle=False, drop_last=False)
             if eval_fn is None:
-                # --ensemble: the members' host predict, one batch at a time
+                # --ensemble or diffusion: one batch at a time
                 for i, batch in enumerate(batches):
                     windows += batch.inputs.shape[0]
                     y = torch.from_numpy(np.ascontiguousarray(batch.labels)).to(device)
                     with torch.no_grad():
-                        outputs = {k: torch.from_numpy(v).to(device)
-                                   for k, v in predict(batch.inputs).items()}
+                        outputs = predict(batch.inputs)
                         metrics = evaluator.compute_metrics(
                             outputs, unpack(y, ds.lab_offsets))
                     evaluator(None, None, None, precomputed_metrics=metrics)

@@ -10,6 +10,8 @@ no GPU; ``--device cpu`` serves on the CPU.
     python -m inferbiomechanics_tpu_torch serve ... --model-type groundlink
     python -m inferbiomechanics_tpu_torch serve ... --model-type transformer --fused-inference
     python -m inferbiomechanics_tpu_torch serve ... --ensemble C1 C2 C3 --tta-mirror
+    python -m inferbiomechanics_tpu_torch serve ... --model-type diffusion \
+        --output-data-format all_frames --fused-inference [--diffusion-samples 4]
 """
 
 from __future__ import annotations
@@ -70,16 +72,25 @@ def register_subcommand(sub) -> None:
                         'checkpoint files, e.g. a seed sweep\'s per-config '
                         'checkpoints), one forward per member; /predict can '
                         'also return the across-member std ("spread": true)')
-    # flags of the JAX command whose features are not ported yet: accepted,
-    # so that the service can refuse them by name instead of ignoring them
-    p.add_argument('--quantize', type=str, default=None, choices=['int8'],
-                   help='not yet ported')
-    p.add_argument('--use-ema', action='store_true', help='not yet ported')
+    p.add_argument('--sample-steps', type=int, default=50,
+                   help='DDIM sampling steps per request (--model-type diffusion)')
+    p.add_argument('--use-ema', action='store_true',
+                   help='Serve the checkpoint\'s EMA parameters (written by '
+                        'training with --ema-decay)')
     p.add_argument('--diffusion-samples', type=int, default=1,
-                   help='not yet ported')
+                   help='Diffusion: K sampling chains per request, stacked into '
+                        'one batch; /predict returns their mean and, with '
+                        '"spread": true, their std')
     p.add_argument('--diffusion-partial', type=float, default=None,
-                   help='not yet ported')
+                   help='Diffusion: partial denoising; each chain starts at this '
+                        'fraction of the schedule from the --init-checkpoint '
+                        'model\'s all-frames proposal')
     p.add_argument('--init-checkpoint', type=str, default=None,
+                   help='Checkpoint dir of the all-frames proposal model for '
+                        '--diffusion-partial')
+    # a flag of the JAX command whose feature is not ported yet: accepted,
+    # so that the service can refuse it by name instead of ignoring it
+    p.add_argument('--quantize', type=str, default=None, choices=['int8'],
                    help='not yet ported')
 
 
@@ -104,6 +115,7 @@ def start(args: argparse.Namespace):
                                batch_wait_ms=args.batch_wait_ms,
                                device=args.device,
                                ensemble=args.ensemble,
+                               sample_steps=args.sample_steps,
                                quantize=args.quantize,
                                use_ema=args.use_ema,
                                tta_mirror=args.tta_mirror,

@@ -1,8 +1,9 @@
 """Model registry / factory.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. Only
-the feedforward model, GroundLink and the transformer are ported; every
-other model type raises and names the ROADMAP.md slice that ports it.
+PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. The
+feedforward model, GroundLink, the transformer and the diffusion denoiser
+are ported; the analytical baseline raises and names the ROADMAP.md slice
+that ports it.
 """
 
 from typing import Optional, Sequence
@@ -12,6 +13,7 @@ import torch
 from inferbiomechanics_tpu_torch.models.common import (
     output_head_size, pack_inputs, slice_output_heads,
 )
+from inferbiomechanics_tpu_torch.models.diffusion import DiffusionDenoiser
 from inferbiomechanics_tpu_torch.models.feedforward import FeedForwardBaseline
 from inferbiomechanics_tpu_torch.models.groundlink import Groundlink
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
@@ -19,7 +21,6 @@ from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 MODEL_TYPES = ('analytical', 'feedforward', 'groundlink', 'transformer', 'diffusion')
 
 _UNPORTED = {
-    'diffusion': 'ROADMAP.md Queue 1 item 6 (diffusion)',
     'analytical': 'ROADMAP.md Queue 1 item 7 (analytical and physics)',
 }
 
@@ -42,6 +43,7 @@ def get_model(model_type: str,
               num_heads: int = 8,
               attn_impl: str = 'vpu',
               conv_impl: str = 'xla',
+              diffusion_timesteps: int = 1000,
               init_style: str = 'torch',
               generator: Optional[torch.Generator] = None,
               device=None):
@@ -76,6 +78,14 @@ def get_model(model_type: str,
             d_model=d_model, num_layers=num_layers, num_heads=num_heads,
             dropout=dropout_prob if dropout else 0.0,
             attn_impl=attn_impl, generator=generator, device=device)
+    if model_type == 'diffusion':
+        return DiffusionDenoiser(
+            num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
+            history_len=history_len, stride=stride,
+            root_history_len=root_history_len,
+            d_model=d_model, num_layers=num_layers, num_heads=num_heads,
+            timesteps=diffusion_timesteps, attn_impl=attn_impl,
+            generator=generator, device=device)
     if model_type in _UNPORTED:
         raise NotImplementedError(f'model type {model_type!r} is not ported '
                                   f'yet; see {_UNPORTED[model_type]}')
@@ -83,7 +93,7 @@ def get_model(model_type: str,
 
 
 __all__ = [
-    'get_model', 'MODEL_TYPES', 'FeedForwardBaseline', 'Groundlink',
+    'get_model', 'MODEL_TYPES', 'DiffusionDenoiser', 'FeedForwardBaseline', 'Groundlink',
     'TransformerRegressor',
     'pack_inputs', 'slice_output_heads', 'output_head_size',
 ]

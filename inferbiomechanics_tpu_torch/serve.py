@@ -4,14 +4,24 @@ PyTorch counterpart of ``inferbiomechanics_tpu/serve.py``: the
 ``InferenceService``, the dynamic batcher and the stdlib HTTP layer
 (``serve`` and its handler, the payload codecs). It serves ``/health``,
 ``/schema``, ``/metrics``, ``/predict`` (JSON and b64), ``/predict_file``
-and ``/reload`` for the feedforward model, GroundLink and the transformer.
-The feedforward and GroundLink eval forwards run through their fused kernels
-(``ops/fused_mlp.py``, ``ops/fused_groundlink.py``); with
-``--fused-inference`` a ``vpu`` transformer runs every encoder layer through
-the fused kernel (``ops/fused_encoder.py``). ``ensemble`` serves the mean of
-several checkpoints (and, on request, their spread), ``tta_mirror`` averages
-each prediction with the un-mirrored prediction of the mirrored window, and
-``start_reload_poller`` swaps to newer checkpoints as they land.
+and ``/reload`` for the feedforward model, GroundLink, the transformer and
+the diffusion denoiser. The feedforward and GroundLink eval forwards run
+through their fused kernels (``ops/fused_mlp.py``, ``ops/fused_groundlink.py``);
+with ``--fused-inference`` a ``vpu`` transformer runs every encoder layer
+through the fused kernel (``ops/fused_encoder.py``), and so does every step
+of a diffusion chain. ``ensemble`` serves the mean of several checkpoints
+(and, on request, their spread), ``tta_mirror`` averages each prediction with
+the un-mirrored prediction of the mirrored window, ``use_ema`` serves a
+checkpoint's EMA weights, and ``start_reload_poller`` swaps to newer
+checkpoints as they land.
+
+A diffusion ``/predict`` is a DDIM chain of ``sample_steps`` denoiser calls
+conditioned on the request's windows (``models/diffusion.py::make_sampler``),
+drawn from a generator seeded 0 at each request, as the JAX service uses
+``PRNGKey(0)``; ``diffusion_samples`` K > 1 stacks K chains into one batch
+of K x B rows (one launch a layer and step) and returns their mean, and on
+request their spread; ``diffusion_partial`` starts the chains from an
+``init_checkpoint`` model's proposal, part way down the schedule.
 
 Differences from the JAX service:
 
@@ -21,8 +31,11 @@ Differences from the JAX service:
   recompiles per shape; ``max_batch`` still bounds a request;
 - an ensemble runs its members one after another, each through its own
   kernel launch (a loop where the JAX service has one ``vmap``);
-- ``quantize``, ``use_ema``, ``init_checkpoint`` and diffusion raise "not yet
-  ported" (ROADMAP.md Queue 1).
+- a diffusion chain runs eagerly, step by step (one ``lax.scan`` program in
+  the JAX service), and its draws are torch's, not ``jax.random``'s;
+- ``--fused-inference`` on a denoiser whose ``d_model`` the encoder layer
+  kernel does not take raises (the JAX service runs it);
+- ``quantize`` raises "not yet ported" (ROADMAP.md Queue 1 item 4).
 
 Device work is serialized under one lock, as in the JAX service.
 """
@@ -44,12 +57,14 @@ import torch
 
 from inferbiomechanics_tpu_torch.config import Config
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.models import diffusion
 from inferbiomechanics_tpu_torch.models.transformer import (
     TransformerRegressor, fused_transformer_forward,
 )
 from inferbiomechanics_tpu_torch.train.augment import spec_from_dataset, tta_average
 from inferbiomechanics_tpu_torch.train.checkpoint import (
-    list_checkpoints, load_checkpoint_file, load_latest_checkpoint,
+    list_checkpoints, load_checkpoint_file, require_ema_params,
+    resolve_checkpoint_path,
 )
 from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
 
@@ -71,15 +86,6 @@ def resolve_device(device) -> torch.device:
     elif dev.type != 'cpu':
         raise ValueError(f'device must be cuda or cpu, got {device!r}')
     return dev
-
-
-def _reject_unported(config: Config, **options) -> None:
-    if config.model_type == 'diffusion':
-        raise ValueError('diffusion serving is not yet ported '
-                         '(ROADMAP.md Queue 1 item 6)')
-    for name, value in options.items():
-        if value:
-            raise ValueError(f'{name} is not yet ported ({_SERVING_SLICE})')
 
 
 def _sidecar_run_config(checkpoint_dir: str) -> Optional[dict]:
@@ -202,6 +208,7 @@ class InferenceService:
                  dataset: WindowDataset, max_batch: int = 4096,
                  batch_wait_ms: float = 0.0, *, device='cuda',
                  ensemble: Optional[list] = None,
+                 sample_steps: int = 50,
                  quantize: Optional[str] = None,
                  use_ema: bool = False,
                  tta_mirror: bool = False,
@@ -213,12 +220,16 @@ class InferenceService:
         forward per request, and /predict returns the ensemble mean plus (on
         request) the across-member std as an uncertainty estimate.
         ``tta_mirror``: mirror test-time augmentation, two forwards per
-        model and request."""
-        _reject_unported(config, quantize=quantize not in (None, 'none'),
-                         use_ema=use_ema,
-                         diffusion_samples=diffusion_samples != 1,
-                         diffusion_partial=diffusion_partial is not None,
-                         init_checkpoint=init_checkpoint)
+        model and request. ``use_ema``: serve the checkpoint's EMA weights.
+        ``sample_steps``, ``diffusion_samples``, ``diffusion_partial`` and
+        ``init_checkpoint``: a diffusion model's chains (see the module's
+        docstring)."""
+        quantize = quantize if quantize not in (None, 'none') else None
+        self.is_diffusion = config.model_type == 'diffusion'
+        self._check_options(config, ensemble, quantize, use_ema, tta_mirror,
+                            diffusion_samples, diffusion_partial, init_checkpoint)
+        if quantize:
+            raise ValueError(f'quantize is not yet ported ({_SERVING_SLICE})')
         if config.model_type == 'analytical':
             raise ValueError('serve supports learned models; the analytical '
                              'baseline needs per-subject skeletons')
@@ -231,6 +242,10 @@ class InferenceService:
         self.config = config
         self.ds = dataset
         self.max_batch = int(max_batch)
+        self.sample_steps = int(sample_steps)
+        self.diffusion_samples = int(diffusion_samples)
+        self.diffusion_partial = diffusion_partial
+        self.use_ema = bool(use_ema)
         self.members: list = []     # [{path, epoch, batch}] of an ensemble
         self._member_models: list = []
         self._checkpoint_dir = checkpoint_dir
@@ -249,7 +264,8 @@ class InferenceService:
                 logger.warning('no checkpoint found in %s — serving an '
                                'UNTRAINED model', checkpoint_dir)
         self.tta_mirror = bool(tta_mirror)
-        self._forward = self._make_forward()
+        self._forward = (self._make_diffusion_forward(init_checkpoint)
+                         if self.is_diffusion else self._make_forward())
         self._lock = threading.Lock()
         self._poller: Optional[threading.Thread] = None
         self._poller_stop = threading.Event()
@@ -264,19 +280,62 @@ class InferenceService:
         self._file_ds_lock = threading.Lock()
         self._file_ds_cap = 4
 
+    @staticmethod
+    def _check_options(config, ensemble, quantize, use_ema, tta_mirror,
+                       diffusion_samples, diffusion_partial, init_checkpoint) -> None:
+        """The JAX service's refusals of option combinations, in its words."""
+        is_diffusion = config.model_type == 'diffusion'
+        if diffusion_samples < 1:
+            raise ValueError('--diffusion-samples must be >= 1')
+        if diffusion_samples > 1 and not is_diffusion:
+            raise ValueError('--diffusion-samples applies to '
+                             '--model-type diffusion')
+        if diffusion_partial is not None and not is_diffusion:
+            raise ValueError('--diffusion-partial applies to '
+                             '--model-type diffusion')
+        if init_checkpoint and diffusion_partial is None:
+            raise ValueError('--init-checkpoint only does something with '
+                             '--diffusion-partial (it seeds the truncated '
+                             'DDIM chains)')
+        if is_diffusion:
+            if ensemble:
+                raise ValueError('ensembles are not supported for diffusion '
+                                 'serving (each member would run a full '
+                                 'sampling chain); soup the checkpoints '
+                                 'instead (convert-checkpoint --soup)')
+            if config.output_data_format != 'all_frames':
+                raise ValueError('serve --model-type diffusion requires '
+                                 '--output-data-format all_frames '
+                                 '(like diffusion training/analyze)')
+        if use_ema and ensemble:
+            raise ValueError('--use-ema serves a single checkpoint, '
+                             'not an ensemble')
+        if quantize and (is_diffusion or ensemble):
+            raise ValueError('--quantize int8 serves a single '
+                             'feedforward checkpoint (not diffusion '
+                             'or ensembles)')
+        if tta_mirror and (is_diffusion or quantize):
+            raise ValueError('--tta-mirror serves the learned-model '
+                             'paths (single model or ensemble; not '
+                             'diffusion or int8)')
+
     def _load(self, path: Optional[str] = None, *, checkpoint_file=None):
         """A fresh eval-mode model on the device, loaded from the newest
-        checkpoint in ``path`` or from ``checkpoint_file``."""
+        checkpoint in ``path`` or from ``checkpoint_file``; with ``use_ema``
+        its weights are then the checkpoint's EMA weights."""
         model = build_model_for_dataset(
             self.config, self.ds,
             generator=torch.Generator().manual_seed(0), device=self.device)
-        if checkpoint_file is not None:
-            epoch, batch = load_checkpoint_file(model, checkpoint_file)
-        else:
-            epoch, batch = load_latest_checkpoint(model, path)
+        if checkpoint_file is None:
+            checkpoint_file = resolve_checkpoint_path(path)
+        epoch, batch = ((-1, 0) if checkpoint_file is None
+                        else load_checkpoint_file(model, checkpoint_file))
+        if self.use_ema:
+            model.load_state_dict(require_ema_params(checkpoint_file))
         model.eval()
         # the kernels' weights, laid out once per load
-        if not isinstance(model, TransformerRegressor) or self._use_fused:
+        if self._use_fused or not isinstance(
+                model, (TransformerRegressor, diffusion.DiffusionDenoiser)):
             model.packed()
         elif model.attn_impl == 'pallas':
             model.packed_layers(False)
@@ -312,13 +371,47 @@ class InferenceService:
             forward = tta_average(spec, self.ds.lab_offsets, forward)
         return forward
 
+    def _make_diffusion_forward(self, init_checkpoint: Optional[str]) -> Callable:
+        """``forward(model, x)`` -> output dict (with ``diffusion_samples``
+        K > 1: the mean and the spread of K chains): a DDIM chain a request,
+        its draws from a generator seeded 0 at each call, started from the
+        proposal of ``init_checkpoint``'s model with ``diffusion_partial``.
+        The proposal is loaded once: a reload swaps the denoiser only."""
+        tspace = diffusion.checkpoint_target_space(self._checkpoint_dir)
+        sampler = diffusion.make_sampler(
+            self.model, num_steps=self.sample_steps, fused_inference=self._use_fused,
+            guidance_scale=self.config.guidance_scale,
+            partial_frac=self.diffusion_partial, target_space=tspace)
+        propose = None
+        if self.diffusion_partial is not None:
+            propose = diffusion.make_partial_proposal_fn(
+                self.config, self.ds, init_checkpoint, target_space=tspace,
+                device=self.device)
+        k = self.diffusion_samples
+        noise = diffusion.chain_noise(0, k)
+
+        def forward(model, x):
+            init = propose(x) if propose is not None else None
+            if k > 1:
+                x = x.repeat(k, 1, 1)
+                init = init.repeat(k, 1, 1) if init is not None else None
+            gen = torch.Generator(device=x.device).manual_seed(0)
+            out = sampler(model, x, gen, init=init, noise=noise)
+            return diffusion.stacked_samples(out, k) if k > 1 else out
+
+        return forward
+
     def _fused_inference(self, ensemble: bool) -> bool:
         """Whether forwards go through the fused encoder layer kernel:
         asked for with ``--fused-inference``, and honoured for a single
-        ``vpu`` transformer whose width the kernel takes."""
+        ``vpu`` transformer whose width the kernel takes, and for a
+        diffusion denoiser (whose sampler refuses a width the kernel does
+        not take)."""
         config = self.config
         if not config.fused_inference:
             return False
+        if self.is_diffusion:
+            return True
         if ensemble:
             logger.warning('--fused-inference ignored for ensembles '
                            '(the fused kernel path is single-model)')
@@ -350,6 +443,7 @@ class InferenceService:
                                                          self.batch):
             return {'reloaded': False, 'epoch': self.epoch,
                     'batch': self.batch}
+        # the parameters and the EMA weights from the same file
         model, epoch, batch = self._load(checkpoint_file=ckpts[-1][2])
         with self._lock:
             self.model, self.epoch, self.batch = model, epoch, batch
@@ -440,7 +534,8 @@ class InferenceService:
         """[B, T, C_in] float32 -> output dict, each [B, out_frames, C].
 
         With ``with_spread=True`` returns ``(outputs, spread)`` where spread
-        holds the across-ensemble std per output channel (``None`` for a
+        holds the across-ensemble (or across-sample, with
+        ``diffusion_samples`` > 1) std per output channel (``None`` for a
         single-model service)."""
         self._validate(x)
         spread = None
@@ -450,7 +545,10 @@ class InferenceService:
             xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
             with torch.inference_mode():
                 xt = xt.to(self.device)
-                if self._member_models:
+                if self.diffusion_samples > 1:
+                    out, spread = self._forward(self.model, xt)
+                    spread = {k: v.cpu().numpy() for k, v in spread.items()}
+                elif self._member_models:
                     outs = [self._forward(m, xt) for m in self._member_models]
                     stacked = {k: torch.stack([o[k].float() for o in outs])
                                for k in outs[0]}
@@ -511,11 +609,11 @@ class InferenceService:
             'checkpoint': {'epoch': self.epoch, 'batch': self.batch},
             'ensemble': ({'size': len(self.members), 'members': self.members}
                          if self.members else None),
-            'diffusion_sample_steps': None,
-            'diffusion_samples': None,
+            'diffusion_sample_steps': self.sample_steps if self.is_diffusion else None,
+            'diffusion_samples': self.diffusion_samples if self.is_diffusion else None,
             'fused_inference': self._use_fused,
             'quantize': None,
-            'use_ema': False,
+            'use_ema': self.use_ema,
             'mesh_devices': 1,
             'device': str(self.device),
             'window_size': ds.window_size,

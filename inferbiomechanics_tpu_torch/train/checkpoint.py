@@ -7,9 +7,13 @@ A checkpoint is ``torch.save`` of
 
     {epoch, batch, model_state_dict,                      always
      optimizer_state_dict, opt_type, step}                from a TrainState
+     ema_params}                                          when given one
 
 written atomically; the loader restores the newest by (epoch, batch) and
-returns ``(-1, 0)`` when there is none. Every function takes either a bare
+returns ``(-1, 0)`` when there is none. ``ema_params`` is an exponential
+moving average of the parameters, a state dict of the model's keys, under
+the JAX package's key name; ``load_ema_params``, ``resolve_checkpoint_path``
+and ``require_ema_params`` read it for ``--use-ema``. Every function takes either a bare
 model (serving: parameters only) or a ``TrainState`` (training: the
 optimizer's state and the step count too), and reads both payloads with
 ``weights_only=True``.
@@ -19,7 +23,9 @@ pattern (``epoch_E_batch_B.{ckpt,msgpack,pt}``) does not match that name,
 so neither package mistakes the other's files for its own. Named files
 (``best.torch.pt``) are model artifacts that the newest-checkpoint scan
 ignores. Reading the JAX package's flax-msgpack ``.ckpt`` files, the
-asynchronous writer, checkpoint soups and EMA weights are not ported yet.
+asynchronous writer and checkpoint soups are not ported yet, and nothing
+in the port writes EMA weights yet (diffusion training does,
+ROADMAP.md Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from __future__ import annotations
 import logging
 import os
 import re
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -52,10 +58,11 @@ def _model_of(target: ModelOrState) -> nn.Module:
 
 def save_checkpoint(checkpoint_dir: str, target: ModelOrState,
                     epoch: int, batch: int,
-                    filename: Optional[str] = None) -> str:
+                    filename: Optional[str] = None,
+                    ema_params: Optional[Mapping[str, torch.Tensor]] = None) -> str:
     """Write ``target`` (a model, or a TrainState with its optimizer and
-    step); returns the path. ``filename`` overrides the
-    ``epoch_{e}_batch_{b}.torch.pt`` name."""
+    step), and ``ema_params`` when given; returns the path. ``filename``
+    overrides the ``epoch_{e}_batch_{b}.torch.pt`` name."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, filename or checkpoint_name(epoch, batch))
     payload = {'epoch': int(epoch), 'batch': int(batch),
@@ -67,6 +74,8 @@ def save_checkpoint(checkpoint_dir: str, target: ModelOrState,
                         for i, st in opt['state'].items()}
         payload.update(optimizer_state_dict=opt,
                        opt_type=target.optimizer.opt_type, step=int(target.step))
+    if ema_params is not None:
+        payload['ema_params'] = {k: v.detach().cpu() for k, v in ema_params.items()}
     tmp = path + '.tmp'
     torch.save(payload, tmp)
     os.replace(tmp, path)  # atomic: a crash never leaves a torn checkpoint
@@ -128,6 +137,31 @@ def warm_start_from(state: TrainState, path: str) -> None:
     """Transfer-learning init (``--init-from-checkpoint``): only the
     parameters of ``path``, keeping the fresh optimizer and step count."""
     load_checkpoint_file(state.model, path)
+
+
+def load_ema_params(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The checkpoint's EMA parameters (a state dict), or ``None`` when it
+    carries none."""
+    payload = torch.load(path, map_location='cpu', weights_only=True)
+    return payload.get('ema_params')
+
+
+def resolve_checkpoint_path(checkpoint_dir: str) -> Optional[str]:
+    """Path of the newest epoch_* checkpoint, or None."""
+    ckpts = list_checkpoints(checkpoint_dir)
+    return ckpts[-1][2] if ckpts else None
+
+
+def require_ema_params(checkpoint_path: Optional[str]) -> Dict[str, torch.Tensor]:
+    """The EMA parameters of ``checkpoint_path`` (a file, from
+    ``resolve_checkpoint_path`` or a --checkpoint-file); raises ValueError
+    with the JAX package's --use-ema guidance when the checkpoint is missing
+    or carries none."""
+    ema = load_ema_params(checkpoint_path) if checkpoint_path else None
+    if ema is None:
+        raise ValueError(f'--use-ema: checkpoint {checkpoint_path} carries '
+                         f'no ema_params (train with --ema-decay)')
+    return ema
 
 
 def prune_checkpoints(checkpoint_dir: str, keep: int) -> List[str]:

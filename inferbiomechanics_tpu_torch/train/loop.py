@@ -109,6 +109,7 @@ def build_model_for_dataset(config: Config, ds: WindowDataset, *,
         num_heads=config.num_heads,
         attn_impl=config.attn_impl,
         conv_impl=config.conv_impl,
+        diffusion_timesteps=config.diffusion_timesteps,
         init_style=config.init_style,
         generator=generator,
         device=device,
@@ -135,7 +136,7 @@ def _reject_unported(config: Config) -> None:
          'ROADMAP.md Queue 1 item 2.6 (checkpoints)'),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
         ('--model-type diffusion', config.model_type == 'diffusion',
-         'ROADMAP.md Queue 1 item 6 (diffusion)'),
+         'ROADMAP.md Queue 1 item 6b (diffusion training)'),
         (f'--device-data {config.device_data}',
          config.device_data in ('sharded', 'stream'),
          'ROADMAP.md Queue 1 item 8 (scale-out)'),

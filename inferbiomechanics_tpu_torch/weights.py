@@ -1,5 +1,5 @@
-"""Move feedforward, GroundLink and transformer weights between the JAX
-package and the port.
+"""Move feedforward, GroundLink, transformer and diffusion denoiser weights
+between the JAX package and the port.
 
 The JAX ``FeedForwardBaseline`` (``inferbiomechanics_tpu/models/
 feedforward.py``) keeps one of two parameter trees:
@@ -14,7 +14,7 @@ no column is permuted. Arrays cross as numpy.
 
 The JAX ``TransformerRegressor`` with ``attn_impl='vpu'``
 (``inferbiomechanics_tpu/models/transformer.py``) keeps the flax tree that
-``_TRANSFORMER_DENSE`` and ``_TRANSFORMER_NORM`` list; the QKV columns are
+``_TRANSFORMER_DENSE`` and ``_BLOCK_NORM`` list; the QKV columns are
 ``[q | k | v]`` on both sides.
 
 With ``attn_impl='pallas'`` the JAX model keeps the encoder as flat
@@ -24,6 +24,12 @@ With ``attn_impl='pallas'`` the JAX model keeps the encoder as flat
 ``[in, out]`` and a step spares the transpose. Everything around the
 encoder (``Dense_0``, ``LayerNorm_0``, the heads) maps as in the ``vpu``
 tree.
+
+The JAX ``DiffusionDenoiser`` (``inferbiomechanics_tpu/models/diffusion.py``)
+keeps ``target_proj``, ``cond_proj``, ``t_mlp1``, ``t_mlp2``, ``eps_head``,
+``temporal_embedding``, the ``vpu`` tree's ``EncoderBlock_{i}`` and the final
+``LayerNorm_0``; the port's denoiser keeps the Dense names and stores the
+blocks and the final LayerNorm as the transformer does.
 
 The JAX ``Groundlink`` (``inferbiomechanics_tpu/models/groundlink.py``) keeps
 ``Conv_{i}: {kernel [k, C_in, C_out], bias}`` and ``Dense_{j}: {kernel [in,
@@ -137,22 +143,31 @@ def groundlink_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 
 # state-dict prefix of the port's TransformerRegressor -> path in the flax
 # tree ('{i}' is the layer index); LayerNorms carry scale/bias, Dense layers
-# kernel/bias
-_TRANSFORMER_DENSE = {
-    'input_proj': ('Dense_0',),
+# kernel/bias. The encoder blocks' entries are the diffusion denoiser's too.
+_BLOCK_DENSE = {
     'blocks.{i}.attn.qkv': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'qkv'),
     'blocks.{i}.attn.proj': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'proj'),
     'blocks.{i}.mlp1': ('EncoderBlock_{i}', 'Dense_0'),
     'blocks.{i}.mlp2': ('EncoderBlock_{i}', 'Dense_1'),
+}
+_BLOCK_NORM = {
+    'blocks.{i}.ln1': ('EncoderBlock_{i}', 'LayerNorm_0'),
+    'blocks.{i}.ln2': ('EncoderBlock_{i}', 'LayerNorm_1'),
+    'final_ln': ('LayerNorm_0',),
+}
+_TRANSFORMER_DENSE = {
+    'input_proj': ('Dense_0',),
+    **_BLOCK_DENSE,
     'contact_head': ('contact_head',),
     'tau_head': ('tau_head',),
     'com_acc_head': ('com_acc_head',),
     'contact_cls_head': ('contact_cls_head',),
 }
-_TRANSFORMER_NORM = {
-    'blocks.{i}.ln1': ('EncoderBlock_{i}', 'LayerNorm_0'),
-    'blocks.{i}.ln2': ('EncoderBlock_{i}', 'LayerNorm_1'),
-    'final_ln': ('LayerNorm_0',),
+# the diffusion denoiser's Dense layers keep their names on both sides
+_DIFFUSION_DENSE = {
+    **{name: (name,) for name in ('target_proj', 'cond_proj', 't_mlp1', 't_mlp2')},
+    **_BLOCK_DENSE,
+    'eps_head': ('eps_head',),
 }
 _OPTIONAL_HEADS = ('tau_head', 'com_acc_head', 'contact_cls_head')
 
@@ -160,10 +175,10 @@ _OPTIONAL_HEADS = ('tau_head', 'com_acc_head', 'contact_cls_head')
 _ENC_RE = re.compile(r'enc(\d+)_\w+')
 
 
-def _transformer_entries(num_layers: int):
+def _transformer_entries(num_layers: int, dense_table=_TRANSFORMER_DENSE):
     """(state-dict prefix, flax path, is_dense) for every module; with
     ``num_layers`` 0, the modules around the encoder only."""
-    for table, dense in ((_TRANSFORMER_DENSE, True), (_TRANSFORMER_NORM, False)):
+    for table, dense in ((dense_table, True), (_BLOCK_NORM, False)):
         for prefix, path in table.items():
             for i in (range(num_layers) if '{i}' in prefix else (0,)):
                 yield (prefix.format(i=i),
@@ -191,10 +206,11 @@ def transformer_pallas_state_dict_from_jax(params: Mapping) -> Dict[str, torch.T
     return sd
 
 
-def _transformer_sd_from_jax(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
+def _transformer_sd_from_jax(params: Mapping, num_layers: int,
+                             dense_table=_TRANSFORMER_DENSE) -> Dict[str, torch.Tensor]:
     sd = {'temporal_embedding': torch.from_numpy(
         np.asarray(params['temporal_embedding'], np.float32).copy())}
-    for prefix, path, dense in _transformer_entries(num_layers):
+    for prefix, path, dense in _transformer_entries(num_layers, dense_table):
         node = params
         for part in path:
             node = node.get(part) if node is not None else None
@@ -233,10 +249,10 @@ def transformer_pallas_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> 
 
 
 def _transformer_sd_to_jax(state_dict: Mapping[str, torch.Tensor],
-                           num_layers: int) -> Dict:
+                           num_layers: int, dense_table=_TRANSFORMER_DENSE) -> Dict:
     to_np = lambda t: t.detach().cpu().float().numpy().copy()   # noqa: E731
     out: Dict = {'temporal_embedding': to_np(state_dict['temporal_embedding'])}
-    for prefix, path, dense in _transformer_entries(num_layers):
+    for prefix, path, dense in _transformer_entries(num_layers, dense_table):
         if f'{prefix}.weight' not in state_dict:
             if prefix in _OPTIONAL_HEADS:
                 continue
@@ -248,3 +264,24 @@ def _transformer_sd_to_jax(state_dict: Mapping[str, torch.Tensor],
         node['kernel' if dense else 'scale'] = w.T.copy() if dense else w
         node['bias'] = to_np(state_dict[f'{prefix}.bias'])
     return out
+
+
+def diffusion_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DiffusionDenoiser`` params (the ``vpu`` tree) -> the port's
+    state dict."""
+    missing = [k for k in _DIFFUSION_DENSE if '{' not in k and k not in params]
+    if missing:
+        raise ValueError(f'not a diffusion denoiser tree: no {missing}; keys '
+                         f'{sorted(params)}')
+    num_layers = len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
+    return _transformer_sd_from_jax(params, num_layers, _DIFFUSION_DENSE)
+
+
+def diffusion_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's denoiser state dict -> the JAX ``DiffusionDenoiser`` tree
+    of numpy arrays."""
+    if 'eps_head.weight' not in state_dict:
+        raise ValueError(f'not a diffusion denoiser state dict: keys {sorted(state_dict)}')
+    num_layers = len([k for k in state_dict
+                      if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
+    return _transformer_sd_to_jax(state_dict, num_layers, _DIFFUSION_DENSE)

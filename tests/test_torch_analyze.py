@@ -40,7 +40,7 @@ from inferbiomechanics_tpu.train.checkpoint import save_checkpoint as jax_save_c
 from inferbiomechanics_tpu.train.loop import build_model_for_dataset as jax_build
 from inferbiomechanics_tpu_torch import weights
 from inferbiomechanics_tpu_torch.__main__ import build_parser, main
-from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
+from inferbiomechanics_tpu_torch.cli.analyze_cmd import ROW_KEYS, analyze
 from inferbiomechanics_tpu_torch.config import config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
@@ -333,24 +333,43 @@ def test_ensemble_and_tta_mirror_match_the_jax_command(ws, mode):
     _assert_rows_close(rows[:len(jrows)], jrows, tol, mode)
 
 
+_ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames']
+
+
 @pytest.mark.parametrize('argv,flag,item', [
     (['--quantize', 'int8'], '--quantize', 'item 4'),
-    (['--model-type', 'diffusion', '--use-ema'], '--use-ema', 'item 6'),
-    (['--model-type', 'diffusion', '--diffusion-partial', '0.3'], '--diffusion-partial',
-     'item 6'),
-    (['--model-type', 'diffusion', '--diffusion-partial', '0.3', '--init-checkpoint', 'c'],
-     '--diffusion-partial', 'item 6'),
-    (['--model-type', 'diffusion'], '--model-type diffusion', 'item 6'),
+    # the diffusion options are ported: a bad use of them is refused
+    # in the JAX command's words, which the JAX command is held to here too
+    (_ALL_FRAMES + ['--use-ema'], None,
+     '--use-ema: checkpoint None carries no ema_params'),
+    (_ALL_FRAMES + ['--diffusion-partial', '0.3'], None,
+     '--diffusion-partial needs --init-checkpoint'),
+    (_ALL_FRAMES + ['--diffusion-partial', '0.3', '--init-checkpoint', 'c'], None,
+     '--init-checkpoint: no checkpoint in c'),
+    (['--model-type', 'diffusion'], None,
+     'analyze --model-type diffusion requires --output-data-format all_frames'),
     (['--model-type', 'analytical'], '--model-type analytical', 'item 7'),
     (['--compute-report'], '--compute-report', 'item 7'),
     (['--plot-errors'], '--plot-errors', 'item 9'),
 ])
-def test_unported_analyze_flags_raise_by_name(ws, tmp_path, argv, flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=f'{flag} is not yet ported \\(ROADMAP.md Queue 1 {item} '):
-        main(['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
-              '--no-wandb', '--device', 'cpu', *argv])
-    assert not os.path.exists(tmp_path / 'feedforward')
+def test_unported_analyze_flags_raise_by_name(ws, tmp_path, monkeypatch, argv, flag, item):
+    """What is not ported names its ROADMAP item; the ported diffusion
+    options refuse a bad invocation as the JAX command does."""
+    base = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
+            '--no-wandb', *argv]
+    if flag is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f'{flag} is not yet ported \\(ROADMAP.md Queue 1 {item} '):
+            main(base + ['--device', 'cpu'])
+        assert not os.path.exists(tmp_path / 'feedforward')
+        return
+    monkeypatch.chdir(tmp_path)       # a relative --init-checkpoint names nothing
+    errors = []
+    for run in (lambda: _run_jax(base), lambda: main(base + ['--device', 'cpu'])):
+        with pytest.raises((SystemExit, ValueError)) as e:
+            run()
+        errors.append((e.type, str(e.value)))
+    assert errors[0] == errors[1] and item in errors[1][1], errors
 
 
 @pytest.mark.parametrize('argv,error,match', [
@@ -386,3 +405,177 @@ def test_fresh_model_and_empty_split(ws, tmp_path):
     assert 'train: no windows, skipping' in out
     assert len(_rows(str(tmp_path / 'c' / 'feedforward' / 'dev_analysis.csv'))) == 98
     assert not os.path.exists(tmp_path / 'c' / 'feedforward' / 'train_analysis.csv')
+
+
+# -- the diffusion denoiser --------------------------------------------------------
+
+DIFF_ARCH = ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+             '--d-model', '128', '--num-layers', '2', '--num-heads', '4',
+             '--diffusion-timesteps', '64']
+
+
+def _jax_chain_draws(key, shape, steps):
+    """The JAX sampler's draws for ``key``: the initial noise from
+    ``split(key)[1]``, then one z a step from the carried key's splits."""
+    rng, rng0 = jax.random.split(key)
+    draws = [jax.random.normal(rng0, shape, jnp.float32)]
+    for _ in range(steps):
+        rng, rng_z = jax.random.split(rng)
+        draws.append(jax.random.normal(rng_z, shape, jnp.float32))
+    return [np.asarray(d) for d in draws]
+
+
+def _jax_chain_noise(seed, samples, steps=50):
+    """``models.diffusion.chain_noise`` fed with the JAX command's draws: the
+    same key (``PRNGKey(seed)``) at every batch."""
+    assert samples == 1
+    cache = {}
+
+    def noise(i, shape, device):
+        if shape not in cache:
+            cache[shape] = _jax_chain_draws(jax.random.PRNGKey(seed), shape, steps)
+        return torch.from_numpy(cache[shape][i].copy()).to(device)
+
+    return noise
+
+
+@pytest.fixture(scope='module')
+def dws(ws):
+    """A diffusion checkpoint (seeded flax init, biases moved off zero, an EMA
+    tree that differs) for both packages with the run_config sidecar, and a
+    feedforward all-frames proposal for --diffusion-partial."""
+    from inferbiomechanics_tpu.models.diffusion import DiffusionDenoiser as JaxDenoiser
+    from inferbiomechanics_tpu.train.run_config import save_run_config as jax_save_run_config
+    from inferbiomechanics_tpu.train.state import TrainState
+    root = ws['root'] / 'diffusion'
+    jparser = argparse.ArgumentParser()
+    jax_add_config_flags(jparser)
+    jcfg = jax_config_from_args(jparser.parse_args(DIFF_ARCH))
+    jm = JaxDenoiser(num_dofs=23, num_contact_bodies=2, history_len=50, stride=5,
+                     d_model=128, num_layers=2, num_heads=4, timesteps=64)
+    params = jax.device_get(jm.init({'params': jax.random.PRNGKey(3)},
+                                    jnp.zeros((BATCH, 10, 30)),
+                                    jnp.zeros((BATCH,), jnp.int32),
+                                    jnp.zeros((BATCH, 10, 177)))['params'])
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + (0.1 * rng.normal(size=p.shape) if p.ndim == 1 else 0)
+                   ).astype(np.float32), params)
+    ema = jax.tree_util.tree_map(
+        lambda p: (p * (1 + 0.05 * rng.normal(size=p.shape))).astype(np.float32), params)
+    tx = jax_make_optimizer(jcfg.opt_type, jcfg.learning_rate)
+    state = TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                       opt_state=tx.init(params), batch_stats={}, tx=tx, apply_fn=jm.apply)
+    cfg = config_from_args(build_parser().parse_args(['train', *DIFF_ARCH]))
+    for side in ('jax', 'port'):
+        d = root / side / 'diffusion'
+        if side == 'jax':
+            jax_save_checkpoint(str(d), state, 0, 0, ema_params=ema)
+        else:
+            model = build_model_for_dataset(cfg, ws['ds'])
+            model.load_state_dict(weights.diffusion_state_dict_from_jax(params))
+            save_checkpoint(str(d), model, 0, 0,
+                            ema_params=weights.diffusion_state_dict_from_jax(ema))
+        jax_save_run_config(str(d), jcfg)
+    # the proposal: a feedforward all-frames model, no sidecar (built from the
+    # command's flags on both sides)
+    pcfg = jax_config_from_args(jparser.parse_args(['--output-data-format', 'all_frames']))
+    pds = JaxWindowDataset(os.path.join(ws['data'], 'dev'), window_size=50, stride=5,
+                           output_data_format='all_frames', skip_loading_skeletons=True)
+    pstate = jax_create_train_state(jax_build(pcfg, pds), jax.random.PRNGKey(4),
+                                    jnp.asarray(pds.gather(np.arange(BATCH)).inputs),
+                                    jax_make_optimizer(pcfg.opt_type, pcfg.learning_rate))
+    jax_save_checkpoint(str(root / 'jax_proposal'), pstate, 0, 0)
+    pmodel = build_model_for_dataset(
+        config_from_args(build_parser().parse_args(['train', '--output-data-format',
+                                                    'all_frames'])), ws['ds'])
+    pmodel.load_state_dict(weights.feedforward_state_dict_from_jax(
+        jax.device_get(pstate.params)))
+    save_checkpoint(str(root / 'port_proposal'), pmodel, 0, 0)
+    return root
+
+
+# case -> extra flags of both runs (the proposal's dir is filled in by side)
+DIFF_CASES = {
+    'plain': [],
+    'fused_ema': ['--fused-inference', '--use-ema'],
+    'partial': ['--diffusion-partial', '0.3'],
+    'partial_cfg_ema': ['--diffusion-partial', '0.3', '--guidance-scale', '2.0',
+                        '--use-ema', '--fused-inference'],
+}
+
+
+@pytest.mark.parametrize('case', list(DIFF_CASES))
+def test_diffusion_matches_the_jax_command(ws, dws, monkeypatch, case):
+    from inferbiomechanics_tpu_torch.models import diffusion as port_diffusion
+    monkeypatch.setattr(port_diffusion, 'chain_noise', _jax_chain_noise)
+    flags = {side: list(DIFF_CASES[case]) for side in ('jax', 'port')}
+    if '--diffusion-partial' in DIFF_CASES[case]:
+        for side in flags:
+            flags[side] += ['--init-checkpoint', str(dws / f'{side}_proposal')]
+    out = {}
+    for side, run in (('jax', _run_jax), ('port', _run_port)):
+        d = dws / side / 'diffusion'
+        _fresh(*(d / f'{s}_analysis.csv' for s in ('dev', 'train')))
+        argv = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir',
+                str(dws / side), '--no-wandb', *DIFF_ARCH, '--batch-size', str(BATCH),
+                *flags[side]]
+        launches = fe.launches
+        out[side] = run(argv + (['--device', 'cpu'] if side == 'port' else []))
+        assert fe.launches == launches
+    for side in ('jax', 'port'):
+        assert ('evaluating EMA parameters' in out[side]) == ('--use-ema' in flags[side])
+        assert ('partial denoising from' in out[side]) == ('--diffusion-partial' in flags[side])
+        assert ('classifier-free guidance scale 2.0' in out[side]) == (case == 'partial_cfg_ema')
+    partial = '--diffusion-partial' in flags['port']
+    for split in ('dev', 'train'):
+        want, got = _report(out['jax'], split), _report(out['port'], split)
+        for k in REPORT:
+            assert got[k] == pytest.approx(want[k], rel=2e-2 if partial else 5e-2), (split, k)
+        rows, jrows = (_rows(str(dws / side / 'diffusion' / f'{split}_analysis.csv'))
+                       for side in ('port', 'jax'))
+        if partial:
+            _assert_rows_close(rows, jrows, 2e-2, split)
+            continue
+        # a chain from the top of the schedule: x0 = 8 sign(x_t - eps) at its
+        # first step, and near-ties flip on bf16-level differences (see
+        # tests/test_torch_diffusion.py); 90% of each column's rows hold 5e-2
+        assert [r[:2] for r in rows] == [r[:2] for r in jrows] and len(rows) > 0
+        g, w = (np.asarray([r[2:] for r in x], float) for x in (rows, jrows))
+        close = np.abs(g - w) <= 5e-2 * np.abs(w).max(axis=0)
+        assert (close.mean(axis=0) >= 0.9).all(), (split, close.mean(axis=0))
+
+
+def test_diffusion_rows_are_equal_run_to_run_and_draw_from_seed_7(ws, dws):
+    """Two runs write the same rows, and each batch's row is the sampler's
+    answer with a generator seeded 7 for that batch."""
+    from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
+    from inferbiomechanics_tpu_torch.models import diffusion as port_diffusion
+    from inferbiomechanics_tpu_torch.data.dataset import unpack
+    from inferbiomechanics_tpu_torch.train.checkpoint import load_latest_checkpoint
+    from inferbiomechanics_tpu_torch.train.loop import loss_config_from
+    assert port_diffusion.chain_noise(7, 1) is None
+    d = dws / 'port' / 'diffusion'
+    runs = []
+    for _ in range(2):
+        _fresh(*(d / f'{s}_analysis.csv' for s in ('dev', 'train')))
+        _run_port(['analyze', '--dataset-home', ws['data'], '--checkpoint-dir',
+                   str(dws / 'port'), '--no-wandb', *DIFF_ARCH, '--device', 'cpu',
+                   '--batch-size', str(BATCH)])
+        runs.append(_rows(str(d / 'dev_analysis.csv')))
+    assert runs[0] == runs[1] and len(runs[0]) == 98
+    cfg = config_from_args(build_parser().parse_args(['analyze', *DIFF_ARCH]))
+    ds = WindowDataset(os.path.join(ws['data'], 'dev'), window_size=50, stride=5,
+                       output_data_format='all_frames', skip_loading_skeletons=True)
+    model = build_model_for_dataset(cfg, ds)
+    load_latest_checkpoint(model, str(d))
+    sampler = port_diffusion.make_sampler(model.eval(), num_steps=50)
+    for i in (0, 28):
+        batch = ds.gather(np.arange(i * BATCH, (i + 1) * BATCH))
+        out = sampler(model, torch.from_numpy(batch.inputs), torch.Generator().manual_seed(7))
+        m = loss_and_metrics(out, unpack(torch.from_numpy(batch.labels), ds.lab_offsets),
+                             loss_config_from(cfg))[1]
+        assert [float(r) for r in runs[0][i * BATCH][2:]] == pytest.approx(
+            [float(m[k]) for k in ROW_KEYS], rel=1e-6), i
+
+

@@ -412,3 +412,42 @@ def test_captured_chunks_are_per_step_calls_bitwise(cuda, tmp_path, model_type, 
     assert chunked.step == per.step == len(idx)
     for (n, p), q in zip(model.named_parameters(), model_c.parameters()):
         assert torch.equal(p, q), n
+
+
+@pytest.mark.parametrize('batch,kw', [(1, {}), (2, {'eta': 1.0}),
+                                      (64, {'guidance_scale': 2.0})])
+def test_diffusion_chain_through_k2_matches_the_plain_chain(cuda, monkeypatch, batch, kw):
+    """The full-width denoiser's 50-step chain with every layer through K2
+    against the same chain through K2's plain version, same generator: each
+    step's eps on the plain chain's own x_t within 5e-2 x max|plain| (the JAX
+    suite's limit for its fused forward against model.apply), four launches
+    a step; the chains' answers finite and on 75% of each head's elements
+    within 5e-2 x max (a chain from the top of the schedule flips x0's sign
+    where x_t and eps nearly tie: 3-8% of a head's elements in chip_smoke.py on an H100 at
+    guidance 2)."""
+    from inferbiomechanics_tpu_torch.models import diffusion, get_model
+    model = get_model('diffusion', num_dofs=23, num_contact_bodies=2, history_len=50,
+                      stride=5, root_history_len=10,
+                      generator=torch.Generator().manual_seed(batch), device=cuda).eval()
+    cond = torch.randn(batch, 10, 177, generator=torch.Generator().manual_seed(1)).to(cuda)
+    sampler = diffusion.make_sampler(model, num_steps=50, fused_inference=True, **kw)
+    fe.launches = 0
+    trace = []
+    got = sampler(model, cond, torch.Generator(device=cuda).manual_seed(0))
+    assert fe.launches == 4 * 50
+    with monkeypatch.context() as m:
+        m.setattr(fe, 'fused_encoder_layer', lambda x, layer, heads:
+                  fe.encoder_layer_reference(x, layer.params, heads))
+        want = sampler(model, cond, torch.Generator(device=cuda).manual_seed(0), trace=trace)
+    rows = torch.cat([cond, torch.zeros_like(cond)]) if 'guidance_scale' in kw else cond
+    with torch.no_grad():
+        for t, x in trace:
+            xb = torch.cat([x, x]) if 'guidance_scale' in kw else x
+            tb = torch.full((xb.shape[0],), t, device=cuda)
+            a = diffusion.fused_denoiser_eps(model, xb, tb, rows)
+            b = diffusion.fused_denoiser_eps(model, xb, tb, rows, use_kernel=False)
+            assert (a - b).abs().max() <= 5e-2 * b.abs().max(), t
+    for k in want:
+        assert torch.isfinite(got[k]).all()
+        close = (got[k] - want[k]).abs() <= 5e-2 * want[k].abs().max()
+        assert close.float().mean() >= 0.75, k

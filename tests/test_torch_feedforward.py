@@ -211,6 +211,18 @@ def test_unported_model_types_name_their_roadmap_slice(model_type):
         with pytest.raises(ValueError, match='ROADMAP.md lists the banded lowering'):
             get_model(model_type, **SMALL, conv_impl='banded')
         return
+    if model_type == 'diffusion':
+        # ported for sampling: the denoiser builds on the vpu tree and
+        # predicts the noise of the 30 target channels; the flax tree is on
+        # the not-to-port list
+        model = get_model(model_type, **SMALL, d_model=128, num_heads=4).eval()
+        with torch.no_grad():
+            eps = model(torch.zeros(2, 4, 30), torch.tensor([0, 999]),
+                        torch.from_numpy(_inputs(2)))
+        assert eps.shape == (2, 4, 30) and torch.isfinite(eps).all()
+        with pytest.raises(NotImplementedError, match="ROADMAP.md's not-to-port list"):
+            get_model(model_type, **SMALL, attn_impl='flax')
+        return
     extra = ({'dropout': True, 'dropout_prob': 0.1}
              if model_type == 'transformer' else {})
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):

@@ -76,6 +76,16 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
             assert all(np.asarray(v).shape[0] == 3 and np.isfinite(v).all()
                        for v in out.values())
             print('predicted', model_type, len(out))
+        cfg = Config()
+        cfg.model_type, cfg.window_size, cfg.output_data_format = 'diffusion', 20, 'all_frames'
+        cfg.d_model, cfg.num_layers, cfg.num_heads = 128, 1, 4
+        cfg.diffusion_timesteps, cfg.fused_inference = 16, True
+        svc = InferenceService(cfg, 'ckpt', ds, max_batch=8, device='cpu', sample_steps=2,
+                               diffusion_samples=2)
+        out, spread = svc.predict_packed(x, with_spread=True)
+        assert all(v.shape[0] == 3 and np.isfinite(v).all() for v in out.values())
+        assert set(spread) == set(out)
+        print('predicted diffusion', len(out))
         assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
         assert jax_package_modules() == [], jax_package_modules()
     """, tmp_path)
@@ -86,10 +96,10 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'ops.losses', 'loss.evaluator', 'train.optimizers', 'train.state',
                    'train.step', 'train.device_data', 'data.loader', 'train.run_config',
                    'train.loop', 'cli.train_cmd', 'cli.analyze_cmd', 'cli.motion',
-                   'utils.wandb_compat'):
+                   'utils.wandb_compat', 'models.diffusion'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
-    assert 'predicted groundlink 4' in out
+    assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out
 
 
 def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
@@ -113,6 +123,7 @@ def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
         assert 'inferbiomechanics_tpu_torch.serve' in sys.modules
         assert 'inferbiomechanics_tpu_torch.ops.fused_encoder' in sys.modules
         assert 'inferbiomechanics_tpu_torch.ops.fused_groundlink' in sys.modules
+        assert 'inferbiomechanics_tpu_torch.models.diffusion' in sys.modules
         assert jax_package_modules() == [], jax_package_modules()
         assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
         print('imported', ' '.join(sorted(names)))

@@ -43,6 +43,7 @@ from inferbiomechanics_tpu.train.augment import (
 )
 from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset as PortWindowDataset
+from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.serve import InferenceService, serve
 from inferbiomechanics_tpu_torch.train import checkpoint as port_ckpt
 from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
@@ -272,11 +273,27 @@ def test_untrained_model_when_no_checkpoint(setup, tmp_path):
     {'init_checkpoint': 'x'}, {'config': {'model_type': 'diffusion'}},
 ])
 def test_unported_serving_options_raise(setup, option):
+    """``quantize`` is not ported; the options that are refuse what
+    the JAX service refuses, in its words: EMA weights the checkpoint does
+    not carry, the diffusion options on a feedforward model, a diffusion
+    model that does not predict all frames."""
     cfg = _config()
     for k, v in option.pop('config', {}).items():
         setattr(cfg, k, v)
-    with pytest.raises((ValueError, NotImplementedError),
-                       match='not yet ported|not ported yet'):
+    if 'quantize' in option:
+        with pytest.raises(ValueError, match='quantize is not yet ported'):
+            InferenceService(cfg, setup['ckpt'], setup['ds'], device='cpu', **option)
+        return
+    match = {'use_ema': '--use-ema: checkpoint .* carries no ema_params',
+             'diffusion_samples': '--diffusion-samples applies to --model-type diffusion',
+             'diffusion_partial': '--diffusion-partial applies to --model-type diffusion',
+             'init_checkpoint': '--init-checkpoint only does something with '
+                                '--diffusion-partial'}.get(
+        next(iter(option), None),
+        'serve --model-type diffusion requires --output-data-format all_frames')
+    with pytest.raises(ValueError, match=match):
+        JaxService(cfg, setup['ckpt'], setup['ds'], **option)
+    with pytest.raises(ValueError, match=match):
         InferenceService(cfg, setup['ckpt'], setup['ds'], device='cpu', **option)
 
 
@@ -902,3 +919,272 @@ def test_serve_command_polls_for_checkpoints(setup, tmp_path):
     finally:
         server.server_close()
         service.close()
+
+
+# -- the diffusion denoiser ---------------------------------------------------------
+
+# Sampled answers, relative to the JAX answer's largest value per head: a
+# chain that starts part way down the schedule (--diffusion-partial) at
+# 5e-2, the JAX suite's limit for its fused forward against model.apply; a
+# chain from the top of the schedule, where x0 is 8 x sign(x_t - eps) at the
+# first step and near-ties flip on bf16-level differences, at 5e-2 on 90% of
+# each head's elements (tests/test_torch_diffusion.py measures the JAX
+# sampler's own f32 and bf16 chains apart by more on up to 5.7%).
+DIFF_REL = 5e-2
+SAMPLE_STEPS = 6
+
+
+def _diffusion_config():
+    cfg = _transformer_config()
+    cfg.model_type, cfg.output_data_format = 'diffusion', 'all_frames'
+    cfg.diffusion_timesteps = 64
+    return cfg
+
+
+def _chain_noise(seed, samples):
+    """``models.diffusion.chain_noise`` fed with the JAX service's draws:
+    ``PRNGKey(seed)``, or its ``samples`` splits stacked sample-major."""
+    keys = ([jax.random.PRNGKey(seed)] if samples == 1
+            else list(jax.random.split(jax.random.PRNGKey(seed), samples)))
+    cache = {}
+
+    def noise(i, shape, device):
+        if shape not in cache:
+            per = (shape[0] // samples,) + tuple(shape[1:])
+            chains = []
+            for key in keys:
+                rng, rng0 = jax.random.split(key)
+                draws = [jax.random.normal(rng0, per, jnp.float32)]
+                for _ in range(SAMPLE_STEPS):
+                    rng, rng_z = jax.random.split(rng)
+                    draws.append(jax.random.normal(rng_z, per, jnp.float32))
+                chains.append([np.asarray(d) for d in draws])
+            cache[shape] = [np.concatenate([c[j] for c in chains])
+                            for j in range(SAMPLE_STEPS + 1)]
+        return torch.from_numpy(cache[shape][i].copy()).to(device)
+
+    return noise
+
+
+def _denoiser_weights(ds, seed):
+    """A seeded flax init of the denoiser with biases moved off zero, and an
+    EMA tree that differs from it."""
+    from inferbiomechanics_tpu.models.diffusion import DiffusionDenoiser as JaxDenoiser
+    jm = JaxDenoiser(num_dofs=ds.num_dofs, num_contact_bodies=ds.num_contact_bodies,
+                     history_len=20, stride=5, d_model=128, num_layers=2,
+                     num_heads=4, timesteps=64)
+    params = jax.device_get(jm.init({'params': jax.random.PRNGKey(seed)},
+                                    jnp.zeros((2, 4, 30)), jnp.zeros((2,), jnp.int32),
+                                    jnp.zeros((2, 4, ds.num_input_channels)))['params'])
+    rng = np.random.default_rng(seed)
+    params = jax.tree_util.tree_map(
+        lambda p: (np.asarray(p) + (0.1 * rng.normal(size=p.shape) if p.ndim == 1 else 0)
+                   ).astype(np.float32), params)
+    ema = jax.tree_util.tree_map(
+        lambda p: (p * (1 + 0.05 * rng.normal(size=p.shape))).astype(np.float32), params)
+    return jm, params, ema
+
+
+def _write_denoiser(ckpt, ds, seed, epoch):
+    """The same denoiser (and EMA) as a JAX and as a port checkpoint in
+    ``ckpt``, with the run_config sidecar (normalized target space)."""
+    from inferbiomechanics_tpu.train.state import TrainState
+    from inferbiomechanics_tpu_torch.weights import diffusion_state_dict_from_jax
+    jm, params, ema = _denoiser_weights(ds, seed)
+    tx = make_optimizer('adam', 1e-3)
+    jax_save(ckpt, TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                              opt_state=tx.init(params), batch_stats={}, tx=tx,
+                              apply_fn=jm.apply), epoch, 0, ema_params=ema)
+    model = build_model_for_dataset(_diffusion_config(), ds)
+    model.load_state_dict(diffusion_state_dict_from_jax(params))
+    port_ckpt.save_checkpoint(ckpt, model, epoch, 0,
+                              ema_params=diffusion_state_dict_from_jax(ema))
+    save_run_config(ckpt, _diffusion_config())
+    return model
+
+
+@pytest.fixture(scope='module')
+def dsetup(setup, tmp_path_factory):
+    root = tmp_path_factory.mktemp('torchserve_diffusion')
+    ds = WindowDataset(str(setup['data']), window_size=20, stride=5,
+                       output_data_format='all_frames', skip_loading_skeletons=True)
+    ckpt = str(root / 'diffusion')
+    _write_denoiser(ckpt, ds, 5, 1)
+    # the --diffusion-partial proposal: a feedforward all-frames model, no
+    # sidecar (both services build it from the config's flags)
+    pcfg = _config()
+    pcfg.output_data_format = 'all_frames'
+    pstate = create_train_state(jax_build(pcfg, ds), jax.random.PRNGKey(6),
+                                jnp.asarray(ds.gather(np.arange(4)).inputs),
+                                make_optimizer('adam', 1e-3))
+    proposal = str(root / 'proposal')
+    jax_save(proposal, pstate, 0, 0)
+    pmodel = build_model_for_dataset(pcfg, ds)
+    pmodel.load_state_dict(feedforward_state_dict_from_jax(jax.device_get(pstate.params)))
+    port_ckpt.save_checkpoint(proposal, pmodel, 0, 0)
+    return dict(setup, ds=ds, ckpt=ckpt, proposal=proposal,
+                x=np.asarray(ds.gather(np.arange(4)).inputs))
+
+
+def _assert_chains_close(got, want, partial, what=''):
+    assert set(got) == set(want) and len(want) == 4
+    for k in want:
+        a, b = np.asarray(want[k]), np.asarray(got[k])
+        assert b.shape == a.shape and np.isfinite(b).all(), (what, k)
+        close = np.abs(b - a) <= DIFF_REL * np.abs(a).max()
+        assert close.all() if partial else close.mean() >= 0.9, (what, k, close.mean())
+
+
+# case -> service options besides max_batch and sample_steps
+DIFF_SERVICES = {
+    'single': {},
+    'samples3': {'diffusion_samples': 3},
+    'partial': {'diffusion_partial': 0.3},
+    'partial_samples3_ema': {'diffusion_partial': 0.3, 'diffusion_samples': 3,
+                             'use_ema': True},
+}
+
+
+@pytest.mark.parametrize('case', list(DIFF_SERVICES))
+def test_diffusion_service_matches_jax(dsetup, monkeypatch, case):
+    from inferbiomechanics_tpu_torch.models import diffusion as port_diffusion
+    monkeypatch.setattr(port_diffusion, 'chain_noise', _chain_noise)
+    opts = dict(DIFF_SERVICES[case], max_batch=8, sample_steps=SAMPLE_STEPS)
+    if 'diffusion_partial' in opts:
+        opts['init_checkpoint'] = dsetup['proposal']
+    cfg, x = _diffusion_config(), dsetup['x']
+    jax_svc = JaxService(cfg, dsetup['ckpt'], dsetup['ds'], **opts)
+    port_svc = InferenceService(cfg, dsetup['ckpt'], dsetup['ds'], device='cpu', **opts)
+    want, want_spread = jax_svc.predict_packed(x, with_spread=True)
+    got, spread = port_svc.predict_packed(x, with_spread=True)
+    partial = 'diffusion_partial' in opts
+    _assert_chains_close(got, want, partial, case)
+    if opts.get('diffusion_samples', 1) == 1:
+        assert spread is None and want_spread is None
+    else:
+        _assert_chains_close(spread, want_spread, partial, f'{case} spread')
+    schema, jschema = port_svc.schema(), jax_svc.schema()
+    for key in ('diffusion_sample_steps', 'diffusion_samples', 'use_ema',
+                'fused_inference', *SHARED_SCHEMA_KEYS):
+        assert schema[key] == jschema[key], key
+    assert schema['diffusion_sample_steps'] == SAMPLE_STEPS
+
+
+def test_diffusion_samples_are_stacked_chains_with_the_population_std(dsetup, monkeypatch):
+    """K chains in one batch of K x B rows: their mean, and the std with
+    ddof 0 (as jnp.std), of the chains that K services of one chain each
+    answer with the draws of the K keys."""
+    from inferbiomechanics_tpu_torch.models import diffusion as port_diffusion
+    cfg, x, k = _diffusion_config(), dsetup['x'], 3
+    monkeypatch.setattr(port_diffusion, 'chain_noise', _chain_noise)
+    svc = InferenceService(cfg, dsetup['ckpt'], dsetup['ds'], max_batch=8,
+                           sample_steps=SAMPLE_STEPS, diffusion_samples=k, device='cpu')
+    launches = fe.launches
+    mean, spread = svc.predict_packed(x, with_spread=True)
+    assert fe.launches == launches           # the plain layer on the CPU
+    keys = jax.random.split(jax.random.PRNGKey(0), k)
+    chains = []
+    for key in keys:
+        monkeypatch.setattr(port_diffusion, 'chain_noise',
+                            lambda seed, samples, key=key: _single_key_noise(key))
+        one = InferenceService(cfg, dsetup['ckpt'], dsetup['ds'], max_batch=8,
+                               sample_steps=SAMPLE_STEPS, device='cpu')
+        chains.append(one.predict_packed(x))
+    for name in mean:
+        stack = np.stack([c[name] for c in chains])
+        np.testing.assert_allclose(mean[name], stack.mean(0), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(spread[name], stack.std(0), rtol=1e-4, atol=1e-5)
+        assert not np.allclose(spread[name], stack.std(0, ddof=1))
+
+
+def _single_key_noise(key):
+    def noise(i, shape, device):
+        rng, rng0 = jax.random.split(key)
+        draw = jax.random.normal(rng0, shape, jnp.float32)
+        for _ in range(i):
+            rng, rng_z = jax.random.split(rng)
+            draw = jax.random.normal(rng_z, shape, jnp.float32)
+        return torch.from_numpy(np.array(draw)).to(device)
+    return noise
+
+
+def test_diffusion_reload_swaps_the_denoiser_only(dsetup, tmp_path):
+    """/reload and the poller load the newer checkpoint's EMA weights with
+    ``use_ema``; the partial chains' proposal stays as loaded."""
+    from inferbiomechanics_tpu_torch.models import diffusion as port_diffusion
+    ckpt = str(tmp_path / 'diffusion')
+    _write_denoiser(ckpt, dsetup['ds'], 5, 1)
+    cfg, x = _diffusion_config(), dsetup['x']
+    svc = InferenceService(cfg, ckpt, dsetup['ds'], max_batch=8, sample_steps=SAMPLE_STEPS,
+                           use_ema=True, diffusion_partial=0.3,
+                           init_checkpoint=dsetup['proposal'], device='cpu')
+    before = svc.predict_packed(x)
+    assert svc.reload()['reloaded'] is False
+    _write_denoiser(ckpt, dsetup['ds'], 7, 2)
+    svc.start_reload_poller(0.1)
+    try:
+        deadline = time.time() + 20.0
+        while time.time() < deadline and svc.epoch != 2:
+            time.sleep(0.05)
+        assert (svc.epoch, svc.batch) == (2, 0)
+    finally:
+        svc.close()
+    after = svc.predict_packed(x)
+    # the same chain by hand: the new EMA weights, the proposal's start
+    model = build_model_for_dataset(cfg, dsetup['ds'])
+    model.load_state_dict(port_ckpt.require_ema_params(
+        port_ckpt.resolve_checkpoint_path(ckpt)))
+    model.eval()
+    propose = port_diffusion.make_partial_proposal_fn(
+        cfg, dsetup['ds'], dsetup['proposal'])
+    xt = torch.from_numpy(x)
+    sampler = port_diffusion.make_sampler(model, num_steps=SAMPLE_STEPS,
+                                          fused_inference=True, partial_frac=0.3)
+    want = sampler(model, xt, torch.Generator().manual_seed(0), init=propose(xt))
+    for k in after:
+        np.testing.assert_array_equal(after[k], want[k].numpy())
+        assert not np.allclose(after[k], before[k])
+
+
+def test_serve_command_serves_diffusion(dsetup):
+    """The command's diffusion flags reach the service."""
+    args = build_parser().parse_args([
+        'serve', '--device', 'cpu', '--port', '0', '--dataset-home', str(dsetup['data']),
+        '--checkpoint-dir', str(Path(dsetup['ckpt']).parent), '--model-type', 'diffusion',
+        '--output-data-format', 'all_frames', '--history-len', '20', '--stride', '5',
+        '--d-model', '128', '--num-layers', '2', '--num-heads', '4',
+        '--diffusion-timesteps', '64', '--fused-inference', '--sample-steps', '3',
+        '--hidden-dims', '64', '64',
+        '--diffusion-samples', '2', '--use-ema', '--diffusion-partial', '0.5',
+        '--init-checkpoint', dsetup['proposal']])
+    assert build_parser().parse_args(['serve']).sample_steps == 50
+    svc, server = start(args)
+    try:
+        s = svc.schema()
+        assert (s['diffusion_sample_steps'], s['diffusion_samples'], s['use_ema'],
+                s['fused_inference']) == (3, 2, True, True)
+        url = f'http://127.0.0.1:{server.server_address[1]}'
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        r = _post(url + '/predict', {'inputs': dsetup['x'].tolist(), 'spread': True})
+        assert r['batch'] == 4 and set(r['spread']) == set(r['outputs'])
+        assert all(np.asarray(v).shape == (4, 4, 6 if 'Wrench' not in k else 12)
+                   for k, v in r['outputs'].items())
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+
+@pytest.mark.parametrize('option,match', [
+    ({'ensemble': ['a', 'b']}, 'ensembles are not supported for diffusion serving'),
+    ({'quantize': 'int8'}, r'--quantize int8 serves a single feedforward checkpoint'),
+    ({'tta_mirror': True}, r'--tta-mirror serves the learned-model paths'),
+    ({'diffusion_samples': 0}, '--diffusion-samples must be >= 1'),
+])
+def test_diffusion_service_refusals_are_the_jax_refusals(dsetup, option, match):
+    for make in (lambda: JaxService(_diffusion_config(), dsetup['ckpt'], dsetup['ds'],
+                                    **option),
+                 lambda: InferenceService(_diffusion_config(), dsetup['ckpt'], dsetup['ds'],
+                                          device='cpu', **option)):
+        with pytest.raises(ValueError, match=match):
+            make()
