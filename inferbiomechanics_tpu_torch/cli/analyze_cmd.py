@@ -56,11 +56,8 @@ from inferbiomechanics_tpu_torch.models import diffusion
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 from inferbiomechanics_tpu_torch.serve import InferenceService, resolve_device
 from inferbiomechanics_tpu_torch.train.augment import make_tta_eval_step, spec_from_dataset
-from inferbiomechanics_tpu_torch.train.checkpoint import (
-    load_checkpoint_file, load_latest_checkpoint, require_ema_params,
-    resolve_checkpoint_path,
-)
-from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset, loss_config_from
+from inferbiomechanics_tpu_torch.train.checkpoint import MissingEMAError, load_model
+from inferbiomechanics_tpu_torch.train.loop import loss_config_from
 from inferbiomechanics_tpu_torch.train.run_config import (
     add_run_config_flag, use_run_config_if_requested, warn_on_architecture_mismatch,
 )
@@ -222,48 +219,44 @@ def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDatas
     if args.tta_mirror:
         raise SystemExit('--tta-mirror supports the learned-model eval paths '
                          '(not analytical/diffusion/quantized)')
-    model = build_model_for_dataset(
-        config, ds, generator=torch.Generator().manual_seed(0), device=device)
-    if args.checkpoint_file:
-        load_checkpoint_file(model, args.checkpoint_file)
-    else:
-        epoch, _ = load_latest_checkpoint(model, checkpoint_dir)
-        if epoch < 0:
-            print(f'WARNING: no checkpoint found in {checkpoint_dir}')
+    model = _load(config, ds, checkpoint_dir, args, device,
+                  f'WARNING: no checkpoint found in {checkpoint_dir}')
     if args.use_ema:
-        path = args.checkpoint_file or resolve_checkpoint_path(checkpoint_dir)
-        try:
-            model.load_state_dict(require_ema_params(path))
-        except ValueError as e:
-            raise SystemExit(str(e))
         print('evaluating EMA parameters')
-    model.eval()
     _pack_for_eval(model, config.fused_inference)
-    partial = args.diffusion_partial
-    tspace = diffusion.checkpoint_target_space(checkpoint_dir)
-    sampler = diffusion.make_sampler(
-        model, diffusion.DDPMSchedule(config.diffusion_timesteps), num_steps=50,
-        fused_inference=config.fused_inference, guidance_scale=config.guidance_scale,
-        partial_frac=partial, target_space=tspace)
+    try:
+        forward = diffusion.make_chain_forward(
+            config, ds, model, checkpoint_dir, num_steps=50, seed=7,
+            partial=args.diffusion_partial, init_checkpoint=args.init_checkpoint,
+            fused_inference=config.fused_inference, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     if config.guidance_scale != 1.0:
         print(f'classifier-free guidance scale {config.guidance_scale}')
-    propose = None
-    if partial is not None:
-        try:
-            propose = diffusion.make_partial_proposal_fn(
-                config, ds, args.init_checkpoint, target_space=tspace, device=device)
-        except ValueError as e:
-            raise SystemExit(str(e))
-        print(f'partial denoising from {args.init_checkpoint} at frac {partial}')
-    noise = diffusion.chain_noise(7, 1)
+    if args.diffusion_partial is not None:
+        print(f'partial denoising from {args.init_checkpoint} at frac '
+              f'{args.diffusion_partial}')
 
     def predict(x: np.ndarray) -> Dict[str, torch.Tensor]:
-        xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-        init = propose(xt) if propose is not None else None
-        gen = torch.Generator(device=device).manual_seed(7)
-        return sampler(model, xt, gen, init=init, noise=noise)
+        return forward(model, torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
 
     return predict
+
+
+def _load(config: Config, ds: WindowDataset, checkpoint_dir: str,
+          args: argparse.Namespace, device: torch.device, missing: str):
+    """The model to evaluate, from ``--checkpoint-file`` or the newest
+    checkpoint in ``checkpoint_dir`` (printing ``missing`` when there is
+    none), its EMA weights with ``--use-ema``."""
+    try:
+        model, epoch, _ = load_model(config, ds, checkpoint_dir,
+                                     checkpoint_file=args.checkpoint_file,
+                                     use_ema=args.use_ema, device=device)
+    except MissingEMAError as e:
+        raise SystemExit(str(e))
+    if epoch < 0:
+        print(missing)
+    return model
 
 
 def analyze(args: argparse.Namespace) -> Dict[str, dict]:
@@ -310,16 +303,8 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                         for k, v in svc.predict_packed(x).items()}
             eval_fn = None
         else:
-            model = build_model_for_dataset(
-                config, ds, generator=torch.Generator().manual_seed(0), device=device)
-            if args.checkpoint_file:
-                load_checkpoint_file(model, args.checkpoint_file)
-            else:
-                epoch, _ = load_latest_checkpoint(model, checkpoint_dir)
-                if epoch < 0:
-                    print(f'WARNING: no checkpoint found in {checkpoint_dir}; '
-                          f'evaluating a fresh model')
-            model.eval()
+            model = _load(config, ds, checkpoint_dir, args, device, 'WARNING: no '
+                          f'checkpoint found in {checkpoint_dir}; evaluating a fresh model')
             _pack_for_eval(model)
             if args.tta_mirror:
                 spec = spec_from_dataset(ds, lateral_axis=config.mirror_lateral_axis)

@@ -10,6 +10,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from inferbiomechanics_tpu_torch.config import Config
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
 from inferbiomechanics_tpu_torch.models.common import (
     output_head_size, pack_inputs, slice_output_heads,
 )
@@ -92,8 +94,37 @@ def get_model(model_type: str,
     raise ValueError(f'unknown model type {model_type!r}; expected one of {MODEL_TYPES}')
 
 
+def build_model_for_dataset(config: Config, ds: WindowDataset, *,
+                            generator: Optional[torch.Generator] = None,
+                            device=None):
+    """The model ``config`` names, sized to ``ds``'s layouts, on ``device``."""
+    return get_model(
+        config.model_type,
+        num_dofs=ds.num_dofs,
+        num_contact_bodies=ds.num_contact_bodies,
+        history_len=config.window_size,
+        stride=config.stride,
+        root_history_len=ds.root_history_len,
+        output_data_format=config.output_data_format,
+        activation=config.activation,
+        hidden_dims=config.hidden_dims,
+        batchnorm=config.batchnorm,
+        dropout=config.dropout,
+        dropout_prob=config.dropout_prob,
+        d_model=config.d_model,
+        num_layers=config.num_layers,
+        num_heads=config.num_heads,
+        attn_impl=config.attn_impl,
+        conv_impl=config.conv_impl,
+        diffusion_timesteps=config.diffusion_timesteps,
+        init_style=config.init_style,
+        generator=generator,
+        device=device,
+    )
+
+
 __all__ = [
-    'get_model', 'MODEL_TYPES', 'DiffusionDenoiser', 'FeedForwardBaseline', 'Groundlink',
-    'TransformerRegressor',
+    'build_model_for_dataset', 'get_model', 'MODEL_TYPES', 'DiffusionDenoiser',
+    'FeedForwardBaseline', 'Groundlink', 'TransformerRegressor',
     'pack_inputs', 'slice_output_heads', 'output_head_size',
 ]

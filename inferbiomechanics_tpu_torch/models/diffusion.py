@@ -347,8 +347,7 @@ def make_partial_proposal_fn(config, dataset, init_checkpoint,
     eval forward: K1 for the feedforward model, K4 for GroundLink, K2 for a
     ``pallas`` transformer on a CUDA tensor. Raises ``ValueError`` as the
     JAX package does, in its words."""
-    from inferbiomechanics_tpu_torch.train.checkpoint import load_latest_checkpoint
-    from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+    from inferbiomechanics_tpu_torch.train.checkpoint import load_model
     from inferbiomechanics_tpu_torch.train.run_config import (
         apply_architecture, load_run_config,
     )
@@ -385,14 +384,11 @@ def make_partial_proposal_fn(config, dataset, init_checkpoint,
         raise NotImplementedError(
             f'--init-checkpoint {init_checkpoint}: a feedforward proposal with '
             f'batchnorm or dropout is not ported yet ({_DROPOUT_SLICE})')
-    prop_model = build_model_for_dataset(
-        prop_config, dataset, generator=torch.Generator().manual_seed(0),
-        device=device)
-    epoch, _batch = load_latest_checkpoint(prop_model, init_checkpoint)
+    prop_model, epoch, _batch = load_model(prop_config, dataset, init_checkpoint,
+                                           device=device)
     if epoch < 0:
         raise ValueError(f'--init-checkpoint: no checkpoint '
                          f'in {init_checkpoint}')
-    prop_model.eval()
 
     def propose(x: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
@@ -563,6 +559,45 @@ def make_sampler(model: DiffusionDenoiser,
     return sample
 
 
+def make_chain_forward(config, dataset, denoiser: DiffusionDenoiser, checkpoint_dir: str,
+                       *, num_steps: int, seed: int, samples: int = 1,
+                       partial: Optional[float] = None,
+                       init_checkpoint: Optional[str] = None,
+                       fused_inference: bool = False, device='cpu'):
+    """The chains that ``serve`` (seed 0) and ``analyze`` (seed 7, 50 steps)
+    run: ``forward(net, x) -> outputs`` for windows ``x`` [B, T, C_in] on
+    ``device``, a ``num_steps`` DDIM chain of ``net`` (``denoiser`` fixes the
+    shapes; a reload swaps ``net``) in the target space of
+    ``checkpoint_dir``'s sidecar, drawn from a generator seeded ``seed`` at
+    each call (or from :func:`chain_noise`'s source), with ``config``'s
+    guidance scale. ``samples`` K > 1 stacks K chains into one batch and
+    returns their mean and spread (:func:`stacked_samples`). ``partial``
+    starts the chains from the proposal of ``init_checkpoint``'s model,
+    loaded once here. Raises ``ValueError`` for a bad option, in the JAX
+    package's words."""
+    tspace = checkpoint_target_space(checkpoint_dir)
+    sampler = make_sampler(denoiser, DDPMSchedule(config.diffusion_timesteps),
+                           num_steps=num_steps, fused_inference=fused_inference,
+                           guidance_scale=config.guidance_scale, partial_frac=partial,
+                           target_space=tspace)
+    propose = None
+    if partial is not None:
+        propose = make_partial_proposal_fn(config, dataset, init_checkpoint,
+                                           target_space=tspace, device=device)
+    noise = chain_noise(seed, samples)
+
+    def forward(net: DiffusionDenoiser, x: torch.Tensor):
+        init = propose(x) if propose is not None else None
+        if samples > 1:
+            x = x.repeat(samples, 1, 1)
+            init = init.repeat(samples, 1, 1) if init is not None else None
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        out = sampler(net, x, gen, init=init, noise=noise)
+        return stacked_samples(out, samples) if samples > 1 else out
+
+    return forward
+
+
 def stacked_samples(outputs: Dict[str, torch.Tensor], samples: int):
     """Outputs of ``samples`` chains stacked sample-major into one batch ->
     their mean and population standard deviation (as ``jnp.std``, ddof 0)."""
@@ -577,6 +612,7 @@ def stacked_samples(outputs: Dict[str, torch.Tensor], samples: int):
 __all__ = [
     'DDPMSchedule', 'DiffusionDenoiser', 'NoiseSource', 'PackedDenoiser',
     'chain_noise', 'checkpoint_target_space', 'diffusion_targets_from_labels',
-    'diffusion_targets_from_outputs', 'fused_denoiser_eps', 'make_partial_proposal_fn',
+    'diffusion_targets_from_outputs', 'fused_denoiser_eps', 'make_chain_forward',
+    'make_partial_proposal_fn',
     'make_sampler', 'stacked_samples', 'target_scales', 'timestep_embedding',
 ]

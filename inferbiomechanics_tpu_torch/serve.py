@@ -62,11 +62,7 @@ from inferbiomechanics_tpu_torch.models.transformer import (
     TransformerRegressor, fused_transformer_forward,
 )
 from inferbiomechanics_tpu_torch.train.augment import spec_from_dataset, tta_average
-from inferbiomechanics_tpu_torch.train.checkpoint import (
-    list_checkpoints, load_checkpoint_file, require_ema_params,
-    resolve_checkpoint_path,
-)
-from inferbiomechanics_tpu_torch.train.loop import build_model_for_dataset
+from inferbiomechanics_tpu_torch.train.checkpoint import list_checkpoints, load_model
 
 logger = logging.getLogger(__name__)
 
@@ -244,7 +240,6 @@ class InferenceService:
         self.max_batch = int(max_batch)
         self.sample_steps = int(sample_steps)
         self.diffusion_samples = int(diffusion_samples)
-        self.diffusion_partial = diffusion_partial
         self.use_ema = bool(use_ema)
         self.members: list = []     # [{path, epoch, batch}] of an ensemble
         self._member_models: list = []
@@ -264,8 +259,13 @@ class InferenceService:
                 logger.warning('no checkpoint found in %s — serving an '
                                'UNTRAINED model', checkpoint_dir)
         self.tta_mirror = bool(tta_mirror)
-        self._forward = (self._make_diffusion_forward(init_checkpoint)
-                         if self.is_diffusion else self._make_forward())
+        # a diffusion chain's proposal is loaded once: a reload swaps the
+        # denoiser only
+        self._forward = (diffusion.make_chain_forward(
+            config, dataset, self.model, checkpoint_dir, num_steps=self.sample_steps,
+            seed=0, samples=self.diffusion_samples, partial=diffusion_partial,
+            init_checkpoint=init_checkpoint, fused_inference=self._use_fused,
+            device=self.device) if self.is_diffusion else self._make_forward())
         self._lock = threading.Lock()
         self._poller: Optional[threading.Thread] = None
         self._poller_stop = threading.Event()
@@ -323,16 +323,9 @@ class InferenceService:
         """A fresh eval-mode model on the device, loaded from the newest
         checkpoint in ``path`` or from ``checkpoint_file``; with ``use_ema``
         its weights are then the checkpoint's EMA weights."""
-        model = build_model_for_dataset(
-            self.config, self.ds,
-            generator=torch.Generator().manual_seed(0), device=self.device)
-        if checkpoint_file is None:
-            checkpoint_file = resolve_checkpoint_path(path)
-        epoch, batch = ((-1, 0) if checkpoint_file is None
-                        else load_checkpoint_file(model, checkpoint_file))
-        if self.use_ema:
-            model.load_state_dict(require_ema_params(checkpoint_file))
-        model.eval()
+        model, epoch, batch = load_model(self.config, self.ds, path,
+                                         checkpoint_file=checkpoint_file,
+                                         use_ema=self.use_ema, device=self.device)
         # the kernels' weights, laid out once per load
         if self._use_fused or not isinstance(
                 model, (TransformerRegressor, diffusion.DiffusionDenoiser)):
@@ -369,36 +362,6 @@ class InferenceService:
             spec = spec_from_dataset(
                 self.ds, lateral_axis=self.config.mirror_lateral_axis)
             forward = tta_average(spec, self.ds.lab_offsets, forward)
-        return forward
-
-    def _make_diffusion_forward(self, init_checkpoint: Optional[str]) -> Callable:
-        """``forward(model, x)`` -> output dict (with ``diffusion_samples``
-        K > 1: the mean and the spread of K chains): a DDIM chain a request,
-        its draws from a generator seeded 0 at each call, started from the
-        proposal of ``init_checkpoint``'s model with ``diffusion_partial``.
-        The proposal is loaded once: a reload swaps the denoiser only."""
-        tspace = diffusion.checkpoint_target_space(self._checkpoint_dir)
-        sampler = diffusion.make_sampler(
-            self.model, num_steps=self.sample_steps, fused_inference=self._use_fused,
-            guidance_scale=self.config.guidance_scale,
-            partial_frac=self.diffusion_partial, target_space=tspace)
-        propose = None
-        if self.diffusion_partial is not None:
-            propose = diffusion.make_partial_proposal_fn(
-                self.config, self.ds, init_checkpoint, target_space=tspace,
-                device=self.device)
-        k = self.diffusion_samples
-        noise = diffusion.chain_noise(0, k)
-
-        def forward(model, x):
-            init = propose(x) if propose is not None else None
-            if k > 1:
-                x = x.repeat(k, 1, 1)
-                init = init.repeat(k, 1, 1) if init is not None else None
-            gen = torch.Generator(device=x.device).manual_seed(0)
-            out = sampler(model, x, gen, init=init, noise=noise)
-            return diffusion.stacked_samples(out, k) if k > 1 else out
-
         return forward
 
     def _fused_inference(self, ensemble: bool) -> bool:

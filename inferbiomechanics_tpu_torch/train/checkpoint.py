@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``inferbiomechanics_tpu/train/checkpoint.py``:
 ``save_checkpoint``, ``list_checkpoints``, ``load_latest_checkpoint``,
-``load_checkpoint_file``, ``warm_start_from`` and ``prune_checkpoints``.
+``load_checkpoint_file``, ``warm_start_from`` and ``prune_checkpoints``;
+``load_model`` builds a model for a config and loads it.
 A checkpoint is ``torch.save`` of
 
     {epoch, batch, model_state_dict,                      always
@@ -12,8 +13,9 @@ A checkpoint is ``torch.save`` of
 written atomically; the loader restores the newest by (epoch, batch) and
 returns ``(-1, 0)`` when there is none. ``ema_params`` is an exponential
 moving average of the parameters, a state dict of the model's keys, under
-the JAX package's key name; ``load_ema_params``, ``resolve_checkpoint_path``
-and ``require_ema_params`` read it for ``--use-ema``. Every function takes either a bare
+the JAX package's key name; ``load_model(..., use_ema=True)`` serves it
+for ``--use-ema``, and ``load_ema_params``, ``resolve_checkpoint_path`` and
+``require_ema_params`` are the JAX package's readers. Every function takes either a bare
 model (serving: parameters only) or a ``TrainState`` (training: the
 optimizer's state and the step count too), and reads both payloads with
 ``weights_only=True``.
@@ -38,6 +40,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -96,11 +99,14 @@ def list_checkpoints(checkpoint_dir: str) -> List[Tuple[int, int, str]]:
     return out
 
 
-def load_checkpoint_file(target: ModelOrState, path: str) -> Tuple[int, int]:
+def load_checkpoint_file(target: ModelOrState, path: str, *,
+                         use_ema: bool = False) -> Tuple[int, int]:
     """Load one checkpoint file into ``target``; returns (epoch, batch). A
     TrainState also gets the optimizer's state and the step back when the
     file holds them and was written by the same kind of optimizer;
-    otherwise the optimizer starts fresh, with a warning."""
+    otherwise the optimizer starts fresh, with a warning. ``use_ema`` then
+    puts the file's EMA parameters in the model (``require_ema_params``'s
+    error when it carries none)."""
     payload = torch.load(path, map_location='cpu', weights_only=True)
     try:
         _model_of(target).load_state_dict(payload['model_state_dict'])
@@ -110,6 +116,8 @@ def load_checkpoint_file(target: ModelOrState, path: str) -> Tuple[int, int]:
             f'built, most commonly a transformer checkpoint written with a '
             f'different --attn-impl, or different --hidden-dims / --d-model / '
             f'--num-layers. Original error: {e}') from e
+    if use_ema:
+        _model_of(target).load_state_dict(_required_ema(payload.get('ema_params'), path))
     if isinstance(target, TrainState):
         if payload.get('opt_type') == target.optimizer.opt_type:
             target.optimizer.load_state_dict(payload['optimizer_state_dict'])
@@ -127,10 +135,8 @@ def load_latest_checkpoint(target: ModelOrState,
                            checkpoint_dir: str) -> Tuple[int, int]:
     """Load the newest checkpoint into ``target``; returns (epoch, batch),
     or (-1, 0) if there is none."""
-    ckpts = list_checkpoints(checkpoint_dir)
-    if not ckpts:
-        return -1, 0
-    return load_checkpoint_file(target, ckpts[-1][2])
+    path = resolve_checkpoint_path(checkpoint_dir)
+    return (-1, 0) if path is None else load_checkpoint_file(target, path)
 
 
 def warm_start_from(state: TrainState, path: str) -> None:
@@ -152,16 +158,46 @@ def resolve_checkpoint_path(checkpoint_dir: str) -> Optional[str]:
     return ckpts[-1][2] if ckpts else None
 
 
+class MissingEMAError(ValueError):
+    """``--use-ema`` on a checkpoint that carries no EMA parameters."""
+
+
+def _required_ema(ema: Optional[Dict[str, torch.Tensor]],
+                  checkpoint_path: Optional[str]) -> Dict[str, torch.Tensor]:
+    if ema is None:
+        raise MissingEMAError(f'--use-ema: checkpoint {checkpoint_path} carries '
+                              f'no ema_params (train with --ema-decay)')
+    return ema
+
+
 def require_ema_params(checkpoint_path: Optional[str]) -> Dict[str, torch.Tensor]:
     """The EMA parameters of ``checkpoint_path`` (a file, from
-    ``resolve_checkpoint_path`` or a --checkpoint-file); raises ValueError
-    with the JAX package's --use-ema guidance when the checkpoint is missing
-    or carries none."""
-    ema = load_ema_params(checkpoint_path) if checkpoint_path else None
-    if ema is None:
-        raise ValueError(f'--use-ema: checkpoint {checkpoint_path} carries '
-                         f'no ema_params (train with --ema-decay)')
-    return ema
+    ``resolve_checkpoint_path`` or a --checkpoint-file); raises
+    ``MissingEMAError`` (a ValueError) with the JAX package's --use-ema
+    guidance when the checkpoint is missing or carries none."""
+    return _required_ema(load_ema_params(checkpoint_path) if checkpoint_path else None,
+                         checkpoint_path)
+
+
+def load_model(config, dataset, checkpoint_dir: Optional[str] = None, *,
+               checkpoint_file: Optional[str] = None, use_ema: bool = False,
+               device=None) -> Tuple[nn.Module, int, int]:
+    """A fresh eval-mode model for ``config`` sized to ``dataset`` on
+    ``device`` (init drawn from seed 0), loaded from ``checkpoint_file`` or
+    else from the newest checkpoint in ``checkpoint_dir``; with ``use_ema``
+    its weights are the checkpoint's EMA weights. Returns (model, epoch,
+    batch); (model, -1, 0) with the fresh weights when there is no
+    checkpoint."""
+    model = build_model_for_dataset(config, dataset,
+                                    generator=torch.Generator().manual_seed(0), device=device)
+    path = checkpoint_file or (resolve_checkpoint_path(checkpoint_dir)
+                               if checkpoint_dir else None)
+    if path is None:
+        if use_ema:
+            _required_ema(None, None)
+        return model.eval(), -1, 0
+    epoch, batch = load_checkpoint_file(model, path, use_ema=use_ema)
+    return model.eval(), epoch, batch
 
 
 def prune_checkpoints(checkpoint_dir: str, keep: int) -> List[str]:

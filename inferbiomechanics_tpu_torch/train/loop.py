@@ -43,7 +43,7 @@ from inferbiomechanics_tpu_torch.data.loader import PrefetchLoader
 from inferbiomechanics_tpu_torch.loss.evaluator import (
     LossConfig, RegressionLossEvaluator,
 )
-from inferbiomechanics_tpu_torch.models import get_model
+from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, list_checkpoints, load_latest_checkpoint, prune_checkpoints,
@@ -84,35 +84,6 @@ def loss_config_from(config: Config) -> LossConfig:
         aux_tau_weight=config.aux_tau_weight,
         aux_com_acc_weight=config.aux_com_acc_weight,
         aux_contact_weight=config.aux_contact_weight,
-    )
-
-
-def build_model_for_dataset(config: Config, ds: WindowDataset, *,
-                            generator: Optional[torch.Generator] = None,
-                            device=None):
-    """The model ``config`` names, sized to ``ds``'s layouts, on ``device``."""
-    return get_model(
-        config.model_type,
-        num_dofs=ds.num_dofs,
-        num_contact_bodies=ds.num_contact_bodies,
-        history_len=config.window_size,
-        stride=config.stride,
-        root_history_len=ds.root_history_len,
-        output_data_format=config.output_data_format,
-        activation=config.activation,
-        hidden_dims=config.hidden_dims,
-        batchnorm=config.batchnorm,
-        dropout=config.dropout,
-        dropout_prob=config.dropout_prob,
-        d_model=config.d_model,
-        num_layers=config.num_layers,
-        num_heads=config.num_heads,
-        attn_impl=config.attn_impl,
-        conv_impl=config.conv_impl,
-        diffusion_timesteps=config.diffusion_timesteps,
-        init_style=config.init_style,
-        generator=generator,
-        device=device,
     )
 
 

@@ -6,6 +6,8 @@ there, so skip the JAX-side conftest):
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 """
 
+import time
+
 import pytest
 import torch
 
@@ -397,9 +399,15 @@ def test_captured_chunks_are_per_step_calls_bitwise(cuda, tmp_path, model_type, 
     fe.launches = fe.bwd_launches = 0
     replays = step_mod.replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the trace's window opens and closes away from the work it counts
+        # (chip_smoke.py::_traced: a window that opened with the work missed
+        # its first kernels once)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         got = [float(r['loss'])
                for r in chunk(chunked, idx[:4]).rows() + chunk(chunked, idx[4:]).rows()]
         torch.cuda.synchronize()
+        time.sleep(0.05)
     assert got == want
     assert step_mod.replays - replays == len(idx) - step_mod.GraphedStep.WARMUP_STEPS
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -417,28 +425,39 @@ def test_captured_chunks_are_per_step_calls_bitwise(cuda, tmp_path, model_type, 
 @pytest.mark.parametrize('batch,kw', [(1, {}), (2, {'eta': 1.0}),
                                       (64, {'guidance_scale': 2.0})])
 def test_diffusion_chain_through_k2_matches_the_plain_chain(cuda, monkeypatch, batch, kw):
-    """The full-width denoiser's 50-step chain with every layer through K2
-    against the same chain through K2's plain version, same generator: each
-    step's eps on the plain chain's own x_t within 5e-2 x max|plain| (the JAX
-    suite's limit for its fused forward against model.apply), four launches
-    a step; the chains' answers finite and on 75% of each head's elements
-    within 5e-2 x max (a chain from the top of the schedule flips x0's sign
-    where x_t and eps nearly tie: 3-8% of a head's elements in chip_smoke.py on an H100 at
-    guidance 2)."""
+    """The full-width denoiser's chains with every layer through K2 against
+    the same chains through K2's plain version, same generator, within
+    5e-2 x max|plain| (the JAX suite's limit for its fused forward against
+    model.apply). The 50-step chain from the top of the schedule: four
+    launches a step, finite answers, and each step's eps on the plain
+    chain's own x_t held to the limit. Its answers are not compared: at its
+    first step x0 = 8 sign(x_t - eps), so where x_t and eps nearly tie a
+    rounding difference flips an element's sign. A partial chain
+    (partial_frac 0.3: from t = 300, 15 steps) is well conditioned, and each
+    head of its answer is held element by element."""
     from inferbiomechanics_tpu_torch.models import diffusion, get_model
     model = get_model('diffusion', num_dofs=23, num_contact_bodies=2, history_len=50,
                       stride=5, root_history_len=10,
                       generator=torch.Generator().manual_seed(batch), device=cuda).eval()
     cond = torch.randn(batch, 10, 177, generator=torch.Generator().manual_seed(1)).to(cuda)
+    init = torch.randn(batch, 10, 30, generator=torch.Generator().manual_seed(2)).to(cuda)
     sampler = diffusion.make_sampler(model, num_steps=50, fused_inference=True, **kw)
+    partial = diffusion.make_sampler(model, num_steps=50, fused_inference=True,
+                                     partial_frac=0.3, **kw)
+
+    def run(trace=None):
+        whole = sampler(model, cond, torch.Generator(device=cuda).manual_seed(0), trace=trace)
+        part = partial(model, cond, torch.Generator(device=cuda).manual_seed(0), init=init)
+        return whole, part
+
     fe.launches = 0
+    got, got_part = run()
+    assert fe.launches == 4 * (50 + 15)
     trace = []
-    got = sampler(model, cond, torch.Generator(device=cuda).manual_seed(0))
-    assert fe.launches == 4 * 50
     with monkeypatch.context() as m:
         m.setattr(fe, 'fused_encoder_layer', lambda x, layer, heads:
                   fe.encoder_layer_reference(x, layer.params, heads))
-        want = sampler(model, cond, torch.Generator(device=cuda).manual_seed(0), trace=trace)
+        _, want_part = run(trace)
     rows = torch.cat([cond, torch.zeros_like(cond)]) if 'guidance_scale' in kw else cond
     with torch.no_grad():
         for t, x in trace:
@@ -447,7 +466,7 @@ def test_diffusion_chain_through_k2_matches_the_plain_chain(cuda, monkeypatch, b
             a = diffusion.fused_denoiser_eps(model, xb, tb, rows)
             b = diffusion.fused_denoiser_eps(model, xb, tb, rows, use_kernel=False)
             assert (a - b).abs().max() <= 5e-2 * b.abs().max(), t
-    for k in want:
-        assert torch.isfinite(got[k]).all()
-        close = (got[k] - want[k]).abs() <= 5e-2 * want[k].abs().max()
-        assert close.float().mean() >= 0.75, k
+    for k in got:
+        assert torch.isfinite(got[k]).all(), k
+        err = (got_part[k] - want_part[k]).abs().max()
+        assert err <= 5e-2 * want_part[k].abs().max(), (k, float(err))
