@@ -133,7 +133,29 @@ Phases, each of which fails the run:
      diffusion --fused-inference`` at B=1 on a dev split of 149 windows (200
      K2 launches a window, rows equal run to run, eval windows/s; with
      ``--diffusion-partial 0.3`` its rows against the plain chains' within
-     5e-2 x each column's max).
+     5e-2 x each column's max);
+  10. diffusion training at full width through the ``train`` command
+     (``--model-type diffusion --output-data-format all_frames --ema-decay
+     0.999 --cond-dropout 0.1 --fused-inference``): at the default B=64 on
+     one subject (148 steps an epoch: two chunks of 64 and a remainder) with
+     a dev split of one batch, 2 epochs traced: one capture, a replay a step
+     after the first two, no K3, the dev eval's K2 launches (200 a dev batch
+     and eval) counted by the wrappers and by name in the trace, the loss
+     falls, EMA in the checkpoint; the same run step by step, and stopped
+     after epoch 0 and resumed, bitwise (parameters, optimizer state, EMA);
+     ``serve --use-ema`` (the answer of the EMA weights' chain) and
+     ``analyze --use-ema`` of the trained checkpoint; the trained weights'
+     dev chain through K2, each step's eps on the plain chain's own x_t
+     within 5e-2 x max|plain|, and a partial chain's answers element by
+     element; 2 epochs at B=4096 on phase 7's 40 subjects; the chunked
+     step's ms by the host clock, device busy ms and idle share, and a dev
+     chain's seconds, at both batches.
+
+Profiler device times (``ops/tune.py::device_times``) come from traces that
+hold every launch of the work (a window opens with 256 launches that are not
+counted, and the device idles 50 ms before and after the work): a kernel's
+time is its duration summed over the launches traced, divided by that count;
+a trace short of ``iters`` x a call's launches fails the run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU, or run outside a checkout
@@ -514,48 +536,31 @@ def _cuda_ms(torch, fn, iters: int = 30, warmup: int = 5) -> float:
 
 
 def _device_us(torch, fn, iters: int = 20):
-    """Device time per call: the summed durations of the GPU kernels that
-    ``torch.profiler`` traced over ``iters`` calls, divided by ``iters``;
-    None if the trace holds no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / iters if total > 0 else None
-
-
-TRACE_MARGIN_S = 0.05
+    """Profiler device time per call (us) of ``fn``'s GPU kernels
+    (``ops/tune.py::device_us``: each kernel's durations summed over the
+    launches the trace holds, divided by that count, times its launches a
+    call); None if the trace holds no device time. A trace of ``iters``
+    calls short of ``iters`` x a call's launches fails the run
+    (``ShortTraceError``, an AssertionError as ``_check`` raises)."""
+    from inferbiomechanics_tpu_torch.ops.tune import device_us
+    total = device_us(fn, iters)
+    return total if total > 0 else None
 
 
 def _traced(torch, fn, names=ENC_KERNELS):
-    """Run ``fn()`` once under ``torch.profiler``; return its result, the GPU
-    kernels in the trace counted by the first of ``names`` their name holds
-    ('other' for the rest), and their summed device time in us. Kernels a
-    CUDA graph replays are in the trace one by one, so this counts the
-    launches no wrapper saw."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a trace whose window opened with the traced work was seen to miss
-        # that work's first ~75 kernels (252 of a chunk's 256 K2 launches,
-        # the first step's forward): the work starts, and the window closes,
-        # TRACE_MARGIN_S away from the device's last work
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
-        result = fn()
-        torch.cuda.synchronize()
-        time.sleep(TRACE_MARGIN_S)
+    """Run ``fn()`` once under ``torch.profiler`` (``ops/tune.py::
+    traced_kernels``: the window opens with launches that are not counted,
+    and the device idles TRACE_MARGIN_S before and after the work); return
+    its result, the GPU kernels of the work in the trace counted by the
+    first of ``names`` their name holds ('other' for the rest), and their
+    summed device time in us. Kernels a CUDA graph replays are in the trace
+    one by one, so this counts the launches no wrapper saw."""
+    from inferbiomechanics_tpu_torch.ops.tune import traced_kernels
+    result, kernels = traced_kernels(fn)
     counts, busy = dict.fromkeys((*names, 'other'), 0), 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            counts[next((n for n in names if n in e.name), 'other')] += 1
-            busy += e.time_range.elapsed_us()
+    for name, us in kernels:
+        counts[next((n for n in names if n in name), 'other')] += 1
+        busy += us
     return result, counts, busy
 
 
@@ -573,21 +578,10 @@ def _check_traced(traced, layers: int, steps: int, forwards: int, shape: str, wh
 
 def _device_us_by_name(torch, fn, names, iters: int = 10) -> dict:
     """Profiler device time per call of the GPU kernels whose name contains
-    one of ``names``, and of all the others together."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {n: 0.0 for n in (*names, 'other')}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = next((n for n in names if n in e.name), 'other')
-            out[key] += e.time_range.elapsed_us() / iters
-    return out
+    one of ``names``, and of all the others together (as :func:`_device_us`,
+    and failing as it does on a trace short of its launches)."""
+    from inferbiomechanics_tpu_torch.ops.tune import device_us_by_name
+    return device_us_by_name(fn, names, iters)[0]
 
 
 def _time_three(torch, fns: dict):
@@ -903,7 +897,7 @@ class _LossLog(logging.Handler):
         self.steps, self.captures = [], []
 
     def emit(self, record):
-        if str(record.msg).startswith('epoch %d batch %d loss'):
+        if str(record.msg).startswith(('epoch %d batch %d loss', 'epoch %d batch %d eps-mse')):
             self.steps.append(tuple(record.args))
         elif str(record.msg).startswith('train step captured'):
             self.captures.append(record.args[0])
@@ -939,18 +933,24 @@ def _first_step(torch, port, model, data, idx, lc):
 
 def _compare_final(torch, a, b, epoch, limit=0.0):
     """The final checkpoints (``epoch_{epoch}_batch_0``) of two runs:
-    parameters, optimizer state and step, bitwise; else the first tensor that
-    differs, in parameter order, and its largest difference. Fails when a
-    difference exceeds ``limit`` x that tensor's largest value (0: any)."""
+    parameters, optimizer state, EMA (when they keep one) and step, bitwise;
+    else the first tensor that differs, in parameter order, and its largest
+    difference. Fails when a difference exceeds ``limit`` x that tensor's
+    largest value (0: any)."""
     want, got = (torch.load(str(d / f'epoch_{epoch}_batch_0.torch.pt'), map_location='cpu',
                             weights_only=True) for d in (a, b))
     _check(want['step'] == got['step'], f'{a} / {b}: steps {want["step"]} / {got["step"]}')
-    pairs = list(want['model_state_dict'].items())
-    for i, st in want['optimizer_state_dict']['state'].items():
-        pairs += [(f'optimizer state {i}/{k}', v) for k, v in st.items()]
-    got_of = dict(got['model_state_dict'])
-    for i, st in got['optimizer_state_dict']['state'].items():
-        got_of.update({f'optimizer state {i}/{k}': v for k, v in st.items()})
+    _check(('ema_params' in want) == ('ema_params' in got), f'{a} / {b}: EMA in one only')
+    pairs, got_of = [], {}
+    for side, out in ((want, pairs), (got, None)):
+        named = list(side['model_state_dict'].items())
+        named += [(f'ema {k}', v) for k, v in side.get('ema_params', {}).items()]
+        for i, st in side['optimizer_state_dict']['state'].items():
+            named += [(f'optimizer state {i}/{k}', v) for k, v in st.items()]
+        if out is None:
+            got_of.update(named)
+        else:
+            out.extend(named)
     differing = [(k, float((v.float() - got_of[k].float()).abs().max()),
                   float(v.float().abs().max())) for k, v in pairs
                  if not torch.equal(v, got_of[k])]
@@ -1842,6 +1842,282 @@ def phase_diffusion(torch, port, fe, fm, fg, diffusion, root, seed, card, data, 
                              partial_rows_rel_vs_plain=rows_rel))
 
 
+def phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion, root, seed, card,
+                          big_home, device='cuda', batch=64, big=4096, trial_length=4800,
+                          size_flags=(), chunks=3):
+    """10. Diffusion training at full width through the ``train`` command
+    (``--model-type diffusion --output-data-format all_frames --ema-decay
+    0.999 --cond-dropout 0.1 --fused-inference``): at ``batch`` on one
+    subject of two trials of ``trial_length`` frames (two chunks of 64 and a
+    remainder an epoch) with a dev split of one batch, 2 epochs traced: one
+    capture, a replay a step after the first two, no K3, and the dev eval's
+    K2 launches (50-step chains, 4 a step) counted by the wrappers and by name
+    in the trace; the loss falls; the same run step by step, and stopped
+    after epoch 0 and resumed (epoch-granular), bitwise (parameters,
+    optimizer state, EMA); ``serve --use-ema`` and ``analyze --use-ema`` of
+    the trained checkpoint; a dev chain's eps through K2 on the plain chain's
+    own x_t at every step, and a partial chain's answers element by element,
+    within DIFF_REL of the plain layer; at ``big`` on ``big_home`` (phase 7's
+    40 subjects and its dev subject), 2 epochs; the chunked step's ms by the
+    host clock, device busy ms and idle share at both batches (chunks of 64
+    at ``batch``, of 16 at ``big``), and the dev eval's seconds a batch.
+    ``device`` 'cpu' with ``size_flags`` rehearses it (no launch counts, no
+    traces). Returns the numbers for the report."""
+    on_card = device == 'cuda'
+    flags = ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+             '--ema-decay', '0.999', '--cond-dropout', '0.1', '--fused-inference', *size_flags]
+    cfg = port.config_from_args(port.parser().parse_args(['train', *flags]))
+    layers, warmup = cfg.num_layers, step_mod.GraphedStep.WARMUP_STEPS
+    per_chain = layers * 50
+    home, solo = root / 'diffusion_train', root / 'diffusion_train_dev'
+    for d in (home / 'train', home / 'dev', solo / 'train', solo / 'dev'):
+        d.mkdir(parents=True)
+    port.write_synthetic_subject(str(home / 'train' / 'subject_0.b3d'), num_trials=2,
+                                 trial_length=trial_length, seed=seed + 300)
+    # one trial of 140 frames: 89 windows, one dev batch of 64
+    port.write_synthetic_subject(str(home / 'dev' / 'subject_0.b3d'), num_trials=1,
+                                 trial_length=140, seed=seed + 310)
+    shutil.copy(home / 'dev' / 'subject_0.b3d', solo / 'dev' / 'subject_0.b3d')
+
+    def split(where, name):
+        return port.WindowDataset(str(where / name), window_size=cfg.window_size,
+                                  stride=cfg.stride, output_data_format='all_frames',
+                                  skip_loading_skeletons=True)
+
+    def run(where, ckpt, extra, epochs, b):
+        return port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(where), '--checkpoint-dir', str(ckpt),
+            '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+            '--seed', str(seed), *flags, *extra]))
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 just before and read just after,
+        traced on the card: (result, K2 and K3 launches by the wrappers,
+        captures, replays, the trace's counts or None, seconds)."""
+        fe.launches = fe.bwd_launches = 0
+        replays, captures = step_mod.replays, step_mod.captures
+        t0 = time.perf_counter()
+        result, traced, _ = _traced(torch, fn) if on_card else (fn(), None, None)
+        seconds = time.perf_counter() - t0
+        return (result, (fe.launches, fe.bwd_launches), step_mod.captures - captures,
+                step_mod.replays - replays, traced, seconds)
+
+    train_ds, dev_ds = split(home, 'train'), split(home, 'dev')
+    dev_batches = len(dev_ds) // batch
+    per_epoch = len(train_ds) // batch
+    _check(dev_batches >= 1 and per_epoch > 2 * 64 and per_epoch % 64,
+           f'{len(train_ds)} / {len(dev_ds)} windows: not two chunks of 64 and a remainder, '
+           f'one dev batch')
+    loop_log = logging.getLogger('inferbiomechanics_tpu_torch.train.diffusion_loop')
+    loop_log.setLevel(logging.INFO)
+    handler = _LossLog()
+    loop_log.addHandler(handler)
+    step_log = logging.getLogger('inferbiomechanics_tpu_torch.train.step')
+    step_log.addHandler(handler)
+    try:
+        # the main path
+        (main, (k2, k3), captures, replays, traced, main_s) = counted(
+            lambda: run(home, root / 'dckpt_a', [], 2, batch))
+        logged, capture_s = list(handler.steps), list(handler.captures)
+    finally:
+        loop_log.removeHandler(handler)
+        step_log.removeHandler(handler)
+    steps, evals = main.windows_seen // batch, 2
+    dev_k2 = per_chain * dev_batches * evals
+    _check(main.epochs_run == 2 and steps == 2 * per_epoch, f'diffusion B={batch}: {main}')
+    _check(not on_card or (captures == 1 and replays == steps - warmup),
+           f'diffusion B={batch}: {captures} captures, {replays} replays for {steps} steps')
+    _check(not on_card or (k2 == dev_k2 and k3 == 0),
+           f'diffusion B={batch}: wrappers K2 {k2}, K3 {k3}; want K2 {dev_k2} (dev eval), K3 0')
+    if on_card:
+        want = {'fused_encoder_kernel': dev_k2, **{k: 0 for k in ENC_KERNELS[1:]}}
+        _check(all(traced[k] == v for k, v in want.items()),
+               f'diffusion B={batch}: traced {traced}, want {want}')
+    losses = [s[2] for s in logged]
+    _check(len(losses) >= 2 and np.isfinite(losses).all() and losses[-1] < losses[0]
+           and np.isfinite(main.final_train_metrics['eps_mse'])
+           and np.isfinite(main.final_dev_metrics['loss']),
+           f'diffusion B={batch}: logged eps-mse {logged}, {main.final_train_metrics}, '
+           f'dev {main.final_dev_metrics}')
+    final = torch.load(str(root / 'dckpt_a' / 'diffusion' / 'epoch_1_batch_0.torch.pt'),
+                       map_location='cpu', weights_only=True)
+    _check(set(final.get('ema_params', {})) == set(final['model_state_dict']),
+           'the checkpoint carries no EMA of every parameter')
+    print(f'[diffusion train] B={batch}, {steps} steps in 2 epochs (chunks of 64, the last '
+          f'{per_epoch % 64}), {dev_batches} dev batch an eval, {evals} evals ({card}): '
+          f'{captures} capture, {replays} replays after {warmup} eager steps; wrappers: K2 '
+          f'{k2} == {layers} x 50 x {dev_batches} x {evals} (the dev chains), K3 {k3}; trace '
+          f'{traced}; eps-mse logged {[round(x, 4) for x in losses]} (falls); dev loss '
+          f'{main.final_dev_metrics["loss"]:.4g}; {main.windows_per_sec:.0f} windows/s '
+          f'(traced); {main_s:.1f} s; capture {capture_s} s', flush=True)
+
+    # the same run step by step, and stopped after epoch 0 and resumed
+    per_step = run(home, root / 'dckpt_s', ['--device-chunk-steps', '1'], 2, batch)
+    _check(per_step.windows_seen == main.windows_seen, 'step-by-step run: windows')
+    vs_step = _compare_final(torch, root / 'dckpt_a' / 'diffusion',
+                             root / 'dckpt_s' / 'diffusion', 1)
+    run(home, root / 'dckpt_b', [], 1, batch)
+    resumed = run(home, root / 'dckpt_b', [], 2, batch)
+    _check(resumed.epochs_run == 1, f'the resumed run ran {resumed.epochs_run} epochs')
+    vs_resume = _compare_final(torch, root / 'dckpt_a' / 'diffusion',
+                               root / 'dckpt_b' / 'diffusion', 1)
+    print(f'[diffusion train] B={batch}, chunked against step by step ({card}): '
+          f'{vs_step["verdict"]}; stopped after epoch 0 and resumed against uninterrupted: '
+          f'{vs_resume["verdict"]}; windows/s chunked {main.windows_per_sec:.0f} (traced), '
+          f'step by step {per_step.windows_per_sec:.0f}, resumed {resumed.windows_per_sec:.0f}',
+          flush=True)
+
+    # serve --use-ema and analyze --use-ema of the trained checkpoint
+    net = port.build_model_for_dataset(cfg, dev_ds, device=device).eval()
+    net.load_state_dict(final['model_state_dict'])
+    ema_net = port.build_model_for_dataset(cfg, dev_ds, device=device).eval()
+    ema_net.load_state_dict(final['ema_params'])
+    x2 = dev_ds.gather(np.arange(2)).inputs
+    want = diffusion.make_sampler(ema_net, num_steps=50, fused_inference=True)(
+        ema_net, torch.from_numpy(x2).to(device), torch.Generator(device=device).manual_seed(0))
+    fe.launches = 0
+    svc, server, url = _serve(port, ['serve', '--dataset-home', str(home), '--checkpoint-dir',
+                                     str(root / 'dckpt_a'), '--port', '0', '--device', device,
+                                     *flags, '--use-ema'])
+    try:
+        s = _get(url + '/schema')
+        r = _post(url + '/predict', _b64_body(x2))
+        forwards = _get(url + '/metrics')['device_forwards']
+        serve_k2 = fe.launches
+    finally:
+        _stop(svc, server)
+    got = _decode(r['outputs'])
+    serve_err = max(float(np.abs(got[k] - want[k].cpu().numpy()).max()) for k in want)
+    _check(s['use_ema'] is True and serve_err <= 1e-5 * max(float(v.abs().max())
+                                                            for v in want.values()),
+           f'serve --use-ema of the trained checkpoint: off its EMA chain by {serve_err}')
+    _check(not on_card or serve_k2 == per_chain * forwards == per_chain,
+           f'serve --use-ema: {serve_k2} K2 launches for {forwards} forwards')
+    args = port.parser().parse_args(['analyze', '--dataset-home', str(solo), '--checkpoint-dir',
+                                     str(root / 'dckpt_a'), '--no-wandb', '--device', device,
+                                     '--batch-size', str(batch), *flags, '--use-ema'])
+    fe.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        analyzed = port.analyze(args)['dev']
+    analyze_k2 = fe.launches
+    analyze_batches = -(-len(dev_ds) // batch)
+    _check(analyzed['windows'] == len(dev_ds) and 'evaluating EMA parameters' in out.getvalue()
+           and np.isfinite(list(analyzed['summary'].values())).all(),
+           f'analyze --use-ema of the trained checkpoint: {analyzed}')
+    _check(not on_card or analyze_k2 == per_chain * analyze_batches,
+           f'analyze --use-ema: {analyze_k2} K2 launches for {analyze_batches} batches')
+    print(f'[diffusion train] serve --use-ema of the trained checkpoint: /predict B=2 off the '
+          f'EMA weights\' chain by {serve_err:.3g}, K2 {serve_k2}; analyze --use-ema: '
+          f'{analyzed["windows"]} windows, K2 {analyze_k2} == {layers} x 50 x {analyze_batches} '
+          f'batches, summary {analyzed["summary"]}', flush=True)
+
+    # a dev chain of the trained weights through K2 against the plain chain
+    b = dev_ds.gather(np.arange(batch))
+    xb = torch.from_numpy(b.inputs).to(device)
+    init = diffusion.diffusion_targets_from_labels(
+        torch.from_numpy(b.labels).to(device), dev_ds.lab_offsets, net.num_contact_bodies)
+    eval_seed = seed * 1_000_003 + 777 + 2
+    whole = diffusion.make_sampler(net, num_steps=50, fused_inference=True)
+    part = diffusion.make_sampler(net, num_steps=50, fused_inference=True, partial_frac=0.3)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(eval_seed)
+
+    got_part = part(net, xb, gen(), init=init)
+    trace = []
+    with _plain_forwards(fm, fe, fg):
+        whole(net, xb, gen(), trace=trace)
+        want_part = part(net, xb, gen(), init=init)
+    worst = 0.0
+    with torch.no_grad():
+        for t, xt in trace:
+            tb = torch.full((xt.shape[0],), t, device=device)
+            a = diffusion.fused_denoiser_eps(net, xt, tb, xb)
+            r = diffusion.fused_denoiser_eps(net, xt, tb, xb, use_kernel=False)
+            worst = max(worst, float((a - r).abs().max() / r.abs().max()))
+    heads_part = _heads_vs(got_part, want_part)
+    _check(len(trace) == 50 and worst <= DIFF_REL,
+           f'dev chain: a step\'s eps through K2 off the plain layer by {worst} x max')
+    _check(all(share == 1.0 for _, _, share in heads_part.values()),
+           f'dev partial chain vs the plain one: {heads_part}')
+    print(f'[diffusion train] the trained weights\' dev chain B={batch} (eval seed of epoch 2), '
+          f'teacher-forced: each step\'s eps through K2 vs the plain layer on the plain '
+          f'chain\'s x_t: max {worst:.3g} x max|plain| (limit {DIFF_REL}); partial chain '
+          f'(0.3, from the dev labels) per head (max abs err, over max|plain|, share within '
+          f'{DIFF_REL} x max, held at 1.0): {heads_part}', flush=True)
+
+    # at B=big on phase 7's 40 subjects
+    big_ds, big_dev = split(big_home, 'train'), split(big_home, 'dev')
+    (large, (k2_big, _), captures_big, replays_big, traced_big, big_s) = counted(
+        lambda: run(big_home, root / 'dckpt_big', [], 2, big))
+    big_steps, big_dev_batches = large.windows_seen // big, len(big_dev) // big
+    _check(large.epochs_run == 2 and big_steps == 2 * (len(big_ds) // big)
+           and np.isfinite(large.final_train_metrics['eps_mse']), f'diffusion B={big}: {large}')
+    _check(not on_card or (captures_big == 1 and replays_big == big_steps - warmup
+                           and k2_big == per_chain * big_dev_batches * 2
+                           == traced_big['fused_encoder_kernel']),
+           f'diffusion B={big}: {captures_big} captures, {replays_big} replays, K2 {k2_big}, '
+           f'traced {traced_big}')
+    print(f'[diffusion train] B={big}, {big_steps} steps in 2 epochs, {big_dev_batches} dev '
+          f'batch an eval ({card}): {captures_big} capture, {replays_big} replays; K2 {k2_big} '
+          f'(the dev chains), trace {traced_big}; eps-mse {large.final_train_metrics}; '
+          f'{large.windows_per_sec:.0f} windows/s (traced); {big_s:.1f} s', flush=True)
+
+    # the chunked step alone, and a dev eval's chain, at both batches
+    times = {}
+    for b, ds, k in ((batch, train_ds, 64), (big, big_ds, 16)):
+        model = port.build_model_for_dataset(
+            cfg, ds, generator=torch.Generator().manual_seed(seed), device=device)
+        state = port.create_train_state(model, port.make_optimizer(
+            model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+        state.dropout_gen = torch.Generator(device=device)
+        state.ema = port.ParamEMA(model, cfg.ema_decay)
+        chunked = port.make_device_diffusion_chunked_step(
+            model, port.DeviceResidentData(ds, device, pack_windows=True),
+            diffusion.DDPMSchedule(cfg.diffusion_timesteps, device=device), cfg.cond_dropout)
+        rng = np.random.default_rng(seed)
+        idx = np.stack([rng.permutation(len(ds))[:b] for _ in range(k)])
+
+        def one():
+            chunked(state, idx).rows()     # waits for the chunk's last metrics  # noqa: B023
+
+        one()                              # the eager first steps and the capture
+        wall = _host_p50_ms(one, chunks) / k
+        busy = idle = None
+        if on_card:
+            _, tr, busy_us = _traced(torch, one)
+            busy = busy_us / 1e3 / k
+            idle = max(wall - busy, 0.0) / wall
+        sampler = diffusion.make_sampler(model.eval(), num_steps=50, fused_inference=True)
+        x = torch.from_numpy(ds.gather(np.arange(b)).inputs).to(device)
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        eval_ms = _host_p50_ms(lambda: (sampler(model, x, torch.Generator(  # noqa: B023
+            device=device).manual_seed(0)), sync()), chunks)
+        times[str(b)] = dict(step_ms=wall, device_busy_ms=busy, idle_share=idle,
+                             windows_per_sec=b / wall * 1e3, chunk=k,
+                             dev_eval_s_a_batch=eval_ms / 1e3)
+        print(f'[diffusion train] train step B={b} in chunks of {k} ({card}): {wall:.3f} ms a '
+              f'step by the host clock (p50 of {chunks} chunks) = {b / wall * 1e3:.0f} '
+              f'windows/s; device busy '
+              + ('not measured' if busy is None else f'{busy:.3f} ms a step, idle share '
+                 f'{idle:.3f}')
+              + f'; dev eval, a 50-step chain of one batch of {b} through K2: '
+              f'{eval_ms / 1e3:.3f} s (p50 of {chunks})', flush=True)
+        del model, state, chunked, sampler
+    return dict(batch=dict(steps=steps, captures=captures, replays=replays, k2_launches=k2,
+                           k3_launches=k3, traced=traced, dev_batches=dev_batches, evals=evals,
+                           eps_mse_logged=losses, windows_per_sec=main.windows_per_sec,
+                           windows_per_sec_step_by_step=per_step.windows_per_sec,
+                           vs_step_by_step=vs_step, resume=vs_resume, seconds=main_s),
+                big=dict(steps=big_steps, captures=captures_big, replays=replays_big,
+                         k2_launches=k2_big, traced=traced_big, windows_per_sec=large.windows_per_sec,
+                         seconds=big_s),
+                serve_use_ema=dict(err=serve_err, k2=serve_k2),
+                analyze_use_ema=dict(windows=analyzed['windows'], k2=analyze_k2),
+                dev_chain=dict(step_eps_rel=worst, partial_heads=heads_part),
+                chunk_times=times)
+
+
 def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer,
                      create_train_state, card, seed, batch=4096, attns=('pallas', 'vpu'),
                      parts_alone=True):
@@ -2022,14 +2298,15 @@ def main() -> int:
     )
     from inferbiomechanics_tpu_torch.train import step as step_mod
     from inferbiomechanics_tpu_torch.train.device_data import (
-        DeviceResidentData, make_device_chunked_step, make_device_train_step,
+        DeviceResidentData, make_device_chunked_step, make_device_diffusion_chunked_step,
+        make_device_train_step,
     )
     from inferbiomechanics_tpu_torch.train.loop import (
         build_model_for_dataset, loss_config_from,
     )
     from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
     from inferbiomechanics_tpu_torch.train.run_config import save_run_config
-    from inferbiomechanics_tpu_torch.train.state import create_train_state
+    from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state
 
     # the chunked step logs each capture of a train step, with its launches
     capture_log = logging.getLogger('inferbiomechanics_tpu_torch.train.step')
@@ -2098,7 +2375,9 @@ def main() -> int:
             load_latest_checkpoint=load_latest_checkpoint, analyze=analyze,
             save_checkpoint=save_checkpoint, save_run_config=save_run_config,
             make_device_chunked_step=make_device_chunked_step,
-            create_train_state=create_train_state, make_optimizer=make_optimizer)
+            make_device_diffusion_chunked_step=make_device_diffusion_chunked_step,
+            ParamEMA=ParamEMA, create_train_state=create_train_state,
+            make_optimizer=make_optimizer)
         k1_launches, ff_p50 = phase_service(
             port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
             ff_agree, fm, 1, args.seed)
@@ -2198,6 +2477,10 @@ def main() -> int:
         # 9. the diffusion denoiser: sampling, serve and analyze through K2
         diffused = phase_diffusion(torch, port, fe, fm, fg, diffusion, tmp, args.seed, card,
                                    data, ds)
+
+        # 10. diffusion training, with the dev eval's chains through K2
+        diffusion_trained = phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion,
+                                                  tmp, args.seed, card, tmp / 'train_data')
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -2423,7 +2706,8 @@ def main() -> int:
                              chain_b1=diffused['chain_b1'],
                              predict_p50_ms=diffused['serve']['predict_p50_ms'],
                              windows_per_sec_b4096=diffused['serve']['windows_per_sec_b4096'],
-                             analyze=diffused['analyze']),
+                             analyze=diffused['analyze'],
+                             train=diffusion_trained),
               train_launches=trained['k2_launches'],
               train_launches_traced=trained['k2_traced'],
               analyze=analyzed['transformer pallas (K2)'],

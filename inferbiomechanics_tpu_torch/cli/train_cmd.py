@@ -3,7 +3,8 @@
 PyTorch counterpart of ``inferbiomechanics_tpu/cli/train_cmd.py``, on the
 port's one flag schema (``config.py::add_config_flags``): train and dev
 datasets under ``--dataset-home``, the model factory, resume, the epoch
-loop, checkpoints under ``<checkpoint-dir>/<model-type>/``. ``--device``
+loop (``--model-type diffusion``: the diffusion loop), checkpoints under
+``<checkpoint-dir>/<model-type>/``. ``--device``
 names the torch device: ``cuda`` (the default; fails without a GPU) or
 ``cpu``. Metrics go to the log only (no wandb).
 """
@@ -16,6 +17,7 @@ import os
 
 from inferbiomechanics_tpu_torch.config import add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.train.diffusion_loop import train_diffusion
 from inferbiomechanics_tpu_torch.train.loop import TrainResult, train
 
 logger = logging.getLogger(__name__)
@@ -52,6 +54,8 @@ def run_training(args: argparse.Namespace) -> TrainResult:
 
     train_ds = split('train')
     dev_ds = split('dev') if os.path.isdir(os.path.join(config.dataset_home, 'dev')) else None
+    if config.model_type == 'diffusion':
+        return train_diffusion(config, train_ds, dev_ds, device=args.device)
     return train(config, train_ds, dev_ds, device=args.device)
 
 

@@ -21,7 +21,13 @@ one ``lax.scan`` program). Its random draws come from a ``torch.Generator``,
 or from a :data:`NoiseSource` handed to it: the seam through which a test
 feeds the JAX sampler's own ``jax.random`` draws. Serving and ``analyze``
 ask :func:`chain_noise` for theirs, which gives none (the generator draws).
-Training the denoiser is not ported yet (ROADMAP.md Queue 1 item 6b).
+
+Training: :func:`make_diffusion_train_step` is the eps-prediction step, with
+classifier-free guidance's :func:`drop_conditioning`. A step's random draws
+(the timesteps, the noise and the conditioning's keep mask) come through one
+seam, :class:`TrainDraws`: by default from the train state's per-step
+generator (:func:`generator_draws`), and in tests from the JAX step's own
+``jax.random`` draws. The loop is ``train/diffusion_loop.py``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    ModelInput, init_linear, pack_inputs, slice_output_heads,
+    MaskSource, ModelInput, generator_masks, init_linear, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.models.transformer import (
     EncoderBlock, _dense, _layernorm,
@@ -50,6 +56,7 @@ from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
     LN_EPS, PackedEncoderLayer, pack_encoder_params,
 )
+from inferbiomechanics_tpu_torch.train.step import as_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -291,14 +298,19 @@ def target_scales(num_contact_bodies: int, device=None) -> torch.Tensor:
 
 def diffusion_targets_from_labels(packed_labels: torch.Tensor,
                                   lab_offsets: Dict[str, Tuple[int, int]],
-                                  num_contact_bodies: int) -> torch.Tensor:
+                                  num_contact_bodies: int,
+                                  scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, T, C_lab] -> [B, T, target_channels] in head-slice order,
     normalized into the diffusion space (the sampler denormalizes at its
-    exit)."""
+    exit). ``scales`` is :func:`target_scales` made once on the labels'
+    device (a train step captured as a CUDA graph cannot copy from the
+    host); made here when None."""
     parts = [packed_labels[..., o:o + w]
              for o, w in (lab_offsets[key] for key in _TARGET_KEYS)]
     x = torch.cat(parts, dim=-1)
-    return x / target_scales(num_contact_bodies, x.device).to(x.dtype)
+    if scales is None:
+        scales = target_scales(num_contact_bodies, x.device)
+    return x / scales.to(x.dtype)
 
 
 def diffusion_targets_from_outputs(outputs: Dict[str, torch.Tensor],
@@ -396,6 +408,97 @@ def make_partial_proposal_fn(config, dataset, init_checkpoint,
                                                   target_space=target_space)
 
     return propose
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainDraws:
+    """Where a train step's random draws come from: ``timesteps(batch, T,
+    device)`` int64 [batch] uniform on 0..T-1, ``noise(shape, device)``
+    float32 N(0, 1), and ``masks`` (a :data:`MaskSource`) the keep mask of
+    the conditioning, asked for last and only when ``cond_dropout`` > 0, so
+    that the timesteps and the noise do not depend on it."""
+    timesteps: Callable[[int, int, torch.device], torch.Tensor]
+    noise: Callable[[Tuple[int, ...], torch.device], torch.Tensor]
+    masks: MaskSource
+
+
+def generator_draws(generator: Optional[torch.Generator]) -> TrainDraws:
+    """A step's draws from ``generator`` (torch's default one when None), on
+    the device of the step's tensors."""
+    return TrainDraws(
+        timesteps=lambda b, steps, device: torch.randint(0, steps, (b,), generator=generator,
+                                                         device=device),
+        noise=lambda shape, device: torch.randn(shape, generator=generator, device=device),
+        masks=generator_masks(generator))
+
+
+def drop_conditioning(cond: torch.Tensor, cond_dropout: float,
+                      masks: MaskSource) -> torch.Tensor:
+    """Zero each sample's conditioning [B, T, C_in] with probability
+    ``cond_dropout`` (classifier-free guidance training; the cond_proj bias
+    becomes the learned null embedding), the keep mask [B] from ``masks``.
+    ``cond_dropout`` 0 returns ``cond`` itself and draws nothing."""
+    if cond_dropout <= 0.0:
+        return cond
+    keep = masks((cond.shape[0],), cond_dropout, cond.device)
+    return cond * keep[:, None, None].to(cond.dtype)
+
+
+def diffusion_loss(model: DiffusionDenoiser, schedule: DDPMSchedule, cond_inputs: ModelInput,
+                   labels: torch.Tensor, lab_offsets: Dict[str, Tuple[int, int]],
+                   draws: TrainDraws, cond_dropout: float = 0.0,
+                   scales: Optional[torch.Tensor] = None):
+    """The eps-prediction MSE of one all-frames batch, in float32: the
+    targets from ``labels``, t ~ U{0..T-1}, noise ~ N(0, 1), x_t by
+    ``q_sample``, the conditioning dropped (:func:`drop_conditioning`), then
+    mean((eps - noise)^2). Returns (loss, {'loss': loss, detached})."""
+    x0 = diffusion_targets_from_labels(labels, lab_offsets, model.num_contact_bodies, scales)
+    t = draws.timesteps(x0.shape[0], schedule.timesteps, x0.device)
+    noise = draws.noise(tuple(x0.shape), x0.device)
+    cond = drop_conditioning(pack_inputs(cond_inputs), cond_dropout, draws.masks)
+    eps = model(schedule.q_sample(x0, t, noise), t, cond)
+    loss = torch.mean((eps - noise) ** 2)
+    return loss, {'loss': loss.detach()}
+
+
+def diffusion_grads(model: DiffusionDenoiser, schedule: DDPMSchedule,
+                    lab_offsets: Dict[str, Tuple[int, int]], cond_dropout: float = 0.0,
+                    draws: Optional[TrainDraws] = None) -> Callable:
+    """``grads(state, inputs, labels) -> {'loss'}``: forward, loss and
+    backward of :func:`diffusion_loss`, the gradients left on the
+    parameters. ``draws`` None takes the state's per-step generator
+    (``TrainState.dropout_gen``, reseeded from the seed and the step count
+    before every step, and registered with a captured step's graph). The
+    schedule must be on the training device: a captured step cannot copy its
+    constants from the host."""
+    scales = target_scales(model.num_contact_bodies, schedule.alpha_bars.device)
+
+    def grads(state, cond_inputs: ModelInput, labels: torch.Tensor):
+        model.train()
+        source = draws if draws is not None else generator_draws(state.dropout_gen)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = diffusion_loss(model, schedule, cond_inputs, labels, lab_offsets,
+                                       source, cond_dropout, scales)
+        loss.backward()
+        return metrics
+
+    return grads
+
+
+def make_diffusion_train_step(model: DiffusionDenoiser,
+                              lab_offsets: Dict[str, Tuple[int, int]],
+                              schedule: DDPMSchedule, cond_dropout: float = 0.0,
+                              draws: Optional[TrainDraws] = None) -> Callable:
+    """``step(state, inputs, labels) -> {'loss'}`` (the state updated in
+    place), the JAX package's eps-prediction train step: the draws
+    (:func:`diffusion_grads`), forward, loss, backward, the optimizer's
+    update (and the state's EMA, when it keeps one). As in the JAX package,
+    ``--grad-accum-steps`` does not apply."""
+    return as_train_step(diffusion_grads(model, schedule, lab_offsets, cond_dropout, draws))
 
 
 # ---------------------------------------------------------------------------
@@ -610,9 +713,10 @@ def stacked_samples(outputs: Dict[str, torch.Tensor], samples: int):
 
 
 __all__ = [
-    'DDPMSchedule', 'DiffusionDenoiser', 'NoiseSource', 'PackedDenoiser',
-    'chain_noise', 'checkpoint_target_space', 'diffusion_targets_from_labels',
-    'diffusion_targets_from_outputs', 'fused_denoiser_eps', 'make_chain_forward',
-    'make_partial_proposal_fn',
+    'DDPMSchedule', 'DiffusionDenoiser', 'NoiseSource', 'PackedDenoiser', 'TrainDraws',
+    'chain_noise', 'checkpoint_target_space', 'diffusion_grads', 'diffusion_loss',
+    'diffusion_targets_from_labels', 'diffusion_targets_from_outputs', 'drop_conditioning',
+    'fused_denoiser_eps', 'generator_draws', 'make_chain_forward',
+    'make_diffusion_train_step', 'make_partial_proposal_fn',
     'make_sampler', 'stacked_samples', 'target_scales', 'timestep_embedding',
 ]

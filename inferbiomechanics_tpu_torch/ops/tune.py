@@ -55,6 +55,8 @@ import os
 import re
 import subprocess
 import sys
+import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -96,46 +98,87 @@ def _time_us(fn, iters):
     return start.elapsed_time(end) * 1e3 / iters
 
 
-def _device_records(fn, iters=20):
-    """The durations (us) of the GPU kernels that ``torch.profiler`` traced over
-    ``iters`` calls."""
+# A profiler trace was seen to lose the first kernels of its window: the
+# first ~75 of a chunk's replays, and the first ~10 of a train step 50 ms
+# after the window opened. So a window opens with PRE_ROLL launches of a
+# one-element kernel that are not counted, then the device idles
+# TRACE_MARGIN_S before the traced work and after it.
+TRACE_MARGIN_S = 0.05
+PRE_ROLL = 256
+WORK_RANGE = 'traced work'
+
+
+class ShortTraceError(AssertionError):
+    """A profiler trace that lacks some of the launches it ran."""
+
+
+def traced_kernels(fn):
+    """Run ``fn()`` once under ``torch.profiler``; return its result and the
+    (name, device us) of each GPU kernel (and copy) that started after
+    ``fn()`` did, in trace order."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    one = torch.zeros(1, device='cuda')
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRE_ROLL):
+            one.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        with record_function(WORK_RANGE):
+            result = fn()
+            torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    events = prof.events()
+    begin = min(e.time_range.start for e in events if e.name == WORK_RANGE)
+    # the range itself shows on the device's timeline too: not a kernel
+    return result, [(e.name, e.time_range.elapsed_us()) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name != WORK_RANGE
+                    and e.time_range.start >= begin]
+
+
+def device_times(fn, iters=20):
+    """Profiler device time of ``fn``'s kernels: ``(us, traced)``. One
+    traced call gives the launches a call, by kernel name; ``iters`` traced
+    calls give the durations and ``traced``, their launches by name.
+    ``us[name]`` is a call's time in that kernel: its summed duration over
+    the launches traced, divided by that count (not by ``iters``), times
+    its launches a call. Raises :class:`ShortTraceError` unless the second
+    trace holds ``iters`` x the first's launches of every kernel."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, one = traced_kernels(fn)
+    per_call = Counter(name for name, _ in one)
+    _, many = traced_kernels(lambda: [fn() for _ in range(iters)])
+    traced = Counter(name for name, _ in many)
+    want = Counter({name: n * iters for name, n in per_call.items()})
+    if traced != want:
+        lost = {k: (traced[k], v) for k, v in want.items() if traced[k] != v}
+        extra = sorted(set(traced) - set(want))
+        raise ShortTraceError(f'profiler trace short of its launches (traced, want): '
+                              f'{lost}{f", unexpected {extra}" if extra else ""}')
+    total = Counter()
+    for name, us in many:
+        total[name] += us
+    return {name: total[name] / traced[name] * n for name, n in per_call.items()}, traced
 
 
-def _device_us_by_name(fn, names, iters=20):
+def device_us_by_name(fn, names, iters=20):
     """Device time a call of the GPU kernels whose name holds each of
     ``names`` (and of all the others, ``other``), and how many launches of
-    each the profiler traced over ``iters`` calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = {n: 0.0 for n in (*names, 'other')}
-    seen = {n: 0 for n in us}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = next((n for n in names if n in e.name), 'other')
-            us[key] += e.time_range.elapsed_us() / iters
-            seen[key] += 1
-    return us, seen
+    each the profiler traced over ``iters`` calls (:func:`device_times`)."""
+    us, traced = device_times(fn, iters)
+    out = {n: 0.0 for n in (*names, 'other')}
+    seen = {n: 0 for n in out}
+    for name, t in us.items():
+        key = next((n for n in names if n in name), 'other')
+        out[key] += t
+        seen[key] += traced[name]
+    return out, seen
 
 
-def _device_us(fn, iters=20):
-    """Device time a call: the GPU kernels' durations that ``torch.profiler``
-    traced over ``iters`` calls, summed, over ``iters``."""
-    return sum(_device_records(fn, iters)) / iters
+def device_us(fn, iters=20):
+    """Device time a call: :func:`device_times` summed over the kernels."""
+    return sum(device_times(fn, iters)[0].values())
 
 
 # K2: the served width, and the batches it is timed at
@@ -208,7 +251,7 @@ def encoder_times(tag, forced=True):
                 fe.SMALL_BATCH_MAX = limit
             run = lambda: fe.fused_encoder_layer(x, packed, ENC['heads'])   # noqa: E731
             row[f'{name}_us'] = _time_us(run, 200)
-            row[f'{name}_device_us'] = _device_us(run)
+            row[f'{name}_device_us'] = device_us(run)
         if threshold is not None:
             fe.SMALL_BATCH_MAX = threshold
         print(json.dumps(row), flush=True)
@@ -303,7 +346,7 @@ def encoder_main(args) -> int:
             x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda().to(torch.bfloat16)
             run = lambda: layer(x)                                        # noqa: E731
             print(json.dumps({'library': 'nn.TransformerEncoderLayer bf16', 'batch': batch,
-                              'us': _time_us(run, 200), 'device_us': _device_us(run)}),
+                              'us': _time_us(run, 200), 'device_us': device_us(run)}),
                   flush=True)
     return 0
 
@@ -436,11 +479,7 @@ def groundlink_times(tag, forced=True):
                     fg.SMALL_BATCH_MAX = limit
                 run = lambda: fg.fused_groundlink_forward(x, packed, fmt)   # noqa: E731
                 row[f'{name}_us'] = _time_us(run, 200)
-                records = _device_records(run)
-                row[f'{name}_device_us'] = sum(records) / 20
-                # one launch a call: fewer records than calls is a trace that lost some
-                row[f'{name}_records'] = len(records)
-                row[f'{name}_us_a_record'] = sum(records) / max(len(records), 1)
+                row[f'{name}_device_us'] = device_us(run)
                 if batch == GL_BATCHES[-1] and name != 'small':
                     row[f'{name}_sustained'] = _sustained(run)
             if threshold is not None:
@@ -498,7 +537,7 @@ def groundlink_tiles():
                                           packed.fc_depth, packed.taps, fmt != 'all_frames')
                 run = lambda: fg.fused_groundlink_forward(x, packed, fmt)   # noqa: E731
                 _time_us(run, 50)           # clocks up before the profiler's calls
-                row[f'{plan.windows}w_{plan.blocks(batch)}b_device_us'] = _device_us(run)
+                row[f'{plan.windows}w_{plan.blocks(batch)}b_device_us'] = device_us(run)
             print(json.dumps(row), flush=True)
     fg.SMALL_BATCH_MAX, fg.LARGE_WINDOWS, fg.LARGE_WINDOWS_ALL_FRAMES, fg.LARGE_BLOCKS = saved
 
@@ -574,7 +613,7 @@ def groundlink_main(args) -> int:
                 run = lambda: library(x, fmt)                             # noqa: E731
                 print(json.dumps({'library': 'bf16 F.conv1d/F.linear chain', 'batch': batch,
                                   'format': fmt, 'us': _time_us(run, 200),
-                                  'device_us': _device_us(run)}), flush=True)
+                                  'device_us': device_us(run)}), flush=True)
     return 0
 
 # K3: the batches its backward is timed at, the cases each shape is checked
@@ -626,7 +665,7 @@ def encoder_bwd_times(tag, forced=True):
                 fe.BWD_SMALL_BATCH_MAX = limit
             run = lambda: fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])   # noqa: E731
             row[f'{name}_us'] = _time_us(run, 100)
-            by_launch, seen = _device_us_by_name(run, BWD_KERNELS)
+            by_launch, seen = device_us_by_name(run, BWD_KERNELS)
             row[f'{name}_device_us'] = sum(by_launch.values())
             row[f'{name}_by_launch_us'] = by_launch
             row[f'{name}_traced'] = seen
@@ -744,7 +783,7 @@ def encoder_bwd_main(args) -> int:
         run = lambda: library_encoder_layer_grad(layer, x16, g16)        # noqa: E731
         print(json.dumps({'library': 'autograd through nn.TransformerEncoderLayer bf16',
                           'batch': batch, 'us': _time_us(run, 100),
-                          'device_us': _device_us(run)}), flush=True)
+                          'device_us': device_us(run)}), flush=True)
     return 0
 
 
@@ -819,10 +858,10 @@ def main(argv=None) -> int:
                 continue
             run = lambda: fm.fused_mlp_forward(x, packed, 'sigmoid')   # noqa: E731
             row[name] = _time_us(run, 200)
-            row[name.replace('_us', '_device_us')] = _device_us(run)
+            row[name.replace('_us', '_device_us')] = device_us(run)
         fm.SMALL_BATCH_MAX = threshold
         row['library_us'] = _time_us(lambda: library(x), 200)
-        row['library_device_us'] = _device_us(lambda: library(x))
+        row['library_device_us'] = device_us(lambda: library(x))
         print(json.dumps(row))
     return 0
 

@@ -25,9 +25,8 @@ pattern (``epoch_E_batch_B.{ckpt,msgpack,pt}``) does not match that name,
 so neither package mistakes the other's files for its own. Named files
 (``best.torch.pt``) are model artifacts that the newest-checkpoint scan
 ignores. Reading the JAX package's flax-msgpack ``.ckpt`` files, the
-asynchronous writer and checkpoint soups are not ported yet, and nothing
-in the port writes EMA weights yet (diffusion training does,
-ROADMAP.md Queue 1 item 6b).
+asynchronous writer and checkpoint soups are not ported yet. Diffusion
+training (``train/diffusion_loop.py``, ``--ema-decay``) writes the EMA.
 """
 
 from __future__ import annotations
@@ -63,8 +62,8 @@ def save_checkpoint(checkpoint_dir: str, target: ModelOrState,
                     epoch: int, batch: int,
                     filename: Optional[str] = None,
                     ema_params: Optional[Mapping[str, torch.Tensor]] = None) -> str:
-    """Write ``target`` (a model, or a TrainState with its optimizer and
-    step), and ``ema_params`` when given; returns the path. ``filename``
+    """Write ``target`` (a model, or a TrainState with its optimizer, step
+    and EMA), and ``ema_params`` when given; returns the path. ``filename``
     overrides the ``epoch_{e}_batch_{b}.torch.pt`` name."""
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, filename or checkpoint_name(epoch, batch))
@@ -77,6 +76,8 @@ def save_checkpoint(checkpoint_dir: str, target: ModelOrState,
                         for i, st in opt['state'].items()}
         payload.update(optimizer_state_dict=opt,
                        opt_type=target.optimizer.opt_type, step=int(target.step))
+        if ema_params is None and target.ema is not None:
+            ema_params = target.ema.state_dict()
     if ema_params is not None:
         payload['ema_params'] = {k: v.detach().cpu() for k, v in ema_params.items()}
     tmp = path + '.tmp'
@@ -145,11 +146,22 @@ def warm_start_from(state: TrainState, path: str) -> None:
     load_checkpoint_file(state.model, path)
 
 
-def load_ema_params(path: str) -> Optional[Dict[str, torch.Tensor]]:
+def load_ema_params(path: str, like: Optional[nn.Module] = None
+                    ) -> Optional[Dict[str, torch.Tensor]]:
     """The checkpoint's EMA parameters (a state dict), or ``None`` when it
-    carries none."""
+    carries none. With ``like``, a model, they must have its parameters'
+    names and shapes (else ``ValueError``)."""
     payload = torch.load(path, map_location='cpu', weights_only=True)
-    return payload.get('ema_params')
+    ema = payload.get('ema_params')
+    if ema is None or like is None:
+        return ema
+    want = dict(like.named_parameters())
+    wrong = sorted(k for k in set(want) | set(ema)
+                   if k not in want or k not in ema or ema[k].shape != want[k].shape)
+    if wrong:
+        raise ValueError(f'checkpoint {path}: ema_params do not match the model being '
+                         f'built at {wrong[:5]}')
+    return ema
 
 
 def resolve_checkpoint_path(checkpoint_dir: str) -> Optional[str]:

@@ -5,21 +5,26 @@ the packed feature and label matrices fit in device memory (45 MB per 64k
 frames at 177 channels) the whole dataset is copied there once and every
 training batch is gathered on the device: per step the host sends one
 ``[B]`` index vector, and a chunk of K steps one ``[K, B]`` upload
-(``make_device_chunked_step``). Larger datasets take the host loader
-(``data/loader.py``).
+(``make_device_chunked_step``; for the diffusion denoiser
+``make_device_diffusion_train_step`` and ``make_device_diffusion_chunked_step``,
+the counterpart of the JAX package's ``make_device_diffusion_epoch_runner``).
+Larger datasets take the host loader (``data/loader.py``).
 
-The tiled benchmark variant and the diffusion runner are not ported yet.
+The tiled benchmark variant is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
 from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metrics
+from inferbiomechanics_tpu_torch.models.diffusion import (
+    DDPMSchedule, DiffusionDenoiser, TrainDraws, diffusion_grads,
+)
 from inferbiomechanics_tpu_torch.train.state import TrainState
 from inferbiomechanics_tpu_torch.train.step import (
     ChunkedStep, Metrics, accumulate_grads, as_train_step,
@@ -145,6 +150,31 @@ def make_device_chunked_step(model, data: DeviceResidentData,
     same graph: the epoch's remainder and a resumed epoch's first batches
     too. On the CPU the K steps run eagerly."""
     step = make_device_train_step(model, data, loss_config, grad_accum=grad_accum)
+    return ChunkedStep(step, (torch.int64,), data.device)
+
+
+def make_device_diffusion_train_step(model: DiffusionDenoiser, data: DeviceResidentData,
+                                     schedule: DDPMSchedule, cond_dropout: float = 0.0,
+                                     draws: Optional[TrainDraws] = None) -> Callable:
+    """``step(state, idx) -> {'loss'}``: the diffusion denoiser's
+    eps-prediction step (``models/diffusion.py::diffusion_grads``) on the
+    windows ``idx`` gathered on the device; bitwise the host step on the
+    same windows (the denoiser rounds its conditioning to bf16 itself)."""
+    if data.output_data_format != 'all_frames':
+        raise ValueError('diffusion requires all_frames labels')
+    grads = diffusion_grads(model, schedule, data.lab_offsets, cond_dropout, draws)
+    return as_train_step(lambda state, idx: grads(state, *data.gather(idx)))
+
+
+def make_device_diffusion_chunked_step(model: DiffusionDenoiser, data: DeviceResidentData,
+                                       schedule: DDPMSchedule, cond_dropout: float = 0.0,
+                                       draws: Optional[TrainDraws] = None) -> ChunkedStep:
+    """``chunk(state, idx [K, B]) -> ChunkMetrics``: K of
+    :func:`make_device_diffusion_train_step`'s steps, replayed from one
+    captured step on a CUDA device (the draws from the state's generator,
+    which the graph registers; the EMA update inside the graph), bitwise K
+    step-by-step calls."""
+    step = make_device_diffusion_train_step(model, data, schedule, cond_dropout, draws)
     return ChunkedStep(step, (torch.int64,), data.device)
 
 

@@ -23,6 +23,10 @@ chunk that crosses their cadence, labelled with its last batch.
 
 SIGTERM asks for a checkpoint at the next step boundary (chunk boundary,
 when chunked) and a clean exit; the same command then resumes from it.
+
+The tiers, the chunked epoch (:func:`run_chunks`), SIGTERM, the best
+checkpoint and the checkpoint directory's set-up are shared with the
+diffusion loop (``train/diffusion_loop.py``).
 """
 
 from __future__ import annotations
@@ -106,8 +110,6 @@ def _reject_unported(config: Config) -> None:
         ('--async-checkpoint', config.async_checkpoint,
          'ROADMAP.md Queue 1 item 2.6 (checkpoints)'),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
-        ('--model-type diffusion', config.model_type == 'diffusion',
-         'ROADMAP.md Queue 1 item 6b (diffusion training)'),
         (f'--device-data {config.device_data}',
          config.device_data in ('sharded', 'stream'),
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
@@ -117,39 +119,62 @@ def _reject_unported(config: Config) -> None:
             raise NotImplementedError(f'{flag} is not yet ported ({where})')
 
 
-def train(config: Config,
-          train_ds: WindowDataset,
-          dev_ds: Optional[WindowDataset] = None,
-          metric_logger=None,
-          max_batches_per_epoch: Optional[int] = None,
-          device='cuda') -> TrainResult:
-    """Run the whole training workflow on ``device`` (``cuda`` fails without
-    a GPU; ``cpu`` runs the kernels' plain versions)."""
-    from inferbiomechanics_tpu_torch.serve import resolve_device
-    _reject_unported(config)
-    device = resolve_device(device)
-    if config.grad_accum_steps > 1 and config.batch_size % config.grad_accum_steps:
-        raise ValueError(f'batch_size={config.batch_size} must split into '
-                         f'--grad-accum-steps {config.grad_accum_steps} '
-                         f'equal microbatches')
+class SigtermStop:
+    """SIGTERM asks for a checkpoint at the next step boundary (chunk
+    boundary, when chunked) and a clean exit: :attr:`requested` turns True.
+    Installed from the main thread only (tests drive the loops from
+    others); :meth:`restore` puts the previous handler back."""
 
-    stop_requested = {'flag': False}
+    def __init__(self):
+        self.requested = False
+        self._old = None
+        try:
+            self._old = signal.signal(signal.SIGTERM, self._on_term)
+        except ValueError:
+            pass   # not the main thread
 
-    def _on_term(signum, frame):
-        stop_requested['flag'] = True
+    def _on_term(self, signum, frame):
+        self.requested = True
         logger.warning('SIGTERM received: writing a checkpoint at the '
                        'next step boundary and exiting cleanly')
 
-    old_handler = None
-    try:
-        old_handler = signal.signal(signal.SIGTERM, _on_term)
-    except ValueError:
-        pass   # not the main thread (e.g. tests driving train() directly)
+    def restore(self) -> None:
+        if self._old is not None:
+            signal.signal(signal.SIGTERM, self._old)
 
-    model = build_model_for_dataset(
-        config, train_ds, generator=torch.Generator().manual_seed(config.seed),
-        device=device)
-    lc = loss_config_from(config)
+
+class BestTracker:
+    """``--keep-best`` and ``--early-stop-patience``: ``track(epoch, dev)``
+    after the dev eval at ``epoch``, which scores the state AFTER epoch
+    ``epoch - 1``; writes the best checkpoint through ``write_checkpoint``
+    and returns True when training should stop."""
+
+    def __init__(self, config: Config, write_checkpoint):
+        self.config, self.write_checkpoint = config, write_checkpoint
+        self.best, self.stale = float('inf'), 0
+
+    def track(self, epoch: int, final_dev: Dict[str, float]) -> bool:
+        config = self.config
+        if not (final_dev and (config.keep_best or config.early_stop_patience)):
+            return False
+        dev_loss = final_dev['loss']
+        if dev_loss < self.best:
+            self.best, self.stale = dev_loss, 0
+            if config.keep_best:
+                self.write_checkpoint(epoch - 1, 0, filename=BEST_NAME)
+                logger.info('new best dev loss %.6f -> %s', dev_loss, BEST_NAME)
+            return False
+        self.stale += 1
+        if config.early_stop_patience and self.stale >= config.early_stop_patience:
+            print(f'early stop: dev loss has not improved in '
+                  f'{self.stale} evals (best {self.best:.6f})')
+            return True
+        return False
+
+
+def optimizer_for(config: Config, model):
+    """The optimizer the flags name over ``model``'s parameters
+    (``--freeze-params`` applied)."""
     optimizer = make_optimizer(model.named_parameters(), config.opt_type,
                                config.learning_rate,
                                lr_schedule=config.lr_schedule,
@@ -159,7 +184,233 @@ def train(config: Config,
                                grad_clip_norm=config.grad_clip_norm)
     if config.freeze_params:
         optimizer = wrap_freeze(optimizer, config.freeze_params)
-    state = create_train_state(model, optimizer)
+    return optimizer
+
+
+def prepare_checkpoint_dir(config: Config, state) -> bool:
+    """The provenance sidecar (on resume, refuse or warn about architecture
+    drift against the PREVIOUS run's sidecar before this run's overwrites
+    it), then ``--init-from-checkpoint``, which must not clobber an
+    interrupted run's progress. Returns True when the state was warm
+    started."""
+    if list_checkpoints(config.checkpoint_dir):
+        check_resume_architecture(config, config.checkpoint_dir)
+        warn_on_architecture_mismatch(config, config.checkpoint_dir, 'resume')
+    save_run_config(config.checkpoint_dir, config)
+    if not config.init_from_checkpoint:
+        return False
+    if list_checkpoints(config.checkpoint_dir):
+        logger.warning('--init-from-checkpoint %s ignored: %s already '
+                       'has resume checkpoints',
+                       config.init_from_checkpoint, config.checkpoint_dir)
+        return False
+    warm_start_from(state, config.init_from_checkpoint)
+    logger.info('warm start: params from %s (fresh optimizer)',
+                config.init_from_checkpoint)
+    return True
+
+
+def checkpoint_writer(config: Config, state):
+    """``write(epoch, batch, filename=None)``: the state (with its EMA, when
+    it keeps one) to ``config.checkpoint_dir``, then the oldest epoch
+    checkpoints beyond ``--keep-checkpoints`` pruned (named files are
+    not)."""
+
+    def write(epoch: int, batch: int, filename=None) -> None:
+        save_checkpoint(config.checkpoint_dir, state, epoch, batch, filename=filename)
+        if config.keep_checkpoints and not filename:
+            prune_checkpoints(config.checkpoint_dir, config.keep_checkpoints)
+
+    return write
+
+
+def resident_train_data(config: Config, train_ds: WindowDataset, device,
+                        dev_ds: Optional[WindowDataset] = None):
+    """The device-resident tier's choice: ``(DeviceResidentData of the train
+    split, pack_windows)`` when ``--device-data`` and the size (``dev_ds``'s
+    too, when it is to be resident beside it) allow, else ``(None,
+    False)``: the host loader."""
+    if train_ds.features_all is None:
+        if config.device_data == 'on':
+            raise ValueError('--device-data on requires materialized features '
+                             '(dataset was built with materialize_features=False)')
+        return None, False
+    splits = [train_ds] + ([dev_ds] if dev_ds is not None else [])
+    data_bytes = sum(d.features_all.nbytes + d.labels_all.nbytes for d in splits)
+    if not (config.device_data == 'on' or (config.device_data == 'auto' and
+                                           data_bytes < config.device_data_max_bytes)):
+        return None, False
+    packed_est = sum(DeviceResidentData.packed_bytes_estimate(d) for d in splits)
+    pack = (config.pack_windows == 'on' or
+            (config.pack_windows == 'auto' and
+             data_bytes + packed_est < config.device_data_max_bytes))
+    data = DeviceResidentData(train_ds, device, pack_windows=pack)
+    logger.info('device-resident data: %.0f MB on %s%s', data.device_bytes / 1e6,
+                device, ' (windows packed)' if pack else '')
+    return data, pack
+
+
+def chunk_steps(config: Config, train_ds: WindowDataset, on_device: bool) -> int:
+    """Steps a dispatch (``--device-chunk-steps`` or ``--host-chunk-steps``),
+    clamped to the epoch's length: a larger chunk would never fill."""
+    asked = config.device_chunk_steps if on_device else config.host_chunk_steps
+    return min(max(1, asked), max(1, len(train_ds) // config.batch_size))
+
+
+def upload_dtype(config: Config) -> torch.dtype:
+    """The host tier's input dtype on the way to the device: bf16 with
+    ``--host-upload-dtype bf16`` (rounded on the host; the models round
+    their inputs to bf16 anyway), else float32."""
+    return torch.bfloat16 if config.host_upload_dtype == 'bf16' else torch.float32
+
+
+def train_loader(config: Config, train_ds: WindowDataset, device, chunked: bool
+                 ) -> PrefetchLoader:
+    """The host tier's loader: a chunk takes its batches on the host in
+    float32 and uploads them itself; an eager step gets them on ``device``
+    in :func:`upload_dtype`."""
+    return PrefetchLoader(train_ds, config.batch_size,
+                          device='cpu' if chunked else device,
+                          n_threads=config.data_loading_workers,
+                          input_dtype=torch.float32 if chunked else upload_dtype(config))
+
+
+def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoader,
+                  epoch: int, on_device: bool):
+    """The epoch's (index, batch) pairs: on the device tier, window index
+    vectors from numpy's generator seeded (seed, epoch) (the JAX package's
+    regression loop draws the same batches); else the loader's batches."""
+    if not on_device:
+        return enumerate(loader.epoch(seed=config.seed * 1_000_003 + epoch))
+    perm = np.random.default_rng((config.seed, epoch)).permutation(len(train_ds))
+    b = config.batch_size
+    return enumerate(perm[k * b:(k + 1) * b] for k in range(perm.shape[0] // b))
+
+
+class ReadyMetrics:
+    """An eager step's metrics, as a chunk of one step."""
+
+    def __init__(self, metrics):
+        self.metrics = metrics
+
+    def rows(self):
+        return [self.metrics]
+
+
+def make_dispatch(state, step, chunked_step, on_device: bool, device):
+    """``dispatch(group) -> chunk`` for :func:`run_chunks`: a group of
+    (index, batch) pairs through ``chunked_step`` (window index vectors on
+    the device tier, host batches on the host tier), or, without one, a
+    group of one batch through the eager ``step``."""
+
+    def dispatch(group):
+        if chunked_step is not None:
+            if on_device:
+                return chunked_step(state, np.stack([b for _, b in group]))
+            return chunked_step(state, [b.inputs.numpy() for _, b in group],
+                                [b.labels.numpy() for _, b in group])
+        (_, b), = group
+        if on_device:
+            return ReadyMetrics(step(state, torch.from_numpy(b).to(device, non_blocking=True)))
+        return ReadyMetrics(step(state, b.inputs, b.labels))
+
+    return dispatch
+
+
+def crosses(first_idx: int, last_idx: int, every: int) -> bool:
+    """True when batches first_idx .. last_idx cross a multiple of
+    ``every`` (batch 0 never counts)."""
+    return last_idx > 0 and last_idx // every > max(first_idx - 1, 0) // every
+
+
+def run_chunks(dispatch, batch_iter, chunk_k: int, *, skip: int, cap: Optional[int],
+               log_every: int, checkpoint_every: int, account, log, checkpoint, stop):
+    """Train an epoch's (index, batch) pairs in chunks of ``chunk_k``
+    consecutive batch indices, each through ``dispatch(group)`` (the indices
+    below ``skip``, a resumed epoch's consumed prefix, and from ``cap`` on,
+    ``max_batches_per_epoch``, left out, so a chunk may be shorter).
+
+    A chunk is accounted one chunk late, while the next one runs: its rows
+    to ``account(row)`` in step order, then its cadences, once each for the
+    chunk and labelled with its last batch: ``log(last_idx, last_row)``
+    (also for the epoch's first chunk) and ``checkpoint(last_idx)``. A chunk
+    that writes a checkpoint is accounted before the next one goes out, while
+    the state is the one its label names. Reading the rows is the only wait
+    for the device within an epoch. ``stop()`` True ends the epoch after the
+    chunk that reached batch 1 or later.
+
+    Returns (batches trained, the last batch index when ``stop()`` ended the
+    epoch else None, the last step's metrics)."""
+    count, pending, last = 0, None, None
+
+    def drain(p):
+        nonlocal last
+        first_idx, last_idx, chunk = p
+        rows = chunk.rows()
+        for row in rows:
+            account(row)
+        last = rows[-1]
+        if first_idx == 0 or crosses(first_idx, last_idx, log_every):
+            log(last_idx, last)
+        if crosses(first_idx, last_idx, checkpoint_every):
+            checkpoint(last_idx)
+
+    it = iter(batch_iter)
+    while True:
+        raw = list(itertools.islice(it, chunk_k))
+        if not raw:
+            break
+        hit_cap = cap is not None and raw[-1][0] >= cap - 1
+        group = [g for g in raw if (cap is None or g[0] < cap) and g[0] >= skip]
+        if not group:
+            if hit_cap:
+                break
+            continue
+        first_idx, last_idx = group[0][0], group[-1][0]
+        if pending is not None and crosses(pending[0], pending[1], checkpoint_every):
+            drain(pending)
+            pending = None
+        chunk = dispatch(group)
+        if pending is not None:
+            drain(pending)
+        pending = (first_idx, last_idx, chunk)
+        count += len(group)
+        if stop() and last_idx >= 1:
+            drain(pending)
+            return count, last_idx, last
+        if hit_cap:
+            break
+    if pending is not None:
+        drain(pending)
+    return count, None, last
+
+
+def train(config: Config,
+          train_ds: WindowDataset,
+          dev_ds: Optional[WindowDataset] = None,
+          metric_logger=None,
+          max_batches_per_epoch: Optional[int] = None,
+          device='cuda') -> TrainResult:
+    """Run the whole training workflow on ``device`` (``cuda`` fails without
+    a GPU; ``cpu`` runs the kernels' plain versions). The diffusion
+    denoiser trains through ``train/diffusion_loop.py::train_diffusion``."""
+    from inferbiomechanics_tpu_torch.serve import resolve_device
+    _reject_unported(config)
+    if config.model_type == 'diffusion':
+        raise ValueError('--model-type diffusion trains through '
+                         'train/diffusion_loop.py::train_diffusion')
+    device = resolve_device(device)
+    if config.grad_accum_steps > 1 and config.batch_size % config.grad_accum_steps:
+        raise ValueError(f'batch_size={config.batch_size} must split into '
+                         f'--grad-accum-steps {config.grad_accum_steps} '
+                         f'equal microbatches')
+
+    stop = SigtermStop()
+    model = build_model_for_dataset(
+        config, train_ds, generator=torch.Generator().manual_seed(config.seed),
+        device=device)
+    lc = loss_config_from(config)
+    state = create_train_state(model, optimizer_for(config, model))
     # dropout masks from a generator of their own on the device, seeded from
     # --seed and the step count before every step (TrainState.reseed_dropout):
     # the masks of a step do not depend on where a run was resumed
@@ -169,23 +420,7 @@ def train(config: Config,
         model.dropout_masks = generator_masks(state.dropout_gen)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
-
-    # provenance sidecar; on resume, refuse or warn about architecture drift
-    # against the PREVIOUS run's sidecar before this run's overwrites it
-    if list_checkpoints(config.checkpoint_dir):
-        check_resume_architecture(config, config.checkpoint_dir)
-        warn_on_architecture_mismatch(config, config.checkpoint_dir, 'resume')
-    save_run_config(config.checkpoint_dir, config)
-    if config.init_from_checkpoint:
-        # a warm start must not clobber an interrupted run's progress
-        if list_checkpoints(config.checkpoint_dir):
-            logger.warning('--init-from-checkpoint %s ignored: %s already '
-                           'has resume checkpoints',
-                           config.init_from_checkpoint, config.checkpoint_dir)
-        else:
-            warm_start_from(state, config.init_from_checkpoint)
-            logger.info('warm start: params from %s (fresh optimizer)',
-                        config.init_from_checkpoint)
+    prepare_checkpoint_dir(config, state)
 
     ckpt_epoch, ckpt_batch = load_latest_checkpoint(state, config.checkpoint_dir)
     if ckpt_batch > 0:
@@ -198,61 +433,33 @@ def train(config: Config,
     # ---- the data tier ----
     dev_big_enough = dev_ds is not None and len(dev_ds) >= config.batch_size
     dev_resident = dev_big_enough and dev_ds.features_all is not None
-    use_device_data = False
-    if train_ds.features_all is not None:
-        data_bytes = train_ds.features_all.nbytes + train_ds.labels_all.nbytes
-        if dev_resident:
-            data_bytes += dev_ds.features_all.nbytes + dev_ds.labels_all.nbytes
-        use_device_data = (config.device_data == 'on' or
-                           (config.device_data == 'auto' and
-                            data_bytes < config.device_data_max_bytes))
-    elif config.device_data == 'on':
-        raise ValueError('--device-data on requires materialized features '
-                         '(dataset was built with materialize_features=False)')
-    # a chunk is clamped to the epoch's length: one larger would never fill
-    steps_per_epoch = max(1, len(train_ds) // config.batch_size)
-    device_step = device_eval = chunked_step = None
-    chunk_k = 1
-    if use_device_data:
-        packed_est = DeviceResidentData.packed_bytes_estimate(train_ds)
-        if dev_resident:
-            packed_est += DeviceResidentData.packed_bytes_estimate(dev_ds)
-        pack = (config.pack_windows == 'on' or
-                (config.pack_windows == 'auto' and
-                 data_bytes + packed_est < config.device_data_max_bytes))
-        device_data = DeviceResidentData(train_ds, device, pack_windows=pack)
-        device_step = make_device_train_step(model, device_data, lc,
-                                             grad_accum=config.grad_accum_steps)
-        chunk_k = min(max(1, config.device_chunk_steps), steps_per_epoch)
+    device_data, pack = resident_train_data(config, train_ds, device,
+                                            dev_ds if dev_resident else None)
+    on_device = device_data is not None
+    chunk_k = chunk_steps(config, train_ds, on_device)
+    chunked_step = device_eval = None
+    if on_device:
+        step = make_device_train_step(model, device_data, lc,
+                                      grad_accum=config.grad_accum_steps)
         if chunk_k > 1:
             chunked_step = make_device_chunked_step(model, device_data, lc,
                                                     grad_accum=config.grad_accum_steps)
-        logger.info('device-resident data: %.0f MB on %s%s',
-                    device_data.device_bytes / 1e6, device,
-                    ' (windows packed)' if pack else '')
         if dev_resident:
             device_eval = make_device_eval_runner(
                 model, DeviceResidentData(dev_ds, device, pack_windows=pack),
                 lc, config.batch_size)
-    train_step = make_train_step(model, train_ds.lab_offsets, lc,
-                                 grad_accum=config.grad_accum_steps)
-    eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
-    # --host-upload-dtype bf16: the inputs go up rounded to bf16 on the host
-    upload_dtype = torch.bfloat16 if config.host_upload_dtype == 'bf16' else torch.float32
-    if not use_device_data:
-        chunk_k = min(max(1, config.host_chunk_steps), steps_per_epoch)
+    else:
+        step = make_train_step(model, train_ds.lab_offsets, lc,
+                               grad_accum=config.grad_accum_steps)
         if chunk_k > 1:
             chunked_step = make_chunked_train_step(
                 model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
-                input_dtype=upload_dtype, device=device)
+                input_dtype=upload_dtype(config), device=device)
     if chunked_step is not None:
         logger.info('chunked dispatch: %d steps a chunk', chunk_k)
-    # a chunk takes its batches on the host and uploads them itself
-    train_loader = PrefetchLoader(
-        train_ds, config.batch_size,
-        device='cpu' if chunked_step is not None else device,
-        n_threads=config.data_loading_workers,
-        input_dtype=torch.float32 if chunked_step is not None else upload_dtype)
+    eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
+    loader = train_loader(config, train_ds, device, chunked_step is not None)
+    dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device,
                                  shuffle=False) if dev_big_enough else None)
 
@@ -263,13 +470,9 @@ def train(config: Config,
     final_dev: Dict[str, float] = {}
     train_metrics: Dict[str, float] = {}
     epochs_run = 0
-    best_dev_loss = float('inf')
-    stale_evals = 0
 
-    def write_checkpoint(epoch: int, batch: int, filename=None) -> None:
-        save_checkpoint(config.checkpoint_dir, state, epoch, batch, filename=filename)
-        if config.keep_checkpoints and not filename:
-            prune_checkpoints(config.checkpoint_dir, config.keep_checkpoints)
+    write_checkpoint = checkpoint_writer(config, state)
+    best = BestTracker(config, write_checkpoint)
 
     def run_dev_eval(epoch: int) -> bool:
         """Dev eval of the CURRENT state."""
@@ -288,162 +491,41 @@ def train(config: Config,
             metric_logger.log({'dev/loss': final_dev['loss'], 'epoch': epoch})
         return True
 
-    def track_best(epoch: int) -> bool:
-        """Best-checkpoint and early-stop bookkeeping; the dev eval at epoch
-        e scores the state AFTER epoch e-1. True when training should stop."""
-        nonlocal best_dev_loss, stale_evals
-        if not (final_dev and (config.keep_best or config.early_stop_patience)):
-            return False
-        dev_loss = final_dev['loss']
-        if dev_loss < best_dev_loss:
-            best_dev_loss, stale_evals = dev_loss, 0
-            if config.keep_best:
-                write_checkpoint(epoch - 1, 0, filename=BEST_NAME)
-                logger.info('new best dev loss %.6f -> %s', dev_loss, BEST_NAME)
-            return False
-        stale_evals += 1
-        if config.early_stop_patience and stale_evals >= config.early_stop_patience:
-            print(f'early stop: dev loss has not improved in '
-                  f'{stale_evals} evals (best {best_dev_loss:.6f})')
-            return True
-        return False
-
     def log_loss(epoch: int, batch_idx: int, metrics) -> None:
         loss = float(metrics['loss'])      # waits for the device
         if metric_logger is not None:
             metric_logger.log({'train/loss': loss, 'epoch': epoch, 'batch': batch_idx})
         logger.info('epoch %d batch %d loss %.6f', epoch, batch_idx, loss)
 
-    def crosses(first_idx: int, last_idx: int, every: int) -> bool:
-        """True when batches first_idx .. last_idx cross a multiple of
-        ``every`` (batch 0 never counts)."""
-        return last_idx > 0 and last_idx // every > max(first_idx - 1, 0) // every
-
-    def run_chunked_epoch(epoch: int, batch_iter):
-        """The epoch's batches in chunks of ``chunk_k`` consecutive batch
-        indices (the resume prefix and the batches past
-        ``max_batches_per_epoch`` left out, so a chunk may be shorter).
-        Returns (windows trained, preempted, the last step's metrics)."""
-        windows, pending, last = 0, None, None
-
-        def drain(p):
-            """Account a dispatched chunk: its rows to the evaluator in step
-            order, then its log and checkpoint cadences, once each for the
-            chunk, labelled with its last batch. Reading the rows is the only
-            wait for the device within an epoch."""
-            nonlocal last
-            first_idx, last_idx, chunk = p
-            rows = chunk.rows()
-            for row in rows:
-                train_eval(None, None, None, precomputed_metrics=row)
-            last = rows[-1]
-            if first_idx == 0 or crosses(first_idx, last_idx, config.log_every_batches):
-                log_loss(epoch, last_idx, last)
-            if crosses(first_idx, last_idx, config.checkpoint_every_batches):
-                write_checkpoint(epoch, last_idx)
-
-        cap = max_batches_per_epoch
-        it = iter(batch_iter)
-        while True:
-            raw = list(itertools.islice(it, chunk_k))
-            if not raw:
-                break
-            hit_cap = cap is not None and raw[-1][0] >= cap - 1
-            group = [g for g in raw if (cap is None or g[0] < cap)
-                     and not (epoch == start_epoch and g[0] < skip_batches)]
-            if not group:
-                if hit_cap:
-                    break
-                continue
-            first_idx, last_idx = group[0][0], group[-1][0]
-            if pending is not None and crosses(pending[0], pending[1],
-                                               config.checkpoint_every_batches):
-                # the pending chunk writes a mid-epoch checkpoint: drain it
-                # now, while the state is the one its batch label names
-                drain(pending)
-                pending = None
-            if use_device_data:
-                chunk = chunked_step(state, np.stack([b for _, b in group]))
-            else:
-                chunk = chunked_step(state, [b.inputs.numpy() for _, b in group],
-                                     [b.labels.numpy() for _, b in group])
-            # the metrics of the chunk before come back while this one runs
-            if pending is not None:
-                drain(pending)
-            pending = (first_idx, last_idx, chunk)
-            windows += len(group) * config.batch_size
-            if stop_requested['flag'] and last_idx >= 1:
-                drain(pending)
-                write_checkpoint(epoch, last_idx)
-                logger.info('preemption checkpoint written: epoch %d batch %d',
-                            epoch, last_idx)
-                return windows, True, last
-            if hit_cap:
-                break
-        if pending is not None:
-            drain(pending)
-        return windows, False, last
-
     stopped_early = preempted = False
     for epoch in range(start_epoch, config.epochs):
         run_dev_eval(epoch)
-        if track_best(epoch):
+        if best.track(epoch, final_dev):
             stopped_early = True
             break
 
         t_epoch = time.time()
-        if use_device_data:
-            # numpy's generator on both sides: the port and the JAX package
-            # see the same batches
-            perm = np.random.default_rng(
-                (config.seed, epoch)).permutation(len(train_ds))
-            n_steps = perm.shape[0] // config.batch_size
-            batches = (perm[k * config.batch_size:(k + 1) * config.batch_size]
-                       for k in range(n_steps))
-            if chunked_step is None:
-                batches = (torch.from_numpy(b).to(device, non_blocking=True)
-                           for b in batches)
-            batch_iter = enumerate(batches)
-        else:
-            batch_iter = enumerate(train_loader.epoch(
-                seed=config.seed * 1_000_003 + epoch))
         # windows_per_sec: the epoch's wall clock, closed by reading back
         # the LAST step's loss (the device runs behind the host)
         t_compute = time.time()
-        last_metrics = None
-        if chunked_step is not None:
-            windows, preempted, last_metrics = run_chunked_epoch(epoch, batch_iter)
-            windows_seen += windows
-        else:
-            for batch_idx, batch in batch_iter:
-                if max_batches_per_epoch is not None and batch_idx >= max_batches_per_epoch:
-                    break
-                if epoch == start_epoch and batch_idx < skip_batches:
-                    continue   # mid-epoch resume: prefix already consumed
-                if use_device_data:
-                    metrics = device_step(state, batch)
-                else:
-                    metrics = train_step(state, batch.inputs, batch.labels)
-                train_eval(None, None, None, precomputed_metrics=metrics)
-                last_metrics = metrics
-                # only at batch_idx >= 1: a batch-0 mid-epoch checkpoint looks
-                # like an end-of-epoch one to the resume logic
-                if stop_requested['flag'] and batch_idx >= 1:
-                    write_checkpoint(epoch, batch_idx)
-                    logger.info('preemption checkpoint written: epoch %d batch %d',
-                                epoch, batch_idx)
-                    preempted = True
-                    windows_seen += config.batch_size
-                    break
-                if batch_idx % config.log_every_batches == 0:
-                    log_loss(epoch, batch_idx, metrics)
-                if batch_idx > 0 and batch_idx % config.checkpoint_every_batches == 0:
-                    write_checkpoint(epoch, batch_idx)
-                windows_seen += config.batch_size
+        n, stopped_at, last_metrics = run_chunks(
+            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device), chunk_k,
+            skip=skip_batches if epoch == start_epoch else 0, cap=max_batches_per_epoch,
+            log_every=config.log_every_batches,
+            checkpoint_every=config.checkpoint_every_batches,
+            account=lambda row: train_eval(None, None, None, precomputed_metrics=row),
+            log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
+            checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
+            stop=lambda: stop.requested)
+        windows_seen += n * config.batch_size
         if last_metrics is not None:
             float(last_metrics['loss'])     # synchronises with the device
             compute_time += time.time() - t_compute
-        if preempted:
+        if stopped_at is not None:
+            write_checkpoint(epoch, stopped_at)
+            logger.info('preemption checkpoint written: epoch %d batch %d',
+                        epoch, stopped_at)
+            preempted = True
             break
         epochs_run += 1
         print(f'[epoch {epoch}] train report ({time.time() - t_epoch:.1f}s):')
@@ -455,9 +537,8 @@ def train(config: Config,
     if ((config.keep_best or config.early_stop_patience)
             and not stopped_early and epochs_run > 0
             and run_dev_eval(config.epochs)):
-        track_best(config.epochs)
-    if old_handler is not None:
-        signal.signal(signal.SIGTERM, old_handler)
+        best.track(config.epochs, final_dev)
+    stop.restore()
     if preempted:
         print('training preempted (SIGTERM): checkpoint written, resume '
               'with the same command')

@@ -3,18 +3,45 @@
 PyTorch counterpart of ``inferbiomechanics_tpu/train/state.py``. The JAX
 state is an immutable pytree that every step replaces; here the model and
 the optimizer are updated in place and the state is the handle on both,
-plus the count of updates made and the dropout generator.
+plus the count of updates made, the dropout generator and, for
+``--ema-decay``, an exponential moving average of the parameters.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
 from inferbiomechanics_tpu_torch.train.optimizers import Optimizer
+
+
+class ParamEMA:
+    """An exponential moving average of a model's parameters, float32 on
+    their device: after every update, ``e <- e * decay + p * (1 - decay)``
+    for every parameter (the JAX package's formula). Seeded from ``init`` (a state dict of the model's keys: a
+    checkpoint's ``ema_params``, which ``checkpoint.load_ema_params``
+    checks against the model) or else from the parameters."""
+
+    def __init__(self, model: nn.Module, decay: float,
+                 init: Optional[Mapping[str, torch.Tensor]] = None):
+        named = list(model.named_parameters())
+        self.decay = float(decay)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        with torch.no_grad():
+            self.tensors = [(init[n] if init is not None else p).detach().to(
+                device=p.device, dtype=torch.float32).clone() for n, p in named]
+
+    @torch.no_grad()
+    def update(self) -> None:
+        torch._foreach_mul_(self.tensors, self.decay)
+        torch._foreach_add_(self.tensors, torch._foreach_mul(self.params, 1.0 - self.decay))
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return dict(zip(self.names, self.tensors))
 
 
 @dataclass
@@ -27,6 +54,8 @@ class TrainState:
     # masks do not depend on where a run was resumed (None: no reseeding)
     dropout_gen: Optional[torch.Generator] = None
     dropout_seed: int = 0
+    # the parameters' moving average, updated after every update (None: off)
+    ema: Optional[ParamEMA] = None
 
     def reseed_dropout(self) -> None:
         """Seed the dropout generator for the step about to run."""
@@ -34,9 +63,15 @@ class TrainState:
             self.dropout_gen.manual_seed(self.dropout_seed * 1_000_003 + self.step)
 
     def apply_gradients(self) -> None:
-        """One optimizer update from the gradients on the parameters."""
+        """One optimizer update from the gradients on the parameters, then
+        the EMA's."""
         self.optimizer.step()
+        self.update_ema()
         self.step += 1
+
+    def update_ema(self) -> None:
+        if self.ema is not None:
+            self.ema.update()
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer) -> TrainState:

@@ -169,8 +169,9 @@ class ChunkMetrics:
 class GraphedStep:
     """A train step captured once as a CUDA graph, and replayed.
 
-    The graph holds ``grads(state, *inputs)``, the optimizer's update and
-    the metrics flattened into one vector. It reads its inputs and the
+    The graph holds ``grads(state, *inputs)``, the optimizer's update, the
+    state's EMA update (when it keeps one) and the metrics flattened into
+    one vector. It reads its inputs and the
     optimizer's step-dependent values from one static row on the device
     (:class:`RowLayout` of ``specs`` and :attr:`Optimizer.scalars`), which
     :meth:`step` fills by one device-to-device copy before each replay. The
@@ -209,6 +210,7 @@ class GraphedStep:
         state.optimizer.scalars_on(self.device).copy_(self.scalars)
         metrics = self.grads(state, *self.inputs)
         state.optimizer.update()
+        state.update_ema()
         if self.metric_layout is None:
             self.metric_layout = MetricLayout(metrics)
         return self.metric_layout.flatten(metrics)

@@ -422,6 +422,67 @@ def test_captured_chunks_are_per_step_calls_bitwise(cuda, tmp_path, model_type, 
         assert torch.equal(p, q), n
 
 
+@pytest.mark.parametrize('batch', [1, 64, 65])
+def test_captured_diffusion_chunks_are_per_step_calls_bitwise(cuda, tmp_path, batch):
+    """The full-width denoiser's train step (``--cond-dropout 0.1
+    --ema-decay 0.999``) in chunks replayed from a CUDA graph (two eager
+    steps, one capture, then replays; a remainder chunk replays the same
+    graph) against per-step eager calls from the same weights: every step's
+    loss, the parameters, the optimizer state and the EMA bitwise equal. The
+    draws come from the state's generator, which the graph registers; the
+    EMA update is inside the graph."""
+    import numpy as np
+
+    from inferbiomechanics_tpu_torch.config import Config
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.models.diffusion import DDPMSchedule
+    from inferbiomechanics_tpu_torch.train import loop
+    from inferbiomechanics_tpu_torch.train import step as step_mod
+    from inferbiomechanics_tpu_torch.train.device_data import (
+        DeviceResidentData, make_device_diffusion_chunked_step, make_device_diffusion_train_step,
+    )
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state
+
+    write_synthetic_subject(str(tmp_path / 's.b3d'), num_trials=2, trial_length=200, seed=0)
+    ds = WindowDataset(str(tmp_path), window_size=50, stride=5, output_data_format='all_frames',
+                       skip_loading_skeletons=True)
+    data = DeviceResidentData(ds, cuda)
+    cfg = Config()
+    cfg.model_type, cfg.output_data_format = 'diffusion', 'all_frames'
+    sched = DDPMSchedule(cfg.diffusion_timesteps, device=cuda)
+    idx = np.stack([np.random.default_rng(i).permutation(len(ds))[:batch] for i in range(7)])
+
+    def fresh():
+        model = loop.build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(0),
+                                             device=cuda)
+        state = create_train_state(model, make_optimizer(model.named_parameters(), 'rmsprop',
+                                                         1e-3))
+        state.dropout_gen, state.dropout_seed = torch.Generator(device=cuda), 3
+        state.ema = ParamEMA(model, 0.999)
+        return model, state
+
+    model, per = fresh()
+    step = make_device_diffusion_train_step(model, data, sched, 0.1)
+    want = [float(step(per, torch.from_numpy(i).to(cuda))['loss']) for i in idx]
+    model_c, chunked = fresh()
+    chunk = make_device_diffusion_chunked_step(model_c, data, sched, 0.1)
+    replays, captures = step_mod.replays, step_mod.captures
+    got = [float(r['loss']) for r in chunk(chunked, idx[:4]).rows() + chunk(chunked, idx[4:]).rows()]
+    assert got == want
+    assert step_mod.captures - captures == 1
+    assert step_mod.replays - replays == len(idx) - step_mod.GraphedStep.WARMUP_STEPS
+    assert chunked.step == per.step == len(idx)
+    for (n, p), q in zip(model.named_parameters(), model_c.parameters()):
+        assert torch.equal(p, q), n
+    for n, e in per.ema.state_dict().items():
+        assert torch.equal(e, chunked.ema.state_dict()[n]), n
+    for i, st in per.optimizer.state_dict()['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, chunked.optimizer.state_dict()['state'][i][k]), (i, k)
+
+
 @pytest.mark.parametrize('batch,kw', [(1, {}), (2, {'eta': 1.0}),
                                       (64, {'guidance_scale': 2.0})])
 def test_diffusion_chain_through_k2_matches_the_plain_chain(cuda, monkeypatch, batch, kw):

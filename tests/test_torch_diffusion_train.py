@@ -1,0 +1,482 @@
+"""The port's diffusion training slice (inferbiomechanics_tpu_torch/models/
+diffusion.py ``drop_conditioning`` and ``make_diffusion_train_step``,
+train/device_data.py's diffusion steps, train/state.py ``ParamEMA``,
+train/diffusion_loop.py ``train_diffusion``) against the JAX package's
+(inferbiomechanics_tpu/models/diffusion.py, train/diffusion_loop.py) on the
+same numpy inputs, on the CPU.
+
+The size of tests/test_torch_diffusion.py: window 20 / stride 5 (4 frames
+x 177 channels), 2 contact bodies (30 target channels), d_model 128, 2
+layers, 4 heads, 64 timesteps, with JAX weights converted by
+``weights.diffusion_state_dict_from_jax``. A port step is fed the JAX
+step's own ``jax.random`` draws (timesteps, noise, keep mask) through the
+step's seam (``TrainDraws``). Tolerances: the loss within 2e-2 relative and
+each gradient within 2e-2 x that tensor's largest JAX value (both bf16:
+they differ only in where XLA and PyTorch round and in which order they
+sum); the EMA at rtol 1e-6 against the JAX package's formula (f32
+arithmetic), with a floor of 1e-6 x the tensor's largest value for the
+elements near 0; the draws' statistics loose (5 standard errors or more).
+"""
+
+import dataclasses
+import os
+import signal
+import json
+import threading
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inferbiomechanics_tpu.data.synthetic import write_synthetic_subject
+from inferbiomechanics_tpu.models import diffusion as jd
+from inferbiomechanics_tpu.train.optimizers import make_optimizer as jax_make_optimizer
+from inferbiomechanics_tpu.train.state import TrainState as JaxTrainState
+from inferbiomechanics_tpu_torch import weights
+from inferbiomechanics_tpu_torch.__main__ import build_parser
+from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
+from inferbiomechanics_tpu_torch.cli.serve_cmd import start
+from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
+from inferbiomechanics_tpu_torch.config import config_from_args
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.models import diffusion as pd
+from inferbiomechanics_tpu_torch.models import get_model
+from inferbiomechanics_tpu_torch.train import checkpoint as ckpt
+from inferbiomechanics_tpu_torch.train.device_data import (
+    DeviceResidentData, make_device_diffusion_chunked_step, make_device_diffusion_train_step,
+)
+from inferbiomechanics_tpu_torch.train.diffusion_loop import train_diffusion
+from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state
+
+SIZE = dict(num_dofs=23, num_contact_bodies=2, history_len=20, stride=5,
+            d_model=128, num_layers=2, num_heads=4)
+TIMESTEPS = 64
+REL = 2e-2
+BATCH = 16
+ARCH = ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+        '--history-len', '20', '--stride', '5', '--d-model', '128', '--num-layers', '2',
+        '--num-heads', '4', '--diffusion-timesteps', '64']
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _one_torch_thread():
+    """Small models beside other test processes: one thread throughout."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope='module')
+def data(tmp_path_factory):
+    root = tmp_path_factory.mktemp('torch_diffusion_train')
+    for split, length, seed in (('train', 200, 0), ('dev', 40, 1)):
+        os.makedirs(root / split)
+        write_synthetic_subject(str(root / split / 's.b3d'), num_trials=1,
+                                trial_length=length, seed=seed)
+    kw = dict(window_size=20, stride=5, output_data_format='all_frames',
+              skip_loading_skeletons=True)
+    return {'root': root, 'ds': WindowDataset(str(root / 'train'), **kw),
+            'dev': WindowDataset(str(root / 'dev'), **kw)}
+
+
+@pytest.fixture(scope='module')
+def pair():
+    """A JAX denoiser with flax-initialised parameters (biases and LayerNorm
+    rows moved off their zeros / ones) and the port's with the same weights."""
+    jm = jd.DiffusionDenoiser(**SIZE, timesteps=TIMESTEPS)
+    params = jax.device_get(jm.init({'params': jax.random.PRNGKey(0)},
+                                    jnp.zeros((2, 4, jm.target_channels)),
+                                    jnp.zeros((2,), jnp.int32),
+                                    jnp.zeros((2, 4, 177)))['params'])
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda p: (p + 0.1 * rng.normal(size=p.shape)).astype(np.float32)
+        if p.ndim == 1 else np.asarray(p), params)
+    return jm, params
+
+
+def _port_model(params):
+    pm = get_model('diffusion', root_history_len=10, diffusion_timesteps=TIMESTEPS, **SIZE)
+    pm.load_state_dict(weights.diffusion_state_dict_from_jax(params))
+    return pm
+
+
+def _batch(data, start=0, b=8):
+    batch = data['ds'].gather(np.arange(start, start + b))
+    return np.asarray(batch.inputs, np.float32), np.asarray(batch.labels, np.float32)
+
+
+def _jax_draws(rng, shape, cond_dropout):
+    """What ``make_diffusion_train_step``'s step draws from ``rng``: the keep
+    mask from the folded key, t and the noise from its split."""
+    keep = jax.random.bernoulli(jax.random.fold_in(rng, 0xCF6), 1.0 - cond_dropout,
+                                (shape[0],))
+    rng_t, rng_n = jax.random.split(rng)
+    t = jax.random.randint(rng_t, (shape[0],), 0, TIMESTEPS)
+    noise = jax.random.normal(rng_n, shape, jnp.float32)
+    return np.asarray(t), np.asarray(noise), np.asarray(keep)
+
+
+def _fed(draws):
+    """A TrainDraws that hands out ``draws[0]`` = (t, noise, keep) numpy
+    arrays (the test swaps ``draws[0]`` between steps)."""
+    return pd.TrainDraws(
+        timesteps=lambda b, steps, device: torch.from_numpy(draws[0][0].copy()).long(),
+        noise=lambda shape, device: torch.from_numpy(draws[0][1].copy()),
+        masks=lambda shape, p, device: torch.from_numpy(draws[0][2].copy()))
+
+
+def _jax_state(jm, params, lr):
+    tx = jax_make_optimizer('rmsprop', lr)
+    return JaxTrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                         opt_state=tx.init(params), batch_stats={}, tx=tx, apply_fn=jm.apply)
+
+
+# -- the step ---------------------------------------------------------------------
+
+@pytest.mark.parametrize('p', [0.0, 0.3, 1.0])
+def test_drop_conditioning_given_the_jax_mask_is_exact(data, p):
+    cond, _ = _batch(data, b=16)
+    rng = jax.random.PRNGKey(11)
+    want = np.asarray(jd.drop_conditioning(jnp.asarray(cond), rng, p))
+    keep = np.asarray(jax.random.bernoulli(jax.random.fold_in(rng, 0xCF6), 1.0 - p, (16,)))
+    drawn = []
+
+    def masks(shape, rate, device):
+        drawn.append((shape, rate))
+        return torch.from_numpy(keep.copy())
+
+    x = torch.from_numpy(cond)
+    got = pd.drop_conditioning(x, p, masks)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if p == 0.0:
+        assert got is x and drawn == []       # bitwise the batch, nothing drawn
+    else:
+        assert drawn == [((16,), p)]
+
+
+def test_train_step_with_jax_draws_matches_jax_grad(data, pair):
+    """The loss and every gradient of one step, fed the JAX step's draws,
+    against ``jax.grad`` of the same loss built from the JAX module's parts;
+    that loss is the JAX step's own reported loss."""
+    jm, params = pair
+    cond, labels = _batch(data)
+    lab = data['ds'].lab_offsets
+    sched, p, rng = jd.DDPMSchedule(TIMESTEPS), 0.25, jax.random.PRNGKey(5)
+    t, noise, keep = _jax_draws(rng, (8, 4, jm.target_channels), p)
+    assert 0 < keep.sum() < 8
+
+    def jax_loss(prm):
+        x = jd.drop_conditioning(jnp.asarray(cond), rng, p)
+        x0 = jd.diffusion_targets_from_labels(jnp.asarray(labels), lab, jm.num_contact_bodies)
+        eps = jm.apply({'params': prm}, sched.q_sample(x0, jnp.asarray(t), jnp.asarray(noise)),
+                       jnp.asarray(t), x, train=True)
+        return jnp.mean((eps - noise) ** 2)
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    step = jd.make_diffusion_train_step(jm, lab, sched, donate=False, cond_dropout=p)
+    _, metrics = step(_jax_state(jm, params, 1e-3), jnp.asarray(cond), jnp.asarray(labels), rng)
+    # the same draws (other draws move this loss by far more): XLA fuses the
+    # step's bf16 graph differently, hence not bitwise
+    assert float(metrics['loss']) == pytest.approx(float(want_loss), rel=1e-3)
+
+    pm = _port_model(params)
+    state = create_train_state(pm, make_optimizer(pm.named_parameters(), 'rmsprop', 1e-3))
+    grads = pd.diffusion_grads(pm, pd.DDPMSchedule(TIMESTEPS), lab, p, _fed([(t, noise, keep)]))
+    got = grads(state, torch.from_numpy(cond), torch.from_numpy(labels))
+    assert float(got['loss']) == pytest.approx(float(want_loss), rel=REL)
+    want = weights.diffusion_state_dict_from_jax(jax.device_get(want_grads))
+    named = dict(pm.named_parameters())
+    assert set(want) == set(named)
+    for k, g in want.items():
+        scale = float(g.abs().max())
+        err = float((named[k].grad - g).abs().max())
+        assert err <= REL * scale, (k, err, scale)
+
+
+def test_three_rmsprop_steps_track_jax(data, pair):
+    jm, params = pair
+    lab = data['ds'].lab_offsets
+    sched, p = jd.DDPMSchedule(TIMESTEPS), 0.1
+    jstate = _jax_state(jm, params, 1e-3)
+    jstep = jd.make_diffusion_train_step(jm, lab, sched, donate=False, cond_dropout=p)
+    pm = _port_model(params)
+    state = create_train_state(pm, make_optimizer(pm.named_parameters(), 'rmsprop', 1e-3))
+    fed = [None]
+    step = pd.make_diffusion_train_step(pm, lab, pd.DDPMSchedule(TIMESTEPS), p, _fed(fed))
+    for i in range(3):
+        cond, labels = _batch(data, start=8 * i)
+        rng = jax.random.PRNGKey(100 + i)
+        jstate, jm_metrics = jstep(jstate, jnp.asarray(cond), jnp.asarray(labels), rng)
+        fed[0] = _jax_draws(rng, (8, 4, jm.target_channels), p)
+        got = step(state, torch.from_numpy(cond), torch.from_numpy(labels))
+        want = float(jm_metrics['loss'])
+        assert abs(float(got['loss']) - want) <= REL * abs(want), (i, float(got['loss']), want)
+    assert state.step == 3 and int(jstate.step) == 3
+
+
+def test_ema_after_five_updates_is_the_jax_formula(data, pair):
+    _, params = pair
+    pm = _port_model(params)
+    d = 0.9
+    state = create_train_state(pm, make_optimizer(pm.named_parameters(), 'rmsprop', 1e-2))
+    state.dropout_gen = torch.Generator()
+    state.ema = ParamEMA(pm, d)
+    step = pd.make_diffusion_train_step(pm, data['ds'].lab_offsets, pd.DDPMSchedule(TIMESTEPS))
+    ema_update = jax.jit(lambda e, q: jax.tree_util.tree_map(
+        lambda a, b: a * d + b * (1.0 - d), e, q))
+    # copies: on the CPU jnp.asarray may alias the parameters' memory
+    want = {k: jnp.asarray(v.detach().numpy().copy()) for k, v in pm.named_parameters()}
+    for i in range(5):
+        cond, labels = _batch(data, start=8 * i)
+        step(state, torch.from_numpy(cond), torch.from_numpy(labels))
+        want = ema_update(want, {k: jnp.asarray(v.detach().numpy().copy())
+                                 for k, v in pm.named_parameters()})
+    got = state.ema.state_dict()
+    moved = 0
+    for k, w in want.items():
+        # an element near 0 keeps the rounding of the two products it sums
+        # (XLA may fuse them), hence the floor at 1e-6 x the tensor's max
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(w).max()), err_msg=k)
+        moved += not torch.equal(got[k], dict(pm.named_parameters())[k].detach())
+    assert moved == len(want)       # the EMA lags the parameters
+
+
+def test_device_tier_step_is_the_host_step_bitwise(data, pair):
+    """The same windows through the device-resident step (gathered, bf16
+    features), its chunked form, and the host step (float32 batches): the
+    losses, the parameters and the EMA bitwise equal, with
+    ``--cond-dropout`` drawing from the state's generator."""
+    _, params = pair
+    idx = np.stack([np.random.default_rng(i).permutation(len(data['ds']))[:BATCH]
+                    for i in range(4)])
+
+    def fresh():
+        pm = _port_model(params)
+        state = create_train_state(pm, make_optimizer(pm.named_parameters(), 'rmsprop', 1e-2))
+        state.dropout_gen, state.dropout_seed = torch.Generator(), 3
+        state.ema = ParamEMA(pm, 0.99)
+        return pm, state
+
+    sched = pd.DDPMSchedule(TIMESTEPS)
+    pm, host = fresh()
+    step = pd.make_diffusion_train_step(pm, data['ds'].lab_offsets, sched, 0.3)
+    want = []
+    for i in idx:
+        b = data['ds'].gather(i)
+        want.append(float(step(host, torch.from_numpy(b.inputs), torch.from_numpy(b.labels))['loss']))
+    device_data = DeviceResidentData(data['ds'], 'cpu')
+    for chunked in (False, True):
+        qm, st = fresh()
+        if chunked:
+            run = make_device_diffusion_chunked_step(qm, device_data, sched, 0.3)
+            got = [float(r['loss']) for r in run(st, idx).rows()]
+        else:
+            dstep = make_device_diffusion_train_step(qm, device_data, sched, 0.3)
+            got = [float(dstep(st, torch.from_numpy(i))['loss']) for i in idx]
+        assert got == want
+        assert st.step == host.step == len(idx)
+        for (k, a), b in zip(pm.named_parameters(), qm.parameters()):
+            assert torch.equal(a, b), k
+        for k, v in host.ema.state_dict().items():
+            assert torch.equal(v, st.ema.state_dict()[k]), k
+
+
+def test_the_draws_statistics():
+    """From a seeded generator: t covers 0..T-1 about evenly, the noise is
+    N(0, 1), the keep rate is 1 - p, and the timesteps and the noise do not
+    depend on cond_dropout (the keep mask is drawn last)."""
+    draws = pd.generator_draws(torch.Generator().manual_seed(0))
+    t = draws.timesteps(64 * 400, TIMESTEPS, torch.device('cpu'))
+    counts = np.bincount(t.numpy(), minlength=TIMESTEPS)
+    assert t.dtype == torch.int64 and len(counts) == TIMESTEPS and counts.min() > 300
+    z = draws.noise((400, 10, 30), torch.device('cpu'))
+    assert z.dtype == torch.float32
+    assert abs(float(z.mean())) < 0.01 and abs(float(z.std()) - 1.0) < 0.01
+    cond = torch.ones(20000, 2, 3)
+    kept = pd.drop_conditioning(cond, 0.3, draws.masks)[:, 0, 0]
+    assert set(kept.unique().tolist()) == {0.0, 1.0}
+    assert abs(float(kept.mean()) - 0.7) < 0.02
+
+    model = get_model('diffusion', root_history_len=10, diffusion_timesteps=TIMESTEPS,
+                      **{**SIZE, 'd_model': 64, 'num_layers': 1})
+    labels = torch.randn(4, 4, 63)
+    lab = {k: (o, 6 if 'Wrench' not in k else 12)
+           for k, o in zip(pd._TARGET_KEYS, (0, 6, 12, 18))}
+    seen = []
+    for p in (0.0, 0.5):
+        src = pd.generator_draws(torch.Generator().manual_seed(1))
+        rec = pd.TrainDraws(
+            timesteps=lambda *a, s=src: seen.append(s.timesteps(*a)) or seen[-1],
+            noise=lambda *a, s=src: seen.append(s.noise(*a)) or seen[-1],
+            masks=src.masks)
+        pd.diffusion_loss(model, pd.DDPMSchedule(TIMESTEPS), torch.randn(4, 4, 177), labels,
+                          lab, rec, p)
+    assert torch.equal(seen[0], seen[2]) and torch.equal(seen[1], seen[3])
+
+
+# -- train_diffusion end to end ------------------------------------------------------
+
+def _argv(data, ckpt, *flags, epochs=2):
+    return ['train', '--dataset-home', str(data['root']), '--checkpoint-dir', str(ckpt),
+            *ARCH, '--batch-size', str(BATCH), '--epochs', str(epochs), '--device', 'cpu',
+            '--ema-decay', '0.99', '--cond-dropout', '0.1', '--fused-inference',
+            '--device-chunk-steps', '4', *flags]
+
+
+def _run(data, ckpt, *flags, epochs=2):
+    return run_training(build_parser().parse_args(_argv(data, ckpt, *flags, epochs=epochs)))
+
+
+def _final(d, epoch=1):
+    return torch.load(os.path.join(d, 'diffusion', f'epoch_{epoch}_batch_0.torch.pt'),
+                      weights_only=True)
+
+
+def _assert_same(a, b):
+    assert a['step'] == b['step']
+    for part in ('model_state_dict', 'ema_params'):
+        assert set(a[part]) == set(b[part])
+        for k, v in a[part].items():
+            assert torch.equal(v, b[part][k]), (part, k)
+    for i, st in a['optimizer_state_dict']['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, b['optimizer_state_dict']['state'][i][k]), (i, k)
+
+
+@pytest.fixture(scope='module')
+def trained(data, tmp_path_factory):
+    d = tmp_path_factory.mktemp('diffusion_trained')
+    return d, _run(data, d)
+
+
+def test_train_diffusion_writes_ema_checkpoints_and_the_sidecar(data, trained):
+    d, result = trained
+    steps = len(data['ds']) // BATCH
+    assert result.epochs_run == 2 and result.windows_seen == 2 * steps * BATCH
+    assert set(result.final_train_metrics) == {'eps_mse'}
+    assert np.isfinite(result.final_train_metrics['eps_mse'])
+    assert np.isfinite(result.final_dev_metrics['loss']) and result.windows_per_sec > 0
+    assert [c[:2] for c in ckpt.list_checkpoints(str(d / 'diffusion'))] == [(0, 0), (1, 0)]
+    final = _final(d)
+    assert final['step'] == 2 * steps and set(final['ema_params']) == set(final['model_state_dict'])
+    assert all(not torch.equal(v, final['model_state_dict'][k])
+               for k, v in final['ema_params'].items())
+    with open(d / 'diffusion' / 'run_config.json') as f:
+        sidecar = json.load(f)
+    assert sidecar['diffusion_target_space'] == 'normalized'
+    assert sidecar['model_type'] == 'diffusion'
+
+
+def test_chunked_equals_step_by_step_and_the_host_tier_runs(data, trained, tmp_path):
+    d, _ = trained
+    _run(data, tmp_path / 's', '--device-chunk-steps', '1')
+    _assert_same(_final(d), _final(tmp_path / 's'))
+    host = ['--device-data', 'off']
+    a = _run(data, tmp_path / 'hc', *host, '--host-chunk-steps', '4', epochs=1)
+    b = _run(data, tmp_path / 'hs', *host, '--host-chunk-steps', '1', epochs=1)
+    assert a.windows_seen == b.windows_seen == (len(data['ds']) // BATCH) * BATCH
+    _assert_same(_final(tmp_path / 'hc', 0), _final(tmp_path / 'hs', 0))
+
+
+def test_resume_is_epoch_granular_and_equals_the_uninterrupted_run(data, trained, tmp_path):
+    d, _ = trained
+    first = _run(data, tmp_path, epochs=1)
+    resumed = _run(data, tmp_path)
+    assert first.epochs_run == resumed.epochs_run == 1
+    _assert_same(_final(d), _final(tmp_path))
+
+
+def test_sigterm_checkpoints_the_epoch_and_resume_starts_the_next(data, tmp_path):
+    class Killer:
+        def log(self, record):
+            if record.get('epoch') == 0 and record.get('batch') == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    cfg = dataclasses.replace(
+        config_from_args(build_parser().parse_args(
+            _argv(data, tmp_path, '--device-chunk-steps', '1'))),
+        log_every_batches=1, checkpoint_dir=str(tmp_path / 'diffusion'))
+    first = train_diffusion(cfg, data['ds'], data['dev'], metric_logger=Killer(), device='cpu')
+    assert first.preempted and first.epochs_run == 1
+    assert first.windows_seen == 4 * BATCH
+    assert [c[:2] for c in ckpt.list_checkpoints(cfg.checkpoint_dir)] == [(0, 0)]
+    assert 'ema_params' in _final(tmp_path, 0)
+    resumed = train_diffusion(cfg, data['ds'], data['dev'], device='cpu')
+    assert not resumed.preempted and resumed.epochs_run == 1
+    assert _final(tmp_path)['step'] == 4 + len(data['ds']) // BATCH
+
+
+def test_keep_best_and_warm_start_seed_the_ema(data, trained, tmp_path):
+    d, _ = trained
+    r = _run(data, tmp_path / 'b', '--keep-best', epochs=1)
+    assert r.epochs_run == 1 and os.path.exists(tmp_path / 'b' / 'diffusion' / ckpt.BEST_NAME)
+    # lr 0: the warm start's parameters p come through, and the EMA starts
+    # from the source's EMA e, moving toward p once a step
+    src = os.path.join(d, 'diffusion', 'epoch_1_batch_0.torch.pt')
+    _run(data, tmp_path / 'w', '--init-from-checkpoint', src, '--learning-rate', '0', epochs=1)
+    got, want = _final(tmp_path / 'w', 0), torch.load(src, weights_only=True)
+    assert got['step'] == len(data['ds']) // BATCH
+    for k, p in want['model_state_dict'].items():
+        assert torch.equal(p, got['model_state_dict'][k]), k
+        e = want['ema_params'][k]
+        for _ in range(got['step']):
+            e = e * 0.99 + p * (1.0 - 0.99)
+        torch.testing.assert_close(got['ema_params'][k], e, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize('fields,error,match', [
+    (dict(output_data_format='last_frame'), ValueError,
+     'diffusion training requires --output-data-format all_frames'),
+    (dict(augment_noise_std=0.1), NotImplementedError, '--augment-noise-std is not yet ported'),
+    (dict(async_checkpoint=True), NotImplementedError, '--async-checkpoint is not yet ported'),
+    (dict(device_data='stream'), NotImplementedError, '--device-data stream is not yet ported'),
+    (dict(model_parallel=2), NotImplementedError, '--model-parallel is not yet ported'),
+])
+def test_refusals(data, tmp_path, fields, error, match):
+    cfg = dataclasses.replace(config_from_args(build_parser().parse_args(_argv(data, tmp_path))),
+                              checkpoint_dir=str(tmp_path / 'c'), **fields)
+    with pytest.raises(error, match=match):
+        train_diffusion(cfg, data['ds'], data['dev'], device='cpu')
+    assert not os.path.exists(tmp_path / 'c')
+
+
+def test_serve_and_analyze_use_the_trained_ema(data, trained):
+    """``serve --use-ema`` and ``analyze --use-ema`` of a checkpoint the
+    port trained answer from its EMA weights (not from its parameters)."""
+    d, _ = trained
+    x = data['dev'].gather(np.arange(2)).inputs
+    answers = {}
+    for ema in (True, False):
+        args = build_parser().parse_args([
+            'serve', '--device', 'cpu', '--port', '0', '--dataset-home', str(data['root']),
+            '--checkpoint-dir', str(d), *ARCH, '--fused-inference', '--sample-steps', '3',
+            *(['--use-ema'] if ema else [])])
+        svc, server = start(args)
+        try:
+            assert svc.schema()['use_ema'] is ema and svc.epoch == 1
+            url = f'http://127.0.0.1:{server.server_address[1]}'
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            req = urllib.request.Request(url + '/predict', data=json.dumps(
+                {'inputs': x.tolist()}).encode(), headers={'Content-Type': 'application/json'})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers[ema] = json.loads(r.read())['outputs']
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+    assert all(np.isfinite(np.asarray(v)).all() for v in answers[True].values())
+    assert any(not np.array_equal(answers[True][k], answers[False][k]) for k in answers[True])
+    result = analyze(build_parser().parse_args([
+        'analyze', '--dataset-home', str(data['root']), '--checkpoint-dir', str(d),
+        '--no-wandb', '--device', 'cpu', *ARCH, '--batch-size', str(BATCH), '--use-ema']))
+    dev = result['dev']
+    assert dev['windows'] == len(data['dev'])
+    assert np.isfinite(list(dev['summary'].values())).all()

@@ -53,6 +53,7 @@ from inferbiomechanics_tpu_torch.train import run_config
 from inferbiomechanics_tpu_torch.train.device_data import (
     DeviceResidentData, make_device_eval_runner, make_device_train_step,
 )
+from inferbiomechanics_tpu_torch.train.diffusion_loop import train_diffusion
 from inferbiomechanics_tpu_torch.train.loop import (
     build_model_for_dataset, loss_config_from, train,
 )
@@ -493,7 +494,9 @@ def test_resume_refuses_another_architecture_and_warm_start_yields_to_resume(
     (dict(compute_report=True), '--compute-report'),
     (dict(async_checkpoint=True), '--async-checkpoint'),
     (dict(profile=True), '--profile'),
-    (dict(model_type='diffusion'), '--model-type diffusion'),
+    # the diffusion loop refuses the Augmenter by name too
+    (dict(model_type='diffusion', output_data_format='all_frames', augment_mirror=True),
+     '--augment-mirror'),
     (dict(device_data='sharded'), '--device-data sharded'),
     (dict(device_data='stream'), '--device-data stream'),
 ])
@@ -501,8 +504,9 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     fields = {'model_type': 'feedforward', **fields}
     cfg = _config(Config, fields.pop('model_type'), checkpoint_dir=str(tmp_path / 'c'),
                   **fields)
+    run = train_diffusion if cfg.model_type == 'diffusion' else train
     with pytest.raises(NotImplementedError, match=f'{flag} is not yet ported'):
-        train(cfg, data['train'], data['dev'], device='cpu')
+        run(cfg, data['train'], data['dev'], device='cpu')
     assert not os.path.exists(tmp_path / 'c')
 
 
