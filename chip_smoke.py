@@ -150,6 +150,22 @@ Phases, each of which fails the run:
      element; 2 epochs at B=4096 on phase 7's 40 subjects; the chunked
      step's ms by the host clock, device busy ms and idle share, and a dev
      chain's seconds, at both batches.
+ 11. the training options beside the JAX defaults through ``train``,
+     ``serve`` and ``analyze`` (``phase_regularised``): the feedforward model
+     with ``--batchnorm --dropout --dropout-prob 0.1 --augment-mirror
+     --augment-noise-std 0.05`` at B=4096 on phase 7's 40 subjects (2
+     epochs, one chunk an epoch, K1 in the dev evals) and at B=64 on phase
+     7d's subject (also with ``--grad-accum-steps 2``), chunked against step
+     by step and resumed against uninterrupted, bitwise with the running
+     statistics; its eval through K1 on the folded packing against the plain
+     version (``k1_limit``), timed at B=1 and 4096; ``serve`` and ``analyze``
+     of its checkpoint, K1 once a forward; a chunk's coins recorded inside
+     its replays (all distinct, about half mirrored); the ``pallas``
+     transformer augmented, its K2 and K3 kernels in a profiler trace equal
+     to the same run's unaugmented; the ``vpu`` transformer with dropout,
+     served through K2; the denoiser with ``--augment-mirror`` and EMA,
+     chunked against step by step; the chunked step's ms, device busy ms and
+     idle share with and without augmentation.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -257,6 +273,13 @@ K4 = {
     'source': 'inferbiomechanics_tpu_torch/ops/csrc/fused_groundlink.cu',
     'replaces': 'inferbiomechanics_tpu/ops/pallas_groundlink.py:149',
 }
+
+
+def k1_limit(max_abs: float) -> float:
+    """K1's limit for outputs up to ``max_abs``: ATOL below 2, doubled for
+    each octave above, where one bf16 ulp doubles (a batchnorm model's head,
+    folded, gives outputs beyond 2)."""
+    return ATOL * 2.0 ** max(0, int(np.ceil(np.log2(max_abs / 2)))) if max_abs > 2 else ATOL
 
 
 def _get(url: str):
@@ -2237,6 +2260,345 @@ def phase_chunk_times(torch, port, fe, ds, card, seed, batch, chunk=64, chunks=5
                 traced=dict(k2=k2, k3=k3, steps=chunk, by_kernel=traced))
 
 
+def _chunk_step_times(torch, port, flags, ds, batch, seed, chunk=16, chunks=3):
+    """``phase_chunk_times``' method for the model and options ``flags``
+    (train flags, augmentation included) on device-resident ``ds``: one step
+    by the host clock (p50 over ``chunks`` chunks of ``chunk``, each ended by
+    reading its metrics back), the device busy time a step from a profiler
+    trace of one chunk, and the idle share."""
+    cfg = port.config_from_args(port.parser().parse_args(['train', *flags]))
+    model = port.build_model_for_dataset(
+        cfg, ds, generator=torch.Generator().manual_seed(seed), device='cuda')
+    state = port.create_train_state(model, port.make_optimizer(
+        model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+    augment = port.per_step_generators(cfg, state, ds, 'cuda')
+    data = port.DeviceResidentData(ds, 'cuda', pack_windows=True)
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(len(ds))[:batch] for _ in range(chunk)])
+    run = port.make_device_chunked_step(model, data, port.loss_config_from(cfg), augment=augment)
+
+    def one():
+        run(state, idx).rows()
+
+    one()                           # the eager first steps and the capture
+    wall = _host_p50_ms(one, chunks) / chunk
+    _, traced, busy_us = _traced(torch, one)
+    busy = busy_us / 1e3 / chunk if busy_us > 0 else None
+    idle = None if busy is None else max(wall - busy, 0.0) / wall
+    del model, state, run, data
+    return dict(step_ms=wall, device_busy_ms=busy, idle_share=idle,
+                windows_per_sec=batch / wall * 1e3, traced=traced)
+
+
+def phase_regularised(torch, port, fe, fm, step_mod, augment_mod, root, seed, card,
+                      device='cuda', big=4096, batch=64, size_flags=()):
+    """11. The training options beside the JAX defaults, through the
+    ``train``, ``serve`` and ``analyze`` commands at full width: the
+    feedforward model with ``--batchnorm --dropout --dropout-prob 0.1
+    --augment-mirror --augment-noise-std 0.05`` at ``big`` on phase 7's 40
+    subjects (one chunk an epoch, 2 epochs; K1 in the dev eval), chunked
+    against step by step and resumed after epoch 0 against uninterrupted,
+    bitwise (parameters, running statistics, optimizer state); at ``batch``
+    on phase 7d's subject, chunked against step by step, also with
+    ``--grad-accum-steps 2``; its eval through K1 on the folded packing
+    against the plain version on it, and ``serve`` and ``analyze`` of its
+    checkpoint through K1 (launches counted); the augmentation's coins
+    recorded inside a chunk's replays; the ``pallas`` transformer augmented at
+    ``big`` for one epoch, its K2 and K3 kernels counted by name in a
+    profiler trace against the same run unaugmented; the ``vpu`` transformer
+    with dropout at ``batch``, then served with ``--fused-inference`` (K2);
+    the denoiser with ``--augment-mirror`` at ``batch``, chunked against step
+    by step with its EMA; train windows/s with and without augmentation, the
+    chunked step's ms, device busy ms and idle share, the folded K1's us.
+    ``device`` 'cpu' with smaller batches and ``size_flags`` (the
+    transformers' width) rehearses it (no launch counts, traces or times).
+    Returns the numbers for the report."""
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    big_home, small_home = root / 'train_data', root / 'chunk_data'
+    ff = ['--model-type', 'feedforward', '--batchnorm', '--dropout', '--dropout-prob', '0.1']
+    aug = ['--augment-mirror', '--augment-noise-std', '0.05']
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+    warmup = step_mod.GraphedStep.WARMUP_STEPS
+
+    def run(home, ckpt, flags, epochs, b):
+        return port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(home), '--checkpoint-dir', str(root / ckpt),
+            '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+            '--seed', str(seed), *flags]))
+
+    def final(ckpt, model_type):
+        return root / ckpt / model_type
+
+    def split(home, name):
+        return port.WindowDataset(str(home / name), window_size=50, stride=5,
+                                  skip_loading_skeletons=True)
+
+    out = {}
+    # 11a. the main path: the batchnorm + dropout + augmented feedforward model
+    # at big, counts set to 0 just before, read just after
+    train_ds, small_ds = split(big_home, 'train'), split(small_home, 'train')
+    dev_windows = len(split(big_home, 'dev'))
+    dev_batches = dev_windows // big
+    fm.launches = 0
+    replays, captures = step_mod.replays, step_mod.captures
+    a = run(big_home, 'r_ff_a', [*ff, *aug], 2, big)
+    k1_train = fm.launches
+    replays, captures = step_mod.replays - replays, step_mod.captures - captures
+    steps = a.windows_seen // big
+    _check(a.epochs_run == 2 and steps == 2 * (len(train_ds) // big) and steps >= 8
+           and dev_batches >= 1,
+           f'feedforward batchnorm B={big}: {a.epochs_run} epochs, {steps} steps, '
+           f'{dev_batches} dev batches')
+    _check(not on_card or (captures == 1 and replays == steps - warmup),
+           f'feedforward batchnorm B={big}: {captures} captures, {replays} replays')
+    _check(not on_card or k1_train == 2 * dev_batches,
+           f'feedforward batchnorm B={big}: K1 launches {k1_train}, want {2 * dev_batches} '
+           f'(the dev evals)')
+    _check(np.isfinite(a.final_train_metrics['loss']) and np.isfinite(a.final_dev_metrics['loss']),
+           f'feedforward batchnorm: {a.final_train_metrics} / {a.final_dev_metrics}')
+    s = run(big_home, 'r_ff_s', [*ff, *aug, '--device-chunk-steps', '1'], 2, big)
+    run(big_home, 'r_ff_b', [*ff, *aug], 1, big)
+    b = run(big_home, 'r_ff_b', [*ff, *aug], 2, big)
+    _check(s.windows_seen == a.windows_seen == 2 * b.windows_seen, 'feedforward batchnorm runs')
+    ff_step = _compare_final(torch, final('r_ff_a', 'feedforward'),
+                             final('r_ff_s', 'feedforward'), 1)
+    ff_resume = _compare_final(torch, final('r_ff_a', 'feedforward'),
+                               final('r_ff_b', 'feedforward'), 1)
+    noaug = run(big_home, 'r_ff_n', ff, 2, big)
+    print(f'[regularised] feedforward --batchnorm --dropout 0.1 --augment-mirror '
+          f'--augment-noise-std 0.05, B={big}, {steps} steps in 2 epochs, one chunk an epoch '
+          f'({card}): {captures} capture, {replays} replays; K1 launches {k1_train} == 2 dev '
+          f'evals x {dev_batches}; chunked against step by step: {ff_step["verdict"]}; '
+          f'resumed after epoch 0 against uninterrupted: {ff_resume["verdict"]}; windows/s '
+          f'{a.windows_per_sec:.0f} augmented, {noaug.windows_per_sec:.0f} not augmented, '
+          f'{s.windows_per_sec:.0f} augmented step by step', flush=True)
+    out['feedforward_big'] = dict(steps=steps, captures=captures, replays=replays,
+                                  k1_launches=k1_train, vs_step_by_step=ff_step,
+                                  resume=ff_resume, windows_per_sec=a.windows_per_sec,
+                                  windows_per_sec_not_augmented=noaug.windows_per_sec,
+                                  windows_per_sec_step_by_step=s.windows_per_sec)
+
+    # 11b. at the default batch on phase 7d's subject, and with grad accumulation
+    small = {}
+    for name, extra in (('default', []), ('grad_accum_2', ['--grad-accum-steps', '2'])):
+        c = run(small_home, f'r_ff64c_{name}', [*ff, *aug, *extra], 1, batch)
+        p = run(small_home, f'r_ff64s_{name}', [*ff, *aug, *extra, '--device-chunk-steps', '1'],
+                1, batch)
+        _check(c.windows_seen == p.windows_seen, f'feedforward batchnorm B={batch} {extra}')
+        cmp = _compare_final(torch, final(f'r_ff64c_{name}', 'feedforward'),
+                             final(f'r_ff64s_{name}', 'feedforward'), 0)
+        small[name] = dict(steps=c.windows_seen // batch, vs_step_by_step=cmp,
+                           windows_per_sec=c.windows_per_sec)
+        print(f'[regularised] feedforward batchnorm dropout augmented B={batch} {extra}, '
+              f'{c.windows_seen // batch} steps in chunks of 64 against step by step ({card}): '
+              f'{cmp["verdict"]}; windows/s {c.windows_per_sec:.0f} chunked, '
+              f'{p.windows_per_sec:.0f} step by step', flush=True)
+    out['feedforward_small'] = small
+
+    # 11c. the batchnorm model's eval through K1 on the folded packing
+    cfg = port.config_from_args(port.parser().parse_args(['train', *ff]))
+    model, epoch, _ = port.load_model(cfg, train_ds, str(final('r_ff_a', 'feedforward')),
+                                      device=device)
+    _check(epoch == 1 and model.norms is not None, 'the batchnorm checkpoint')
+    packed = model.packed()
+    k1 = {}
+    for bb in (1, big):
+        x = torch.from_numpy(train_ds.gather(np.arange(bb)).inputs.reshape(bb, -1)).to(device)
+        got = fm.fused_mlp_forward(x, packed, cfg.activation)
+        ref = fm.mlp_reference(x, packed.layers, cfg.activation)
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        _check(err <= k1_limit(top), f'folded K1 B={bb}: {err} from the plain version (limit '
+                                     f'{k1_limit(top)} for outputs up to {top})')
+        k1[bb] = dict(max_abs_err=err, max_abs_plain=top, limit=k1_limit(top))
+        if on_card:
+            fns = (('kernel', lambda: fm.fused_mlp_forward(x, packed, cfg.activation)),  # noqa: B023
+                   ('plain', lambda: fm.mlp_reference(x, packed.layers, cfg.activation)))  # noqa: B023
+            k1[bb]['ms'] = {name: _cuda_ms(torch, fn) for name, fn in fns}
+            k1[bb]['device_us'] = {name: _device_us(torch, fn) for name, fn in fns}
+        fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
+        times = (f'profiler device time a call: kernel {fmt(k1[bb]["device_us"]["kernel"])}, '
+                 f'plain {fmt(k1[bb]["device_us"]["plain"])} (PERF.md\'s K1 row: 78.1 / 24.2 us at '
+                 f'B=4096 / 1); CUDA events: kernel {k1[bb]["ms"]["kernel"] * 1e3:.1f} '
+                 f'us, plain {k1[bb]["ms"]["plain"] * 1e3:.1f} us' if on_card else 'not timed')
+        print(f'[regularised] K1 on the folded batchnorm packing B={bb} ({card}): max abs err '
+              f'{err:.3g} against the plain version on it (limit {k1_limit(top)}, outputs up '
+              f'to {top:.3g}); {times}', flush=True)
+    out['folded_k1'] = {str(k): v for k, v in k1.items()}
+
+    # serve and analyze of that checkpoint: K1 once a forward
+    x_big = train_ds.gather(np.arange(big)).inputs
+    fm.launches = 0
+    svc, server, url = _serve(port, ['serve', '--dataset-home', str(big_home),
+                                     '--checkpoint-dir', str(root / 'r_ff_a'),
+                                     '--use-run-config', '--port', '0', '--device', device])
+    try:
+        r = _post(url + '/predict', _b64_body(x_big))
+        served_launches = fm.launches
+    finally:
+        _stop(svc, server)
+    with torch.no_grad():
+        xt = torch.from_numpy(x_big.reshape(big, -1)).to(device)
+        want = port.slice_output_heads(fm.mlp_reference(xt, packed.layers, cfg.activation), 2, 1)
+    served_err = _agree(r['outputs'], {k: v.cpu().numpy() for k, v in want.items()},
+                        'served batchnorm model',
+                        atol=k1_limit(max(float(v.abs().max()) for v in want.values())))
+    _check(not on_card or served_launches == 1,
+           f'served batchnorm model: K1 launches {served_launches}')
+    home = root / 'reg_analyze'
+    (home / 'train').mkdir(parents=True)
+    shutil.copytree(big_home / 'dev', home / 'dev')
+    fm.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = port.analyze(port.parser().parse_args([
+            'analyze', '--dataset-home', str(home), '--checkpoint-dir', str(root / 'r_ff_a'),
+            '--use-run-config', '--batch-size', '512', '--no-wandb', '--device', device]))
+    analyze_launches, forwards = fm.launches, -(-dev_windows // 512)
+    _check(result['dev']['windows'] == dev_windows
+           and np.isfinite(list(result['dev']['summary'].values())).all()
+           and (not on_card or analyze_launches == forwards),
+           f'analyze of the batchnorm model: K1 launches {analyze_launches} for {forwards} '
+           f'forwards, {result["dev"]}')
+    print(f'[regularised] serve of the batchnorm checkpoint, /predict b64 B={big}: K1 launches '
+          f'{served_launches}, max abs err {served_err:.3g} against the plain version; '
+          f'analyze at B=512: K1 launches {analyze_launches} == {forwards} forwards, dev loss '
+          f'{result["dev"]["summary"]["loss"]:.4g}', flush=True)
+    out['serve'] = dict(k1_launches=served_launches, max_abs_err=served_err)
+    out['analyze'] = dict(k1_launches=analyze_launches, forwards=forwards,
+                          loss=result['dev']['summary']['loss'])
+    del model
+
+    # 11d. the augmentation is live inside replays: a chunk's coins recorded
+    # inside the step (a device-side row counter)
+    cfg_aug = port.config_from_args(port.parser().parse_args(['train', *ff, *aug]))
+    model = port.build_model_for_dataset(cfg_aug, small_ds,
+                                         generator=torch.Generator().manual_seed(seed),
+                                         device=device)
+    state = port.create_train_state(model, port.make_optimizer(model.named_parameters(),
+                                                               'rmsprop', 1e-3))
+    augment = port.per_step_generators(cfg_aug, state, small_ds, device)
+    k = 16
+    coins = torch.zeros(k, batch, dtype=torch.bool, device=device)
+    row = torch.zeros(1, dtype=torch.int64, device=device)
+    base = augment_mod.generator_aug_draws(state.aug_gen)
+
+    def coin(n, p, dev):
+        c = base.coin(n, p, dev)
+        coins.index_copy_(0, row, c[None])
+        row.add_(1)
+        return c
+
+    replays = step_mod.replays
+    chunk = port.make_device_chunked_step(
+        model, port.DeviceResidentData(small_ds, device), port.loss_config_from(cfg_aug),
+        augment=augment, aug_draws=augment_mod.AugmentDraws(coin=coin, noise=base.noise))
+    rng = np.random.default_rng(seed)
+    chunk(state, np.stack([rng.permutation(len(small_ds))[:batch] for _ in range(k)])).rows()
+    replays = step_mod.replays - replays
+    seen = coins.cpu().numpy()
+    distinct = len({r.tobytes() for r in seen})
+    share = float(seen.mean())
+    _check(int(row) == k and (not on_card or replays == k - warmup) and distinct == k
+           and 0.35 < share < 0.65,
+           f'augmentation in replays: {int(row)} rows, {replays} replays, {distinct} distinct, '
+           f'share {share}')
+    print(f'[regularised] augmentation inside a chunk of {k} steps at B={batch} ({replays} '
+          f'replays): {distinct} distinct coin rows of {k}; mirrored share {share:.4f}',
+          flush=True)
+    out['coins'] = dict(steps=k, replays=replays, distinct=distinct, mirrored_share=share)
+    del model, state, chunk
+
+    # 11e. the pallas transformer augmented at big, one epoch, its K2 and K3
+    # kernels counted by name in a profiler trace against the same run
+    # unaugmented
+    traced = {}
+    for tag, extra in (('augmented', aug), ('not augmented', [])):
+        def once():
+            return run(big_home, f'r_pallas_{tag[:3]}', [*pallas, *extra], 1, big)  # noqa: B023
+        result, counts, _ = _traced(torch, once) if on_card else (once(), {}, None)
+        traced[tag] = dict(counts, windows_per_sec=result.windows_per_sec,
+                           steps=result.windows_seen // big)
+    pcfg = port.config_from_args(port.parser().parse_args(['train', *pallas]))
+    p_steps = traced['augmented']['steps']
+    enc = {tag: {n: t.get(n) for n in ENC_KERNELS} for tag, t in traced.items()}
+    if on_card:
+        k3_shape = fe.plan_encoder_bwd(big, 10, pcfg.d_model, pcfg.d_model * 4,
+                                       pcfg.num_heads).shape
+        _check_traced(traced['augmented'], pcfg.num_layers, p_steps, dev_batches, k3_shape,
+                      'pallas augmented')
+    _check(enc['augmented'] == enc['not augmented']
+           and p_steps == traced['not augmented']['steps'],
+           f'pallas K2/K3 launches with and without augmentation: {traced}')
+    print(f'[regularised] pallas transformer B={big}, one epoch of {p_steps} steps and '
+          f'{dev_batches} dev batch ({card}): K2/K3 kernels in the profiler trace augmented '
+          f'{enc["augmented"]} == not augmented (4 a forward, 12 a step); windows/s augmented '
+          f'{traced["augmented"]["windows_per_sec"]:.0f}, not augmented '
+          f'{traced["not augmented"]["windows_per_sec"]:.0f} (traced runs)', flush=True)
+    out['pallas'] = traced
+
+    # 11f. the vpu transformer with dropout at the default batch, then served
+    # through K2
+    vpu = ['--model-type', 'transformer', '--attn-impl', 'vpu', '--dropout', '--dropout-prob',
+           '0.1', *size_flags]
+    v = run(small_home, 'r_vpu', vpu, 1, batch)
+    _check(v.epochs_run == 1 and np.isfinite(v.final_train_metrics['loss']), f'vpu dropout {v}')
+    fe.launches = 0
+    svc, server, url = _serve(port, ['serve', '--dataset-home', str(small_home / 'train'),
+                                     '--checkpoint-dir', str(root / 'r_vpu'),
+                                     '--model-type', 'transformer', '--use-run-config',
+                                     '--fused-inference', '--port', '0', '--device', device])
+    try:
+        xv = small_ds.gather(np.arange(37)).inputs
+        r = _post(url + '/predict', json.dumps({'inputs': xv.tolist()}).encode())
+        vpu_launches = fe.launches
+        with torch.no_grad():
+            want = port.fused_transformer_forward(svc.model, torch.from_numpy(xv).to(device),
+                                                  use_kernel=False)
+    finally:
+        _stop(svc, server)
+    vpu_err = _agree(r['outputs'], {name: t.cpu().numpy() for name, t in want.items()},
+                     'served vpu dropout model', rel=HEAD_REL)
+    vcfg = port.config_from_args(port.parser().parse_args(['train', *vpu]))
+    _check(not on_card or vpu_launches == vcfg.num_layers,
+           f'served vpu dropout model: K2 launches {vpu_launches}')
+    print(f'[regularised] vpu transformer --dropout 0.1 B={batch}: {v.windows_seen // batch} '
+          f'steps, loss {v.final_train_metrics["loss"]:.4g}; served with --fused-inference: K2 '
+          f'launches {vpu_launches} a forward, {vpu_err:.3g} from the plain fused forward',
+          flush=True)
+    out['vpu_dropout'] = dict(windows_per_sec=v.windows_per_sec, served_k2=vpu_launches,
+                              served_rel_err=vpu_err)
+
+    # 11g. the denoiser with --augment-mirror at the default batch, with EMA
+    dflags = ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+              '--augment-mirror', '--ema-decay', '0.999', *size_flags]
+    dc = run(small_home, 'r_diff_c', dflags, 1, batch)
+    dp = run(small_home, 'r_diff_s', [*dflags, '--device-chunk-steps', '1'], 1, batch)
+    _check(dc.windows_seen == dp.windows_seen, 'augmented denoiser runs')
+    dcmp = _compare_final(torch, final('r_diff_c', 'diffusion'), final('r_diff_s', 'diffusion'), 0)
+    print(f'[regularised] denoiser --augment-mirror --ema-decay 0.999 B={batch}, '
+          f'{dc.windows_seen // batch} steps, chunked against step by step ({card}): '
+          f'{dcmp["verdict"]}; windows/s {dc.windows_per_sec:.0f}', flush=True)
+    out['denoiser'] = dict(vs_step_by_step=dcmp, windows_per_sec=dc.windows_per_sec)
+
+    # 11h. the chunked step with and without augmentation at big
+    if on_card:
+        times = {}
+        for name, flags in (('feedforward batchnorm dropout augmented', [*ff, *aug]),
+                            ('feedforward batchnorm dropout', ff),
+                            ('pallas augmented', [*pallas, *aug]), ('pallas', pallas)):
+            times[name] = t = _chunk_step_times(torch, port, flags, train_ds, big, seed)
+            print(f'[times] train step {name} B={big} in chunks of 16 ({card}): '
+                  f'{t["step_ms"]:.3f} ms a step by the host clock = '
+                  f'{t["windows_per_sec"]:.0f} windows/s; device busy '
+                  + ('not measured' if t['device_busy_ms'] is None else
+                     f'{t["device_busy_ms"]:.3f} ms a step, idle share {t["idle_share"]:.3f}'),
+                  flush=True)
+        out['chunk_times'] = times
+    out['seconds'] = time.perf_counter() - t_phase
+    print(f'[regularised] phase 11 took {out["seconds"]:.1f} s', flush=True)
+    return out
+
+
 def _print_times(card, what, b, ms, dev, library, bound):
     fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
     print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
@@ -2291,6 +2653,7 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.ops.tune import (
         library_encoder_layer, library_groundlink, random_groundlink_params,
     )
+    from inferbiomechanics_tpu_torch.train import augment as augment_mod
     from inferbiomechanics_tpu_torch.train.augment import mirror_outputs, spec_from_dataset
     from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
     from inferbiomechanics_tpu_torch.train.checkpoint import (
@@ -2301,8 +2664,9 @@ def main() -> int:
         DeviceResidentData, make_device_chunked_step, make_device_diffusion_chunked_step,
         make_device_train_step,
     )
+    from inferbiomechanics_tpu_torch.train.checkpoint import load_model
     from inferbiomechanics_tpu_torch.train.loop import (
-        build_model_for_dataset, loss_config_from,
+        build_model_for_dataset, loss_config_from, per_step_generators,
     )
     from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
     from inferbiomechanics_tpu_torch.train.run_config import save_run_config
@@ -2377,7 +2741,9 @@ def main() -> int:
             make_device_chunked_step=make_device_chunked_step,
             make_device_diffusion_chunked_step=make_device_diffusion_chunked_step,
             ParamEMA=ParamEMA, create_train_state=create_train_state,
-            make_optimizer=make_optimizer)
+            make_optimizer=make_optimizer, per_step_generators=per_step_generators,
+            load_model=load_model, slice_output_heads=slice_output_heads,
+            fused_transformer_forward=fused_transformer_forward)
         k1_launches, ff_p50 = phase_service(
             port, 'feedforward', cfg, [], data, ckpt_root, ds, weights_for(cfg),
             ff_agree, fm, 1, args.seed)
@@ -2481,6 +2847,10 @@ def main() -> int:
         # 10. diffusion training, with the dev eval's chains through K2
         diffusion_trained = phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion,
                                                   tmp, args.seed, card, tmp / 'train_data')
+
+        # 11. batchnorm, dropout and augmentation in every tier of both loops
+        regularised = phase_regularised(torch, port, fe, fm, step_mod, augment_mod, tmp,
+                                        args.seed, card)
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -2690,7 +3060,8 @@ def main() -> int:
               diffusion_partial_proposal_launches={
                   'serve': diffused['extras']['partial 0.3']['k1'],
                   'analyze B=1': diffused['analyze']['partial_launches'][1]},
-              analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0]),
+              analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
+              batchnorm=regularised),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},

@@ -27,7 +27,10 @@ classifier-free guidance's :func:`drop_conditioning`. A step's random draws
 (the timesteps, the noise and the conditioning's keep mask) come through one
 seam, :class:`TrainDraws`: by default from the train state's per-step
 generator (:func:`generator_draws`), and in tests from the JAX step's own
-``jax.random`` draws. The loop is ``train/diffusion_loop.py``.
+``jax.random`` draws. ``--augment-*`` mirrors and noises the conditioning
+and mirrors the labels before that (``train/augment.py``), from the state's
+augmentation generator, so it moves none of those draws. The loop is
+``train/diffusion_loop.py``.
 """
 
 from __future__ import annotations
@@ -56,12 +59,12 @@ from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
     LN_EPS, PackedEncoderLayer, pack_encoder_params,
 )
-from inferbiomechanics_tpu_torch.train.step import as_train_step
+from inferbiomechanics_tpu_torch.train.augment import AugmentDraws, Augmenter, maybe_augment
+from inferbiomechanics_tpu_torch.train.step import as_train_step, aug_draws_of
 
 logger = logging.getLogger(__name__)
 
 _DT = torch.bfloat16
-_DROPOUT_SLICE = 'ROADMAP.md Queue 1 item 2.3 (dropout and batchnorm training)'
 _O = K.OutputDataKeys
 # the four ground-contact heads in the order of the diffusion target layout
 _TARGET_KEYS = (_O.GROUND_CONTACT_COPS_IN_ROOT_FRAME,
@@ -391,11 +394,6 @@ def make_partial_proposal_fn(config, dataset, init_checkpoint,
                 f'{prop_config.stride} (run_config.json) but this run '
                 f'uses {config.window_size}/{config.stride} — the '
                 'proposal must see the same windows as the denoiser')
-    if prop_config.model_type == 'feedforward' and (prop_config.batchnorm
-                                                    or prop_config.dropout):
-        raise NotImplementedError(
-            f'--init-checkpoint {init_checkpoint}: a feedforward proposal with '
-            f'batchnorm or dropout is not ported yet ({_DROPOUT_SLICE})')
     prop_model, epoch, _batch = load_model(prop_config, dataset, init_checkpoint,
                                            device=device)
     if epoch < 0:
@@ -451,15 +449,20 @@ def drop_conditioning(cond: torch.Tensor, cond_dropout: float,
 def diffusion_loss(model: DiffusionDenoiser, schedule: DDPMSchedule, cond_inputs: ModelInput,
                    labels: torch.Tensor, lab_offsets: Dict[str, Tuple[int, int]],
                    draws: TrainDraws, cond_dropout: float = 0.0,
-                   scales: Optional[torch.Tensor] = None):
+                   scales: Optional[torch.Tensor] = None,
+                   augment: Optional[Augmenter] = None,
+                   aug_draws: Optional[AugmentDraws] = None):
     """The eps-prediction MSE of one all-frames batch, in float32: the
-    targets from ``labels``, t ~ U{0..T-1}, noise ~ N(0, 1), x_t by
-    ``q_sample``, the conditioning dropped (:func:`drop_conditioning`), then
-    mean((eps - noise)^2). Returns (loss, {'loss': loss, detached})."""
+    conditioning and the labels augmented (``augment``, from ``aug_draws``;
+    the JAX step augments before dropping the conditioning), the targets
+    from the labels, t ~ U{0..T-1}, noise ~ N(0, 1), x_t by ``q_sample``,
+    the conditioning dropped (:func:`drop_conditioning`), then mean((eps -
+    noise)^2). Returns (loss, {'loss': loss, detached})."""
+    cond, labels = maybe_augment(augment, pack_inputs(cond_inputs), labels, aug_draws)
     x0 = diffusion_targets_from_labels(labels, lab_offsets, model.num_contact_bodies, scales)
     t = draws.timesteps(x0.shape[0], schedule.timesteps, x0.device)
     noise = draws.noise(tuple(x0.shape), x0.device)
-    cond = drop_conditioning(pack_inputs(cond_inputs), cond_dropout, draws.masks)
+    cond = drop_conditioning(cond, cond_dropout, draws.masks)
     eps = model(schedule.q_sample(x0, t, noise), t, cond)
     loss = torch.mean((eps - noise) ** 2)
     return loss, {'loss': loss.detach()}
@@ -467,12 +470,16 @@ def diffusion_loss(model: DiffusionDenoiser, schedule: DDPMSchedule, cond_inputs
 
 def diffusion_grads(model: DiffusionDenoiser, schedule: DDPMSchedule,
                     lab_offsets: Dict[str, Tuple[int, int]], cond_dropout: float = 0.0,
-                    draws: Optional[TrainDraws] = None) -> Callable:
+                    draws: Optional[TrainDraws] = None,
+                    augment: Optional[Augmenter] = None,
+                    aug_draws: Optional[AugmentDraws] = None) -> Callable:
     """``grads(state, inputs, labels) -> {'loss'}``: forward, loss and
     backward of :func:`diffusion_loss`, the gradients left on the
     parameters. ``draws`` None takes the state's per-step generator
     (``TrainState.dropout_gen``, reseeded from the seed and the step count
-    before every step, and registered with a captured step's graph). The
+    before every step, and registered with a captured step's graph), and
+    ``aug_draws`` None its augmentation generator (``TrainState.aug_gen``),
+    so that augmenting moves none of the step's own draws. The
     schedule must be on the training device: a captured step cannot copy its
     constants from the host."""
     scales = target_scales(model.num_contact_bodies, schedule.alpha_bars.device)
@@ -482,7 +489,8 @@ def diffusion_grads(model: DiffusionDenoiser, schedule: DDPMSchedule,
         source = draws if draws is not None else generator_draws(state.dropout_gen)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = diffusion_loss(model, schedule, cond_inputs, labels, lab_offsets,
-                                       source, cond_dropout, scales)
+                                       source, cond_dropout, scales, augment,
+                                       aug_draws_of(state, aug_draws))
         loss.backward()
         return metrics
 
@@ -492,13 +500,16 @@ def diffusion_grads(model: DiffusionDenoiser, schedule: DDPMSchedule,
 def make_diffusion_train_step(model: DiffusionDenoiser,
                               lab_offsets: Dict[str, Tuple[int, int]],
                               schedule: DDPMSchedule, cond_dropout: float = 0.0,
-                              draws: Optional[TrainDraws] = None) -> Callable:
+                              draws: Optional[TrainDraws] = None,
+                              augment: Optional[Augmenter] = None,
+                              aug_draws: Optional[AugmentDraws] = None) -> Callable:
     """``step(state, inputs, labels) -> {'loss'}`` (the state updated in
     place), the JAX package's eps-prediction train step: the draws
     (:func:`diffusion_grads`), forward, loss, backward, the optimizer's
     update (and the state's EMA, when it keeps one). As in the JAX package,
     ``--grad-accum-steps`` does not apply."""
-    return as_train_step(diffusion_grads(model, schedule, lab_offsets, cond_dropout, draws))
+    return as_train_step(diffusion_grads(model, schedule, lab_offsets, cond_dropout, draws,
+                                         augment, aug_draws))
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,14 @@ encoder layer kernel forward and the backward kernels on a CUDA tensor,
 their plain versions on a CPU tensor. The kernels read bf16 weights in
 mma fragment order, so the layers are packed again whenever a parameter
 has changed (once a train step; once per load when serving).
-``'flax'`` is not ported; dropout is not ported on either tree.
+``'flax'`` is not ported.
+
+Dropout (the ``vpu`` tree only; the fused layer takes none, as in the JAX
+package): at ``dropout`` in training, in each encoder block after the
+attention's projection and after the GELU, as the JAX ``EncoderBlock``
+places it. Keep masks come from ``dropout_masks``
+(``models.common.generator_masks`` of a generator the train loop seeds;
+torch's default generator when it is None). Both eval forwards ignore it.
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    ModelInput, init_linear, output_head_size, pack_inputs, slice_output_heads,
+    MaskSource, ModelInput, dropout, generator_masks, init_linear, output_head_size,
+    pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
     LN_EPS, PARAM_NAMES, FusedEncoderLayerFn, PackedEncoderLayer,
@@ -49,7 +57,6 @@ from inferbiomechanics_tpu_torch.ops.fused_encoder import (
     pack_encoder_params,
 )
 
-_DROPOUT_SLICE = 'ROADMAP.md Queue 1 item 2.3 (dropout and batchnorm training)'
 _DT = torch.bfloat16      # the compute dtype of both forwards
 
 
@@ -90,9 +97,14 @@ class ShortWindowAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4, *,
-                 device=None):
+    """The JAX ``EncoderBlock`` on the ``vpu`` tree; ``dropout`` (the
+    transformer's rate; the diffusion denoiser keeps 0, as in JAX) applies
+    when ``forward`` is given ``masks`` (a :data:`MaskSource`)."""
+
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
+                 dropout: float = 0.0, *, device=None):
         super().__init__()
+        self.dropout = float(dropout)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.attn = ShortWindowAttention(d_model, num_heads, device=device)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
@@ -101,10 +113,11 @@ class EncoderBlock(nn.Module):
         self.mlp2 = nn.utils.skip_init(nn.Linear, d_model * mlp_ratio, d_model,
                                        device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layernorm(x, self.ln1))
+    def forward(self, x: torch.Tensor, masks: Optional[MaskSource] = None) -> torch.Tensor:
+        p = self.dropout if masks is not None else 0.0
+        x = x + dropout(self.attn(_layernorm(x, self.ln1)), p, masks)
         y = F.gelu(_dense(_layernorm(x, self.ln2), self.mlp1), approximate='tanh')
-        return x + _dense(y, self.mlp2)
+        return x + _dense(dropout(y, p, masks), self.mlp2)
 
     def layer_params(self) -> Tuple[torch.Tensor, ...]:
         """The flat tuple ``ops/fused_encoder.py`` takes (``PARAM_NAMES``
@@ -151,10 +164,8 @@ class TransformerRegressor(nn.Module):
         if dropout and attn_impl == 'pallas':
             raise ValueError('the fused encoder layer (attn_impl=\'pallas\') '
                              'does not support dropout')
-        if dropout:
-            raise NotImplementedError(
-                f'transformer dropout is not ported yet; it comes with '
-                f'{_DROPOUT_SLICE}')
+        if not 0.0 <= dropout <= 1.0:
+            raise ValueError(f'dropout must lie in [0, 1], got {dropout}')
         if d_model % num_heads:
             raise ValueError(f'd_model {d_model} does not divide into '
                              f'{num_heads} heads')
@@ -175,8 +186,10 @@ class TransformerRegressor(nn.Module):
         self.input_proj = linear(channels, d_model)
         self.temporal_embedding = nn.Parameter(
             torch.empty(self.num_frames, d_model, device=device))
+        self.dropout = float(dropout)
+        self.dropout_masks: Optional[MaskSource] = None
         self.blocks = nn.ModuleList(
-            EncoderBlock(d_model, num_heads, mlp_ratio, device=device)
+            EncoderBlock(d_model, num_heads, mlp_ratio, self.dropout, device=device)
             for _ in range(num_layers if attn_impl == 'vpu' else 0))
         self.final_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.contact_head = linear(d_model, output_head_size(num_contact_bodies, 1))
@@ -288,8 +301,9 @@ class TransformerRegressor(nn.Module):
                                               *self.layer_params(i))
             x = x.to(_DT)
         else:
+            masks = (self.dropout_masks or generator_masks()) if self.training else None
             for blk in self.blocks:
-                x = blk(x)
+                x = blk(x, masks)
         x = _layernorm(x, self.final_ln)
         return self._outputs(x, lambda name, h: _dense(h, getattr(self, name)))
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,10 +113,26 @@ class PackedMLP:
         return self.weights.device
 
 
+def fold_norm(W: torch.Tensor, b: torch.Tensor, s: torch.Tensor,
+              t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Dense layer ``h -> h W + b`` after the affine map ``h -> h * s +
+    t`` (an eval BatchNorm) as one layer: ``W' = diag(s) W`` and ``b' = b +
+    t W``, in float32 (``t W`` summed in float64, so that no TF32 product
+    enters)."""
+    W = W.float()
+    folded = (t.double()[:, None] * W.double()).sum(0)
+    return s.float()[:, None] * W, (b.double() + folded).float()
+
+
 def pack_mlp_params(params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                    device) -> PackedMLP:
+                    device, norms: Optional[Sequence] = None) -> PackedMLP:
     """Pad every width to a multiple of 64 with zeros, cast W to bf16 and b
     to f32, lay W out as swizzled tiles and place both on ``device``.
+
+    ``norms[i]``, when given and not None, is the affine map ``(s, t)`` that
+    precedes layer ``i`` at eval (a BatchNorm's, ``h -> h * s + t``); it is
+    folded into the layer (:func:`fold_norm`) before the cast, so the kernel
+    and the plain version run the folded layers.
 
     Zero padding is exact: padded input columns meet zero weight rows,
     padded hidden columns (act(0), 0.5 for sigmoid) meet the next layer's
@@ -127,6 +143,11 @@ def pack_mlp_params(params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         if tuple(W.shape) != (d0, d1) or tuple(b.shape) != (d1,):
             raise ValueError(f'layer shapes do not chain: W {tuple(W.shape)}, '
                              f'b {tuple(b.shape)} after width {d0}')
+    if norms is not None:
+        if len(norms) != len(params):
+            raise ValueError(f'{len(norms)} norms for {len(params)} layers')
+        params = [(W, b) if norm is None else fold_norm(W, b, *norm)
+                  for (W, b), norm in zip(params, norms)]
     pdims = [_round_tile(d) for d in dims]
     weights, biases, layers = [], [], []
     for (W, b), k, n, pk, pn in zip(params, dims[:-1], dims[1:],

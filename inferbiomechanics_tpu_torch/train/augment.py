@@ -4,9 +4,13 @@ PyTorch counterpart of ``inferbiomechanics_tpu/train/augment.py``: the
 port's own copy of its numpy half (``MirrorSpec``, ``build_mirror_spec``,
 ``spec_from_dataset`` and their helpers, the same code, held to the original
 by ``tests/test_torch_data.py``) and torch versions of ``mirror_outputs`` and
-``tta_average``, and ``make_tta_eval_step`` on them. The training-time
-``Augmenter`` (per-sample mirroring and input noise inside a train step) is
-not ported yet.
+``tta_average``, and ``make_tta_eval_step`` on them; and the training-time
+``Augmenter`` (per-sample mirroring and input noise inside a train step),
+``augmenter_from_config`` and ``maybe_augment``. The Augmenter's draws (a
+coin a sample, the noise) come through one seam, :class:`AugmentDraws`: by
+default from the train state's augmentation generator
+(:func:`generator_aug_draws`), and in tests from the JAX package's own draws
+(which come from its ``rbg`` generator, so no stream could match).
 
 Reflection math (lateral axis ``z`` by default; configurable): for the
 mirror M = diag(1,1,-1) with det -1,
@@ -33,7 +37,7 @@ axis suffix, e.g. ``pelvis_list``), the standard convention table applies:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -317,6 +321,104 @@ def spec_from_dataset(ds, lateral_axis: int = 2) -> MirrorSpec:
         ds.root_history_len,
         lateral_axis=lateral_axis,
         joints=joints)
+
+
+@dataclass(frozen=True)
+class AugmentDraws:
+    """Where an augmented step's draws come from: ``coin(batch, p, device)``
+    bool [batch], True with probability ``p`` (mirror that sample), drawn
+    first and only with a mirror; ``noise(shape, dtype, device)`` N(0, 1) in
+    ``dtype``, drawn second and only with noise."""
+    coin: Callable[[int, float, torch.device], torch.Tensor]
+    noise: Callable[[Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
+
+
+def generator_aug_draws(generator: Optional[torch.Generator]) -> AugmentDraws:
+    """An augmented step's draws from ``generator`` (torch's default one when
+    None), on the device of the step's tensors."""
+    return AugmentDraws(
+        coin=lambda b, p, device: torch.rand((b,), generator=generator, device=device) < p,
+        noise=lambda shape, dtype, device: torch.randn(shape, generator=generator,
+                                                       device=device, dtype=dtype))
+
+
+class Augmenter:
+    """Per-sample mirroring and/or input noise inside a train step.
+
+    The JAX package's ``Augmenter``: with a mirror spec each sample is
+    mirrored with probability ``mirror_prob``, its inputs and its packed
+    labels together; with ``noise_std`` > 0 each input channel gets Gaussian
+    noise of standard deviation ``noise_std`` x that channel's population
+    standard deviation over (batch, time), in the inputs' dtype. Labels are
+    never noised. The mirror's tables live on ``device`` (a captured step
+    reads them there)."""
+
+    def __init__(self, mirror: Optional[MirrorSpec] = None, noise_std: float = 0.0,
+                 mirror_prob: float = 0.5, *, device='cpu'):
+        if mirror is None and noise_std <= 0.0:
+            raise ValueError('Augmenter with no mirror spec and no noise')
+        if not 0.0 <= mirror_prob <= 1.0:
+            raise ValueError(f'mirror_prob must be in [0,1]: {mirror_prob}')
+        self.mirror = mirror
+        self.noise_std = float(noise_std)
+        self.mirror_prob = float(mirror_prob)
+        if mirror is not None:
+            as_index = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)  # noqa: E731
+            as_sign = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+            self._in = (as_index(mirror.in_perm), as_sign(mirror.in_sign))
+            self._lab = (as_index(mirror.lab_perm), as_sign(mirror.lab_sign))
+
+    def __call__(self, inputs: torch.Tensor, labels: Optional[torch.Tensor],
+                 draws: AugmentDraws) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``inputs`` [B, T, C_in], ``labels`` [B, T_out, C_lab] (packed; None
+        or zero-width passes through) -> the augmented pair."""
+        if self.mirror is not None:
+            coin = draws.coin(inputs.shape[0], self.mirror_prob, inputs.device)[:, None, None]
+            perm, sign = self._in
+            inputs = torch.where(coin, inputs[..., perm] * sign.to(inputs.dtype), inputs)
+            if labels is not None and labels.shape[-1]:
+                perm, sign = self._lab
+                labels = torch.where(coin, labels[..., perm] * sign.to(labels.dtype), labels)
+        if self.noise_std > 0.0:
+            std = torch.std(inputs, dim=(0, 1), keepdim=True, correction=0)
+            inputs = inputs + (self.noise_std * std) * draws.noise(
+                tuple(inputs.shape), inputs.dtype, inputs.device)
+        return inputs, labels
+
+
+def augmenter_from_config(config, train_ds, logger=None, device='cpu') -> Optional[Augmenter]:
+    """The Augmenter the train loops share, from ``--augment-mirror`` /
+    ``--augment-noise-std`` / ``--mirror-lateral-axis``, its tables on
+    ``device``; ``None`` when augmentation is off. Warns and logs in the JAX
+    package's words."""
+    if not (config.augment_mirror or config.augment_noise_std > 0):
+        return None
+    spec = None
+    if config.augment_mirror:
+        spec = spec_from_dataset(train_ds, lateral_axis=config.mirror_lateral_axis)
+        if logger is not None:
+            if spec.unpaired_names:
+                logger.warning('augment-mirror: no left/right partner for '
+                               '%s — those channels mirror onto themselves',
+                               spec.unpaired_names)
+            if spec.approximate_dofs:
+                logger.warning('augment-mirror: revolute axes of %s do not '
+                               'mirror cleanly; their sign stays +1',
+                               spec.approximate_dofs)
+    if logger is not None:
+        logger.info('augmentation: mirror=%s noise_std=%g',
+                    config.augment_mirror, config.augment_noise_std)
+    return Augmenter(mirror=spec, noise_std=config.augment_noise_std, device=device)
+
+
+def maybe_augment(augment: Optional[Augmenter], inputs: torch.Tensor,
+                  labels: Optional[torch.Tensor], draws: Optional[AugmentDraws]):
+    """The train steps' hook: ``(inputs, labels)`` augmented from ``draws``
+    (the augmentation generator's, which no other draw shares), or as they
+    are when ``augment`` is None."""
+    if augment is None:
+        return inputs, labels
+    return augment(inputs, labels, draws)
 
 
 def _mirror(x: torch.Tensor, perm: np.ndarray, sign: np.ndarray) -> torch.Tensor:

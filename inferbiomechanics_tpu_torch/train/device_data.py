@@ -25,9 +25,10 @@ from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metr
 from inferbiomechanics_tpu_torch.models.diffusion import (
     DDPMSchedule, DiffusionDenoiser, TrainDraws, diffusion_grads,
 )
+from inferbiomechanics_tpu_torch.train.augment import AugmentDraws, Augmenter, maybe_augment
 from inferbiomechanics_tpu_torch.train.state import TrainState
 from inferbiomechanics_tpu_torch.train.step import (
-    ChunkedStep, Metrics, accumulate_grads, as_train_step,
+    ChunkedStep, Metrics, accumulate_grads, as_train_step, aug_draws_of,
 )
 
 
@@ -118,16 +119,21 @@ class DeviceResidentData:
 
 def make_device_train_step(model, data: DeviceResidentData,
                            loss_config: LossConfig,
-                           grad_accum: int = 1) -> Callable:
+                           grad_accum: int = 1,
+                           augment: Optional[Augmenter] = None,
+                           aug_draws: Optional[AugmentDraws] = None) -> Callable:
     """``step(state, idx) -> metrics``: the gather is part of the step, and
     with ``grad_accum > 1`` each microbatch gathers its own rows, so neither
-    the full batch nor its activations are ever held at once."""
+    the full batch nor its activations are ever held at once. ``augment``
+    mirrors and noises each gathered (micro)batch, its bf16 features as the
+    JAX package's device tier does."""
 
     def grads(state: TrainState, idx: torch.Tensor) -> Metrics:
         model.train()
+        draws = aug_draws_of(state, aug_draws)
 
         def loss_for(rows: slice):
-            inputs, labels = data.gather(idx[rows])
+            inputs, labels = maybe_augment(augment, *data.gather(idx[rows]), draws)
             return loss_and_metrics(model(inputs), unpack(labels, data.lab_offsets),
                                     loss_config)
 
@@ -138,7 +144,9 @@ def make_device_train_step(model, data: DeviceResidentData,
 
 def make_device_chunked_step(model, data: DeviceResidentData,
                              loss_config: LossConfig,
-                             grad_accum: int = 1) -> ChunkedStep:
+                             grad_accum: int = 1,
+                             augment: Optional[Augmenter] = None,
+                             aug_draws: Optional[AugmentDraws] = None) -> ChunkedStep:
     """Chunked device-tier dispatch: ``chunk(state, idx [K, B]) ->
     ChunkMetrics``, with ``idx`` the K steps' window indices on the host.
 
@@ -149,32 +157,42 @@ def make_device_chunked_step(model, data: DeviceResidentData,
     same step body, the same dropout masks). Chunks of any length replay the
     same graph: the epoch's remainder and a resumed epoch's first batches
     too. On the CPU the K steps run eagerly."""
-    step = make_device_train_step(model, data, loss_config, grad_accum=grad_accum)
+    step = make_device_train_step(model, data, loss_config, grad_accum=grad_accum,
+                                  augment=augment, aug_draws=aug_draws)
     return ChunkedStep(step, (torch.int64,), data.device)
 
 
 def make_device_diffusion_train_step(model: DiffusionDenoiser, data: DeviceResidentData,
                                      schedule: DDPMSchedule, cond_dropout: float = 0.0,
-                                     draws: Optional[TrainDraws] = None) -> Callable:
+                                     draws: Optional[TrainDraws] = None,
+                                     augment: Optional[Augmenter] = None,
+                                     aug_draws: Optional[AugmentDraws] = None) -> Callable:
     """``step(state, idx) -> {'loss'}``: the diffusion denoiser's
     eps-prediction step (``models/diffusion.py::diffusion_grads``) on the
     windows ``idx`` gathered on the device; bitwise the host step on the
-    same windows (the denoiser rounds its conditioning to bf16 itself)."""
+    same windows when it is not augmented (the denoiser rounds its
+    conditioning to bf16 itself; an augmented step noises the gathered bf16
+    features, as the JAX package's device tier does)."""
     if data.output_data_format != 'all_frames':
         raise ValueError('diffusion requires all_frames labels')
-    grads = diffusion_grads(model, schedule, data.lab_offsets, cond_dropout, draws)
+    grads = diffusion_grads(model, schedule, data.lab_offsets, cond_dropout, draws,
+                            augment, aug_draws)
     return as_train_step(lambda state, idx: grads(state, *data.gather(idx)))
 
 
 def make_device_diffusion_chunked_step(model: DiffusionDenoiser, data: DeviceResidentData,
                                        schedule: DDPMSchedule, cond_dropout: float = 0.0,
-                                       draws: Optional[TrainDraws] = None) -> ChunkedStep:
+                                       draws: Optional[TrainDraws] = None,
+                                       augment: Optional[Augmenter] = None,
+                                       aug_draws: Optional[AugmentDraws] = None
+                                       ) -> ChunkedStep:
     """``chunk(state, idx [K, B]) -> ChunkMetrics``: K of
     :func:`make_device_diffusion_train_step`'s steps, replayed from one
-    captured step on a CUDA device (the draws from the state's generator,
+    captured step on a CUDA device (the draws from the state's generators,
     which the graph registers; the EMA update inside the graph), bitwise K
     step-by-step calls."""
-    step = make_device_diffusion_train_step(model, data, schedule, cond_dropout, draws)
+    step = make_device_diffusion_train_step(model, data, schedule, cond_dropout, draws,
+                                            augment, aug_draws)
     return ChunkedStep(step, (torch.int64,), data.device)
 
 

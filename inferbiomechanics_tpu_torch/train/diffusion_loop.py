@@ -12,6 +12,10 @@ so that a diffusion run reports the schema of every other model. With
 ``--fused-inference`` the chain's denoiser calls run the fused encoder
 layer kernel (K2), one launch a layer and step.
 
+``--augment-mirror`` / ``--augment-noise-std`` augment each step's
+conditioning and labels as in the regression loop (``train/augment.py``);
+the dev chains see the windows as they are.
+
 ``--ema-decay`` keeps an exponential moving average of the parameters on
 the train state (``train/state.py::ParamEMA``), updated after every update
 inside the step, and so inside a captured step's graph. It rides in every
@@ -52,7 +56,8 @@ from inferbiomechanics_tpu_torch.train.device_data import (
 from inferbiomechanics_tpu_torch.train.loop import (
     BestTracker, SigtermStop, TrainResult, _reject_unported, checkpoint_writer,
     chunk_steps, epoch_batches, loss_config_from, make_dispatch, optimizer_for,
-    prepare_checkpoint_dir, resident_train_data, run_chunks, train_loader, upload_dtype,
+    per_step_generators, prepare_checkpoint_dir, resident_train_data, run_chunks,
+    train_loader, upload_dtype,
 )
 from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import ChunkedStep
@@ -85,9 +90,11 @@ def train_diffusion(config: Config,
     sched = DDPMSchedule(config.diffusion_timesteps, device=device)
     state = create_train_state(model, optimizer_for(config, model))
     # a step's timesteps, noise and keep mask come from a generator on the
-    # device, reseeded from --seed and the step count before every step
+    # device, reseeded from --seed and the step count before every step; the
+    # augmentation (mirrored / noised conditioning, mirrored labels) from a
+    # generator of its own, so that it moves none of them
     state.dropout_gen = torch.Generator(device=device)
-    state.dropout_seed = config.seed
+    augment = per_step_generators(config, state, train_ds, device)
     logger.info('diffusion model: %d params on %s', num_params(state), device)
     warm_started = prepare_checkpoint_dir(config, state)
     ckpt_epoch, _ = load_latest_checkpoint(state, config.checkpoint_dir)
@@ -105,12 +112,15 @@ def train_diffusion(config: Config,
     chunk_k = chunk_steps(config, train_ds, on_device)
     chunked_step = None
     if on_device:
-        step = make_device_diffusion_train_step(model, device_data, sched, config.cond_dropout)
+        step = make_device_diffusion_train_step(model, device_data, sched, config.cond_dropout,
+                                                augment=augment)
         if chunk_k > 1:
             chunked_step = make_device_diffusion_chunked_step(model, device_data, sched,
-                                                              config.cond_dropout)
+                                                              config.cond_dropout,
+                                                              augment=augment)
     else:
-        step = make_diffusion_train_step(model, train_ds.lab_offsets, sched, config.cond_dropout)
+        step = make_diffusion_train_step(model, train_ds.lab_offsets, sched, config.cond_dropout,
+                                         augment=augment)
         if chunk_k > 1:
             chunked_step = ChunkedStep(step, (upload_dtype(config), torch.float32), device)
     if chunked_step is not None:

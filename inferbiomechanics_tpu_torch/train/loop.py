@@ -24,6 +24,13 @@ chunk that crosses their cadence, labelled with its last batch.
 SIGTERM asks for a checkpoint at the next step boundary (chunk boundary,
 when chunked) and a clean exit; the same command then resumes from it.
 
+``--augment-mirror`` / ``--augment-noise-std`` augment every tier's train
+step (``train/augment.py::Augmenter``, built by ``augmenter_from_config``),
+on the device, before the forward; dev evaluation never augments. The
+dropout masks and the augmentation's draws come from two generators on the
+device that the state reseeds from ``--seed`` and the step count before
+every step (:func:`per_step_generators`).
+
 The tiers, the chunked epoch (:func:`run_chunks`), SIGTERM, the best
 checkpoint and the checkpoint directory's set-up are shared with the
 diffusion loop (``train/diffusion_loop.py``).
@@ -49,6 +56,7 @@ from inferbiomechanics_tpu_torch.loss.evaluator import (
 )
 from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
+from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, list_checkpoints, load_latest_checkpoint, prune_checkpoints,
     save_checkpoint, warm_start_from,
@@ -79,6 +87,24 @@ class TrainResult:
     preempted: bool = False   # SIGTERM checkpoint-and-exit (see train())
 
 
+def per_step_generators(config: Config, state, train_ds: WindowDataset, device):
+    """The state's per-step generators on ``device``, seeded from
+    ``--seed`` and the step count before every step
+    (``TrainState.reseed_generators``), so that a step's draws do not depend
+    on where a run was resumed: the dropout masks' (for a model with dropout
+    sites) and, with ``--augment-*``, the augmentation's. Returns the
+    Augmenter (``augmenter_from_config``; None when augmentation is off)."""
+    model = state.model
+    state.dropout_seed = config.seed
+    if hasattr(model, 'dropout_masks'):
+        state.dropout_gen = torch.Generator(device=device)
+        model.dropout_masks = generator_masks(state.dropout_gen)
+    augmenter = augmenter_from_config(config, train_ds, logger, device=device)
+    if augmenter is not None:
+        state.aug_gen = torch.Generator(device=device)
+    return augmenter
+
+
 def loss_config_from(config: Config) -> LossConfig:
     return LossConfig(
         predict_grf_components=tuple(config.predict_grf_components),
@@ -101,10 +127,6 @@ def _reject_unported(config: Config) -> None:
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
         ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16',
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
-        ('--augment-mirror', config.augment_mirror,
-         'ROADMAP.md Queue 1 item 4 (the Augmenter)'),
-        ('--augment-noise-std', config.augment_noise_std > 0,
-         'ROADMAP.md Queue 1 item 4 (the Augmenter)'),
         ('--compute-report', config.compute_report,
          'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
         ('--async-checkpoint', config.async_checkpoint,
@@ -411,13 +433,8 @@ def train(config: Config,
         device=device)
     lc = loss_config_from(config)
     state = create_train_state(model, optimizer_for(config, model))
-    # dropout masks from a generator of their own on the device, seeded from
-    # --seed and the step count before every step (TrainState.reseed_dropout):
-    # the masks of a step do not depend on where a run was resumed
-    if hasattr(model, 'dropout_masks'):
-        state.dropout_gen = torch.Generator(device=device)
-        state.dropout_seed = config.seed
-        model.dropout_masks = generator_masks(state.dropout_gen)
+    # on-device augmentation in every tier's train step; dev eval never augments
+    augment = per_step_generators(config, state, train_ds, device)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
     prepare_checkpoint_dir(config, state)
@@ -440,21 +457,22 @@ def train(config: Config,
     chunked_step = device_eval = None
     if on_device:
         step = make_device_train_step(model, device_data, lc,
-                                      grad_accum=config.grad_accum_steps)
+                                      grad_accum=config.grad_accum_steps, augment=augment)
         if chunk_k > 1:
             chunked_step = make_device_chunked_step(model, device_data, lc,
-                                                    grad_accum=config.grad_accum_steps)
+                                                    grad_accum=config.grad_accum_steps,
+                                                    augment=augment)
         if dev_resident:
             device_eval = make_device_eval_runner(
                 model, DeviceResidentData(dev_ds, device, pack_windows=pack),
                 lc, config.batch_size)
     else:
         step = make_train_step(model, train_ds.lab_offsets, lc,
-                               grad_accum=config.grad_accum_steps)
+                               grad_accum=config.grad_accum_steps, augment=augment)
         if chunk_k > 1:
             chunked_step = make_chunked_train_step(
                 model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
-                input_dtype=upload_dtype(config), device=device)
+                input_dtype=upload_dtype(config), device=device, augment=augment)
     if chunked_step is not None:
         logger.info('chunked dispatch: %d steps a chunk', chunk_k)
     eval_step = make_eval_step(model, train_ds.lab_offsets, lc)

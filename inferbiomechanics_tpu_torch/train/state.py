@@ -3,19 +3,24 @@
 PyTorch counterpart of ``inferbiomechanics_tpu/train/state.py``. The JAX
 state is an immutable pytree that every step replaces; here the model and
 the optimizer are updated in place and the state is the handle on both,
-plus the count of updates made, the dropout generator and, for
-``--ema-decay``, an exponential moving average of the parameters.
+plus the count of updates made, the per-step generators (the dropout one and,
+with ``--augment-*``, the augmentation one) and, for ``--ema-decay``, an
+exponential moving average of the parameters.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
 
 from inferbiomechanics_tpu_torch.train.optimizers import Optimizer
+
+# the augmentation generator's seed is the dropout one's XOR this (the JAX
+# package folds 0xA06 into the step's key for its augmentation draws)
+AUG_SEED_SALT = 0xA06 << 48
 
 
 class ParamEMA:
@@ -54,13 +59,26 @@ class TrainState:
     # masks do not depend on where a run was resumed (None: no reseeding)
     dropout_gen: Optional[torch.Generator] = None
     dropout_seed: int = 0
+    # the generator the augmentation's draws come from (None: no
+    # augmentation), reseeded the same way under a constant of its own, so
+    # that turning augmentation on moves no dropout mask (the JAX package
+    # folds a key of its own for it, for the same reason)
+    aug_gen: Optional[torch.Generator] = None
     # the parameters' moving average, updated after every update (None: off)
     ema: Optional[ParamEMA] = None
 
-    def reseed_dropout(self) -> None:
-        """Seed the dropout generator for the step about to run."""
+    def generators(self) -> List[torch.Generator]:
+        """The per-step generators the state keeps (a captured step
+        registers them with its graph)."""
+        return [g for g in (self.dropout_gen, self.aug_gen) if g is not None]
+
+    def reseed_generators(self) -> None:
+        """Seed the per-step generators for the step about to run."""
+        seed = self.dropout_seed * 1_000_003 + self.step
         if self.dropout_gen is not None:
-            self.dropout_gen.manual_seed(self.dropout_seed * 1_000_003 + self.step)
+            self.dropout_gen.manual_seed(seed)
+        if self.aug_gen is not None:
+            self.aug_gen.manual_seed(seed ^ AUG_SEED_SALT)
 
     def apply_gradients(self) -> None:
         """One optimizer update from the gradients on the parameters, then

@@ -8,7 +8,14 @@ returns the metrics, which stay on the device.
 
 ``grad_accum > 1`` splits the batch into that many equal microbatches,
 runs them one after the other (activation memory of one microbatch) and
-averages gradients and metrics before the single update.
+averages gradients and metrics before the single update. A batchnorm model's
+running statistics go from microbatch to microbatch, as the JAX package's
+scan carries them.
+
+``augment`` (``train/augment.py::Augmenter``) mirrors and noises each
+(micro)batch inside the step, before the forward, from the state's
+augmentation generator (or the ``aug_draws`` seam); eval steps never
+augment.
 
 The chunked dispatch (``make_chunked_train_step`` for the host-loader tier,
 ``device_data.make_device_chunked_step`` for the device-resident one) is the
@@ -36,6 +43,9 @@ import torch
 
 from inferbiomechanics_tpu_torch.data.dataset import unpack
 from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metrics
+from inferbiomechanics_tpu_torch.train.augment import (
+    AugmentDraws, Augmenter, generator_aug_draws, maybe_augment,
+)
 from inferbiomechanics_tpu_torch.train.optimizers import Optimizer
 from inferbiomechanics_tpu_torch.train.state import TrainState
 
@@ -72,14 +82,21 @@ def accumulate_grads(state: TrainState, grad_accum: int, batch_size: int,
     return {k: torch.stack([m[k] for m in history]).mean(0) for k in history[0]}
 
 
+def aug_draws_of(state: TrainState, aug_draws: Optional[AugmentDraws]) -> AugmentDraws:
+    """A step's augmentation draws: ``aug_draws`` when given (the seam tests
+    feed), else the state's augmentation generator's."""
+    return aug_draws if aug_draws is not None else generator_aug_draws(state.aug_gen)
+
+
 def as_train_step(grads: Callable[..., Metrics]) -> Callable[..., Metrics]:
     """The eager step around ``grads(state, *inputs) -> metrics`` (forward,
-    loss, backward; gradients left on the parameters): dropout reseeded for
-    the step, then ``grads``, then the update. ``step.grads`` is ``grads``,
-    which a captured step records with the update."""
+    loss, backward; gradients left on the parameters): the per-step
+    generators reseeded for the step, then ``grads``, then the update.
+    ``step.grads`` is ``grads``, which a captured step records with the
+    update."""
 
     def step(state: TrainState, *inputs: torch.Tensor) -> Metrics:
-        state.reseed_dropout()
+        state.reseed_generators()
         metrics = grads(state, *inputs)
         state.apply_gradients()
         return metrics
@@ -89,17 +106,21 @@ def as_train_step(grads: Callable[..., Metrics]) -> Callable[..., Metrics]:
 
 
 def make_train_step(model, lab_offsets: Dict[str, Tuple[int, int]],
-                    loss_config: LossConfig, grad_accum: int = 1) -> Callable:
+                    loss_config: LossConfig, grad_accum: int = 1,
+                    augment: Optional[Augmenter] = None,
+                    aug_draws: Optional[AugmentDraws] = None) -> Callable:
     """Build ``step(state, inputs, labels) -> metrics`` (``state`` is
     updated in place)."""
 
     def grads(state: TrainState, batch_inputs: torch.Tensor,
               batch_labels: torch.Tensor) -> Metrics:
         model.train()
+        draws = aug_draws_of(state, aug_draws)
 
         def loss_for(rows: slice):
-            outputs = model(batch_inputs[rows])
-            return loss_and_metrics(outputs, unpack(batch_labels[rows], lab_offsets),
+            inputs, labels = maybe_augment(augment, batch_inputs[rows],
+                                           batch_labels[rows], draws)
+            return loss_and_metrics(model(inputs), unpack(labels, lab_offsets),
                                     loss_config)
 
         return accumulate_grads(state, grad_accum, batch_inputs.shape[0], loss_for)
@@ -171,14 +192,15 @@ class GraphedStep:
 
     The graph holds ``grads(state, *inputs)``, the optimizer's update, the
     state's EMA update (when it keeps one) and the metrics flattened into
-    one vector. It reads its inputs and the
+    one vector; a batchnorm model's running statistics are updated in place
+    inside it. It reads its inputs and the
     optimizer's step-dependent values from one static row on the device
     (:class:`RowLayout` of ``specs`` and :attr:`Optimizer.scalars`), which
     :meth:`step` fills by one device-to-device copy before each replay. The
     host's part of a step is what the graph cannot hold: the model's
-    training flag, the dropout generator's seed (the generator is registered
-    with the graph, so a replay draws the masks an eager step would), the
-    optimizer's count and the step count.
+    training flag, the per-step generators' seeds (the dropout and the
+    augmentation generators are registered with the graph, so a replay draws
+    what an eager step would), the optimizer's count and the step count.
 
     The first :attr:`WARMUP_STEPS` steps run eagerly on the capture stream.
     They are the run's own steps, not extra ones, and they make every lazy
@@ -219,8 +241,8 @@ class GraphedStep:
         global captures
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        if state.dropout_gen is not None:
-            graph.register_generator_state(state.dropout_gen)
+        for gen in state.generators():
+            graph.register_generator_state(gen)
         # torch.cuda.graph() would also collect garbage and empty the
         # allocator's cache first, a tenth of a second in a large process
         current = torch.cuda.current_stream(self.device)
@@ -242,7 +264,7 @@ class GraphedStep:
         the next step."""
         global replays
         state.model.train()
-        state.reseed_dropout()
+        state.reseed_generators()
         self.row.copy_(row)
         if self.graph is None and self.eager_steps < self.WARMUP_STEPS:
             current = torch.cuda.current_stream(self.device)
@@ -348,13 +370,16 @@ class ChunkedStep:
 def make_chunked_train_step(model, lab_offsets: Dict[str, Tuple[int, int]],
                             loss_config: LossConfig, grad_accum: int = 1,
                             input_dtype: torch.dtype = torch.float32,
-                            device='cuda') -> ChunkedStep:
+                            device='cuda', augment: Optional[Augmenter] = None,
+                            aug_draws: Optional[AugmentDraws] = None) -> ChunkedStep:
     """The host-loader tier's chunk: ``chunk(state, inputs [K, B, T, C],
     labels [K, B, ...]) -> ChunkMetrics`` from K host batches, bitwise K
     calls of :func:`make_train_step`'s step on those batches uploaded in
     ``input_dtype`` (``torch.bfloat16`` for ``--host-upload-dtype bf16``:
-    half the bytes, and the models round their inputs to bf16 anyway)."""
-    step = make_train_step(model, lab_offsets, loss_config, grad_accum=grad_accum)
+    half the bytes, and the models round their inputs to bf16 anyway; an
+    augmented step noises them in that dtype, as the JAX package does)."""
+    step = make_train_step(model, lab_offsets, loss_config, grad_accum=grad_accum,
+                           augment=augment, aug_draws=aug_draws)
     return ChunkedStep(step, (input_dtype, torch.float32), device)
 
 

@@ -10,7 +10,11 @@ feedforward.py``) keeps one of two parameter trees:
 
 Kernels are ``[in, out]``; ``nn.Linear`` stores ``weight [out, in]``, so
 they are transposed. Both sides use the same frame-major output head, so
-no column is permuted. Arrays cross as numpy.
+no column is permuted. Arrays cross as numpy. With ``batchnorm`` the Dense
+tree also holds ``BatchNorm_{i}: {scale, bias}`` (the norm before
+``Dense_{i}``; the port's ``norms.{i}.weight`` / ``.bias``) and the model's
+``batch_stats`` collection ``BatchNorm_{i}: {mean, var}`` (the port's
+``norms.{i}.running_mean`` / ``.running_var`` buffers).
 
 The JAX ``TransformerRegressor`` with ``attn_impl='vpu'``
 (``inferbiomechanics_tpu/models/transformer.py``) keeps the flax tree that
@@ -41,7 +45,7 @@ are permuted and no tap is flipped. The head is frame-major on both sides.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,30 +69,70 @@ def _layers_from_jax(params: Mapping) -> list:
     return [get(i) for i in idx]
 
 
-def feedforward_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX feedforward params (either tree) -> the port's state dict."""
+# BatchNorm_{i}'s entries: (params name, batch_stats name) -> the port's
+_NORM_KEYS = (('scale', None, 'weight'), ('bias', None, 'bias'),
+              (None, 'mean', 'running_mean'), (None, 'var', 'running_var'))
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def feedforward_state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
+                                    ) -> Dict[str, torch.Tensor]:
+    """JAX feedforward params (either tree) -> the port's state dict; a
+    batchnorm model's ``BatchNorm_{i}`` params need its ``batch_stats``."""
     sd = {}
     for i, (kernel, bias) in enumerate(_layers_from_jax(params)):
-        sd[f'layers.{i}.weight'] = torch.from_numpy(
-            np.asarray(kernel, np.float32).T.copy())
-        sd[f'layers.{i}.bias'] = torch.from_numpy(
-            np.asarray(bias, np.float32).copy())
+        sd[f'layers.{i}.weight'] = _f32(kernel).t().contiguous()
+        sd[f'layers.{i}.bias'] = _f32(bias)
+    norms = sorted(int(m.group(1)) for k in params
+                   if (m := re.fullmatch(r'BatchNorm_(\d+)', k)))
+    if norms and (norms != list(range(len(sd) // 2)) or batch_stats is None):
+        raise ValueError(f'a batchnorm tree needs BatchNorm_0..{len(sd) // 2 - 1} '
+                         f'and its batch_stats; got {norms}, batch_stats '
+                         f'{None if batch_stats is None else sorted(batch_stats)}')
+    for i in norms:
+        for p_name, s_name, port in _NORM_KEYS:
+            src = params if p_name else batch_stats
+            sd[f'norms.{i}.{port}'] = _f32(src[f'BatchNorm_{i}'][p_name or s_name])
     return sd
 
 
 def feedforward_params_to_jax(state_dict: Mapping[str, torch.Tensor],
                               use_pallas: bool = False) -> Dict:
-    """The port's state dict -> a JAX feedforward tree of numpy arrays:
-    ``W{i}``/``b{i}`` if ``use_pallas``, else ``Dense_{i}``."""
+    """The port's state dict (or its parameters, gradients) -> a JAX
+    feedforward tree of numpy arrays: ``W{i}``/``b{i}`` if ``use_pallas``,
+    else ``Dense_{i}`` (and a batchnorm model's ``BatchNorm_{i}`` scale and
+    bias; :func:`feedforward_batch_stats_to_jax` gives its statistics)."""
     n = len([k for k in state_dict if re.fullmatch(r'layers\.\d+\.weight', k)])
+    to_np = lambda t: t.detach().cpu().float().numpy().copy()   # noqa: E731
     out = {}
     for i in range(n):
-        kernel = state_dict[f'layers.{i}.weight'].detach().cpu().numpy().T.copy()
-        bias = state_dict[f'layers.{i}.bias'].detach().cpu().numpy().copy()
+        kernel = to_np(state_dict[f'layers.{i}.weight']).T.copy()
+        bias = to_np(state_dict[f'layers.{i}.bias'])
         if use_pallas:
             out[f'W{i}'], out[f'b{i}'] = kernel, bias
         else:
             out[f'Dense_{i}'] = {'kernel': kernel, 'bias': bias}
+        if f'norms.{i}.weight' in state_dict:
+            if use_pallas:
+                raise ValueError('the use_pallas tree has no BatchNorm')
+            out[f'BatchNorm_{i}'] = {p: to_np(state_dict[f'norms.{i}.{port}'])
+                                     for p, _, port in _NORM_KEYS if p}
+    return out
+
+
+def feedforward_batch_stats_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """A batchnorm model's running statistics -> the JAX ``batch_stats``
+    collection ``{BatchNorm_{i}: {mean, var}}`` ({} without batchnorm)."""
+    out = {}
+    for k in state_dict:
+        if m := re.fullmatch(r'norms\.(\d+)\.running_mean', k):
+            i = m.group(1)
+            out[f'BatchNorm_{i}'] = {
+                s: state_dict[f'norms.{i}.{port}'].detach().cpu().float().numpy().copy()
+                for _, s, port in _NORM_KEYS if s}
     return out
 
 

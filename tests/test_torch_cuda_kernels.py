@@ -6,6 +6,7 @@ there, so skip the JAX-side conftest):
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -m cuda -q
 """
 
+import math
 import time
 
 import pytest
@@ -531,3 +532,147 @@ def test_diffusion_chain_through_k2_matches_the_plain_chain(cuda, monkeypatch, b
         assert torch.isfinite(got[k]).all(), k
         err = (got_part[k] - want_part[k]).abs().max()
         assert err <= 5e-2 * want_part[k].abs().max(), (k, float(err))
+
+
+def _batchnorm_model(cuda, seed=0):
+    """The default feedforward model at full width with batchnorm and
+    dropout, its BatchNorms' scales, biases and running statistics seeded
+    away from their defaults: input channels with offsets of up to a few
+    units and variances from 0.05 to 4, hidden units with the means and the
+    small variances of sigmoid outputs (folded scales up to ~14)."""
+    from inferbiomechanics_tpu_torch.models import get_model
+    gen = torch.Generator().manual_seed(seed)
+    model = get_model('feedforward', num_dofs=23, num_contact_bodies=2, history_len=50,
+                      stride=5, root_history_len=10, batchnorm=True, dropout=True,
+                      dropout_prob=0.1, generator=gen, device=cuda)
+    with torch.no_grad():
+        for i, norm in enumerate(model.norms):
+            n = norm.weight.numel()
+            norm.weight.copy_(1 + 0.2 * torch.randn(n, generator=gen))
+            norm.bias.copy_(0.2 * torch.randn(n, generator=gen))
+            if i == 0:
+                norm.running_mean.copy_(3 * torch.randn(n, generator=gen))
+                norm.running_var.copy_(0.05 + 4 * torch.rand(n, generator=gen))
+            else:
+                norm.running_mean.copy_(0.3 + 0.4 * torch.rand(n, generator=gen))
+                norm.running_var.copy_(0.005 + 0.045 * torch.rand(n, generator=gen))
+    return model.eval(), gen
+
+
+def k1_limit(ref: torch.Tensor) -> float:
+    """K1's limit for outputs up to max|ref|: ATOL below 2 (a flipped final
+    bf16 rounding moves an output by one ulp, 7.8e-3 below 2), doubled for
+    each octave above, where the ulp doubles."""
+    return ATOL * 2.0 ** max(0, math.ceil(math.log2(float(ref.abs().max()) / 2)))
+
+
+@pytest.mark.parametrize('batch', [1, 64, 512, 4096])
+def test_fused_mlp_kernel_with_folded_batchnorm_matches_plain(cuda, batch):
+    """K1 on a batchnorm model's packing (each BatchNorm's eval affine map
+    folded into the Dense layer after it) against its plain version on the
+    same packing, at K1's limit for the outputs' octave (the head after a
+    BatchNorm gives outputs beyond 2, where one bf16 ulp is 1.6e-2); the
+    model's eval forward is one K1 launch."""
+    model, gen = _batchnorm_model(cuda, batch)
+    norm = model.norms[0]
+    x = (norm.running_mean.cpu() + norm.running_var.cpu().sqrt()
+         * torch.randn(batch, 1770, generator=gen)).to(cuda)
+    packed = model.packed()
+    before = fm.launches
+    with torch.no_grad():
+        out = model(x.reshape(batch, 10, 177))
+    assert fm.launches == before + 1
+    flat = torch.cat([out[k].reshape(batch, -1) for k in out], 1)
+    got = fm.fused_mlp_forward(x, packed, 'sigmoid')
+    ref = fm.mlp_reference(x, packed.layers, 'sigmoid')
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and flat.shape == got.shape
+    torch.testing.assert_close(got, ref, rtol=0, atol=k1_limit(ref))
+
+
+def _bn_chunk_case(cuda, tmp_path, batch, aug_draws=None):
+    import numpy as np
+
+    from inferbiomechanics_tpu_torch.config import Config
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+    from inferbiomechanics_tpu_torch.train import loop
+    from inferbiomechanics_tpu_torch.train.device_data import DeviceResidentData
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+
+    write_synthetic_subject(str(tmp_path / 's.b3d'), num_trials=2, trial_length=200, seed=0)
+    ds = WindowDataset(str(tmp_path), window_size=50, stride=5, skip_loading_skeletons=True)
+    cfg = Config()
+    cfg.batchnorm, cfg.dropout, cfg.dropout_prob = True, True, 0.1
+    cfg.augment_mirror, cfg.augment_noise_std = True, 0.05
+    idx = np.stack([np.random.default_rng(i).permutation(len(ds))[:batch] for i in range(7)])
+
+    def fresh():
+        model = loop.build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(0),
+                                             device=cuda)
+        state = create_train_state(model, make_optimizer(model.named_parameters(), 'rmsprop',
+                                                         1e-3))
+        return model, state, loop.per_step_generators(cfg, state, ds, cuda)
+
+    return DeviceResidentData(ds, cuda), loop.loss_config_from(cfg), idx, fresh
+
+
+@pytest.mark.parametrize('batch', [1, 64, 65])
+def test_captured_batchnorm_dropout_augmented_chunks_are_per_step_calls_bitwise(
+        cuda, tmp_path, batch):
+    """The full-width feedforward model with batchnorm, dropout 0.1 and
+    mirror + noise augmentation: chunks replayed from a CUDA graph (the
+    dropout and the augmentation generators registered with it, the running
+    statistics updated in place inside it) against per-step eager calls from
+    the same weights: every step's loss, the parameters, the running
+    statistics and the optimizer state bitwise equal."""
+    from inferbiomechanics_tpu_torch.train import step as step_mod
+    from inferbiomechanics_tpu_torch.train.device_data import (
+        make_device_chunked_step, make_device_train_step,
+    )
+    data, lc, idx, fresh = _bn_chunk_case(cuda, tmp_path, batch)
+    model, per, aug = fresh()
+    step = make_device_train_step(model, data, lc, augment=aug)
+    want = [float(step(per, torch.from_numpy(i).to(cuda))['loss']) for i in idx]
+    model_c, chunked, aug_c = fresh()
+    chunk = make_device_chunked_step(model_c, data, lc, augment=aug_c)
+    replays, captures = step_mod.replays, step_mod.captures
+    got = [float(r['loss']) for r in chunk(chunked, idx[:4]).rows() + chunk(chunked, idx[4:]).rows()]
+    assert got == want
+    assert step_mod.captures - captures == 1
+    assert step_mod.replays - replays == len(idx) - step_mod.GraphedStep.WARMUP_STEPS
+    for (n, p), q in zip(model.state_dict().items(), model_c.state_dict().values()):
+        assert torch.equal(p, q), n
+    assert not torch.equal(model.norms[1].running_mean,
+                           torch.zeros_like(model.norms[1].running_mean))
+    for i, st in per.optimizer.state_dict()['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, chunked.optimizer.state_dict()['state'][i][k]), (i, k)
+
+
+def test_augmentation_draws_anew_in_every_replay(cuda, tmp_path):
+    """The coins of a chunk of 8 steps at B=64, recorded inside the step (a
+    device-side row counter, so replays record too): every step's differ
+    from every other's, and about half the samples are mirrored."""
+    from inferbiomechanics_tpu_torch.train import augment
+    from inferbiomechanics_tpu_torch.train.device_data import make_device_chunked_step
+    data, lc, idx, fresh = _bn_chunk_case(cuda, tmp_path, 64)
+    model, state, aug = fresh()
+    coins = torch.zeros(8, 64, dtype=torch.bool, device=cuda)
+    row = torch.zeros(1, dtype=torch.int64, device=cuda)
+    base = augment.generator_aug_draws(state.aug_gen)
+
+    def coin(b, p, device):
+        c = base.coin(b, p, device)
+        coins.index_copy_(0, row, c[None])
+        row.add_(1)
+        return c
+
+    chunk = make_device_chunked_step(model, data, lc, augment=aug,
+                                     aug_draws=augment.AugmentDraws(coin=coin, noise=base.noise))
+    chunk(state, [idx[k % len(idx)] for k in range(8)]).rows()
+    assert int(row) == 8
+    seen = coins.cpu()
+    assert all(not torch.equal(seen[a], seen[b]) for a in range(8) for b in range(a))
+    assert 0.3 < float(seen.float().mean()) < 0.7

@@ -560,10 +560,6 @@ def test_partial_proposal_refusals(data, tmp_path, case):
         save_run_config(d, _proposal_config(**{'model_type': 'feedforward', **fields}))
     init = None if case == 'no init' else d
     port = _error(lambda: pd.make_partial_proposal_fn(_proposal_config(), data['ds'], init))
-    if case == 'batchnorm':
-        assert port[0] is NotImplementedError
-        assert 'ROADMAP.md Queue 1 item 2.3' in port[1] and 'batchnorm or dropout' in port[1]
-        return
     jcfg = JaxConfig(model_type='diffusion', window_size=20, stride=5,
                      output_data_format='all_frames', hidden_dims=[64, 64])
     want = _error(lambda: jd.make_partial_proposal_fn(jcfg, data['jax_ds'], init,

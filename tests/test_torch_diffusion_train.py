@@ -435,11 +435,14 @@ def test_keep_best_and_warm_start_seed_the_ema(data, trained, tmp_path):
 @pytest.mark.parametrize('fields,error,match', [
     (dict(output_data_format='last_frame'), ValueError,
      'diffusion training requires --output-data-format all_frames'),
-    (dict(augment_noise_std=0.1), NotImplementedError, '--augment-noise-std is not yet ported'),
     (dict(async_checkpoint=True), NotImplementedError, '--async-checkpoint is not yet ported'),
     (dict(device_data='stream'), NotImplementedError, '--device-data stream is not yet ported'),
     (dict(model_parallel=2), NotImplementedError, '--model-parallel is not yet ported'),
-])
+], ids=[  # each case keeps the id it is known by
+    'fields0-ValueError-diffusion training requires --output-data-format all_frames',
+    'fields2-NotImplementedError---async-checkpoint is not yet ported',
+    'fields3-NotImplementedError---device-data stream is not yet ported',
+    'fields4-NotImplementedError---model-parallel is not yet ported'])
 def test_refusals(data, tmp_path, fields, error, match):
     cfg = dataclasses.replace(config_from_args(build_parser().parse_args(_argv(data, tmp_path))),
                               checkpoint_dir=str(tmp_path / 'c'), **fields)

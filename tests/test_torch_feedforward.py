@@ -201,10 +201,10 @@ def test_init_is_seeded_and_scaled(init_style):
                                         'analytical'])
 def test_unported_model_types_name_their_roadmap_slice(model_type):
     # the transformer is ported for both parameter trees ('vpu' and
-    # 'pallas'); with dropout it still names the slice that brings it.
-    # GroundLink is ported for eval and, with its default dropout, for
-    # training; only its banded conv lowering is not, which ROADMAP.md lists
-    # as not to port
+    # 'pallas'), and trains with dropout on the 'vpu' tree; the fused layer
+    # of the 'pallas' tree takes none, as the JAX model asserts. GroundLink
+    # is ported for eval and, with its default dropout, for training; only
+    # its banded conv lowering is not, which ROADMAP.md lists as not to port
     if model_type == 'groundlink':
         out = get_model(model_type, **SMALL).train()(torch.from_numpy(_inputs(2)))
         assert all(torch.isfinite(v).all() for v in out.values())
@@ -223,14 +223,16 @@ def test_unported_model_types_name_their_roadmap_slice(model_type):
         with pytest.raises(NotImplementedError, match="ROADMAP.md's not-to-port list"):
             get_model(model_type, **SMALL, attn_impl='flax')
         return
-    extra = ({'dropout': True, 'dropout_prob': 0.1}
-             if model_type == 'transformer' else {})
+    if model_type == 'transformer':
+        drop = {'dropout': True, 'dropout_prob': 0.1}
+        model = get_model(model_type, **SMALL, **drop, d_model=128, num_heads=4).train()
+        x = torch.from_numpy(_inputs(2))
+        a, b = model(x), model(x)
+        assert all(torch.isfinite(v).all() for v in a.values())
+        assert any(not torch.equal(a[k], b[k]) for k in a)     # new masks each forward
+        with pytest.raises(ValueError, match='does not support dropout'):
+            get_model(model_type, **SMALL, **drop, attn_impl='pallas')
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        model = get_model(model_type, **SMALL, **extra)
+        model = get_model(model_type, **SMALL)
         model.train()(torch.from_numpy(_inputs(2)))
-
-
-@pytest.mark.parametrize('flag', ['batchnorm', 'dropout'])
-def test_batchnorm_and_dropout_are_not_ported(flag):
-    with pytest.raises(NotImplementedError, match='feedforward training'):
-        get_model('feedforward', **SMALL, **{flag: True})

@@ -489,17 +489,16 @@ def test_resume_refuses_another_architecture_and_warm_start_yields_to_resume(
     (dict(pipeline_parallel=2), '--pipeline-parallel'),
     (dict(model_parallel=2), '--model-parallel'),
     (dict(grad_allreduce_dtype='bf16'), '--grad-allreduce-dtype bf16'),
-    (dict(augment_mirror=True), '--augment-mirror'),
-    (dict(augment_noise_std=0.1), '--augment-noise-std'),
     (dict(compute_report=True), '--compute-report'),
     (dict(async_checkpoint=True), '--async-checkpoint'),
     (dict(profile=True), '--profile'),
-    # the diffusion loop refuses the Augmenter by name too
-    (dict(model_type='diffusion', output_data_format='all_frames', augment_mirror=True),
-     '--augment-mirror'),
     (dict(device_data='sharded'), '--device-data sharded'),
     (dict(device_data='stream'), '--device-data stream'),
-])
+], ids=[  # each case keeps the id it is known by
+    'fields0---pipeline-parallel', 'fields1---model-parallel',
+    'fields2---grad-allreduce-dtype bf16', 'fields5---compute-report',
+    'fields6---async-checkpoint', 'fields7---profile', 'fields9---device-data sharded',
+    'fields10---device-data stream'])
 def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     fields = {'model_type': 'feedforward', **fields}
     cfg = _config(Config, fields.pop('model_type'), checkpoint_dir=str(tmp_path / 'c'),
@@ -512,13 +511,14 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
 
 @pytest.mark.parametrize('argv,error,match', [
     (['--use-pickled'], NotImplementedError, '--use-pickled is not yet ported'),
-    (['--dropout', '--dropout-prob', '0.1'], NotImplementedError, 'dropout'),
-    (['--batchnorm'], NotImplementedError, 'batchnorm'),
     (['--model-type', 'groundlink', '--conv-impl', 'banded'], ValueError, 'not ported'),
     (['--model-type', 'transformer', '--attn-impl', 'pallas', '--dropout',
       '--dropout-prob', '0.1'], ValueError, 'does not support dropout'),
     ([], RuntimeError, r'is_available\(\) is False'),        # --device cuda is the default
-])
+], ids=[  # each case keeps the id it is known by
+    'argv0-NotImplementedError---use-pickled is not yet ported', 'argv3-ValueError-not ported',
+    'argv4-ValueError-does not support dropout',
+    'argv5-RuntimeError-is_available\\(\\) is False'])
 def test_train_command_refusals(data, tmp_path, argv, error, match):
     args = ['train', '--dataset-home', str(data['root']), '--checkpoint-dir',
             str(tmp_path), '--batch-size', str(BATCH), *argv]

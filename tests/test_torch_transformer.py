@@ -227,7 +227,6 @@ def test_seeded_init_follows_flax_defaults():
 
 @pytest.mark.parametrize('kwargs,match', [
     ({'attn_impl': 'flax'}, 'not ported'),
-    ({'dropout': True, 'dropout_prob': 0.1}, 'dropout'),
 ])
 def test_unported_transformer_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
