@@ -166,6 +166,22 @@ Phases, each of which fails the run:
      served through K2; the denoiser with ``--augment-mirror`` and EMA,
      chunked against step by step; the chunked step's ms, device busy ms and
      idle share with and without augmentation.
+ 12. the analytical and physics path (``phase_physics``): two synthetic
+     subjects with differently scaled standard skeletons and the coupled
+     knee of ``tests/fixtures/knee_golden.osim``; FK, COM acceleration and
+     ``inverse_dynamics_from_predictions`` on the card against the same code
+     in float64 on the CPU (1e-5 / 1e-4 x max|.|); ``analyze --model-type
+     analytical --compute-report`` at B=1 in chunks of 64 and of 1 (one
+     CUDA graph a batch shape; rows and report equal), its first 16 batches
+     graphed bitwise equal to the eager step and against the float64 CPU
+     step, launches a batch eager and replayed and a chunk of 16 batches'
+     idle share in a profiler trace, and B=512 on phase 8's 24 batches;
+     ``analyze --compute-report`` of phase 8's feedforward and GroundLink
+     checkpoints (a K1 / K4 launch a forward, rows unchanged, the report's
+     host ms a batch, the report against the float64 CPU report of the same
+     outputs);
+     ``train --compute-report`` (feedforward, 2 epochs at B=64), whose dev
+     ``tau_avg_err`` is the report over the same dev batches.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -2599,6 +2615,386 @@ def phase_regularised(torch, port, fe, fm, step_mod, augment_mod, root, seed, ca
     return out
 
 
+# 12. the analytical and physics path: the skeleton's float32 functions on
+# the card against the same code in float64 on the CPU, within PHYS_FK_REL
+# (FK) and PHYS_DYN_REL (COM acceleration, tau, the reports) x max|float64|,
+# the CPU tests' tolerances against the JAX package.
+PHYS_FK_REL = 1e-5
+PHYS_DYN_REL = 1e-4
+
+
+def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
+                  analyze_length=151, train_length=600, device='cuda'):
+    """The analytical and physics path through ``analyze`` and ``train``:
+    two synthetic subjects with differently scaled standard skeletons
+    (masses x 1.0 / 1.4, COMs x 1 + 0.1 i, as tests/test_skeleton.py builds
+    them) and the coupled knee of ``tests/fixtures/knee_golden.osim``:
+
+    - FK, COM acceleration and ``inverse_dynamics_from_predictions`` on the
+      card against float64 on the CPU (400 frames of real windows; the knee
+      on 400 random frames);
+    - ``analyze --model-type analytical --compute-report`` at B=1 with
+      ``--eval-chunk-steps`` 64 and 1 (rows and report equal), its first 16
+      batches through the graphed runner bitwise equal to the eager step and
+      against the float64 CPU step, the launches a batch eager and replayed
+      (profiler trace), a chunk of 16 batches' idle share, and B=512 on
+      ``wide`` (phase 8's split);
+    - ``analyze --compute-report`` of phase 8's feedforward and GroundLink
+      checkpoints (``root / 'ckpt_ff'``, ``'ckpt_gl'``): a K1 / K4 launch a
+      forward, the rows those without the report, the report's host ms a
+      batch, and the report against the float64 CPU report of the same
+      outputs;
+    - ``train --compute-report`` (feedforward, 2 epochs, B=64): the dev
+      report's ``tau_avg_err`` is the report function's mean over the same
+      dev batches of the checkpoint the dev eval scored.
+    ``device`` 'cpu' (with shorter trials and no ``wide``) rehearses it."""
+    from inferbiomechanics_tpu_torch.cli.analyze_cmd import analytical_eval_step
+    from inferbiomechanics_tpu_torch.data.b3d import write_subject
+    from inferbiomechanics_tpu_torch.data.loader import PrefetchLoader
+    from inferbiomechanics_tpu_torch.data.osim import parse_osim
+    from inferbiomechanics_tpu_torch.data.synthetic import (
+        CONTACT_BODIES, standard_skeleton, synthetic_trial,
+    )
+    from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig
+    from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
+    from inferbiomechanics_tpu_torch.models.analytical import (
+        CONTACT_HEIGHT_THRESHOLD, kinematics, make_analytical_fn,
+    )
+    from inferbiomechanics_tpu_torch.ops.skeleton import compile_skeleton
+    from inferbiomechanics_tpu_torch.ops.tune import traced_kernels
+    from inferbiomechanics_tpu_torch.train.step import make_eval_step
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    report = {}
+
+    def home(name, length, splits=('dev',)):
+        h = root / name
+        for split in ('train', 'dev'):
+            (h / split).mkdir(parents=True, exist_ok=True)
+        for split in splits:
+            for i, k in enumerate((1.0, 1.4)):
+                sk = standard_skeleton()
+                for b in sk.bodies:
+                    b.mass *= k
+                    b.com = [c * (1 + 0.1 * i) for c in b.com]
+                write_subject(str(h / split / f's{i}.b3d'), num_dofs=23,
+                              ground_force_bodies=list(CONTACT_BODIES), root_history_len=10,
+                              trials=[synthetic_trial(
+                                  'walk', length, rng=np.random.default_rng(seed + 1200 + i))],
+                              skeleton=sk, mass_kg=70.0 * k)
+        return h
+
+    def dataset(h, split='dev'):
+        return port.WindowDataset(str(h / split), window_size=50, stride=5)
+
+    def rel(got, want):
+        want = want.double().cpu()
+        return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+    ana, small = home('physics_analyze', analyze_length), home('physics_report', 60)
+    ds = dataset(ana)
+    windows = len(ds)
+    _check(windows == 2 * (analyze_length - 51) and ds.skeletons[1].bodies[0].mass != ds.skeletons[0].bodies[0].mass,
+           f'physics split: {windows} windows')
+
+    # -- the card against float64 on the CPU --------------------------------
+    b = ds.gather(np.arange(0, windows, max(1, windows // 40)))
+    x, sidx = torch.from_numpy(b.inputs), torch.from_numpy(b.subject_indices.astype(np.int64))
+    pred, pred64 = make_analytical_fn(ds, device), make_analytical_fn(ds, 'cpu', f64)
+    _check(pred.skeletons.param_stack is not None, 'no per-subject stack')
+    with torch.no_grad():
+        w = pred(x.to(device), sidx.to(device))[
+            'groundContactWrenchesInRootFrame'].float().cpu()
+    sk, sk64 = (p.skeletons.for_rows(sidx.to(p.skeletons.device), frames=True)
+                for p in (pred, pred64))
+    cbi = pred.skeletons.contact_indices
+    qs = [t.to(device) for t in (*kinematics(ds, x), w)]
+    q64 = [t.double() for t in (*kinematics(ds, x), w)]
+    knee, _ = parse_osim((REPO / 'tests' / 'fixtures' / 'knee_golden.osim').read_text())
+    rng = np.random.default_rng(seed + 1201)
+    kq = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(-2.0, 0.7, (400, 1)), rng.normal(size=(400, 1)), rng.normal(size=(400, 1)),
+        rng.normal(size=(400, 12)) * 20)]
+    cases = {'standard (2 scaled subjects)': (sk, sk64, qs, q64, cbi),
+             'knee_golden (spline + linear couplings)': (
+                 compile_skeleton(knee, device), compile_skeleton(knee, 'cpu', f64),
+                 [t.to(device) for t in kq], [t.double() for t in kq], [0, 1])}
+    vs_cpu = {}
+    for name, (a, a64, qa, qb, ci) in cases.items():
+        errs = {'fk': rel(a.fk(qa[0])[1], a64.fk(qb[0])[1]),
+                'com_acceleration': rel(a.com_acceleration(*qa[:3]),
+                                        a64.com_acceleration(*qb[:3])),
+                'tau': rel(a.inverse_dynamics_from_predictions(*qa[:3], ci, qa[3]),
+                           a64.inverse_dynamics_from_predictions(*qb[:3], ci, qb[3]))}
+        _check(errs['fk'] <= PHYS_FK_REL and max(errs.values()) <= PHYS_DYN_REL,
+               f'{name}: card against float64 {errs}')
+        vs_cpu[name] = errs
+        print(f'[physics] {name}, {qa[0].numel() // qa[0].shape[-1]} frames, card against '
+              f'float64 on the CPU, max error / max|.|: ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in errs.items()) + f' (limits {PHYS_FK_REL}, '
+              f'{PHYS_DYN_REL})', flush=True)
+    report['card_vs_cpu_float64'] = vs_cpu
+
+    # -- analyze --model-type analytical --compute-report -------------------
+    kernel_modules = (fm, fg)
+
+    def run(h, flags, ckpt, expect):
+        args = port.parser().parse_args([
+            'analyze', '--dataset-home', str(h), '--checkpoint-dir', str(root / ckpt),
+            '--no-wandb', '--device', device, *flags])
+        csv_path = root / ckpt / args.model_type / 'dev_analysis.csv'
+        if csv_path.exists():
+            csv_path.unlink()
+        for m in kernel_modules:
+            m.launches = 0
+        graphs = (step_mod.eval_captures, step_mod.eval_replays)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = port.analyze(args)
+        launches = [m.launches for m in kernel_modules]
+        dev = result['dev']
+        _check(set(result) == {'dev'} and dev['windows'] == expect
+               and np.isfinite(list(dev['summary'].values())).all(),
+               f'analyze {flags}: {result}')
+        with open(csv_path) as f:
+            rows = list(csv.reader(f))
+        _check(len(rows) == expect, f'{len(rows)} rows for {expect} windows')
+        return dict(dev, rows=rows, launches=launches, args=args,
+                    captures=step_mod.eval_captures - graphs[0],
+                    replays=step_mod.eval_replays - graphs[1])
+
+    ana_flags = ['--model-type', 'analytical', '--compute-report']
+    r64 = run(ana, ana_flags, 'physics_ckpt_ana', windows)
+    r1 = run(ana, ana_flags + ['--eval-chunk-steps', '1'], 'physics_ckpt_ana', windows)
+    graphed = device == 'cuda'
+    for r in (r64, r1):
+        _check(r['launches'] == [0, 0] and 'tau_avg_err' in r['summary'], f'analytical: {r}')
+        _check(not graphed or (r['captures'], r['replays']) == (1, windows - 1),
+               f'analytical B=1: {r["captures"]} captures, {r["replays"]} replays for '
+               f'{windows} batches')
+    _check(r64['rows'] == r1['rows'] and r64['summary'] == r1['summary'],
+           'analytical: rows or report in chunks of 64 differ from chunks of 1')
+
+    # the first 16 batches: the graphed runner, the eager step, float64 on the CPU
+    lc = port.loss_config_from(port.config_from_args(r64['args']))
+    tau_fn = make_tau_report_fn(ds, device)
+    step = analytical_eval_step(ds, lc, pred, tau_fn, True)
+    step64 = analytical_eval_step(ds, lc, pred64, make_tau_report_fn(ds, 'cpu', f64), True)
+    runner = step_mod.make_graphed_chunk_runner(step, (f32, f32, torch.int64), device)
+    batches = list(ds.batches(1, shuffle=False, drop_last=False))
+    first = batches[:16]
+    xs, ys, ss = (np.stack([getattr(bt, a) for bt in first])
+                  for a in ('inputs', 'labels', 'subject_indices'))
+    got = runner(xs, ys, ss)
+    scalars = ('loss', 'force_avg_err', 'com_acc_avg_err', 'cop_avg_err', 'moment_avg_err',
+               'wrench_avg_err', 'wrench_moment_avg_err', 'tau_report')
+    eager, cpu, eager_s = [], [], 0.0
+    for k in range(len(first)):
+        args = [torch.from_numpy(np.ascontiguousarray(a[k])) for a in (xs, ys, ss.astype(np.int64))]
+        t0 = time.perf_counter()
+        eager.append({n: v.float().cpu().numpy()
+                      for n, v in step(*(t.to(device) for t in args)).items()})
+        eager_s += time.perf_counter() - t0
+        cpu.append({n: float(v) for n, v in step64(*args).items() if n in scalars})
+    _check(all(np.array_equal(got[n][k], eager[k][n]) for k in range(len(first)) for n in got),
+           'analytical: the graphed step differs from the eager step')
+    for k, row in enumerate(r64['rows'][:len(first)]):
+        _check([float(v) for v in row[2:]] == [float(got[n][k]) for n in ('loss', 'force_avg_err',
+                                                                            'com_acc_avg_err')],
+               f'analytical: row {k} differs from the graphed step')
+    # a window whose last frame's contact height lies within 1e-6 m of the
+    # threshold may flip between float32 and float64: counted, left out
+    heights = []
+    for bt in first:
+        q = kinematics(ds, torch.from_numpy(bt.inputs[:, -1]).double())[0]
+        ps = pred64.skeletons.for_rows(torch.from_numpy(bt.subject_indices.astype(np.int64)),
+                                       frames=False).fk(q)[1]
+        heights.append(float((ps[..., cbi, 1] - CONTACT_HEIGHT_THRESHOLD).abs().min()))
+    keep = [k for k, h in enumerate(heights) if h >= 1e-6]
+    worst = max(abs(np.mean([float(got[n][k]) for k in keep]) - np.mean([cpu[k][n] for k in keep]))
+                / max(abs(np.mean([cpu[k][n] for k in keep])), 1e-6) for n in scalars)
+    _check(worst <= PHYS_DYN_REL, f'analytical: report of the first batches off float64 by {worst}')
+    report['analytical'] = dict(
+        windows=windows, windows_per_sec_b1=windows / r64['seconds'],
+        windows_per_sec_b1_per_batch=windows / r1['seconds'], seconds_b1=r64['seconds'],
+        seconds_b1_chunks_of_1=r1['seconds'], tau_avg_err=r64['summary']['tau_avg_err'],
+        report_rel_vs_cpu_float64=worst, batches_near_threshold=len(first) - len(keep))
+    print(f'[physics] analyze --model-type analytical --compute-report, {windows} windows at '
+          f'B=1: {r64["seconds"]} s in chunks of 64 ({report["analytical"]["windows_per_sec_b1"]} '
+          f'windows/s), {r1["seconds"]} s in chunks of 1 ({report["analytical"]["windows_per_sec_b1_per_batch"]} '
+          f'windows/s); one capture, {r64["replays"]} replays; rows and report equal in both; '
+          f'the first {len(first)} batches graphed == eager bitwise, report against float64 on '
+          f'the CPU {worst:.3g} relative ({len(first) - len(keep)} batches near the contact '
+          f'threshold left out) ({card})', flush=True)
+
+    if graphed:
+        one = [torch.from_numpy(np.ascontiguousarray(a[0])).to(device)
+               for a in (xs, ys, ss.astype(np.int64))]
+        _, eager_k = traced_kernels(lambda: step(*one))
+        graph = list(runner.graphs.values())[0]
+        row = graph.row.clone()
+        _, replay_k = traced_kernels(lambda: graph(row))
+        chunk = batches[:16]     # a trace of 64 replays holds 843k launches
+        cx, cy, cs = (np.stack([getattr(bt, a) for bt in chunk])
+                      for a in ('inputs', 'labels', 'subject_indices'))
+        # the wall clock untraced (tracing 13k launches a replay slows the
+        # host), the busy time from the trace
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runner(cx, cy, cs)
+            walls.append(time.perf_counter() - t0)
+        wall = {'s': statistics.median(walls)}
+        _, chunk_k = traced_kernels(lambda: runner(cx, cy, cs))
+        busy = sum(us for _, us in chunk_k) / 1e6
+        report['analytical'].update(
+            eager_ms_per_batch_b1=eager_s / len(first) * 1e3,
+            replayed_ms_per_batch_b1=wall['s'] / len(chunk) * 1e3,
+            launches_eager=len(eager_k), launches_replayed=len(replay_k),
+            device_us_eager=sum(us for _, us in eager_k),
+            device_us_replayed=sum(us for _, us in replay_k),
+            chunk_of_16=dict(wall_ms=wall['s'] * 1e3, busy_ms=busy * 1e3,
+                             idle_share=1 - busy / wall['s'], launches=len(chunk_k)))
+        _check(abs(len(replay_k) - len(eager_k)) <= 8,
+               f'a replay ran {len(replay_k)} kernels, the eager step {len(eager_k)}')
+        print(f'[physics] analytical step at B=1, profiler trace: {len(eager_k)} launches '
+              f'eager ({report["analytical"]["device_us_eager"]:.1f} us device), '
+              f'{len(replay_k)} replayed ({report["analytical"]["device_us_replayed"]:.1f} '
+              f'us device); a chunk of 16 batches: {wall["s"] * 1e3:.2f} ms wall (untraced), '
+              f'{busy * 1e3:.2f} ms busy (traced), idle share {1 - busy / wall["s"]:.3f}; '
+              f'a batch eagerly {eager_s / len(first) * 1e3:.2f} ms, replayed '
+              f'{wall["s"] / len(chunk) * 1e3:.2f} ms ({card})',
+              flush=True)
+    if wide is not None:
+        wide_ds = port.WindowDataset(str(wide / 'dev'), window_size=50, stride=5,
+                                     skip_loading_skeletons=True)
+        r512 = run(wide, ana_flags + ['--batch-size', '512'], 'physics_ckpt_wide', len(wide_ds))
+        _check(r512['captures'] == 1 and r512['replays'] == len(wide_ds) // 512 - 1,
+               f'B=512: {r512["captures"]} captures, {r512["replays"]} replays')
+        report['analytical'].update(windows_per_sec_b512=len(wide_ds) / r512['seconds'],
+                                    seconds_b512=r512['seconds'], windows_b512=len(wide_ds))
+        # the step alone at B=512: eagerly and replayed, 2 batches each
+        wds = port.WindowDataset(str(wide / 'dev'), window_size=50, stride=5)
+        wstep = analytical_eval_step(wds, lc, make_analytical_fn(wds, device),
+                                     make_tau_report_fn(wds, device), True)
+        wb = [wds.gather(np.arange(k * 512, (k + 1) * 512)) for k in range(2)]
+        wx, wy, ws_ = (np.stack([getattr(bt, a) for bt in wb])
+                       for a in ('inputs', 'labels', 'subject_indices'))
+        wargs = [[torch.from_numpy(np.ascontiguousarray(a[k])).to(device)
+                  for a in (wx, wy, ws_.astype(np.int64))] for k in range(2)]
+        wstep(*wargs[0])          # the shape's first call (allocations)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in wargs:
+            wstep(*a)
+        torch.cuda.synchronize()
+        eager512 = (time.perf_counter() - t0) / 2
+        wrun = step_mod.make_graphed_chunk_runner(wstep, (f32, f32, torch.int64), device)
+        wrun(wx, wy, ws_)         # the first call eager, the second captured
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            wrun(wx, wy, ws_)
+            walls.append((time.perf_counter() - t0) / 2)
+        replay512 = statistics.median(walls)
+        report['analytical'].update(eager_ms_per_batch_b512=eager512 * 1e3,
+                                    replayed_ms_per_batch_b512=replay512 * 1e3)
+        print(f'[physics] analyze --model-type analytical --compute-report at B=512: '
+              f'{len(wide_ds)} windows in {r512["seconds"]} s '
+              f'({len(wide_ds) / r512["seconds"]} windows/s, capture included); the step '
+              f'alone {eager512 * 1e3:.2f} ms a batch eagerly ({512 / eager512:.1f} windows/s), '
+              f'{replay512 * 1e3:.2f} ms replayed ({512 / replay512:.1f} windows/s) ({card})',
+              flush=True)
+
+    # -- analyze --compute-report of the learned checkpoints -----------------
+    small_ds = dataset(small)
+    tau64 = make_tau_report_fn(small_ds, 'cpu', f64)
+    for name, ckpt, flags, module in (('feedforward (K1)', 'ckpt_ff', [], fm),
+                                      ('groundlink (K4)', 'ckpt_gl',
+                                       ['--model-type', 'groundlink'], fg)):
+        plain = run(ana, flags, ckpt, windows)
+        rep = run(ana, flags + ['--compute-report'], ckpt, windows)
+        want = [windows if m is module and graphed else 0 for m in kernel_modules]
+        _check(plain['launches'] == want and rep['launches'] == want,
+               f'{name}: launches {plain["launches"]} / {rep["launches"]}, expected {want}')
+        # batch by batch with the report, in chunks without it: phase 8's
+        # limit between the two
+        a, b = (np.asarray([r[2:] for r in r_['rows']], float) for r_ in (rep, plain))
+        row_err = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        _check([r[:2] for r in rep['rows']] == [r[:2] for r in plain['rows']]
+               and row_err <= 1e-5 and 'tau_avg_err' in rep['summary']
+               and all(abs(rep['summary'][k] - v) <= 1e-5 * max(abs(v), 1e-30)
+                       for k, v in plain['summary'].items()),
+               f'{name}: the report moved the rows ({row_err}) or the other metrics')
+        ms_per_batch = (rep['seconds'] - plain['seconds']) / windows * 1e3
+        held = run(small, flags + ['--compute-report'], ckpt, len(small_ds))
+        model = port.load_model(port.config_from_args(held['args']), small_ds,
+                                str(root / ckpt / held['args'].model_type), device=device)[0]
+        values = []
+        with torch.no_grad():
+            for bt in small_ds.batches(1, shuffle=False, drop_last=False):
+                out = model(torch.from_numpy(bt.inputs).to(device))
+                values.append(tau64(torch.from_numpy(bt.inputs).double(),
+                                    {k: v.double().cpu() for k, v in out.items()},
+                                    small_ds.unpack_labels(torch.from_numpy(bt.labels).double()),
+                                    bt.subject_indices))
+        err = abs(held['summary']['tau_avg_err'] - np.mean(values)) / abs(np.mean(values))
+        _check(err <= PHYS_DYN_REL, f'{name}: report off float64 by {err}')
+        report[name] = dict(launches=rep['launches'], report_ms_per_batch=ms_per_batch,
+                            rows_rel_vs_without=row_err,
+                            seconds=rep['seconds'], seconds_without=plain['seconds'],
+                            tau_avg_err=rep['summary']['tau_avg_err'],
+                            report_rel_vs_cpu_float64=err)
+        print(f'[physics] analyze {name} --compute-report, {windows} windows at B=1: launches '
+              f'{rep["launches"]} (one a forward), {rep["seconds"]} s against '
+              f'{plain["seconds"]} s without the report: {ms_per_batch:.3f} host ms a batch; '
+              f'rows {row_err:.3g} relative from those without; report against float64 on the CPU of the same outputs '
+              f'({len(small_ds)} windows) {err:.3g} relative ({card})', flush=True)
+
+    # -- train --compute-report ----------------------------------------------
+    th = home('physics_train', train_length, ('train', 'dev'))
+    ckpt_dir = root / 'physics_ckpt_train'
+    args = port.parser().parse_args([
+        'train', '--dataset-home', str(th), '--checkpoint-dir', str(ckpt_dir), '--epochs', '2',
+        '--compute-report', '--no-wandb', '--device', device])
+    fm.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = port.run_training(args)
+    dev_ds = dataset(th)
+    cfg = port.config_from_args(args)
+    dev_batches = len(dev_ds) // cfg.batch_size
+    _check(fm.launches == (2 * dev_batches if graphed else 0), f'train: {fm.launches} K1 launches for 2 dev evals '
+                                           f'of {dev_batches} batches')
+    tau = result.final_dev_metrics.get('tau_avg_err')
+    _check(tau is not None and np.isfinite(tau)
+           and out.getvalue().count('Non-root Joint Torques (Inverse Dynamics) Avg Err') == 2,
+           f'train --compute-report: dev report {result.final_dev_metrics}')
+    # the last dev eval scored the state after epoch 0
+    model = port.load_model(cfg, dev_ds, device=device, checkpoint_file=str(
+        ckpt_dir / 'feedforward' / 'epoch_0_batch_0.torch.pt'))[0]
+    step = make_eval_step(model, dev_ds.lab_offsets, port.loss_config_from(cfg))
+    dev_tau = make_tau_report_fn(dev_ds, device)
+    values = []
+    for bt in PrefetchLoader(dev_ds, cfg.batch_size, device=device, shuffle=False).epoch(
+            seed=cfg.seed * 1_000_003 + 1):
+        outputs, _ = step(None, bt.inputs, bt.labels)
+        values.append(dev_tau(bt.inputs, outputs, port.unpack(bt.labels, dev_ds.lab_offsets),
+                              bt.subject_indices))
+    err = abs(tau - np.mean(values)) / abs(np.mean(values))
+    _check(len(values) == dev_batches and err <= 1e-6,
+           f'train: dev tau_avg_err {tau} against {np.mean(values)} over the same batches')
+    report['train'] = dict(tau_avg_err=tau, dev_batches=dev_batches, k1_launches=2 * dev_batches,
+                           windows_per_sec=result.windows_per_sec, rel_vs_recomputed=err)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[physics] train --compute-report (feedforward, B=64, 2 epochs): dev tau_avg_err '
+          f'{tau}, the report function over the same {dev_batches} dev batches {np.mean(values)} '
+          f'({err:.3g} relative); K1 {2 * dev_batches} launches in the dev evals; '
+          f'{result.windows_per_sec} windows/s; phase 12 took {report["seconds"]:.1f} s ({card})',
+          flush=True)
+    return report
+
+
 def _print_times(card, what, b, ms, dev, library, bound):
     fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
     print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
@@ -2614,6 +3010,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
     args = ap.parse_args()
+    t_smoke = time.perf_counter()
     if not (REPO / 'inferbiomechanics_tpu_torch').is_dir():
         print('chip_smoke: run from a checkout of the repo (no '
               'inferbiomechanics_tpu_torch/ beside this script)', file=sys.stderr)
@@ -2852,6 +3249,11 @@ def main() -> int:
         regularised = phase_regularised(torch, port, fe, fm, step_mod, augment_mod, tmp,
                                         args.seed, card)
 
+        # 12. the analytical and physics path: skeleton FK and inverse
+        # dynamics, analyze --model-type analytical, --compute-report
+        physics = phase_physics(torch, port, fm, fg, step_mod, tmp, args.seed, card,
+                                wide=tmp / 'analyze_wide')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -3049,6 +3451,8 @@ def main() -> int:
             library_ms_b1=small['ms']['library'],
             device_us={str(b): v['dev'] for b, v in times.items()}, card=card, **more)
 
+    print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
+          f'{physics["seconds"]:.1f} s ({card})', flush=True)
     print(card, flush=True)     # name, power limit: as nvidia-smi prints them
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
@@ -3060,6 +3464,10 @@ def main() -> int:
               diffusion_partial_proposal_launches={
                   'serve': diffused['extras']['partial 0.3']['k1'],
                   'analyze B=1': diffused['analyze']['partial_launches'][1]},
+              compute_report_launches={
+                  'analyze B=1': physics['feedforward (K1)']['launches'][0],
+                  'train dev evals': physics['train']['k1_launches']},
+              physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
               batchnorm=regularised),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
@@ -3122,7 +3530,9 @@ def main() -> int:
               predict_p50_ms={'1': gl_p50[0], '4096': gl_p50[1]},
               train_dev_eval_launches=trained['groundlink']['k4_launches'],
               analyze=analyzed['groundlink (K4)'],
-              analyze_tta_launches=analyzed['extras']['tta_launches'][2]),
+              analyze_tta_launches=analyzed['extras']['tta_launches'][2],
+              compute_report_launches={
+                  'analyze B=1': physics['groundlink (K4)']['launches'][1]}),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
 """``analyze`` subcommand: score a checkpoint over the dev and train splits.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/cli/analyze_cmd.py`` for the
-learned models (feedforward, transformer ``vpu`` and ``pallas``, GroundLink,
-the diffusion denoiser), with its flags and defaults (vertical GRF loss only,
-``--batch-size`` 1). For each split, dev then train, it evaluates the
-newest checkpoint under ``<checkpoint-dir>/<model-type>/`` (or
-``--checkpoint-file``; a fresh model, with a warning, when there is none)
-through the model's eval forward: K1 for the feedforward model, K2 a layer
-for the ``pallas`` transformer, K4 for GroundLink, the plain bf16 forward
-for the ``vpu`` transformer. A diffusion checkpoint is scored by sampling:
-a 50-step DDIM chain a batch (``models/diffusion.py::make_sampler``), through
+PyTorch counterpart of ``inferbiomechanics_tpu/cli/analyze_cmd.py``, with its
+flags and defaults (vertical GRF loss only, ``--batch-size`` 1). For each
+split, dev then train, it evaluates the newest checkpoint under
+``<checkpoint-dir>/<model-type>/`` (or ``--checkpoint-file``; a fresh model,
+with a warning, when there is none) through the model's eval forward: K1 for
+the feedforward model, K2 a layer for the ``pallas`` transformer, K4 for
+GroundLink, the plain bf16 forward for the ``vpu`` transformer.
+``--model-type analytical`` scores the physics baseline of
+``models/analytical.py`` on each subject's skeleton, and
+``--compute-report`` adds, for any model, the inverse-dynamics joint-torque
+report (``loss/tau_report.py``); both read the subjects' skeletons and log
+each approximation their parsing made. A diffusion checkpoint is scored by
+sampling: a 50-step DDIM chain a batch (``models/diffusion.py::make_sampler``), through
 K2 a layer and step with ``--fused-inference``, its draws from a generator
 seeded 7 at each batch as the JAX command uses ``PRNGKey(7)``; with
 ``--use-ema`` on the checkpoint's EMA weights, with ``--diffusion-partial``
@@ -23,8 +26,13 @@ com_acc_avg_err, in the JAX command's window order), prints a report every
 ``--eval-chunk-steps K`` (default 64) runs K same-shape batches between two
 device-to-host copies of their metrics (``train/step.py::
 make_eval_chunk_runner``; the short trailing batch is its own chunk); 1 is
-one batch a copy. ``--ensemble`` scores the mean of several checkpoints
-through the port's ``InferenceService`` (``--tta-mirror`` per member);
+one batch a copy. The analytical baseline's step (forward, metrics and,
+with ``--compute-report``, the torque report) is one CUDA graph a batch
+shape, replayed for each batch of a chunk (``make_graphed_chunk_runner``).
+The learned models with ``--compute-report`` run batch by batch, as in the
+JAX command, the report of each through its own graph
+(``loss/tau_report.py``). ``--ensemble`` scores the mean of several
+checkpoints through the port's ``InferenceService`` (``--tta-mirror`` per member);
 ``--tta-mirror`` alone goes through ``train/augment.py::make_tta_eval_step``.
 ``--device`` defaults to ``cuda`` and fails without a GPU; ``--device cpu``
 runs the kernels' plain versions. Options whose features are not ported
@@ -35,12 +43,14 @@ raise and name the ROADMAP item that brings them.
     python -m inferbiomechanics_tpu_torch analyze ... --ensemble C1 C2 --bootstrap 2000
     python -m inferbiomechanics_tpu_torch analyze ... --model-type diffusion \
         --output-data-format all_frames --fused-inference
+    python -m inferbiomechanics_tpu_torch analyze ... --model-type analytical --compute-report
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import logging
 import os
 import time
 from typing import Dict
@@ -51,8 +61,12 @@ import torch
 from inferbiomechanics_tpu_torch.cli.motion import classify_motion
 from inferbiomechanics_tpu_torch.config import Config, add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
-from inferbiomechanics_tpu_torch.loss.evaluator import RegressionLossEvaluator
+from inferbiomechanics_tpu_torch.loss.evaluator import (
+    LossConfig, RegressionLossEvaluator, loss_and_metrics,
+)
+from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import diffusion
+from inferbiomechanics_tpu_torch.models.analytical import make_analytical_fn
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 from inferbiomechanics_tpu_torch.serve import InferenceService, resolve_device
 from inferbiomechanics_tpu_torch.train.augment import make_tta_eval_step, spec_from_dataset
@@ -61,7 +75,9 @@ from inferbiomechanics_tpu_torch.train.loop import loss_config_from
 from inferbiomechanics_tpu_torch.train.run_config import (
     add_run_config_flag, use_run_config_if_requested, warn_on_architecture_mismatch,
 )
-from inferbiomechanics_tpu_torch.train.step import make_eval_chunk_runner, make_eval_step
+from inferbiomechanics_tpu_torch.train.step import (
+    make_eval_chunk_runner, make_eval_step, make_graphed_chunk_runner,
+)
 from inferbiomechanics_tpu_torch.utils.wandb_compat import MetricLogger
 
 ROW_KEYS = ('loss', 'force_avg_err', 'com_acc_avg_err')
@@ -151,10 +167,6 @@ def _reject_unported(config: Config, args: argparse.Namespace) -> None:
     unported = [
         ('--quantize', bool(args.quantize),
          'ROADMAP.md Queue 1 item 4 (inference and serving extras)'),
-        ('--model-type analytical', config.model_type == 'analytical',
-         'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
-        ('--compute-report', config.compute_report,
-         'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
         ('--plot-errors', args.plot_errors,
          'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
     ]
@@ -208,6 +220,33 @@ def _write_summary(path: str, group_by: str, groups: Dict[str, list]) -> None:
             w.writerow([key, n, sl / n, sf / n, sc / n])
 
 
+def _refuse_tta(args: argparse.Namespace) -> None:
+    if args.tta_mirror:
+        raise SystemExit('--tta-mirror supports the learned-model eval paths '
+                         '(not analytical/diffusion/quantized)')
+
+
+def analytical_eval_step(ds: WindowDataset, lc: LossConfig, predict, tau_fn,
+                         last_frame: bool):
+    """``step(inputs [B, T, C], labels, subject_indices [B]) -> metrics``:
+    the analytical baseline's prediction (its last frame unless
+    ``last_frame`` is False), the batch's metrics and, with a ``tau_fn``, its
+    torque report (``tau_report``), on the device without a copy from the
+    host: the function :func:`make_graphed_chunk_runner` captures."""
+
+    def step(inputs, labels, subject_indices):
+        out = predict(inputs, subject_indices)
+        if last_frame:
+            out = {k: v[:, -1:, :] for k, v in out.items()}
+        lab = unpack(labels, ds.lab_offsets)
+        _, metrics = loss_and_metrics(out, lab, lc)
+        if tau_fn is not None:
+            metrics['tau_report'] = tau_fn.traceable(inputs, out, lab, subject_indices)
+        return metrics
+
+    return step
+
+
 def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDataset,
                        checkpoint_dir: str, device: torch.device):
     """The JAX command's diffusion evaluation: ``predict(x) -> outputs`` of
@@ -216,9 +255,7 @@ def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDatas
     if config.output_data_format != 'all_frames':
         raise ValueError('analyze --model-type diffusion requires '
                          '--output-data-format all_frames')
-    if args.tta_mirror:
-        raise SystemExit('--tta-mirror supports the learned-model eval paths '
-                         '(not analytical/diffusion/quantized)')
+    _refuse_tta(args)
     model = _load(config, ds, checkpoint_dir, args, device,
                   f'WARNING: no checkpoint found in {checkpoint_dir}')
     if args.use_ema:
@@ -274,19 +311,38 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
     ml = MetricLogger(config=vars(args), enabled=not config.no_wandb)
     lc = loss_config_from(config)
     results: Dict[str, dict] = {}
+    analytical = config.model_type == 'analytical'
+    needs_skels = analytical or config.compute_report
+    eval_chunk = max(1, int(args.eval_chunk_steps or 1))
     for split in ('dev', 'train'):
         ds = WindowDataset(os.path.join(config.dataset_home, split),
                            window_size=config.window_size, stride=config.stride,
                            output_data_format=config.output_data_format,
                            testing_with_short_dataset=config.short,
                            trial_filter=config.trial_filter,
-                           skip_loading_skeletons=True)
+                           skip_loading_skeletons=not needs_skels)
         if len(ds) == 0:
             print(f'{split}: no windows, skipping')
             continue
-        evaluator = RegressionLossEvaluator(split, lc, wandb_logger=ml)
+        if needs_skels:
+            # an approximation that could bias the torque report or the
+            # analytical baseline is never silent
+            for w in sorted({w for sk in ds.skeletons if sk is not None
+                             for w in sk.fidelity_warnings}):
+                logging.warning('skeleton approximation (may bias the tau report / '
+                                'analytical baseline): %s', w)
+        tau_fn = make_tau_report_fn(ds, device) if config.compute_report else None
+        evaluator = RegressionLossEvaluator(split, lc, tau_fn=tau_fn, wandb_logger=ml)
 
-        if config.model_type == 'diffusion':
+        run_chunk = None   # K same-shape batches -> their metrics on the host
+        if analytical:
+            _refuse_tta(args)
+            eval_fn = None
+            run_chunk = make_graphed_chunk_runner(
+                analytical_eval_step(ds, lc, make_analytical_fn(ds, device), tau_fn,
+                                     config.output_data_format != 'all_frames'),
+                (torch.float32, torch.float32, torch.int64), device)
+        elif config.model_type == 'diffusion':
             predict = _diffusion_predict(config, args, ds, checkpoint_dir, device)
             eval_fn = None
         elif args.ensemble:
@@ -312,6 +368,11 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                 print('mirror test-time augmentation enabled')
             else:
                 eval_fn = make_eval_step(model, ds.lab_offsets, lc)
+            if not config.compute_report:
+                runner = make_eval_chunk_runner(eval_fn, device)
+
+                def run_chunk(xs, ys, _ss, runner=runner):
+                    return runner(None, xs, ys)
 
         csv_path = os.path.join(checkpoint_dir, f'{split}_analysis.csv')
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -319,7 +380,6 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
         groups: Dict[str, list] = {}     # key -> [n, sum_loss, sum_force, sum_com_acc]
         n_boot = int(args.bootstrap or 0)
         boot_rows = []                   # per-window [loss, force, com_acc]
-        eval_chunk = max(1, int(args.eval_chunk_steps or 1))
         windows = 0
 
         t0 = time.perf_counter()
@@ -352,29 +412,39 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                     evaluator.print_report(reset=False, log_to_wandb=True)
 
             batches = ds.batches(config.batch_size, shuffle=False, drop_last=False)
-            if eval_fn is None:
-                # --ensemble or diffusion: one batch at a time
+            if run_chunk is None:
+                # one batch at a time: --ensemble, diffusion, --compute-report
+                # with a learned model
                 for i, batch in enumerate(batches):
                     windows += batch.inputs.shape[0]
-                    y = torch.from_numpy(np.ascontiguousarray(batch.labels)).to(device)
+                    x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+                            for a in (batch.inputs, batch.labels))
+                    labels = unpack(y, ds.lab_offsets)
                     with torch.no_grad():
-                        outputs = predict(batch.inputs)
-                        metrics = evaluator.compute_metrics(
-                            outputs, unpack(y, ds.lab_offsets))
-                    evaluator(None, None, None, precomputed_metrics=metrics)
+                        if eval_fn is not None:
+                            outputs, metrics = eval_fn(None, x, y)
+                        else:
+                            outputs = predict(batch.inputs)
+                            metrics = evaluator.compute_metrics(outputs, labels)
+                        evaluator(x, outputs, labels, batch.subject_indices,
+                                  compute_report=config.compute_report,
+                                  precomputed_metrics=metrics)
                     emit_rows(i, batch, torch.stack(
                         [metrics[key].float() for key in ROW_KEYS]).tolist())
             else:
-                run_chunk = make_eval_chunk_runner(eval_fn, device)
                 pend = []   # [(i, batch)]: same-shape batches only
 
                 def flush():
                     if not pend:
                         return
-                    ms = run_chunk(None, np.stack([b.inputs for _, b in pend]),
-                                   np.stack([b.labels for _, b in pend]))
+                    ms = run_chunk(np.stack([b.inputs for _, b in pend]),
+                                   np.stack([b.labels for _, b in pend]),
+                                   np.stack([b.subject_indices for _, b in pend]))
+                    tau = ms.pop('tau_report', None)
                     for k, (bi, b) in enumerate(pend):
                         mk = {key: v[k] for key, v in ms.items()}
+                        if tau is not None:
+                            evaluator.tau_reported_metrics.append(float(tau[k]))
                         evaluator(None, None, None, precomputed_metrics=mk)
                         emit_rows(bi, b, [float(mk[key]) for key in ROW_KEYS])
                     pend.clear()

@@ -4,7 +4,8 @@ PyTorch counterpart of ``inferbiomechanics_tpu/cli/train_cmd.py``, on the
 port's one flag schema (``config.py::add_config_flags``): train and dev
 datasets under ``--dataset-home``, the model factory, resume, the epoch
 loop (``--model-type diffusion``: the diffusion loop), checkpoints under
-``<checkpoint-dir>/<model-type>/``. ``--device``
+``<checkpoint-dir>/<model-type>/``; the subjects' skeletons are read only
+for ``--compute-report``. ``--device``
 names the torch device: ``cuda`` (the default; fails without a GPU) or
 ``cpu``. Metrics go to the log only (no wandb).
 """
@@ -49,7 +50,7 @@ def run_training(args: argparse.Namespace) -> TrainResult:
             output_data_format=config.output_data_format,
             testing_with_short_dataset=config.short,
             trial_filter=config.trial_filter,
-            skip_loading_skeletons=True,
+            skip_loading_skeletons=not config.compute_report,
             materialize_features=config.materialize_features)
 
     train_ds = split('train')

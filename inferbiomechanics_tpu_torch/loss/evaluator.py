@@ -8,16 +8,17 @@ metrics, and the per-split accumulator with its report.
 
 The math is :func:`loss_and_metrics`, which the train and eval steps call;
 its metrics are detached and stay on the device. The report goes to the
-log and, through ``wandb_logger``, under the JAX package's wandb keys. The
-inverse-dynamics joint-torque report (``tau_fn`` / ``--compute-report``) is
-not ported yet.
+log and, through ``wandb_logger``, under the JAX package's wandb keys. With
+a ``tau_fn`` (``loss/tau_report.py::make_tau_report_fn``) a batch accounted
+with ``compute_report`` also scores the predicted wrenches against inverse
+dynamics: the non-root joint-torque report (``tau_avg_err``).
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,37 +128,39 @@ class RegressionLossEvaluator:
     come from (device tensors from a step, host arrays from a drained eval
     chunk) until the report, which copies their means to the host at once.
     ``wandb_logger`` (a ``utils.wandb_compat.MetricLogger``) gets the
-    report under the JAX package's key schema when asked to."""
+    report under the JAX package's key schema when asked to. ``tau_fn``
+    computes the joint-torque report of a batch accounted with
+    ``compute_report``; its values go to :attr:`tau_reported_metrics`."""
 
     def __init__(self, split: str, config: LossConfig = LossConfig(), tau_fn=None,
                  wandb_logger=None):
-        if tau_fn is not None:
-            raise NotImplementedError(
-                'the inverse-dynamics joint-torque report (tau_fn, '
-                '--compute-report) is not yet ported (ROADMAP.md Queue 1 item 7)')
         self.split = split
         self.config = config
+        self.tau_fn = tau_fn
         self.wandb_logger = wandb_logger
         self.reset()
 
     def reset(self) -> None:
         self.metric_history: Dict[str, list] = {}
+        self.tau_reported_metrics: List[float] = []
 
     def compute_metrics(self, outputs, labels) -> Dict[str, torch.Tensor]:
         return loss_and_metrics(outputs, labels, self.config)[1]
 
-    def __call__(self, inputs, outputs, labels, compute_report: bool = False,
-                 precomputed_metrics: Optional[Dict] = None):
+    def __call__(self, inputs, outputs, labels, batch_subject_indices=None,
+                 compute_report: bool = False, precomputed_metrics: Optional[Dict] = None):
         """Account one batch; pass the step's own metrics (tensors, or the
         host arrays of a drained chunk) as ``precomputed_metrics`` to spare
-        a second computation."""
-        if compute_report:
-            raise NotImplementedError(
-                '--compute-report is not yet ported (ROADMAP.md Queue 1 item 7)')
+        a second computation. With ``compute_report`` and a ``tau_fn``, the
+        batch's joint-torque report is computed from its inputs, outputs,
+        labels and subject indices."""
         metrics = (self.compute_metrics(outputs, labels)
                    if precomputed_metrics is None else precomputed_metrics)
         for k, v in metrics.items():
             self.metric_history.setdefault(k, []).append(v)
+        if compute_report and self.tau_fn is not None:
+            self.tau_reported_metrics.append(
+                float(self.tau_fn(inputs, outputs, labels, batch_subject_indices)))
         return metrics['loss']
 
     def _means(self) -> Dict[str, np.ndarray]:
@@ -178,11 +181,12 @@ class RegressionLossEvaluator:
             at += m.numel()
         return out
 
-    def _wandb_report(self, m: Dict[str, np.ndarray]) -> Dict[str, float]:
+    def _wandb_report(self, m: Dict[str, np.ndarray],
+                      tau_metric: Optional[float] = None) -> Dict[str, float]:
         """The JAX package's key schema: each report key is logged iff its
         own metric exists."""
         c, s = self.config, self.split
-        return {
+        report = {
             **{f'{s}/force_rmse/{COMPONENTS[i]}': float(m['force_loss'][i]) ** 0.5
                for i in c.predict_grf_components},
             **{f'{s}/cop_rmse/{COMPONENTS[i]}': float(m['cop_loss'][i]) ** 0.5
@@ -198,6 +202,10 @@ class RegressionLossEvaluator:
             f'{s}/reports/COM Acc Avg Err (m per s^2)': float(m['com_acc_avg_err']),
             f'{s}/reports/Wrench Avg Err (N+Nm per kg)': float(m['wrench_avg_err']),
         }
+        if tau_metric is not None:
+            report[f'{s}/reports/Non-root Joint Torques (Inverse Dynamics) '
+                   f'Avg Err (Nm per kg)'] = tau_metric
+        return report
 
     def mean_metric(self, key: str) -> Optional[float]:
         hist = self.metric_history.get(key)
@@ -205,19 +213,25 @@ class RegressionLossEvaluator:
 
     def print_report(self, reset: bool = True, log_to_wandb: bool = False) -> Dict[str, float]:
         means = self._means()
+        tau = (float(np.mean(self.tau_reported_metrics))
+               if self.tau_reported_metrics else None)
         summary: Dict[str, float] = {}
         if means:
             keys = ('force_avg_err', 'com_acc_avg_err', 'cop_avg_err', 'moment_avg_err',
                     'wrench_avg_err', 'wrench_moment_avg_err', 'loss')
             summary = {k: float(means[k]) for k in keys}
+            if tau is not None:
+                summary['tau_avg_err'] = tau
             print(f'\tForce Avg Err: {summary["force_avg_err"]} N / kg')
             print(f'\tCOM Acc Avg Err: {summary["com_acc_avg_err"]} m / s^2')
             print(f'\tCoP Avg Err: {summary["cop_avg_err"]} m')
             print(f'\tMoment Avg Err: {summary["moment_avg_err"]} Nm / kg')
             print(f'\tWrench Avg Err: {summary["wrench_avg_err"]} N+Nm / kg')
             print(f'\tWrench Moment Avg Err: {summary["wrench_moment_avg_err"]} Nm / kg')
+            if tau is not None:
+                print(f'\tNon-root Joint Torques (Inverse Dynamics) Avg Err: {tau} Nm / kg')
             if log_to_wandb and self.wandb_logger is not None:
-                self.wandb_logger.log(self._wandb_report(means))
+                self.wandb_logger.log(self._wandb_report(means, tau))
         if reset:
             self.reset()
         return summary

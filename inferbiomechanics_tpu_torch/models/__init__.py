@@ -1,9 +1,10 @@
 """Model registry / factory.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``. The
-feedforward model, GroundLink, the transformer and the diffusion denoiser
-are ported; the analytical baseline raises and names the ROADMAP.md slice
-that ports it.
+PyTorch counterpart of ``inferbiomechanics_tpu/models/__init__.py``: the
+feedforward model, GroundLink, the transformer and the diffusion denoiser.
+The analytical baseline has no learnable parameters and is not built here,
+as in the JAX package: ``models/analytical.py::make_analytical_fn`` builds
+it.
 """
 
 from typing import Optional, Sequence
@@ -21,10 +22,6 @@ from inferbiomechanics_tpu_torch.models.groundlink import Groundlink
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
 
 MODEL_TYPES = ('analytical', 'feedforward', 'groundlink', 'transformer', 'diffusion')
-
-_UNPORTED = {
-    'analytical': 'ROADMAP.md Queue 1 item 7 (analytical and physics)',
-}
 
 
 def get_model(model_type: str,
@@ -88,9 +85,6 @@ def get_model(model_type: str,
             d_model=d_model, num_layers=num_layers, num_heads=num_heads,
             timesteps=diffusion_timesteps, attn_impl=attn_impl,
             generator=generator, device=device)
-    if model_type in _UNPORTED:
-        raise NotImplementedError(f'model type {model_type!r} is not ported '
-                                  f'yet; see {_UNPORTED[model_type]}')
     raise ValueError(f'unknown model type {model_type!r}; expected one of {MODEL_TYPES}')
 
 

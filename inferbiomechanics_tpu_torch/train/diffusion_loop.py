@@ -78,6 +78,13 @@ def train_diffusion(config: Config,
     is ``{'eps_mse': the last step's loss}``."""
     from inferbiomechanics_tpu_torch.serve import resolve_device
     _reject_unported(config)
+    if config.compute_report:
+        # the JAX package's diffusion loop never reads the flag: refused by
+        # name rather than ignored
+        raise NotImplementedError(
+            '--compute-report is not yet ported to diffusion training (the JAX '
+            'package\'s diffusion loop ignores it); score a diffusion checkpoint '
+            'with analyze --compute-report')
     if config.output_data_format != 'all_frames':
         raise ValueError('diffusion training requires --output-data-format '
                          'all_frames (the denoiser models whole windows)')

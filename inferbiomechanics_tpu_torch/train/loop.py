@@ -24,6 +24,11 @@ chunk that crosses their cadence, labelled with its last batch.
 SIGTERM asks for a checkpoint at the next step boundary (chunk boundary,
 when chunked) and a clean exit; the same command then resumes from it.
 
+``--compute-report`` adds the inverse-dynamics joint-torque report to the
+dev evaluation (``loss/tau_report.py``): the dev batches then come from the
+host loader through the eval step, never the device-resident dev eval, and
+the evaluator scores their outputs against each subject's skeleton.
+
 ``--augment-mirror`` / ``--augment-noise-std`` augment every tier's train
 step (``train/augment.py::Augmenter``, built by ``augmenter_from_config``),
 on the device, before the forward; dev evaluation never augments. The
@@ -49,11 +54,12 @@ import numpy as np
 import torch
 
 from inferbiomechanics_tpu_torch.config import Config
-from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.data.dataset import WindowDataset, unpack
 from inferbiomechanics_tpu_torch.data.loader import PrefetchLoader
 from inferbiomechanics_tpu_torch.loss.evaluator import (
     LossConfig, RegressionLossEvaluator,
 )
+from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
@@ -127,8 +133,6 @@ def _reject_unported(config: Config) -> None:
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
         ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16',
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
-        ('--compute-report', config.compute_report,
-         'ROADMAP.md Queue 1 item 7 (analytical and physics)'),
         ('--async-checkpoint', config.async_checkpoint,
          'ROADMAP.md Queue 1 item 2.6 (checkpoints)'),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
@@ -449,7 +453,9 @@ def train(config: Config,
 
     # ---- the data tier ----
     dev_big_enough = dev_ds is not None and len(dev_ds) >= config.batch_size
-    dev_resident = dev_big_enough and dev_ds.features_all is not None
+    # the torque report needs each dev batch's inputs, outputs and subjects
+    dev_resident = (dev_big_enough and dev_ds.features_all is not None
+                    and not config.compute_report)
     device_data, pack = resident_train_data(config, train_ds, device,
                                             dev_ds if dev_resident else None)
     on_device = device_data is not None
@@ -481,8 +487,10 @@ def train(config: Config,
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device,
                                  shuffle=False) if dev_big_enough else None)
 
+    tau_fn = (make_tau_report_fn(dev_ds, device)
+              if config.compute_report and dev_ds is not None else None)
     train_eval = RegressionLossEvaluator('train', lc)
-    dev_eval = RegressionLossEvaluator('dev', lc)
+    dev_eval = RegressionLossEvaluator('dev', lc, tau_fn=tau_fn)
     windows_seen = 0
     compute_time = 0.0
     final_dev: Dict[str, float] = {}
@@ -499,8 +507,10 @@ def train(config: Config,
             dev_eval(None, None, None, precomputed_metrics=device_eval(state))
         elif dev_loader is not None:
             for batch in dev_loader.epoch(seed=config.seed * 1_000_003 + epoch):
-                _, metrics = eval_step(state, batch.inputs, batch.labels)
-                dev_eval(None, None, None, precomputed_metrics=metrics)
+                outputs, metrics = eval_step(state, batch.inputs, batch.labels)
+                dev_eval(batch.inputs, outputs, unpack(batch.labels, dev_ds.lab_offsets),
+                         batch.subject_indices, compute_report=config.compute_report,
+                         precomputed_metrics=metrics)
         else:
             return False
         print(f'[epoch {epoch}] dev report:')

@@ -28,8 +28,11 @@ result is bitwise that of K calls of the per-step function.
 ``make_eval_chunk_runner`` is the counterpart of the JAX ``analyze``'s
 ``lax.scan`` chunk: K same-shape batches uploaded in one copy and run
 through the eval step one after the other, their metrics kept on the device
-and brought to the host in one copy. The reduced-precision gradient
-all-reduce is not ported yet.
+and brought to the host in one copy. ``make_graphed_chunk_runner`` does the
+same for an eval function of its inputs alone, each batch a replay of the
+function captured once a shape as a CUDA graph (:class:`GraphedEval`): the
+analytical baseline's step, thousands of small launches a batch. The
+reduced-precision gradient all-reduce is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,9 +58,11 @@ Metrics = Dict[str, torch.Tensor]
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 
 # graph replays of train steps so far, and captures (for checking that a
-# path went through the captured step)
+# path went through the captured step); the same for eval functions
 replays = 0
 captures = 0
+eval_replays = 0
+eval_captures = 0
 
 
 def accumulate_grads(state: TrainState, grad_accum: int, batch_size: int,
@@ -161,8 +166,9 @@ class MetricLayout:
     def flatten(self, metrics: Metrics) -> torch.Tensor:
         return torch.cat([metrics[k].reshape(-1).float() for k, _ in self.items])
 
-    def split(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
-        """``flat`` [..., width] -> each metric [..., *shape]."""
+    def split(self, flat):
+        """``flat`` [..., width] (an array or a tensor) -> each metric
+        [..., *shape]."""
         out, at, lead = {}, 0, flat.shape[:-1]
         for k, shape in self.items:
             n = int(np.prod(shape))
@@ -399,6 +405,20 @@ def make_eval_step(model, lab_offsets: Dict[str, Tuple[int, int]],
     return eval_step
 
 
+def _upload_rows(arrays: Sequence[np.ndarray], dtypes: Sequence[torch.dtype], device
+                 ) -> Tuple[RowLayout, torch.Tensor]:
+    """K same-shape host arrays each ([K, ...]) as K rows of one
+    :class:`RowLayout` on ``device``, uploaded in one copy (from pinned
+    memory to a CUDA device); each column is converted to its dtype."""
+    device = torch.device(device)
+    layout = RowLayout([(a.shape[1:], dt) for a, dt in zip(arrays, dtypes)])
+    host = torch.zeros((len(arrays[0]), layout.nbytes), dtype=torch.uint8,
+                       pin_memory=device.type == 'cuda')
+    for col, a in zip(layout.views(host), arrays):
+        col.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return layout, host.to(device, non_blocking=True)
+
+
 def make_eval_chunk_runner(eval_step: Callable, device) -> Callable:
     """Build ``run(state, inputs, labels) -> metrics`` for K same-shape
     batches: ``inputs`` [K, B, T, C] and ``labels`` [K, B, ...] float32 host
@@ -408,13 +428,118 @@ def make_eval_chunk_runner(eval_step: Callable, device) -> Callable:
     metric."""
 
     def run(state, inputs: np.ndarray, labels: np.ndarray) -> Dict[str, np.ndarray]:
-        layout = RowLayout([(inputs.shape[1:], torch.float32),
-                            (labels.shape[1:], torch.float32)])
-        host = torch.zeros((inputs.shape[0], layout.nbytes), dtype=torch.uint8)
-        for col, a in zip(layout.views(host), (inputs, labels)):
-            col.copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
-        history = [eval_step(state, *layout.views(row))[1] for row in host.to(device)]
+        layout, rows = _upload_rows((inputs, labels), (torch.float32, torch.float32), device)
+        history = [eval_step(state, *layout.views(row))[1] for row in rows]
         metrics = MetricLayout(history[0])
         return metrics.split(torch.stack([metrics.flatten(m) for m in history]).cpu().numpy())
 
+    return run
+
+
+class GraphedEval:
+    """``fn(*inputs) -> metrics`` captured once as a CUDA graph, and
+    replayed; the inputs are the tensors of :class:`RowLayout` ``specs`` in
+    one static row on the device, which :meth:`__call__` fills by one
+    device-to-device copy.
+
+    The first call runs ``fn`` eagerly on the capture stream: its result is
+    the call's own, and it makes every lazy allocation (library handles,
+    cached index tensors) before the capture. The second call captures and
+    replays; later calls replay. A replay runs the captured kernels on the
+    row's new contents, so its metrics are bitwise those of an eager call.
+    ``fn`` must not copy from the host or branch on a tensor's value; a
+    capture that fails raises, and nothing falls back to eager calls."""
+
+    def __init__(self, fn: Callable[..., Metrics], specs: Sequence[Spec], device):
+        self.fn = fn
+        self.layout = RowLayout(specs)
+        self.device = torch.device(device)
+        self.row = torch.zeros(self.layout.nbytes, dtype=torch.uint8, device=self.device)
+        self.inputs = self.layout.views(self.row)
+        self.stream = torch.cuda.Stream(self.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.flat: Optional[torch.Tensor] = None
+        self.metric_layout: Optional[MetricLayout] = None
+
+    def _body(self) -> torch.Tensor:
+        metrics = self.fn(*self.inputs)
+        if self.metric_layout is None:
+            self.metric_layout = MetricLayout(metrics)
+        return self.metric_layout.flatten(metrics)
+
+    def __call__(self, row: torch.Tensor) -> torch.Tensor:
+        """``fn`` on ``row`` (uint8 [nbytes] on the device); returns its flat
+        metrics, valid until the next call."""
+        self.row.copy_(row)
+        return self._launch()
+
+    def run(self, *tensors: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``fn`` on ``tensors`` (on the device, of the specs' shapes; each
+        copied into its place in the row and converted to its dtype);
+        returns its metrics by name, views valid until the next call."""
+        for view, t in zip(self.inputs, tensors):
+            view.copy_(t)
+        flat = self._launch()
+        return self.metric_layout.split(flat)
+
+    def _launch(self) -> torch.Tensor:
+        global eval_replays, eval_captures
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        if self.metric_layout is None:
+            with torch.cuda.stream(self.stream):
+                flat = self._body()
+            current.wait_stream(self.stream)
+            return flat
+        if self.graph is None:
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(capture_error_mode='thread_local')
+                try:
+                    self.flat = self._body()
+                finally:
+                    graph.capture_end()
+            self.graph = graph
+            eval_captures += 1
+            logger.info('eval function captured as a CUDA graph in %.3f s',
+                        time.perf_counter() - t0)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        eval_replays += 1
+        current.wait_stream(self.stream)
+        return self.flat
+
+
+def make_graphed_chunk_runner(fn: Callable[..., Metrics], dtypes: Sequence[torch.dtype],
+                              device) -> Callable:
+    """Build ``run(*arrays) -> metrics`` for K same-shape calls of
+    ``fn(*inputs) -> metrics``: each array [K, ...] on the host, converted
+    to its entry of ``dtypes``, uploaded in one copy of K rows; the metrics
+    come back in one copy, as host arrays [K, ...] by metric. On a CUDA
+    device each call is a :class:`GraphedEval` replay (one graph a shape of
+    the inputs, in ``run.graphs`` by specs); on the CPU ``fn`` runs
+    eagerly."""
+    device = torch.device(device)
+    graphs: Dict[Tuple, GraphedEval] = {}
+
+    def run(*arrays: np.ndarray) -> Dict[str, np.ndarray]:
+        layout, rows = _upload_rows(arrays, dtypes, device)
+        if device.type != 'cuda':
+            history = [fn(*layout.views(row)) for row in rows]
+            metrics = MetricLayout(history[0])
+            return metrics.split(torch.stack([metrics.flatten(m) for m in history]).numpy())
+        graph = graphs.get(tuple(layout.specs))
+        if graph is None:
+            graph = graphs[tuple(layout.specs)] = GraphedEval(fn, layout.specs, device)
+        out = None
+        for j, row in enumerate(rows):
+            flat = graph(row)
+            if out is None:
+                out = torch.empty((len(rows), flat.numel()), dtype=torch.float32,
+                                  device=device)
+            out[j].copy_(flat)
+        return graph.metric_layout.split(out.cpu().numpy())
+
+    run.graphs = graphs
     return run

@@ -255,6 +255,36 @@ def test_chunked_rows_equal_per_batch_rows(ws, case):
     _assert_rows_close(chunked, per_batch, 1e-5, 'chunked vs per batch')
 
 
+@pytest.mark.parametrize('case', ['analytical', 'feedforward', 'groundlink'])
+def test_analytical_and_compute_report_run(ws, case):
+    """``--model-type analytical --compute-report`` and a learned model's
+    ``--compute-report`` run (they were refused until the analytical and
+    physics slice): the analytical rows in chunks of 3 batches equal, as
+    numbers, its rows batch by batch, and its report too; a learned model's
+    report adds the torque term and leaves its rows as they were. Each is
+    held to the JAX package in tests/test_torch_analytical.py."""
+    model_type = 'analytical' if case == 'analytical' else CASES[case][0]
+    pdir = ws['root'] / 'port' / case / model_type
+    base = (_base(ws, 'port', case) if case != 'analytical' else
+            ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir',
+             str(ws['root'] / 'port' / case), '--no-wandb', '--model-type', 'analytical'])
+    base += ['--batch-size', '49', '--device', 'cpu']
+    runs = []
+    flags = ([['--compute-report', '--eval-chunk-steps', k] for k in ('1', '3')]
+             if case == 'analytical' else [['--compute-report'], []])
+    for extra in flags:
+        _fresh(*(pdir / f'{s}_analysis.csv' for s in ('dev', 'train')))
+        out = _run_port(base + extra)
+        report = out.split('[dev] final report:')[1].split('wrote')[0].splitlines()
+        runs.append((_rows(str(pdir / 'dev_analysis.csv')), report))
+    (rows_a, rep_a), (rows_b, rep_b) = runs
+    tau = [ln for ln in rep_a if 'Non-root Joint Torques (Inverse Dynamics) Avg Err' in ln]
+    assert len(rows_a) == 98 and len(tau) == 1 and np.isfinite(float(tau[0].split()[-4]))
+    assert [[float(v) for v in r[2:]] for r in rows_a] == [[float(v) for v in r[2:]]
+                                                            for r in rows_b]
+    assert rep_b == (rep_a if case == 'analytical' else [ln for ln in rep_a if ln not in tau])
+
+
 def test_eval_chunk_runner_feeds_aligned_batches_and_drains_once():
     """K batches of an odd size (1 x 10 x 177 floats, 7080 bytes) each start
     on a 16-byte boundary, as the kernels require, and their metrics come
@@ -348,13 +378,18 @@ _ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames'
      '--init-checkpoint: no checkpoint in c'),
     (['--model-type', 'diffusion'], None,
      'analyze --model-type diffusion requires --output-data-format all_frames'),
-    (['--model-type', 'analytical'], '--model-type analytical', 'item 7'),
-    (['--compute-report'], '--compute-report', 'item 7'),
     (['--plot-errors'], '--plot-errors', 'item 9'),
-])
+    (['--model-type', 'analytical', '--tta-mirror'], None,
+     '--tta-mirror supports the learned-model eval paths'),
+], ids=[  # each case keeps the id it is known by
+    'argv0---quantize-item 4', 'argv1-None---use-ema: checkpoint None carries no ema_params',
+    'argv2-None---diffusion-partial needs --init-checkpoint',
+    'argv3-None---init-checkpoint: no checkpoint in c',
+    'argv4-None-analyze --model-type diffusion requires --output-data-format all_frames',
+    'argv7---plot-errors-item 9', 'analytical --tta-mirror'])
 def test_unported_analyze_flags_raise_by_name(ws, tmp_path, monkeypatch, argv, flag, item):
-    """What is not ported names its ROADMAP item; the ported diffusion
-    options refuse a bad invocation as the JAX command does."""
+    """What is not ported names its ROADMAP item; the ported diffusion and
+    analytical options refuse a bad invocation as the JAX command does."""
     base = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
             '--no-wandb', *argv]
     if flag is not None:

@@ -233,6 +233,7 @@ def test_unported_model_types_name_their_roadmap_slice(model_type):
         with pytest.raises(ValueError, match='does not support dropout'):
             get_model(model_type, **SMALL, **drop, attn_impl='pallas')
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1'):
-        model = get_model(model_type, **SMALL)
-        model.train()(torch.from_numpy(_inputs(2)))
+    # the analytical baseline has no learnable parameters: get_model does not
+    # build it, as the JAX get_model does not (models/analytical.py does)
+    with pytest.raises(ValueError, match="unknown model type 'analytical'"):
+        get_model(model_type, **SMALL)

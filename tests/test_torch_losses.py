@@ -222,8 +222,38 @@ def test_precomputed_metrics_are_taken_as_they_are():
     assert ev.print_report()['loss'] == 2.0
 
 
-def test_the_torque_report_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        tev.RegressionLossEvaluator('dev', tau_fn=lambda *a: 0.0)
-    with pytest.raises(NotImplementedError, match='--compute-report'):
-        tev.RegressionLossEvaluator('dev')(None, None, None, compute_report=True)
+def test_the_torque_report_is_computed_when_asked(capsys):
+    """A batch accounted with ``compute_report`` calls ``tau_fn`` with its
+    inputs, outputs, labels and subject indices; the report's mean is
+    ``tau_avg_err``, printed and logged in the JAX package's words (the
+    values against the JAX package: tests/test_torch_analytical.py)."""
+    calls, logged = [], []
+    values = iter([0.5, 1.5])
+
+    def tau_fn(inputs, outputs, labels, subject_indices):
+        calls.append((inputs, outputs, labels, subject_indices))
+        return next(values)
+
+    ev = tev.RegressionLossEvaluator(
+        'dev', tau_fn=tau_fn, wandb_logger=type('L', (), {'log': lambda self, d: logged.append(d)})())
+    metrics = {k: torch.tensor(2.0) for k in (
+        'force_avg_err', 'com_acc_avg_err', 'cop_avg_err', 'moment_avg_err', 'wrench_avg_err',
+        'wrench_moment_avg_err', 'loss')}
+    metrics.update({k: torch.full((n,), 4.0) for k, n in (
+        ('force_loss', 6), ('cop_loss', 6), ('moment_loss', 6), ('wrench_loss', 12))})
+    ev('x', 'o', 'l', 's', precomputed_metrics=metrics)          # no report asked
+    assert calls == [] and ev.tau_reported_metrics == []
+    for k in range(2):
+        ev('x', 'o', 'l', [k], compute_report=True, precomputed_metrics=metrics)
+    assert calls == [('x', 'o', 'l', [0]), ('x', 'o', 'l', [1])]
+    assert ev.tau_reported_metrics == [0.5, 1.5]
+    summary = ev.print_report(log_to_wandb=True)
+    assert summary['tau_avg_err'] == 1.0 and ev.tau_reported_metrics == []
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == '\tNon-root Joint Torques (Inverse Dynamics) Avg Err: 1.0 Nm / kg'
+    assert logged[0]['dev/reports/Non-root Joint Torques (Inverse Dynamics) Avg Err '
+                     '(Nm per kg)'] == 1.0
+    # without a tau_fn, compute_report only accounts the metrics
+    ev = tev.RegressionLossEvaluator('dev')
+    ev(None, None, None, compute_report=True, precomputed_metrics=metrics)
+    assert 'tau_avg_err' not in ev.print_report()

@@ -485,11 +485,43 @@ def test_resume_refuses_another_architecture_and_warm_start_yields_to_resume(
     assert got['step'] == 1
 
 
+def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
+    """``train --compute-report`` (refused until the analytical and physics
+    slice): the dev report carries ``tau_avg_err``, the mean of the torque
+    report over the dev batches the host loader gives the eval step (not the
+    device-resident dev eval), with the dev subject's skeleton read from its
+    file; the report function itself is held to the JAX package in
+    tests/test_torch_analytical.py."""
+    from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
+    argv = ['train', '--dataset-home', str(data['root']), '--checkpoint-dir', str(tmp_path),
+            '--batch-size', str(BATCH), '--epochs', '1', '--compute-report', '--no-wandb',
+            '--device', 'cpu']
+    args = build_parser().parse_args(argv)
+    result = run_training(args)
+    assert 'Non-root Joint Torques (Inverse Dynamics) Avg Err' in capsys.readouterr().out
+    cfg = _config(Config, 'feedforward', compute_report=True)
+    dev = WindowDataset(str(data['root'] / 'dev'), window_size=50, stride=5)
+    assert dev.skeletons and dev.skeletons[0] is not None
+    tau_fn = make_tau_report_fn(dev, 'cpu')
+    model = build_model_for_dataset(cfg, data['train'],
+                                    generator=torch.Generator().manual_seed(cfg.seed))
+    step = make_eval_step(model, dev.lab_offsets, loss_config_from(cfg))
+    values = []
+    for b in PrefetchLoader(dev, BATCH, shuffle=False).epoch(seed=cfg.seed * 1_000_003):
+        outputs, _ = step(None, b.inputs, b.labels)
+        values.append(tau_fn(b.inputs, outputs, unpack(b.labels, dev.lab_offsets),
+                             b.subject_indices))
+    assert len(values) == len(dev) // BATCH
+    assert result.final_dev_metrics['tau_avg_err'] == pytest.approx(float(np.mean(values)),
+                                                                   rel=1e-6)
+
+
 @pytest.mark.parametrize('fields,flag', [
     (dict(pipeline_parallel=2), '--pipeline-parallel'),
     (dict(model_parallel=2), '--model-parallel'),
     (dict(grad_allreduce_dtype='bf16'), '--grad-allreduce-dtype bf16'),
-    (dict(compute_report=True), '--compute-report'),
+    # the JAX diffusion loop never reads --compute-report; the port's refuses it
+    (dict(model_type='diffusion', compute_report=True), '--compute-report'),
     (dict(async_checkpoint=True), '--async-checkpoint'),
     (dict(profile=True), '--profile'),
     (dict(device_data='sharded'), '--device-data sharded'),
