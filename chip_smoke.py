@@ -182,6 +182,22 @@ Phases, each of which fails the run:
      outputs);
      ``train --compute-report`` (feedforward, 2 epochs at B=64), whose dev
      ``tau_avg_err`` is the report over the same dev batches.
+ 13. checkpoints across frameworks (``phase_checkpoints``): JAX-format
+     files of every family written by the port's own msgpack writer (seeded
+     full-width weights, an rmsprop ``nu`` tree, the denoiser's EMA), served
+     by ``serve --checkpoint-file x.ckpt`` (K1 once, K2 4 times a forward or
+     a DDIM step, K4 once) and scored by ``analyze --checkpoint-file``,
+     bitwise the same weights' ``.torch.pt``; ``train --async-checkpoint``
+     against ``train`` (feedforward at B=4096 on phase 7's 40 subjects, 2
+     epochs, and the ``pallas`` transformer at B=64; a checkpoint a chunk of
+     4): the checkpoints bitwise equal, the snapshot's ms against the
+     synchronous write's, the chunked step's ms with and without the flag;
+     a SIGTERM to a ``train`` subprocess during an asynchronous (slowed)
+     write: exit 0, the newest checkpoint loads; a JAX-format ``pallas``
+     payload converted and resumed by ``train``, K2 and K3 counted by name
+     in a profiler trace (12 K3 launches a step), bitwise the run resumed
+     from the port's ``.torch.pt``; a soup of two trained feedforward
+     checkpoints served through K1 (``k1_limit``).
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -203,8 +219,10 @@ import csv
 import io
 import json
 import logging
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2995,6 +3013,399 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
     return report
 
 
+# 13. checkpoints across frameworks: JAX-format files served, scored and
+# resumed through the port's loader, the asynchronous writer, soups
+_SLOW_TRAIN = """
+import os, sys, time
+import torch
+from inferbiomechanics_tpu_torch.cli import train_cmd
+from inferbiomechanics_tpu_torch.train import checkpoint as ckpt
+marker, argv = sys.argv[1], sys.argv[2:]
+write = ckpt._write_payload
+
+def slow_write(payload, path):
+    with open(marker, 'a') as f:
+        f.write(os.path.basename(path) + '\\n')
+    time.sleep(2.0)
+    return write(payload, path)
+
+ckpt._write_payload = slow_write
+from_args = train_cmd.config_from_args
+
+def every_two(args):
+    cfg = from_args(args)
+    cfg.checkpoint_every_batches = 2
+    return cfg
+
+train_cmd.config_from_args = every_two
+from inferbiomechanics_tpu_torch.__main__ import build_parser
+result = train_cmd.run_training(build_parser().parse_args(argv))
+print('preempted', result.preempted, flush=True)
+"""
+
+
+def phase_checkpoints(torch, port, fm, fe, fg, step_mod, root, seed, card, device='cuda',
+                      big_home=None, small_home=None, ff_batch=4096, pallas_batch=64,
+                      size_flags=()):
+    """The checkpoints of other frameworks and the asynchronous writer
+    (``train/checkpoint.py``, ``weights.py``, ``utils/flax_msgpack.py``,
+    ``convert-checkpoint``):
+
+    - JAX-format files of every family (the port's writer; seeded weights,
+      an rmsprop ``nu`` tree, the denoiser's EMA) served by ``serve
+      --checkpoint-file x.ckpt`` and scored by ``analyze --checkpoint-file``
+      (the transformer in the ``pallas`` tree, which both commands run
+      through K2): K1 once, K2 4 times (the denoiser: 4 a DDIM step), K4 once
+      a forward,
+      the answers and reports bitwise those of the same weights in a
+      ``.torch.pt``;
+    - ``train --async-checkpoint`` against ``train`` (a checkpoint every 2
+      batches): feedforward at ``ff_batch`` on ``big_home`` (phase 7's 40
+      subjects), 2 epochs in chunks, and the ``pallas`` transformer at
+      ``pallas_batch`` on ``small_home`` (phase 7d's subject); the
+      checkpoints bitwise equal; the caller's ms a checkpoint (the snapshot)
+      against the synchronous write's, the worker's write ms, and the
+      chunked step's ms with and without the flag;
+    - a SIGTERM sent to a ``train`` subprocess while its (slowed) write is
+      in flight: exit 0, the newest checkpoint loads;
+    - a JAX-format ``pallas`` payload converted by ``convert-checkpoint`` and
+      resumed by ``train``: its K2 and K3 kernels counted by name in a
+      profiler trace (12 K3 launches a step), the run bitwise the one
+      resumed from the port's own ``.torch.pt`` of the same state;
+    - a soup of the feedforward run's two epoch checkpoints served through
+      K1, against the plain version within ``k1_limit``.
+    ``device`` 'cpu' (small homes, ``size_flags`` narrowing the encoder)
+    rehearses it without launch counts."""
+    from inferbiomechanics_tpu_torch import weights
+    from inferbiomechanics_tpu_torch.__main__ import main as port_main
+    from inferbiomechanics_tpu_torch.cli import train_cmd
+    from inferbiomechanics_tpu_torch.train import checkpoint as ckpt_mod
+    from inferbiomechanics_tpu_torch.train import loop as loop_mod
+    from inferbiomechanics_tpu_torch.utils import flax_msgpack
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    big_home = big_home or root / 'train_data'
+    small_home = small_home or root / 'chunk_data'
+    report = {'card': card}
+
+    # -- 13a. JAX-format files of every family, served and scored -----------
+    home = root / 'ckpt_home'
+    for split, length, s in (('dev', 170, 1301), ('train', 60, 1302)):
+        (home / split).mkdir(parents=True)
+        port.write_synthetic_subject(str(home / split / 's.b3d'), num_trials=1,
+                                     trial_length=length, seed=seed + s)
+    wide = ['--fused-inference', *size_flags]
+    families = {      # name: (flags, kernel module, launches a forward)
+        'feedforward': ([], fm, 1),
+        'transformer': (['--model-type', 'transformer', '--attn-impl', 'pallas',
+                         *size_flags], fe, None),
+        'groundlink': (['--model-type', 'groundlink'], fg, 1),
+        'diffusion': (['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+                       '--use-ema', *wide], fe, None),
+    }
+    sample_steps = 2
+    served = {}
+    for i, (name, (flags, counter, per_forward)) in enumerate(families.items()):
+        args = port.parser().parse_args(['train', *[f for f in flags if f != '--use-ema']])
+        cfg = port.config_from_args(args)
+        ds = port.WindowDataset(str(home / 'dev'), window_size=cfg.window_size,
+                                stride=cfg.stride, output_data_format=cfg.output_data_format,
+                                skip_loading_skeletons=True)
+        gen = torch.Generator().manual_seed(seed + 1310 + i)
+        model = port.build_model_for_dataset(cfg, ds, generator=gen, device=device)
+        opt = port.make_optimizer(model.named_parameters(), 'rmsprop', cfg.learning_rate)
+        for p in model.parameters():
+            opt.state[p]['nu'] = (torch.rand(p.shape, generator=gen) * 1e-4).to(device)
+        ema = ({n: (p.detach() + 1e-3 * torch.randn(p.shape, generator=gen).to(device))
+                for n, p in model.named_parameters()} if name == 'diffusion' else None)
+        jax_path = root / 'jax_files' / name / 'epoch_1_batch_0.ckpt'
+        jax_path.parent.mkdir(parents=True)
+        t0 = time.perf_counter()
+        blob = flax_msgpack.dumps(weights.jax_payload(model, opt, 1, 0, step=7, ema_params=ema))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        jax_path.write_bytes(blob)
+        t0 = time.perf_counter()
+        tree = flax_msgpack.loads(jax_path.read_bytes())
+        read_ms = (time.perf_counter() - t0) * 1e3
+        _check(flax_msgpack.dumps(tree) == blob, f'{name}: the reader and the writer disagree')
+        port.save_run_config(str(jax_path.parent), cfg)
+        torch_path = port.save_checkpoint(str(root / 'torch_files' / name), model, 1, 0,
+                                          ema_params=ema)
+        port.save_run_config(str(root / 'torch_files' / name), cfg)
+        x = np.asarray(ds.gather(np.arange(16)).inputs, np.float32)
+        per = (cfg.num_layers * (sample_steps if name == 'diffusion' else 1)
+               if per_forward is None else per_forward)
+        answers, scores, launches = [], [], []
+        for path in (jax_path, torch_path):
+            svc, server = port.start(port.build_parser().parse_args([
+                'serve', '--dataset-home', str(home), '--checkpoint-dir', str(root / 'unused'),
+                '--device', device, '--port', '0', '--checkpoint-file', str(path),
+                '--sample-steps', str(sample_steps), *flags]))
+            try:
+                _check((svc.epoch, svc.batch) == (1, 0), f'{name}: served {svc.epoch}')
+                counter.launches = 0
+                answers.append(svc.predict_packed(x))
+                launches.append(counter.launches)
+            finally:
+                server.server_close()
+                svc.close()
+            counter.launches = 0
+            out = port.analyze(port.parser().parse_args([
+                'analyze', '--dataset-home', str(home), '--device', device, '--no-wandb',
+                '--checkpoint-dir', str(root / f'scored_{name}_{len(scores)}'),
+                '--checkpoint-file', str(path), *flags]))
+            scores.append((out['dev']['summary'], out['dev']['windows'], counter.launches))
+        _check(all(np.array_equal(answers[0][k], answers[1][k]) for k in answers[0])
+               and set(answers[0]) == set(answers[1]),
+               f'{name}: the .ckpt and the .torch.pt answers differ')
+        _check(scores[0] == scores[1], f'{name}: analyze of the .ckpt {scores[0]} and of the '
+                                       f'.torch.pt {scores[1]}')
+        if on_card:
+            _check(launches == [per, per], f'{name}: {launches} launches a forward, want {per}')
+            _check(scores[0][2] > 0, f'{name}: analyze launched nothing')
+        served[name] = dict(bytes=len(blob), write_ms=write_ms, read_ms=read_ms,
+                            serve_launches=launches[0], analyze_launches=scores[0][2],
+                            analyze_windows=scores[0][1],
+                            analyze_loss=float(scores[0][0]['loss']))
+        print(f'[checkpoints] {name}: a JAX-format file of {len(blob)} bytes (written by the '
+              f'port in {write_ms:.1f} ms, read in {read_ms:.1f} ms), served through '
+              f'--checkpoint-file with {launches[0]} launches a forward and scored by analyze '
+              f'({scores[0][1]} windows, {scores[0][2]} launches); answers and report bitwise '
+              f'those of the .torch.pt ({card})', flush=True)
+    report['families'] = served
+
+    # -- 13b. train --async-checkpoint against train -------------------------
+    times = {'sync': [], 'save': [], 'snapshot': [], 'write': []}
+    orig = dict(sync=loop_mod.save_checkpoint, save=ckpt_mod.AsyncCheckpointer.save,
+                snapshot=ckpt_mod.AsyncCheckpointer.snapshot, write=ckpt_mod._write_payload,
+                from_args=train_cmd.config_from_args)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    def every_two(args):
+        cfg = orig['from_args'](args)
+        cfg.checkpoint_every_batches = 2
+        return cfg
+
+    def run(home_dir, ckpt, flags, b, epochs):
+        return port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(home_dir), '--checkpoint-dir', str(ckpt),
+            '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+            '--seed', str(seed), *flags]))
+
+    def files(d):
+        return [Path(p).name for _, _, p in ckpt_mod.list_checkpoints(str(d))]
+
+    def same_files(a, b, what):
+        names = files(a)
+        _check(names == files(b) and names, f'{what}: {names} against {files(b)}')
+        same_bytes = True
+        for n in names:
+            pa, pb = (torch.load(str(d / n), map_location='cpu', weights_only=True)
+                      for d in (a, b))
+            _check(pa['step'] == pb['step'] and all(
+                torch.equal(v, pb['model_state_dict'][k]) for k, v in
+                pa['model_state_dict'].items()) and all(
+                torch.equal(v, pb['optimizer_state_dict']['state'][i][k])
+                for i, st in pa['optimizer_state_dict']['state'].items()
+                for k, v in st.items()), f'{what}: {n} differs')
+            same_bytes &= (a / n).read_bytes() == (b / n).read_bytes()
+        return names, same_bytes
+
+    async_report = {}
+    loop_mod.save_checkpoint = timed('sync', orig['sync'])
+    ckpt_mod.AsyncCheckpointer.save = timed('save', orig['save'])
+    ckpt_mod.AsyncCheckpointer.snapshot = timed('snapshot', orig['snapshot'])
+    ckpt_mod._write_payload = timed('write', orig['write'])
+    train_cmd.config_from_args = every_two
+    try:
+        chunks = ['--device-chunk-steps', '4']     # a checkpoint a chunk
+        for tag, home_dir, flags, b, epochs in (
+                ('feedforward', big_home, chunks, ff_batch, 2),
+                ('transformer', small_home, ['--model-type', 'transformer', '--attn-impl',
+                                             'pallas', *size_flags, *chunks], pallas_batch, 1)):
+            results = {}
+            for mode in ('sync', 'async'):
+                for v in times.values():
+                    v.clear()
+                t0 = time.perf_counter()
+                results[mode] = run(home_dir, root / f'{mode}_{tag}',
+                                    flags + (['--async-checkpoint'] if mode == 'async' else []),
+                                    b, epochs)
+                wall = time.perf_counter() - t0
+                steps = results[mode].windows_seen // b
+                results[mode] = dict(
+                    wall_s=wall, steps=steps, windows_per_sec=results[mode].windows_per_sec,
+                    step_ms=1e3 * b / results[mode].windows_per_sec,
+                    checkpoints=len(times['sync'] or times['save']),
+                    caller_ms=statistics.median(times['sync'] or times['save']),
+                    snapshot_ms=statistics.median(times['snapshot']) if times['snapshot'] else None,
+                    write_ms=statistics.median(times['write']))
+            names, same_bytes = same_files(root / f'sync_{tag}' / tag, root / f'async_{tag}' / tag,
+                                           f'{tag} async / sync')
+            s, a = results['sync'], results['async']
+            async_report[tag] = dict(batch=b, checkpoints=names, same_bytes=same_bytes, **{
+                f'{k}_{m}': results[m][k] for m in ('sync', 'async') for k in results[m]})
+            print(f'[checkpoints] train --async-checkpoint, {tag} at B={b} ({s["steps"]} steps, '
+                  f'{s["checkpoints"]} checkpoints, a checkpoint every 2 batches, in chunks): '
+                  f'the checkpoints bitwise the synchronous run\'s ({len(names)} files; bytes '
+                  f'{"equal" if same_bytes else "differ"}); the caller\'s ms a checkpoint '
+                  f'{a["caller_ms"]:.2f} (snapshot {a["snapshot_ms"]:.2f}) against the '
+                  f'synchronous write\'s {s["caller_ms"]:.2f}; the worker\'s write '
+                  f'{a["write_ms"]:.2f} ms; chunked step {s["step_ms"]:.3f} ms without the '
+                  f'flag, {a["step_ms"]:.3f} ms with it; wall {s["wall_s"]:.2f} / '
+                  f'{a["wall_s"]:.2f} s ({card})', flush=True)
+    finally:
+        loop_mod.save_checkpoint = orig['sync']
+        ckpt_mod.AsyncCheckpointer.save = orig['save']
+        ckpt_mod.AsyncCheckpointer.snapshot = orig['snapshot']
+        ckpt_mod._write_payload = orig['write']
+        train_cmd.config_from_args = orig['from_args']
+    report['async'] = async_report
+
+    # a SIGTERM while the (slowed) write is in flight
+    marker, cut = root / 'sigterm_writes', root / 'sigterm_run'
+    proc = subprocess.Popen(
+        [sys.executable, '-c', _SLOW_TRAIN, str(marker), 'train', '--dataset-home',
+         str(small_home), '--checkpoint-dir', str(cut), '--batch-size', str(pallas_batch),
+         '--epochs', '2', '--device', device, '--seed', str(seed), '--async-checkpoint'],
+        cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 240
+        while not marker.exists() and time.time() < deadline and proc.poll() is None:
+            time.sleep(0.05)
+        _check(marker.exists(), 'SIGTERM run: no write began: ' + (
+            proc.communicate(timeout=60)[0][-3000:] if proc.poll() is not None else 'timeout'))
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    exit_s = time.perf_counter() - t_term
+    newest = ckpt_mod.resolve_checkpoint_path(str(cut / 'feedforward'))
+    _check(proc.returncode == 0 and 'preempted True' in out and newest is not None,
+           f'SIGTERM run: exit {proc.returncode}, newest {newest}: {out[-3000:]}')
+    scfg = port.config_from_args(port.parser().parse_args(['train']))
+    sds = port.WindowDataset(str(small_home / 'train'), window_size=scfg.window_size,
+                             stride=scfg.stride, skip_loading_skeletons=True)
+    smodel = port.build_model_for_dataset(scfg, sds, device=device)
+    state = port.create_train_state(smodel, port.make_optimizer(
+        smodel.named_parameters(), scfg.opt_type, scfg.learning_rate))
+    at = ckpt_mod.load_checkpoint_file(state, newest)
+    writes = marker.read_text().split()
+    report['sigterm'] = dict(exit=proc.returncode, newest=Path(newest).name, at=list(at),
+                             writes=writes, exit_s=exit_s, step=state.step)
+    print(f'[checkpoints] SIGTERM during an asynchronous write ({writes[0]} in flight, slowed '
+          f'2 s): exit 0 after {exit_s:.1f} s, the newest checkpoint {Path(newest).name} '
+          f'loads (step {state.step}); writes {writes} ({card})', flush=True)
+
+    # -- 13c. a JAX-format pallas payload resumed by train -------------------
+    pflags = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+    pcfg = port.config_from_args(port.parser().parse_args(
+        ['train', *pflags, '--batch-size', str(pallas_batch), '--seed', str(seed)]))
+    pds = port.WindowDataset(str(small_home / 'train'), window_size=pcfg.window_size,
+                             stride=pcfg.stride, skip_loading_skeletons=True)
+    gen = torch.Generator().manual_seed(seed + 1330)
+    pmodel = port.build_model_for_dataset(pcfg, pds, generator=gen, device=device)
+    popt = port.make_optimizer(pmodel.named_parameters(), 'rmsprop', pcfg.learning_rate)
+    for p in pmodel.parameters():
+        popt.state[p]['nu'] = (torch.rand(p.shape, generator=gen) * 1e-5).to(device)
+    pstate = port.create_train_state(pmodel, popt)
+    pstate.step = 29
+    jax_run = root / 'jax_run' / 'transformer'
+    jax_run.mkdir(parents=True)
+    (jax_run / 'epoch_0_batch_0.ckpt').write_bytes(flax_msgpack.dumps(
+        weights.jax_payload(pmodel, popt, 0, 0, step=pstate.step)))
+    port.save_run_config(str(jax_run), pcfg)
+    port.save_checkpoint(str(root / 'own_run' / 'transformer'), pstate, 0, 0)
+    port.save_run_config(str(root / 'own_run' / 'transformer'), pcfg)
+    _check(port_main(['convert-checkpoint', str(jax_run), '--out-dir',
+                      str(root / 'conv_run' / 'transformer')]) == 0, 'convert-checkpoint')
+    fe.launches = fe.bwd_launches = 0
+    fe.bwd_shape_launches.update(small=0, large=0)
+    if on_card:
+        resumed, traced, _ = _traced(torch, lambda: run(small_home, root / 'conv_run', pflags,
+                                                        pallas_batch, 2))
+    else:
+        resumed, traced = run(small_home, root / 'conv_run', pflags, pallas_batch, 2), None
+    k2, k3 = fe.launches, fe.bwd_launches
+    own = run(small_home, root / 'own_run', pflags, pallas_batch, 2)
+    steps = resumed.windows_seen // pallas_batch
+    _check(resumed.epochs_run == 1 and own.epochs_run == 1 and steps > 0,
+           f'resumed runs: {resumed.epochs_run} / {own.epochs_run} epochs')
+    verdict = _compare_final(torch, root / 'conv_run' / 'transformer',
+                             root / 'own_run' / 'transformer', 1)
+    _check(verdict['bitwise'], f'the converted JAX run: {verdict["verdict"]}')
+    k3_shape = fe.plan_encoder_bwd(pallas_batch, pcfg.window_size // pcfg.stride,
+                                   pcfg.d_model, pcfg.d_model * ENC_FULL['mlp_ratio'],
+                                   pcfg.num_heads).shape
+    if on_card:
+        _check_traced(traced, pcfg.num_layers, steps, 0, k3_shape, 'the resumed JAX run')
+        k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
+        _check(k3_traced == pcfg.num_layers * fe.BWD_LAUNCHES_PER_LAYER * steps,
+               f'K3 {k3_traced} traced for {steps} steps')
+    report['jax_resume'] = dict(steps=steps, k2_wrapper=k2, k3_wrapper=k3, traced=traced,
+                                k3_traced_per_step=(pcfg.num_layers * fe.BWD_LAUNCHES_PER_LAYER),
+                                verdict=verdict['verdict'])
+    print(f'[checkpoints] a JAX-format pallas payload (rmsprop nu, step {pstate.step}) '
+          f'converted by convert-checkpoint and resumed by train at B={pallas_batch}: '
+          f'{steps} steps, traced kernels {traced} '
+          f'({pcfg.num_layers * fe.BWD_LAUNCHES_PER_LAYER} K3 launches a step); against the '
+          f'run resumed from the port\'s own .torch.pt of the state: {verdict["verdict"]} '
+          f'({card})', flush=True)
+
+    # -- 13d. a soup of the feedforward run's two epoch checkpoints, through K1
+    members = [root / 'sync_feedforward' / 'feedforward' / f'epoch_{e}_batch_0.torch.pt'
+               for e in (0, 1)]
+    soup = root / 'soup' / 'soup.torch.pt'
+    _check(port_main(['convert-checkpoint', *map(str, members), '--soup', str(soup)]) == 0,
+           'convert-checkpoint --soup')
+    a, b = (torch.load(str(m), map_location='cpu', weights_only=True)['model_state_dict']
+            for m in members)
+    souped = torch.load(str(soup), map_location='cpu', weights_only=True)['model_state_dict']
+    _check(all(torch.equal(v, ((a[k].double() + b[k].double()) / 2).float())
+               for k, v in souped.items()), 'the soup is not the members\' mean')
+    svc, server = port.start(port.build_parser().parse_args([
+        'serve', '--dataset-home', str(home), '--checkpoint-dir', str(root / 'unused'),
+        '--device', device, '--port', '0', '--checkpoint-file', str(soup)]))
+    try:
+        fds = port.WindowDataset(str(home / 'dev'), window_size=50, stride=5,
+                                 skip_loading_skeletons=True)
+        x = np.asarray(fds.gather(np.arange(len(fds))).inputs, np.float32)
+        fm.launches = 0
+        got = svc.predict_packed(x)
+        soup_launches = fm.launches
+        with torch.no_grad():
+            plain = port.slice_output_heads(fm.mlp_reference(
+                torch.from_numpy(x).to(device).reshape(len(x), -1),
+                svc.model.layer_params(), 'sigmoid'), 2, 1)
+        err = max(float(np.abs(got[k] - v.cpu().numpy()).max()) for k, v in plain.items())
+        limit = k1_limit(max(float(v.abs().max()) for v in plain.values()))
+    finally:
+        server.server_close()
+        svc.close()
+    _check(err <= limit, f'the soup through K1: {err} > {limit}')
+    if on_card:
+        _check(soup_launches == 1, f'the soup: {soup_launches} K1 launches for one forward')
+    report['soup'] = dict(members=[m.name for m in members], windows=len(x),
+                          launches=soup_launches, max_abs_err=err, limit=limit)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[checkpoints] a soup of the feedforward run\'s epoch 0 and 1 checkpoints served '
+          f'through K1 ({soup_launches} launch for {len(x)} windows): max abs err {err:.3g} '
+          f'against the plain version (limit {limit:.3g}); phase 13 took '
+          f'{report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
 def _print_times(card, what, b, ms, dev, library, bound):
     fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
     print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
@@ -3254,6 +3665,10 @@ def main() -> int:
         physics = phase_physics(torch, port, fm, fg, step_mod, tmp, args.seed, card,
                                 wide=tmp / 'analyze_wide')
 
+        # 13. checkpoints across frameworks: JAX-format files served, scored
+        # and resumed, the asynchronous writer, soups
+        checkpoints = phase_checkpoints(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -3452,7 +3867,8 @@ def main() -> int:
             device_us={str(b): v['dev'] for b, v in times.items()}, card=card, **more)
 
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
-          f'{physics["seconds"]:.1f} s ({card})', flush=True)
+          f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s ({card})',
+          flush=True)
     print(card, flush=True)     # name, power limit: as nvidia-smi prints them
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
@@ -3469,7 +3885,7 @@ def main() -> int:
                   'train dev evals': physics['train']['k1_launches']},
               physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
-              batchnorm=regularised),
+              batchnorm=regularised, checkpoints=checkpoints),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},

@@ -1,12 +1,15 @@
-"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze} ...``"""
+"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint} ...``"""
 
 import argparse
 import logging
 from typing import Optional, Sequence
 
-from inferbiomechanics_tpu_torch.cli import analyze_cmd, serve_cmd, train_cmd
+from inferbiomechanics_tpu_torch.cli import (
+    analyze_cmd, convert_checkpoint_cmd, serve_cmd, train_cmd,
+)
 
-COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd}
+COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd,
+            'convert-checkpoint': convert_checkpoint_cmd}
 
 
 def build_parser() -> argparse.ArgumentParser:

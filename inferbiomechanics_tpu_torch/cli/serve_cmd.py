@@ -72,6 +72,10 @@ def register_subcommand(sub) -> None:
                         'checkpoint files, e.g. a seed sweep\'s per-config '
                         'checkpoints), one forward per member; /predict can '
                         'also return the across-member std ("spread": true)')
+    p.add_argument('--checkpoint-file', type=str, default=None,
+                   help='Serve this checkpoint file (the port\'s .torch.pt or the JAX '
+                        'package\'s .ckpt) instead of the newest in '
+                        '--checkpoint-dir/<model-type>')
     p.add_argument('--sample-steps', type=int, default=50,
                    help='DDIM sampling steps per request (--model-type diffusion)')
     p.add_argument('--use-ema', action='store_true',
@@ -121,7 +125,8 @@ def start(args: argparse.Namespace):
                                tta_mirror=args.tta_mirror,
                                diffusion_samples=args.diffusion_samples,
                                diffusion_partial=args.diffusion_partial,
-                               init_checkpoint=args.init_checkpoint)
+                               init_checkpoint=args.init_checkpoint,
+                               checkpoint_file=args.checkpoint_file)
     if args.warmup:
         service.warmup()
     service.start_reload_poller(args.reload_poll_sec)

@@ -304,8 +304,10 @@ def add_config_flags(parser: argparse.ArgumentParser, defaults: Optional[Config]
                              'file (fresh optimizer, epoch 0 — transfer '
                              'learning, not a resume; ignored when '
                              '--checkpoint-dir already has resume '
-                             'checkpoints). Use convert-checkpoint first '
-                             'for reference .pt sources.')
+                             'checkpoints): the port\'s .torch.pt or the JAX '
+                             'package\'s .ckpt. Use python -m '
+                             'inferbiomechanics_tpu_torch convert-checkpoint '
+                             'first for reference .pt sources.')
     parser.add_argument('--freeze-params', type=str, nargs='+',
                         default=d.freeze_params,
                         help='Regexes over /-joined parameter paths (e.g. '

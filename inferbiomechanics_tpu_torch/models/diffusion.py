@@ -352,8 +352,10 @@ def checkpoint_target_space(checkpoint_dir: str) -> str:
 
 def make_partial_proposal_fn(config, dataset, init_checkpoint,
                              target_space: str = 'normalized', *, device='cpu'):
-    """Load the all-frames proposal model for partial denoising from the
-    port's checkpoints in ``init_checkpoint`` and return ``propose(x) ->
+    """Load the all-frames proposal model for partial denoising from
+    ``init_checkpoint`` (the newest of the port's checkpoints in a
+    directory, or a checkpoint file, the port's or the JAX package's) and
+    return ``propose(x) ->
     [B, T, target_channels]`` in the diffusion target layout.
 
     With a ``run_config.json`` sidecar there, the proposal's architecture
@@ -394,8 +396,10 @@ def make_partial_proposal_fn(config, dataset, init_checkpoint,
                 f'{prop_config.stride} (run_config.json) but this run '
                 f'uses {config.window_size}/{config.stride} — the '
                 'proposal must see the same windows as the denoiser')
-    prop_model, epoch, _batch = load_model(prop_config, dataset, init_checkpoint,
-                                           device=device)
+    named = os.path.isfile(init_checkpoint)     # a file (either format), else a dir
+    prop_model, epoch, _batch = load_model(
+        prop_config, dataset, None if named else init_checkpoint,
+        checkpoint_file=init_checkpoint if named else None, device=device)
     if epoch < 0:
         raise ValueError(f'--init-checkpoint: no checkpoint '
                          f'in {init_checkpoint}')

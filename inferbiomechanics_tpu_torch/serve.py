@@ -210,8 +210,11 @@ class InferenceService:
                  tta_mirror: bool = False,
                  diffusion_samples: int = 1,
                  diffusion_partial: Optional[float] = None,
-                 init_checkpoint: Optional[str] = None):
-        """``ensemble``: optional list of checkpoint dirs or checkpoint files
+                 init_checkpoint: Optional[str] = None,
+                 checkpoint_file: Optional[str] = None):
+        """``checkpoint_file``: serve this file (the port's or the JAX
+        package's) instead of the newest checkpoint in ``checkpoint_dir``.
+        ``ensemble``: optional list of checkpoint dirs or checkpoint files
         (e.g. the per-seed checkpoints of a sweep). Every member runs its own
         forward per request, and /predict returns the ensemble mean plus (on
         request) the across-member std as an uncertainty estimate.
@@ -224,6 +227,9 @@ class InferenceService:
         self.is_diffusion = config.model_type == 'diffusion'
         self._check_options(config, ensemble, quantize, use_ema, tta_mirror,
                             diffusion_samples, diffusion_partial, init_checkpoint)
+        if checkpoint_file and ensemble:
+            raise ValueError('--checkpoint-file serves one checkpoint; an ensemble '
+                             'names its members in --ensemble')
         if quantize:
             raise ValueError(f'quantize is not yet ported ({_SERVING_SLICE})')
         if config.model_type == 'analytical':
@@ -244,6 +250,7 @@ class InferenceService:
         self.members: list = []     # [{path, epoch, batch}] of an ensemble
         self._member_models: list = []
         self._checkpoint_dir = checkpoint_dir
+        self._checkpoint_file = checkpoint_file
         self._use_fused = self._fused_inference(bool(ensemble))
         if ensemble:
             for spec in ensemble:
@@ -253,6 +260,8 @@ class InferenceService:
             self.model = self._member_models[0]
             self.epoch, self.batch = max((m['epoch'], m['batch'])
                                          for m in self.members)
+        elif checkpoint_file:
+            self.model, self.epoch, self.batch = self._load(checkpoint_file=checkpoint_file)
         else:
             self.model, self.epoch, self.batch = self._load(checkpoint_dir)
             if self.epoch < 0:
@@ -262,7 +271,9 @@ class InferenceService:
         # a diffusion chain's proposal is loaded once: a reload swaps the
         # denoiser only
         self._forward = (diffusion.make_chain_forward(
-            config, dataset, self.model, checkpoint_dir, num_steps=self.sample_steps,
+            config, dataset, self.model,
+            os.path.dirname(os.path.abspath(checkpoint_file)) if checkpoint_file
+            else checkpoint_dir, num_steps=self.sample_steps,
             seed=0, samples=self.diffusion_samples, partial=diffusion_partial,
             init_checkpoint=init_checkpoint, fused_inference=self._use_fused,
             device=self.device) if self.is_diffusion else self._make_forward())
@@ -302,7 +313,8 @@ class InferenceService:
                 raise ValueError('ensembles are not supported for diffusion '
                                  'serving (each member would run a full '
                                  'sampling chain); soup the checkpoints '
-                                 'instead (convert-checkpoint --soup)')
+                                 'instead (python -m inferbiomechanics_tpu_torch '
+                                 'convert-checkpoint --soup)')
             if config.output_data_format != 'all_frames':
                 raise ValueError('serve --model-type diffusion requires '
                                  '--output-data-format all_frames '
@@ -398,9 +410,10 @@ class InferenceService:
         """Swap to the newest checkpoint in the checkpoint dir (``POST
         /reload``); a no-op when it is already being served. In-flight
         forwards finish on the old weights."""
-        if self.members:
+        if self.members or self._checkpoint_file:
             raise ValueError('reload serves a single checkpoint dir; '
-                             'restart the server to change an ensemble')
+                             'restart the server to change an ensemble or '
+                             'a --checkpoint-file')
         ckpts = list_checkpoints(self._checkpoint_dir)
         if not ckpts or (ckpts[-1][0], ckpts[-1][1]) == (self.epoch,
                                                          self.batch):
@@ -421,9 +434,9 @@ class InferenceService:
         stops it."""
         if poll_sec <= 0:
             return
-        if self.members:
+        if self.members or self._checkpoint_file:
             raise ValueError('--reload-poll-sec cannot work here: reload '
-                             'is unsupported for ensembles')
+                             'is unsupported for ensembles and --checkpoint-file')
 
         def loop():
             while not self._poller_stop.wait(poll_sec):

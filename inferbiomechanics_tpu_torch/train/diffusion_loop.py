@@ -54,7 +54,7 @@ from inferbiomechanics_tpu_torch.train.device_data import (
     make_device_diffusion_chunked_step, make_device_diffusion_train_step,
 )
 from inferbiomechanics_tpu_torch.train.loop import (
-    BestTracker, SigtermStop, TrainResult, _reject_unported, checkpoint_writer,
+    BestTracker, CheckpointWriter, SigtermStop, TrainResult, _reject_unported,
     chunk_steps, epoch_batches, loss_config_from, make_dispatch, optimizer_for,
     per_step_generators, prepare_checkpoint_dir, resident_train_data, run_chunks,
     train_loader, upload_dtype,
@@ -145,7 +145,7 @@ def train_diffusion(config: Config,
     final_dev: Dict[str, float] = {}
     last_loss = float('nan')
     epochs_run = 0
-    write_checkpoint = checkpoint_writer(config, state)
+    write_checkpoint = CheckpointWriter(config, state)
     best = BestTracker(config, write_checkpoint)
 
     def run_dev_eval(epoch: int) -> bool:
@@ -204,6 +204,7 @@ def train_diffusion(config: Config,
             and not stopped_early and epochs_run > 0
             and run_dev_eval(config.epochs)):
         best.track(config.epochs, final_dev)
+    write_checkpoint.wait()      # the last checkpoint is on disk
     stop.restore()
     if preempted:
         print('training preempted (SIGTERM): checkpoint written, resume '

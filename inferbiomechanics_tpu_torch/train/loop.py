@@ -23,6 +23,9 @@ chunk that crosses their cadence, labelled with its last batch.
 
 SIGTERM asks for a checkpoint at the next step boundary (chunk boundary,
 when chunked) and a clean exit; the same command then resumes from it.
+``--async-checkpoint`` writes every checkpoint through
+``train/checkpoint.py::AsyncCheckpointer``: the step waits for the snapshot
+on the host only, and the loop waits for the last write before it returns.
 
 ``--compute-report`` adds the inverse-dynamics joint-torque report to the
 dev evaluation (``loss/tau_report.py``): the dev batches then come from the
@@ -64,8 +67,8 @@ from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
 from inferbiomechanics_tpu_torch.train.checkpoint import (
-    BEST_NAME, list_checkpoints, load_latest_checkpoint, prune_checkpoints,
-    save_checkpoint, warm_start_from,
+    BEST_NAME, AsyncCheckpointer, list_checkpoints, load_latest_checkpoint,
+    prune_checkpoints, save_checkpoint, warm_start_from,
 )
 from inferbiomechanics_tpu_torch.train.device_data import (
     DeviceResidentData, make_device_chunked_step, make_device_eval_runner,
@@ -133,8 +136,6 @@ def _reject_unported(config: Config) -> None:
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
         ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16',
          'ROADMAP.md Queue 1 item 8 (scale-out)'),
-        ('--async-checkpoint', config.async_checkpoint,
-         'ROADMAP.md Queue 1 item 2.6 (checkpoints)'),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
         (f'--device-data {config.device_data}',
          config.device_data in ('sharded', 'stream'),
@@ -236,18 +237,33 @@ def prepare_checkpoint_dir(config: Config, state) -> bool:
     return True
 
 
-def checkpoint_writer(config: Config, state):
+class CheckpointWriter:
     """``write(epoch, batch, filename=None)``: the state (with its EMA, when
     it keeps one) to ``config.checkpoint_dir``, then the oldest epoch
     checkpoints beyond ``--keep-checkpoints`` pruned (named files are
-    not)."""
+    not). With ``--async-checkpoint`` through an ``AsyncCheckpointer``: the
+    call returns once the snapshot is on the host, and :meth:`wait`, which
+    the loops call before they return (a SIGTERM exit too), blocks until
+    the last write is on disk."""
 
-    def write(epoch: int, batch: int, filename=None) -> None:
-        save_checkpoint(config.checkpoint_dir, state, epoch, batch, filename=filename)
-        if config.keep_checkpoints and not filename:
-            prune_checkpoints(config.checkpoint_dir, config.keep_checkpoints)
+    def __init__(self, config: Config, state):
+        self.config, self.state = config, state
+        self.writer = AsyncCheckpointer() if config.async_checkpoint else None
 
-    return write
+    def __call__(self, epoch: int, batch: int, filename=None) -> None:
+        config = self.config
+        keep = 0 if filename else config.keep_checkpoints
+        if self.writer is not None:
+            self.writer.save(config.checkpoint_dir, self.state, epoch, batch,
+                             filename=filename, prune_keep=keep)
+            return
+        save_checkpoint(config.checkpoint_dir, self.state, epoch, batch, filename=filename)
+        if keep:
+            prune_checkpoints(config.checkpoint_dir, keep)
+
+    def wait(self) -> None:
+        if self.writer is not None:
+            self.writer.wait()
 
 
 def resident_train_data(config: Config, train_ds: WindowDataset, device,
@@ -497,7 +513,7 @@ def train(config: Config,
     train_metrics: Dict[str, float] = {}
     epochs_run = 0
 
-    write_checkpoint = checkpoint_writer(config, state)
+    write_checkpoint = CheckpointWriter(config, state)
     best = BestTracker(config, write_checkpoint)
 
     def run_dev_eval(epoch: int) -> bool:
@@ -566,6 +582,7 @@ def train(config: Config,
             and not stopped_early and epochs_run > 0
             and run_dev_eval(config.epochs)):
         best.track(config.epochs, final_dev)
+    write_checkpoint.wait()      # the last checkpoint is on disk
     stop.restore()
     if preempted:
         print('training preempted (SIGTERM): checkpoint written, resume '

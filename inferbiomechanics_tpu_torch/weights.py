@@ -40,12 +40,23 @@ The JAX ``Groundlink`` (``inferbiomechanics_tpu/models/groundlink.py``) keeps
 out], bias}``, the last Dense (the head) without a bias. ``nn.Conv1d``
 stores ``weight [C_out, C_in, k]``; both sides cross-correlate, so the axes
 are permuted and no tap is flipped. The head is frame-major on both sides.
+
+The rest of a JAX checkpoint crosses too (``train/checkpoint.py`` reads and
+``chip_smoke.py`` writes it): ``batch_stats``; the optax ``opt_state``,
+whose moments (rmsprop ``nu``; adam, adamw and adamax ``count``, ``mu``,
+``nu``; adagrad ``sum_of_squares``, the port's ``sum``; adadelta ``e_g``,
+``e_x``) are trees shaped like the parameters and go through the same
+family mapping, at the chain positions the JAX package's optimizer factory
+puts them (:func:`optax_layout`); ``step``; and ``ema_params``. The family
+comes from the class of the port's model (:func:`model_family`), or, for a
+file read without one, from the parameter tree's keys (:func:`tree_family`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from itertools import product
+from typing import Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -78,24 +89,28 @@ def _f32(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32).copy())
 
 
-def feedforward_state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
-                                    ) -> Dict[str, torch.Tensor]:
+def feedforward_state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                                    *, params_only: bool = False) -> Dict[str, torch.Tensor]:
     """JAX feedforward params (either tree) -> the port's state dict; a
-    batchnorm model's ``BatchNorm_{i}`` params need its ``batch_stats``."""
+    batchnorm model's ``BatchNorm_{i}`` params need its ``batch_stats``
+    unless ``params_only`` (a tree shaped like the parameters: an
+    optimizer's moments, an EMA)."""
     sd = {}
     for i, (kernel, bias) in enumerate(_layers_from_jax(params)):
         sd[f'layers.{i}.weight'] = _f32(kernel).t().contiguous()
         sd[f'layers.{i}.bias'] = _f32(bias)
     norms = sorted(int(m.group(1)) for k in params
                    if (m := re.fullmatch(r'BatchNorm_(\d+)', k)))
-    if norms and (norms != list(range(len(sd) // 2)) or batch_stats is None):
+    if norms and (norms != list(range(len(sd) // 2)) or
+                  (batch_stats is None and not params_only)):
         raise ValueError(f'a batchnorm tree needs BatchNorm_0..{len(sd) // 2 - 1} '
                          f'and its batch_stats; got {norms}, batch_stats '
                          f'{None if batch_stats is None else sorted(batch_stats)}')
     for i in norms:
         for p_name, s_name, port in _NORM_KEYS:
-            src = params if p_name else batch_stats
-            sd[f'norms.{i}.{port}'] = _f32(src[f'BatchNorm_{i}'][p_name or s_name])
+            if p_name or not params_only:
+                src = params if p_name else batch_stats
+                sd[f'norms.{i}.{port}'] = _f32(src[f'BatchNorm_{i}'][p_name or s_name])
     return sd
 
 
@@ -329,3 +344,276 @@ def diffusion_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     num_layers = len([k for k in state_dict
                       if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
     return _transformer_sd_to_jax(state_dict, num_layers, _DIFFUSION_DENSE)
+
+
+# ---- the whole of a JAX checkpoint: family, batch stats, optimizer, EMA ----
+
+FAMILIES = ('feedforward', 'groundlink', 'transformer', 'pallas', 'diffusion')
+
+
+def model_family(model) -> str:
+    """The JAX parameter tree the port's ``model`` reads and writes: its
+    class, and for the transformer its ``attn_impl``."""
+    from inferbiomechanics_tpu_torch.models import (
+        DiffusionDenoiser, FeedForwardBaseline, Groundlink, TransformerRegressor,
+    )
+    if isinstance(model, FeedForwardBaseline):
+        return 'feedforward'
+    if isinstance(model, Groundlink):
+        return 'groundlink'
+    if isinstance(model, DiffusionDenoiser):
+        return 'diffusion'
+    if isinstance(model, TransformerRegressor):
+        return 'pallas' if model.attn_impl == 'pallas' else 'transformer'
+    raise ValueError(f'no JAX parameter tree for a {type(model).__name__}')
+
+
+def tree_family(params: Mapping) -> str:
+    """The family a JAX parameter tree belongs to, from its keys alone (for
+    a file read without a model: ``convert-checkpoint``)."""
+    keys = set(params)
+    if 'eps_head' in keys:
+        return 'diffusion'
+    if any(_ENC_RE.fullmatch(k) for k in keys):
+        return 'pallas'
+    if any(re.fullmatch(r'EncoderBlock_\d+', k) for k in keys):
+        return 'transformer'
+    if any(re.fullmatch(r'Conv_\d+', k) for k in keys):
+        return 'groundlink'
+    if any(re.fullmatch(r'(Dense_|W)\d+', k) for k in keys):
+        return 'feedforward'
+    raise ValueError(f'the parameter tree (keys {sorted(keys)[:6]}) is none of the '
+                     f'families {FAMILIES}')
+
+
+def params_from_jax(family: str, tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A tree shaped like ``family``'s parameters (the parameters, an
+    optimizer's moments, an EMA) -> the port's parameter names."""
+    if family == 'feedforward':
+        return feedforward_state_dict_from_jax(tree, params_only=True)
+    return {'groundlink': groundlink_state_dict_from_jax,
+            'transformer': transformer_state_dict_from_jax,
+            'pallas': transformer_pallas_state_dict_from_jax,
+            'diffusion': diffusion_state_dict_from_jax}[family](tree)
+
+
+def params_to_jax(family: str, named: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`params_from_jax` (feedforward: the Dense tree)."""
+    return {'feedforward': feedforward_params_to_jax,
+            'groundlink': groundlink_params_to_jax,
+            'transformer': transformer_params_to_jax,
+            'pallas': transformer_pallas_params_to_jax,
+            'diffusion': diffusion_params_to_jax}[family](named)
+
+
+def state_dict_from_jax(family: str, params: Mapping,
+                        batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """A JAX model's parameters and ``batch_stats`` -> the port's state dict
+    (parameters and BatchNorm buffers)."""
+    if family == 'feedforward':
+        return feedforward_state_dict_from_jax(params, batch_stats or None)
+    if batch_stats:
+        raise ValueError(f'a {family} model keeps no batch_stats; got {sorted(batch_stats)}')
+    return params_from_jax(family, params)
+
+
+def _sorted_tree(tree):
+    """Dicts with sorted keys, as ``jax.device_get`` hands a train state to
+    the JAX package's writer."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+# The optax state of each rule as the JAX package's factory chains it
+# (inferbiomechanics_tpu/train/optimizers.py): one entry a link of the
+# chain, each the fields its state keeps. TREE is a tree shaped like the
+# parameters, COUNT the update count (int32), SCHEDULE the link that scales
+# by the learning rate, which counts the updates only under a schedule.
+TREE, COUNT, SCHEDULE = 'tree', 'count', 'schedule'
+_ADAM = {'count': COUNT, 'mu': TREE, 'nu': TREE}
+_OPTAX_CHAINS = {
+    'sgd': ({}, SCHEDULE),
+    'rmsprop': ({'nu': TREE}, SCHEDULE, {}),
+    'adagrad': ({'sum_of_squares': TREE}, SCHEDULE),
+    'adam': (_ADAM, SCHEDULE),
+    'adamax': (_ADAM, SCHEDULE),
+    'adamw': (_ADAM, {}, SCHEDULE),
+    'adadelta': ({}, {'e_g': TREE, 'e_x': TREE}, SCHEDULE),
+}
+# optax's field -> the port's per-parameter state key (train/optimizers.py::_STATE)
+_OPTAX_KEYS = {'nu': 'nu', 'mu': 'mu', 'sum_of_squares': 'sum', 'e_g': 'e_g', 'e_x': 'e_x'}
+
+
+def _links(xs) -> Dict:
+    return {str(i): x for i, x in enumerate(xs)}
+
+
+def optax_layout(opt_type: str, schedule: bool = False, clip: bool = False,
+                 freeze: bool = False) -> Dict:
+    """The layout of the JAX package's ``opt_state`` (as flax writes it) for
+    ``opt_type`` with a learning-rate schedule, ``--grad-clip-norm`` and
+    ``--freeze-params``: nested dicts whose leaves are TREE or COUNT."""
+    links = [({'count': COUNT} if schedule else {}) if link == SCHEDULE else link
+             for link in _OPTAX_CHAINS[opt_type]]
+    layout = _links(links)
+    if clip:
+        layout = _links([{}, layout])
+    if freeze:
+        layout = _links([layout, {'inner_state': {}}])
+    return layout
+
+
+def optimizer_layout(optimizer) -> Dict:
+    """:func:`optax_layout` of the port's ``train/optimizers.py::Optimizer``."""
+    return optax_layout(optimizer.opt_type, callable(optimizer.learning_rate),
+                        bool(optimizer.grad_clip_norm and optimizer.grad_clip_norm > 0),
+                        bool(optimizer.frozen))
+
+
+def _match(tree, layout, path: tuple, moments: Dict, counts: list) -> None:
+    if layout == TREE:
+        moments[path[-1]] = tree
+    elif layout == COUNT:
+        counts.append(int(np.asarray(tree)))
+    elif not isinstance(tree, dict) or set(tree) != set(layout):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f'opt_state/{"/".join(path)} holds {got} where the optimizer '
+                         f'keeps {sorted(layout)}')
+    else:
+        for k, sub in layout.items():
+            _match(tree[k], sub, path + (k,), moments, counts)
+
+
+def optimizer_state_from_jax(family: str, opt_state: Mapping, layout: Mapping,
+                             named_params: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX package's ``opt_state`` -> the port's optimizer ``state_dict``
+    over ``named_params`` (name -> parameter, in the optimizer's order),
+    when it has ``layout`` (:func:`optax_layout`). The moments go through
+    the family's mapping, as the parameters do. Raises ValueError when the
+    layout, a name or a shape disagrees."""
+    moments: Dict = {}
+    counts: list = []
+    _match(opt_state, layout, (), moments, counts)
+    per_key = {}
+    for field, tree in moments.items():
+        named = params_from_jax(family, tree)
+        wrong = sorted(n for n in set(named) | set(named_params)
+                       if n not in named or n not in named_params
+                       or named[n].shape != named_params[n].shape)
+        if wrong:
+            raise ValueError(f'opt_state {field} does not match the parameters at {wrong[:5]}')
+        per_key[_OPTAX_KEYS[field]] = named
+    names = list(named_params)
+    group: Dict = {'params': list(range(len(names)))}
+    if counts:
+        group['count'] = counts[0]
+    return {'state': ({i: {k: v[n] for k, v in per_key.items()} for i, n in enumerate(names)}
+                      if per_key else {}),
+            'param_groups': [group]}
+
+
+def _fill(layout, trees: Mapping, count: int):
+    if layout == TREE:
+        return trees
+    if layout == COUNT:
+        return np.asarray(count, np.int32)
+    return {k: (trees[k] if sub == TREE else _fill(sub, trees, count))
+            for k, sub in layout.items()}
+
+
+def optimizer_state_to_jax(family: str, optimizer) -> Dict:
+    """The port's ``Optimizer`` -> the JAX package's ``opt_state`` tree
+    (a parameter with no state yet, as before its first update, gets the
+    rule's initial value)."""
+    from inferbiomechanics_tpu_torch.train.optimizers import _STATE
+    params = optimizer.param_groups[0]['params']
+    inits = _STATE[optimizer.opt_type]
+    trees = {}
+    for field, key in _OPTAX_KEYS.items():
+        if key in inits:
+            named = {n: optimizer.state[p][key] if key in optimizer.state.get(p, {})
+                     else torch.full_like(p, inits[key])
+                     for n, p in zip(optimizer.names, params)}
+            trees[field] = _sorted_tree(params_to_jax(family, named))
+    return _fill(optimizer_layout(optimizer), trees,
+                 int(optimizer.param_groups[0].get('count', 0)))
+
+
+def jax_payload(model, optimizer, epoch: int, batch: int, step: int = 0,
+                ema_params: Optional[Mapping[str, torch.Tensor]] = None) -> Dict:
+    """The tree the JAX package's ``save_checkpoint`` writes for the port's
+    ``model`` and ``optimizer`` (``utils/flax_msgpack.py::dumps`` writes
+    it): ``{step, params, opt_state, batch_stats, epoch, batch[,
+    ema_params]}``, keys sorted as a JAX train state's are."""
+    family = model_family(model)
+    sd = model.state_dict()
+    named = dict(model.named_parameters())
+    payload = {
+        'step': np.asarray(step, np.int32),
+        'params': _sorted_tree(params_to_jax(family, named)),
+        'opt_state': optimizer_state_to_jax(family, optimizer),
+        'batch_stats': _sorted_tree(feedforward_batch_stats_to_jax(sd)
+                                    if family == 'feedforward' else {}),
+        'epoch': np.asarray(epoch, np.int64),
+        'batch': np.asarray(batch, np.int64),
+    }
+    if ema_params is not None:
+        payload['ema_params'] = _sorted_tree(params_to_jax(family, ema_params))
+    return payload
+
+
+def _layouts(opt_type: str) -> Iterator[Dict]:
+    """Every layout of ``opt_type``'s state: with and without a schedule,
+    clipping and freezing."""
+    for flags in product((False, True), repeat=3):
+        yield optax_layout(opt_type, *flags)
+
+
+def optimizer_candidates(opt_state: Mapping, prefer=()) -> list:
+    """The optimizer types whose layout ``opt_state`` has, those in
+    ``prefer`` first (adam and adamax keep the same state, so a file alone
+    cannot tell them apart)."""
+    from inferbiomechanics_tpu_torch.train.optimizers import OPT_TYPES
+    found = []
+    for opt_type in OPT_TYPES:
+        for layout in _layouts(opt_type):
+            try:
+                _match(opt_state, layout, (), {}, [])
+            except ValueError:
+                continue
+            found.append(opt_type)
+            break
+    prefer = [t for t in prefer if t in found]
+    return prefer + [t for t in found if t not in prefer]
+
+
+def torch_payload_from_jax(raw: Mapping, prefer=()) -> Dict:
+    """A JAX package checkpoint (the tree its ``save_checkpoint`` wrote) ->
+    the port's payload (``train/checkpoint.py``), without a model: the
+    family comes from the parameter tree, the optimizer type from the
+    ``opt_state`` layout (``prefer`` first, see
+    :func:`optimizer_candidates`). The optimizer's state is keyed by
+    parameter name (``param_names``), which the port's loader reads.
+    Without a matching optimizer type the payload holds the model only."""
+    family = tree_family(raw['params'])
+    payload: Dict = {
+        'epoch': int(np.asarray(raw.get('epoch', -1))),
+        'batch': int(np.asarray(raw.get('batch', 0))),
+        'model_state_dict': state_dict_from_jax(family, raw['params'],
+                                                raw.get('batch_stats') or None),
+        'step': int(np.asarray(raw.get('step', 0))),
+    }
+    named = params_from_jax(family, raw['params'])
+    candidates = optimizer_candidates(raw.get('opt_state', {}), prefer)
+    for layout in (_layouts(candidates[0]) if candidates else ()):
+        try:
+            opt = optimizer_state_from_jax(family, raw['opt_state'], layout, named)
+        except ValueError:
+            continue
+        opt['param_groups'][0]['param_names'] = list(named)
+        payload.update(optimizer_state_dict=opt, opt_type=candidates[0])
+        break
+    if 'ema_params' in raw:
+        payload['ema_params'] = params_from_jax(family, raw['ema_params'])
+    return payload

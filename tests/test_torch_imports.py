@@ -1,10 +1,11 @@
-"""The port imports no jax, flax or optax and nothing of the JAX package, and
-never swaps the GPU for the CPU.
+"""The port imports no jax, flax, optax or msgpack and nothing of the JAX
+package, and never swaps the GPU for the CPU.
 
 Each test runs a fresh interpreter in which ``import jax`` (and jaxlib,
-flax, optax) fails, as on a machine that has only PyTorch. The JAX package
-``inferbiomechanics_tpu`` is importable there (it lies beside the port), so
-that a stray import of it would succeed and show up in ``sys.modules``.
+flax, optax, msgpack) fails, as on a machine that has only PyTorch. The JAX
+package ``inferbiomechanics_tpu`` is importable there (it lies beside the
+port), so that a stray import of it would succeed and show up in
+``sys.modules``.
 """
 
 import os
@@ -19,7 +20,7 @@ PORT = REPO / 'inferbiomechanics_tpu_torch'
 
 _NO_JAX = """
 import sys
-for name in ('jax', 'jaxlib', 'flax', 'optax'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack'):
     sys.modules[name] = None        # any import of them raises ImportError
 
 def jax_package_modules():
@@ -37,7 +38,25 @@ def _run(body: str, tmp_path) -> str:
     return proc.stdout
 
 
+def _jax_checkpoint(path: Path) -> None:
+    """A JAX package checkpoint of a small feedforward model, written by the
+    JAX package in this (the parent) process."""
+    import jax
+    import jax.numpy as jnp
+
+    from inferbiomechanics_tpu.models import get_model
+    from inferbiomechanics_tpu.train.checkpoint import save_checkpoint
+    from inferbiomechanics_tpu.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu.train.state import create_train_state
+    model = get_model('feedforward', num_dofs=23, num_contact_bodies=2, history_len=20,
+                      stride=5, root_history_len=10, hidden_dims=(32,))
+    state = create_train_state(model, jax.random.PRNGKey(0), jnp.zeros((2, 4, 177)),
+                               make_optimizer('rmsprop', 1e-3))
+    save_checkpoint(str(path), state, 1, 0)
+
+
 def test_every_port_module_imports_and_serves_without_jax(tmp_path):
+    _jax_checkpoint(tmp_path / 'jax_run')
     out = _run("""
         import importlib, pkgutil
         import numpy as np
@@ -86,7 +105,17 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
         assert all(v.shape[0] == 3 and np.isfinite(v).all() for v in out.values())
         assert set(spread) == set(out)
         print('predicted diffusion', len(out))
-        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
+        # a JAX package checkpoint, converted and served
+        from inferbiomechanics_tpu_torch.__main__ import main
+        assert main(['convert-checkpoint', 'jax_run', '--out-dir', 'conv/feedforward']) == 0
+        cfg = Config()
+        cfg.window_size, cfg.hidden_dims = 20, [32]
+        svc = InferenceService(cfg, 'conv/feedforward', ds, max_batch=8, device='cpu')
+        assert svc.epoch == 1
+        out = svc.predict_packed(x)
+        assert all(v.shape[0] == 3 and np.isfinite(v).all() for v in out.values())
+        print('converted and served', svc.epoch)
+        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack'))
         assert jax_package_modules() == [], jax_package_modules()
     """, tmp_path)
     for module in ('config', 'data.dataset', 'data.b3d_legacy', 'ops.fused_mlp',
@@ -96,10 +125,12 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'ops.losses', 'loss.evaluator', 'train.optimizers', 'train.state',
                    'train.step', 'train.device_data', 'data.loader', 'train.run_config',
                    'train.loop', 'cli.train_cmd', 'cli.analyze_cmd', 'cli.motion',
-                   'utils.wandb_compat', 'models.diffusion'):
+                   'utils.wandb_compat', 'models.diffusion', 'utils.flax_msgpack',
+                   'torch_compat', 'cli.convert_checkpoint_cmd'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out
+    assert 'converted and served 1' in out
 
 
 def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
@@ -125,7 +156,7 @@ def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
         assert 'inferbiomechanics_tpu_torch.ops.fused_groundlink' in sys.modules
         assert 'inferbiomechanics_tpu_torch.models.diffusion' in sys.modules
         assert jax_package_modules() == [], jax_package_modules()
-        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax'))
+        assert all(sys.modules[n] is None for n in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack'))
         print('imported', ' '.join(sorted(names)))
     """, tmp_path)
     assert 'inferbiomechanics_tpu_torch.data.synthetic' in out.split()
@@ -155,9 +186,9 @@ def test_cuda_device_without_a_gpu_raises(tmp_path):
 
 def test_port_sources_name_no_jax_import():
     """No import line of the port or of ``chip_smoke.py`` names jax, jaxlib,
-    flax, optax or the JAX package."""
+    flax, optax, msgpack or the JAX package."""
     pattern = re.compile(
-        r'^\s*(import|from)\s+(jax|jaxlib|flax|optax|inferbiomechanics_tpu)(\.|\s|$)',
+        r'^\s*(import|from)\s+(jax|jaxlib|flax|optax|msgpack|inferbiomechanics_tpu)(\.|\s|$)',
         re.M)
     sources = sorted(PORT.rglob('*.py')) + [REPO / 'chip_smoke.py']
     assert len(sources) > 20

@@ -522,7 +522,9 @@ def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
     (dict(grad_allreduce_dtype='bf16'), '--grad-allreduce-dtype bf16'),
     # the JAX diffusion loop never reads --compute-report; the port's refuses it
     (dict(model_type='diffusion', compute_report=True), '--compute-report'),
-    (dict(async_checkpoint=True), '--async-checkpoint'),
+    # ported: the case holds the flag working (the same checkpoints as the
+    # synchronous writer's)
+    (dict(async_checkpoint=True), None),
     (dict(profile=True), '--profile'),
     (dict(device_data='sharded'), '--device-data sharded'),
     (dict(device_data='stream'), '--device-data stream'),
@@ -536,6 +538,20 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     cfg = _config(Config, fields.pop('model_type'), checkpoint_dir=str(tmp_path / 'c'),
                   **fields)
     run = train_diffusion if cfg.model_type == 'diffusion' else train
+    if flag is None:
+        files = []
+        for d, async_checkpoint in (('c', True), ('s', False)):
+            small = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / d), hidden_dims=[32],
+                                        epochs=2, checkpoint_every_batches=2,
+                                        device_chunk_steps=1,
+                                        async_checkpoint=async_checkpoint)
+            run(small, data['train'], None, device='cpu')
+            files.append(ckpt.list_checkpoints(small.checkpoint_dir))
+        assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] and len(files[0]) >= 4
+        for (_, _, a), (_, _, b) in zip(*files):
+            with open(a, 'rb') as fa, open(b, 'rb') as fb:
+                assert fa.read() == fb.read(), a
+        return
     with pytest.raises(NotImplementedError, match=f'{flag} is not yet ported'):
         run(cfg, data['train'], data['dev'], device='cpu')
     assert not os.path.exists(tmp_path / 'c')
