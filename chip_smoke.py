@@ -198,6 +198,21 @@ Phases, each of which fails the run:
      in a profiler trace (12 K3 launches a step), bitwise the run resumed
      from the port's ``.torch.pt``; a soup of two trained feedforward
      checkpoints served through K1 (``k1_limit``).
+ 14. scale-out on one card (``phase_scale_out``): ``train --device-data
+     stream`` on phase 7's 40 subjects cut into at least 4 segments (the
+     ``pallas`` transformer at B=4096 for an epoch, K2 and K3 counted by name
+     in a profiler trace; feedforward for 2 epochs in chunks of 64, of 1 and
+     with ``--no-materialize-features``, each epoch's losses and the final
+     checkpoints bitwise; windows/s beside the device-resident runs, a
+     segment's upload, training and build ms, a streamed epoch's idle
+     share; the denoiser with EMA at B=64, 200 K2 launches a dev batch), and
+     ``sweep`` (feedforward at B=4096, 3 lrs x 2 seeds, 2 epochs, plain and
+     ``--pbt-every 1``; ``pallas`` at B=64, 2 x 2, traced; GroundLink and the
+     denoiser at B=64, 2 x 1): config i bitwise a one-config sweep of
+     (lr_i, seed_i), the kernels' launches K times a one-config sweep's, a
+     sweep stopped by SIGTERM after epoch 0 and rerun bitwise the
+     uninterrupted one, a point served through K1; the aggregate windows/s,
+     the chunked step's ms against K, the captures' seconds.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -216,6 +231,7 @@ import argparse
 import base64
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import logging
@@ -3406,6 +3422,491 @@ def phase_checkpoints(torch, port, fm, fe, fg, step_mod, root, seed, card, devic
     return report
 
 
+# 14. scale-out on one card: --device-data stream in both loops, and the
+# sweep command (an lr x seed grid in one captured step, PBT, resume)
+class _SigtermAfterEpoch0:
+    """A sweep's metric logger that sends this process SIGTERM once epoch 0
+    is scored: the sweep saves its grid at the end of that epoch and stops."""
+
+    def log(self, row):
+        if row.get('epoch') == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def phase_scale_out(torch, port, fm, fe, fg, step_mod, root, seed, card, device='cuda',
+                    big_home=None, small_home=None, ff_batch=4096, small_batch=64,
+                    size_flags=()):
+    """``--device-data stream`` (``train/streaming_data.py``, the segment
+    buffer of ``train/device_data.py``) in both train loops, and ``sweep``
+    (``train/sweep.py``, ``cli/sweep_cmd.py``):
+
+    - the regression loop streamed from ``big_home`` (phase 7's 40 subjects)
+      under a ``--device-data-max-bytes`` that cuts it into at least 4
+      segments: the ``pallas`` transformer at ``ff_batch`` for an epoch, its
+      K2 and K3 kernels counted by name in a profiler trace; feedforward for
+      2 epochs in chunks of 64 against chunks of 1, and on demand
+      (``--no-materialize-features``), each epoch's losses and the final
+      checkpoints bitwise; windows/s beside the device-resident runs, a
+      segment's upload, training and build ms, and a streamed epoch's idle
+      share; the denoiser at ``small_batch`` with EMA streamed from phase
+      7d's subject, its dev chains through K2 (200 launches a dev batch);
+    - sweeps through the ``sweep`` command: feedforward at ``ff_batch``, 3 x 2
+      configs for 2 epochs, then with ``--pbt-every 1``; the ``pallas``
+      transformer at ``small_batch``, 2 x 2, an epoch of phase 7d's subject;
+      GroundLink and the denoiser at ``small_batch``, 2 x 1, GroundLink's
+      also step by step (chunks of 1, whose metrics stay on the device) on
+      the device and the host tier, bitwise the chunked sweeps. In each, config
+      i bitwise a one-config sweep of (lr_i, seed_i); the kernels' launches K
+      times a one-config sweep's (``pallas``: 4K K2 and 12K K3 a step in a
+      profiler trace; K1 / K4 K a dev batch); a sweep stopped by SIGTERM
+      after epoch 0 and rerun, its dev curves and checkpoints bitwise the
+      uninterrupted PBT sweep's; a point's checkpoint served through K1 (one
+      launch a forward); the aggregate windows/s against K x one config's,
+      the chunked step's ms against K, and the captures' seconds.
+    ``device`` 'cpu' (small homes, ``size_flags`` narrowing the encoder)
+    rehearses it without launch counts or traces."""
+    from inferbiomechanics_tpu_torch.__main__ import main as port_main
+    from inferbiomechanics_tpu_torch.train import streaming_data as sd_mod
+    from inferbiomechanics_tpu_torch.train import sweep as sweep_mod
+    from inferbiomechanics_tpu_torch.train.step import ChunkedStep, as_train_step
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    big_home = big_home or root / 'train_data'
+    small_home = small_home or root / 'chunk_data'
+    report = {'card': card}
+    # phase 7d's subject with a dev subject beside it
+    home = root / 'scale_home'
+    (home / 'train').mkdir(parents=True)
+    (home / 'dev').mkdir()
+    shutil.copy(small_home / 'train' / 'subject_0.b3d', home / 'train' / 'subject_0.b3d')
+    port.write_synthetic_subject(str(home / 'dev' / 'subject_0.b3d'), num_trials=1,
+                                 trial_length=140, seed=seed + 1401)
+
+    def split(where, name, fmt='last_frame', **kw):
+        return port.WindowDataset(str(where / name), window_size=50, stride=5,
+                                  output_data_format=fmt, skip_loading_skeletons=True, **kw)
+
+    big, big_dev = split(big_home, 'train'), split(big_home, 'dev')
+    row_bytes = (big.num_input_channels + big.num_label_channels) * 4
+    budget = (big.labels_all.shape[0] // 5 + 1) * row_bytes
+    plan = sd_mod.StreamingPlan(big, budget)
+    _check(len(plan.segments) >= 4, f'{len(plan.segments)} segments under {budget} bytes')
+    stream = ['--device-data', 'stream', '--device-data-max-bytes', str(budget)]
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+    enc = port.config_from_args(port.parser().parse_args(['train', *pallas]))
+
+    def train(where, ckpt, flags, b, epochs):
+        return port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(where), '--checkpoint-dir', str(ckpt),
+            '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+            '--seed', str(seed), *flags]))
+
+    # the streamed epochs' segments and losses, the captures' seconds, and
+    # each sweep's result (its aggregate windows/s: every config's windows
+    # over the sweep's wall clock, dev evals included)
+    epochs_seen, captures, sweeps_seen = [], [], []
+    orig_call, orig_capture = sd_mod.StreamingEpoch.__call__, step_mod.GraphedStep._capture
+    orig_sweep = sweep_mod.run_sweep
+
+    def recorded_sweep(*a, **kw):
+        sweeps_seen.append(orig_sweep(*a, **kw))
+        return sweeps_seen[-1]
+
+    def recording(self, state, host_seed):
+        out = orig_call(self, state, host_seed)
+        epochs_seen.append(dict(stats=list(self.stats), loss=out['loss'].copy()))
+        return out
+
+    def timed_capture(self, state):
+        t0 = time.perf_counter()
+        orig_capture(self, state)
+        captures.append((getattr(state, 'states', None) and len(state.states) or 1,
+                         time.perf_counter() - t0))
+
+    sd_mod.StreamingEpoch.__call__ = recording
+    step_mod.GraphedStep._capture = timed_capture
+    sweep_mod.run_sweep = recorded_sweep
+    try:
+        # -- 14a. the streaming tier -------------------------------------------
+        layers = enc.num_layers
+        k3_shape = fe.plan_encoder_bwd(ff_batch, 10, enc.d_model, enc.d_model * 4,
+                                       enc.num_heads).shape
+        fe.launches = fe.bwd_launches = 0
+        epochs_seen.clear()
+        if on_card:
+            res, traced, _ = _traced(torch, lambda: train(big_home, root / 's_pallas',
+                                                          pallas + stream, ff_batch, 1))
+        else:
+            res, traced = train(big_home, root / 's_pallas', pallas + stream, ff_batch, 1), None
+        k2_streamed = fe.launches     # before the device-resident run adds its own
+        steps = sum(s.steps for s in epochs_seen[-1]['stats'])
+        pallas_steady = _steady_windows_per_sec(epochs_seen)
+        dev_batches = len(big_dev) // ff_batch
+        if on_card:
+            _check_traced(traced, layers, steps, dev_batches, k3_shape, 'the streamed pallas run')
+        resident = train(big_home, root / 'r_pallas', pallas, ff_batch, 1)
+        report['pallas'] = dict(
+            segments=len(plan.segments), rows_pad=plan.rows_pad, steps=steps, traced=traced,
+            k2_wrapper=k2_streamed, windows_per_sec=res.windows_per_sec,
+            steady_windows_per_sec=pallas_steady,
+            resident_windows_per_sec=resident.windows_per_sec,
+            segments_visited=[dataclasses.asdict(s) for s in epochs_seen[-1]['stats']])
+        print(f'[scale-out] train --device-data stream, pallas at B={ff_batch} on {len(big)} '
+              f'windows: {len(plan.segments)} segments of {plan.rows_pad} rows under {budget} '
+              f'bytes, {steps} steps; traced kernels {traced} ({layers} K2 and '
+              f'{layers * fe.BWD_LAUNCHES_PER_LAYER} K3 launches a step, {dev_batches} dev '
+              f'batch); {res.windows_per_sec:.0f} windows/s (after each epoch\'s first segment '
+              f'{pallas_steady:.0f}) against {resident.windows_per_sec:.0f} device-resident '
+              f'({card})', flush=True)
+
+        runs = {}
+        for tag, flags in (('chunks of 64', stream), ('chunks of 1',
+                           stream + ['--device-chunk-steps', '1']),
+                           ('on demand', stream + ['--no-materialize-features'])):
+            epochs_seen.clear()
+            ckpt = root / f's_ff_{len(runs)}'
+            r = train(big_home, ckpt, flags, ff_batch, 2)
+            runs[tag] = dict(result=r, ckpt=ckpt / 'feedforward',
+                             losses=[e['loss'].item() for e in epochs_seen],
+                             stats=[s for e in epochs_seen for s in e['stats']],
+                             steady=_steady_windows_per_sec(epochs_seen))
+        base = runs['chunks of 64']
+        for tag in ('chunks of 1', 'on demand'):
+            _check(runs[tag]['losses'] == base['losses'],
+                   f'streamed feedforward {tag}: epoch losses {runs[tag]["losses"]} against '
+                   f'{base["losses"]}')
+            verdict = _compare_final(torch, base['ckpt'], runs[tag]['ckpt'], 1)
+            _check(verdict['bitwise'], f'streamed feedforward {tag}: {verdict["verdict"]}')
+        ff_resident = train(big_home, root / 'r_ff', [], ff_batch, 2)
+
+        def med(rows, key):
+            vals = [getattr(s, key) for s in rows if getattr(s, key) is not None]
+            return statistics.median(vals) if vals else None
+
+        st = base['stats']
+        report['feedforward'] = dict(
+            epoch_losses=base['losses'], windows_per_sec=base['result'].windows_per_sec,
+            steady_windows_per_sec=base['steady'],
+            resident_windows_per_sec=ff_resident.windows_per_sec,
+            windows_per_sec_chunks_of_1=runs['chunks of 1']['result'].windows_per_sec,
+            upload_ms=med(st, 'upload_ms'), stage_ms=med(st, 'stage_ms'),
+            train_ms=med(st, 'train_ms'), steps_a_segment=med(st, 'steps'),
+            build_ms=med(st, 'build_ms'), build_ms_on_demand=med(runs['on demand']['stats'],
+                                                                 'build_ms'),
+            windows_per_sec_on_demand=runs['on demand']['result'].windows_per_sec)
+        f = report['feedforward']
+        print(f'[scale-out] train --device-data stream, feedforward at B={ff_batch}, 2 epochs: '
+              f'epoch losses {base["losses"]} bitwise in chunks of 64, of 1 and on demand, the '
+              f'final checkpoints bitwise; {f["windows_per_sec"]:.0f} windows/s (chunks of 1 '
+              f'{f["windows_per_sec_chunks_of_1"]:.0f}, on demand '
+              f'{f["windows_per_sec_on_demand"]:.0f}; after each epoch\'s first segment '
+              f'{f["steady_windows_per_sec"]:.0f}) against {f["resident_windows_per_sec"]:.0f}'
+              f' device-resident; a segment (median): upload {f["upload_ms"]} ms, staging '
+              f'{f["stage_ms"]:.2f} ms, training {f["train_ms"]:.2f} ms ({f["steps_a_segment"]} '
+              f'steps), build {f["build_ms"]:.2f} ms materialized / '
+              f'{f["build_ms_on_demand"]:.2f} ms on demand ({card})', flush=True)
+
+        # a streamed epoch's idle share, in process (the capture before
+        # it): its wall clock untraced, the device busy time of the next
+        # epoch (the same steps) in a profiler trace
+        cfg = port.config_from_args(port.parser().parse_args(['train']))
+        lc = port.loss_config_from(cfg)
+        model = port.build_model_for_dataset(cfg, big, device=device,
+                                             generator=torch.Generator().manual_seed(seed))
+        state = port.create_train_state(model, port.make_optimizer(
+            model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+        epoch = sd_mod.make_streaming_epoch(model, big, plan, lc, ff_batch, device,
+                                            chunk_steps=64)
+        epoch(state, 0)
+        t0 = time.perf_counter()
+        epoch(state, 1)
+        wall = (time.perf_counter() - t0) * 1e3
+        f['epoch_ms'] = wall
+        if on_card:
+            _, _, busy = _traced(torch, lambda: epoch(state, 2))
+            f['epoch_busy_ms'] = busy / 1e3
+            f['idle_share'] = max(wall - busy / 1e3, 0.0) / wall
+            print(f'[scale-out] a streamed feedforward epoch at B={ff_batch} in chunks of 64: '
+                  f'{wall:.1f} ms by the host clock ({len(plan.segments)} segments, '
+                  f'{sum(x.steps for x in epoch.stats)} steps), device busy {busy / 1e3:.1f} ms '
+                  f'in a trace of the next, idle share {f["idle_share"]:.3f} ({card})', flush=True)
+
+        # the denoiser streamed, its dev chains through K2
+        dflags = ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+                  '--ema-decay', '0.999', '--fused-inference', *size_flags]
+        sub = split(home, 'train', 'all_frames')
+        dbudget = (sub.labels_all.shape[0] // 2 + 1) * row_bytes
+        fe.launches = 0
+        epochs_seen.clear()
+        dres = train(home, root / 's_diff', dflags + ['--device-data', 'stream',
+                                                       '--device-data-max-bytes', str(dbudget)],
+                     small_batch, 1)
+        ddev = len(split(home, 'dev', 'all_frames')) // small_batch
+        dcfg = port.config_from_args(port.parser().parse_args(['train', *dflags]))
+        if on_card:
+            _check(fe.launches == dcfg.num_layers * 50 * ddev,
+                   f'streamed denoiser: {fe.launches} K2 launches for {ddev} dev batches')
+        _check(np.isfinite(dres.final_train_metrics['eps_mse']), 'streamed denoiser: eps-mse')
+        report['diffusion'] = dict(segments=len(epochs_seen[-1]['stats']), dev_batches=ddev,
+                                   k2_launches=fe.launches,
+                                   eps_mse=dres.final_train_metrics['eps_mse'],
+                                   windows_per_sec=dres.windows_per_sec)
+        print(f'[scale-out] train --device-data stream, the denoiser at B={small_batch} with '
+              f'EMA: {len(epochs_seen[-1]["stats"])} segments, eps-mse '
+              f'{dres.final_train_metrics["eps_mse"]:.4f}, {dres.windows_per_sec:.0f} windows/s;'
+              f' the dev eval {fe.launches} K2 launches for {ddev} dev batch(es) ({card})',
+              flush=True)
+
+        # -- 14b. sweeps -------------------------------------------------------
+        def sweep_cli(where, ckpt, flags, b, epochs, lrs, seeds, extra=()):
+            argv = ['sweep', '--dataset-home', str(where), '--checkpoint-dir', str(ckpt),
+                    '--batch-size', str(b), '--epochs', str(epochs), '--device', device,
+                    '--seed', str(seed), '--no-wandb', '--lrs', *map(str, lrs),
+                    '--seeds', *map(str, seeds), *flags, *extra]
+            t0 = time.perf_counter()
+            _check(port_main(argv) == 0, f'sweep {argv}')
+            cfg = port.config_from_args(port.parser().parse_args(argv))
+            out = json.loads((ckpt / 'sweep' / cfg.model_type / 'sweep_results.json').read_text())
+            out['wall_s'] = time.perf_counter() - t0
+            out['windows_per_sec'] = sweeps_seen[-1].windows_per_sec
+            return out, cfg
+
+        def same_sweeps(tag, a, b):
+            """Two sweeps of one grid: dev curves, final train losses and
+            each point's final checkpoint bitwise."""
+            for i, (p, q) in enumerate(zip(a['points'], b['points'])):
+                _check(p['dev_curve'] == q['dev_curve'] and
+                       p['final_train_loss'] == q['final_train_loss'],
+                       f'{tag} config {i}: {p["dev_curve"]} / {p["final_train_loss"]} against '
+                       f'{q["dev_curve"]} / {q["final_train_loss"]}')
+                epoch = int(Path(p['checkpoint_path']).name.split('_')[1])
+                verdict = _compare_final(torch, Path(p['checkpoint_path']).parent,
+                                         Path(q['checkpoint_path']).parent, epoch)
+                _check(verdict['bitwise'], f'{tag} config {i}: {verdict["verdict"]}')
+
+        def one_config(cfg, ds, dev, lr, sd_, where):
+            c = dataclasses.replace(cfg, checkpoint_dir=str(where))
+            return sweep_mod.run_sweep(c, ds, dev, [lr], [sd_], device=device)
+
+        def same_as_one_configs(tag, grid_out, cfg, ds, dev, counter=None):
+            """Config i of the grid against a one-config sweep of (lr_i,
+            seed_i): dev curve, final train loss, final checkpoint."""
+            singles, launches = [], []
+            for i, p in enumerate(grid_out['points']):
+                if counter is not None:
+                    counter.launches = 0
+                one = one_config(cfg, ds, dev, p['learning_rate'], p['seed'],
+                                 root / f'one_{tag}_{i}')
+                launches.append(None if counter is None else counter.launches)
+                q = one.points[0]
+                _check(q.dev_curve == p['dev_curve'] and q.final_train_loss ==
+                       p['final_train_loss'], f'{tag} config {i}: {q.dev_curve} / '
+                       f'{q.final_train_loss} alone, {p["dev_curve"]} / '
+                       f'{p["final_train_loss"]} in the grid')
+                pdir = Path(p['checkpoint_path']).parent
+                epoch = int(Path(p['checkpoint_path']).name.split('_')[1])
+                verdict = _compare_final(torch, pdir, Path(q.checkpoint_path).parent, epoch)
+                _check(verdict['bitwise'], f'{tag} config {i}: {verdict["verdict"]}')
+                singles.append(one.windows_per_sec)
+            return singles, launches
+
+        grid = dict(lrs=[1e-4, 3e-4, 1e-3], seeds=[0, 1])
+        k = 6
+        big_sweep = port.config_from_args(port.parser().parse_args(
+            ['sweep', '--batch-size', str(ff_batch), '--epochs', '2', '--seed', str(seed)]))
+        fm.launches = 0
+        ff, _ = sweep_cli(big_home, root / 'sw_ff', [], ff_batch, 2, **grid)
+        k1_grid = fm.launches
+        singles, k1_single = same_as_one_configs('ff', ff, big_sweep, big, big_dev, counter=fm)
+        if on_card:
+            want = 2 * (len(big_dev) // ff_batch)
+            _check(k1_grid == k * want and all(n == want for n in k1_single),
+                   f'sweep K1 launches {k1_grid} for {k} configs, {k1_single} alone; want '
+                   f'{want} a config')
+        pbt, _ = sweep_cli(big_home, root / 'sw_ff_pbt', [], ff_batch, 2, **grid,
+                           extra=['--pbt-every', '1'])
+        _check(len(pbt['pbt_events']) == 1, f'PBT events {pbt["pbt_events"]}')
+        term_dir = root / 'sw_ff_term'
+        cut = sweep_mod.run_sweep(
+            dataclasses.replace(big_sweep, checkpoint_dir=str(term_dir / 'sweep' / 'feedforward'
+                                                              / 'base')),
+            big, big_dev, grid['lrs'], grid['seeds'], pbt_every=1,
+            metric_logger=_SigtermAfterEpoch0(), device=device)
+        _check(cut.preempted and len(cut.points[0].dev_curve) == 1,
+               f'the SIGTERM sweep: preempted {cut.preempted}, {cut.points[0].dev_curve}')
+        rerun, _ = sweep_cli(big_home, term_dir, [], ff_batch, 2, **grid,
+                             extra=['--pbt-every', '1'])
+        _check([p['dev_curve'] for p in rerun['points']] == [p['dev_curve'] for p in
+                                                            pbt['points']]
+               and rerun['pbt_events'] == pbt['pbt_events'],
+               'the sweep stopped by SIGTERM and rerun: dev curves or PBT events differ')
+        for p, q in zip(rerun['points'], pbt['points']):
+            verdict = _compare_final(torch, Path(p['checkpoint_path']).parent,
+                                     Path(q['checkpoint_path']).parent, 1)
+            _check(verdict['bitwise'], f'the rerun sweep: {verdict["verdict"]}')
+
+        # the chunked sweep step's ms against K, and the captures' seconds
+        step_ms = {}
+        data = port.DeviceResidentData(big, device)
+        idx = np.random.default_rng(seed).integers(0, len(big), size=(64, ff_batch))
+        for kk, lrs, seeds in ((1, [1e-4], [0]), (3, grid['lrs'], [0]),
+                               (6, grid['lrs'], grid['seeds'])):
+            sstate = sweep_mod.init_sweep_states(big_sweep, big, sweep_mod.sweep_grid(
+                lrs, seeds), device)
+            chunked = ChunkedStep(as_train_step(sweep_mod.make_sweep_grads(
+                sstate.models, big.lab_offsets, lc, gather=data.gather)), (torch.int64,), device)
+            chunked(sstate, idx).rows()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                chunked(sstate, idx).rows()
+            step_ms[str(kk)] = (time.perf_counter() - t0) * 1e3 / (3 * 64)
+        by_k = {}
+        for kk, s in captures:
+            by_k.setdefault(str(kk), []).append(s)
+        report['sweep_feedforward'] = dict(
+            configs=k, aggregate_windows_per_sec=ff['windows_per_sec'],
+            one_config_windows_per_sec=singles, train_windows_per_sec=ff_resident.windows_per_sec,
+            k1_launches=k1_grid, k1_launches_alone=k1_single, pbt_events=pbt['pbt_events'],
+            wall_s=ff['wall_s'], chunked_step_ms=step_ms, capture_s=by_k)
+        sf = report['sweep_feedforward']
+        print(f'[scale-out] sweep feedforward at B={ff_batch}, 3 lrs x 2 seeds, 2 epochs: each '
+              f'config bitwise a one-config sweep; K1 {k1_grid} launches ({k1_single[0]} a '
+              f'config alone); aggregate {sf["aggregate_windows_per_sec"]:.0f} windows/s '
+              f'against K x one config\'s {k * statistics.mean(singles):.0f} and K x train\'s '
+              f'{k * ff_resident.windows_per_sec:.0f}; the chunked step '
+              + ', '.join(f'K={kk} {v:.3f} ms' for kk, v in step_ms.items())
+              + f'; captures (s) by K {by_k}; PBT events {pbt["pbt_events"]}; stopped by SIGTERM'
+              f' after epoch 0 and rerun: dev curves, PBT events and checkpoints bitwise the '
+              f'uninterrupted sweep\'s ({card})', flush=True)
+
+        # a point's checkpoint served through K1
+        point = ff['points'][ff['best']['index']]['checkpoint_path'] if ff['best'] else \
+            ff['points'][0]['checkpoint_path']
+        svc, server = port.start(port.build_parser().parse_args([
+            'serve', '--dataset-home', str(big_home), '--checkpoint-dir', str(root / 'unused'),
+            '--device', device, '--port', '0', '--checkpoint-file', point]))
+        try:
+            x = np.asarray(big_dev.gather(np.arange(64)).inputs, np.float32)
+            fm.launches = 0
+            got = svc.predict_packed(x)
+            served_launches = fm.launches
+            with torch.no_grad():
+                plain = port.slice_output_heads(fm.mlp_reference(
+                    torch.from_numpy(x).to(device).reshape(len(x), -1),
+                    svc.model.layer_params(), 'sigmoid'), 2, 1)
+            err = max(float(np.abs(got[kk] - v.cpu().numpy()).max()) for kk, v in plain.items())
+            limit = k1_limit(max(float(v.abs().max()) for v in plain.values()))
+        finally:
+            server.server_close()
+            svc.close()
+        _check(err <= limit, f'the sweep point through K1: {err} > {limit}')
+        if on_card:
+            _check(served_launches == 1, f'the sweep point: {served_launches} K1 launches')
+        report['served_point'] = dict(path=Path(point).parent.name, launches=served_launches,
+                                      max_abs_err=err, limit=limit)
+        print(f'[scale-out] serve --checkpoint-file {Path(point).parent.name}/'
+              f'{Path(point).name}: {served_launches} K1 launch for 64 windows, max abs err '
+              f'{err:.3g} against the plain version (limit {limit:.3g}) ({card})', flush=True)
+
+        # pallas 2 x 2 at B=64, an epoch of phase 7d's subject, traced
+        small = split(small_home, 'train')
+        pcfg = port.config_from_args(port.parser().parse_args(
+            ['sweep', *pallas, '--batch-size', str(small_batch), '--epochs', '1',
+             '--seed', str(seed)]))
+        pk3 = fe.plan_encoder_bwd(small_batch, 10, pcfg.d_model, pcfg.d_model * 4,
+                                  pcfg.num_heads).shape
+        psteps = max(1, len(small) // small_batch)
+        pgrid = dict(lrs=[1e-4, 3e-4], seeds=[0, 1])
+        if on_card:
+            (pout, _), ptraced, _ = _traced(torch, lambda: sweep_cli(
+                small_home, root / 'sw_pallas', pallas, small_batch, 1, **pgrid))
+            _check_traced(ptraced, 4 * layers, psteps, 0, pk3, 'the pallas sweep')
+        else:
+            (pout, _), ptraced = sweep_cli(small_home, root / 'sw_pallas', pallas, small_batch,
+                                           1, **pgrid), None
+        psingles, _ = same_as_one_configs('pallas', pout, pcfg, small, None)
+        if on_card:
+            _, one_traced, _ = _traced(torch, lambda: one_config(
+                pcfg, small, None, 1e-4, 0, root / 'one_pallas_traced'))
+            _check_traced(one_traced, layers, psteps, 0, pk3, 'a one-config pallas sweep')
+        report['sweep_pallas'] = dict(configs=4, steps=psteps, traced=ptraced,
+                                      aggregate_windows_per_sec=pout['windows_per_sec'],
+                                      one_config_windows_per_sec=psingles,
+                                      wall_s=pout['wall_s'])
+        print(f'[scale-out] sweep pallas at B={small_batch}, 2 x 2, {psteps} steps: each config '
+              f'bitwise a one-config sweep; traced kernels {ptraced} (4 x {layers} K2 and 4 x '
+              f'{layers * fe.BWD_LAUNCHES_PER_LAYER} K3 a step; a one-config sweep traced a '
+              f'quarter of that); aggregate '
+              f'{report["sweep_pallas"]["aggregate_windows_per_sec"]:.0f} windows/s against 4 x '
+              f'one config\'s {4 * statistics.mean(psingles):.0f} ({card})', flush=True)
+
+        # GroundLink and the denoiser, 2 x 1 at B=64, with a dev split
+        for tag, flags, fmt, counter in (
+                ('groundlink', ['--model-type', 'groundlink'], 'last_frame', fg),
+                ('diffusion', ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
+                               *size_flags], 'all_frames', None)):
+            scfg = port.config_from_args(port.parser().parse_args(
+                ['sweep', *flags, '--batch-size', str(small_batch), '--epochs', '1',
+                 '--seed', str(seed)]))
+            sds, sdev = split(home, 'train', fmt), split(home, 'dev', fmt)
+            if counter is not None:
+                counter.launches = 0
+            out, _ = sweep_cli(home, root / f'sw_{tag}', flags, small_batch, 1,
+                               lrs=[1e-4, 3e-4], seeds=[0])
+            grid_launches = None if counter is None else counter.launches
+            if tag == 'groundlink':
+                # the sweep's eager steps (--device-chunk-steps 1, and the
+                # host tier's --host-chunk-steps 1), whose metrics stay on the
+                # device, bitwise the chunked sweeps of the same tier
+                host = ['--device-data', 'off']
+                for what, eager, chunked in (
+                        ('device tier', flags + ['--device-chunk-steps', '1'], out),
+                        ('host tier', flags + host + ['--host-chunk-steps', '1'],
+                         sweep_cli(home, root / 'sw_gl_host', flags + host + [
+                             '--host-chunk-steps', '16'], small_batch, 1, lrs=[1e-4, 3e-4],
+                             seeds=[0])[0])):
+                    one_by_one, _ = sweep_cli(home, root / f'sw_gl_eager_{what[0]}', eager,
+                                              small_batch, 1, lrs=[1e-4, 3e-4], seeds=[0])
+                    same_sweeps(f'groundlink sweep, {what}, chunks of 1', one_by_one, chunked)
+                print(f'[scale-out] sweep groundlink step by step (chunks of 1) on the device '
+                      f'tier and on the host tier: bitwise the chunked sweeps ({card})',
+                      flush=True)
+            singles, alone = same_as_one_configs(tag, out, scfg, sds, sdev, counter=counter)
+            dev_b = len(sdev) // small_batch
+            if on_card and counter is not None:
+                _check(grid_launches == 2 * dev_b and alone == [dev_b, dev_b],
+                       f'{tag} sweep: K4 {grid_launches} launches, {alone} alone, for {dev_b} '
+                       f'dev batch(es)')
+            report[f'sweep_{tag}'] = dict(configs=2, launches=grid_launches,
+                                          launches_alone=alone,
+                                          dev_curves=[p['dev_curve'] for p in out['points']],
+                                          aggregate_windows_per_sec=out['windows_per_sec'],
+                                          one_config_windows_per_sec=singles)
+            print(f'[scale-out] sweep {tag} at B={small_batch}, 2 lrs x 1 seed: each config '
+                  f'bitwise a one-config sweep; dev curves '
+                  f'{report[f"sweep_{tag}"]["dev_curves"]}; '
+                  + (f'K4 {grid_launches} launches ({alone} alone) for {dev_b} dev batch(es); '
+                     if counter is not None else '')
+                  + f'aggregate {report[f"sweep_{tag}"]["aggregate_windows_per_sec"]:.0f} '
+                  f'windows/s ({card})', flush=True)
+    finally:
+        sd_mod.StreamingEpoch.__call__ = orig_call
+        step_mod.GraphedStep._capture = orig_capture
+        sweep_mod.run_sweep = orig_sweep
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[scale-out] phase 14 took {report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
+def _steady_windows_per_sec(epochs_seen):
+    """Streamed windows over the host ms of staging and training each
+    segment, leaving out each epoch's first segment (which waits for its
+    build, and in a run's first epoch for the step's capture)."""
+    rows = [s for e in epochs_seen for s in e['stats'][1:]]
+    ms = sum(s.stage_ms + s.train_ms for s in rows)
+    return sum(s.windows for s in rows) / ms * 1e3 if ms > 0 else None
+
+
 def _print_times(card, what, b, ms, dev, library, bound):
     fmt = lambda us: 'not measured' if us is None else f'{us:.1f} us'  # noqa: E731
     print(f'[times] {what} B={b}, CUDA events (median of 30, better of two '
@@ -3669,6 +4170,10 @@ def main() -> int:
         # and resumed, the asynchronous writer, soups
         checkpoints = phase_checkpoints(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
 
+        # 14. scale-out on one card: --device-data stream in both loops, and
+        # the sweep command (a grid in one captured step, PBT, resume)
+        scale_out = phase_scale_out(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -3867,8 +4372,8 @@ def main() -> int:
             device_us={str(b): v['dev'] for b, v in times.items()}, card=card, **more)
 
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
-          f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s ({card})',
-          flush=True)
+          f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
+          f'{scale_out["seconds"]:.1f} s ({card})', flush=True)
     print(card, flush=True)     # name, power limit: as nvidia-smi prints them
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
@@ -3885,7 +4390,7 @@ def main() -> int:
                   'train dev evals': physics['train']['k1_launches']},
               physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
-              batchnorm=regularised, checkpoints=checkpoints),
+              batchnorm=regularised, checkpoints=checkpoints, scale_out=scale_out),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},

@@ -1,15 +1,15 @@
-"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint} ...``"""
+"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint,sweep} ...``"""
 
 import argparse
 import logging
 from typing import Optional, Sequence
 
 from inferbiomechanics_tpu_torch.cli import (
-    analyze_cmd, convert_checkpoint_cmd, serve_cmd, train_cmd,
+    analyze_cmd, convert_checkpoint_cmd, serve_cmd, sweep_cmd, train_cmd,
 )
 
 COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd,
-            'convert-checkpoint': convert_checkpoint_cmd}
+            'convert-checkpoint': convert_checkpoint_cmd, 'sweep': sweep_cmd}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -8,13 +8,16 @@ training batch is gathered on the device: per step the host sends one
 (``make_device_chunked_step``; for the diffusion denoiser
 ``make_device_diffusion_train_step`` and ``make_device_diffusion_chunked_step``,
 the counterpart of the JAX package's ``make_device_diffusion_epoch_runner``).
-Larger datasets take the host loader (``data/loader.py``).
+Larger datasets take the host loader (``data/loader.py``), or, with
+``--device-data stream``, a :class:`SegmentBuffer` that holds one segment
+of trials at a time (``train/streaming_data.py``).
 
 The tiled benchmark variant is not ported yet.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -114,6 +117,78 @@ class DeviceResidentData:
         else:
             last = base + (self.num_model_frames - 1) * self.stride
             labels = self.labels_all[last[:, None]]
+        return inputs, labels
+
+
+class SegmentBuffer:
+    """One segment of trials on the device, for ``--device-data stream``:
+    ``rows_pad`` rows of bf16 features and float32 labels, allocated once.
+
+    :meth:`load` copies a segment into it in place, so the addresses a
+    captured step baked in stay valid for every segment: one capture
+    serves the whole run. The copy is issued on the current stream, behind
+    every replay already launched there that reads the previous segment,
+    from one pinned staging buffer, which is overwritten only once the
+    previous copy out of it has finished. :meth:`gather` takes segment-local
+    window starts and behaves as :meth:`DeviceResidentData.gather` does on
+    the window starts of its table."""
+
+    def __init__(self, ds: WindowDataset, rows_pad: int, device):
+        self.device = torch.device(device)
+        pin = self.device.type == 'cuda'
+        c_in, c_lab = ds.num_input_channels, ds.num_label_channels
+        self.features = torch.zeros((rows_pad, c_in), dtype=torch.bfloat16, device=self.device)
+        self.labels = torch.zeros((rows_pad, c_lab), dtype=torch.float32, device=self.device)
+        self._stage_features = torch.empty((rows_pad, c_in), dtype=torch.bfloat16, pin_memory=pin)
+        self._stage_labels = torch.empty((rows_pad, c_lab), dtype=torch.float32, pin_memory=pin)
+        self._copied: Optional[torch.cuda.Event] = None
+        self.stride = ds.stride
+        self.num_model_frames = ds.num_model_frames
+        self.output_data_format = ds.output_data_format
+        self.lab_offsets = ds.lab_offsets
+        self._offs = torch.arange(self.num_model_frames, device=self.device) * self.stride
+
+    def load(self, features: np.ndarray, labels: np.ndarray):
+        """Copy one segment ([rows_pad, C_in] and [rows_pad, C_lab] float32
+        host arrays) into the buffer; the features are rounded to bf16 on
+        the host, so the copy moves bf16 bytes. Returns (host ms to stage,
+        ``upload_ms()``: the copy's device ms, read once it has finished;
+        host ms on the CPU)."""
+        t0 = time.perf_counter()
+        if self._copied is not None:
+            self._copied.synchronize()       # the staging buffer is free again
+        self._stage_features.copy_(torch.from_numpy(features))   # rounds to bf16
+        self._stage_labels.copy_(torch.from_numpy(labels))
+        stage_ms = (time.perf_counter() - t0) * 1e3
+        if self.device.type != 'cuda':
+            t0 = time.perf_counter()
+            self.features.copy_(self._stage_features)
+            self.labels.copy_(self._stage_labels)
+            ms = (time.perf_counter() - t0) * 1e3
+            return stage_ms, lambda: ms
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.features.copy_(self._stage_features, non_blocking=True)
+        self.labels.copy_(self._stage_labels, non_blocking=True)
+        end.record()
+        self._copied = end
+
+        def upload_ms() -> float:
+            end.synchronize()
+            return start.elapsed_time(end)
+
+        return stage_ms, upload_ms
+
+    def gather(self, starts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B] window starts (segment-local rows, on the device) ->
+        (inputs [B, T, C_in] bf16, labels [B, F, C_lab] f32)."""
+        rows = starts[:, None] + self._offs[None, :]
+        inputs = self.features[rows]
+        if self.output_data_format == 'all_frames':
+            labels = self.labels[rows]
+        else:
+            last = starts + (self.num_model_frames - 1) * self.stride
+            labels = self.labels[last[:, None]]
         return inputs, labels
 
 

@@ -4,7 +4,8 @@ PyTorch counterpart of ``inferbiomechanics_tpu/train/diffusion_loop.py``:
 the regression loop's epoch structure (``train/loop.py``: dev eval before
 each epoch, checkpoints at their cadence and after each epoch, SIGTERM,
 ``--keep-best``, ``--early-stop-patience``, ``--init-from-checkpoint``, the
-device-resident and host-loader tiers in chunks of captured steps), with
+device-resident and host-loader tiers in chunks of captured steps, and
+``--device-data stream``, an epoch a call, ``train/streaming_data.py``), with
 the eps-prediction step (``models/diffusion.py::make_diffusion_train_step``)
 and a dev evaluation that SAMPLES the model: a 50-step DDIM chain of the
 current parameters a dev batch, scored by the ``RegressionLossEvaluator``,
@@ -57,10 +58,13 @@ from inferbiomechanics_tpu_torch.train.loop import (
     BestTracker, CheckpointWriter, SigtermStop, TrainResult, _reject_unported,
     chunk_steps, epoch_batches, loss_config_from, make_dispatch, optimizer_for,
     per_step_generators, prepare_checkpoint_dir, resident_train_data, run_chunks,
-    train_loader, upload_dtype,
+    run_streamed_epoch, train_loader, upload_dtype,
 )
 from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import ChunkedStep
+from inferbiomechanics_tpu_torch.train.streaming_data import (
+    StreamingPlan, make_streaming_diffusion_epoch,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -117,8 +121,16 @@ def train_diffusion(config: Config,
     device_data, _ = resident_train_data(config, train_ds, device)
     on_device = device_data is not None
     chunk_k = chunk_steps(config, train_ds, on_device)
-    chunked_step = None
-    if on_device:
+    chunked_step = streaming = dispatch = None
+    if config.device_data == 'stream':
+        plan = StreamingPlan(train_ds, config.device_data_max_bytes)
+        streaming = make_streaming_diffusion_epoch(
+            model, train_ds, plan, sched, config.batch_size, device,
+            chunk_steps=max(1, config.device_chunk_steps), cond_dropout=config.cond_dropout,
+            augment=augment)
+        logger.info('diffusion streaming data: %d segments of %d rows',
+                    len(plan.segments), plan.rows_pad)
+    elif on_device:
         step = make_device_diffusion_train_step(model, device_data, sched, config.cond_dropout,
                                                 augment=augment)
         if chunk_k > 1:
@@ -130,10 +142,11 @@ def train_diffusion(config: Config,
                                          augment=augment)
         if chunk_k > 1:
             chunked_step = ChunkedStep(step, (upload_dtype(config), torch.float32), device)
-    if chunked_step is not None:
-        logger.info('chunked dispatch: %d steps a chunk', chunk_k)
-    loader = train_loader(config, train_ds, device, chunked_step is not None)
-    dispatch = make_dispatch(state, step, chunked_step, on_device, device)
+    if streaming is None:
+        if chunked_step is not None:
+            logger.info('chunked dispatch: %d steps a chunk', chunk_k)
+        loader = train_loader(config, train_ds, device, chunked_step is not None)
+        dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     sampler = make_sampler(model, sched, num_steps=EVAL_SAMPLE_STEPS,
                            fused_inference=config.fused_inference)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False)
@@ -177,6 +190,19 @@ def train_diffusion(config: Config,
         if best.track(epoch, final_dev):
             stopped_early = True
             break
+        if streaming is not None:
+            metrics, seconds, n, preempted = run_streamed_epoch(
+                streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
+                metric_key='train/diffusion_loss', write_checkpoint=write_checkpoint, stop=stop)
+            if metrics:
+                last_loss = float(metrics['loss'])
+            compute_time += seconds
+            windows_seen += n
+            epochs_run += 1
+            print(f'[epoch {epoch}] eps-mse {last_loss:.6f}')
+            if preempted:
+                break
+            continue
         # windows_per_sec: the epoch's wall clock, closed by reading back
         # the LAST step's loss (the device runs behind the host)
         t_compute = time.time()

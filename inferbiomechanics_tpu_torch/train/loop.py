@@ -8,10 +8,14 @@ checkpoint every ``checkpoint_every_batches``, and resume from the newest
 mid-epoch (the batch order is a function of the seed and the epoch alone,
 so skipping the consumed prefix replays the exact remaining stream).
 
-Two data tiers: the device-resident one (``train/device_data.py``: the
-dataset lives on the device and a step gets a ``[B]`` index vector), and
-the host loader (``data/loader.py``) for ``--device-data off`` or a
-dataset above ``--device-data-max-bytes``.
+Three data tiers: the device-resident one (``train/device_data.py``: the
+dataset lives on the device and a step gets a ``[B]`` index vector), the
+host loader (``data/loader.py``) for ``--device-data off`` or a dataset
+above ``--device-data-max-bytes``, and ``--device-data stream``
+(``train/streaming_data.py``): segments of trials under
+``--device-data-max-bytes`` copied one at a time into one device buffer.
+The streaming tier logs, checkpoints and honours SIGTERM once an epoch, as
+the JAX package's does.
 
 Both tiers run K steps a dispatch (``--device-chunk-steps``, default 64,
 and ``--host-chunk-steps``; a chunk is clamped to the epoch's length): the
@@ -82,6 +86,9 @@ from inferbiomechanics_tpu_torch.train.state import create_train_state, num_para
 from inferbiomechanics_tpu_torch.train.step import (
     make_chunked_train_step, make_eval_step, make_train_step,
 )
+from inferbiomechanics_tpu_torch.train.streaming_data import (
+    StreamingPlan, host_seed_for, make_streaming_epoch,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -126,20 +133,30 @@ def loss_config_from(config: Config) -> LossConfig:
     )
 
 
+SCALE_OUT_8B = 'ROADMAP.md Queue 1 item 8b (scale-out, several processes)'
+
+
 def _reject_unported(config: Config) -> None:
     """Raise for every training option of the JAX package that the port
-    does not have yet, by the flag's name."""
+    does not have yet, by the flag's name; before that, the JAX package's
+    own refusals of the streaming tier, with its words."""
+    if config.device_data == 'stream':
+        if config.grad_accum_steps > 1:
+            raise ValueError('--grad-accum-steps applies to the host and '
+                             'device-resident tiers; the sharded/streaming '
+                             'tiers run fixed whole-batch epoch programs')
+        if config.grad_allreduce_dtype == 'bf16':
+            raise ValueError('--grad-allreduce-dtype bf16 applies to the '
+                             'host, device-resident, and sharded tiers; '
+                             'the streaming tier runs fixed whole-batch '
+                             'segment programs')
     unported = [
         ('--pipeline-parallel', config.pipeline_parallel > 1,
          'ROADMAP.md, not to port'),
-        ('--model-parallel', config.model_parallel > 1,
-         'ROADMAP.md Queue 1 item 8 (scale-out)'),
-        ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16',
-         'ROADMAP.md Queue 1 item 8 (scale-out)'),
+        ('--model-parallel', config.model_parallel > 1, SCALE_OUT_8B),
+        ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16', SCALE_OUT_8B),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
-        (f'--device-data {config.device_data}',
-         config.device_data in ('sharded', 'stream'),
-         'ROADMAP.md Queue 1 item 8 (scale-out)'),
+        ('--device-data sharded', config.device_data == 'sharded', SCALE_OUT_8B),
     ]
     for flag, asked, where in unported:
         if asked:
@@ -318,15 +335,39 @@ def train_loader(config: Config, train_ds: WindowDataset, device, chunked: bool
 
 
 def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoader,
-                  epoch: int, on_device: bool):
+                  epoch: int, on_device: bool, pad_to_batch: bool = False):
     """The epoch's (index, batch) pairs: on the device tier, window index
     vectors from numpy's generator seeded (seed, epoch) (the JAX package's
-    regression loop draws the same batches); else the loader's batches."""
+    regression loop draws the same batches); else the loader's batches.
+    ``pad_to_batch`` is the JAX sweep's rule on the device tier: at least one
+    step, a split shorter than a batch repeated to fill it (``np.resize``)."""
     if not on_device:
         return enumerate(loader.epoch(seed=config.seed * 1_000_003 + epoch))
     perm = np.random.default_rng((config.seed, epoch)).permutation(len(train_ds))
     b = config.batch_size
+    if pad_to_batch:
+        return enumerate(np.resize(perm[k * b:(k + 1) * b], b)
+                         for k in range(max(1, perm.shape[0] // b)))
     return enumerate(perm[k * b:(k + 1) * b] for k in range(perm.shape[0] // b))
+
+
+def run_streamed_epoch(streaming, state, config: Config, train_ds: WindowDataset,
+                       epoch: int, *, metric_logger, metric_key: str, write_checkpoint,
+                       stop: SigtermStop):
+    """One epoch of the streaming tier under its epoch-granular policy, for
+    both loops: the epoch (its host seed from ``--seed`` and ``epoch``), its
+    mean loss logged under ``metric_key``, one checkpoint, and SIGTERM
+    honoured after it. Returns (the epoch's mean metrics, its seconds, the
+    windows it counts as the JAX package counts them, True when SIGTERM
+    asked to stop)."""
+    t0 = time.time()
+    metrics = streaming(state, host_seed_for(config.seed, epoch))
+    seconds = time.time() - t0
+    if metrics and metric_logger is not None:
+        metric_logger.log({metric_key: float(metrics['loss']), 'epoch': epoch})
+    write_checkpoint(epoch, 0)
+    windows = (len(train_ds) // config.batch_size) * config.batch_size
+    return metrics, seconds, windows, stop.requested
 
 
 class ReadyMetrics:
@@ -476,8 +517,15 @@ def train(config: Config,
                                             dev_ds if dev_resident else None)
     on_device = device_data is not None
     chunk_k = chunk_steps(config, train_ds, on_device)
-    chunked_step = device_eval = None
-    if on_device:
+    chunked_step = device_eval = streaming = dispatch = None
+    if config.device_data == 'stream':
+        plan = StreamingPlan(train_ds, config.device_data_max_bytes)
+        streaming = make_streaming_epoch(model, train_ds, plan, lc, config.batch_size, device,
+                                         chunk_steps=max(1, config.device_chunk_steps),
+                                         augment=augment)
+        logger.info('streaming data: %d segments of %d rows', len(plan.segments),
+                    plan.rows_pad)
+    elif on_device:
         step = make_device_train_step(model, device_data, lc,
                                       grad_accum=config.grad_accum_steps, augment=augment)
         if chunk_k > 1:
@@ -495,11 +543,12 @@ def train(config: Config,
             chunked_step = make_chunked_train_step(
                 model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
                 input_dtype=upload_dtype(config), device=device, augment=augment)
-    if chunked_step is not None:
-        logger.info('chunked dispatch: %d steps a chunk', chunk_k)
+    if streaming is None:
+        if chunked_step is not None:
+            logger.info('chunked dispatch: %d steps a chunk', chunk_k)
+        loader = train_loader(config, train_ds, device, chunked_step is not None)
+        dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
-    loader = train_loader(config, train_ds, device, chunked_step is not None)
-    dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device,
                                  shuffle=False) if dev_big_enough else None)
 
@@ -548,6 +597,20 @@ def train(config: Config,
             stopped_early = True
             break
 
+        if streaming is not None:
+            metrics, seconds, n, preempted = run_streamed_epoch(
+                streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
+                metric_key='train/loss', write_checkpoint=write_checkpoint, stop=stop)
+            if metrics:
+                train_eval(None, None, None, precomputed_metrics=metrics)
+            compute_time += seconds
+            windows_seen += n
+            epochs_run += 1
+            print(f'[epoch {epoch}] train report ({seconds:.1f}s):')
+            train_metrics = train_eval.print_report()
+            if preempted:
+                break
+            continue
         t_epoch = time.time()
         # windows_per_sec: the epoch's wall clock, closed by reading back
         # the LAST step's loss (the device runs behind the host)

@@ -201,7 +201,8 @@ class GraphedStep:
     one vector; a batchnorm model's running statistics are updated in place
     inside it. It reads its inputs and the
     optimizer's step-dependent values from one static row on the device
-    (:class:`RowLayout` of ``specs`` and :attr:`Optimizer.scalars`), which
+    (:class:`RowLayout` of ``specs`` and the ``n_scalars`` values of
+    :attr:`Optimizer.scalars`; a sweep's optimizer has K rows of them), which
     :meth:`step` fills by one device-to-device copy before each replay. The
     host's part of a step is what the graph cannot hold: the model's
     training flag, the per-step generators' seeds (the dropout and the
@@ -222,9 +223,10 @@ class GraphedStep:
 
     WARMUP_STEPS = 2
 
-    def __init__(self, grads: Callable[..., Metrics], specs: Sequence[Spec], device):
+    def __init__(self, grads: Callable[..., Metrics], specs: Sequence[Spec], device,
+                 n_scalars: int = Optimizer.N_SCALARS):
         self.grads = grads
-        self.layout = RowLayout([*specs, ((Optimizer.N_SCALARS,), torch.float32)])
+        self.layout = RowLayout([*specs, ((n_scalars,), torch.float32)])
         self.device = torch.device(device)
         self.row = torch.zeros(self.layout.nbytes, dtype=torch.uint8, device=self.device)
         *self.inputs, self.scalars = self.layout.views(self.row)
@@ -341,7 +343,8 @@ class ChunkedStep:
         graph = self.graphs.get(shapes)
         if graph is None:
             graph = self.graphs[shapes] = GraphedStep(
-                self.step.grads, list(zip(shapes, self.dtypes)), self.device)
+                self.step.grads, list(zip(shapes, self.dtypes)), self.device,
+                n_scalars=len(state.optimizer.next_scalars()))
         host = torch.empty((k, graph.layout.nbytes), dtype=torch.uint8, pin_memory=True)
         *columns, scalars = graph.layout.views(host)
         for a, col in zip(inputs, columns):

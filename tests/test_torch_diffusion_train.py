@@ -438,7 +438,8 @@ def test_keep_best_and_warm_start_seed_the_ema(data, trained, tmp_path):
     # ported: the case holds the flag working (the uninterrupted run's
     # checkpoint, through the asynchronous writer)
     (dict(async_checkpoint=True), None, None),
-    (dict(device_data='stream'), NotImplementedError, '--device-data stream is not yet ported'),
+    # ported: the case holds the flag working (a streamed run with its EMA)
+    (dict(device_data='stream'), None, None),
     (dict(model_parallel=2), NotImplementedError, '--model-parallel is not yet ported'),
 ], ids=[  # each case keeps the id it is known by
     'fields0-ValueError-diffusion training requires --output-data-format all_frames',
@@ -448,6 +449,13 @@ def test_keep_best_and_warm_start_seed_the_ema(data, trained, tmp_path):
 def test_refusals(data, trained, tmp_path, fields, error, match):
     cfg = dataclasses.replace(config_from_args(build_parser().parse_args(_argv(data, tmp_path))),
                               checkpoint_dir=str(tmp_path / 'c'), **fields)
+    if cfg.device_data == 'stream':
+        result = train_diffusion(cfg, data['ds'], data['dev'], device='cpu')
+        assert result.epochs_run == cfg.epochs and np.isfinite(
+            result.final_train_metrics['eps_mse'])
+        assert 'ema_params' in torch.load(tmp_path / 'c' / f'epoch_{cfg.epochs - 1}_batch_0.torch.pt',
+                                          weights_only=True)
+        return
     if error is None:
         train_diffusion(cfg, data['ds'], data['dev'], device='cpu')
         _assert_same(torch.load(tmp_path / 'c' / 'epoch_1_batch_0.torch.pt',

@@ -527,7 +527,9 @@ def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
     (dict(async_checkpoint=True), None),
     (dict(profile=True), '--profile'),
     (dict(device_data='sharded'), '--device-data sharded'),
-    (dict(device_data='stream'), '--device-data stream'),
+    # ported: the case holds the flag working (two segments, streamed in
+    # chunks and step by step, the same checkpoints)
+    (dict(device_data='stream'), None),
 ], ids=[  # each case keeps the id it is known by
     'fields0---pipeline-parallel', 'fields1---model-parallel',
     'fields2---grad-allreduce-dtype bf16', 'fields5---compute-report',
@@ -538,6 +540,22 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     cfg = _config(Config, fields.pop('model_type'), checkpoint_dir=str(tmp_path / 'c'),
                   **fields)
     run = train_diffusion if cfg.model_type == 'diffusion' else train
+    if cfg.device_data == 'stream':
+        ds = data['train']
+        files = []
+        for d, k in (('c', 2), ('s', 1)):
+            small = dataclasses.replace(
+                cfg, checkpoint_dir=str(tmp_path / d), hidden_dims=[32], epochs=2,
+                device_chunk_steps=k, device_data_max_bytes=260 * 4 * (
+                    ds.num_input_channels + ds.num_label_channels))
+            result = run(small, ds, data['dev'], device='cpu')
+            assert result.epochs_run == 2
+            files.append(ckpt.list_checkpoints(small.checkpoint_dir))
+        assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] == [(0, 0), (1, 0)]
+        for (_, _, a), (_, _, b) in zip(*files):
+            pa, pb = (torch.load(p, weights_only=True)['model_state_dict'] for p in (a, b))
+            assert all(torch.equal(v, pb[k]) for k, v in pa.items()), a
+        return
     if flag is None:
         files = []
         for d, async_checkpoint in (('c', True), ('s', False)):
