@@ -213,6 +213,20 @@ Phases, each of which fails the run:
      sweep stopped by SIGTERM after epoch 0 and rerun bitwise the
      uninterrupted one, a point served through K1; the aggregate windows/s,
      the chunked step's ms against K, the captures' seconds.
+ 15. data parallelism over processes (``phase_data_parallel``): world 1 on
+     NCCL in this process, the ``pallas`` transformer and feedforward at
+     B=4096 in chunks of 8 captured steps with the gradient all-reduce inside
+     the graph, bitwise the chunks without a process group, K2 / K3 / NCCL
+     kernels counted in a profiler trace, a step's ms with and without the
+     group and the all-reduce's alone; two ranks sharing the card over gloo
+     (NCCL with two GPUs), feedforward and ``pallas`` steps bitwise equal
+     across the ranks and within 2e-2 x max of one process at the global
+     batch, K1-K4 launched in every rank and held to their plain versions;
+     the ``train`` command under ``IB_MULTIHOST=gloo torchrun
+     --nproc-per-node 2`` on ``--device-data sharded``: feedforward with
+     ``--grad-allreduce-dtype bf16`` (rank 0's checkpoint served through
+     K1), the denoiser with EMA (its dev chains through K2). ``--only-phase
+     15`` runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -3898,6 +3912,360 @@ def phase_scale_out(torch, port, fm, fe, fg, step_mod, root, seed, card, device=
     return report
 
 
+def _dp_steps(job):
+    """One rank's part of phase 15's step runs (``parallel/dist.py::spawn``
+    runs it on each rank of two; the phase runs it in its own process, with no
+    process group, for the one-process reference): a model of the train
+    ``flags`` from ``seed``, ``steps`` eager SGD steps of the device tier's
+    step on this rank's rows of each global index vector of ``batch``
+    windows, then the gradient all-reduce alone and the eval forward of a
+    feedforward and a GroundLink model of the same seed on 64 dev windows
+    (K1 and K4, each held to its plain version). Returns the parameters, the
+    kernels' launches by wrapper, the step's and the all-reduce's ms (host
+    clock, synchronised) and the eval forwards' errors."""
+    import torch
+
+    from inferbiomechanics_tpu_torch.__main__ import build_parser
+    from inferbiomechanics_tpu_torch.config import config_from_args
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.models import build_model_for_dataset
+    from inferbiomechanics_tpu_torch.models.common import slice_output_heads
+    from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+    from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
+    from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.parallel import dist
+    from inferbiomechanics_tpu_torch.train.device_data import (
+        DeviceResidentData, make_device_train_step,
+    )
+    from inferbiomechanics_tpu_torch.train.loop import loss_config_from
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+    device = torch.device('cuda', torch.cuda.current_device()) if job['device'] == 'cuda' \
+        else torch.device('cpu')
+    sync = torch.cuda.synchronize if device.type == 'cuda' else (lambda: None)
+    r, n = dist.rank(), dist.world_size()
+    cfg = config_from_args(build_parser().parse_args(['train', *job['flags']]))
+    ds = WindowDataset(job['home'] + '/train', window_size=cfg.window_size, stride=cfg.stride,
+                       skip_loading_skeletons=True)
+    model = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(job['seed']),
+                                    device=device)
+    state = create_train_state(model, make_optimizer(model.named_parameters(), 'sgd', job['lr']))
+    dist.attach(state, model)
+    data = DeviceResidentData(ds, device, pack_windows=True)
+    step = make_device_train_step(model, data, loss_config_from(cfg))
+    rng = np.random.default_rng(job['seed'])
+    b = job['batch'] // n
+    before = (fm.launches, fe.launches, fe.bwd_launches, fg.launches)
+    times = []
+    for _ in range(job['steps']):
+        idx = rng.permutation(len(ds))[:job['batch']][r * b:(r + 1) * b]
+        sync()
+        t0 = time.perf_counter()
+        step(state, torch.from_numpy(idx).to(device))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    after = (fm.launches, fe.launches, fe.bwd_launches, fg.launches)
+    out = dict(rank=r, world=n, params={k: v.detach().float().cpu().numpy()
+                                        for k, v in model.state_dict().items()},
+               launches=dict(zip(('k1', 'k2', 'k3', 'k4'),
+                                 (a - c for a, c in zip(after, before)))),
+               step_ms=statistics.median(times[1:]) if len(times) > 1 else times[0])
+    if state.grad_sync is not None:            # the all-reduce alone, on this step's gradients
+        metrics = {'loss': torch.zeros((), device=device)}
+        ms = []
+        for _ in range(10):
+            sync()
+            t0 = time.perf_counter()
+            state.grad_sync(metrics)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out['allreduce_ms'] = statistics.median(ms)
+    # K1 and K4: an eval forward of each on 64 dev windows, against the plain version
+    dev = WindowDataset(job['home'] + '/dev', window_size=cfg.window_size, stride=cfg.stride,
+                        skip_loading_skeletons=True)
+    x = torch.from_numpy(dev.gather(np.arange(64)).inputs).to(device)
+    errs, counts = {}, {}
+    for name, flags in (('k1', []), ('k4', ['--model-type', 'groundlink'])):
+        ecfg = config_from_args(build_parser().parse_args(['train', *flags]))
+        m = build_model_for_dataset(ecfg, ds, generator=torch.Generator().manual_seed(
+            job['seed']), device=device).eval()
+        with torch.no_grad():
+            k0 = (fm.launches, fg.launches)
+            got = m(x)
+            counts[name] = (fm.launches - k0[0]) + (fg.launches - k0[1])
+            if name == 'k1':
+                ref = fm.mlp_reference(x.reshape(len(x), -1), m.layer_params(), ecfg.activation)
+                want = slice_output_heads(ref, 2, 1)
+            else:
+                ref = fg.groundlink_reference(x, m.layer_params(), ecfg.output_data_format,
+                                              GL_FULL['fc_depth'])
+                want = slice_output_heads(ref, 2, ref.shape[1])
+        errs[name] = (max(float((got[k].float() - want[k].float()).abs().max()) for k in want),
+                      max(float(want[k].abs().max()) for k in want))
+    out['eval_launches'], out['eval_err'] = counts, errs
+    return out
+
+
+def _dp_rank(jobs):
+    """What each rank of phase 15's two-rank runs does: :func:`_dp_steps` for
+    each job."""
+    return [_dp_steps(job) for job in jobs]
+
+
+def _torchrun(argv, env_backend, cwd, timeout=600):
+    """``IB_MULTIHOST=<env_backend> torchrun --standalone --nproc-per-node 2
+    -m inferbiomechanics_tpu_torch <argv>``: the user's data-parallel command.
+    Returns (seconds, stdout); fails the run on a non-zero exit."""
+    env = dict(os.environ, IB_MULTIHOST=env_backend, PYTHONPATH=str(REPO),
+               OMP_NUM_THREADS='4')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc-per-node',
+           '2', '-m', 'inferbiomechanics_tpu_torch', *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout,
+                          cwd=str(cwd))
+    seconds = time.perf_counter() - t0
+    _check(proc.returncode == 0, f'torchrun {" ".join(argv[:3])}: exit {proc.returncode}\n'
+                                 f'{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}')
+    return seconds, proc.stdout
+
+
+def phase_data_parallel(torch, port, fm, fe, fg, step_mod, root, seed, card, device='cuda',
+                        big=4096, small=64, subjects=16, size_flags=()):
+    """15. Data parallelism over processes (``parallel/dist.py``, the
+    all-reduce in ``train/step.py``, ``train/sharded_data.py``):
+
+    - world 1 on NCCL, in this process: the ``pallas`` transformer and
+      feedforward at ``big`` in chunks of 8 captured steps, with the
+      gradient all-reduce inside the graph, bitwise the same chunks without a
+      process group (parameters and every step's metrics); the K2, K3 and
+      NCCL kernels of a chunk counted by name in a profiler trace; a step's
+      ms with and without the process group (in turns), and the all-reduce's
+      ms alone;
+    - two ranks sharing the card over gloo (NCCL when there are two GPUs):
+      feedforward at ``big`` and ``pallas`` at 2 x ``small`` windows, four
+      eager steps each, the ranks' parameters bitwise equal and within 2e-2
+      x max of one process at the global batch (the parameters' change, SGD);
+      in every rank K2 4 and K3 12 launches a ``pallas`` step, and K1 and K4
+      one launch an eval forward, each held to its plain version; the
+      all-reduce's ms and windows/s;
+    - the ``train`` command under ``IB_MULTIHOST=gloo torchrun
+      --nproc-per-node 2``: feedforward at ``big`` on ``--device-data
+      sharded`` with ``--grad-allreduce-dtype bf16``, rank 0's checkpoint
+      served through K1 in one launch; the denoiser at ``small`` on the
+      shards of two of the subjects with ``--ema-decay`` and its dev chains
+      through K2.
+    ``device`` 'cpu' rehearses it (gloo, no traces, no launch counts
+    checked)."""
+    from inferbiomechanics_tpu_torch.parallel import dist
+    from inferbiomechanics_tpu_torch.train.checkpoint import read_payload
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    report = {'card': card}
+    home = root / 'dp_data'
+    for split, n, length, first in (('train', subjects, 2100, 1500), ('dev', 1, 800, 1600)):
+        (home / split).mkdir(parents=True)
+        for i in range(n):
+            port.write_synthetic_subject(str(home / split / f'subject_{i}.b3d'), num_trials=2,
+                                         trial_length=length, seed=seed + first + i)
+    ds = port.WindowDataset(str(home / 'train'), window_size=50, stride=5,
+                            skip_loading_skeletons=True)
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+
+    # -- world 1 on NCCL: the captured chunk with its all-reduce, bitwise ----
+    backend = 'nccl' if on_card else 'gloo'
+    dist.init(backend, 0, 1, f'tcp://127.0.0.1:{dist.free_port()}', device)
+    try:
+        data = port.DeviceResidentData(ds, device, pack_windows=True)
+        rng = np.random.default_rng(seed + 15)
+        idx = np.stack([rng.permutation(len(ds))[:big] for _ in range(8)])
+        world1 = {}
+        for name, flags in (('pallas', pallas), ('feedforward', [])):
+            cfg = port.config_from_args(port.parser().parse_args(['train', *flags]))
+            runs = []
+            for synced in (False, True):
+                model = port.build_model_for_dataset(
+                    cfg, ds, generator=torch.Generator().manual_seed(seed), device=device)
+                state = port.create_train_state(model, port.make_optimizer(
+                    model.named_parameters(), cfg.opt_type, cfg.learning_rate))
+                if synced:
+                    dist.attach(state, model)
+                run = port.make_device_chunked_step(model, data, port.loss_config_from(cfg))
+                rows = run(state, idx).rows()
+                runs.append(dict(model=model, state=state, run=run, rows=rows))
+            plain, synced = runs
+            for k, v in plain['model'].state_dict().items():
+                _check(torch.equal(v, synced['model'].state_dict()[k]),
+                       f'world 1 {name}: {k} differs from the run without a process group')
+            _check(all(np.array_equal(a[k], b[k]) for a, b in zip(plain['rows'], synced['rows'])
+                       for k in a), f'world 1 {name}: metrics differ')
+            entry = dict(bitwise=True, steps=len(idx), batch=big)
+            if on_card:
+                def chunk(r):
+                    return lambda: r['run'](r['state'], idx).rows()      # noqa: B023
+                ms = {}
+                for which in ('plain', 'synced', 'synced', 'plain'):
+                    r = plain if which == 'plain' else synced
+                    ms[which] = min(ms.get(which, float('inf')),
+                                    _host_p50_ms(chunk(r), 3) / len(idx))
+                fe.launches = fe.bwd_launches = 0
+                _, traced, busy_us = _traced(torch, chunk(synced),
+                                             names=(*ENC_KERNELS, 'nccl'))
+                _check(fe.launches == fe.bwd_launches == 0,
+                       f'world 1 {name}: wrappers ran in a replay')
+                if name == 'pallas':
+                    k3_shape = fe.plan_encoder_bwd(big, 10, cfg.d_model, cfg.d_model * 4,
+                                                   cfg.num_heads).shape
+                    _check_traced({k: v for k, v in traced.items() if k != 'nccl'},
+                                  cfg.num_layers, len(idx), 0, k3_shape, f'world 1 {name}')
+                grads = {'loss': torch.zeros((), device=device)}
+                allreduce_ms = _cuda_ms(torch, lambda: synced['state'].grad_sync(grads))  # noqa: B023
+                entry.update(step_ms=ms['plain'], step_ms_synced=ms['synced'],
+                             allreduce_ms=allreduce_ms, nccl_kernels_traced=traced['nccl'],
+                             traced=traced, windows_per_sec=big / ms['synced'] * 1e3)
+                print(f'[data-parallel] world 1, backend {backend}, {name} B={big} in chunks of '
+                      f'{len(idx)} captured steps ({card}): bitwise the chunks without a '
+                      f'process group; a step {ms["synced"]:.3f} ms with the group against '
+                      f'{ms["plain"]:.3f} ms without (p50 of 3 chunks by the host clock, in '
+                      f'turns) = {big / ms["synced"] * 1e3:.0f} windows/s; the all-reduce '
+                      f'alone {allreduce_ms:.3f} ms (CUDA events, median of 30); in a profiler '
+                      f'trace of a chunk: {traced}', flush=True)
+            world1[name] = entry
+            del runs, plain, synced
+        report['world1'] = world1
+    finally:
+        dist.shutdown()
+
+    # -- two ranks on the card (gloo), against one process at the global batch
+    two_backend = 'nccl' if on_card and torch.cuda.device_count() >= 2 else 'gloo'
+    jobs = [dict(flags=[], batch=big, steps=4, lr=1e-3),
+            dict(flags=pallas, batch=2 * small, steps=4, lr=1e-3)]
+    jobs = [dict(j, home=str(home), seed=seed, device=device) for j in jobs]
+    t0 = time.perf_counter()
+    ranks = dist.spawn(_dp_rank, 2, jobs, backend_name=two_backend, device=device,
+                       init_file=str(root / 'dp_rendezvous'), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    one = _dp_rank(jobs)
+    two = {}
+    for j, (name, job) in enumerate(zip(('feedforward', 'pallas'), jobs)):
+        r0, r1 = ranks[0][j], ranks[1][j]
+        for k in r0['params']:
+            _check(np.array_equal(r0['params'][k], r1['params'][k]),
+                   f'two ranks {name}: {k} differs between the ranks')
+        start = _dp_start_params(torch, port, job, ds, device)
+        worst = 0.0
+        for k, want in one[j]['params'].items():
+            dw = want.astype(np.float64) - start[k]
+            dg = r0['params'][k].astype(np.float64) - start[k]
+            scale = np.abs(dw).max()
+            if scale > 0:
+                worst = max(worst, float(np.abs(dg - dw).max() / scale))
+        _check(worst <= 2e-2, f'two ranks {name}: change {worst:.3g} x max from one process')
+        layers = ENC_FULL['layers']
+        for r in (r0, r1):
+            if on_card and name == 'pallas':
+                _check(r['launches']['k2'] == layers * job['steps'] and
+                       r['launches']['k3'] == layers * fe.BWD_LAUNCHES_PER_LAYER * job['steps'],
+                       f'rank {r["rank"]} pallas launches {r["launches"]}')
+            if on_card:
+                _check(r['eval_launches'] == {'k1': 1, 'k4': 1},
+                       f'rank {r["rank"]} eval launches {r["eval_launches"]}')
+            (e1, m1), (e4, m4) = r['eval_err']['k1'], r['eval_err']['k4']
+            _check(e1 <= k1_limit(m1) and e4 <= GL_REL * m4,
+                   f'rank {r["rank"]} eval errors K1 {e1} (max {m1}), K4 {e4} (max {m4})')
+        two[name] = dict(
+            backend=two_backend, global_batch=job['batch'], steps=job['steps'],
+            change_vs_one_process=worst, launches=[r0['launches'], r1['launches']],
+            eval_launches=[r0['eval_launches'], r1['eval_launches']],
+            eval_err=[r0['eval_err'], r1['eval_err']],
+            step_ms=max(r0['step_ms'], r1['step_ms']), one_process_step_ms=one[j]['step_ms'],
+            allreduce_ms=max(r0.get('allreduce_ms', 0.0), r1.get('allreduce_ms', 0.0)),
+            windows_per_sec=job['batch'] / max(r0['step_ms'], r1['step_ms']) * 1e3)
+        print(f'[data-parallel] two ranks on {torch.cuda.device_count() if on_card else 0} '
+              f'GPU(s), backend {two_backend}, {name} at a global batch of {job["batch"]} '
+              f'({card}): ranks bitwise equal, change {worst:.3g} x max from one process at '
+              f'the global batch; eager step {two[name]["step_ms"]:.3f} ms '
+              f'({two[name]["windows_per_sec"]:.0f} windows/s) against '
+              f'{one[j]["step_ms"]:.3f} ms in one process; the all-reduce alone '
+              f'{two[name]["allreduce_ms"]:.3f} ms; launches by rank {two[name]["launches"]}, '
+              f'eval forwards K1 / K4 {two[name]["eval_launches"]} with (max abs err, max '
+              f'|plain|) {two[name]["eval_err"]}', flush=True)
+    two['spawn_seconds'] = spawn_s
+    report['two_ranks'] = two
+
+    # -- the train command under torchrun ------------------------------------
+    base = ['train', '--dataset-home', str(home), '--device', device, '--epochs', '1',
+            '--seed', str(seed)]
+    ckpt = root / 'dp_ckpt'
+    seconds, out = _torchrun([*base, '--checkpoint-dir', str(ckpt), '--batch-size', str(big),
+                              '--device-data', 'sharded', '--grad-allreduce-dtype', 'bf16'],
+                             'gloo', root)
+    _check('process group: 2 ranks, backend gloo' in out and out.count('Training done') == 2,
+           f'torchrun feedforward: {out[-2000:]}')
+    rates = [float(m.replace(',', '')) for m in re.findall(r'epochs, ([\d,.]+) windows/sec', out)]
+    files = sorted(os.listdir(ckpt / 'feedforward'))
+    _check('epoch_0_batch_0.torch.pt' in files and 'run_config.json' in files,
+           f'torchrun feedforward: {files}')
+    svc, server = port.start(port.build_parser().parse_args([
+        'serve', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt), '--device', device,
+        '--port', '0']))
+    try:
+        dev = port.WindowDataset(str(home / 'dev'), window_size=50, stride=5,
+                                 skip_loading_skeletons=True)
+        x = np.asarray(dev.gather(np.arange(64)).inputs, np.float32)
+        fm.launches = 0
+        got = svc.predict_packed(x)
+        served = fm.launches
+        with torch.no_grad():
+            plain = port.slice_output_heads(fm.mlp_reference(
+                torch.from_numpy(x).to(device).reshape(len(x), -1),
+                svc.model.layer_params(), 'sigmoid'), 2, 1)
+        err = max(float(np.abs(got[kk] - v.cpu().numpy()).max()) for kk, v in plain.items())
+        limit = k1_limit(max(float(v.abs().max()) for v in plain.values()))
+    finally:
+        server.server_close()
+        svc.close()
+    _check(err <= limit and (served == 1 or not on_card),
+           f'rank 0\'s checkpoint through K1: {served} launches, err {err} > {limit}')
+    report['torchrun_feedforward'] = dict(seconds=seconds, windows_per_sec=rates,
+                                          served_k1_launches=served, served_err=err)
+    print(f'[data-parallel] IB_MULTIHOST=gloo torchrun --nproc-per-node 2 train --device-data '
+          f'sharded --grad-allreduce-dtype bf16 --batch-size {big} ({card}): {seconds:.1f} s '
+          f'with start-up, windows/s by rank {rates}; rank 0\'s checkpoint served through K1 '
+          f'({served} launch for 64 windows, max abs err {err:.3g})', flush=True)
+    # the denoiser on two of the subjects (25 steps of 64 windows an epoch)
+    few = root / 'dp_few'
+    (few / 'train').mkdir(parents=True)
+    for i in range(2):
+        shutil.copy(home / 'train' / f'subject_{i}.b3d', few / 'train' / f'subject_{i}.b3d')
+    shutil.copytree(home / 'dev', few / 'dev')
+    base[2] = str(few)
+    seconds, out = _torchrun([*base, '--checkpoint-dir', str(ckpt), '--batch-size', str(small),
+                              '--model-type', 'diffusion', '--output-data-format', 'all_frames',
+                              '--ema-decay', '0.999', '--fused-inference', '--device-data',
+                              'sharded', *size_flags], 'gloo', root)
+    _check(out.count('Training done') == 2 and 'dev report (sampled' in out,
+           f'torchrun diffusion: {out[-2000:]}')
+    payload = read_payload(str(ckpt / 'diffusion' / 'epoch_0_batch_0.torch.pt'))
+    _check('ema_params' in payload, 'torchrun diffusion: no EMA in rank 0\'s checkpoint')
+    rates = [float(m.replace(',', '')) for m in re.findall(r'epochs, ([\d,.]+) windows/sec', out)]
+    report['torchrun_diffusion'] = dict(seconds=seconds, windows_per_sec=rates)
+    print(f'[data-parallel] IB_MULTIHOST=gloo torchrun --nproc-per-node 2 train --model-type '
+          f'diffusion --device-data sharded --ema-decay 0.999 --fused-inference --batch-size '
+          f'{small} ({card}): {seconds:.1f} s with start-up, windows/s by rank {rates}; rank 0\'s '
+          f'checkpoint holds the EMA; the dev chains ran through K2', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[data-parallel] phase 15 took {report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
+def _dp_start_params(torch, port, job, ds, device):
+    """The parameters :func:`_dp_steps` starts from (float64, by name)."""
+    cfg = port.config_from_args(port.parser().parse_args(['train', *job['flags']]))
+    model = port.build_model_for_dataset(
+        cfg, ds, generator=torch.Generator().manual_seed(job['seed']), device=device)
+    return {k: v.detach().double().cpu().numpy() for k, v in model.state_dict().items()}
+
+
 def _steady_windows_per_sec(epochs_seen):
     """Streamed windows over the host ms of staging and training each
     segment, leaving out each epoch's first segment (which waits for its
@@ -3921,6 +4289,8 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--only-phase', type=int, choices=[15], default=None,
+                    help='build the kernels and run this phase alone (no result lines)')
     args = ap.parse_args()
     t_smoke = time.perf_counter()
     if not (REPO / 'inferbiomechanics_tpu_torch').is_dir():
@@ -3994,6 +4364,24 @@ def main() -> int:
     for line in info['log'].splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling entry function' in line:
             print(f'[build] {line.strip()}', flush=True)
+
+    if args.only_phase == 15:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            port = SimpleNamespace(
+                parser=main_parser, config_from_args=config_from_args,
+                write_synthetic_subject=write_synthetic_subject, WindowDataset=WindowDataset,
+                build_model_for_dataset=build_model_for_dataset,
+                create_train_state=create_train_state, make_optimizer=make_optimizer,
+                DeviceResidentData=DeviceResidentData,
+                make_device_chunked_step=make_device_chunked_step,
+                loss_config_from=loss_config_from, start=start, build_parser=build_parser,
+                slice_output_heads=slice_output_heads)
+            report = phase_data_parallel(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
 
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
@@ -4173,6 +4561,11 @@ def main() -> int:
         # 14. scale-out on one card: --device-data stream in both loops, and
         # the sweep command (a grid in one captured step, PBT, resume)
         scale_out = phase_scale_out(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+
+        # 15. data parallelism over processes: world 1 on NCCL with the
+        # all-reduce in the captured step, two ranks on the card, torchrun
+        data_parallel = phase_data_parallel(torch, port, fm, fe, fg, step_mod, tmp, args.seed,
+                                            card)
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -4373,7 +4766,8 @@ def main() -> int:
 
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
-          f'{scale_out["seconds"]:.1f} s ({card})', flush=True)
+          f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s '
+          f'({card})', flush=True)
     print(card, flush=True)     # name, power limit: as nvidia-smi prints them
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
@@ -4390,7 +4784,8 @@ def main() -> int:
                   'train dev evals': physics['train']['k1_launches']},
               physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
-              batchnorm=regularised, checkpoints=checkpoints, scale_out=scale_out),
+              batchnorm=regularised, checkpoints=checkpoints, scale_out=scale_out,
+              data_parallel=data_parallel),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},

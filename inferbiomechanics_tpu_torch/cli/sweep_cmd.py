@@ -48,7 +48,7 @@ def register_subcommand(sub) -> None:
                         'one after the other, the lr x seed grid together inside each')
     p.add_argument('--shard-configs', action='store_true',
                    help='shard the config axis across devices: not yet ported '
-                        '(ROADMAP.md Queue 1 item 8b)')
+                        '(ROADMAP.md Queue 1 item 8c)')
     p.add_argument('--max-batches-per-epoch', type=int, default=None,
                    help='clamp epochs for smoke runs')
     p.add_argument('--pbt-every', type=int, default=0,

@@ -8,6 +8,15 @@ loop (``--model-type diffusion``: the diffusion loop), checkpoints under
 for ``--compute-report``. ``--device``
 names the torch device: ``cuda`` (the default; fails without a GPU) or
 ``cpu``. Metrics go to the log only (no wandb).
+
+``IB_MULTIHOST`` set (the JAX command's multi-host switch) trains data
+parallel over the processes ``torchrun`` starts, one rank a device:
+``parallel/dist.py::start_from_env`` joins the process group from
+torchrun's environment (NCCL for ``--device cuda``, rank r on
+``cuda:LOCAL_RANK``; gloo for ``--device cpu``; ``IB_MULTIHOST=gloo`` or
+``=nccl`` names the backend, e.g. gloo for ranks that share one GPU)::
+
+    IB_MULTIHOST=1 torchrun --nproc-per-node 4 -m inferbiomechanics_tpu_torch train ...
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import os
 
 from inferbiomechanics_tpu_torch.config import add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.parallel import dist
 from inferbiomechanics_tpu_torch.train.diffusion_loop import train_diffusion
 from inferbiomechanics_tpu_torch.train.loop import TrainResult, train
 
@@ -53,11 +63,19 @@ def run_training(args: argparse.Namespace) -> TrainResult:
             skip_loading_skeletons=not config.compute_report,
             materialize_features=config.materialize_features)
 
-    train_ds = split('train')
-    dev_ds = split('dev') if os.path.isdir(os.path.join(config.dataset_home, 'dev')) else None
-    if config.model_type == 'diffusion':
-        return train_diffusion(config, train_ds, dev_ds, device=args.device)
-    return train(config, train_ds, dev_ds, device=args.device)
+    device = args.device
+    started = bool(os.environ.get('IB_MULTIHOST')) and not dist.is_initialized()
+    if started:
+        device = dist.start_from_env(args.device)
+    try:
+        train_ds = split('train')
+        dev_ds = split('dev') if os.path.isdir(os.path.join(config.dataset_home, 'dev')) else None
+        if config.model_type == 'diffusion':
+            return train_diffusion(config, train_ds, dev_ds, device=device)
+        return train(config, train_ds, dev_ds, device=device)
+    finally:
+        if started:
+            dist.shutdown()
 
 
 def run(args: argparse.Namespace) -> int:

@@ -6,7 +6,10 @@ and copies them to the device ahead of compute. On a CUDA device the batch
 goes through pinned host memory and an asynchronous copy on a stream of
 its own, and the consumer's stream waits for that copy only. With
 ``input_dtype=torch.bfloat16`` (``--host-upload-dtype bf16``) the inputs are
-rounded to bf16 on the host, before the copy: half the bytes.
+rounded to bf16 on the host, before the copy: half the bytes. Under data
+parallelism each rank iterates its shard (``shard_index`` of
+``num_shards``: ``WindowDataset.batches``' equal shards of the epoch's
+order, the JAX package's replacement for DistributedSampler).
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ class PrefetchLoader:
     def __init__(self, dataset: WindowDataset, batch_size: int, *, device='cpu',
                  shuffle: bool = True, drop_last: bool = True, prefetch: int = 2,
                  n_threads: Optional[int] = None,
-                 input_dtype: torch.dtype = torch.float32):
+                 input_dtype: torch.dtype = torch.float32,
+                 shard_index: int = 0, num_shards: int = 1):
         self.dataset = dataset
+        self.shard_index, self.num_shards = shard_index, num_shards
         self.input_dtype = input_dtype
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -38,7 +43,7 @@ class PrefetchLoader:
         self.n_threads = n_threads
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _to_device(self, host_batch: Batch, stream) -> Batch:
@@ -73,6 +78,7 @@ class PrefetchLoader:
                 for host_batch in self.dataset.batches(
                         self.batch_size, shuffle=self.shuffle,
                         drop_last=self.drop_last, seed=seed,
+                        shard_index=self.shard_index, num_shards=self.num_shards,
                         n_threads=self.n_threads):
                     if stop.is_set():
                         return

@@ -79,11 +79,29 @@ def init_linear(layer: nn.Linear, init_style: str,
         layer.bias.copy_(b)
 
 
-def generator_masks(generator: Optional[torch.Generator] = None) -> MaskSource:
+def global_rows(draw: Callable[[Tuple[int, ...]], torch.Tensor], shape: Tuple[int, ...],
+                shard: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """``draw(shape)``, or under data parallelism (``shard`` = (rank, world
+    size)) the draw of the global batch, ``world`` times ``shape[0]`` rows,
+    of which this rank keeps its own: the JAX package partitions one global
+    noise tensor over its devices, so a rank's rows are those that one
+    process at the global batch would draw for them."""
+    if shard is None:
+        return draw(tuple(shape))
+    r, n = shard
+    b = shape[0]
+    return draw((b * n, *shape[1:]))[r * b:(r + 1) * b]
+
+
+def generator_masks(generator: Optional[torch.Generator] = None,
+                    shard: Optional[Tuple[int, int]] = None) -> MaskSource:
     """Keep masks drawn from ``generator`` (on the tensor's device), or from
-    torch's default generator when it is None."""
+    torch's default generator when it is None; under data parallelism
+    (``shard``) a rank's rows of the global batch's masks
+    (:func:`global_rows`)."""
     def masks(shape, p, device):
-        return torch.rand(shape, generator=generator, device=device) >= p
+        return global_rows(lambda s: torch.rand(s, generator=generator, device=device),
+                           shape, shard) >= p
     return masks
 
 

@@ -50,7 +50,8 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    MaskSource, ModelInput, generator_masks, init_linear, pack_inputs, slice_output_heads,
+    MaskSource, ModelInput, generator_masks, global_rows, init_linear, pack_inputs,
+    slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.models.transformer import (
     EncoderBlock, _dense, _layernorm,
@@ -428,14 +429,19 @@ class TrainDraws:
     masks: MaskSource
 
 
-def generator_draws(generator: Optional[torch.Generator]) -> TrainDraws:
+def generator_draws(generator: Optional[torch.Generator],
+                    shard: Optional[Tuple[int, int]] = None) -> TrainDraws:
     """A step's draws from ``generator`` (torch's default one when None), on
-    the device of the step's tensors."""
+    the device of the step's tensors; under data parallelism (``shard`` =
+    (rank, world size)) this rank's rows of the global batch's draws
+    (``models/common.py::global_rows``)."""
     return TrainDraws(
-        timesteps=lambda b, steps, device: torch.randint(0, steps, (b,), generator=generator,
-                                                         device=device),
-        noise=lambda shape, device: torch.randn(shape, generator=generator, device=device),
-        masks=generator_masks(generator))
+        timesteps=lambda b, steps, device: global_rows(
+            lambda s: torch.randint(0, steps, s, generator=generator, device=device),
+            (b,), shard),
+        noise=lambda shape, device: global_rows(
+            lambda s: torch.randn(s, generator=generator, device=device), shape, shard),
+        masks=generator_masks(generator, shard))
 
 
 def drop_conditioning(cond: torch.Tensor, cond_dropout: float,
@@ -490,7 +496,8 @@ def diffusion_grads(model: DiffusionDenoiser, schedule: DDPMSchedule,
 
     def grads(state, cond_inputs: ModelInput, labels: torch.Tensor):
         model.train()
-        source = draws if draws is not None else generator_draws(state.dropout_gen)
+        source = draws if draws is not None else generator_draws(
+            state.dropout_gen, getattr(state, 'draw_shard', None))
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = diffusion_loss(model, schedule, cond_inputs, labels, lab_offsets,
                                        source, cond_dropout, scales, augment,

@@ -13,7 +13,9 @@ the suite's tolerances, so it is not used:
 - flax computes the batch statistics in float32 as E[x^2] - E[x]^2, clipped
   at 0.
 
-In training the batch statistics normalise and the running ones are updated
+In training the batch statistics normalise (under data parallelism those of
+the global batch: :func:`batch_stats` with a sum over the ranks, so every
+rank updates the same running statistics) and the running ones are updated
 in place (``mul_`` / ``add_`` on the registered buffers, so that a CUDA
 graph of the train step updates them on every replay); in evaluation the
 running statistics normalise, and the layer is the affine map
@@ -22,7 +24,7 @@ running statistics normalise, and the layer is the affine map
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,13 +33,23 @@ MOMENTUM = 0.99
 EPS = 1e-5
 
 
-def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def batch_stats(x: torch.Tensor, sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and biased variance of ``x`` [N, C] over its rows, in float32,
     the variance as E[x^2] - E[x]^2 clipped at 0 (flax's
-    ``use_fast_variance``)."""
+    ``use_fast_variance``). With ``sync`` (a differentiable sum over the
+    ranks of a data-parallel run, every rank holding N rows) the statistics
+    are those of the global batch: the sums of x and x^2 go over the ranks
+    in one collective, as pjit's statistics go over the global batch."""
     x = x.float()
-    mean = x.mean(0)
-    var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+    if sync is None:
+        mean = x.mean(0)
+        var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
+        return mean, var
+    sums = sync(torch.stack([x.sum(0), (x * x).sum(0)]))
+    n = x.shape[0] * int(torch.distributed.get_world_size())
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
     return mean, var
 
 
@@ -61,11 +73,13 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer('running_mean', torch.zeros(num_features, device=device))
         self.register_buffer('running_var', torch.ones(num_features, device=device))
+        # under data parallelism a sum over the ranks (parallel/dist.py)
+        self.stats_sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias)
-        mean, var = batch_stats(x)
+        mean, var = batch_stats(x, self.stats_sync)
         with torch.no_grad():
             self.running_mean.mul_(MOMENTUM).add_(mean * (1.0 - MOMENTUM))
             self.running_var.mul_(MOMENTUM).add_(var * (1.0 - MOMENTUM))

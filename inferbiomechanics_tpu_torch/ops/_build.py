@@ -8,12 +8,16 @@ objects are linked into one shared library with a plain C interface,
 ``ctypes``. The build happens at first use and again whenever the stamp
 beside the library, a hash of the sources, of this file and of the nvcc
 flags, differs. No PyTorch headers are involved, so a build takes
-seconds. A failed build raises; nothing falls back.
+seconds. A failed build raises; nothing falls back. Processes that load
+the library at once (the ranks of a data-parallel run) build it once: the
+first takes a file lock beside the library and builds, the others wait for
+the lock and find the library up to date.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -119,12 +123,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or stale."""
+    """The kernel library, built first if it is missing or stale (by one
+    process of those that ask at once: the others wait on the lock file)."""
     global _lib
     with _lock:
         if _lib is None:
             if _stale():
-                build()
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / '.build.lock', 'w') as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if _stale():
+                        build()
             _lib = _declare(ctypes.CDLL(str(LIBRARY)))
         return _lib
 

@@ -47,6 +47,7 @@ from inferbiomechanics_tpu_torch.data.dataset import (
     LABEL_PACK_ORDER, input_layout, label_layout, unpack,
 )
 from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
+from inferbiomechanics_tpu_torch.models.common import global_rows
 
 # OpenSim semantic coordinate names that flip under a sagittal mirror
 # (rotations about the forward/vertical axes, lateral translation).
@@ -333,13 +334,23 @@ class AugmentDraws:
     noise: Callable[[Tuple[int, ...], torch.dtype, torch.device], torch.Tensor]
 
 
-def generator_aug_draws(generator: Optional[torch.Generator]) -> AugmentDraws:
+def generator_aug_draws(generator: Optional[torch.Generator],
+                        shard: Optional[Tuple[int, int]] = None) -> AugmentDraws:
     """An augmented step's draws from ``generator`` (torch's default one when
-    None), on the device of the step's tensors."""
+    None), on the device of the step's tensors; under data parallelism
+    (``shard`` = (rank, world size)) this rank's rows of the global batch's
+    draws (``models/common.py::global_rows``)."""
     return AugmentDraws(
-        coin=lambda b, p, device: torch.rand((b,), generator=generator, device=device) < p,
-        noise=lambda shape, dtype, device: torch.randn(shape, generator=generator,
-                                                       device=device, dtype=dtype))
+        coin=lambda b, p, device: global_rows(
+            lambda s: torch.rand(s, generator=generator, device=device), (b,), shard) < p,
+        noise=lambda shape, dtype, device: global_rows(
+            lambda s: torch.randn(s, generator=generator, device=device, dtype=dtype),
+            shape, shard))
+
+
+def local_std(x: torch.Tensor, dims) -> torch.Tensor:
+    """Population standard deviation of ``x`` over ``dims`` (kept)."""
+    return torch.std(x, dim=dims, keepdim=True, correction=0)
 
 
 class Augmenter:
@@ -362,6 +373,9 @@ class Augmenter:
         self.mirror = mirror
         self.noise_std = float(noise_std)
         self.mirror_prob = float(mirror_prob)
+        # the noise scale's statistic; under data parallelism the global
+        # batch's (parallel/dist.py::global_std)
+        self.std_fn = local_std
         if mirror is not None:
             as_index = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)  # noqa: E731
             as_sign = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
@@ -380,7 +394,7 @@ class Augmenter:
                 perm, sign = self._lab
                 labels = torch.where(coin, labels[..., perm] * sign.to(labels.dtype), labels)
         if self.noise_std > 0.0:
-            std = torch.std(inputs, dim=(0, 1), keepdim=True, correction=0)
+            std = self.std_fn(inputs, (0, 1))
             inputs = inputs + (self.noise_std * std) * draws.noise(
                 tuple(inputs.shape), inputs.dtype, inputs.device)
         return inputs, labels

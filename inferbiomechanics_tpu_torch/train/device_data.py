@@ -272,15 +272,25 @@ def make_device_diffusion_chunked_step(model: DiffusionDenoiser, data: DeviceRes
 
 
 def make_device_eval_runner(model, data: DeviceResidentData,
-                            loss_config: LossConfig, batch_size: int) -> Callable:
+                            loss_config: LossConfig, batch_size: int,
+                            shard: Optional[Tuple[int, int]] = None) -> Callable:
     """``run_eval(state) -> mean_metrics``: the whole eval split in order,
-    metrics averaged over the batches as the evaluator averages them."""
+    metrics averaged over the batches as the evaluator averages them. Under
+    data parallelism (``shard`` = (rank, world size), ``batch_size`` a
+    multiple of the world size) each batch of ``batch_size`` windows is
+    split over the ranks and this rank evaluates its contiguous slice; the
+    mean over the ranks of the result (``parallel/dist.py::mean_over_ranks``)
+    is the global batches' mean."""
     n_steps = data.num_windows // batch_size
     if n_steps == 0:
         raise ValueError(f'eval split has {data.num_windows} windows < '
                          f'batch_size {batch_size}')
     idx_all = torch.arange(n_steps * batch_size, device=data.device).reshape(
         n_steps, batch_size)
+    if shard is not None:
+        r, n = shard
+        b = batch_size // n
+        idx_all = idx_all[:, r * b:(r + 1) * b]
 
     @torch.no_grad()
     def run_eval(state: TrainState) -> Metrics:

@@ -24,6 +24,13 @@ checkpoint as ``ema_params``, which ``serve --use-ema`` and ``analyze
 --use-ema`` read, and is seeded from the resumed checkpoint's, else from
 the warm-start source's, else from the parameters.
 
+Data parallelism over processes follows the regression loop
+(``train/loop.py``; the sharded tier through
+``train/sharded_data.py::make_sharded_diffusion_epoch_runner``, with the
+EMA); the gradients are mean-reduced in float32 (the JAX package's
+diffusion loop reads no ``--grad-allreduce-dtype``), and the dev chains
+score each rank's shard of the dev batches.
+
 Resume is epoch-granular, as in the JAX package: a run resumes at the epoch
 after its newest checkpoint's, so a mid-epoch (or SIGTERM) checkpoint keeps
 the parameters, the optimizer and the EMA, but the rest of its epoch is not
@@ -48,6 +55,7 @@ from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.diffusion import (
     DDPMSchedule, make_diffusion_train_step, make_sampler,
 )
+from inferbiomechanics_tpu_torch.parallel import dist
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     load_ema_params, load_latest_checkpoint, resolve_checkpoint_path,
 )
@@ -56,10 +64,11 @@ from inferbiomechanics_tpu_torch.train.device_data import (
 )
 from inferbiomechanics_tpu_torch.train.loop import (
     BestTracker, CheckpointWriter, SigtermStop, TrainResult, _reject_unported,
-    chunk_steps, epoch_batches, loss_config_from, make_dispatch, optimizer_for,
-    per_step_generators, prepare_checkpoint_dir, resident_train_data, run_chunks,
-    run_streamed_epoch, train_loader, upload_dtype,
+    check_data_parallel, chunk_steps, epoch_batches, loss_config_from, make_dispatch,
+    optimizer_for, per_step_generators, prepare_checkpoint_dir, resident_train_data,
+    run_chunks, run_streamed_epoch, sharded_tier, train_loader, upload_dtype,
 )
+from inferbiomechanics_tpu_torch.train.sharded_data import make_sharded_diffusion_epoch_runner
 from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import ChunkedStep
 from inferbiomechanics_tpu_torch.train.streaming_data import (
@@ -93,6 +102,10 @@ def train_diffusion(config: Config,
         raise ValueError('diffusion training requires --output-data-format '
                          'all_frames (the denoiser models whole windows)')
     device = resolve_device(device)
+    if check_data_parallel(config) is not None:
+        logger.warning('--grad-allreduce-dtype bf16: the diffusion loop reduces its '
+                       'gradients in float32 (the JAX package\'s diffusion loop reads '
+                       'no --grad-allreduce-dtype)')
 
     stop = SigtermStop()
     model = build_model_for_dataset(
@@ -106,6 +119,7 @@ def train_diffusion(config: Config,
     # generator of its own, so that it moves none of them
     state.dropout_gen = torch.Generator(device=device)
     augment = per_step_generators(config, state, train_ds, device)
+    dist.attach(state, model, None, augment)
     logger.info('diffusion model: %d params on %s', num_params(state), device)
     warm_started = prepare_checkpoint_dir(config, state)
     ckpt_epoch, _ = load_latest_checkpoint(state, config.checkpoint_dir)
@@ -121,8 +135,16 @@ def train_diffusion(config: Config,
     device_data, _ = resident_train_data(config, train_ds, device)
     on_device = device_data is not None
     chunk_k = chunk_steps(config, train_ds, on_device)
-    chunked_step = streaming = dispatch = None
-    if config.device_data == 'stream':
+    chunked_step = dispatch = None
+    streaming = None
+    if max_batches_per_epoch is None and len(train_ds) >= config.batch_size:
+        streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
+            make_sharded_diffusion_epoch_runner(model, sdata, sched, config.batch_size,
+                                                chunk_steps=k, cond_dropout=config.cond_dropout,
+                                                augment=augment)))
+    if streaming is not None:
+        logger.info('diffusion sharded data: %d shards', dist.world_size())
+    elif config.device_data == 'stream':
         plan = StreamingPlan(train_ds, config.device_data_max_bytes)
         streaming = make_streaming_diffusion_epoch(
             model, train_ds, plan, sched, config.batch_size, device,
@@ -149,8 +171,10 @@ def train_diffusion(config: Config,
         dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     sampler = make_sampler(model, sched, num_steps=EVAL_SAMPLE_STEPS,
                            fused_inference=config.fused_inference)
-    dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False)
-                  if dev_ds is not None and len(dev_ds) >= config.batch_size else None)
+    dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False,
+                                 shard_index=dist.rank(), num_shards=dist.world_size())
+                  if dev_ds is not None and len(dev_ds) // dist.world_size() >= config.batch_size
+                  else None)
     dev_eval = RegressionLossEvaluator('dev', loss_config_from(config),
                                        wandb_logger=metric_logger)
 
@@ -173,7 +197,7 @@ def train_diffusion(config: Config,
             outputs = sampler(model, batch.inputs, gen)
             with torch.no_grad():
                 metrics = dev_eval.compute_metrics(outputs, unpack(batch.labels, dev_ds.lab_offsets))
-            dev_eval(None, None, None, precomputed_metrics=metrics)
+            dev_eval(None, None, None, precomputed_metrics=dist.mean_over_ranks(metrics))
         print(f'[epoch {epoch}] dev report (sampled, {EVAL_SAMPLE_STEPS} steps):')
         final_dev = dev_eval.print_report(log_to_wandb=metric_logger is not None)
         return True
@@ -212,7 +236,7 @@ def train_diffusion(config: Config,
             checkpoint_every=config.checkpoint_every_batches, account=lambda row: None,
             log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
             checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
-            stop=lambda: stop.requested)
+            stop=lambda: dist.any_rank(stop.requested))
         windows_seen += n * config.batch_size
         if last is not None:
             last_loss = float(last['loss'])

@@ -1,7 +1,6 @@
 """The training loop.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/train/loop.py``, for one
-device. Per epoch: dev-set evaluation BEFORE the train epoch, then the
+PyTorch counterpart of ``inferbiomechanics_tpu/train/loop.py``. Per epoch: dev-set evaluation BEFORE the train epoch, then the
 train epoch with the loss logged every ``log_every_batches`` and a
 checkpoint every ``checkpoint_every_batches``, and resume from the newest
 ``epoch_{e}_batch_{b}`` checkpoint, inside its epoch when it was written
@@ -43,6 +42,24 @@ dropout masks and the augmentation's draws come from two generators on the
 device that the state reseeds from ``--seed`` and the step count before
 every step (:func:`per_step_generators`).
 
+Data parallelism over processes (``parallel/dist.py``; the ``train``
+command starts it under ``IB_MULTIHOST``): one rank a device, each the JAX
+package's process with one device. The host tier loads the rank's shard of
+the epoch's order and the device-resident tier the rank's slice of the
+epoch's permutation, B windows a rank (a global batch of world x B), with
+the table on every rank's device; ``--device-data sharded`` (and ``auto``
+when only the ranks' memory together holds the dataset) splits the trials
+over the ranks (``train/sharded_data.py``), B / world windows a rank. Every
+step mean-reduces its gradients over the ranks before the update
+(``--grad-allreduce-dtype bf16``: in bf16), BatchNorm statistics and the
+Augmenter's noise scale are the global batch's, and the per-step draws are
+the global batch's with the rank's rows kept. Dev evaluation splits over
+the ranks and averages their metrics. Only rank 0 writes checkpoints and
+the sidecar; every rank reads them on resume; a SIGTERM to any rank stops
+every rank at the same step boundary. The device-resident tier runs step by
+step at world size > 1 (the JAX package's policy), and so does every tier
+whose collectives cannot be captured in a CUDA graph (gloo).
+
 The tiers, the chunked epoch (:func:`run_chunks`), SIGTERM, the best
 checkpoint and the checkpoint directory's set-up are shared with the
 diffusion loop (``train/diffusion_loop.py``).
@@ -55,7 +72,7 @@ import logging
 import signal
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -69,6 +86,7 @@ from inferbiomechanics_tpu_torch.loss.evaluator import (
 from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
+from inferbiomechanics_tpu_torch.parallel import dist
 from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, AsyncCheckpointer, list_checkpoints, load_latest_checkpoint,
@@ -85,6 +103,9 @@ from inferbiomechanics_tpu_torch.train.run_config import (
 from inferbiomechanics_tpu_torch.train.state import create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import (
     make_chunked_train_step, make_eval_step, make_train_step,
+)
+from inferbiomechanics_tpu_torch.train.sharded_data import (
+    ShardedDeviceData, make_sharded_epoch_runner,
 )
 from inferbiomechanics_tpu_torch.train.streaming_data import (
     StreamingPlan, host_seed_for, make_streaming_epoch,
@@ -112,9 +133,11 @@ def per_step_generators(config: Config, state, train_ds: WindowDataset, device):
     Augmenter (``augmenter_from_config``; None when augmentation is off)."""
     model = state.model
     state.dropout_seed = config.seed
+    # under data parallelism: the global batch's draws, this rank's rows
+    state.draw_shard = dist.draw_shard()
     if hasattr(model, 'dropout_masks'):
         state.dropout_gen = torch.Generator(device=device)
-        model.dropout_masks = generator_masks(state.dropout_gen)
+        model.dropout_masks = generator_masks(state.dropout_gen, state.draw_shard)
     augmenter = augmenter_from_config(config, train_ds, logger, device=device)
     if augmenter is not None:
         state.aug_gen = torch.Generator(device=device)
@@ -133,19 +156,24 @@ def loss_config_from(config: Config) -> LossConfig:
     )
 
 
-SCALE_OUT_8B = 'ROADMAP.md Queue 1 item 8b (scale-out, several processes)'
+SCALE_OUT_8C = ('ROADMAP.md Queue 1 item 8c (model parallelism and sharded sweeps, '
+                'after the data parallelism of item 8b)')
 
 
 def _reject_unported(config: Config) -> None:
     """Raise for every training option of the JAX package that the port
     does not have yet, by the flag's name; before that, the JAX package's
-    own refusals of the streaming tier, with its words."""
-    if config.device_data == 'stream':
-        if config.grad_accum_steps > 1:
-            raise ValueError('--grad-accum-steps applies to the host and '
-                             'device-resident tiers; the sharded/streaming '
-                             'tiers run fixed whole-batch epoch programs')
-        if config.grad_allreduce_dtype == 'bf16':
+    own refusals of the data-parallel options, with its words."""
+    if config.device_data in ('sharded', 'stream') and config.grad_accum_steps > 1:
+        raise ValueError('--grad-accum-steps applies to the host and '
+                         'device-resident tiers; the sharded/streaming '
+                         'tiers run fixed whole-batch epoch programs')
+    if config.grad_allreduce_dtype == 'bf16':
+        if config.batchnorm:
+            raise ValueError('--grad-allreduce-dtype bf16 does not support '
+                             'batchnorm models (running stats would need '
+                             'their own cross-shard reduction)')
+        if config.device_data == 'stream':
             raise ValueError('--grad-allreduce-dtype bf16 applies to the '
                              'host, device-resident, and sharded tiers; '
                              'the streaming tier runs fixed whole-batch '
@@ -153,10 +181,8 @@ def _reject_unported(config: Config) -> None:
     unported = [
         ('--pipeline-parallel', config.pipeline_parallel > 1,
          'ROADMAP.md, not to port'),
-        ('--model-parallel', config.model_parallel > 1, SCALE_OUT_8B),
-        ('--grad-allreduce-dtype bf16', config.grad_allreduce_dtype == 'bf16', SCALE_OUT_8B),
+        ('--model-parallel', config.model_parallel > 1, SCALE_OUT_8C),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
-        ('--device-data sharded', config.device_data == 'sharded', SCALE_OUT_8B),
     ]
     for flag, asked, where in unported:
         if asked:
@@ -231,16 +257,47 @@ def optimizer_for(config: Config, model):
     return optimizer
 
 
+def check_data_parallel(config: Config) -> Optional[torch.dtype]:
+    """The JAX package's checks of the batch against the data-parallel size
+    (the world size), with its words; returns the gradient all-reduce's
+    reduced dtype (bf16 for ``--grad-allreduce-dtype bf16``, None for
+    float32; ignored, as in the JAX package, with a single data shard)."""
+    n_dp = dist.world_size()
+    if config.batch_size % n_dp != 0:
+        raise ValueError(f'batch_size={config.batch_size} not divisible by '
+                         f'data-parallel size {n_dp}')
+    if config.grad_accum_steps > 1:
+        micro = config.batch_size // config.grad_accum_steps
+        if config.batch_size % config.grad_accum_steps:
+            raise ValueError(f'batch_size={config.batch_size} must split into '
+                             f'--grad-accum-steps {config.grad_accum_steps} '
+                             f'equal microbatches')
+        if micro % n_dp:
+            raise ValueError(
+                f'batch_size={config.batch_size} must split into '
+                f'--grad-accum-steps {config.grad_accum_steps} microbatches '
+                f'each divisible by data-parallel size {n_dp}')
+    if config.grad_allreduce_dtype != 'bf16':
+        return None
+    if n_dp == 1:
+        logger.info('--grad-allreduce-dtype bf16: single data shard, '
+                    'no cross-device reduction to reduce — ignored')
+        return None
+    return torch.bfloat16
+
+
 def prepare_checkpoint_dir(config: Config, state) -> bool:
     """The provenance sidecar (on resume, refuse or warn about architecture
     drift against the PREVIOUS run's sidecar before this run's overwrites
-    it), then ``--init-from-checkpoint``, which must not clobber an
-    interrupted run's progress. Returns True when the state was warm
-    started."""
+    it; every rank reads, rank 0 writes), then ``--init-from-checkpoint``,
+    which must not clobber an interrupted run's progress. Returns True when
+    the state was warm started."""
     if list_checkpoints(config.checkpoint_dir):
         check_resume_architecture(config, config.checkpoint_dir)
         warn_on_architecture_mismatch(config, config.checkpoint_dir, 'resume')
-    save_run_config(config.checkpoint_dir, config)
+    dist.barrier()      # every rank has read the previous run's sidecar
+    if dist.is_main():
+        save_run_config(config.checkpoint_dir, config)
     if not config.init_from_checkpoint:
         return False
     if list_checkpoints(config.checkpoint_dir):
@@ -261,13 +318,17 @@ class CheckpointWriter:
     not). With ``--async-checkpoint`` through an ``AsyncCheckpointer``: the
     call returns once the snapshot is on the host, and :meth:`wait`, which
     the loops call before they return (a SIGTERM exit too), blocks until
-    the last write is on disk."""
+    the last write is on disk. Under data parallelism only rank 0 writes
+    (every rank holds the same state)."""
 
     def __init__(self, config: Config, state):
         self.config, self.state = config, state
-        self.writer = AsyncCheckpointer() if config.async_checkpoint else None
+        self.writes = dist.is_main()
+        self.writer = AsyncCheckpointer() if config.async_checkpoint and self.writes else None
 
     def __call__(self, epoch: int, batch: int, filename=None) -> None:
+        if not self.writes:
+            return
         config = self.config
         keep = 0 if filename else config.keep_checkpoints
         if self.writer is not None:
@@ -309,11 +370,64 @@ def resident_train_data(config: Config, train_ds: WindowDataset, device,
     return data, pack
 
 
-def chunk_steps(config: Config, train_ds: WindowDataset, on_device: bool) -> int:
+def sharded_wanted(config: Config, train_ds: WindowDataset, on_device: bool) -> bool:
+    """``--device-data sharded``, or ``auto`` when the dataset missed one
+    device's budget but fits the ranks' budgets together (the JAX rule;
+    the bytes of a lazy dataset from its metadata: rows x C_in float32)."""
+    if config.device_data == 'sharded':
+        return True
+    n = dist.world_size()
+    if config.device_data != 'auto' or on_device or n == 1 or config.grad_accum_steps > 1:
+        return False
+    if train_ds.features_all is not None:
+        data_bytes = train_ds.features_all.nbytes + train_ds.labels_all.nbytes
+    else:
+        data_bytes = (train_ds.labels_all.shape[0] * train_ds.num_input_channels * 4
+                      + train_ds.labels_all.nbytes)
+    return data_bytes < config.device_data_max_bytes * n
+
+
+def sharded_tier(config: Config, train_ds: WindowDataset, device, on_device: bool,
+                 build: Callable):
+    """The sharded tier's epoch when :func:`sharded_wanted`: the rank's
+    shard on ``device`` (``train/sharded_data.py``) and ``build(sdata,
+    chunk_steps)``; None otherwise, or when ``auto`` cannot shard (logged;
+    the host loader then). Its steps run in chunks of
+    ``--device-chunk-steps`` where their collectives can be captured."""
+    if not sharded_wanted(config, train_ds, on_device):
+        return None
+    try:
+        sdata = ShardedDeviceData(train_ds, dist.rank(), dist.world_size(), device)
+        epoch = build(sdata, max(1, config.device_chunk_steps) if dist.can_capture() else 1)
+    except (ValueError, NotImplementedError) as e:
+        if config.device_data == 'sharded':
+            raise
+        logger.warning('sharded device data unavailable (%s); '
+                       'falling back to the host loader', e)
+        return None
+    logger.info('sharded device data: %d shards, %.0f MB on %s', sdata.num_shards,
+                sdata.device_bytes / 1e6, device)
+    return epoch
+
+
+def chunk_steps(config: Config, train_ds: WindowDataset, on_device: bool,
+                lowp: Optional[torch.dtype] = None) -> int:
     """Steps a dispatch (``--device-chunk-steps`` or ``--host-chunk-steps``),
-    clamped to the epoch's length: a larger chunk would never fill."""
+    clamped to the rank's epoch length: a larger chunk would never fill.
+    One (step by step) on the device-resident tier at world size > 1 or
+    with the bf16 all-reduce (the JAX package's policy), and on every tier
+    whose collectives cannot be captured in a CUDA graph (gloo). Host chunks
+    and the bf16 all-reduce refuse each other, in the JAX package's
+    words."""
     asked = config.device_chunk_steps if on_device else config.host_chunk_steps
-    return min(max(1, asked), max(1, len(train_ds) // config.batch_size))
+    k = min(max(1, asked), max(1, len(train_ds) // dist.world_size() // config.batch_size))
+    if lowp is not None and not on_device and k > 1:
+        raise ValueError('--host-chunk-steps > 1 does not compose with '
+                         '--grad-allreduce-dtype (the explicit-psum '
+                         'shard_map step); use one or the other')
+    if (on_device and (dist.world_size() > 1 or lowp is not None)) or not dist.can_capture():
+        return 1
+    return k
 
 
 def upload_dtype(config: Config) -> torch.dtype:
@@ -331,7 +445,8 @@ def train_loader(config: Config, train_ds: WindowDataset, device, chunked: bool
     return PrefetchLoader(train_ds, config.batch_size,
                           device='cpu' if chunked else device,
                           n_threads=config.data_loading_workers,
-                          input_dtype=torch.float32 if chunked else upload_dtype(config))
+                          input_dtype=torch.float32 if chunked else upload_dtype(config),
+                          shard_index=dist.rank(), num_shards=dist.world_size())
 
 
 def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoader,
@@ -340,10 +455,16 @@ def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoade
     vectors from numpy's generator seeded (seed, epoch) (the JAX package's
     regression loop draws the same batches); else the loader's batches.
     ``pad_to_batch`` is the JAX sweep's rule on the device tier: at least one
-    step, a split shorter than a batch repeated to fill it (``np.resize``)."""
+    step, a split shorter than a batch repeated to fill it (``np.resize``).
+    Under data parallelism the permutation is truncated to a multiple of the
+    world size and the rank takes every world-th window from its rank on
+    (equal step counts on every rank), and the loader its shard."""
     if not on_device:
         return enumerate(loader.epoch(seed=config.seed * 1_000_003 + epoch))
     perm = np.random.default_rng((config.seed, epoch)).permutation(len(train_ds))
+    n = dist.world_size()
+    if n > 1:
+        perm = perm[:(perm.shape[0] // n) * n][dist.rank()::n]
     b = config.batch_size
     if pad_to_batch:
         return enumerate(np.resize(perm[k * b:(k + 1) * b], b)
@@ -354,10 +475,10 @@ def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoade
 def run_streamed_epoch(streaming, state, config: Config, train_ds: WindowDataset,
                        epoch: int, *, metric_logger, metric_key: str, write_checkpoint,
                        stop: SigtermStop):
-    """One epoch of the streaming tier under its epoch-granular policy, for
-    both loops: the epoch (its host seed from ``--seed`` and ``epoch``), its
-    mean loss logged under ``metric_key``, one checkpoint, and SIGTERM
-    honoured after it. Returns (the epoch's mean metrics, its seconds, the
+    """One epoch of the streaming or the sharded tier under their
+    epoch-granular policy, for both loops: the epoch (its host seed from
+    ``--seed`` and ``epoch``), its mean loss logged under ``metric_key``, one
+    checkpoint, and SIGTERM (on any rank) honoured after it. Returns (the epoch's mean metrics, its seconds, the
     windows it counts as the JAX package counts them, True when SIGTERM
     asked to stop)."""
     t0 = time.time()
@@ -367,7 +488,7 @@ def run_streamed_epoch(streaming, state, config: Config, train_ds: WindowDataset
         metric_logger.log({metric_key: float(metrics['loss']), 'epoch': epoch})
     write_checkpoint(epoch, 0)
     windows = (len(train_ds) // config.batch_size) * config.batch_size
-    return metrics, seconds, windows, stop.requested
+    return metrics, seconds, windows, dist.any_rank(stop.requested)
 
 
 class ReadyMetrics:
@@ -483,10 +604,7 @@ def train(config: Config,
         raise ValueError('--model-type diffusion trains through '
                          'train/diffusion_loop.py::train_diffusion')
     device = resolve_device(device)
-    if config.grad_accum_steps > 1 and config.batch_size % config.grad_accum_steps:
-        raise ValueError(f'batch_size={config.batch_size} must split into '
-                         f'--grad-accum-steps {config.grad_accum_steps} '
-                         f'equal microbatches')
+    lowp = check_data_parallel(config)
 
     stop = SigtermStop()
     model = build_model_for_dataset(
@@ -496,6 +614,7 @@ def train(config: Config,
     state = create_train_state(model, optimizer_for(config, model))
     # on-device augmentation in every tier's train step; dev eval never augments
     augment = per_step_generators(config, state, train_ds, device)
+    dist.attach(state, model, lowp, augment)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
     prepare_checkpoint_dir(config, state)
@@ -509,48 +628,55 @@ def train(config: Config,
         start_epoch, skip_batches = ckpt_epoch + 1, 0
 
     # ---- the data tier ----
-    dev_big_enough = dev_ds is not None and len(dev_ds) >= config.batch_size
+    # every rank evaluates whole batches of its shard of the dev split
+    dev_big_enough = (dev_ds is not None
+                      and len(dev_ds) // dist.world_size() >= config.batch_size)
     # the torque report needs each dev batch's inputs, outputs and subjects
     dev_resident = (dev_big_enough and dev_ds.features_all is not None
                     and not config.compute_report)
     device_data, pack = resident_train_data(config, train_ds, device,
                                             dev_ds if dev_resident else None)
     on_device = device_data is not None
-    chunk_k = chunk_steps(config, train_ds, on_device)
-    chunked_step = device_eval = streaming = dispatch = None
-    if config.device_data == 'stream':
-        plan = StreamingPlan(train_ds, config.device_data_max_bytes)
-        streaming = make_streaming_epoch(model, train_ds, plan, lc, config.batch_size, device,
-                                         chunk_steps=max(1, config.device_chunk_steps),
-                                         augment=augment)
-        logger.info('streaming data: %d segments of %d rows', len(plan.segments),
-                    plan.rows_pad)
-    elif on_device:
-        step = make_device_train_step(model, device_data, lc,
-                                      grad_accum=config.grad_accum_steps, augment=augment)
-        if chunk_k > 1:
-            chunked_step = make_device_chunked_step(model, device_data, lc,
-                                                    grad_accum=config.grad_accum_steps,
-                                                    augment=augment)
-        if dev_resident:
-            device_eval = make_device_eval_runner(
-                model, DeviceResidentData(dev_ds, device, pack_windows=pack),
-                lc, config.batch_size)
-    else:
-        step = make_train_step(model, train_ds.lab_offsets, lc,
-                               grad_accum=config.grad_accum_steps, augment=augment)
-        if chunk_k > 1:
-            chunked_step = make_chunked_train_step(
-                model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
-                input_dtype=upload_dtype(config), device=device, augment=augment)
+    chunk_k, chunked_step, device_eval, dispatch = 1, None, None, None
+    streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
+        make_sharded_epoch_runner(model, sdata, lc, config.batch_size, chunk_steps=k,
+                                  augment=augment)))
+    if streaming is None:
+        chunk_k = chunk_steps(config, train_ds, on_device, lowp)
+        if config.device_data == 'stream':
+            plan = StreamingPlan(train_ds, config.device_data_max_bytes)
+            streaming = make_streaming_epoch(model, train_ds, plan, lc, config.batch_size, device,
+                                             chunk_steps=max(1, config.device_chunk_steps),
+                                             augment=augment)
+            logger.info('streaming data: %d segments of %d rows', len(plan.segments),
+                        plan.rows_pad)
+        elif on_device:
+            step = make_device_train_step(model, device_data, lc,
+                                          grad_accum=config.grad_accum_steps, augment=augment)
+            if chunk_k > 1:
+                chunked_step = make_device_chunked_step(model, device_data, lc,
+                                                        grad_accum=config.grad_accum_steps,
+                                                        augment=augment)
+            if dev_resident:
+                device_eval = make_device_eval_runner(
+                    model, DeviceResidentData(dev_ds, device, pack_windows=pack),
+                    lc, config.batch_size, shard=dist.draw_shard())
+        else:
+            step = make_train_step(model, train_ds.lab_offsets, lc,
+                                   grad_accum=config.grad_accum_steps, augment=augment)
+            if chunk_k > 1:
+                chunked_step = make_chunked_train_step(
+                    model, train_ds.lab_offsets, lc, grad_accum=config.grad_accum_steps,
+                    input_dtype=upload_dtype(config), device=device, augment=augment)
     if streaming is None:
         if chunked_step is not None:
             logger.info('chunked dispatch: %d steps a chunk', chunk_k)
         loader = train_loader(config, train_ds, device, chunked_step is not None)
         dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
-    dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device,
-                                 shuffle=False) if dev_big_enough else None)
+    dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False,
+                                 shard_index=dist.rank(), num_shards=dist.world_size())
+                  if dev_big_enough else None)
 
     tau_fn = (make_tau_report_fn(dev_ds, device)
               if config.compute_report and dev_ds is not None else None)
@@ -569,13 +695,14 @@ def train(config: Config,
         """Dev eval of the CURRENT state."""
         nonlocal final_dev
         if device_eval is not None:
-            dev_eval(None, None, None, precomputed_metrics=device_eval(state))
+            dev_eval(None, None, None,
+                     precomputed_metrics=dist.mean_over_ranks(device_eval(state)))
         elif dev_loader is not None:
             for batch in dev_loader.epoch(seed=config.seed * 1_000_003 + epoch):
                 outputs, metrics = eval_step(state, batch.inputs, batch.labels)
                 dev_eval(batch.inputs, outputs, unpack(batch.labels, dev_ds.lab_offsets),
                          batch.subject_indices, compute_report=config.compute_report,
-                         precomputed_metrics=metrics)
+                         precomputed_metrics=dist.mean_over_ranks(metrics))
         else:
             return False
         print(f'[epoch {epoch}] dev report:')
@@ -623,7 +750,7 @@ def train(config: Config,
             account=lambda row: train_eval(None, None, None, precomputed_metrics=row),
             log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
             checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
-            stop=lambda: stop.requested)
+            stop=lambda: dist.any_rank(stop.requested))
         windows_seen += n * config.batch_size
         if last_metrics is not None:
             float(last_metrics['loss'])     # synchronises with the device

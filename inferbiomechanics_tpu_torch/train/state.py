@@ -11,7 +11,7 @@ exponential moving average of the parameters.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,6 +66,12 @@ class TrainState:
     aug_gen: Optional[torch.Generator] = None
     # the parameters' moving average, updated after every update (None: off)
     ema: Optional[ParamEMA] = None
+    # data parallelism (parallel/dist.py): the gradient all-reduce after
+    # every backward, ``sync(metrics) -> metrics`` (None: one process;
+    # ``attach``), and (rank, world size) when the per-step draws are those
+    # of the global batch, of which the step keeps its rank's rows
+    grad_sync: Optional[Callable] = None
+    draw_shard: Optional[Tuple[int, int]] = None
 
     def generators(self) -> List[torch.Generator]:
         """The per-step generators the state keeps (a captured step

@@ -31,8 +31,11 @@ through the eval step one after the other, their metrics kept on the device
 and brought to the host in one copy. ``make_graphed_chunk_runner`` does the
 same for an eval function of its inputs alone, each batch a replay of the
 function captured once a shape as a CUDA graph (:class:`GraphedEval`): the
-analytical baseline's step, thousands of small launches a batch. The
-reduced-precision gradient all-reduce is not ported yet.
+analytical baseline's step, thousands of small launches a batch.
+
+Data parallelism over processes (``parallel/dist.py``) adds the gradient
+all-reduce between the backward and the update of every step, eager or
+captured (:func:`as_train_step`).
 """
 
 from __future__ import annotations
@@ -89,24 +92,35 @@ def accumulate_grads(state: TrainState, grad_accum: int, batch_size: int,
 
 def aug_draws_of(state: TrainState, aug_draws: Optional[AugmentDraws]) -> AugmentDraws:
     """A step's augmentation draws: ``aug_draws`` when given (the seam tests
-    feed), else the state's augmentation generator's."""
-    return aug_draws if aug_draws is not None else generator_aug_draws(state.aug_gen)
+    feed), else the state's augmentation generator's (the global batch's
+    draws, this rank's rows, under data parallelism)."""
+    if aug_draws is not None:
+        return aug_draws
+    return generator_aug_draws(state.aug_gen, getattr(state, 'draw_shard', None))
 
 
 def as_train_step(grads: Callable[..., Metrics]) -> Callable[..., Metrics]:
     """The eager step around ``grads(state, *inputs) -> metrics`` (forward,
     loss, backward; gradients left on the parameters): the per-step
-    generators reseeded for the step, then ``grads``, then the update.
-    ``step.grads`` is ``grads``, which a captured step records with the
+    generators reseeded for the step, then ``grads``, then the state's
+    gradient all-reduce when it has one (``TrainState.grad_sync``: after
+    the backward and any accumulation, before the update, as the JAX
+    package reduces before optax's chain), then the update. ``step.grads``
+    is ``grads`` with the all-reduce, which a captured step records with the
     update."""
+
+    def synced(state: TrainState, *inputs: torch.Tensor) -> Metrics:
+        metrics = grads(state, *inputs)
+        sync = getattr(state, 'grad_sync', None)
+        return metrics if sync is None else sync(metrics)
 
     def step(state: TrainState, *inputs: torch.Tensor) -> Metrics:
         state.reseed_generators()
-        metrics = grads(state, *inputs)
+        metrics = synced(state, *inputs)
         state.apply_gradients()
         return metrics
 
-    step.grads = grads
+    step.grads = synced
     return step
 
 

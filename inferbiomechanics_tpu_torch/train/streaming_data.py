@@ -232,6 +232,17 @@ def segment_trainer(step: Callable, chunked_step, chunk_steps: int, device) -> C
     return train
 
 
+def refuse_several_processes() -> None:
+    """The JAX package's refusal of the streaming tier under several
+    processes, with its words."""
+    from inferbiomechanics_tpu_torch.parallel import dist
+    if dist.world_size() > 1:
+        raise ValueError(
+            '--device-data stream is single-controller SPMD: the '
+            'per-process segment materialization has no cross-process '
+            'plan; on a multi-host pod use --device-data sharded')
+
+
 def make_streaming_epoch(model, ds: WindowDataset, plan: StreamingPlan,
                          loss_config: LossConfig, batch_size: int, device,
                          chunk_steps: int = 1,
@@ -241,7 +252,9 @@ def make_streaming_epoch(model, ds: WindowDataset, plan: StreamingPlan,
     host_seed) -> mean_metrics``. The gather is ``start + arange(frames) *
     stride``; labels are read at ``(frames - 1) * stride`` for
     ``last_frame`` and on every frame for ``all_frames``. ``chunk_steps``
-    > 1 replays the step captured once for every segment."""
+    > 1 replays the step captured once for every segment. Refused under
+    several processes (:func:`refuse_several_processes`)."""
+    refuse_several_processes()
     buffer = SegmentBuffer(ds, plan.rows_pad, device)
     step = make_device_train_step(model, buffer, loss_config, augment=augment,
                                   aug_draws=aug_draws)
@@ -266,6 +279,7 @@ def make_streaming_diffusion_epoch(model, ds: WindowDataset, plan: StreamingPlan
     {'loss'}``, the mean of the per-segment means."""
     if ds.output_data_format != 'all_frames':
         raise ValueError('diffusion requires all_frames labels')
+    refuse_several_processes()
     buffer = SegmentBuffer(ds, plan.rows_pad, device)
     step = make_device_diffusion_train_step(model, buffer, schedule, cond_dropout, draws,
                                             augment, aug_draws)
@@ -283,5 +297,5 @@ def streaming_windows_per_epoch(plan: StreamingPlan, batch_size: int) -> int:
 
 
 __all__ = ['Segment', 'SegmentStats', 'StreamingEpoch', 'StreamingPlan', 'host_seed_for',
-           'make_streaming_diffusion_epoch', 'make_streaming_epoch', 'segment_trainer',
-           'streaming_windows_per_epoch']
+           'make_streaming_diffusion_epoch', 'make_streaming_epoch', 'refuse_several_processes',
+           'segment_trainer', 'streaming_windows_per_epoch']

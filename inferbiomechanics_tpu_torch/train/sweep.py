@@ -33,8 +33,9 @@ step) is written after every epoch under ``<checkpoint_dir>/_grid/``, with
 to two; the same sweep command resumes at the next epoch when the grid
 matches, and starts fresh with a warning when it does not.
 
-Not ported yet (ROADMAP.md Queue 1 item 8b): ``--shard-configs`` and
-``--device-data sharded``, the JAX package's config-axis mesh.
+Not ported yet (ROADMAP.md Queue 1 item 8c): ``--shard-configs`` and
+``--device-data sharded``, the JAX package's config-axis and 2-D (config,
+data) meshes.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ from inferbiomechanics_tpu_torch.train.checkpoint import (
 )
 from inferbiomechanics_tpu_torch.train.device_data import SegmentBuffer
 from inferbiomechanics_tpu_torch.train.loop import (
-    SCALE_OUT_8B, SigtermStop, _reject_unported, chunk_steps, epoch_batches,
+    SCALE_OUT_8C, SigtermStop, _reject_unported, chunk_steps, epoch_batches,
     loss_config_from, make_dispatch, resident_train_data, run_chunks, train_loader,
     upload_dtype,
 )
@@ -523,7 +524,10 @@ def run_sweep(config: Config, train_ds: WindowDataset,
     package's)."""
     from inferbiomechanics_tpu_torch.serve import resolve_device
     if shard_configs:
-        raise NotImplementedError(f'sweep --shard-configs is not yet ported ({SCALE_OUT_8B})')
+        raise NotImplementedError(f'sweep --shard-configs is not yet ported ({SCALE_OUT_8C})')
+    if config.device_data == 'sharded':
+        raise NotImplementedError(f'sweep --device-data sharded is not yet ported '
+                                  f'({SCALE_OUT_8C})')
     _reject_unported(config)
     device = resolve_device(device)
     grid = sweep_grid(lrs, seeds)

@@ -336,18 +336,33 @@ def test_train_diffusion_streams(root, tmp_path):
     (dict(grad_accum_steps=2), ValueError, '--grad-accum-steps applies to the host'),
     (dict(grad_allreduce_dtype='bf16'), ValueError,
      '--grad-allreduce-dtype bf16 applies to the host, device-resident, and sharded'),
-    (dict(device_data='sharded'), NotImplementedError, 'item 8b'),
-    (dict(model_parallel=2), NotImplementedError, 'item 8b'),
+    # ported: the case holds the flag working (the sharded tier, one rank)
+    (dict(device_data='sharded'), None, None),
+    (dict(model_parallel=2), NotImplementedError, 'item 8c'),
     (dict(profile=True), NotImplementedError, 'item 9'),
-])
+], ids=[  # each case keeps the id it is known by
+    'fields0-ValueError---grad-accum-steps applies to the host',
+    'fields1-ValueError---grad-allreduce-dtype bf16 applies to the host, device-resident, '
+    'and sharded',
+    'fields2-NotImplementedError-item 8b', 'fields3-NotImplementedError-item 8b',
+    'fields4-NotImplementedError-item 9'])
 @pytest.mark.parametrize('loop', ['train', 'diffusion'])
 def test_loop_refusals(root, tmp_path, fields, err, words, loop):
     ds, _ = _datasets(root, window_size=20, stride=5, output_data_format='all_frames')
     cfg = _loop_config(root, tmp_path, window_size=20, stride=5,
                        output_data_format='all_frames', **fields)
-    with pytest.raises(err, match=words.replace('(', r'\(')):
+
+    def run():
         if loop == 'train':
-            train(cfg, ds, None, device='cpu')
-        else:
-            train_diffusion(dataclasses.replace(cfg, model_type='diffusion', **DIFF), ds, None,
-                            device='cpu')
+            return train(cfg, ds, None, device='cpu')
+        return train_diffusion(dataclasses.replace(cfg, model_type='diffusion', **DIFF), ds,
+                               None, device='cpu')
+
+    if err is None:
+        assert run().epochs_run == 2
+        # epoch-granular, as the streaming tier: one checkpoint an epoch
+        assert sorted(f for f in os.listdir(tmp_path) if f.startswith('epoch_')) == [
+            'epoch_0_batch_0.torch.pt', 'epoch_1_batch_0.torch.pt']
+        return
+    with pytest.raises(err, match=words.replace('(', r'\(')):
+        run()

@@ -535,9 +535,14 @@ def test_sweep_cli_writes_the_jax_results_keys(root, tmp_path, capsys):
      'sweep supports constant learning rates only'),
     (dict(model_type='diffusion', output_data_format='last_frame'), False, ValueError,
      'requires --output-data-format all_frames'),
-    (dict(), True, NotImplementedError, 'shard-configs is not yet ported .* item 8b'),
-    (dict(device_data='sharded'), False, NotImplementedError, 'sharded is not yet ported .* item 8b'),
-])
+    (dict(), True, NotImplementedError, 'shard-configs is not yet ported .* item 8c'),
+    (dict(device_data='sharded'), False, NotImplementedError, 'sharded is not yet ported .* item 8c'),
+], ids=[  # each case keeps the id it is known by
+    'fields0-False-ValueError-sweep does not support batchnorm models',
+    'fields1-False-ValueError-sweep supports constant learning rates only',
+    'fields2-False-ValueError-requires --output-data-format all_frames',
+    'fields3-True-NotImplementedError-shard-configs is not yet ported .* item 8b',
+    'fields4-False-NotImplementedError-sharded is not yet ported .* item 8b'])
 def test_refusals(root, tmp_path, fields, shard, err, words):
     _, cfg = _configs(root, tmp_path, **fields)
     data = _splits(root, dataclasses.replace(cfg, output_data_format='last_frame'))

@@ -519,14 +519,18 @@ def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
 @pytest.mark.parametrize('fields,flag', [
     (dict(pipeline_parallel=2), '--pipeline-parallel'),
     (dict(model_parallel=2), '--model-parallel'),
-    (dict(grad_allreduce_dtype='bf16'), '--grad-allreduce-dtype bf16'),
+    # ported: the case holds the flag working (one process: a single data
+    # shard, so ignored as the JAX package ignores it; the f32 run's checkpoints)
+    (dict(grad_allreduce_dtype='bf16'), None),
     # the JAX diffusion loop never reads --compute-report; the port's refuses it
     (dict(model_type='diffusion', compute_report=True), '--compute-report'),
     # ported: the case holds the flag working (the same checkpoints as the
     # synchronous writer's)
     (dict(async_checkpoint=True), None),
     (dict(profile=True), '--profile'),
-    (dict(device_data='sharded'), '--device-data sharded'),
+    # ported: the case holds the flag working (the sharded tier of one rank:
+    # one checkpoint an epoch)
+    (dict(device_data='sharded'), None),
     # ported: the case holds the flag working (two segments, streamed in
     # chunks and step by step, the same checkpoints)
     (dict(device_data='stream'), None),
@@ -552,6 +556,23 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
             assert result.epochs_run == 2
             files.append(ckpt.list_checkpoints(small.checkpoint_dir))
         assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] == [(0, 0), (1, 0)]
+        for (_, _, a), (_, _, b) in zip(*files):
+            pa, pb = (torch.load(p, weights_only=True)['model_state_dict'] for p in (a, b))
+            assert all(torch.equal(v, pb[k]) for k, v in pa.items()), a
+        return
+    if cfg.device_data == 'sharded':
+        small = dataclasses.replace(cfg, hidden_dims=[32], epochs=2)
+        assert run(small, data['train'], data['dev'], device='cpu').epochs_run == 2
+        assert [f[:2] for f in ckpt.list_checkpoints(small.checkpoint_dir)] == [(0, 0), (1, 0)]
+        return
+    if cfg.grad_allreduce_dtype == 'bf16':
+        files = []
+        for d, dtype in (('b', 'bf16'), ('f', 'f32')):
+            small = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / d), hidden_dims=[32],
+                                        epochs=1, grad_allreduce_dtype=dtype)
+            run(small, data['train'], None, device='cpu')
+            files.append(ckpt.list_checkpoints(small.checkpoint_dir))
+        assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] and files[0]
         for (_, _, a), (_, _, b) in zip(*files):
             pa, pb = (torch.load(p, weights_only=True)['model_state_dict'] for p in (a, b))
             assert all(torch.equal(v, pb[k]) for k, v in pa.items()), a
