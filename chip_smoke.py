@@ -227,6 +227,21 @@ Phases, each of which fails the run:
      ``--grad-allreduce-dtype bf16`` (rank 0's checkpoint served through
      K1), the denoiser with EMA (its dev chains through K2). ``--only-phase
      15`` runs the build and this phase alone.
+ 16. model parallelism and sharded sweeps (``phase_model_parallel``), every
+     rank a gloo rank sharing the card. Three commands in one
+     ``IB_MULTIHOST=gloo torchrun --nproc-per-node 2`` (``chip_smoke.py
+     --rank-jobs``): ``train --model-parallel 2`` (the ``pallas`` transformer
+     at full width, B=64; one ``data`` row, step by step with no collective;
+     both ranks bitwise one process, 4 K2 and 12 K3 a step in each rank's
+     profiler trace; the ``sharding_rules`` shard's bytes against the whole
+     state, its gather bitwise), the 1-D ``sweep --device-data sharded``
+     (feedforward K=2 at B=512) and ``sweep --shard-configs`` (``pallas`` K=4
+     at B=64, 2 epochs, ``--pbt-every 1``: bitwise the one-process sweep, 8
+     K2 and 24 K3 a step in each rank's trace, a rank's step ms in chunks of
+     captured steps against one process's); then the 2-D (config 2, data 2)
+     layout on four ranks (``--nproc-per-node 4``), bitwise the 1-D sweep,
+     K1 in its dev evals. ``--only-phase 16`` runs the build and this phase
+     alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -2672,7 +2687,7 @@ PHYS_DYN_REL = 1e-4
 
 
 def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
-                  analyze_length=151, train_length=600, device='cuda'):
+                  analyze_length=101, train_length=600, device='cuda'):
     """The analytical and physics path through ``analyze`` and ``train``:
     two synthetic subjects with differently scaled standard skeletons
     (masses x 1.0 / 1.4, COMs x 1 + 0.1 i, as tests/test_skeleton.py builds
@@ -4258,6 +4273,386 @@ def phase_data_parallel(torch, port, fm, fe, fg, step_mod, root, seed, card, dev
     return report
 
 
+# -- phase 16: model parallelism and sharded sweeps ----------------------------
+
+
+def _captured_states(modules):
+    """Patch ``create_train_state`` in ``modules`` to keep every train state
+    made; returns (the list, a function that undoes the patch)."""
+    made, saved = [], [(m, m.create_train_state) for m in modules]
+
+    def keep(model, optimizer):
+        made.append(saved[0][1](model, optimizer))
+        return made[-1]
+
+    for m, _ in saved:
+        m.create_train_state = keep
+    return made, lambda: [setattr(m, 'create_train_state', f) for m, f in saved]
+
+
+def _timed_dispatches(sweep_mod, sync):
+    """Patch the sweep's ``make_dispatch`` so that every dispatch is timed
+    (host clock, synchronised before and after); returns the list of (steps,
+    seconds) it fills and a function that undoes the patch."""
+    seen, orig = [], sweep_mod.make_dispatch
+
+    def timed(*a, **kw):
+        dispatch = orig(*a, **kw)
+
+        def run(group):
+            sync()
+            t0 = time.perf_counter()
+            out = dispatch(group)
+            if hasattr(out, 'rows'):
+                out.rows()
+            sync()
+            seen.append((len(group), time.perf_counter() - t0))
+            return out
+        return run
+
+    sweep_mod.make_dispatch = timed
+    return seen, lambda: setattr(sweep_mod, 'make_dispatch', orig)
+
+
+def _mp_train(job):
+    """``train --model-parallel 2`` of ``job['argv']`` on this rank (the
+    ``train`` command's ``run_training`` inside the rank's process group),
+    the whole run in a profiler trace on the card; its final parameters
+    held bitwise against the one-process run's (``job['one']``, an ``.npz``);
+    then ``parallel/sharding_rules.py`` on the ``model`` axis: the rank's
+    shard of the trained state and of a feedforward state (one update), each
+    gathered back over the ``model`` group. Returns the traced kernels, the
+    wrappers' launches, the steps, the first parameter that differs from one
+    process (None: bitwise), and by state the shard's and the whole state's
+    bytes and whether the gather was bitwise the state."""
+    import torch
+
+    from inferbiomechanics_tpu_torch.__main__ import build_parser
+    from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
+    from inferbiomechanics_tpu_torch.config import Config
+    from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+    from inferbiomechanics_tpu_torch.models import build_model_for_dataset
+    from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+    from inferbiomechanics_tpu_torch.parallel import sharding_rules as sr
+    from inferbiomechanics_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from inferbiomechanics_tpu_torch.train import loop as loop_mod
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+    made, undo = _captured_states([loop_mod])
+    fe.launches = fe.bwd_launches = 0
+    args = build_parser().parse_args(job['argv'])
+    try:
+        if job['device'] == 'cuda':
+            _, traced, busy = _traced(torch, lambda: run_training(args))
+        else:
+            run_training(args)
+            traced, busy = None, None
+    finally:
+        undo()
+    state = made[-1]
+    one = np.load(job['one'])
+    got = {k: v.detach().float().cpu().numpy() for k, v in state.model.state_dict().items()}
+    differs = next((k for k in one.files if not np.array_equal(one[k], got[k])), None)
+    out = dict(traced=traced, busy_us=busy, steps=state.step, differs=differs,
+               launches=dict(k2=fe.launches, k3=fe.bwd_launches))
+    layout = make_mesh(model_parallel=2)
+    ds = WindowDataset(job['home'] + '/train', window_size=50, stride=5,
+                       skip_loading_skeletons=True)
+    ff = build_model_for_dataset(Config(), ds, generator=torch.Generator().manual_seed(1),
+                                 device=next(state.model.parameters()).device)
+    ff_state = create_train_state(ff, make_optimizer(ff.named_parameters(), 'rmsprop', 1e-3))
+    for prm in ff.parameters():
+        prm.grad = torch.ones_like(prm)
+    ff_state.optimizer.step()
+    out['sharding'] = {}
+    for name, st in (('pallas', state), ('feedforward', ff_state)):
+        shard = sr.shard_state(st, 2, layout.coord(MODEL_AXIS))
+        whole = sr.gather_state(shard, layout.group(MODEL_AXIS))
+        full = sr.shard_state(st, 1, 0)
+        equal = (all(torch.equal(whole.params[n], t) for n, t in full.params.items())
+                 and all(torch.equal(whole.moments[n][k], t)
+                         for n, m in full.moments.items() for k, t in m.items()))
+        out['sharding'][name] = dict(
+            shard_bytes=shard.nbytes(), full_bytes=full.nbytes(), gathered_bitwise=equal,
+            split=sorted(n for n, d in shard.param_dims.items() if d is not None))
+    return out
+
+
+def _mp_sweep(job):
+    """The ``sweep`` command of ``job['argv']`` on this rank (inside the
+    rank's process group); with ``job['trace']`` the run in a profiler
+    trace, each dispatch timed. Returns its exit code, K1's launches, and the
+    traced kernels and dispatches (steps, seconds)."""
+    import torch
+
+    from inferbiomechanics_tpu_torch.__main__ import main as port_main
+    from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.train import sweep as sweep_mod
+    fm.launches = 0
+    if not job.get('trace'):
+        return dict(rc=port_main(job['argv']), k1=fm.launches)
+    dispatches, undo = _timed_dispatches(sweep_mod, torch.cuda.synchronize)
+    try:
+        rc, traced, busy = _traced(torch, lambda: port_main(job['argv']))
+    finally:
+        undo()
+    return dict(rc=rc, k1=fm.launches, traced=traced, busy_us=busy, dispatches=dispatches)
+
+
+_MP_JOBS = {'train': _mp_train, 'sweep': _mp_sweep}
+
+
+def rank_jobs(out_path: str) -> int:
+    """A rank of ``torchrun chip_smoke.py --rank-jobs OUT``: joins the
+    process group from torchrun's environment (``IB_MULTIHOST``), runs the
+    jobs of ``OUT.jobs.json`` (phase 16's commands, each as a user calls it)
+    and writes their results to ``OUT.<rank>.json``."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from inferbiomechanics_tpu_torch.parallel import dist
+    jobs = json.loads(Path(f'{out_path}.jobs.json').read_text())
+    dist.start_from_env(jobs[0]['device'])
+    try:
+        results = [_MP_JOBS[job['fn']](job) for job in jobs]
+    finally:
+        dist.shutdown()
+    Path(f'{out_path}.{os.environ["RANK"]}.json').write_text(json.dumps(results))
+    return 0
+
+
+def _step_ms(dispatches, skip: int = 1) -> float:
+    """The median ms of a step over the timed dispatches after the first
+    ``skip`` (a capture, the first eager steps)."""
+    rows = dispatches[skip:] or dispatches[-1:]
+    return statistics.median(sec / n for n, sec in rows) * 1e3
+
+
+def _rank_jobs_run(out, jobs, nproc: int, on_card: bool, cwd):
+    """``IB_MULTIHOST=gloo torchrun --standalone --nproc-per-node nproc
+    chip_smoke.py --rank-jobs out``: every rank runs ``jobs``
+    (:func:`rank_jobs`). Returns (seconds with start-up, each rank's
+    results); fails the run on a non-zero exit."""
+    Path(f'{out}.jobs.json').write_text(json.dumps(jobs))
+    # on the CPU one thread a rank, as in this process, so that the sums agree
+    env = dict(os.environ, IB_MULTIHOST='gloo', PYTHONPATH=str(REPO),
+               OMP_NUM_THREADS='4' if on_card else '1')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc-per-node',
+           str(nproc), str(REPO / 'chip_smoke.py'), '--rank-jobs', str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600,
+                          cwd=str(cwd))
+    seconds = time.perf_counter() - t0
+    _check(proc.returncode == 0, f'torchrun --nproc-per-node {nproc} --rank-jobs: exit '
+                                 f'{proc.returncode}\n{proc.stdout[-3000:]}\n'
+                                 f'{proc.stderr[-3000:]}')
+    return seconds, [json.loads(Path(f'{out}.{r}.json').read_text()) for r in range(nproc)]
+
+
+def phase_model_parallel(torch, port, fm, fe, fg, root, seed, card, device='cuda',
+                         small=64, wide=512, size_flags=()):
+    """16. Model parallelism and sharded sweeps (``parallel/mesh.py``,
+    ``parallel/sharding_rules.py``, ``train/sweep.py``), every rank a gloo
+    rank sharing the card. Under ``IB_MULTIHOST=gloo torchrun
+    --nproc-per-node 2`` (``rank_jobs``; one start-up for three commands):
+
+    - ``train --model-parallel 2``: the ``pallas`` transformer at full
+      width, B=``small``, one epoch; the two ranks form one ``data`` row, so
+      each runs step by step (the JAX chunk policy at world 2) with no
+      collective in its step: both ranks bitwise the run in one process (in
+      chunks of captured steps); in each rank's profiler trace 4 K2 and 12
+      K3 a step; ``sharding_rules``: the bytes a rank holds of the
+      column-split trained state and of a feedforward state against the
+      whole, each gathered back bitwise;
+    - ``sweep --device-data sharded``: feedforward K=2 at B=``wide`` on the
+      trials split over the two ranks (the 1-D layout);
+    - ``sweep --shard-configs``: ``pallas`` K=4 (2 lrs x 2 seeds) at
+      B=``small``, 2 epochs, ``--pbt-every 1``, bitwise the one-process K=4
+      sweep (dev curves, losses, PBT events, final checkpoints); in each
+      rank's trace 8 K2 and 24 K3 a step (and 8 K2 a dev batch); a rank's
+      step ms (its two configs, in chunks of captured steps: the step holds
+      no collective) against the one-process K=4 step's.
+
+    Then the 2-D (config, data) layout on 4 ranks (the same ``torchrun``
+    with ``--nproc-per-node 4``): the same feedforward ``sweep --device-data
+    sharded --shard-configs``, bitwise the 1-D sweep, K1 in its dev evals.
+    ``device`` 'cpu' rehearses it (no traces, no launch counts checked)."""
+    from inferbiomechanics_tpu_torch.__main__ import main as port_main
+    from inferbiomechanics_tpu_torch.train import loop as loop_mod
+    from inferbiomechanics_tpu_torch.train import sweep as sweep_mod
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    layers = ENC_FULL['layers']
+    report = {'card': card}
+    home = root / 'mp_data'
+    # 5 steps of B=64 an epoch, 2 dev batches: the phase stays near phase 15's 90 s
+    # (its time is the ranks' start-up and their profiler traces)
+    for split, n, trials, length in (('train', 1, 1, 600), ('dev', 1, 1, 400)):
+        (home / split).mkdir(parents=True)
+        for i in range(n):
+            port.write_synthetic_subject(str(home / split / f'subject_{i}.b3d'),
+                                         num_trials=trials, trial_length=length,
+                                         seed=seed + 1600 + i + (10 if split == 'dev' else 0))
+    bare = root / 'mp_train_only'             # no dev split: the trace holds the steps only
+    (bare / 'train').mkdir(parents=True)
+    shutil.copy(home / 'train' / 'subject_0.b3d', bare / 'train' / 'subject_0.b3d')
+    wide_home = root / 'mp_wide'
+    for split, n in (('train', 4), ('dev', 1)):
+        (wide_home / split).mkdir(parents=True)
+        for i in range(n):
+            port.write_synthetic_subject(str(wide_home / split / f'subject_{i}.b3d'),
+                                         num_trials=2, trial_length=1100,
+                                         seed=seed + 1700 + i + (10 if split == 'dev' else 0))
+    windows = lambda where: len(port.WindowDataset(  # noqa: E731
+        str(where), window_size=50, stride=5, skip_loading_skeletons=True))
+    steps = windows(bare / 'train') // small
+    dev_b = windows(home / 'dev') // small
+    pallas = ['--model-type', 'transformer', '--attn-impl', 'pallas', *size_flags]
+    k3_shape = fe.plan_encoder_bwd(small, ENC_FULL['t'], ENC_FULL['d'],
+                                   ENC_FULL['d'] * ENC_FULL['mlp_ratio'], ENC_FULL['heads']).shape
+
+    def train_argv(ckpt, *more):
+        return ['train', '--dataset-home', str(bare), '--checkpoint-dir', str(ckpt),
+                '--device', device, '--batch-size', str(small), '--epochs', '1',
+                '--seed', str(seed), *pallas, *more]
+
+    def wide_sweep_argv(ckpt, *more):
+        return ['sweep', '--dataset-home', str(wide_home), '--checkpoint-dir', str(ckpt),
+                '--device', device, '--batch-size', str(wide), '--epochs', '1',
+                '--seed', str(seed), '--no-wandb', '--lrs', '1e-3', '--seeds', '0', '1',
+                '--device-data', 'sharded', *more]
+
+    def sweep_argv(ckpt, *more):
+        return ['sweep', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt),
+                '--device', device, '--batch-size', str(small), '--epochs', '2',
+                '--seed', str(seed), '--no-wandb', '--lrs', '1e-4', '3e-4', '--seeds', '0', '1',
+                '--pbt-every', '1', *pallas, *more]
+
+    # -- the one-process references -------------------------------------------
+    made, undo = _captured_states([loop_mod])
+    try:
+        port.run_training(port.parser().parse_args(train_argv(root / 'mp_one')))
+    finally:
+        undo()
+    np.savez(root / 'mp_one.npz', **{k: v.detach().float().cpu().numpy()
+                                     for k, v in made[-1].model.state_dict().items()})
+    dispatches, undo = _timed_dispatches(sweep_mod, sync)
+    try:
+        _check(port_main(sweep_argv(root / 'sw_one')) == 0, 'the one-process sweep')
+    finally:
+        undo()
+    one_ms = _step_ms(dispatches)
+
+    # -- 16a-c. three commands on two ranks under torchrun ---------------------
+    out = root / 'mp_ranks'
+    jobs = [dict(fn='train', argv=train_argv(root / 'mp_ckpt', '--model-parallel', '2'),
+                 home=str(bare), device=device, one=str(root / 'mp_one.npz')),
+            dict(fn='sweep', argv=wide_sweep_argv(root / 'sw_1d'), device=device),
+            dict(fn='sweep', argv=sweep_argv(root / 'sw_two', '--shard-configs'), device=device,
+                 trace=on_card)]
+    torchrun_s, ranks = _rank_jobs_run(out, jobs, 2, on_card, root)
+
+    # 16a. train --model-parallel 2
+    r0, r1 = ranks[0][0], ranks[1][0]
+    for r in (r0, r1):
+        _check(r['steps'] == steps, f'--model-parallel 2 rank steps {r["steps"]}, want {steps}')
+        _check(r['differs'] is None, f'--model-parallel 2: {r["differs"]} differs from one '
+                                     f'process')
+        if on_card:
+            _check_traced(r['traced'], layers, steps, 0, k3_shape, '--model-parallel 2 rank')
+            _check(r['launches'] == dict(k2=layers * steps,
+                                         k3=layers * fe.BWD_LAUNCHES_PER_LAYER * steps),
+                   f'--model-parallel 2 wrapper launches {r["launches"]}')
+        for name, sh in r['sharding'].items():
+            _check(sh['gathered_bitwise'], f'sharding_rules {name}: the gather differs')
+    report['train_mp2'] = dict(steps=steps, batch=small, bitwise_one_process=True,
+                               traced=r0['traced'], launches=[r0['launches'], r1['launches']],
+                               busy_us=[r0['busy_us'], r1['busy_us']], sharding=r0['sharding'])
+    print(f'[model-parallel] train --model-parallel 2 on two gloo ranks, pallas full width '
+          f'B={small}, {steps} steps step by step ({card}): both ranks bitwise the run in one '
+          f'process in chunks of captured steps; traced kernels a rank {r0["traced"]} '
+          f'({layers} K2 and {layers * fe.BWD_LAUNCHES_PER_LAYER} K3 a step); device busy '
+          f'{r0["busy_us"]} us (rank 0) for the run', flush=True)
+    for name, sh in r0['sharding'].items():
+        print(f'[model-parallel] sharding_rules {name}: a rank of the model axis holds '
+              f'{sh["shard_bytes"]} of the state\'s {sh["full_bytes"]} bytes (split: '
+              f'{sh["split"]}); gathered back over the model group bitwise ({card})',
+              flush=True)
+
+    # 16b. sweep --shard-configs
+    a = json.loads((root / 'sw_one' / 'sweep' / 'transformer' / 'sweep_results.json').read_text())
+    b = json.loads((root / 'sw_two' / 'sweep' / 'transformer' / 'sweep_results.json').read_text())
+    _check(a['pbt_events'] == b['pbt_events'] and len(a['pbt_events']) == 1,
+           f'sharded sweep PBT events {b["pbt_events"]} against {a["pbt_events"]}')
+    for i, (p, q) in enumerate(zip(a['points'], b['points'])):
+        _check(p['dev_curve'] == q['dev_curve'] and p['final_train_loss'] ==
+               q['final_train_loss'] and p['final_learning_rate'] == q['final_learning_rate'],
+               f'sharded sweep config {i}: {q["dev_curve"]} against {p["dev_curve"]}')
+        verdict = _compare_final(torch, Path(p['checkpoint_path']).parent,
+                                 Path(q['checkpoint_path']).parent, 1)
+        _check(verdict['bitwise'], f'sharded sweep config {i}: {verdict["verdict"]}')
+    entry = dict(configs=4, steps_per_epoch=steps, epochs=2, dev_batches=dev_b,
+                 pbt_events=b['pbt_events'], bitwise_one_process=True,
+                 torchrun_seconds=torchrun_s, one_process_step_ms=one_ms)
+    if on_card:
+        swept = [r[2] for r in ranks]
+        for r, got in enumerate(swept):
+            _check(got['rc'] == 0, f'traced sweep rank {r}: exit {got["rc"]}')
+            # two configs a rank: 8 K2 and 24 K3 a step, 8 K2 a dev batch (2 evals)
+            _check_traced(got['traced'], 2 * layers, 2 * steps, 2 * dev_b, k3_shape,
+                          f'sharded sweep rank {r}')
+        entry.update(traced=[g['traced'] for g in swept],
+                     rank_step_ms=[_step_ms(g['dispatches']) for g in swept],
+                     busy_us=[g['busy_us'] for g in swept])
+    report['sweep_shard_configs'] = entry
+    print(f'[model-parallel] IB_MULTIHOST=gloo torchrun --nproc-per-node 2 sweep '
+          f'--shard-configs --pbt-every 1, pallas K=4 at B={small}, 2 epochs of {steps} '
+          f'steps ({card}): bitwise the one-process K=4 sweep (dev curves, losses, PBT event '
+          f'{b["pbt_events"]}, final checkpoints); traced kernels by rank '
+          f'{entry.get("traced")} (8 K2 and 24 K3 a step, 8 K2 a dev batch); a step '
+          f'{entry.get("rank_step_ms")} ms by rank (host clock, synchronised, two configs) '
+          f'against {one_ms:.3f} ms in one process (four configs), both in chunks of captured '
+          f'steps; the three commands\' torchrun {torchrun_s:.1f} s with start-up', flush=True)
+
+    # 16c. the 2-D (config, data) layout on four ranks against the 1-D sweep
+    torchrun4_s, ranks4 = _rank_jobs_run(root / 'mp_ranks4', [dict(
+        fn='sweep', argv=wide_sweep_argv(root / 'sw_2d', '--shard-configs'), device=device)],
+        4, on_card, root)
+    one_d = json.loads((root / 'sw_1d' / 'sweep' / 'feedforward' / 'sweep_results.json')
+                       .read_text())
+    two_d = json.loads((root / 'sw_2d' / 'sweep' / 'feedforward' / 'sweep_results.json')
+                       .read_text())
+    for i, (p, q) in enumerate(zip(one_d['points'], two_d['points'])):
+        _check(p['dev_curve'] == q['dev_curve'] and p['final_train_loss'] ==
+               q['final_train_loss'], f'2-D config {i}: {q["dev_curve"]} against the 1-D '
+                                      f'{p["dev_curve"]}')
+        verdict = _compare_final(torch, Path(p['checkpoint_path']).parent,
+                                 Path(q['checkpoint_path']).parent, 0)
+        _check(verdict['bitwise'], f'2-D config {i}: {verdict["verdict"]}')
+    k1_2d, k1_1d = [r[0]['k1'] for r in ranks4], [r[1]['k1'] for r in ranks]
+    wide_dev_b = windows(wide_home / 'dev') // wide
+    if on_card:
+        _check(all(r[0]['rc'] == 0 for r in ranks4) and k1_2d == [wide_dev_b] * 4
+               and k1_1d == [2 * wide_dev_b] * 2,
+               f'sweeps: K1 launches by rank {k1_2d} (2-D) and {k1_1d} (1-D), want '
+               f'{wide_dev_b} a config a rank')
+    report['sweep_2d'] = dict(configs=2, layout='2 config x 2 data', batch=wide,
+                              k1_launches_by_rank=k1_2d, k1_launches_1d=k1_1d,
+                              dev_curves=[q['dev_curve'] for q in two_d['points']],
+                              torchrun_seconds=torchrun4_s)
+    print(f'[model-parallel] sweep --device-data sharded --shard-configs on four gloo ranks '
+          f'(config 2 x data 2), feedforward K=2 at B={wide} ({card}): bitwise the 1-D '
+          f'sharded sweep on two ranks (dev curves, losses, final checkpoints); K1 {k1_2d} '
+          f'launches by rank in the dev evals ({wide_dev_b} dev batches, one config a rank), '
+          f'the 1-D ranks {k1_1d}; torchrun --nproc-per-node 4 {torchrun4_s:.1f} s with '
+          f'start-up', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[model-parallel] phase 16 took {report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
 def _dp_start_params(torch, port, job, ds, device):
     """The parameters :func:`_dp_steps` starts from (float64, by name)."""
     cfg = port.config_from_args(port.parser().parse_args(['train', *job['flags']]))
@@ -4289,8 +4684,10 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16], default=None,
                     help='build the kernels and run this phase alone (no result lines)')
+    if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
+        return rank_jobs(sys.argv[2])
     args = ap.parse_args()
     t_smoke = time.perf_counter()
     if not (REPO / 'inferbiomechanics_tpu_torch').is_dir():
@@ -4358,6 +4755,12 @@ def main() -> int:
     to_stdout.setFormatter(logging.Formatter('[capture] %(message)s'))
     capture_log.addHandler(to_stdout)
 
+    # the wall clock at each phase's end, for the last [smoke] line
+    marks = [('start', t_smoke)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     # 2. build
     info = _build.build()
     print(f'[build] K1, K2, K3 and K4 built with nvcc in {info["seconds"]:.2f} s', flush=True)
@@ -4382,12 +4785,25 @@ def main() -> int:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
         return 0
+    if args.only_phase == 16:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            port = SimpleNamespace(parser=main_parser, run_training=run_training,
+                                   write_synthetic_subject=write_synthetic_subject,
+                                   WindowDataset=WindowDataset)
+            report = phase_model_parallel(torch, port, fm, fe, fg, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
 
+    mark('1-2 build')
     # 3. kernels vs plain
     k1_err = phase_k1_vs_plain(torch, fm, args.seed)
     k2_err, k2_checked = phase_k2_vs_plain(torch, fe, args.seed)
     k4_err, k4_checked = phase_k4_vs_plain(torch, fg, random_groundlink_params, args.seed)
     k3_err, k3_checked = phase_k3_vs_plain(torch, fe, args.seed)
+    mark('3 kernels vs plain')
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
     try:
@@ -4528,44 +4944,60 @@ def main() -> int:
         k4_tta_launches = phase_tta_and_poller(
             port, data, ckpt_root, ds, gl_symmetrized, weights_for(gcfg), fg, args.seed)
 
+        mark('4-5c serving')
         # 7 and 7b. training
         trained = phase_training(torch, port, fe, fg, step_mod, tmp, args.seed, card)
+        mark('7 training')
         # 7d. the chunked step against step by step, resumed, kernels traced
         chunked = phase_chunked(torch, port, fe, step_mod, tmp, args.seed, card)
+        mark('7d chunked')
 
         # 8. analyze on the checkpoints phase 7 wrote
         analyzed = phase_analyze(torch, port, fm, fe, fg, tmp, args.seed, card,
                                  member=tmp / 'member_0')
+        mark('8 analyze')
 
         # 9. the diffusion denoiser: sampling, serve and analyze through K2
         diffused = phase_diffusion(torch, port, fe, fm, fg, diffusion, tmp, args.seed, card,
                                    data, ds)
+        mark('9 diffusion')
 
         # 10. diffusion training, with the dev eval's chains through K2
         diffusion_trained = phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion,
                                                   tmp, args.seed, card, tmp / 'train_data')
+        mark('10 diffusion training')
 
         # 11. batchnorm, dropout and augmentation in every tier of both loops
         regularised = phase_regularised(torch, port, fe, fm, step_mod, augment_mod, tmp,
                                         args.seed, card)
+        mark('11 regularised')
 
         # 12. the analytical and physics path: skeleton FK and inverse
         # dynamics, analyze --model-type analytical, --compute-report
         physics = phase_physics(torch, port, fm, fg, step_mod, tmp, args.seed, card,
                                 wide=tmp / 'analyze_wide')
+        mark('12 physics')
 
         # 13. checkpoints across frameworks: JAX-format files served, scored
         # and resumed, the asynchronous writer, soups
         checkpoints = phase_checkpoints(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+        mark('13 checkpoints')
 
         # 14. scale-out on one card: --device-data stream in both loops, and
         # the sweep command (a grid in one captured step, PBT, resume)
         scale_out = phase_scale_out(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+        mark('14 scale-out')
 
         # 15. data parallelism over processes: world 1 on NCCL with the
         # all-reduce in the captured step, two ranks on the card, torchrun
         data_parallel = phase_data_parallel(torch, port, fm, fe, fg, step_mod, tmp, args.seed,
                                             card)
+        mark('15 data parallel')
+
+        # 16. model parallelism and sharded sweeps: train --model-parallel 2
+        # on two ranks, sweep --shard-configs under torchrun, the 2-D layout
+        model_parallel = phase_model_parallel(torch, port, fm, fe, fg, tmp, args.seed, card)
+        mark('16 model parallel')
 
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
@@ -4587,6 +5019,7 @@ def main() -> int:
         for b in (4096, default_batch):
             steps[f'pallas B={b} chunks of 64'] = phase_chunk_times(
                 torch, port, fe, ds, card, args.seed, b)
+        mark('6 train steps')
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4766,8 +5199,11 @@ def main() -> int:
 
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
-          f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s '
-          f'({card})', flush=True)
+          f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
+          f'{model_parallel["seconds"]:.1f} s ({card})', flush=True)
+    mark('6 times')
+    print('[smoke] seconds by part: ' + ', '.join(
+        f'{name} {t1 - t0:.1f}' for (_, t0), (name, t1) in zip(marks, marks[1:])), flush=True)
     print(card, flush=True)     # name, power limit: as nvidia-smi prints them
     print(json.dumps({'kernels': [
         entry(K1, k1_launches, k1_err, 'B=4096, 1770->512->512->30, sigmoid', k1,
@@ -4785,7 +5221,7 @@ def main() -> int:
               physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
               batchnorm=regularised, checkpoints=checkpoints, scale_out=scale_out,
-              data_parallel=data_parallel),
+              data_parallel=data_parallel, model_parallel=model_parallel),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},

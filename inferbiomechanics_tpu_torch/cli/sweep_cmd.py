@@ -10,6 +10,18 @@ after the other. ``--pbt-every N`` turns the grid into population-based
 training. ``--device`` names the torch device: ``cuda`` (the default;
 fails without a GPU) or ``cpu``.
 
+The JAX sweep spreads over the local devices of one process; the port
+spreads over ranks, one a device, started by ``torchrun`` with
+``IB_MULTIHOST`` set (``parallel/dist.py::process_group_from_env``, as for
+``train``): ``--shard-configs`` gives each rank its block of the grid,
+``--device-data sharded`` splits the trials over the ranks, and both
+together lay the ranks out as (config, data) (``train/sweep.py``). Rank 0
+writes ``sweep_results.json``::
+
+    IB_MULTIHOST=1 torchrun --nproc-per-node 4 -m inferbiomechanics_tpu_torch sweep \
+        --dataset-home D --checkpoint-dir C --lrs 1e-4 3e-4 --seeds 0 1 \
+        --shard-configs [--device-data sharded]
+
 Writes ``<checkpoint-dir>/sweep/<model-type>/<shape>/lr{lr}_seed{seed}/``
 (each config's final and best checkpoints and its ``run_config.json``) and
 ``<checkpoint-dir>/sweep/<model-type>/sweep_results.json``, prints the
@@ -29,6 +41,7 @@ import os
 
 from inferbiomechanics_tpu_torch.config import add_config_flags, config_from_args
 from inferbiomechanics_tpu_torch.data.dataset import WindowDataset
+from inferbiomechanics_tpu_torch.parallel import dist
 
 logger = logging.getLogger(__name__)
 
@@ -47,8 +60,9 @@ def register_subcommand(sub) -> None:
                         'hidden-dims list (e.g. "512,512" "256,256"); shapes train '
                         'one after the other, the lr x seed grid together inside each')
     p.add_argument('--shard-configs', action='store_true',
-                   help='shard the config axis across devices: not yet ported '
-                        '(ROADMAP.md Queue 1 item 8c)')
+                   help='shard the config axis across the ranks (each owns K/n configs, '
+                        'no per-step collective); with --device-data sharded, a 2-D '
+                        '(config, data) layout')
     p.add_argument('--max-batches-per-epoch', type=int, default=None,
                    help='clamp epochs for smoke runs')
     p.add_argument('--pbt-every', type=int, default=0,
@@ -75,6 +89,11 @@ def run(args: argparse.Namespace) -> int:
     if config.model_type == 'analytical':
         print('The analytical baseline has no trainable parameters; nothing to sweep.')
         return 0
+    with dist.process_group_from_env(args.device) as device:
+        return _sweep(args, config, device)
+
+
+def _sweep(args: argparse.Namespace, config, device) -> int:
     from inferbiomechanics_tpu_torch.train.sweep import run_sweep
     from inferbiomechanics_tpu_torch.utils.wandb_compat import MetricLogger
 
@@ -103,7 +122,7 @@ def run(args: argparse.Namespace) -> int:
                            shard_configs=args.shard_configs, pbt_every=args.pbt_every,
                            metric_logger=ml,
                            metric_prefix=f'{shape_tag}/' if len(shapes) > 1 else '',
-                           device=args.device)
+                           device=device)
         if result.pbt_events:
             all_events.extend({**e, 'hidden_dims': list(config.hidden_dims)}
                               for e in result.pbt_events)
@@ -125,11 +144,12 @@ def run(args: argparse.Namespace) -> int:
               f'{result.windows_per_sec:,.0f} windows/sec aggregate; '
               f'best: {lr_tag} seed={b.seed}')
 
-    os.makedirs(root, exist_ok=True)
     out = os.path.join(root, 'sweep_results.json')
-    with open(out, 'w') as f:
-        json.dump({'points': all_points, 'best': best[1] if best else None,
-                   'pbt_events': all_events}, f, indent=2)
+    if dist.is_main():
+        os.makedirs(root, exist_ok=True)
+        with open(out, 'w') as f:
+            json.dump({'points': all_points, 'best': best[1] if best else None,
+                       'pbt_events': all_events}, f, indent=2)
     if best:
         b = best[1]
         flr = b.get('final_learning_rate')

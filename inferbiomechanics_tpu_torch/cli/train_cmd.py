@@ -17,6 +17,14 @@ torchrun's environment (NCCL for ``--device cuda``, rank r on
 ``=nccl`` names the backend, e.g. gloo for ranks that share one GPU)::
 
     IB_MULTIHOST=1 torchrun --nproc-per-node 4 -m inferbiomechanics_tpu_torch train ...
+
+``--model-parallel mp`` lays the ranks out as the JAX loop lays its devices
+out, (data, model) of shape (n / mp, mp), with the state replicated: the mp
+ranks of a ``data`` row train on the same rows, and the data-parallel
+degree falls to n / mp (``train/loop.py``)::
+
+    IB_MULTIHOST=1 torchrun --nproc-per-node 4 -m inferbiomechanics_tpu_torch train \
+        ... --model-parallel 2
 """
 
 from __future__ import annotations
@@ -63,19 +71,12 @@ def run_training(args: argparse.Namespace) -> TrainResult:
             skip_loading_skeletons=not config.compute_report,
             materialize_features=config.materialize_features)
 
-    device = args.device
-    started = bool(os.environ.get('IB_MULTIHOST')) and not dist.is_initialized()
-    if started:
-        device = dist.start_from_env(args.device)
-    try:
+    with dist.process_group_from_env(args.device) as device:
         train_ds = split('train')
         dev_ds = split('dev') if os.path.isdir(os.path.join(config.dataset_home, 'dev')) else None
         if config.model_type == 'diffusion':
             return train_diffusion(config, train_ds, dev_ds, device=device)
         return train(config, train_ds, dev_ds, device=device)
-    finally:
-        if started:
-            dist.shutdown()
 
 
 def run(args: argparse.Namespace) -> int:

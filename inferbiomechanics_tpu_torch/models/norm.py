@@ -38,16 +38,18 @@ def batch_stats(x: torch.Tensor, sync: Optional[Callable[[torch.Tensor], torch.T
     """Mean and biased variance of ``x`` [N, C] over its rows, in float32,
     the variance as E[x^2] - E[x]^2 clipped at 0 (flax's
     ``use_fast_variance``). With ``sync`` (a differentiable sum over the
-    ranks of a data-parallel run, every rank holding N rows) the statistics
-    are those of the global batch: the sums of x and x^2 go over the ranks
-    in one collective, as pjit's statistics go over the global batch."""
+    ranks of a data-parallel run's ``data`` axis, every rank holding N rows:
+    ``parallel/dist.py::RankSum``, whose ``size`` counts them) the
+    statistics are those of the global batch: the sums of x and x^2 go over
+    the ranks in one collective, as pjit's statistics go over the global
+    batch."""
     x = x.float()
     if sync is None:
         mean = x.mean(0)
         var = torch.clamp((x * x).mean(0) - mean * mean, min=0.0)
         return mean, var
     sums = sync(torch.stack([x.sum(0), (x * x).sum(0)]))
-    n = x.shape[0] * int(torch.distributed.get_world_size())
+    n = x.shape[0] * sync.size
     mean = sums[0] / n
     var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
     return mean, var
@@ -73,7 +75,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer('running_mean', torch.zeros(num_features, device=device))
         self.register_buffer('running_var', torch.ones(num_features, device=device))
-        # under data parallelism a sum over the ranks (parallel/dist.py)
+        # under data parallelism a sum over the data axis's ranks
+        # (parallel/dist.py::RankSum)
         self.stats_sync: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

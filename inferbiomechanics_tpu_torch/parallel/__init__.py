@@ -1,4 +1,5 @@
-"""Data parallelism over processes (``parallel/dist.py``), the counterpart
-of the JAX package's ``parallel/mesh.py``. ``pipeline.py`` is not ported
-(ROADMAP.md, not to port); ``sharding_rules.py``, the model-parallel column
-split, waits for ROADMAP.md Queue 1 item 8c."""
+"""Parallelism over processes, the counterpart of the JAX package's
+``parallel/``: ``dist.py`` (the process group and its collectives),
+``mesh.py`` (the JAX meshes' rank layouts) and ``sharding_rules.py`` (the
+model-parallel column split, a library no loop calls, as in the JAX
+package). ``pipeline.py`` is not ported (ROADMAP.md, not to port)."""

@@ -1,10 +1,12 @@
 """Data parallelism over processes: one rank a device, ``torch.distributed``.
 
-PyTorch counterpart of ``inferbiomechanics_tpu/parallel/mesh.py`` with its
-``data`` axis spread over processes: one rank stands for one JAX process
-with one device. The JAX package gets its collectives from XLA (the
-gradient ``psum`` GSPMD inserts, the explicit one of
-``train/step.py::lowp_allreduce_grads``); here they are explicit:
+PyTorch counterpart of the collectives of ``inferbiomechanics_tpu/parallel/
+mesh.py``'s meshes spread over processes: one rank stands for one JAX
+device (``parallel/mesh.py`` lays the ranks out on the JAX meshes' axes).
+The JAX package gets its collectives from XLA (the gradient ``psum`` GSPMD
+inserts, the explicit one of ``train/step.py::lowp_allreduce_grads``); here
+they are explicit, and each takes the :class:`Group` of ranks it reduces
+over (one axis of a layout; None, the default, is the whole world):
 
 - :class:`GradAllReduce`: the gradients left on the parameters after the
   backward (and after ``--grad-accum-steps``' accumulation), mean-reduced
@@ -17,9 +19,14 @@ gradient ``psum`` GSPMD inserts, the explicit one of
   sums the cotangents), for the batch statistics of a BatchNorm
   (``models/norm.py``) and the Augmenter's noise scale, which the JAX
   package computes over the global batch;
-- :func:`mean_over_ranks` for evaluation metrics, :func:`any_rank` for a
-  flag that must stop every rank at the same step boundary (SIGTERM), and
-  :func:`barrier`.
+- :func:`mean_over_ranks` for evaluation metrics, :func:`all_gather` for
+  a tensor's slices (``parallel/sharding_rules.py::gather_state``);
+- world-wide, on the host group: :func:`any_rank` for a flag that must
+  stop every rank at the same step boundary (SIGTERM), :func:`barrier`,
+  :func:`gather_host` (host arrays from every rank) and
+  :func:`move_host_tensors` (tensors from one rank to another).
+
+A group of one rank makes no collective: its sum is the identity.
 
 The backend is an explicit argument: NCCL for CUDA devices (one GPU a
 rank), gloo for the CPU, or gloo for ranks that share a GPU. NCCL
@@ -33,18 +40,22 @@ Without a process group every function here is the identity of one rank:
 rank 0 of 1, :func:`is_main` True, no collective.
 
 :func:`start_from_env` is the ``IB_MULTIHOST`` start-up of the ``train``
-command, from torchrun's environment; :func:`spawn` runs a function on n
-ranks of this machine (the tests, and ``chip_smoke.py``'s two-rank runs).
+and ``sweep`` commands, from torchrun's environment
+(:func:`process_group_from_env`); :func:`spawn` runs a function on n ranks
+of this machine (the tests, and ``chip_smoke.py``'s multi-rank runs).
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
 import socket
-from typing import Callable, Dict, Iterable, List, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
@@ -54,6 +65,21 @@ BACKENDS = ('nccl', 'gloo')
 DEFAULT_TIMEOUT_S = 600.0
 
 _host_group = None      # gloo group for host-side flags (None: the default group)
+_subgroups: Dict[Tuple[int, ...], object] = {}     # ranks -> process group
+_timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+
+
+@dataclass(frozen=True)
+class Group:
+    """The ranks a collective reduces over, in their axis's order (a strict
+    part of the world; the whole world is ``None``), and their process group
+    (None for a group of one rank, which makes no collective)."""
+    ranks: Tuple[int, ...]
+    handle: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
 
 
 # -- the process group ---------------------------------------------------------
@@ -71,6 +97,36 @@ def world_size() -> int:
     return tdist.get_world_size() if is_initialized() else 1
 
 
+def group_size(group: Optional[Group] = None) -> int:
+    """The ranks in ``group`` (None: the world)."""
+    return world_size() if group is None else group.size
+
+
+def group_rank(group: Optional[Group] = None) -> int:
+    """This rank's place in ``group`` (None: the world)."""
+    return rank() if group is None else group.ranks.index(rank())
+
+
+def _handle(group: Optional[Group]):
+    return None if group is None else group.handle
+
+
+def subgroup(ranks: Sequence[int]) -> Optional[Group]:
+    """The :class:`Group` of ``ranks``: None when they are the whole world,
+    no process group for one rank, else a process group over them (made
+    once and kept until :func:`shutdown`). Every rank must call this for
+    every group of two or more ranks, in one order, members or not: a rank
+    that skips one hangs the others."""
+    ranks = tuple(int(r) for r in ranks)
+    if len(ranks) == world_size():
+        return None
+    if len(ranks) == 1:
+        return Group(ranks)
+    if ranks not in _subgroups:
+        _subgroups[ranks] = tdist.new_group(list(ranks), timeout=_timeout)
+    return Group(ranks, _subgroups[ranks])
+
+
 def is_main() -> bool:
     """True on the rank that writes checkpoints, the sidecar and logs."""
     return rank() == 0
@@ -80,10 +136,12 @@ def backend() -> Optional[str]:
     return tdist.get_backend() if is_initialized() else None
 
 
-def can_capture() -> bool:
-    """True when a train step's collectives can be captured in a CUDA graph:
-    no process group (no collective) or NCCL."""
-    return not is_initialized() or backend() == 'nccl'
+def can_capture(group: Optional[Group] = None) -> bool:
+    """True when a train step's collectives over ``group`` can be captured
+    in a CUDA graph: no process group or a group of one rank (no
+    collective), or NCCL."""
+    return (not is_initialized() or backend() == 'nccl'
+            or (group is not None and group.size == 1))
 
 
 def default_backend(device) -> str:
@@ -99,7 +157,7 @@ def init(backend_name: str, rank_: int, world: int, init_method: str, device=Non
     rank's device; a CUDA device becomes the current one, and NCCL binds its
     communicator to it. Collectives that wait longer than ``timeout_s``
     fail instead of hanging."""
-    global _host_group
+    global _host_group, _timeout
     if backend_name not in BACKENDS:
         raise ValueError(f'backend must be one of {BACKENDS}, got {backend_name!r}')
     device = torch.device(device if device is not None else 'cpu')
@@ -112,6 +170,7 @@ def init(backend_name: str, rank_: int, world: int, init_method: str, device=Non
     kw = dict(backend=backend_name, init_method=init_method, rank=rank_, world_size=world,
               timeout=datetime.timedelta(seconds=timeout_s))
     tdist.init_process_group(**kw)
+    _timeout = kw['timeout']
     _host_group = (tdist.new_group(backend='gloo', timeout=kw['timeout'])
                    if backend_name == 'nccl' else None)
     logger.info('process group: rank %d of %d, backend %s, device %s', rank_, world,
@@ -124,6 +183,7 @@ def shutdown() -> None:
     if is_initialized():
         tdist.destroy_process_group()
     _host_group = None
+    _subgroups.clear()
 
 
 def start_from_env(device: str = 'cuda', environ=None) -> torch.device:
@@ -156,6 +216,22 @@ def start_from_env(device: str = 'cuda', environ=None) -> torch.device:
     if rank_ == 0:
         print(f'process group: {world} ranks, backend {name}, rank 0 on {dev}', flush=True)
     return dev
+
+
+@contextlib.contextmanager
+def process_group_from_env(device: str):
+    """The commands' ``IB_MULTIHOST`` start-up: with ``IB_MULTIHOST`` set
+    and no process group yet, :func:`start_from_env` on entry and
+    :func:`shutdown` on exit; yields the rank's device (``device`` itself
+    otherwise)."""
+    started = bool(os.environ.get('IB_MULTIHOST')) and not is_initialized()
+    if started:
+        device = start_from_env(device)
+    try:
+        yield device
+    finally:
+        if started:
+            shutdown()
 
 
 def free_port() -> int:
@@ -246,62 +322,128 @@ def any_rank(flag: bool) -> bool:
     return bool(t.item())
 
 
+def gather_host(x: np.ndarray) -> np.ndarray:
+    """Every rank's float64 array ``x`` (one shape on every rank), stacked
+    in rank order: [world, ...], on the host group. Every rank must call it
+    at the same point."""
+    x = np.asarray(x, np.float64)
+    if not is_initialized() or world_size() == 1:
+        return x[None]
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    out = [torch.empty_like(t) for _ in range(world_size())]
+    tdist.all_gather(out, t, group=_host_group)
+    return np.stack([o.numpy() for o in out])
+
+
+def all_gather(x: torch.Tensor, group: Optional[Group] = None) -> List[torch.Tensor]:
+    """``x`` (one shape on every rank) from every rank of ``group`` (None:
+    the world), in the group's order, on ``x``'s device; over gloo the
+    tensors travel through host memory."""
+    if not is_initialized() or group_size(group) == 1:
+        return [x]
+    t = x.detach().contiguous()
+    if backend() == 'gloo':
+        t = t.cpu()
+    out = [torch.empty_like(t) for _ in range(group_size(group))]
+    tdist.all_gather(out, t, group=_handle(group))
+    return [o.to(x.device) for o in out]
+
+
+def _as_bytes(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                      for t in tensors])
+
+
+def move_host_tensors(tensors: Sequence[torch.Tensor], src: int, dst: int) -> None:
+    """Copy ``tensors`` from rank ``src`` into the same-shaped ``tensors``
+    of rank ``dst``, in place and bit for bit (their bytes over the host
+    group, whatever the device). Only ``src`` and ``dst`` call it, once
+    each, and every rank goes through its moves in one order."""
+    me = rank()
+    if me == src:
+        tdist.send(_as_bytes(tensors), dst, group=_host_group)
+    elif me == dst:
+        buf = torch.empty(sum(t.numel() * t.element_size() for t in tensors),
+                          dtype=torch.uint8)
+        tdist.recv(buf, src, group=_host_group)
+        at = 0
+        with torch.no_grad():
+            for t in tensors:
+                n = t.numel() * t.element_size()
+                t.copy_(buf[at:at + n].clone().view(t.dtype).view(t.shape))
+                at += n
+
+
 class _SumOverRanks(torch.autograd.Function):
-    """y = sum over the ranks of x; the backward sums the cotangents over
-    the ranks (each rank's loss reads y)."""
+    """y = sum over the group's ranks of x; the backward sums the
+    cotangents over them (each rank's loss reads y)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, handle):
+        ctx.handle = handle
         y = x.clone()
-        tdist.all_reduce(y)
+        tdist.all_reduce(y, group=handle)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        tdist.all_reduce(g)
-        return g
+        tdist.all_reduce(g, group=ctx.handle)
+        return g, None
 
 
-def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable (identity without a
-    process group)."""
-    if not is_initialized() or world_size() == 1:
+def sum_over_ranks(x: torch.Tensor, group: Optional[Group] = None) -> torch.Tensor:
+    """The sum of ``x`` over ``group``'s ranks, differentiable (identity
+    without a process group, or over one rank)."""
+    if not is_initialized() or group_size(group) == 1:
         return x
-    return _SumOverRanks.apply(x)
+    return _SumOverRanks.apply(x, _handle(group))
 
 
-def global_std(x: torch.Tensor, dims) -> torch.Tensor:
-    """Population standard deviation of ``x`` over ``dims`` and the ranks
-    (every rank holding as many rows), in ``x``'s dtype: the global mean
-    first, then the global mean of squared deviations (``torch.std`` with
-    ``correction=0``). Not differentiable (it scales data)."""
-    if not is_initialized() or world_size() == 1:
+class RankSum:
+    """``sum_over_ranks`` over one group as a callable (a BatchNorm's
+    ``stats_sync``), with the group's rank count as :attr:`size`."""
+
+    def __init__(self, group: Optional[Group] = None):
+        self.group = group
+        self.size = group_size(group)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return sum_over_ranks(x, self.group)
+
+
+def global_std(x: torch.Tensor, dims, group: Optional[Group] = None) -> torch.Tensor:
+    """Population standard deviation of ``x`` over ``dims`` and ``group``'s
+    ranks (every rank holding as many rows), in ``x``'s dtype: the global
+    mean first, then the global mean of squared deviations (``torch.std``
+    with ``correction=0``). Not differentiable (it scales data)."""
+    if not is_initialized() or group_size(group) == 1:
         return torch.std(x, dim=dims, keepdim=True, correction=0)
     xf = x.float()
-    n = world_size()
+    n = group_size(group)
     for d in dims:
         n *= x.shape[d]
     s = xf.sum(dim=dims, keepdim=True)
-    tdist.all_reduce(s)
+    tdist.all_reduce(s, group=_handle(group))
     mean = s / n
     d2 = ((xf - mean) ** 2).sum(dim=dims, keepdim=True)
-    tdist.all_reduce(d2)
+    tdist.all_reduce(d2, group=_handle(group))
     return torch.sqrt(d2 / n).to(x.dtype)
 
 
-def mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def mean_over_ranks(metrics: Dict[str, torch.Tensor],
+                    group: Optional[Group] = None) -> Dict[str, torch.Tensor]:
     """Metrics (tensors, each a mean over the rank's rows; every rank holding
-    as many) averaged over the ranks in one float32 collective: the metrics
-    of the global batch."""
-    if not is_initialized() or world_size() == 1:
+    as many) averaged over ``group``'s ranks in one float32 collective: the
+    metrics of the global batch."""
+    if not is_initialized() or group_size(group) == 1:
         return metrics
     keys = list(metrics)
     parts = [torch.as_tensor(metrics[k]) for k in keys]
     device = next((p.device for p in parts if p.device.type != 'cpu'), torch.device('cpu'))
     flat = torch.cat([p.reshape(-1).float().to(device) for p in parts])
-    tdist.all_reduce(flat)
-    flat /= world_size()
+    tdist.all_reduce(flat, group=_handle(group))
+    flat /= group_size(group)
     out, at = {}, 0
     for k, p in zip(keys, parts):
         out[k] = flat[at:at + p.numel()].view(p.shape)
@@ -311,12 +453,13 @@ def mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
 
 class GradAllReduce:
     """``sync(metrics) -> metrics`` after a step's backward: the gradients on
-    ``params`` and the step's metrics, mean-reduced over the ranks.
+    ``params`` and the step's metrics, mean-reduced over ``group``'s ranks
+    (None: the world).
 
     In float32 (``reduce_dtype`` None): one flat buffer of every gradient
-    and the metrics, one all-reduce (a sum), divided by the world size.
+    and the metrics, one all-reduce (a sum), divided by the group's size.
     With ``reduce_dtype`` bf16: the gradients cast to bf16 and summed in
-    bf16, cast back to their dtype and divided by the world size (the JAX
+    bf16, cast back to their dtype and divided by the group's size (the JAX
     package's ``psum(g.astype(bf16)).astype(g.dtype) / n``), and the metrics
     averaged in a float32 all-reduce of their own. The gradients are written
     back in place. A parameter without a gradient (unused in the step) has
@@ -324,10 +467,11 @@ class GradAllReduce:
     collectives are part of the graph (NCCL)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
-                 reduce_dtype: Optional[torch.dtype] = None):
+                 reduce_dtype: Optional[torch.dtype] = None, group: Optional[Group] = None):
         self.params = [p for p in params if p.requires_grad]
         self.reduce_dtype = reduce_dtype
-        self.world = world_size()
+        self.handle = _handle(group)
+        self.world = group_size(group)
 
     def __call__(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         grads = [p.grad for p in self.params if p.grad is not None]
@@ -337,15 +481,15 @@ class GradAllReduce:
         sizes = [g.numel() for g in grads]
         if self.reduce_dtype is None:
             flat = torch.cat([g.reshape(-1).float() for g in grads] + [mflat])
-            tdist.all_reduce(flat)
+            tdist.all_reduce(flat, group=self.handle)
             flat.div_(self.world)
             gflat, mflat = flat[:sum(sizes)], flat[sum(sizes):]
         else:
             low = torch.cat([g.reshape(-1).to(self.reduce_dtype) for g in grads])
-            tdist.all_reduce(low)
+            tdist.all_reduce(low, group=self.handle)
             gflat = low.float().div_(self.world)
             mflat = mflat.clone()
-            tdist.all_reduce(mflat)
+            tdist.all_reduce(mflat, group=self.handle)
             mflat.div_(self.world)
         for g, part in zip(grads, gflat.split(sizes)):
             g.copy_(part.view_as(g))
@@ -356,29 +500,31 @@ class GradAllReduce:
         return out
 
 
-def draw_shard():
-    """(rank, world size) when a step's draws are those of the global batch,
-    of which the rank keeps its rows (``models/common.py::global_rows``);
-    None for one rank."""
-    return (rank(), world_size()) if world_size() > 1 else None
+def draw_shard(group: Optional[Group] = None):
+    """(this rank's place in ``group``, its size) when a step's draws are
+    those of the global batch over the group, of which the rank keeps its
+    rows (``models/common.py::global_rows``); None for one rank. The group
+    is the ``data`` axis of the layout (None: the world)."""
+    return (group_rank(group), group_size(group)) if group_size(group) > 1 else None
 
 
 def attach(state, model: torch.nn.Module, reduce_dtype: Optional[torch.dtype] = None,
-           augment=None) -> None:
-    """Make ``state``'s steps data-parallel over the process group: the
-    gradient all-reduce after every backward (:class:`GradAllReduce`), and
-    the BatchNorms' batch statistics and the Augmenter's noise scale over
-    the global batch (:func:`sum_over_ranks`, :func:`global_std`). Without a
-    process group nothing changes; at world size 1 only the all-reduce is
-    added (a sum of one, bitwise the step without it)."""
-    if not is_initialized():
+           augment=None, group: Optional[Group] = None) -> None:
+    """Make ``state``'s steps data-parallel over ``group`` (the layout's
+    ``data`` axis; None: the world): the gradient all-reduce after every
+    backward (:class:`GradAllReduce`), and the BatchNorms' batch statistics
+    and the Augmenter's noise scale over the global batch
+    (:class:`RankSum`, :func:`global_std`). Without a process group nothing
+    changes, nor over a group of one rank of several (no collective); at
+    world size 1 only the all-reduce is added (a sum of one, bitwise the
+    step without it)."""
+    if not is_initialized() or (group is not None and group.size == 1):
         return
-    state.grad_sync = GradAllReduce(model.parameters(), reduce_dtype)
-    if world_size() == 1:
+    state.grad_sync = GradAllReduce(model.parameters(), reduce_dtype, group)
+    if group_size(group) == 1:
         return
     for m in model.modules():
         if hasattr(m, 'stats_sync'):
-            m.stats_sync = sum_over_ranks
+            m.stats_sync = RankSum(group)
     if augment is not None:
-        augment.std_fn = global_std
-
+        augment.std_fn = lambda x, dims: global_std(x, dims, group)

@@ -25,7 +25,9 @@ checkpoint as ``ema_params``, which ``serve --use-ema`` and ``analyze
 the warm-start source's, else from the parameters.
 
 Data parallelism over processes follows the regression loop
-(``train/loop.py``; the sharded tier through
+(``train/loop.py``: the ranks laid out on ``make_mesh(model_parallel=
+--model-parallel)``, the state and its EMA replicated, the batch over the
+``data`` axis; the sharded tier through
 ``train/sharded_data.py::make_sharded_diffusion_epoch_runner``, with the
 EMA); the gradients are mean-reduced in float32 (the JAX package's
 diffusion loop reads no ``--grad-allreduce-dtype``), and the dev chains
@@ -68,6 +70,7 @@ from inferbiomechanics_tpu_torch.train.loop import (
     optimizer_for, per_step_generators, prepare_checkpoint_dir, resident_train_data,
     run_chunks, run_streamed_epoch, sharded_tier, train_loader, upload_dtype,
 )
+from inferbiomechanics_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from inferbiomechanics_tpu_torch.train.sharded_data import make_sharded_diffusion_epoch_runner
 from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import ChunkedStep
@@ -102,7 +105,10 @@ def train_diffusion(config: Config,
         raise ValueError('diffusion training requires --output-data-format '
                          'all_frames (the denoiser models whole windows)')
     device = resolve_device(device)
-    if check_data_parallel(config) is not None:
+    layout = make_mesh(model_parallel=config.model_parallel)    # as the JAX loop's
+    n_dp, dp_group = layout.size(DATA_AXIS), layout.group(DATA_AXIS)
+    dp_shard = (layout.coord(DATA_AXIS), n_dp)
+    if check_data_parallel(config, n_dp) is not None:
         logger.warning('--grad-allreduce-dtype bf16: the diffusion loop reduces its '
                        'gradients in float32 (the JAX package\'s diffusion loop reads '
                        'no --grad-allreduce-dtype)')
@@ -118,8 +124,8 @@ def train_diffusion(config: Config,
     # augmentation (mirrored / noised conditioning, mirrored labels) from a
     # generator of its own, so that it moves none of them
     state.dropout_gen = torch.Generator(device=device)
-    augment = per_step_generators(config, state, train_ds, device)
-    dist.attach(state, model, None, augment)
+    augment = per_step_generators(config, state, train_ds, device, dp_group)
+    dist.attach(state, model, None, augment, dp_group)
     logger.info('diffusion model: %d params on %s', num_params(state), device)
     warm_started = prepare_checkpoint_dir(config, state)
     ckpt_epoch, _ = load_latest_checkpoint(state, config.checkpoint_dir)
@@ -134,16 +140,16 @@ def train_diffusion(config: Config,
     # ---- the data tier ----
     device_data, _ = resident_train_data(config, train_ds, device)
     on_device = device_data is not None
-    chunk_k = chunk_steps(config, train_ds, on_device)
+    chunk_k = chunk_steps(config, train_ds, on_device, group=dp_group)
     chunked_step = dispatch = None
     streaming = None
     if max_batches_per_epoch is None and len(train_ds) >= config.batch_size:
         streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
             make_sharded_diffusion_epoch_runner(model, sdata, sched, config.batch_size,
                                                 chunk_steps=k, cond_dropout=config.cond_dropout,
-                                                augment=augment)))
+                                                augment=augment)), layout)
     if streaming is not None:
-        logger.info('diffusion sharded data: %d shards', dist.world_size())
+        logger.info('diffusion sharded data: %d shards', n_dp)
     elif config.device_data == 'stream':
         plan = StreamingPlan(train_ds, config.device_data_max_bytes)
         streaming = make_streaming_diffusion_epoch(
@@ -167,13 +173,13 @@ def train_diffusion(config: Config,
     if streaming is None:
         if chunked_step is not None:
             logger.info('chunked dispatch: %d steps a chunk', chunk_k)
-        loader = train_loader(config, train_ds, device, chunked_step is not None)
+        loader = train_loader(config, train_ds, device, chunked_step is not None, dp_shard)
         dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     sampler = make_sampler(model, sched, num_steps=EVAL_SAMPLE_STEPS,
                            fused_inference=config.fused_inference)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False,
-                                 shard_index=dist.rank(), num_shards=dist.world_size())
-                  if dev_ds is not None and len(dev_ds) // dist.world_size() >= config.batch_size
+                                 shard_index=dp_shard[0], num_shards=n_dp)
+                  if dev_ds is not None and len(dev_ds) // n_dp >= config.batch_size
                   else None)
     dev_eval = RegressionLossEvaluator('dev', loss_config_from(config),
                                        wandb_logger=metric_logger)
@@ -197,7 +203,8 @@ def train_diffusion(config: Config,
             outputs = sampler(model, batch.inputs, gen)
             with torch.no_grad():
                 metrics = dev_eval.compute_metrics(outputs, unpack(batch.labels, dev_ds.lab_offsets))
-            dev_eval(None, None, None, precomputed_metrics=dist.mean_over_ranks(metrics))
+            dev_eval(None, None, None,
+                     precomputed_metrics=dist.mean_over_ranks(metrics, dp_group))
         print(f'[epoch {epoch}] dev report (sampled, {EVAL_SAMPLE_STEPS} steps):')
         final_dev = dev_eval.print_report(log_to_wandb=metric_logger is not None)
         return True
@@ -231,7 +238,8 @@ def train_diffusion(config: Config,
         # the LAST step's loss (the device runs behind the host)
         t_compute = time.time()
         n, stopped_at, last = run_chunks(
-            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device), chunk_k,
+            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
+            chunk_k,
             skip=0, cap=max_batches_per_epoch, log_every=config.log_every_batches,
             checkpoint_every=config.checkpoint_every_batches, account=lambda row: None,
             log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023

@@ -43,22 +43,30 @@ device that the state reseeds from ``--seed`` and the step count before
 every step (:func:`per_step_generators`).
 
 Data parallelism over processes (``parallel/dist.py``; the ``train``
-command starts it under ``IB_MULTIHOST``): one rank a device, each the JAX
-package's process with one device. The host tier loads the rank's shard of
-the epoch's order and the device-resident tier the rank's slice of the
-epoch's permutation, B windows a rank (a global batch of world x B), with
-the table on every rank's device; ``--device-data sharded`` (and ``auto``
-when only the ranks' memory together holds the dataset) splits the trials
-over the ranks (``train/sharded_data.py``), B / world windows a rank. Every
-step mean-reduces its gradients over the ranks before the update
-(``--grad-allreduce-dtype bf16``: in bf16), BatchNorm statistics and the
-Augmenter's noise scale are the global batch's, and the per-step draws are
-the global batch's with the rank's rows kept. Dev evaluation splits over
-the ranks and averages their metrics. Only rank 0 writes checkpoints and
-the sidecar; every rank reads them on resume; a SIGTERM to any rank stops
-every rank at the same step boundary. The device-resident tier runs step by
-step at world size > 1 (the JAX package's policy), and so does every tier
-whose collectives cannot be captured in a CUDA graph (gloo).
+command starts it under ``IB_MULTIHOST``): one rank a device, laid out as
+the JAX loop lays its devices out, on ``make_mesh(model_parallel=
+--model-parallel)`` (``parallel/mesh.py``): (data, model) of shape
+(n / mp, mp). The state is replicated on every rank, as the JAX loop
+replicates it, and the batch is split over the ``data`` axis only, so the mp
+ranks of a ``data`` row hold the same parameters and see the same rows;
+``--model-parallel`` lowers the data-parallel degree to n / mp. The host
+tier loads the ``data`` coordinate's shard of the epoch's order and the
+device-resident tier its slice of the epoch's permutation, B windows a
+rank (a global batch of n_dp x B), with the table on every rank's device;
+``--device-data sharded`` (and ``auto`` when only the ``data`` ranks' memory
+together holds the dataset) splits the trials over the ``data`` axis
+(``train/sharded_data.py``), B / n_dp windows a rank. Every step
+mean-reduces its gradients over its ``data`` group before the update
+(``--grad-allreduce-dtype bf16``: in bf16; no collective when the group is
+one rank), BatchNorm statistics and the Augmenter's noise scale are the
+global batch's, and the per-step draws are the global batch's with the
+rank's rows kept. Dev evaluation splits over the ``data`` axis and averages
+its metrics. Only rank 0 writes checkpoints and the sidecar; every rank
+reads them on resume; a SIGTERM to any rank stops every rank at the same
+step boundary. The device-resident tier runs step by step at world size > 1
+(the JAX package's policy, which counts processes), and so does every tier
+whose collectives cannot be captured in a CUDA graph (gloo over two ranks
+or more).
 
 The tiers, the chunked epoch (:func:`run_chunks`), SIGTERM, the best
 checkpoint and the checkpoint directory's set-up are shared with the
@@ -72,7 +80,7 @@ import logging
 import signal
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +95,7 @@ from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.parallel import dist
+from inferbiomechanics_tpu_torch.parallel.mesh import DATA_AXIS, Layout, make_mesh
 from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, AsyncCheckpointer, list_checkpoints, load_latest_checkpoint,
@@ -124,17 +133,20 @@ class TrainResult:
     preempted: bool = False   # SIGTERM checkpoint-and-exit (see train())
 
 
-def per_step_generators(config: Config, state, train_ds: WindowDataset, device):
+def per_step_generators(config: Config, state, train_ds: WindowDataset, device,
+                        group: Optional[dist.Group] = None):
     """The state's per-step generators on ``device``, seeded from
     ``--seed`` and the step count before every step
     (``TrainState.reseed_generators``), so that a step's draws do not depend
     on where a run was resumed: the dropout masks' (for a model with dropout
-    sites) and, with ``--augment-*``, the augmentation's. Returns the
-    Augmenter (``augmenter_from_config``; None when augmentation is off)."""
+    sites) and, with ``--augment-*``, the augmentation's. Under data
+    parallelism over ``group`` (the ``data`` axis; None: the world) the
+    draws are the global batch's, of which the rank keeps its rows. Returns
+    the Augmenter (``augmenter_from_config``; None when augmentation is
+    off)."""
     model = state.model
     state.dropout_seed = config.seed
-    # under data parallelism: the global batch's draws, this rank's rows
-    state.draw_shard = dist.draw_shard()
+    state.draw_shard = dist.draw_shard(group)
     if hasattr(model, 'dropout_masks'):
         state.dropout_gen = torch.Generator(device=device)
         model.dropout_masks = generator_masks(state.dropout_gen, state.draw_shard)
@@ -156,10 +168,6 @@ def loss_config_from(config: Config) -> LossConfig:
     )
 
 
-SCALE_OUT_8C = ('ROADMAP.md Queue 1 item 8c (model parallelism and sharded sweeps, '
-                'after the data parallelism of item 8b)')
-
-
 def _reject_unported(config: Config) -> None:
     """Raise for every training option of the JAX package that the port
     does not have yet, by the flag's name; before that, the JAX package's
@@ -178,10 +186,12 @@ def _reject_unported(config: Config) -> None:
                              'host, device-resident, and sharded tiers; '
                              'the streaming tier runs fixed whole-batch '
                              'segment programs')
+    if config.pipeline_parallel > 1 and config.model_parallel > 1:
+        raise ValueError('--pipeline-parallel and --model-parallel are '
+                         'mutually exclusive mesh layouts')
     unported = [
         ('--pipeline-parallel', config.pipeline_parallel > 1,
          'ROADMAP.md, not to port'),
-        ('--model-parallel', config.model_parallel > 1, SCALE_OUT_8C),
         ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
     ]
     for flag, asked, where in unported:
@@ -257,12 +267,12 @@ def optimizer_for(config: Config, model):
     return optimizer
 
 
-def check_data_parallel(config: Config) -> Optional[torch.dtype]:
+def check_data_parallel(config: Config, n_dp: int) -> Optional[torch.dtype]:
     """The JAX package's checks of the batch against the data-parallel size
-    (the world size), with its words; returns the gradient all-reduce's
-    reduced dtype (bf16 for ``--grad-allreduce-dtype bf16``, None for
-    float32; ignored, as in the JAX package, with a single data shard)."""
-    n_dp = dist.world_size()
+    ``n_dp`` (the layout's ``data`` axis), with its words; returns the
+    gradient all-reduce's reduced dtype (bf16 for ``--grad-allreduce-dtype
+    bf16``, None for float32; ignored, as in the JAX package, with a single
+    data shard)."""
     if config.batch_size % n_dp != 0:
         raise ValueError(f'batch_size={config.batch_size} not divisible by '
                          f'data-parallel size {n_dp}')
@@ -370,13 +380,14 @@ def resident_train_data(config: Config, train_ds: WindowDataset, device,
     return data, pack
 
 
-def sharded_wanted(config: Config, train_ds: WindowDataset, on_device: bool) -> bool:
+def sharded_wanted(config: Config, train_ds: WindowDataset, on_device: bool,
+                   n: int) -> bool:
     """``--device-data sharded``, or ``auto`` when the dataset missed one
-    device's budget but fits the ranks' budgets together (the JAX rule;
-    the bytes of a lazy dataset from its metadata: rows x C_in float32)."""
+    device's budget but fits the budgets of the ``n`` ranks of the ``data``
+    axis together (the JAX rule; the bytes of a lazy dataset from its
+    metadata: rows x C_in float32)."""
     if config.device_data == 'sharded':
         return True
-    n = dist.world_size()
     if config.device_data != 'auto' or on_device or n == 1 or config.grad_accum_steps > 1:
         return False
     if train_ds.features_all is not None:
@@ -388,17 +399,18 @@ def sharded_wanted(config: Config, train_ds: WindowDataset, on_device: bool) -> 
 
 
 def sharded_tier(config: Config, train_ds: WindowDataset, device, on_device: bool,
-                 build: Callable):
-    """The sharded tier's epoch when :func:`sharded_wanted`: the rank's
-    shard on ``device`` (``train/sharded_data.py``) and ``build(sdata,
-    chunk_steps)``; None otherwise, or when ``auto`` cannot shard (logged;
-    the host loader then). Its steps run in chunks of
+                 build: Callable, layout: Layout):
+    """The sharded tier's epoch when :func:`sharded_wanted`: the shard of
+    the rank's ``data`` coordinate on ``device`` (``train/sharded_data.py``)
+    and ``build(sdata, chunk_steps)``; None otherwise, or when ``auto``
+    cannot shard (logged; the host loader then). Its steps run in chunks of
     ``--device-chunk-steps`` where their collectives can be captured."""
-    if not sharded_wanted(config, train_ds, on_device):
+    n_dp, group = layout.size(DATA_AXIS), layout.group(DATA_AXIS)
+    if not sharded_wanted(config, train_ds, on_device, n_dp):
         return None
     try:
-        sdata = ShardedDeviceData(train_ds, dist.rank(), dist.world_size(), device)
-        epoch = build(sdata, max(1, config.device_chunk_steps) if dist.can_capture() else 1)
+        sdata = ShardedDeviceData(train_ds, layout.coord(DATA_AXIS), n_dp, device)
+        epoch = build(sdata, max(1, config.device_chunk_steps) if dist.can_capture(group) else 1)
     except (ValueError, NotImplementedError) as e:
         if config.device_data == 'sharded':
             raise
@@ -411,12 +423,13 @@ def sharded_tier(config: Config, train_ds: WindowDataset, device, on_device: boo
 
 
 def chunk_steps(config: Config, train_ds: WindowDataset, on_device: bool,
-                lowp: Optional[torch.dtype] = None) -> int:
+                lowp: Optional[torch.dtype] = None, group: Optional[dist.Group] = None) -> int:
     """Steps a dispatch (``--device-chunk-steps`` or ``--host-chunk-steps``),
-    clamped to the rank's epoch length: a larger chunk would never fill.
-    One (step by step) on the device-resident tier at world size > 1 or
-    with the bf16 all-reduce (the JAX package's policy), and on every tier
-    whose collectives cannot be captured in a CUDA graph (gloo). Host chunks
+    clamped to the epoch length over the processes: a larger chunk would
+    never fill. One (step by step) on the device-resident tier at world size
+    > 1 or with the bf16 all-reduce (the JAX package's policy, which counts
+    processes), and on every tier whose collectives over ``group`` (the
+    ``data`` axis) cannot be captured in a CUDA graph (gloo). Host chunks
     and the bf16 all-reduce refuse each other, in the JAX package's
     words."""
     asked = config.device_chunk_steps if on_device else config.host_chunk_steps
@@ -425,7 +438,7 @@ def chunk_steps(config: Config, train_ds: WindowDataset, on_device: bool,
         raise ValueError('--host-chunk-steps > 1 does not compose with '
                          '--grad-allreduce-dtype (the explicit-psum '
                          'shard_map step); use one or the other')
-    if (on_device and (dist.world_size() > 1 or lowp is not None)) or not dist.can_capture():
+    if (on_device and (dist.world_size() > 1 or lowp is not None)) or not dist.can_capture(group):
         return 1
     return k
 
@@ -437,34 +450,38 @@ def upload_dtype(config: Config) -> torch.dtype:
     return torch.bfloat16 if config.host_upload_dtype == 'bf16' else torch.float32
 
 
-def train_loader(config: Config, train_ds: WindowDataset, device, chunked: bool
-                 ) -> PrefetchLoader:
-    """The host tier's loader: a chunk takes its batches on the host in
-    float32 and uploads them itself; an eager step gets them on ``device``
-    in :func:`upload_dtype`."""
+def train_loader(config: Config, train_ds: WindowDataset, device, chunked: bool,
+                 shard: Tuple[int, int] = (0, 1)) -> PrefetchLoader:
+    """The host tier's loader of shard ``shard`` = (index, count) of the
+    epoch's order (the ``data`` coordinate and size; (0, 1): all of it): a
+    chunk takes its batches on the host in float32 and uploads them itself;
+    an eager step gets them on ``device`` in :func:`upload_dtype`."""
     return PrefetchLoader(train_ds, config.batch_size,
                           device='cpu' if chunked else device,
                           n_threads=config.data_loading_workers,
                           input_dtype=torch.float32 if chunked else upload_dtype(config),
-                          shard_index=dist.rank(), num_shards=dist.world_size())
+                          shard_index=shard[0], num_shards=shard[1])
 
 
 def epoch_batches(config: Config, train_ds: WindowDataset, loader: PrefetchLoader,
-                  epoch: int, on_device: bool, pad_to_batch: bool = False):
+                  epoch: int, on_device: bool, pad_to_batch: bool = False,
+                  shard: Tuple[int, int] = (0, 1)):
     """The epoch's (index, batch) pairs: on the device tier, window index
     vectors from numpy's generator seeded (seed, epoch) (the JAX package's
     regression loop draws the same batches); else the loader's batches.
     ``pad_to_batch`` is the JAX sweep's rule on the device tier: at least one
     step, a split shorter than a batch repeated to fill it (``np.resize``).
-    Under data parallelism the permutation is truncated to a multiple of the
-    world size and the rank takes every world-th window from its rank on
-    (equal step counts on every rank), and the loader its shard."""
+    Under data parallelism (``shard`` = (the ``data`` coordinate, the
+    ``data`` size)) the permutation is truncated to a multiple of the size
+    and the rank takes every size-th window from its coordinate on (equal
+    step counts on every rank; the replicas of a ``data`` row the same rows,
+    as the mesh's ``P('data')`` gives them), and the loader its shard."""
     if not on_device:
         return enumerate(loader.epoch(seed=config.seed * 1_000_003 + epoch))
     perm = np.random.default_rng((config.seed, epoch)).permutation(len(train_ds))
-    n = dist.world_size()
+    index, n = shard
     if n > 1:
-        perm = perm[:(perm.shape[0] // n) * n][dist.rank()::n]
+        perm = perm[:(perm.shape[0] // n) * n][index::n]
     b = config.batch_size
     if pad_to_batch:
         return enumerate(np.resize(perm[k * b:(k + 1) * b], b)
@@ -604,7 +621,11 @@ def train(config: Config,
         raise ValueError('--model-type diffusion trains through '
                          'train/diffusion_loop.py::train_diffusion')
     device = resolve_device(device)
-    lowp = check_data_parallel(config)
+    # the JAX refusal of a world --model-parallel does not divide (one process: 1)
+    layout = make_mesh(model_parallel=config.model_parallel)
+    n_dp, dp_group = layout.size(DATA_AXIS), layout.group(DATA_AXIS)
+    dp_shard = (layout.coord(DATA_AXIS), n_dp)
+    lowp = check_data_parallel(config, n_dp)
 
     stop = SigtermStop()
     model = build_model_for_dataset(
@@ -613,8 +634,8 @@ def train(config: Config,
     lc = loss_config_from(config)
     state = create_train_state(model, optimizer_for(config, model))
     # on-device augmentation in every tier's train step; dev eval never augments
-    augment = per_step_generators(config, state, train_ds, device)
-    dist.attach(state, model, lowp, augment)
+    augment = per_step_generators(config, state, train_ds, device, dp_group)
+    dist.attach(state, model, lowp, augment, dp_group)
     logger.info('model %s: %d params on %s', config.model_type,
                 num_params(state), device)
     prepare_checkpoint_dir(config, state)
@@ -628,9 +649,8 @@ def train(config: Config,
         start_epoch, skip_batches = ckpt_epoch + 1, 0
 
     # ---- the data tier ----
-    # every rank evaluates whole batches of its shard of the dev split
-    dev_big_enough = (dev_ds is not None
-                      and len(dev_ds) // dist.world_size() >= config.batch_size)
+    # every rank evaluates whole batches of its data shard of the dev split
+    dev_big_enough = dev_ds is not None and len(dev_ds) // n_dp >= config.batch_size
     # the torque report needs each dev batch's inputs, outputs and subjects
     dev_resident = (dev_big_enough and dev_ds.features_all is not None
                     and not config.compute_report)
@@ -640,9 +660,9 @@ def train(config: Config,
     chunk_k, chunked_step, device_eval, dispatch = 1, None, None, None
     streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
         make_sharded_epoch_runner(model, sdata, lc, config.batch_size, chunk_steps=k,
-                                  augment=augment)))
+                                  augment=augment)), layout)
     if streaming is None:
-        chunk_k = chunk_steps(config, train_ds, on_device, lowp)
+        chunk_k = chunk_steps(config, train_ds, on_device, lowp, dp_group)
         if config.device_data == 'stream':
             plan = StreamingPlan(train_ds, config.device_data_max_bytes)
             streaming = make_streaming_epoch(model, train_ds, plan, lc, config.batch_size, device,
@@ -660,7 +680,7 @@ def train(config: Config,
             if dev_resident:
                 device_eval = make_device_eval_runner(
                     model, DeviceResidentData(dev_ds, device, pack_windows=pack),
-                    lc, config.batch_size, shard=dist.draw_shard())
+                    lc, config.batch_size, shard=dist.draw_shard(dp_group))
         else:
             step = make_train_step(model, train_ds.lab_offsets, lc,
                                    grad_accum=config.grad_accum_steps, augment=augment)
@@ -671,11 +691,11 @@ def train(config: Config,
     if streaming is None:
         if chunked_step is not None:
             logger.info('chunked dispatch: %d steps a chunk', chunk_k)
-        loader = train_loader(config, train_ds, device, chunked_step is not None)
+        loader = train_loader(config, train_ds, device, chunked_step is not None, dp_shard)
         dispatch = make_dispatch(state, step, chunked_step, on_device, device)
     eval_step = make_eval_step(model, train_ds.lab_offsets, lc)
     dev_loader = (PrefetchLoader(dev_ds, config.batch_size, device=device, shuffle=False,
-                                 shard_index=dist.rank(), num_shards=dist.world_size())
+                                 shard_index=dp_shard[0], num_shards=n_dp)
                   if dev_big_enough else None)
 
     tau_fn = (make_tau_report_fn(dev_ds, device)
@@ -696,13 +716,13 @@ def train(config: Config,
         nonlocal final_dev
         if device_eval is not None:
             dev_eval(None, None, None,
-                     precomputed_metrics=dist.mean_over_ranks(device_eval(state)))
+                     precomputed_metrics=dist.mean_over_ranks(device_eval(state), dp_group))
         elif dev_loader is not None:
             for batch in dev_loader.epoch(seed=config.seed * 1_000_003 + epoch):
                 outputs, metrics = eval_step(state, batch.inputs, batch.labels)
                 dev_eval(batch.inputs, outputs, unpack(batch.labels, dev_ds.lab_offsets),
                          batch.subject_indices, compute_report=config.compute_report,
-                         precomputed_metrics=dist.mean_over_ranks(metrics))
+                         precomputed_metrics=dist.mean_over_ranks(metrics, dp_group))
         else:
             return False
         print(f'[epoch {epoch}] dev report:')
@@ -743,7 +763,8 @@ def train(config: Config,
         # the LAST step's loss (the device runs behind the host)
         t_compute = time.time()
         n, stopped_at, last_metrics = run_chunks(
-            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device), chunk_k,
+            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
+            chunk_k,
             skip=skip_batches if epoch == start_epoch else 0, cap=max_batches_per_epoch,
             log_every=config.log_every_batches,
             checkpoint_every=config.checkpoint_every_batches,

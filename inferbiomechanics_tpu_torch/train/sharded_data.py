@@ -2,20 +2,23 @@
 
 PyTorch counterpart of ``inferbiomechanics_tpu/train/sharded_data.py``
 (``--device-data sharded``, and ``auto`` when the dataset fits the ranks'
-memory together but not one device's). The trials are split over the ranks
-of a data-parallel run by longest-processing-time balancing
+memory together but not one device's). The trials are split over the
+``data`` axis of the run's layout (``parallel/mesh.py``; every rank of a
+plain data-parallel run) by longest-processing-time balancing
 (:func:`partition_trials`, the JAX function, so shard row counts differ by
-at most one trial); rank r holds only shard r's rows on its device
-(:class:`ShardedDeviceData`), featurized on demand when the dataset was
-opened with ``--no-materialize-features``, so that host memory scales with
-the ranks too. Every step each rank draws ``batch_size / world`` windows
+at most one trial); the rank at ``data`` coordinate r holds only shard r's
+rows on its device (:class:`ShardedDeviceData`; the ranks that share it,
+the replicas of a ``model`` axis or a sweep's ``config`` rows, hold the
+same), featurized on demand when the dataset was opened with
+``--no-materialize-features``, so that host memory scales with the ranks
+too. Every step each rank draws ``batch_size / n_dp`` windows
 uniformly from its own window table and gathers them on its device (the
 reference's DistributedSampler semantics): the global batch is
 ``batch_size``, and only the gradient all-reduce crosses ranks.
 
 An epoch is ``num_windows // batch_size`` steps, the same count on every
 rank (a collective every step). Its selections come from a host generator
-seeded by the epoch's host seed and the rank (the JAX package draws them
+seeded by the epoch's host seed and the shard (the JAX package draws them
 on the device from its ``jax.random`` key, which the port cannot
 reproduce); the tests feed the JAX package's own selections through the
 ``sel`` seam of :class:`ShardedEpoch`. The steps run as the device tier's
@@ -72,7 +75,8 @@ def partition_trials(ds: WindowDataset, n_shards: int) -> List[List[int]]:
 
 
 class ShardedDeviceData:
-    """Shard ``rank`` of ``world`` on ``device``: its trials' rows (bf16
+    """Shard ``rank`` of ``world`` on ``device`` (the ``data`` coordinate
+    and size of the run's layout): its trials' rows (bf16
     features, float32 labels) in a :class:`SegmentBuffer`, and its window
     table (segment-local window starts, in the JAX package's order).
     :meth:`gather` takes shard-local window ids. The window tables of all
@@ -138,12 +142,13 @@ def gather_by_local_indices(sdata: ShardedDeviceData, sel: np.ndarray):
 
 class ShardedEpoch:
     """``epoch(state, host_seed, sel=None) -> mean_metrics``: one epoch of
-    ``n_steps`` steps on this rank's shard, each on ``batch_size / world``
+    ``n_steps`` steps on this rank's shard, each on ``batch_size / n_dp``
     windows drawn uniformly (with replacement) from the shard's table: from
-    a host generator seeded by (``host_seed``, rank), or ``sel`` [n_steps,
-    b_local] when given. ``train(state, sel)`` trains the steps and returns
-    their metric rows; the epoch's metrics are their mean (each row already
-    the global batch's, after the all-reduce)."""
+    a host generator seeded by (``host_seed``, the shard), or ``sel``
+    [n_steps, b_local] when given. ``train(state, sel)`` trains the steps
+    and returns their metric rows (:meth:`rows`); the epoch's metrics are
+    their mean (each row already the global batch's, after the
+    all-reduce)."""
 
     def __init__(self, sdata: ShardedDeviceData, batch_size: int, train: Callable,
                  steps_per_call: int = 0):
@@ -161,13 +166,18 @@ class ShardedEpoch:
         rng = np.random.default_rng((int(host_seed), self.sdata.rank))
         return rng.integers(0, self.sdata.local_windows, (self.n_steps, self.b_local))
 
-    def __call__(self, state, host_seed: int, sel: Optional[np.ndarray] = None
-                 ) -> Dict[str, np.ndarray]:
+    def rows(self, state, host_seed: int, sel: Optional[np.ndarray] = None
+             ) -> List[Dict[str, np.ndarray]]:
+        """The epoch's steps; their metric rows."""
         sel = self.selections(host_seed) if sel is None else np.asarray(sel, np.int64)
         if sel.shape != (self.n_steps, self.b_local):
             raise ValueError(f'selections of shape {sel.shape}, want '
                              f'{(self.n_steps, self.b_local)}')
-        rows = self.train(state, sel)
+        return self.train(state, sel)
+
+    def __call__(self, state, host_seed: int, sel: Optional[np.ndarray] = None
+                 ) -> Dict[str, np.ndarray]:
+        rows = self.rows(state, host_seed, sel)
         return {key: np.mean(np.stack([r[key] for r in rows]), axis=0) for key in rows[0]}
 
 

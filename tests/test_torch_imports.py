@@ -126,7 +126,9 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'train.step', 'train.device_data', 'data.loader', 'train.run_config',
                    'train.loop', 'cli.train_cmd', 'cli.analyze_cmd', 'cli.motion',
                    'utils.wandb_compat', 'models.diffusion', 'utils.flax_msgpack',
-                   'torch_compat', 'cli.convert_checkpoint_cmd'):
+                   'torch_compat', 'cli.convert_checkpoint_cmd', 'parallel.dist',
+                   'parallel.mesh', 'parallel.sharding_rules', 'train.sharded_data',
+                   'train.sweep', 'cli.sweep_cmd'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out

@@ -26,6 +26,7 @@ parameters are bitwise equal, and a world of one rank is bitwise the step
 without a process group.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -448,15 +449,28 @@ def test_stream_is_refused_under_several_processes(loop_runs):
 
 
 def test_model_parallel_and_shard_configs_stay_refused_by_name(root, tmp_path):
-    args = ['--dataset-home', str(root), '--checkpoint-dir', str(tmp_path), '--device', 'cpu',
-            '--history-len', '20', '--stride', '5', '--batch-size', '16']
-    with pytest.raises(NotImplementedError, match=r'--model-parallel is not yet ported .*item 8c'):
-        main(['train', *args, '--model-parallel', '2'])
-    with pytest.raises(NotImplementedError, match=r'--shard-configs is not yet ported .*item 8c'):
-        main(['sweep', *args, '--lrs', '1e-3', '--seeds', '0', '--shard-configs'])
-    with pytest.raises(NotImplementedError,
-                       match=r'sweep --device-data sharded is not yet ported .*item 8c'):
-        main(['sweep', *args, '--lrs', '1e-3', '--seeds', '0', '--device-data', 'sharded'])
+    """Ported: ``--model-parallel 2`` in one process meets the JAX package's
+    refusal of a world of one device; ``sweep --shard-configs`` and ``sweep
+    --device-data sharded`` run in one process, the first's results those of
+    the plain sweep (configs sharded 1-way)."""
+    args = ['--dataset-home', str(root), '--device', 'cpu', '--history-len', '20',
+            '--stride', '5', '--batch-size', '16']
+    with pytest.raises(ValueError, match='1 devices not divisible by model_parallel=2'):
+        main(['train', *args, '--checkpoint-dir', str(tmp_path / 't'), '--model-parallel', '2'])
+    assert not os.path.exists(tmp_path / 't')
+    sweep_args = [*args, '--lrs', '1e-3', '3e-4', '--seeds', '0', '--hidden-dims', '32',
+                  '--epochs', '1', '--max-batches-per-epoch', '2', '--no-wandb']
+    results = {}
+    for name, more in (('plain', []), ('shard', ['--shard-configs']),
+                       ('sharded', ['--device-data', 'sharded'])):
+        assert main(['sweep', *sweep_args, '--checkpoint-dir', str(tmp_path / name), *more]) == 0
+        with open(tmp_path / name / 'sweep' / 'feedforward' / 'sweep_results.json') as f:
+            results[name] = json.load(f)['points']
+    strip = lambda pts: [{k: v for k, v in p.items() if not k.endswith('path')}  # noqa: E731
+                         for p in pts]
+    assert strip(results['shard']) == strip(results['plain'])
+    assert len(results['sharded']) == 2 and all(
+        np.isfinite(p['final_train_loss']) for p in results['sharded'])
 
 
 def test_start_from_env_names_the_backend_and_the_device():

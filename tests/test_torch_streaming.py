@@ -338,7 +338,9 @@ def test_train_diffusion_streams(root, tmp_path):
      '--grad-allreduce-dtype bf16 applies to the host, device-resident, and sharded'),
     # ported: the case holds the flag working (the sharded tier, one rank)
     (dict(device_data='sharded'), None, None),
-    (dict(model_parallel=2), NotImplementedError, 'item 8c'),
+    # ported: one process is a world of one device, which --model-parallel 2
+    # does not divide (the JAX package's make_mesh refusal)
+    (dict(model_parallel=2), ValueError, '1 devices not divisible by model_parallel=2'),
     (dict(profile=True), NotImplementedError, 'item 9'),
 ], ids=[  # each case keeps the id it is known by
     'fields0-ValueError---grad-accum-steps applies to the host',

@@ -535,8 +535,12 @@ def test_sweep_cli_writes_the_jax_results_keys(root, tmp_path, capsys):
      'sweep supports constant learning rates only'),
     (dict(model_type='diffusion', output_data_format='last_frame'), False, ValueError,
      'requires --output-data-format all_frames'),
-    (dict(), True, NotImplementedError, 'shard-configs is not yet ported .* item 8c'),
-    (dict(device_data='sharded'), False, NotImplementedError, 'sharded is not yet ported .* item 8c'),
+    # ported: the cases hold the flags working in one process, bitwise what
+    # they are there: --shard-configs the plain sweep (configs sharded 1-way),
+    # --device-data sharded each config's `train --device-data sharded`
+    # (the sharded tier at one shard, the same selections)
+    (dict(), True, None, None),
+    (dict(device_data='sharded'), False, None, None),
 ], ids=[  # each case keeps the id it is known by
     'fields0-False-ValueError-sweep does not support batchnorm models',
     'fields1-False-ValueError-sweep supports constant learning rates only',
@@ -546,5 +550,29 @@ def test_sweep_cli_writes_the_jax_results_keys(root, tmp_path, capsys):
 def test_refusals(root, tmp_path, fields, shard, err, words):
     _, cfg = _configs(root, tmp_path, **fields)
     data = _splits(root, dataclasses.replace(cfg, output_data_format='last_frame'))
-    with pytest.raises(err, match=words):
-        _run_port(cfg, data, shard_configs=shard)
+    if err is not None:
+        with pytest.raises(err, match=words):
+            _run_port(cfg, data, shard_configs=shard)
+        return
+    got = _run_port(cfg, data, shard_configs=shard, max_batches_per_epoch=3 if shard else None)
+    if shard:
+        want = _run_port(dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / 'plain')), data,
+                         max_batches_per_epoch=3)
+        assert _curves(got) == _curves(want)
+        for a, b in zip(_params(got), _params(want)):
+            assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        return
+    from inferbiomechanics_tpu_torch.train.loop import train
+    # train's --seed draws the selections too: the configs of the sweep's seed
+    for i, (lr, seed) in enumerate(sweep.sweep_grid(LRS, SEEDS)):
+        if seed != cfg.seed:
+            continue
+        one = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / f'train{i}'),
+                                  learning_rate=lr, seed=seed)
+        assert train(one, data['train'][0], data['dev'][0], device='cpu').epochs_run == 2
+        want = torch.load(tmp_path / f'train{i}' / 'epoch_1_batch_0.torch.pt',
+                          weights_only=True)['model_state_dict']
+        got_i = _params(got)[i]
+        assert got_i.keys() == want.keys()
+        for k, v in want.items():
+            assert torch.equal(got_i[k], v), (i, k)

@@ -49,7 +49,9 @@ def run_jobs(jobs):
     """Each job through the function its ``fn`` names; their results in
     order."""
     fns = {'steps': steps, 'sharded_epoch': sharded_epoch, 'loop': loop,
-           'loops': loop, 'collectives': collectives}
+           'loops': loop, 'collectives': collectives, 'state_loop': state_loop,
+           'shard_gather': shard_gather, 'sweep_cli': sweep_cli, 'sweep_epoch': sweep_epoch,
+           'exploit': exploit}
     return [fns[job['fn']](job) for job in jobs]
 
 
@@ -67,7 +69,7 @@ def collectives(job):
     w = torch.from_numpy(rng.normal(size=(6,)).astype(np.float32))
     b = 16 // n
     x, x3 = x_all[r * b:(r + 1) * b], x3_all[r * b:(r + 1) * b]
-    mean, var = batch_stats(x, dist.sum_over_ranks if n > 1 else None)
+    mean, var = batch_stats(x, dist.RankSum() if n > 1 else None)
     metric = dist.mean_over_ranks({'m': x.mean()})['m']
     xg = x.clone().requires_grad_(True)
     (dist.sum_over_ranks(xg.sum(0)) * w).sum().backward()
@@ -222,3 +224,162 @@ def loop(job):
             'writes': list(writes), 'ckpt_dir': cfg.checkpoint_dir,
             'files': sorted(os.listdir(cfg.checkpoint_dir))
             if os.path.isdir(cfg.checkpoint_dir) else []}
+
+
+def state_loop(job):
+    """:func:`loop`, with the rank's train state after the run (its
+    parameters and buffers, and the EMA's, by name)."""
+    from inferbiomechanics_tpu_torch.train import diffusion_loop as DL
+    from inferbiomechanics_tpu_torch.train import loop as L
+    made = []
+    saved = (L.create_train_state, DL.create_train_state)
+
+    def keep(model, optimizer):
+        made.append(saved[0](model, optimizer))
+        return made[-1]
+
+    L.create_train_state = DL.create_train_state = keep
+    try:
+        out = loop(job)
+    finally:
+        L.create_train_state, DL.create_train_state = saved
+    if made:
+        out['state'] = _snapshot(made[-1].model)
+        if made[-1].ema is not None:
+            out['ema'] = {k: v.numpy().copy() for k, v in made[-1].ema.state_dict().items()}
+    return out
+
+
+def shard_gather(job):
+    """``parallel/sharding_rules.py`` on the ``model`` axis of
+    ``make_mesh(model_parallel=mp)``: a model of each config in ``cfgs``
+    (adam moments moved off zero by two updates on seeded gradients, alike
+    on every rank), this rank's shard of its state, and the state gathered
+    back from the shards over the ``model`` group. Returns, by config,
+    whether the gathered state is bitwise the whole one, the split
+    parameters, and the bytes of the shard and of the whole state."""
+    from inferbiomechanics_tpu_torch.parallel import sharding_rules as sr
+    from inferbiomechanics_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.train.state import create_train_state
+    layout = make_mesh(model_parallel=job['mp'])
+    out = []
+    for fields in job['cfgs']:
+        cfg = _config(fields)
+        ds = _dataset(dict(job, ds=dict(job.get('ds', {}),
+                                        output_data_format=cfg.output_data_format)))
+        model = build_model_for_dataset(cfg, ds, generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model, make_optimizer(model.named_parameters(), 'adam', 1e-3))
+        g = torch.Generator().manual_seed(2)
+        for _ in range(2):
+            for prm in model.parameters():
+                prm.grad = torch.randn(prm.shape, generator=g)
+            state.optimizer.step()
+        shard = sr.shard_state(state, job['mp'], layout.coord(MODEL_AXIS))
+        whole = sr.gather_state(shard, layout.group(MODEL_AXIS))
+        full = sr.shard_state(state, 1, 0)
+        equal = (whole.params.keys() == full.params.keys()
+                 and all(torch.equal(whole.params[n], t) for n, t in full.params.items())
+                 and all(torch.equal(whole.moments[n][k], t)
+                         for n, m in full.moments.items() for k, t in m.items()))
+        out.append({'equal': equal, 'nbytes': shard.nbytes(), 'full_nbytes': full.nbytes(),
+                    'split': sorted(n for n, d in shard.param_dims.items() if d is not None)})
+    return out
+
+
+class _Lines:
+    """A logging handler that keeps the messages."""
+
+    def __init__(self):
+        import logging
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+
+
+def sweep_cli(job):
+    """``python -m inferbiomechanics_tpu_torch sweep <argv>`` on this rank
+    (the process group exists already). Returns the exit code, the sweep
+    module's log messages and the files under the checkpoint directory."""
+    import logging
+
+    from inferbiomechanics_tpu_torch.__main__ import main
+    lines = _Lines()
+    log = logging.getLogger('inferbiomechanics_tpu_torch.train.sweep')
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(lines.handler)
+    try:
+        rc = main(['sweep', *job['argv']])
+    finally:
+        log.removeHandler(lines.handler)
+        log.setLevel(level)
+    root = job['ckpt']
+    files = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, fs in os.walk(root) for f in fs)
+    return {'rc': rc, 'log': lines.lines, 'files': files}
+
+
+def sweep_epoch(job):
+    """One epoch of the sharded sweep (``train/sweep.py::
+    make_sweep_sharded_epoch``) of ``cfg`` over ``grid`` on this rank's
+    placement (``sweep_placement``: ``shard`` is ``--shard-configs``), each
+    config's weights from ``weights[seed]`` (a ``torch.save`` file), fed
+    ``sel`` [n_dp, n_steps, b_local] (this rank's ``data`` row) and, for the
+    denoiser, the sweep's draws' generator (``weights`` None: each config
+    initialised from its seed). Returns each of the rank's
+    configs' state dict by its grid index, and the epoch's metric rows."""
+    from inferbiomechanics_tpu_torch.models.diffusion import DDPMSchedule
+    from inferbiomechanics_tpu_torch.train import sweep as S
+    from inferbiomechanics_tpu_torch.train.loop import loss_config_from
+    from inferbiomechanics_tpu_torch.train.sharded_data import ShardedDeviceData
+    cfg = _config(dict(job['cfg'], device_data='sharded'))
+    ds = _dataset(job)
+    grid = [tuple(g) for g in job['grid']]
+    placement = S.sweep_placement(cfg, len(grid), job['shard'])
+    init = ((lambda seed: torch.load(job['weights'][seed], weights_only=True))
+            if job.get('weights') else None)
+    state = S.init_sweep_states(cfg, ds, grid, 'cpu', init, configs=placement.configs,
+                                draw_shard=placement.draw_shard)
+    dist.attach(state, state.model, None, None, placement.dp_group)
+    sdata = ShardedDeviceData(ds, placement.dp_index, placement.n_dp, 'cpu')
+    if cfg.model_type == 'diffusion':
+        state.dropout_gen = torch.Generator()
+        grads = S.make_sweep_diffusion_grads(state.models, DDPMSchedule(cfg.diffusion_timesteps),
+                                             ds.lab_offsets, gather=sdata.gather)
+    else:
+        grads = S.make_sweep_grads(state.models, ds.lab_offsets, loss_config_from(cfg),
+                                   gather=sdata.gather)
+    sel = np.asarray(job['sel'])[placement.dp_index]
+    epoch = S.make_sweep_sharded_epoch(grads, sdata, cfg.batch_size, job.get('chunk', 1),
+                                       sel.shape[0])
+    rows = epoch.rows(state, 0, sel)
+    return {'states': {i: _snapshot(state.states[state.local(i)].model) for i in state.configs},
+            'rows': rows, 'placement': (placement.blocks, placement.block, placement.n_dp,
+                                        placement.dp_index)}
+
+
+def exploit(job):
+    """PBT's exploit over ``--shard-configs``' blocks: the grid of ``cfg``
+    (one update on seeded gradients, so that every config has optimizer
+    state), then ``train/sweep.py::exploit`` of ``src`` into ``dst``.
+    Returns each of the rank's configs' parameters and optimizer state
+    before and after, by grid index."""
+    from inferbiomechanics_tpu_torch.train import sweep as S
+    cfg = _config(job['cfg'])
+    ds = _dataset(job)
+    grid = [tuple(g) for g in job['grid']]
+    placement = S.sweep_placement(cfg, len(grid), True)
+    state = S.init_sweep_states(cfg, ds, grid, 'cpu', configs=placement.configs)
+    g = torch.Generator().manual_seed(dist.rank())
+    for prm in state.model.parameters():
+        prm.grad = torch.randn(prm.shape, generator=g)
+    state.optimizer.step()
+
+    def tensors():
+        return {i: [t.detach().numpy().copy() for t in S.config_tensors(state, i)]
+                for i in state.configs}
+
+    before = tensors()
+    S.exploit(state, job['src'], job['dst'], placement)
+    return {'before': before, 'after': tensors()}
