@@ -242,6 +242,22 @@ Phases, each of which fails the run:
      layout on four ranks (``--nproc-per-node 4``), bitwise the 1-D sweep,
      K1 in its dev evals. ``--only-phase 16`` runs the build and this phase
      alone.
+ 17. inference and serving extras (``phase_inference``) at full width:
+     ``serve --quantize int8`` of a feedforward checkpoint (no K1 launch; its
+     answers at B=1 and B=4096 against the same int8 forward on the CPU, a
+     few quantisation steps apart at most, and within 5% of the range of
+     the f32 plain forward; /predict p50 at B=1, windows/s at B=4096);
+     ``analyze --quantize int8`` at B=1 and B=512 beside the unquantized
+     command (windows/s, the reports); ``export`` of feedforward, the
+     ``pallas`` transformer, GroundLink and the int8 feedforward, each loaded
+     back with ``torch.export.load`` and run at B=1 and 4096: K1 once, K2 4
+     times, K4 once a call, bitwise the eager eval forward; the export's
+     seconds and the artifact's bytes; the diffusion chain exported at
+     ``--static-batch 2 --sample-steps 10`` (its seed at call time, bitwise
+     the eager chain); one K1 call through the ``ib_torch::fused_mlp``
+     operator against the direct call (us each); ``save-prediction-csv``
+     through K1 against ``--device cpu``, the ``Predictor``'s windows/s at
+     batch 512. ``--only-phase 17`` runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -4653,6 +4669,323 @@ def phase_model_parallel(torch, port, fm, fe, fg, root, seed, card, device='cuda
     return report
 
 
+# 17. inference and serving extras. The int8 forward on the card against the
+# same forward on the CPU: both sum in int32 exactly and divide and multiply
+# in IEEE f32, so they differ only where the sigmoid between layers rounds
+# an activation one ulp apart and that moves an activation's int8 rounding
+# (or a row's scale); such a flip moves an output by a quantisation step of
+# the layer's input (the row's scale) times a weight. INT8_STEPS of the
+# head's own steps bound a few flips. Against the f32 plain forward the
+# JAX suite's bound: 5% of the output's range (tests/test_quant.py).
+INT8_STEPS = 4
+INT8_F32_REL = 5e-2
+# save-prediction-csv through K1 against the plain version: a force share
+# within this of the 0.3 rule may fall on either side of it
+SHARE_TIE = 2e-2
+
+
+def _op_vs_direct_us(torch, fm, library, device, gen, n=500):
+    """Host microseconds a call of K1 at B=1 through the ``ib_torch::
+    fused_mlp`` operator and directly (``fused_mlp_forward``), each the
+    better of two runs of ``n`` calls ended by a synchronize (direct, op,
+    op, direct); the two outputs are bitwise equal."""
+    packed = fm.pack_mlp_params(_random_params(torch, FULL_DIMS, gen), device)
+    x = torch.randn(1, FULL_DIMS[0], generator=gen).to(device)
+    fns = {'direct': lambda: fm.fused_mlp_forward(x, packed, 'sigmoid'),
+           'op': lambda: library.mlp(x, packed, 'sigmoid')}
+    _check(torch.equal(fns['direct'](), fns['op']()), 'K1 through the operator != direct')
+    sync = torch.cuda.synchronize if device == 'cuda' else (lambda: None)
+    us = {}
+    for name in ('direct', 'op', 'op', 'direct'):
+        fns[name]()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fns[name]()
+        sync()
+        us[name] = min(us.get(name, float('inf')), (time.perf_counter() - t0) / n * 1e6)
+    return us
+
+
+def phase_inference(torch, port, fm, fe, fg, root, seed, card, data=None, device='cuda'):
+    """17. ``serve`` and ``analyze --quantize int8``, ``export`` through K1 /
+    K2 / K4 and loaded back, the diffusion chain's export, the custom op's
+    dispatch against the direct call, ``save-prediction-csv`` and the
+    ``Predictor``, at full width on seeded random weights. ``data``: a
+    dataset home of at least 4096 windows (phase 4's), else written here."""
+    t_phase = time.perf_counter()
+    root = root / 'inference'
+    root.mkdir()
+    if data is None:
+        data = root / 'data'
+        data.mkdir()
+        for s in range(2):
+            port.write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
+                                         trial_length=1100, seed=seed + s)
+    ds = port.WindowDataset(str(data), window_size=50, stride=5, skip_loading_skeletons=True)
+    _check(len(ds) >= 4096, f'only {len(ds)} windows')
+    ck = root / 'ckpt'
+    cfgs = {}
+    for name, flags in (('feedforward', []),
+                        ('transformer', ['--model-type', 'transformer', '--attn-impl', 'pallas']),
+                        ('groundlink', ['--model-type', 'groundlink'])):
+        cfgs[name] = port.config_from_args(port.parser().parse_args(['train', *flags]))
+        port.save_checkpoint(str(ck / name), port.build_model_for_dataset(
+            cfgs[name], ds, generator=torch.Generator().manual_seed(seed + 170), device=device),
+            1, 0)
+    cfg = cfgs['feedforward']
+    modules = (fm, fe, fg)
+    on = int(device == 'cuda')      # a CPU rehearsal runs the plain versions: no launch
+
+    def counted(fn):
+        """``fn()``'s result and the K1 / K2 / K4 launches it made (counts
+        set to 0 just before, read just after)."""
+        for m in modules:
+            m.launches = 0
+        out = fn()
+        return out, [m.launches for m in modules]
+
+    def on_card(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+    report = {}
+    # a. serve --quantize int8
+    cpu_model = port.load_model(cfg, ds, str(ck / 'feedforward'), device='cpu')[0]
+    qcpu = port.quantized_feedforward_forward(cpu_model)
+    layers = port.quantize_feedforward_params(cpu_model.layer_params())
+    act = fm.ACTIVATIONS[cfg.activation]
+    w_head = float(layers[-1].w_q.abs().max()) * float(layers[-1].s_w.max())
+    x4096 = ds.gather(np.arange(4096)).inputs
+    with torch.no_grad():
+        h = torch.from_numpy(x4096).reshape(4096, -1)
+        for layer in layers[:-1]:
+            h = act(port.qdense(h, layer.w_q, layer.s_w, layer.b))
+        head_step = float(h.abs().amax(-1).max()) / 127.0   # the head's largest input step
+        want_q = {k: v.numpy() for k, v in qcpu(torch.from_numpy(x4096)).items()}
+        f32 = fm.mlp_reference(torch.from_numpy(x4096).reshape(4096, -1),
+                               cpu_model.layer_params(), cfg.activation, torch.float32)
+        want_f32 = {k: v.numpy() for k, v in port.slice_output_heads(f32, 2, 1).items()}
+    q_limit = INT8_STEPS * head_step * w_head
+    (svc, server, url), launches = counted(lambda: _serve(port, [
+        'serve', '--dataset-home', str(data), '--checkpoint-dir', str(ck), '--port', '0',
+        '--device', device, '--quantize', 'int8', '--warmup']))
+    try:
+        s = _get(url + '/schema')
+        _check(s['quantize'] == 'int8' and s['device'].startswith(device), f'/schema {s}')
+        for m in modules:
+            m.launches = 0
+        errs, moved = {}, {}
+        body1 = json.dumps({'inputs': x4096[:1].tolist()}).encode()
+        body4096 = _b64_body(x4096)
+        for b, body in ((1, body1), (4096, body4096)):
+            got = _decode(_post(url + '/predict', body)['outputs'])
+            errs[b] = _agree({k: v.tolist() for k, v in got.items()},
+                             {k: v[:b] for k, v in want_q.items()},
+                             f'int8 /predict B={b} vs the CPU int8 forward', atol=q_limit)
+            moved[b] = sum(int((got[k] != want_q[k][:b]).sum()) for k in got)
+            rng = {k: float(np.abs(v[:b]).max()) for k, v in want_f32.items()}
+            worst = max(float(np.abs(got[k] - want_f32[k][:b]).max()) / max(rng[k], 1e-6)
+                        for k in got)
+            _check(worst <= INT8_F32_REL, f'int8 B={b}: {worst} of the f32 range')
+            errs[f'f32 {b}'] = worst
+        p50_b1 = _host_p50_ms(lambda: _post(url + '/predict', body1), 20)
+        p50_b4096 = _host_p50_ms(lambda: _post(url + '/predict', body4096), 5)
+        launches = [m.launches for m in modules] + launches
+        _check(launches == [0] * 6, f'serve --quantize int8 launched K1/K2/K4 {launches}')
+    finally:
+        _stop(svc, server)
+    report['serve_int8'] = dict(
+        predict_p50_ms_b1=p50_b1, predict_p50_ms_b4096=p50_b4096,
+        windows_per_sec_b4096=4096 / p50_b4096 * 1e3, max_abs_err_vs_cpu_int8=errs[4096],
+        max_abs_err_vs_cpu_int8_b1=errs[1], limit_vs_cpu_int8=q_limit,
+        elements_moved_vs_cpu_int8={str(b): v for b, v in moved.items()},
+        rel_err_vs_f32={'1': errs['f32 1'], '4096': errs['f32 4096']})
+    print(f'[inference] serve --quantize int8: /predict B=1 json p50 {p50_b1:.2f} ms, B=4096 '
+          f'b64 p50 {p50_b4096:.1f} ms = {4096 / p50_b4096 * 1e3:.0f} windows/s; vs the CPU '
+          f'int8 forward max abs err {errs[1]:.3g} (B=1) / {errs[4096]:.3g} (B=4096, '
+          f'{moved[4096]} elements moved; limit {q_limit:.3g}), vs the f32 plain forward '
+          f'{errs["f32 4096"]:.3g} of the range; no K1 launch ({card})', flush=True)
+
+    # b. analyze --quantize int8 at B=1 and B=512, beside the unquantized command
+    homes = {}
+    for name, trials, length in (('b1', 1, 200), ('b512', 4, 512 + 51)):
+        home = root / f'analyze_{name}'
+        (home / 'train').mkdir(parents=True)
+        (home / 'dev').mkdir()
+        port.write_synthetic_subject(str(home / 'dev' / 'subject.b3d'), num_trials=trials,
+                                     trial_length=length, seed=seed + 171)
+        homes[name] = home
+    analyzed = {}
+    for name, batch in (('b1', 1), ('b512', 512)):
+        for mode in ('int8', 'f32'):
+            args = port.parser().parse_args([
+                'analyze', '--dataset-home', str(homes[name]), '--checkpoint-dir', str(ck),
+                '--no-wandb', '--device', device, '--batch-size', str(batch),
+                *(['--quantize', 'int8'] if mode == 'int8' else [])])
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                result, launches = counted(lambda: port.analyze(args))  # noqa: B023
+            dev = result['dev']
+            forwards = -(-dev['windows'] // batch)
+            _check(launches == ([0, 0, 0] if mode == 'int8' else [on * forwards, 0, 0]),
+                   f'analyze {mode} B={batch}: launches {launches}')
+            _check((mode == 'int8') == ('evaluating int8-quantized forward' in out.getvalue()),
+                   f'analyze {mode}: output')
+            analyzed[f'{mode} B={batch}'] = dict(
+                windows=dev['windows'], seconds=dev['seconds'],
+                windows_per_sec=dev['windows'] / dev['seconds'], summary=dev['summary'])
+        q, f = analyzed[f'int8 B={batch}']['summary'], analyzed[f'f32 B={batch}']['summary']
+        rel = abs(q['force_avg_err'] - f['force_avg_err']) / max(abs(f['force_avg_err']), 1e-30)
+        _check(rel <= INT8_F32_REL, f'analyze B={batch}: int8 force error {rel} off the f32 one')
+        analyzed[f'force_avg_err_rel B={batch}'] = rel
+        print(f'[inference] analyze B={batch} ({analyzed[f"int8 B={batch}"]["windows"]} '
+              f'windows): int8 {analyzed[f"int8 B={batch}"]["windows_per_sec"]:.1f} windows/s, '
+              f'K1 {analyzed[f"f32 B={batch}"]["windows_per_sec"]:.1f} windows/s; force avg '
+              f'err int8 {q["force_avg_err"]:.5g} vs {f["force_avg_err"]:.5g} ({rel:.3g} '
+              f'relative), loss {q["loss"]:.5g} vs {f["loss"]:.5g} ({card})', flush=True)
+    report['analyze_int8'] = analyzed
+
+    # c. export through K1 / K2 / K4 (and the int8 forward), loaded back
+    exported = {}
+    for name, model_type, flags, module, per_call in (
+            ('feedforward', 'feedforward', [], fm, 1),
+            ('pallas', 'transformer', ['--model-type', 'transformer', '--attn-impl', 'pallas'],
+             fe, ENC_FULL['layers']),
+            ('groundlink', 'groundlink', ['--model-type', 'groundlink'], fg, 1),
+            ('int8', 'feedforward', ['--quantize', 'int8'], None, 0)):
+        path = root / f'{name}.pt2'
+        args = port.parser().parse_args(['export', '--dataset-home', str(data),
+                                         '--checkpoint-dir', str(ck), '--device', device,
+                                         '--out', str(path), *flags])
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = port.export(args)
+        t0 = time.perf_counter()
+        program = torch.export.load(str(path)).module()
+        load_s = time.perf_counter() - t0
+        model = port.load_model(cfgs[model_type], ds, str(ck / model_type), device=device)[0]
+        eager = port.quantized_feedforward_forward(model) if name == 'int8' else model
+        want_launches = [on * per_call if m is module else 0 for m in modules]
+        for b in (1, 4096):
+            x = on_card(ds.gather(np.arange(b)).inputs)
+            with torch.no_grad():
+                got, launches = counted(lambda: program(x))  # noqa: B023
+                want = eager(x)
+            _check(launches == want_launches,
+                   f'export {name} B={b}: launches {launches}, want {want_launches}')
+            _check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+                   f'export {name} B={b}: the loaded program != the eager forward')
+        exported[name] = dict(export_seconds=res['seconds'], load_seconds=load_s,
+                              artifact_bytes=res['sidecar']['artifact_bytes'],
+                              launches_per_call=want_launches)
+        print(f'[inference] export {name}: traced in {res["seconds"]:.2f} s, '
+              f'{res["sidecar"]["artifact_bytes"]} bytes, loaded in {load_s:.2f} s; at B=1 '
+              f'and 4096 K1/K2/K4 launches {want_launches} a call, bitwise the eager forward',
+              flush=True)
+
+    # the diffusion chain: --static-batch 2 --sample-steps 10 (the trace
+    # unrolls every step), its seed at call time
+    dflags = ['--model-type', 'diffusion', '--output-data-format', 'all_frames']
+    dcfg = port.config_from_args(port.parser().parse_args(['train', *dflags]))
+    dds = port.WindowDataset(str(data), window_size=50, stride=5, skip_loading_skeletons=True,
+                             output_data_format='all_frames')
+    port.save_checkpoint(str(ck / 'diffusion'), port.build_model_for_dataset(
+        dcfg, dds, generator=torch.Generator().manual_seed(seed + 172), device=device), 1, 0)
+    path = root / 'diffusion.pt2'
+    args = port.parser().parse_args(['export', '--dataset-home', str(data), '--checkpoint-dir',
+                                     str(ck), '--device', device, '--out', str(path), *dflags,
+                                     '--static-batch', '2', '--sample-steps', '10'])
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = port.export(args)
+    program = torch.export.load(str(path)).module()
+    model = port.load_model(dcfg, dds, str(ck / 'diffusion'), device=device)[0]
+    chain = port.eval_forward(dcfg, model, str(ck / 'diffusion'), sample_steps=10)
+    x = on_card(dds.gather(np.arange(2)).inputs)
+    seed_t = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
+    with torch.no_grad():
+        a, b, c, want = (program(x, seed_t(7)), program(x, seed_t(7)), program(x, seed_t(8)),
+                         chain(x, seed_t(7)))
+    _check(all(torch.equal(a[k], b[k]) and torch.equal(a[k], want[k])
+               and bool(torch.isfinite(a[k]).all()) for k in want),
+           'exported diffusion chain: not bitwise the eager chain for one seed')
+    _check(not all(torch.equal(a[k], c[k]) for k in a), 'exported chain: seeds 7 and 8 agree')
+    exported['diffusion (static batch 2, 10 steps)'] = dict(
+        export_seconds=res['seconds'], artifact_bytes=res['sidecar']['artifact_bytes'])
+    print(f'[inference] export diffusion --static-batch 2 --sample-steps 10: traced in '
+          f'{res["seconds"]:.2f} s, {res["sidecar"]["artifact_bytes"]} bytes; seed 7 twice '
+          f'bitwise, bitwise the eager chain, seed 8 differs', flush=True)
+    report['export'] = exported
+
+    # d. one K1 call through the custom operator against the direct call
+    us = _op_vs_direct_us(torch, fm, port.library, device,
+                          torch.Generator().manual_seed(seed + 173))
+    report['k1_call_us'] = us
+    print(f'[inference] K1 at B=1, host us a call: direct {us["direct"]:.1f}, through '
+          f'ib_torch::fused_mlp {us["op"]:.1f} ({card})', flush=True)
+
+    # e. save-prediction-csv through K1 against --device cpu, the Predictor at 512
+    subject = str(data / 'subject_0.b3d')
+    rows, csv_launches = {}, None
+    for dev in (device, 'cpu'):
+        out = root / f'pred_{dev}.csv'
+        argv = ['save-prediction-csv', '--file', subject, '--trial', '1', '--checkpoint-dir',
+                str(ck), '--out', str(out), '--device', dev]
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, launches = counted(lambda: port.main(argv))  # noqa: B023
+        if dev == device:
+            csv_launches = launches
+        with open(out) as f:
+            rows[dev] = list(csv.reader(f))
+    got, want = (np.asarray(rows[d][1:], float) for d in (device, 'cpu'))
+    _check(rows[device][0] == rows['cpu'][0] and got.shape == want.shape
+           and np.array_equal(got[:, 0], want[:, 0]), 'save-prediction-csv: rows')
+    n_rows = got.shape[0]
+    _check(csv_launches == [on * -(-n_rows // 512), 0, 0],
+           f'save-prediction-csv: launches {csv_launches} for {n_rows} windows')
+    fds = port.WindowDataset(subject, window_size=50, stride=5, skip_loading_skeletons=True)
+    predictors = {dev: port.Predictor(cfg, str(ck / 'feedforward'), fds, device=dev)
+                  for dev in (device, 'cpu')}
+    predictors[device].predict_trial(0, 0)
+    t0 = time.perf_counter()
+    pred, launches = counted(lambda: predictors[device].predict_trial(0, 0, batch_size=512))
+    seconds = time.perf_counter() - t0
+    n = pred.window_starts.size
+    _check(launches == [on * -(-n // 512), 0, 0], f'Predictor: launches {launches} for {n}')
+    # the CSV's trial through K1 and through the plain version: each body's
+    # force share, and the rows where one lies within SHARE_TIE of the 0.3
+    # rule (K1's ATOL on the forces may flip the rule there)
+    shares = {}
+    for dev, p in predictors.items():
+        f = p.predict_trial(0, 1).outputs['groundContactForceInRootFrame'][:, -1, :]
+        mags = np.linalg.norm(f.reshape(-1, 2, 3), axis=-1)
+        shares[dev] = mags / (mags.sum(axis=1, keepdims=True) + 1e-9)
+    near = (np.abs(shares[device] - 0.3) <= SHARE_TIE).any(1) | \
+        (np.abs(shares['cpu'] - 0.3) <= SHARE_TIE).any(1)
+    _check(near.size == n_rows and np.array_equal((shares[device] > 0.3)[~near],
+                                                  (shares['cpu'] > 0.3)[~near]),
+           'save-prediction-csv: the 0.3 rule decided otherwise away from a tie')
+    # K1 against its plain version: ATOL on the CoPs and forces, so the arrow
+    # tip (CoP + 0.001 F mass) within ATOL (1 + 0.001 mass); a row near a tie
+    # on its CoPs only
+    mass = fds.subjects[0].getMassKg()
+    limit = np.tile([ATOL] * 3 + [ATOL * (1 + 1e-3 * mass)] * 3, 2) + 1e-6
+    err = np.abs(got[:, 1:] - want[:, 1:])
+    cops = np.tile([True] * 3 + [False] * 3, 2)
+    _check((err[~near] <= limit).all() and (err[:, cops] <= limit[cops]).all(),
+           f'save-prediction-csv: rows off the --device cpu rows by {err.max(axis=0)}')
+    report['save_prediction_csv'] = dict(rows=n_rows, launches=csv_launches[0],
+                                         rows_near_tie=int(near.sum()),
+                                         max_abs_err=float(err[~near].max()))
+    report['predictor'] = dict(windows=n, seconds=seconds, windows_per_sec_b512=n / seconds,
+                               launches=launches[0])
+    print(f'[inference] save-prediction-csv: {n_rows} rows, K1 {csv_launches[0]} launches, '
+          f'against --device cpu max abs err {float(err[~near].max()):.3g} ({int(near.sum())} '
+          f'rows with a force share within {SHARE_TIE} of the 0.3 rule, held on their CoPs); '
+          f'Predictor at batch 512: {n} windows in {seconds * 1e3:.1f} ms = '
+          f'{n / seconds:.0f} windows/s ({card})', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    return report
+
+
 def _dp_start_params(torch, port, job, ds, device):
     """The parameters :func:`_dp_steps` starts from (float64, by name)."""
     cfg = port.config_from_args(port.parser().parse_args(['train', *job['flags']]))
@@ -4684,7 +5017,7 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17], default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
         return rank_jobs(sys.argv[2])
@@ -4713,7 +5046,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from inferbiomechanics_tpu_torch.__main__ import build_parser as main_parser
+    from inferbiomechanics_tpu_torch.__main__ import main as port_main
     from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
+    from inferbiomechanics_tpu_torch.cli.export_cmd import eval_forward, export
     from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
     from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
     from inferbiomechanics_tpu_torch.config import Config, config_from_args
@@ -4726,6 +5061,11 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
     from inferbiomechanics_tpu_torch.ops import fused_groundlink as fg
     from inferbiomechanics_tpu_torch.ops import fused_mlp as fm
+    from inferbiomechanics_tpu_torch.ops import library
+    from inferbiomechanics_tpu_torch.ops.quant import (
+        qdense, quantize_feedforward_params, quantized_feedforward_forward,
+    )
+    from inferbiomechanics_tpu_torch.inference import Predictor
     from inferbiomechanics_tpu_torch.ops.tune import (
         library_encoder_layer, library_groundlink, random_groundlink_params,
     )
@@ -4781,6 +5121,25 @@ def main() -> int:
                 loss_config_from=loss_config_from, start=start, build_parser=build_parser,
                 slice_output_heads=slice_output_heads)
             report = phase_data_parallel(torch, port, fm, fe, fg, step_mod, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    def inference_port():
+        return SimpleNamespace(
+            parser=main_parser, main=port_main, config_from_args=config_from_args,
+            write_synthetic_subject=write_synthetic_subject, WindowDataset=WindowDataset,
+            build_model_for_dataset=build_model_for_dataset, save_checkpoint=save_checkpoint,
+            load_model=load_model, slice_output_heads=slice_output_heads, analyze=analyze,
+            quantized_feedforward_forward=quantized_feedforward_forward,
+            quantize_feedforward_params=quantize_feedforward_params, qdense=qdense,
+            export=export, eval_forward=eval_forward, library=library, Predictor=Predictor,
+            start=start, build_parser=build_parser)
+
+    if args.only_phase == 17:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            report = phase_inference(torch, inference_port(), fm, fe, fg, tmp, args.seed, card)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -4999,6 +5358,12 @@ def main() -> int:
         model_parallel = phase_model_parallel(torch, port, fm, fe, fg, tmp, args.seed, card)
         mark('16 model parallel')
 
+        # 17. inference and serving extras: int8 serve and analyze, export
+        # through K1 / K2 / K4, save-prediction-csv and the Predictor
+        inference = phase_inference(torch, inference_port(), fm, fe, fg, tmp, args.seed, card,
+                                    data=data)
+        mark('17 inference')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -5200,7 +5565,8 @@ def main() -> int:
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
-          f'{model_parallel["seconds"]:.1f} s ({card})', flush=True)
+          f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s ({card})',
+          flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(
         f'{name} {t1 - t0:.1f}' for (_, t0), (name, t1) in zip(marks, marks[1:])), flush=True)
@@ -5221,7 +5587,14 @@ def main() -> int:
               physics=physics,
               analyze_ensemble_launches=analyzed['extras']['ensemble_launches'][0],
               batchnorm=regularised, checkpoints=checkpoints, scale_out=scale_out,
-              data_parallel=data_parallel, model_parallel=model_parallel),
+              data_parallel=data_parallel, model_parallel=model_parallel,
+              inference=dict(export=inference['export']['feedforward'],
+                             k1_call_us=inference['k1_call_us'],
+                             save_prediction_csv=inference['save_prediction_csv'],
+                             predictor=inference['predictor'],
+                             int8_no_kernel=dict(serve=inference['serve_int8'],
+                                                 analyze=inference['analyze_int8'],
+                                                 export=inference['export']['int8']))),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
@@ -5244,7 +5617,10 @@ def main() -> int:
               analyze=analyzed['transformer pallas (K2)'],
               small_batch_max=fe.SMALL_BATCH_MAX, served_by=k2_served,
               checked_shapes=k2_checked,
-              ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel')),
+              ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel'),
+              inference=dict(export=inference['export']['pallas'],
+                             diffusion_export_plain=inference['export'][
+                                 'diffusion (static batch 2, 10 steps)'])),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,
@@ -5284,7 +5660,8 @@ def main() -> int:
               analyze=analyzed['groundlink (K4)'],
               analyze_tta_launches=analyzed['extras']['tta_launches'][2],
               compute_report_launches={
-                  'analyze B=1': physics['groundlink (K4)']['launches'][1]}),
+                  'analyze B=1': physics['groundlink (K4)']['launches'][1]},
+              inference=dict(export=inference['export']['groundlink'])),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,15 +1,18 @@
-"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint,sweep} ...``"""
+"""``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint,sweep,export,
+save-prediction-csv} ...``"""
 
 import argparse
 import logging
 from typing import Optional, Sequence
 
 from inferbiomechanics_tpu_torch.cli import (
-    analyze_cmd, convert_checkpoint_cmd, serve_cmd, sweep_cmd, train_cmd,
+    analyze_cmd, convert_checkpoint_cmd, export_cmd, save_prediction_csv_cmd, serve_cmd,
+    sweep_cmd, train_cmd,
 )
 
 COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd,
-            'convert-checkpoint': convert_checkpoint_cmd, 'sweep': sweep_cmd}
+            'convert-checkpoint': convert_checkpoint_cmd, 'sweep': sweep_cmd,
+            'export': export_cmd, 'save-prediction-csv': save_prediction_csv_cmd}
 
 
 def build_parser() -> argparse.ArgumentParser:

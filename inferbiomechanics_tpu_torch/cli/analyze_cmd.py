@@ -34,6 +34,8 @@ JAX command, the report of each through its own graph
 (``loss/tau_report.py``). ``--ensemble`` scores the mean of several
 checkpoints through the port's ``InferenceService`` (``--tta-mirror`` per member);
 ``--tta-mirror`` alone goes through ``train/augment.py::make_tta_eval_step``.
+``--quantize int8`` scores a feedforward checkpoint through the int8 forward
+of ``ops/quant.py`` (no K1), batch by batch, as the JAX command does.
 ``--device`` defaults to ``cuda`` and fails without a GPU; ``--device cpu``
 runs the kernels' plain versions. Options whose features are not ported
 raise and name the ROADMAP item that brings them.
@@ -68,6 +70,7 @@ from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import diffusion
 from inferbiomechanics_tpu_torch.models.analytical import make_analytical_fn
 from inferbiomechanics_tpu_torch.models.transformer import TransformerRegressor
+from inferbiomechanics_tpu_torch.ops.quant import quantized_feedforward_forward
 from inferbiomechanics_tpu_torch.serve import InferenceService, resolve_device
 from inferbiomechanics_tpu_torch.train.augment import make_tta_eval_step, spec_from_dataset
 from inferbiomechanics_tpu_torch.train.checkpoint import MissingEMAError, load_model
@@ -106,7 +109,8 @@ def register_subcommand(sub) -> None:
     p.add_argument('--eval-chunk-steps', type=int, default=64,
                    help='Evaluate K same-shape batches between two copies of '
                         'their metrics to the host; 1 = one batch at a time. '
-                        'Ignored with --ensemble and --model-type diffusion')
+                        'Ignored with --ensemble, --quantize and --model-type '
+                        'diffusion')
     p.add_argument('--bootstrap', type=int, default=0,
                    help='Resample the per-window rows N times and print 95%% '
                         'confidence intervals on the mean loss / force / '
@@ -127,11 +131,13 @@ def register_subcommand(sub) -> None:
     p.add_argument('--init-checkpoint', type=str, default=None,
                    help='Checkpoint dir of the all-frames proposal model for '
                         '--diffusion-partial')
-    # flags of the JAX command whose features are not ported yet: accepted,
-    # so that they can be refused by name instead of ignored
-    p.add_argument('--plot-errors', action='store_true', help='not yet ported')
     p.add_argument('--quantize', type=str, default=None, choices=['int8'],
-                   help='not yet ported')
+                   help='Evaluate the int8-quantized forward (feedforward; '
+                        'ops/quant.py): the accuracy cost of serve --quantize '
+                        'on the standard metrics')
+    # a flag of the JAX command whose feature is not ported yet: accepted,
+    # so that it can be refused by name instead of ignored
+    p.add_argument('--plot-errors', action='store_true', help='not yet ported')
 
 
 def _check_consistency(config: Config, args: argparse.Namespace) -> None:
@@ -165,8 +171,6 @@ def _reject_unported(config: Config, args: argparse.Namespace) -> None:
     """Raise for every option of the JAX command that the port does not
     have yet, by the flag's name."""
     unported = [
-        ('--quantize', bool(args.quantize),
-         'ROADMAP.md Queue 1 item 4 (inference and serving extras)'),
         ('--plot-errors', args.plot_errors,
          'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
     ]
@@ -280,6 +284,18 @@ def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDatas
     return predict
 
 
+def _quantized_predict(model, device: torch.device):
+    """The JAX command's int8 evaluation: ``predict(x) -> outputs`` of the
+    quantized forward (``ops/quant.py``, weights quantized here once) on
+    ``x`` (numpy [B, T, C_in]); batch by batch, as the diffusion chains."""
+    forward = quantized_feedforward_forward(model)
+
+    def predict(x: np.ndarray) -> Dict[str, torch.Tensor]:
+        return forward(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
+
+    return predict
+
+
 def _load(config: Config, ds: WindowDataset, checkpoint_dir: str,
           args: argparse.Namespace, device: torch.device, missing: str):
     """The model to evaluate, from ``--checkpoint-file`` or the newest
@@ -361,18 +377,24 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
         else:
             model = _load(config, ds, checkpoint_dir, args, device, 'WARNING: no '
                           f'checkpoint found in {checkpoint_dir}; evaluating a fresh model')
-            _pack_for_eval(model)
-            if args.tta_mirror:
-                spec = spec_from_dataset(ds, lateral_axis=config.mirror_lateral_axis)
-                eval_fn = make_tta_eval_step(model, ds.lab_offsets, lc, spec)
-                print('mirror test-time augmentation enabled')
+            if args.quantize:
+                predict = _quantized_predict(model, device)
+                eval_fn = None
+                print('evaluating int8-quantized forward')
+                _refuse_tta(args)
             else:
-                eval_fn = make_eval_step(model, ds.lab_offsets, lc)
-            if not config.compute_report:
-                runner = make_eval_chunk_runner(eval_fn, device)
+                _pack_for_eval(model)
+                if args.tta_mirror:
+                    spec = spec_from_dataset(ds, lateral_axis=config.mirror_lateral_axis)
+                    eval_fn = make_tta_eval_step(model, ds.lab_offsets, lc, spec)
+                    print('mirror test-time augmentation enabled')
+                else:
+                    eval_fn = make_eval_step(model, ds.lab_offsets, lc)
+                if not config.compute_report:
+                    runner = make_eval_chunk_runner(eval_fn, device)
 
-                def run_chunk(xs, ys, _ss, runner=runner):
-                    return runner(None, xs, ys)
+                    def run_chunk(xs, ys, _ss, runner=runner):
+                        return runner(None, xs, ys)
 
         csv_path = os.path.join(checkpoint_dir, f'{split}_analysis.csv')
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -413,8 +435,8 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
 
             batches = ds.batches(config.batch_size, shuffle=False, drop_last=False)
             if run_chunk is None:
-                # one batch at a time: --ensemble, diffusion, --compute-report
-                # with a learned model
+                # one batch at a time: --ensemble, diffusion, --quantize,
+                # --compute-report with a learned model
                 for i, batch in enumerate(batches):
                     windows += batch.inputs.shape[0]
                     x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)

@@ -10,6 +10,7 @@ no GPU; ``--device cpu`` serves on the CPU.
     python -m inferbiomechanics_tpu_torch serve ... --model-type groundlink
     python -m inferbiomechanics_tpu_torch serve ... --model-type transformer --fused-inference
     python -m inferbiomechanics_tpu_torch serve ... --ensemble C1 C2 C3 --tta-mirror
+    python -m inferbiomechanics_tpu_torch serve ... --quantize int8
     python -m inferbiomechanics_tpu_torch serve ... --model-type diffusion \
         --output-data-format all_frames --fused-inference [--diffusion-samples 4]
 """
@@ -92,10 +93,10 @@ def register_subcommand(sub) -> None:
     p.add_argument('--init-checkpoint', type=str, default=None,
                    help='Checkpoint dir of the all-frames proposal model for '
                         '--diffusion-partial')
-    # a flag of the JAX command whose feature is not ported yet: accepted,
-    # so that the service can refuse it by name instead of ignoring it
     p.add_argument('--quantize', type=str, default=None, choices=['int8'],
-                   help='not yet ported')
+                   help='Serve through int8 weights and activations '
+                        '(feedforward family; ops/quant.py): weights '
+                        'quantized once at load, int32 sums; no reload')
 
 
 def start(args: argparse.Namespace):

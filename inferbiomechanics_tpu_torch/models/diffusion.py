@@ -20,7 +20,9 @@ The sampler runs the chain eagerly, one denoiser call a step (JAX runs it as
 one ``lax.scan`` program). Its random draws come from a ``torch.Generator``,
 or from a :data:`NoiseSource` handed to it: the seam through which a test
 feeds the JAX sampler's own ``jax.random`` draws. Serving and ``analyze``
-ask :func:`chain_noise` for theirs, which gives none (the generator draws).
+ask :func:`chain_noise` for theirs, which gives none (the generator draws);
+an exported chain draws from :func:`seeded_noise`, plain tensor ops of a
+seed given at call time.
 
 Training: :func:`make_diffusion_train_step` is the eps-prediction step, with
 classifier-free guidance's :func:`drop_conditioning`. A step's random draws
@@ -536,6 +538,42 @@ def chain_noise(seed: int, samples: int) -> Optional[NoiseSource]:
     return None
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(v: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 values below 2^32 (two rounds of
+    xor-shift-multiply), elementwise; the result is below 2^32 too."""
+    v = ((v ^ (v >> 16)) * 0x45D9F3B) & _M32
+    v = ((v ^ (v >> 16)) * 0x45D9F3B) & _M32
+    return v ^ (v >> 16)
+
+
+def seeded_noise(seed: torch.Tensor) -> NoiseSource:
+    """A :data:`NoiseSource` written in plain tensor ops from ``seed`` (an
+    integer tensor of one element), which a ``torch.export`` program can
+    carry with the seed as an argument at call time (``export``'s diffusion
+    chain; serve and analyze draw from generators). Element j of draw i is
+    ``sqrt(-2 ln u1) cos(2 pi u2)`` (Box-Muller) with u1, u2 in (0, 1) from
+    24 bits of hashes of (seed, i, 2 j) and (seed, i, 2 j + 1): the same seed
+    gives the same draws bit for bit on one device, another seed others.
+    It is not the JAX package's threefry stream."""
+
+    def noise(i: int, shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+        key = _mix32(seed.reshape(()).to(device=device, dtype=torch.int64) & _M32)
+        key = _mix32(key ^ ((i * 0x9E3779B9) & _M32))
+        j = 2 * torch.arange(math.prod(shape), device=device, dtype=torch.int64)
+
+        def uniform(k):
+            h = _mix32((_mix32(k) + key) & _M32)
+            return ((h >> 8).float() + 0.5) * 2.0 ** -24
+
+        u1, u2 = uniform(j), uniform(j + 1)
+        return (torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)).reshape(shape)
+
+    return noise
+
+
 def _step_coefficients(alpha_bars: np.ndarray, ts: np.ndarray, ts_prev: np.ndarray,
                        eta: float):
     """Each DDIM step's scalars in float32, in the JAX sampler's order of
@@ -740,5 +778,6 @@ __all__ = [
     'diffusion_targets_from_labels', 'diffusion_targets_from_outputs', 'drop_conditioning',
     'fused_denoiser_eps', 'generator_draws', 'make_chain_forward',
     'make_diffusion_train_step', 'make_partial_proposal_fn',
-    'make_sampler', 'stacked_samples', 'target_scales', 'timestep_embedding',
+    'make_sampler', 'seeded_noise', 'stacked_samples', 'target_scales',
+    'timestep_embedding',
 ]

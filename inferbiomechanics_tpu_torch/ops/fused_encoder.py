@@ -394,9 +394,14 @@ def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
     """x [B, T, d] float32 -> [B, T, d] float32 through the fused kernel.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    :func:`encoder_layer_reference`; any other device raises.
+    :func:`encoder_layer_reference`; any other device raises. While
+    ``torch.export`` traces, the call is the ``ib_torch::fused_encoder_layer``
+    operator (``ops/library.py``), which an exported program keeps.
     """
     global launches
+    if torch.compiler.is_exporting():
+        from inferbiomechanics_tpu_torch.ops import library
+        return library.encoder_layer(x, packed, num_heads)
     if x.device.type == 'cpu':
         return encoder_layer_reference(x, packed.params, num_heads)
     if x.device.type != 'cuda':

@@ -447,9 +447,14 @@ def fused_groundlink_forward(x: torch.Tensor, packed: PackedGroundlink,
 
     A CUDA tensor launches the kernel in the shape :func:`plan_groundlink`
     names (or raises); a CPU tensor takes :func:`groundlink_reference`; any
-    other device raises.
+    other device raises. While ``torch.export`` traces, the call is the
+    ``ib_torch::fused_groundlink`` operator (``ops/library.py``), which an
+    exported program keeps.
     """
     global launches
+    if torch.compiler.is_exporting():
+        from inferbiomechanics_tpu_torch.ops import library
+        return library.groundlink(x, packed, output_data_format)
     if x.device.type == 'cpu':
         return groundlink_reference(x, packed.params, output_data_format,
                                     packed.fc_depth)

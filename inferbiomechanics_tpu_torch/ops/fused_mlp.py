@@ -274,9 +274,14 @@ def fused_mlp_forward(x: torch.Tensor, packed: PackedMLP,
     """x [B, C_in] float32 -> [B, C_out] float32 through the fused kernel.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-    :func:`mlp_reference`; any other device raises.
+    :func:`mlp_reference`; any other device raises. While ``torch.export``
+    traces, the call is the ``ib_torch::fused_mlp`` operator
+    (``ops/library.py``), which an exported program keeps.
     """
     global launches
+    if torch.compiler.is_exporting():
+        from inferbiomechanics_tpu_torch.ops import library
+        return library.mlp(x, packed, activation)
     if x.device.type == 'cpu':
         return mlp_reference(x, packed.layers, activation)
     if x.device.type != 'cuda':

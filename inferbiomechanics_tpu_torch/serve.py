@@ -12,7 +12,9 @@ through the fused kernel (``ops/fused_encoder.py``), and so does every step
 of a diffusion chain. ``ensemble`` serves the mean of several checkpoints
 (and, on request, their spread), ``tta_mirror`` averages each prediction with
 the un-mirrored prediction of the mirrored window, ``use_ema`` serves a
-checkpoint's EMA weights, and ``start_reload_poller`` swaps to newer
+checkpoint's EMA weights, ``quantize='int8'`` serves a feedforward model
+through int8 weights and activations (``ops/quant.py``; weights quantized
+once at load, no K1), and ``start_reload_poller`` swaps to newer
 checkpoints as they land.
 
 A diffusion ``/predict`` is a DDIM chain of ``sample_steps`` denoiser calls
@@ -34,8 +36,7 @@ Differences from the JAX service:
 - a diffusion chain runs eagerly, step by step (one ``lax.scan`` program in
   the JAX service), and its draws are torch's, not ``jax.random``'s;
 - ``--fused-inference`` on a denoiser whose ``d_model`` the encoder layer
-  kernel does not take raises (the JAX service runs it);
-- ``quantize`` raises "not yet ported" (ROADMAP.md Queue 1 item 4).
+  kernel does not take raises (the JAX service runs it).
 
 Device work is serialized under one lock, as in the JAX service.
 """
@@ -61,14 +62,13 @@ from inferbiomechanics_tpu_torch.models import diffusion
 from inferbiomechanics_tpu_torch.models.transformer import (
     TransformerRegressor, fused_transformer_forward,
 )
+from inferbiomechanics_tpu_torch.ops.quant import quantized_feedforward_forward
 from inferbiomechanics_tpu_torch.train.augment import spec_from_dataset, tta_average
 from inferbiomechanics_tpu_torch.train.checkpoint import list_checkpoints, load_model
 
 logger = logging.getLogger(__name__)
 
 __all__ = ['DynamicBatcher', 'InferenceService', 'resolve_device', 'serve']
-
-_SERVING_SLICE = 'ROADMAP.md Queue 1 item 4 (inference and serving extras)'
 
 
 def resolve_device(device) -> torch.device:
@@ -222,7 +222,8 @@ class InferenceService:
         model and request. ``use_ema``: serve the checkpoint's EMA weights.
         ``sample_steps``, ``diffusion_samples``, ``diffusion_partial`` and
         ``init_checkpoint``: a diffusion model's chains (see the module's
-        docstring)."""
+        docstring). ``quantize='int8'``: a single feedforward checkpoint
+        through int8 weights and activations; no reload."""
         quantize = quantize if quantize not in (None, 'none') else None
         self.is_diffusion = config.model_type == 'diffusion'
         self._check_options(config, ensemble, quantize, use_ema, tta_mirror,
@@ -230,8 +231,6 @@ class InferenceService:
         if checkpoint_file and ensemble:
             raise ValueError('--checkpoint-file serves one checkpoint; an ensemble '
                              'names its members in --ensemble')
-        if quantize:
-            raise ValueError(f'quantize is not yet ported ({_SERVING_SLICE})')
         if config.model_type == 'analytical':
             raise ValueError('serve supports learned models; the analytical '
                              'baseline needs per-subject skeletons')
@@ -247,6 +246,7 @@ class InferenceService:
         self.sample_steps = int(sample_steps)
         self.diffusion_samples = int(diffusion_samples)
         self.use_ema = bool(use_ema)
+        self.quantize = quantize
         self.members: list = []     # [{path, epoch, batch}] of an ensemble
         self._member_models: list = []
         self._checkpoint_dir = checkpoint_dir
@@ -322,10 +322,16 @@ class InferenceService:
         if use_ema and ensemble:
             raise ValueError('--use-ema serves a single checkpoint, '
                              'not an ensemble')
+        if quantize and quantize != 'int8':
+            raise ValueError(f'unknown --quantize {quantize!r}; '
+                             f'expected int8')
         if quantize and (is_diffusion or ensemble):
             raise ValueError('--quantize int8 serves a single '
                              'feedforward checkpoint (not diffusion '
                              'or ensembles)')
+        if quantize and config.model_type != 'feedforward':
+            raise ValueError('--quantize int8 currently supports the '
+                             'feedforward family only')
         if tta_mirror and (is_diffusion or quantize):
             raise ValueError('--tta-mirror serves the learned-model '
                              'paths (single model or ensemble; not '
@@ -338,6 +344,8 @@ class InferenceService:
         model, epoch, batch = load_model(self.config, self.ds, path,
                                          checkpoint_file=checkpoint_file,
                                          use_ema=self.use_ema, device=self.device)
+        if self.quantize:       # the int8 forward runs no kernel
+            return model, epoch, batch
         # the kernels' weights, laid out once per load
         if self._use_fused or not isinstance(
                 model, (TransformerRegressor, diffusion.DiffusionDenoiser)):
@@ -362,7 +370,11 @@ class InferenceService:
     def _make_forward(self) -> Callable:
         """``forward(model, x)`` -> output dict of tensors: the model's eval
         forward (through its fused kernel where it has one), symmetrized
-        when ``tta_mirror`` is on."""
+        when ``tta_mirror`` is on; with ``quantize``, the int8 forward of
+        the weights loaded now, quantized here once."""
+        if self.quantize:
+            qfwd = quantized_feedforward_forward(self.model)
+            return lambda model, x: qfwd(x)
         if self._use_fused:
             forward = fused_transformer_forward
         else:
@@ -414,6 +426,10 @@ class InferenceService:
             raise ValueError('reload serves a single checkpoint dir; '
                              'restart the server to change an ensemble or '
                              'a --checkpoint-file')
+        if self.quantize:
+            raise ValueError('reload is not supported with --quantize '
+                             '(weights are baked into the compiled '
+                             'program); restart the server')
         ckpts = list_checkpoints(self._checkpoint_dir)
         if not ckpts or (ckpts[-1][0], ckpts[-1][1]) == (self.epoch,
                                                          self.batch):
@@ -434,6 +450,9 @@ class InferenceService:
         stops it."""
         if poll_sec <= 0:
             return
+        if self.quantize:
+            raise ValueError('--reload-poll-sec cannot work here: reload '
+                             'is unsupported for --quantize services')
         if self.members or self._checkpoint_file:
             raise ValueError('--reload-poll-sec cannot work here: reload '
                              'is unsupported for ensembles and --checkpoint-file')
@@ -588,7 +607,7 @@ class InferenceService:
             'diffusion_sample_steps': self.sample_steps if self.is_diffusion else None,
             'diffusion_samples': self.diffusion_samples if self.is_diffusion else None,
             'fused_inference': self._use_fused,
-            'quantize': None,
+            'quantize': self.quantize,
             'use_ema': self.use_ema,
             'mesh_devices': 1,
             'device': str(self.device),

@@ -367,7 +367,10 @@ _ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames'
 
 
 @pytest.mark.parametrize('argv,flag,item', [
-    (['--quantize', 'int8'], '--quantize', 'item 4'),
+    # --quantize int8 is ported: with --tta-mirror it is refused in the JAX
+    # command's words
+    (['--quantize', 'int8', '--tta-mirror'], None,
+     '--tta-mirror supports the learned-model eval paths (not analytical/diffusion/quantized)'),
     # the diffusion options are ported: a bad use of them is refused
     # in the JAX command's words, which the JAX command is held to here too
     (_ALL_FRAMES + ['--use-ema'], None,
@@ -388,8 +391,9 @@ _ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames'
     'argv4-None-analyze --model-type diffusion requires --output-data-format all_frames',
     'argv7---plot-errors-item 9', 'analytical --tta-mirror'])
 def test_unported_analyze_flags_raise_by_name(ws, tmp_path, monkeypatch, argv, flag, item):
-    """What is not ported names its ROADMAP item; the ported diffusion and
-    analytical options refuse a bad invocation as the JAX command does."""
+    """What is not ported names its ROADMAP item; the ported diffusion,
+    analytical and int8 options refuse a bad invocation as the JAX command
+    does."""
     base = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
             '--no-wandb', *argv]
     if flag is not None:

@@ -128,7 +128,8 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'utils.wandb_compat', 'models.diffusion', 'utils.flax_msgpack',
                    'torch_compat', 'cli.convert_checkpoint_cmd', 'parallel.dist',
                    'parallel.mesh', 'parallel.sharding_rules', 'train.sharded_data',
-                   'train.sweep', 'cli.sweep_cmd'):
+                   'train.sweep', 'cli.sweep_cmd', 'ops.quant', 'ops.library', 'inference',
+                   'cli.export_cmd', 'cli.save_prediction_csv_cmd'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out

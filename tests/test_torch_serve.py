@@ -268,23 +268,21 @@ def test_untrained_model_when_no_checkpoint(setup, tmp_path):
 
 
 @pytest.mark.parametrize('option', [
-    {'quantize': 'int8'}, {'use_ema': True},
+    {'quantize': 'int8', 'tta_mirror': True}, {'use_ema': True},
     {'diffusion_samples': 4}, {'diffusion_partial': 0.3},
     {'init_checkpoint': 'x'}, {'config': {'model_type': 'diffusion'}},
 ])
 def test_unported_serving_options_raise(setup, option):
-    """``quantize`` is not ported; the options that are refuse what
-    the JAX service refuses, in its words: EMA weights the checkpoint does
-    not carry, the diffusion options on a feedforward model, a diffusion
-    model that does not predict all frames."""
+    """The serving options refuse what the JAX service refuses, in its
+    words: ``--quantize int8`` with ``--tta-mirror``, EMA weights the
+    checkpoint does not carry, the diffusion options on a feedforward model,
+    a diffusion model that does not predict all frames."""
     cfg = _config()
     for k, v in option.pop('config', {}).items():
         setattr(cfg, k, v)
-    if 'quantize' in option:
-        with pytest.raises(ValueError, match='quantize is not yet ported'):
-            InferenceService(cfg, setup['ckpt'], setup['ds'], device='cpu', **option)
-        return
-    match = {'use_ema': '--use-ema: checkpoint .* carries no ema_params',
+    match = {'quantize': r'--tta-mirror serves the learned-model paths \(single model or '
+                         r'ensemble; not diffusion or int8\)',
+             'use_ema': '--use-ema: checkpoint .* carries no ema_params',
              'diffusion_samples': '--diffusion-samples applies to --model-type diffusion',
              'diffusion_partial': '--diffusion-partial applies to --model-type diffusion',
              'init_checkpoint': '--init-checkpoint only does something with '
