@@ -258,6 +258,20 @@ Phases, each of which fails the run:
      operator against the direct call (us each); ``save-prediction-csv``
      through K1 against ``--device cpu``, the ``Predictor``'s windows/s at
      batch 512. ``--only-phase 17`` runs the build and this phase alone.
+ 18. the viewer commands (``phase_viewer``) at full width on phase 17's
+     checkpoints, for feedforward (K1), the ``pallas`` transformer (K2) and
+     GroundLink (K4), on subject 0 of phase 4's data with a Geometry folder
+     of small meshes: ``visualize-file`` of a 1100-frame trial (1049
+     windows: 3 forwards of at most 512, 4 K2 launches each) against the
+     same command with ``--device cpu`` (data exactly, FK within 1.5e-4,
+     predictions at each kernel's served-answer tolerance, a frame near the
+     0.3 rule on its CoPs), the command's seconds and the payload's; 200
+     ticks of ``visualize``'s live session (a B=1 forward, the loss
+     evaluator and FK a tick; p50 / p99 ms against the 40 ms tick, launches
+     a tick), the first five against the CPU session's; ``visualize-file
+     --live`` serving a WebSocket client on a loopback port; ``review-file
+     --threshold-ratio 1.25`` (both trials) against its rows from the CPU
+     Predictor. ``--only-phase 18`` runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -277,6 +291,7 @@ import base64
 import contextlib
 import csv
 import dataclasses
+import functools
 import io
 import json
 import logging
@@ -4982,6 +4997,352 @@ def phase_inference(torch, port, fm, fe, fg, root, seed, card, data=None, device
           f'rows with a force share within {SHARE_TIE} of the 0.3 rule, held on their CoPs); '
           f'Predictor at batch 512: {n} windows in {seconds * 1e3:.1f} ms = '
           f'{n / seconds:.0f} windows/s ({card})', flush=True)
+    report['checkpoints'] = str(ck)     # phase 18 serves them again
+    report['seconds'] = time.perf_counter() - t_phase
+    return report
+
+
+# 18. the viewer commands on the card against the same commands on the CPU.
+# FK runs in float32 on both devices and both round it to 4 decimals, so a
+# value may round to the neighbouring decimal; the predictions are held at
+# each kernel's served-answer tolerance (K1 ATOL, K2 HEAD_REL x the output's
+# largest value, K4 GL_REL x its output vector's), a frame with a force
+# share within SHARE_TIE of the 0.3 rule on its CoPs only; a window whose
+# loss lies within LOSS_REL of threshold_ratio x its trial's mean may be
+# suspicious on one side only (the band's windows are left out of the
+# comparison of review-file's rows and counted).
+FK_ATOL = 1.5e-4
+LOSS_REL = 2e-2
+REVIEW_RATIO = 1.25         # random weights: 3 x the mean flags no window
+VIEWER_TICKS = 200
+TICK_INTERVAL_MS = 40.0     # viz/live.py: LiveViewerServer's tick_interval
+VIEWER_MODELS = (           # name, model type, flags, K1 / K2 / K4, launches a forward
+    ('feedforward', 'feedforward', [], 0, 1),
+    ('pallas', 'transformer', ['--model-type', 'transformer', '--attn-impl', 'pallas'], 1,
+     ENC_FULL['layers']),
+    ('groundlink', 'groundlink', ['--model-type', 'groundlink'], 2, 1))
+TETRA_OBJ = 'v 0 0 0\nv 0.1 0 0\nv 0 0.1 0\nv 0 0 0.1\nf 1 2 3\nf 1 2 4\nf 1 3 4\nf 2 3 4\n'
+
+
+def _html_payload(path: Path) -> dict:
+    """The frames a viewer HTML carries (``viz/viewer.py``'s template)."""
+    return json.loads(path.read_text().split('const DATA = ', 1)[1].split(';\nconst cv', 1)[0])
+
+
+def _pred_limits(name: str, outputs: dict) -> tuple:
+    """(CoP, force) tolerance of a viewer's predictions, from the CPU
+    Predictor's ``outputs`` of the trial."""
+    key_c, key_f = ('groundContactCenterOfPressureInRootFrame',
+                    'groundContactForceInRootFrame')
+    if name == 'feedforward':
+        return ATOL, ATOL
+    if name == 'pallas':
+        return tuple(HEAD_REL * float(np.abs(outputs[k]).max()) for k in (key_c, key_f))
+    lim = GL_REL * max(float(np.abs(v).max()) for v in outputs.values())
+    return lim, lim
+
+
+def _fk_err(got: dict, want: dict, what: str) -> float:
+    _check(set(got) == set(want) and bool(want), f'{what}: bodies {sorted(got)}')
+    return max(float(np.abs(np.asarray(got[b][k]) - np.asarray(want[b][k])).max())
+               for b in want for k in ('R', 'p'))
+
+
+def _pred_errs(got: dict, want: dict) -> tuple:
+    """Max abs difference of the predicted CoPs, of the forces, and which
+    bodies' forces are zero on one side only."""
+    gc, gf, wc, wf = (np.array([x[j] for x in p['pred_forces']])
+                      for p, j in ((got, 0), (got, 1), (want, 0), (want, 1)))
+    return (float(np.abs(gc - wc).max()), float(np.abs(gf - wf).max()),
+            bool(((gf == 0) != (wf == 0)).any()))
+
+
+def _hold_viewer_payload(got: dict, want: dict, limits: tuple, near: set, what: str) -> dict:
+    """The card's viewer payload against the CPU's (see the constants
+    above); returns the largest differences."""
+    _check(got['dt'] == want['dt'] and len(got['frames']) == len(want['frames'])
+           and bool(want.get('meshes')) and got.get('meshes') == want['meshes'],
+           f'{what}: payload shape or meshes')
+    worst = dict(fk=0.0, cop=0.0, force=0.0, predicted_frames=0)
+    for i, (g, w) in enumerate(zip(got['frames'], want['frames'])):
+        for k in ('joints', 'bones', 'label_forces', 'missing_grf', 'root_vel', 'root_history'):
+            _check(g[k] == w[k], f'{what}: frame {i} {k}')
+        worst['fk'] = max(worst['fk'], _fk_err(g['bodies'], w['bodies'], f'{what} frame {i}'))
+        _check(('pred_forces' in g) == ('pred_forces' in w), f'{what}: frame {i} predicted')
+        if 'pred_forces' in w:
+            worst['predicted_frames'] += 1
+            cop, force, flipped = _pred_errs(g, w)
+            worst['cop'] = max(worst['cop'], cop)
+            if i not in near:
+                _check(not flipped, f'{what}: frame {i}: the 0.3 rule decided otherwise')
+                worst['force'] = max(worst['force'], force)
+    _check(worst['fk'] <= FK_ATOL and worst['cop'] <= limits[0] and worst['force'] <= limits[1],
+           f'{what}: {worst} against FK {FK_ATOL}, predictions {limits}')
+    return worst
+
+
+def _review_rows(path: Path) -> list:
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    _check(rows[0] == ['trial', 'segment_start', 'segment_end', 'state', 'mean_loss'],
+           f'{path.name}: header {rows[0]}')
+    return [(int(r[0]), int(r[1]), int(r[2]), r[3], float(r[4])) for r in rows[1:]]
+
+
+def _hold_review_rows(got: list, want: list, preds: dict, trials: int, what: str) -> dict:
+    """review-file's rows on the card against the CPU's: which windows are
+    suspicious, away from the ratio x mean band, and the mean losses of the
+    segments both found."""
+    near_windows = 0
+    for trial in range(trials):
+        card, cpu = (preds[side].predict_trial(0, trial) for side in ('card', 'cpu'))
+        loss, cpu_loss = card.per_window_loss, cpu.per_window_loss
+        _check(np.allclose(loss, cpu_loss, rtol=LOSS_REL, atol=1e-6),
+               f'{what}: trial {trial} window losses off the CPU\'s')
+        near = np.zeros(loss.size, bool)
+        for pw in (loss, cpu_loss):
+            near |= np.abs(pw - REVIEW_RATIO * pw.mean()) <= LOSS_REL * REVIEW_RATIO * pw.mean()
+        near_windows += int(near.sum())
+        flags = []
+        for rows in (got, want):
+            f = np.zeros(loss.size, bool)
+            for t, start, end, _, _ in rows:
+                if t == trial:
+                    f |= (cpu.last_frame >= start) & (cpu.last_frame < end)
+            flags.append(f[~near])
+        _check(np.array_equal(*flags), f'{what}: trial {trial} suspicious windows differ')
+    common = {r[:3] for r in got} & {r[:3] for r in want}
+    by_key = [{r[:3]: r[4] for r in rows} for rows in (got, want)]
+    worst = max([abs(by_key[0][k] - by_key[1][k]) / abs(by_key[1][k]) for k in common] or [0.0])
+    _check(worst <= LOSS_REL and {r[3] for r in got} <= {'WIP'},
+           f'{what}: segment mean losses {worst} relative')
+    return dict(rows=len(got), cpu_rows=len(want), common_rows=len(common),
+                windows_near_threshold=near_windows, max_rel_err_mean_loss=worst)
+
+
+def _ws_frames(port_number: int, n: int, ws, timeout: float = 20.0) -> list:
+    """A WebSocket client on the loopback port: the handshake, then the
+    first ``n`` text messages (the init and frames)."""
+    import socket
+    c = socket.create_connection(('127.0.0.1', port_number), timeout=timeout)
+    try:
+        c.sendall(b'GET /ws HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\nConnection: '
+                  b'Upgrade\r\nSec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ==\r\n'
+                  b'Sec-WebSocket-Version: 13\r\n\r\n')
+        buf = b''
+        while b'\r\n\r\n' not in buf:
+            buf += c.recv(4096)
+        head, buf = buf.split(b'\r\n\r\n', 1)
+        _check(b' 101 ' in head.split(b'\r\n')[0]
+               and ws.accept_key('dGhlIHNhbXBsZSBub25jZQ==').encode() in head,
+               f'WebSocket handshake: {head[:80]!r}')
+        msgs, deadline = [], time.time() + timeout
+        while len(msgs) < n and time.time() < deadline:
+            got, buf = ws.decode_frames(buf)
+            msgs.extend(json.loads(p) for op, p in got if op == ws.OP_TEXT)
+            if len(msgs) < n:
+                buf += c.recv(65536)
+        c.sendall(ws.encode_client_frame(b'', opcode=ws.OP_CLOSE))
+    finally:
+        c.close()
+    _check(len(msgs) >= n, f'WebSocket: {len(msgs)} of {n} messages')
+    return msgs[:n]
+
+
+def phase_viewer(torch, port, fm, fe, fg, root, seed, card, data=None, ck=None,
+                 device='cuda', trial_length=1100, ticks=VIEWER_TICKS):
+    """18. The viewer commands at full width on seeded random weights (phase
+    17's checkpoints ``ck`` where given): for feedforward (K1), the ``pallas``
+    transformer (K2) and GroundLink (K4), ``visualize-file`` of a trial of
+    ``data``'s subject 0 (else one written here) with a Geometry folder of
+    small meshes, held against the same command with ``--device cpu``;
+    ``ticks`` live ticks (``visualize``'s session: B=1 forward, the loss
+    evaluator, FK) timed, the first five against the CPU session's; the
+    ``visualize-file --live`` server answering a WebSocket client; and
+    ``review-file`` against its rows from the CPU Predictor. ``device`` 'cpu'
+    with shorter trials rehearses it (no launch counts)."""
+    t_phase = time.perf_counter()
+    root = root / 'viewer'
+    root.mkdir()
+    if data is None:
+        data = root / 'data'
+        data.mkdir()
+        port.write_synthetic_subject(str(data / 'subject_0.b3d'), num_trials=2,
+                                     trial_length=trial_length, seed=seed)
+    subject = data / 'subject_0.b3d'
+    geom = root / 'Geometry'
+    geom.mkdir()
+    for name in ('pelvis', 'femur', 'tibia', 'talus', 'calcn', 'toes', 'torso'):
+        (geom / f'{name}.obj').write_text(TETRA_OBJ)
+    ds = port.WindowDataset(str(subject), window_size=50, stride=5, skip_loading_skeletons=True)
+    if ck is None:
+        ck = root / 'ckpt'
+        for _, model_type, flags, _, _ in VIEWER_MODELS:
+            cfg = port.config_from_args(port.parser().parse_args(['train', *flags]))
+            port.save_checkpoint(str(ck / model_type), port.build_model_for_dataset(
+                cfg, ds, generator=torch.Generator().manual_seed(seed + 170), device=device),
+                1, 0)
+    trials = ds.subjects[0].getNumTrials()
+    win = np.nonzero((ds.win_subject == 0) & (ds.win_trial == 0))[0]
+    n_trial = {t: int(((ds.win_subject == 0) & (ds.win_trial == t)).sum()) for t in range(trials)}
+    modules = (fm, fe, fg)
+    on = int(device == 'cuda')      # a CPU rehearsal runs the plain versions: no launch
+    sides = (('card', device), ('cpu', 'cpu'))
+
+    def counted(fn):
+        for m in modules:
+            m.launches = 0
+        out = fn()
+        return out, [m.launches for m in modules]
+
+    report = dict(frames=ds.subjects[0].getTrialLength(0), windows=n_trial[0],
+                  trials=trials, ticks=ticks)
+    for name, model_type, flags, mi, per_forward in VIEWER_MODELS:
+        def launches_of(forwards):
+            return [on * per_forward * forwards if i == mi else 0 for i in range(3)]  # noqa: B023
+
+        cfg = port.config_from_args(port.parser().parse_args(['train', *flags]))
+        preds = {side: port.Predictor(cfg, str(ck / model_type), ds, device=dev)
+                 for side, dev in sides}
+        cpu = preds['cpu']
+        cpu.predict_trial = functools.lru_cache()(cpu.predict_trial)   # each trial once
+        rec = {}
+        # a. visualize-file: the static payload on the card and on the CPU
+        payloads = {}
+        for side, dev in sides:
+            out = root / f'{name}_{side}.html'
+            argv = ['visualize-file', '--file', str(subject), '--trial', '0', '--checkpoint-dir',
+                    str(ck), '--geometry-folder', str(geom), '--out', str(out), '--device', dev,
+                    *flags]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc, launches = counted(lambda: port.main(argv))  # noqa: B023
+            rec[f'command_seconds_{side}'] = time.perf_counter() - t0
+            _check(rc == 0, f'visualize-file {name} --device {dev}: rc {rc}')
+            if side == 'card':
+                forwards = -(-n_trial[0] // 512)
+                _check(launches == launches_of(forwards),
+                       f'visualize-file {name}: launches {launches} for {n_trial[0]} windows')
+                rec['payload_launches'] = launches[mi]
+            payloads[side] = _html_payload(out)
+        t0 = time.perf_counter()
+        port.build_viz_payload(ds, 0, 0, preds['card'], geometry_folder=str(geom))
+        rec['build_payload_seconds'] = time.perf_counter() - t0
+        shares = {}
+        for side, p in preds.items():
+            f = p.predict_trial(0, 0).outputs['groundContactForceInRootFrame'][:, -1, :]
+            mags = np.linalg.norm(f.reshape(len(f), -1, 3), axis=-1)
+            shares[side] = mags / (mags.sum(axis=1, keepdims=True) + 1e-9)
+        near = ((np.abs(shares['card'] - 0.3) <= SHARE_TIE).any(1)
+                | (np.abs(shares['cpu'] - 0.3) <= SHARE_TIE).any(1))
+        near_frames = {int(fr) for fr in cpu.predict_trial(0, 0).last_frame[near]}
+        limits = _pred_limits(name, cpu.predict_trial(0, 0).outputs)
+        rec['payload_vs_cpu'] = _hold_viewer_payload(payloads['card'], payloads['cpu'], limits,
+                                                     near_frames, f'visualize-file {name}')
+        rec['payload_vs_cpu'].update(frames_near_tie=len(near_frames), limits=list(limits))
+
+        # b. the live session of visualize: a B=1 forward, the evaluator and FK a tick
+        sessions = {side: port.build_live_session(
+            ds, preds[side], port.RegressionLossEvaluator('dev', port.loss_config_from(cfg)),
+            window_indices=win, geometry_folder=str(geom))[0] for side, _ in sides}
+        tick_ms, first = [], []
+        with contextlib.redirect_stdout(io.StringIO()):
+            for m in modules:
+                m.launches = 0
+            for _ in range(ticks):
+                t0 = time.perf_counter()
+                packet = sessions['card'].tick()
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                if len(first) < 5:
+                    first.append(packet)
+            live_launches = [m.launches for m in modules]
+            cpu_first = [sessions['cpu'].tick() for _ in range(5)]
+        _check(live_launches == launches_of(ticks),
+               f'live {name}: launches {live_launches} for {ticks} ticks')
+        worst = dict(fk=0.0, cop=0.0, force=0.0, running_loss=0.0)
+        for g, w in zip(first, cpu_first):
+            for k in ('frame', 'joints', 'root_vel', 'root_history', 'label_forces', 'subject'):
+                _check(g[k] == w[k], f'live {name}: tick {w["frame"]} {k}')
+            worst['fk'] = max(worst['fk'], _fk_err(g['bodies'], w['bodies'], f'live {name}'))
+            cop, force, _ = _pred_errs(g, w)
+            worst['cop'], worst['force'] = max(worst['cop'], cop), max(worst['force'], force)
+            loss, cpu_loss = (float(p['hud'].split(': ')[1]) for p in (g, w))
+            worst['running_loss'] = max(worst['running_loss'],
+                                        abs(loss - cpu_loss) / max(abs(cpu_loss), 1e-6))
+        _check(worst['fk'] <= FK_ATOL and worst['cop'] <= limits[0] + 1e-5
+               and worst['force'] <= limits[1] and worst['running_loss'] <= LOSS_REL + 1e-3,
+               f'live {name}: {worst} against {limits}')
+        ms = sorted(tick_ms[1:])         # the first tick compiles nothing but warms caches
+        rec['live'] = dict(tick_ms_p50=ms[len(ms) // 2], tick_ms_p99=ms[int(0.99 * (len(ms) - 1))],
+                           tick_ms_max=ms[-1], interval_ms=TICK_INTERVAL_MS,
+                           launches=live_launches[mi], launches_per_tick=live_launches[mi] / ticks,
+                           vs_cpu_first_5=worst)
+
+        # c. visualize-file --live: the server, answered by a WebSocket client
+        servers = []
+        block = port.LiveViewerServer.block
+        port.LiveViewerServer.block = lambda self: servers.append(self)  # noqa: B023
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                for m in modules:
+                    m.launches = 0
+                rc = port.main(['visualize-file', '--file', str(subject), '--trial', '0',
+                                '--live', '--port', '0', '--checkpoint-dir', str(ck),
+                                '--geometry-folder', str(geom), '--device', device, *flags])
+        finally:
+            port.LiveViewerServer.block = block
+        _check(rc == 0 and len(servers) == 1, f'visualize-file --live {name}: rc {rc}')
+        try:
+            msgs = _ws_frames(servers[0].port, 6, port.ws)
+        finally:
+            servers[0].stop()
+            time.sleep(0.1)              # the tick thread's last tick ends
+        served = [m.launches for m in modules]
+        frames = msgs[1:]
+        _check(msgs[0]['type'] == 'init' and set(msgs[0]['meshes']) == set(payloads['cpu']['meshes'])
+               and all(m['type'] == 'frame' and 'pred_forces' in m and m['bodies'] for m in frames)
+               and [m['frame'] for m in frames] == list(range(frames[0]['frame'],
+                                                              frames[0]['frame'] + len(frames))),
+               f'visualize-file --live {name}: messages')
+        _check(served[mi] >= on * per_forward * len(frames) and served[mi] % per_forward == 0
+               and sum(served) == served[mi], f'visualize-file --live {name}: launches {served}')
+        rec['server'] = dict(frames_received=len(frames), launches=served[mi])
+
+        # d. review-file on the card against its rows from the CPU Predictor
+        rows = {}
+        for side, dev in sides:
+            out = root / f'{name}_{side}.review.csv'
+            with contextlib.redirect_stdout(io.StringIO()):
+                if side == 'card':
+                    rc, launches = counted(lambda: port.main([  # noqa: B023
+                        'review-file', '--file', str(subject), '--checkpoint-dir', str(ck),
+                        '--threshold-ratio', str(REVIEW_RATIO), '--out-csv', str(out),  # noqa: B023
+                        '--device', dev, *flags]))  # noqa: B023
+                    forwards = sum(-(-n // 512) for n in n_trial.values())
+                    _check(rc == 0 and launches == launches_of(forwards),
+                           f'review-file {name}: rc {rc}, launches {launches}')
+                    rec['review_launches'] = launches[mi]
+                else:
+                    port.review_segments(cpu, ds, str(out), REVIEW_RATIO)
+            rows[side] = _review_rows(out)
+        _check(bool(rows['cpu']), f'review-file {name}: no suspicious segment on the CPU')
+        rec['review'] = _hold_review_rows(rows['card'], rows['cpu'], preds, trials,
+                                          f'review-file {name}')
+        report[name] = rec
+        live_ = rec['live']
+        print(f'[viewer] {name}: visualize-file {n_trial[0]} windows, {rec["payload_launches"]} '
+              f'launches, command {rec["command_seconds_card"]:.2f} s (CPU '
+              f'{rec["command_seconds_cpu"]:.2f} s), payload {rec["build_payload_seconds"]:.3f} s '
+              f'warm; vs CPU: FK {rec["payload_vs_cpu"]["fk"]:.2g}, CoP '
+              f'{rec["payload_vs_cpu"]["cop"]:.3g}, force {rec["payload_vs_cpu"]["force"]:.3g} '
+              f'(limits {limits[0]:.3g} / {limits[1]:.3g}; {len(near_frames)} frames near the '
+              f'0.3 tie); live tick p50 {live_["tick_ms_p50"]:.2f} ms, p99 '
+              f'{live_["tick_ms_p99"]:.2f} ms against the {TICK_INTERVAL_MS:.0f} ms interval, '
+              f'{live_["launches_per_tick"]:g} launches a tick; server {len(frames)} frames; '
+              f'review-file {len(rows["card"])} / {len(rows["cpu"])} segments '
+              f'({rec["review"]["windows_near_threshold"]} windows near the '
+              f'{REVIEW_RATIO} x mean threshold), {rec["review_launches"]} launches ({card})',
+              flush=True)
     report['seconds'] = time.perf_counter() - t_phase
     return report
 
@@ -5017,7 +5378,7 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18], default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
         return rank_jobs(sys.argv[2])
@@ -5066,6 +5427,12 @@ def main() -> int:
         qdense, quantize_feedforward_params, quantized_feedforward_forward,
     )
     from inferbiomechanics_tpu_torch.inference import Predictor
+    from inferbiomechanics_tpu_torch.cli.review_file_cmd import review_segments
+    from inferbiomechanics_tpu_torch.cli.visualize_file_cmd import build_viz_payload
+    from inferbiomechanics_tpu_torch.loss.evaluator import RegressionLossEvaluator
+    from inferbiomechanics_tpu_torch.viz import ws
+    from inferbiomechanics_tpu_torch.viz.live import LiveViewerServer
+    from inferbiomechanics_tpu_torch.viz.live_model import build_live_session
     from inferbiomechanics_tpu_torch.ops.tune import (
         library_encoder_layer, library_groundlink, random_groundlink_params,
     )
@@ -5134,12 +5501,23 @@ def main() -> int:
             quantized_feedforward_forward=quantized_feedforward_forward,
             quantize_feedforward_params=quantize_feedforward_params, qdense=qdense,
             export=export, eval_forward=eval_forward, library=library, Predictor=Predictor,
-            start=start, build_parser=build_parser)
+            start=start, build_parser=build_parser, build_viz_payload=build_viz_payload,
+            build_live_session=build_live_session, review_segments=review_segments,
+            LiveViewerServer=LiveViewerServer, ws=ws,
+            RegressionLossEvaluator=RegressionLossEvaluator, loss_config_from=loss_config_from)
 
     if args.only_phase == 17:
         tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
         try:
             report = phase_inference(torch, inference_port(), fm, fe, fg, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    if args.only_phase == 18:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            report = phase_viewer(torch, inference_port(), fm, fe, fg, tmp, args.seed, card)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -5364,6 +5742,12 @@ def main() -> int:
                                     data=data)
         mark('17 inference')
 
+        # 18. the viewer commands: visualize-file's payload, the live viewer's
+        # ticks and server, review-file, on phase 17's checkpoints
+        viewer = phase_viewer(torch, inference_port(), fm, fe, fg, tmp, args.seed, card,
+                              data=data, ck=Path(inference['checkpoints']))
+        mark('18 viewer')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -5565,7 +5949,8 @@ def main() -> int:
     print(f'[smoke] wall time {time.perf_counter() - t_smoke:.1f} s, phase 12 '
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
-          f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s ({card})',
+          f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s, phase 18 '
+          f'{viewer["seconds"]:.1f} s ({card})',
           flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(
@@ -5594,7 +5979,9 @@ def main() -> int:
                              predictor=inference['predictor'],
                              int8_no_kernel=dict(serve=inference['serve_int8'],
                                                  analyze=inference['analyze_int8'],
-                                                 export=inference['export']['int8']))),
+                                                 export=inference['export']['int8'])),
+              viewer=dict(viewer['feedforward'], frames=viewer['frames'],
+                          windows=viewer['windows'])),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
@@ -5620,7 +6007,8 @@ def main() -> int:
               ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel'),
               inference=dict(export=inference['export']['pallas'],
                              diffusion_export_plain=inference['export'][
-                                 'diffusion (static batch 2, 10 steps)'])),
+                                 'diffusion (static batch 2, 10 steps)']),
+              viewer=dict(viewer['pallas'], frames=viewer['frames'], windows=viewer['windows'])),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,
@@ -5661,7 +6049,9 @@ def main() -> int:
               analyze_tta_launches=analyzed['extras']['tta_launches'][2],
               compute_report_launches={
                   'analyze B=1': physics['groundlink (K4)']['launches'][1]},
-              inference=dict(export=inference['export']['groundlink'])),
+              inference=dict(export=inference['export']['groundlink']),
+              viewer=dict(viewer['groundlink'], frames=viewer['frames'],
+                          windows=viewer['windows'])),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

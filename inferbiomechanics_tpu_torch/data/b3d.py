@@ -373,6 +373,31 @@ def write_subject(path: str,
 # Reader
 # ---------------------------------------------------------------------------
 
+def check_read_frames_args(include_sensor_data: bool) -> None:
+    if include_sensor_data:
+        raise ValueError('readFrames(includeSensorData=True): this reader stores no '
+                         'sensor channels')
+
+
+def contact_from_forces(forces: np.ndarray, threshold: float) -> np.ndarray:
+    """nimble's contact flags: ``forces`` [..., 3 nb] -> [..., nb], 1 where
+    a body's force norm is above ``threshold``."""
+    f = np.asarray(forces, np.float64)
+    norms = np.linalg.norm(f.reshape(f.shape[:-1] + (-1, 3)), axis=-1)
+    return (norms > threshold).astype(np.float64)
+
+
+def with_thresholded_contact(row: np.ndarray, offsets: Dict[str, Tuple[int, int]],
+                             threshold: float) -> np.ndarray:
+    """A copy of a pass row whose ``contact`` columns are recomputed from its
+    ``groundContactForce`` columns at ``threshold``."""
+    o_f, w_f = offsets['groundContactForce']
+    o_c, w_c = offsets['contact']
+    out = np.array(row)
+    out[o_c:o_c + w_c] = contact_from_forces(row[o_f:o_f + w_f], threshold)
+    return out
+
+
 class Frame:
     """One decoded frame: ``processingPasses[i].<field>`` views + metadata.
 
@@ -543,8 +568,14 @@ class SubjectOnDisk:
                    stride: int = 1, includeSensorData: bool = False,
                    includeProcessingPasses: bool = True,
                    contactThreshold: float = 1.0) -> List[Frame]:
-        """Frame-object window (compat path for viz/review tools)."""
-        del includeSensorData, contactThreshold
+        """Frame-object window (compat path for viz/review tools).
+
+        ``contactThreshold`` other than the default 1.0 recomputes each
+        pass's ``contact`` flags as nimble does: a body is in contact where
+        the norm of its ``groundContactForce`` is above the threshold. At
+        the default the stored flags are returned. No sensor channels are
+        stored, so ``includeSensorData=True`` raises."""
+        check_read_frames_args(includeSensorData)
         n_passes = self.getTrialNumProcessingPasses(trial)
         mats = [self.trial_pass_matrix(trial, p) for p in range(n_passes)]
         types = self.header['trials'][trial]['pass_types']
@@ -560,8 +591,11 @@ class SubjectOnDisk:
         frames = []
         for k in range(numFramesToRead):
             idx = startFrame + k * stride
-            passes = [FramePassView(mats[p][idx], self._offsets, types[p])
-                      for p in range(n_passes)] if includeProcessingPasses else []
+            rows = [mats[p][idx] for p in range(n_passes)] if includeProcessingPasses else []
+            if contactThreshold != 1.0:
+                rows = [with_thresholded_contact(r, self._offsets, contactThreshold)
+                        for r in rows]
+            passes = [FramePassView(r, self._offsets, t) for r, t in zip(rows, types)]
             frames.append(Frame(passes, MissingGRFReason(missing[idx]), trial, idx))
         return frames
 

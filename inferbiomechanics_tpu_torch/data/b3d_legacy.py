@@ -49,8 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from inferbiomechanics_tpu_torch.data.b3d import (
-    MissingGRFReason, ProcessingPassType, SkeletonSpec, TrialData,
-    layout_offsets, layout_total, pass_channel_layout, write_subject,
+    MissingGRFReason, ProcessingPassType, SkeletonSpec, TrialData, check_read_frames_args,
+    contact_from_forces, layout_offsets, layout_total, pass_channel_layout, write_subject,
 )
 
 # ---------------------------------------------------------------------------
@@ -368,14 +368,18 @@ def write_legacy_subject(path: str,
 # ---------------------------------------------------------------------------
 
 class LegacyFramePass:
-    """One processing pass of one frame: nimble FramePass attribute surface."""
-    __slots__ = ('_fields', 'type')
+    """One processing pass of one frame: nimble FramePass attribute surface.
+    ``contact``, when given, stands in for the stored contact flags."""
+    __slots__ = ('_fields', 'type', '_contact')
 
-    def __init__(self, fields, pass_type: int):
+    def __init__(self, fields, pass_type: int, contact: Optional[np.ndarray] = None):
         self._fields = fields
         self.type = ProcessingPassType(pass_type)
+        self._contact = contact
 
     def __getattr__(self, name: str) -> np.ndarray:
+        if name == 'contact' and self._contact is not None:
+            return self._contact
         try:
             num = _PF[name]
         except KeyError as e:
@@ -573,15 +577,28 @@ class LegacySubjectOnDisk:
                    stride: int = 1, includeSensorData: bool = False,
                    includeProcessingPasses: bool = True,
                    contactThreshold: float = 1.0) -> List[LegacyFrame]:
-        del includeSensorData, includeProcessingPasses, contactThreshold
+        """nimble's ``readFrames``. ``contactThreshold`` other than the
+        default 1.0 recomputes each pass's ``contact`` flags as nimble does
+        (a body's ``groundContactForce`` norm above the threshold); at the
+        default the stored flags are returned. Sensor channels are not
+        decoded, so ``includeSensorData=True`` raises."""
+        del includeProcessingPasses
+        check_read_frames_args(includeSensorData)
         # short read at the trial end, like nimble (no IndexError)
         T = self.trials[trial]['length']
         if startFrame >= T:
             return []
         numFramesToRead = min(numFramesToRead,
                               (T - 1 - startFrame) // max(stride, 1) + 1)
-        return [self._decode_frame(trial, startFrame + k * stride)
-                for k in range(numFramesToRead)]
+        frames = [self._decode_frame(trial, startFrame + k * stride)
+                  for k in range(numFramesToRead)]
+        if contactThreshold != 1.0:
+            for frame in frames:
+                frame.processingPasses = [
+                    LegacyFramePass(p._fields, p.type, contact_from_forces(
+                        p.groundContactForce, contactThreshold))
+                    for p in frame.processingPasses]
+        return frames
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,6 @@ from inferbiomechanics_tpu_torch.data.dataset import (
     LABEL_PACK_ORDER, input_layout, label_layout, unpack,
 )
 from inferbiomechanics_tpu_torch.loss.evaluator import loss_and_metrics
-from inferbiomechanics_tpu_torch.models.common import global_rows
 
 # OpenSim semantic coordinate names that flip under a sagittal mirror
 # (rotations about the forward/vertical axes, lateral translation).
@@ -340,6 +339,10 @@ def generator_aug_draws(generator: Optional[torch.Generator],
     None), on the device of the step's tensors; under data parallelism
     (``shard`` = (rank, world size)) this rank's rows of the global batch's
     draws (``models/common.py::global_rows``)."""
+    # imported here: models/ imports this module (the denoiser's augmented
+    # step), so a module-level import would make importing this one first
+    # a circular import
+    from inferbiomechanics_tpu_torch.models.common import global_rows
     return AugmentDraws(
         coin=lambda b, p, device: global_rows(
             lambda s: torch.rand(s, generator=generator, device=device), (b,), shard) < p,

@@ -129,11 +129,37 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'torch_compat', 'cli.convert_checkpoint_cmd', 'parallel.dist',
                    'parallel.mesh', 'parallel.sharding_rules', 'train.sharded_data',
                    'train.sweep', 'cli.sweep_cmd', 'ops.quant', 'ops.library', 'inference',
-                   'cli.export_cmd', 'cli.save_prediction_csv_cmd'):
+                   'cli.export_cmd', 'cli.save_prediction_csv_cmd', 'viz.ws', 'viz.mesh',
+                   'viz.viewer', 'viz.live', 'viz.live_model', 'utils.geometry',
+                   'cli.visualize_file_cmd', 'cli.visualize_cmd', 'cli.review_file_cmd'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out
     assert 'converted and served 1' in out
+
+
+def test_every_port_module_imports_first(tmp_path):
+    """Each module of the port imports as the first module of the port in
+    its process (no circular import that an earlier import would hide):
+    ``train/augment.py`` imported first once failed, because ``models/``,
+    which it imported, imports it back."""
+    out = _run("""
+        import importlib, pkgutil
+        import inferbiomechanics_tpu_torch as port
+        names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]
+        failed = []
+        for name in names:
+            for k in [k for k in sys.modules if k.startswith('inferbiomechanics_tpu_torch')]:
+                del sys.modules[k]
+            try:
+                importlib.import_module(name)
+            except ImportError as e:
+                failed.append((name, str(e)))
+        assert failed == [], failed
+        assert jax_package_modules() == []
+        print('imported first', len(names))
+    """, tmp_path)
+    assert int(out.split()[-1]) > 70
 
 
 def test_chip_smoke_loads_no_module_of_the_jax_package(tmp_path):
@@ -185,6 +211,41 @@ def test_cuda_device_without_a_gpu_raises(tmp_path):
             print('refused')
     """, tmp_path)
     assert 'refused' in out
+
+
+def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
+    """Each command of ``python -m inferbiomechanics_tpu_torch`` that runs a
+    model takes ``--device``, defaults it to ``cuda``, and raises on a
+    machine with no GPU instead of carrying on on the CPU
+    (``convert-checkpoint`` runs no model and takes no device)."""
+    out = _run("""
+        import os, torch
+        torch.cuda.is_available = lambda: False      # a machine with no GPU
+        from inferbiomechanics_tpu_torch.__main__ import COMMANDS, build_parser, main
+        from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_subject
+        for split in ('train', 'dev'):
+            os.makedirs(f'data/{split}')
+            write_synthetic_subject(f'data/{split}/s.b3d', num_trials=1, trial_length=60,
+                                    seed=0)
+        home = ['--dataset-home', 'data', '--checkpoint-dir', 'ckpt']
+        file = ['--file', 'data/dev/s.b3d', '--checkpoint-dir', 'ckpt']
+        argvs = {'serve': home + ['--port', '0'], 'train': home + ['--epochs', '1'],
+                 'analyze': home, 'sweep': home + ['--epochs', '1'],
+                 'export': home + ['--out', 'm.pt2'], 'save-prediction-csv': file,
+                 'visualize-file': file, 'review-file': file, 'visualize': home}
+        assert sorted(argvs) == sorted(set(COMMANDS) - {'convert-checkpoint'})
+        assert not hasattr(build_parser().parse_args(
+            ['convert-checkpoint', 'ckpt', '--out-dir', 'x']), 'device')
+        for cmd, argv in argvs.items():
+            argv = [cmd, *argv, '--history-len', '20', '--hidden-dims', '32']
+            assert build_parser().parse_args(argv).device == 'cuda', cmd
+            try:
+                main(argv)
+            except RuntimeError as e:
+                assert 'is_available() is False' in str(e), (cmd, e)
+                print('refused', cmd)
+    """, tmp_path)
+    assert out.split().count('refused') == 9
 
 
 def test_port_sources_name_no_jax_import():
