@@ -46,7 +46,8 @@ Phases, each of which fails the run:
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096 (K1 also at 64 and 512, with which of its two
      kernels served each; K2 with which of its shapes; K4 also at 8, 64 and
-     512, in both output formats, with the shape that served each): each
+     512 in ``last_frame``, both output formats at 1 and 4096, with the
+     shape that served each): each
      kernel, its plain version (the f32 precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
      chain; K2: ``nn.TransformerEncoderLayer`` in bf16; K3: autograd through
      that layer, forward and backward; K4: bf16 ``F.pad`` + ``F.conv1d`` +
@@ -172,7 +173,7 @@ Phases, each of which fails the run:
      ``inverse_dynamics_from_predictions`` on the card against the same code
      in float64 on the CPU (1e-5 / 1e-4 x max|.|); ``analyze --model-type
      analytical --compute-report`` at B=1 in chunks of 64 and of 1 (one
-     CUDA graph a batch shape; rows and report equal), its first 16 batches
+     CUDA graph a batch shape; rows and report equal), its first 8 batches
      graphed bitwise equal to the eager step and against the float64 CPU
      step, launches a batch eager and replayed and a chunk of 16 batches'
      idle share in a profiler trace, and B=512 on phase 8's 24 batches;
@@ -223,7 +224,8 @@ Phases, each of which fails the run:
      across the ranks and within 2e-2 x max of one process at the global
      batch, K1-K4 launched in every rank and held to their plain versions;
      the ``train`` command under ``IB_MULTIHOST=gloo torchrun
-     --nproc-per-node 2`` on ``--device-data sharded``: feedforward with
+     --nproc-per-node 2`` on ``--device-data sharded`` (``--geometry-folder``
+     named, ``--no-wandb``): feedforward with
      ``--grad-allreduce-dtype bf16`` (rank 0's checkpoint served through
      K1), the denoiser with EMA (its dev chains through K2). ``--only-phase
      15`` runs the build and this phase alone.
@@ -272,6 +274,22 @@ Phases, each of which fails the run:
      --live`` serving a WebSocket client on a loopback port; ``review-file
      --threshold-ratio 1.25`` (both trials) against its rows from the CPU
      Predictor. ``--only-phase 18`` runs the build and this phase alone.
+ 19. the lifted flags and the small commands (``phase_cli_extras``) at full
+     width on the defaults, four train subjects and one dev subject:
+     ``pickle-data``, then feedforward ``train --use-pickled`` and ``train``
+     from the ``.b3d`` files with the same flags and seed, their checkpoints
+     bitwise equal and K1 launched once a dev batch, both runs logged with
+     their git hash to a stand-in for wandb (``--geometry-folder`` named:
+     nothing fetches); ``train --model-type transformer --attn-impl pallas
+     --profile`` for one epoch at B=64 beside the same run unprofiled,
+     before and after it: checkpoints bitwise equal, the Chrome trace read
+     back holding K3 12 x steps and K2 4 x (steps + dev forwards) by the
+     names ``ops/tune.py`` uses, its bytes and what ``--profile`` added to
+     the epoch and to the command; ``analyze --plot-errors`` for feedforward
+     (K1) and GroundLink (K4): the PNGs of both splits, the CSV rows of the
+     run without the flag, one launch a batch; ``sanity-check``, each
+     printed statistic against float64 on the card. ``--only-phase 19``
+     runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -292,6 +310,7 @@ import contextlib
 import csv
 import dataclasses
 import functools
+import importlib.util
 import io
 import json
 import logging
@@ -305,6 +324,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -2728,7 +2748,7 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
       card against float64 on the CPU (400 frames of real windows; the knee
       on 400 random frames);
     - ``analyze --model-type analytical --compute-report`` at B=1 with
-      ``--eval-chunk-steps`` 64 and 1 (rows and report equal), its first 16
+      ``--eval-chunk-steps`` 64 and 1 (rows and report equal), its first 8
       batches through the graphed runner bitwise equal to the eager step and
       against the float64 CPU step, the launches a batch eager and replayed
       (profiler trace), a chunk of 16 batches' idle share, and B=512 on
@@ -2869,14 +2889,14 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
     _check(r64['rows'] == r1['rows'] and r64['summary'] == r1['summary'],
            'analytical: rows or report in chunks of 64 differ from chunks of 1')
 
-    # the first 16 batches: the graphed runner, the eager step, float64 on the CPU
+    # the first 8 batches: the graphed runner, the eager step, float64 on the CPU
     lc = port.loss_config_from(port.config_from_args(r64['args']))
     tau_fn = make_tau_report_fn(ds, device)
     step = analytical_eval_step(ds, lc, pred, tau_fn, True)
     step64 = analytical_eval_step(ds, lc, pred64, make_tau_report_fn(ds, 'cpu', f64), True)
     runner = step_mod.make_graphed_chunk_runner(step, (f32, f32, torch.int64), device)
     batches = list(ds.batches(1, shuffle=False, drop_last=False))
-    first = batches[:16]
+    first = batches[:8]
     xs, ys, ss = (np.stack([getattr(bt, a) for bt in first])
                   for a in ('inputs', 'labels', 'subject_indices'))
     got = runner(xs, ys, ss)
@@ -4240,7 +4260,7 @@ def phase_data_parallel(torch, port, fm, fe, fg, step_mod, root, seed, card, dev
 
     # -- the train command under torchrun ------------------------------------
     base = ['train', '--dataset-home', str(home), '--device', device, '--epochs', '1',
-            '--seed', str(seed)]
+            '--seed', str(seed), '--geometry-folder', str(root), '--no-wandb']
     ckpt = root / 'dp_ckpt'
     seconds, out = _torchrun([*base, '--checkpoint-dir', str(ckpt), '--batch-size', str(big),
                               '--device-data', 'sharded', '--grad-allreduce-dtype', 'bf16'],
@@ -5347,6 +5367,305 @@ def phase_viewer(torch, port, fm, fe, fg, root, seed, card, data=None, ck=None,
     return report
 
 
+def _trace_kernels(path, names=ENC_KERNELS) -> dict:
+    """The GPU kernels of a Chrome trace that ``train --profile`` wrote,
+    counted by the first of ``names`` their name holds ('other' for the
+    rest), as :func:`_traced` counts a trace in this process."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    counts = dict.fromkeys((*names, 'other'), 0)
+    for e in events:
+        if e.get('cat') == 'kernel':
+            counts[next((n for n in names if n in e.get('name', '')), 'other')] += 1
+    return counts
+
+
+def _same_state(torch, a: Path, b: Path, what: str) -> int:
+    """The checkpoints in ``a`` and ``b``: the same (epoch, batch) labels and
+    every tensor of each one's model and optimizer state bitwise equal;
+    returns how many checkpoints were compared."""
+    from inferbiomechanics_tpu_torch.train.checkpoint import list_checkpoints
+    fa, fb = list_checkpoints(str(a)), list_checkpoints(str(b))
+    _check([f[:2] for f in fa] == [f[:2] for f in fb] and len(fa) > 0,
+           f'{what}: checkpoints {[f[:2] for f in fa]} against {[f[:2] for f in fb]}')
+    for (_, _, x), (_, _, y) in zip(fa, fb):
+        pa, pb = (torch.load(p, weights_only=True) for p in (x, y))
+        for part in ('model_state_dict', 'optimizer_state_dict'):
+            ta, tb = (list(_leaves(p[part])) for p in (pa, pb))
+            _check(len(ta) == len(tb) > 0 and all(
+                torch.equal(u, v) if torch.is_tensor(u) else u == v for u, v in zip(ta, tb)),
+                f'{what}: {part} of {os.path.basename(x)} differs')
+    return len(fa)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class _RecordingWandb(types.ModuleType):
+    """A stand-in for the ``wandb`` module that keeps what a run logs."""
+
+    def __init__(self):
+        super().__init__('wandb')
+        self.inits, self.records, self.finished = [], [], 0
+
+    def init(self, **kw):
+        self.inits.append(kw)
+
+    def log(self, record):
+        self.records.append(dict(record))
+
+    def finish(self):
+        self.finished += 1
+
+
+def _csv_rows(path: Path) -> list:
+    with open(path, newline='') as f:
+        return list(csv.reader(f))
+
+
+SANITY_LINE = re.compile(r'^(\S+): mean=(\S+) var=(\S+) min=(\S+) max=(\S+)$', re.M)
+
+
+def phase_cli_extras(torch, port, fm, fe, fg, root, seed, card, device='cuda', batch=64,
+                     subjects=4, trial_length=600, ff_flags=(), pallas_flags=()):
+    """19. The last lifted flags and the small commands at full width on the
+    defaults (feedforward 1770->512->512->30, the ``pallas`` transformer
+    d=256, GroundLink), on ``subjects`` synthetic train subjects and one dev
+    subject: (a) ``pickle-data``, then feedforward ``train --use-pickled``
+    and ``train`` from the ``.b3d`` files, same flags and seed, bitwise equal,
+    K1 once a dev batch, each run's log (kept by a stand-in for wandb) with
+    its git hash; (b) ``train --model-type transformer --attn-impl pallas
+    --profile`` for one epoch at B=64 beside the same run unprofiled (before
+    and after it): bitwise equal, the trace read back holding K3 12 x steps
+    and K2 4 x (steps + dev forwards), its bytes, what ``--profile`` added;
+    (c) ``analyze --plot-errors`` of feedforward (K1) and GroundLink (K4):
+    the PNGs, the CSV rows of the run without the flag, a launch a batch;
+    (d) ``sanity-check``, its statistics against the same ones computed in
+    float64 on ``device`` (within the print's rounding and float32 sums).
+    ``device`` 'cpu' with ``*_flags`` narrowing the models rehearses it (no
+    launch counts, no kernels in the trace)."""
+    t_phase = time.perf_counter()
+    on = device == 'cuda'
+    root = root / 'cli_extras'
+    home, small = root / 'data', root / 'small'
+    for where, split, n, length, first in (
+            (home, 'train', subjects, trial_length, 1900), (home, 'dev', 1, trial_length, 1950),
+            (small, 'train', 1, 400, 1960), (small, 'dev', 1, 400, 1970)):
+        (where / split).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            port.write_synthetic_subject(str(where / split / f'subject_{i}.b3d'), num_trials=2,
+                                         trial_length=length, seed=seed + first + i)
+    geom = root / 'Geometry'
+    geom.mkdir()
+    report = {}
+
+    def command(argv, cwd=None):
+        """``python -m inferbiomechanics_tpu_torch <argv>`` in this process:
+        (stdout, seconds)."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(cwd or os.getcwd()), contextlib.redirect_stdout(out):
+            rc = port.main(argv)
+        _check(rc == 0, f'{argv[0]}: exit {rc}\n{out.getvalue()[-2000:]}')
+        return out.getvalue(), time.perf_counter() - t0
+
+    def dataset(path, **kw):
+        return port.WindowDataset(str(path), window_size=50, stride=5,
+                                  skip_loading_skeletons=True, **kw)
+
+    # (a) pickle-data, then --use-pickled against the .b3d files
+    _, pickle_s = command(['pickle-data', '--dataset-home', str(home)])
+    blocks = sorted((home / 'train_pickled').glob('*.npz'))
+    train_ds, dev_ds = dataset(home / 'train'), dataset(home / 'dev')
+    dev_batches, steps = len(dev_ds) // batch, len(train_ds) // batch
+    _check(len(blocks) == 1 and dev_batches >= 2 and steps >= 16,
+           f'{len(blocks)} blocks, {steps} steps, {dev_batches} dev batches')
+    base = ['train', '--dataset-home', str(home), '--device', device, '--epochs', '1',
+            '--seed', str(seed), '--batch-size', str(batch), '--geometry-folder', str(geom)]
+    ff = {}
+    # the run log goes to a recording stand-in for wandb: no wandb process,
+    # no file outside the phase's directory
+    stand_in, real = _RecordingWandb(), sys.modules.get('wandb')
+    sys.modules['wandb'] = stand_in
+    try:
+        for name, more in (('pickled', ['--use-pickled']), ('b3d', [])):
+            fm.launches = 0
+            out, seconds = command([*base, *ff_flags, '--checkpoint-dir',
+                                    str(root / f'ff_{name}'), *more], cwd=root)
+            ff[name] = dict(k1=fm.launches, seconds=seconds)
+            _check('Training done: 1 epochs' in out, f'train {name}: {out[-1000:]}')
+            _check(fm.launches == dev_batches * on,
+                   f'train {name}: K1 {fm.launches} launches, want one a dev batch '
+                   f'({dev_batches})')
+    finally:
+        if real is None:
+            sys.modules.pop('wandb', None)
+        else:
+            sys.modules['wandb'] = real
+    n_ckpt = _same_state(torch, root / 'ff_pickled' / 'feedforward',
+                         root / 'ff_b3d' / 'feedforward', '--use-pickled against .b3d')
+    configs = [kw['config'] for kw in stand_in.inits]
+    logged = stand_in.records
+    # a run: the dev report, the logged losses, the train report
+    _check(sorted(c['use_pickled'] for c in configs) == [False, True]
+           and all('git_hash' in c and c['logger'] == 'wandb' for c in configs)
+           and sum(f'{s}/reports/Force Avg Err (N per kg)' in r for r in logged
+                   for s in ('dev', 'train')) == 4
+           and sum('batch' in r for r in logged) >= 2 and stand_in.finished == 2,
+           f'run logs: {len(configs)} configs, {[list(r)[:2] for r in logged]}')
+    report['use_pickled'] = dict(
+        pickle_seconds=pickle_s, block_bytes=sum(b.stat().st_size for b in blocks),
+        windows=len(train_ds), dev_batches=dev_batches, checkpoints_bitwise=n_ckpt, runs=ff,
+        logged_records=len(logged))
+    print(f'[cli-extras] pickle-data {len(train_ds)} + {len(dev_ds)} windows in '
+          f'{pickle_s:.2f} s ({report["use_pickled"]["block_bytes"]} bytes of blocks); feedforward '
+          f'train --use-pickled {ff["pickled"]["seconds"]:.2f} s and from the .b3d files '
+          f'{ff["b3d"]["seconds"]:.2f} s, B={batch}: {n_ckpt} checkpoint(s) bitwise equal '
+          f'(parameters and optimizer state); K1 {ff["pickled"]["k1"]} / {ff["b3d"]["k1"]} '
+          f'launches for {dev_batches} dev batches; run logs: {len(configs)} configs with '
+          f'the git hash, {len(logged)} records ({card})', flush=True)
+
+    # (b) a profiled pallas epoch against the same epoch unprofiled
+    pallas = [*base, '--model-type', 'transformer', '--attn-impl', 'pallas', *pallas_flags,
+              '--no-wandb']
+    layers = port.config_from_args(port.parser().parse_args(pallas)).num_layers
+    runs = {}
+    for name, more in (('plain', []), ('profiled', ['--profile', '--profile-dir',
+                                                     str(root / 'trace')]),
+                       ('plain again', [])):
+        fe.launches = fe.bwd_launches = 0
+        captures = port.step_mod.captures
+        t0 = time.perf_counter()
+        result = port.run_training(port.parser().parse_args(
+            [*pallas, '--checkpoint-dir', str(root / f'pallas_{name.split()[0]}_{len(runs)}'),
+             *more]))
+        seconds = time.perf_counter() - t0
+        captures = port.step_mod.captures - captures
+        called = (port.step_mod.GraphedStep.WARMUP_STEPS + 1) * captures
+        runs[name] = dict(seconds=seconds, epoch_seconds=result.windows_seen
+                          / result.windows_per_sec, windows_per_sec=result.windows_per_sec,
+                          k2=fe.launches, k3=fe.bwd_launches, captures=captures)
+        _check(result.windows_seen == steps * batch and (not on or (
+            captures == 1 and fe.launches == layers * (called + dev_batches)
+            and fe.bwd_launches == layers * fe.BWD_LAUNCHES_PER_LAYER * called)),
+            f'pallas {name}: {result.windows_seen} windows, wrappers K2 {fe.launches} K3 '
+            f'{fe.bwd_launches}, {captures} captures')
+    n_ckpt = _same_state(torch, root / 'pallas_plain_0' / 'transformer',
+                         root / 'pallas_profiled_1' / 'transformer', '--profile against plain')
+    traces = sorted((root / 'trace').glob('rank0.*.pt.trace.json'))
+    _check(len(traces) == 1, f'traces {traces}')
+    trace_bytes = traces[0].stat().st_size
+    kernels = _trace_kernels(traces[0])
+    k3_shape = fe.plan_encoder_bwd(batch, 10, 256, 1024, 8).shape
+    if on:
+        _check_traced(kernels, layers, steps, dev_batches, k3_shape, 'train --profile trace')
+    k2_traced = kernels['fused_encoder_kernel']
+    k3_traced = sum(kernels[k] for k in ENC_KERNELS[1:])
+    plain_s = (runs['plain']['epoch_seconds'] + runs['plain again']['epoch_seconds']) / 2
+    added = runs['profiled']['epoch_seconds'] - plain_s
+    wall_added = runs['profiled']['seconds'] - (runs['plain']['seconds']
+                                                + runs['plain again']['seconds']) / 2
+    report['profile'] = dict(steps=steps, dev_batches=dev_batches, runs=runs,
+                             checkpoints_bitwise=n_ckpt, trace_bytes=trace_bytes,
+                             trace_kernels=kernels, k3_shape=k3_shape,
+                             epoch_seconds_added=added, command_seconds_added=wall_added)
+    print(f'[cli-extras] train --profile, pallas B={batch}, one epoch of {steps} steps and '
+          f'{dev_batches} dev batches ({card}): {n_ckpt} checkpoint(s) bitwise the unprofiled '
+          f'run\'s; trace {trace_bytes} bytes, K2 {k2_traced} == {layers} x ({steps} + '
+          f'{dev_batches}), K3 {k3_traced} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {steps} '
+          f'({k3_shape} shape), {kernels["other"]} other kernels; epoch '
+          f'{runs["profiled"]["epoch_seconds"]:.4f} s profiled against '
+          f'{runs["plain"]["epoch_seconds"]:.4f} / {runs["plain again"]["epoch_seconds"]:.4f} s '
+          f'(+{added:.4f} s); the command {runs["profiled"]["seconds"]:.2f} s against '
+          f'{runs["plain"]["seconds"]:.2f} / {runs["plain again"]["seconds"]:.2f} s '
+          f'(+{wall_added:.2f} s)', flush=True)
+
+    # (c) analyze --plot-errors: the PNGs, the rows of the run without it
+    small_dev, small_train = dataset(small / 'dev'), dataset(small / 'train')
+    batches = sum(-(-len(d) // batch) for d in (small_dev, small_train))
+    gcfg = port.config_from_args(port.parser().parse_args(['train', '--model-type',
+                                                           'groundlink']))
+    port.save_checkpoint(str(root / 'gl' / 'groundlink'), port.build_model_for_dataset(
+        gcfg, small_dev, generator=torch.Generator().manual_seed(seed + 190), device=device),
+        0, 0)
+    analyzed = {}
+    for name, module, flags, src in (
+            ('feedforward (K1)', fm, list(ff_flags), root / 'ff_b3d' / 'feedforward'),
+            ('groundlink (K4)', fg, ['--model-type', 'groundlink'], root / 'gl' / 'groundlink')):
+        rows, launches = {}, {}
+        for mode in ('plain', 'plot'):
+            d = root / f'analyze_{mode}_{src.name}'
+            shutil.copytree(src, d / src.name)
+            extra = (['--plot-errors', '--plot-path-root', str(d / 'plots')]
+                     if mode == 'plot' else [])
+            module.launches = 0
+            out, seconds = command(['analyze', '--dataset-home', str(small), '--checkpoint-dir',
+                                    str(d), '--device', device, '--no-wandb', '--batch-size',
+                                    str(batch), *flags, *extra])
+            launches[mode] = module.launches
+            rows[mode] = [_csv_rows(d / src.name / f'{s}_analysis.csv') for s in ('dev', 'train')]
+            if mode == 'plot':
+                pngs = sorted(p.name for p in (d / 'plots').iterdir())
+                _check(pngs == ['dev_grferrorleft-y.png', 'train_grferrorleft-y.png']
+                       and all((d / 'plots' / p).read_bytes()[:8] == b'\x89PNG\r\n\x1a\n'
+                               for p in pngs), f'analyze --plot-errors {name}: {pngs}')
+        _check(rows['plot'] == rows['plain'] and len(rows['plot'][0]) == len(small_dev)
+               and len(rows['plot'][1]) == len(small_train),
+               f'analyze {name}: the rows with --plot-errors differ from those without')
+        _check(launches['plot'] == launches['plain'] == batches * on,
+               f'analyze {name}: launches {launches}, want one a batch ({batches})')
+        analyzed[name] = dict(launches=launches, rows=len(small_dev) + len(small_train),
+                              seconds=seconds)
+    report['plot_errors'] = analyzed
+    drawn_by = ('matplotlib' if importlib.util.find_spec('matplotlib')
+                else 'utils/png_plot.py (no matplotlib here)')
+    print(f'[cli-extras] analyze --plot-errors B={batch}, PNGs drawn by {drawn_by} ({card}): '
+          f'feedforward K1 '
+          f'{analyzed["feedforward (K1)"]["launches"]["plot"]} and GroundLink K4 '
+          f'{analyzed["groundlink (K4)"]["launches"]["plot"]} launches for {batches} batches '
+          f'(batch by batch, as without the flag in chunks), the PNGs of both splits, '
+          f'{analyzed["feedforward (K1)"]["rows"]} CSV rows each equal to the run\'s without '
+          f'the flag', flush=True)
+
+    # (d) sanity-check against the same statistics in float64 on the device
+    out, sanity_s = command(['sanity-check', '--dataset-home', str(home)])
+    one = port.WindowDataset(str(home / 'train'), window_size=1, stride=1,
+                             skip_loading_skeletons=True)
+    printed = {m.group(1): [float(v) for v in m.groups()[1:]]
+               for m in SANITY_LINE.finditer(out)}
+    worst = 0.0
+    for mat, offsets in ((one.features_all, one.in_offsets), (one.labels_all, one.lab_offsets)):
+        cols = torch.from_numpy(mat).to(device, torch.float64)
+        for key, (o, w) in offsets.items():
+            c = cols[:, o:o + w]
+            want = [float(c.mean()), float(c.var(correction=0)), float(c.min()),
+                    float(c.max())]
+            # the print rounds to 4 decimals; numpy sums in float32
+            scale = float(c.abs().max())
+            for got_v, want_v in zip(printed[key], want):
+                err = abs(got_v - want_v)
+                worst = max(worst, err)
+                _check(err <= 5e-5 + 1e-5 * (abs(want_v) + scale),
+                       f'sanity-check {key}: printed {printed[key]}, on the device {want}')
+    _check(out.startswith(f'{len(one)} windows over {subjects} subjects')
+           and len(printed) == len(one.in_offsets) + len(one.lab_offsets)
+           and 'WARNING' not in out, f'sanity-check: {out[:500]}')
+    report['sanity_check'] = dict(seconds=sanity_s, keys=len(printed), worst_abs_err=worst)
+    print(f'[cli-extras] sanity-check {len(one)} windows, {len(printed)} keys in '
+          f'{sanity_s:.2f} s: each statistic within 5e-5 + 1e-5 x (|value| + max |column|) '
+          f'of float64 on {device} (worst {worst:.3g})', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    return report
+
+
 def _dp_start_params(torch, port, job, ds, device):
     """The parameters :func:`_dp_steps` starts from (float64, by name)."""
     cfg = port.config_from_args(port.parser().parse_args(['train', *job['flags']]))
@@ -5378,7 +5697,7 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19], default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
         return rank_jobs(sys.argv[2])
@@ -5518,6 +5837,21 @@ def main() -> int:
         tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
         try:
             report = phase_viewer(torch, inference_port(), fm, fe, fg, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    def extras_port():
+        return SimpleNamespace(
+            parser=main_parser, main=port_main, run_training=run_training,
+            config_from_args=config_from_args, write_synthetic_subject=write_synthetic_subject,
+            WindowDataset=WindowDataset, build_model_for_dataset=build_model_for_dataset,
+            save_checkpoint=save_checkpoint, step_mod=step_mod)
+
+    if args.only_phase == 19:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            report = phase_cli_extras(torch, extras_port(), fm, fe, fg, tmp, args.seed, card)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -5748,6 +6082,11 @@ def main() -> int:
                               data=data, ck=Path(inference['checkpoints']))
         mark('18 viewer')
 
+        # 19. the lifted flags and the small commands: pickle-data and
+        # --use-pickled, --profile, analyze --plot-errors, sanity-check
+        extras = phase_cli_extras(torch, extras_port(), fm, fe, fg, tmp, args.seed, card)
+        mark('19 cli extras')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -5910,7 +6249,8 @@ def main() -> int:
     gl_library = library_groundlink(gl_packed.params, GL_FULL['fc_depth'])
     with torch.no_grad():
         for fmt in k4:
-            for b in (1, 8, 64, 512, 4096):
+            # all_frames at the ends only: the smoke's time limit
+            for b in (1, 8, 64, 512, 4096) if fmt == 'last_frame' else (1, 4096):
                 plan = fg.plan_groundlink(b, GL_FULL['t'], gl_packed.pwidths, gl_packed.n_conv,
                                           gl_packed.fc_depth, gl_packed.taps,
                                           fmt != 'all_frames')
@@ -5950,7 +6290,7 @@ def main() -> int:
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
           f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s, phase 18 '
-          f'{viewer["seconds"]:.1f} s ({card})',
+          f'{viewer["seconds"]:.1f} s, phase 19 {extras["seconds"]:.1f} s ({card})',
           flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(
@@ -5981,7 +6321,10 @@ def main() -> int:
                                                  analyze=inference['analyze_int8'],
                                                  export=inference['export']['int8'])),
               viewer=dict(viewer['feedforward'], frames=viewer['frames'],
-                          windows=viewer['windows'])),
+                          windows=viewer['windows']),
+              use_pickled=extras['use_pickled'],
+              plot_errors=extras['plot_errors']['feedforward (K1)'],
+              sanity_check=extras['sanity_check']),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
@@ -6008,7 +6351,8 @@ def main() -> int:
               inference=dict(export=inference['export']['pallas'],
                              diffusion_export_plain=inference['export'][
                                  'diffusion (static batch 2, 10 steps)']),
-              viewer=dict(viewer['pallas'], frames=viewer['frames'], windows=viewer['windows'])),
+              viewer=dict(viewer['pallas'], frames=viewer['frames'], windows=viewer['windows']),
+              profile=extras['profile']),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,
@@ -6024,7 +6368,9 @@ def main() -> int:
               checked_shapes=k3_checked,
               device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
-              train=trained, train_step=steps, chunked=chunked),
+              train=trained, train_step=steps, chunked=chunked,
+              profile_trace_launches=sum(extras['profile']['trace_kernels'][k]
+                                         for k in ENC_KERNELS[1:])),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',
               k4['last_frame'],
@@ -6051,7 +6397,8 @@ def main() -> int:
                   'analyze B=1': physics['groundlink (K4)']['launches'][1]},
               inference=dict(export=inference['export']['groundlink']),
               viewer=dict(viewer['groundlink'], frames=viewer['frames'],
-                          windows=viewer['windows'])),
+                          windows=viewer['windows']),
+              plot_errors=extras['plot_errors']['groundlink (K4)']),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,20 +1,23 @@
 """``python -m inferbiomechanics_tpu_torch {serve,train,analyze,convert-checkpoint,sweep,export,
-save-prediction-csv,visualize-file,review-file,visualize} ...``"""
+save-prediction-csv,visualize-file,review-file,visualize,pickle-data,create-splits,
+sanity-check} ...``"""
 
 import argparse
 import logging
 from typing import Optional, Sequence
 
 from inferbiomechanics_tpu_torch.cli import (
-    analyze_cmd, convert_checkpoint_cmd, export_cmd, review_file_cmd, save_prediction_csv_cmd,
-    serve_cmd, sweep_cmd, train_cmd, visualize_cmd, visualize_file_cmd,
+    analyze_cmd, convert_checkpoint_cmd, create_splits_cmd, export_cmd, pickle_data_cmd,
+    review_file_cmd, sanity_check_cmd, save_prediction_csv_cmd, serve_cmd, sweep_cmd, train_cmd,
+    visualize_cmd, visualize_file_cmd,
 )
 
 COMMANDS = {'serve': serve_cmd, 'train': train_cmd, 'analyze': analyze_cmd,
             'convert-checkpoint': convert_checkpoint_cmd, 'sweep': sweep_cmd,
             'export': export_cmd, 'save-prediction-csv': save_prediction_csv_cmd,
             'visualize-file': visualize_file_cmd, 'review-file': review_file_cmd,
-            'visualize': visualize_cmd}
+            'visualize': visualize_cmd, 'pickle-data': pickle_data_cmd,
+            'create-splits': create_splits_cmd, 'sanity-check': sanity_check_cmd}
 
 
 def build_parser() -> argparse.ArgumentParser:

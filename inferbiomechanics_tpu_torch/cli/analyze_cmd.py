@@ -36,9 +36,12 @@ checkpoints through the port's ``InferenceService`` (``--tta-mirror`` per member
 ``--tta-mirror`` alone goes through ``train/augment.py::make_tta_eval_step``.
 ``--quantize int8`` scores a feedforward checkpoint through the int8 forward
 of ``ops/quant.py`` (no K1), batch by batch, as the JAX command does.
+``--plot-errors`` also draws the first batch of each split's GRF errors
+(``RegressionLossEvaluator.plot_errors``: ``{split}_grferror{COMPONENT}.png``
+under ``--plot-path-root``); its splits run batch by batch, as in the JAX
+command, with the rows of the chunked run.
 ``--device`` defaults to ``cuda`` and fails without a GPU; ``--device cpu``
-runs the kernels' plain versions. Options whose features are not ported
-raise and name the ROADMAP item that brings them.
+runs the kernels' plain versions.
 
     python -m inferbiomechanics_tpu_torch analyze --dataset-home D --checkpoint-dir C
     python -m inferbiomechanics_tpu_torch analyze ... --model-type groundlink --tta-mirror
@@ -106,11 +109,15 @@ def register_subcommand(sub) -> None:
                    help='Mirror test-time augmentation: average each '
                         'prediction with the un-mirrored prediction of the '
                         'sagittally mirrored window (one extra forward)')
+    p.add_argument('--plot-errors', action='store_true',
+                   help='Write per-component GRF error PNGs of the first batch of '
+                        'each split (ref analyze=True path)')
+    p.add_argument('--plot-path-root', type=str, default='outputs/plots')
     p.add_argument('--eval-chunk-steps', type=int, default=64,
                    help='Evaluate K same-shape batches between two copies of '
                         'their metrics to the host; 1 = one batch at a time. '
-                        'Ignored with --ensemble, --quantize and --model-type '
-                        'diffusion')
+                        'Ignored with --ensemble, --quantize, --plot-errors and '
+                        '--model-type diffusion')
     p.add_argument('--bootstrap', type=int, default=0,
                    help='Resample the per-window rows N times and print 95%% '
                         'confidence intervals on the mean loss / force / '
@@ -135,9 +142,6 @@ def register_subcommand(sub) -> None:
                    help='Evaluate the int8-quantized forward (feedforward; '
                         'ops/quant.py): the accuracy cost of serve --quantize '
                         'on the standard metrics')
-    # a flag of the JAX command whose feature is not ported yet: accepted,
-    # so that it can be refused by name instead of ignored
-    p.add_argument('--plot-errors', action='store_true', help='not yet ported')
 
 
 def _check_consistency(config: Config, args: argparse.Namespace) -> None:
@@ -165,18 +169,6 @@ def _check_consistency(config: Config, args: argparse.Namespace) -> None:
         raise SystemExit('analyze --init-checkpoint only does something '
                          'with --diffusion-partial (it seeds the '
                          'truncated DDIM chains)')
-
-
-def _reject_unported(config: Config, args: argparse.Namespace) -> None:
-    """Raise for every option of the JAX command that the port does not
-    have yet, by the flag's name."""
-    unported = [
-        ('--plot-errors', args.plot_errors,
-         'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
-    ]
-    for flag, asked, where in unported:
-        if asked:
-            raise NotImplementedError(f'{flag} is not yet ported ({where})')
 
 
 def _pack_for_eval(model, fused: bool = False) -> None:
@@ -251,9 +243,21 @@ def analytical_eval_step(ds: WindowDataset, lc: LossConfig, predict, tau_fn,
     return step
 
 
+def _last_frame(predict, last_frame: bool):
+    """The analytical baseline's ``predict(x, subjects)`` batch by batch:
+    its prediction, cut to the last frame unless ``last_frame`` is False
+    (the label frames it is scored on)."""
+
+    def last(x: np.ndarray, subjects) -> Dict[str, torch.Tensor]:
+        out = predict(x, subjects)
+        return {k: v[:, -1:, :] for k, v in out.items()} if last_frame else out
+
+    return last
+
+
 def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDataset,
                        checkpoint_dir: str, device: torch.device):
-    """The JAX command's diffusion evaluation: ``predict(x) -> outputs`` of
+    """The JAX command's diffusion evaluation: ``predict(x, subjects) -> outputs`` of
     a 50-step DDIM chain on ``x`` (numpy [B, T, C_in]), drawn from a
     generator seeded 7 at each call."""
     if config.output_data_format != 'all_frames':
@@ -278,19 +282,19 @@ def _diffusion_predict(config: Config, args: argparse.Namespace, ds: WindowDatas
         print(f'partial denoising from {args.init_checkpoint} at frac '
               f'{args.diffusion_partial}')
 
-    def predict(x: np.ndarray) -> Dict[str, torch.Tensor]:
+    def predict(x: np.ndarray, _subjects=None) -> Dict[str, torch.Tensor]:
         return forward(model, torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
 
     return predict
 
 
 def _quantized_predict(model, device: torch.device):
-    """The JAX command's int8 evaluation: ``predict(x) -> outputs`` of the
+    """The JAX command's int8 evaluation: ``predict(x, subjects) -> outputs`` of the
     quantized forward (``ops/quant.py``, weights quantized here once) on
     ``x`` (numpy [B, T, C_in]); batch by batch, as the diffusion chains."""
     forward = quantized_feedforward_forward(model)
 
-    def predict(x: np.ndarray) -> Dict[str, torch.Tensor]:
+    def predict(x: np.ndarray, _subjects=None) -> Dict[str, torch.Tensor]:
         return forward(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
 
     return predict
@@ -318,7 +322,6 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
     seconds its evaluation loop took (forwards, metrics and rows)."""
     config = use_run_config_if_requested(config_from_args(args), args)
     _check_consistency(config, args)
-    _reject_unported(config, args)
     checkpoint_dir = os.path.join(os.path.abspath(config.checkpoint_dir),
                                   config.model_type)
     warn_on_architecture_mismatch(config, checkpoint_dir, 'analyze')
@@ -354,10 +357,14 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
         if analytical:
             _refuse_tta(args)
             eval_fn = None
-            run_chunk = make_graphed_chunk_runner(
-                analytical_eval_step(ds, lc, make_analytical_fn(ds, device), tau_fn,
-                                     config.output_data_format != 'all_frames'),
-                (torch.float32, torch.float32, torch.int64), device)
+            analytical_fn = make_analytical_fn(ds, device)
+            if args.plot_errors:
+                predict = _last_frame(analytical_fn, config.output_data_format != 'all_frames')
+            else:
+                run_chunk = make_graphed_chunk_runner(
+                    analytical_eval_step(ds, lc, analytical_fn, tau_fn,
+                                         config.output_data_format != 'all_frames'),
+                    (torch.float32, torch.float32, torch.int64), device)
         elif config.model_type == 'diffusion':
             predict = _diffusion_predict(config, args, ds, checkpoint_dir, device)
             eval_fn = None
@@ -370,7 +377,7 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
             if svc.tta_mirror:
                 print('mirror test-time augmentation enabled (per ensemble member)')
 
-            def predict(x, svc=svc):
+            def predict(x, _subjects=None, svc=svc):
                 return {k: torch.from_numpy(v).to(device)
                         for k, v in svc.predict_packed(x).items()}
             eval_fn = None
@@ -390,7 +397,7 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                     print('mirror test-time augmentation enabled')
                 else:
                     eval_fn = make_eval_step(model, ds.lab_offsets, lc)
-                if not config.compute_report:
+                if not (config.compute_report or args.plot_errors):
                     runner = make_eval_chunk_runner(eval_fn, device)
 
                     def run_chunk(xs, ys, _ss, runner=runner):
@@ -436,7 +443,7 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
             batches = ds.batches(config.batch_size, shuffle=False, drop_last=False)
             if run_chunk is None:
                 # one batch at a time: --ensemble, diffusion, --quantize,
-                # --compute-report with a learned model
+                # --plot-errors, --compute-report with a learned model
                 for i, batch in enumerate(batches):
                     windows += batch.inputs.shape[0]
                     x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
@@ -446,11 +453,15 @@ def analyze(args: argparse.Namespace) -> Dict[str, dict]:
                         if eval_fn is not None:
                             outputs, metrics = eval_fn(None, x, y)
                         else:
-                            outputs = predict(batch.inputs)
+                            outputs = predict(batch.inputs, batch.subject_indices)
                             metrics = evaluator.compute_metrics(outputs, labels)
                         evaluator(x, outputs, labels, batch.subject_indices,
                                   compute_report=config.compute_report,
                                   precomputed_metrics=metrics)
+                    if args.plot_errors and i == 0:
+                        for path in evaluator.plot_errors(outputs, labels, args.plot_path_root,
+                                                          tag=split):
+                            print(f'wrote {path}')
                     emit_rows(i, batch, torch.stack(
                         [metrics[key].float() for key in ROW_KEYS]).tolist())
             else:

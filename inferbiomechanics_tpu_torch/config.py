@@ -196,7 +196,7 @@ class Config:
     # costs ~window/stride x the frame-major features in HBM.
     pack_windows: str = 'auto'
 
-    # profiling (SURVEY.md §5: reference has none; rebuild adds JAX profiler)
+    # profiling (SURVEY.md §5: reference has none; the port adds the torch profiler)
     profile: bool = False
     profile_dir: str = 'outputs/profile'
 
@@ -398,7 +398,7 @@ def add_config_flags(parser: argparse.ArgumentParser, defaults: Optional[Config]
                         help='Microbatches per pipelined step '
                              '(0 = 2 x pipeline stages)')
     parser.add_argument('--profile', action='store_true', default=d.profile,
-                        help='Capture a JAX profiler trace of the first epoch')
+                        help='Capture a torch profiler trace of the first epoch')
     parser.add_argument('--profile-dir', type=str, default=d.profile_dir)
     parser.add_argument('--device-data', type=str, default=d.device_data,
                         choices=['auto', 'on', 'off', 'sharded', 'stream'],

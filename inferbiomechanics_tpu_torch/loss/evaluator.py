@@ -12,11 +12,14 @@ log and, through ``wandb_logger``, under the JAX package's wandb keys. With
 a ``tau_fn`` (``loss/tau_report.py::make_tau_report_fn``) a batch accounted
 with ``compute_report`` also scores the predicted wrenches against inverse
 dynamics: the non-root joint-torque report (``tau_avg_err``).
+:meth:`RegressionLossEvaluator.plot_errors` draws a batch's GRF errors
+(``analyze --plot-errors``).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -28,6 +31,7 @@ from inferbiomechanics_tpu_torch.data.keys import OutputDataKeys
 from inferbiomechanics_tpu_torch.ops.losses import (
     com_acc_error, mask_by_threes, mean_norm_error, squared_diff_mean_vector,
 )
+from inferbiomechanics_tpu_torch.utils import png_plot
 
 
 # component names of the report's keys
@@ -206,6 +210,41 @@ class RegressionLossEvaluator:
             report[f'{s}/reports/Non-root Joint Torques (Inverse Dynamics) '
                    f'Avg Err (Nm per kg)'] = tau_metric
         return report
+
+    def plot_errors(self, outputs: Dict[str, torch.Tensor], labels: Dict[str, torch.Tensor],
+                    plot_path_root: str = 'outputs/plots', tag: str = 'batch') -> List[str]:
+        """The squared error of the batch's last frame, window by window, as
+        one PNG a selected GRF component (``predict_grf_components``):
+        ``{plot_path_root}/{tag}_grferror{COMPONENT}.png``, drawn by
+        matplotlib on ``Agg``, or, where matplotlib is not installed, by
+        ``utils/png_plot.py``. Returns the paths written."""
+        try:
+            import matplotlib
+        except ImportError:
+            matplotlib = None
+        if matplotlib is not None:
+            matplotlib.use('Agg')
+            import matplotlib.pyplot as plt
+
+        os.makedirs(plot_path_root, exist_ok=True)
+        k = OutputDataKeys.GROUND_CONTACT_FORCES_IN_ROOT_FRAME
+        diff = (outputs[k] - labels[k]).detach().float().cpu().numpy()
+        err = (diff ** 2)[:, -1, :].reshape(-1, diff.shape[-1])
+        written = []
+        for i in self.config.predict_grf_components:
+            path = os.path.join(plot_path_root, f'{tag}_grferror{COMPONENTS[i]}.png')
+            ylabel = f'squared error {COMPONENTS[i]}'
+            if matplotlib is None:
+                png_plot.write_line_png(path, err[:, i], ylabel)
+            else:
+                plt.clf()
+                plt.plot(err[:, i])
+                plt.ylabel(ylabel)
+                plt.savefig(path)
+            written.append(path)
+        if matplotlib is not None:
+            plt.close('all')
+        return written
 
     def mean_metric(self, key: str) -> Optional[float]:
         hist = self.metric_history.get(key)

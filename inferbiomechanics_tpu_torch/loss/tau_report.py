@@ -69,7 +69,9 @@ def make_tau_report_fn(ds: WindowDataset, device='cuda', dtype=torch.float32) ->
     def tau_fn(packed_inputs, outputs, labels, batch_subject_indices=None) -> float:
         args = [torch.as_tensor(v, device=device) for v in (
             packed_inputs, outputs[_WRENCHES], labels[K.OutputDataKeys.TAU])]
-        if batch_subject_indices is not None:
+        # a dataset without subjects (``data/pickled.py``'s) has one mass, 70
+        # kg, for every window: the JAX package's gather clamps to it
+        if batch_subject_indices is not None and ds.subjects:
             si = np.asarray(batch_subject_indices.cpu() if torch.is_tensor(batch_subject_indices)
                             else batch_subject_indices)
             if si.size and (si.min() < 0 or si.max() >= len(subject_masses)):

@@ -39,6 +39,9 @@ the parameters, the optimizer and the EMA, but the rest of its epoch is not
 replayed. A step's draws come from the state's generator reseeded from
 ``--seed`` and the step count, so a resumed run draws what the uninterrupted
 one drew.
+
+``--profile`` traces the first epoch, its dev chains included, into
+``--profile-dir`` (``train/profiling.py``).
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ from inferbiomechanics_tpu_torch.train.loop import (
 )
 from inferbiomechanics_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from inferbiomechanics_tpu_torch.train.sharded_data import make_sharded_diffusion_epoch_runner
+from inferbiomechanics_tpu_torch.train.profiling import FirstEpochTrace
 from inferbiomechanics_tpu_torch.train.state import ParamEMA, create_train_state, num_params
 from inferbiomechanics_tpu_torch.train.step import ChunkedStep
 from inferbiomechanics_tpu_torch.train.streaming_data import (
@@ -216,46 +220,53 @@ def train_diffusion(config: Config,
         logger.info('epoch %d batch %d eps-mse %.6f', epoch, batch_idx, loss)
 
     stopped_early = preempted = False
-    for epoch in range(start_epoch, config.epochs):
-        run_dev_eval(epoch)
-        if best.track(epoch, final_dev):
-            stopped_early = True
-            break
-        if streaming is not None:
-            metrics, seconds, n, preempted = run_streamed_epoch(
-                streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
-                metric_key='train/diffusion_loss', write_checkpoint=write_checkpoint, stop=stop)
-            if metrics:
-                last_loss = float(metrics['loss'])
-            compute_time += seconds
-            windows_seen += n
-            epochs_run += 1
-            print(f'[epoch {epoch}] eps-mse {last_loss:.6f}')
-            if preempted:
+    # --profile: the first epoch, its dev evaluation included
+    trace = FirstEpochTrace(config.profile, config.profile_dir, device)
+    try:
+        for epoch in range(start_epoch, config.epochs):
+            run_dev_eval(epoch)
+            if best.track(epoch, final_dev):
+                stopped_early = True
                 break
-            continue
-        # windows_per_sec: the epoch's wall clock, closed by reading back
-        # the LAST step's loss (the device runs behind the host)
-        t_compute = time.time()
-        n, stopped_at, last = run_chunks(
-            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
-            chunk_k,
-            skip=0, cap=max_batches_per_epoch, log_every=config.log_every_batches,
-            checkpoint_every=config.checkpoint_every_batches, account=lambda row: None,
-            log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
-            checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
-            stop=lambda: dist.any_rank(stop.requested))
-        windows_seen += n * config.batch_size
-        if last is not None:
-            last_loss = float(last['loss'])
-            compute_time += time.time() - t_compute
-        epochs_run += 1
-        print(f'[epoch {epoch}] eps-mse {last_loss:.6f}')
-        # a SIGTERM checkpoint is this epoch's too: resume is epoch-granular
-        write_checkpoint(epoch, 0)
-        if stopped_at is not None:
-            preempted = True
-            break
+            if streaming is not None:
+                metrics, seconds, n, preempted = run_streamed_epoch(
+                    streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
+                    metric_key='train/diffusion_loss', write_checkpoint=write_checkpoint, stop=stop)
+                if metrics:
+                    last_loss = float(metrics['loss'])
+                compute_time += seconds
+                windows_seen += n
+                epochs_run += 1
+                trace.close()
+                print(f'[epoch {epoch}] eps-mse {last_loss:.6f}')
+                if preempted:
+                    break
+                continue
+            # windows_per_sec: the epoch's wall clock, closed by reading back
+            # the LAST step's loss (the device runs behind the host)
+            t_compute = time.time()
+            n, stopped_at, last = run_chunks(
+                dispatch, epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
+                chunk_k,
+                skip=0, cap=max_batches_per_epoch, log_every=config.log_every_batches,
+                checkpoint_every=config.checkpoint_every_batches, account=lambda row: None,
+                log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
+                checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
+                stop=lambda: dist.any_rank(stop.requested))
+            windows_seen += n * config.batch_size
+            if last is not None:
+                last_loss = float(last['loss'])
+                compute_time += time.time() - t_compute
+            epochs_run += 1
+            trace.close()
+            print(f'[epoch {epoch}] eps-mse {last_loss:.6f}')
+            # a SIGTERM checkpoint is this epoch's too: resume is epoch-granular
+            write_checkpoint(epoch, 0)
+            if stopped_at is not None:
+                preempted = True
+                break
+    finally:
+        trace.close()      # also after no epoch, a SIGTERM or an exception
 
     # score the FINAL state too (the loop evaluates before each epoch only)
     if ((config.keep_best or config.early_stop_patience)

@@ -68,6 +68,11 @@ step boundary. The device-resident tier runs step by step at world size > 1
 whose collectives cannot be captured in a CUDA graph (gloo over two ranks
 or more).
 
+``--profile`` traces the first epoch, its dev evaluation included, into
+``--profile-dir`` (``train/profiling.py``). A ``metric_logger`` (the
+``train`` command's ``MetricLogger``) gets the logged losses and the train
+and dev reports under the JAX package's keys.
+
 The tiers, the chunked epoch (:func:`run_chunks`), SIGTERM, the best
 checkpoint and the checkpoint directory's set-up are shared with the
 diffusion loop (``train/diffusion_loop.py``).
@@ -106,6 +111,7 @@ from inferbiomechanics_tpu_torch.train.device_data import (
     make_device_train_step,
 )
 from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer, wrap_freeze
+from inferbiomechanics_tpu_torch.train.profiling import FirstEpochTrace
 from inferbiomechanics_tpu_torch.train.run_config import (
     check_resume_architecture, save_run_config, warn_on_architecture_mismatch,
 )
@@ -192,7 +198,6 @@ def _reject_unported(config: Config) -> None:
     unported = [
         ('--pipeline-parallel', config.pipeline_parallel > 1,
          'ROADMAP.md, not to port'),
-        ('--profile', config.profile, 'ROADMAP.md Queue 1 item 9 (the rest of the CLI)'),
     ]
     for flag, asked, where in unported:
         if asked:
@@ -700,8 +705,8 @@ def train(config: Config,
 
     tau_fn = (make_tau_report_fn(dev_ds, device)
               if config.compute_report and dev_ds is not None else None)
-    train_eval = RegressionLossEvaluator('train', lc)
-    dev_eval = RegressionLossEvaluator('dev', lc, tau_fn=tau_fn)
+    train_eval = RegressionLossEvaluator('train', lc, wandb_logger=metric_logger)
+    dev_eval = RegressionLossEvaluator('dev', lc, tau_fn=tau_fn, wandb_logger=metric_logger)
     windows_seen = 0
     compute_time = 0.0
     final_dev: Dict[str, float] = {}
@@ -726,9 +731,7 @@ def train(config: Config,
         else:
             return False
         print(f'[epoch {epoch}] dev report:')
-        final_dev = dev_eval.print_report()
-        if metric_logger is not None and final_dev:
-            metric_logger.log({'dev/loss': final_dev['loss'], 'epoch': epoch})
+        final_dev = dev_eval.print_report(log_to_wandb=metric_logger is not None)
         return True
 
     def log_loss(epoch: int, batch_idx: int, metrics) -> None:
@@ -738,54 +741,62 @@ def train(config: Config,
         logger.info('epoch %d batch %d loss %.6f', epoch, batch_idx, loss)
 
     stopped_early = preempted = False
-    for epoch in range(start_epoch, config.epochs):
-        run_dev_eval(epoch)
-        if best.track(epoch, final_dev):
-            stopped_early = True
-            break
-
-        if streaming is not None:
-            metrics, seconds, n, preempted = run_streamed_epoch(
-                streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
-                metric_key='train/loss', write_checkpoint=write_checkpoint, stop=stop)
-            if metrics:
-                train_eval(None, None, None, precomputed_metrics=metrics)
-            compute_time += seconds
-            windows_seen += n
-            epochs_run += 1
-            print(f'[epoch {epoch}] train report ({seconds:.1f}s):')
-            train_metrics = train_eval.print_report()
-            if preempted:
+    # --profile: the first epoch, its dev evaluation included
+    trace = FirstEpochTrace(config.profile, config.profile_dir, device)
+    try:
+        for epoch in range(start_epoch, config.epochs):
+            run_dev_eval(epoch)
+            if best.track(epoch, final_dev):
+                stopped_early = True
                 break
-            continue
-        t_epoch = time.time()
-        # windows_per_sec: the epoch's wall clock, closed by reading back
-        # the LAST step's loss (the device runs behind the host)
-        t_compute = time.time()
-        n, stopped_at, last_metrics = run_chunks(
-            dispatch, epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
-            chunk_k,
-            skip=skip_batches if epoch == start_epoch else 0, cap=max_batches_per_epoch,
-            log_every=config.log_every_batches,
-            checkpoint_every=config.checkpoint_every_batches,
-            account=lambda row: train_eval(None, None, None, precomputed_metrics=row),
-            log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
-            checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
-            stop=lambda: dist.any_rank(stop.requested))
-        windows_seen += n * config.batch_size
-        if last_metrics is not None:
-            float(last_metrics['loss'])     # synchronises with the device
-            compute_time += time.time() - t_compute
-        if stopped_at is not None:
-            write_checkpoint(epoch, stopped_at)
-            logger.info('preemption checkpoint written: epoch %d batch %d',
-                        epoch, stopped_at)
-            preempted = True
-            break
-        epochs_run += 1
-        print(f'[epoch {epoch}] train report ({time.time() - t_epoch:.1f}s):')
-        train_metrics = train_eval.print_report()
-        write_checkpoint(epoch, 0)
+
+            if streaming is not None:
+                metrics, seconds, n, preempted = run_streamed_epoch(
+                    streaming, state, config, train_ds, epoch, metric_logger=metric_logger,
+                    metric_key='train/loss', write_checkpoint=write_checkpoint, stop=stop)
+                if metrics:
+                    train_eval(None, None, None, precomputed_metrics=metrics)
+                compute_time += seconds
+                windows_seen += n
+                epochs_run += 1
+                trace.close()
+                print(f'[epoch {epoch}] train report ({seconds:.1f}s):')
+                train_metrics = train_eval.print_report(log_to_wandb=metric_logger is not None)
+                if preempted:
+                    break
+                continue
+            t_epoch = time.time()
+            # windows_per_sec: the epoch's wall clock, closed by reading back
+            # the LAST step's loss (the device runs behind the host)
+            t_compute = time.time()
+            n, stopped_at, last_metrics = run_chunks(
+                dispatch,
+                epoch_batches(config, train_ds, loader, epoch, on_device, shard=dp_shard),
+                chunk_k,
+                skip=skip_batches if epoch == start_epoch else 0, cap=max_batches_per_epoch,
+                log_every=config.log_every_batches,
+                checkpoint_every=config.checkpoint_every_batches,
+                account=lambda row: train_eval(None, None, None, precomputed_metrics=row),
+                log=lambda idx, row: log_loss(epoch, idx, row),              # noqa: B023
+                checkpoint=lambda idx: write_checkpoint(epoch, idx),         # noqa: B023
+                stop=lambda: dist.any_rank(stop.requested))
+            windows_seen += n * config.batch_size
+            if last_metrics is not None:
+                float(last_metrics['loss'])     # synchronises with the device
+                compute_time += time.time() - t_compute
+            if stopped_at is not None:
+                write_checkpoint(epoch, stopped_at)
+                logger.info('preemption checkpoint written: epoch %d batch %d',
+                            epoch, stopped_at)
+                preempted = True
+                break
+            epochs_run += 1
+            trace.close()
+            print(f'[epoch {epoch}] train report ({time.time() - t_epoch:.1f}s):')
+            train_metrics = train_eval.print_report(log_to_wandb=metric_logger is not None)
+            write_checkpoint(epoch, 0)
+    finally:
+        trace.close()      # also after no epoch, a SIGTERM or an exception
 
     # the loop evaluates BEFORE each epoch, so without this the last epoch's
     # state would never be scored and could not become the best checkpoint

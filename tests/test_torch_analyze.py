@@ -22,6 +22,7 @@ import csv
 import io
 import os
 import re
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -381,7 +382,9 @@ _ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames'
      '--init-checkpoint: no checkpoint in c'),
     (['--model-type', 'diffusion'], None,
      'analyze --model-type diffusion requires --output-data-format all_frames'),
-    (['--plot-errors'], '--plot-errors', 'item 9'),
+    # ported: both commands write the same PNGs, and the port's rows are those
+    # of its run without the flag
+    (['--plot-errors'], None, 'grferror'),
     (['--model-type', 'analytical', '--tta-mirror'], None,
      '--tta-mirror supports the learned-model eval paths'),
 ], ids=[  # each case keeps the id it is known by
@@ -391,16 +394,29 @@ _ALL_FRAMES = ['--model-type', 'diffusion', '--output-data-format', 'all_frames'
     'argv4-None-analyze --model-type diffusion requires --output-data-format all_frames',
     'argv7---plot-errors-item 9', 'analytical --tta-mirror'])
 def test_unported_analyze_flags_raise_by_name(ws, tmp_path, monkeypatch, argv, flag, item):
-    """What is not ported names its ROADMAP item; the ported diffusion,
-    analytical and int8 options refuse a bad invocation as the JAX command
-    does."""
+    """The ported diffusion, analytical and int8 options refuse a bad
+    invocation as the JAX command does; ``--plot-errors`` writes the JAX
+    command's PNGs and leaves the rows as they are."""
     base = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(tmp_path),
             '--no-wandb', *argv]
-    if flag is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f'{flag} is not yet ported \\(ROADMAP.md Queue 1 {item} '):
-            main(base + ['--device', 'cpu'])
-        assert not os.path.exists(tmp_path / 'feedforward')
+    if '--plot-errors' in argv:
+        plots, rows = {}, {}
+        for side, extra in (('jax', argv), ('port', argv), ('plain', [])):
+            d = tmp_path / side
+            shutil.copytree(ws['root'] / ('port' if side == 'plain' else side) / 'feedforward',
+                            d)
+            for f in d.glob('feedforward/*_analysis.csv'):
+                f.unlink()
+            cmd = ['analyze', '--dataset-home', ws['data'], '--checkpoint-dir', str(d),
+                   '--no-wandb', '--batch-size', str(BATCH), '--plot-path-root',
+                   str(tmp_path / f'plots_{side}'), *extra]
+            _run_jax(cmd) if side == 'jax' else _run_port(cmd + ['--device', 'cpu'])
+            plots[side] = sorted(os.listdir(tmp_path / f'plots_{side}')) if extra else []
+            rows[side] = [_rows(str(d / 'feedforward' / f'{s}_analysis.csv'))
+                          for s in ('dev', 'train')]
+        assert plots['port'] == plots['jax'] == [f'{s}_{item}left-y.png'
+                                                  for s in ('dev', 'train')]
+        assert rows['port'] == rows['plain'] and len(rows['port'][0]) == 98
         return
     monkeypatch.chdir(tmp_path)       # a relative --init-checkpoint names nothing
     errors = []

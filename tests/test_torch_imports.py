@@ -217,7 +217,8 @@ def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
     """Each command of ``python -m inferbiomechanics_tpu_torch`` that runs a
     model takes ``--device``, defaults it to ``cuda``, and raises on a
     machine with no GPU instead of carrying on on the CPU
-    (``convert-checkpoint`` runs no model and takes no device)."""
+    (``convert-checkpoint``, ``pickle-data``, ``create-splits`` and
+    ``sanity-check`` run no model and take no device)."""
     out = _run("""
         import os, torch
         torch.cuda.is_available = lambda: False      # a machine with no GPU
@@ -233,9 +234,11 @@ def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
                  'analyze': home, 'sweep': home + ['--epochs', '1'],
                  'export': home + ['--out', 'm.pt2'], 'save-prediction-csv': file,
                  'visualize-file': file, 'review-file': file, 'visualize': home}
-        assert sorted(argvs) == sorted(set(COMMANDS) - {'convert-checkpoint'})
-        assert not hasattr(build_parser().parse_args(
-            ['convert-checkpoint', 'ckpt', '--out-dir', 'x']), 'device')
+        host = {'convert-checkpoint': ['ckpt', '--out-dir', 'x'], 'pickle-data': [],
+                'create-splits': [], 'sanity-check': []}
+        assert sorted(argvs) == sorted(set(COMMANDS) - set(host))
+        for cmd, argv in host.items():
+            assert not hasattr(build_parser().parse_args([cmd, *argv]), 'device'), cmd
         for cmd, argv in argvs.items():
             argv = [cmd, *argv, '--history-len', '20', '--hidden-dims', '32']
             assert build_parser().parse_args(argv).device == 'cuda', cmd

@@ -456,7 +456,8 @@ def test_model_parallel_and_shard_configs_stay_refused_by_name(root, tmp_path):
     args = ['--dataset-home', str(root), '--device', 'cpu', '--history-len', '20',
             '--stride', '5', '--batch-size', '16']
     with pytest.raises(ValueError, match='1 devices not divisible by model_parallel=2'):
-        main(['train', *args, '--checkpoint-dir', str(tmp_path / 't'), '--model-parallel', '2'])
+        main(['train', *args, '--checkpoint-dir', str(tmp_path / 't'), '--model-parallel', '2',
+              '--no-wandb', '--geometry-folder', str(tmp_path)])
     assert not os.path.exists(tmp_path / 't')
     sweep_args = [*args, '--lrs', '1e-3', '3e-4', '--seeds', '0', '--hidden-dims', '32',
                   '--epochs', '1', '--max-batches-per-epoch', '2', '--no-wandb']
@@ -486,12 +487,14 @@ def test_start_from_env_names_the_backend_and_the_device():
 
 def test_train_command_under_torchrun(root, tmp_path):
     """The user's command: ``IB_MULTIHOST=1 torchrun --nproc-per-node 2 -m
-    inferbiomechanics_tpu_torch train ... --device cpu`` (gloo)."""
+    inferbiomechanics_tpu_torch train ... --device cpu`` (gloo). Rank 0
+    alone logs the run (wandb is not installed here: one JSONL file)."""
     env = dict(os.environ, IB_MULTIHOST='1', PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc-per-node',
            '2', '-m', 'inferbiomechanics_tpu_torch', 'train', '--dataset-home', str(root),
            '--checkpoint-dir', str(tmp_path), '--device', 'cpu', '--history-len', '20',
-           '--stride', '5', '--batch-size', '16', '--hidden-dims', '32', '--epochs', '1']
+           '--stride', '5', '--batch-size', '16', '--hidden-dims', '32', '--epochs', '1',
+           '--geometry-folder', str(tmp_path)]
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=240,
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -499,3 +502,5 @@ def test_train_command_under_torchrun(root, tmp_path):
     assert proc.stdout.count('Training done: 1 epochs') == 2
     d = tmp_path / 'feedforward'
     assert (d / 'run_config.json').exists() and (d / 'epoch_0_batch_0.torch.pt').exists()
+    logs = list((tmp_path / 'outputs' / 'logs').iterdir())
+    assert len(logs) == 1 and '"train/loss"' in logs[0].read_text()

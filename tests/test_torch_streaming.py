@@ -341,7 +341,8 @@ def test_train_diffusion_streams(root, tmp_path):
     # ported: one process is a world of one device, which --model-parallel 2
     # does not divide (the JAX package's make_mesh refusal)
     (dict(model_parallel=2), ValueError, '1 devices not divisible by model_parallel=2'),
-    (dict(profile=True), NotImplementedError, 'item 9'),
+    # ported: a streamed run under --profile (one trace, of the first epoch)
+    (dict(profile=True), None, None),
 ], ids=[  # each case keeps the id it is known by
     'fields0-ValueError---grad-accum-steps applies to the host',
     'fields1-ValueError---grad-allreduce-dtype bf16 applies to the host, device-resident, '
@@ -353,6 +354,7 @@ def test_loop_refusals(root, tmp_path, fields, err, words, loop):
     ds, _ = _datasets(root, window_size=20, stride=5, output_data_format='all_frames')
     cfg = _loop_config(root, tmp_path, window_size=20, stride=5,
                        output_data_format='all_frames', **fields)
+    cfg.profile_dir = str(tmp_path / 'trace')
 
     def run():
         if loop == 'train':
@@ -365,6 +367,9 @@ def test_loop_refusals(root, tmp_path, fields, err, words, loop):
         # epoch-granular, as the streaming tier: one checkpoint an epoch
         assert sorted(f for f in os.listdir(tmp_path) if f.startswith('epoch_')) == [
             'epoch_0_batch_0.torch.pt', 'epoch_1_batch_0.torch.pt']
+        traces = os.listdir(tmp_path / 'trace') if cfg.profile else []
+        assert len(traces) == int(cfg.profile)
+        assert all(t.startswith('rank0.') and t.endswith('.pt.trace.json') for t in traces)
         return
     with pytest.raises(err, match=words.replace('(', r'\(')):
         run()

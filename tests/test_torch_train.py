@@ -15,6 +15,7 @@ value (bf16 operands rounded at different places by XLA and PyTorch).
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import threading
 import urllib.request
@@ -79,6 +80,10 @@ def _config(cls, model_type, **fields):
     for k, v in fields.items():
         setattr(cfg, k, v)
     return cfg
+
+
+def _refuse_download(*a, **kw):
+    raise OSError('no network in tests')
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -529,7 +534,9 @@ def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
     # ported: the case holds the flag working (the same checkpoints as the
     # synchronous writer's)
     (dict(async_checkpoint=True), None),
-    (dict(profile=True), '--profile'),
+    # ported: the case holds the flag working (a trace of the first epoch,
+    # the checkpoints bitwise the unprofiled run's)
+    (dict(profile=True), None),
     # ported: the case holds the flag working (the sharded tier of one rank:
     # one checkpoint an epoch)
     (dict(device_data='sharded'), None),
@@ -579,6 +586,23 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
             pa, pb = (torch.load(p, weights_only=True)['model_state_dict'] for p in (a, b))
             assert all(torch.equal(v, pb[k]) for k, v in pa.items()), a
         return
+    if cfg.profile:
+        files = []
+        for d, profile in (('p', True), ('u', False)):
+            small = dataclasses.replace(cfg, checkpoint_dir=str(tmp_path / d), hidden_dims=[32],
+                                        epochs=2, profile=profile,
+                                        profile_dir=str(tmp_path / 'trace'))
+            run(small, data['train'], data['dev'], device='cpu')
+            files.append(ckpt.list_checkpoints(small.checkpoint_dir))
+        assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] == [(0, 0), (1, 0)]
+        for (_, _, a), (_, _, b) in zip(*files):
+            with open(a, 'rb') as fa, open(b, 'rb') as fb:
+                assert fa.read() == fb.read(), a
+        traces = os.listdir(tmp_path / 'trace')
+        assert len(traces) == 1 and traces[0].startswith('rank0.')
+        with open(tmp_path / 'trace' / traces[0]) as f:
+            assert json.load(f)['traceEvents']
+        return
     if flag is None:
         files = []
         for d, async_checkpoint in (('c', True), ('s', False)):
@@ -604,7 +628,9 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
 
 
 @pytest.mark.parametrize('argv,error,match', [
-    (['--use-pickled'], NotImplementedError, '--use-pickled is not yet ported'),
+    # ported: the case holds the flag working (pickle-data's blocks train
+    # bitwise as the .b3d files)
+    (['--use-pickled'], None, None),
     (['--model-type', 'groundlink', '--conv-impl', 'banded'], ValueError, 'not ported'),
     (['--model-type', 'transformer', '--attn-impl', 'pallas', '--dropout',
       '--dropout-prob', '0.1'], ValueError, 'does not support dropout'),
@@ -613,11 +639,26 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     'argv0-NotImplementedError---use-pickled is not yet ported', 'argv3-ValueError-not ported',
     'argv4-ValueError-does not support dropout',
     'argv5-RuntimeError-is_available\\(\\) is False'])
-def test_train_command_refusals(data, tmp_path, argv, error, match):
+def test_train_command_refusals(data, tmp_path, argv, error, match, monkeypatch):
+    monkeypatch.setattr(urllib.request, 'urlretrieve', _refuse_download)
     args = ['train', '--dataset-home', str(data['root']), '--checkpoint-dir',
-            str(tmp_path), '--batch-size', str(BATCH), *argv]
+            str(tmp_path), '--batch-size', str(BATCH), '--no-wandb', '--geometry-folder',
+            str(tmp_path), *argv]
     if '--device' not in argv and argv:
         args += ['--device', 'cpu']
+    if error is None:
+        home = tmp_path / 'home'
+        shutil.copytree(data['root'], home)
+        assert main(['pickle-data', '--dataset-home', str(home)]) == 0
+        more = ['--dataset-home', str(home), '--hidden-dims', '32', '--epochs', '1']
+        assert main([*args, *more]) == 0
+        b3d = [a for a in args if a != '--use-pickled']
+        assert main([*b3d, *more, '--checkpoint-dir', str(tmp_path / 'b3d')]) == 0
+        a, b = (tmp_path / d / 'feedforward' / 'epoch_0_batch_0.torch.pt'
+                for d in ('.', 'b3d'))
+        with open(a, 'rb') as fa, open(b, 'rb') as fb:
+            assert fa.read() == fb.read()
+        return
     with pytest.raises(error, match=match):
         main(args)
 
