@@ -279,8 +279,8 @@ Phases, each of which fails the run:
      ``pickle-data``, then feedforward ``train --use-pickled`` and ``train``
      from the ``.b3d`` files with the same flags and seed, their checkpoints
      bitwise equal and K1 launched once a dev batch, both runs logged with
-     their git hash to a stand-in for wandb (``--geometry-folder`` named:
-     nothing fetches); ``train --model-type transformer --attn-impl pallas
+     their git hash to the JSONL fallback, wandb hidden (``--geometry-folder``
+     named: nothing fetches); ``train --model-type transformer --attn-impl pallas
      --profile`` for one epoch at B=64 beside the same run unprofiled,
      before and after it: checkpoints bitwise equal, the Chrome trace read
      back holding K3 12 x steps and K2 4 x (steps + dev forwards) by the
@@ -290,6 +290,21 @@ Phases, each of which fails the run:
      run without the flag, one launch a batch; ``sanity-check``, each
      printed statistic against float64 on the card. ``--only-phase 19``
      runs the build and this phase alone.
+ 20. the last four commands (``phase_last_commands``), each in this process
+     through ``__main__.main``: ``doctor --json --transfer-mb 256
+     --dataset-home`` phase 4's data (healthy; the card's name and power
+     limit as ``nvidia-smi`` gives them; K1 once at B=1 and once at B=4096,
+     held to ``mlp_reference``, and in a profiler trace of a second run two
+     ``fused_mlp_kernel`` launches of two instantiations; pageable and
+     pinned GB/s, the build's status, each launch's us); ``make-plots`` over
+     phase 4's subjects with every figure group, drawn by
+     ``utils/png_plot.py`` (matplotlib hidden where installed): the files
+     ``render_plots`` names, PNGs that decode, again from ``--use-cache``;
+     ``plot-training`` of phase 19's JSONL run logs (finals equal to each
+     key's last value) and ``--compare`` of both; ``convert-b3d`` of 4
+     legacy subjects of 2 x 1500 frames, each output byte for byte what
+     ``ensure_tpu_format`` writes, then ``--verify`` and ``--infer-schema``
+     clean. ``--only-phase 20`` runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -319,14 +334,15 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
-import types
 import urllib.error
 import urllib.request
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -5409,23 +5425,6 @@ def _leaves(tree):
         yield tree
 
 
-class _RecordingWandb(types.ModuleType):
-    """A stand-in for the ``wandb`` module that keeps what a run logs."""
-
-    def __init__(self):
-        super().__init__('wandb')
-        self.inits, self.records, self.finished = [], [], 0
-
-    def init(self, **kw):
-        self.inits.append(kw)
-
-    def log(self, record):
-        self.records.append(dict(record))
-
-    def finish(self):
-        self.finished += 1
-
-
 def _csv_rows(path: Path) -> list:
     with open(path, newline='') as f:
         return list(csv.reader(f))
@@ -5441,8 +5440,8 @@ def phase_cli_extras(torch, port, fm, fe, fg, root, seed, card, device='cuda', b
     d=256, GroundLink), on ``subjects`` synthetic train subjects and one dev
     subject: (a) ``pickle-data``, then feedforward ``train --use-pickled``
     and ``train`` from the ``.b3d`` files, same flags and seed, bitwise equal,
-    K1 once a dev batch, each run's log (kept by a stand-in for wandb) with
-    its git hash; (b) ``train --model-type transformer --attn-impl pallas
+    K1 once a dev batch, each run's log (the JSONL fallback, wandb hidden)
+    with its git hash, for phase 20's ``plot-training``; (b) ``train --model-type transformer --attn-impl pallas
     --profile`` for one epoch at B=64 beside the same run unprofiled (before
     and after it): bitwise equal, the trace read back holding K3 12 x steps
     and K2 4 x (steps + dev forwards), its bytes, what ``--profile`` added;
@@ -5491,47 +5490,56 @@ def phase_cli_extras(torch, port, fm, fe, fg, root, seed, card, device='cuda', b
     base = ['train', '--dataset-home', str(home), '--device', device, '--epochs', '1',
             '--seed', str(seed), '--batch-size', str(batch), '--geometry-folder', str(geom)]
     ff = {}
-    # the run log goes to a recording stand-in for wandb: no wandb process,
-    # no file outside the phase's directory
-    stand_in, real = _RecordingWandb(), sys.modules.get('wandb')
-    sys.modules['wandb'] = stand_in
+    # the run log goes to the JSONL fallback (wandb hidden: no wandb process),
+    # under each run's own working directory inside the phase's
+    real = sys.modules.get('wandb', False)
+    sys.modules['wandb'] = None
     try:
         for name, more in (('pickled', ['--use-pickled']), ('b3d', [])):
             fm.launches = 0
+            (root / f'run_{name}').mkdir()
             out, seconds = command([*base, *ff_flags, '--checkpoint-dir',
-                                    str(root / f'ff_{name}'), *more], cwd=root)
+                                    str(root / f'ff_{name}'), *more], cwd=root / f'run_{name}')
             ff[name] = dict(k1=fm.launches, seconds=seconds)
             _check('Training done: 1 epochs' in out, f'train {name}: {out[-1000:]}')
             _check(fm.launches == dev_batches * on,
                    f'train {name}: K1 {fm.launches} launches, want one a dev batch '
                    f'({dev_batches})')
     finally:
-        if real is None:
+        if real is False:
             sys.modules.pop('wandb', None)
         else:
             sys.modules['wandb'] = real
     n_ckpt = _same_state(torch, root / 'ff_pickled' / 'feedforward',
                          root / 'ff_b3d' / 'feedforward', '--use-pickled against .b3d')
-    configs = [kw['config'] for kw in stand_in.inits]
-    logged = stand_in.records
-    # a run: the dev report, the logged losses, the train report
-    _check(sorted(c['use_pickled'] for c in configs) == [False, True]
-           and all('git_hash' in c and c['logger'] == 'wandb' for c in configs)
+    run_logs = [sorted((root / f'run_{name}' / 'outputs' / 'logs').glob('metrics_*.jsonl'))
+                for name in ('pickled', 'b3d')]
+    _check([len(logs) for logs in run_logs] == [1, 1], f'run logs {run_logs}')
+    run_logs = [logs[0] for logs in run_logs]
+    records = [[json.loads(line) for line in p.read_text().splitlines()] for p in run_logs]
+    configs = [r[0].get('_config') for r in records]
+    logged = [rec for r in records for rec in r[1:]]
+    # a run: its config first, then the dev report, the logged losses, the
+    # train report
+    _check(all(c is not None for c in configs)
+           and [c['use_pickled'] for c in configs] == [True, False]
+           and all('git_hash' in c and c['logger'] == 'jsonl' for c in configs)
            and sum(f'{s}/reports/Force Avg Err (N per kg)' in r for r in logged
                    for s in ('dev', 'train')) == 4
-           and sum('batch' in r for r in logged) >= 2 and stand_in.finished == 2,
-           f'run logs: {len(configs)} configs, {[list(r)[:2] for r in logged]}')
+           and sum('batch' in r for r in logged) >= 2,
+           f'run logs: {configs}, {[list(r)[:2] for r in logged]}')
     report['use_pickled'] = dict(
         pickle_seconds=pickle_s, block_bytes=sum(b.stat().st_size for b in blocks),
         windows=len(train_ds), dev_batches=dev_batches, checkpoints_bitwise=n_ckpt, runs=ff,
-        logged_records=len(logged))
+        logged_records=len(logged), run_logs=[str(p) for p in run_logs])
     print(f'[cli-extras] pickle-data {len(train_ds)} + {len(dev_ds)} windows in '
           f'{pickle_s:.2f} s ({report["use_pickled"]["block_bytes"]} bytes of blocks); feedforward '
           f'train --use-pickled {ff["pickled"]["seconds"]:.2f} s and from the .b3d files '
           f'{ff["b3d"]["seconds"]:.2f} s, B={batch}: {n_ckpt} checkpoint(s) bitwise equal '
           f'(parameters and optimizer state); K1 {ff["pickled"]["k1"]} / {ff["b3d"]["k1"]} '
-          f'launches for {dev_batches} dev batches; run logs: {len(configs)} configs with '
-          f'the git hash, {len(logged)} records ({card})', flush=True)
+          f'launches for {dev_batches} dev batches; run logs: {len(configs)} JSONL files, '
+          f'each its config with the git hash first, {len(logged)} records ({card})',
+          flush=True)
 
     # (b) a profiled pallas epoch against the same epoch unprofiled
     pallas = [*base, '--model-type', 'transformer', '--attn-impl', 'pallas', *pallas_flags,
@@ -5666,6 +5674,265 @@ def phase_cli_extras(torch, port, fm, fe, fg, root, seed, card, device='cuda', b
     return report
 
 
+PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+
+
+def _png_decodes(path: Path) -> bool:
+    """A PNG file whose chunks' CRCs hold and whose image data inflates to
+    the rows its header promises (8-bit grey, RGB or RGBA)."""
+    data = path.read_bytes()
+    if data[:8] != PNG_SIGNATURE:
+        return False
+    at, idat, header = 8, b'', None
+    while at + 12 <= len(data):
+        n, kind = struct.unpack('>I4s', data[at:at + 8])
+        body = data[at + 8:at + 8 + n]
+        if struct.unpack('>I', data[at + 8 + n:at + 12 + n])[0] != zlib.crc32(kind + body):
+            return False
+        if kind == b'IHDR':
+            header = struct.unpack('>IIBB', body[:10])
+        elif kind == b'IDAT':
+            idat += body
+        at += 12 + n
+    if header is None or header[2] != 8 or header[3] not in (0, 2, 6):
+        return False
+    w, h, _, color = header
+    return len(zlib.decompress(idat)) == h * (w * {0: 1, 2: 3, 6: 4}[color] + 1)
+
+
+def _legacy_job(job):
+    """Phase 20, in a worker process: legacy subject ``seed`` written by the
+    port's writer to ``path``, copied to ``ref`` and converted there by
+    ``data/b3d_legacy.py::ensure_tpu_format``: the bytes ``convert-b3d`` must
+    write. Returns the converted file's path."""
+    path, ref, seed, trials, length = job
+    from inferbiomechanics_tpu_torch.data.b3d_legacy import ensure_tpu_format
+    from inferbiomechanics_tpu_torch.data.synthetic import write_synthetic_legacy_subject
+    write_synthetic_legacy_subject(path, num_trials=trials, trial_length=length, seed=seed)
+    shutil.copyfile(path, ref)
+    return ensure_tpu_format(ref)
+
+
+def phase_last_commands(torch, port, fm, root, seed, card, data, logs=None, device='cuda',
+                        subjects=4, trials=2, length=1500, transfer_mb=256):
+    """20. The last four commands, each run in this process through
+    ``__main__.main`` (a ``SystemExit`` read for its code; any nonzero code
+    fails the phase): (a) ``doctor --json --transfer-mb 256 --dataset-home
+    <data>``: healthy, the card's name and power limit ``nvidia-smi``'s, K1
+    launched once at B=1 and once at B=4096 (the wrapper's count; and in a
+    profiler trace of a second run, two ``fused_mlp_kernel`` launches of two
+    instantiations) and held to ``mlp_reference``; (b) ``make-plots`` over ``data`` (phase 4's
+    subjects) with every figure group: the files ``render_plots`` names for
+    the cached statistics, each a PNG that decodes, written again by
+    ``--use-cache``; (c) ``plot-training`` of a ``metrics_*.jsonl`` of
+    ``logs`` (phase 19's two runs): its finals the last value of each key,
+    and ``--compare`` of both; (d) ``convert-b3d`` of ``subjects`` legacy
+    subjects of ``trials`` x ``length`` frames (written, and converted by
+    ``ensure_tpu_format`` for reference, in worker processes while (b) and
+    (c) run): each output byte for byte the reference, then ``--verify`` and
+    ``--infer-schema`` clean. matplotlib, where installed, is hidden so that
+    ``utils/png_plot.py`` draws, as on a machine without it. Without
+    ``logs`` two short ``train`` runs write them. ``device`` 'cpu' rehearses
+    it (``doctor --device cpu``, no launch count or trace)."""
+    import concurrent.futures
+    import multiprocessing
+    import pickle
+    from inferbiomechanics_tpu_torch.ops.tune import traced_kernels
+    t_phase = time.perf_counter()
+    on = device == 'cuda'
+    root = root / 'last_commands'
+    root.mkdir()
+    report = {}
+
+    def command(argv, what, cwd=None):
+        """``python -m inferbiomechanics_tpu_torch <argv>`` in this process:
+        (stdout, seconds); fails the phase on a nonzero exit."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(cwd or os.getcwd()), contextlib.redirect_stdout(out):
+            try:
+                rc = port.main(argv)
+            except SystemExit as e:
+                rc = e.code
+        _check(rc == 0, f'{what}: exit {rc}\n{out.getvalue()[-3000:]}')
+        return out.getvalue(), time.perf_counter() - t0
+
+    def written(out):
+        return [Path(line[len('wrote '):]).name for line in out.splitlines()
+                if line.startswith('wrote ') and not line.startswith('wrote cache ')]
+
+    # (a) doctor; on the card once more under a profiler trace (no dataset,
+    # 1 MB copies), for its K1 kernels by name
+    argv = ['doctor', '--json', '--transfer-mb', str(transfer_mb), '--dataset-home', str(data)]
+    fm.launches = 0
+    out, doctor_s = command(argv if on else [*argv, '--device', 'cpu'], 'doctor')
+    launches = fm.launches
+    doc = json.loads(next(line for line in out.splitlines() if line.startswith('{')))
+    k1 = {k['batch']: k for k in doc['k1']}
+    _check(doc['healthy'] and doc['degraded'] == [] and 'DOCTOR: healthy' in out
+           and sorted(k1) == [1, 4096] and all(k['ok'] for k in k1.values())
+           and doc['datasets'] and all(d['windows'] > 0 for d in doc['datasets'].values()),
+           f'doctor: {out[-3000:]}')
+    k1_traced = []
+    if on:
+        (out, _), kernels = traced_kernels(lambda: command(['doctor', '--transfer-mb', '1'],
+                                                           'doctor (traced)'))
+        k1_traced = [name for name, _ in kernels if 'fused_mlp_kernel' in name]
+        _check(doc['device']['nvidia_smi'][0] == card
+               and doc['device']['devices'][0]['name'] == card.split(',')[0].strip()
+               and doc['device']['devices'][0]['capability'] == [9, 0],
+               f'doctor: device {doc["device"]}, nvidia-smi says {card!r}')
+        _check([k1[b]['kernel'] for b in (1, 4096)] == ['small', 'large']
+               and launches == 2 and len(k1_traced) == 2 and len(set(k1_traced)) == 2,
+               f'doctor: K1 {launches} launches by the wrapper, traced {k1_traced}')
+    probes = doc['probes']
+    report['doctor'] = dict(seconds=doctor_s, build=doc.get('build'), probes=probes,
+                            k1=doc['k1'], k1_traced=k1_traced, toolchain=doc['toolchain'])
+    pinned = probes['pinned_gbps']
+    print(f'[last-commands] doctor --transfer-mb {transfer_mb}: healthy in {doctor_s:.2f} s; '
+          f'{doc["device"]["nvidia_smi"]}; nvcc {doc["toolchain"]["version"]}; build '
+          f'{(doc.get("build") or {}).get("status", "skipped")}; K1 B=1 '
+          f'{k1[1]["us"]:.1f} us ({k1[1]["kernel"]}, max abs err {k1[1]["max_abs_err"]:.3g}), '
+          f'B=4096 {k1[4096]["us"]:.1f} us ({k1[4096]["kernel"]}, max abs err '
+          f'{k1[4096]["max_abs_err"]:.3g}), one call each (traced: {k1_traced}); '
+          f'host->device pageable {probes["pageable_gbps"]:.2f} GB/s, pinned '
+          f'{"not measured" if pinned is None else f"{pinned:.2f} GB/s"}; 512x512 bf16 '
+          f'matmul {probes["step_ms"]:.3f} ms/step ({card})', flush=True)
+
+    legacy, refs, converted = root / 'legacy', root / 'reference', root / 'converted'
+    legacy.mkdir()
+    refs.mkdir()
+    jobs = [(str(legacy / f'subject_{i}.b3d'), str(refs / f'subject_{i}.b3d'), seed + 2000 + i,
+             trials, length) for i in range(subjects)]
+    hidden = importlib.util.find_spec('matplotlib') is not None
+    real = sys.modules.get('matplotlib', False)
+    sys.modules['matplotlib'] = None
+    t_legacy = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        subjects, mp_context=multiprocessing.get_context('spawn'))
+    try:
+        references = pool.map(_legacy_job, jobs)
+
+        # (b) make-plots, every figure group, drawn by png_plot
+        plots, cache = root / 'plots', root / 'plots.pkl'
+        out, plots_s = command(['make-plots', '--data-path', str(data), '--out-dir', str(plots),
+                                '--cache', str(cache)], 'make-plots')
+        figures = written(out)
+        with open(cache, 'rb') as f:
+            stats = pickle.load(f)
+        names = [Path(p).name for p in port.render_plots(stats, str(root / 'named'))]
+        scatter = [n for n in names if n.startswith('scatter_')]
+        _check(figures == names and len(scatter) == 26
+               and all(_png_decodes(plots / n) for n in figures),
+               f'make-plots wrote {figures}, render_plots names {names}')
+        out, replay_s = command(['make-plots', '--use-cache', '--cache', str(cache),
+                                 '--out-dir', str(root / 'replayed')], 'make-plots --use-cache')
+        _check(written(out) == figures and f'loaded cache {cache}' in out
+               and all(_png_decodes(root / 'replayed' / n) for n in figures),
+               f'make-plots --use-cache wrote {written(out)}')
+        report['make_plots'] = dict(seconds=plots_s, replay_seconds=replay_s,
+                                    figures=len(figures), cache_bytes=cache.stat().st_size,
+                                    subjects=stats['num_subjects'], trials=stats['num_trials'])
+        print(f'[last-commands] make-plots over {stats["num_subjects"]} subjects, '
+              f'{stats["num_trials"]} trials: {len(figures)} figures ({len(scatter)} scatter) '
+              f'drawn by utils/png_plot.py{" (matplotlib hidden)" if hidden else ""}, each a '
+              f'PNG that decodes, the names render_plots gives, in {plots_s:.2f} s; cache '
+              f'{cache.stat().st_size} bytes; --use-cache the same files in {replay_s:.2f} s',
+              flush=True)
+
+        # (c) plot-training of the train runs' JSONL logs
+        if logs is None:
+            logs = _jsonl_runs(torch, port, root / 'runs', seed, device)
+        out, curves_s = command(['plot-training', '--log-file', str(logs[0]), '--out',
+                                 str(root / 'curves.png')], 'plot-training')
+        finals = {k.strip(): float(v) for k, v in (line.rsplit('  final ', 1)
+                                                    for line in out.splitlines()[1:])}
+        last = {}
+        for line in Path(logs[0]).read_text().splitlines()[1:]:
+            for k, v in json.loads(line).items():
+                if not isinstance(v, bool) and isinstance(v, (int, float)):
+                    last[k] = v
+        want = {k: float(f'{v:.6g}') for k, v in last.items() if k not in ('epoch', 'batch')}
+        _check(finals == want and _png_decodes(root / 'curves.png'),
+               f'plot-training finals {finals}, the file\'s last values {want}')
+        out, compare_s = command(['plot-training', '--compare', *map(str, logs), '--out',
+                                  str(root / 'compare.png')], 'plot-training --compare')
+        _check(out.startswith(f'compared {len(logs)} runs') and _png_decodes(root / 'compare.png'),
+               f'plot-training --compare: {out[-2000:]}')
+        report['plot_training'] = dict(seconds=curves_s, compare_seconds=compare_s,
+                                       series=len(finals))
+        print(f'[last-commands] plot-training: {len(finals)} finals equal to the last value '
+              f'of each key in {Path(logs[0]).name} ({curves_s:.2f} s); --compare of '
+              f'{len(logs)} runs ({compare_s:.2f} s); PNGs that decode', flush=True)
+        references = list(references)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        if real is False:
+            sys.modules.pop('matplotlib', None)
+        else:
+            sys.modules['matplotlib'] = real
+    legacy_s = time.perf_counter() - t_legacy
+
+    # (d) convert-b3d, byte for byte ensure_tpu_format's files
+    out, convert_s = command(['convert-b3d', str(legacy), '--out-dir', str(converted)],
+                             'convert-b3d')
+    _check(f'{subjects} converted, 0 skipped' in out, f'convert-b3d: {out[-2000:]}')
+    for i, ref in enumerate(references):
+        _check((converted / f'subject_{i}.b3d').read_bytes() == Path(ref).read_bytes(),
+               f'convert-b3d: subject_{i} differs from ensure_tpu_format\'s file')
+    in_mb = sum(p.stat().st_size for p in legacy.iterdir()) / 1e6
+    out_mb = sum(p.stat().st_size for p in converted.iterdir()) / 1e6
+    out, verify_s = command(['convert-b3d', str(legacy), '--verify'], 'convert-b3d --verify')
+    _check(out.count(': OK (') == subjects and 'PROBLEM' not in out, f'--verify: {out[-2000:]}')
+    out, infer_s = command(['convert-b3d', str(legacy), '--infer-schema'],
+                           'convert-b3d --infer-schema')
+    _check(out.count('CONSISTENT') == subjects and 'DISAGREEMENT' not in out,
+           f'--infer-schema: {out[-2000:]}')
+    report['convert_b3d'] = dict(seconds=convert_s, verify_seconds=verify_s,
+                                 infer_seconds=infer_s, legacy_mb=in_mb, converted_mb=out_mb,
+                                 subjects=subjects, frames=subjects * trials * length,
+                                 written_and_referenced_seconds=legacy_s)
+    print(f'[last-commands] convert-b3d {subjects} legacy subjects of {trials} x {length} '
+          f'frames ({in_mb:.1f} MB -> {out_mb:.1f} MB): {convert_s:.2f} s, '
+          f'{in_mb / convert_s:.1f} MB/s of legacy input, each file byte for byte '
+          f'ensure_tpu_format\'s; --verify clean in {verify_s:.2f} s; --infer-schema '
+          f'consistent in {infer_s:.2f} s', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    return report
+
+
+def _jsonl_runs(torch, port, root, seed, device):
+    """Two short feedforward ``train`` runs (seeds ``seed`` and ``seed`` + 1)
+    logging to the JSONL fallback, wandb hidden; their log files."""
+    home = root / 'home'
+    for split, first in (('train', 2100), ('dev', 2110)):
+        (home / split).mkdir(parents=True)
+        port.write_synthetic_subject(str(home / split / 'subject_0.b3d'), num_trials=2,
+                                     trial_length=400, seed=seed + first)
+    (root / 'Geometry').mkdir()
+    real = sys.modules.get('wandb', False)
+    sys.modules['wandb'] = None
+    logs = []
+    try:
+        for i in range(2):
+            cwd = root / f'run_{i}'
+            cwd.mkdir()
+            with contextlib.chdir(cwd), contextlib.redirect_stdout(io.StringIO()):
+                rc = port.main(['train', '--dataset-home', str(home), '--checkpoint-dir',
+                                str(cwd / 'ckpt'), '--device', device, '--epochs', '1',
+                                '--seed', str(seed + i), '--batch-size', '64',
+                                '--geometry-folder', str(root / 'Geometry')])
+            _check(rc == 0, f'train run {i}: exit {rc}')
+            logs += sorted((cwd / 'outputs' / 'logs').glob('metrics_*.jsonl'))
+    finally:
+        if real is False:
+            sys.modules.pop('wandb', None)
+        else:
+            sys.modules['wandb'] = real
+    _check(len(logs) == 2, f'run logs {logs}')
+    return logs
+
+
 def _dp_start_params(torch, port, job, ds, device):
     """The parameters :func:`_dp_steps` starts from (float64, by name)."""
     cfg = port.config_from_args(port.parser().parse_args(['train', *job['flags']]))
@@ -5697,7 +5964,7 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19, 20], default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
         return rank_jobs(sys.argv[2])
@@ -5728,6 +5995,7 @@ def main() -> int:
     from inferbiomechanics_tpu_torch.__main__ import build_parser as main_parser
     from inferbiomechanics_tpu_torch.__main__ import main as port_main
     from inferbiomechanics_tpu_torch.cli.analyze_cmd import analyze
+    from inferbiomechanics_tpu_torch.cli.make_plots_cmd import render_plots
     from inferbiomechanics_tpu_torch.cli.export_cmd import eval_forward, export
     from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser, start
     from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
@@ -5852,6 +6120,23 @@ def main() -> int:
         tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
         try:
             report = phase_cli_extras(torch, extras_port(), fm, fe, fg, tmp, args.seed, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    def last_port():
+        return SimpleNamespace(main=port_main, render_plots=render_plots,
+                               write_synthetic_subject=write_synthetic_subject)
+
+    if args.only_phase == 20:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            data = tmp / 'data'       # phase 4's subjects
+            data.mkdir()
+            for s in range(2):
+                write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
+                                        trial_length=1100, seed=args.seed + s)
+            report = phase_last_commands(torch, last_port(), fm, tmp, args.seed, card, data)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -6087,6 +6372,12 @@ def main() -> int:
         extras = phase_cli_extras(torch, extras_port(), fm, fe, fg, tmp, args.seed, card)
         mark('19 cli extras')
 
+        # 20. the last four commands: doctor (K1 at both shapes), make-plots,
+        # plot-training on phase 19's run logs, convert-b3d
+        last = phase_last_commands(torch, last_port(), fm, tmp, args.seed, card, data,
+                                   logs=extras['use_pickled']['run_logs'])
+        mark('20 last commands')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -6290,7 +6581,8 @@ def main() -> int:
           f'{physics["seconds"]:.1f} s, phase 13 {checkpoints["seconds"]:.1f} s, phase 14 '
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
           f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s, phase 18 '
-          f'{viewer["seconds"]:.1f} s, phase 19 {extras["seconds"]:.1f} s ({card})',
+          f'{viewer["seconds"]:.1f} s, phase 19 {extras["seconds"]:.1f} s, phase 20 '
+          f'{last["seconds"]:.1f} s ({card})',
           flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(

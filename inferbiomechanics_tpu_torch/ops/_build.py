@@ -122,18 +122,25 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def ensure_built() -> Optional[dict]:
+    """Build :data:`LIBRARY` if it is missing or stale, by one process of
+    those that ask at once (the others wait on the lock file); returns
+    :func:`build`'s report, or None where the stamp matched."""
+    if not _stale():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / '.build.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return build() if _stale() else None
+
+
 def library() -> ctypes.CDLL:
-    """The kernel library, built first if it is missing or stale (by one
-    process of those that ask at once: the others wait on the lock file)."""
+    """The kernel library, built first if it is missing or stale
+    (:func:`ensure_built`)."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                with open(BUILD_DIR / '.build.lock', 'w') as lock:
-                    fcntl.flock(lock, fcntl.LOCK_EX)
-                    if _stale():
-                        build()
+            ensure_built()
             _lib = _declare(ctypes.CDLL(str(LIBRARY)))
         return _lib
 

@@ -109,7 +109,15 @@ def _port(argv: list) -> str:
 
 
 def test_commands_registered():
-    assert len(COMMANDS) == 13
+    """The port has every command of the JAX package's ``main.py``, by the
+    same names."""
+    import main as jax_main
+    parser = argparse.ArgumentParser()
+    sub = parser.add_subparsers(dest='command')
+    for command in jax_main.build_commands():
+        command.register_subcommand(sub)
+    assert len(COMMANDS) == 17
+    assert sorted(COMMANDS) == sorted(sub.choices)
     assert {'pickle-data', 'create-splits', 'sanity-check'} <= set(COMMANDS)
 
 

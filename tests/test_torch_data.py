@@ -217,3 +217,26 @@ def test_motion_classes_copy_agrees(name):
     from inferbiomechanics_tpu_torch.cli import motion
     assert motion.MOTION_CLASSES == make_plots_cmd.MOTION_CLASSES
     assert motion.classify_motion(name) == make_plots_cmd.classify_motion(name)
+
+
+def test_b3d_infer_copy_is_the_original():
+    """``data/b3d_infer.py`` is the JAX module's code: every function the
+    same source, once the port's reads of the built-in tables through
+    ``b3d_legacy`` when called are written back as the original's names
+    bound at import (``tests/test_torch_b3d_infer.py`` holds the reports)."""
+    import inspect
+
+    from inferbiomechanics_tpu.data import b3d_infer as jax_infer
+    from inferbiomechanics_tpu_torch.data import b3d_infer as port_infer
+
+    def functions(module):
+        return {name: inspect.getsource(f) for name, f in vars(module).items()
+                if inspect.isfunction(f) and f.__module__ == module.__name__}
+
+    want, got = functions(jax_infer), functions(port_infer)
+    assert sorted(got) == sorted(want) and 'infer_legacy_schema' in got
+    for name, source in got.items():
+        source = source.replace('    _PF = _legacy._PF\n', '')
+        for table in ('_H', '_TH', '_F', '_PF'):
+            source = source.replace(f'_legacy.{table},', f'{table},')
+        assert source == want[name], name

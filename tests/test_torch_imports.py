@@ -131,7 +131,9 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'train.sweep', 'cli.sweep_cmd', 'ops.quant', 'ops.library', 'inference',
                    'cli.export_cmd', 'cli.save_prediction_csv_cmd', 'viz.ws', 'viz.mesh',
                    'viz.viewer', 'viz.live', 'viz.live_model', 'utils.geometry',
-                   'cli.visualize_file_cmd', 'cli.visualize_cmd', 'cli.review_file_cmd'):
+                   'cli.visualize_file_cmd', 'cli.visualize_cmd', 'cli.review_file_cmd',
+                   'data.b3d_infer', 'cli.convert_b3d_cmd', 'cli.doctor_cmd',
+                   'cli.make_plots_cmd', 'cli.plot_training_cmd', 'utils.png_plot'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out
@@ -217,8 +219,11 @@ def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
     """Each command of ``python -m inferbiomechanics_tpu_torch`` that runs a
     model takes ``--device``, defaults it to ``cuda``, and raises on a
     machine with no GPU instead of carrying on on the CPU
-    (``convert-checkpoint``, ``pickle-data``, ``create-splits`` and
-    ``sanity-check`` run no model and take no device)."""
+    (``convert-checkpoint``, ``pickle-data``, ``create-splits``,
+    ``sanity-check``, ``convert-b3d``, ``make-plots`` and ``plot-training``
+    run no model and take no device); ``doctor`` defaults to ``cuda`` too,
+    and there exits 1 naming the missing device, with no probe run on the
+    CPU."""
     out = _run("""
         import os, torch
         torch.cuda.is_available = lambda: False      # a machine with no GPU
@@ -235,8 +240,18 @@ def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
                  'export': home + ['--out', 'm.pt2'], 'save-prediction-csv': file,
                  'visualize-file': file, 'review-file': file, 'visualize': home}
         host = {'convert-checkpoint': ['ckpt', '--out-dir', 'x'], 'pickle-data': [],
-                'create-splits': [], 'sanity-check': []}
-        assert sorted(argvs) == sorted(set(COMMANDS) - set(host))
+                'create-splits': [], 'sanity-check': [], 'convert-b3d': ['data'],
+                'make-plots': [], 'plot-training': []}
+        assert sorted(argvs) == sorted(set(COMMANDS) - set(host) - {'doctor'})
+        import contextlib, io, json
+        assert build_parser().parse_args(['doctor']).device == 'cuda'
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(['doctor', '--json']) == 1
+        report = json.loads(next(l for l in out.getvalue().splitlines() if l.startswith('{')))
+        assert 'is_available() is False' in report['degraded'][0], report
+        assert report['probes'] == {} and 'k1' not in report
+        print('refused doctor')
         for cmd, argv in host.items():
             assert not hasattr(build_parser().parse_args([cmd, *argv]), 'device'), cmd
         for cmd, argv in argvs.items():
@@ -248,7 +263,7 @@ def test_every_command_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path):
                 assert 'is_available() is False' in str(e), (cmd, e)
                 print('refused', cmd)
     """, tmp_path)
-    assert out.split().count('refused') == 9
+    assert out.split().count('refused') == 10
 
 
 def test_port_sources_name_no_jax_import():
