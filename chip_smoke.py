@@ -4466,7 +4466,39 @@ def _mp_sweep(job):
     return dict(rc=rc, k1=fm.launches, traced=traced, busy_us=busy, dispatches=dispatches)
 
 
-_MP_JOBS = {'train': _mp_train, 'sweep': _mp_sweep}
+def _mp_pipeline(job):
+    """``train --pipeline-parallel 2`` of ``job['argv']`` on this rank (the
+    ``train`` command's ``run_training`` inside the rank's process group):
+    every step timed (host clock, synchronised; the loop's eager steps), the
+    point-to-point traffic of ``parallel/dist.py`` (calls, bytes, host
+    seconds) and the encoder kernels' wrapper launches. Returns those, the
+    steps and the run's final train metrics."""
+    import torch
+
+    from inferbiomechanics_tpu_torch.__main__ import build_parser
+    from inferbiomechanics_tpu_torch.cli.train_cmd import run_training
+    from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
+    from inferbiomechanics_tpu_torch.parallel import dist
+    from inferbiomechanics_tpu_torch.train import loop as loop_mod
+    sync = torch.cuda.synchronize if job['device'] == 'cuda' else (lambda: None)
+    made, undo_states = _captured_states([loop_mod])
+    dispatches, undo = _timed_dispatches(loop_mod, sync)
+    fe.launches = fe.bwd_launches = 0
+    dist.reset_p2p_stats()
+    t0 = time.perf_counter()
+    try:
+        result = run_training(build_parser().parse_args(job['argv']))
+    finally:
+        undo()
+        undo_states()
+    return dict(step_ms=[sec * 1e3 for _, sec in dispatches], steps=made[-1].step,
+                wall_s=time.perf_counter() - t0, p2p=dict(dist.p2p_stats),
+                launches=dict(k2=fe.launches, k3=fe.bwd_launches),
+                final_train={k: float(np.mean(v)) for k, v in
+                             result.final_train_metrics.items()})
+
+
+_MP_JOBS = {'train': _mp_train, 'sweep': _mp_sweep, 'pipeline': _mp_pipeline}
 
 
 def rank_jobs(out_path: str) -> int:
@@ -4515,6 +4547,83 @@ def _rank_jobs_run(out, jobs, nproc: int, on_card: bool, cwd):
                                  f'{proc.returncode}\n{proc.stdout[-3000:]}\n'
                                  f'{proc.stderr[-3000:]}')
     return seconds, [json.loads(Path(f'{out}.{r}.json').read_text()) for r in range(nproc)]
+
+
+# train --pipeline-parallel 2 against the run of the same flags in one
+# process: the same host-loader batches and the same math on microbatches
+# (row-independent), so only bf16 rounding moves the epoch's mean train
+# metrics (PP_REL); the two trained models' outputs differ by what RMSprop's
+# near +-10 lr first updates make of those roundings (PP_OUT_REL x max).
+PP_REL = 2e-2
+PP_OUT_REL = 0.1
+
+
+def _pipeline_report(port, ranks, one_train, home, root, windows, batch, device, card,
+                     size_flags):
+    """16d. ``train --pipeline-parallel 2`` on the two ranks (the last job
+    of phase 16's torchrun start-up): each rank's steps, wrapper launches
+    (no K2 or K3: the stages run the plain bf16 forward), step ms and p2p
+    ms; both ranks' train metrics (the last stage's, replicated) against the
+    one-process run's; rank 0's canonical checkpoint served in one process
+    against the one-process run's checkpoint."""
+    from inferbiomechanics_tpu_torch.cli.serve_cmd import build_parser as serve_parser
+    from inferbiomechanics_tpu_torch.cli.serve_cmd import start
+    pp = [r[3] for r in ranks]
+    steps = windows(home / 'train') // batch
+    for r, got in enumerate(pp):
+        _check(got['steps'] == steps, f'--pipeline-parallel 2 rank {r}: {got["steps"]} steps, '
+                                      f'want {steps}')
+        _check(got['launches'] == dict(k2=0, k3=0),
+               f'--pipeline-parallel 2 rank {r}: wrapper launches {got["launches"]}')
+        _check(got['final_train'] == pp[0]['final_train'],
+               f'--pipeline-parallel 2: rank {r} metrics {got["final_train"]} differ')
+        _check(got['p2p']['calls'] > 0, f'--pipeline-parallel 2 rank {r}: no p2p')
+    for k, v in one_train.items():
+        _check(abs(pp[0]['final_train'][k] - v) <= PP_REL * abs(v),
+               f'--pipeline-parallel 2 train {k} {pp[0]["final_train"][k]} against one '
+               f'process {v}')
+    x = port.WindowDataset(str(home / 'dev'), window_size=50, stride=5,
+                           skip_loading_skeletons=True).gather(np.arange(8)).inputs
+    served = {}
+    for name, ckpt in (('pipeline', root / 'pp_ckpt'), ('one', root / 'pp_one')):
+        svc, server = start(serve_parser().parse_args(
+            ['serve', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt), '--port', '0',
+             '--device', device, '--model-type', 'transformer', *size_flags]))
+        try:
+            _check(svc.epoch == 0, f'serve {name}: epoch {svc.epoch}')
+            served[name] = svc.predict_packed(x)
+        finally:
+            server.server_close()
+            svc.close()
+    out_rel = 0.0
+    for k, want in served['one'].items():
+        got = served['pipeline'][k]
+        _check(got.shape == want.shape and np.isfinite(got).all(), f'served {k} {got.shape}')
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        _check(rel <= PP_OUT_REL, f'pipeline checkpoint served: {k} {rel} x max from the '
+                                  f'one-process run\'s')
+        out_rel = max(out_rel, rel)
+    step_ms = [statistics.median(g['step_ms'][1:] or g['step_ms']) for g in pp]
+    p2p_ms = [g['p2p']['seconds'] * 1e3 / steps for g in pp]
+    entry = dict(steps=steps, batch=batch, microbatches=4, stages=2, step_ms=step_ms,
+                 first_step_ms=[g['step_ms'][0] for g in pp], p2p_ms_per_step=p2p_ms,
+                 p2p_calls=[g['p2p']['calls'] for g in pp],
+                 p2p_bytes=[g['p2p']['bytes'] for g in pp],
+                 launches=[g['launches'] for g in pp], final_train=pp[0]['final_train'],
+                 one_process_train=one_train, served_rel_to_one_process=out_rel,
+                 wall_s=[g['wall_s'] for g in pp])
+    print(f'[pipeline] train --pipeline-parallel 2 on two gloo ranks sharing the card, vpu '
+          f'transformer full width (2 layers a stage), B={batch}, 4 microbatches, {steps} '
+          f'steps ({card}): a step {step_ms[0]:.2f} / {step_ms[1]:.2f} ms by rank (host '
+          f'clock, synchronised; the median after the first, which took '
+          f'{entry["first_step_ms"]} ms), p2p '
+          f'{p2p_ms[0]:.2f} / {p2p_ms[1]:.2f} ms a step by rank ({entry["p2p_calls"]} sends and '
+          f'receives through host memory, {entry["p2p_bytes"]} bytes); no K2 or K3 '
+          f'({entry["launches"]}); train loss {pp[0]["final_train"]["loss"]:.6f} against '
+          f'{one_train["loss"]:.6f} in one process (within {PP_REL} of each metric); rank 0\'s '
+          f'canonical checkpoint served in one process within {out_rel:.4f} x max of the '
+          f'one-process run\'s', flush=True)
+    return entry
 
 
 def phase_model_parallel(torch, port, fm, fe, fg, root, seed, card, device='cuda',
@@ -4612,14 +4721,27 @@ def phase_model_parallel(torch, port, fm, fe, fg, root, seed, card, device='cuda
         undo()
     one_ms = _step_ms(dispatches)
 
-    # -- 16a-c. three commands on two ranks under torchrun ---------------------
+    def pp_argv(ckpt, *more):
+        return ['train', '--dataset-home', str(home), '--checkpoint-dir', str(ckpt),
+                '--device', device, '--batch-size', str(small), '--epochs', '1',
+                '--seed', str(seed), '--model-type', 'transformer', '--device-data', 'off',
+                *size_flags, *more]
+
+    pp_one = port.run_training(port.parser().parse_args(pp_argv(root / 'pp_one')))
+    pp_one_train = {k: float(np.mean(v)) for k, v in pp_one.final_train_metrics.items()}
+
+    # -- 16a-d. four commands on two ranks under torchrun ----------------------
     out = root / 'mp_ranks'
     jobs = [dict(fn='train', argv=train_argv(root / 'mp_ckpt', '--model-parallel', '2'),
                  home=str(bare), device=device, one=str(root / 'mp_one.npz')),
             dict(fn='sweep', argv=wide_sweep_argv(root / 'sw_1d'), device=device),
             dict(fn='sweep', argv=sweep_argv(root / 'sw_two', '--shard-configs'), device=device,
-                 trace=on_card)]
+                 trace=on_card),
+            dict(fn='pipeline', argv=pp_argv(root / 'pp_ckpt', '--pipeline-parallel', '2'),
+                 device=device)]
     torchrun_s, ranks = _rank_jobs_run(out, jobs, 2, on_card, root)
+    report['train_pp2'] = _pipeline_report(port, ranks, pp_one_train, home, root, windows,
+                                           small, device, card, size_flags)
 
     # 16a. train --model-parallel 2
     r0, r1 = ranks[0][0], ranks[1][0]
@@ -5713,6 +5835,183 @@ def _legacy_job(job):
     return ensure_tpu_format(ref)
 
 
+# 21. the options the port refused until now. A flax-tree model's outputs
+# on the card against the same weights on the CPU: plain bf16 ops on both
+# sides, which round at different places (FLAX_REL x max a head, the
+# transformer suite's limit of two bf16 evaluations); the flax denoiser's eps
+# likewise.
+FLAX_REL = 3e-2
+
+
+def phase_options(torch, port, fe, fg, diffusion, root, seed, card, data, ds, device='cuda',
+                  batch=64, size_flags=()):
+    """21. ``--attn-impl flax`` and ``--conv-impl banded`` at full width:
+
+    - ``train --attn-impl flax`` (the transformer's flax tree, one epoch of
+      B=``batch``; no K2 or K3: the plain bf16 forward, as in JAX), its
+      checkpoint served with ``--fused-inference`` (the JAX warning: the
+      plain forward; /predict at B=1 and 4096 against the same weights on
+      the CPU, p50 of each) and scored by ``analyze``; a 50-step DDIM chain
+      of the flax denoiser (random weights from the seed) at B=1, its eps
+      against the CPU's, the fused sampler's JAX refusal;
+    - ``train --model-type groundlink --conv-impl banded``: the banded
+      training forward, K4 once a dev batch in the dev eval; the checkpoint
+      loaded by the banded and the direct conv models evaluates bitwise the
+      same through K4.
+    ``device`` 'cpu' rehearses it (no launch counts checked)."""
+    t_phase = time.perf_counter()
+    on_card = device == 'cuda'
+    report = {'card': card}
+    home = root / 'options_data'
+    for split, length in (('train', 600), ('dev', 400)):
+        (home / split).mkdir(parents=True)
+        port.write_synthetic_subject(str(home / split / 'subject_0.b3d'), num_trials=1,
+                                     trial_length=length,
+                                     seed=seed + 2100 + (10 if split == 'dev' else 0))
+    windows = lambda split: len(port.WindowDataset(  # noqa: E731
+        str(home / split), window_size=50, stride=5, skip_loading_skeletons=True))
+    steps, dev_b = windows('train') // batch, windows('dev') // batch
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def train(ck, *flags):
+        fe.launches = fe.bwd_launches = fg.launches = 0
+        t0 = time.perf_counter()
+        result = port.run_training(port.parser().parse_args([
+            'train', '--dataset-home', str(home), '--checkpoint-dir', str(ck), '--device',
+            device, '--batch-size', str(batch), '--epochs', '1', '--seed', str(seed), *flags]))
+        launches = dict(k2=fe.launches, k3=fe.bwd_launches, k4=fg.launches)
+        _check(result.epochs_run == 1 and np.isfinite(
+            float(np.mean(result.final_train_metrics['loss']))), f'train {flags}: {result}')
+        return result, time.perf_counter() - t0, launches
+
+    # 21a. the flax transformer: train, serve, analyze
+    flax = ['--model-type', 'transformer', '--attn-impl', 'flax', *size_flags]
+    result, train_s, launches = train(root / 'flax', *flax)
+    _check(launches['k2'] == launches['k3'] == 0, f'train --attn-impl flax: {launches}')
+    serve_argv = ['serve', '--dataset-home', str(data), '--checkpoint-dir', str(root / 'flax'),
+                  '--port', '0', '--device', device, *flax, '--fused-inference']
+    cfg = port.config_from_args(port.parser().parse_args(serve_argv))
+    cpu_model, _, _ = port.load_model(cfg, ds, str(root / 'flax' / 'transformer'), device='cpu')
+    fe.launches = 0
+    svc, server, url = _serve(port, serve_argv)
+    try:
+        _check(_get(url + '/schema')['fused_inference'] is False,
+               'serve --attn-impl flax --fused-inference: the plain forward, with the warning')
+        errs, p50 = {}, {}
+        for b in (1, 4096):
+            x = ds.gather(np.arange(b)).inputs
+            body = _b64_body(x)
+            got = _decode(_post(url + '/predict', body)['outputs'])
+            rows = min(b, 256)          # the CPU's forward on the first rows
+            with torch.no_grad():
+                want = {k: v.numpy() for k, v in cpu_model.eval()(
+                    torch.from_numpy(np.ascontiguousarray(x[:rows], np.float32))).items()}
+            errs[b] = _agree({k: v[:rows].tolist() for k, v in got.items()}, want,
+                             f'/predict flax B={b}', rel=FLAX_REL)
+            p50[b] = _host_p50_ms(lambda: _post(url + '/predict', body),  # noqa: B023
+                                  20 if b == 1 else 10)
+        _check(fe.launches == 0, f'serve --attn-impl flax: {fe.launches} K2 launches')
+    finally:
+        _stop(svc, server)
+    analyzed = port.analyze(port.parser().parse_args([
+        'analyze', '--dataset-home', str(home), '--checkpoint-dir', str(root / 'flax'),
+        '--no-wandb', '--device', device, *flax]))
+    dev = analyzed['dev']
+    _check(dev['windows'] == windows('dev') and np.isfinite(
+        list(dev['summary'].values())).all(), f'analyze --attn-impl flax: {dev}')
+    report['flax_transformer'] = dict(
+        train_seconds=train_s, steps=steps, batch=batch, train_launches=launches,
+        final_train_loss=float(np.mean(result.final_train_metrics['loss'])),
+        predict_rel_err_vs_cpu={str(b): e for b, e in errs.items()},
+        predict_p50_ms={str(b): v for b, v in p50.items()}, analyze_windows=dev['windows'],
+        analyze_seconds=dev.get('seconds'))
+    print(f'[options] train --attn-impl flax, transformer full width B={batch}, {steps} steps '
+          f'in {train_s:.1f} s, K2/K3 launches {launches} ({card}); serve --fused-inference '
+          f'serves the plain forward (the JAX warning): /predict B=1 p50 {p50[1]:.2f} ms, '
+          f'B=4096 p50 {p50[4096]:.1f} ms = {4096 / p50[4096] * 1e3:.0f} windows/s, answers '
+          f'within {FLAX_REL} x max of the CPU\'s (max abs err {errs[1]:.3g} / '
+          f'{errs[4096]:.3g}); analyze: {dev["windows"]} dev windows', flush=True)
+
+    # 21a'. the flax denoiser: a 50-step chain at B=1
+    dds = port.WindowDataset(str(home / 'dev'), window_size=50, stride=5,
+                             output_data_format='all_frames', skip_loading_skeletons=True)
+    dcfg = port.config_from_args(port.parser().parse_args([
+        'serve', '--model-type', 'diffusion', '--attn-impl', 'flax', '--output-data-format',
+        'all_frames', *size_flags]))
+    net = port.build_model_for_dataset(dcfg, dds, generator=torch.Generator().manual_seed(seed),
+                                       device=device).eval()
+    cpu_net = port.build_model_for_dataset(dcfg, dds, device='cpu').eval()
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    try:
+        diffusion.make_sampler(net, num_steps=50, fused_inference=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    _check(refused is not None and 'consumes the vpu parameter tree' in refused,
+           f'the flax denoiser\'s fused sampler: {refused}')
+    cond = np.ascontiguousarray(dds.gather(np.arange(1)).inputs, np.float32)
+    rng = np.random.default_rng(seed)
+    x_t = rng.normal(size=(1, net.num_frames, net.target_channels)).astype(np.float32)
+    t = np.array([500])
+    with torch.no_grad():
+        eps = net(torch.from_numpy(x_t).to(device), torch.from_numpy(t).to(device),
+                  torch.from_numpy(cond).to(device)).cpu().numpy()
+        eps_cpu = cpu_net(torch.from_numpy(x_t), torch.from_numpy(t),
+                          torch.from_numpy(cond)).numpy()
+    eps_rel = float(np.abs(eps - eps_cpu).max() / np.abs(eps_cpu).max())
+    _check(eps_rel <= FLAX_REL, f'flax denoiser eps on the card vs the CPU: {eps_rel} x max')
+    sampler = diffusion.make_sampler(net, num_steps=50)
+    cond_d = torch.from_numpy(cond).to(device)
+    fe.launches = 0
+
+    def chain():
+        out = sampler(net, cond_d, generator=torch.Generator(device=device).manual_seed(seed))
+        sync()
+        return out
+
+    with torch.no_grad():
+        out = chain()
+        chain_ms = _host_p50_ms(chain, 5)
+    _check(all(np.isfinite(v.cpu().numpy()).all() for v in out.values()) and fe.launches == 0,
+           f'flax denoiser chain: finite outputs, no K2 ({fe.launches})')
+    report['flax_denoiser'] = dict(eps_rel_vs_cpu=eps_rel, chain_b1_ms=chain_ms, steps=50,
+                                   fused_refusal=refused)
+    print(f'[options] the flax denoiser, full width, a 50-step chain at B=1 (plain bf16 '
+          f'forward, no K2): {chain_ms:.1f} ms host p50 of 5; eps within {eps_rel:.4f} x max of '
+          f'the CPU\'s; --fused-inference refused in the JAX words ({card})', flush=True)
+
+    # 21b. banded GroundLink: train, then its eval through K4
+    gl = ['--model-type', 'groundlink']
+    result, banded_s, launches = train(root / 'banded', *gl, '--conv-impl', 'banded')
+    _check(not on_card or launches == dict(k2=0, k3=0, k4=dev_b),
+           f'train --conv-impl banded: launches {launches}, want K4 {dev_b} (a dev batch)')
+    x = torch.from_numpy(np.ascontiguousarray(ds.gather(np.arange(4096)).inputs,
+                                              np.float32)).to(device)
+    outs = {}
+    for impl in ('banded', 'xla'):
+        gcfg = port.config_from_args(port.parser().parse_args(
+            ['serve', *gl, '--conv-impl', impl]))
+        model, _, _ = port.load_model(gcfg, ds, str(root / 'banded' / 'groundlink'),
+                                      device=device)
+        fg.launches = 0
+        with torch.no_grad():
+            outs[impl] = model.eval()(x)
+        _check(not on_card or fg.launches == 1, f'{impl} eval: {fg.launches} K4 launches')
+    same = all(torch.equal(outs['banded'][k], outs['xla'][k]) for k in outs['xla'])
+    _check(same, 'the banded and direct conv models\' K4 evals differ on the same weights')
+    report['banded_groundlink'] = dict(train_seconds=banded_s, steps=steps, batch=batch,
+                                       train_launches=launches, eval_bitwise_direct=same,
+                                       final_train_loss=float(np.mean(
+                                           result.final_train_metrics['loss'])))
+    print(f'[options] train --model-type groundlink --conv-impl banded, B={batch}, {steps} '
+          f'steps in {banded_s:.1f} s (the banded bf16 product in training), launches '
+          f'{launches} (K4 once a dev batch); its checkpoint\'s eval through K4 at B=4096 '
+          f'bitwise the direct conv model\'s on the same weights ({card})', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[options] phase 21 took {report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
 def phase_last_commands(torch, port, fm, root, seed, card, data, logs=None, device='cuda',
                         subjects=4, trials=2, length=1500, transfer_mb=256):
     """20. The last four commands, each run in this process through
@@ -5964,7 +6263,8 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19, 20], default=None,
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19, 20, 21],
+                    default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
         return rank_jobs(sys.argv[2])
@@ -6137,6 +6437,28 @@ def main() -> int:
                 write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
                                         trial_length=1100, seed=args.seed + s)
             report = phase_last_commands(torch, last_port(), fm, tmp, args.seed, card, data)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    def options_port():
+        return SimpleNamespace(
+            parser=main_parser, run_training=run_training, analyze=analyze,
+            config_from_args=config_from_args, write_synthetic_subject=write_synthetic_subject,
+            WindowDataset=WindowDataset, build_model_for_dataset=build_model_for_dataset,
+            load_model=load_model, start=start, build_parser=build_parser)
+
+    if args.only_phase == 21:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            data = tmp / 'data'       # phase 4's subjects
+            data.mkdir()
+            for s in range(2):
+                write_synthetic_subject(str(data / f'subject_{s}.b3d'), num_trials=2,
+                                        trial_length=1100, seed=args.seed + s)
+            ds = WindowDataset(str(data), window_size=50, stride=5, skip_loading_skeletons=True)
+            report = phase_options(torch, options_port(), fe, fg, diffusion, tmp, args.seed,
+                                   card, data, ds)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -6378,6 +6700,12 @@ def main() -> int:
                                    logs=extras['use_pickled']['run_logs'])
         mark('20 last commands')
 
+        # 21. the options the port refused until now: --attn-impl flax in
+        # the transformer and the denoiser, --conv-impl banded in GroundLink
+        options = phase_options(torch, options_port(), fe, fg, diffusion, tmp, args.seed, card,
+                                data, ds)
+        mark('21 options')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -6582,7 +6910,7 @@ def main() -> int:
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
           f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s, phase 18 '
           f'{viewer["seconds"]:.1f} s, phase 19 {extras["seconds"]:.1f} s, phase 20 '
-          f'{last["seconds"]:.1f} s ({card})',
+          f'{last["seconds"]:.1f} s, phase 21 {options["seconds"]:.1f} s ({card})',
           flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(
@@ -6644,7 +6972,11 @@ def main() -> int:
                              diffusion_export_plain=inference['export'][
                                  'diffusion (static batch 2, 10 steps)']),
               viewer=dict(viewer['pallas'], frames=viewer['frames'], windows=viewer['windows']),
-              profile=extras['profile']),
+              profile=extras['profile'],
+              # the paths that run no K2: the pipeline's stages and the flax tree
+              pipeline=model_parallel['train_pp2'],
+              flax=dict(transformer=options['flax_transformer'],
+                        denoiser=options['flax_denoiser'])),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,
@@ -6690,7 +7022,8 @@ def main() -> int:
               inference=dict(export=inference['export']['groundlink']),
               viewer=dict(viewer['groundlink'], frames=viewer['frames'],
                           windows=viewer['windows']),
-              plot_errors=extras['plot_errors']['groundlink (K4)']),
+              plot_errors=extras['plot_errors']['groundlink (K4)'],
+              banded=options['banded_groundlink']),
     ]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -58,15 +58,10 @@ def get_model(model_type: str,
             dropout=dropout, dropout_prob=dropout_prob,
             init_style=init_style, generator=generator, device=device)
     if model_type == 'groundlink':
-        if conv_impl != 'xla':
-            raise ValueError(
-                f"conv_impl {conv_impl!r} is not ported: the port has only the "
-                f"direct conv ('xla'); ROADMAP.md lists the banded lowering as "
-                f"not to port, and both share one parameter tree")
         return Groundlink(
             num_dofs=num_dofs, num_contact_bodies=num_contact_bodies,
             root_history_len=root_history_len,
-            output_data_format=output_data_format,
+            output_data_format=output_data_format, conv_impl=conv_impl,
             generator=generator, device=device)
     if model_type == 'transformer':
         return TransformerRegressor(

@@ -17,9 +17,10 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 
 ModelInput = Union[torch.Tensor, Dict[str, torch.Tensor]]
-# masks(shape, p, device) -> bool keep mask of that shape, True with
-# probability 1 - p
-MaskSource = Callable[[Tuple[int, ...], float, torch.device], torch.Tensor]
+# masks(shape, p, device[, shared=True]) -> bool keep mask of that shape,
+# True with probability 1 - p; ``shared``: one mask for the whole (global)
+# batch (flax attention's broadcast dropout), not rows of the batch
+MaskSource = Callable[..., torch.Tensor]
 
 
 def pack_inputs(inputs: ModelInput) -> torch.Tensor:
@@ -54,6 +55,14 @@ def output_head_size(num_contact_bodies: int, num_output_frames: int) -> int:
     return num_contact_bodies * (3 * 3 + 6) * num_output_frames
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's lecun-normal in place: a normal truncated at two standard
+    deviations, rescaled to the variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def init_linear(layer: nn.Linear, init_style: str,
                 generator: Optional[torch.Generator]) -> None:
     """Fill ``layer`` from ``generator`` (on the CPU, so that a seed gives
@@ -67,9 +76,7 @@ def init_linear(layer: nn.Linear, init_style: str,
         w.uniform_(-k, k, generator=generator)
         b.uniform_(-k, k, generator=generator)
     elif init_style == 'lecun':
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
+        lecun_normal_(w, fan_in, generator)
         b.zero_()
     else:
         raise ValueError(f"init_style must be 'torch' or 'lecun', "
@@ -98,10 +105,11 @@ def generator_masks(generator: Optional[torch.Generator] = None,
     """Keep masks drawn from ``generator`` (on the tensor's device), or from
     torch's default generator when it is None; under data parallelism
     (``shard``) a rank's rows of the global batch's masks
-    (:func:`global_rows`)."""
-    def masks(shape, p, device):
-        return global_rows(lambda s: torch.rand(s, generator=generator, device=device),
-                           shape, shard) >= p
+    (:func:`global_rows`), and a ``shared`` mask the same on every rank."""
+    def masks(shape, p, device, shared=False):
+        def draw(s):
+            return torch.rand(s, generator=generator, device=device)
+        return (draw(tuple(shape)) if shared else global_rows(draw, shape, shard)) >= p
     return masks
 
 

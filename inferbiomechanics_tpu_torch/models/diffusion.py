@@ -8,7 +8,10 @@ timestep), the diffusion target space, the partial-denoising proposal and
 the DDIM sampler with classifier-free guidance.
 
 The denoiser holds the JAX model's ``vpu`` parameter tree (``weights.py``
-maps the names) and has two forwards over it, as the transformer has:
+maps the names), or with any other ``attn_impl`` its flax-attention tree
+(the JAX ``EncoderBlock`` takes ``MultiHeadDotProductAttention`` for every
+``attn_impl`` but ``'vpu'``), whose one forward is the plain bf16 one. Over
+the ``vpu`` tree it has two forwards, as the transformer has:
 
 - ``DiffusionDenoiser.forward``: the ``vpu`` math in plain PyTorch, bf16
   compute with a bf16 residual stream, as ``model.apply`` runs it;
@@ -56,7 +59,7 @@ from inferbiomechanics_tpu_torch.models.common import (
     slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.models.transformer import (
-    EncoderBlock, _dense, _layernorm,
+    ATTN_IMPLS, EncoderBlock, FlaxAttention, _dense, _layernorm,
 )
 from inferbiomechanics_tpu_torch.ops import fused_encoder as fe
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
@@ -148,12 +151,8 @@ class DiffusionDenoiser(nn.Module):
                  attn_impl: str = 'vpu', *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if attn_impl != 'vpu':
-            raise NotImplementedError(
-                f"the denoiser's attn_impl={attn_impl!r} is not ported: its "
-                f"'flax' tree is on ROADMAP.md's not-to-port list, and the "
-                f"JAX EncoderBlock has no 'pallas' (it takes the flax "
-                f"attention there); use 'vpu'")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f'attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}')
         if d_model % num_heads:
             raise ValueError(f'd_model {d_model} does not divide into '
                              f'{num_heads} heads')
@@ -175,8 +174,11 @@ class DiffusionDenoiser(nn.Module):
         self.t_mlp2 = linear(d_model, d_model)
         self.temporal_embedding = nn.Parameter(
             torch.empty(self.num_frames, d_model, device=device))
+        # the JAX EncoderBlock has no 'pallas' branch: it takes the flax
+        # attention for every attn_impl but 'vpu'
         self.blocks = nn.ModuleList(
-            EncoderBlock(d_model, num_heads, mlp_ratio, device=device)
+            EncoderBlock(d_model, num_heads, mlp_ratio,
+                         attn_impl='vpu' if attn_impl == 'vpu' else 'flax', device=device)
             for _ in range(num_layers))
         self.final_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.eps_head = linear(d_model, self.target_channels)
@@ -186,6 +188,8 @@ class DiffusionDenoiser(nn.Module):
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 init_linear(module, 'lecun', generator)
+            elif isinstance(module, FlaxAttention):
+                module.init_params(generator)
         with torch.no_grad():
             self.temporal_embedding.copy_(
                 torch.randn(self.num_frames, d_model, generator=generator) * 0.02)

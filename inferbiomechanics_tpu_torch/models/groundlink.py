@@ -26,9 +26,14 @@ output groups; ``last_frame`` runs the head on the final frame only.
   masks come from ``dropout_masks`` (``models.common.generator_masks`` of a
   generator the train loop seeds; torch's default generator when it is
   None). Eval ignores dropout.
-- Only the direct conv is ported (the JAX package's ``conv_impl='xla'``);
-  its ``'banded'`` lowering shares the parameter tree, so every checkpoint
-  loads here.
+- ``conv_impl`` picks the training forward's conv lowering, as in the JAX
+  package; both share one parameter tree, so either loads the other's
+  checkpoints. ``'xla'`` (the default) is the direct conv above;
+  ``'banded'`` computes each k-tap conv over the T frames as one bf16
+  product ``[B, T C_in] @ W_big [T C_in, T C_out]``, ``W_big`` built in
+  bf16 from the conv kernel with :func:`band_selector` (replicate padding
+  folds into the band edges), plus the bias tiled T times. The eval forward
+  is K4 for both.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,9 +57,43 @@ from inferbiomechanics_tpu_torch.ops.fused_groundlink import (
 
 # the flax module's compute dtype
 _COMPUTE = torch.bfloat16
+CONV_IMPLS = ('xla', 'banded')
 # a unit normal truncated at +-2 has this standard deviation (flax divides by
 # it so that the truncated draw keeps the variance asked for)
 _TRUNC_STD = 0.87962566103423978
+
+
+def band_selector(T: int, k: int) -> np.ndarray:
+    """[k, T, T] 0/1 constant (the JAX package's ``_band_selector``):
+    S[d, t, u] == 1 iff output frame u's d-th tap reads input frame t under
+    replicate padding, i.e. t == clip(u + d - k//2, 0, T-1)."""
+    half = k // 2
+    S = np.zeros((k, T, T), np.float32)
+    u = np.arange(T)
+    for d in range(k):
+        S[d, np.clip(u + d - half, 0, T - 1), u] = 1.0
+    return S
+
+
+# band_selector's constants on a device, by (T, k, device)
+_SELECTORS: Dict[tuple, torch.Tensor] = {}
+
+
+def banded_conv(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The JAX ``BandedConv`` in bf16: ``h`` [B, T, C_in] -> [B, T, C_out]
+    through one product with the block-banded ``W_big[(t, ci), (u, co)] =
+    sum_d S[d, t, u] kernel[d, ci, co]`` (``weight`` is ``nn.Conv1d``'s
+    ``[C_out, C_in, k]``)."""
+    b, t, c_in = h.shape
+    c_out, _, k = weight.shape
+    key = (t, k, h.device)
+    if key not in _SELECTORS:     # made by an eager step, before any capture
+        _SELECTORS[key] = torch.from_numpy(band_selector(t, k)).to(h.device, _COMPUTE)
+    sel = _SELECTORS[key]
+    kernel = weight.permute(2, 1, 0).to(_COMPUTE)                   # [k, C_in, C_out]
+    w_big = torch.einsum('dtu,dio->tiuo', sel, kernel).reshape(t * c_in, t * c_out)
+    y = h.to(_COMPUTE).reshape(b, t * c_in) @ w_big + bias.to(_COMPUTE).repeat(t)
+    return y.reshape(b, t, c_out)
 
 
 def _xavier_relu_(weight: torch.Tensor, fan_in: int, fan_out: int,
@@ -72,10 +112,12 @@ class Groundlink(nn.Module):
                  cnn_kernel: int = 7,
                  cnn_features: Sequence[int] = (128, 128, 256, 256),
                  cnn_dropout: float = 0.0, fc_depth: int = 3,
-                 fc_dropout: float = 0.2, *,
+                 fc_dropout: float = 0.2, conv_impl: str = 'xla', *,
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f'conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}')
         if cnn_kernel % 2 != 1:
             raise ValueError(f'cnn_kernel must be odd, got {cnn_kernel}')
         if fc_depth < 1 or not cnn_features:
@@ -87,6 +129,7 @@ class Groundlink(nn.Module):
         self.output_data_format = output_data_format
         self.cnn_dropout, self.fc_dropout = float(cnn_dropout), float(fc_dropout)
         self.fc_depth = fc_depth
+        self.conv_impl = conv_impl
         device = 'cpu' if device is None else device
         channels = sum(w for _, w in input_layout(num_dofs, root_history_len))
         dims = [channels, *cnn_features]
@@ -159,6 +202,9 @@ class Groundlink(nn.Module):
         drop = self._drop
         h = x.to(_COMPUTE)
         for conv in self.convs:
+            if self.conv_impl == 'banded':
+                h = F.elu(banded_conv(drop(h, 'conv'), conv.weight, conv.bias))
+                continue
             h = drop(h, 'conv').transpose(1, 2)                      # [B, C, T]
             half = conv.kernel_size[0] // 2
             h = F.conv1d(F.pad(h, (half, half), mode='replicate'), conv.weight.to(_COMPUTE))

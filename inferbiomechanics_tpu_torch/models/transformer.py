@@ -26,18 +26,29 @@ encoder layer kernel forward and the backward kernels on a CUDA tensor,
 their plain versions on a CPU tensor. The kernels read bf16 weights in
 mma fragment order, so the layers are packed again whenever a parameter
 has changed (once a train step; once per load when serving).
-``'flax'`` is not ported.
 
-Dropout (the ``vpu`` tree only; the fused layer takes none, as in the JAX
-package): at ``dropout`` in training, in each encoder block after the
-attention's projection and after the GELU, as the JAX ``EncoderBlock``
-places it. Keep masks come from ``dropout_masks``
+With ``attn_impl='flax'`` the blocks hold the JAX model's
+``MultiHeadDotProductAttention_0`` tree (:class:`FlaxAttention`: the
+``query`` / ``key`` / ``value`` / ``out`` ``DenseGeneral`` parameters in
+flax's shapes) and compute what flax 0.12 computes: q divided by sqrt(dh)
+in bf16 before the logits, the softmax on the bf16 logits. Its one forward
+is the plain bf16 one, in training and in evaluation, as in the JAX
+package, which fuses only the ``vpu`` tree (serving with
+``--fused-inference`` warns and takes the plain forward).
+
+Dropout (the ``vpu`` and ``flax`` trees; the fused layer takes none, as in
+the JAX package): at ``dropout`` in training, in each encoder block where the
+JAX ``EncoderBlock`` places it: ``vpu``, after the attention's projection
+and after the GELU; ``flax``, on the attention weights (one ``[1, 1, T, T]``
+keep mask shared by the batch and the heads, flax's ``broadcast_dropout``)
+and after the GELU. Keep masks come from ``dropout_masks``
 (``models.common.generator_masks`` of a generator the train loop seeds;
 torch's default generator when it is None). Both eval forwards ignore it.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -48,8 +59,8 @@ from torch import nn
 from inferbiomechanics_tpu_torch.data import keys as K
 from inferbiomechanics_tpu_torch.data.dataset import input_layout
 from inferbiomechanics_tpu_torch.models.common import (
-    MaskSource, ModelInput, dropout, generator_masks, init_linear, output_head_size,
-    pack_inputs, slice_output_heads,
+    MaskSource, ModelInput, dropout, generator_masks, init_linear, lecun_normal_,
+    output_head_size, pack_inputs, slice_output_heads,
 )
 from inferbiomechanics_tpu_torch.ops.fused_encoder import (
     LN_EPS, PARAM_NAMES, FusedEncoderLayerFn, PackedEncoderLayer,
@@ -58,6 +69,14 @@ from inferbiomechanics_tpu_torch.ops.fused_encoder import (
 )
 
 _DT = torch.bfloat16      # the compute dtype of both forwards
+ATTN_IMPLS = ('vpu', 'flax', 'pallas')
+
+
+def _bf16(v: float) -> float:
+    """``v`` rounded to bf16, as a Python number: a bf16 tensor divided by
+    it rounds as a division by a bf16 scalar (and it is a constant inside a
+    captured step, where a scalar tensor on the device would be a copy)."""
+    return float(torch.tensor(v, dtype=_DT))
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
@@ -96,17 +115,85 @@ class ShortWindowAttention(nn.Module):
         return _dense(out.reshape(b, t, d), self.proj)
 
 
+class DenseGeneral(nn.Module):
+    """flax ``DenseGeneral``'s parameters in flax's shapes: ``kernel``
+    ``[*in_shape, *out_shape]`` and ``bias`` ``out_shape``; the product
+    contracts the input's trailing ``len(in_shape)`` axes, in bf16, then
+    adds the bias in bf16."""
+
+    def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...], *,
+                 device=None):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.kernel = nn.Parameter(torch.empty(*in_shape, *out_shape, device=device))
+        self.bias = nn.Parameter(torch.zeros(*out_shape, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_in = math.prod(self.in_shape)
+        lead = x.shape[:x.ndim - len(self.in_shape)]
+        w = self.kernel.to(_DT).reshape(n_in, -1)
+        y = x.to(_DT).reshape(*lead, n_in) @ w + self.bias.to(_DT).reshape(-1)
+        return y.reshape(*lead, *self.out_shape)
+
+
+class FlaxAttention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` (0.12) as the JAX
+    ``EncoderBlock`` builds it with ``attn_impl='flax'``: self-attention in
+    bf16, q divided by sqrt(dh) in bf16 before the logits, the softmax on
+    the bf16 logits (``force_fp32_for_softmax=False``), dropout on the
+    attention weights with one ``[1, 1, T, T]`` keep mask for the batch and
+    the heads (``broadcast_dropout=True``), each kept weight times
+    ``bf16(1) / bf16(1 - p)``; no dropout after the output projection."""
+
+    def __init__(self, d_model: int, num_heads: int, *, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        dh = d_model // num_heads
+        self.query = DenseGeneral((d_model,), (num_heads, dh), device=device)
+        self.key = DenseGeneral((d_model,), (num_heads, dh), device=device)
+        self.value = DenseGeneral((d_model,), (num_heads, dh), device=device)
+        self.out = DenseGeneral((num_heads, dh), (d_model,), device=device)
+
+    def forward(self, x: torch.Tensor, p: float = 0.0,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
+        q, k, v = self.query(x), self.key(x), self.value(x)      # [B, T, H, dh]
+        dh = q.shape[-1]
+        q = q / _bf16(math.sqrt(dh))
+        logits = torch.einsum('bqhd,bkhd->bhqk', q, k)
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        w = e / e.sum(-1, keepdim=True)
+        if p > 0.0 and masks is not None:
+            t = w.shape[-1]
+            keep = masks((1, 1, t, t), p, w.device, shared=True)
+            w = w * (keep.to(_DT) / _bf16(1.0 - p))
+        return self.out(torch.einsum('bhqk,bkhd->bqhd', w, v))
+
+    def init_params(self, generator: Optional[torch.Generator]) -> None:
+        """flax's defaults: lecun-normal kernels (fan-in the contracted
+        axes), zero biases."""
+        for dense in (self.query, self.key, self.value, self.out):
+            w = lecun_normal_(torch.empty(dense.kernel.shape), math.prod(dense.in_shape),
+                              generator)
+            with torch.no_grad():
+                dense.kernel.copy_(w)
+                dense.bias.zero_()
+
+
 class EncoderBlock(nn.Module):
-    """The JAX ``EncoderBlock`` on the ``vpu`` tree; ``dropout`` (the
-    transformer's rate; the diffusion denoiser keeps 0, as in JAX) applies
-    when ``forward`` is given ``masks`` (a :data:`MaskSource`)."""
+    """The JAX ``EncoderBlock`` on the ``vpu`` tree (:class:`ShortWindowAttention`)
+    or, with ``attn_impl='flax'``, on the flax tree (:class:`FlaxAttention`);
+    ``dropout`` (the transformer's rate; the diffusion denoiser keeps 0, as
+    in JAX) applies when ``forward`` is given ``masks`` (a
+    :data:`MaskSource`)."""
 
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int = 4,
-                 dropout: float = 0.0, *, device=None):
+                 dropout: float = 0.0, attn_impl: str = 'vpu', *, device=None):
         super().__init__()
         self.dropout = float(dropout)
+        self.attn_impl = attn_impl
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
-        self.attn = ShortWindowAttention(d_model, num_heads, device=device)
+        self.attn = (FlaxAttention(d_model, num_heads, device=device) if attn_impl == 'flax'
+                     else ShortWindowAttention(d_model, num_heads, device=device))
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.mlp1 = nn.utils.skip_init(nn.Linear, d_model, d_model * mlp_ratio,
                                        device=device)
@@ -115,13 +202,19 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, masks: Optional[MaskSource] = None) -> torch.Tensor:
         p = self.dropout if masks is not None else 0.0
-        x = x + dropout(self.attn(_layernorm(x, self.ln1)), p, masks)
+        if self.attn_impl == 'flax':
+            x = x + self.attn(_layernorm(x, self.ln1), p, masks)
+        else:
+            x = x + dropout(self.attn(_layernorm(x, self.ln1)), p, masks)
         y = F.gelu(_dense(_layernorm(x, self.ln2), self.mlp1), approximate='tanh')
         return x + _dense(dropout(y, p, masks), self.mlp2)
 
     def layer_params(self) -> Tuple[torch.Tensor, ...]:
         """The flat tuple ``ops/fused_encoder.py`` takes (``PARAM_NAMES``
-        order, kernels ``[in, out]``)."""
+        order, kernels ``[in, out]``); the ``vpu`` tree's only."""
+        if self.attn_impl != 'vpu':
+            raise ValueError(f"the fused encoder layer takes the 'vpu' tree, not "
+                             f"attn_impl={self.attn_impl!r}")
         return (self.ln1.weight, self.ln1.bias,
                 self.attn.qkv.weight.t(), self.attn.qkv.bias,
                 self.attn.proj.weight.t(), self.attn.proj.bias,
@@ -157,10 +250,8 @@ class TransformerRegressor(nn.Module):
                  attn_impl: str = 'vpu', *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if attn_impl not in ('vpu', 'pallas'):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported (ROADMAP.md, not to "
-                f"port); use 'vpu' or 'pallas'")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f'attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}')
         if dropout and attn_impl == 'pallas':
             raise ValueError('the fused encoder layer (attn_impl=\'pallas\') '
                              'does not support dropout')
@@ -189,8 +280,9 @@ class TransformerRegressor(nn.Module):
         self.dropout = float(dropout)
         self.dropout_masks: Optional[MaskSource] = None
         self.blocks = nn.ModuleList(
-            EncoderBlock(d_model, num_heads, mlp_ratio, self.dropout, device=device)
-            for _ in range(num_layers if attn_impl == 'vpu' else 0))
+            EncoderBlock(d_model, num_heads, mlp_ratio, self.dropout, attn_impl,
+                         device=device)
+            for _ in range(num_layers if attn_impl != 'pallas' else 0))
         self.final_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.contact_head = linear(d_model, output_head_size(num_contact_bodies, 1))
         self.tau_head = linear(d_model, num_dofs) if predict_tau else None
@@ -203,6 +295,8 @@ class TransformerRegressor(nn.Module):
         for module in self.modules():
             if isinstance(module, nn.Linear):
                 init_linear(module, 'lecun', generator)
+            elif isinstance(module, FlaxAttention):
+                module.init_params(generator)
         with torch.no_grad():
             self.temporal_embedding.copy_(
                 torch.randn(self.num_frames, d_model, generator=generator) * 0.02)
@@ -288,10 +382,21 @@ class TransformerRegressor(nn.Module):
                 out[key] = head(name, x).float()
         return out
 
-    def forward(self, inputs: ModelInput) -> Dict[str, torch.Tensor]:
+    def embed(self, inputs: ModelInput) -> torch.Tensor:
+        """The encoder's input [B, T, d] bf16: the input projection plus the
+        temporal embedding."""
         x = pack_inputs(inputs)                      # [B, T, C_in]
         self._check_shape(x)
-        x = _dense(x, self.input_proj) + self.temporal_embedding.to(_DT)
+        return _dense(x, self.input_proj) + self.temporal_embedding.to(_DT)
+
+    def tail(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The encoder's output [B, T, d] -> the output dict: the final
+        LayerNorm (f32, one bf16 rounding after the affine) and the heads."""
+        x = _layernorm(x, self.final_ln)
+        return self._outputs(x, lambda name, h: _dense(h, getattr(self, name)))
+
+    def forward(self, inputs: ModelInput) -> Dict[str, torch.Tensor]:
+        x = self.embed(inputs)
         if self.attn_impl == 'pallas':
             needs_grad = torch.is_grad_enabled() and any(
                 p.requires_grad for p in self.parameters())
@@ -304,8 +409,7 @@ class TransformerRegressor(nn.Module):
             masks = (self.dropout_masks or generator_masks()) if self.training else None
             for blk in self.blocks:
                 x = blk(x, masks)
-        x = _layernorm(x, self.final_ln)
-        return self._outputs(x, lambda name, h: _dense(h, getattr(self, name)))
+        return self.tail(x)
 
 
 def fused_transformer_forward(model: TransformerRegressor, inputs: ModelInput,

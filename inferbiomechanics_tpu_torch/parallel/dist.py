@@ -21,6 +21,12 @@ over (one axis of a layout; None, the default, is the whole world):
   package computes over the global batch;
 - :func:`mean_over_ranks` for evaluation metrics, :func:`all_gather` for
   a tensor's slices (``parallel/sharding_rules.py::gather_state``);
+- point to point, for the pipeline's activations and their gradients
+  (``parallel/pipeline.py``): :func:`send` and :func:`recv` (NCCL: device
+  to device; gloo, whose send and receive take host memory only: through
+  a host copy on each side, the compute staying on the device), and
+  :func:`broadcast_from` for one rank's tensor to the others of a group;
+  :data:`p2p_stats` counts their calls, bytes and host seconds;
 - world-wide, on the host group: :func:`any_rank` for a flag that must
   stop every rank at the same step boundary (SIGTERM), :func:`barrier`,
   :func:`gather_host` (host arrays from every rank) and
@@ -52,6 +58,7 @@ import datetime
 import logging
 import os
 import socket
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -372,6 +379,61 @@ def move_host_tensors(tensors: Sequence[torch.Tensor], src: int, dst: int) -> No
                 n = t.numel() * t.element_size()
                 t.copy_(buf[at:at + n].clone().view(t.dtype).view(t.shape))
                 at += n
+
+
+# point-to-point transfers so far: calls, bytes and host seconds spent in
+# them (the host copies of gloo's path included)
+p2p_stats = {'calls': 0, 'bytes': 0, 'seconds': 0.0}
+
+
+def reset_p2p_stats() -> None:
+    p2p_stats.update(calls=0, bytes=0, seconds=0.0)
+
+
+def _count_p2p(t: torch.Tensor, t0: float) -> None:
+    p2p_stats['calls'] += 1
+    p2p_stats['bytes'] += t.numel() * t.element_size()
+    p2p_stats['seconds'] += time.perf_counter() - t0
+
+
+def send(t: torch.Tensor, dst: int) -> None:
+    """Send ``t`` to rank ``dst`` of the world, which takes it with
+    :func:`recv` (the same shape and dtype). NCCL sends the device tensor;
+    gloo's send takes host memory, so the tensor is copied to the host first
+    (which waits for the device)."""
+    t0 = time.perf_counter()
+    x = t.detach().contiguous()
+    if backend() == 'gloo':
+        x = x.cpu()
+    tdist.send(x, dst)
+    _count_p2p(x, t0)
+
+
+def recv(shape: Sequence[int], dtype: torch.dtype, src: int, device) -> torch.Tensor:
+    """The tensor rank ``src`` of the world sends with :func:`send`, on
+    ``device`` (gloo: received in host memory, then copied to the device)."""
+    t0 = time.perf_counter()
+    host = backend() == 'gloo'
+    buf = torch.empty(tuple(shape), dtype=dtype, device='cpu' if host else device)
+    tdist.recv(buf, src)
+    out = buf.to(device) if host else buf
+    _count_p2p(buf, t0)
+    return out
+
+
+def broadcast_from(t: torch.Tensor, src: int, group: Optional[Group] = None) -> torch.Tensor:
+    """``t`` of rank ``src`` (of the world; a member of ``group``) on every
+    rank of ``group`` (None: the world), on ``t``'s device; every member
+    passes a tensor of that shape and dtype. gloo: through host memory."""
+    if not is_initialized() or group_size(group) == 1:
+        return t
+    t0 = time.perf_counter()
+    x = t.detach().contiguous()
+    if backend() == 'gloo':
+        x = x.cpu()
+    tdist.broadcast(x, src, group=_handle(group))
+    _count_p2p(x, t0)
+    return x.to(t.device)
 
 
 class _SumOverRanks(torch.autograd.Function):

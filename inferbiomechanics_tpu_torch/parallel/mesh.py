@@ -11,6 +11,10 @@ coordinates JAX gives device r, in ``jax.devices()`` order:
   the mp ranks of a ``data`` row hold the same parameters and see the same
   rows, as the JAX loops' replicated state does (``parallel/
   sharding_rules.py`` has the column split, which no loop calls).
+- :func:`make_pipeline_mesh` (``pipe``): (n / pipe, pipe) on the axes
+  (``data``, ``pipe``), as ``parallel/pipeline.py`` lays devices out; rank
+  r is ``data`` r // pipe and ``pipe`` r % pipe, so ``pipe`` consecutive
+  ranks form one pipeline.
 - :func:`make_sweep_mesh` (``k_configs``): (c, n / c) on the axes
   (``config``, ``data``), c the largest divisor of n that also divides K;
   rank r is ``config`` r // (n / c) and ``data`` r % (n / c)
@@ -35,6 +39,7 @@ from inferbiomechanics_tpu_torch.parallel import dist
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
 CONFIG_AXIS = 'config'   # the sweep grid's axis (train/sweep.py)
+PIPE_AXIS = 'pipe'       # the pipeline's stages (parallel/pipeline.py)
 
 
 @dataclass(frozen=True)
@@ -82,6 +87,15 @@ def make_mesh(model_parallel: int = 1) -> Layout:
     return _layout((DATA_AXIS, MODEL_AXIS), (n // model_parallel, model_parallel))
 
 
+def make_pipeline_mesh(pipe: int = 2) -> Layout:
+    """The (``data``, ``pipe``) layout of the world's ranks, with the JAX
+    package's refusal of a world that ``pipe`` does not divide."""
+    n = dist.world_size()
+    if n % pipe != 0:
+        raise ValueError(f'{n} devices not divisible by pipe={pipe}')
+    return _layout((DATA_AXIS, PIPE_AXIS), (n // pipe, pipe))
+
+
 def config_axis_size(k_configs: int, n: int) -> int:
     """``make_sweep_mesh``'s config axis: the largest divisor of ``n`` that
     also divides K (1 when K is coprime to n)."""
@@ -105,5 +119,6 @@ def make_sweep_mesh(k_configs: int) -> Layout:
     return sweep_layout(config_axis_size(k_configs, dist.world_size()))
 
 
-__all__ = ['CONFIG_AXIS', 'DATA_AXIS', 'Layout', 'MODEL_AXIS', 'config_axis_size',
-           'make_mesh', 'make_sweep_mesh', 'sweep_layout']
+__all__ = ['CONFIG_AXIS', 'DATA_AXIS', 'Layout', 'MODEL_AXIS', 'PIPE_AXIS',
+           'config_axis_size', 'make_mesh', 'make_pipeline_mesh', 'make_sweep_mesh',
+           'sweep_layout']

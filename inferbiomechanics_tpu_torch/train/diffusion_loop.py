@@ -68,7 +68,7 @@ from inferbiomechanics_tpu_torch.train.device_data import (
     make_device_diffusion_chunked_step, make_device_diffusion_train_step,
 )
 from inferbiomechanics_tpu_torch.train.loop import (
-    BestTracker, CheckpointWriter, SigtermStop, TrainResult, _reject_unported,
+    BestTracker, CheckpointWriter, SigtermStop, TrainResult, check_tier_options,
     check_data_parallel, chunk_steps, epoch_batches, loss_config_from, make_dispatch,
     optimizer_for, per_step_generators, prepare_checkpoint_dir, resident_train_data,
     run_chunks, run_streamed_epoch, sharded_tier, train_loader, upload_dtype,
@@ -97,14 +97,9 @@ def train_diffusion(config: Config,
     GPU; ``cpu`` runs the kernels' plain versions). ``final_train_metrics``
     is ``{'eps_mse': the last step's loss}``."""
     from inferbiomechanics_tpu_torch.serve import resolve_device
-    _reject_unported(config)
-    if config.compute_report:
-        # the JAX package's diffusion loop never reads the flag: refused by
-        # name rather than ignored
-        raise NotImplementedError(
-            '--compute-report is not yet ported to diffusion training (the JAX '
-            'package\'s diffusion loop ignores it); score a diffusion checkpoint '
-            'with analyze --compute-report')
+    # --compute-report and --pipeline-parallel are not read here, as the JAX
+    # package's diffusion loop reads neither
+    check_tier_options(config)
     if config.output_data_format != 'all_frames':
         raise ValueError('diffusion training requires --output-data-format '
                          'all_frames (the denoiser models whole windows)')

@@ -68,6 +68,16 @@ step boundary. The device-resident tier runs step by step at world size > 1
 whose collectives cannot be captured in a CUDA graph (gloo over two ranks
 or more).
 
+``--pipeline-parallel S`` (> 1; the transformer on the host loader tier,
+step by step, with the JAX loop's refusals, :func:`check_pipeline_options`)
+lays the ranks out on ``make_pipeline_mesh`` ((data, pipe) of (n / S, S))
+and trains through ``parallel/pipeline.py``: each rank runs its stage's
+blocks on ``--pipeline-microbatches`` microbatches (0: 2 S) of its ``data``
+coordinate's batch. Every rank holds the canonical state and trains its
+stage's part of it; the other stages' blocks are gathered before a dev
+evaluation (once a state) and, with their optimizer moments, before every
+checkpoint, so checkpoints stay canonical and resume restructures them back.
+
 ``--profile`` traces the first epoch, its dev evaluation included, into
 ``--profile-dir`` (``train/profiling.py``). A ``metric_logger`` (the
 ``train`` command's ``MetricLogger``) gets the logged losses and the train
@@ -100,7 +110,13 @@ from inferbiomechanics_tpu_torch.loss.tau_report import make_tau_report_fn
 from inferbiomechanics_tpu_torch.models import build_model_for_dataset
 from inferbiomechanics_tpu_torch.models.common import generator_masks
 from inferbiomechanics_tpu_torch.parallel import dist
-from inferbiomechanics_tpu_torch.parallel.mesh import DATA_AXIS, Layout, make_mesh
+from inferbiomechanics_tpu_torch.parallel.mesh import (
+    DATA_AXIS, Layout, make_mesh, make_pipeline_mesh,
+)
+from inferbiomechanics_tpu_torch.parallel.pipeline import (
+    PALLAS_REFUSAL, StagePlan, canonical_trainstate_from_pipeline, make_pipeline_train_step,
+    pipeline_trainstate_from_canonical,
+)
 from inferbiomechanics_tpu_torch.train.augment import augmenter_from_config
 from inferbiomechanics_tpu_torch.train.checkpoint import (
     BEST_NAME, AsyncCheckpointer, list_checkpoints, load_latest_checkpoint,
@@ -174,10 +190,9 @@ def loss_config_from(config: Config) -> LossConfig:
     )
 
 
-def _reject_unported(config: Config) -> None:
-    """Raise for every training option of the JAX package that the port
-    does not have yet, by the flag's name; before that, the JAX package's
-    own refusals of the data-parallel options, with its words."""
+def check_tier_options(config: Config) -> None:
+    """The JAX package's refusals of the data tiers' options, with its
+    words (the three training loops share them)."""
     if config.device_data in ('sharded', 'stream') and config.grad_accum_steps > 1:
         raise ValueError('--grad-accum-steps applies to the host and '
                          'device-resident tiers; the sharded/streaming '
@@ -192,16 +207,34 @@ def _reject_unported(config: Config) -> None:
                              'host, device-resident, and sharded tiers; '
                              'the streaming tier runs fixed whole-batch '
                              'segment programs')
-    if config.pipeline_parallel > 1 and config.model_parallel > 1:
+
+
+def check_pipeline_options(config: Config) -> None:
+    """The JAX train loop's refusals of ``--pipeline-parallel`` (> 1), word
+    for word and in its order (``inferbiomechanics_tpu/train/loop.py``):
+    the transformer only, on the host loader tier, without
+    ``--model-parallel``, grad accumulation, the bf16 all-reduce, dropout or
+    the ``pallas`` tree."""
+    if config.model_type != 'transformer':
+        raise ValueError('--pipeline-parallel requires the transformer '
+                         f'(got {config.model_type})')
+    if config.model_parallel > 1:
         raise ValueError('--pipeline-parallel and --model-parallel are '
                          'mutually exclusive mesh layouts')
-    unported = [
-        ('--pipeline-parallel', config.pipeline_parallel > 1,
-         'ROADMAP.md, not to port'),
-    ]
-    for flag, asked, where in unported:
-        if asked:
-            raise NotImplementedError(f'{flag} is not yet ported ({where})')
+    if config.device_data in ('on', 'sharded', 'stream'):
+        raise ValueError('--pipeline-parallel runs the host loader '
+                         'tier; use --device-data auto or off')
+    if config.grad_accum_steps > 1:
+        raise ValueError('--pipeline-parallel already microbatches '
+                         'the step; --grad-accum-steps must be 1')
+    if config.grad_allreduce_dtype == 'bf16':
+        raise ValueError('--grad-allreduce-dtype bf16 is not supported '
+                         'with --pipeline-parallel')
+    if config.dropout and config.dropout_prob:
+        raise ValueError('--pipeline-parallel requires dropout off '
+                         '(stages run without per-layer RNG plumbing)')
+    if config.attn_impl == 'pallas':
+        raise ValueError(PALLAS_REFUSAL)
 
 
 class SigtermStop:
@@ -327,7 +360,8 @@ def prepare_checkpoint_dir(config: Config, state) -> bool:
 
 
 class CheckpointWriter:
-    """``write(epoch, batch, filename=None)``: the state (with its EMA, when
+    """``write(epoch, batch, filename=None)``: ``prepare()`` on every rank
+    when given, then the state (with its EMA, when
     it keeps one) to ``config.checkpoint_dir``, then the oldest epoch
     checkpoints beyond ``--keep-checkpoints`` pruned (named files are
     not). With ``--async-checkpoint`` through an ``AsyncCheckpointer``: the
@@ -336,12 +370,14 @@ class CheckpointWriter:
     the last write is on disk. Under data parallelism only rank 0 writes
     (every rank holds the same state)."""
 
-    def __init__(self, config: Config, state):
-        self.config, self.state = config, state
+    def __init__(self, config: Config, state, prepare: Optional[Callable[[], None]] = None):
+        self.config, self.state, self.prepare = config, state, prepare
         self.writes = dist.is_main()
         self.writer = AsyncCheckpointer() if config.async_checkpoint and self.writes else None
 
     def __call__(self, epoch: int, batch: int, filename=None) -> None:
+        if self.prepare is not None:     # on every rank (a pipeline's gather)
+            self.prepare()
         if not self.writes:
             return
         config = self.config
@@ -621,13 +657,18 @@ def train(config: Config,
     a GPU; ``cpu`` runs the kernels' plain versions). The diffusion
     denoiser trains through ``train/diffusion_loop.py::train_diffusion``."""
     from inferbiomechanics_tpu_torch.serve import resolve_device
-    _reject_unported(config)
+    pp = max(1, int(config.pipeline_parallel))
+    if pp > 1:
+        check_pipeline_options(config)
+    check_tier_options(config)
     if config.model_type == 'diffusion':
         raise ValueError('--model-type diffusion trains through '
                          'train/diffusion_loop.py::train_diffusion')
     device = resolve_device(device)
-    # the JAX refusal of a world --model-parallel does not divide (one process: 1)
-    layout = make_mesh(model_parallel=config.model_parallel)
+    # the JAX refusals of a world --model-parallel or --pipeline-parallel does
+    # not divide (one process: 1)
+    layout = (make_pipeline_mesh(pipe=pp) if pp > 1
+              else make_mesh(model_parallel=config.model_parallel))
     n_dp, dp_group = layout.size(DATA_AXIS), layout.group(DATA_AXIS)
     dp_shard = (layout.coord(DATA_AXIS), n_dp)
     lowp = check_data_parallel(config, n_dp)
@@ -646,6 +687,12 @@ def train(config: Config,
     prepare_checkpoint_dir(config, state)
 
     ckpt_epoch, ckpt_batch = load_latest_checkpoint(state, config.checkpoint_dir)
+    stages = None
+    if pp > 1:
+        # the canonical state (fresh or resumed) becomes this rank's stage;
+        # checkpoints stay canonical (the writer gathers the stages first)
+        stages = StagePlan(layout, model.num_layers)
+        pipeline_trainstate_from_canonical(state, stages)
     if ckpt_batch > 0:
         # a mid-epoch checkpoint is written AFTER the step at ckpt_batch, so
         # its update is in the state already: resume at ckpt_batch + 1
@@ -657,16 +704,25 @@ def train(config: Config,
     # every rank evaluates whole batches of its data shard of the dev split
     dev_big_enough = dev_ds is not None and len(dev_ds) // n_dp >= config.batch_size
     # the torque report needs each dev batch's inputs, outputs and subjects
+    # the pipeline runs the host loader tier, step by step
     dev_resident = (dev_big_enough and dev_ds.features_all is not None
-                    and not config.compute_report)
-    device_data, pack = resident_train_data(config, train_ds, device,
-                                            dev_ds if dev_resident else None)
+                    and not config.compute_report and stages is None)
+    device_data, pack = (resident_train_data(config, train_ds, device,
+                                             dev_ds if dev_resident else None)
+                         if stages is None else (None, False))
     on_device = device_data is not None
-    chunk_k, chunked_step, device_eval, dispatch = 1, None, None, None
-    streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
-        make_sharded_epoch_runner(model, sdata, lc, config.batch_size, chunk_steps=k,
-                                  augment=augment)), layout)
-    if streaming is None:
+    chunk_k, chunked_step, device_eval, dispatch, streaming = 1, None, None, None, None
+    if stages is not None:
+        num_micro = config.pipeline_microbatches or 2 * pp
+        step = make_pipeline_train_step(model, train_ds.lab_offsets, lc, stages,
+                                        num_microbatches=num_micro, augment=augment)
+        logger.info('pipeline parallelism: %d stages x %d layers, dp=%d, '
+                    '%d microbatches/step', pp, model.num_layers // pp, n_dp, num_micro)
+    else:
+        streaming = sharded_tier(config, train_ds, device, on_device, lambda sdata, k: (
+            make_sharded_epoch_runner(model, sdata, lc, config.batch_size, chunk_steps=k,
+                                      augment=augment)), layout)
+    if streaming is None and stages is None:
         chunk_k = chunk_steps(config, train_ds, on_device, lowp, dp_group)
         if config.device_data == 'stream':
             plan = StreamingPlan(train_ds, config.device_data_max_bytes)
@@ -713,7 +769,17 @@ def train(config: Config,
     train_metrics: Dict[str, float] = {}
     epochs_run = 0
 
-    write_checkpoint = CheckpointWriter(config, state)
+    # a pipeline's dev eval reads the canonical parameters, gathered once a
+    # state; its checkpoints the canonical state, moments too
+    gathered_at = [None]
+
+    def gather_params() -> None:
+        if stages is not None and gathered_at[0] != state.step:
+            canonical_trainstate_from_pipeline(state, stages, optimizer=False)
+            gathered_at[0] = state.step
+
+    write_checkpoint = CheckpointWriter(config, state, prepare=None if stages is None else (
+        lambda: canonical_trainstate_from_pipeline(state, stages)))
     best = BestTracker(config, write_checkpoint)
 
     def run_dev_eval(epoch: int) -> bool:
@@ -723,6 +789,7 @@ def train(config: Config,
             dev_eval(None, None, None,
                      precomputed_metrics=dist.mean_over_ranks(device_eval(state), dp_group))
         elif dev_loader is not None:
+            gather_params()
             for batch in dev_loader.epoch(seed=config.seed * 1_000_003 + epoch):
                 outputs, metrics = eval_step(state, batch.inputs, batch.labels)
                 dev_eval(batch.inputs, outputs, unpack(batch.labels, dev_ds.lab_offsets),

@@ -120,6 +120,10 @@ class Optimizer(torch.optim.Optimizer):
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.frozen: set = set()
+        # global_norm(names, grads) -> the clipped global norm of the
+        # gradients (None: theirs; a pipeline stage's adds the other stages')
+        self.global_norm: Optional[Callable[[List[str], List[torch.Tensor]],
+                                            torch.Tensor]] = None
         # float32 [N_SCALARS] beside the parameters, made at the first update
         self.scalars: Optional[torch.Tensor] = None
         group: Dict = {'params': [p for _, p in named]}
@@ -192,8 +196,9 @@ class Optimizer(torch.optim.Optimizer):
         grads = [p.grad for _, p in with_grad]
         if self.grad_clip_norm and self.grad_clip_norm > 0:
             # optax.clip_by_global_norm, over frozen parameters too
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = (self.global_norm([n for n, _ in with_grad], grads)
+                    if self.global_norm is not None else
+                    torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads))))
             scale = self.grad_clip_norm / torch.clamp(norm, min=self.grad_clip_norm)
             grads = torch._foreach_mul(grads, scale)
         keep = [i for i, (n, _) in enumerate(with_grad) if n not in self.frozen]

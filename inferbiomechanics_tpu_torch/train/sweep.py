@@ -96,7 +96,7 @@ from inferbiomechanics_tpu_torch.train.checkpoint import (
 )
 from inferbiomechanics_tpu_torch.train.device_data import SegmentBuffer
 from inferbiomechanics_tpu_torch.train.loop import (
-    SigtermStop, _reject_unported, epoch_batches, loss_config_from,
+    SigtermStop, check_tier_options, epoch_batches, loss_config_from,
     make_dispatch, resident_train_data, run_chunks, train_loader, upload_dtype,
 )
 from inferbiomechanics_tpu_torch.train.optimizers import Optimizer, make_optimizer
@@ -721,7 +721,7 @@ def run_sweep(config: Config, train_ds: WindowDataset,
     ``init_weights(seed)`` replaces a config's initial weights (the tests'
     seam for the JAX package's)."""
     from inferbiomechanics_tpu_torch.serve import resolve_device
-    _reject_unported(config)
+    check_tier_options(config)
     device = resolve_device(device)
     grid = sweep_grid(lrs, seeds)
     k = len(grid)

@@ -29,6 +29,16 @@ With ``attn_impl='pallas'`` the JAX model keeps the encoder as flat
 encoder (``Dense_0``, ``LayerNorm_0``, the heads) maps as in the ``vpu``
 tree.
 
+With ``attn_impl='flax'`` each ``EncoderBlock_{i}`` keeps flax's
+``MultiHeadDotProductAttention_0`` in place of ``ShortWindowAttention_0``:
+``query``, ``key``, ``value`` (``DenseGeneral`` kernels ``[d, H, dh]``,
+biases ``[H, dh]``) and ``out`` (kernel ``[H, dh, d]``, bias ``[d]``)
+(:data:`_FLAX_ATTENTION`). The port's ``FlaxAttention`` stores them in
+those shapes under the same names, so they cross untransposed; the rest of
+the block (its LayerNorms and MLP) maps as in the ``vpu`` tree. The
+families ``transformer_flax`` and ``diffusion_flax`` are the transformer's
+and the denoiser's with this block.
+
 The JAX ``DiffusionDenoiser`` (``inferbiomechanics_tpu/models/diffusion.py``)
 keeps ``target_proj``, ``cond_proj``, ``t_mlp1``, ``t_mlp2``, ``eps_head``,
 ``temporal_embedding``, the ``vpu`` tree's ``EncoderBlock_{i}`` and the final
@@ -203,11 +213,19 @@ def groundlink_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 # state-dict prefix of the port's TransformerRegressor -> path in the flax
 # tree ('{i}' is the layer index); LayerNorms carry scale/bias, Dense layers
 # kernel/bias. The encoder blocks' entries are the diffusion denoiser's too.
+_BLOCK_MLP = {
+    'blocks.{i}.mlp1': ('EncoderBlock_{i}', 'Dense_0'),
+    'blocks.{i}.mlp2': ('EncoderBlock_{i}', 'Dense_1'),
+}
 _BLOCK_DENSE = {
     'blocks.{i}.attn.qkv': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'qkv'),
     'blocks.{i}.attn.proj': ('EncoderBlock_{i}', 'ShortWindowAttention_0', 'proj'),
-    'blocks.{i}.mlp1': ('EncoderBlock_{i}', 'Dense_0'),
-    'blocks.{i}.mlp2': ('EncoderBlock_{i}', 'Dense_1'),
+    **_BLOCK_MLP,
+}
+# the flax attention's DenseGeneral layers: kernel and bias cross as they are
+_FLAX_ATTENTION = {
+    f'blocks.{{i}}.attn.{name}': ('EncoderBlock_{i}', 'MultiHeadDotProductAttention_0', name)
+    for name in ('query', 'key', 'value', 'out')
 }
 _BLOCK_NORM = {
     'blocks.{i}.ln1': ('EncoderBlock_{i}', 'LayerNorm_0'),
@@ -231,17 +249,49 @@ _DIFFUSION_DENSE = {
 _OPTIONAL_HEADS = ('tau_head', 'com_acc_head', 'contact_cls_head')
 
 
+def _flax_table(dense_table: Mapping) -> Dict:
+    """``dense_table`` with the ``vpu`` attention's entries left out (the
+    flax block's attention crosses through :data:`_FLAX_ATTENTION`)."""
+    return {k: v for k, v in dense_table.items() if '.attn.' not in k}
+
+
 _ENC_RE = re.compile(r'enc(\d+)_\w+')
+# how an entry crosses: a Dense (kernel transposed), a LayerNorm, a
+# DenseGeneral (kernel and bias as they are)
+DENSE, NORM, GENERAL = 'dense', 'norm', 'general'
 
 
-def _transformer_entries(num_layers: int, dense_table=_TRANSFORMER_DENSE):
-    """(state-dict prefix, flax path, is_dense) for every module; with
+def _transformer_entries(num_layers: int, dense_table=_TRANSFORMER_DENSE,
+                         flax_attention: bool = False):
+    """(state-dict prefix, flax path, kind) for every module; with
     ``num_layers`` 0, the modules around the encoder only."""
-    for table, dense in ((dense_table, True), (_BLOCK_NORM, False)):
+    tables = [(_flax_table(dense_table) if flax_attention else dense_table, DENSE),
+              (_BLOCK_NORM, NORM)]
+    if flax_attention:
+        tables.append((_FLAX_ATTENTION, GENERAL))
+    for table, kind in tables:
         for prefix, path in table.items():
             for i in (range(num_layers) if '{i}' in prefix else (0,)):
                 yield (prefix.format(i=i),
-                       tuple(part.format(i=i) for part in path), dense)
+                       tuple(part.format(i=i) for part in path), kind)
+
+
+def _has_flax_attention(params: Mapping) -> bool:
+    """True for a tree whose encoder blocks hold flax's attention."""
+    return any(re.fullmatch(r'EncoderBlock_\d+', k) and isinstance(v, Mapping)
+               and 'MultiHeadDotProductAttention_0' in v for k, v in params.items())
+
+
+def _num_blocks(params: Mapping) -> int:
+    return len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
+
+
+def _num_state_dict_blocks(state_dict: Mapping) -> int:
+    return len([k for k in state_dict if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
+
+
+def _state_dict_has_flax_attention(state_dict: Mapping) -> bool:
+    return any(re.fullmatch(r'blocks\.\d+\.attn\.query\.kernel', k) for k in state_dict)
 
 
 def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -249,8 +299,20 @@ def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     if any(_ENC_RE.fullmatch(k) for k in params):
         raise ValueError("this is an attn_impl='pallas' tree (enc{i}_*); use "
                          "transformer_pallas_state_dict_from_jax")
-    num_layers = len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
-    return _transformer_sd_from_jax(params, num_layers)
+    if _has_flax_attention(params):
+        raise ValueError("this is an attn_impl='flax' tree "
+                         "(MultiHeadDotProductAttention_0); use "
+                         "transformer_flax_state_dict_from_jax")
+    return _transformer_sd_from_jax(params, _num_blocks(params))
+
+
+def transformer_flax_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``flax`` transformer params (``MultiHeadDotProductAttention_0``
+    blocks) -> the port's state dict."""
+    if not _has_flax_attention(params):
+        raise ValueError("no MultiHeadDotProductAttention_0 blocks: not an "
+                         "attn_impl='flax' tree")
+    return _transformer_sd_from_jax(params, _num_blocks(params), flax_attention=True)
 
 
 def transformer_pallas_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -266,10 +328,13 @@ def transformer_pallas_state_dict_from_jax(params: Mapping) -> Dict[str, torch.T
 
 
 def _transformer_sd_from_jax(params: Mapping, num_layers: int,
-                             dense_table=_TRANSFORMER_DENSE) -> Dict[str, torch.Tensor]:
-    sd = {'temporal_embedding': torch.from_numpy(
-        np.asarray(params['temporal_embedding'], np.float32).copy())}
-    for prefix, path, dense in _transformer_entries(num_layers, dense_table):
+                             dense_table=_TRANSFORMER_DENSE,
+                             flax_attention: bool = False) -> Dict[str, torch.Tensor]:
+    def f32(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+    sd = {'temporal_embedding': f32(params['temporal_embedding'])}
+    for prefix, path, kind in _transformer_entries(num_layers, dense_table, flax_attention):
         node = params
         for part in path:
             node = node.get(part) if node is not None else None
@@ -277,10 +342,12 @@ def _transformer_sd_from_jax(params: Mapping, num_layers: int,
             if prefix in _OPTIONAL_HEADS:
                 continue
             raise ValueError(f'transformer tree has no {"/".join(path)}')
-        w = np.asarray(node['kernel' if dense else 'scale'], np.float32)
-        sd[f'{prefix}.weight'] = torch.from_numpy((w.T if dense else w).copy())
-        sd[f'{prefix}.bias'] = torch.from_numpy(
-            np.asarray(node['bias'], np.float32).copy())
+        if kind == GENERAL:
+            sd[f'{prefix}.kernel'] = f32(node['kernel'])
+        else:
+            w = np.asarray(node['kernel' if kind == DENSE else 'scale'], np.float32)
+            sd[f'{prefix}.weight'] = f32(w.T if kind == DENSE else w)
+        sd[f'{prefix}.bias'] = f32(node['bias'])
     return sd
 
 
@@ -290,9 +357,19 @@ def transformer_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     if any(_ENC_RE.fullmatch(k) for k in state_dict):
         raise ValueError("this is an attn_impl='pallas' state dict (enc{i}_*); "
                          "use transformer_pallas_params_to_jax")
-    num_layers = len([k for k in state_dict
-                      if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
-    return _transformer_sd_to_jax(state_dict, num_layers)
+    if _state_dict_has_flax_attention(state_dict):
+        raise ValueError("this is an attn_impl='flax' state dict; use "
+                         "transformer_flax_params_to_jax")
+    return _transformer_sd_to_jax(state_dict, _num_state_dict_blocks(state_dict))
+
+
+def transformer_flax_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ``flax`` transformer state dict -> the JAX ``flax`` tree
+    of numpy arrays."""
+    if not _state_dict_has_flax_attention(state_dict):
+        raise ValueError("no blocks.{i}.attn.query: not an attn_impl='flax' state dict")
+    return _transformer_sd_to_jax(state_dict, _num_state_dict_blocks(state_dict),
+                                  flax_attention=True)
 
 
 def transformer_pallas_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
@@ -308,19 +385,21 @@ def transformer_pallas_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> 
 
 
 def _transformer_sd_to_jax(state_dict: Mapping[str, torch.Tensor],
-                           num_layers: int, dense_table=_TRANSFORMER_DENSE) -> Dict:
+                           num_layers: int, dense_table=_TRANSFORMER_DENSE,
+                           flax_attention: bool = False) -> Dict:
     to_np = lambda t: t.detach().cpu().float().numpy().copy()   # noqa: E731
     out: Dict = {'temporal_embedding': to_np(state_dict['temporal_embedding'])}
-    for prefix, path, dense in _transformer_entries(num_layers, dense_table):
-        if f'{prefix}.weight' not in state_dict:
+    for prefix, path, kind in _transformer_entries(num_layers, dense_table, flax_attention):
+        weight = f'{prefix}.kernel' if kind == GENERAL else f'{prefix}.weight'
+        if weight not in state_dict:
             if prefix in _OPTIONAL_HEADS:
                 continue
-            raise ValueError(f'state dict has no {prefix}.weight')
+            raise ValueError(f'state dict has no {weight}')
         node = out
         for part in path:
             node = node.setdefault(part, {})
-        w = to_np(state_dict[f'{prefix}.weight'])
-        node['kernel' if dense else 'scale'] = w.T.copy() if dense else w
+        w = to_np(state_dict[weight])
+        node['scale' if kind == NORM else 'kernel'] = w.T.copy() if kind == DENSE else w
         node['bias'] = to_np(state_dict[f'{prefix}.bias'])
     return out
 
@@ -332,23 +411,24 @@ def diffusion_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     if missing:
         raise ValueError(f'not a diffusion denoiser tree: no {missing}; keys '
                          f'{sorted(params)}')
-    num_layers = len([k for k in params if re.fullmatch(r'EncoderBlock_\d+', k)])
-    return _transformer_sd_from_jax(params, num_layers, _DIFFUSION_DENSE)
+    return _transformer_sd_from_jax(params, _num_blocks(params), _DIFFUSION_DENSE,
+                                    flax_attention=_has_flax_attention(params))
 
 
 def diffusion_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """The port's denoiser state dict -> the JAX ``DiffusionDenoiser`` tree
-    of numpy arrays."""
+    of numpy arrays (either attention)."""
     if 'eps_head.weight' not in state_dict:
         raise ValueError(f'not a diffusion denoiser state dict: keys {sorted(state_dict)}')
-    num_layers = len([k for k in state_dict
-                      if re.fullmatch(r'blocks\.\d+\.ln1\.weight', k)])
-    return _transformer_sd_to_jax(state_dict, num_layers, _DIFFUSION_DENSE)
+    return _transformer_sd_to_jax(state_dict, _num_state_dict_blocks(state_dict),
+                                  _DIFFUSION_DENSE,
+                                  flax_attention=_state_dict_has_flax_attention(state_dict))
 
 
 # ---- the whole of a JAX checkpoint: family, batch stats, optimizer, EMA ----
 
-FAMILIES = ('feedforward', 'groundlink', 'transformer', 'pallas', 'diffusion')
+FAMILIES = ('feedforward', 'groundlink', 'transformer', 'transformer_flax', 'pallas',
+            'diffusion', 'diffusion_flax')
 
 
 def model_family(model) -> str:
@@ -362,9 +442,10 @@ def model_family(model) -> str:
     if isinstance(model, Groundlink):
         return 'groundlink'
     if isinstance(model, DiffusionDenoiser):
-        return 'diffusion'
+        return 'diffusion' if model.attn_impl == 'vpu' else 'diffusion_flax'
     if isinstance(model, TransformerRegressor):
-        return 'pallas' if model.attn_impl == 'pallas' else 'transformer'
+        return {'vpu': 'transformer', 'flax': 'transformer_flax'}.get(model.attn_impl,
+                                                                    model.attn_impl)
     raise ValueError(f'no JAX parameter tree for a {type(model).__name__}')
 
 
@@ -372,12 +453,13 @@ def tree_family(params: Mapping) -> str:
     """The family a JAX parameter tree belongs to, from its keys alone (for
     a file read without a model: ``convert-checkpoint``)."""
     keys = set(params)
+    flax = '_flax' if _has_flax_attention(params) else ''
     if 'eps_head' in keys:
-        return 'diffusion'
+        return 'diffusion' + flax
     if any(_ENC_RE.fullmatch(k) for k in keys):
         return 'pallas'
     if any(re.fullmatch(r'EncoderBlock_\d+', k) for k in keys):
-        return 'transformer'
+        return 'transformer' + flax
     if any(re.fullmatch(r'Conv_\d+', k) for k in keys):
         return 'groundlink'
     if any(re.fullmatch(r'(Dense_|W)\d+', k) for k in keys):
@@ -393,8 +475,10 @@ def params_from_jax(family: str, tree: Mapping) -> Dict[str, torch.Tensor]:
         return feedforward_state_dict_from_jax(tree, params_only=True)
     return {'groundlink': groundlink_state_dict_from_jax,
             'transformer': transformer_state_dict_from_jax,
+            'transformer_flax': transformer_flax_state_dict_from_jax,
             'pallas': transformer_pallas_state_dict_from_jax,
-            'diffusion': diffusion_state_dict_from_jax}[family](tree)
+            'diffusion': diffusion_state_dict_from_jax,
+            'diffusion_flax': diffusion_state_dict_from_jax}[family](tree)
 
 
 def params_to_jax(family: str, named: Mapping[str, torch.Tensor]) -> Dict:
@@ -402,8 +486,10 @@ def params_to_jax(family: str, named: Mapping[str, torch.Tensor]) -> Dict:
     return {'feedforward': feedforward_params_to_jax,
             'groundlink': groundlink_params_to_jax,
             'transformer': transformer_params_to_jax,
+            'transformer_flax': transformer_flax_params_to_jax,
             'pallas': transformer_pallas_params_to_jax,
-            'diffusion': diffusion_params_to_jax}[family](named)
+            'diffusion': diffusion_params_to_jax,
+            'diffusion_flax': diffusion_params_to_jax}[family](named)
 
 
 def state_dict_from_jax(family: str, params: Mapping,

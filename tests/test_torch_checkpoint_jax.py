@@ -69,6 +69,10 @@ FAMILIES = {
     'transformer': (dict(model_type='transformer', **TINY),) * 2,
     'pallas': (dict(model_type='transformer', attn_impl='pallas', **TINY),) * 2,
     'diffusion': (dict(model_type='diffusion', diffusion_timesteps=16, **TINY),) * 2,
+    # the flax-attention trees (MultiHeadDotProductAttention_0 blocks)
+    'transformer_flax': (dict(model_type='transformer', attn_impl='flax', **TINY),) * 2,
+    'diffusion_flax': (dict(model_type='diffusion', attn_impl='flax', diffusion_timesteps=16,
+                            **TINY),) * 2,
 }
 
 
@@ -102,7 +106,7 @@ def _jax_init(family, jm):
 
 def _init(family, jm):
     key = jax.random.PRNGKey(3)
-    if family == 'diffusion':
+    if family.startswith('diffusion'):
         init = jax.jit(lambda k, *a: jm.init({'params': k}, *a))
         return jax.device_get(init(key, *map(jnp.asarray, _diffusion_args())))['params'], {}
     init = jax.jit(lambda k, x: jm.init({'params': k, 'dropout': k}, x, train=False))
@@ -180,7 +184,7 @@ def _make_jax_checkpoint(tmp_path, family, opt_type, chain):
                           opt_state=tx.init(params), batch_stats=batch_stats,
                           tx=tx, apply_fn=jm.apply)
     state, after = _three_updates(state, *(_grads(params, seed) for seed in (1, 2, 3)))
-    ema = _noise(jax.device_get(state.params), rng, 0.01) if family == 'diffusion' else None
+    ema = _noise(jax.device_get(state.params), rng, 0.01) if family.startswith('diffusion') else None
     d = str(tmp_path / f'{family}_{opt_type}_{"_".join(chain)}')
     path = jax_save_checkpoint(d, state, 3, 5, ema_params=ema)
     return jm, state, path, ema, after
@@ -228,7 +232,7 @@ def test_reader_gives_flax_tree_for_every_family_and_optimizer(store, family):
         _, _, path, _ = _jax_checkpoint(store, family, opt_type)
         tree = _reads_as_flax(path)
         assert set(tree) >= {'step', 'params', 'opt_state', 'batch_stats', 'epoch', 'batch'}
-        assert ('ema_params' in tree) == (family == 'diffusion')
+        assert ('ema_params' in tree) == family.startswith('diffusion')
 
 
 @pytest.mark.parametrize('chain', [('cosine',), ('clip',), ('freeze',),
@@ -320,7 +324,7 @@ def _jax_outputs(family, jm, state, ema=None):
     variables = {'params': ema if ema is not None else state.params}
     if state.batch_stats:
         variables['batch_stats'] = state.batch_stats
-    if family == 'diffusion':
+    if family.startswith('diffusion'):
         apply = jax.jit(jm.apply)
         return {'eps': np.asarray(apply(variables, *map(jnp.asarray, _diffusion_args(6))))}
     apply = jax.jit(lambda v, x: jm.apply(v, x, train=False))
@@ -329,7 +333,7 @@ def _jax_outputs(family, jm, state, ema=None):
 
 def _port_outputs(family, model):
     with torch.no_grad():
-        if family == 'diffusion':
+        if family.startswith('diffusion'):
             return {'eps': model(*map(torch.from_numpy, _diffusion_args(6))).numpy()}
         return {k: v.numpy() for k, v in model(torch.from_numpy(_x(6))).items()}
 
@@ -366,7 +370,7 @@ def test_a_jax_checkpoint_serves_in_the_port(store, family):
                 exact[..., a:b].numpy(),
                 np.asarray(want[f'groundContact{"CenterOfPressure" if k == "cops" else "Force"}'
                                 f'InRootFrame']), rtol=1e-4, atol=1e-5, err_msg=k)
-    if family == 'diffusion':
+    if family.startswith('diffusion'):
         model.load_state_dict(ckpt.load_ema_params(path, like=model))
         for k, w in _jax_outputs(family, jm, state, ema).items():
             g = _port_outputs(family, model)[k]
@@ -494,6 +498,10 @@ _FLAGS = {
     'groundlink': ['--model-type', 'groundlink', '--output-data-format', 'all_frames'],
     'pallas': ['--model-type', 'transformer', '--attn-impl', 'pallas', '--d-model', '128',
                '--num-layers', '1', '--num-heads', '4', '--fused-inference'],
+    # --fused-inference: the flax tree is served through the plain forward,
+    # with the JAX warning
+    'transformer_flax': ['--model-type', 'transformer', '--attn-impl', 'flax', '--d-model',
+                         '128', '--num-layers', '1', '--num-heads', '4', '--fused-inference'],
     'diffusion': ['--model-type', 'diffusion', '--output-data-format', 'all_frames',
                   '--d-model', '128', '--num-layers', '1', '--num-heads', '4',
                   '--diffusion-timesteps', '16', '--fused-inference'],
@@ -528,7 +536,7 @@ def test_serve_and_analyze_name_a_jax_checkpoint(store, home, tmp_path, family):
                                      skip_loading_skeletons=True).gather(np.arange(3)).inputs)
         got = svc.predict_packed(x)
         assert all(v.shape[0] == 3 and np.isfinite(v).all() for v in got.values())
-        if family != 'diffusion':      # the file's weights answer
+        if not family.startswith('diffusion'):      # the file's weights answer
             model = _port_model(family).eval()
             ckpt.load_checkpoint_file(model, path)
             with torch.no_grad():

@@ -32,6 +32,7 @@ import json
 import logging
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -377,3 +378,82 @@ def test_a_jax_run_resumes_on_the_port(data, tmp_path, caplog):
         errs = [float((run['model_state_dict'][k] - w).norm() / jax_moved.norm())
                 for run in (got, other)]
         assert errs[0] < GRAD_REL < errs[1], (k, errs)
+
+
+def test_a_jax_flax_run_converts_resumes_goes_back_and_soups(data, tmp_path, caplog):
+    """A JAX run of the transformer with ``--attn-impl flax`` (d_model 64,
+    4 layers, 4 heads): its mid-epoch ``.ckpt`` converted (parameters,
+    adam's moments and the step), resumed by the port's ``train`` to the
+    epoch's end, which lands within 5e-2 of the JAX run's own end relative
+    to how far JAX moved each parameter (a fresh optimizer lands farther);
+    the converted state written back as the JAX package's tree is the JAX
+    file's, parameters and moments bitwise; and the port's soup of two JAX
+    files is the JAX soup's parameters."""
+    fields = dict(model_type='transformer', attn_impl='flax', d_model=64, num_layers=4,
+                  num_heads=4, window_size=20, stride=5, batch_size=BATCH, epochs=1,
+                  checkpoint_every_batches=2, seed=3, device_data='off', opt_type='adam',
+                  learning_rate=1e-3, log_every_batches=1000)
+    jdir = tmp_path / 'jax' / 'transformer'
+    jax_train(JaxConfig(checkpoint_dir=str(jdir), **fields), data['jax_train'], None)
+    steps = len(data['train']) // BATCH
+    assert os.path.exists(jdir / 'epoch_0_batch_2.ckpt') and steps >= 4
+    pdir = tmp_path / 'port' / 'transformer'
+    assert main(['convert-checkpoint', str(jdir / 'epoch_0_batch_2.ckpt'),
+                 '--out-dir', str(pdir)]) == 0
+    start = torch.load(pdir / 'epoch_0_batch_2.torch.pt', weights_only=True)
+    assert start['opt_type'] == 'adam' and start['step'] == 3
+    assert 'blocks.3.attn.out.kernel' in start['model_state_dict']
+
+    def config(d):
+        cfg = Config()
+        for k, v in dict(fields, checkpoint_dir=str(d), device_chunk_steps=1).items():
+            setattr(cfg, k, v)
+        return cfg
+
+    with caplog.at_level(logging.WARNING):
+        result = train(config(pdir), data['train'], None, device='cpu')
+    assert 'WARNING' not in caplog.text, caplog.text
+    assert result.windows_seen == (steps - 3) * BATCH
+    got = torch.load(pdir / 'epoch_0_batch_0.torch.pt', weights_only=True)
+    assert got['step'] == steps
+    with open(jdir / 'epoch_0_batch_0.ckpt', 'rb') as f:
+        want = weights.params_from_jax('transformer_flax', flax_msgpack.loads(f.read())['params'])
+    fresh = tmp_path / 'fresh' / 'transformer'
+    os.makedirs(fresh)
+    torch.save({k: start[k] for k in ('epoch', 'batch', 'model_state_dict')},
+               fresh / 'epoch_0_batch_2.torch.pt')
+    train(config(fresh), data['train'], None, device='cpu')
+    other = torch.load(fresh / 'epoch_0_batch_0.torch.pt', weights_only=True)
+    # not the attention's key biases, whose exact gradient is 0 (the softmax
+    # ignores a shift shared by every key: adam moves them by rounding noise
+    # alone), nor the heads the loss does not weigh (they do not move)
+    errs = np.array([[float((run['model_state_dict'][k] - w).norm()
+                            / (w - start['model_state_dict'][k]).norm())
+                      for run in (got, other)] for k, w in want.items()
+                     if not k.endswith('attn.key.bias')])
+    errs = errs[np.isfinite(errs).all(1)]
+    assert errs[:, 0].max() < GRAD_REL < np.median(errs[:, 1]), errs
+    # back: the converted state as the JAX package writes it
+    model = build_model_for_dataset(config(pdir), data['train'])
+    state = create_train_state(model, make_optimizer(model.named_parameters(), 'adam', 1e-3))
+    assert ckpt.load_checkpoint_file(state, str(jdir / 'epoch_0_batch_2.ckpt')) == (0, 2)
+    tree = flax_msgpack.loads(flax_msgpack.dumps(weights.jax_payload(
+        model, state.optimizer, 0, 2, step=state.step)))
+    with open(jdir / 'epoch_0_batch_2.ckpt', 'rb') as f:
+        raw = flax_msgpack.loads(f.read())
+    for key in ('params', 'opt_state', 'step'):
+        flat_a = dict(jax.tree_util.tree_flatten_with_path(tree[key])[0])
+        flat_b = dict(jax.tree_util.tree_flatten_with_path(raw[key])[0])
+        assert flat_a.keys() == flat_b.keys(), key
+        for path, v in flat_b.items():
+            np.testing.assert_array_equal(np.asarray(flat_a[path]), np.asarray(v),
+                                          err_msg=f'{key} {path}')
+    # soups of the flax tree
+    members = [str(jdir / 'epoch_0_batch_2.ckpt'), str(jdir / 'epoch_0_batch_0.ckpt')]
+    jax_soup_checkpoints(members, str(tmp_path / 'soup.ckpt'))
+    assert main(['convert-checkpoint', *members, '--soup', str(tmp_path / 's.torch.pt')]) == 0
+    soup = torch.load(tmp_path / 's.torch.pt', weights_only=True)['model_state_dict']
+    with open(tmp_path / 'soup.ckpt', 'rb') as f:
+        jsoup = weights.params_from_jax('transformer_flax', flax_msgpack.loads(f.read())['params'])
+    for k, v in jsoup.items():
+        assert torch.equal(soup[k], v), k

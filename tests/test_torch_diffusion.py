@@ -244,6 +244,35 @@ def test_denoiser_matches_jax_apply(pair, data):
                                atol=APPLY_REL * np.abs(want).max())
 
 
+FLAX = dict(d_model=64, num_layers=4, num_heads=4, attn_impl='flax')
+
+
+def test_flax_denoiser_eps_and_a_ddim_chain_match_jax(data):
+    """``attn_impl='flax'`` (the JAX EncoderBlock's flax attention, d_model
+    64, 4 layers, 4 heads): the weights cross bitwise both ways, eps against
+    ``model.apply`` at 2e-2 x max, and a DDIM chain started part way down the
+    schedule (``partial_frac`` 0.3, the JAX sampler's draws) at 5e-2 x max a
+    head, the tolerance of the ``vpu`` denoiser's partial chains."""
+    jm = _jax_model(**FLAX)
+    params = _jax_params(jm, 7)
+    assert 'MultiHeadDotProductAttention_0' in params['EncoderBlock_3']
+    pm = _port_model(**FLAX).eval()
+    pm.load_state_dict(weights.diffusion_state_dict_from_jax(params))
+    assert weights.model_family(pm) == weights.tree_family(params) == 'diffusion_flax'
+    back = dict(jax.tree_util.tree_flatten_with_path(
+        weights.diffusion_params_to_jax(pm.state_dict()))[0])
+    for path, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        np.testing.assert_array_equal(back[path], v, err_msg=str(path))
+    x, t, cond = _eps_inputs(data)
+    want = np.asarray(jax.jit(jm.apply)({'params': params}, jnp.asarray(x), jnp.asarray(t),
+                                        jnp.asarray(cond)))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(cond))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=APPLY_REL * np.abs(want).max())
+    got, want = _sample_both(jm, params, pm, data, SAMPLERS['partial0.3'])
+    _assert_heads_close(got, want, REL, 'flax partial0.3')
+
+
 @pytest.mark.parametrize('interpret', [False, True])
 def test_fused_denoiser_eps_matches_jax(pair, data, interpret, monkeypatch):
     """interpret=True runs the JAX side's Pallas kernel in interpret mode."""
@@ -447,8 +476,12 @@ def test_fused_inference_refuses_a_width_the_kernel_does_not_take():
     with pytest.raises(ValueError, match='multiple of 128.*d_model 64'):
         pd.make_sampler(pm, num_steps=4, fused_inference=True)
     pd.make_sampler(pm, num_steps=4)      # the plain chain takes it
-    with pytest.raises(NotImplementedError, match="not-to-port"):
-        _port_model(attn_impl='flax')
+    # the flax tree is ported; its fused path keeps the JAX refusal
+    flax = _port_model(attn_impl='flax')
+    with pytest.raises(ValueError, match="fused_inference consumes the vpu parameter tree; "
+                                         "this denoiser was built with attn_impl='flax'"):
+        pd.make_sampler(flax, num_steps=4, fused_inference=True)
+    pd.make_sampler(flax, num_steps=4)
 
 
 # -- checkpoints: target space, EMA, proposals ------------------------------------

@@ -200,28 +200,33 @@ def test_init_is_seeded_and_scaled(init_style):
 @pytest.mark.parametrize('model_type', ['groundlink', 'transformer', 'diffusion',
                                         'analytical'])
 def test_unported_model_types_name_their_roadmap_slice(model_type):
-    # the transformer is ported for both parameter trees ('vpu' and
-    # 'pallas'), and trains with dropout on the 'vpu' tree; the fused layer
-    # of the 'pallas' tree takes none, as the JAX model asserts. GroundLink
-    # is ported for eval and, with its default dropout, for training; only
-    # its banded conv lowering is not, which ROADMAP.md lists as not to port
+    # every model type the JAX get_model builds is ported, with every
+    # option: the transformer's three parameter trees ('vpu', 'flax' and
+    # 'pallas'), with dropout on the 'vpu' and 'flax' trees (the fused layer
+    # of the 'pallas' tree takes none, as the JAX model asserts); GroundLink
+    # with both conv lowerings, which share one parameter tree; the denoiser
+    # on the 'vpu' tree and on the flax-attention tree
     if model_type == 'groundlink':
-        out = get_model(model_type, **SMALL).train()(torch.from_numpy(_inputs(2)))
+        x = torch.from_numpy(_inputs(2))
+        out = get_model(model_type, **SMALL).train()(x)
         assert all(torch.isfinite(v).all() for v in out.values())
-        with pytest.raises(ValueError, match='ROADMAP.md lists the banded lowering'):
-            get_model(model_type, **SMALL, conv_impl='banded')
+        banded = get_model(model_type, **SMALL, conv_impl='banded')
+        out = banded.train()(x)
+        assert banded.conv_impl == 'banded' and all(torch.isfinite(v).all()
+                                                    for v in out.values())
+        assert set(banded.state_dict()) == set(get_model(model_type, **SMALL).state_dict())
         return
     if model_type == 'diffusion':
-        # ported for sampling: the denoiser builds on the vpu tree and
-        # predicts the noise of the 30 target channels; the flax tree is on
-        # the not-to-port list
-        model = get_model(model_type, **SMALL, d_model=128, num_heads=4).eval()
-        with torch.no_grad():
-            eps = model(torch.zeros(2, 4, 30), torch.tensor([0, 999]),
-                        torch.from_numpy(_inputs(2)))
-        assert eps.shape == (2, 4, 30) and torch.isfinite(eps).all()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md's not-to-port list"):
-            get_model(model_type, **SMALL, attn_impl='flax')
+        # the denoiser predicts the noise of the 30 target channels on
+        # either tree; the flax tree keeps flax's attention parameters
+        for attn in ('vpu', 'flax'):
+            model = get_model(model_type, **SMALL, d_model=128, num_heads=4,
+                              attn_impl=attn).eval()
+            with torch.no_grad():
+                eps = model(torch.zeros(2, 4, 30), torch.tensor([0, 999]),
+                            torch.from_numpy(_inputs(2)))
+            assert eps.shape == (2, 4, 30) and torch.isfinite(eps).all()
+            assert ('blocks.0.attn.query.kernel' in model.state_dict()) == (attn == 'flax')
         return
     if model_type == 'transformer':
         drop = {'dropout': True, 'dropout_prob': 0.1}
@@ -232,6 +237,11 @@ def test_unported_model_types_name_their_roadmap_slice(model_type):
         assert any(not torch.equal(a[k], b[k]) for k in a)     # new masks each forward
         with pytest.raises(ValueError, match='does not support dropout'):
             get_model(model_type, **SMALL, **drop, attn_impl='pallas')
+        flax = get_model(model_type, **SMALL, **drop, d_model=128, num_heads=4,
+                         attn_impl='flax').train()
+        a, b = flax(x), flax(x)
+        assert all(torch.isfinite(v).all() for v in a.values())
+        assert any(not torch.equal(a[k], b[k]) for k in a)
         return
     # the analytical baseline has no learnable parameters: get_model does not
     # build it, as the JAX get_model does not (models/analytical.py does)

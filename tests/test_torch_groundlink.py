@@ -200,11 +200,98 @@ def test_malformed_trees_raise():
 
 
 def test_banded_conv_is_not_ported():
+    """Ported (the test keeps its name): ``conv_impl='banded'`` builds the
+    same parameter tree; its train forward (dropout off) agrees with the JAX
+    banded model's and with the port's own direct conv at 2e-2 x max a
+    head, and its eval forward is K4's, the direct conv model's bitwise."""
     sized = dict(SKELETON, history_len=20, stride=5)
     assert isinstance(get_model('groundlink', **sized, conv_impl='xla'), Groundlink)
-    with pytest.raises(ValueError, match="'banded' is not ported"):
-        get_model('groundlink', **sized, conv_impl='banded')
+    assert get_model('groundlink', **sized, conv_impl='banded').conv_impl == 'banded'
     assert Config().conv_impl == 'xla'
+    with pytest.raises(ValueError, match='conv_impl must be one of'):
+        Groundlink(**SMALL, conv_impl='fft')
+    x = _inputs(6, frames=5, seed=9)
+    jm = JaxGroundlink(**SMALL, output_data_format='all_frames', fc_dropout=0.0,
+                       conv_impl='banded')
+    params = _jax_params(jm, x, seed=3)
+    want = jax.jit(lambda p, xx: jm.apply({'params': p}, xx, train=True))(params, jnp.asarray(x))
+    models = {impl: Groundlink(**SMALL, fc_dropout=0.0, conv_impl=impl) for impl in
+              ('banded', 'xla')}
+    outs = {}
+    for impl, model in models.items():
+        model.load_state_dict(groundlink_state_dict_from_jax(params))
+        with torch.no_grad():
+            outs[impl] = (model.train()(torch.from_numpy(x)), model.eval()(torch.from_numpy(x)))
+    for k in want:
+        b = np.asarray(want[k], np.float32)
+        for impl in ('banded', 'xla'):
+            a = outs[impl][0][k].numpy()
+            assert np.abs(a - b).max() <= 2e-2 * np.abs(b).max(), (impl, k)
+        assert torch.equal(outs['banded'][1][k], outs['xla'][1][k]), k
+    assert any(not torch.equal(outs['banded'][0][k], outs['xla'][0][k]) for k in want)
+
+
+def test_band_selector_is_the_jax_one():
+    from inferbiomechanics_tpu.models.groundlink import _band_selector
+    from inferbiomechanics_tpu_torch.models.groundlink import band_selector
+    for t, k in ((10, 7), (4, 7), (5, 3), (1, 7)):
+        np.testing.assert_array_equal(band_selector(t, k), _band_selector(t, k))
+
+
+@pytest.mark.parametrize('fmt', FORMATS)
+def test_banded_train_step_with_the_jax_dropout_masks(fmt):
+    """The banded model's train step against the JAX banded model's, JAX's
+    own dropout masks fed to the port (cnn 0.1, fc 0.3): the outputs and
+    the gradient of every parameter at 5e-2 x max, as for the direct conv
+    above; the loss within 2e-2 of the JAX model's in float32, or within
+    twice the JAX bf16 model's own distance from it where that is larger
+    (two bf16 evaluations that round at different places)."""
+    from inferbiomechanics_tpu.data.dataset import _offsets, label_layout
+    from inferbiomechanics_tpu.data.dataset import unpack as jax_unpack
+    from inferbiomechanics_tpu.loss.evaluator import LossConfig as JaxLossConfig
+    from inferbiomechanics_tpu.loss.evaluator import loss_and_metrics as jax_loss_and_metrics
+    from inferbiomechanics_tpu_torch.data.dataset import unpack
+    from inferbiomechanics_tpu_torch.loss.evaluator import LossConfig, loss_and_metrics
+    dropout = {'cnn_dropout': 0.1, 'fc_dropout': 0.3}
+    x = _inputs(6, frames=5, seed=12)
+    frames = 5 if fmt == 'all_frames' else 1
+    lab = _offsets(label_layout(23, 2))
+    width = sum(w for _, w in label_layout(23, 2))
+    y = np.random.default_rng(13).normal(size=(6, frames, width)).astype(np.float32)
+    jm = JaxGroundlink(**SMALL, output_data_format=fmt, conv_impl='banded', **dropout)
+    params = _jax_params(jm, x, seed=5)
+    key = jax.random.PRNGKey(17)
+    masks = _jax_mask_fn(jm)(params, x, key)
+
+    def jloss(p):
+        out = jm.apply({'params': p}, jnp.asarray(x), train=True, rngs={'dropout': key})
+        return jax_loss_and_metrics(out, jax_unpack(jnp.asarray(y), lab), JaxLossConfig())[0], out
+
+    (jl, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    model = Groundlink(**SMALL, output_data_format=fmt, conv_impl='banded', **dropout)
+    model.load_state_dict(groundlink_state_dict_from_jax(params))
+    model.train()
+    model.dropout_masks = _mask_source(masks)
+    got = model(torch.from_numpy(x))
+    for k in want:
+        a, b = got[k].detach().numpy(), np.asarray(want[k], np.float32)
+        assert np.abs(a - b).max() <= 5e-2 * np.abs(b).max(), k
+    loss, _ = loss_and_metrics(got, unpack(torch.from_numpy(y), lab), LossConfig())
+    jf = JaxGroundlink(**SMALL, output_data_format=fmt, conv_impl='banded',
+                       compute_dtype=jnp.float32, **dropout)
+    exact = float(jax_loss_and_metrics(
+        jf.apply({'params': params}, jnp.asarray(x), train=True, rngs={'dropout': key}),
+        jax_unpack(jnp.asarray(y), lab), JaxLossConfig())[0])
+    limit = max(2e-2, 2 * abs(float(jl) - exact) / exact)
+    assert abs(float(loss.detach()) - exact) / exact <= limit
+    loss.backward()
+    grads = groundlink_params_to_jax({n: p.grad for n, p in model.named_parameters()})
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(grads)[0])
+    for path, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]:
+        g = np.asarray(g)
+        np.testing.assert_allclose(np.asarray(flat_t[path]), g, rtol=0,
+                                   atol=5e-2 * np.abs(g).max() + 1e-12,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 @pytest.mark.parametrize('dropout', [{'cnn_dropout': 0.1, 'fc_dropout': 0.0},

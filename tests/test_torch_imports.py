@@ -127,7 +127,8 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'train.loop', 'cli.train_cmd', 'cli.analyze_cmd', 'cli.motion',
                    'utils.wandb_compat', 'models.diffusion', 'utils.flax_msgpack',
                    'torch_compat', 'cli.convert_checkpoint_cmd', 'parallel.dist',
-                   'parallel.mesh', 'parallel.sharding_rules', 'train.sharded_data',
+                   'parallel.mesh', 'parallel.sharding_rules', 'parallel.pipeline',
+                   'train.sharded_data',
                    'train.sweep', 'cli.sweep_cmd', 'ops.quant', 'ops.library', 'inference',
                    'cli.export_cmd', 'cli.save_prediction_csv_cmd', 'viz.ws', 'viz.mesh',
                    'viz.viewer', 'viz.live', 'viz.live_model', 'utils.geometry',

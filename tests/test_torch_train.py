@@ -522,15 +522,21 @@ def test_compute_report_scores_the_dev_batches(data, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('fields,flag', [
-    (dict(pipeline_parallel=2), '--pipeline-parallel'),
+    # ported (parallel/pipeline.py; tests/test_torch_pipeline.py trains it on
+    # gloo ranks): one process is a world of one device, which
+    # --pipeline-parallel 2 does not divide (the JAX make_pipeline_mesh
+    # refusal, before any file); the pallas tree keeps the JAX loop's refusal
+    (dict(model_type='transformer', attn_impl='vpu', pipeline_parallel=2),
+     '--pipeline-parallel'),
     # ported: one process is a world of one device, which --model-parallel 2
     # does not divide (the JAX package's make_mesh refusal, before any file)
     (dict(model_parallel=2), '--model-parallel'),
     # ported: the case holds the flag working (one process: a single data
     # shard, so ignored as the JAX package ignores it; the f32 run's checkpoints)
     (dict(grad_allreduce_dtype='bf16'), None),
-    # the JAX diffusion loop never reads --compute-report; the port's refuses it
-    (dict(model_type='diffusion', compute_report=True), '--compute-report'),
+    # ported: the case holds the flag working (the JAX diffusion loop never
+    # reads it: the same checkpoint as the run without it)
+    (dict(model_type='diffusion', compute_report=True), None),
     # ported: the case holds the flag working (the same checkpoints as the
     # synchronous writer's)
     (dict(async_checkpoint=True), None),
@@ -553,6 +559,31 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     cfg = _config(Config, fields.pop('model_type'), checkpoint_dir=str(tmp_path / 'c'),
                   **fields)
     run = train_diffusion if cfg.model_type == 'diffusion' else train
+    if cfg.pipeline_parallel > 1:
+        with pytest.raises(ValueError, match='1 devices not divisible by pipe=2'):
+            run(cfg, data['train'], data['dev'], device='cpu')
+        with pytest.raises(ValueError, match="--pipeline-parallel supports attn_impl "
+                                             "'vpu'/'flax' only"):
+            run(dataclasses.replace(cfg, attn_impl='pallas'), data['train'], data['dev'],
+                device='cpu')
+        assert not os.path.exists(tmp_path / 'c')
+        return
+    if cfg.compute_report:
+        ds = WindowDataset(str(data['root'] / 'train'), window_size=50, stride=5,
+                           output_data_format='all_frames', skip_loading_skeletons=True)
+        files = []
+        for d, report in (('r', True), ('n', False)):
+            small = dataclasses.replace(
+                cfg, checkpoint_dir=str(tmp_path / d), output_data_format='all_frames',
+                d_model=64, num_layers=1, num_heads=4, diffusion_timesteps=64, epochs=1,
+                compute_report=report)
+            assert run(small, ds, None, device='cpu').epochs_run == 1
+            files.append(ckpt.list_checkpoints(small.checkpoint_dir))
+        assert [f[:2] for f in files[0]] == [f[:2] for f in files[1]] == [(0, 0)]
+        for (_, _, a), (_, _, b) in zip(*files):
+            with open(a, 'rb') as fa, open(b, 'rb') as fb:
+                assert fa.read() == fb.read(), a
+        return
     if cfg.device_data == 'stream':
         ds = data['train']
         files = []
@@ -631,7 +662,9 @@ def test_unported_training_flags_raise_by_name(data, tmp_path, fields, flag):
     # ported: the case holds the flag working (pickle-data's blocks train
     # bitwise as the .b3d files)
     (['--use-pickled'], None, None),
-    (['--model-type', 'groundlink', '--conv-impl', 'banded'], ValueError, 'not ported'),
+    # ported: the case holds the flag working (the banded lowering trains;
+    # its checkpoint is the direct conv's tree and evaluates the same)
+    (['--model-type', 'groundlink', '--conv-impl', 'banded'], None, 'banded'),
     (['--model-type', 'transformer', '--attn-impl', 'pallas', '--dropout',
       '--dropout-prob', '0.1'], ValueError, 'does not support dropout'),
     ([], RuntimeError, r'is_available\(\) is False'),        # --device cuda is the default
@@ -646,6 +679,23 @@ def test_train_command_refusals(data, tmp_path, argv, error, match, monkeypatch)
             str(tmp_path), *argv]
     if '--device' not in argv and argv:
         args += ['--device', 'cpu']
+    if match == 'banded':
+        assert main([*args, '--epochs', '1']) == 0
+        with open(tmp_path / 'groundlink' / 'run_config.json') as f:
+            assert json.load(f)['conv_impl'] == 'banded'
+        sd = torch.load(tmp_path / 'groundlink' / 'epoch_0_batch_0.torch.pt',
+                        weights_only=True)['model_state_dict']
+        x = next(iter(PrefetchLoader(data['dev'], 4, shuffle=False).epoch(seed=0))).inputs
+        outs = []
+        for impl in ('banded', 'xla'):
+            model = build_model_for_dataset(_config(Config, 'groundlink', conv_impl=impl),
+                                            data['train'])
+            model.load_state_dict(sd)
+            with torch.no_grad():
+                outs.append(model.eval()(x))
+        for k, v in outs[0].items():
+            assert torch.equal(v, outs[1][k]), k
+        return
     if error is None:
         home = tmp_path / 'home'
         shutil.copytree(data['root'], home)

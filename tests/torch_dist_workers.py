@@ -51,7 +51,7 @@ def run_jobs(jobs):
     fns = {'steps': steps, 'sharded_epoch': sharded_epoch, 'loop': loop,
            'loops': loop, 'collectives': collectives, 'state_loop': state_loop,
            'shard_gather': shard_gather, 'sweep_cli': sweep_cli, 'sweep_epoch': sweep_epoch,
-           'exploit': exploit}
+           'exploit': exploit, 'pipeline_step': pipeline_step}
     return [fns[job['fn']](job) for job in jobs]
 
 
@@ -383,3 +383,43 @@ def exploit(job):
     before = tensors()
     S.exploit(state, job['src'], job['dst'], placement)
     return {'before': before, 'after': tensors()}
+
+
+def pipeline_step(job):
+    """``parallel/pipeline.py`` at ``--pipeline-parallel`` ``pipe``: the
+    model of ``cfg`` holding ``state`` (a canonical state dict of numpy
+    arrays), its pipeline forward of this rank's rows of ``x`` (the ``data``
+    coordinate's block of the global batch), then ``steps`` train steps
+    under ``opt`` at ``lr`` on its rows of ``x`` / ``y``. Returns the
+    forward's outputs, each step's metrics, the canonical state gathered
+    after the steps (with the optimizer's moments) and the point-to-point
+    traffic."""
+    from inferbiomechanics_tpu_torch.parallel import pipeline as P
+    from inferbiomechanics_tpu_torch.parallel.mesh import DATA_AXIS
+    from inferbiomechanics_tpu_torch.train.loop import loss_config_from
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    cfg = _config(job['cfg'])
+    ds = _dataset(job)
+    model = build_model_for_dataset(cfg, ds)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in job['state'].items()})
+    plan = P.make_stage_plan(model.num_layers, job['pipe'])
+    d, b = plan.layout.coord(DATA_AXIS), job['x'].shape[0] // plan.n_dp
+    x = torch.from_numpy(job['x'][d * b:(d + 1) * b].copy())
+    y = torch.from_numpy(job['y'][d * b:(d + 1) * b].copy())
+    dist.reset_p2p_stats()
+    out = P.make_pipeline_forward(model, plan, job.get('micro'))(x)
+    state = P.create_pipeline_state(
+        model, make_optimizer(model.named_parameters(), job['opt'], job['lr'],
+                              grad_clip_norm=job.get('clip', 0.0)), plan)
+    dist.attach(state, model, None, None, plan.data_group)
+    step = P.make_pipeline_train_step(model, ds.lab_offsets, loss_config_from(cfg), plan,
+                                      job.get('micro'), remat=job.get('remat', False))
+    metrics = [{k: v.detach().numpy().copy() for k, v in step(state, x, y).items()}
+               for _ in range(job.get('steps', 1))]
+    P.canonical_trainstate_from_pipeline(state, plan)
+    opt = state.optimizer
+    return {'out': {k: v.numpy().copy() for k, v in out.items()}, 'metrics': metrics,
+            'state': _snapshot(model), 'stage': plan.stage,
+            'moments': {n: {k: v.numpy().copy() for k, v in opt.state[p].items()}
+                        for n, p in model.named_parameters() if p in opt.state},
+            'p2p': dict(dist.p2p_stats)}
