@@ -305,6 +305,21 @@ Phases, each of which fails the run:
      legacy subjects of 2 x 1500 frames, each output byte for byte what
      ``ensure_tpu_format`` writes, then ``--verify`` and ``--infer-schema``
      clean. ``--only-phase 20`` runs the build and this phase alone.
+ 21. the last options (``phase_options``):
+     ``--attn-impl flax`` in the transformer and the denoiser, ``--conv-impl
+     banded`` in GroundLink. ``--only-phase 21`` runs the build and this
+     phase alone.
+ 22. the quality studies (``phase_quality``; ``inferbiomechanics_tpu_torch/
+     scripts/``) on the study split of 5796 train and 2898 dev windows,
+     each through its command-line entry in this process: ``parity_rmse
+     --model feedforward --epochs 2`` and ``anchor_quality --family
+     transformer --attn-impl pallas --epochs 1``. The data's sha256 equals
+     ``docs/port_parity/study_data.json``'s; a profiler trace of each run
+     holds K1 once a dev batch, K2 4 x (train steps + dev batches) and K3's
+     three kernels 4 x train steps, as the wrappers count them; each curve
+     is finite and ends with its dev force and COM-acc errors below those
+     of its initial weights.
+     ``--only-phase 22`` runs the build and this phase alone.
 
 Profiler device times (``ops/tune.py::device_times``) come from traces that
 hold every launch of the work (a window opens with 256 launches that are not
@@ -6200,6 +6215,102 @@ def phase_last_commands(torch, port, fm, root, seed, card, data, logs=None, devi
     return report
 
 
+# 22. the quality studies (inferbiomechanics_tpu_torch/scripts/): the port's
+# parity_rmse for feedforward (2 epochs) and anchor_quality's pallas
+# transformer (1 epoch) on the study split, each through its command-line
+# entry in this process. Their digest is the study data's on record, every
+# dev batch goes through K1 / K2 and every train step of the pallas model
+# through K3 (named in a profiler trace, and counted by the wrappers alike),
+# and each curve is finite and ends with its force and COM-acc errors below
+# those of its initial weights.
+QUALITY_KERNELS = ('fused_mlp_kernel', 'fused_encoder_kernel', 'encoder_bwd_tile_kernel',
+                   'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+
+
+def _kernels_by_name(fn, names):
+    """Run ``fn()`` under a trace of the device alone
+    (``ops/tune.py::traced_kernels``) and return its result and its GPU
+    kernels counted by the first of ``names`` their name holds ('other' for
+    the rest)."""
+    from inferbiomechanics_tpu_torch.ops.tune import traced_kernels
+    result, kernels = traced_kernels(fn, host=False)
+    counts = dict.fromkeys((*names, 'other'), 0)
+    for name, _ in kernels:
+        counts[next((n for n in names if n in name), 'other')] += 1
+    return result, counts
+
+
+def phase_quality(torch, root, seed, card, device='cuda'):
+    """22. the quality studies on the study split (trial length 1500)."""
+    from inferbiomechanics_tpu_torch.scripts import anchor_quality, parity_rmse as P
+    from inferbiomechanics_tpu_torch.train.step import make_eval_step
+    t_phase = time.perf_counter()
+    want = json.loads((REPO / 'docs' / 'port_parity' / 'study_data.json').read_text())
+    data = root / 'quality_study'
+    report = {'card': card}
+    for fmt in ('last_frame', 'all_frames'):
+        digest = P.build_study_data(str(data), want['trial_length'], fmt)[7]
+        _check(digest == want[fmt], f'study data {fmt}: sha256 {digest}, on record {want[fmt]}')
+    runs = (('feedforward', P.main, ['--model', 'feedforward', '--epochs', '2'], 'last_frame',
+             'vpu'),
+            ('transformer', anchor_quality.main, ['--family', 'transformer', '--attn-impl',
+                                                  'pallas', '--epochs', '1'], 'all_frames',
+             'pallas'))
+    for model_type, main, argv, fmt, attn in runs:
+        out = root / f'quality_{model_type}.json'
+        t0, before = time.perf_counter(), P.kernel_launches()
+        rc, traced = _kernels_by_name(lambda: main(  # noqa: B023
+            [*argv, '--seeds', str(seed), '--data', str(data), '--out', str(out),
+             '--device', device]), QUALITY_KERNELS)
+        seconds = time.perf_counter() - t0
+        counted = P.launches_since(before)
+        res = json.loads(out.read_text())
+        run = res['runs'][str(seed)]
+        _check(rc == 0 and res['data_sha256'] == want[fmt] and res['card'] == card,
+               f'{model_type}: rc {rc}, sha256 {res["data_sha256"]}, card {res["card"]}')
+        _check(run['launches'] == counted, f'{model_type}: run launches {run["launches"]}, '
+                                           f'the wrappers counted {counted}')
+        # the initial weights, scored as the run scores an epoch
+        ds, _, _, y_tr, x_dev, lab_dev, _, _ = P.build_study_data(
+            str(data), want['trial_length'], fmt)
+        model = P.study_model(model_type, ds, attn_impl=attn,
+                              generator=torch.Generator().manual_seed(seed), device=device)
+        eval_step = make_eval_step(model, ds.lab_offsets, P.study_loss_config())
+        yd = torch.zeros((P.DEV_BATCH, *y_tr.shape[1:]), device=device)
+        init = P.dev_metrics(P.dev_predictions(
+            lambda xb: eval_step(None, xb, yd[:xb.shape[0]])[0],  # noqa: B023
+            P.to_device(x_dev, device)), lab_dev)
+        curve = run['curve']
+        # CoP is not held: an untrained model's near-zero CoPs score about
+        # as well as a model one epoch in
+        _check(all(np.isfinite(c[m]) for c in curve for m in P.METRICS)
+               and all(curve[-1][m] < init[m] for m in ('force_avg_err', 'com_acc_avg_err')),
+               f'{model_type}: curve {curve} from the initial weights\' {init}')
+        steps = res['config']['n_train'] // P.BATCH * res['config']['epochs']
+        evals = -(-res['config']['n_dev'] // P.DEV_BATCH) * res['config']['epochs']
+        layers = ENC_FULL['layers'] if attn == 'pallas' else 0
+        want_traced = {'fused_mlp_kernel': evals if model_type == 'feedforward' else 0,
+                       'fused_encoder_kernel': layers * (steps + evals),
+                       'encoder_bwd_tile_kernel': layers * steps,
+                       'encoder_wgrad_kernel': layers * steps,
+                       'encoder_bwd_reduce_kernel': layers * steps}
+        _check(all(traced[k] == v for k, v in want_traced.items())
+               and counted == {'K1': want_traced['fused_mlp_kernel'],
+                               'K2': want_traced['fused_encoder_kernel'],
+                               'K3': 3 * layers * steps, 'K4': 0},
+               f'{model_type}: traced {traced}, counted {counted}, want {want_traced}')
+        report[f'{model_type} {attn}'] = dict(
+            seconds=seconds, run_seconds=run['seconds'], steps=steps, dev_batches=evals,
+            traced=traced, launches=counted, init=init, curve=curve)
+        print(f'[quality] {model_type} {attn}: {steps} steps, {evals} dev batches in '
+              f'{seconds:.1f} s traced ({run["seconds"]:.1f} s the run); launches {counted}; '
+              f'dev force {init["force_avg_err"]:.4f} at init -> '
+              f'{curve[-1]["force_avg_err"]:.4f} ({card})', flush=True)
+    report['seconds'] = time.perf_counter() - t_phase
+    print(f'[quality] phase 22: {report["seconds"]:.1f} s ({card})', flush=True)
+    return report
+
+
 def _jsonl_runs(torch, port, root, seed, device):
     """Two short feedforward ``train`` runs (seeds ``seed`` and ``seed`` + 1)
     logging to the JSONL fallback, wandb hidden; their log files."""
@@ -6263,7 +6374,7 @@ def _print_times(card, what, b, ms, dev, library, bound):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19, 20, 21],
+    ap.add_argument('--only-phase', type=int, choices=[15, 16, 17, 18, 19, 20, 21, 22],
                     default=None,
                     help='build the kernels and run this phase alone (no result lines)')
     if sys.argv[1:2] == ['--rank-jobs']:         # a torchrun rank of phase 16
@@ -6459,6 +6570,14 @@ def main() -> int:
             ds = WindowDataset(str(data), window_size=50, stride=5, skip_loading_skeletons=True)
             report = phase_options(torch, options_port(), fe, fg, diffusion, tmp, args.seed,
                                    card, data, ds)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps(report, default=str), flush=True)
+        return 0
+    if args.only_phase == 22:
+        tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
+        try:
+            report = phase_quality(torch, tmp, args.seed, card)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         print(json.dumps(report, default=str), flush=True)
@@ -6706,6 +6825,11 @@ def main() -> int:
                                 data, ds)
         mark('21 options')
 
+        # 22. the quality studies: parity_rmse (feedforward, 2 epochs) and
+        # anchor_quality (the pallas transformer, 1 epoch) on the study split
+        quality = phase_quality(torch, tmp, args.seed, card)
+        mark('22 quality studies')
+
         # 6, the part that needs the dataset: a whole train step
         steps = phase_step_times(torch, port, fe, ds, make_device_train_step,
                                  make_optimizer, create_train_state, card, args.seed)
@@ -6910,7 +7034,8 @@ def main() -> int:
           f'{scale_out["seconds"]:.1f} s, phase 15 {data_parallel["seconds"]:.1f} s, phase 16 '
           f'{model_parallel["seconds"]:.1f} s, phase 17 {inference["seconds"]:.1f} s, phase 18 '
           f'{viewer["seconds"]:.1f} s, phase 19 {extras["seconds"]:.1f} s, phase 20 '
-          f'{last["seconds"]:.1f} s, phase 21 {options["seconds"]:.1f} s ({card})',
+          f'{last["seconds"]:.1f} s, phase 21 {options["seconds"]:.1f} s, phase 22 '
+          f'{quality["seconds"]:.1f} s ({card})',
           flush=True)
     mark('6 times')
     print('[smoke] seconds by part: ' + ', '.join(
@@ -6944,7 +7069,8 @@ def main() -> int:
                           windows=viewer['windows']),
               use_pickled=extras['use_pickled'],
               plot_errors=extras['plot_errors']['feedforward (K1)'],
-              sanity_check=extras['sanity_check']),
+              sanity_check=extras['sanity_check'],
+              quality_study_launches=quality['feedforward vpu']['launches']['K1']),
         entry(K2, k2_launches, k2_err, 'B=4096, T=10, d=256, H=8, mlp 1024', k2,
               library='nn.TransformerEncoderLayer bf16', launches_per_forward=n_layers,
               stack_ms={str(b): v['ms'] for b, v in k2_stack.items()},
@@ -6974,6 +7100,7 @@ def main() -> int:
               viewer=dict(viewer['pallas'], frames=viewer['frames'], windows=viewer['windows']),
               profile=extras['profile'],
               # the paths that run no K2: the pipeline's stages and the flax tree
+              quality_study_launches=quality['transformer pallas']['launches']['K2'],
               pipeline=model_parallel['train_pp2'],
               flax=dict(transformer=options['flax_transformer'],
                         denoiser=options['flax_denoiser'])),
@@ -6994,7 +7121,8 @@ def main() -> int:
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
               train=trained, train_step=steps, chunked=chunked,
               profile_trace_launches=sum(extras['profile']['trace_kernels'][k]
-                                         for k in ENC_KERNELS[1:])),
+                                         for k in ENC_KERNELS[1:]),
+              quality_study=quality['transformer pallas']),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',
               k4['last_frame'],

@@ -112,14 +112,18 @@ class ShortTraceError(AssertionError):
     """A profiler trace that lacks some of the launches it ran."""
 
 
-def traced_kernels(fn):
+def traced_kernels(fn, host: bool = True):
     """Run ``fn()`` once under ``torch.profiler``; return its result and the
     (name, device us) of each GPU kernel (and copy) that started after
-    ``fn()`` did, in trace order."""
+    ``fn()`` did, in trace order. ``host`` False traces the device alone (a
+    whole training run holds ~10^5 host operations, which a trace of the
+    host takes minutes to record and read): the work then starts after the
+    pre-roll's idle margin, the first gap of at least half of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     one = torch.zeros(1, device='cuda')
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(PRE_ROLL):
             one.add_(1.0)
         torch.cuda.synchronize()
@@ -128,12 +132,21 @@ def traced_kernels(fn):
             result = fn()
             torch.cuda.synchronize()
         time.sleep(TRACE_MARGIN_S)
-    events = prof.events()
-    begin = min(e.time_range.start for e in events if e.name == WORK_RANGE)
     # the range itself shows on the device's timeline too: not a kernel
-    return result, [(e.name, e.time_range.elapsed_us()) for e in events
-                    if e.device_type == DeviceType.CUDA and e.name != WORK_RANGE
-                    and e.time_range.start >= begin]
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.name != WORK_RANGE]
+    if host:
+        begin = min(e.time_range.start for e in prof.events() if e.name == WORK_RANGE)
+        return result, [(e.name, e.time_range.elapsed_us()) for e in device
+                        if e.time_range.start >= begin]
+    device.sort(key=lambda e: e.time_range.start)
+    gap_us = TRACE_MARGIN_S / 2 * 1e6
+    first = next((i for i in range(1, len(device)) if device[i].time_range.start
+                  - device[i - 1].time_range.end >= gap_us), None)
+    if first is None or first > PRE_ROLL:
+        raise ShortTraceError(f'no idle margin after the pre-roll in a trace of '
+                              f'{len(device)} device events')
+    return result, [(e.name, e.time_range.elapsed_us()) for e in device[first:]]
 
 
 def device_times(fn, iters=20):

@@ -327,6 +327,51 @@ def transformer_pallas_state_dict_from_jax(params: Mapping) -> Dict[str, torch.T
     return sd
 
 
+# a ``vpu`` EncoderBlock_{i}'s entries under the ``pallas`` tree's
+# enc{i}_{name} (kernels [in, out] in both trees)
+_ENC_FROM_BLOCK = {
+    'ln1_scale': ('LayerNorm_0', 'scale'), 'ln1_bias': ('LayerNorm_0', 'bias'),
+    'wqkv': ('ShortWindowAttention_0', 'qkv', 'kernel'),
+    'bqkv': ('ShortWindowAttention_0', 'qkv', 'bias'),
+    'wproj': ('ShortWindowAttention_0', 'proj', 'kernel'),
+    'bproj': ('ShortWindowAttention_0', 'proj', 'bias'),
+    'ln2_scale': ('LayerNorm_1', 'scale'), 'ln2_bias': ('LayerNorm_1', 'bias'),
+    'wmlp1': ('Dense_0', 'kernel'), 'bmlp1': ('Dense_0', 'bias'),
+    'wmlp2': ('Dense_1', 'kernel'), 'bmlp2': ('Dense_1', 'bias'),
+}
+
+
+def transformer_vpu_tree_to_pallas(params: Mapping) -> Dict:
+    """A JAX ``vpu`` transformer tree -> the ``pallas`` tree of the same
+    function: each ``EncoderBlock_{i}`` flattened into ``enc{i}_*``, the
+    rest as it is."""
+    if any(_ENC_RE.fullmatch(k) for k in params) or _has_flax_attention(params):
+        raise ValueError("not an attn_impl='vpu' transformer tree")
+    out = {k: v for k, v in params.items() if not re.fullmatch(r'EncoderBlock_\d+', k)}
+    for i in range(_num_blocks(params)):
+        for name, path in _ENC_FROM_BLOCK.items():
+            node = params[f'EncoderBlock_{i}']
+            for part in path:
+                node = node[part]
+            out[f'enc{i}_{name}'] = np.asarray(node)
+    return out
+
+
+def transformer_pallas_tree_to_vpu(params: Mapping) -> Dict:
+    """The inverse of :func:`transformer_vpu_tree_to_pallas`."""
+    layers = sorted({int(m.group(1)) for k in params if (m := _ENC_RE.fullmatch(k))})
+    if not layers:
+        raise ValueError("no enc{i}_* parameters: not an attn_impl='pallas' tree")
+    out = {k: v for k, v in params.items() if not _ENC_RE.fullmatch(k)}
+    for i in layers:
+        for name, (*parents, leaf) in _ENC_FROM_BLOCK.items():
+            node = out.setdefault(f'EncoderBlock_{i}', {})
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = np.asarray(params[f'enc{i}_{name}'])
+    return out
+
+
 def _transformer_sd_from_jax(params: Mapping, num_layers: int,
                              dense_table=_TRANSFORMER_DENSE,
                              flax_attention: bool = False) -> Dict[str, torch.Tensor]:
