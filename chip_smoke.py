@@ -175,7 +175,7 @@ Phases, each of which fails the run:
      analytical --compute-report`` at B=1 in chunks of 64 and of 1 (one
      CUDA graph a batch shape; rows and report equal), its first 8 batches
      graphed bitwise equal to the eager step and against the float64 CPU
-     step, launches a batch eager and replayed and a chunk of 16 batches'
+     step, launches a batch eager and replayed and a chunk of 8 batches'
      idle share in a profiler trace, and B=512 on phase 8's 24 batches;
      ``analyze --compute-report`` of phase 8's feedforward and GroundLink
      checkpoints (a K1 / K4 launch a forward, rows unchanged, the report's
@@ -307,7 +307,10 @@ Phases, each of which fails the run:
      clean. ``--only-phase 20`` runs the build and this phase alone.
  21. the last options (``phase_options``):
      ``--attn-impl flax`` in the transformer and the denoiser, ``--conv-impl
-     banded`` in GroundLink. ``--only-phase 21`` runs the build and this
+     banded`` in GroundLink; both flax runs converted to the ``vpu`` tree by
+     ``scripts/convert_attn_checkpoint.py`` (``.torch.pt`` and ``.ckpt``,
+     there and back bitwise) and served, scored and sampled through K2
+     (``phase_converted_flax``). ``--only-phase 21`` runs the build and this
      phase alone.
  22. the quality studies (``phase_quality``; ``inferbiomechanics_tpu_torch/
      scripts/``) on the study split of 5796 train and 2898 dev windows,
@@ -768,14 +771,15 @@ def _device_us_by_name(torch, fn, names, iters: int = 10) -> dict:
     return device_us_by_name(fn, names, iters)[0]
 
 
-def _time_three(torch, fns: dict):
+def _time_three(torch, fns: dict, iters: int = 10):
     """CUDA-event time (ms; plain, library, kernel, kernel, library, plain:
-    the better of two runs each) and profiler device time (us) of the
-    'kernel', 'plain' and 'library' callables."""
+    the better of two medians of ``iters`` calls each) and profiler device
+    time (us, ``iters`` traced calls) of the 'kernel', 'plain' and 'library'
+    callables."""
     ms = {}
     for name in ('plain', 'library', 'kernel', 'kernel', 'library', 'plain'):
-        ms[name] = min(ms.get(name, float('inf')), _cuda_ms(torch, fns[name]))
-    return ms, {name: _device_us(torch, f) for name, f in fns.items()}
+        ms[name] = min(ms.get(name, float('inf')), _cuda_ms(torch, fns[name], iters=iters))
+    return ms, {name: _device_us(torch, f, iters) for name, f in fns.items()}
 
 
 def _bf16_chain(torch, x, layers, act):
@@ -2782,7 +2786,7 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
       ``--eval-chunk-steps`` 64 and 1 (rows and report equal), its first 8
       batches through the graphed runner bitwise equal to the eager step and
       against the float64 CPU step, the launches a batch eager and replayed
-      (profiler trace), a chunk of 16 batches' idle share, and B=512 on
+      (profiler trace), a chunk of 8 batches' idle share, and B=512 on
       ``wide`` (phase 8's split);
     - ``analyze --compute-report`` of phase 8's feedforward and GroundLink
       checkpoints (``root / 'ckpt_ff'``, ``'ckpt_gl'``): a K1 / K4 launch a
@@ -2979,7 +2983,7 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
         graph = list(runner.graphs.values())[0]
         row = graph.row.clone()
         _, replay_k = traced_kernels(lambda: graph(row))
-        chunk = batches[:16]     # a trace of 64 replays holds 843k launches
+        chunk = batches[:8]      # a trace of 64 replays holds 843k launches
         cx, cy, cs = (np.stack([getattr(bt, a) for bt in chunk])
                       for a in ('inputs', 'labels', 'subject_indices'))
         # the wall clock untraced (tracing 13k launches a replay slows the
@@ -2998,14 +3002,15 @@ def phase_physics(torch, port, fm, fg, step_mod, root, seed, card, wide=None,
             launches_eager=len(eager_k), launches_replayed=len(replay_k),
             device_us_eager=sum(us for _, us in eager_k),
             device_us_replayed=sum(us for _, us in replay_k),
-            chunk_of_16=dict(wall_ms=wall['s'] * 1e3, busy_ms=busy * 1e3,
+            chunk_of_8=dict(wall_ms=wall['s'] * 1e3, busy_ms=busy * 1e3,
                              idle_share=1 - busy / wall['s'], launches=len(chunk_k)))
         _check(abs(len(replay_k) - len(eager_k)) <= 8,
                f'a replay ran {len(replay_k)} kernels, the eager step {len(eager_k)}')
         print(f'[physics] analytical step at B=1, profiler trace: {len(eager_k)} launches '
               f'eager ({report["analytical"]["device_us_eager"]:.1f} us device), '
               f'{len(replay_k)} replayed ({report["analytical"]["device_us_replayed"]:.1f} '
-              f'us device); a chunk of 16 batches: {wall["s"] * 1e3:.2f} ms wall (untraced), '
+              f'us device); a chunk of {len(chunk)} batches: {wall["s"] * 1e3:.2f} ms wall '
+              f'(untraced), '
               f'{busy * 1e3:.2f} ms busy (traced), idle share {1 - busy / wall["s"]:.3f}; '
               f'a batch eagerly {eager_s / len(first) * 1e3:.2f} ms, replayed '
               f'{wall["s"] / len(chunk) * 1e3:.2f} ms ({card})',
@@ -5869,6 +5874,8 @@ def phase_options(torch, port, fe, fg, diffusion, root, seed, card, data, ds, de
       the CPU, p50 of each) and scored by ``analyze``; a 50-step DDIM chain
       of the flax denoiser (random weights from the seed) at B=1, its eps
       against the CPU's, the fused sampler's JAX refusal;
+    - both flax runs converted to the ``vpu`` tree and run through K2
+      (:func:`phase_converted_flax`);
     - ``train --model-type groundlink --conv-impl banded``: the banded
       training forward, K4 once a dev batch in the dev eval; the checkpoint
       loaded by the banded and the direct conv models evaluates bitwise the
@@ -5995,6 +6002,11 @@ def phase_options(torch, port, fe, fg, diffusion, root, seed, card, data, ds, de
           f'forward, no K2): {chain_ms:.1f} ms host p50 of 5; eps within {eps_rel:.4f} x max of '
           f'the CPU\'s; --fused-inference refused in the JAX words ({card})', flush=True)
 
+    # 21c. both flax runs converted to the vpu tree, then through K2
+    report['converted_from_flax'] = phase_converted_flax(
+        torch, port, fe, diffusion, root, seed, card, data, ds, home, dds, cpu_model, net,
+        cond, dict(p50=p50, chain_ms=chain_ms), device=device, size_flags=size_flags)
+
     # 21b. banded GroundLink: train, then its eval through K4
     gl = ['--model-type', 'groundlink']
     result, banded_s, launches = train(root / 'banded', *gl, '--conv-impl', 'banded')
@@ -6025,6 +6037,214 @@ def phase_options(torch, port, fe, fg, diffusion, root, seed, card, data, ds, de
     report['seconds'] = time.perf_counter() - t_phase
     print(f'[options] phase 21 took {report["seconds"]:.1f} s ({card})', flush=True)
     return report
+
+
+def phase_converted_flax(torch, port, fe, diffusion, root, seed, card, data, ds, home, dds,
+                         flax_cpu_model, flax_net, cond, flax_times, device='cuda',
+                         size_flags=()):
+    """21c. the port's ``scripts/convert_attn_checkpoint.py`` on phase 21's
+    full-width flax runs, and what the converted runs serve, score and
+    sample through K2:
+
+    - the flax transformer's ``.torch.pt`` and a ``.ckpt`` of the same
+      weights (``weights.jax_payload`` through ``utils/flax_msgpack.py``, as
+      phase 13 writes one) converted ``--to vpu`` into directories without a
+      sidecar give the same state dict; ``--to flax`` brings each back
+      bitwise;
+    - the converted run served by ``serve --attn-impl vpu --fused-inference``:
+      /predict at B=1 and 4096 within FLAX_REL x max of the flax model on the
+      CPU, K2 ``num_layers`` launches a forward by the wrapper and by name in
+      a device-only trace, p50 at both batches beside the flax run's; scored
+      by ``analyze --attn-impl vpu --fused-inference`` on two short trials
+      (finite metrics; the vpu forward, no K2, as the JAX command scores a
+      transformer);
+    - the flax denoiser converted alike: a 50-step DDIM chain at B=1 through
+      the fused sampler, ``50 x num_layers`` K2 launches by the wrapper and
+      by name, each step's eps through K2 within FLAX_REL x max of the flax
+      denoiser's on the same (x_t, t, cond), the chain's ms beside the flax
+      chain's; ``analyze --fused-inference`` of it on the short trials, K2
+      ``50 x num_layers`` a window by the wrapper and by name.
+    ``device`` 'cpu' rehearses it (K2's plain version, which no wrapper
+    counts; no trace)."""
+    from inferbiomechanics_tpu_torch import weights
+    from inferbiomechanics_tpu_torch.scripts import convert_attn_checkpoint as tool
+    from inferbiomechanics_tpu_torch.train.checkpoint import (
+        read_payload, resolve_checkpoint_path, save_checkpoint,
+    )
+    from inferbiomechanics_tpu_torch.train.optimizers import make_optimizer
+    from inferbiomechanics_tpu_torch.utils import flax_msgpack
+    t_part = time.perf_counter()
+    on_card = device == 'cuda'
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def by_name(fn):
+        """``fn()``, the wrapper's K2 count reset before it, and its K2
+        launches by name in a device-only trace (None on the CPU)."""
+        fe.launches = 0
+        if not on_card:
+            return fn(), None
+        result, counts = _kernels_by_name(fn, ('fused_encoder_kernel',))
+        return result, counts['fused_encoder_kernel']
+
+    def convert(src, dst, to):
+        _check(tool.main([str(src), str(dst), '--to', to, '--num-heads',
+                          str(flax_cpu_model.num_heads)]) == 0 and dst.exists(),
+               f'convert_attn_checkpoint {src} --to {to}')
+
+    def same_state(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    # the flax transformer's checkpoint, in both formats, there and back
+    t0 = time.perf_counter()
+    src = Path(resolve_checkpoint_path(str(root / 'flax' / 'transformer')))
+    original = torch.load(src, map_location='cpu', weights_only=True)
+    pt = root / 'converted' / 'transformer' / src.name
+    convert(src, pt, 'vpu')
+    convert_s = time.perf_counter() - t0
+    jx = root / 'converted_ckpt' / 'flax.ckpt'
+    jx.parent.mkdir(parents=True)
+    jx.write_bytes(flax_msgpack.dumps(weights.jax_payload(
+        flax_cpu_model, make_optimizer(flax_cpu_model.named_parameters(), 'rmsprop', 1e-4),
+        original['epoch'], original['batch'], original.get('step', 0))))
+    convert(jx, jx.with_name('vpu.ckpt'), 'vpu')
+    converted = torch.load(pt, map_location='cpu', weights_only=True)
+    _check(same_state(converted['model_state_dict'],
+                      read_payload(str(jx.with_name('vpu.ckpt')))['model_state_dict'])
+           and 'optimizer_state_dict' not in converted
+           and 'opt_state' not in flax_msgpack.loads(jx.with_name('vpu.ckpt').read_bytes()),
+           'the converted .torch.pt and .ckpt of the same weights differ')
+    convert(pt, root / 'converted_back' / src.name, 'flax')
+    convert(jx.with_name('vpu.ckpt'), jx.with_name('back.ckpt'), 'flax')
+    back = torch.load(root / 'converted_back' / src.name, map_location='cpu',
+                      weights_only=True)['model_state_dict']
+    want_ckpt, got_ckpt = (list(_leaves(flax_msgpack.loads(p.read_bytes())['params']))
+                           for p in (jx, jx.with_name('back.ckpt')))
+    round_trip = same_state(back, original['model_state_dict']) and len(want_ckpt) == len(
+        got_ckpt) and all(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+                          for a, b in zip(got_ckpt, want_ckpt))
+    _check(round_trip, 'convert_attn_checkpoint --to flax of the converted run: not bitwise '
+                       'the flax original')
+
+    # serve and analyze the converted run through K2
+    layers = len(flax_cpu_model.blocks)
+    vpu = ['--model-type', 'transformer', '--attn-impl', 'vpu', *size_flags, '--fused-inference']
+    serve_argv = ['serve', '--dataset-home', str(data), '--checkpoint-dir',
+                  str(root / 'converted'), '--port', '0', '--device', device, *vpu]
+    svc, server, url = _serve(port, serve_argv)
+    errs, p50, traced = {}, {}, {}
+    try:
+        _check(_get(url + '/schema')['fused_inference'] is True,
+               'serve --attn-impl vpu --fused-inference of the converted run: not fused')
+        for b in (1, 4096):
+            x = ds.gather(np.arange(b)).inputs
+            body = _b64_body(x)
+            answer, traced[b] = by_name(lambda: _post(url + '/predict', body))  # noqa: B023
+            _check(fe.launches == layers * on_card and traced[b] in (None, layers),
+                   f'converted /predict B={b}: K2 {fe.launches} by the wrapper, {traced[b]} '
+                   f'by name, want {layers}')
+            got = _decode(answer['outputs'])
+            rows = min(b, 256)          # the flax model on the CPU, on the first rows
+            with torch.no_grad():
+                want = {k: v.numpy() for k, v in flax_cpu_model.eval()(
+                    torch.from_numpy(np.ascontiguousarray(x[:rows], np.float32))).items()}
+            errs[b] = _agree({k: v[:rows].tolist() for k, v in got.items()}, want,
+                             f'converted /predict B={b} vs the flax model', rel=FLAX_REL)
+            p50[b] = _host_p50_ms(lambda: _post(url + '/predict', body),  # noqa: B023
+                                  20 if b == 1 else 10)
+    finally:
+        _stop(svc, server)
+    # analyze scores a vpu transformer through its plain forward, as the JAX
+    # command does (--fused-inference moves diffusion chains only): finite
+    # metrics and no K2; a split of two short trials
+    small = root / 'converted_home'
+    for split, s in (('train', 0), ('dev', 1)):
+        (small / split).mkdir(parents=True)
+        port.write_synthetic_subject(str(small / split / 'subject_0.b3d'), num_trials=1,
+                                     trial_length=60, seed=seed + 2130 + s)
+
+    def score(ck, *flags):
+        """``analyze`` of ``ck`` on the short split: (windows, the wrapper's
+        K2 launches, by name)."""
+        analyzed, by_trace = by_name(lambda: port.analyze(port.parser().parse_args([
+            'analyze', '--dataset-home', str(small), '--checkpoint-dir', str(ck),
+            '--no-wandb', '--device', device, *flags])))
+        _check(all(np.isfinite(list(r['summary'].values())).all() for r in analyzed.values()),
+               f'analyze {flags}: {analyzed}')
+        return sum(r['windows'] for r in analyzed.values()), fe.launches, by_trace
+
+    windows, analyze_launches, analyze_traced = score(root / 'converted', *vpu)
+    _check(analyze_launches == 0 and analyze_traced in (None, 0),
+           f'analyze of the converted transformer: K2 {analyze_launches} by the wrapper, '
+           f'{analyze_traced} by name; the vpu forward runs none')
+    print(f'[options] convert_attn_checkpoint --to vpu of the flax transformer ({layers} '
+          f'blocks; .torch.pt and .ckpt the same state dict, --to flax back bitwise; '
+          f'{convert_s:.2f} s): serve --attn-impl vpu --fused-inference /predict B=1 p50 '
+          f'{p50[1]:.2f} ms (flax run {flax_times["p50"][1]:.2f}), B=4096 p50 {p50[4096]:.1f} '
+          f'ms (flax run {flax_times["p50"][4096]:.1f}), K2 {layers} a forward by the wrapper '
+          f'and {traced[1]} / {traced[4096]} by name, within {FLAX_REL} x max of the flax '
+          f'model (max abs err {errs[1]:.3g} / {errs[4096]:.3g}); analyze: {windows} windows, '
+          f'finite, through the vpu forward (no K2, as in JAX) ({card})', flush=True)
+
+    # the flax denoiser, converted, sampled through K2
+    dcfg = port.config_from_args(port.parser().parse_args([
+        'serve', '--model-type', 'diffusion', '--output-data-format', 'all_frames',
+        *size_flags]))
+    save_checkpoint(str(root / 'flax_denoiser'), flax_net, 0, 0)
+    dsrc = Path(resolve_checkpoint_path(str(root / 'flax_denoiser')))
+    convert(dsrc, root / 'converted_denoiser' / 'diffusion' / dsrc.name, 'vpu')
+    net, _, _ = port.load_model(dcfg, dds, str(root / 'converted_denoiser' / 'diffusion'),
+                                device=device)
+    sampler = diffusion.make_sampler(net, num_steps=50, fused_inference=True)
+    cond_d = torch.from_numpy(cond).to(device)
+
+    def chain(trace=None):
+        out = sampler(net, cond_d, generator=torch.Generator(device=device).manual_seed(seed),
+                      trace=trace)
+        sync()
+        return out
+
+    steps = []
+    with torch.no_grad():
+        out, chain_traced = by_name(lambda: chain(steps))
+        chain_launches = fe.launches
+        _check(chain_launches == 50 * layers * on_card
+               and chain_traced in (None, chain_launches)
+               and all(np.isfinite(v.cpu().numpy()).all() for v in out.values()),
+               f'the converted denoiser\'s chain: K2 {chain_launches} by the wrapper, '
+               f'{chain_traced} by name, want {50 * layers}; finite outputs')
+        chain_ms = _host_p50_ms(chain, 5)
+        eps_rel = 0.0
+        for t, x_t in steps:     # teacher-forced: each step's (x_t, t, cond)
+            tt = torch.full((1,), t, dtype=torch.int32, device=device)
+            want = flax_net(x_t, tt, cond_d).float()
+            got = diffusion.fused_denoiser_eps(net, x_t, tt, cond_d)
+            eps_rel = max(eps_rel, float((got - want).abs().max() / want.abs().max()))
+    _check(len(steps) == 50 and eps_rel <= FLAX_REL,
+           f'the converted denoiser\'s eps through K2 vs the flax denoiser\'s: {eps_rel} x max')
+    dwindows, d_launches, d_traced = score(
+        root / 'converted_denoiser', '--model-type', 'diffusion', '--output-data-format',
+        'all_frames', *size_flags, '--fused-inference')
+    _check(d_launches == 50 * layers * dwindows * on_card and d_traced in (None, d_launches),
+           f'analyze --fused-inference of the converted denoiser: {dwindows} windows, K2 '
+           f'{d_launches} by the wrapper, {d_traced} by name, want {50 * layers} a window')
+    print(f'[options] the converted flax denoiser, a 50-step chain at B=1 through K2: '
+          f'{chain_ms:.1f} ms host p50 of 5 (the flax chain {flax_times["chain_ms"]:.1f} ms), '
+          f'K2 {chain_launches} by the wrapper, {chain_traced} by name; each step\'s eps '
+          f'within {eps_rel:.4f} x max of the flax denoiser\'s; analyze --fused-inference: '
+          f'{dwindows} windows, K2 {d_launches} (by name {d_traced}) ({card})', flush=True)
+    return dict(
+        transformer=dict(blocks=layers, convert_seconds=convert_s, round_trip_bitwise=round_trip,
+                         predict_max_abs_err_vs_flax={str(b): e for b, e in errs.items()},
+                         predict_p50_ms={str(b): v for b, v in p50.items()},
+                         flax_predict_p50_ms={str(b): v for b, v in flax_times['p50'].items()},
+                         launches_per_forward=layers,
+                         launches_traced={str(b): v for b, v in traced.items()},
+                         analyze_windows=windows, analyze_launches=analyze_launches),
+        denoiser=dict(chain_b1_ms=chain_ms, flax_chain_b1_ms=flax_times['chain_ms'],
+                      launches=chain_launches, launches_traced=chain_traced,
+                      eps_rel_vs_flax=eps_rel, analyze_windows=dwindows,
+                      analyze_launches=d_launches, analyze_launches_traced=d_traced),
+        seconds=time.perf_counter() - t_part)
 
 
 def phase_last_commands(torch, port, fm, root, seed, card, data, logs=None, device='cuda',
@@ -7103,7 +7323,9 @@ def main() -> int:
               quality_study_launches=quality['transformer pallas']['launches']['K2'],
               pipeline=model_parallel['train_pp2'],
               flax=dict(transformer=options['flax_transformer'],
-                        denoiser=options['flax_denoiser'])),
+                        denoiser=options['flax_denoiser']),
+              # the flax runs converted to the vpu tree: through K2
+              converted_from_flax=options['converted_from_flax']),
         entry(K3, trained['k3_launches'], k3_err,
               'B=4096, T=10, d=256, H=8, mlp 1024; max_abs_err relative to each '
               'tensor\'s max |plain|', k3,

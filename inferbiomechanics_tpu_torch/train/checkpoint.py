@@ -315,7 +315,7 @@ def _load_jax(target: ModelOrState, raw: Dict, path: str, use_ema: bool) -> Tupl
     except (ValueError, KeyError, TypeError, RuntimeError) as e:
         raise ValueError(_mismatch(path, e)) from e
     if use_ema:
-        model.load_state_dict(_required_ema(_jax_ema(raw, family), path))
+        model.load_state_dict(_required_ema(_jax_ema(raw, family, path), path))
     if isinstance(target, TrainState):
         target.step = int(np.asarray(raw['step']))
         opt = target.optimizer
@@ -329,8 +329,32 @@ def _load_jax(target: ModelOrState, raw: Dict, path: str, use_ema: bool) -> Tupl
     return int(np.asarray(raw.get('epoch', -1))), int(np.asarray(raw.get('batch', 0)))
 
 
-def _jax_ema(raw: Dict, family: str) -> Optional[Dict[str, torch.Tensor]]:
-    return weights.params_from_jax(family, raw['ema_params']) if 'ema_params' in raw else None
+def _check_ema_layout(params: Mapping, ema: Mapping, path: str) -> None:
+    """Refuse EMA parameters whose attention tree is not the parameters'
+    (an attention converter, the JAX package's and the port's
+    ``convert_attn_checkpoint``, converts the parameters and leaves the EMA
+    in the layout it found)."""
+    have, want = weights.attention_layout(ema), weights.attention_layout(params)
+    if have != want:
+        raise ValueError(
+            f'checkpoint {path}: its ema_params hold the attn_impl={have!r} attention '
+            f'tree and its parameters the attn_impl={want!r} one (convert_attn_checkpoint '
+            f'converts the parameters and leaves the EMA in the layout it found); load it '
+            f'without --use-ema')
+
+
+def _jax_ema(raw: Dict, family: str, path: str) -> Optional[Dict[str, torch.Tensor]]:
+    if 'ema_params' not in raw:
+        return None
+    _check_ema_layout(raw['params'], raw['ema_params'], path)
+    return weights.params_from_jax(family, raw['ema_params'])
+
+
+def _torch_ema(payload: Dict, path: str) -> Optional[Dict[str, torch.Tensor]]:
+    ema = payload.get('ema_params')
+    if ema is not None:
+        _check_ema_layout(payload['model_state_dict'], ema, path)
+    return ema
 
 
 def load_checkpoint_file(target: ModelOrState, path: str, *,
@@ -350,7 +374,7 @@ def load_checkpoint_file(target: ModelOrState, path: str, *,
     except RuntimeError as e:
         raise ValueError(_mismatch(path, e)) from e
     if use_ema:
-        _model_of(target).load_state_dict(_required_ema(payload.get('ema_params'), path))
+        _model_of(target).load_state_dict(_required_ema(_torch_ema(payload, path), path))
     if isinstance(target, TrainState):
         if payload.get('opt_type') == target.optimizer.opt_type:
             target.optimizer.load_state_dict(
@@ -409,9 +433,9 @@ def load_ema_params(path: str, like: Optional[nn.Module] = None
     kind, payload = read_checkpoint(path)
     if kind == 'jax':
         ema = _jax_ema(payload, weights.model_family(like) if like is not None
-                       else weights.tree_family(payload['params']))
+                       else weights.tree_family(payload['params']), path)
     else:
-        ema = payload.get('ema_params')
+        ema = _torch_ema(payload, path)
     if ema is None or like is None:
         return ema
     want = dict(like.named_parameters())

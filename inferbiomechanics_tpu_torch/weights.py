@@ -513,6 +513,33 @@ def tree_family(params: Mapping) -> str:
                      f'families {FAMILIES}')
 
 
+def attention_layout(tree: Mapping) -> Optional[str]:
+    """The attention tree that a JAX parameter tree or the port's state dict
+    holds, from its names: 'flax', 'vpu' or 'pallas'; None for a family
+    without encoder blocks."""
+    if any(_ENC_RE.fullmatch(k) for k in tree):
+        return 'pallas'
+    if _has_flax_attention(tree) or _state_dict_has_flax_attention(tree):
+        return 'flax'
+    return 'vpu' if _num_blocks(tree) or _num_state_dict_blocks(tree) else None
+
+
+def state_dict_family(state_dict: Mapping) -> str:
+    """The family of the port's state dict, from its names alone (for a file
+    read without a model: the attention converter)."""
+    layout = attention_layout(state_dict)
+    if 'eps_head.weight' in state_dict:
+        return 'diffusion_flax' if layout == 'flax' else 'diffusion'
+    if layout is not None:
+        return {'vpu': 'transformer', 'flax': 'transformer_flax', 'pallas': 'pallas'}[layout]
+    if any(re.fullmatch(r'convs\.\d+\.weight', k) for k in state_dict):
+        return 'groundlink'
+    if any(re.fullmatch(r'layers\.\d+\.weight', k) for k in state_dict):
+        return 'feedforward'
+    raise ValueError(f'the state dict (keys {sorted(state_dict)[:6]}) is none of the '
+                     f'families {FAMILIES}')
+
+
 def params_from_jax(family: str, tree: Mapping) -> Dict[str, torch.Tensor]:
     """A tree shaped like ``family``'s parameters (the parameters, an
     optimizer's moments, an EMA) -> the port's parameter names."""
@@ -746,5 +773,8 @@ def torch_payload_from_jax(raw: Mapping, prefer=()) -> Dict:
         payload.update(optimizer_state_dict=opt, opt_type=candidates[0])
         break
     if 'ema_params' in raw:
-        payload['ema_params'] = params_from_jax(family, raw['ema_params'])
+        # in its own family: an attention converter leaves the EMA in the
+        # layout it found (the port's loaders refuse to serve it)
+        payload['ema_params'] = params_from_jax(tree_family(raw['ema_params']),
+                                                raw['ema_params'])
     return payload

@@ -134,7 +134,8 @@ def test_every_port_module_imports_and_serves_without_jax(tmp_path):
                    'viz.viewer', 'viz.live', 'viz.live_model', 'utils.geometry',
                    'cli.visualize_file_cmd', 'cli.visualize_cmd', 'cli.review_file_cmd',
                    'data.b3d_infer', 'cli.convert_b3d_cmd', 'cli.doctor_cmd',
-                   'cli.make_plots_cmd', 'cli.plot_training_cmd', 'utils.png_plot'):
+                   'cli.make_plots_cmd', 'cli.plot_training_cmd', 'utils.png_plot',
+                   'scripts.convert_attn_checkpoint'):
         assert f'inferbiomechanics_tpu_torch.{module}' in out.split()
     assert 'predicted feedforward 4' in out and 'predicted transformer 7' in out
     assert 'predicted groundlink 4' in out and 'predicted diffusion 4' in out
