@@ -402,10 +402,13 @@ GL_REL = 2e-2
 # gradients through the kernels against the step through the plain versions.
 BWD_REL = 2e-2
 # the K2 and K3 kernels by name in a profiler trace (the first name that
-# matches; the cluster tile kernel is K3's small shape, the other its large)
+# matches; K3's tile kernel by shape: the cluster one is its small shape, the
+# pair one its pair shape, the other its large tile)
 ENC_KERNELS = ('fused_encoder_kernel', 'encoder_bwd_tile_kernel_cluster',
-               'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
-K3_TILE = {'small': 'encoder_bwd_tile_kernel_cluster', 'large': 'encoder_bwd_tile_kernel'}
+               'encoder_bwd_tile_kernel_pair', 'encoder_bwd_tile_kernel',
+               'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+K3_TILE = {'small': 'encoder_bwd_tile_kernel_cluster', 'pair': 'encoder_bwd_tile_kernel_pair',
+           'large': 'encoder_bwd_tile_kernel'}
 FULL_DIMS = [1770, 512, 512, 30]
 GL_FULL = dict(t=10, c_in=177, features=(128, 128, 256, 256), taps=7, fc_depth=3, c_out=30)
 ENC_FULL = dict(t=10, d=256, heads=8, mlp_ratio=4, layers=4)
@@ -635,20 +638,25 @@ def phase_k2_vs_plain(torch, fe, seed: int):
 
 def phase_k3_vs_plain(torch, fe, seed: int):
     """K3 against the plain version in the shape its plan picks (small: a
-    cluster splits the columns; large: one block a tile), at full width on
-    either side of the plan's threshold and at other shapes, and through both
-    shapes (the threshold moved) at B = 19 and 64. Returns the largest error
-    relative to its tensor's max|plain| at the full-width cases, and the shape
-    that served each case."""
+    cluster splits the columns; pair: clusters of two blocks, each its own
+    tile, share one weight stream; large: one block a tile), at full width
+    on either side of both thresholds, at B = 65, 128, 512, 4096, 4099 and at
+    other shapes (the pair's other frame counts and head widths, widths it
+    leaves to the large tile), and through every other shape that takes the
+    case too (the thresholds moved) at B = 19, 64 and the thresholds +-1.
+    Returns the largest error relative to its tensor's max|plain| at the
+    full-width cases, and the shapes that served each case."""
     gen = torch.Generator().manual_seed(seed)
     full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
-    edge = fe.BWD_SMALL_BATCH_MAX
-    # 19: no multiple of the tile; the threshold and one past it
-    cases = [(b, *full) for b in sorted({1, 8, 19, 64, edge, edge + 1, 4096})]
+    saved = (fe.BWD_SMALL_BATCH_MAX, fe.BWD_PAIR_BATCH_MIN)
+    edges = {b for b in (saved[0], saved[0] + 1, saved[1] - 1, saved[1]) if b >= 1}
+    cases = [(b, *full) for b in sorted({1, 8, 19, 64, 65, 128, 512, 4096, 4099} | edges)]
     cases += [(37, 4, ENC_FULL['d'], ENC_FULL['heads']),
+              (19, 16, ENC_FULL['d'], 16),     # two windows of 16 frames a tile, heads 16 wide
+              (23, 7, ENC_FULL['d'], 4),       # a T that 32 does not divide, heads 64 wide
               (37, 10, 128, 4),        # three row tiles, 128-column MLP chunks
               (700, 4, 128, 4),        # several tiles a block, several row splits
-              (9, 10, 512, 8)]         # one window a tile; no small shape fits
+              (9, 10, 512, 8)]         # one window a tile; no small or pair shape fits
     names = ('x',) + fe.PARAM_NAMES
     worst, served = 0.0, {}
     for b, t, d, heads in cases:
@@ -660,18 +668,21 @@ def phase_k3_vs_plain(torch, fe, seed: int):
         ref_dx, ref_grads = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
         planned = fe.plan_encoder_bwd(b, t, d, packed.mlp_dim, heads).shape
         shapes = [planned]
-        if (b, t, d, heads) in ((19, *full), (64, *full)):
-            shapes.append('large' if planned == 'small' else 'small')
+        if (t, d, heads) == full and b in {19, 64} | edges:
+            shapes += [sh for sh in K3_TILE if sh != planned]
         for shape in shapes:
-            fe.BWD_SMALL_BATCH_MAX = edge if shape == planned else (
-                1 << 30 if shape == 'small' else 0)
+            limits = saved if shape == planned else fe.bwd_thresholds(shape)
+            fe.BWD_SMALL_BATCH_MAX, fe.BWD_PAIR_BATCH_MIN = limits
+            _check(fe.plan_encoder_bwd(b, t, d, packed.mlp_dim, heads).shape == shape,
+                   f'K3: the {shape} shape does not take B={b} T={t} d={d} H={heads}')
             before, shapes_before = fe.bwd_launches, dict(fe.bwd_shape_launches)
             dx, grads = fe.fused_encoder_layer_bwd(x, g, packed, heads)
             _check(fe.bwd_launches == before + fe.BWD_LAUNCHES_PER_LAYER and
-                   fe.bwd_shape_launches[shape] == shapes_before[shape] + 1,
-                   f'K3 launch counters did not rise for the {shape} shape')
+                   fe.bwd_shape_launches == {k: v + (k == shape)
+                                             for k, v in shapes_before.items()},
+                   f'K3 launch counters did not rise for the {shape} shape alone')
             dx2, grads2 = fe.fused_encoder_layer_bwd(x, g, packed, heads)
-            fe.BWD_SMALL_BATCH_MAX = edge
+            fe.BWD_SMALL_BATCH_MAX, fe.BWD_PAIR_BATCH_MIN = saved
             torch.cuda.synchronize()
             rel, at = 0.0, ''
             for name, got, again, ref in zip(names, (dx, *grads), (dx2, *grads2),
@@ -683,7 +694,7 @@ def phase_k3_vs_plain(torch, fe, seed: int):
                 r = float((got - ref).abs().max()) / float(ref.abs().max())
                 if r > rel:
                     rel, at = r, name
-            how = 'as planned' if shape == planned else 'threshold moved'
+            how = 'as planned' if shape == planned else 'thresholds moved'
             print(f'[kernel] K3 B={b} T={t} d={d} H={heads} ({shape} shape, {how}): worst '
                   f'max abs err / max |plain| {rel:.3g} (at d{at}; limit {BWD_REL}); two '
                   f'calls bitwise equal', flush=True)
@@ -754,11 +765,11 @@ def _traced(torch, fn, names=ENC_KERNELS):
 def _check_traced(traced, layers: int, steps: int, forwards: int, shape: str, what: str):
     """The trace's K2 and K3 kernels are those of ``steps`` train steps and
     ``forwards`` more forwards of ``layers`` encoder layers, K3's tile kernel
-    in ``shape``."""
-    tile, other = K3_TILE[shape], K3_TILE['large' if shape == 'small' else 'small']
-    want = {'fused_encoder_kernel': layers * (steps + forwards), tile: layers * steps,
-            other: 0, 'encoder_wgrad_kernel': layers * steps,
-            'encoder_bwd_reduce_kernel': layers * steps}
+    in ``shape`` and in no other."""
+    want = {name: layers * steps if s == shape else 0 for s, name in K3_TILE.items()}
+    want.update({'fused_encoder_kernel': layers * (steps + forwards),
+                 'encoder_wgrad_kernel': layers * steps,
+                 'encoder_bwd_reduce_kernel': layers * steps})
     _check(all(traced[k] == v for k, v in want.items()),
            f'{what}: traced kernels {traced}, want {want}')
 
@@ -1193,7 +1204,7 @@ def phase_training(torch, port, fe, fg, step_mod, root, seed, card, device='cuda
         # the main path: 2 epochs, counts set to 0 just before, read just
         # after; the run traced by the profiler
         fe.launches = fe.bwd_launches = 0
-        fe.bwd_shape_launches.update(small=0, large=0)
+        fe.bwd_shape_launches.update(dict.fromkeys(fe.bwd_shape_launches, 0))
         captures = step_mod.captures
         result, traced, _ = _traced(torch, lambda: run(root / 'ckpt_a', pallas, 2))
         k2_launches, k3_launches = fe.launches, fe.bwd_launches
@@ -1423,7 +1434,7 @@ def phase_chunked(torch, port, fe, step_mod, root, seed, card, device='cuda', ba
     # pallas at the default batch: counts set to 0 just before, read just
     # after; the run traced by the profiler
     fe.launches = fe.bwd_launches = 0
-    fe.bwd_shape_launches.update(small=0, large=0)
+    fe.bwd_shape_launches.update(dict.fromkeys(fe.bwd_shape_launches, 0))
     replays, captures = step_mod.replays, step_mod.captures
     chunked, traced, _ = _traced(torch, lambda: run(data, root / 'ckpt_64c', pallas, 1, batch))
     k2, k3, k3_shapes = fe.launches, fe.bwd_launches, dict(fe.bwd_shape_launches)
@@ -2335,12 +2346,9 @@ def phase_step_times(torch, port, fe, ds, make_device_train_step, make_optimizer
             torch.cuda.synchronize()
 
         fe.launches = fe.bwd_launches = 0
-        fe.bwd_shape_launches.update(small=0, large=0)
+        fe.bwd_shape_launches.update(dict.fromkeys(fe.bwd_shape_launches, 0))
         wall = _host_p50_ms(synced, 10)
-        parts = _device_us_by_name(torch, one, (
-            'fused_encoder_kernel', 'encoder_bwd_tile_kernel_cluster',
-            'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'),
-            iters=5)
+        parts = _device_us_by_name(torch, one, ENC_KERNELS, iters=5)
         launched = dict(k2=fe.launches, k3=fe.bwd_launches,
                         k3_by_shape=dict(fe.bwd_shape_launches))
         busy = sum(parts.values()) / 1e3
@@ -3463,7 +3471,7 @@ def phase_checkpoints(torch, port, fm, fe, fg, step_mod, root, seed, card, devic
     _check(port_main(['convert-checkpoint', str(jax_run), '--out-dir',
                       str(root / 'conv_run' / 'transformer')]) == 0, 'convert-checkpoint')
     fe.launches = fe.bwd_launches = 0
-    fe.bwd_shape_launches.update(small=0, large=0)
+    fe.bwd_shape_launches.update(dict.fromkeys(fe.bwd_shape_launches, 0))
     if on_card:
         resumed, traced, _ = _traced(torch, lambda: run(small_home, root / 'conv_run', pflags,
                                                         pallas_batch, 2))
@@ -7155,7 +7163,8 @@ def main() -> int:
     k3, k3_parts, k3_served, pack_ms = {}, {}, {}, None
     train_stack = [fe.pack_encoder_params(p.params, 'cuda', transposes=True) for p in stack]
     lib_params = list(lib_stack[0].parameters())
-    for b in (1, 64, 4096):
+    k3_tile = {}
+    for b in (1, 64, 128, 512, 4096):
         k3_served[str(b)] = fe.plan_encoder_bwd(b, t, d, m, heads).shape
         xt = torch.randn(b, t, d, generator=gen).cuda()
         gt = torch.randn(b, t, d, generator=gen).cuda()
@@ -7168,35 +7177,47 @@ def main() -> int:
             'library': lambda: torch.autograd.grad(  # noqa: B023
                 lib_stack[0](x16), [x16, *lib_params], g16),  # noqa: B023
         }
-        with torch.no_grad():
-            ref_dx = fns['plain']()[0]
-        err16 = float((fns['library']()[0].float() - ref_dx).abs().max())
-        print(f'[times] autograd through nn.TransformerEncoderLayer bf16 B={b}: dx max abs '
-              f'err vs plain {err16:.3g} on values up to {float(ref_dx.abs().max()):.3g} '
-              f'(speed baseline only)', flush=True)
-        ms, dev = _time_three(torch, fns)
-        k3[b] = dict(ms=ms, dev=dev, bound=k3_bound(b, t, d, m))
-        _print_times(card, f'K3 one layer backward ({fe.BWD_LAUNCHES_PER_LAYER} launches, '
-                     f'recompute included; {k3_served[str(b)]} shape) T=10 d=256 H=8', b, ms,
-                     dev, 'autograd fwd+bwd through nn.TransformerEncoderLayer bf16',
-                     k3[b]['bound'])
-        # the tile kernel of either shape, then the two launches after it
+        bound = k3_bound(b, t, d, m)
+        dev = {}
+        if b in (1, 64, 4096):     # kernel, plain and library side by side; by launch only between
+            with torch.no_grad():
+                ref_dx = fns['plain']()[0]
+            err16 = float((fns['library']()[0].float() - ref_dx).abs().max())
+            print(f'[times] autograd through nn.TransformerEncoderLayer bf16 B={b}: dx max abs '
+                  f'err vs plain {err16:.3g} on values up to {float(ref_dx.abs().max()):.3g} '
+                  f'(speed baseline only)', flush=True)
+            ms, dev = _time_three(torch, fns)
+            k3[b] = dict(ms=ms, dev=dev, bound=bound)
+            _print_times(card, f'K3 one layer backward ({fe.BWD_LAUNCHES_PER_LAYER} launches, '
+                         f'recompute included; {k3_served[str(b)]} shape) T=10 d=256 H=8', b,
+                         ms, dev, 'autograd fwd+bwd through nn.TransformerEncoderLayer bf16',
+                         bound)
+        # the tile kernel of whichever shape, then the two launches after it
         parts = _device_us_by_name(torch, fns['kernel'], (
             'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel'))
         k3_parts[str(b)] = parts
         print(f'[times] K3 B={b} ({k3_served[str(b)]} shape), profiler device time by launch: '
               + ', '.join(f'{k} {v:.1f} us' for k, v in parts.items())
-              + f'; bound {k3[b]["bound"][0] * 1e3:.2f} us by {k3[b]["bound"][1]}, autograd '
-              + ('not measured' if dev['library'] is None else f'{dev["library"]:.1f} us')
+              + f'; bound {bound[0] * 1e3:.2f} us by {bound[1]}, autograd '
+              + ('not measured' if dev.get('library') is None else f'{dev["library"]:.1f} us')
               + f' ({card})', flush=True)
-    # the tile kernel's products: 40 d^2 operations a row (8 d^2 multiply-adds
-    # of recompute, 12 d^2 against transposed weights)
-    tile_us = k3_parts['4096']['encoder_bwd_tile_kernel']
-    k3_tile = dict(tflops=40.0 * d * d * 4096 * t / tile_us / 1e6,
-                   share_of_k3_bound=k3[4096]['bound'][0] * 1e3 / tile_us)
-    print(f'[times] K3 tile kernel B=4096: {k3_tile["tflops"]:.1f} TFLOP/s on the tensor '
-          f'cores ({40.0 * d * d * 4096 * t / 1e9:.1f} GFLOP), K3\'s bound is '
-          f'{k3_tile["share_of_k3_bound"]:.3f} of its time', flush=True)
+        if b >= 128:
+            # the tile kernel's products: 40 d^2 operations a row (8 d^2
+            # multiply-adds of recompute, 12 d^2 against transposed weights)
+            tile_us = parts['encoder_bwd_tile_kernel']
+            k3_tile[str(b)] = dict(
+                shape=k3_served[str(b)], tile_us=tile_us,
+                tflops=40.0 * d * d * b * t / tile_us / 1e6,
+                share_of_k3_bound=bound[0] * 1e3 / tile_us)
+            print(f'[times] K3 tile kernel B={b} ({k3_served[str(b)]} shape): {tile_us:.1f} us, '
+                  f'{k3_tile[str(b)]["tflops"]:.1f} TFLOP/s on the tensor cores '
+                  f'({40.0 * d * d * b * t / 1e9:.2f} GFLOP), K3\'s bound is '
+                  f'{k3_tile[str(b)]["share_of_k3_bound"]:.3f} of its time ({card})', flush=True)
+    tile_regs = {name: v for name, v in _ptxas_report(info['log'], 'encoder_bwd_tile').items()}
+    print('[times] K3 tile kernels, ptxas: ' + '; '.join(
+        f'{name[-60:]} {v["registers"]} registers, {v["spill_store_bytes"]} / '
+        f'{v["spill_load_bytes"]} B spill stores / loads' for name, v in tile_regs.items()),
+        flush=True)
     with torch.no_grad():
         f32_params = [tuple(q.float() for q in p.params) for p in stack]
         pack_ms = _cuda_ms(torch, lambda: [fe.pack_encoder_params(q, 'cuda', transposes=True)
@@ -7337,7 +7358,8 @@ def main() -> int:
               shape_launches={'train': trained['k3_shape_launches'],
                               f'train steps B={default_batch}':
                                   steps[f'pallas B={default_batch}']['launches']['k3_by_shape']},
-              bwd_small_batch_max=fe.BWD_SMALL_BATCH_MAX, served_by=k3_served,
+              bwd_small_batch_max=fe.BWD_SMALL_BATCH_MAX,
+              bwd_pair_batch_min=fe.BWD_PAIR_BATCH_MIN, served_by=k3_served,
               checked_shapes=k3_checked,
               device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),

@@ -114,6 +114,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ib_fused_encoder_backward_cluster.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp,
                                                       vp, vp, vp, vp, int_p, i, i, vp, vp]
     lib.ib_fused_encoder_backward_cluster.restype = i
+    lib.ib_fused_encoder_backward_pair.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp, vp,
+                                                   vp, vp, vp, int_p, i, i, i, vp, vp]
+    lib.ib_fused_encoder_backward_pair.restype = i
     lib.ib_fused_groundlink_forward.argtypes = [vp, i, i, i, vp, vp, int_p, i, i, i, i,
                                                 vp, i, int_p, i, vp, vp]
     lib.ib_fused_groundlink_forward.restype = i

@@ -24,44 +24,64 @@
 //
 // Design: three launches a layer, every sum in a fixed order, so two calls on
 // the same inputs give bitwise equal results (no floating-point atomics).
-// The tile kernel has two shapes, which fused_encoder.py::plan_encoder_bwd
+// The tile kernel has three shapes, which fused_encoder.py::plan_encoder_bwd
 // picks from the call's shape; the two launches after it are the same for
-// both.
+// all of them.
 //
 // 1. The tile kernel recomputes the forward of a tile of whole windows and
 //    runs the VJP: dx, and the row operands of the four weight gradients
 //    (y1, dqkv, a, dh2, y2, dz1, u, g as bf16) into a workspace in device
-//    memory; the eight vector gradients are summed over the tile's rows, one
-//    thread a column, into the block's own slab of partial sums. The
-//    products against a weight (three of the recompute, four against W^T)
-//    stream the weight from L2 into registers in mma fragment order, as the
-//    forward does; the transposes are packed beside the weights
-//    (fused_encoder.py::pack_encoder_params).
+//    memory; the eight vector gradients are summed over the tile's rows into
+//    the block's own slab of partial sums. The transposes are packed beside
+//    the weights (fused_encoder.py::pack_encoder_params).
 //    small (encoder_bwd_tile_kernel_cluster): up to BWD_SMALL_BATCH_MAX
 //      windows a cluster of C blocks (8 at d = 256, H = 8) shares a row tile
 //      of 1..3 mma row tiles (one window: one row tile, an instantiation of
 //      its own). Block `rank` owns heads rank H/C .., the columns rank d/C ..
 //      of every d-wide output (the same columns of q, k and v) and rank m/C
-//      .. of the hidden ones, and streams only those weights, 1/C of each
-//      (320 KB a block at d = 256): attention stays in the block; dz1 splits
-//      by W2^T's and W1's hidden columns, so no block needs another's u or
-//      gelu'. Six exchanges hand what the next phase reads to every block --
-//      a, h2, dz1, dy2, dqkv and dy1 -- by one bulk copy a row (three for
-//      dqkv) and peer from shared memory into shared memory, completing on
-//      an mbarrier of the receiver; the LayerNorms and their VJPs run on full
-//      rows in every block. Each product's items (column blocks, and parts
-//      of K where there are fewer blocks than warps) go to the 16 warps;
-//      partial sums meet in shared memory and are added in a fixed order; the
-//      ring's end is checked once a chunk of 4 k-steps. (Asking for each
-//      product's first weights ahead of the exchange before it, as K2 does,
-//      was measured and not kept: PERF.md.) Buffers share room only where the order of the exchanges keeps them apart in
-//      time (the plan's layout). Each block writes its own columns of the
-//      workspace and of dx, and its own columns of its slab.
-//    large (encoder_bwd_tile_kernel): above it, a fixed number of persistent
-//      blocks (one an SM at most) each walk over 32-row tiles (three windows
-//      at d = 256) with all the columns. q/k/v are parked in a per-block
-//      scratch in device memory (it stays in L2) over the MLP phase, which
-//      runs in chunks of the hidden width; dh2 is parked in dx.
+//      .. of the hidden ones, and streams only those weights from L2 into
+//      registers in mma fragment order, 1/C of each (320 KB a block at d =
+//      256): attention stays in the block; dz1 splits by W2^T's and W1's
+//      hidden columns, so no block needs another's u or gelu'. Six
+//      exchanges hand what the next phase reads to every block -- a, h2,
+//      dz1, dy2, dqkv and dy1 -- by one bulk copy a row (three for dqkv) and
+//      peer from shared memory into shared memory, completing on an mbarrier
+//      of the receiver; the LayerNorms and their VJPs run on full rows in
+//      every block. Each product's items (column blocks, and parts of K
+//      where there are fewer blocks than warps) go to the 16 warps; partial
+//      sums meet in shared memory and are added in a fixed order. Buffers
+//      share room only where the order of the exchanges keeps them apart in
+//      time (the plan's layout).
+//    pair (encoder_bwd_tile_kernel_pair): from BWD_PAIR_BATCH_MIN windows at
+//      d = 256 (T <= 16, heads 16, 32 or 64 wide, m whole chunks of 256),
+//      clusters of two blocks walk over pairs of 32-row tiles, each block its
+//      own tile with all the columns. What bounded the large tile was its
+//      weight stream (2.6 MB from L2 a 32-row tile, into registers 8 k-steps
+//      ahead, idle through the f32 passes) and the f32 passes themselves.
+//      Here one stream feeds both blocks, so a weight byte read from L2
+//      serves 64 rows: a producer warpgroup (one warp copies, setmaxnreg
+//      hands its registers to the consumers) fills a ring of three 32 KB
+//      slots, each 4 k-steps of 16 column blocks in fragment order, every
+//      block copying half of a fill into both blocks' rings (multicast); a
+//      slot is refilled once the 32 consumer warps of the pair gave it back
+//      and the peer armed its full mbarrier, so the ring fills ahead through
+//      the f32 passes. The 16 consumer warps take B from the ring and A from
+//      the tile (mma.sync), a 16-column block each. q/k/v stay bf16 in shared
+//      memory over the MLP (no round trip through device memory); the
+//      attention, forward and backward, runs on mma a (window, head) a warp
+//      with P and dS in registers (the window's frames padded to a 16 x 16
+//      tile; movmatrix transposes P and dS), so q/k/v, P, dS and the mix's
+//      gradient are bf16 operands where the other shapes keep the attention
+//      in f32 (within the same tolerance); dy2 accumulates in registers
+//      over the MLP's chunks; six of the eight vector gradients are summed
+//      in the epilogues that make their terms, by shuffles in a fixed order.
+//    large (encoder_bwd_tile_kernel): the shapes the others do not take (d =
+//      128, 384, 512; T = 17 .. 48; one or two heads) and the batches between
+//      the thresholds: a fixed number of persistent blocks (one an SM at
+//      most) each walk over 16..48-row tiles with all the columns, streaming
+//      the weights into registers as the small shape does. q/k/v are parked
+//      in a per-block scratch in device memory (it stays in L2) over the MLP
+//      phase, which runs in chunks of the hidden width; dh2 is parked in dx.
 // 2. encoder_wgrad_kernel. The four A^T G products over all B T rows from
 //    the workspace: 128 x 128 output tiles, the rows split into a fixed
 //    number of ranges, each block writing its partial tile.
@@ -72,10 +92,8 @@
 // flops a row on the tensor cores, 172 GFLOP at B = 4096, beside 8 KB a row
 // of workspace written and read once) at large batches; at small ones the
 // chain of dependent phases, each a few thousand cycles, which the small
-// shape shortens by splitting every phase's work over a cluster. The large
-// shape with mma.sync and 32-row tiles is far from the bound at B = 4096;
-// two larger tiles were measured and not kept (PERF.md), so its redesign
-// (more rows a weight byte, wgmma) is still to come.
+// shape shortens by splitting every phase's work over a cluster. Measured
+// times by shape and batch are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,37 +138,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// LayerNorm of every row of src (f32) into dst as bf16, one warp per row;
-// the row's mean and 1/std go to mean[] and rstd[] for the backward.
-__device__ __forceinline__ void layernorm_rows(const float* src, int ld_src, int rows, int d,
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ bias, bf16* dst,
-                                               int ld_dst, float* mean, float* rstd) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float inv_d = 1.f / static_cast<float>(d);
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* x = src + r * ld_src;
-    float sum = 0.f;
-    for (int i = lane; i < d; i += 32) sum += x[i];
-    const float mu = warp_sum(sum) * inv_d;
-    float sq = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float c = x[i] - mu;
-      sq = fmaf(c, c, sq);
-    }
-    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
-    if (lane == 0) {
-      mean[r] = mu;
-      rstd[r] = rs;
-    }
-    bf16* y = dst + r * ld_dst;
-    for (int i = lane; i < d; i += 32) {
-      y[i] = __float2bfloat16((x[i] - mu) * rs * __ldg(scale + i) + __ldg(bias + i));
-    }
-  }
-}
-
 // The two column sums of a LayerNorm's VJP over the tile's rows, one thread
 // a column: dscale += sum_r dy xhat, dbias += sum_r dy.
 __device__ __forceinline__ void layernorm_bwd_columns(const float* dy, const float* x, int ld,
@@ -179,15 +166,17 @@ __device__ __forceinline__ void add_column_sums(const float* src, int ld, int ro
   }
 }
 
-// The first `valid` rows of a bf16 buffer in shared memory (width a multiple
-// of 8) to a dense [*, width] array in device memory, 16 bytes a store.
-__device__ __forceinline__ void store_rows(const bf16* src, int ld, int valid, int width,
-                                           bf16* dst) {
+// The first `valid` rows of a bf16 [rows][width] buffer in shared memory
+// (stride ld, width a multiple of 8) to device memory, rows dst_ld apart, 16
+// bytes a store.
+__device__ __forceinline__ void store_block(const bf16* src, int ld, int valid, int width,
+                                            bf16* dst, long long dst_ld) {
   const int w8 = width / 8;
   for (int i = threadIdx.x; i < valid * w8; i += kThreads) {
     const int r = i / w8;
     const int c8 = i - r * w8;
-    reinterpret_cast<uint4*>(dst)[i] = *reinterpret_cast<const uint4*>(src + r * ld + 8 * c8);
+    *reinterpret_cast<uint4*>(dst + r * dst_ld + 8 * c8) =
+        *reinterpret_cast<const uint4*>(src + r * ld + 8 * c8);
   }
 }
 
@@ -246,89 +235,70 @@ __device__ __forceinline__ void product(const bf16* a, int lda, int row_tiles,
   }
 }
 
-// Forward attention within each window of the tile, per head, in f32 (the
-// forward kernel's code): qkv holds [q * dh^-0.5 | k | v] per row; the mix
-// goes to dst as bf16.
-template <int kT>
-__device__ __forceinline__ void attention_fwd(const float* qkv, int ld_q, bf16* dst, int ld_dst,
-                                              int t_rt, int d, int heads, int windows) {
-  const int t = kT > 0 ? kT : t_rt;
-  const int dh = d / heads;
-  const int items = windows * heads * t;
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int tq = it % t;
-    const int wh = it / t;
-    const int h = wh % heads;
-    const int row0 = (wh / heads) * t;
-    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + d + h * dh;
-    const float* vw = kw + d;
-    const int skew = (8 * h) % dh;
-    float p[kT > 0 ? kT : kMaxT];
-#pragma unroll
-    for (int j = 0; j < t; ++j) p[j] = 0.f;
-    for (int ii = 0; ii < dh; ii += 2) {
-      int i = ii + skew;
-      if (i >= dh) i -= dh;
-      const float2 qi = *reinterpret_cast<const float2*>(q + i);
-#pragma unroll
-      for (int j = 0; j < t; ++j) {
-        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
-        p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
-      }
+// LayerNorm of `rows` rows of src (f32) into dst as bf16 (the same stride),
+// one warp a row; each row's mean and 1/std to mean[] and rstd[].
+__device__ __forceinline__ void layernorm_rows(const float* src, int ld, int rows, int d,
+                                                    const float* scale, const float* bias,
+                                                    bf16* dst, float* mean, float* rstd) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (int r = warp; r < rows; r += kWarps) {
+    const float* x = src + r * ld;
+    float sum = 0.f;
+    for (int i = lane; i < d; i += 32) sum += x[i];
+    const float mu = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float c = x[i] - mu;
+      sq = fmaf(c, c, sq);
     }
-    float mx = p[0];
-#pragma unroll
-    for (int j = 1; j < t; ++j) mx = fmaxf(mx, p[j]);
-    float z = 0.f;
-#pragma unroll
-    for (int j = 0; j < t; ++j) {
-      p[j] = expf(p[j] - mx);
-      z += p[j];
+    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
     }
-    const float inv_z = 1.f / z;
-    bf16* o = dst + (row0 + tq) * ld_dst + h * dh;
-    for (int ii = 0; ii < dh; ii += 2) {
-      int i = ii + skew;
-      if (i >= dh) i -= dh;
-      float o0 = 0.f, o1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < t; ++j) {
-        const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
-        o0 = fmaf(p[j], vj.x, o0);
-        o1 = fmaf(p[j], vj.y, o1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(o + i) = __floats2bfloat162_rn(o0 * inv_z, o1 * inv_z);
-    }
+    for (int i = lane; i < d; i += 32) dst[r * ld + i] = __float2bfloat16((x[i] - mu) * rs * scale[i] + bias[i]);
   }
 }
 
-// Attention backward, in place. In: qkv = [q * dh^-0.5 | k | v], da = the
-// gradient of the mix (f32 [rows, d], stride ld_d). Out: qkv = [dq | k | dv]
-// and dk in dkbuf (f32 [rows, d], stride ld_d); the caller moves dk over k.
-// probs and dsc hold P and dS, [windows * heads * t][t] each. Three passes
-// with a barrier between them: one thread per (window, head, query frame)
-// for P and dS; one per (window, head, key frame) for dv and dk; one per
-// (window, head, query frame) for dq.
+// Attention backward of a group of gh heads (all of them in the large tile),
+// in place, in f32, in three passes: P and dS a (window, head, query frame);
+// dv and dk a (window, head, key frame); dq a (window, head, query frame).
+// `sub` lanes take an item where there are fewer items than threads: in the
+// first pass they split the head's dh columns and add their partial dot
+// products by shuffles, in the other two each lane takes its own columns.
+// In: qkv = [q * dh^-0.5 | k | v] of the group (each gh dh wide, stride
+// ld_q) and da ([rows][ld]); out: qkv = [dq | k | dv] and dk in dkbuf
+// ([rows][ld]). probs and dsc hold P and dS, [windows * gh * t][t] each. A
+// barrier ends each pass.
 template <int kT>
-__device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float* da,
-                                              float* dkbuf, int ld_d, float* probs, float* dsc,
-                                              int t_rt, int d, int heads, int windows,
-                                              float q_scale) {
+__device__ __forceinline__ void attention_bwd_lanes(float* qkv, int ld_q, const float* da,
+                                                    float* dkbuf, int ld, float* probs,
+                                                    float* dsc, int t_rt, int dh, int gh,
+                                                    int windows, float q_scale) {
   const int t = kT > 0 ? kT : t_rt;
-  const int dh = d / heads;
-  const int items = windows * heads * t;
   constexpr int kArr = kT > 0 ? kT : kMaxT;
+  const int gw = gh * dh;
+  const int items = windows * gh * t;
+  int sub = 8;                                   // lanes an item
+  while (sub > 1 && (dh % (2 * sub) != 0 || items * sub > kThreads)) sub >>= 1;
+  const int rounds = (items * sub + kThreads - 1) / kThreads;
 
-  for (int it = threadIdx.x; it < items; it += kThreads) {
+  // P and dS, a (window, head, query frame) each
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;       // lanes past the end shadow item 0
+    const int sl = tid % sub;
     const int tq = it % t;
     const int wh = it / t;
-    const int h = wh % heads;
-    const int row0 = (wh / heads) * t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
     const float* q = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + d + h * dh;
-    const float* vw = kw + d;
-    const float* dai = da + (row0 + tq) * ld_d + h * dh;
+    const float* kw = qkv + row0 * ld_q + gw + h * dh;
+    const float* vw = kw + gw;
+    const float* dai = da + (row0 + tq) * ld + h * dh;
     const int skew = (8 * h) % dh;
     float p[kArr], dp[kArr];
 #pragma unroll
@@ -336,9 +306,8 @@ __device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float*
       p[j] = 0.f;
       dp[j] = 0.f;
     }
-    for (int ii = 0; ii < dh; ii += 2) {
-      int i = ii + skew;
-      if (i >= dh) i -= dh;
+    for (int ii = 2 * sl; ii < dh; ii += 2 * sub) {
+      const int i = ii + skew < dh ? ii + skew : ii + skew - dh;
       const float2 qi = *reinterpret_cast<const float2*>(q + i);
       const float2 di = *reinterpret_cast<const float2*>(dai + i);
 #pragma unroll
@@ -347,6 +316,13 @@ __device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float*
         const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
         p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
         dp[j] = fmaf(di.x, vj.x, fmaf(di.y, vj.y, dp[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      for (int o = sub >> 1; o > 0; o >>= 1) {
+        p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
+        dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], o);
       }
     }
     float mx = p[0];
@@ -365,23 +341,30 @@ __device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float*
       p[j] *= inv_z;
       tot = fmaf(p[j], dp[j], tot);
     }
+    if (active && sl == 0) {
 #pragma unroll
-    for (int j = 0; j < t; ++j) {
-      probs[it * t + j] = p[j];
-      dsc[it * t + j] = p[j] * (dp[j] - tot);
+      for (int j = 0; j < t; ++j) {
+        probs[it * t + j] = p[j];
+        dsc[it * t + j] = p[j] * (dp[j] - tot);
+      }
     }
   }
   __syncthreads();
 
-  for (int it = threadIdx.x; it < items; it += kThreads) {
+  // dv and dk, a (window, head, key frame) each, the lanes on its columns
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;
+    const int sl = tid % sub;
     const int tj = it % t;
     const int wh = it / t;
-    const int h = wh % heads;
-    const int row0 = (wh / heads) * t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
     const float* qw = qkv + row0 * ld_q + h * dh;
-    const float* daw = da + row0 * ld_d + h * dh;
-    float* vj = qkv + (row0 + tj) * ld_q + 2 * d + h * dh;
-    float* dkj = dkbuf + (row0 + tj) * ld_d + h * dh;
+    const float* daw = da + row0 * ld + h * dh;
+    float* vj = qkv + (row0 + tj) * ld_q + 2 * gw + h * dh;
+    float* dkj = dkbuf + (row0 + tj) * ld + h * dh;
     const int skew = (8 * h) % dh;
     float p[kArr], ds[kArr];
 #pragma unroll
@@ -389,39 +372,44 @@ __device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float*
       p[i] = probs[(wh * t + i) * t + tj];
       ds[i] = dsc[(wh * t + i) * t + tj];
     }
-    for (int cc = 0; cc < dh; cc += 2) {
-      int c = cc + skew;
-      if (c >= dh) c -= dh;
+    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
+      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
       float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
 #pragma unroll
       for (int i = 0; i < t; ++i) {
-        const float2 di = *reinterpret_cast<const float2*>(daw + i * ld_d + c);
+        const float2 di = *reinterpret_cast<const float2*>(daw + i * ld + c);
         const float2 qi = *reinterpret_cast<const float2*>(qw + i * ld_q + c);
         v0 = fmaf(p[i], di.x, v0);
         v1 = fmaf(p[i], di.y, v1);
         k0 = fmaf(ds[i], qi.x, k0);
         k1 = fmaf(ds[i], qi.y, k1);
       }
-      *reinterpret_cast<float2*>(vj + c) = make_float2(v0, v1);
-      *reinterpret_cast<float2*>(dkj + c) = make_float2(k0, k1);
+      if (active) {
+        *reinterpret_cast<float2*>(vj + c) = make_float2(v0, v1);
+        *reinterpret_cast<float2*>(dkj + c) = make_float2(k0, k1);
+      }
     }
   }
   __syncthreads();
 
-  for (int it = threadIdx.x; it < items; it += kThreads) {
+  // dq, a (window, head, query frame) each, the lanes on its columns
+  for (int round = 0; round < rounds; ++round) {
+    const int tid = round * kThreads + threadIdx.x;
+    const bool active = tid < items * sub;
+    const int it = active ? tid / sub : 0;
+    const int sl = tid % sub;
     const int tq = it % t;
     const int wh = it / t;
-    const int h = wh % heads;
-    const int row0 = (wh / heads) * t;
+    const int h = wh % gh;
+    const int row0 = (wh / gh) * t;
     float* qi = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + d + h * dh;
+    const float* kw = qkv + row0 * ld_q + gw + h * dh;
     const int skew = (8 * h) % dh;
     float ds[kArr];
 #pragma unroll
     for (int j = 0; j < t; ++j) ds[j] = dsc[it * t + j];
-    for (int cc = 0; cc < dh; cc += 2) {
-      int c = cc + skew;
-      if (c >= dh) c -= dh;
+    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
+      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
       float q0 = 0.f, q1 = 0.f;
 #pragma unroll
       for (int j = 0; j < t; ++j) {
@@ -429,10 +417,26 @@ __device__ __forceinline__ void attention_bwd(float* qkv, int ld_q, const float*
         q0 = fmaf(ds[j], kj.x, q0);
         q1 = fmaf(ds[j], kj.y, q1);
       }
-      *reinterpret_cast<float2*>(qi + c) = make_float2(q0 * q_scale, q1 * q_scale);
+      if (active) *reinterpret_cast<float2*>(qi + c) = make_float2(q0 * q_scale, q1 * q_scale);
     }
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void attention_bwd_lanes_any_t(float* qkv, int ld_q, const float* da,
+                                                          float* dkbuf, int ld, float* probs,
+                                                          float* dsc, int t, int dh, int gh,
+                                                          int windows, float q_scale) {
+  switch (t) {
+    case 10:
+      attention_bwd_lanes<10>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
+      break;
+    case 4:
+      attention_bwd_lanes<4>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
+      break;
+    default:
+      attention_bwd_lanes<0>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
+  }
 }
 
 // Workspace of row operands, bf16, dense arrays end to end over n = B T rows:
@@ -544,9 +548,9 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
       *reinterpret_cast<float4*>(hbuf + r * ld_d + 4 * c4) = v;
     }
     __syncthreads();
-    layernorm_rows(hbuf, ld_d, rows, d, g1, b1, abuf, ld_d, mean1, rstd1);
+    layernorm_rows(hbuf, ld_d, rows, d, g1, b1, abuf, mean1, rstd1);
     __syncthreads();
-    store_rows(abuf, ld_d, valid, d, ws.y1 + grow0 * d);
+    store_block(abuf, ld_d, valid, d, ws.y1 + grow0 * d, d);
     {
       const float scale = s.q_scale;
       product(abuf, ld_d, s.row_tiles, w_qkv, d / 16, 0, d / 16, 3 * d / 16,
@@ -561,18 +565,9 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
               });
     }
     __syncthreads();
-    switch (t) {
-      case 10:
-        attention_fwd<10>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
-        break;
-      case 4:
-        attention_fwd<4>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
-        break;
-      default:
-        attention_fwd<0>(big, ld_q, abuf, ld_d, t, d, s.heads, s.windows);
-    }
+    attention_any_t(big, ld_q, t, d / s.heads, s.heads, s.windows, abuf, ld_d, 0);
     __syncthreads();
-    store_rows(abuf, ld_d, valid, d, ws.attn + grow0 * d);
+    store_block(abuf, ld_d, valid, d, ws.attn + grow0 * d, d);
     // park q/k/v in this block's scratch over the MLP phase
     for (int i = threadIdx.x; i < rows * q4; i += kThreads) {
       const int r = i / q4;
@@ -589,7 +584,7 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
               *h = hv;
             });
     __syncthreads();
-    layernorm_rows(hbuf, ld_d, rows, d, g2, b2, abuf, ld_d, mean2, rstd2);
+    layernorm_rows(hbuf, ld_d, rows, d, g2, b2, abuf, mean2, rstd2);
     // g as a bf16 operand, zero past the valid rows; dy2 starts at zero
     for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
       const int r = i / d4;
@@ -606,8 +601,8 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
       db_mlp2[col] += sum;
     }
     __syncthreads();
-    store_rows(abuf, ld_d, valid, d, ws.y2 + grow0 * d);
-    store_rows(gb, ld_d, valid, d, ws.g + grow0 * d);
+    store_block(abuf, ld_d, valid, d, ws.y2 + grow0 * d, d);
+    store_block(gb, ld_d, valid, d, ws.g + grow0 * d, d);
 
     // ---- the MLP, forward and backward, a chunk of hidden columns at a time ----
     const int chunk = s.chunk;
@@ -692,7 +687,7 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
     }
     __syncthreads();
     add_column_sums(hbuf, ld_d, rows, d, db_proj);
-    store_rows(abuf, ld_d, valid, d, ws.dh2 + grow0 * d);
+    store_block(abuf, ld_d, valid, d, ws.dh2 + grow0 * d, d);
     // gradient of the attention mix = bf16(dh2) Wproj^T
     product(abuf, ld_d, s.row_tiles, wt_proj, d / 16, 0, d / 16, d / 16,
             [=](int r, int n, float v0, float v1) {
@@ -701,19 +696,8 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
     __syncthreads();
 
     // ---- attention backward: big = [dq | k | dv], dk in hbuf ----
-    switch (t) {
-      case 10:
-        attention_bwd<10>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
-                          s.q_scale);
-        break;
-      case 4:
-        attention_bwd<4>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
-                         s.q_scale);
-        break;
-      default:
-        attention_bwd<0>(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d, s.heads, s.windows,
-                         s.q_scale);
-    }
+    attention_bwd_lanes_any_t(big, ld_q, x2, hbuf, ld_d, probs, dsc, t, d / s.heads, s.heads,
+                              s.windows, s.q_scale);
     // dk over k; rows of the tile past its windows hold no gradient
     for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
       const int r = i / d4;
@@ -738,7 +722,7 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
       o[1] = __floats2bfloat162_rn(v.z, v.w);
     }
     __syncthreads();
-    store_rows(dqkv_b, ld_q, valid, 3 * d, ws.dqkv + grow0 * 3 * d);
+    store_block(dqkv_b, ld_q, valid, 3 * d, ws.dqkv + grow0 * 3 * d, 3 * d);
     // dy1 = bf16(dqkv) Wqkv^T
     product(dqkv_b, ld_q, s.row_tiles, wt_qkv, 3 * d / 16, 0, 3 * d / 16, d / 16,
             [=](int r, int n, float v0, float v1) {
@@ -1116,48 +1100,6 @@ __device__ __forceinline__ void each_pair(int n, F f) {
   }
 }
 
-// LayerNorm of `rows` rows of src (f32) into dst as bf16, one warp a row;
-// scale and bias lie in shared memory; each row's mean and 1/std to mean[]
-// and rstd[].
-__device__ __forceinline__ void layernorm_rows_smem(const float* src, int ld, int rows, int d,
-                                                    const float* scale, const float* bias,
-                                                    bf16* dst, float* mean, float* rstd) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float inv_d = 1.f / static_cast<float>(d);
-  for (int r = warp; r < rows; r += kWarps) {
-    const float* x = src + r * ld;
-    float sum = 0.f;
-    for (int i = lane; i < d; i += 32) sum += x[i];
-    const float mu = warp_sum(sum) * inv_d;
-    float sq = 0.f;
-    for (int i = lane; i < d; i += 32) {
-      const float c = x[i] - mu;
-      sq = fmaf(c, c, sq);
-    }
-    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
-    if (lane == 0) {
-      mean[r] = mu;
-      rstd[r] = rs;
-    }
-    for (int i = lane; i < d; i += 32) dst[r * ld + i] = __float2bfloat16((x[i] - mu) * rs * scale[i] + bias[i]);
-  }
-}
-
-// Columns [c0, c0 + width) of the first `valid` rows of a bf16 buffer in
-// shared memory (stride ld) into the same columns of a dense array of rows
-// `row_width` wide, 16 bytes a store.
-__device__ __forceinline__ void store_cols(const bf16* src, int ld, int valid, int c0, int width,
-                                           bf16* dst, int row_width) {
-  const int w8 = width / 8;
-  for (int i = threadIdx.x; i < valid * w8; i += kThreads) {
-    const int r = i / w8;
-    const int col = c0 + 8 * (i - r * w8);
-    *reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * row_width + col) =
-        *reinterpret_cast<const uint4*>(src + r * ld + col);
-  }
-}
-
 // This block's part of a buffer -- `runs` runs of `bytes`, run_stride bytes
 // apart, in each of `rows` rows `pitch` bytes apart, from `part` -- to the
 // same place in every other block of the cluster, one bulk copy a run, row
@@ -1176,181 +1118,6 @@ __device__ __forceinline__ void send_part(const void* part, int pitch, int bytes
     const int k = i % per_peer;
     const unsigned at = src + (k / runs) * pitch + (k % runs) * run_stride;
     bulk_copy_s2c(cluster_map(at, q), at, bytes, cluster_map(bar, q));
-  }
-}
-
-// Attention backward of a group of gh heads, in place, as attention_bwd
-// computes it but with `sub` lanes an item (window, head, frame) where there
-// are fewer items than threads: in the first pass the lanes split the head's
-// dh columns and add their partial dot products by shuffles, in the other
-// two each lane takes its own columns. In: qkv = [q * dh^-0.5 | k | v] of
-// the group (each gh dh wide, stride ld_q) and da ([rows][ld]); out: qkv =
-// [dq | k | dv] and dk in dkbuf ([rows][ld]). probs and dsc hold P and dS,
-// [windows * gh * t][t] each. A barrier ends each pass.
-template <int kT>
-__device__ __forceinline__ void attention_bwd_lanes(float* qkv, int ld_q, const float* da,
-                                                    float* dkbuf, int ld, float* probs,
-                                                    float* dsc, int t_rt, int dh, int gh,
-                                                    int windows, float q_scale) {
-  const int t = kT > 0 ? kT : t_rt;
-  constexpr int kArr = kT > 0 ? kT : kMaxT;
-  const int gw = gh * dh;
-  const int items = windows * gh * t;
-  int sub = 8;                                   // lanes an item
-  while (sub > 1 && (dh % (2 * sub) != 0 || items * sub > kThreads)) sub >>= 1;
-  const int rounds = (items * sub + kThreads - 1) / kThreads;
-
-  // P and dS, a (window, head, query frame) each
-  for (int round = 0; round < rounds; ++round) {
-    const int tid = round * kThreads + threadIdx.x;
-    const bool active = tid < items * sub;
-    const int it = active ? tid / sub : 0;       // lanes past the end shadow item 0
-    const int sl = tid % sub;
-    const int tq = it % t;
-    const int wh = it / t;
-    const int h = wh % gh;
-    const int row0 = (wh / gh) * t;
-    const float* q = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + gw + h * dh;
-    const float* vw = kw + gw;
-    const float* dai = da + (row0 + tq) * ld + h * dh;
-    const int skew = (8 * h) % dh;
-    float p[kArr], dp[kArr];
-#pragma unroll
-    for (int j = 0; j < t; ++j) {
-      p[j] = 0.f;
-      dp[j] = 0.f;
-    }
-    for (int ii = 2 * sl; ii < dh; ii += 2 * sub) {
-      const int i = ii + skew < dh ? ii + skew : ii + skew - dh;
-      const float2 qi = *reinterpret_cast<const float2*>(q + i);
-      const float2 di = *reinterpret_cast<const float2*>(dai + i);
-#pragma unroll
-      for (int j = 0; j < t; ++j) {
-        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + i);
-        const float2 vj = *reinterpret_cast<const float2*>(vw + j * ld_q + i);
-        p[j] = fmaf(qi.x, kj.x, fmaf(qi.y, kj.y, p[j]));
-        dp[j] = fmaf(di.x, vj.x, fmaf(di.y, vj.y, dp[j]));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < t; ++j) {
-      for (int o = sub >> 1; o > 0; o >>= 1) {
-        p[j] += __shfl_xor_sync(0xffffffffu, p[j], o);
-        dp[j] += __shfl_xor_sync(0xffffffffu, dp[j], o);
-      }
-    }
-    float mx = p[0];
-#pragma unroll
-    for (int j = 1; j < t; ++j) mx = fmaxf(mx, p[j]);
-    float z = 0.f;
-#pragma unroll
-    for (int j = 0; j < t; ++j) {
-      p[j] = expf(p[j] - mx);
-      z += p[j];
-    }
-    const float inv_z = 1.f / z;
-    float tot = 0.f;
-#pragma unroll
-    for (int j = 0; j < t; ++j) {
-      p[j] *= inv_z;
-      tot = fmaf(p[j], dp[j], tot);
-    }
-    if (active && sl == 0) {
-#pragma unroll
-      for (int j = 0; j < t; ++j) {
-        probs[it * t + j] = p[j];
-        dsc[it * t + j] = p[j] * (dp[j] - tot);
-      }
-    }
-  }
-  __syncthreads();
-
-  // dv and dk, a (window, head, key frame) each, the lanes on its columns
-  for (int round = 0; round < rounds; ++round) {
-    const int tid = round * kThreads + threadIdx.x;
-    const bool active = tid < items * sub;
-    const int it = active ? tid / sub : 0;
-    const int sl = tid % sub;
-    const int tj = it % t;
-    const int wh = it / t;
-    const int h = wh % gh;
-    const int row0 = (wh / gh) * t;
-    const float* qw = qkv + row0 * ld_q + h * dh;
-    const float* daw = da + row0 * ld + h * dh;
-    float* vj = qkv + (row0 + tj) * ld_q + 2 * gw + h * dh;
-    float* dkj = dkbuf + (row0 + tj) * ld + h * dh;
-    const int skew = (8 * h) % dh;
-    float p[kArr], ds[kArr];
-#pragma unroll
-    for (int i = 0; i < t; ++i) {
-      p[i] = probs[(wh * t + i) * t + tj];
-      ds[i] = dsc[(wh * t + i) * t + tj];
-    }
-    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
-      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
-      float v0 = 0.f, v1 = 0.f, k0 = 0.f, k1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < t; ++i) {
-        const float2 di = *reinterpret_cast<const float2*>(daw + i * ld + c);
-        const float2 qi = *reinterpret_cast<const float2*>(qw + i * ld_q + c);
-        v0 = fmaf(p[i], di.x, v0);
-        v1 = fmaf(p[i], di.y, v1);
-        k0 = fmaf(ds[i], qi.x, k0);
-        k1 = fmaf(ds[i], qi.y, k1);
-      }
-      if (active) {
-        *reinterpret_cast<float2*>(vj + c) = make_float2(v0, v1);
-        *reinterpret_cast<float2*>(dkj + c) = make_float2(k0, k1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // dq, a (window, head, query frame) each, the lanes on its columns
-  for (int round = 0; round < rounds; ++round) {
-    const int tid = round * kThreads + threadIdx.x;
-    const bool active = tid < items * sub;
-    const int it = active ? tid / sub : 0;
-    const int sl = tid % sub;
-    const int tq = it % t;
-    const int wh = it / t;
-    const int h = wh % gh;
-    const int row0 = (wh / gh) * t;
-    float* qi = qkv + (row0 + tq) * ld_q + h * dh;
-    const float* kw = qkv + row0 * ld_q + gw + h * dh;
-    const int skew = (8 * h) % dh;
-    float ds[kArr];
-#pragma unroll
-    for (int j = 0; j < t; ++j) ds[j] = dsc[it * t + j];
-    for (int cc = 2 * sl; cc < dh; cc += 2 * sub) {
-      const int c = cc + skew < dh ? cc + skew : cc + skew - dh;
-      float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < t; ++j) {
-        const float2 kj = *reinterpret_cast<const float2*>(kw + j * ld_q + c);
-        q0 = fmaf(ds[j], kj.x, q0);
-        q1 = fmaf(ds[j], kj.y, q1);
-      }
-      if (active) *reinterpret_cast<float2*>(qi + c) = make_float2(q0 * q_scale, q1 * q_scale);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void attention_bwd_lanes_any_t(float* qkv, int ld_q, const float* da,
-                                                          float* dkbuf, int ld, float* probs,
-                                                          float* dsc, int t, int dh, int gh,
-                                                          int windows, float q_scale) {
-  switch (t) {
-    case 10:
-      attention_bwd_lanes<10>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
-      break;
-    case 4:
-      attention_bwd_lanes<4>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
-      break;
-    default:
-      attention_bwd_lanes<0>(qkv, ld_q, da, dkbuf, ld, probs, dsc, t, dh, gh, windows, q_scale);
   }
 }
 
@@ -1497,9 +1264,9 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     }
   }
   __syncthreads();
-  layernorm_rows_smem(resid, ld_r, rows, d, g1, b1, ybuf, mean1, rstd1);
+  layernorm_rows(resid, ld_r, rows, d, g1, b1, ybuf, mean1, rstd1);
   __syncthreads();
-  store_cols(ybuf, ld_r, valid, own0, gw, ws.y1 + base, d);
+  store_block(ybuf + own0, ld_r, valid, gw, ws.y1 + base + own0, d);
   lap(1);
 
   // q/k/v of this block's heads, [q | k | v] each gw wide, q scaled
@@ -1526,7 +1293,7 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   attention_any_t(qbuf, ld_q, t, dh, mine, s.windows, abuf, ld_r, rank * mine);
   lap(3);
   send_part(abuf + own0, ld_r * 2, gw * 2, 1, 0, rows, bar_a, rank, peers);   // a, to all
-  store_cols(abuf, ld_r, valid, own0, gw, ws.attn + base, d);
+  store_block(abuf + own0, ld_r, valid, gw, ws.attn + base + own0, d);
   mbar_wait(bar_a, 0);
   lap(4);
 
@@ -1548,7 +1315,7 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   send_part(resid + own0, ld_r * 4, gw * 4, 1, 0, rows, bar_h, rank, peers);  // h2, to all
   mbar_wait(bar_h, 0);
   lap(6);
-  layernorm_rows_smem(resid, ld_r, rows, d, g2, b2, ybuf, mean2, rstd2);
+  layernorm_rows(resid, ld_r, rows, d, g2, b2, ybuf, mean2, rstd2);
   // g as a bf16 operand over a (every block has had its copies of a: they
   // all sent h2 after theirs arrived), zeros past the valid rows
   {
@@ -1567,8 +1334,8 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     }
   }
   __syncthreads();
-  store_cols(ybuf, ld_r, valid, own0, gw, ws.y2 + base, d);
-  store_cols(abuf, ld_r, valid, own0, gw, ws.g + base, d);
+  store_block(ybuf + own0, ld_r, valid, gw, ws.y2 + base + own0, d);
+  store_block(abuf + own0, ld_r, valid, gw, ws.g + base + own0, d);
   lap(7);
 
   // ---- the MLP: z1 = y2 W1 + bm1 and g W2^T, this block's hidden columns,
@@ -1654,7 +1421,7 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
   }
   __syncthreads();
   add_column_sums(resid + own0, ld_r, valid, gw, db_proj + own0);
-  store_cols(ybuf, ld_r, valid, own0, gw, ws.dh2 + base, d);
+  store_block(ybuf + own0, ld_r, valid, gw, ws.dh2 + base + own0, d);
   lap(12);
 
   // the mix's gradient for this block's heads: da = bf16(dh2) Wproj^T
@@ -1703,7 +1470,8 @@ encoder_bwd_tile_kernel_cluster(const float* __restrict__ x, const float* __rest
     }
   }
   for (int part = 0; part < 3; ++part) {
-    store_cols(dqf, ld_dq, valid, part * d + own0, gw, ws.dqkv + grow0 * 3 * d, 3 * d);
+    const int c0 = part * d + own0;
+    store_block(dqf + c0, ld_dq, valid, gw, ws.dqkv + grow0 * 3 * d + c0, 3 * d);
   }
   mbar_wait(bar_dq, 0);
   lap(15);
@@ -1782,6 +1550,806 @@ cudaError_t launch_cluster_tile(const SmallPlan& s, size_t smem, const float* x,
   const int tiles = (s.batch + s.windows - 1) / s.windows;
   return launch_cluster(kernel, tiles * s.cluster, kThreads, s.cluster, smem, stream, x, g, w,
                         wt, vec, dx, ws, vpart, s, clocks);
+}
+
+// ---- the pair shape: two blocks of a cluster share one weight stream ----
+
+// Its layout at d = 256 (fused_encoder.py::_bwd_pair_layout is the same):
+// offsets in bytes, strides in elements. Rows of f32 [rows][d] buffers are
+// d + 4 wide; the 4 columns past d hold the row's LN statistics (mean1,
+// rstd1, mean2, rstd2).
+constexpr int kPD = 256;                      // the width the pair shape takes
+constexpr int kPRows = 32;                    // a block's row tile
+constexpr int kPLdF = kPD + 4;
+constexpr int kPLdB = kPD + 8;                // bf16 [rows][d]
+constexpr int kPLdQ = 3 * kPD + 8;            // bf16 q/k/v
+constexpr int kPChunk = 256;                  // hidden columns an MLP chunk
+constexpr int kSlotKs = 4;                    // k-steps of each of 16 column blocks a slot
+constexpr int kSlotBytes = 16 * kSlotKs * 512;
+constexpr int kSlots = 3;
+constexpr int kPairThreads = kThreads + 128;  // 4 consumer warpgroups and the producer's
+// Registers a thread after setmaxnreg: the producer warpgroup gives what the
+// consumers take, within the block's 640 x 96 (ptxas's launch count).
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 112;
+static_assert(4 * kProducerRegs + 16 * kConsumerRegs <= 20 * 96, "setmaxnreg over budget");
+constexpr int kPOffF = 0;                                   // x, h2, dh2, x again (f32)
+constexpr int kPOffB = kPOffF + kPRows * kPLdF * 4;         // y1, a, y2, dh2 (bf16)
+constexpr int kPOffQ = kPOffB + kPRows * kPLdB * 2;         // q/k/v, then dq/dk/dv (bf16)
+constexpr int kPOffM = kPOffQ + kPRows * kPLdQ * 2;         // g (bf16); dy2, dy1 (f32); da (bf16)
+constexpr int kPOffDz = kPOffM + kPRows * kPLdB * 2;        // a chunk of dz1 (bf16)
+constexpr int kPOffRing = kPOffDz + kPRows * kPLdB * 2;     // kSlots slots of weights
+constexpr int kPOffBar = kPOffRing + kSlots * kSlotBytes;   // full[kSlots], empty[kSlots]
+constexpr int kPSmem = kPOffBar + 2 * kSlots * 8;
+constexpr int kPairPlanInts = 9;
+static_assert(kPOffM + kPRows * kPLdF * 4 <= kPOffRing, "dy2 overruns the ring");
+static_assert(kPSmem <= kMaxSmem, "the pair shape's layout exceeds shared memory");
+// Phases the pair shape's cycle counters time, summed over a block's tiles,
+// and last the cycles its warp 0 waited for weights within them.
+constexpr int kPairPhases = 14;
+
+struct EncoderBwdPairTag {};
+
+struct PairShape {
+  int batch, t, m, heads, windows;
+  float q_scale;
+};
+
+// The consumers' view of the weight ring: the slot of the next fill and
+// the parity of its phase. Every consumer thread steps it alike.
+struct Ring {
+  const unsigned char* base;
+  unsigned full, empty, peer_empty;           // slot 0's mbarriers; slots 8 bytes apart
+  int slot;
+  unsigned phase;
+};
+
+__device__ __forceinline__ const uint4* ring_take(Ring& r, long long* waited) {
+  if (waited != nullptr) {
+    const long long t0 = clock64();
+    mbar_wait(r.full + 8 * r.slot, r.phase);
+    *waited += clock64() - t0;
+  } else {
+    mbar_wait(r.full + 8 * r.slot, r.phase);
+  }
+  return reinterpret_cast<const uint4*>(r.base + r.slot * kSlotBytes);
+}
+
+// The warp is done with the slot: one arrival on its empty mbarrier in both
+// blocks of the pair.
+__device__ __forceinline__ void ring_give(Ring& r) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    mbar_arrive(r.empty + 8 * r.slot);
+    mbar_arrive_cluster(r.peer_empty + 8 * r.slot);
+  }
+  if (++r.slot == kSlots) {
+    r.slot = 0;
+    r.phase ^= 1;
+  }
+}
+
+// acc += A (32 rows, bf16 in shared memory, stride lda) x the next n_slots
+// slots of the stream, this warp's 16-column block (block `warp` of every
+// slot), slot j holding k-steps 4 j .. 4 j + 3 of A. acc[rt][j][e] is row
+// 16 rt + g (+ 8 for e >= 2), column 8 j + 2 c (+ 1 for odd e).
+__device__ __forceinline__ void stream_mma(Ring& r, const bf16* a, int lda, int n_slots,
+                                           float (&acc)[2][2][4], long long* waited) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bf16* a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
+  for (int j = 0; j < n_slots; ++j) {
+    const uint4* w = ring_take(r, waited) + warp * kSlotKs * 32 + lane;
+    uint4 b[kSlotKs];
+#pragma unroll
+    for (int ks = 0; ks < kSlotKs; ++ks) b[ks] = w[ks * 32];
+#pragma unroll
+    for (int ks = 0; ks < kSlotKs; ++ks) {
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        unsigned af[4];
+        ldmatrix_x4(af, a0 + rt * 16 * lda + 16 * (kSlotKs * j + ks));
+        mma_bf16(acc[rt][0], af, b[ks].x, b[ks].y);
+        mma_bf16(acc[rt][1], af, b[ks].z, b[ks].w);
+      }
+    }
+    ring_give(r);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][2][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i >> 3][(i >> 2) & 1][i & 3] = 0.f;
+}
+
+// s[j][e] summed over the warp's 8 lane rows (lanes of one c) by shuffles in
+// a fixed order; lanes 0..3 then add column 8 j + 2 c + e's sum to dst.
+__device__ __forceinline__ void fold_columns(float (&s)[2][2], float* dst) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = s[j][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      s[j][e] = v;
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      dst[8 * j + 2 * lane] += s[j][0];
+      dst[8 * j + 2 * lane + 1] += s[j][1];
+    }
+  }
+}
+
+// LayerNorm of the tile's rows of src (f32, stride kPLdF) into dst (bf16,
+// stride kPLdB), a warp a row; the mean and 1/std go to columns d + stat
+// and d + stat + 1 of the row.
+__device__ __forceinline__ void pair_layernorm(float* src, bf16* dst,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias, int stat) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  constexpr float inv_d = 1.f / kPD;
+  for (int r = warp; r < kPRows; r += kWarps) {
+    float* x = src + r * kPLdF;
+    float v[kPD / 32];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPD / 32; ++i) {
+      v[i] = x[lane + 32 * i];
+      sum += v[i];
+    }
+    const float mu = warp_sum(sum) * inv_d;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPD / 32; ++i) sq = fmaf(v[i] - mu, v[i] - mu, sq);
+    const float rs = rsqrtf(warp_sum(sq) * inv_d + kLnEps);
+    if (lane == 0) {
+      x[kPD + stat] = mu;
+      x[kPD + stat + 1] = rs;
+    }
+#pragma unroll
+    for (int i = 0; i < kPD / 32; ++i) {
+      const int col = lane + 32 * i;
+      dst[r * kPLdB + col] =
+          __float2bfloat16((v[i] - mu) * rs * __ldg(scale + col) + __ldg(bias + col));
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Scores and probabilities of one (window, head) on mma: rows are the
+// window's frames padded to 16 (from row r0; rows past the buffer read its
+// last row), columns its frames as keys. p[nt][e]: query g (+ 8 for e >=
+// 2), key 8 nt + 2 c (+ 1 for odd e); keys past t get 0, queries past t a
+// row of 0.
+template <int kDh>
+__device__ __forceinline__ void window_probs(const bf16* q, int r0, int t, int h,
+                                             float (&p)[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* qa = q + min(r0 + (lane & 15), kPRows - 1) * kPLdQ + h * kDh + (lane >> 4) * 8;
+  const bf16* kb = q + min(r0 + (lane & 7) + ((lane >> 4) << 3), kPRows - 1) * kPLdQ + kPD +
+                   h * kDh + ((lane >> 3) & 1) * 8;
+  float s[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kDh / 16; ++kk) {
+    unsigned af[4], bfr[4];
+    ldmatrix_x4(af, qa + 16 * kk);
+    ldmatrix_x4(bfr, kb + 16 * kk);
+    mma_bf16(s[0], af, bfr[0], bfr[1]);
+    mma_bf16(s[1], af, bfr[2], bfr[3]);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (8 * nt + 2 * c + e < t) mx = fmaxf(mx, s[nt][2 * hh + e]);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float z = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = 8 * nt + 2 * c + e < t ? expf(s[nt][2 * hh + e] - mx) : 0.f;
+        p[nt][2 * hh + e] = v;
+        z += v;
+      }
+    }
+    z += __shfl_xor_sync(0xffffffffu, z, 1);
+    z += __shfl_xor_sync(0xffffffffu, z, 2);
+    const float inv_z = g + 8 * hh < t ? 1.f / z : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      p[nt][2 * hh] *= inv_z;
+      p[nt][2 * hh + 1] *= inv_z;
+    }
+  }
+}
+
+// a = P v for one (window, head), as bf16 into the window's rows of dst.
+template <int kDh>
+__device__ __forceinline__ void window_attention(const bf16* q, bf16* dst, int r0, int t,
+                                                 int h) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  float p[2][4];
+  window_probs<kDh>(q, r0, t, h, p);
+  const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                          pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+  const bf16* vb = q + min(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, kPRows - 1) * kPLdQ +
+                   2 * kPD + h * kDh + (lane >> 4) * 8;
+#pragma unroll
+  for (int nn = 0; nn < kDh / 16; ++nn) {
+    unsigned bfr[4];
+    ldmatrix_x4_trans(bfr, vb + 16 * nn);
+    float o[2][4] = {};
+    mma_bf16(o[0], pa, bfr[0], bfr[1]);
+    mma_bf16(o[1], pa, bfr[2], bfr[3]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (g + 8 * hh < t) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g + 8 * hh) * kPLdB + h * kDh +
+                                             16 * nn + 8 * j + 2 * c) =
+              __floats2bfloat162_rn(o[j][2 * hh], o[j][2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
+// o[j][e] (rows g and g + 8 of a 16 x 16 tile, columns 8 j + 2 c + e) as
+// bf16 into rows r0 + row < r0 + t of dst at column col0, and their sum over
+// those rows into sums[col0 ..] (a fixed order).
+__device__ __forceinline__ void window_out(const float (&o)[2][4], bf16* dst, int r0, int t,
+                                          int col0, float* sums) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  float s[2][2] = {};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (g + 8 * hh < t) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + (r0 + g + 8 * hh) * kPLdQ + col0 + 8 * j +
+                                           2 * c) =
+            __floats2bfloat162_rn(o[j][2 * hh], o[j][2 * hh + 1]);
+        s[j][0] += o[j][2 * hh];
+        s[j][1] += o[j][2 * hh + 1];
+      }
+    }
+  }
+  fold_columns(s, sums + col0);
+}
+
+// The attention backward of one (window, head) on mma, in place: q/k/v of
+// the window's rows become dq/dk/dv (bf16) and their column sums go to
+// dbqkv. da: the gradient of the mix (bf16 [rows][kPLdB]).
+template <int kDh>
+__device__ __forceinline__ void window_attention_bwd(bf16* q, const bf16* da, int r0, int t,
+                                                     int h, float q_scale, float* dbqkv) {
+  const int lane = threadIdx.x & 31;
+  float p[2][4];
+  window_probs<kDh>(q, r0, t, h, p);
+  // dp = da v^T
+  float dp[2][4] = {};
+  {
+    const bf16* aa = da + min(r0 + (lane & 15), kPRows - 1) * kPLdB + h * kDh + (lane >> 4) * 8;
+    const bf16* vb = q + min(r0 + (lane & 7) + ((lane >> 4) << 3), kPRows - 1) * kPLdQ +
+                     2 * kPD + h * kDh + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk) {
+      unsigned af[4], bfr[4];
+      ldmatrix_x4(af, aa + 16 * kk);
+      ldmatrix_x4(bfr, vb + 16 * kk);
+      mma_bf16(dp[0], af, bfr[0], bfr[1]);
+      mma_bf16(dp[1], af, bfr[2], bfr[3]);
+    }
+  }
+  // dS = P (dp - sum_j P dp), rows of queries
+  float ds[2][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float tot = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      tot = fmaf(p[nt][2 * hh], dp[nt][2 * hh], tot);
+      tot = fmaf(p[nt][2 * hh + 1], dp[nt][2 * hh + 1], tot);
+    }
+    tot += __shfl_xor_sync(0xffffffffu, tot, 1);
+    tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      ds[nt][2 * hh] = p[nt][2 * hh] * (dp[nt][2 * hh] - tot);
+      ds[nt][2 * hh + 1] = p[nt][2 * hh + 1] * (dp[nt][2 * hh + 1] - tot);
+    }
+  }
+  // P and dS as A operands (queries x keys), and transposed (keys x queries)
+  const unsigned pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                          pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+  const unsigned sa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                          pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+  const unsigned pt[4] = {movmatrix_trans(pa[0]), movmatrix_trans(pa[2]),
+                          movmatrix_trans(pa[1]), movmatrix_trans(pa[3])};
+  const unsigned st[4] = {movmatrix_trans(sa[0]), movmatrix_trans(sa[2]),
+                          movmatrix_trans(sa[1]), movmatrix_trans(sa[3])};
+  // B operands [frames][dh] by transposed loads, 16 columns of the head at a time
+  const int row = min(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, kPRows - 1);
+  const bf16* dab = da + row * kPLdB + h * kDh + (lane >> 4) * 8;
+  const bf16* qb = q + row * kPLdQ + h * kDh + (lane >> 4) * 8;
+#pragma unroll
+  for (int nn = 0; nn < kDh / 16; ++nn) {
+    const int col = h * kDh + 16 * nn;
+    unsigned b_da[4], b_q[4], b_k[4];
+    ldmatrix_x4_trans(b_da, dab + 16 * nn);
+    ldmatrix_x4_trans(b_q, qb + 16 * nn);
+    ldmatrix_x4_trans(b_k, qb + kPD + 16 * nn);
+    float dv[2][4] = {}, dk[2][4] = {}, dq[2][4] = {};
+    mma_bf16(dv[0], pt, b_da[0], b_da[1]);       // dv = P^T da
+    mma_bf16(dv[1], pt, b_da[2], b_da[3]);
+    mma_bf16(dk[0], st, b_q[0], b_q[1]);         // dk = dS^T q (q carries the scale)
+    mma_bf16(dk[1], st, b_q[2], b_q[3]);
+    mma_bf16(dq[0], sa, b_k[0], b_k[1]);         // dq = dS k dh^-0.5
+    mma_bf16(dq[1], sa, b_k[2], b_k[3]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dq[i >> 2][i & 3] *= q_scale;
+    __syncwarp();                                // every lane has read q and k of these columns
+    window_out(dq, q, r0, t, col, dbqkv);
+    window_out(dk, q, r0, t, kPD + col, dbqkv);
+    window_out(dv, q, r0, t, 2 * kPD + col, dbqkv);
+  }
+}
+
+// Every (window, head) of the tile's n_win windows: a warp takes heads
+// warp, warp + 16, .. and their windows in order.
+template <int kDh>
+__device__ __forceinline__ void pair_attention(bf16* q, bf16* dst, const bf16* da, int n_win,
+                                               int t, int heads, float q_scale, float* dbqkv,
+                                               bool backward) {
+  for (int h = threadIdx.x >> 5; h < heads; h += kWarps) {
+    for (int w = 0; w < n_win; ++w) {
+      if (backward) {
+        window_attention_bwd<kDh>(q, da, w * t, t, h, q_scale, dbqkv);
+      } else {
+        window_attention<kDh>(q, dst, w * t, t, h);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void pair_attention_any(bf16* q, bf16* dst, const bf16* da, int n_win,
+                                                   int t, int heads, float q_scale,
+                                                   float* dbqkv, bool backward) {
+  switch (kPD / heads) {
+    case 16:
+      pair_attention<16>(q, dst, da, n_win, t, heads, q_scale, dbqkv, backward);
+      break;
+    case 32:
+      pair_attention<32>(q, dst, da, n_win, t, heads, q_scale, dbqkv, backward);
+      break;
+    default:
+      pair_attention<64>(q, dst, da, n_win, t, heads, q_scale, dbqkv, backward);
+  }
+}
+
+// The producer warp: the weights every tile multiplies by, in the order the
+// consumers take them, as fills of kSlotBytes (16 column blocks x 4 k-steps,
+// fragment order). Each block of the pair copies every other column block
+// of a fill into both blocks' slot (multicast); a slot is refilled once both
+// blocks' 16 warps gave it back and the other block armed its full barrier
+// for the fill (one arrival on this block's empty barrier each).
+__device__ __forceinline__ void pair_produce(const bf16* w, const bf16* wt, int m, int tiles,
+                                             unsigned ring, unsigned full, unsigned empty,
+                                             unsigned peer_empty, int rank) {
+  const int lane = threadIdx.x & 31;
+  const bf16* const w_qkv = w;
+  const bf16* const w_proj = w_qkv + 3LL * kPD * kPD;
+  const bf16* const w_mlp1 = w_proj + 1LL * kPD * kPD;
+  const bf16* const wt_qkv = wt;
+  const bf16* const wt_proj = wt_qkv + 3LL * kPD * kPD;
+  const bf16* const wt_mlp1 = wt_proj + 1LL * kPD * kPD;
+  const bf16* const wt_mlp2 = wt_mlp1 + 1LL * kPD * m;
+  int slot = 0;
+  unsigned fill = 0;                          // fills of this slot so far
+  // one fill: column blocks b0 .. b0 + 15 of a weight of nk k-steps, k-steps ks .. ks + 3
+  auto put = [&](const bf16* src, int nk, int b0, int ks) {
+    const unsigned bar = full + 8 * slot;
+    if (lane == 0) {
+      if (fill > 0) mbar_wait(bar, (fill - 1) & 1);   // its last fill was consumed here
+      mbar_arrive_expect_tx(bar, kSlotBytes);
+      mbar_arrive_cluster(peer_empty + 8 * slot);
+      mbar_wait(empty + 8 * slot, fill & 1);
+    }
+    __syncwarp();
+    if (lane < 8) {
+      const int i = 2 * lane + rank;
+      bulk_copy_g2s_multicast(ring + slot * kSlotBytes + i * kSlotKs * 512,
+                              src + (static_cast<long long>(b0 + i) * nk + ks) * 256,
+                              kSlotKs * 512, bar, 0x3);
+    }
+    if (++slot == kSlots) {
+      slot = 0;
+      ++fill;
+    }
+  };
+  auto put_all = [&](const bf16* src, int nk, int b0, int ks0, int k_steps) {
+    for (int ks = ks0; ks < ks0 + k_steps; ks += kSlotKs) put(src, nk, b0, ks);
+  };
+  for (int tile = 0; tile < tiles; ++tile) {
+    for (int grp = 0; grp < 3; ++grp) put_all(w_qkv, 16, 16 * grp, 0, 16);
+    put_all(w_proj, 16, 0, 0, 16);
+    for (int c0 = 0; c0 < m; c0 += kPChunk) {
+      put_all(w_mlp1, 16, c0 / 16, 0, 16);
+      put_all(wt_mlp2, 16, c0 / 16, 0, 16);
+      put_all(wt_mlp1, m / 16, 0, c0 / 16, 16);
+    }
+    put_all(wt_proj, 16, 0, 0, 16);
+    put_all(wt_qkv, 48, 0, 0, 48);
+  }
+}
+
+// The tile kernel's pair shape at d = 256: clusters of two blocks, each
+// block its own tile of 32 rows (whole windows) with all the columns, the
+// pair walking over pairs of tiles. One stream of weights feeds both
+// blocks: the producer warps copy each fill once into both blocks' rings,
+// so a weight byte read from L2 serves 64 rows. Consumers take B from the
+// ring, A from their tile (mma.sync); q/k/v stay bf16 in shared memory over
+// the MLP; the attention, forward and backward, runs on mma a (window,
+// head) a warp; six of the eight vector gradients are summed in the
+// epilogues that produce their terms. The order is the large shape's, and
+// every sum is in a fixed order.
+__global__ void __launch_bounds__(kPairThreads, 1)
+encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restrict__ gout,
+                             const bf16* __restrict__ w, const bf16* __restrict__ wt,
+                             const float* __restrict__ vec, float* dx, bf16* ws_base,
+                             float* vpart_base, PairShape s, long long* __restrict__ clocks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int peer = rank ^ 1;
+  const int t = s.t, m = s.m;
+  const int n_pairs = ((s.batch + s.windows - 1) / s.windows + 1) / 2;
+  const int cluster = static_cast<int>(blockIdx.x) / 2, clusters = static_cast<int>(gridDim.x) / 2;
+  const int tiles = cluster < n_pairs ? (n_pairs - 1 - cluster) / clusters + 1 : 0;
+  const unsigned ring = smem_u32(smem + kPOffRing);
+  const unsigned full = smem_u32(smem + kPOffBar);
+  const unsigned empty = full + 8 * kSlots;
+  const int n_vec = 9 * kPD + m;
+  float* const vp = vpart_base + static_cast<long long>(blockIdx.x) * n_vec;
+  long long* const clk =
+      clocks != nullptr && threadIdx.x == 0 ? clocks + blockIdx.x * kPairPhases : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2 * kWarps + 1);
+      // the first fill of each slot waits only for the other block's arming
+      for (int k = 0; k < 2 * kWarps; ++k) mbar_arrive(empty + 8 * i);
+    }
+    mbar_init_fence();
+  }
+  for (int i = threadIdx.x; i < n_vec; i += kPairThreads) vp[i] = 0.f;
+  if (clk != nullptr) {
+    for (int i = 0; i < kPairPhases; ++i) clk[i] = 0;
+  }
+  cluster_sync_all();
+
+  if (warp >= kWarps) {                         // the producer warpgroup: one warp copies
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWarps) {
+      pair_produce(w, wt, m, tiles, ring, full, empty, cluster_map(empty, peer), rank);
+    }
+    cluster_sync_all();
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- the consumers ----
+  long long t_last = 0, waited = 0;
+  long long* const wait_at = clk != nullptr ? &waited : nullptr;
+  auto lap = [&](int phase) {
+    if (clk != nullptr) {
+      const long long now = clock64();
+      if (phase > 0) clk[phase - 1] += now - t_last;
+      t_last = now;
+    }
+  };
+  auto sync = [] { named_barrier_sync(1, kThreads); };
+  Ring rg{smem + kPOffRing, full, empty, cluster_map(empty, peer), 0, 0};
+
+  float* const hb = reinterpret_cast<float*>(smem + kPOffF);
+  bf16* const ab = reinterpret_cast<bf16*>(smem + kPOffB);
+  bf16* const qb = reinterpret_cast<bf16*>(smem + kPOffQ);
+  bf16* const gb = reinterpret_cast<bf16*>(smem + kPOffM);
+  bf16* const dab = reinterpret_cast<bf16*>(smem + kPOffM);
+  float* const fb = reinterpret_cast<float*>(smem + kPOffM);
+  bf16* const dzb = reinterpret_cast<bf16*>(smem + kPOffDz);
+
+  const float* const g1 = vec;
+  const float* const b1 = g1 + kPD;
+  const float* const b_qkv = b1 + kPD;
+  const float* const b_proj = b_qkv + 3 * kPD;
+  const float* const g2 = b_proj + kPD;
+  const float* const b2 = g2 + kPD;
+  const float* const b_mlp1 = b2 + kPD;
+  float* const dg1 = vp;
+  float* const db1 = dg1 + kPD;
+  float* const db_qkv = db1 + kPD;
+  float* const db_proj = db_qkv + 3 * kPD;
+  float* const dg2 = db_proj + kPD;
+  float* const db2 = dg2 + kPD;
+  float* const db_mlp1 = db2 + kPD;
+  float* const db_mlp2 = db_mlp1 + m;
+  const Workspace ws = carve_workspace(ws_base, static_cast<long long>(s.batch) * t, kPD, m);
+  constexpr int d4 = kPD / 4;
+  const int n0 = 16 * warp;                  // this warp's columns of a 256-wide output
+
+  for (int it = 0; it < tiles; ++it) {
+    lap(0);
+    const int tile = 2 * (cluster + it * clusters) + rank;
+    const int win0 = tile * s.windows;
+    const int n_win = max(0, min(s.windows, s.batch - win0));
+    const int valid = n_win * t;
+    const long long grow0 = static_cast<long long>(win0) * t;
+    const long long base = grow0 * kPD;
+    const float4* const xs = reinterpret_cast<const float4*>(x + base);
+
+    // ---- recompute the forward ----
+    for (int i = threadIdx.x; i < kPRows * d4; i += kThreads) {
+      const int r = i / d4;
+      *reinterpret_cast<float4*>(hb + r * kPLdF + 4 * (i - r * d4)) =
+          r < valid ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    sync();
+    pair_layernorm(hb, ab, g1, b1, 0);
+    sync();
+    store_block(ab, kPLdB, valid, kPD, ws.y1 + base, kPD);
+    lap(1);
+    for (int grp = 0; grp < 3; ++grp) {          // q (scaled), k, v: 256 columns each
+      float acc[2][2][4];
+      zero_acc(acc);
+      stream_mma(rg, ab, kPLdB, 4, acc, wait_at);
+      const float scale = grp == 0 ? s.q_scale : 1.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        const int n = grp * kPD + n0 + 8 * j + 2 * c;
+        *reinterpret_cast<__nv_bfloat162*>(qb + (16 * rt + g + 8 * hh) * kPLdQ + n) =
+            __floats2bfloat162_rn((acc[rt][j][2 * hh] + __ldg(b_qkv + n)) * scale,
+                                  (acc[rt][j][2 * hh + 1] + __ldg(b_qkv + n + 1)) * scale);
+      }
+    }
+    sync();
+    lap(2);
+    pair_attention_any(qb, ab, nullptr, n_win, t, s.heads, s.q_scale, nullptr, false);
+    sync();
+    store_block(ab, kPLdB, valid, kPD, ws.attn + base, kPD);
+    lap(3);
+    {                                            // h2 = x + a Wproj + bproj
+      float acc[2][2][4];
+      zero_acc(acc);
+      stream_mma(rg, ab, kPLdB, 4, acc, wait_at);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        const int n = n0 + 8 * j + 2 * c;
+        float2* at = reinterpret_cast<float2*>(hb + (16 * rt + g + 8 * hh) * kPLdF + n);
+        float2 hv = *at;
+        hv.x += acc[rt][j][2 * hh] + __ldg(b_proj + n);
+        hv.y += acc[rt][j][2 * hh + 1] + __ldg(b_proj + n + 1);
+        *at = hv;
+      }
+    }
+    sync();
+    lap(4);
+    pair_layernorm(hb, ab, g2, b2, 2);
+    {                                            // g as a bf16 operand; its column sums
+      const float4* gs = reinterpret_cast<const float4*>(gout + base);
+      for (int i = threadIdx.x; i < kPRows * d4; i += kThreads) {
+        const int r = i / d4;
+        const float4 v = r < valid ? __ldg(gs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(gb + r * kPLdB + 4 * (i - r * d4));
+        o[0] = __floats2bfloat162_rn(v.x, v.y);
+        o[1] = __floats2bfloat162_rn(v.z, v.w);
+      }
+      if (threadIdx.x < kPD) {
+        float sum = 0.f;
+        for (int r = 0; r < valid; ++r) sum += __ldg(gout + base + r * kPD + threadIdx.x);
+        db_mlp2[threadIdx.x] += sum;
+      }
+    }
+    sync();
+    store_block(ab, kPLdB, valid, kPD, ws.y2 + base, kPD);
+    store_block(gb, kPLdB, valid, kPD, ws.g + base, kPD);
+    lap(5);
+
+    // ---- the MLP a chunk of hidden columns at a time; dy2 stays in registers ----
+    float dy2[2][2][4];
+    zero_acc(dy2);
+    for (int c0 = 0; c0 < m; c0 += kPChunk) {
+      float z[2][2][4], gw[2][2][4];
+      zero_acc(z);
+      zero_acc(gw);
+      stream_mma(rg, ab, kPLdB, 4, z, wait_at);    // y2 W1
+      stream_mma(rg, gb, kPLdB, 4, gw, wait_at);   // bf16(g) W2^T
+      float cs[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        const int r = 16 * rt + g + 8 * hh;
+        const int n = n0 + 8 * j + 2 * c;
+        float a0, a1, d0, d1;
+        gelu_tanh_both(z[rt][j][2 * hh] + __ldg(b_mlp1 + c0 + n), a0, d0);
+        gelu_tanh_both(z[rt][j][2 * hh + 1] + __ldg(b_mlp1 + c0 + n + 1), a1, d1);
+        const float dz0 = gw[rt][j][2 * hh] * d0, dz1 = gw[rt][j][2 * hh + 1] * d1;
+        *reinterpret_cast<__nv_bfloat162*>(dzb + r * kPLdB + n) = __floats2bfloat162_rn(dz0, dz1);
+        if (r < valid) {
+          *reinterpret_cast<__nv_bfloat162*>(ws.u + (grow0 + r) * m + c0 + n) =
+              __floats2bfloat162_rn(a0, a1);
+          cs[j][0] += dz0;
+          cs[j][1] += dz1;
+        }
+      }
+      fold_columns(cs, db_mlp1 + c0 + n0);
+      sync();
+      store_block(dzb, kPLdB, valid, kPChunk, ws.dz1 + grow0 * m + c0, m);
+      stream_mma(rg, dzb, kPLdB, 4, dy2, wait_at); // dy2 += bf16(dz1) W1^T[chunk]
+      sync();
+    }
+    lap(6);
+    {                                            // dy2 to shared memory; LN2's column sums
+      float sg[2][2] = {}, sb[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        const int r = 16 * rt + g + 8 * hh;
+        const int n = n0 + 8 * j + 2 * c;
+        const float v0 = dy2[rt][j][2 * hh], v1 = dy2[rt][j][2 * hh + 1];
+        *reinterpret_cast<float2*>(fb + r * kPLdF + n) = make_float2(v0, v1);
+        if (r < valid) {
+          const float* hr = hb + r * kPLdF;
+          const float mu = hr[kPD + 2], rs = hr[kPD + 3];
+          sg[j][0] = fmaf(v0, (hr[n] - mu) * rs, sg[j][0]);
+          sg[j][1] = fmaf(v1, (hr[n + 1] - mu) * rs, sg[j][1]);
+          sb[j][0] += v0;
+          sb[j][1] += v1;
+        }
+      }
+      fold_columns(sg, dg2 + n0);
+      fold_columns(sb, db2 + n0);
+    }
+    sync();
+    lap(7);
+    // ---- LayerNorm 2 backward: dh2 = g + LN2'(dy2), parked in dx ----
+    for (int r = warp; r < kPRows; r += kWarps) {
+      float* hr = hb + r * kPLdF;
+      const float* dy = fb + r * kPLdF;
+      const float mu = hr[kPD + 2], rs = hr[kPD + 3];
+      float dxh[kPD / 32], xh[kPD / 32];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPD / 32; ++i) {
+        const int col = lane + 32 * i;
+        dxh[i] = dy[col] * __ldg(g2 + col);
+        xh[i] = (hr[col] - mu) * rs;
+        s1 += dxh[i];
+        s2 = fmaf(dxh[i], xh[i], s2);
+      }
+      const float m1 = warp_sum(s1) * (1.f / kPD);
+      const float m2 = warp_sum(s2) * (1.f / kPD);
+#pragma unroll
+      for (int i = 0; i < kPD / 32; ++i) {
+        const int col = lane + 32 * i;
+        const float gv = r < valid ? __ldg(gout + base + r * kPD + col) : 0.f;
+        const float v = gv + rs * (dxh[i] - m1 - xh[i] * m2);
+        hr[col] = v;
+        ab[r * kPLdB + col] = __float2bfloat16(v);
+        if (r < valid) dx[base + r * kPD + col] = v;
+      }
+    }
+    sync();
+    add_column_sums(hb, kPLdF, valid, kPD, db_proj);
+    store_block(ab, kPLdB, valid, kPD, ws.dh2 + base, kPD);
+    lap(8);
+    {                                            // the mix's gradient da = bf16(dh2) Wproj^T
+      float acc[2][2][4];
+      zero_acc(acc);
+      stream_mma(rg, ab, kPLdB, 4, acc, wait_at);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        *reinterpret_cast<__nv_bfloat162*>(dab + (16 * rt + g + 8 * hh) * kPLdB + n0 + 8 * j +
+                                           2 * c) =
+            __floats2bfloat162_rn(acc[rt][j][2 * hh], acc[rt][j][2 * hh + 1]);
+      }
+    }
+    sync();
+    lap(9);
+    pair_attention_any(qb, nullptr, dab, n_win, t, s.heads, s.q_scale, db_qkv, true);
+    sync();
+    lap(10);
+    store_block(qb, kPLdQ, valid, 3 * kPD, ws.dqkv + grow0 * 3 * kPD, 3 * kPD);
+    for (int i = threadIdx.x; i < kPRows * d4; i += kThreads) {   // x again, for LN1's VJP
+      const int r = i / d4;
+      *reinterpret_cast<float4*>(hb + r * kPLdF + 4 * (i - r * d4)) =
+          r < valid ? __ldg(xs + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    sync();
+    lap(11);
+    {                                            // dy1 = bf16(dqkv) Wqkv^T; LN1's column sums
+      float acc[2][2][4];
+      zero_acc(acc);
+      stream_mma(rg, qb, kPLdQ, 12, acc, wait_at);
+      float sg[2][2] = {}, sb[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rt = i >> 2, j = (i >> 1) & 1, hh = i & 1;
+        const int r = 16 * rt + g + 8 * hh;
+        const int n = n0 + 8 * j + 2 * c;
+        const float v0 = acc[rt][j][2 * hh], v1 = acc[rt][j][2 * hh + 1];
+        *reinterpret_cast<float2*>(fb + r * kPLdF + n) = make_float2(v0, v1);
+        if (r < valid) {
+          const float* xr = hb + r * kPLdF;
+          const float mu = xr[kPD], rs = xr[kPD + 1];
+          sg[j][0] = fmaf(v0, (xr[n] - mu) * rs, sg[j][0]);
+          sg[j][1] = fmaf(v1, (xr[n + 1] - mu) * rs, sg[j][1]);
+          sb[j][0] += v0;
+          sb[j][1] += v1;
+        }
+      }
+      fold_columns(sg, dg1 + n0);
+      fold_columns(sb, db1 + n0);
+    }
+    sync();
+    lap(12);
+    // ---- LayerNorm 1 backward; dx = dh2 + LN1'(dy1) ----
+    for (int r = warp; r < valid; r += kWarps) {
+      const float* xr = hb + r * kPLdF;
+      const float* dy = fb + r * kPLdF;
+      float* dxr = dx + base + r * kPD;
+      const float mu = xr[kPD], rs = xr[kPD + 1];
+      float dxh[kPD / 32], xh[kPD / 32];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPD / 32; ++i) {
+        const int col = lane + 32 * i;
+        dxh[i] = dy[col] * __ldg(g1 + col);
+        xh[i] = (xr[col] - mu) * rs;
+        s1 += dxh[i];
+        s2 = fmaf(dxh[i], xh[i], s2);
+      }
+      const float m1 = warp_sum(s1) * (1.f / kPD);
+      const float m2 = warp_sum(s2) * (1.f / kPD);
+#pragma unroll
+      for (int i = 0; i < kPD / 32; ++i) {
+        const int col = lane + 32 * i;
+        dxr[col] += rs * (dxh[i] - m1 - xh[i] * m2);
+      }
+    }
+    sync();
+    lap(13);
+  }
+  if (clk != nullptr) clk[kPairPhases - 1] = waited;
+  cluster_sync_all();
 }
 
 // The weight-gradient kernel and the ordered reduce, after either shape of
@@ -1930,6 +2498,54 @@ int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, i
   return static_cast<int>(launch_wgrad_and_reduce(wsb, static_cast<float*>(wpart), vpf,
                                                   tiles * c, batch, t, d, m, splits,
                                                   static_cast<float*>(grads), st));
+}
+
+// The same backward through the tile kernel's pair shape (d = 256, at most
+// 16 frames, a head width of 16, 32 or 64, m a multiple of 256): clusters of
+// two blocks, a 32-row tile a block, one stream of weights into both
+// (fused_encoder.py::plan_encoder_bwd). plan: the nine ints of
+// BwdPlan.as_ints (windows, off_b, off_q, off_m, off_dz, off_ring, off_bar,
+// slot_bytes, slots), which must be this file's layout; smem: its bytes.
+// grid: an even number of blocks, at most one pair a pair of tiles. ws and
+// wpart as for ib_fused_encoder_backward, vpart a slab a block. clocks: null,
+// or room for kPairPhases int64 a block, which get the block's cycles by
+// phase over its tiles. Three launches on `stream`; returns the first CUDA
+// error (0 on success).
+int ib_fused_encoder_backward_pair(const void* x, const void* g, int batch, int t, int d, int m,
+                                   int heads, const void* w, const void* wt, const void* vec,
+                                   void* dx, void* grads, void* ws, void* vpart, void* wpart,
+                                   const int* plan, int smem, int grid, int splits, void* clocks,
+                                   void* stream) {
+  if (batch < 1 || t < 1 || t > 16 || d != kPD || m < kPChunk || m % kPChunk != 0 ||
+      (heads != 4 && heads != 8 && heads != 16) || splits < 1 || plan == nullptr ||
+      smem != kPSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int layout[kPairPlanInts] = {kPRows / t, kPOffB,   kPOffQ,     kPOffM, kPOffDz,
+                                     kPOffRing,  kPOffBar, kSlotBytes, kSlots};
+  for (int i = 0; i < kPairPlanInts; ++i) {
+    if (plan[i] != layout[i]) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PairShape s{batch, t, m, heads, kPRows / t, 1.f / sqrtf(static_cast<float>(d / heads))};
+  const int n_pairs = ((batch + s.windows - 1) / s.windows + 1) / 2;
+  if (grid < 2 || grid % 2 != 0 || grid / 2 > n_pairs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ensure_dynamic_smem<EncoderBwdPairTag>(encoder_bwd_tile_kernel_pair, kPSmem);
+  if (err == cudaSuccess) {
+    err = launch_cluster(encoder_bwd_tile_kernel_pair, grid, kPairThreads, 2, kPSmem, st,
+                         static_cast<const float*>(x), static_cast<const float*>(g),
+                         static_cast<const bf16*>(w), static_cast<const bf16*>(wt),
+                         static_cast<const float*>(vec), static_cast<float*>(dx),
+                         static_cast<bf16*>(ws), static_cast<float*>(vpart), s,
+                         static_cast<long long*>(clocks));
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_wgrad_and_reduce(
+      static_cast<const bf16*>(ws), static_cast<float*>(wpart), static_cast<const float*>(vpart),
+      grid, batch, t, d, m, splits, static_cast<float*>(grads), st));
 }
 
 }  // extern "C"

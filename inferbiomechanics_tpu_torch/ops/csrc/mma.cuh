@@ -1,11 +1,12 @@
 // Device-side helpers shared by the port's kernels (built for sm_90a).
-//  - ldmatrix and mma.sync m16n8k16 on bf16 operands with f32 accumulators
-//    (sm_80 and later);
+//  - ldmatrix, movmatrix and mma.sync m16n8k16 on bf16 operands with f32
+//    accumulators (sm_80 and later);
 //  - Hopper's own: mbarriers, bulk copies from device memory into shared
 //    memory that complete on an mbarrier, wgmma (operands in shared memory
 //    in the 128-byte-swizzled K-major layout, f32 accumulators in
 //    registers), and the cluster primitives (rank, barrier, bulk copies
-//    into another block's shared memory).
+//    into another block's shared memory or multicast into several, arrivals
+//    on another block's mbarriers).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +39,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The transpose of an 8x8 b16 matrix held as one mma fragment register a
+// lane (lane l: row l / 4, elements 2 (l % 4) and + 1).
+__device__ __forceinline__ unsigned movmatrix_trans(unsigned a) {
+  unsigned d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // ---------------------------------------------------------------------------
@@ -109,6 +118,19 @@ __device__ __forceinline__ void bulk_copy_g2s(unsigned dst, const void* src, uns
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The same copy into the shared memory of every block of the cluster whose
+// rank is set in `mask`, at the same offset `dst` as in this block, each
+// completing on its own mbarrier at this block's offset `bar`.
+__device__ __forceinline__ void bulk_copy_g2s_multicast(unsigned dst, const void* src,
+                                                        unsigned bytes, unsigned bar,
+                                                        unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
 }
 
@@ -276,6 +298,12 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on an mbarrier of a block of the cluster, given as by
+// cluster_map (release at the block's scope, as for a local arrival).
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned cluster_bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_bar) : "memory");
 }
 
 // An arrival without release semantics: it orders nothing that came before.

@@ -12,9 +12,11 @@ columns, above it one block takes a row tile. The layer's backward is
 ``csrc/fused_encoder_bwd.cu`` (it replaces the Pallas
 ``encoder_layer_bwd_pallas``), with its plain version
 (:func:`encoder_layer_bwd_reference`), its wrapper
-(:func:`fused_encoder_layer_bwd`, whose tile kernel takes one of two shapes
-that :func:`plan_encoder_bwd` picks the same way, up to
-:data:`BWD_SMALL_BATCH_MAX` windows) and the differentiable layer
+(:func:`fused_encoder_layer_bwd`, whose tile kernel takes one of three
+shapes that :func:`plan_encoder_bwd` picks from the shape of the call: up to
+:data:`BWD_SMALL_BATCH_MAX` windows a cluster splits the columns, from
+:data:`BWD_PAIR_BATCH_MIN` windows at d = 256 clusters of two blocks share one
+weight stream, else one block takes a tile) and the differentiable layer
 (:class:`FusedEncoderLayerFn`: kernel forward, kernel backward).
 
 One pre-LN layer: LayerNorm -> QKV projection -> softmax attention over the
@@ -80,11 +82,25 @@ _SMALL_BLOCKS_AT_ONCE = 112
 BWD_LAUNCHES_PER_LAYER = 3
 _MAX_SPLITS = 8
 _ROWS_PER_SPLIT = 512
-# the largest batch the backward's small (cluster) shape takes, which
-# ops/tune.py --kernel encoder_bwd sets by timing both shapes on an H100
-BWD_SMALL_BATCH_MAX = 64
+# the largest batch the backward's small (cluster) shape takes, and the
+# smallest the pair shape takes, which ops/tune.py --kernel encoder_bwd sets
+# by timing the shapes on an H100
+BWD_SMALL_BATCH_MAX = 44
+BWD_PAIR_BATCH_MIN = 45
 # the small shape's exchanges (a, h2, dz1, dy2, dqkv, dy1): one mbarrier each
 _BWD_EXCHANGES = 6
+# the pair shape (csrc/fused_encoder_bwd.cu's kP* constants): the width it
+# takes, a block's rows, the longest window, the head widths, the hidden
+# columns of an MLP chunk, and the ring of weights: a slot holds 4 k-steps of
+# 16 column blocks in fragment order (32 KB), kSlots of them
+PAIR_D = 256
+_PAIR_ROWS = 32
+_PAIR_MAX_FRAMES = 16
+_PAIR_HEAD_WIDTHS = (16, 32, 64)
+_PAIR_CHUNK = 256
+_SLOT_KS = 4
+_SLOT_BYTES = 16 * _SLOT_KS * 512
+_SLOTS = 3
 
 # kernel launches so far (for checking that a path went through the kernel),
 # and the forward's by the shape that ran
@@ -92,18 +108,24 @@ launches = 0
 bwd_launches = 0
 shape_launches = {'small': 0, 'large': 0}
 # the backward's tile-kernel launches by the shape that ran (one a call)
-bwd_shape_launches = {'small': 0, 'large': 0}
+bwd_shape_launches = {'small': 0, 'pair': 0, 'large': 0}
 # None, or an int64 CUDA tensor that the next forward launches fill with
 # each block's cycles by phase ([blocks, 10]: stage x and LN1, q/k/v,
 # attention, the exchange of a, projection, the exchange of h, LN2, W1, the
 # exchange of u, W2; ops/tune.py reads them)
 phase_clocks: Optional[torch.Tensor] = None
-# the same for the backward's small shape ([blocks, 18], BWD_PHASES)
+# the same for the backward's small shape ([blocks, 18], BWD_PHASES) and its
+# pair shape ([blocks, 14], BWD_PAIR_PHASES: each phase summed over the
+# block's tiles, and last the cycles its warp 0 waited for weights in them)
 bwd_phase_clocks: Optional[torch.Tensor] = None
 BWD_PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'a exchanged', 'projection',
               'h2 exchanged', 'LN2, g', 'MLP products', 'dz1 exchanged', 'dy2',
               'dy2 exchanged', "LN2's VJP", 'da', 'attention backward', 'dqkv exchanged',
               'dy1', 'dy1 exchanged', "LN1's VJP")
+BWD_PAIR_PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'projection', 'LN2, g',
+                   'MLP products', "dy2, LN2's sums", "LN2's VJP", 'da',
+                   'attention backward', 'dqkv out, x again', "dy1, LN1's sums",
+                   "LN1's VJP", 'waiting for weights')
 
 
 def init_encoder_params(generator: Optional[torch.Generator], d_model: int,
@@ -614,9 +636,12 @@ class BwdPlan:
     ``shape`` is ``'small'`` (a cluster of ``cluster`` blocks shares a row
     tile of ``windows`` whole windows; each block owns 1/C of every
     product's output columns, :func:`bwd_columns`, and hands them to the
-    others in six exchanges) or ``'large'`` (one persistent block a tile,
-    all the columns, :func:`plan_bwd_tile`, ``chunk`` hidden columns at a
-    time). ``row_tiles`` 16-row mma tiles make ``rows``. The small shape's
+    others in six exchanges), ``'pair'`` (clusters of two blocks, each
+    block its own tile of ``windows`` windows with all the columns, both fed
+    by one stream of weights: :func:`_bwd_pair_layout`) or ``'large'`` (one
+    persistent block a tile, all the columns, :func:`plan_bwd_tile`,
+    ``chunk`` hidden columns at a time). ``row_tiles`` 16-row mma tiles make
+    ``rows``. The small shape's
     shared memory, offsets in bytes from the f32 residual ``[rows, d + 8]``
     at 0: ``off_y`` the LayerNorm outputs, later dh2 (bf16) and then the
     attention's f32 da; ``off_a`` the attention output, later g (bf16) and
@@ -625,7 +650,14 @@ class BwdPlan:
     (``ld_dq``); ``off_f`` dy2, later dy1 (f32 ``[rows, d + 8]``); ``off_s``
     the products' partial sums (``scratch_floats``); ``off_v`` the eight f32
     rows; ``off_p`` the attention's P and dS; ``off_st`` the two
-    LayerNorms' means and 1/std; ``off_bar`` six mbarriers.
+    LayerNorms' means and 1/std; ``off_bar`` six mbarriers. The pair
+    shape's, at d = 256 (stride ``ld_q`` of its bf16 q/k/v): an f32
+    ``[rows, d + 4]`` at 0 (x, h2, dh2, x again; columns d .. d + 3 the LN
+    statistics), ``off_b`` bf16 ``[rows, d + 8]`` (y1, a, y2, dh2),
+    ``off_q`` q/k/v and then dq/dk/dv in place, ``off_m`` g (bf16) over the
+    MLP with a chunk of dz1 at ``off_dz``, then dy2 (f32), da (bf16) and dy1
+    (f32); ``off_ring`` ``slots`` slots of ``slot_bytes`` of weights,
+    ``off_bar`` their full and empty mbarriers.
     """
     shape: str
     cluster: int
@@ -647,6 +679,12 @@ class BwdPlan:
     off_p: int = 0
     off_st: int = 0
     off_bar: int = 0
+    off_b: int = 0
+    off_m: int = 0
+    off_dz: int = 0
+    off_ring: int = 0
+    slot_bytes: int = 0
+    slots: int = 0
     launches: int = BWD_LAUNCHES_PER_LAYER
 
     @property
@@ -657,11 +695,20 @@ class BwdPlan:
         return -(-batch // self.windows)
 
     def as_ints(self) -> Tuple[int, ...]:
-        """What ``ib_fused_encoder_backward_cluster`` reads, in its order."""
+        """What ``ib_fused_encoder_backward_cluster`` (small) or
+        ``ib_fused_encoder_backward_pair`` (pair) reads, in its order."""
+        if self.shape == 'pair':
+            return (self.windows, self.off_b, self.off_q, self.off_m, self.off_dz,
+                    self.off_ring, self.off_bar, self.slot_bytes, self.slots)
         return (self.cluster, self.row_tiles, self.windows, self.ld_q, self.ld_z,
                 self.ld_dq, self.off_y, self.off_a, self.off_q, self.off_z, self.off_f,
                 self.off_s, self.scratch_floats, self.off_v, self.off_p, self.off_st,
                 self.off_bar)
+
+    @property
+    def phases(self) -> Tuple[str, ...]:
+        """What :data:`bwd_phase_clocks` gets a block of this shape."""
+        return {'small': BWD_PHASES, 'pair': BWD_PAIR_PHASES}.get(self.shape, ())
 
 
 def _bwd_small_layout(t: int, d: int, m: int, num_heads: int, row_tiles: int,
@@ -697,6 +744,77 @@ def _bwd_small_layout(t: int, d: int, m: int, num_heads: int, row_tiles: int,
                    off_st, off_bar)
 
 
+def pair_takes(t: int, d: int, m: int, num_heads: int) -> bool:
+    """Whether the backward's pair shape takes the shape: d = 256 (its
+    layout fills the shared memory there), at most 16 frames (a window's
+    attention is one 16 x 16 mma tile), a head width of 16, 32 or 64, and
+    an MLP width of whole 256-column chunks. The large tile takes the
+    others (d = 128, 384, 512; T = 17 .. 48; one or two heads)."""
+    return (d == PAIR_D and 1 <= t <= _PAIR_MAX_FRAMES and m > 0 and m % _PAIR_CHUNK == 0
+            and d % num_heads == 0 and d // num_heads in _PAIR_HEAD_WIDTHS)
+
+
+def _bwd_pair_layout(t: int, d: int, m: int, num_heads: int) -> Optional[BwdPlan]:
+    """The pair shape's shared memory (:class:`BwdPlan`); None where it
+    does not take the shape (:func:`pair_takes`).
+
+    Why 32-row tiles on clusters of two rather than a 64-row tile: the
+    proven 32-row passes stay, and a weight byte read from L2 serves 64
+    rows. To leave room for a ring of 32 KB slots beside them, q/k/v stay
+    bf16 (the attention runs on mma, whose operands they are), the
+    attention's P and dS stay in registers, the MLP's gelu' is used in the
+    epilogue that makes it, dy2 accumulates in registers over the chunks,
+    and the LN statistics lie in the f32 rows' padding. Buffers share room
+    only where their live spans do not meet: g, the dz1 chunk, dy2, da
+    and dy1 take turns at ``off_m``."""
+    if not pair_takes(t, d, m, num_heads):
+        return None
+    rows = _PAIR_ROWS
+    ld_f, ld_b, ld_q = d + 4, d + _PAD, 3 * d + _PAD
+    off_b = rows * ld_f * 4
+    off_q = off_b + rows * ld_b * 2
+    off_m = off_q + rows * ld_q * 2
+    off_dz = off_m + rows * ld_b * 2
+    off_ring = off_dz + rows * ld_b * 2
+    off_bar = off_ring + _SLOTS * _SLOT_BYTES
+    smem = off_bar + 2 * _SLOTS * 8
+    if smem > MAX_SMEM:
+        return None
+    return BwdPlan('pair', 2, rows // 16, rows // t, _PAIR_CHUNK, smem, ld_q=ld_q,
+                   off_q=off_q, off_bar=off_bar, off_b=off_b, off_m=off_m, off_dz=off_dz,
+                   off_ring=off_ring, slot_bytes=_SLOT_BYTES, slots=_SLOTS)
+
+
+def bwd_pair_stream(m: int) -> Tuple[Tuple[str, int, int, int], ...]:
+    """The fills of the pair shape's weight ring for one tile, in the order
+    both the producer and the consumers walk them: ``(weight, k-steps of
+    the weight, first of the fill's 16 column blocks, first of its 4
+    k-steps)``, weights in :class:`PackedEncoderLayer` fragment order
+    (``wqkv`` ... of ``weights``, ``wqkv_t`` ... of ``weights_t``)."""
+    d = PAIR_D
+    fills = []
+
+    def put(name, nk, b0, ks0, k_steps):
+        fills.extend((name, nk, b0, ks) for ks in range(ks0, ks0 + k_steps, _SLOT_KS))
+
+    for grp in range(3):
+        put('wqkv', d // 16, 16 * grp, 0, d // 16)
+    put('wproj', d // 16, 0, 0, d // 16)
+    for c0 in range(0, m, _PAIR_CHUNK):
+        put('wmlp1', d // 16, c0 // 16, 0, d // 16)
+        put('wmlp2_t', d // 16, c0 // 16, 0, d // 16)
+        put('wmlp1_t', m // 16, 0, c0 // 16, _PAIR_CHUNK // 16)
+    put('wproj_t', d // 16, 0, 0, d // 16)
+    put('wqkv_t', 3 * d // 16, 0, 0, 3 * d // 16)
+    return tuple(fills)
+
+
+def bwd_thresholds(shape: str) -> Tuple[int, int]:
+    """``(BWD_SMALL_BATCH_MAX, BWD_PAIR_BATCH_MIN)`` with which ``shape``
+    takes every batch it can (tests and ``ops/tune.py`` set them so)."""
+    return {'small': (1 << 30, 1 << 30), 'pair': (0, 0), 'large': (0, 1 << 30)}[shape]
+
+
 def plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int) -> BwdPlan:
     """Which shape of the backward's tile kernel takes ``batch`` windows of
     ``t`` frames at width ``d``, MLP width ``m`` and ``num_heads`` heads, and
@@ -706,15 +824,18 @@ def plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int) -> BwdP
     Small, up to :data:`BWD_SMALL_BATCH_MAX` windows where the heads split
     over a cluster (:func:`small_cluster`) and a row tile fits: the fewest
     mma row tiles with which the batch's clusters all run at once, else the
-    most that fit. Otherwise large: :func:`plan_bwd_tile`'s tile.
+    most that fit. Else pair, from :data:`BWD_PAIR_BATCH_MIN` windows where
+    it takes the shape (:func:`pair_takes`). Otherwise large:
+    :func:`plan_bwd_tile`'s tile.
     """
-    return _plan_encoder_bwd(batch, t, d, m, num_heads, BWD_SMALL_BATCH_MAX)
+    return _plan_encoder_bwd(batch, t, d, m, num_heads, BWD_SMALL_BATCH_MAX,
+                             BWD_PAIR_BATCH_MIN)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int,
-                      small_batch_max: int) -> BwdPlan:
-    """:func:`plan_encoder_bwd` at a given threshold, computed once a shape."""
+                      small_batch_max: int, pair_batch_min: int) -> BwdPlan:
+    """:func:`plan_encoder_bwd` at given thresholds, computed once a shape."""
     row_tiles, windows, chunk, smem = plan_bwd_tile(t, d, m, num_heads)
     cluster = small_cluster(d, num_heads)
     if batch <= small_batch_max and cluster > 1:
@@ -724,7 +845,21 @@ def _plan_encoder_bwd(batch: int, t: int, d: int, m: int, num_heads: int,
             at_once = [p for p in fits
                        if p.tiles(batch) * cluster <= _SMALL_BLOCKS_AT_ONCE]
             return (at_once or fits[::-1])[0]
-    return BwdPlan('large', 1, row_tiles, windows, chunk, smem)
+    pair = _bwd_pair_layout(t, d, m, num_heads) if batch >= pair_batch_min else None
+    return pair or BwdPlan('large', 1, row_tiles, windows, chunk, smem)
+
+
+def bwd_blocks(plan: BwdPlan, batch: int, sms: int) -> int:
+    """Blocks of the tile kernel in ``plan`` at ``batch`` on a card of
+    ``sms`` multiprocessors: a cluster a tile (small), a pair of blocks a
+    pair of tiles up to one block an SM (pair), one block a tile up to one
+    an SM (large). Each block sums into its own slab of vector gradients."""
+    tiles = plan.tiles(batch)
+    if plan.shape == 'small':
+        return tiles * plan.cluster
+    if plan.shape == 'pair':
+        return 2 * min(-(-tiles // 2), sms // 2)
+    return min(tiles, sms)
 
 
 def bwd_splits(n_rows: int) -> int:
@@ -784,34 +919,39 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     flat = torch.empty(w_total + n_vec, **f32)
     if batch == 0:
         return dx, _split_grads(flat.zero_(), d, m)
-    n_tiles = plan.tiles(batch)
-    if plan.shape == 'small':
-        grid = n_tiles * plan.cluster
-    else:
-        grid = min(n_tiles,
-                   torch.cuda.get_device_properties(x.device).multi_processor_count)
+    grid = bwd_blocks(plan, batch,
+                      torch.cuda.get_device_properties(x.device).multi_processor_count)
     splits = bwd_splits(n_rows)
     ws = torch.empty(n_rows * (8 * d + 2 * m), dtype=torch.bfloat16, device=x.device)
     vpart = torch.empty(grid * n_vec, **f32)
     wpart = torch.empty(splits * w_total, **f32)
     lib = _build.library()
     clocks = None
-    if bwd_phase_clocks is not None and plan.shape == 'small':
+    if bwd_phase_clocks is not None and plan.phases:
+        need = grid * len(plan.phases)
         if (bwd_phase_clocks.dtype != torch.int64 or bwd_phase_clocks.device != x.device
-                or bwd_phase_clocks.numel() < grid * len(BWD_PHASES)):
+                or bwd_phase_clocks.numel() < need):
             raise ValueError(f'bwd_phase_clocks: an int64 tensor on {x.device} of at least '
-                             f'{grid * len(BWD_PHASES)} elements')
+                             f'{need} elements')
         clocks = bwd_phase_clocks.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        ints = plan.as_ints()
         if plan.shape == 'small':
-            ints = plan.as_ints()
             code = lib.ib_fused_encoder_backward_cluster(
                 x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
                 packed.weights.data_ptr(), packed.weights_t.data_ptr(),
                 packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
                 ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
                 (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, splits, clocks, stream)
+        elif plan.shape == 'pair':
+            code = lib.ib_fused_encoder_backward_pair(
+                x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
+                packed.weights.data_ptr(), packed.weights_t.data_ptr(),
+                packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
+                ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, grid, splits, clocks,
+                stream)
         else:
             scratch = torch.empty(grid * plan.rows * 3 * d, **f32)
             code = lib.ib_fused_encoder_backward(

@@ -35,14 +35,15 @@ checkout's K4 timed at B = 1 ... 4096 in both output formats, which is how
 
 K3 (``--kernel encoder_bwd``): the encoder layer's backward at the served
 width: each shape of the tile kernel that the tree has (with
-``fused_encoder.plan_encoder_bwd``: the cluster shape and the large tile)
-against :func:`fused_encoder.encoder_layer_bwd_reference` at several
-shapes (dx and the 12 gradients, two calls bitwise equal), then the
-profiler's device time by launch (tile kernel, weight-gradient kernel,
-reduce) of each shape, ``torch.autograd.grad`` through
-``nn.TransformerEncoderLayer`` in bf16 and, with ``--baseline DIR``, the
-other checkout's backward, at B = 1 ... 4096; this is how
-``fused_encoder.BWD_SMALL_BATCH_MAX`` was chosen.
+``fused_encoder.plan_encoder_bwd``: the cluster shape, the pair shape and
+the large tile) against :func:`fused_encoder.encoder_layer_bwd_reference`
+at several shapes (dx and the 12 gradients, two calls bitwise equal), the
+small and pair shapes' cycle counters by phase, then the profiler's device
+time by launch (tile kernel, weight-gradient kernel, reduce) of each shape,
+``torch.autograd.grad`` through ``nn.TransformerEncoderLayer`` in bf16 and,
+with ``--baseline DIR``, the other checkout's backward, at B = 1 ... 4096;
+this is how ``fused_encoder.BWD_SMALL_BATCH_MAX`` and
+``BWD_PAIR_BATCH_MIN`` were chosen.
 
 It needs a CUDA device and prints the card's name with the numbers.
 """
@@ -631,10 +632,13 @@ def groundlink_main(args) -> int:
 
 # K3: the batches its backward is timed at, the cases each shape is checked
 # at (batch, t, d, heads, mlp_ratio), and the names of its three launches
-BWD_BATCHES = (1, 8, 16, 32, 56, 64, 128, 256, 1024, 4096)
+BWD_BATCHES = (1, 8, 16, 32, 40, 42, 43, 48, 56, 64, 65, 80, 96, 112, 127, 128, 256, 512,
+               1024, 4096)
 BWD_SHAPES = [(1, 10, 256, 8, 4), (8, 10, 256, 8, 4), (19, 10, 256, 8, 4),
-              (64, 10, 256, 8, 4), (37, 4, 256, 8, 4), (37, 10, 128, 4, 4),
-              (9, 10, 512, 8, 4), (700, 4, 128, 4, 2)]
+              (64, 10, 256, 8, 4), (65, 10, 256, 8, 4), (128, 10, 256, 8, 4),
+              (4099, 10, 256, 8, 4), (37, 4, 256, 8, 4), (19, 16, 256, 16, 4),
+              (23, 7, 256, 4, 2), (37, 10, 128, 4, 4), (9, 10, 512, 8, 4),
+              (700, 4, 128, 4, 2)]
 BWD_REL = 2e-2       # x max|plain|, as tests/test_torch_cuda_kernels.py holds K3
 BWD_KERNELS = ('encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
 # above this batch the small shape is timed no more (it takes many waves there)
@@ -642,14 +646,18 @@ _BWD_SMALL_TIMED_MAX = 1024
 
 
 def _bwd_shapes(forced, batch):
-    """The shapes of K3 to time at ``batch``: this tree's two (the threshold
-    moved so that each takes the batch), or whatever the loaded tree runs."""
-    if forced and hasattr(fe, 'plan_encoder_bwd'):
-        shapes = {'small': 1 << 30, 'large': 0}
-        if batch > _BWD_SMALL_TIMED_MAX:
-            del shapes['small']
-        return shapes
+    """The shapes of K3 to time at ``batch``: this tree's three, each with
+    the thresholds (``BWD_SMALL_BATCH_MAX``, ``BWD_PAIR_BATCH_MIN``) with
+    which it takes the batch, or whatever the loaded tree runs (None)."""
+    if forced and hasattr(fe, 'bwd_thresholds'):
+        return {shape: fe.bwd_thresholds(shape) for shape in ('small', 'pair', 'large')
+                if shape != 'small' or batch <= _BWD_SMALL_TIMED_MAX}
     return {'kernel': None}
+
+
+def _set_bwd_thresholds(limits) -> None:
+    if limits is not None:
+        fe.BWD_SMALL_BATCH_MAX, fe.BWD_PAIR_BATCH_MIN = limits
 
 
 def library_encoder_layer_grad(layer, x16, g16):
@@ -668,54 +676,67 @@ def encoder_bwd_times(tag, forced=True):
     gen = torch.Generator().manual_seed(0)
     packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda',
                                     transposes=True)
-    threshold = getattr(fe, 'BWD_SMALL_BATCH_MAX', None)
+    saved = _bwd_saved()
     for batch in BWD_BATCHES:
         x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
         g = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
         row = {'tree': tag, 'batch': batch}
-        for name, limit in _bwd_shapes(forced, batch).items():
-            if limit is not None:
-                fe.BWD_SMALL_BATCH_MAX = limit
+        for name, limits in _bwd_shapes(forced, batch).items():
+            _set_bwd_thresholds(limits)
             run = lambda: fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])   # noqa: E731
             row[f'{name}_us'] = _time_us(run, 100)
             by_launch, seen = device_us_by_name(run, BWD_KERNELS)
             row[f'{name}_device_us'] = sum(by_launch.values())
             row[f'{name}_by_launch_us'] = by_launch
             row[f'{name}_traced'] = seen
-        if threshold is not None:
-            fe.BWD_SMALL_BATCH_MAX = threshold
+        _set_bwd_thresholds(saved)
         print(json.dumps(row), flush=True)
 
 
+def _bwd_saved():
+    """This tree's thresholds, to put back (None for a tree without the
+    pair shape, whose single threshold is left alone)."""
+    if hasattr(fe, 'BWD_PAIR_BATCH_MIN'):
+        return fe.BWD_SMALL_BATCH_MAX, fe.BWD_PAIR_BATCH_MIN
+    return None
+
+
 def encoder_bwd_clocks():
-    """JSON lines of the small shape's cycle counters by phase (thread 0 of
-    each block, clock64 between the phases' barriers): the mean over the
-    blocks and the slowest block's total, at a few batches."""
+    """JSON lines of the small and pair shapes' cycle counters by phase
+    (thread 0 of each block, clock64 between the phases' barriers; the pair
+    shape's summed over a block's tiles, with its warp 0's waits for
+    weights): the mean over the blocks and the slowest block's total, at a
+    few batches each."""
     gen = torch.Generator().manual_seed(0)
     packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda',
                                     transposes=True)
-    threshold = fe.BWD_SMALL_BATCH_MAX
-    fe.BWD_SMALL_BATCH_MAX = 1 << 30
-    for batch in (1, 8, 32, 64):
-        plan = fe.plan_encoder_bwd(batch, ENC['t'], ENC['d'], ENC['m'], ENC['heads'])
-        blocks = plan.tiles(batch) * plan.cluster
-        x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
-        g = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
-        fe.bwd_phase_clocks = torch.zeros(blocks * len(fe.BWD_PHASES), dtype=torch.int64,
-                                          device='cuda')
-        for _ in range(3):          # the last call's counts stand
-            fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])
-        torch.cuda.synchronize()
-        cyc = fe.bwd_phase_clocks.view(blocks, len(fe.BWD_PHASES)).double()
-        fe.bwd_phase_clocks = None
-        print(json.dumps({'clocks': 'small', 'batch': batch, 'blocks': blocks,
-                          'row_tiles': plan.row_tiles,
-                          'mean_cycles': dict(zip(fe.BWD_PHASES, cyc.mean(0).tolist())),
-                          'slowest_block_cycles': float(cyc.sum(1).max())}), flush=True)
-    fe.BWD_SMALL_BATCH_MAX = threshold
+    saved = _bwd_saved()
+    for shape, batches in (('small', (1, 8, 32, 64)), ('pair', (65, 128, 512, 4096))):
+        _set_bwd_thresholds(fe.bwd_thresholds(shape))
+        for batch in batches:
+            plan = fe.plan_encoder_bwd(batch, ENC['t'], ENC['d'], ENC['m'], ENC['heads'])
+            blocks = fe.bwd_blocks(plan, batch,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)
+            phases = plan.phases
+            x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+            g = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
+            fe.bwd_phase_clocks = torch.zeros(blocks * len(phases), dtype=torch.int64,
+                                              device='cuda')
+            for _ in range(3):          # the last call's counts stand
+                fe.fused_encoder_layer_bwd(x, g, packed, ENC['heads'])
+            torch.cuda.synchronize()
+            cyc = fe.bwd_phase_clocks.view(blocks, len(phases)).double()
+            fe.bwd_phase_clocks = None
+            timed = cyc[:, :-1] if shape == 'pair' else cyc    # the waits lie within phases
+            print(json.dumps({'clocks': shape, 'batch': batch, 'blocks': blocks,
+                              'row_tiles': plan.row_tiles, 'tiles': plan.tiles(batch),
+                              'mean_cycles': dict(zip(phases, cyc.mean(0).tolist())),
+                              'slowest_block_cycles': float(timed.sum(1).max())}),
+                  flush=True)
+    _set_bwd_thresholds(saved)
 
 
-def _check_bwd(threshold) -> float:
+def _check_bwd() -> float:
     """Each shape of this tree's K3 against the plain version at
     :data:`BWD_SHAPES`; the worst error relative to a tensor's max|plain|
     (infinite if two calls differ or the launch counters are off)."""
@@ -729,11 +750,11 @@ def _check_bwd(threshold) -> float:
         g = torch.randn(batch, t, d, generator=gen).cuda()
         ref = fe.encoder_layer_bwd_reference(x, g, packed.params, heads)
         ref = (ref[0], *ref[1])
-        for shape, limit in _bwd_shapes(True, 0).items():
-            fe.BWD_SMALL_BATCH_MAX = limit
+        for shape, limits in _bwd_shapes(True, 0).items():
+            _set_bwd_thresholds(limits)
             plan = fe.plan_encoder_bwd(batch, t, d, d * ratio, heads)
             if plan.shape != shape:
-                continue              # no cluster splits this shape
+                continue              # no cluster splits this shape, or the pair takes it not
             before = dict(fe.bwd_shape_launches)
             launches = fe.bwd_launches
             one = fe.fused_encoder_layer_bwd(x, g, packed, heads)
@@ -753,7 +774,6 @@ def _check_bwd(threshold) -> float:
                               'bitwise_repeat': repeat, 'counted': counted}), flush=True)
             err = rel[at] if repeat and counted else float('inf')
             worst = max(worst, err if err == err else float('inf'))
-        fe.BWD_SMALL_BATCH_MAX = threshold
     return worst
 
 
@@ -766,12 +786,14 @@ def encoder_bwd_main(args) -> int:
     for line in re.findall(r"Compiling entry function '(\S*encoder_(?:bwd|wgrad)\S*)'.*?\n"
                            r"(.*?registers.*?)\n", report['log'], flags=re.S):
         print('ptxas', line[0][:70], '|', ' '.join(line[1].split()))
-    threshold = getattr(fe, 'BWD_SMALL_BATCH_MAX', None)
+    saved = _bwd_saved()
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'build_seconds': report['seconds'],
-                      'bwd_small_batch_max': threshold}), flush=True)
+                      'bwd_small_batch_max': fe.BWD_SMALL_BATCH_MAX,
+                      'bwd_pair_batch_min': fe.BWD_PAIR_BATCH_MIN}), flush=True)
     if hasattr(fe, 'plan_encoder_bwd'):
-        worst = _check_bwd(threshold)
+        worst = _check_bwd()
+        _set_bwd_thresholds(saved)
         if worst > BWD_REL:
             print(f'FAILED: K3 beyond {BWD_REL} x max|plain| (or not repeatable): {worst}',
                   file=sys.stderr)
@@ -794,9 +816,13 @@ def encoder_bwd_main(args) -> int:
         x16 = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda().to(torch.bfloat16)
         g16 = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda().to(torch.bfloat16)
         run = lambda: library_encoder_layer_grad(layer, x16, g16)        # noqa: E731
+        try:
+            dev = device_us(run)
+        except ShortTraceError:       # a trace that lost launches: trace it once more
+            dev = device_us(run)
         print(json.dumps({'library': 'autograd through nn.TransformerEncoderLayer bf16',
                           'batch': batch, 'us': _time_us(run, 100),
-                          'device_us': device_us(run)}), flush=True)
+                          'device_us': dev}), flush=True)
     return 0
 
 

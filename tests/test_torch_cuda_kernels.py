@@ -209,19 +209,33 @@ def _bwd_case(cuda, batch, t, d, heads, mlp_ratio=4):
     return packed, x, g
 
 
+def _force_bwd_shape(monkeypatch, shape):
+    small, pair = fe.bwd_thresholds(shape)
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', small)
+    monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', pair)
+
+
 @pytest.mark.parametrize('shape,batch,t,d,heads', [
-    *[(shape, b, 10, 256, 8) for shape in ('small', 'large') for b in (1, 8, 19, 64)],
+    *[(shape, b, 10, 256, 8) for shape in ('small', 'pair', 'large') for b in (1, 8, 19, 64)],
     *[(shape, b, 10, 128, 4) for shape in ('small', 'large') for b in (1, 8, 19, 64)],
     ('small', 37, 4, 256, 8),     # four windows a row tile
     ('small', 5, 7, 128, 4),      # a frame count with no unrolled attention
     ('large', 9, 10, 512, 8),     # no small shape fits d = 512
+    # the pair shape past the small one's batches, its frame counts and head
+    # widths; the widths it leaves to the large tile at the same batches
+    *[('pair', b, 10, 256, 8) for b in (65, 128, 4099)],
+    ('pair', 37, 4, 256, 8),      # eight windows a tile
+    ('pair', 19, 16, 256, 16),    # two windows of 16 frames, heads 16 wide
+    ('pair', 23, 7, 256, 4),      # rows past the windows, heads 64 wide
+    *[('large', b, 10, d, h) for b in (65, 128, 4099) for d, h in ((128, 4), (256, 8),
+                                                                    (512, 8))],
 ])
 def test_fused_encoder_bwd_kernels_both_shapes_match_plain(cuda, monkeypatch, shape, batch, t,
                                                            d, heads):
     """Each shape of the backward's tile kernel at the same batches, the
-    plan's threshold moved so that the named shape takes them: dx and every
+    plan's thresholds moved so that the named shape takes them: dx and every
     gradient within BWD_REL x its max|plain|, two calls bitwise equal."""
-    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    _force_bwd_shape(monkeypatch, shape)
     packed, x, g = _bwd_case(cuda, batch, t, d, heads)
     assert fe.plan_encoder_bwd(batch, t, d, 4 * d, heads).shape == shape
     before, launches = dict(fe.bwd_shape_launches), fe.bwd_launches
@@ -239,9 +253,9 @@ def test_fused_encoder_bwd_kernels_both_shapes_match_plain(cuda, monkeypatch, sh
         assert err <= BWD_REL * float(ref.abs().max()), (name, err)
 
 
-@pytest.mark.parametrize('shape', ['small', 'large'])
+@pytest.mark.parametrize('shape', ['small', 'pair', 'large'])
 def test_fused_encoder_layer_fn_trains_through_each_bwd_shape(cuda, monkeypatch, shape):
-    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    _force_bwd_shape(monkeypatch, shape)
     gen = torch.Generator().manual_seed(4)
     params = [p.to(cuda).requires_grad_(True)
               for p in random_encoder_params(gen, 256, 1024)]

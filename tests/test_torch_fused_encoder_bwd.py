@@ -322,14 +322,17 @@ SERVED = (10, 256, 1024, 8)           # t, d, m, heads of the default transforme
 
 @pytest.fixture
 def bwd_threshold(monkeypatch):
-    """``bwd_threshold(shape)`` makes ``shape`` take every batch."""
+    """``bwd_threshold(shape)`` makes ``shape`` take every batch it can."""
     def move(shape):
-        monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+        small, pair = fe.bwd_thresholds(shape)
+        monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', small)
+        monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', pair)
     return move
 
 
 def test_plan_encoder_bwd_is_pure_and_switches_at_the_threshold(monkeypatch):
     monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 64)
+    monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', 1 << 30)     # small against large
     a = fe.plan_encoder_bwd(64, *SERVED)
     assert a == fe.plan_encoder_bwd(64, *SERVED) and a is fe.plan_encoder_bwd(64, *SERVED)
     assert (a.shape, a.cluster, a.row_tiles, a.windows) == ('small', 8, 2, 3)
@@ -401,6 +404,9 @@ def _check_bwd_plan(plan, batch, t, d, m, heads):
     assert plan.launches == fe.BWD_LAUNCHES_PER_LAYER
     assert plan.smem_bytes <= fe.MAX_SMEM and plan.windows >= 1
     assert plan.windows * t <= plan.rows
+    if plan.shape == 'pair':
+        _check_pair_plan(plan, t, d, m, heads)
+        return
     if plan.shape == 'large':
         assert plan.cluster == 1
         assert (plan.row_tiles, plan.windows, plan.chunk, plan.smem_bytes) == (
@@ -433,8 +439,9 @@ def _check_bwd_plan(plan, batch, t, d, m, heads):
 
 @pytest.mark.parametrize('t', [1, 4, 10, 16, 32, 48])
 def test_plan_encoder_bwd_takes_every_shape_plan_bwd_tile_takes(monkeypatch, t):
-    for threshold in (0, 64, 1 << 30):
+    for threshold, pair_min in ((0, 1 << 30), (64, 65), (1 << 30, 0), (0, 0)):
         monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', threshold)
+        monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', pair_min)
         for d in (128, 256, 384, 512, 640):
             for m in (d, 2 * d, 4 * d, 640):
                 for heads in (1, 2, 4, 8, 16, 32, 64):
@@ -451,7 +458,121 @@ def test_plan_encoder_bwd_takes_every_shape_plan_bwd_tile_takes(monkeypatch, t):
                                  and any(fe._bwd_small_layout(t, d, m, heads, rt,
                                                               fe.small_cluster(d, heads))
                                          for rt in (1, 2, 3)))
-                        assert plan.shape == ('small' if small else 'large')
+                        pair = (not small and batch >= pair_min
+                                and fe.pair_takes(t, d, m, heads))
+                        assert plan.shape == ('small' if small else 'pair' if pair
+                                              else 'large')
+
+
+def _pair_buffers(plan, d):
+    """The pair shape's buffers: (name, offset, bytes, first, last), with the
+    span of the kernel's phases in which each is live. Phases: 0 stage x,
+    LN1; 1 q/k/v; 2 attention; 3 projection; 4 LN2, g; 5 the MLP (a chunk:
+    5.0 its products, 5.25 the epilogue writes dz1, 5.75 dz1 W1^T); 6 dy2
+    out; 7 LN2's VJP; 8 da; 9 attention backward; 10 dqkv out, x again; 11
+    dy1; 12 LN1's VJP."""
+    rows = plan.rows
+    f32_r, bf_r = rows * (d + 4) * 4, rows * (d + 8) * 2
+    return [
+        ('x, h2, dh2, x (+ LN statistics)', 0, f32_r, 0, 12),
+        ('y1, a, y2, dh2', plan.off_b, bf_r, 0, 8),
+        ('q/k/v, then dq/dk/dv', plan.off_q, rows * plan.ld_q * 2, 1, 11),
+        ('g', plan.off_m, bf_r, 4, 5.75),
+        ('dz1 chunk', plan.off_dz, bf_r, 5.25, 5.75),
+        ('dy2', plan.off_m, f32_r, 6, 7),
+        ('da', plan.off_m, bf_r, 8, 9),
+        ('dy1', plan.off_m, f32_r, 11, 12),
+        ('ring', plan.off_ring, plan.slots * plan.slot_bytes, 0, 12),
+        ('mbarriers', plan.off_bar, 2 * plan.slots * 8, 0, 12),
+    ]
+
+
+def _check_pair_plan(plan, t, d, m, heads):
+    assert fe.pair_takes(t, d, m, heads) and d == fe.PAIR_D
+    assert (plan.cluster, plan.rows, plan.windows, plan.chunk) == (2, 32, 32 // t, 256)
+    assert plan.slot_bytes >= 32 * 1024 and plan.slots >= 2 and plan.slot_bytes % (16 * 512) == 0
+    bufs = _pair_buffers(plan, d)
+    for name, off, size, _, _ in bufs:
+        assert off % (128 if name == 'ring' else 16) == 0, name
+        assert off + size <= plan.smem_bytes, name
+    for i, (n1, o1, s1, a1, b1) in enumerate(bufs):
+        for n2, o2, s2, a2, b2 in bufs[i + 1:]:
+            if o1 < o2 + s2 and o2 < o1 + s1:
+                assert b1 < a2 or b2 < a1, (n1, n2)
+    # mma rows 16-byte aligned, the LN statistics in the f32 rows' 4 spare columns
+    for pitch in ((d + 8) * 2, plan.ld_q * 2, (d + 4) * 4):
+        assert pitch % 16 == 0
+    assert plan.ld_q >= 3 * d and len(plan.as_ints()) == 9
+
+
+def test_plan_encoder_bwd_switches_to_the_pair_shape_at_both_thresholds(monkeypatch):
+    monkeypatch.setattr(fe, 'BWD_SMALL_BATCH_MAX', 64)
+    monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', 128)
+    shapes = {b: fe.plan_encoder_bwd(b, *SERVED).shape for b in (1, 64, 65, 127, 128, 4096)}
+    assert shapes == {1: 'small', 64: 'small', 65: 'large', 127: 'large', 128: 'pair',
+                      4096: 'pair'}
+    a = fe.plan_encoder_bwd(128, *SERVED)
+    assert a is fe.plan_encoder_bwd(128, *SERVED) and a == fe.plan_encoder_bwd(4096, *SERVED)
+    assert (a.cluster, a.row_tiles, a.windows, a.chunk, a.smem_bytes) == (2, 2, 3, 256, 231984)
+    assert a.as_ints() == (3, 33280, 50176, 99840, 116736, 133632, 231936, 32768, 3)
+    assert a.tiles(4096) == 1366 and a.phases == fe.BWD_PAIR_PHASES
+    assert a.launches == fe.BWD_LAUNCHES_PER_LAYER
+    _check_pair_plan(a, *SERVED)
+    # a pair threshold below the small one: the small shape keeps its batches
+    monkeypatch.setattr(fe, 'BWD_PAIR_BATCH_MIN', 0)
+    assert [fe.plan_encoder_bwd(b, *SERVED).shape for b in (64, 65)] == ['small', 'pair']
+    # shapes the pair does not take stay with the large tile at every batch
+    for t, d, m, heads in ((10, 128, 512, 4), (10, 512, 2048, 8), (10, 384, 1536, 8),
+                           (20, 256, 1024, 8), (10, 256, 1024, 2), (10, 256, 640, 8)):
+        assert not fe.pair_takes(t, d, m, heads)
+        assert fe.plan_encoder_bwd(4096, t, d, m, heads).shape == 'large'
+    for t, heads in ((1, 16), (4, 8), (16, 4), (10, 8)):
+        assert fe.pair_takes(t, 256, 512, heads)
+
+
+@pytest.mark.parametrize('m', [256, 1024])
+def test_pair_stream_brings_each_weight_fragment_once_a_tile(m):
+    """The ring's fills for a tile: every (k-step, 16-column block) of the
+    seven weights the tile multiplies by exactly once, in the order the
+    consumers take them, 32 KB a fill."""
+    d = fe.PAIR_D
+    fills = fe.bwd_pair_stream(m)
+    kn = {'wqkv': (d, 3 * d), 'wproj': (d, d), 'wmlp1': (d, m), 'wmlp2_t': (d, m),
+          'wmlp1_t': (m, d), 'wproj_t': (d, d), 'wqkv_t': (3 * d, d)}
+    seen = {name: np.zeros((k // 16, n // 16), int) for name, (k, n) in kn.items()}
+    for name, nk, b0, ks in fills:
+        k, n = kn[name]
+        assert nk == k // 16 and ks % 4 == 0 and b0 % 16 == 0
+        seen[name][ks:ks + 4, b0:b0 + 16] += 1
+    for name, a in seen.items():
+        assert (a == 1).all(), name
+    assert len(fills) * 16 * 4 * 512 == 2 * (8 * d * d + 3 * d * m)
+    order = [f[0] for f in fills[::4]]
+    assert order == (['wqkv'] * 3 + ['wproj'] + ['wmlp1', 'wmlp2_t', 'wmlp1_t'] * (m // 256)
+                     + ['wproj_t'] + ['wqkv_t'] * 3)
+
+
+def test_pair_stream_offsets_pick_the_packed_fragments():
+    """Where the kernel's producer copies a fill's 16 blocks from (2 KB each
+    at ((b0 + i) nk + ks) x 512 bytes into the weight, the weights end to end
+    as packed) holds those blocks' 4 k-steps in fragment order."""
+    d, m = fe.PAIR_D, 256
+    params = [torch.from_numpy(p) for p in _params(5, d, 1)]
+    packed = fe.pack_encoder_params(params, 'cpu', transposes=True)
+    w = {name: params[i].to(torch.bfloat16) for name, i in
+         (('wqkv', 2), ('wproj', 4), ('wmlp1', 8), ('wmlp2', 10))}
+    mats = dict(wqkv=(packed.weights, 0, w['wqkv']), wproj=(packed.weights, 3 * d * d, w['wproj']),
+                wmlp1=(packed.weights, 4 * d * d, w['wmlp1']),
+                wqkv_t=(packed.weights_t, 0, w['wqkv'].t()),
+                wproj_t=(packed.weights_t, 3 * d * d, w['wproj'].t()),
+                wmlp1_t=(packed.weights_t, 4 * d * d, w['wmlp1'].t()),
+                wmlp2_t=(packed.weights_t, 4 * d * d + d * m, w['wmlp2'].t()))
+    for name, nk, b0, ks in fe.bwd_pair_stream(m):
+        flat, base, mat = mats[name]
+        for i in range(16):
+            off = base + ((b0 + i) * nk + ks) * 256
+            want = fragment_order(mat[16 * ks:16 * ks + 64, 16 * (b0 + i):16 * (b0 + i) + 16])
+            assert torch.equal(flat[off:off + 1024], want.reshape(-1)), (name, b0, ks, i)
 
 
 def test_bwd_columns_cover_each_column_once():
@@ -699,13 +820,183 @@ def test_small_shape_replay_is_exact(bwd_threshold, batch, t, d, heads):
                                    err_msg=f'd{name}')
 
 
+def _replay_pair(x, g, params, heads, plan, clusters, rounded=False):
+    """The pair shape as the kernel runs it, in float64: the blocks of
+    ``clusters`` clusters of two walk over pairs of tiles (block ``rank`` of
+    a pair the tile 2 p + rank, the last pair's second block maybe none),
+    every product accumulated fill by fill in the ring's order
+    (:func:`fused_encoder.bwd_pair_stream`) into the 16 column blocks the
+    fill names, the attention a (window, head) at a time on a tile of 16
+    frames (rows past the buffer read its last row, keys past T masked,
+    queries past T a row of zeros) in place over q/k/v, the vector
+    gradients summed a tile at a time into the block's slab and the slabs
+    added in block order. ``rounded`` also rounds to bf16 what the kernel
+    keeps or multiplies as bf16 beyond the plain version: q/k/v, P, dS, the
+    mix's gradient and dq/dk/dv."""
+    g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
+        p.astype(np.float64) for p in params)
+    b, t, d = x.shape
+    m = w1.shape[1]
+    n, dh, rows = b * t, d // heads, plan.rows
+    scale = dh ** -0.5
+    rnd = _bf if rounded else (lambda a: a)
+    Wq, Wp, W1, W2 = (_bf(w) for w in (wqkv, wproj, w1, w2))
+    mats = dict(wqkv=Wq, wproj=Wp, wmlp1=W1, wmlp2_t=W2.T, wmlp1_t=W1.T, wproj_t=Wp.T,
+                wqkv_t=Wq.T)
+    nan = lambda *s: np.full(s, np.nan)                                # noqa: E731
+    ws = dict(y1=nan(n, d), dqkv=nan(n, 3 * d), attn=nan(n, d), dh2=nan(n, d),
+              y2=nan(n, d), dz1=nan(n, m), u=nan(n, m), g=nan(n, d))
+    dx = nan(n, d)
+    n_tiles = plan.tiles(b)
+    pairs = -(-n_tiles // 2)
+    grid = fe.bwd_blocks(plan, b, 2 * clusters)       # a card of 2 x clusters SMs
+    assert grid == 2 * min(pairs, clusters)
+    names = ('dg1', 'db1', 'dbqkv', 'dbproj', 'dg2', 'db2', 'dbm1', 'dbm2')
+    widths = (d, d, 3 * d, d, d, d, m, d)
+    slabs = [{k: np.zeros(w) for k, w in zip(names, widths)} for _ in range(grid)]
+    taken = []
+
+    def window(r0):                    # the 16 rows of a window's mma tile
+        return np.minimum(r0 + np.arange(16), rows - 1)
+
+    def probs(Q, r0, h):
+        idx, hc = window(r0), slice(h * dh, (h + 1) * dh)
+        s = Q[idx, hc] @ Q[idx, d:][:, hc].T
+        s[:, t:] = -np.inf
+        p = np.exp(s - s.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        p[t:] = 0.0
+        return idx, hc, p
+
+    for blk in range(grid):
+        cluster, rank = divmod(blk, 2)
+        vec = slabs[blk]
+        for pair in range(cluster, pairs, grid // 2):
+            tile = 2 * pair + rank
+            fills = iter(fe.bwd_pair_stream(m))
+
+            def product(A, n_fills, want, b0=0):
+                out = np.zeros((rows, 256))
+                for j in range(n_fills):
+                    name, nk, fb0, ks = next(fills)
+                    assert (name, fb0) == (want, b0)
+                    out += A[:, 64 * j:64 * j + 64] @ mats[name][16 * ks:16 * ks + 64,
+                                                                 16 * b0:16 * b0 + 256]
+                return out
+
+            win0 = tile * plan.windows
+            valid = max(0, min(plan.windows, b - win0)) * t
+            r0 = win0 * t
+            if valid:
+                taken.append(tile)
+
+            def to_ws(name, val, cols=slice(None)):
+                assert np.isnan(ws[name][r0:r0 + valid, cols]).all()
+                ws[name][r0:r0 + valid, cols] = val[:valid]
+
+            X, G = np.zeros((rows, d)), np.zeros((rows, d))
+            X[:valid] = x.reshape(n, d)[r0:r0 + valid]
+            G[:valid] = g.reshape(n, d)[r0:r0 + valid]
+            y1, xh1, rs1 = _ln64(X, g1, b1)
+            y1 = _bf(y1)
+            to_ws('y1', y1)
+            Q = np.zeros((rows, 3 * d))
+            for grp in range(3):
+                v = product(y1, 4, 'wqkv', 16 * grp) + bqkv[256 * grp:256 * grp + 256]
+                Q[:, 256 * grp:256 * grp + 256] = rnd(v * scale if grp == 0 else v)
+            A = y1.copy()
+            for h in range(heads):
+                for w in range(valid // t):
+                    idx, hc, p = probs(Q, w * t, h)
+                    A[w * t:w * t + t, hc] = _bf(rnd(p) @ Q[idx, 2 * d:][:, hc])[:t]
+            to_ws('attn', A)
+            H2 = X + product(A, 4, 'wproj') + bproj
+            y2, xh2, rs2 = _ln64(H2, g2, b2)
+            y2, Gb = _bf(y2), _bf(G)
+            to_ws('y2', y2)
+            to_ws('g', Gb)
+            vec['dbm2'] += G[:valid].sum(0)
+            dy2 = np.zeros((rows, d))
+            for c0 in range(0, m, 256):
+                z = product(y2, 4, 'wmlp1', c0 // 16) + bm1[c0:c0 + 256]
+                dz = product(Gb, 4, 'wmlp2_t', c0 // 16) * _gelu_grad64(z)
+                to_ws('u', _bf(_gelu64(z)), slice(c0, c0 + 256))
+                to_ws('dz1', _bf(dz), slice(c0, c0 + 256))
+                vec['dbm1'][c0:c0 + 256] += dz[:valid].sum(0)
+                dy2 += product(_bf(dz), 4, 'wmlp1_t')
+            vec['dg2'] += (dy2 * xh2)[:valid].sum(0)
+            vec['db2'] += dy2[:valid].sum(0)
+            dh2 = G + _ln_bwd64(dy2, xh2, rs2, g2)
+            vec['dbproj'] += dh2[:valid].sum(0)
+            to_ws('dh2', _bf(dh2))
+            dx[r0:r0 + valid] = dh2[:valid]                 # parked
+            da = rnd(product(_bf(dh2), 4, 'wproj_t'))
+            for h in range(heads):
+                for w in range(valid // t):
+                    idx, hc, p = probs(Q, w * t, h)
+                    q, k, v = (Q[idx, i * d:][:, hc] for i in range(3))
+                    dah = da[idx][:, hc]
+                    dp = dah @ v.T
+                    ds = p * (dp - (p * dp).sum(1, keepdims=True))
+                    grads = (rnd(ds) @ k * scale, rnd(ds).T @ q, rnd(p).T @ dah)
+                    for i, gr in enumerate(grads):           # dq, dk, dv over q, k, v
+                        Q[w * t:w * t + t, i * d:][:, hc] = rnd(gr[:t])
+                        vec['dbqkv'][i * d:][hc] += gr[:t].sum(0)
+            to_ws('dqkv', _bf(Q))
+            dy1 = product(_bf(Q), 12, 'wqkv_t')
+            vec['dg1'] += (dy1 * xh1)[:valid].sum(0)
+            vec['db1'] += dy1[:valid].sum(0)
+            dx[r0:r0 + valid] += _ln_bwd64(dy1, xh1, rs1, g1)[:valid]
+            assert next(fills, None) is None                # every fill taken, in order
+    assert sorted(taken) == list(range(n_tiles))            # each tile once
+    for name, a in ws.items():
+        assert not np.isnan(a).any(), name
+    v = {k: sum(sl[k] for sl in slabs) for k in names}
+    grads = (v['dg1'], v['db1'], ws['y1'].T @ ws['dqkv'], v['dbqkv'],
+             ws['attn'].T @ ws['dh2'], v['dbproj'], v['dg2'], v['db2'],
+             ws['y2'].T @ ws['dz1'], v['dbm1'], ws['u'].T @ ws['g'], v['dbm2'])
+    return dx.reshape(b, t, d), grads
+
+
+@pytest.mark.parametrize('batch,t,heads,m,clusters', [
+    (7, 10, 8, 256, 1),     # three tiles: two pairs walked by one cluster, one block idle
+    (7, 10, 8, 512, 2),     # two MLP chunks, a cluster a pair
+    (9, 4, 16, 256, 1),     # eight windows a tile, a head width of 16
+    (5, 16, 4, 256, 3),     # two windows of 16 frames a tile, more clusters than pairs
+    (4, 7, 8, 256, 1),      # T that 32 does not divide: rows past the windows
+])
+def test_pair_shape_replay_is_exact(bwd_threshold, batch, t, heads, m, clusters):
+    """The pair shape's work split, replayed in float64, gives the float64
+    backward to rounding (1e-9); with the kernel's extra bf16 roundings it
+    agrees with encoder_layer_bwd_reference at the bf16 tolerance."""
+    bwd_threshold('pair')
+    d = fe.PAIR_D
+    plan = fe.plan_encoder_bwd(batch, t, d, m, heads)
+    assert plan.shape == 'pair'
+    params = _params(batch + t, d, m // d)
+    x, g = _xg(batch + 5, batch, t, d)
+    want_dx, want = _bwd64(x, g, params, heads)
+    ref = _port(x, g, params, heads, torch.bfloat16)
+    for rounded in (False, True):
+        got_dx, got = _replay_pair(x, g, params, heads, plan, clusters, rounded)
+        for name, a, w, r in zip(NAMES, (got_dx, *got), (want_dx, *want), ref):
+            assert a.shape == w.shape == r.shape and np.isfinite(a).all(), name
+            if not rounded:
+                np.testing.assert_allclose(a, w, rtol=0, atol=1e-9 * max(1.0, np.abs(w).max()),
+                                           err_msg=f'd{name}')
+            np.testing.assert_allclose(a, r, rtol=0, atol=2e-2 * np.abs(r).max(),
+                                       err_msg=f'd{name} rounded={rounded}')
+
+
 def test_tune_parses_the_encoder_bwd_command(monkeypatch):
     from inferbiomechanics_tpu_torch.ops import tune
     args = tune.build_parser().parse_args(['--kernel', 'encoder_bwd', '--quick',
                                            '--baseline', 'build/parent'])
     assert (args.kernel, args.quick, args.baseline) == ('encoder_bwd', True, 'build/parent')
-    assert tune._bwd_shapes(True, 64) == {'small': 1 << 30, 'large': 0}
-    assert tune._bwd_shapes(True, 4096) == {'large': 0}
+    assert tune._bwd_shapes(True, 64) == {shape: fe.bwd_thresholds(shape)
+                                          for shape in ('small', 'pair', 'large')}
+    assert tune._bwd_shapes(True, 4096) == {'pair': (0, 0), 'large': (0, 1 << 30)}
     assert tune._bwd_shapes(False, 1) == {'kernel': None}
-    assert set(tune.BWD_BATCHES) >= {1, 8, 16, 32, 56, 64, 128, 256, 1024, 4096}
-    assert len(fe.BWD_PHASES) == 18
+    assert set(tune.BWD_BATCHES) >= {1, 8, 16, 32, 56, 64, 65, 96, 127, 128, 256, 512, 1024,
+                                     4096}
+    assert len(fe.BWD_PHASES) == 18 and len(fe.BWD_PAIR_PHASES) == 14
