@@ -10,9 +10,12 @@ Phases, each of which fails the run:
      with nvcc;
   3. each kernel against its plain PyTorch version on the card: K1 at 17
      cases (atol 1e-2; both of its kernels, either side of the batch where
-     the choice turns, odd batches), K2 at ten, each through both of its
-     shapes (small: a cluster splits the columns; large: one block a row
-     tile), at full width either side of the threshold (rtol = atol = 1e-2),
+     the choice turns, odd batches), K2 at seventeen or more, each as its
+     plan picks and through every other of its shapes that takes it (small:
+     a cluster splits the columns; pair: clusters of two blocks, each its
+     own tile, share one weight stream; large: one block a row tile), at
+     full width either side of both thresholds, at B = 4096 and 4099 and at
+     the pair's other frame counts, head and MLP widths (rtol = atol = 1e-2),
      K4 at fifteen, each through both of its shapes (small: a cluster splits
      every layer's columns; large: one block a tile of many windows), either
      side of the threshold and in both output formats (2e-2 x max|plain|),
@@ -45,7 +48,8 @@ Phases, each of which fails the run:
      (the symmetrized plain forward, 2 K4 launches a forward) and
      ``--reload-poll-sec`` picking up a checkpoint written while serving;
   6. times at B=1 and B=4096 (K1 also at 64 and 512, with which of its two
-     kernels served each; K2 with which of its shapes; K4 also at 8, 64 and
+     kernels served each; K2 also at 64 and 512, with which of its shapes;
+     K4 also at 8, 64 and
      512 in ``last_frame``, both output formats at 1 and 4096, with the
      shape that served each): each
      kernel, its plain version (the f32 precision reference) and a PyTorch library baseline (K1: a bf16 cuBLAS
@@ -71,7 +75,8 @@ Phases, each of which fails the run:
      ``--device-chunk-steps 64``, clamped to the epoch: each step after the
      first two a replay of the step captured as a CUDA graph); the wrappers
      count the eager steps' launches and the capture's, and the run's
-     profiler trace holds K2 4 times a forward (train steps and dev batches)
+     profiler trace holds K2 4 times a forward (train steps and dev batches),
+     every launch the shape its plan picks at B=4096 (the pair's kernel),
      and K3 4 x 3 times a train step, replays included; the loss falls; the
      same run step by step (``--device-chunk-steps 1``) ends bitwise where
      the chunked one ends, and so does the chunked run once more after it
@@ -402,11 +407,14 @@ GL_REL = 2e-2
 # gradients through the kernels against the step through the plain versions.
 BWD_REL = 2e-2
 # the K2 and K3 kernels by name in a profiler trace (the first name that
-# matches; K3's tile kernel by shape: the cluster one is its small shape, the
-# pair one its pair shape, the other its large tile)
-ENC_KERNELS = ('fused_encoder_kernel', 'encoder_bwd_tile_kernel_cluster',
-               'encoder_bwd_tile_kernel_pair', 'encoder_bwd_tile_kernel',
-               'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+# matches; K2 by shape: the pair one is its pair shape, the other its small
+# and large shapes, whose name the pair's holds, so it comes second; K3's
+# tile kernel by shape: the cluster one is its small shape, the pair one its
+# pair shape, the other its large tile)
+K2_KERNELS = ('fused_encoder_kernel_pair', 'fused_encoder_kernel')
+K3_KERNELS = ('encoder_bwd_tile_kernel_cluster', 'encoder_bwd_tile_kernel_pair',
+              'encoder_bwd_tile_kernel', 'encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+ENC_KERNELS = K2_KERNELS + K3_KERNELS
 K3_TILE = {'small': 'encoder_bwd_tile_kernel_cluster', 'pair': 'encoder_bwd_tile_kernel_pair',
            'large': 'encoder_bwd_tile_kernel'}
 FULL_DIMS = [1770, 512, 512, 30]
@@ -594,45 +602,57 @@ def phase_k1_vs_plain(torch, fm, seed: int) -> float:
 
 
 def phase_k2_vs_plain(torch, fe, seed: int):
-    """K2's two shapes against the plain version: at full width either side
-    of the plan's threshold as the plan picks, and every case through the
-    other shape as well (the threshold moved); returns the worst error and
-    the shape that served each case."""
+    """K2's three shapes against the plain version (small: a cluster splits
+    every product's columns; pair: clusters of two blocks, each its own tile,
+    share one weight stream; large: one block a tile): at full width either
+    side of both of the plan's thresholds, at B = 1, 2, 5, 37, 64, 4096 and
+    4099, and at other shapes (the pair's other frame counts, head widths
+    and MLP widths; widths it leaves to the large tile), each case as the
+    plan picks and through every other shape that takes it (the thresholds
+    moved); returns the worst error and the shapes that served each case."""
     gen = torch.Generator().manual_seed(seed)
     full = (ENC_FULL['t'], ENC_FULL['d'], ENC_FULL['heads'])
-    edge = fe.SMALL_BATCH_MAX
-    cases = [(b, *full) for b in (1, 2, 5, 37, edge, edge + 1, 4096, 4099)]
-    cases += [(37, 4, 128, 4),         # the small test shape
-              (37, 10, 384, 8)]        # 48-wide heads, two row tiles a block
+    saved = (fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN)
+    edges = {b + e for b in saved for e in (-1, 0, 1) if b + e >= 1}
+    ratio = ENC_FULL['mlp_ratio']
+    cases = [(b, *full, ratio) for b in sorted({1, 2, 5, 37, 64, 4096, 4099} | edges)]
+    cases += [(37, 4, 128, 4, ratio),      # the small test shape
+              (37, 10, 384, 8, ratio),     # 48-wide heads, two row tiles a block
+              (64, 4, 256, 16, ratio),     # eight windows a pair tile, heads 16 wide
+              (19, 16, 256, 4, ratio),     # two windows of 16 frames, heads 64 wide
+              (23, 7, 256, 8, 2),          # a T that 32 does not divide, one pair of W1 groups
+              (13, 10, 256, 8, 6)]         # an MLP wider than the pair takes: the large tile
     worst, served = 0.0, {}
-    for b, t, d, heads in cases:
-        packed = fe.pack_encoder_params(
-            _random_encoder_params(torch, fe, gen, d, ENC_FULL['mlp_ratio']), 'cuda')
+    for b, t, d, heads, r in cases:
+        packed = fe.pack_encoder_params(_random_encoder_params(torch, fe, gen, d, r), 'cuda')
         x = torch.randn(b, t, d, generator=gen).cuda()
         ref = fe.encoder_layer_reference(x, packed.params, heads)
         planned = fe.plan_encoder(b, t, d, packed.mlp_dim, heads).shape
-        for shape in (planned, 'large' if planned == 'small' else 'small'):
-            if shape == 'small' and fe.small_cluster(d, heads) == 1:
-                continue
-            fe.SMALL_BATCH_MAX = edge if shape == planned else (1 << 30 if shape == 'small' else 0)
+        for shape in (planned, *(sh for sh in ('small', 'pair', 'large') if sh != planned)):
+            fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN = (saved if shape == planned
+                                                     else fe.thresholds(shape))
+            if fe.plan_encoder(b, t, d, packed.mlp_dim, heads).shape != shape:
+                fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN = saved
+                continue          # no cluster splits this shape, or the pair takes it not
             before, shapes_before = fe.launches, dict(fe.shape_launches)
             out = fe.fused_encoder_layer(x, packed, heads)
-            fe.SMALL_BATCH_MAX = edge
+            fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN = saved
             _check(fe.launches == before + 1 and
-                   fe.shape_launches[shape] == shapes_before[shape] + 1,
-                   f'launch counters did not rise for the {shape} shape')
+                   fe.shape_launches == {k: v + (k == shape) for k, v in shapes_before.items()},
+                   f'launch counters did not rise for the {shape} shape alone')
             torch.cuda.synchronize()
             _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
                    f'bad output {tuple(out.shape)}')
             err = float((out - ref).abs().max())
             excess = float(((out - ref).abs() - ENC_TOL * ref.abs()).max())
-            how = 'as planned' if shape == planned else 'threshold moved'
-            print(f'[kernel] K2 B={b} T={t} d={d} H={heads} ({shape} shape, {how}): max abs '
-                  f'err {err:.3g}, max |ref| {float(ref.abs().max()):.3g} (rtol = atol = '
-                  f'{ENC_TOL})', flush=True)
+            how = 'as planned' if shape == planned else 'thresholds moved'
+            print(f'[kernel] K2 B={b} T={t} d={d} H={heads} m={packed.mlp_dim} ({shape} shape, '
+                  f'{how}): max abs err {err:.3g}, max |ref| {float(ref.abs().max()):.3g} '
+                  f'(rtol = atol = {ENC_TOL})', flush=True)
             _check(excess <= ENC_TOL, f'K2 disagrees with the plain version: {err}')
             worst = max(worst, err)
-            served.setdefault(f'B={b} T={t} d={d} H={heads}', []).append(shape)
+            served.setdefault(f'B={b} T={t} d={d} H={heads} m={packed.mlp_dim}',
+                              []).append(shape)
     return worst, served
 
 
@@ -762,16 +782,27 @@ def _traced(torch, fn, names=ENC_KERNELS):
     return result, counts, busy
 
 
-def _check_traced(traced, layers: int, steps: int, forwards: int, shape: str, what: str):
+def _k2(traced) -> int:
+    """K2's launches, every shape, in a trace counted by ENC_KERNELS."""
+    return sum(traced[k] for k in K2_KERNELS)
+
+
+def _check_traced(traced, layers: int, steps: int, forwards: int, shape: str, what: str,
+                  k2_shape=None):
     """The trace's K2 and K3 kernels are those of ``steps`` train steps and
     ``forwards`` more forwards of ``layers`` encoder layers, K3's tile kernel
-    in ``shape`` and in no other."""
+    in ``shape`` and in no other; with ``k2_shape``, every K2 launch that
+    shape's (the pair's kernel, or the other, which the small and the large
+    shape share)."""
     want = {name: layers * steps if s == shape else 0 for s, name in K3_TILE.items()}
-    want.update({'fused_encoder_kernel': layers * (steps + forwards),
-                 'encoder_wgrad_kernel': layers * steps,
+    want.update({'encoder_wgrad_kernel': layers * steps,
                  'encoder_bwd_reduce_kernel': layers * steps})
-    _check(all(traced[k] == v for k, v in want.items()),
-           f'{what}: traced kernels {traced}, want {want}')
+    k2 = layers * (steps + forwards)
+    if k2_shape is not None:
+        want.update({'fused_encoder_kernel_pair': k2 if k2_shape == 'pair' else 0,
+                     'fused_encoder_kernel': 0 if k2_shape == 'pair' else k2})
+    _check(all(traced[k] == v for k, v in want.items()) and _k2(traced) == k2,
+           f'{what}: traced kernels {traced}, want {want} and {k2} K2')
 
 
 def _device_us_by_name(torch, fn, names, iters: int = 10) -> dict:
@@ -1236,16 +1267,19 @@ def phase_training(torch, port, fe, fg, step_mod, root, seed, card, device='cuda
                                    cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
     _check(k3_shapes[k3_shape] == layers * called and sum(k3_shapes.values()) ==
            layers * called, f'K3 by shape: {k3_shapes}, the plan picks {k3_shape}')
-    _check_traced(traced, layers, train_steps, dev_batches, k3_shape, 'main path')
-    k2_traced = traced['fused_encoder_kernel']
-    k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
+    k2_shape = fe.plan_encoder(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                               cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check_traced(traced, layers, train_steps, dev_batches, k3_shape, 'main path', k2_shape)
+    k2_traced = _k2(traced)
+    k3_traced = sum(traced[k] for k in K3_KERNELS)
     print(f'[train] pallas transformer, B={batch}: {train_steps} train steps and '
           f'{dev_batches} dev batches in 2 epochs, {captures} capture; wrappers: K2 '
           f'{k2_launches} == {layers} x ({called} + {dev_batches}), K3 {k3_launches} == '
           f'{layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {called} (eager steps and the capture); '
           f'in the profiler trace of the run: K2 {k2_traced} == {layers} x ({train_steps} + '
-          f'{dev_batches}), K3 {k3_traced} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x '
-          f'{train_steps} ({k3_shape} shape); {result.windows_per_sec:.0f} windows/s under '
+          f'{dev_batches}) ({k2_shape} shape), K3 {k3_traced} == {layers} x '
+          f'{fe.BWD_LAUNCHES_PER_LAYER} x {train_steps} ({k3_shape} shape); '
+          f'{result.windows_per_sec:.0f} windows/s under '
           f'the profiler', flush=True)
     first, last = steps[0][2], steps[-1][2]
     _check(len(steps) >= 2 and np.isfinite([s[2] for s in steps]).all() and last < first,
@@ -1398,6 +1432,7 @@ def phase_training(torch, port, fe, fg, step_mod, root, seed, card, device='cuda
           + ', '.join(f'{k} {v:.0f}' for k, v in wps.items()), flush=True)
     return dict(k2_launches=k2_launches, k3_launches=k3_launches,
                 k3_shape_launches=k3_shapes, k2_traced=k2_traced, k3_traced=k3_traced,
+                k2_traced_by_name={k: traced[k] for k in K2_KERNELS},
                 traced=traced, captures=captures, capture_s=capture_s,
                 capture_s_again=again_capture_s, train_steps=train_steps,
                 dev_batches=dev_batches, windows_per_sec=wps, first_loss=first,
@@ -1453,9 +1488,11 @@ def phase_chunked(torch, port, fe, step_mod, root, seed, card, device='cuda', ba
     k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
                                    cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
     _check(k3_shapes[k3_shape] == layers * (warmup + 1), f'K3 by shape {k3_shapes}')
-    _check_traced(traced, layers, steps, 0, k3_shape, f'pallas B={batch} chunked')
-    k2_traced = traced['fused_encoder_kernel']
-    k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
+    k2_shape = fe.plan_encoder(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                               cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check_traced(traced, layers, steps, 0, k3_shape, f'pallas B={batch} chunked', k2_shape)
+    k2_traced = _k2(traced)
+    k3_traced = sum(traced[k] for k in K3_KERNELS)
     step_by_step = run(data, root / 'ckpt_64s', [*pallas, '--device-chunk-steps', '1'], 1,
                        batch)
     pallas_b64 = _compare_final(torch, root / 'ckpt_64c' / 'transformer',
@@ -1464,7 +1501,8 @@ def phase_chunked(torch, port, fe, step_mod, root, seed, card, device='cuda', ba
           f'{steps % chunk}) against step by step ({card}): {pallas_b64["verdict"]}; '
           f'{captures} capture, {replays} replays after {warmup} eager steps; wrappers: K2 '
           f'{k2}, K3 {k3}; in the profiler trace of the run: K2 {k2_traced} == {layers} x '
-          f'{steps} steps, K3 {k3_traced} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {steps} '
+          f'{steps} steps ({k2_shape} shape), K3 {k3_traced} == {layers} x '
+          f'{fe.BWD_LAUNCHES_PER_LAYER} x {steps} '
           f'({k3_shape} shape); windows/s chunked {chunked.windows_per_sec:.0f} (traced), '
           f'step by step {step_by_step.windows_per_sec:.0f}', flush=True)
 
@@ -1826,7 +1864,7 @@ def phase_diffusion(torch, port, fe, fm, fg, diffusion, root, seed, card, data, 
     if on_card:
         _, traced, busy = _traced(torch, lambda: one(model, x1, torch.Generator(
             device=device).manual_seed(0)))
-        _check(traced['fused_encoder_kernel'] == layers * steps,
+        _check(_k2(traced) == layers * steps,
                f'chain B=1 traced {traced}, want {layers * steps} K2')
         chain_ms = _host_p50_ms(lambda: (one(model, x1, torch.Generator(
             device=device).manual_seed(0)), torch.cuda.synchronize()), 10)
@@ -2129,8 +2167,8 @@ def phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion, root, se
     _check(not on_card or (k2 == dev_k2 and k3 == 0),
            f'diffusion B={batch}: wrappers K2 {k2}, K3 {k3}; want K2 {dev_k2} (dev eval), K3 0')
     if on_card:
-        want = {'fused_encoder_kernel': dev_k2, **{k: 0 for k in ENC_KERNELS[1:]}}
-        _check(all(traced[k] == v for k, v in want.items()),
+        want = {k: 0 for k in K3_KERNELS}
+        _check(all(traced[k] == v for k, v in want.items()) and _k2(traced) == dev_k2,
                f'diffusion B={batch}: traced {traced}, want {want}')
     losses = [s[2] for s in logged]
     _check(len(losses) >= 2 and np.isfinite(losses).all() and losses[-1] < losses[0]
@@ -2254,7 +2292,7 @@ def phase_diffusion_train(torch, port, fe, fm, fg, step_mod, diffusion, root, se
            and np.isfinite(large.final_train_metrics['eps_mse']), f'diffusion B={big}: {large}')
     _check(not on_card or (captures_big == 1 and replays_big == big_steps - warmup
                            and k2_big == per_chain * big_dev_batches * 2
-                           == traced_big['fused_encoder_kernel']),
+                           == _k2(traced_big)),
            f'diffusion B={big}: {captures_big} captures, {replays_big} replays, K2 {k2_big}, '
            f'traced {traced_big}')
     print(f'[diffusion train] B={big}, {big_steps} steps in 2 epochs, {big_dev_batches} dev '
@@ -2417,8 +2455,10 @@ def phase_chunk_times(torch, port, fe, ds, card, seed, batch, chunk=64, chunks=5
                                                 f'K2 {fe.launches}, K3 {fe.bwd_launches}')
     k3_shape = fe.plan_encoder_bwd(batch, cfg.window_size // cfg.stride, cfg.d_model,
                                    cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
-    _check_traced(traced, layers, chunk, 0, k3_shape, f'chunk timing B={batch}')
-    k2, k3 = traced['fused_encoder_kernel'], sum(traced[k] for k in ENC_KERNELS[1:])
+    k2_shape = fe.plan_encoder(batch, cfg.window_size // cfg.stride, cfg.d_model,
+                               cfg.d_model * ENC_FULL['mlp_ratio'], cfg.num_heads).shape
+    _check_traced(traced, layers, chunk, 0, k3_shape, f'chunk timing B={batch}', k2_shape)
+    k2, k3 = _k2(traced), sum(traced[k] for k in K3_KERNELS)
     busy = busy_us / 1e3 / chunk if busy_us > 0 else None
     idle = None if busy is None else max(wall - busy, 0.0) / wall
     print(f'[times] train step pallas transformer B={batch} in chunks of {chunk} ({card}): '
@@ -2426,7 +2466,8 @@ def phase_chunk_times(torch, port, fe, ds, card, seed, batch, chunk=64, chunks=5
           f'{batch / wall * 1e3:.0f} windows/s; device busy '
           + ('not measured' if busy is None else f'{busy:.3f} ms a step, idle share '
              f'{idle:.3f}') + f'; in the profiler trace of that chunk: K2 {k2} == {layers} x '
-          f'{chunk} steps, K3 {k3} == {layers} x {fe.BWD_LAUNCHES_PER_LAYER} x {chunk} '
+          f'{chunk} steps ({k2_shape} shape), K3 {k3} == {layers} x '
+          f'{fe.BWD_LAUNCHES_PER_LAYER} x {chunk} '
           f'({k3_shape} shape), all graph replays (the wrappers counted none)', flush=True)
     return dict(step_ms=wall, device_busy_ms=busy, idle_share=idle,
                 windows_per_sec=batch / wall * 1e3,
@@ -3490,7 +3531,7 @@ def phase_checkpoints(torch, port, fm, fe, fg, step_mod, root, seed, card, devic
                                    pcfg.num_heads).shape
     if on_card:
         _check_traced(traced, pcfg.num_layers, steps, 0, k3_shape, 'the resumed JAX run')
-        k3_traced = sum(traced[k] for k in ENC_KERNELS[1:])
+        k3_traced = sum(traced[k] for k in K3_KERNELS)
         _check(k3_traced == pcfg.num_layers * fe.BWD_LAUNCHES_PER_LAYER * steps,
                f'K3 {k3_traced} traced for {steps} steps')
     report['jax_resume'] = dict(steps=steps, k2_wrapper=k2, k3_wrapper=k3, traced=traced,
@@ -5725,8 +5766,8 @@ def phase_cli_extras(torch, port, fm, fe, fg, root, seed, card, device='cuda', b
     k3_shape = fe.plan_encoder_bwd(batch, 10, 256, 1024, 8).shape
     if on:
         _check_traced(kernels, layers, steps, dev_batches, k3_shape, 'train --profile trace')
-    k2_traced = kernels['fused_encoder_kernel']
-    k3_traced = sum(kernels[k] for k in ENC_KERNELS[1:])
+    k2_traced = _k2(kernels)
+    k3_traced = sum(kernels[k] for k in K3_KERNELS)
     plain_s = (runs['plain']['epoch_seconds'] + runs['plain again']['epoch_seconds']) / 2
     added = runs['profiled']['epoch_seconds'] - plain_s
     wall_added = runs['profiled']['seconds'] - (runs['plain']['seconds']
@@ -7119,7 +7160,7 @@ def main() -> int:
         return x
 
     with torch.no_grad():
-        for b in (1, 4096):
+        for b in (1, 64, 512, 4096):
             xt = torch.randn(b, t, d, generator=gen).cuda()
             k2_served[str(b)] = fe.plan_encoder(b, t, d, m, heads).shape
             fns = {
@@ -7134,6 +7175,8 @@ def main() -> int:
             k2[b] = dict(ms=ms, dev=dev, bound=k2_bound(b, t, d, m))
             _print_times(card, f'K2 one layer T=10 d=256 H=8 ({k2_served[str(b)]} shape)', b, ms, dev,
                          'nn.TransformerEncoderLayer bf16', k2[b]['bound'])
+            if b not in (1, 4096):        # the stack and the model's forward at these two
+                continue
             fns = {
                 'kernel': lambda: run_stack(  # noqa: B023
                     xt, lambda i, h: fe.fused_encoder_layer(h, stack[i], heads)),  # noqa: B023
@@ -7332,7 +7375,8 @@ def main() -> int:
               train_launches=trained['k2_launches'],
               train_launches_traced=trained['k2_traced'],
               analyze=analyzed['transformer pallas (K2)'],
-              small_batch_max=fe.SMALL_BATCH_MAX, served_by=k2_served,
+              small_batch_max=fe.SMALL_BATCH_MAX, pair_batch_min=fe.PAIR_BATCH_MIN,
+              served_by=k2_served,
               checked_shapes=k2_checked,
               ptxas=_ptxas_report(info['log'], 'fused_encoder_kernel'),
               inference=dict(export=inference['export']['pallas'],
@@ -7365,7 +7409,7 @@ def main() -> int:
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
               train=trained, train_step=steps, chunked=chunked,
               profile_trace_launches=sum(extras['profile']['trace_kernels'][k]
-                                         for k in ENC_KERNELS[1:]),
+                                         for k in K3_KERNELS),
               quality_study=quality['transformer pallas']),
         entry(K4, k4_launches, k4_err,
               'B=4096, T=10, 177->128->128->256->256, k=7, fc_depth 3, last_frame',

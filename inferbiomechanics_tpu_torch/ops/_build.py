@@ -108,6 +108,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ib_fused_mlp_forward.restype = i
     lib.ib_fused_encoder_forward.argtypes = [vp, i, i, i, i, i, vp, vp, vp, int_p, i, vp, vp]
     lib.ib_fused_encoder_forward.restype = i
+    lib.ib_fused_encoder_forward_pair.argtypes = [vp, i, i, i, i, i, vp, vp, vp, int_p, i, i,
+                                                  vp, vp]
+    lib.ib_fused_encoder_forward_pair.restype = i
     lib.ib_fused_encoder_backward.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp, vp,
                                               vp, vp, vp, vp, i, i, i, vp]
     lib.ib_fused_encoder_backward.restype = i

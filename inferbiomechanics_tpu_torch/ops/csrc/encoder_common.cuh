@@ -1,10 +1,15 @@
 // Device-side pieces that the encoder layer's forward (fused_encoder.cu)
 // and backward (fused_encoder_bwd.cu) kernels share: the block's shape, the
-// column blocks a block of a cluster owns, and the softmax attention of a
-// group of heads.
+// column blocks a block of a cluster owns, the softmax attention of a group
+// of heads, and the weight ring of the pair shapes (two blocks of a cluster
+// fed by one stream of weights).
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -114,4 +119,112 @@ __device__ __forceinline__ void attention_any_t(const float* qkv, int ld_q, int 
   }
 }
 
+// ---- the pair shapes' weight ring ----
+//
+// Weights in fragment order ([n / 16][nk][32 lanes] x 16 bytes) reach both
+// blocks of a cluster of two through a ring of kSlots slots in each block's
+// shared memory; a fill is kKs k-steps of 16 column blocks (kKs x 8 KB), one
+// slot. A producer warp in each block copies every other column block of a
+// fill into both blocks' slot (multicast); it refills a slot once the
+// consumer warps of both blocks that read it gave it back (one arrival each
+// on this block's empty mbarrier). The other block's copies may reach this
+// block's full mbarrier before its producer announces the fill's bytes: the
+// transaction count runs below zero until then, and the phase completes only
+// once the producer has arrived too. Slot i's full mbarrier lies at full +
+// 8 i, its empty one at empty + 8 i.
+template <int kSlotCount, int kSlotSteps>
+struct WeightRing {
+  static constexpr int kSlots = kSlotCount;
+  static constexpr int kKs = kSlotSteps;
+  static constexpr int kSlotBytes = 16 * kKs * 512;
+
+  // Thread 0 of each block, before the cluster's first barrier; `readers`:
+  // the consumer warps of a block that read each fill.
+  static __device__ __forceinline__ void init(unsigned full, unsigned empty, int readers) {
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 2 * readers);
+      // the first fill of each slot waits for nothing
+      for (int k = 0; k < 2 * readers; ++k) mbar_arrive(empty + 8 * i);
+    }
+    mbar_init_fence();
+  }
+
+  // The consumers' view: the slot of the next fill they read and the
+  // parity of its phase; they read every stride-th fill. Every consumer
+  // thread steps it alike.
+  struct Reader {
+    const unsigned char* base;
+    unsigned full, empty, peer_empty;
+    int slot;
+    unsigned phase;
+    int stride = 1;
+
+    // Wait for the next fill; `waited` (or null) gets the cycles waited.
+    __device__ __forceinline__ const uint4* take(long long* waited) {
+      if (waited != nullptr) {
+        const long long t0 = clock64();
+        mbar_wait(full + 8 * slot, phase);
+        *waited += clock64() - t0;
+      } else {
+        mbar_wait(full + 8 * slot, phase);
+      }
+      return reinterpret_cast<const uint4*>(base + slot * kSlotBytes);
+    }
+
+    // The warp is done with the slot: one arrival on its empty mbarrier in
+    // both blocks of the pair.
+    __device__ __forceinline__ void give() {
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) {
+        mbar_arrive(empty + 8 * slot);
+        mbar_arrive_cluster(peer_empty + 8 * slot);
+      }
+      slot += stride;
+      if (slot >= kSlots) {
+        slot -= kSlots;
+        phase ^= 1;
+      }
+    }
+  };
+
+  // The producer warp's view (every lane calls put, in the consumers' order).
+  struct Writer {
+    unsigned ring, full, empty;
+    int rank;
+    int slot;
+    unsigned fill;                   // fills of this slot so far
+
+    // One fill: column blocks b0 .. b0 + 15 of a weight of nk k-steps,
+    // k-steps ks .. ks + kKs - 1.
+    __device__ __forceinline__ void put(const bf16* src, int nk, int b0, int ks) {
+      const int lane = threadIdx.x & 31;
+      const unsigned bar = full + 8 * slot;
+      if (lane == 0) {
+        if (fill > 0) mbar_wait(bar, (fill - 1) & 1);   // its last fill was consumed here
+        mbar_arrive_expect_tx(bar, kSlotBytes);
+        mbar_wait(empty + 8 * slot, fill & 1);
+      }
+      __syncwarp();
+      if (lane < 8) {
+        const int i = 2 * lane + rank;
+        bulk_copy_g2s_multicast(ring + slot * kSlotBytes + i * kKs * 512,
+                                src + (static_cast<long long>(b0 + i) * nk + ks) * 256,
+                                kKs * 512, bar, 0x3);
+      }
+      if (++slot == kSlots) {
+        slot = 0;
+        ++fill;
+      }
+    }
+
+    // k_steps k-steps from ks0 of column blocks b0 .. b0 + 15, fill by fill.
+    __device__ __forceinline__ void put_all(const bf16* src, int nk, int b0, int ks0,
+                                            int k_steps) {
+      for (int ks = ks0; ks < ks0 + k_steps; ks += kKs) put(src, nk, b0, ks);
+    }
+  };
+};
+
 }  // namespace
+

@@ -19,13 +19,13 @@
 //
 // What bounds it on an H100 (d = 256, T = 10, 4d MLP): not the tensor cores
 // (15.7 MFLOP a window) but the weights, 1.5 MiB of bf16 that every row tile
-// streams from L2 into registers (pack_encoder_params lays each matrix out in
-// mma.sync fragment order: one coalesced 16-byte load a lane for a 16-column
-// block and k-step) at the few tens of bytes a clock one multiprocessor
-// reaches, and for one window the chain of dependent phases around them.
+// takes in (pack_encoder_params lays each matrix out in mma.sync fragment
+// order: one coalesced 16-byte load a lane for a 16-column block and k-step)
+// at the few tens of bytes a clock one multiprocessor reaches, and for one
+// window the chain of dependent phases around them.
 //
-// One kernel body, two shapes of launch (fused_encoder.py::plan_encoder picks
-// from the shape alone):
+// Three shapes of launch (fused_encoder.py::plan_encoder picks from the
+// shape alone), the first two one kernel body:
 //
 //  small (kSplit): a cluster of C blocks (8 at d = 256, H = 8) shares a row
 //    tile of whole windows, 1..3 mma row tiles of 16 rows, as few as the
@@ -49,7 +49,31 @@
 //    hidden the q/k/v's. (An 80-row tile with q/k/v a head at a time and the
 //    MLP a chunk of hidden columns at a time was slower: PERF.md.)
 //
-// Products (both shapes): each warp owns 16-column blocks of a product's
+//  pair (fused_encoder_kernel_pair, a kernel of its own): at d = 256 (T <=
+//    16, heads 16, 32 or 64 wide, m 512 or 1024), from PAIR_BATCH_MIN
+//    windows, clusters of two blocks walk over pairs of 32-row tiles, each
+//    block its own tile with all the columns. What bounds the large tile is
+//    its weight stream: 1.5 MiB from L2 into registers a 48-row tile (40
+//    valid rows at T = 10). Here one stream feeds both blocks, so a weight
+//    byte read from L2 serves 64 rows (60 valid): a producer warp (its
+//    warpgroup gives its registers to the consumers by setmaxnreg) fills a
+//    ring of two 32 KB slots, each 4 k-steps of 16 column blocks in fragment
+//    order, every block copying half of a fill into both blocks' rings
+//    (multicast; WeightRing, encoder_common.cuh). The 16 consumer warps form
+//    two groups of 8 that take alternate fills, one slot each: a warp takes
+//    two column blocks of a fill for both row tiles, so that shared memory
+//    serves each byte of A and B once a group (ldmatrix for A, 16-byte loads
+//    for B, mma.sync), and gives its slot back once the weights are in
+//    registers. q and k, and W1's column groups, go a group each; v, the
+//    projection and W2 go every other fill to a group, the second group's
+//    sums added in place before the first group's epilogue. The next tile's
+//    x lands by one bulk copy past the MLP hidden while the block works, and
+//    LN1 reads it from there. The arithmetic is the other shapes': q/k/v,
+//    the scale and the softmax in f32 (the f32 q/k/v of all heads, 98.8 KB,
+//    are what leave room for two slots only), the attention output in the
+//    LayerNorm output's place, the MLP hidden in q/k/v's.
+//
+// Products (small and large): each warp owns 16-column blocks of a product's
 // output for all row tiles, its weight loads kDepth k-steps ahead in
 // registers. In the small shape, where a product has fewer column blocks
 // than warps, the warps split its K steps as well; the partial sums meet in
@@ -547,6 +571,372 @@ cudaError_t launch(const EncPlan& s, size_t smem, const float* x, float* out, co
                         vec, s, clocks);
 }
 
+
+// ---- the pair shape: two blocks of a cluster share one weight stream ----
+
+// Its layout at d = 256 (fused_encoder.py::_pair_layout is the same):
+// offsets in bytes, strides in elements.
+constexpr int kFD = 256;                       // the width the pair shape takes
+constexpr int kFRows = 32;                     // a block's row tile
+constexpr int kFMaxT = 16;                     // frames a window
+constexpr int kFLdR = kFD + 4;                 // f32 residual [rows][d]
+constexpr int kFLdY = kFD + kPad;              // bf16 LayerNorm / attention output
+constexpr int kFLdQ = 3 * kFD + 4;             // f32 q/k/v
+using FwdRing = WeightRing<2, 4>;              // two slots of 4 k-steps (32 KB), one a group
+constexpr int kFOffR = 0;                                       // x, then h
+constexpr int kFOffY = kFOffR + kFRows * kFLdR * 4;             // y1, a, y2
+constexpr int kFOffQ = kFOffY + kFRows * kFLdY * 2;             // q/k/v; u, the next x
+constexpr int kFOffRing = kFOffQ + kFRows * kFLdQ * 4;          // the ring's slots
+constexpr int kFOffBar = kFOffRing + FwdRing::kSlots * FwdRing::kSlotBytes;   // full, empty, x
+constexpr int kFSmem = kFOffBar + (2 * FwdRing::kSlots + 1) * 8;
+// the widest MLP whose hidden [rows][m + 8] (bf16) leaves room for the next
+// tile's x [rows][d] (f32) in q/k/v's place
+constexpr int kFMaxM = ((kFRows * kFLdQ - kFRows * kFD) * 4 / (kFRows * 2) - kPad) / 512 * 512;
+constexpr int kPairPlanInts = 7;
+constexpr int kPairThreads = kThreads + 128;   // 4 consumer warpgroups and the producer's
+constexpr int kGroupWarps = kWarps / 2;        // consumer warps that read a fill
+// Registers a thread after setmaxnreg: the producer warpgroup gives what the
+// consumers take, within the block's 640 x 96 (ptxas's launch count).
+constexpr int kProducerRegs = 32;
+constexpr int kConsumerRegs = 112;
+static_assert(4 * kProducerRegs + 16 * kConsumerRegs <= 20 * 96, "setmaxnreg over budget");
+static_assert(kFSmem <= kMaxSmem, "the pair shape's layout exceeds shared memory");
+static_assert(kFOffRing % 128 == 0, "the ring's slots must be aligned for bulk copies");
+// Phases the pair shape's cycle counters time, summed over a block's tiles,
+// and last the cycles its warp 0 waited for weights within them.
+constexpr int kPairPhases = 8;
+
+struct FusedEncoderPairTag {};
+
+struct PairShape {
+  int batch, t, m, heads, windows;
+  float q_scale;
+};
+
+// LayerNorm of the tile's rows of src (f32, stride ld_src; rows from
+// `valid` on read as zeros) into dst (bf16, stride kFLdY), a warp a row held
+// in registers, which also go to `copy` (f32, stride kFLdR) unless it is
+// null; the sums in layernorm_rows's order, so the results are its own.
+__device__ __forceinline__ void pair_layernorm(const float* src, int ld_src, int valid,
+                                               float* copy, bf16* dst,
+                                               const float* __restrict__ scale,
+                                               const float* __restrict__ bias) {
+  const int lane = threadIdx.x & 31;
+  constexpr float inv_d = 1.f / kFD;
+  for (int r = threadIdx.x >> 5; r < kFRows; r += kWarps) {
+    float v[kFD / 32];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFD / 32; ++i) {
+      v[i] = r < valid ? src[r * ld_src + lane + 32 * i] : 0.f;
+      if (copy != nullptr) copy[r * kFLdR + lane + 32 * i] = v[i];
+      sum += v[i];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = sum * inv_d;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kFD / 32; ++i) sq = fmaf(v[i] - mean, v[i] - mean, sq);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float rs = rsqrtf(sq * inv_d + kLnEps);
+#pragma unroll
+    for (int i = 0; i < kFD / 32; ++i) {
+      const int col = lane + 32 * i;
+      dst[r * kFLdY + col] =
+          __float2bfloat16((v[i] - mean) * rs * __ldg(scale + col) + __ldg(bias + col));
+    }
+  }
+}
+
+// The producer warp: the weights every tile multiplies by, fill by fill, in
+// the order the consumers take them (fused_encoder.py::pair_stream): the
+// fills alternate between the two groups of consumer warps, so q and k, and
+// two W1 column groups at a time, go interleaved, a group each; v, the
+// projection and W2 go in order, every other fill to a group.
+__device__ __forceinline__ void pair_produce(const bf16* w, int m, int tiles, FwdRing::Writer wr) {
+  constexpr int kKs = FwdRing::kKs;
+  const bf16* const w_qkv = w;
+  const bf16* const w_proj = w_qkv + 3LL * kFD * kFD;
+  const bf16* const w_mlp1 = w_proj + 1LL * kFD * kFD;
+  const bf16* const w_mlp2 = w_mlp1 + 1LL * kFD * m;
+  auto both = [&](const bf16* src, int b0) {    // column groups b0 and b0 + 16, interleaved
+    for (int ks = 0; ks < 16; ks += kKs) {
+      wr.put(src, 16, b0, ks);
+      wr.put(src, 16, b0 + 16, ks);
+    }
+  };
+  for (int tile = 0; tile < tiles; ++tile) {
+    both(w_qkv, 0);                               // q, k
+    wr.put_all(w_qkv, 16, 32, 0, 16);             // v
+    wr.put_all(w_proj, 16, 0, 0, 16);
+    for (int c0 = 0; c0 < m; c0 += 512) both(w_mlp1, c0 / 16);
+    wr.put_all(w_mlp2, m / 16, 0, 0, m / 16);
+  }
+}
+
+// acc = A (32 rows, bf16 in shared memory, stride lda) x the next n_fills
+// fills of this warp's group: its j-th holds k-steps kKs (j kstride + koff)
+// .. + kKs - 1 of A (kstride 1: the group's own column group; 2: every other
+// fill of a product the two groups split). The warp takes column blocks
+// 2 wg and 2 wg + 1 of each fill (wg: its place in the group) for both row
+// tiles, and gives the slot back as soon as the weights are in registers.
+// acc[rt][cb][n8][e]: row 16 rt + g (+ 8 for e >= 2), column 16 (2 wg + cb) +
+// 8 n8 + 2 c (+ 1 for odd e).
+__device__ __forceinline__ void group_mma(FwdRing::Reader& r, const bf16* a, int lda,
+                                          int n_fills, int kstride, int koff,
+                                          float (&acc)[2][2][2][4], long long* waited) {
+  constexpr int kKs = FwdRing::kKs;
+  const int lane = threadIdx.x & 31;
+  const int wg = (threadIdx.x >> 5) % kGroupWarps;
+  const bf16* const a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i >> 4][(i >> 3) & 1][(i >> 2) & 1][i & 3] = 0.f;
+  for (int j = 0; j < n_fills; ++j) {
+    const uint4* w = r.take(waited) + 2 * wg * kKs * 32 + lane;
+    uint4 b[2][kKs];
+#pragma unroll
+    for (int cb = 0; cb < 2; ++cb) {
+#pragma unroll
+      for (int ks = 0; ks < kKs; ++ks) b[cb][ks] = w[(cb * kKs + ks) * 32];
+    }
+    r.give();
+    const bf16* const aj = a0 + 16 * kKs * (j * kstride + koff);
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks) {
+#pragma unroll
+      for (int rt = 0; rt < 2; ++rt) {
+        unsigned af[4];
+        ldmatrix_x4(af, aj + rt * 16 * lda + 16 * ks);
+#pragma unroll
+        for (int cb = 0; cb < 2; ++cb) {
+          mma_bf16(acc[rt][cb][0], af, b[cb][ks].x, b[cb][ks].y);
+          mma_bf16(acc[rt][cb][1], af, b[cb][ks].z, b[cb][ks].w);
+        }
+      }
+    }
+  }
+}
+
+// epi(row, column of the group's 256, v0, v1) for every pair of neighbouring
+// sums of acc (group_mma's layout) once.
+template <typename Epilogue>
+__device__ __forceinline__ void each_pair(const float (&acc)[2][2][2][4], Epilogue epi) {
+  const int lane = threadIdx.x & 31;
+  const int wg = (threadIdx.x >> 5) % kGroupWarps;
+  const int r0 = lane >> 2, n0 = 32 * wg + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int rt = i >> 3, cb = (i >> 2) & 1, n8 = (i >> 1) & 1, hh = i & 1;
+    epi(16 * rt + r0 + 8 * hh, n0 + 16 * cb + 8 * n8, acc[rt][cb][n8][2 * hh],
+        acc[rt][cb][n8][2 * hh + 1]);
+  }
+}
+
+// The pair shape at d = 256: clusters of two blocks, each block its own
+// tile of 32 rows (whole windows) with all the columns, the pair walking
+// over pairs of tiles; one stream of weights feeds both blocks. The order
+// and the arithmetic are the other shapes'; padding rows and windows past
+// the batch hold zeros, run through the same arithmetic and are never
+// stored.
+__global__ void __launch_bounds__(kPairThreads, 1)
+fused_encoder_kernel_pair(const float* __restrict__ x, float* __restrict__ out,
+                          const bf16* __restrict__ w, const float* __restrict__ vec, PairShape s,
+                          long long* __restrict__ clocks) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int t = s.t, m = s.m;
+  const int n_pairs = ((s.batch + s.windows - 1) / s.windows + 1) / 2;
+  const int cluster = static_cast<int>(blockIdx.x) / 2, clusters = static_cast<int>(gridDim.x) / 2;
+  const int tiles = cluster < n_pairs ? (n_pairs - 1 - cluster) / clusters + 1 : 0;
+  const unsigned full = smem_u32(smem + kFOffBar);
+  const unsigned empty = full + 8 * FwdRing::kSlots;
+  long long* const clk =
+      clocks != nullptr && threadIdx.x == 0 ? clocks + blockIdx.x * kPairPhases : nullptr;
+
+  const unsigned xbar = empty + 8 * FwdRing::kSlots;   // the next tile's x has landed
+  if (threadIdx.x == 0) {
+    FwdRing::init(full, empty, kGroupWarps);
+    mbar_init(xbar, 1);
+  }
+  if (clk != nullptr) {
+    for (int i = 0; i < kPairPhases; ++i) clk[i] = 0;
+  }
+  cluster_sync_all();
+
+  if (warp >= kWarps) {                         // the producer warpgroup: one warp copies
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kWarps) {
+      pair_produce(w, m, tiles,
+                   FwdRing::Writer{smem_u32(smem + kFOffRing), full, empty, rank, 0, 0});
+    }
+    cluster_sync_all();
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  // ---- the consumers ----
+  long long t_last = 0, waited = 0;
+  long long* const wait_at = clk != nullptr ? &waited : nullptr;
+  auto lap = [&](int phase) {
+    if (clk != nullptr) {
+      const long long now = clock64();
+      if (phase > 0) clk[phase - 1] += now - t_last;
+      t_last = now;
+    }
+  };
+  auto sync = [] { named_barrier_sync(1, kThreads); };
+  // the two groups of consumer warps read alternate fills (the ring's two slots)
+  const int group = warp / kGroupWarps;
+  FwdRing::Reader rg{smem + kFOffRing, full, empty, cluster_map(empty, rank ^ 1), group, 0, 2};
+
+  float* const resid = reinterpret_cast<float*>(smem + kFOffR);
+  bf16* const ybuf = reinterpret_cast<bf16*>(smem + kFOffY);
+  float* const qbuf = reinterpret_cast<float*>(smem + kFOffQ);
+  bf16* const ubuf = reinterpret_cast<bf16*>(smem + kFOffQ);
+  const int ld_u = m + kPad;
+  // the next tile's x lands past the MLP hidden in q/k/v's place, once the
+  // attention is done with them
+  float* const xnext = reinterpret_cast<float*>(smem + kFOffQ + kFRows * ld_u * 2);
+  // f32 rows in device memory, end to end: g1, b1, bqkv, bproj, g2, b2, bm1, bm2
+  const float* const ln1_g = vec;
+  const float* const ln1_b = ln1_g + kFD;
+  const float* const b_qkv = ln1_b + kFD;
+  const float* const b_proj = b_qkv + 3 * kFD;
+  const float* const ln2_g = b_proj + kFD;
+  const float* const ln2_b = ln2_g + kFD;
+  const float* const b_mlp1 = ln2_b + kFD;
+  const float* const b_mlp2 = b_mlp1 + m;
+  constexpr int kKs = FwdRing::kKs;
+  // The rows of this block's tile `it`: the first element and how many are
+  // valid (none past the batch).
+  auto tile_rows = [&](int it, long long& base, int& valid) {
+    const int win0 = (2 * (cluster + it * clusters) + rank) * s.windows;
+    valid = max(0, min(s.windows, s.batch - win0)) * t;
+    base = static_cast<long long>(win0) * t * kFD;
+  };
+  // Thread 0 asks for tile it's valid rows of x (one bulk copy onto xbar).
+  auto fetch_x = [&](int it) {
+    if (threadIdx.x == 0) {
+      long long from;
+      int rows;
+      tile_rows(it, from, rows);
+      mbar_arrive_expect_tx(xbar, rows * kFD * 4);
+      if (rows > 0) bulk_copy_g2s(smem_u32(xnext), x + from, rows * kFD * 4, xbar);
+    }
+  };
+  if (tiles > 0) fetch_x(0);
+
+  for (int it = 0; it < tiles; ++it) {
+    lap(0);
+    long long base;
+    int valid;
+    tile_rows(it, base, valid);
+    // LN1 of the tile's x from where it landed (zero past the valid rows),
+    // which goes to the residual on the way
+    mbar_wait(xbar, it & 1);
+    pair_layernorm(xnext, kFD, valid, resid, ybuf, ln1_g, ln1_b);
+    sync();
+    lap(1);
+
+    float acc[2][2][2][4];
+    // q (scaled; group 0) and k (group 1), f32
+    group_mma(rg, ybuf, kFLdY, 16 / kKs, 1, 0, acc, wait_at);
+    each_pair(acc, [&](int r, int n, float v0, float v1) {
+      n += group * kFD;
+      v0 += __ldg(b_qkv + n);
+      v1 += __ldg(b_qkv + n + 1);
+      if (group == 0) {                          // q: scaled after the bias
+        v0 *= s.q_scale;
+        v1 *= s.q_scale;
+      }
+      *reinterpret_cast<float2*>(qbuf + r * kFLdQ + n) = make_float2(v0, v1);
+    });
+    // v, every other fill a group: group 1's sums meet group 0's in place
+    group_mma(rg, ybuf, kFLdY, 16 / kKs / 2, 2, group, acc, wait_at);
+    if (group == 1) {
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        *reinterpret_cast<float2*>(qbuf + r * kFLdQ + 2 * kFD + n) = make_float2(v0, v1);
+      });
+    }
+    sync();
+    if (group == 0) {
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        float2* at = reinterpret_cast<float2*>(qbuf + r * kFLdQ + 2 * kFD + n);
+        const float2 other = *at;
+        *at = make_float2(other.x + v0 + __ldg(b_qkv + 2 * kFD + n),
+                          other.y + v1 + __ldg(b_qkv + 2 * kFD + n + 1));
+      });
+    }
+    sync();
+    lap(2);
+    attention_any_t(qbuf, kFLdQ, t, kFD / s.heads, s.heads, s.windows, ybuf, kFLdY, 0);
+    sync();
+    if (it + 1 < tiles) fetch_x(it + 1);         // q/k/v are dead: the next x may land
+    lap(3);
+    // h = x + a Wproj + bproj, every other fill a group: group 1's sums first
+    group_mma(rg, ybuf, kFLdY, 16 / kKs / 2, 2, group, acc, wait_at);
+    if (group == 1) {
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        float2* at = reinterpret_cast<float2*>(resid + r * kFLdR + n);
+        const float2 hv = *at;
+        *at = make_float2(hv.x + v0, hv.y + v1);
+      });
+    }
+    sync();
+    if (group == 0) {
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        float2* at = reinterpret_cast<float2*>(resid + r * kFLdR + n);
+        const float2 hv = *at;
+        *at = make_float2(hv.x + (v0 + __ldg(b_proj + n)), hv.y + (v1 + __ldg(b_proj + n + 1)));
+      });
+    }
+    sync();
+    lap(4);
+    pair_layernorm(resid, kFLdR, kFRows, nullptr, ybuf, ln2_g, ln2_b);
+    sync();
+    lap(5);
+    for (int c0 = 0; c0 < m; c0 += 2 * kFD) {    // u = gelu(y W1 + bm1), a column group a group
+      group_mma(rg, ybuf, kFLdY, 16 / kKs, 1, 0, acc, wait_at);
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        n += c0 + group * kFD;
+        *reinterpret_cast<__nv_bfloat162*>(ubuf + r * ld_u + n) =
+            __floats2bfloat162_rn(gelu_tanh(v0 + __ldg(b_mlp1 + n)),
+                                  gelu_tanh(v1 + __ldg(b_mlp1 + n + 1)));
+      });
+    }
+    sync();
+    lap(6);
+    // out = h + u W2 + bm2, the valid rows; every other fill a group, group
+    // 1's sums first into h
+    group_mma(rg, ubuf, ld_u, m / 16 / kKs / 2, 2, group, acc, wait_at);
+    if (group == 1) {
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        float2* at = reinterpret_cast<float2*>(resid + r * kFLdR + n);
+        const float2 hv = *at;
+        *at = make_float2(hv.x + v0, hv.y + v1);
+      });
+    }
+    sync();
+    if (group == 0) {
+      float* const dst = out + base;
+      each_pair(acc, [&](int r, int n, float v0, float v1) {
+        if (r < valid) {
+          const float2 hv = *reinterpret_cast<const float2*>(resid + r * kFLdR + n);
+          *reinterpret_cast<float2*>(dst + r * kFD + n) =
+              make_float2(hv.x + v0 + __ldg(b_mlp2 + n), hv.y + v1 + __ldg(b_mlp2 + n + 1));
+        }
+      });
+    }
+    sync();                                      // h read: the next tile may stage x
+    lap(7);
+  }
+  if (clk != nullptr) clk[kPairPhases - 1] = waited;
+  cluster_sync_all();
+}
+
 }  // namespace
 
 extern "C" {
@@ -620,6 +1010,45 @@ int ib_fused_encoder_forward(const void* x, int batch, int t, int d, int m, int 
       !small                ? launch<kRowTiles, 8, false>(s, smem, xf, of, wb, vf, cl, st)
       : s.row_tiles == 1    ? launch<1, 8, true>(s, smem, xf, of, wb, vf, cl, st)
                             : launch<kRowTiles, 8, true>(s, smem, xf, of, wb, vf, cl, st);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The same layer through the pair shape (d = 256, at most 16 frames, a head
+// width of 16, 32 or 64, m 512 or 1024): clusters of two
+// blocks, a 32-row tile a block, one stream of weights into both
+// (fused_encoder.py::plan_encoder). plan: the seven ints of
+// EncoderPlan.as_ints (windows, off_y, off_q, off_ring, off_b, slot_bytes,
+// slots), which must be this file's layout; smem: its bytes. grid: an even
+// number of blocks, at most one pair a pair of tiles. clocks: null, or room
+// for kPairPhases int64 a block, which get the block's cycles by phase over
+// its tiles. Launches on `stream` and returns the launch's error (0 on
+// success).
+int ib_fused_encoder_forward_pair(const void* x, int batch, int t, int d, int m, int heads,
+                                  const void* w, const void* vec, void* out, const int* plan,
+                                  int smem, int grid, void* clocks, void* stream) {
+  if (batch < 1 || t < 1 || t > kFMaxT || d != kFD || m < 512 || m % 512 != 0 || m > kFMaxM ||
+      (heads != 4 && heads != 8 && heads != 16) || plan == nullptr || smem != kFSmem ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int layout[kPairPlanInts] = {kFRows / t, kFOffY,   kFOffQ,         kFOffRing,
+                                     kFOffBar,   FwdRing::kSlotBytes, FwdRing::kSlots};
+  for (int i = 0; i < kPairPlanInts; ++i) {
+    if (plan[i] != layout[i]) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PairShape s{batch, t, m, heads, kFRows / t, 1.f / sqrtf(static_cast<float>(d / heads))};
+  const int n_pairs = ((batch + s.windows - 1) / s.windows + 1) / 2;
+  if (grid < 2 || grid % 2 != 0 || grid / 2 > n_pairs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ensure_dynamic_smem<FusedEncoderPairTag>(fused_encoder_kernel_pair, kFSmem);
+  if (err == cudaSuccess) {
+    err = launch_cluster(fused_encoder_kernel_pair, grid, kPairThreads, 2, kFSmem, st,
+                         static_cast<const float*>(x), static_cast<float*>(out),
+                         static_cast<const bf16*>(w), static_cast<const float*>(vec), s,
+                         static_cast<long long*>(clocks));
+  }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -62,11 +62,11 @@
 //      serves 64 rows: a producer warpgroup (one warp copies, setmaxnreg
 //      hands its registers to the consumers) fills a ring of three 32 KB
 //      slots, each 4 k-steps of 16 column blocks in fragment order, every
-//      block copying half of a fill into both blocks' rings (multicast); a
-//      slot is refilled once the 32 consumer warps of the pair gave it back
-//      and the peer armed its full mbarrier, so the ring fills ahead through
-//      the f32 passes. The 16 consumer warps take B from the ring and A from
-//      the tile (mma.sync), a 16-column block each. q/k/v stay bf16 in shared
+//      block copying half of a fill into both blocks' rings (multicast;
+//      WeightRing, encoder_common.cuh); a slot is refilled once the 32
+//      consumer warps of the pair gave it back, so the ring fills ahead
+//      through the f32 passes. The 16 consumer warps take B from the ring
+//      and A from the tile (mma.sync), a 16-column block each. q/k/v stay bf16 in shared
 //      memory over the MLP (no round trip through device memory); the
 //      attention, forward and backward, runs on mma a (window, head) a warp
 //      with P and dS in registers (the window's frames padded to a 16 x 16
@@ -1564,9 +1564,9 @@ constexpr int kPLdF = kPD + 4;
 constexpr int kPLdB = kPD + 8;                // bf16 [rows][d]
 constexpr int kPLdQ = 3 * kPD + 8;            // bf16 q/k/v
 constexpr int kPChunk = 256;                  // hidden columns an MLP chunk
-constexpr int kSlotKs = 4;                    // k-steps of each of 16 column blocks a slot
-constexpr int kSlotBytes = 16 * kSlotKs * 512;
-constexpr int kSlots = 3;
+using PairRing = WeightRing<3, 4>;           // three slots of 4 k-steps (32 KB)
+constexpr int kSlotBytes = PairRing::kSlotBytes;
+constexpr int kSlots = PairRing::kSlots;
 constexpr int kPairThreads = kThreads + 128;  // 4 consumer warpgroups and the producer's
 // Registers a thread after setmaxnreg: the producer warpgroup gives what the
 // consumers take, within the block's 640 x 96 (ptxas's launch count).
@@ -1595,65 +1595,32 @@ struct PairShape {
   float q_scale;
 };
 
-// The consumers' view of the weight ring: the slot of the next fill and
-// the parity of its phase. Every consumer thread steps it alike.
-struct Ring {
-  const unsigned char* base;
-  unsigned full, empty, peer_empty;           // slot 0's mbarriers; slots 8 bytes apart
-  int slot;
-  unsigned phase;
-};
-
-__device__ __forceinline__ const uint4* ring_take(Ring& r, long long* waited) {
-  if (waited != nullptr) {
-    const long long t0 = clock64();
-    mbar_wait(r.full + 8 * r.slot, r.phase);
-    *waited += clock64() - t0;
-  } else {
-    mbar_wait(r.full + 8 * r.slot, r.phase);
-  }
-  return reinterpret_cast<const uint4*>(r.base + r.slot * kSlotBytes);
-}
-
-// The warp is done with the slot: one arrival on its empty mbarrier in both
-// blocks of the pair.
-__device__ __forceinline__ void ring_give(Ring& r) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) {
-    mbar_arrive(r.empty + 8 * r.slot);
-    mbar_arrive_cluster(r.peer_empty + 8 * r.slot);
-  }
-  if (++r.slot == kSlots) {
-    r.slot = 0;
-    r.phase ^= 1;
-  }
-}
-
 // acc += A (32 rows, bf16 in shared memory, stride lda) x the next n_slots
 // slots of the stream, this warp's 16-column block (block `warp` of every
 // slot), slot j holding k-steps 4 j .. 4 j + 3 of A. acc[rt][j][e] is row
 // 16 rt + g (+ 8 for e >= 2), column 8 j + 2 c (+ 1 for odd e).
-__device__ __forceinline__ void stream_mma(Ring& r, const bf16* a, int lda, int n_slots,
-                                           float (&acc)[2][2][4], long long* waited) {
+__device__ __forceinline__ void stream_mma(PairRing::Reader& r, const bf16* a, int lda,
+                                           int n_slots, float (&acc)[2][2][4],
+                                           long long* waited) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const bf16* a0 = a + (lane & 15) * lda + (lane >> 4) * 8;
   for (int j = 0; j < n_slots; ++j) {
-    const uint4* w = ring_take(r, waited) + warp * kSlotKs * 32 + lane;
-    uint4 b[kSlotKs];
+    const uint4* w = r.take(waited) + warp * PairRing::kKs * 32 + lane;
+    uint4 b[PairRing::kKs];
 #pragma unroll
-    for (int ks = 0; ks < kSlotKs; ++ks) b[ks] = w[ks * 32];
+    for (int ks = 0; ks < PairRing::kKs; ++ks) b[ks] = w[ks * 32];
 #pragma unroll
-    for (int ks = 0; ks < kSlotKs; ++ks) {
+    for (int ks = 0; ks < PairRing::kKs; ++ks) {
 #pragma unroll
       for (int rt = 0; rt < 2; ++rt) {
         unsigned af[4];
-        ldmatrix_x4(af, a0 + rt * 16 * lda + 16 * (kSlotKs * j + ks));
+        ldmatrix_x4(af, a0 + rt * 16 * lda + 16 * (PairRing::kKs * j + ks));
         mma_bf16(acc[rt][0], af, b[ks].x, b[ks].y);
         mma_bf16(acc[rt][1], af, b[ks].z, b[ks].w);
       }
     }
-    ring_give(r);
+    r.give();
   }
 }
 
@@ -1950,15 +1917,11 @@ __device__ __forceinline__ void pair_attention_any(bf16* q, bf16* dst, const bf1
 }
 
 // The producer warp: the weights every tile multiplies by, in the order the
-// consumers take them, as fills of kSlotBytes (16 column blocks x 4 k-steps,
-// fragment order). Each block of the pair copies every other column block
-// of a fill into both blocks' slot (multicast); a slot is refilled once both
-// blocks' 16 warps gave it back and the other block armed its full barrier
-// for the fill (one arrival on this block's empty barrier each).
+// consumers take them (fused_encoder.py::bwd_pair_stream), fill by fill
+// into the ring (WeightRing, encoder_common.cuh).
 __device__ __forceinline__ void pair_produce(const bf16* w, const bf16* wt, int m, int tiles,
                                              unsigned ring, unsigned full, unsigned empty,
-                                             unsigned peer_empty, int rank) {
-  const int lane = threadIdx.x & 31;
+                                             int rank) {
   const bf16* const w_qkv = w;
   const bf16* const w_proj = w_qkv + 3LL * kPD * kPD;
   const bf16* const w_mlp1 = w_proj + 1LL * kPD * kPD;
@@ -1966,42 +1929,17 @@ __device__ __forceinline__ void pair_produce(const bf16* w, const bf16* wt, int 
   const bf16* const wt_proj = wt_qkv + 3LL * kPD * kPD;
   const bf16* const wt_mlp1 = wt_proj + 1LL * kPD * kPD;
   const bf16* const wt_mlp2 = wt_mlp1 + 1LL * kPD * m;
-  int slot = 0;
-  unsigned fill = 0;                          // fills of this slot so far
-  // one fill: column blocks b0 .. b0 + 15 of a weight of nk k-steps, k-steps ks .. ks + 3
-  auto put = [&](const bf16* src, int nk, int b0, int ks) {
-    const unsigned bar = full + 8 * slot;
-    if (lane == 0) {
-      if (fill > 0) mbar_wait(bar, (fill - 1) & 1);   // its last fill was consumed here
-      mbar_arrive_expect_tx(bar, kSlotBytes);
-      mbar_arrive_cluster(peer_empty + 8 * slot);
-      mbar_wait(empty + 8 * slot, fill & 1);
-    }
-    __syncwarp();
-    if (lane < 8) {
-      const int i = 2 * lane + rank;
-      bulk_copy_g2s_multicast(ring + slot * kSlotBytes + i * kSlotKs * 512,
-                              src + (static_cast<long long>(b0 + i) * nk + ks) * 256,
-                              kSlotKs * 512, bar, 0x3);
-    }
-    if (++slot == kSlots) {
-      slot = 0;
-      ++fill;
-    }
-  };
-  auto put_all = [&](const bf16* src, int nk, int b0, int ks0, int k_steps) {
-    for (int ks = ks0; ks < ks0 + k_steps; ks += kSlotKs) put(src, nk, b0, ks);
-  };
+  PairRing::Writer wr{ring, full, empty, rank, 0, 0};
   for (int tile = 0; tile < tiles; ++tile) {
-    for (int grp = 0; grp < 3; ++grp) put_all(w_qkv, 16, 16 * grp, 0, 16);
-    put_all(w_proj, 16, 0, 0, 16);
+    for (int grp = 0; grp < 3; ++grp) wr.put_all(w_qkv, 16, 16 * grp, 0, 16);
+    wr.put_all(w_proj, 16, 0, 0, 16);
     for (int c0 = 0; c0 < m; c0 += kPChunk) {
-      put_all(w_mlp1, 16, c0 / 16, 0, 16);
-      put_all(wt_mlp2, 16, c0 / 16, 0, 16);
-      put_all(wt_mlp1, m / 16, 0, c0 / 16, 16);
+      wr.put_all(w_mlp1, 16, c0 / 16, 0, 16);
+      wr.put_all(wt_mlp2, 16, c0 / 16, 0, 16);
+      wr.put_all(wt_mlp1, m / 16, 0, c0 / 16, 16);
     }
-    put_all(wt_proj, 16, 0, 0, 16);
-    put_all(wt_qkv, 48, 0, 0, 48);
+    wr.put_all(wt_proj, 16, 0, 0, 16);
+    wr.put_all(wt_qkv, 48, 0, 0, 48);
   }
 }
 
@@ -2025,7 +1963,6 @@ encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restric
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
   const int rank = static_cast<int>(cluster_ctarank());
-  const int peer = rank ^ 1;
   const int t = s.t, m = s.m;
   const int n_pairs = ((s.batch + s.windows - 1) / s.windows + 1) / 2;
   const int cluster = static_cast<int>(blockIdx.x) / 2, clusters = static_cast<int>(gridDim.x) / 2;
@@ -2038,15 +1975,7 @@ encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restric
   long long* const clk =
       clocks != nullptr && threadIdx.x == 0 ? clocks + blockIdx.x * kPairPhases : nullptr;
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kSlots; ++i) {
-      mbar_init(full + 8 * i, 1);
-      mbar_init(empty + 8 * i, 2 * kWarps + 1);
-      // the first fill of each slot waits only for the other block's arming
-      for (int k = 0; k < 2 * kWarps; ++k) mbar_arrive(empty + 8 * i);
-    }
-    mbar_init_fence();
-  }
+  if (threadIdx.x == 0) PairRing::init(full, empty, kWarps);
   for (int i = threadIdx.x; i < n_vec; i += kPairThreads) vp[i] = 0.f;
   if (clk != nullptr) {
     for (int i = 0; i < kPairPhases; ++i) clk[i] = 0;
@@ -2056,7 +1985,7 @@ encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restric
   if (warp >= kWarps) {                         // the producer warpgroup: one warp copies
     setmaxnreg_dec<kProducerRegs>();
     if (warp == kWarps) {
-      pair_produce(w, wt, m, tiles, ring, full, empty, cluster_map(empty, peer), rank);
+      pair_produce(w, wt, m, tiles, ring, full, empty, rank);
     }
     cluster_sync_all();
     return;
@@ -2074,7 +2003,7 @@ encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restric
     }
   };
   auto sync = [] { named_barrier_sync(1, kThreads); };
-  Ring rg{smem + kPOffRing, full, empty, cluster_map(empty, peer), 0, 0};
+  PairRing::Reader rg{smem + kPOffRing, full, empty, cluster_map(empty, rank ^ 1), 0, 0};
 
   float* const hb = reinterpret_cast<float*>(smem + kPOffF);
   bf16* const ab = reinterpret_cast<bf16*>(smem + kPOffB);

@@ -5,10 +5,12 @@ kernel itself is ``csrc/fused_encoder.cu`` (it replaces the Pallas
 ``encoder_layer_pallas``, both of its kernel versions); this module holds
 its plain PyTorch version (:func:`encoder_layer_reference`), the weight
 packing (:func:`pack_encoder_params`) and the wrapper
-(:func:`fused_encoder_layer`), which launches the kernel in one of two
+(:func:`fused_encoder_layer`), which launches the kernel in one of three
 shapes that :func:`plan_encoder` picks from the shape of the call: up to
 :data:`SMALL_BATCH_MAX` windows a cluster of blocks splits every product's
-columns, above it one block takes a row tile. The layer's backward is
+columns, from :data:`PAIR_BATCH_MIN` windows at d = 256 clusters of two
+blocks share one weight stream (``fused_encoder_kernel_pair``), else one
+block takes a row tile. The layer's backward is
 ``csrc/fused_encoder_bwd.cu`` (it replaces the Pallas
 ``encoder_layer_bwd_pallas``), with its plain version
 (:func:`encoder_layer_bwd_reference`), its wrapper
@@ -66,15 +68,21 @@ MAX_SMEM = 232448
 _MAX_ROW_TILES = 3
 _PAD = 8
 
-# the forward's two shapes (csrc/fused_encoder.cu, plan_encoder): the warps
-# of a block, and the largest batch the small shape takes, which ops/tune.py
-# sets by timing both shapes on an H100
+# the forward's three shapes (csrc/fused_encoder.cu, plan_encoder): the warps
+# of a block, the largest batch the small shape takes and the smallest the
+# pair shape takes, which ops/tune.py --kernel encoder sets by timing the
+# shapes on an H100 (PERF.md §6, its runs T1 and T3: the small shape ~37.5
+# us up to 60 windows, 15 clusters of 8 in one wave, and ~72 from 61, two
+# waves; the pair ~41 us from 1 window to 396)
 _WARPS = 16
-_PHASES = 10           # phases the kernel's cycle counters time
-SMALL_BATCH_MAX = 56
+SMALL_BATCH_MAX = 60
+PAIR_BATCH_MIN = 61
 # blocks of small-shape clusters an H100 runs at once: 14 clusters of 8 took
-# one wave (56 windows, 4 a cluster), 16 two (ops/tune.py)
+# one wave (56 windows, 4 a cluster), 16 two (ops/tune.py); the pair shape's
+# clusters and the large shape's blocks one a multiprocessor (132)
 _SMALL_BLOCKS_AT_ONCE = 112
+_PAIR_CLUSTERS_AT_ONCE = 66
+_LARGE_BLOCKS_AT_ONCE = 132
 
 # the backward (csrc/fused_encoder_bwd.cu): launches a call, the most
 # blocks the weight-gradient kernel splits the rows over, and the rows a
@@ -101,19 +109,32 @@ _PAIR_CHUNK = 256
 _SLOT_KS = 4
 _SLOT_BYTES = 16 * _SLOT_KS * 512
 _SLOTS = 3
+# the forward's pair shape (csrc/fused_encoder.cu's kF* constants): the same
+# rows, frames and head widths; an MLP up to 1024 wide (its hidden and the
+# next tile's x take the f32 q/k/v's room); a ring of two 32 KB slots of 4
+# k-steps
+_PAIR_MAX_MLP = 1024
+_FWD_SLOT_KS = 4
+_FWD_SLOT_BYTES = 16 * _FWD_SLOT_KS * 512
+_FWD_SLOTS = 2
 
 # kernel launches so far (for checking that a path went through the kernel),
 # and the forward's by the shape that ran
 launches = 0
 bwd_launches = 0
-shape_launches = {'small': 0, 'large': 0}
+shape_launches = {'small': 0, 'pair': 0, 'large': 0}
 # the backward's tile-kernel launches by the shape that ran (one a call)
 bwd_shape_launches = {'small': 0, 'pair': 0, 'large': 0}
 # None, or an int64 CUDA tensor that the next forward launches fill with
-# each block's cycles by phase ([blocks, 10]: stage x and LN1, q/k/v,
-# attention, the exchange of a, projection, the exchange of h, LN2, W1, the
-# exchange of u, W2; ops/tune.py reads them)
+# each block's cycles by phase ([blocks, len(plan.phases)]: PHASES for the
+# small and large shapes, PAIR_PHASES for the pair, each phase summed over
+# the block's tiles and last the cycles its warp 0 waited for weights in
+# them; ops/tune.py reads them)
 phase_clocks: Optional[torch.Tensor] = None
+PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'a to all', 'projection', 'h to all',
+          'LN2', 'W1', 'u to all', 'W2, store')
+PAIR_PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'projection', 'LN2', 'W1',
+               'W2, store', 'waiting for weights')
 # the same for the backward's small shape ([blocks, 18], BWD_PHASES) and its
 # pair shape ([blocks, 14], BWD_PAIR_PHASES: each phase summed over the
 # block's tiles, and last the cycles its warp 0 waited for weights in them)
@@ -282,7 +303,11 @@ class EncoderPlan:
     ``shape`` is ``'small'`` (a cluster of ``cluster`` blocks shares a row
     tile, each owning 1/``cluster`` of every product's columns: its heads'
     q/k/v, ``d / cluster`` columns of the projection and of W2, ``m /
-    cluster`` of W1) or ``'large'`` (one block a row tile, all the columns).
+    cluster`` of W1), ``'pair'`` (clusters of two blocks, each block its own
+    tile with all the columns, both fed by one stream of weights through a
+    ring of ``slots`` slots of ``slot_bytes`` at ``off_ring``, their full
+    and empty ``mbarrier``s at ``off_b``: :func:`_pair_layout`) or ``'large'``
+    (one block a row tile, all the columns).
     ``row_tiles`` 16-row mma tiles hold ``windows`` whole windows. Strides
     are in elements, offsets in bytes from the start of the block's shared
     memory, where the f32 residual ``[rows, d + 8]`` lies: the LayerNorm
@@ -311,11 +336,27 @@ class EncoderPlan:
     staged: int
     off_b: int
     smem_bytes: int
+    off_ring: int = 0
+    slot_bytes: int = 0
+    slots: int = 0
+
+    def tiles(self, batch: int) -> int:
+        return -(-batch // self.windows)
 
     def as_ints(self) -> Tuple[int, ...]:
+        """What ``ib_fused_encoder_forward`` (small, large) or
+        ``ib_fused_encoder_forward_pair`` (pair) reads, in its order."""
+        if self.shape == 'pair':
+            return (self.windows, self.off_y, self.off_q, self.off_ring, self.off_b,
+                    self.slot_bytes, self.slots)
         return (int(self.shape == 'small'), self.cluster, self.row_tiles, self.windows,
                 self.ld_q, self.ld_u, self.off_y, self.off_a, self.off_q, self.off_u,
                 self.off_s, self.scratch_floats, self.off_v, self.staged, self.off_b)
+
+    @property
+    def phases(self) -> Tuple[str, ...]:
+        """What :data:`phase_clocks` gets a block of this shape."""
+        return PAIR_PHASES if self.shape == 'pair' else PHASES
 
 
 def _round16(n: int) -> int:
@@ -381,6 +422,90 @@ def _layout(shape: str, t: int, d: int, m: int, num_heads: int, row_tiles: int,
                        off_a, off_q, off_u, off_s, scratch // 4, off_v, staged, off_b, end)
 
 
+def fwd_pair_takes(t: int, d: int, m: int, num_heads: int) -> bool:
+    """Whether the forward's pair shape takes the shape: the backward's
+    pair envelope (:func:`pair_takes`: d = 256, at most 16 frames, heads 16,
+    32 or 64 wide) with an MLP of whole pairs of 256-column groups (one a
+    group of consumer warps), 512 or 1024 columns: its bf16 hidden and the
+    next tile's x take the f32 q/k/v's room."""
+    return (pair_takes(t, d, m, num_heads) and m % (2 * _PAIR_CHUNK) == 0
+            and m <= _PAIR_MAX_MLP)
+
+
+def _pair_layout(t: int, d: int, m: int, num_heads: int) -> Optional[EncoderPlan]:
+    """The forward's pair shape's shared memory (:class:`EncoderPlan`); None
+    where it does not take the shape (:func:`fwd_pair_takes`).
+
+    A block's 32-row tile: the f32 residual ``[rows, d + 4]`` at 0, the
+    LayerNorm output and later the attention output (bf16 ``[rows, d + 8]``)
+    at ``off_y``, the f32 q/k/v ``[rows, 3 d + 4]`` and later the bf16 MLP
+    hidden ``[rows, m + 8]`` at ``off_q`` with the next tile's x (f32
+    ``[rows, d]``) past it, then the ring of weights and the mbarriers
+    (``off_b``: the slots' full, then empty, then the x's). The f32 q/k/v of
+    all heads (98.8 KB) leave room for two 32 KB slots, four k-steps of 16
+    column blocks each."""
+    if not fwd_pair_takes(t, d, m, num_heads):
+        return None
+    rows = _PAIR_ROWS
+    ld_q, ld_u = 3 * d + _PAD // 2, m + _PAD
+    off_y = rows * (d + _PAD // 2) * 4
+    off_q = off_y + rows * (d + _PAD) * 2
+    off_ring = off_q + rows * ld_q * 4
+    off_b = off_ring + _FWD_SLOTS * _FWD_SLOT_BYTES
+    smem = off_b + (2 * _FWD_SLOTS + 1) * 8
+    if smem > MAX_SMEM or rows * ld_u * 2 + rows * d * 4 > off_ring - off_q:
+        return None
+    return EncoderPlan('pair', 2, rows // 16, rows // t, ld_q, ld_u, off_y, off_y, off_q,
+                       off_q, 0, 0, 0, 0, off_b, smem, off_ring=off_ring,
+                       slot_bytes=_FWD_SLOT_BYTES, slots=_FWD_SLOTS)
+
+
+def pair_stream(m: int) -> Tuple[Tuple[str, int, int, int], ...]:
+    """The fills of the forward's pair ring for one tile, in the order the
+    producer puts them: ``(weight, k-steps of the weight, first of the
+    fill's 16 column blocks, first of its 4 k-steps)``, weights in
+    :class:`PackedEncoderLayer` fragment order. The two groups of consumer
+    warps take alternate fills (group 0 the even ones, the ring's first
+    slot): q and k interleaved, a group each, then v and the projection,
+    every other fill a group, W1 two column groups at a time interleaved,
+    then W2, every other fill a group."""
+    d = PAIR_D
+    fills = []
+
+    def put(name, nk, b0):
+        fills.extend((name, nk, b0, ks) for ks in range(0, nk, _FWD_SLOT_KS))
+
+    def both(name, b0):
+        for ks in range(0, d // 16, _FWD_SLOT_KS):
+            fills.extend(((name, d // 16, b0, ks), (name, d // 16, b0 + 16, ks)))
+
+    both('wqkv', 0)
+    put('wqkv', d // 16, 32)
+    put('wproj', d // 16, 0)
+    for c0 in range(0, m, 2 * _PAIR_CHUNK):
+        both('wmlp1', c0 // 16)
+    put('wmlp2', m // 16, 0)
+    return tuple(fills)
+
+
+def thresholds(shape: str) -> Tuple[int, int]:
+    """``(SMALL_BATCH_MAX, PAIR_BATCH_MIN)`` with which ``shape`` takes every
+    batch it can (tests and ``ops/tune.py`` set them so; the pair's 0 also
+    lifts :func:`plan_encoder`'s one-wave rule)."""
+    return {'small': (1 << 30, 1 << 30), 'pair': (0, 0), 'large': (0, 1 << 30)}[shape]
+
+
+def encoder_blocks(plan: EncoderPlan, batch: int, sms: int) -> int:
+    """Blocks of the forward kernel in ``plan`` at ``batch`` on a card of
+    ``sms`` multiprocessors: a cluster a tile (small), one block a tile
+    (large), a pair of blocks a pair of tiles up to one block a
+    multiprocessor (pair)."""
+    tiles = plan.tiles(batch)
+    if plan.shape == 'pair':
+        return 2 * min(-(-tiles // 2), sms // 2)
+    return tiles * plan.cluster
+
+
 def plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int) -> EncoderPlan:
     """Which shape of the forward kernel takes ``batch`` windows of ``t``
     frames at width ``d``, MLP width ``m`` and ``num_heads`` heads, and its
@@ -390,15 +515,21 @@ def plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int) -> EncoderP
     Small, up to :data:`SMALL_BATCH_MAX` windows where the heads split over a
     cluster (:func:`small_cluster`) and a window fits: the fewest mma row
     tiles (at most 3) with which the batch's clusters all run at once, else
-    the most. Otherwise large: the row tile of :func:`plan_tile`.
+    the most. Else pair, from :data:`PAIR_BATCH_MIN` windows where it takes
+    the shape (:func:`fwd_pair_takes`), unless the pairs of tiles need more
+    than one wave of clusters where the large shape's tiles fit in one (the
+    pair takes ~41 us a wave at the served width, the large tile ~69: at T
+    = 10 the large shape takes B = 397-528); a :data:`PAIR_BATCH_MIN` of 0
+    gives the pair every batch it takes. Otherwise large: the row tile of
+    :func:`plan_tile`.
     """
-    return _plan_encoder(batch, t, d, m, num_heads, SMALL_BATCH_MAX)
+    return _plan_encoder(batch, t, d, m, num_heads, SMALL_BATCH_MAX, PAIR_BATCH_MIN)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int,
-                  small_batch_max: int) -> EncoderPlan:
-    """:func:`plan_encoder` at a given threshold, computed once a shape."""
+                  small_batch_max: int, pair_batch_min: int) -> EncoderPlan:
+    """:func:`plan_encoder` at given thresholds, computed once a shape."""
     row_tiles, _ = plan_tile(t, d, m, num_heads)
     cluster = small_cluster(d, num_heads)
     if batch <= small_batch_max and cluster > 1:
@@ -408,7 +539,12 @@ def _plan_encoder(batch: int, t: int, d: int, m: int, num_heads: int,
             at_once = [p for p in fits
                        if -(-batch // p.windows) * cluster <= _SMALL_BLOCKS_AT_ONCE]
             return (at_once or fits[::-1])[0]
-    return _layout('large', t, d, m, num_heads, row_tiles, 1)
+    large = _layout('large', t, d, m, num_heads, row_tiles, 1)
+    pair = _pair_layout(t, d, m, num_heads) if batch >= pair_batch_min else None
+    if (pair and pair_batch_min > 0 and -(-pair.tiles(batch) // 2) > _PAIR_CLUSTERS_AT_ONCE
+            and large.tiles(batch) <= _LARGE_BLOCKS_AT_ONCE):
+        return large
+    return pair or large
 
 
 def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
@@ -443,21 +579,30 @@ def fused_encoder_layer(x: torch.Tensor, packed: PackedEncoderLayer,
     if batch == 0:
         return out
     lib = _build.library()
-    plan_ints = (ctypes.c_int * 15)(*plan.as_ints())
+    ints = plan.as_ints()
+    plan_ints = (ctypes.c_int * len(ints))(*ints)
+    blocks = encoder_blocks(
+        plan, batch, torch.cuda.get_device_properties(x.device).multi_processor_count)
     clocks = None
     if phase_clocks is not None:
-        blocks = -(-batch // plan.windows) * plan.cluster
+        need = blocks * len(plan.phases)
         if (phase_clocks.dtype != torch.int64 or phase_clocks.device != x.device
-                or phase_clocks.numel() < blocks * _PHASES):
+                or phase_clocks.numel() < need):
             raise ValueError(f'phase_clocks: an int64 tensor on {x.device} of at least '
-                             f'{blocks * _PHASES} elements')
+                             f'{need} elements')
         clocks = phase_clocks.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.ib_fused_encoder_forward(
-            x.data_ptr(), batch, t, d, packed.mlp_dim, num_heads,
-            packed.weights.data_ptr(), packed.rows.data_ptr(), out.data_ptr(),
-            plan_ints, plan.smem_bytes, clocks, stream)
+        if plan.shape == 'pair':
+            code = lib.ib_fused_encoder_forward_pair(
+                x.data_ptr(), batch, t, d, packed.mlp_dim, num_heads,
+                packed.weights.data_ptr(), packed.rows.data_ptr(), out.data_ptr(),
+                plan_ints, plan.smem_bytes, blocks, clocks, stream)
+        else:
+            code = lib.ib_fused_encoder_forward(
+                x.data_ptr(), batch, t, d, packed.mlp_dim, num_heads,
+                packed.weights.data_ptr(), packed.rows.data_ptr(), out.data_ptr(),
+                plan_ints, plan.smem_bytes, clocks, stream)
     _build.check(lib, code, 'fused_encoder_layer launch')
     launches += 1
     shape_launches[plan.shape] += 1

@@ -14,11 +14,13 @@ profiler's device time), which is how ``fused_mlp.SMALL_BATCH_MAX`` was
 chosen.
 
 K2 (``--kernel encoder``): the same for the fused encoder layer at the
-served width (T = 10, d = 256, H = 8, 4x MLP): both shapes of the forward
-kernel against :func:`fused_encoder.encoder_layer_reference` at several
-shapes, then both shapes and ``nn.TransformerEncoderLayer`` in bf16 timed
-at B = 1 ... 4096, which is how ``fused_encoder.SMALL_BATCH_MAX`` was
-chosen. ``--baseline DIR`` also times the ``fused_encoder_layer`` of the
+served width (T = 10, d = 256, H = 8, 4x MLP): each shape of the forward
+kernel (the cluster shape, the pair shape and the large tile) against
+:func:`fused_encoder.encoder_layer_reference` at several shapes, the cycle
+counters by phase, then each shape and ``nn.TransformerEncoderLayer`` in
+bf16 timed at B = 1 ... 4096, which is how ``fused_encoder.SMALL_BATCH_MAX``
+and ``PAIR_BATCH_MIN`` were chosen. ``--baseline DIR`` also times the
+``fused_encoder_layer`` of the
 checkout in DIR (another commit, unpacked with ``git archive``) in the same
 run, before and after this tree's: baseline, this tree, this tree,
 baseline.
@@ -195,15 +197,21 @@ def device_us(fn, iters=20):
     return sum(device_times(fn, iters)[0].values())
 
 
-# K2: the served width, and the batches it is timed at
+# K2: the served width, and the batches it is timed at (either side of both
+# thresholds among them, and of the batches where the pair shape needs a
+# second wave of clusters, 397-528 windows, which the plan gives the large
+# shape)
 ENC = dict(t=10, d=256, heads=8, m=1024)
-ENC_BATCHES = (1, 2, 4, 8, 14, 16, 37, 42, 48, 56, 64, 128, 256, 512, 4096)
-ENC_PHASES = ('stage x, LN1', 'q/k/v', 'attention', 'a to all', 'projection', 'h to all',
-              'LN2', 'W1', 'u to all', 'W2, store')
-# (batch, t, d, heads, mlp_ratio) that both shapes are checked at
+_THRESHOLDS = (fe.SMALL_BATCH_MAX, getattr(fe, 'PAIR_BATCH_MIN', fe.SMALL_BATCH_MAX + 1))
+ENC_BATCHES = tuple(sorted({1, 2, 4, 8, 14, 16, 28, 37, 42, 48, 56, 57, 64, 65, 96, 128, 256,
+                            396, 397, 512, 528, 529, 4096}
+                           | {b + e for b in _THRESHOLDS for e in (-1, 0, 1)} - {0}))
+# (batch, t, d, heads, mlp_ratio) that every shape that takes it is checked at
 ENC_SHAPES = [(1, 10, 256, 8, 4), (5, 10, 256, 8, 4), (37, 10, 256, 8, 4),
-              (4099, 10, 256, 8, 4), (37, 4, 128, 4, 4), (37, 10, 384, 8, 4),
-              (9, 48, 256, 8, 4), (5, 16, 768, 8, 4)]
+              (64, 10, 256, 8, 4), (4099, 10, 256, 8, 4), (64, 4, 256, 16, 4),
+              (19, 16, 256, 4, 4), (23, 7, 256, 8, 2), (13, 10, 256, 8, 6),
+              (37, 4, 128, 4, 4), (37, 10, 384, 8, 4), (9, 48, 256, 8, 4),
+              (5, 16, 768, 8, 4)]
 ENC_TOL = 1e-2       # rtol = atol, as tests/test_torch_cuda_kernels.py holds K2
 
 
@@ -242,11 +250,25 @@ def _encoder_params(gen, d, m):
 
 
 def _encoder_shapes(forced):
-    """The shapes to time: this tree's two (the threshold moved so that each
-    takes every batch), or whatever the loaded tree's plan picks."""
-    if forced and hasattr(fe, 'plan_encoder'):
-        return {'small': 1 << 30, 'large': 0}
+    """The shapes to time: this tree's three, each with the thresholds
+    (``SMALL_BATCH_MAX``, ``PAIR_BATCH_MIN``) with which it takes every
+    batch it can, or whatever the loaded tree's plan picks (None)."""
+    if forced and hasattr(fe, 'thresholds'):
+        return {shape: fe.thresholds(shape) for shape in ('small', 'pair', 'large')}
     return {'kernel': None}
+
+
+def _set_thresholds(limits) -> None:
+    if limits is not None:
+        fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN = limits
+
+
+def _saved_thresholds():
+    """This tree's thresholds, to put back (None for a tree without the
+    pair shape, whose single threshold is left alone)."""
+    if hasattr(fe, 'PAIR_BATCH_MIN'):
+        return fe.SMALL_BATCH_MAX, fe.PAIR_BATCH_MIN
+    return None
 
 
 def encoder_times(tag, forced=True):
@@ -256,45 +278,48 @@ def encoder_times(tag, forced=True):
     the tree on ``sys.path``)."""
     gen = torch.Generator().manual_seed(0)
     packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda')
-    threshold = getattr(fe, 'SMALL_BATCH_MAX', None)
+    saved = _saved_thresholds()
     for batch in ENC_BATCHES:
         x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
         row = {'tree': tag, 'batch': batch}
-        for name, limit in _encoder_shapes(forced).items():
-            if limit is not None:
-                fe.SMALL_BATCH_MAX = limit
+        for name, limits in _encoder_shapes(forced).items():
+            _set_thresholds(limits)
             run = lambda: fe.fused_encoder_layer(x, packed, ENC['heads'])   # noqa: E731
             row[f'{name}_us'] = _time_us(run, 200)
             row[f'{name}_device_us'] = device_us(run)
-        if threshold is not None:
-            fe.SMALL_BATCH_MAX = threshold
+        _set_thresholds(saved)
         print(json.dumps(row), flush=True)
 
 
 def encoder_clocks():
     """JSON lines of the forward kernel's cycle counters by phase (thread 0
-    of each block, clock64 between the phases' barriers): the mean over the
-    blocks and the slowest block's total, for each shape at a few batches."""
+    of each block, clock64 between the phases' barriers; the pair shape's
+    summed over a block's tiles, with its warp 0's waits for weights): the
+    mean over the blocks and the slowest block's total, for each shape at a
+    few batches."""
     gen = torch.Generator().manual_seed(0)
     packed = fe.pack_encoder_params(_encoder_params(gen, ENC['d'], ENC['m']), 'cuda')
-    threshold = fe.SMALL_BATCH_MAX
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    saved = _saved_thresholds()
     for shape, batch in (('small', 1), ('small', 4), ('small', 37), ('large', 1),
-                         ('large', 4096)):
-        fe.SMALL_BATCH_MAX = 1 << 30 if shape == 'small' else 0
+                         ('large', 4096), ('pair', 65), ('pair', 128), ('pair', 512),
+                         ('pair', 4096)):
+        _set_thresholds(fe.thresholds(shape))
         plan = fe.plan_encoder(batch, ENC['t'], ENC['d'], ENC['m'], ENC['heads'])
-        blocks = -(-batch // plan.windows) * plan.cluster
+        blocks, phases = fe.encoder_blocks(plan, batch, sms), plan.phases
         x = torch.randn(batch, ENC['t'], ENC['d'], generator=gen).cuda()
-        fe.phase_clocks = torch.zeros(blocks * len(ENC_PHASES), dtype=torch.int64,
-                                      device='cuda')
+        fe.phase_clocks = torch.zeros(blocks * len(phases), dtype=torch.int64, device='cuda')
         for _ in range(3):          # the last call's counts stand
             fe.fused_encoder_layer(x, packed, ENC['heads'])
         torch.cuda.synchronize()
-        cyc = fe.phase_clocks.view(blocks, len(ENC_PHASES)).double()
+        cyc = fe.phase_clocks.view(blocks, len(phases)).double()
         fe.phase_clocks = None
+        timed = cyc[:, :-1] if shape == 'pair' else cyc      # the waits lie within phases
         print(json.dumps({'clocks': shape, 'batch': batch, 'blocks': blocks,
-                          'mean_cycles': dict(zip(ENC_PHASES, cyc.mean(0).tolist())),
-                          'slowest_block_cycles': float(cyc.sum(1).max())}), flush=True)
-    fe.SMALL_BATCH_MAX = threshold
+                          'tiles': plan.tiles(batch),
+                          'mean_cycles': dict(zip(phases, cyc.mean(0).tolist())),
+                          'slowest_block_cycles': float(timed.sum(1).max())}), flush=True)
+    _set_thresholds(saved)
 
 
 def _baseline_times(tree: str, kernel: str = 'encoder') -> int:
@@ -315,30 +340,35 @@ def encoder_main(args) -> int:
     for line in re.findall(r"Compiling entry function '(\S*encoder_kernel\S*)'.*?\n(.*?registers.*?)\n",
                            report['log'], flags=re.S):
         print('ptxas', line[0][:60], '|', ' '.join(line[1].split()))
+    saved = _saved_thresholds()
     print(json.dumps({'device': torch.cuda.get_device_name(0),
                       'build_seconds': report['seconds'],
-                      'small_batch_max': fe.SMALL_BATCH_MAX}), flush=True)
-    threshold = fe.SMALL_BATCH_MAX
+                      'small_batch_max': fe.SMALL_BATCH_MAX,
+                      'pair_batch_min': fe.PAIR_BATCH_MIN}), flush=True)
     worst = 0.0
     for batch, t, d, heads, ratio in ENC_SHAPES:
         gen = torch.Generator().manual_seed(batch + t + d)
         packed = fe.pack_encoder_params(_encoder_params(gen, d, d * ratio), 'cuda')
         x = torch.randn(batch, t, d, generator=gen).cuda()
         ref = fe.encoder_layer_reference(x, packed.params, heads)
-        for shape, limit in _encoder_shapes(True).items():
-            fe.SMALL_BATCH_MAX = limit
-            if shape == 'small' and fe.small_cluster(d, heads) == 1:
-                continue
+        for shape, limits in _encoder_shapes(True).items():
+            _set_thresholds(limits)
+            plan = fe.plan_encoder(batch, t, d, d * ratio, heads)
+            if plan.shape != shape:
+                continue              # no cluster splits this shape, or the pair takes it not
+            before = fe.shape_launches[shape]
             out = fe.fused_encoder_layer(x, packed, heads)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             excess = float(((out - ref).abs() - ENC_TOL * ref.abs()).max())
-            plan = fe.plan_encoder(batch, t, d, d * ratio, heads)
+            counted = fe.shape_launches[shape] == before + 1
             print(json.dumps({'batch': batch, 't': t, 'd': d, 'heads': heads, 'shape': plan.shape,
                               'cluster': plan.cluster, 'row_tiles': plan.row_tiles,
-                              'max_abs_err': err, 'excess': excess}), flush=True)
+                              'max_abs_err': err, 'excess': excess, 'counted': counted}),
+                  flush=True)
+            excess = excess if counted else float('inf')
             worst = max(worst, excess if excess == excess else float('inf'))
-        fe.SMALL_BATCH_MAX = threshold
+        _set_thresholds(saved)
     if worst > ENC_TOL:
         print(f'FAILED: K2 beyond rtol = atol = {ENC_TOL} by {worst}', file=sys.stderr)
         return 1

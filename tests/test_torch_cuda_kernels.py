@@ -117,26 +117,58 @@ def test_fused_encoder_kernel_matches_plain(cuda, batch, t, d, heads, mlp_ratio)
     torch.testing.assert_close(out, ref, **ENC_TOL)
 
 
-@pytest.mark.parametrize('shape', ['small', 'large'])
-@pytest.mark.parametrize('batch', [
+@pytest.mark.parametrize('shape', ['small', 'pair', 'large'])
+@pytest.mark.parametrize('batch', sorted({
     1, 2, 4,
     5,                            # one past the four windows of a 48-row tile
-    fe.SMALL_BATCH_MAX,           # the plan's threshold
+    fe.SMALL_BATCH_MAX,           # the plan's thresholds
     fe.SMALL_BATCH_MAX + 1,
+    fe.PAIR_BATCH_MIN - 1,
+    fe.PAIR_BATCH_MIN,
+    57, 64, 65, 128,              # one pass of pairs; the default training batch
     4099,
-])
+}))
 def test_fused_encoder_kernel_both_shapes_match_plain(cuda, monkeypatch, shape, batch):
     """The served shape (T = 10, d = 256, H = 8, 4x MLP) through each of the
-    forward's two shapes at every batch, the plan's threshold moved so that
-    the named shape takes it."""
-    monkeypatch.setattr(fe, 'SMALL_BATCH_MAX', 1 << 30 if shape == 'small' else 0)
+    forward's three shapes at every batch, the plan's thresholds moved so
+    that the named shape takes it."""
+    monkeypatch.setattr(fe, 'SMALL_BATCH_MAX', fe.thresholds(shape)[0])
+    monkeypatch.setattr(fe, 'PAIR_BATCH_MIN', fe.thresholds(shape)[1])
     gen = torch.Generator().manual_seed(batch)
     packed = fe.pack_encoder_params(random_encoder_params(gen, 256, 1024), cuda)
     x = torch.randn(batch, 10, 256, generator=gen).to(cuda)
     before = dict(fe.shape_launches)
     out = fe.fused_encoder_layer(x, packed, 8)
-    assert fe.shape_launches[shape] == before[shape] + 1
+    assert fe.shape_launches == {k: v + (k == shape) for k, v in before.items()}
     ref = fe.encoder_layer_reference(x, packed.params, 8)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, **ENC_TOL)
+
+
+@pytest.mark.parametrize('batch,t,heads,mlp', [
+    (64, 4, 16, 1024),     # eight windows a tile, heads 16 wide
+    (65, 7, 8, 512),       # rows past the windows, one pair of W1 groups
+    (57, 16, 4, 1024),     # two windows of 16 frames, heads 64 wide
+    (128, 10, 8, 512),     # the narrowest MLP the pair takes
+    (1, 1, 8, 512),        # one window of one frame, one pair of W1 groups
+    (4099, 4, 16, 512),
+])
+def test_fused_encoder_pair_shape_matches_plain_at_other_shapes(cuda, monkeypatch, batch, t,
+                                                                 heads, mlp):
+    """The pair shape at the frame counts, head widths and MLP widths it
+    takes besides the served one (the large shape has the others:
+    test_fused_encoder_kernel_matches_plain)."""
+    monkeypatch.setattr(fe, 'SMALL_BATCH_MAX', fe.thresholds('pair')[0])
+    monkeypatch.setattr(fe, 'PAIR_BATCH_MIN', fe.thresholds('pair')[1])
+    assert fe.plan_encoder(batch, t, 256, mlp, heads).shape == 'pair'
+    gen = torch.Generator().manual_seed(batch + t)
+    packed = fe.pack_encoder_params(random_encoder_params(gen, 256, mlp), cuda)
+    x = torch.randn(batch, t, 256, generator=gen).to(cuda)
+    before = fe.shape_launches['pair']
+    out = fe.fused_encoder_layer(x, packed, heads)
+    assert fe.shape_launches['pair'] == before + 1
+    ref = fe.encoder_layer_reference(x, packed.params, heads)
     torch.cuda.synchronize()
     assert out.shape == x.shape and torch.isfinite(out).all()
     torch.testing.assert_close(out, ref, **ENC_TOL)
