@@ -23,7 +23,10 @@ Phases, each of which fails the run:
      that tensor's max|plain|, and two calls bitwise equal), each in the
      shape its plan picks (small: a cluster splits the columns; large: one
      block a tile), either side of the threshold, and at B = 19 and 64
-     through both shapes, with random biases and LayerNorm rows;
+     through both shapes, with random biases and LayerNorm rows; K3's
+     weight-gradient stage alone on random bf16 workspaces of 10 to 40 990
+     rows at d = 128 to 512 (each product within 2e-2 x its max|plain|, two
+     calls bitwise equal);
   4. the feedforward serving slice through the ``serve`` command's wiring:
      the default model at full width (1770->512->512->30, sigmoid, window
      50 / stride 5, max_batch 4096) with seeded random weights, answering
@@ -58,7 +61,9 @@ Phases, each of which fails the run:
      ``F.elu`` x4 and ``F.linear`` x3, both output formats), by CUDA events
      and by profiler device time, beside the bound the card allows; the
      device time of K3 by launch (tile kernel, weight gradients, reduce) at
-     B = 1, 64 and 4096 with the shape that served each; the
+     B = 1, 64 and 4096 with the shape that served each; the weight-gradient
+     stage alone at B = 1, 64, 512 and 4096 by launch, beside its bound and
+     four bf16 ``torch.mm`` on the same workspace; the
      rate of K3's tile kernel on the tensor cores; registers, stack and
      spills of K1's, K3's and K4's kernels as ptxas reports them; the 4-layer
      encoder stack; /predict p50 of the three services; the weight
@@ -723,6 +728,48 @@ def phase_k3_vs_plain(torch, fe, seed: int):
                 worst = max(worst, rel)
             served.setdefault(f'B={b} T={t} d={d} H={heads}', []).append(shape)
     return worst, served
+
+
+def phase_wgrad_vs_plain(torch, fe, seed: int):
+    """K3's weight-gradient stage alone (``fused_encoder.encoder_wgrad``)
+    against its plain version on random bf16 workspaces: n = 10, 190, 640,
+    650, 5120, 40 960 and 40 990 rows (one ragged box; ragged last boxes and
+    ranges; B = 64, 512 and 4096 at T = 10) at the served width, and the
+    other widths K3 takes (d = 128, 384, 512 with a 4x MLP); each product
+    within BWD_REL x its max|plain|, two calls bitwise equal, the stage's
+    counter up by its launches a call. Returns the worst error and the
+    plan of each case."""
+    gen = torch.Generator().manual_seed(seed)
+    cases = [(n, ENC_FULL['d']) for n in (10, 190, 640, 650, 5120, 40960, 40990)]
+    cases += [(n, d) for d in (128, 384, 512) for n in (10, 650, 5120)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, plans = 0.0, {}
+    for n, d in cases:
+        m = d * ENC_FULL['mlp_ratio']
+        ws = torch.randn(n * (8 * d + 2 * m), generator=gen).to(torch.bfloat16).cuda()
+        ref = fe.encoder_wgrad_reference(ws, n, d, m)
+        plan = fe.plan_wgrad(n, d, m)
+        before = fe.wgrad_launches
+        one = fe.encoder_wgrad(ws, n, d, m)
+        two = fe.encoder_wgrad(ws, n, d, m)
+        _check(fe.wgrad_launches == before + 2 * plan.stage_launches,
+               'the stage\'s launch counter did not rise by its launches')
+        torch.cuda.synchronize()
+        rel = 0.0
+        for name, got, again, r in zip(('wqkv', 'wproj', 'wmlp1', 'wmlp2'), one, two, ref):
+            _check(got.shape == r.shape and bool(torch.isfinite(got).all()),
+                   f'weight-gradient stage: bad d{name} {tuple(got.shape)}')
+            _check(bool(torch.equal(got, again)),
+                   f'weight-gradient stage d{name}: two calls on the same inputs differ')
+            rel = max(rel, float((got - r).abs().max()) / float(r.abs().max()))
+        plans[f'n={n} d={d} m={m}'] = plan.as_ints(sms)
+        print(f'[kernel] K3 weight-gradient stage n={n} d={d} m={m} (tiles 128 x '
+              f'{plan.tile_n}, {plan.splits} ranges of {plan.boxes_per_split} boxes, '
+              f'{plan.items} items): worst max abs err / max |plain| {rel:.3g} (limit '
+              f'{BWD_REL}); two calls bitwise equal', flush=True)
+        _check(rel <= BWD_REL, f'the weight-gradient stage disagrees with the plain version: {rel}')
+        worst = max(worst, rel)
+    return worst, plans
 
 
 def _ptxas_report(log: str, needle: str) -> dict:
@@ -6869,6 +6916,7 @@ def main() -> int:
     k2_err, k2_checked = phase_k2_vs_plain(torch, fe, args.seed)
     k4_err, k4_checked = phase_k4_vs_plain(torch, fg, random_groundlink_params, args.seed)
     k3_err, k3_checked = phase_k3_vs_plain(torch, fe, args.seed)
+    wgrad_err, wgrad_plans = phase_wgrad_vs_plain(torch, fe, args.seed)
     mark('3 kernels vs plain')
 
     tmp = Path(tempfile.mkdtemp(prefix='ib_chip_smoke_'))
@@ -7256,6 +7304,29 @@ def main() -> int:
                   f'{k3_tile[str(b)]["tflops"]:.1f} TFLOP/s on the tensor cores '
                   f'({40.0 * d * d * b * t / 1e9:.2f} GFLOP), K3\'s bound is '
                   f'{k3_tile[str(b)]["share_of_k3_bound"]:.3f} of its time ({card})', flush=True)
+    # the weight-gradient stage alone on a workspace of B T rows: profiler
+    # device time by launch, beside its bound and four bf16 torch.mm
+    from inferbiomechanics_tpu_torch.ops.tune import WGRAD_KERNELS, wgrad_bound, wgrad_library
+    k3_wgrad = {}
+    for b in (1, 64, 512, 4096):
+        n = b * t
+        ws = torch.randn(n * (8 * d + 2 * m), generator=gen).to(torch.bfloat16).cuda()
+        parts = _device_us_by_name(torch, lambda: fe.encoder_wgrad(ws, n, d, m),  # noqa: B023
+                                   WGRAD_KERNELS)
+        lib_us = _device_us(torch, wgrad_library(ws, n, d, m))
+        bound = wgrad_bound(n, d, m)
+        k3_wgrad[str(b)] = dict(wgrad_us=parts['encoder_wgrad_kernel'],
+                                reduce_us=parts['encoder_bwd_reduce_kernel'],
+                                library_us=lib_us, bound_us=bound[0], bound_by=bound[1],
+                                plan=fe.plan_wgrad(n, d, m).as_ints(
+                                    torch.cuda.get_device_properties(0).multi_processor_count))
+        print(f'[times] K3 weight-gradient stage alone B={b} (n={n}; tile_n, ranges, boxes a '
+              f'range, blocks {k3_wgrad[str(b)]["plan"]}), profiler device time: weight '
+              f'gradients {parts["encoder_wgrad_kernel"]:.1f} us + reduce '
+              f'{parts["encoder_bwd_reduce_kernel"]:.1f} us; bound {bound[0]:.2f} us by '
+              f'{bound[1]}; four bf16 torch.mm(A.t(), G) '
+              + ('not measured' if lib_us is None else f'{lib_us:.1f} us') + f' ({card})',
+              flush=True)
     tile_regs = {name: v for name, v in _ptxas_report(info['log'], 'encoder_bwd_tile').items()}
     print('[times] K3 tile kernels, ptxas: ' + '; '.join(
         f'{name[-60:]} {v["registers"]} registers, {v["spill_store_bytes"]} / '
@@ -7406,6 +7477,9 @@ def main() -> int:
               bwd_pair_batch_min=fe.BWD_PAIR_BATCH_MIN, served_by=k3_served,
               checked_shapes=k3_checked,
               device_us_by_launch=k3_parts, tile_kernel=k3_tile, pack_ms_per_step=pack_ms,
+              wgrad_stage=dict(device_us=k3_wgrad, max_rel_err=wgrad_err,
+                               checked_plans=wgrad_plans,
+                               ptxas=_ptxas_report(info['log'], 'encoder_wgrad_kernel')),
               ptxas=_ptxas_report(info['log'], 'fused_encoder_bwd_cu'),
               train=trained, train_step=steps, chunked=chunked,
               profile_trace_launches=sum(extras['profile']['trace_kernels'][k]

@@ -112,14 +112,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                   vp, vp]
     lib.ib_fused_encoder_forward_pair.restype = i
     lib.ib_fused_encoder_backward.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp, vp,
-                                              vp, vp, vp, vp, i, i, i, vp]
+                                              vp, vp, vp, vp, i, i, int_p, vp]
     lib.ib_fused_encoder_backward.restype = i
     lib.ib_fused_encoder_backward_cluster.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp,
-                                                      vp, vp, vp, vp, int_p, i, i, vp, vp]
+                                                      vp, vp, vp, vp, int_p, i, int_p, vp, vp]
     lib.ib_fused_encoder_backward_cluster.restype = i
     lib.ib_fused_encoder_backward_pair.argtypes = [vp, vp, i, i, i, i, i, vp, vp, vp, vp, vp,
-                                                   vp, vp, vp, int_p, i, i, i, vp, vp]
+                                                   vp, vp, vp, int_p, i, i, int_p, vp, vp]
     lib.ib_fused_encoder_backward_pair.restype = i
+    lib.ib_encoder_wgrad.argtypes = [vp, i, i, i, int_p, vp, vp, vp]
+    lib.ib_encoder_wgrad.restype = i
     lib.ib_fused_groundlink_forward.argtypes = [vp, i, i, i, vp, vp, int_p, i, i, i, i,
                                                 vp, i, int_p, i, vp, vp]
     lib.ib_fused_groundlink_forward.restype = i

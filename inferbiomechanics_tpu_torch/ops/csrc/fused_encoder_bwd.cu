@@ -83,10 +83,13 @@
 //      in a per-block scratch in device memory (it stays in L2) over the MLP
 //      phase, which runs in chunks of the hidden width; dh2 is parked in dx.
 // 2. encoder_wgrad_kernel. The four A^T G products over all B T rows from
-//    the workspace: 128 x 128 output tiles, the rows split into a fixed
-//    number of ranges, each block writing its partial tile.
-// 3. encoder_bwd_reduce_kernel. Adds the row ranges' partial tiles and the
-//    tile kernel's blocks' slabs in index order into the flat gradient.
+//    the workspace: persistent blocks walk (product, 128 x 256 or 128 x 128
+//    output tile, range of rows) items, a producer warp feeding the
+//    operands by TMA into a ring that two warpgroups read by wgmma, each
+//    item's partial tile written out (fused_encoder.py::plan_wgrad).
+// 3. encoder_bwd_reduce_kernel. Adds the row ranges' partial tiles in range
+//    order and the tile kernel's blocks' slabs in a fixed order into the
+//    flat gradient.
 //
 // What bounds it on an H100 at d = 256, T = 10, 4d MLP: operations (64 d^2
 // flops a row on the tensor cores, 172 GFLOP at B = 4096, beside 8 KB a row
@@ -768,154 +771,266 @@ encoder_bwd_tile_kernel(const float* __restrict__ x, const float* __restrict__ g
 }
 
 // ---- the four weight gradients: out = A^T G over the workspace's rows ----
+//
+// dWqkv = y1^T dqkv, dWproj = a^T dh2, dW1 = y2^T dz1 and dW2 = u^T g, each
+// summed over the n = B T rows of the workspace: what the Pallas kernel adds
+// into its accumulators at the end of every grid step
+// (pallas_encoder.py::_encoder_bwd_kernel). Here blocks run at once, so the
+// rows are cut into ranges of whole 64-row boxes (splits); an item is one
+// (product, output tile, range), a tile 128 rows of A's columns by tile_n
+// (256, or 128 at small n) of G's, the last of a product's row of tiles 128
+// wide where 256 does not divide. A fixed number of persistent blocks walk
+// the items in index order (range-major, so the blocks at work at once read
+// the same rows), each writing its partial tile (with one range, the
+// gradient itself); the reduce adds the ranges' tiles in index order. The
+// plan (fused_encoder.py::plan_wgrad, which wg_tile mirrors) depends on the
+// shape alone, so the order of every sum is fixed. Each range adds a
+// partial gradient written and read back, which on an H100 costs more than
+// idle multiprocessors: the plan takes few ranges (96 items at B = 64 and
+// 4096 at the served width, PERF.md).
+//
+// What bounds it on an H100: the workspace's bytes (8 d + 2 m bf16 a row,
+// 8 KB at d = 256, m = 1024: 100 us at B = 4096) beside 2 (4 d^2 + 2 d m)
+// flops a row (65 us). A producer warp brings each item's operands in by TMA
+// (64-row boxes of 64 columns, 128-byte swizzle) into a ring of kWgStages
+// stages of 48 KB; two consumer warpgroups, 64 of the tile's rows each,
+// multiply them where they land by wgmma with both operands MN-major (the
+// rows are the sum's index, so no transposing copy), one box in flight
+// while the next is waited for; the ring runs on into the next item while
+// the consumers store a tile. A 128 x 256 tile takes 384 columns of
+// operand a row for 32 768 sums (the first design's 128 x 128: 256 for
+// 16 384), so half as many operand bytes cross L2 an output. Measured at B =
+// 4096: the workspace read at ~2.8 TB/s, 84% of the bound.
 
-constexpr int kWgThreads = 256;     // 8 warps, 4 along A's columns x 2 along G's
-constexpr int kWgTile = 128;        // output tile, both ways
-constexpr int kWgRows = 32;         // workspace rows per step
-constexpr int kWgLd = kWgTile + 8;  // shared-memory row stride (ldmatrix without bank conflicts)
+constexpr int kWgBox = 64;                         // rows of a box, and its columns (128 bytes)
+constexpr int kWgBoxBytes = kWgBox * kWgBox * 2;
+constexpr int kWgM = 128;                          // output rows of a tile: 64 a warpgroup
+constexpr int kWgMaxN = 256;                       // output columns of a tile
+constexpr int kWgStageBytes = (kWgM + kWgMaxN) / kWgBox * kWgBoxBytes;
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 256;                  // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32;      // and the producer warp
+constexpr int kWgSmem = 1024 + kWgStages * kWgStageBytes + 16 * kWgStages;
+static_assert(kWgSmem <= kMaxSmem, "the weight-gradient ring exceeds shared memory");
+
+struct EncoderWgradTag {};          // keys the weight-gradient kernel's shared-memory cap
 
 struct WgradShape {
-  int n_rows, d, m, rows_per_split;
+  int n, d, m;
+  int tile_n;                       // 256 or 128
+  int splits, boxes_per_split;      // row ranges, whole boxes each (the last may be short)
+  int tiles, items;                 // tiles x splits items
   long long w_total;                // 4 d^2 + 2 d m
 };
 
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
-               "r"(src_bytes));
+// The eight workspace arrays as TMA tensor maps, in carve_workspace's order:
+// product p multiplies map 2 p (A) by map 2 p + 1 (G).
+struct WgradMaps {
+  CUtensorMap map[8];
+};
+
+// One output tile: product, first output row (A's column) and column (G's),
+// columns, the product's row stride and its offset in the flat gradient.
+struct WgTile {
+  int product, i0, j0, nw, ld;
+  long long out_off;
+};
+
+__host__ __device__ __forceinline__ int wg_tiles(int rows, int cols, int tile_n) {
+  return (rows / kWgM) * ((cols + tile_n - 1) / tile_n);
 }
 
-__global__ void __launch_bounds__(kWgThreads)
-encoder_wgrad_kernel(const bf16* ws_base, float* __restrict__ wpart, WgradShape s) {
-  __shared__ __align__(16) bf16 a_s[2][kWgRows][kWgLd];
-  __shared__ __align__(16) bf16 g_s[2][kWgRows][kWgLd];
-  const int d = s.d, m = s.m;
-  const long long n = s.n_rows;
-  const Workspace ws = carve_workspace(const_cast<bf16*>(ws_base), n, d, m);
+__host__ __device__ __forceinline__ int wg_tile_count(int d, int m, int tile_n) {
+  return wg_tiles(d, 3 * d, tile_n) + wg_tiles(d, d, tile_n) + wg_tiles(d, m, tile_n) +
+         wg_tiles(m, d, tile_n);
+}
 
-  // which product and which of its output tiles: dWqkv = y1^T dqkv,
-  // dWproj = a^T dh2, dW1 = y2^T dz1, dW2 = u^T g, in the flat gradient's order
-  int tile = blockIdx.x;
-  const bf16 *a, *g;
-  int ka, kg;
-  long long out_off = 0;
-  {
-    const int n0 = (d / kWgTile) * (3 * d / kWgTile);
-    const int n1 = (d / kWgTile) * (d / kWgTile);
-    const int n2 = (d / kWgTile) * (m / kWgTile);
-    if (tile < n0) {
-      a = ws.y1; g = ws.dqkv; ka = d; kg = 3 * d;
-    } else if (tile < n0 + n1) {
-      tile -= n0;
-      a = ws.attn; g = ws.dh2; ka = d; kg = d;
-      out_off = 3LL * d * d;
-    } else if (tile < n0 + n1 + n2) {
-      tile -= n0 + n1;
-      a = ws.y2; g = ws.dz1; ka = d; kg = m;
-      out_off = 4LL * d * d;
-    } else {
-      tile -= n0 + n1 + n2;
-      a = ws.u; g = ws.g; ka = m; kg = d;
-      out_off = 4LL * d * d + static_cast<long long>(d) * m;
-    }
+// Tile t of the list: the products in the flat gradient's order, then
+// 128-row blocks, then tile_n-column blocks.
+__device__ __forceinline__ WgTile wg_tile(int t, int d, int m, int tile_n) {
+  WgTile w;
+  const int n0 = wg_tiles(d, 3 * d, tile_n);
+  const int n1 = wg_tiles(d, d, tile_n);
+  const int n2 = wg_tiles(d, m, tile_n);
+  if (t < n0) {
+    w.product = 0; w.ld = 3 * d; w.out_off = 0;
+  } else if (t < n0 + n1) {
+    t -= n0;
+    w.product = 1; w.ld = d; w.out_off = 3LL * d * d;
+  } else if (t < n0 + n1 + n2) {
+    t -= n0 + n1;
+    w.product = 2; w.ld = m; w.out_off = 4LL * d * d;
+  } else {
+    t -= n0 + n1 + n2;
+    w.product = 3; w.ld = d; w.out_off = 4LL * d * d + static_cast<long long>(d) * m;
   }
-  const int tiles_j = kg / kWgTile;
-  const int i0 = (tile / tiles_j) * kWgTile;
-  const int j0 = (tile % tiles_j) * kWgTile;
+  const int tj = (w.ld + tile_n - 1) / tile_n;
+  w.i0 = (t / tj) * kWgM;
+  w.j0 = (t % tj) * tile_n;
+  w.nw = min(tile_n, w.ld - w.j0);
+  return w;
+}
 
-  const long long r_begin = static_cast<long long>(blockIdx.y) * s.rows_per_split;
-  const long long r_end = min(n, r_begin + s.rows_per_split);
-  const int steps = r_end > r_begin ? static_cast<int>((r_end - r_begin + kWgRows - 1) / kWgRows) : 0;
+// One item's `boxes` boxes into acc (kN columns): consumer warpgroup `wg`
+// multiplies its 64 columns of A by kN of G, box by box, one box's wgmma in
+// flight; a stage goes back to the producer once the products that read it
+// are done. A box's rows past n arrived as zeros and add nothing.
+template <int kN, int kSize>
+__device__ __forceinline__ void wgrad_item(float (&acc)[kSize], unsigned base, unsigned full,
+                                           unsigned empty, unsigned seq, int boxes, int wg,
+                                           int lane) {
+  int prev = -1;
+  for (int b = 0; b < boxes; ++b, ++seq) {
+    const unsigned slot = seq % kWgStages;
+    mbar_wait(full + 8 * slot, (seq / kWgStages) & 1);
+    const unsigned stage = base + slot * kWgStageBytes;
+    const uint64_t a_desc = wgmma_desc_sw128_mn(stage + wg * kWgBoxBytes, kWgBoxBytes);
+    const uint64_t g_desc = wgmma_desc_sw128_mn(stage + 2 * kWgBoxBytes, kWgBoxBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kWgBox / 16; ++k) {
+      // 16 rows a k-step: 2048 bytes on, 128 in the descriptor; the first
+      // k-step of an item overwrites the sums
+      WgmmaMN<kN>::mma(acc, a_desc + 128 * k, g_desc + 128 * k, b > 0 || k > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (lane == 0 && prev >= 0) mbar_arrive(empty + 8 * prev);
+    prev = static_cast<int>(slot);
+  }
+  wgmma_wait<0>();
+  if (lane == 0 && prev >= 0) mbar_arrive(empty + 8 * prev);
+}
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+encoder_wgrad_kernel(const __grid_constant__ WgradMaps maps, float* __restrict__ wpart,
+                     WgradShape s) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;               // the swizzle's alignment
+  const unsigned full = base + kWgStages * kWgStageBytes;     // a stage has landed
+  const unsigned empty = full + 8 * kWgStages;                // a stage may be overwritten
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int iw = (warp >> 1) * 32;   // this warp's 32 x 64 part of the tile
-  const int jw = (warp & 1) * 64;
-  const int q = lane >> 3;           // which 8x8 matrix of an ldmatrix.x4 this lane addresses
-  const int r8 = lane & 7;
+  if (threadIdx.x < kWgStages) {
+    mbar_init(full + 8 * threadIdx.x, 1);                     // the producer's expect_tx
+    mbar_init(empty + 8 * threadIdx.x, kWgConsumers / 32);    // every consumer warp
+  }
+  mbar_init_fence();
+  __syncthreads();
+  const int n_boxes = (s.n + kWgBox - 1) / kWgBox;
 
-  float acc[2][8][4] = {};
-
-  auto issue = [&](int step, int buf) {
-    const long long row_base = r_begin + static_cast<long long>(step) * kWgRows;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int piece = threadIdx.x + u * kWgThreads;     // 32 rows x 16 pieces of 16 bytes
-      const int r = piece >> 4;
-      const int c8 = (piece & 15) * 8;
-      const long long row = row_base + r;
-      const bool ok = row < n;
-      const long long rr = ok ? row : 0;
-      cp_async_16(&a_s[buf][r][c8], a + rr * ka + i0 + c8, ok ? 16 : 0);
-      cp_async_16(&g_s[buf][r][c8], g + rr * kg + j0 + c8, ok ? 16 : 0);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  if (steps > 0) issue(0, 0);
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) {
-      issue(step + 1, buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWgRows; kk += 16) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        ldmatrix_x4_trans(af[mt], &a_s[buf][kk + (q >> 1) * 8 + r8][iw + mt * 16 + (q & 1) * 8]);
-      }
-#pragma unroll
-      for (int pr = 0; pr < 4; ++pr) {
-        unsigned bfr[4];
-        ldmatrix_x4_trans(bfr, &g_s[buf][kk + (q & 1) * 8 + r8][jw + pr * 16 + (q >> 1) * 8]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * pr], af[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * pr + 1], af[mt], bfr[2], bfr[3]);
+  if (warp == kWgConsumers / 32) {
+    // the producer: every box of this block's items, in the consumers' order
+    if (lane < 8) prefetch_tensor_map(&maps.map[lane]);
+    if (lane == 0) {
+      unsigned seq = 0;
+      for (int item = blockIdx.x; item < s.items; item += gridDim.x) {
+        const int split = item / s.tiles;
+        const WgTile w = wg_tile(item % s.tiles, s.d, s.m, s.tile_n);
+        const CUtensorMap* a_map = &maps.map[2 * w.product];
+        const CUtensorMap* g_map = &maps.map[2 * w.product + 1];
+        const unsigned bytes = (kWgM + w.nw) / kWgBox * kWgBoxBytes;
+        const int b1 = min(n_boxes, (split + 1) * s.boxes_per_split);
+        for (int box = split * s.boxes_per_split; box < b1; ++box, ++seq) {
+          const unsigned slot = seq % kWgStages;
+          mbar_wait(empty + 8 * slot, ((seq / kWgStages) & 1) ^ 1);
+          const unsigned dst = base + slot * kWgStageBytes;
+          const unsigned bar = full + 8 * slot;
+          const int row = box * kWgBox;
+          mbar_arrive_expect_tx(bar, bytes);
+          tma_load_2d(dst, a_map, w.i0, row, bar);
+          tma_load_2d(dst + kWgBoxBytes, a_map, w.i0 + kWgBox, row, bar);
+          for (int q = 0; q < w.nw / kWgBox; ++q) {
+            tma_load_2d(dst + (2 + q) * kWgBoxBytes, g_map, w.j0 + q * kWgBox, row, bar);
+          }
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  float* out = wpart + static_cast<long long>(blockIdx.y) * s.w_total + out_off;
-  const int gq = lane >> 2;
-  const int cq = lane & 3;
+  // the consumers: warpgroup wg owns the tile's rows 64 wg .. 64 wg + 63
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  float acc[kWgMaxN / 2];
+  unsigned seq = 0;
+  for (int item = blockIdx.x; item < s.items; item += gridDim.x) {
+    const int split = item / s.tiles;
+    const WgTile w = wg_tile(item % s.tiles, s.d, s.m, s.tile_n);
+    const int b0 = split * s.boxes_per_split;
+    const int boxes = min(n_boxes, b0 + s.boxes_per_split) - b0;
+    if (w.nw == kWgMaxN) {
+      wgrad_item<kWgMaxN>(acc, base, full, empty, seq, boxes, wg, lane);
+    } else {
+      wgrad_item<kWgMaxN / 2>(acc, base, full, empty, seq, boxes, wg, lane);
+    }
+    seq += boxes;
+    // the partial tile: a thread holds rows 16 wq + lane / 4 and + 8 of the
+    // warpgroup's 64, columns 8 i + 2 (lane % 4) and + 1
+    float* out = wpart + split * s.w_total + w.out_off +
+                 static_cast<long long>(w.i0 + 64 * wg + 16 * wq + (lane >> 2)) * w.ld + w.j0 +
+                 2 * (lane & 3);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int i = 0; i < kWgMaxN / 8; ++i) {
+      if (i < w.nw / 8) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = i0 + iw + mt * 16 + gq + 8 * h;
-        const int j = j0 + jw + nt * 8 + 2 * cq;
-        *reinterpret_cast<float2*>(out + static_cast<long long>(i) * kg + j) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(out + 8LL * h * w.ld + 8 * i) =
+              make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        }
       }
     }
   }
 }
 
-// out[e] = sum over the row ranges of wpart (e < w_total), or over the tile
-// kernel's blocks of vpart, in index order.
-__global__ void encoder_bwd_reduce_kernel(const float* __restrict__ wpart, int splits,
-                                          long long w_total, const float* __restrict__ vpart,
-                                          int slabs, int n_vec, float* __restrict__ out) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= w_total + n_vec) return;
-  float sum = 0.f;
-  if (e < w_total) {
-    for (int sidx = 0; sidx < splits; ++sidx) sum += wpart[sidx * w_total + e];
-  } else {
-    const long long v = e - w_total;
-    for (int b = 0; b < slabs; ++b) sum += vpart[static_cast<long long>(b) * n_vec + v];
+// The flat gradient: out[e] for e < w_total the sum over the row ranges of
+// wpart, in range order, four floats a thread of the first w_blocks blocks;
+// out[w_total + v] the sum over the tile kernel's `slabs` blocks of vpart,
+// kRedCols elements a block of the others: warp w adds the slabs w, w + 8,
+// ... in order, then the eight warps' sums are added in warp order (each
+// thread of the few blocks that would hold a vector element alone would
+// wait on a long chain of loads).
+constexpr int kRedThreads = 256;
+constexpr int kRedCols = 32;
+
+__global__ void __launch_bounds__(kRedThreads)
+encoder_bwd_reduce_kernel(const float4* __restrict__ wpart, int splits, long long w4,
+                          int w_blocks, const float* __restrict__ vpart, int slabs, int n_vec,
+                          float* __restrict__ out) {
+  if (static_cast<int>(blockIdx.x) < w_blocks) {
+    const long long e = static_cast<long long>(blockIdx.x) * kRedThreads + threadIdx.x;
+    if (e >= w4) return;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sidx = 0; sidx < splits; ++sidx) {
+      const float4 p = wpart[sidx * w4 + e];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    reinterpret_cast<float4*>(out)[e] = sum;
+    return;
   }
-  out[e] = sum;
+  __shared__ float part[kRedThreads / 32][kRedCols];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int v = (blockIdx.x - w_blocks) * kRedCols + lane;
+  float sum = 0.f;
+  if (v < n_vec) {
+#pragma unroll 4
+    for (int b = warp; b < slabs; b += kRedThreads / 32) {
+      sum += vpart[static_cast<long long>(b) * n_vec + v];
+    }
+  }
+  part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && v < n_vec) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRedThreads / 32; ++w) total += part[w][lane];
+    out[4 * w4 + v] = total;
+  }
 }
 
 // Shared-memory layout of the tile kernel for `row_tiles` row tiles; returns
@@ -2281,25 +2396,54 @@ encoder_bwd_tile_kernel_pair(const float* __restrict__ x, const float* __restric
   cluster_sync_all();
 }
 
-// The weight-gradient kernel and the ordered reduce, after either shape of
-// the tile kernel (`slabs` blocks wrote vector partial sums).
+// The weight-gradient kernel and the ordered reduce, after any shape of the
+// tile kernel (`slabs` blocks wrote vector partial sums of n_vec floats;
+// none for the stage alone). plan: WgradPlan.as_ints (tile_n, splits,
+// boxes_per_split, blocks), checked against the shape. With one range the
+// kernel writes the weight gradients into grads itself (wpart unused) and
+// the reduce adds the vector slabs alone, if there are any.
 cudaError_t launch_wgrad_and_reduce(const bf16* ws, float* wpart, const float* vpart, int slabs,
-                                    int batch, int t, int d, int m, int splits, float* grads,
-                                    cudaStream_t st) {
-  WgradShape wg{};
-  wg.n_rows = batch * t;
-  wg.d = d;
-  wg.m = m;
-  wg.rows_per_split = ((wg.n_rows + splits - 1) / splits + kWgRows - 1) / kWgRows * kWgRows;
-  wg.w_total = 4LL * d * d + 2LL * d * m;
-  const int tiles = static_cast<int>(wg.w_total / (kWgTile * kWgTile));
-  encoder_wgrad_kernel<<<dim3(tiles, splits), kWgThreads, 0, st>>>(ws, wpart, wg);
-  cudaError_t err = cudaGetLastError();
+                                    int n_vec, int n, int d, int m, const int* plan,
+                                    float* grads, cudaStream_t st) {
+  if (plan == nullptr || n < 1) return cudaErrorInvalidValue;
+  WgradShape s{};
+  s.n = n;
+  s.d = d;
+  s.m = m;
+  s.tile_n = plan[0];
+  s.splits = plan[1];
+  s.boxes_per_split = plan[2];
+  const int blocks = plan[3];
+  const int n_boxes = (n + kWgBox - 1) / kWgBox;
+  if ((s.tile_n != kWgMaxN && s.tile_n != kWgMaxN / 2) || s.boxes_per_split < 1 ||
+      s.splits != (n_boxes + s.boxes_per_split - 1) / s.boxes_per_split) {
+    return cudaErrorInvalidValue;     // every range holds at least one box
+  }
+  s.tiles = wg_tile_count(d, m, s.tile_n);
+  s.items = s.tiles * s.splits;
+  if (blocks < 1 || blocks > s.items) return cudaErrorInvalidValue;
+  s.w_total = 4LL * d * d + 2LL * d * m;
+  WgradMaps maps;
+  const Workspace w = carve_workspace(const_cast<bf16*>(ws), n, d, m);
+  const bf16* arrays[8] = {w.y1, w.dqkv, w.attn, w.dh2, w.y2, w.dz1, w.u, w.g};
+  const int cols[8] = {d, 3 * d, d, d, d, m, m, d};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 8 && err == cudaSuccess; ++i) {
+    err = make_tensor_map_2d_bf16_sw128(&maps.map[i], arrays[i], cols[i], n, kWgBox);
+  }
+  if (err == cudaSuccess) err = ensure_dynamic_smem<EncoderWgradTag>(encoder_wgrad_kernel, kWgSmem);
   if (err != cudaSuccess) return err;
-  const int n_vec = 9 * d + m;
-  const long long total = wg.w_total + n_vec;
-  encoder_bwd_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
-      wpart, splits, wg.w_total, vpart, slabs, n_vec, grads);
+  encoder_wgrad_kernel<<<blocks, kWgThreads, kWgSmem, st>>>(maps, s.splits > 1 ? wpart : grads,
+                                                              s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int w_blocks =
+      s.splits > 1 ? static_cast<int>((s.w_total / 4 + kRedThreads - 1) / kRedThreads) : 0;
+  const int v_blocks = (n_vec + kRedCols - 1) / kRedCols;
+  if (w_blocks + v_blocks == 0) return cudaSuccess;
+  encoder_bwd_reduce_kernel<<<w_blocks + v_blocks, kRedThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(wpart), s.splits, s.w_total / 4, w_blocks, vpart, slabs,
+      n_vec, grads);
   return cudaGetLastError();
 }
 
@@ -2315,16 +2459,21 @@ extern "C" {
 // row-major) and then of g1, b1, bqkv, bproj, g2, b2, bm1, bm2.
 // Scratch the caller allocates (fused_encoder.py::plan_bwd_tile sizes it):
 // ws bf16 [batch t (8 d + 2 m)], scratch f32 [grid][16 row_tiles][3 d],
-// vpart f32 [grid][9 d + m], wpart f32 [splits][4 d^2 + 2 d m]. row_tiles
-// must fit the shared memory; grid <= the number of tiles. Three launches on
-// `stream`; returns the first CUDA error (0 on success).
+// vpart f32 [grid][9 d + m], wpart f32 [splits][4 d^2 + 2 d m] (none with
+// one range). row_tiles
+// must fit the shared memory; grid <= the number of tiles. wgrad_plan: the
+// four ints of the weight-gradient stage's plan
+// (fused_encoder.py::WgradPlan.as_ints: tile_n, splits, boxes_per_split,
+// blocks). Three launches on `stream`; returns the first CUDA error (0 on
+// success).
 int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, int d, int m,
                               int heads, const void* w, const void* wt, const void* vec,
                               void* dx, void* grads, void* ws, void* scratch, void* vpart,
-                              void* wpart, int row_tiles, int grid, int splits, void* stream) {
+                              void* wpart, int row_tiles, int grid, const int* wgrad_plan,
+                              void* stream) {
   if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0 ||
       heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || row_tiles < 1 ||
-      row_tiles > kMaxRowTiles || 16 * row_tiles < t || grid < 1 || splits < 1) {
+      row_tiles > kMaxRowTiles || 16 * row_tiles < t || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdShape s{};
@@ -2350,7 +2499,7 @@ int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, in
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_wgrad_and_reduce(
       static_cast<const bf16*>(ws), static_cast<float*>(wpart), static_cast<const float*>(vpart),
-      grid, batch, t, d, m, splits, static_cast<float*>(grads), st));
+      grid, 9 * d + m, batch * t, d, m, wgrad_plan, static_cast<float*>(grads), st));
 }
 
 // The same backward through the tile kernel's small shape: a cluster of
@@ -2358,8 +2507,9 @@ int ib_fused_encoder_backward(const void* x, const void* g, int batch, int t, in
 // (fused_encoder.py::plan_encoder_bwd). plan: the seventeen ints of
 // BwdPlan.as_ints (cluster, row_tiles, windows, ld_q, ld_z, ld_dq, off_y,
 // off_a, off_q, off_z, off_f, off_s, scratch_floats, off_v, off_p, off_st,
-// off_bar); smem: its bytes of shared memory. ws, vpart and wpart as for
-// ib_fused_encoder_backward, with grid = the plan's tiles x cluster blocks;
+// off_bar); smem: its bytes of shared memory. ws, vpart, wpart and
+// wgrad_plan as for ib_fused_encoder_backward, with grid = the plan's tiles x
+// cluster blocks;
 // no per-block scratch in device memory. clocks: null, or room for
 // kBwdPhases int64 a block, which get each phase's cycles (thread 0's
 // clock64). Three launches on `stream`; returns the first CUDA error (0 on
@@ -2368,9 +2518,9 @@ int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, i
                                       int m, int heads, const void* w, const void* wt,
                                       const void* vec, void* dx, void* grads, void* ws,
                                       void* vpart, void* wpart, const int* plan, int smem,
-                                      int splits, void* clocks, void* stream) {
+                                      const int* wgrad_plan, void* clocks, void* stream) {
   if (batch < 1 || t < 1 || t > kMaxT || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0 ||
-      heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || splits < 1 || plan == nullptr) {
+      heads < 1 || d % heads != 0 || (d / heads) % 2 != 0 || plan == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SmallPlan s{};
@@ -2425,8 +2575,8 @@ int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, i
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (batch + s.windows - 1) / s.windows;
   return static_cast<int>(launch_wgrad_and_reduce(wsb, static_cast<float*>(wpart), vpf,
-                                                  tiles * c, batch, t, d, m, splits,
-                                                  static_cast<float*>(grads), st));
+                                                  tiles * c, 9 * d + m, batch * t, d, m,
+                                                  wgrad_plan, static_cast<float*>(grads), st));
 }
 
 // The same backward through the tile kernel's pair shape (d = 256, at most
@@ -2435,18 +2585,19 @@ int ib_fused_encoder_backward_cluster(const void* x, const void* g, int batch, i
 // (fused_encoder.py::plan_encoder_bwd). plan: the nine ints of
 // BwdPlan.as_ints (windows, off_b, off_q, off_m, off_dz, off_ring, off_bar,
 // slot_bytes, slots), which must be this file's layout; smem: its bytes.
-// grid: an even number of blocks, at most one pair a pair of tiles. ws and
-// wpart as for ib_fused_encoder_backward, vpart a slab a block. clocks: null,
+// grid: an even number of blocks, at most one pair a pair of tiles. ws,
+// wpart and wgrad_plan as for ib_fused_encoder_backward, vpart a slab a
+// block. clocks: null,
 // or room for kPairPhases int64 a block, which get the block's cycles by
 // phase over its tiles. Three launches on `stream`; returns the first CUDA
 // error (0 on success).
 int ib_fused_encoder_backward_pair(const void* x, const void* g, int batch, int t, int d, int m,
                                    int heads, const void* w, const void* wt, const void* vec,
                                    void* dx, void* grads, void* ws, void* vpart, void* wpart,
-                                   const int* plan, int smem, int grid, int splits, void* clocks,
-                                   void* stream) {
+                                   const int* plan, int smem, int grid, const int* wgrad_plan,
+                                   void* clocks, void* stream) {
   if (batch < 1 || t < 1 || t > 16 || d != kPD || m < kPChunk || m % kPChunk != 0 ||
-      (heads != 4 && heads != 8 && heads != 16) || splits < 1 || plan == nullptr ||
+      (heads != 4 && heads != 8 && heads != 16) || plan == nullptr ||
       smem != kPSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2474,7 +2625,23 @@ int ib_fused_encoder_backward_pair(const void* x, const void* g, int batch, int 
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_wgrad_and_reduce(
       static_cast<const bf16*>(ws), static_cast<float*>(wpart), static_cast<const float*>(vpart),
-      grid, batch, t, d, m, splits, static_cast<float*>(grads), st));
+      grid, 9 * d + m, batch * t, d, m, wgrad_plan, static_cast<float*>(grads), st));
+}
+
+// The weight-gradient stage alone: the four products of the bf16 workspace
+// ws of n rows (carve_workspace's layout, as the tile kernels write it) into
+// out, f32 [4 d^2 + 2 d m] (dWqkv, dWproj, dW1, dW2, [in, out] row-major).
+// wgrad_plan and wpart as for ib_fused_encoder_backward. Two launches on
+// `stream` (one where the plan has one range); returns the first CUDA error
+// (0 on success).
+int ib_encoder_wgrad(const void* ws, int n, int d, int m, const int* wgrad_plan, void* wpart,
+                     void* out, void* stream) {
+  if (n < 1 || d < 128 || d % 128 != 0 || m < 128 || m % 128 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_wgrad_and_reduce(
+      static_cast<const bf16*>(ws), static_cast<float*>(wpart), nullptr, 0, 0, n, d, m,
+      wgrad_plan, static_cast<float*>(out), static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

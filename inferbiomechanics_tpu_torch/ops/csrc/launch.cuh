@@ -50,14 +50,18 @@ cudaError_t launch_cluster(void (*kernel)(Params...), unsigned grid, unsigned bl
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
-// A tensor map for TMA over a dense 2-D f32 array of `rows` rows of `cols`
-// floats (16-byte aligned, `cols` a multiple of 4), cut into boxes of
-// [box_rows, box_cols] that land dense in shared memory
-// (mma.cuh::tma_load_2d). The encoder, cuTensorMapEncodeTiled, lives in libcuda:
-// it is looked up at run time, so nothing links against that library.
-inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const float* data,
-                                      unsigned long long cols, unsigned long long rows,
-                                      unsigned box_cols, unsigned box_rows) {
+// A tensor map for TMA over a dense 2-D array of `rows` rows of `cols`
+// elements of `type` (`elem_bytes` each; 16-byte aligned, rows a multiple of
+// 16 bytes apart), cut into boxes of [box_rows, box_cols] that land dense in
+// shared memory (mma.cuh::tma_load_2d), laid out by `swizzle`; what lies
+// outside the array arrives as zeros. The encoder, cuTensorMapEncodeTiled,
+// lives in libcuda: it is looked up at run time, so nothing links against
+// that library.
+inline cudaError_t encode_tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                                        unsigned elem_bytes, const void* data,
+                                        unsigned long long cols, unsigned long long rows,
+                                        unsigned box_cols, unsigned box_rows,
+                                        CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -78,12 +82,31 @@ inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const float* data,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(float)};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(data),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult res = encode(map, type, 2, const_cast<void*>(data), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The f32 form, boxes dense (`cols` a multiple of 4).
+inline cudaError_t make_tensor_map_2d(CUtensorMap* map, const float* data,
+                                      unsigned long long cols, unsigned long long rows,
+                                      unsigned box_cols, unsigned box_rows) {
+  return encode_tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, data, cols, rows,
+                              box_cols, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The bf16 form for wgmma's MN-major operands (mma.cuh::wgmma_desc_sw128_mn):
+// boxes of 64 columns (128 bytes) by `box_rows` rows in the 128-byte
+// swizzle, which needs the box to land at a multiple of 1024 bytes (`cols` a
+// multiple of 8).
+inline cudaError_t make_tensor_map_2d_bf16_sw128(CUtensorMap* map, const void* data,
+                                                 unsigned long long cols,
+                                                 unsigned long long rows, unsigned box_rows) {
+  return encode_tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, data, cols, rows, 64,
+                              box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }

@@ -18,8 +18,11 @@ block takes a row tile. The layer's backward is
 shapes that :func:`plan_encoder_bwd` picks from the shape of the call: up to
 :data:`BWD_SMALL_BATCH_MAX` windows a cluster splits the columns, from
 :data:`BWD_PAIR_BATCH_MIN` windows at d = 256 clusters of two blocks share one
-weight stream, else one block takes a tile) and the differentiable layer
-(:class:`FusedEncoderLayerFn`: kernel forward, kernel backward).
+weight stream, else one block takes a tile; its weight-gradient stage,
+laid out by :func:`plan_wgrad`, also runs alone on a given workspace:
+:func:`encoder_wgrad`, plain version :func:`encoder_wgrad_reference`) and
+the differentiable layer (:class:`FusedEncoderLayerFn`: kernel forward,
+kernel backward).
 
 One pre-LN layer: LayerNorm -> QKV projection -> softmax attention over the
 window's T frames, per head -> output projection -> residual -> LayerNorm ->
@@ -32,10 +35,11 @@ order, kernels ``[in, out]``, the ``3 d`` QKV columns ordered
 :func:`encoder_layer_reference` only for a CPU tensor; any other device
 raises; :func:`fused_encoder_layer_bwd` does the same with the backward
 kernels and :func:`encoder_layer_bwd_reference`. Nothing falls back: on a
-CUDA tensor a kernel that fails to build or launch raises. ``launches``
-and ``bwd_launches`` count the kernel launches in this process,
-``shape_launches`` the forward's by shape and ``bwd_shape_launches`` the
-backward's tile kernel by shape (:func:`plan_encoder_bwd`).
+CUDA tensor a kernel that fails to build or launch raises. ``launches``,
+``bwd_launches`` and ``wgrad_launches`` count the kernel launches in this
+process, ``shape_launches`` the forward's by shape and
+``bwd_shape_launches`` the backward's tile kernel by shape
+(:func:`plan_encoder_bwd`).
 """
 
 from __future__ import annotations
@@ -84,12 +88,27 @@ _SMALL_BLOCKS_AT_ONCE = 112
 _PAIR_CLUSTERS_AT_ONCE = 66
 _LARGE_BLOCKS_AT_ONCE = 132
 
-# the backward (csrc/fused_encoder_bwd.cu): launches a call, the most
-# blocks the weight-gradient kernel splits the rows over, and the rows a
-# split must have before another is added
+# the backward (csrc/fused_encoder_bwd.cu): launches a call (tile kernel,
+# weight gradients, reduce)
 BWD_LAUNCHES_PER_LAYER = 3
-_MAX_SPLITS = 8
-_ROWS_PER_SPLIT = 512
+# the weight-gradient stage (encoder_wgrad_kernel; plan_wgrad): rows a TMA
+# box (a range of rows is whole boxes), output rows a tile and the tile
+# widths, the multiprocessors its items are laid out for (an H100's; the
+# plan is the shape's alone, so the order of every sum is fixed on any
+# card), the most ranges it cuts the rows into, and its cost model, fitted
+# to the stage's device times on an H100 over 56 plans at B = 1, 64, 512 and
+# 4096 (PERF.md §6): us a block for a box of a 256- or 128-wide tile and
+# for an item's start and store; the bytes of workspace and partial tiles a
+# us the card moves; us of reduce a range a million outputs
+_WG_BOX = 64
+_WG_M = 128
+_WG_TILE_N = (256, 128)
+_WG_SMS = 132
+_WG_MAX_SPLITS = 64
+_WG_BOX_US = {256: 0.643, 128: 0.423}
+_WG_ITEM_US = 2.97
+_WG_BYTES_PER_US = 2.70e6
+_WG_SPLIT_US_PER_MOUT = 1.33
 # the largest batch the backward's small (cluster) shape takes, and the
 # smallest the pair shape takes, which ops/tune.py --kernel encoder_bwd sets
 # by timing the shapes on an H100
@@ -122,6 +141,9 @@ _FWD_SLOTS = 2
 # and the forward's by the shape that ran
 launches = 0
 bwd_launches = 0
+# the weight-gradient stage's launches through encoder_wgrad (the stage alone;
+# the backward's own count in bwd_launches)
+wgrad_launches = 0
 shape_launches = {'small': 0, 'pair': 0, 'large': 0}
 # the backward's tile-kernel launches by the shape that ran (one a call)
 bwd_shape_launches = {'small': 0, 'pair': 0, 'large': 0}
@@ -639,25 +661,18 @@ def _ln_bwd(dy, xhat, rs, scale):
     return rs * (dxhat - m1 - xhat * m2), (dy * xhat).sum(0), dy.sum(0)
 
 
-def encoder_layer_bwd_reference(x: torch.Tensor, g: torch.Tensor,
-                                params: Sequence[torch.Tensor], num_heads: int,
-                                compute_dtype: torch.dtype = torch.bfloat16
-                                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Plain version of the backward kernels: ``(dx, grads)`` for the
-    upstream gradient ``g``, ``grads`` in :data:`PARAM_NAMES` order, f32.
-
-    The math of ``pallas_encoder.py::_encoder_bwd_math`` on whole tensors:
-    the forward of :func:`encoder_layer_reference` recomputed from ``x``,
-    then the VJP written out by hand, every matmul operand (activations,
-    gradients, weights and their transposes) rounded to ``compute_dtype``
-    and summed in f32; the vector gradients are f32 sums of unrounded terms.
-    """
+def _bwd_math(x: torch.Tensor, g: torch.Tensor, params: Sequence[torch.Tensor],
+              num_heads: int, cd: torch.dtype):
+    """The backward's math on whole tensors, but for the four weight
+    products: ``(dx, vectors, operands)``, the eight vector gradients in
+    :data:`PARAM_NAMES` order and the eight ``[n, *]`` f32 row operands of
+    the weight products in the workspace's order (y1, dqkv, a, dh2, y2,
+    dz1, u, g)."""
     g1, b1, wqkv, bqkv, wproj, bproj, g2, b2, w1, bm1, w2, bm2 = (
         p.float() for p in params)
     b, t, d = x.shape
     n, dh = b * t, d // num_heads
     scale = dh ** -0.5
-    cd = compute_dtype
 
     def heads(a):                                      # [n, d] -> [B, T, H, dh]
         return a.reshape(b, t, num_heads, dh)
@@ -677,14 +692,11 @@ def encoder_layer_bwd_reference(x: torch.Tensor, g: torch.Tensor,
 
     # ---- the VJP ----
     go = g.float().reshape(n, d)
-    dw2 = _dot(m1.t(), go, cd)
     dbm2 = go.sum(0)
     dz1 = _dot(go, w2.t(), cd) * _gelu_tanh_grad(z1)
-    dw1 = _dot(y2.t(), dz1, cd)
     dbm1 = dz1.sum(0)
     dh2_ln, dg2, db2 = _ln_bwd(_dot(dz1, w1.t(), cd), xhat2, rs2, g2)
     dh2 = go + dh2_ln
-    dwproj = _dot(attn.t(), dh2, cd)
     dbproj = dh2.sum(0)
     da = heads(_dot(dh2, wproj.t(), cd))               # [B, Ti, H, dh]
     dv = (probs[..., None] * da[:, :, None]).sum(1)    # [B, Tj, H, dh]
@@ -693,12 +705,50 @@ def encoder_layer_bwd_reference(x: torch.Tensor, g: torch.Tensor,
     dk = (ds[..., None] * q[:, :, None]).sum(1)        # q carries the scale
     dq = (ds[..., None] * k[:, None]).sum(2) * scale
     dqkv = torch.cat([a.reshape(n, d) for a in (dq, dk, dv)], dim=1)
-    dwqkv = _dot(y1.t(), dqkv, cd)
     dbqkv = dqkv.sum(0)
     dh_ln, dg1, db1 = _ln_bwd(_dot(dqkv, wqkv.t(), cd), xhat1, rs1, g1)
     dx = (dh2 + dh_ln).reshape(b, t, d)
+    return (dx, (dg1, db1, dbqkv, dbproj, dg2, db2, dbm1, dbm2),
+            (y1, dqkv, attn, dh2, y2, dz1, m1, go))
+
+
+def encoder_layer_bwd_reference(x: torch.Tensor, g: torch.Tensor,
+                                params: Sequence[torch.Tensor], num_heads: int,
+                                compute_dtype: torch.dtype = torch.bfloat16
+                                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Plain version of the backward kernels: ``(dx, grads)`` for the
+    upstream gradient ``g``, ``grads`` in :data:`PARAM_NAMES` order, f32.
+
+    The math of ``pallas_encoder.py::_encoder_bwd_math`` on whole tensors:
+    the forward of :func:`encoder_layer_reference` recomputed from ``x``,
+    then the VJP written out by hand, every matmul operand (activations,
+    gradients, weights and their transposes) rounded to ``compute_dtype``
+    and summed in f32; the vector gradients are f32 sums of unrounded terms.
+    """
+    cd = compute_dtype
+    dx, vectors, (y1, dqkv, attn, dh2, y2, dz1, m1, go) = _bwd_math(
+        x, g, params, num_heads, cd)
+    dg1, db1, dbqkv, dbproj, dg2, db2, dbm1, dbm2 = vectors
+    dwqkv = _dot(y1.t(), dqkv, cd)
+    dwproj = _dot(attn.t(), dh2, cd)
+    dw1 = _dot(y2.t(), dz1, cd)
+    dw2 = _dot(m1.t(), go, cd)
     return dx, (dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2,
                 dw1, dbm1, dw2, dbm2)
+
+
+def encoder_bwd_workspace_reference(x: torch.Tensor, g: torch.Tensor,
+                                    params: Sequence[torch.Tensor], num_heads: int
+                                    ) -> torch.Tensor:
+    """The workspace the backward's tile kernels write for the
+    weight-gradient stage, by the plain version's math: the eight row
+    operands of the weight products rounded to bf16, ``[n, *]`` arrays end
+    to end in the order y1 ``[n, d]``, dqkv ``[n, 3 d]``, a, dh2, y2 (each
+    ``[n, d]``), dz1, u (each ``[n, m]``), g ``[n, d]``; flat, ``n (8 d +
+    2 m)`` values. :func:`encoder_wgrad` of it gives the weight gradients of
+    :func:`encoder_layer_bwd_reference`."""
+    _, _, operands = _bwd_math(x, g, params, num_heads, torch.bfloat16)
+    return torch.cat([a.to(torch.bfloat16).reshape(-1) for a in operands])
 
 
 def plan_bwd_tile(t: int, d: int, m: int, num_heads: int
@@ -1007,10 +1057,161 @@ def bwd_blocks(plan: BwdPlan, batch: int, sms: int) -> int:
     return min(tiles, sms)
 
 
-def bwd_splits(n_rows: int) -> int:
-    """Row ranges the weight-gradient kernel splits ``n_rows`` rows over (a
-    function of the shape alone, so that the order of every sum is fixed)."""
-    return max(1, min(_MAX_SPLITS, n_rows // _ROWS_PER_SPLIT))
+def wgrad_products(d: int, m: int) -> Tuple[Tuple[int, int, int], ...]:
+    """The weight-gradient stage's four products A^T G (dWqkv = y1^T dqkv,
+    dWproj = a^T dh2, dW1 = y2^T dz1, dW2 = u^T g) as ``(rows, cols,
+    offset)``: the output's shape and its offset in the flat gradient."""
+    return ((d, 3 * d, 0), (d, d, 3 * d * d), (d, m, 4 * d * d), (m, d, 4 * d * d + d * m))
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_tiles(d: int, m: int, tile_n: int) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The output tiles ``(product, i0, j0, columns)`` of the stage in its
+    order (``csrc/fused_encoder_bwd.cu::wg_tile``): the products in the flat
+    gradient's order, then blocks of 128 rows, then of ``tile_n`` columns,
+    the last of a row of tiles 128 wide where ``tile_n`` does not divide."""
+    return tuple((p, i0, j0, min(tile_n, cols - j0))
+                 for p, (rows, cols, _) in enumerate(wgrad_products(d, m))
+                 for i0 in range(0, rows, _WG_M) for j0 in range(0, cols, tile_n))
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """The weight-gradient stage's schedule: output tiles of 128 rows by
+    ``tile_n`` columns (:func:`wgrad_tiles`), the ``n`` rows cut into
+    ranges of ``boxes_per_split`` 64-row boxes (the last range may be
+    shorter, the last box ragged: its rows past ``n`` arrive as zeros);
+    item ``s * len(tiles) + t`` is tile ``t`` over range ``s``, and
+    ``blocks(sms)`` persistent blocks walk the items, block b the items b,
+    b + blocks, .... The reduce adds the ranges' partial tiles in range
+    order; with one range the kernel writes the gradient itself."""
+    n: int
+    d: int
+    m: int
+    tile_n: int
+    boxes_per_split: int
+
+    @property
+    def boxes(self) -> int:
+        return -(-self.n // _WG_BOX)
+
+    @property
+    def splits(self) -> int:
+        return -(-self.boxes // self.boxes_per_split)
+
+    @property
+    def tiles(self) -> Tuple[Tuple[int, int, int, int], ...]:
+        return wgrad_tiles(self.d, self.m, self.tile_n)
+
+    @property
+    def items(self) -> int:
+        return len(self.tiles) * self.splits
+
+    @property
+    def partials(self) -> int:
+        """Partial gradients the reduce adds (none with one range: the kernel
+        writes the gradient itself)."""
+        return self.splits if self.splits > 1 else 0
+
+    @property
+    def stage_launches(self) -> int:
+        """Launches of the stage alone (:func:`encoder_wgrad`): the kernel,
+        and the reduce where there are partials to add."""
+        return 1 + (self.partials > 0)
+
+    def rows(self, split: int) -> Tuple[int, int]:
+        """The rows ``[r0, r1)`` of range ``split``."""
+        r0 = split * self.boxes_per_split * _WG_BOX
+        return r0, min(self.n, r0 + self.boxes_per_split * _WG_BOX)
+
+    def blocks(self, sms: int) -> int:
+        return min(self.items, sms)
+
+    def as_ints(self, sms: int) -> Tuple[int, int, int, int]:
+        """What ``csrc/fused_encoder_bwd.cu`` takes: tile_n, splits,
+        boxes_per_split, blocks."""
+        return self.tile_n, self.splits, self.boxes_per_split, self.blocks(sms)
+
+
+def _wgrad_cost(plan: WgradPlan) -> float:
+    """Modelled us of the stage on an H100 (see ``_WG_BOX_US``): the longer
+    of each wave of items' longest range of boxes with an item's start and
+    store, and the workspace and the partial tiles through device memory;
+    then the reduce, a partial gradient a range."""
+    waves = -(-plan.items // _WG_SMS)
+    w_total = 4 * plan.d * plan.d + 2 * plan.d * plan.m
+    blocks = waves * (plan.boxes_per_split * _WG_BOX_US[plan.tile_n] + _WG_ITEM_US)
+    memory = (plan.n * (8 * plan.d + 2 * plan.m) * 2 + plan.splits * w_total * 4) \
+        / _WG_BYTES_PER_US
+    return max(blocks, memory) + plan.splits * _WG_SPLIT_US_PER_MOUT * w_total / 1e6
+
+
+@functools.lru_cache(maxsize=None)
+def plan_wgrad(n: int, d: int, m: int) -> WgradPlan:
+    """The weight-gradient stage's plan for ``n`` rows at widths ``d`` and
+    ``m`` (multiples of 128): a function of the shape alone, so that the
+    order of every sum is fixed. Of the tile widths and up to
+    ``_WG_MAX_SPLITS`` ranges, the one the cost model (:func:`_wgrad_cost`)
+    finds fastest; on a tie, fewer ranges, then wider tiles. More ranges
+    fill more of the card, but each adds a partial gradient written and read
+    back, which on an H100 costs more than the idle multiprocessors do at B =
+    64 and 4096 (PERF.md §6)."""
+    if n < 1 or d < 128 or d % 128 or m < 128 or m % 128:
+        raise ValueError(f'plan_wgrad takes n >= 1 and d, m multiples of 128, got '
+                         f'n={n} d={d} m={m}')
+    boxes = -(-n // _WG_BOX)
+    plans = {WgradPlan(n, d, m, tile_n, -(-boxes // s))
+             for tile_n in _WG_TILE_N for s in range(1, min(boxes, _WG_MAX_SPLITS) + 1)}
+    return min(plans, key=lambda p: (_wgrad_cost(p), p.splits, -p.tile_n))
+
+
+def encoder_wgrad_reference(ws: torch.Tensor, n: int, d: int, m: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the weight-gradient stage: ``(dWqkv, dWproj, dW1,
+    dW2)``, f32, the products A^T G of the bf16 workspace's views (the
+    layout of :func:`encoder_bwd_workspace_reference`) summed in f32."""
+    widths = (d, 3 * d, d, d, d, m, m, d)
+    views = ws.reshape(-1)[:n * sum(widths)].split([n * w for w in widths])
+    y1, dqkv, attn, dh2, y2, dz1, u, go = (v.view(n, w).float() for v, w in zip(views, widths))
+    return tuple(a.t() @ b for a, b in ((y1, dqkv), (attn, dh2), (y2, dz1), (u, go)))
+
+
+def encoder_wgrad(ws: torch.Tensor, n: int, d: int, m: int,
+                  plan: Optional[WgradPlan] = None) -> Tuple[torch.Tensor, ...]:
+    """The weight-gradient stage alone on a bf16 workspace of ``n`` rows
+    (the layout of :func:`encoder_bwd_workspace_reference`): ``(dWqkv,
+    dWproj, dW1, dW2)``, f32, ``[in, out]``. A CUDA tensor launches the
+    stage's kernels in ``plan`` (default :func:`plan_wgrad`'s; the reduce
+    only where it has more than one range) or raises; a CPU tensor takes :func:`encoder_wgrad_reference`; any other
+    device raises."""
+    global wgrad_launches
+    want = n * (8 * d + 2 * m)
+    if ws.dtype != torch.bfloat16 or ws.numel() != want or not ws.is_contiguous():
+        raise ValueError(f'encoder_wgrad takes a contiguous bf16 workspace of n (8 d + 2 m) = '
+                         f'{want} values, got {ws.dtype} {tuple(ws.shape)}')
+    if ws.device.type == 'cpu':
+        return encoder_wgrad_reference(ws, n, d, m)
+    if ws.device.type != 'cuda':
+        raise ValueError(f'encoder_wgrad: no kernel for device {ws.device}')
+    if ws.data_ptr() % 16:
+        raise ValueError('encoder_wgrad takes a 16-byte aligned workspace')
+    plan = plan or plan_wgrad(n, d, m)
+    if (plan.n, plan.d, plan.m) != (n, d, m):
+        raise ValueError(f'a plan for {(plan.n, plan.d, plan.m)} given for {(n, d, m)}')
+    w_total = 4 * d * d + 2 * d * m
+    f32 = dict(dtype=torch.float32, device=ws.device)
+    out = torch.empty(w_total, **f32)
+    wpart = torch.empty(plan.partials * w_total, **f32)
+    ints = plan.as_ints(torch.cuda.get_device_properties(ws.device).multi_processor_count)
+    lib = _build.library()
+    with torch.cuda.device(ws.device):
+        stream = torch.cuda.current_stream(ws.device).cuda_stream
+        code = lib.ib_encoder_wgrad(ws.data_ptr(), n, d, m, (ctypes.c_int * 4)(*ints),
+                                    wpart.data_ptr(), out.data_ptr(), stream)
+    _build.check(lib, code, 'encoder_wgrad launch')
+    wgrad_launches += plan.stage_launches
+    return tuple(out[off:off + rows * cols].view(rows, cols)
+                 for rows, cols, off in wgrad_products(d, m))
 
 
 def _split_grads(flat: torch.Tensor, d: int, m: int) -> Tuple[torch.Tensor, ...]:
@@ -1064,12 +1265,13 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
     flat = torch.empty(w_total + n_vec, **f32)
     if batch == 0:
         return dx, _split_grads(flat.zero_(), d, m)
-    grid = bwd_blocks(plan, batch,
-                      torch.cuda.get_device_properties(x.device).multi_processor_count)
-    splits = bwd_splits(n_rows)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = bwd_blocks(plan, batch, sms)
+    wplan = plan_wgrad(n_rows, d, m)
+    wints = (ctypes.c_int * 4)(*wplan.as_ints(sms))
     ws = torch.empty(n_rows * (8 * d + 2 * m), dtype=torch.bfloat16, device=x.device)
     vpart = torch.empty(grid * n_vec, **f32)
-    wpart = torch.empty(splits * w_total, **f32)
+    wpart = torch.empty(wplan.partials * w_total, **f32)
     lib = _build.library()
     clocks = None
     if bwd_phase_clocks is not None and plan.phases:
@@ -1088,14 +1290,14 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
                 packed.weights.data_ptr(), packed.weights_t.data_ptr(),
                 packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
                 ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
-                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, splits, clocks, stream)
+                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, wints, clocks, stream)
         elif plan.shape == 'pair':
             code = lib.ib_fused_encoder_backward_pair(
                 x.data_ptr(), g.data_ptr(), batch, t, d, m, num_heads,
                 packed.weights.data_ptr(), packed.weights_t.data_ptr(),
                 packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
                 ws.data_ptr(), vpart.data_ptr(), wpart.data_ptr(),
-                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, grid, splits, clocks,
+                (ctypes.c_int * len(ints))(*ints), plan.smem_bytes, grid, wints, clocks,
                 stream)
         else:
             scratch = torch.empty(grid * plan.rows * 3 * d, **f32)
@@ -1104,7 +1306,7 @@ def fused_encoder_layer_bwd(x: torch.Tensor, g: torch.Tensor,
                 packed.weights.data_ptr(), packed.weights_t.data_ptr(),
                 packed.rows.data_ptr(), dx.data_ptr(), flat.data_ptr(),
                 ws.data_ptr(), scratch.data_ptr(), vpart.data_ptr(),
-                wpart.data_ptr(), plan.row_tiles, grid, splits, stream)
+                wpart.data_ptr(), plan.row_tiles, grid, wints, stream)
     _build.check(lib, code, 'fused_encoder_layer_bwd launch')
     bwd_launches += plan.launches
     bwd_shape_launches[plan.shape] += 1

@@ -45,7 +45,9 @@ time by launch (tile kernel, weight-gradient kernel, reduce) of each shape,
 ``torch.autograd.grad`` through ``nn.TransformerEncoderLayer`` in bf16 and,
 with ``--baseline DIR``, the other checkout's backward, at B = 1 ... 4096;
 this is how ``fused_encoder.BWD_SMALL_BATCH_MAX`` and
-``BWD_PAIR_BATCH_MIN`` were chosen.
+``BWD_PAIR_BATCH_MIN`` were chosen. Then the weight-gradient stage alone
+(``fused_encoder.encoder_wgrad``) by launch at the same batches, beside four
+bf16 ``torch.mm`` on the same workspace and its bound.
 
 It needs a CUDA device and prints the card's name with the numbers.
 """
@@ -723,6 +725,56 @@ def encoder_bwd_times(tag, forced=True):
         print(json.dumps(row), flush=True)
 
 
+# the dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+WGRAD_KERNELS = ('encoder_wgrad_kernel', 'encoder_bwd_reduce_kernel')
+
+
+def wgrad_bound(n: int, d: int, m: int):
+    """The least time (us) the card could take for the weight-gradient
+    stage on ``n`` rows, and what sets it: the bf16 workspace read once (8 d
+    + 2 m values a row) and the f32 gradients written once, over the memory
+    rate, against 2 n (4 d^2 + 2 d m) operations over the bf16 tensor-core
+    peak."""
+    w_total = 4 * d * d + 2 * d * m
+    t_bytes = (n * (8 * d + 2 * m) * 2 + w_total * 4) / PEAK_BYTES * 1e6
+    t_ops = 2.0 * n * w_total / PEAK_BF16_FLOPS * 1e6
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def wgrad_library(ws: torch.Tensor, n: int, d: int, m: int):
+    """The stage's speed baseline, not its precision reference: four bf16
+    ``torch.mm(A.t(), G)`` on the workspace's views (cuBLAS)."""
+    widths = (d, 3 * d, d, d, d, m, m, d)
+    views = [v.view(n, w) for v, w in zip(ws.split([n * w for w in widths]), widths)]
+    pairs = list(zip(views[0::2], views[1::2]))
+    return lambda: [torch.mm(a.t(), g) for a, g in pairs]
+
+
+def encoder_wgrad_times(tag):
+    """JSON lines of K3's weight-gradient stage alone at the served width
+    (fused_encoder.encoder_wgrad on a random bf16 workspace of B T rows) at
+    every batch of :data:`BWD_BATCHES`: the profiler's device time a call by
+    launch (weight gradients, reduce) in the plan's schedule, beside four
+    bf16 ``torch.mm`` on the same views and the bound."""
+    gen = torch.Generator().manual_seed(1)
+    d, m = ENC['d'], ENC['m']
+    for batch in BWD_BATCHES:
+        n = batch * ENC['t']
+        ws = torch.randn(n * (8 * d + 2 * m), generator=gen).to(torch.bfloat16).cuda()
+        plan = fe.plan_wgrad(n, d, m)
+        run = lambda: fe.encoder_wgrad(ws, n, d, m)        # noqa: E731
+        by_launch, seen = device_us_by_name(run, WGRAD_KERNELS)
+        bound = wgrad_bound(n, d, m)
+        print(json.dumps({'stage': tag, 'batch': batch, 'n': n,
+                          'plan': plan.as_ints(torch.cuda.get_device_properties(0)
+                                               .multi_processor_count),
+                          'by_launch_us': by_launch, 'traced': seen,
+                          'library_us': device_us(wgrad_library(ws, n, d, m)),
+                          'bound_us': bound[0], 'bound_by': bound[1]}), flush=True)
+
+
 def _bwd_saved():
     """This tree's thresholds, to put back (None for a tree without the
     pair shape, whose single threshold is left alone)."""
@@ -807,6 +859,34 @@ def _check_bwd() -> float:
     return worst
 
 
+# (n, d, m) the weight-gradient stage alone is checked at: one ragged box,
+# ragged last boxes and ranges, the served width at B = 64, 512, 4096 and
+# 4099, the other widths K3 takes
+WGRAD_SHAPES = [(10, 256, 1024), (190, 256, 1024), (640, 256, 1024), (650, 256, 1024),
+                (5120, 256, 1024), (40960, 256, 1024), (40990, 256, 1024), (37, 128, 512),
+                (2800, 128, 256), (650, 384, 1536), (90, 512, 2048), (1, 128, 128)]
+
+
+def _check_wgrad() -> float:
+    """The weight-gradient stage alone against its plain version at
+    :data:`WGRAD_SHAPES` on random bf16 workspaces; the worst error relative
+    to a product's max|plain| (infinite if two calls differ)."""
+    worst = 0.0
+    for n, d, m in WGRAD_SHAPES:
+        gen = torch.Generator().manual_seed(n + d + m)
+        ws = torch.randn(n * (8 * d + 2 * m), generator=gen).to(torch.bfloat16).cuda()
+        ref = fe.encoder_wgrad_reference(ws, n, d, m)
+        one, two = fe.encoder_wgrad(ws, n, d, m), fe.encoder_wgrad(ws, n, d, m)
+        torch.cuda.synchronize()
+        rel = max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(one, ref))
+        repeat = all(torch.equal(a, b) for a, b in zip(one, two))
+        print(json.dumps({'stage': [n, d, m], 'plan': fe.plan_wgrad(n, d, m).as_ints(
+            torch.cuda.get_device_properties(0).multi_processor_count),
+            'worst_rel_err': rel, 'bitwise_repeat': repeat}), flush=True)
+        worst = max(worst, rel if repeat and rel == rel else float('inf'))
+    return worst
+
+
 def encoder_bwd_main(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.times_only:
@@ -822,7 +902,7 @@ def encoder_bwd_main(args) -> int:
                       'bwd_small_batch_max': fe.BWD_SMALL_BATCH_MAX,
                       'bwd_pair_batch_min': fe.BWD_PAIR_BATCH_MIN}), flush=True)
     if hasattr(fe, 'plan_encoder_bwd'):
-        worst = _check_bwd()
+        worst = max(_check_bwd(), _check_wgrad())
         _set_bwd_thresholds(saved)
         if worst > BWD_REL:
             print(f'FAILED: K3 beyond {BWD_REL} x max|plain| (or not repeatable): {worst}',
@@ -839,6 +919,7 @@ def encoder_bwd_main(args) -> int:
                 return 1
         else:
             encoder_bwd_times('this tree')
+            encoder_wgrad_times('this tree')
     gen = torch.Generator().manual_seed(0)
     layer = library_encoder_layer(_encoder_params(gen, ENC['d'], ENC['m']), ENC['d'],
                                   ENC['heads'], ENC['m'])

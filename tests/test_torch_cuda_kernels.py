@@ -232,6 +232,38 @@ def test_fused_encoder_layer_fn_trains_through_the_kernels(cuda):
 
 
 
+# The weight-gradient stage against its plain version: both sum the same
+# exact bf16 products in f32, in other orders (the kernel in k-steps of 16
+# rows a range, the ranges in order); f32 roundings of sums as large as a
+# product's largest value, a few a k-step, stay far below 1e-4 of it.
+WGRAD_REL = 1e-4
+
+
+@pytest.mark.parametrize('n,d,m,plan', [
+    (1, 128, 128, None), (10, 256, 1024, None), (190, 256, 1024, None),
+    (640, 256, 1024, None), (650, 256, 1024, None), (5120, 256, 1024, None),
+    (40960, 256, 1024, None), (40990, 256, 1024, None), (2800, 128, 256, None),
+    (650, 384, 1536, None), (5120, 512, 2048, None),
+    (5120, 256, 1024, (128, 3)), (5120, 256, 1024, (256, 80)),   # forced plans
+    (650, 384, 384, (256, 2)),
+])
+def test_encoder_wgrad_stage_matches_plain(cuda, n, d, m, plan):
+    """The stage alone on a random bf16 workspace: every product within
+    WGRAD_REL x its max|plain|, two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(n + d + m)
+    ws = torch.randn(n * (8 * d + 2 * m), generator=gen).to(torch.bfloat16).to(cuda)
+    plan = fe.plan_wgrad(n, d, m) if plan is None else fe.WgradPlan(n, d, m, *plan)
+    before = fe.wgrad_launches
+    one, two = fe.encoder_wgrad(ws, n, d, m, plan), fe.encoder_wgrad(ws, n, d, m, plan)
+    assert fe.wgrad_launches == before + 2 * plan.stage_launches
+    ref = fe.encoder_wgrad_reference(ws, n, d, m)
+    torch.cuda.synchronize()
+    for name, got, again, r in zip(('wqkv', 'wproj', 'wmlp1', 'wmlp2'), one, two, ref):
+        assert got.shape == r.shape and torch.isfinite(got).all(), name
+        assert torch.equal(got, again), f'{name}: two calls differ'
+        assert float((got - r).abs().max()) <= WGRAD_REL * float(r.abs().max()), name
+
+
 def _bwd_case(cuda, batch, t, d, heads, mlp_ratio=4):
     gen = torch.Generator().manual_seed(batch + t + d)
     packed = fe.pack_encoder_params(

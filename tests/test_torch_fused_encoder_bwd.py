@@ -308,8 +308,10 @@ def test_plan_bwd_tile_limits(t, d, m, heads, match):
 
 
 def test_row_splits_depend_on_the_shape_alone():
-    assert [fe.bwd_splits(n) for n in (10, 190, 511, 512, 1024, 40960, 10 ** 6)] == [
-        1, 1, 1, 1, 2, 8, 8]
+    """The weight-gradient stage's row ranges at the served widths
+    (fe.plan_wgrad; tests/test_torch_wgrad_plan.py holds the schedule)."""
+    assert [fe.plan_wgrad(n, 256, 1024).splits
+            for n in (10, 190, 511, 512, 1024, 40960, 10 ** 6)] == [1, 1, 2, 2, 2, 4, 4]
 
 
 # ---------------------------------------------------------------------------
